@@ -1,0 +1,686 @@
+"""GPU smoke run of the PyTorch/CUDA port (llmss_tpu_torch) on one card.
+
+    python3 chip_smoke.py
+
+Phases, each printing one JSON line; any failure raises and the script
+exits non-zero without printing a result:
+
+1. device  -- needs CUDA; prints the card's name and power limit;
+2. build   -- compiles every kernel of the path (one nvcc per source, in
+              parallel) from the sources in this checkout;
+3. kernels -- K1 (prefill flash attention) and K2 (stacked-cache decode)
+              against their plain PyTorch versions on the card, in bf16, at
+              the Llama-2-7B path shapes plus GQA / padding / ring-wrap /
+              window / empty-row cases, with kernel, plain, bound and
+              library (scaled_dot_product_attention, timed as a yardstick
+              only) times;
+4. reference -- a tiny fp32 llama generates the same greedy tokens through
+              the kernels on the card as through the plain path on the CPU;
+5. engine  -- Llama-2-7B width (hidden 4096, 32 layers, 32 heads, head_dim
+              128, intermediate 11008, vocab 32000), random weights from a
+              seed, bf16, max_seq_len 1024, batch 4: grouped decode
+              (chunk_steps=8, one sampled row) twice with identical tokens,
+              then greedy chunk_steps=1; the launch counters must rise by
+              n_layers per prefill (K1) and per decode step (K2);
+   profile -- one prefill and one 8-step decode chunk under torch.profiler:
+              device kernel time, idle share, top kernels;
+6. serve   -- the port's batch Worker over its in-process broker answers 4
+              requests (2 greedy, 1 top-k/top-p sampled, 1 streamed);
+7. cli     -- writes a 2-layer llama checkpoint at 1b2 width
+              (safetensors + config.json) and runs the port's CLI on it.
+
+Then one JSON line with every kernel's numbers, the nvidia-smi line, and
+last the result line {"ok": true, "device": {...}}.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import os
+import re
+import struct
+import subprocess
+import sys
+import tempfile
+import time
+
+import numpy as np
+import torch
+
+# The port itself; a copy of this script without the package fails here.
+import llmss_tpu_torch  # noqa: F401
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
+BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak
+FP32_FLOPS = 67e12  # H100 SXM fp32 outside the tensor cores
+# A kernel's output element may differ from its fp32 plain version's by
+# REL_TOL[dtype] times that row's softmax-weighted mean |v| (the plain
+# version run on |v|). In bf16 the kernels round P to bf16 before P.V,
+# an error of at most 2^-8 * sum(p |v|), and round the output, at most
+# 2^-8 * |out| <= 2^-8 * sum(p |v|): together 2^-7. In fp32 only the
+# summation order differs (about 1e-6 relative on the card).
+REL_TOL = {torch.bfloat16: 2.0**-7, torch.float32: 2.0**-16}
+
+LLAMA2_7B = dict(
+    model_type="llama", vocab_size=32000, hidden_size=4096, n_layers=32,
+    n_heads=32, n_kv_heads=32, head_dim=128, intermediate_size=11008,
+    max_position_embeddings=4096, activation="silu", norm="rmsnorm",
+    norm_eps=1e-5, mlp="swiglu", positions="rotary", rope_style="half",
+    rotary_dim=128, attn_bias=False, mlp_bias=False,
+    tie_word_embeddings=False, dtype="bfloat16",
+)
+
+
+def emit(obj: dict) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def _kernel_rows(prof):
+    """(device us, name, calls) of every CUDA kernel in a profile: the CPU
+    ops that launched them carry the same device time again and are left
+    out."""
+    from torch.autograd import DeviceType
+
+    return sorted(
+        ((e.self_device_time_total, e.key, e.count)
+         for e in prof.key_averages()
+         if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
+        reverse=True,
+    )
+
+
+def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Mean device time of one call: the summed duration of every kernel
+    it launches, from torch.profiler. Host launch gaps are excluded, so a
+    ~10 us kernel is not timed at the rate Python can launch it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(r[0] for r in _kernel_rows(prof)) / 1e3 / iters
+
+
+def bound(nbytes: float, flops: float, dtype) -> tuple[float, str]:
+    """The least time for the work: bytes over the memory rate or
+    operations over the peak rate for the dtype, whichever is larger."""
+    peak = FP32_FLOPS if dtype == torch.float32 else BF16_FLOPS
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / peak * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# -- phase 1 -------------------------------------------------------------------
+
+
+def phase_device() -> str:
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: chip_smoke.py runs on the GPU only")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    # fp32 comparisons on the card must not silently run in TF32.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    emit({"phase": "device", "nvidia_smi": smi,
+          "torch": torch.__version__, "cuda": torch.version.cuda,
+          "kind": torch.cuda.get_device_name(0),
+          "count": torch.cuda.device_count()})
+    return smi
+
+
+# -- phase 2 -------------------------------------------------------------------
+
+
+def phase_build() -> None:
+    from llmss_tpu_torch.ops import _build
+
+    secs, out = _build.build_all(verbose=True)
+    text = "\n".join(out.values())
+    regs = [int(n) for n in re.findall(r"Used (\d+) registers", text)]
+    spills = [int(n) for n in re.findall(r"(\d+) bytes spill stores", text)]
+    emit({"phase": "build", "seconds": round(secs, 3),
+          "sources": sorted(out), "max_registers": max(regs, default=None),
+          "kernels_with_spills": sum(1 for n in spills if n > 0)})
+
+
+# -- phase 3 -------------------------------------------------------------------
+
+
+def _ring_positions(B, T, hist):
+    """kv positions [B, T] of rows whose histories are positions
+    0..hist[b]-1 written at slot p % T (wrapping rows keep the latest)."""
+    kvp = np.full((B, T), -1, np.int32)
+    for b, n in enumerate(hist):
+        for p in range(n):
+            kvp[b, p % T] = p
+    return kvp
+
+
+def _k1_case(name, B, S, T, Hq, Hkv, *, lens=None, q0=0, window=None, seed=0,
+             D=128, dt=torch.bfloat16):
+    """Prefill attention after the layer's KV was written: queries at
+    positions q0 .. q0+S-1, keys everything written so far (ring order,
+    -1 for empty slots and right-padded prompt columns)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    dev = "cuda"
+    q = torch.randn(B, S, Hq, D, generator=g, device=dev, dtype=dt)
+    k = torch.randn(B, T, Hkv, D, generator=g, device=dev, dtype=dt)
+    v = torch.randn(B, T, Hkv, D, generator=g, device=dev, dtype=dt)
+    lens = lens or [S] * B
+    qp = np.broadcast_to(np.arange(q0, q0 + S, dtype=np.int32), (B, S)).copy()
+    kvp = _ring_positions(B, T, [q0 + S] * B)
+    for b, n in enumerate(lens):  # right padding: written with position -1
+        for p in range(q0 + n, q0 + S):
+            kvp[b, p % T] = -1
+    return dict(name=name, q=q, k=k, v=v, qp=torch.tensor(qp, device=dev),
+                kvp=torch.tensor(kvp, device=dev), window=window)
+
+
+def _k2_case(name, B, T, Hq, Hkv, hist, t_len, *, window=None, seed=0, L=2,
+             D=128, dt=torch.bfloat16):
+    """Single-token decode of layer L-1 for rows whose histories are
+    positions 0..hist[b]-1. The pending slot (hist[b] % T, about to be
+    overwritten) gets a key 4x the group's first query head and values of
+    8: a kernel that failed to exclude it would put nearly all of that
+    head's weight there and miss by ~8. On a wrapped row that slot still
+    holds a visible old position, so only the slot exclusion drops it."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    dev = "cuda"
+    kc = torch.randn(L, B, T, Hkv, D, generator=g, device=dev, dtype=dt)
+    vc = torch.randn(L, B, T, Hkv, D, generator=g, device=dev, dtype=dt)
+    q = torch.randn(B, 1, Hq, D, generator=g, device=dev, dtype=dt)
+    kn = torch.randn(B, 1, Hkv, D, generator=g, device=dev, dtype=dt)
+    vn = torch.randn(B, 1, Hkv, D, generator=g, device=dev, dtype=dt)
+    kvp = _ring_positions(B, T, hist)
+    qpos = np.asarray(hist, np.int32)[:, None]
+    slots = qpos % T
+    G = Hq // Hkv
+    for b in range(B):
+        kc[L - 1, b, slots[b, 0]] = 4 * q[b, 0, ::G]
+        vc[L - 1, b, slots[b, 0]] = 8
+    return dict(name=name, q=q, kc=kc, vc=vc, kn=kn, vn=vn,
+                qpos=torch.tensor(qpos, device=dev),
+                kvp=torch.tensor(kvp, device=dev),
+                slots=torch.tensor(slots, device=dev), layer=L - 1,
+                t_len=t_len, window=window)
+
+
+def _sdpa(q, k, v, mask):
+    """One scaled_dot_product_attention call on [B, H, S, D] views."""
+    import torch.nn.functional as F
+
+    gqa = q.shape[2] != k.shape[2]
+    return F.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        attn_mask=mask, enable_gqa=gqa,
+    )
+
+
+def _agree(kernel, case, got, ref, ref_abs, dtype) -> tuple[float, float]:
+    """(max |got - ref|, its worst ratio to the element's tolerance,
+    REL_TOL[dtype] * ref_abs); raises if any element is past it."""
+    err = (got - ref).abs()
+    ratio = (err / (REL_TOL[dtype] * ref_abs + 1e-6)).max().item()
+    if not ratio <= 1.0:
+        raise AssertionError(
+            f"{kernel} {case}: max_abs_err {err.max().item()} is "
+            f"{ratio:.3g}x its tolerance")
+    return err.max().item(), ratio
+
+
+def check_kernels() -> dict:
+    """K1 / K2 against their plain (fp32) versions, within REL_TOL. The
+    first case of each list is the shape the engine phase gives the kernel
+    (prompts of 128/100/77/128 tokens padded to 128, decode in the 192-slot
+    bucket); its numbers go into the final kernels line."""
+    from llmss_tpu_torch.ops import attention as att
+    from llmss_tpu_torch.ops import decode_attention as da
+    from llmss_tpu_torch.ops import flash_attention as fa
+
+    engine_lens = [128, 100, 77, 128]
+    out = {}
+    k1_cases = [
+        _k1_case("k1_engine_prefill", 4, 128, 1024, 32, 32, lens=engine_lens),
+        _k1_case("k1_7b_padded", 4, 512, 1024, 32, 32,
+                 lens=[512, 400, 301, 512]),
+        _k1_case("k1_gqa", 4, 512, 1024, 32, 8, lens=[512, 256, 511, 77],
+                 seed=1),
+        _k1_case("k1_wrap_window", 2, 256, 512, 32, 8, q0=512, window=300,
+                 seed=2),
+        # GPT-J's head_dim in fp32: the largest shared-memory instantiation.
+        _k1_case("k1_d256_fp32", 2, 100, 160, 8, 8, lens=[100, 61], seed=4,
+                 D=256, dt=torch.float32),
+    ]
+    worst = 0.0
+    for c in k1_cases:
+        args = (c["q"], c["k"], c["v"], c["qp"], c["kvp"])
+        kw = dict(window=c["window"])
+        got = fa.flash_attention(*args, **kw).float()
+        q32, k32, v32 = c["q"].float(), c["k"].float(), c["v"].float()
+        ref = fa.flash_attention_ref(q32, k32, v32, c["qp"], c["kvp"], **kw)
+        ref_abs = fa.flash_attention_ref(q32, k32, v32.abs(), c["qp"],
+                                         c["kvp"], **kw)
+        err, ratio = _agree("K1", c["name"], got, ref, ref_abs, c["q"].dtype)
+        worst = max(worst, err)
+        # Bound: each input read once, the output written once, counting
+        # only the live KV slots and the visible query-key pairs.
+        B, S, Hq, D = c["q"].shape
+        Hkv = c["k"].shape[2]
+        mask = att.make_causal_mask(c["qp"], c["kvp"], c["kvp"] >= 0,
+                                    c["window"])
+        pairs = int(mask.sum().item())
+        live_slots = int((c["kvp"] >= 0).sum().item())
+        es = c["q"].element_size()
+        nbytes = (2 * c["q"].numel() * es + 2 * live_slots * Hkv * D * es
+                  + c["qp"].numel() * 4 + c["kvp"].numel() * 4)
+        b_ms, b_by = bound(nbytes, 4.0 * pairs * Hq * D, c["q"].dtype)
+        row = {"phase": "kernel", "kernel": "K1", "case": c["name"],
+               "max_abs_err": err, "rel_tol": REL_TOL[c["q"].dtype],
+               "err_over_tol": ratio,
+               "ms": device_ms(lambda: fa.flash_attention(*args, **kw)),
+               "plain_ms": device_ms(
+                   lambda: fa.flash_attention_ref(*args, **kw), iters=5),
+               "library_ms": device_ms(
+                   lambda: _sdpa(c["q"], c["k"], c["v"], mask[:, None])),
+               "bound_ms": b_ms, "bound_by": b_by}
+        out.setdefault("K1", row)
+        emit(row)
+    out["K1"]["max_abs_err"] = worst
+
+    k2_cases = [
+        # The engine phase's batch 40 steps into decode, in its bucket.
+        _k2_case("k2_engine_decode", 4, 1024, 32, 32,
+                 [n + 40 for n in engine_lens], 192, seed=5),
+        # t_len < T: a live row, a half-full row, an empty row, a row at
+        # the bucket's edge.
+        _k2_case("k2_7b_tlen", 4, 1024, 32, 32, [600, 300, 0, 639], 640),
+        # t_len = T: wrapped rows (the pending slot holds the token being
+        # overwritten and must be excluded).
+        _k2_case("k2_7b_full_wrap", 4, 1024, 32, 32, [1000, 1500, 0, 2047],
+                 1024, seed=1),
+        _k2_case("k2_gqa", 4, 1024, 32, 8, [1023, 1300, 5, 0], 1024, seed=2),
+        _k2_case("k2_window", 2, 1024, 32, 8, [900, 1800], 1024,
+                 window=256, seed=3),
+        _k2_case("k2_d256_fp32", 3, 256, 8, 4, [300, 1000, 0], 256, seed=4,
+                 D=256, dt=torch.float32),
+    ]
+    worst = 0.0
+    for c in k2_cases:
+        args = (c["q"], c["kc"], c["vc"], c["kn"], c["vn"], c["qpos"],
+                c["kvp"], c["slots"], c["layer"])
+        kw = dict(t_len=c["t_len"], window=c["window"])
+        got = da.decode_attention(*args, **kw).float()
+        q32, kc32, vc32, kn32, vn32 = (
+            a.float() for a in (c["q"], c["kc"], c["vc"], c["kn"], c["vn"]))
+        pos = (c["qpos"], c["kvp"], c["slots"], c["layer"])
+        ref = da.decode_attention_ref(q32, kc32, vc32, kn32, vn32, *pos, **kw)
+        ref_abs = da.decode_attention_ref(q32, kc32, vc32.abs(), kn32,
+                                          vn32.abs(), *pos, **kw)
+        err, ratio = _agree("K2", c["name"], got, ref, ref_abs, c["q"].dtype)
+        worst = max(worst, err)
+        # An empty row attends only its own fresh token: exactly v_new.
+        G = c["q"].shape[2] // c["kn"].shape[2]
+        for b in range(c["q"].shape[0]):
+            if int(c["qpos"][b, 0]) == 0 and not torch.equal(
+                    got[b, 0], vn32[b, 0].repeat_interleave(G, 0)):
+                raise AssertionError(f"K2 {c['name']}: empty row {b} != v_new")
+        # Bound: only the visible cache slots' K/V are needed, plus q, the
+        # fresh K/V, the positions and the output.
+        B, _, Hq, D = c["q"].shape
+        Hkv = c["kc"].shape[3]
+        t = c["t_len"]
+        pen = att.decode_mask_penalty(c["qpos"], c["kvp"][:, :t],
+                                      c["slots"], c["window"])
+        visible = int((pen == 0).sum().item())
+        es = c["q"].element_size()
+        nbytes = (2 * visible * Hkv * D * es + 2 * c["q"].numel() * es
+                  + 2 * c["kn"].numel() * es + B * t * 4 + 2 * B * 4)
+        b_ms, b_by = bound(nbytes, 4.0 * (visible + B) * Hq * D, c["q"].dtype)
+        kl = c["kc"][c["layer"], :, :t]
+        vl = c["vc"][c["layer"], :, :t]
+        mask = (pen == 0)[:, None, None, :]
+        row = {"phase": "kernel", "kernel": "K2", "case": c["name"],
+               "max_abs_err": err, "rel_tol": REL_TOL[c["q"].dtype],
+               "err_over_tol": ratio,
+               "ms": device_ms(lambda: da.decode_attention(*args, **kw), iters=50),
+               "plain_ms": device_ms(lambda: da.decode_attention_ref(*args, **kw)),
+               "library_ms": device_ms(
+                   lambda: _sdpa(c["q"], kl, vl, mask), iters=50),
+               "bound_ms": b_ms, "bound_by": b_by}
+        out.setdefault("K2", row)
+        emit(row)
+    out["K2"]["max_abs_err"] = worst
+    return out
+
+
+# -- phase 4 -------------------------------------------------------------------
+
+
+def phase_reference() -> None:
+    """Tokens through the kernels on the card == tokens through the plain
+    path on the CPU, for a tiny fp32 llama (TF32 is off)."""
+    from llmss_tpu_torch.engine.engine import DecodeEngine, GenerationParams
+    from llmss_tpu_torch.models.common import DecoderConfig
+    from llmss_tpu_torch.models.decoder import init_params
+
+    cfg = DecoderConfig(**{
+        **LLAMA2_7B, "vocab_size": 512, "hidden_size": 256, "n_layers": 2,
+        "n_heads": 4, "n_kv_heads": 2, "head_dim": 64, "rotary_dim": 64,
+        "intermediate_size": 512, "dtype": "float32",
+    })
+    cpu_params = init_params(cfg, seed=3, device="cpu")
+
+    def to(p, dev):
+        if isinstance(p, dict):
+            return {k: to(v, dev) for k, v in p.items()}
+        if isinstance(p, tuple):
+            return type(p)(*(to(x, dev) for x in p))
+        return None if p is None else p.to(dev)
+
+    prompts = [[int(t) for t in np.random.default_rng(s).integers(1, 512, n)]
+               for s, n in ((0, 20), (1, 7), (2, 33))]
+    gen = GenerationParams(max_new_tokens=16)
+    want = DecodeEngine(cfg, cpu_params, device="cpu", max_seq_len=64).generate(
+        prompts, gen, chunk_steps=4)
+    got = DecodeEngine(cfg, to(cpu_params, "cuda"), max_seq_len=64).generate(
+        prompts, gen, chunk_steps=4)
+    emit({"phase": "reference", "identical": got == want, "tokens": got})
+    if got != want:
+        raise AssertionError(f"GPU tokens {got} != CPU plain-path tokens {want}")
+
+
+# -- phase 5 -------------------------------------------------------------------
+
+
+def phase_engine(kernels: dict):
+    from llmss_tpu_torch.engine.engine import DecodeEngine, GenerationParams
+    from llmss_tpu_torch.engine.metrics import EngineMetrics
+    from llmss_tpu_torch.models.common import DecoderConfig
+    from llmss_tpu_torch.models.decoder import init_params
+    from llmss_tpu_torch.ops import decode_attention as da
+    from llmss_tpu_torch.ops import flash_attention as fa
+
+    cfg = DecoderConfig(**LLAMA2_7B)
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    B, new = 4, 64
+    eng = DecodeEngine(cfg, params, batch_size=B, max_seq_len=1024)
+    rng = np.random.default_rng(0)
+    prompts = [[int(t) for t in rng.integers(1, cfg.vocab_size, n)]
+               for n in (128, 100, 77, 128)]
+    L = cfg.n_layers
+
+    # Logits of the main path are finite and of the expected shape.
+    cache = eng.new_cache(B)
+    ids, lens = eng._pad_prompts(prompts)
+    sa = eng._sample_args(GenerationParams(), B)
+    tok, logits = eng._prefill(torch.as_tensor(ids, device="cuda"), cache,
+                               torch.as_tensor(lens, device="cuda"), sa)
+    tok2, logits2 = eng._decode(tok, cache, torch.as_tensor(lens, device="cuda"), sa)
+    for lg in (logits, logits2):
+        if tuple(lg.shape) != (B, cfg.vocab_size) or not torch.isfinite(lg).all():
+            raise AssertionError("non-finite or misshapen logits")
+    del cache
+
+    def gens():
+        sampled = GenerationParams(max_new_tokens=new, is_greedy=False,
+                                   temperature=0.8, top_k=40, top_p=0.9,
+                                   seed=1234)
+        return [GenerationParams(max_new_tokens=new)] * 3 + [sampled]
+
+    def run(gen, chunk):
+        fa.flash_attention.launches = 0
+        da.decode_attention.launches = 0
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = eng.generate(prompts, gen, chunk_steps=chunk)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        k1, k2 = fa.flash_attention.launches, da.decode_attention.launches
+        steps = (math.ceil((new - 1) / chunk) * chunk) if chunk > 1 else new - 1
+        if k1 != L or k2 != L * steps:
+            raise AssertionError(
+                f"launch counts K1={k1} (want {L}), K2={k2} (want {L * steps})")
+        for row in out:
+            if len(row) != new or not all(0 <= x < cfg.vocab_size for x in row):
+                raise AssertionError("tokens outside the vocab or wrong length")
+        return out, wall, k1, k2
+
+    a, _, k1_main, k2_main = run(gens(), 8)
+    ttft_first_ms = eng.metrics.ttft.last_s * 1e3  # includes lazy kernel loads
+    eng.metrics = EngineMetrics()  # steady-state numbers from the repeat
+    b, wall_b, _, _ = run(gens(), 8)
+    if a != b:
+        raise AssertionError("same seed, different tokens")
+    ttft_ms = eng.metrics.ttft.last_s * 1e3
+    step_ms = eng.metrics.decode_step.to_dict()["mean_ms"]
+    c, wall_c, _, _ = run(GenerationParams(max_new_tokens=new), 1)
+    if c[:3] != a[:3]:
+        raise AssertionError("greedy rows differ between chunk_steps 8 and 1")
+    kernels["K1"]["launches"] = k1_main
+    kernels["K2"]["launches"] = k2_main
+    emit({"phase": "engine", "model": "llama-2-7b dims, random init (seed 0)",
+          "dtype": "bfloat16", "batch": B, "prompt_lens": [len(p) for p in prompts],
+          "new_tokens": new, "init_s": round(init_s, 3),
+          "ttft_ms_first_call": ttft_first_ms, "ttft_ms": ttft_ms,
+          "decode_ms_per_step_chunk8": step_ms,
+          "tokens_per_s_chunk8_one_sampled_row": B * new / wall_b,
+          "tokens_per_s_chunk1_greedy": B * new / wall_c,
+          "k1_launches_per_prefill": k1_main,
+          "k2_launches_chunk8": k2_main, "deterministic": True,
+          "sampled_row_head": a[3][:8]})
+    return eng
+
+
+def phase_profile(eng) -> None:
+    """Where the time goes: one prefill and one 8-step decode chunk of the
+    engine phase's batch. Wall time is taken without the profiler; summed
+    kernel time and the top kernels come from a second, profiled run; the
+    idle share is 1 - kernel time / wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from llmss_tpu_torch.engine.engine import GenerationParams
+
+    B = 4
+    rng = np.random.default_rng(0)
+    prompts = [[int(t) for t in rng.integers(1, 32000, n)]
+               for n in (128, 100, 77, 128)]
+    ids, lens = eng._pad_prompts(prompts)
+    sa = eng._sample_args(GenerationParams(), B)
+    ids_d = torch.as_tensor(ids, device="cuda")
+    lens_d = torch.as_tensor(lens, device="cuda")
+    done = torch.zeros(B, dtype=torch.bool, device="cuda")
+    eos = torch.full((B,), -1, dtype=torch.int32, device="cuda")
+
+    def prefill():
+        cache = eng.new_cache(B)
+        tok, _ = eng._prefill(ids_d, cache, lens_d, sa)
+        return tok, cache
+
+    def chunk(tok, cache):
+        return eng._decode_group(tok, cache, lens_d, sa, done, eos, n_steps=8,
+                                 t_bucket=eng.decode_bucket(int(lens.max()) + 8))
+
+    tok, cache = prefill()  # warm
+    chunk(tok, cache)
+    torch.cuda.synchronize()
+    for name, fn in (("prefill", prefill), ("decode_chunk8", lambda: chunk(tok, cache))):
+        # Wall time without the profiler (it slows the host loop down).
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        rows = _kernel_rows(prof)
+        kernel_ms = sum(r[0] for r in rows) / 1e3
+        emit({"phase": "profile", "what": name, "wall_ms": wall_ms,
+              "device_kernel_ms": kernel_ms,
+              "device_idle_share": max(0.0, 1 - kernel_ms / wall_ms),
+              "top": [{"kernel": k[:80], "ms": us / 1e3, "calls": n}
+                      for us, k, n in rows[:8]]})
+
+
+# -- phase 6 -------------------------------------------------------------------
+
+
+def phase_serve(eng) -> None:
+    from llmss_tpu_torch.ops import decode_attention as da
+    from llmss_tpu_torch.ops import flash_attention as fa
+    from llmss_tpu_torch.serve.broker import InProcBroker
+    from llmss_tpu_torch.serve.consumer import Worker
+    from llmss_tpu_torch.serve.protocol import GenerateRequest
+
+    broker = InProcBroker()
+    worker = Worker(eng, broker, batch_size=4, chunk_steps=8)
+    rng = np.random.default_rng(7)
+
+    def ids(n):
+        return [int(t) for t in rng.integers(1, 32000, n)]
+
+    reqs = [
+        GenerateRequest(token_ids=ids(40), max_new_tokens=16),
+        GenerateRequest(token_ids=ids(90), max_new_tokens=24),
+        GenerateRequest(token_ids=ids(64), max_new_tokens=20, is_greedy=False,
+                        temperature=0.7, top_k=50, top_p=0.95, seed=9),
+        GenerateRequest(token_ids=ids(17), max_new_tokens=12, stream=True),
+    ]
+    for r in reqs:
+        broker.push_request(r)
+    fa.flash_attention.launches = 0
+    da.decode_attention.launches = 0
+    t = time.perf_counter()
+    taken = worker.run_once()
+    wall = time.perf_counter() - t
+    answers = [broker.wait_response(r.id, timeout=60) for r in reqs]
+    for r, a in zip(reqs, answers):
+        if a is None or a.error or len(a.token_ids or []) != r.max_new_tokens:
+            raise AssertionError(f"request {r.id}: bad answer {a}")
+    streamed = []
+    while (inc := broker.pop_stream(reqs[3].id)) is not None:
+        streamed += inc
+    if streamed != answers[3].token_ids:
+        raise AssertionError("stream increments != final answer")
+    emit({"phase": "serve", "taken": taken, "answered": len(answers),
+          "wall_s": wall, "k1_launches": fa.flash_attention.launches,
+          "k2_launches": da.decode_attention.launches,
+          "stream_increments_ok": True})
+
+
+# -- phase 7 -------------------------------------------------------------------
+
+
+def write_safetensors(path: str, tensors: dict[str, torch.Tensor]) -> None:
+    """Minimal safetensors writer: 8-byte header length, JSON header, raw
+    little-endian bytes (bf16 / f16 / f32)."""
+    codes = {torch.bfloat16: "BF16", torch.float16: "F16", torch.float32: "F32"}
+    header, blobs, off = {}, [], 0
+    for name, t in tensors.items():
+        t = t.detach().contiguous().cpu()
+        raw = t.view(torch.uint8).numpy().tobytes() if t.dtype != torch.float32 \
+            else t.numpy().tobytes()
+        header[name] = {"dtype": codes[t.dtype], "shape": list(t.shape),
+                        "data_offsets": [off, off + len(raw)]}
+        blobs.append(raw)
+        off += len(raw)
+    hb = json.dumps(header).encode()
+    hb += b" " * (-len(hb) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(hb)))
+        f.write(hb)
+        for raw in blobs:
+            f.write(raw)
+
+
+def phase_cli() -> None:
+    from llmss_tpu_torch.cli.generate import main as cli_main
+
+    E, L, H, I, V = 2048, 2, 16, 5504, 32000
+    g = torch.Generator(device="cuda").manual_seed(5)
+
+    def w(*shape):
+        return torch.randn(shape, generator=g, device="cuda",
+                           dtype=torch.bfloat16) * 0.02
+
+    tensors = {"model.embed_tokens.weight": w(V, E),
+               "model.norm.weight": torch.ones(E, dtype=torch.bfloat16),
+               "lm_head.weight": w(V, E)}
+    for i in range(L):
+        p = f"model.layers.{i}"
+        tensors.update({
+            f"{p}.input_layernorm.weight": torch.ones(E, dtype=torch.bfloat16),
+            f"{p}.post_attention_layernorm.weight": torch.ones(E, dtype=torch.bfloat16),
+            f"{p}.self_attn.q_proj.weight": w(E, E),
+            f"{p}.self_attn.k_proj.weight": w(E, E),
+            f"{p}.self_attn.v_proj.weight": w(E, E),
+            f"{p}.self_attn.o_proj.weight": w(E, E),
+            f"{p}.mlp.gate_proj.weight": w(I, E),
+            f"{p}.mlp.up_proj.weight": w(I, E),
+            f"{p}.mlp.down_proj.weight": w(E, I),
+        })
+    config = {"model_type": "llama", "vocab_size": V, "hidden_size": E,
+              "num_hidden_layers": L, "num_attention_heads": H,
+              "num_key_value_heads": H, "intermediate_size": I,
+              "max_position_embeddings": 4096, "hidden_act": "silu",
+              "rms_norm_eps": 1e-5, "tie_word_embeddings": False}
+    with tempfile.TemporaryDirectory() as d:
+        write_safetensors(os.path.join(d, "model.safetensors"), tensors)
+        with open(os.path.join(d, "config.json"), "w") as f:
+            json.dump(config, f)
+        del tensors
+        out = cli_main(["--pretrained_model_path", d,
+                        "--token_ids", "1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17",
+                        "5,9,23", "--max_new_tokens", "8", "--is_greedy"])
+    if [len(o) for o in out] != [8, 8] or not all(
+            0 <= t < V for o in out for t in o):
+        raise AssertionError(f"CLI returned {out}")
+    emit({"phase": "cli", "rows": len(out), "tokens": out})
+
+
+def main() -> int:
+    smi = phase_device()
+    phase_build()
+    kernels = check_kernels()
+    phase_reference()
+    eng = phase_engine(kernels)
+    phase_profile(eng)
+    phase_serve(eng)
+    del eng
+    torch.cuda.empty_cache()
+    phase_cli()
+    rows = []
+    for name, src, replaces in (
+        ("K1", "llmss_tpu_torch/csrc/flash_attention.cu",
+         "llmss_tpu/ops/pallas_attention.py:136"),
+        ("K2", "llmss_tpu_torch/csrc/decode_attention.cu",
+         "llmss_tpu/ops/pallas_decode.py:181"),
+    ):
+        k = kernels[name]
+        rows.append({
+            "name": {"K1": "flash_attention", "K2": "decode_attention"}[name],
+            "route": "cuda", "source": src, "replaces": replaces,
+            "launches": k["launches"], "max_abs_err": k["max_abs_err"],
+            "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+            "bound_by": k["bound_by"], "library_ms": k["library_ms"],
+        })
+    emit({"kernels": rows})
+    print(smi, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

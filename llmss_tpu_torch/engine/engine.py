@@ -1,0 +1,392 @@
+"""DecodeEngine: prefill, decode steps and the generation loop
+(counterpart: llmss_tpu/engine/engine.py).
+
+The reference jits its programs and donates the cache; the port runs the
+same steps eagerly on the GPU and updates the cache in place
+(engine/cache.py). The grouped decode keeps the reference's contract:
+``chunk_steps`` steps run back to back on the device with EOS and NaN
+poison folded into device-side state (done rows stop writing KV: their
+slot is set past the ring and the write is dropped), and the host reads
+the chunk's tokens and poison flags in ONE packed transfer.
+
+Not in this port yet: prefix reuse (``build_prefix``), ``generate_fused``,
+speculative decoding, ``prewarm`` and the paged and ragged programs.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+
+import numpy as np
+import torch
+
+from llmss_tpu_torch.device import resolve_device
+from llmss_tpu_torch.engine.cache import KVCache, init_cache
+from llmss_tpu_torch.engine.metrics import EngineMetrics
+from llmss_tpu_torch.models.common import DecoderConfig
+from llmss_tpu_torch.models.decoder import Params, forward, unstack_layers
+from llmss_tpu_torch.ops.sampling import fold_step_outcome, sample
+
+
+@dataclasses.dataclass
+class GenerationParams:
+    """Per-call generation controls."""
+
+    max_new_tokens: int = 20
+    is_greedy: bool = True
+    temperature: float = 1.0
+    top_k: int = 0
+    top_p: float = 1.0
+    eos_token_id: int | None = None
+    seed: int = 0
+
+    def validate(self) -> None:
+        if not self.is_greedy:
+            if not self.temperature > 0.0:
+                raise ValueError("temperature must be > 0")
+            if not self.top_k >= 0:
+                raise ValueError("top_k must be >= 0")
+            if not 0.0 < self.top_p <= 1.0:
+                raise ValueError("top_p must be in (0, 1]")
+        if not self.max_new_tokens > 0:
+            raise ValueError("max_new_tokens must be > 0")
+
+
+def _bucket(n: int, cap: int) -> int:
+    b = 16
+    while b < n:
+        b *= 2
+    return min(b, cap)
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+class DecodeEngine:
+    """Drives one model on one device with a fixed (batch, max_seq) envelope.
+
+    ``device=None`` means the GPU; without one this raises (pass
+    ``device="cpu"`` for the plain PyTorch path)."""
+
+    def __init__(
+        self,
+        cfg: DecoderConfig,
+        params: Params,
+        *,
+        device=None,
+        batch_size: int = 1,
+        max_seq_len: int | None = None,
+    ):
+        self.device = resolve_device(device)
+        self.batch_size = batch_size
+        self.max_seq_len = max_seq_len or cfg.max_position_embeddings
+        if (
+            cfg.rope_original_max_positions is not None
+            and cfg.rope_freq_factors_short is not None
+        ):
+            # LongRoPE: the rotary basis follows the context this engine
+            # serves, as in the reference engine.
+            chosen = (
+                cfg.rope_freq_factors_long
+                if self.max_seq_len > cfg.rope_original_max_positions
+                else cfg.rope_freq_factors_short
+            )
+            cfg = dataclasses.replace(cfg, rope_freq_factors=chosen)
+        self.cfg = cfg
+        self.params = params
+        self._layers = unstack_layers(params)
+        self.metrics = EngineMetrics()
+        self._ladder = self.bucket_ladder()
+
+    # -- envelope -------------------------------------------------------------
+
+    def seq_buckets(self) -> list[int]:
+        """Every prompt bucket ``_pad_prompts`` can produce."""
+        out, b = [], 16
+        while b < self.max_seq_len:
+            out.append(b)
+            b *= 2
+        out.append(self.max_seq_len)
+        return out
+
+    def bucket_ladder(self) -> list[int]:
+        """Cache-read buckets for decode: multiples of
+        ``max(32, max_seq_len/16)`` below max_seq_len."""
+        g = max(32, -(-self.max_seq_len // (16 * 32)) * 32)
+        return list(range(g, self.max_seq_len, g))
+
+    def decode_bucket(self, pos_bound: int) -> int | None:
+        """The cache-read bucket for a decode call whose rows' positions
+        are all < ``pos_bound``; None (full ring) when no ladder entry
+        covers it or a row may have wrapped."""
+        if not self._ladder or pos_bound > self.max_seq_len:
+            return None
+        for b in self._ladder:
+            if b >= pos_bound:
+                return b
+        return None
+
+    def check_capacity(self, n_prompt_tokens: int, max_new_tokens: int):
+        """Reject a request that would wrap the ring mid-generation."""
+        if n_prompt_tokens + max_new_tokens > self.max_seq_len:
+            raise ValueError(
+                f"prompt ({n_prompt_tokens} tokens) + max_new_tokens "
+                f"({max_new_tokens}) exceeds the engine's max_seq_len "
+                f"({self.max_seq_len})"
+            )
+
+    def new_cache(self, batch: int | None = None) -> KVCache:
+        return init_cache(
+            n_layers=self.cfg.n_layers, batch=batch or self.batch_size,
+            max_len=self.max_seq_len, n_kv_heads=self.cfg.n_kv_heads,
+            head_dim=self.cfg.head_dim, dtype=self.cfg.torch_dtype,
+            device=self.device,
+        )
+
+    def _sample_args(self, gens: "GenerationParams | list[GenerationParams]",
+                     batch: int) -> dict:
+        """Per-row sampling tensors on the device plus the two batch-level
+        branch flags, known here on the host (ops/sampling.sample)."""
+        if isinstance(gens, GenerationParams):
+            gens = [gens] * batch
+        dev = self.device
+        return dict(
+            seeds=torch.tensor([g.seed for g in gens], dtype=torch.int32,
+                               device=dev),
+            temperature=torch.tensor([g.temperature for g in gens],
+                                     dtype=torch.float32, device=dev),
+            top_k=torch.tensor([g.top_k for g in gens], dtype=torch.int32,
+                               device=dev),
+            top_p=torch.tensor([g.top_p for g in gens], dtype=torch.float32,
+                               device=dev),
+            greedy=torch.tensor([g.is_greedy for g in gens], device=dev),
+            any_sampled=any(not g.is_greedy for g in gens),
+            needs_filter=any(
+                not g.is_greedy and (g.top_k > 0 or g.top_p < 1.0)
+                for g in gens
+            ),
+        )
+
+    def _pad_prompts(
+        self, prompts: list[list[int]], pad_id: int = 0
+    ) -> tuple[np.ndarray, np.ndarray]:
+        lens = np.array([len(p) for p in prompts], np.int32)
+        if lens.max() > self.max_seq_len:
+            raise ValueError(
+                f"prompt length {lens.max()} exceeds max_seq_len "
+                f"{self.max_seq_len}"
+            )
+        S = _bucket(int(lens.max()), self.max_seq_len)
+        ids = np.full((len(prompts), S), pad_id, np.int32)
+        for i, p in enumerate(prompts):
+            ids[i, : len(p)] = p
+        return ids, lens
+
+    # -- device steps -----------------------------------------------------------
+
+    @torch.inference_mode()
+    def _prefill(self, ids, cache, prompt_lens, sample_args):
+        """Prefill right-padded prompts from position 0; pad columns are
+        recorded with position -1 so no later step attends them. Returns
+        (first token [B], its logits [B, V])."""
+        B, S = ids.shape
+        rel = torch.arange(S, dtype=torch.int32, device=ids.device)
+        positions = rel[None, :].expand(B, S)
+        valid = positions < prompt_lens[:, None]
+        slots = positions % cache.max_len
+        kv_pos = torch.where(valid, positions, -1)
+        logits, _ = forward(
+            self.cfg, self.params, ids, positions, cache, slots,
+            gather_idx=prompt_lens - 1, kv_write_positions=kv_pos,
+            layers=self._layers,
+        )
+        # The sampled token sits at absolute position prompt_len: that
+        # position is the row's draw counter.
+        tok = sample(logits[:, 0], counters=prompt_lens, **sample_args)
+        return tok, logits[:, 0]
+
+    @torch.inference_mode()
+    def _decode(self, tokens, cache, cur_pos, sample_args, *, t_bucket=None):
+        positions = cur_pos[:, None]
+        slots = positions % cache.max_len
+        logits, _ = forward(
+            self.cfg, self.params, tokens[:, None], positions, cache, slots,
+            t_bucket=t_bucket, layers=self._layers,
+        )
+        tok = sample(logits[:, 0], counters=cur_pos + 1, **sample_args)
+        return tok, logits[:, 0]
+
+    @torch.inference_mode()
+    def _decode_group(self, tokens, cache, cur_pos, sample_args, done, eos,
+                      *, n_steps: int, t_bucket=None):
+        """``n_steps`` fused decode steps with EOS / poison carried on the
+        device. Returns ``(packed, last_tok, cur_pos, done)`` where
+        ``packed`` is [B*n_steps tokens | B poison flags] int32, read by
+        the host in one transfer."""
+        poisoned = torch.zeros_like(done)
+        toks = []
+        T = cache.max_len
+        for _ in range(n_steps):
+            positions = cur_pos[:, None]
+            # Done rows stop writing KV: their slot goes past the ring and
+            # every write site drops it.
+            slots = torch.where(done[:, None], T, positions % T)
+            logits, _ = forward(
+                self.cfg, self.params, tokens[:, None], positions, cache,
+                slots, t_bucket=t_bucket,
+                layers=self._layers,
+            )
+            tok = sample(logits[:, 0], counters=cur_pos + 1, **sample_args)
+            tokens, done, poisoned = fold_step_outcome(
+                logits[:, 0], tok, done, poisoned, eos
+            )
+            cur_pos = cur_pos + 1
+            toks.append(tokens)
+        packed = torch.cat([
+            torch.stack(toks, 1).reshape(-1), poisoned.to(torch.int32)
+        ])
+        return packed, tokens, cur_pos, done
+
+    def timed_prefill(self, ids, cache, lens, sample_args, *, batch: int):
+        """Run the prefill, recording prefill latency, TTFT and requests."""
+        t0 = time.perf_counter()
+        with self.metrics.prefill.time():
+            out = self._prefill(ids, cache, lens, sample_args)
+            _sync(self.device)
+        self.metrics.ttft.record(time.perf_counter() - t0)
+        self.metrics.add_request(batch)
+        return out
+
+    # -- host API ---------------------------------------------------------------
+
+    def generate(
+        self,
+        prompts: list[list[int]],
+        gen: GenerationParams | list[GenerationParams],
+        *,
+        on_token=None,
+        on_increment=None,
+        on_poisoned=None,
+        cancel_poll=None,
+        chunk_steps: int = 1,
+        live_rows: int | None = None,
+    ) -> list[list[int]]:
+        """Streaming host-loop generation.
+
+        ``gen`` may hold one entry per prompt (mixed greedy / sampled rows,
+        lengths and EOS ids). ``on_token(step, tokens)`` sees each step's
+        raw batch tokens; ``on_increment(row, new_tokens)`` only tokens
+        accepted into a row's output, once per host round-trip;
+        ``on_poisoned(row)`` fires when a row's logits went non-finite
+        (``chunk_steps > 1``); ``cancel_poll() -> iterable[int]`` names rows
+        to stop. ``chunk_steps > 1`` runs that many fused steps per host
+        round-trip (identical tokens, coarser callbacks). ``live_rows``
+        counts the leading real rows when the caller padded the batch.
+        """
+        if chunk_steps < 1:
+            raise ValueError(f"chunk_steps must be >= 1, got {chunk_steps}")
+        B = len(prompts)
+        gens = gen if isinstance(gen, list) else [gen] * B
+        if len(gens) != B:
+            raise ValueError(f"{len(gens)} GenerationParams for {B} prompts")
+        for g in gens:
+            g.validate()
+        dev = self.device
+        cache = self.new_cache(B)
+        sample_args = self._sample_args(gens, B)
+        ids, lens = self._pad_prompts(prompts)
+        tok, _ = self.timed_prefill(
+            torch.as_tensor(ids, device=dev), cache,
+            torch.as_tensor(lens, device=dev), sample_args,
+            batch=live_rows or B,
+        )
+        eos = np.asarray(
+            [g.eos_token_id if g.eos_token_id is not None else -1
+             for g in gens]
+        )
+        max_new = np.asarray([g.max_new_tokens for g in gens])
+        out = [[] for _ in range(B)]
+        done = np.zeros(B, bool)
+        cur_pos = torch.as_tensor(lens, device=dev)
+        pos_hi = int(lens.max())
+        total_steps = int(max_new.max())
+        eos_dev = torch.as_tensor(eos, dtype=torch.int32, device=dev)
+        step = 0
+        inc_buf: list[list[int]] = [[] for _ in range(B)]
+
+        def flush_increments() -> None:
+            if on_increment is None:
+                return
+            for i in range(B):
+                if inc_buf[i]:
+                    on_increment(i, inc_buf[i])
+                    inc_buf[i] = []
+
+        def process(tok_np) -> bool:
+            """Account one step's tokens; True when all rows are done."""
+            nonlocal step
+            newly_done = (tok_np == eos) | (step >= max_new)
+            for i in range(B):
+                if not done[i] and not newly_done[i]:
+                    out[i].append(int(tok_np[i]))
+                    if on_increment is not None:
+                        inc_buf[i].append(int(tok_np[i]))
+                    if len(out[i]) == max_new[i]:
+                        done[i] = True
+            done[:] = done | newly_done
+            if on_token is not None:
+                on_token(step, tok_np)
+            step += 1
+            return bool(done.all())
+
+        process(tok.cpu().numpy())
+        flush_increments()
+        while not done.all() and step < total_steps:
+            if cancel_poll is not None:
+                for i in cancel_poll():
+                    done[i] = True
+                if done.all():
+                    break
+            k = chunk_steps
+            if k == 1:
+                with self.metrics.decode_step.time():
+                    tok, _ = self._decode(
+                        tok, cache, cur_pos, sample_args,
+                        t_bucket=self.decode_bucket(pos_hi + 1),
+                    )
+                    tok_np = tok.cpu().numpy()  # the per-step fetch
+                cur_pos = cur_pos + 1
+                pos_hi += 1
+                process(tok_np)
+                flush_increments()
+            else:
+                # Always a full chunk: overshoot columns are discarded by
+                # process() once every row has reached its max_new.
+                t0 = time.perf_counter()
+                packed, tok, cur_pos, _ = self._decode_group(
+                    tok, cache, cur_pos, sample_args,
+                    torch.as_tensor(done, device=dev), eos_dev,
+                    n_steps=k, t_bucket=self.decode_bucket(pos_hi + k),
+                )
+                pos_hi += k
+                flat = packed.cpu().numpy()  # ONE fetch per chunk
+                self.metrics.decode_step.record((time.perf_counter() - t0) / k)
+                chunk_np = flat[: B * k].reshape(B, k)
+                poisoned_np = flat[B * k:].astype(bool)
+                for col in range(k):
+                    if process(chunk_np[:, col]):
+                        break
+                # Poisoned rows were forced done on the device; surface the
+                # flag so the caller errors the row.
+                for i in range(B):
+                    if poisoned_np[i] and not done[i]:
+                        done[i] = True
+                if on_poisoned is not None:
+                    for i in np.flatnonzero(poisoned_np):
+                        on_poisoned(int(i))
+                flush_increments()
+        self.metrics.add_tokens(sum(len(o) for o in out[: live_rows or B]))
+        return out

@@ -1,0 +1,150 @@
+"""Build and load the port's CUDA kernels (``llmss_tpu_torch/csrc/*.cu``).
+
+Each source compiles on first use, with ``nvcc`` for ``sm_90a``, into its
+own shared library with a plain C interface under
+``llmss_tpu_torch/csrc/build/`` (git-ignored), and is loaded with
+``ctypes``. Sources are compiled in parallel, one ``nvcc`` process each.
+Nothing is built when a module is imported, and there is no fallback: a
+failed build raises.
+
+Calling convention shared with the sources: every C entry point takes
+pointers and the CUDA stream as ``c_void_p`` and integers as ``c_int``,
+launches on the given stream without synchronising or allocating, and
+returns ``cudaGetLastError()``; ``check`` raises on a non-zero code.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = CSRC / "build"
+SOURCES = ("flash_attention", "decode_attention")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC",
+)
+
+# dtype codes of csrc/common.cuh
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
+_lock = threading.Lock()
+_libs: dict[str, ctypes.CDLL] = {}
+
+
+class KernelError(RuntimeError):
+    """A kernel failed to build or to launch."""
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise KernelError("nvcc not found: the CUDA kernels need the CUDA toolkit")
+
+
+def _lib_path(name: str) -> Path:
+    return BUILD_DIR / f"lib{name}.so"
+
+
+def _stale(name: str) -> bool:
+    lib = _lib_path(name)
+    if not lib.exists():
+        return True
+    deps = [CSRC / f"{name}.cu", *CSRC.glob("*.cuh")]
+    return any(d.stat().st_mtime > lib.stat().st_mtime for d in deps)
+
+
+def build(names=SOURCES, *, verbose: bool = False) -> dict[str, str]:
+    """Compile the named sources that are missing or out of date, all
+    ``nvcc`` processes started together. Returns each compiled source's
+    compiler output (``-Xptxas=-v`` register / shared-memory report when
+    ``verbose``). Raises ``KernelError`` if any build fails."""
+    todo = [n for n in names if verbose or _stale(n)]
+    if not todo:
+        return {}
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    procs = {}
+    for n in todo:
+        tmp = BUILD_DIR / f"lib{n}.so.{os.getpid()}.tmp"
+        cmd = [nvcc, *NVCC_FLAGS, *(("-Xptxas=-v",) if verbose else ()),
+               "-o", str(tmp), str(CSRC / f"{n}.cu")]
+        procs[n] = (tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        ))
+    out, failed = {}, []
+    for n, (tmp, p) in procs.items():
+        text, _ = p.communicate()
+        out[n] = text
+        if p.returncode != 0:
+            failed.append(f"{n}.cu (exit {p.returncode}):\n{text}")
+            tmp.unlink(missing_ok=True)
+        else:
+            os.replace(tmp, _lib_path(n))
+    if failed:
+        raise KernelError("nvcc failed for " + "\n".join(failed))
+    return out
+
+
+def build_all(*, verbose: bool = False) -> tuple[float, dict[str, str]]:
+    """Build every kernel source; returns (seconds, compiler output)."""
+    t0 = time.perf_counter()
+    with _lock:
+        out = build(SOURCES, verbose=verbose)
+    return time.perf_counter() - t0, out
+
+
+def _declare(lib: ctypes.CDLL, name: str) -> None:
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    if name == "flash_attention":
+        fn = lib.llmss_flash_attention
+        # q k v out qpos kvpos strides | B S T Hq Hkv D dtype | scale window stream
+        fn.argtypes = [P] * 7 + [I] * 7 + [F, I, P]
+    elif name == "decode_attention":
+        fn = lib.llmss_decode_attention
+        # q kc vc kn vn out qpos kvpos slots | layer B T t_len Hq Hkv D GB dtype
+        # | scale window stream
+        fn.argtypes = [P] * 9 + [I] * 9 + [F, I, P]
+    fn.restype = ctypes.c_int
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for one source, built first if needed."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            build((name,))
+            lib = ctypes.CDLL(str(_lib_path(name)))
+            _declare(lib, name)
+            _libs[name] = lib
+    return lib
+
+
+def check(code: int, what: str) -> None:
+    """Raise if a C entry point reported a CUDA error."""
+    if code != 0:
+        raise KernelError(f"{what} launch failed: CUDA error {code}")
+
+
+def dtype_code(t) -> int:
+    try:
+        return DTYPE_CODES[t.dtype]
+    except KeyError:
+        raise KernelError(f"unsupported dtype {t.dtype}") from None
+
+
+def stream_ptr(device) -> int:
+    """The handle of PyTorch's current CUDA stream on ``device``."""
+    return torch.cuda.current_stream(device).cuda_stream

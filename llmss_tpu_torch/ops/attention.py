@@ -1,0 +1,181 @@
+"""Attention: the plain PyTorch versions and the kernel dispatch
+(counterpart: llmss_tpu/ops/attention.py).
+
+The plain functions compute everything in fp32, like the reference's XLA
+oracles (``attention`` :116, ``fresh_kv_decode_attention`` :242). Head
+layout is ``[batch, seq, heads, head_dim]``; GQA/MQA map query head ``h``
+to KV head ``h // G``. Masked lanes take the finite fp32 minimum, never
+-inf, so a fully masked row degrades to a uniform average instead of NaN.
+
+``prefill_attention`` and ``decode_attention`` are the dispatch (the
+non-sharded part of the reference's ``dispatch_attention`` :543-639): CUDA
+tensors go to the hand-written kernels (ops/flash_attention.py,
+ops/decode_attention.py), CPU tensors to the plain versions. A CUDA tensor
+never reaches a plain version, and any other device raises.
+"""
+
+from __future__ import annotations
+
+import torch
+
+NEG_INF = float(torch.finfo(torch.float32).min)
+
+
+def make_causal_mask(
+    q_positions: torch.Tensor,  # [B, S]
+    kv_positions: torch.Tensor,  # [B, T]
+    kv_valid: torch.Tensor,  # [B, T] bool
+    window: int | None = None,
+) -> torch.Tensor:
+    """Boolean [B, S, T]: query may attend valid slots at <= its position
+    (and inside the sliding window, when set)."""
+    kvp = kv_positions[:, None, :]
+    qp = q_positions[:, :, None]
+    mask = (kvp <= qp) & kv_valid[:, None, :]
+    if window is not None:
+        mask &= kvp > qp - window
+    return mask
+
+
+def attention(
+    q: torch.Tensor,  # [B, S, Hq, D]
+    k: torch.Tensor,  # [B, T, Hkv, D]
+    v: torch.Tensor,
+    mask: torch.Tensor,  # [B, S, T] bool
+    *,
+    scale: float | None = None,
+) -> torch.Tensor:
+    """Masked softmax attention in fp32; returns q's dtype."""
+    B, S, Hq, D = q.shape
+    Hkv = k.shape[2]
+    if Hq % Hkv:
+        raise ValueError(f"Hq={Hq} is not a multiple of Hkv={Hkv}")
+    G = Hq // Hkv
+    if scale is None:
+        scale = 1.0 / (D ** 0.5)
+    qf = q.float().reshape(B, S, Hkv, G, D) * scale
+    logits = torch.einsum("bskgd,btkd->bkgst", qf, k.float())
+    logits = logits.masked_fill(~mask[:, None, None], NEG_INF)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bkgst,btkd->bskgd", probs, v.float())
+    return out.reshape(B, S, Hq, D).to(q.dtype)
+
+
+def decode_mask_penalty(
+    q_pos: torch.Tensor,  # [B, 1]
+    kv_pos_old: torch.Tensor,  # [B, T] pre-write slot positions
+    slots: torch.Tensor,  # [B, 1] slot the current token will take
+    window: int | None = None,
+) -> torch.Tensor:
+    """Additive fp32 [B, T] mask: 0 for visible slots, fp32-min for masked
+    ones (causal, empty, the pending slot, outside the window)."""
+    T = kv_pos_old.shape[1]
+    slot_idx = torch.arange(T, dtype=torch.int32, device=kv_pos_old.device)
+    mask = (kv_pos_old <= q_pos) & (kv_pos_old >= 0) & (slot_idx[None, :] != slots)
+    if window is not None:
+        mask &= kv_pos_old > q_pos - window
+    zero = torch.zeros((), dtype=torch.float32, device=mask.device)
+    return torch.where(mask, zero, torch.full_like(zero, NEG_INF))
+
+
+def fresh_kv_decode_attention(
+    q: torch.Tensor,  # [B, 1, Hq, D]
+    k_cache: torch.Tensor,  # [B, T, Hkv, D] stale (current token not written)
+    v_cache: torch.Tensor,
+    k_new: torch.Tensor,  # [B, 1, Hkv, D]
+    v_new: torch.Tensor,
+    q_pos: torch.Tensor,  # [B, 1]
+    kv_pos_old: torch.Tensor,  # [B, T]
+    slots: torch.Tensor,  # [B, 1]
+    *,
+    scale: float | None = None,
+    window: int | None = None,
+) -> torch.Tensor:
+    """Single-token attention over a stale cache plus the fresh token's own
+    KV, merged in one exact fp32 softmax. The pending slot is masked out
+    (on a ring wrap it holds the token being overwritten); the fresh token
+    always attends itself, so an empty cache gives exactly ``v_new``."""
+    B, S, Hq, D = q.shape
+    if S != 1:
+        raise ValueError(f"fresh_kv_decode_attention requires S == 1, got {S}")
+    Hkv = k_cache.shape[2]
+    G = Hq // Hkv
+    if scale is None:
+        scale = 1.0 / (D ** 0.5)
+    qf = q.float().reshape(B, S, Hkv, G, D) * scale
+    s_c = torch.einsum("bskgd,btkd->bkgst", qf, k_cache.float())
+    penalty = decode_mask_penalty(q_pos, kv_pos_old, slots, window)
+    s_c = s_c + penalty[:, None, None, None, :]
+    s_s = torch.einsum("bskgd,bskd->bkgs", qf, k_new.float())[..., None]
+    m = torch.maximum(s_c.amax(-1, keepdim=True), s_s)
+    p_c = torch.exp(s_c - m)
+    p_s = torch.exp(s_s - m)
+    denom = p_c.sum(-1, keepdim=True) + p_s
+    out_c = torch.einsum("bkgst,btkd->bkgsd", p_c, v_cache.float())
+    out = (
+        out_c + p_s * v_new.float().permute(0, 2, 1, 3)[:, :, None]
+    ) / denom
+    return out.permute(0, 3, 1, 2, 4).reshape(B, S, Hq, D).to(q.dtype)
+
+
+def _route(*tensors: torch.Tensor) -> str:
+    """"cuda" or "cpu" for a set of tensors on one device; raises for a
+    mix of devices or any other device type."""
+    kinds = {t.device.type for t in tensors}
+    if kinds == {"cuda"}:
+        return "cuda"
+    if kinds == {"cpu"}:
+        return "cpu"
+    raise RuntimeError(
+        f"attention inputs must all be CUDA tensors (kernel) or all CPU "
+        f"tensors (plain version); got devices {sorted(kinds)}"
+    )
+
+
+def prefill_attention(
+    q: torch.Tensor,  # [B, S, Hq, D]
+    k: torch.Tensor,  # [B, T, Hkv, D]
+    v: torch.Tensor,
+    q_positions: torch.Tensor,  # [B, S]
+    kv_positions: torch.Tensor,  # [B, T], -1 = empty slot
+    *,
+    scale: float | None = None,
+    window: int | None = None,
+) -> torch.Tensor:
+    """Causal attention with the mask given as positions: kernel K1 for
+    CUDA tensors, ``flash_attention_ref`` for CPU tensors."""
+    from llmss_tpu_torch.ops import flash_attention as fa
+
+    if _route(q, k, v, q_positions, kv_positions) == "cuda":
+        return fa.flash_attention(
+            q, k, v, q_positions, kv_positions, scale=scale, window=window
+        )
+    return fa.flash_attention_ref(
+        q, k, v, q_positions, kv_positions, scale=scale, window=window
+    )
+
+
+def decode_attention(
+    q: torch.Tensor,  # [B, 1, Hq, D]
+    k_cache: torch.Tensor,  # [L, B, T, Hkv, D] stale stacked cache
+    v_cache: torch.Tensor,
+    k_new: torch.Tensor,  # [B, 1, Hkv, D]
+    v_new: torch.Tensor,
+    q_pos: torch.Tensor,  # [B, 1]
+    kv_pos: torch.Tensor,  # [B, T] pre-write slot positions
+    slots: torch.Tensor,  # [B, 1]
+    layer: int,
+    *,
+    t_len: int | None = None,
+    scale: float | None = None,
+    window: int | None = None,
+) -> torch.Tensor:
+    """Single-token decode attention over layer ``layer`` of the stacked
+    cache, reading slots ``[0, t_len)``: kernel K2 for CUDA tensors,
+    ``decode_attention_ref`` for CPU tensors."""
+    from llmss_tpu_torch.ops import decode_attention as da
+
+    args = (q, k_cache, v_cache, k_new, v_new, q_pos, kv_pos, slots, layer)
+    if _route(*args[:-1]) == "cuda":
+        return da.decode_attention(*args, t_len=t_len, scale=scale, window=window)
+    return da.decode_attention_ref(*args, t_len=t_len, scale=scale, window=window)

@@ -1,0 +1,111 @@
+"""Kernel K2: single-token decode attention over the stacked cache
+(csrc/decode_attention.cu).
+
+Replaces ``llmss_tpu/ops/pallas_decode.py::decode_attention``, with the
+XLA path's bucketed read added: ``t_len`` bounds the read to ring slots
+``[0, t_len)``. ``decode_attention`` launches the CUDA kernel and counts
+each launch in ``decode_attention.launches``; it takes CUDA tensors only.
+``decode_attention_ref`` is the plain PyTorch version (fp32 throughout:
+``fresh_kv_decode_attention`` on the layer's first ``t_len`` slots), used
+for CPU tensors and as the kernel's check on the card. The kernel rounds P
+to the value dtype before P.V, as the Pallas kernel does.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from llmss_tpu_torch.ops import _build
+from llmss_tpu_torch.ops.attention import fresh_kv_decode_attention
+
+HEAD_DIMS = (64, 128, 256)
+
+
+def decode_attention_ref(
+    q, k_cache, v_cache, k_new, v_new, q_pos, kv_pos, slots, layer: int,
+    *, t_len: int | None = None, scale: float | None = None,
+    window: int | None = None,
+) -> torch.Tensor:
+    t = k_cache.shape[2] if t_len is None else t_len
+    return fresh_kv_decode_attention(
+        q, k_cache[layer, :, :t], v_cache[layer, :, :t], k_new, v_new,
+        q_pos, kv_pos[:, :t], slots, scale=scale, window=window,
+    )
+
+
+def _heads_per_block(G: int) -> int:
+    for gb in (8, 4, 2, 1):
+        if G % gb == 0:
+            return gb
+    return 1
+
+
+def decode_attention(
+    q: torch.Tensor,  # [B, 1, Hq, D]
+    k_cache: torch.Tensor,  # [L, B, T, Hkv, D]
+    v_cache: torch.Tensor,
+    k_new: torch.Tensor,  # [B, 1, Hkv, D]
+    v_new: torch.Tensor,
+    q_pos: torch.Tensor,  # [B, 1]
+    kv_pos: torch.Tensor,  # [B, T]
+    slots: torch.Tensor,  # [B, 1]
+    layer: int,
+    *,
+    t_len: int | None = None,
+    scale: float | None = None,
+    window: int | None = None,
+) -> torch.Tensor:
+    """Launch K2 on the current stream; returns [B, 1, Hq, D] in q's dtype."""
+    tensors = (q, k_cache, v_cache, k_new, v_new, q_pos, kv_pos, slots)
+    if not all(t.is_cuda for t in tensors):
+        raise RuntimeError("decode_attention (K2) takes CUDA tensors only")
+    B, S, Hq, D = q.shape
+    L, Bc, T, Hkv, Dc = k_cache.shape
+    if S != 1:
+        raise ValueError(f"decode_attention is single-token, got S={S}")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"decode_attention supports head_dim {HEAD_DIMS}, got {D}")
+    if (Bc, Dc) != (B, D) or Hq % Hkv or v_cache.shape != k_cache.shape:
+        raise ValueError(f"bad shapes q={tuple(q.shape)} "
+                         f"cache={tuple(k_cache.shape)}")
+    if k_new.shape != (B, 1, Hkv, D) or v_new.shape != k_new.shape:
+        raise ValueError("k_new / v_new must be [B, 1, Hkv, D]")
+    if not (q.dtype == k_cache.dtype == v_cache.dtype == k_new.dtype == v_new.dtype):
+        raise ValueError("q, cache and fresh KV must share a dtype")
+    if not (k_cache.is_contiguous() and v_cache.is_contiguous()):
+        raise ValueError("decode_attention reads the cache in place: it "
+                         "must be contiguous")
+    if not 0 <= layer < L:
+        raise ValueError(f"layer {layer} out of range [0, {L})")
+    t_len = T if t_len is None else int(t_len)
+    if not 0 < t_len <= T:
+        raise ValueError(f"t_len must be in (0, {T}], got {t_len}")
+    if window is not None and window <= 0:
+        raise ValueError(f"window must be positive, got {window}")
+    if scale is None:
+        scale = 1.0 / (D ** 0.5)
+    qc = q.contiguous()
+    kn, vn = k_new.contiguous(), v_new.contiguous()
+    qp = q_pos.to(torch.int32).reshape(B).contiguous()
+    sl = slots.to(torch.int32).reshape(B).contiguous()
+    kvp = kv_pos.to(torch.int32).contiguous()
+    if kvp.shape != (B, T):
+        raise ValueError("kv_pos must be [B, T]")
+    for t in (qc, k_cache, v_cache, kn, vn):
+        if t.data_ptr() % 16:
+            raise ValueError("decode_attention needs 16-byte aligned tensors")
+    out = torch.empty_like(qc)
+    lib = _build.load("decode_attention")
+    code = lib.llmss_decode_attention(
+        qc.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), kn.data_ptr(),
+        vn.data_ptr(), out.data_ptr(), qp.data_ptr(), kvp.data_ptr(),
+        sl.data_ptr(), int(layer), B, T, t_len, Hq, Hkv, D,
+        _heads_per_block(Hq // Hkv), _build.dtype_code(q), float(scale),
+        window or 0, _build.stream_ptr(q.device),
+    )
+    _build.check(code, "decode_attention")
+    decode_attention.launches += 1
+    return out
+
+
+decode_attention.launches = 0

@@ -1,0 +1,96 @@
+"""Kernel K1: prefill flash attention (csrc/flash_attention.cu).
+
+Replaces ``llmss_tpu/ops/pallas_attention.py::flash_attention``.
+``flash_attention`` launches the CUDA kernel and counts each launch in
+``flash_attention.launches``; it takes CUDA tensors only.
+``flash_attention_ref`` is the plain PyTorch version of the same function
+(fp32 throughout), used for CPU tensors and as the kernel's check on the
+card. Numerics: the kernel rounds P to the value dtype before P.V (as the
+Pallas kernel does) where the plain version stays in fp32, so the two agree
+to within the value dtype's rounding.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from llmss_tpu_torch.ops import _build
+from llmss_tpu_torch.ops.attention import attention, make_causal_mask
+
+HEAD_DIMS = (64, 128, 256)
+
+
+def flash_attention_ref(
+    q: torch.Tensor,  # [B, S, Hq, D]
+    k: torch.Tensor,  # [B, T, Hkv, D]
+    v: torch.Tensor,
+    q_positions: torch.Tensor,  # [B, S]
+    kv_positions: torch.Tensor,  # [B, T], -1 = empty slot
+    *,
+    scale: float | None = None,
+    window: int | None = None,
+) -> torch.Tensor:
+    mask = make_causal_mask(q_positions, kv_positions, kv_positions >= 0, window)
+    return attention(q, k, v, mask, scale=scale)
+
+
+def _strides(t: torch.Tensor) -> tuple[int, int, int]:
+    if t.stride(-1) != 1:
+        raise ValueError("flash_attention needs a contiguous feature dim")
+    return t.stride(0), t.stride(1), t.stride(2)
+
+
+def flash_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    q_positions: torch.Tensor,
+    kv_positions: torch.Tensor,
+    *,
+    scale: float | None = None,
+    window: int | None = None,
+) -> torch.Tensor:
+    """Launch K1 on the current stream; returns [B, S, Hq, D] in q's dtype."""
+    tensors = (q, k, v, q_positions, kv_positions)
+    if not all(t.is_cuda for t in tensors):
+        raise RuntimeError("flash_attention (K1) takes CUDA tensors only")
+    B, S, Hq, D = q.shape
+    T, Hkv = k.shape[1], k.shape[2]
+    if D not in HEAD_DIMS:
+        raise ValueError(f"flash_attention supports head_dim {HEAD_DIMS}, got {D}")
+    if Hq % Hkv or k.shape != v.shape or k.shape[0] != B or k.shape[3] != D:
+        raise ValueError(f"bad shapes q={tuple(q.shape)} k={tuple(k.shape)} "
+                         f"v={tuple(v.shape)}")
+    if not (q.dtype == k.dtype == v.dtype):
+        raise ValueError("q, k, v must share a dtype")
+    if window is not None and window <= 0:
+        raise ValueError(f"window must be positive, got {window}")
+    if scale is None:
+        scale = 1.0 / (D ** 0.5)
+    qp = q_positions.to(torch.int32).contiguous()
+    kvp = kv_positions.to(torch.int32).contiguous()
+    if qp.shape != (B, S) or kvp.shape != (B, T):
+        raise ValueError("positions must be [B, S] and [B, T]")
+    out = torch.empty_like(q, memory_format=torch.contiguous_format)
+    st = (*_strides(q), *_strides(k), *_strides(v), *_strides(out))
+    if max(st) >= 2 ** 31:
+        raise ValueError("tensor too large for 32-bit strides")
+    for t in (q, k, v):
+        if t.data_ptr() % 16:
+            raise ValueError("flash_attention needs 16-byte aligned tensors")
+    strides = (ctypes.c_int * 12)(*st)
+    lib = _build.load("flash_attention")
+    code = lib.llmss_flash_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        qp.data_ptr(), kvp.data_ptr(), ctypes.addressof(strides),
+        B, S, T, Hq, Hkv, D, _build.dtype_code(q), float(scale),
+        window or 0, _build.stream_ptr(q.device),
+    )
+    _build.check(code, "flash_attention")
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0

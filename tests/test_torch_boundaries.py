@@ -1,0 +1,101 @@
+"""Boundaries of the torch port: it imports nothing of JAX or of the JAX
+package, its entry points default to the GPU and raise without one, and a
+CUDA request never falls back to the plain CPU versions."""
+
+import ast
+from pathlib import Path
+
+import pytest
+import torch
+
+from llmss_tpu_torch import resolve_device
+from llmss_tpu_torch.engine.engine import DecodeEngine
+from llmss_tpu_torch.models.common import DecoderConfig
+from llmss_tpu_torch.models.decoder import init_params
+from llmss_tpu_torch.ops import _build
+from llmss_tpu_torch.ops import attention as tatt
+from llmss_tpu_torch.ops.decode_attention import decode_attention
+from llmss_tpu_torch.ops.flash_attention import flash_attention
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT_FILES = sorted((ROOT / "llmss_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+CFG = DecoderConfig(
+    model_type="llama", vocab_size=32, hidden_size=32, n_layers=1, n_heads=2,
+    n_kv_heads=2, head_dim=16, intermediate_size=32,
+    max_position_embeddings=32, norm="rmsnorm", mlp="swiglu",
+    positions="rotary", rope_style="half", attn_bias=False, mlp_bias=False,
+    dtype="float32",
+)
+
+
+def _imported_roots(path: Path) -> set[str]:
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            roots |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.module and not node.level:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_no_jax(path):
+    bad = _imported_roots(path) & {"jax", "jaxlib", "llmss_tpu", "flax"}
+    assert not bad, f"{path} imports {bad}"
+
+
+@pytest.fixture
+def no_gpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_entry_points_default_to_gpu_and_raise_without_one(no_gpu):
+    with pytest.raises(RuntimeError, match="CUDA"):
+        resolve_device(None)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_params(CFG, seed=0)
+    params = init_params(CFG, seed=0, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        DecodeEngine(CFG, params)
+    assert resolve_device("cpu").type == "cpu"
+
+
+def test_cli_defaults_to_gpu(no_gpu, tmp_path):
+    from llmss_tpu_torch.cli.generate import main
+
+    (tmp_path / "config.json").write_text('{"model_type": "llama"}')
+    with pytest.raises(RuntimeError, match="CUDA"):
+        main(["--pretrained_model_path", str(tmp_path), "--token_ids", "1,2"])
+
+
+def test_kernel_wrappers_take_cuda_tensors_only():
+    q = torch.zeros(1, 16, 2, 64)
+    kv = torch.zeros(1, 16, 2, 64)
+    pos = torch.zeros(1, 16, dtype=torch.int32)
+    with pytest.raises(RuntimeError, match="CUDA tensors only"):
+        flash_attention(q, kv, kv, pos, pos)
+    cache = torch.zeros(1, 1, 16, 2, 64)
+    q1 = torch.zeros(1, 1, 2, 64)
+    p1 = torch.zeros(1, 1, dtype=torch.int32)
+    with pytest.raises(RuntimeError, match="CUDA tensors only"):
+        decode_attention(q1, cache, cache, q1, q1, p1, pos, p1, 0)
+
+
+def test_dispatch_refuses_other_devices():
+    """A request on a device that is neither CUDA nor the CPU (here: meta
+    tensors) raises instead of reaching a plain version."""
+    q = torch.zeros(1, 16, 2, 64, device="meta")
+    pos = torch.zeros(1, 16, dtype=torch.int32, device="meta")
+    with pytest.raises(RuntimeError, match="must all be CUDA"):
+        tatt.prefill_attention(q, q, q, pos, pos)
+    cpu_pos = torch.zeros(1, 16, dtype=torch.int32)
+    with pytest.raises(RuntimeError, match="must all be CUDA"):
+        tatt.prefill_attention(q, q, q, pos, cpu_pos)
+
+
+def test_build_raises_without_nvcc(monkeypatch, tmp_path):
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    with pytest.raises(_build.KernelError, match="nvcc"):
+        _build.build(("flash_attention",))
