@@ -361,7 +361,224 @@ def check_kernels() -> dict:
     return out
 
 
+def _paged_case(name, B, Hq, Hkv, ctx, qlens, CB, *, n_cols=None, window=None,
+                seed=0, L=2, D=128, bs=16, MB=64, dt=torch.bfloat16):
+    """Attention over layer L-1 of a block pool for rows whose histories
+    are positions 0..ctx[b]-1 (ring order), each with a CB-token chunk of
+    which qlens[b] are live, starting at position ctx[b]. Each row's blocks
+    are scattered over the pool; table columns past them are sentinels.
+    Every pending slot that still holds a visible old position (the chunk
+    overwrites it on a ring wrap) gets a key 4x the group's first query
+    head at that query and values of 8: a kernel that kept it would miss
+    by ~8."""
+    rng = np.random.default_rng(seed)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    dev, ring = "cuda", MB * bs
+    need = [MB if c + q > ring else max(1, -(-(c + q) // bs))
+            for c, q in zip(ctx, qlens)]
+    N = sum(need) + 3
+    perm = rng.permutation(N)
+    bt = np.full((B, MB), N, np.int32)
+    k = 0
+    for b, n in enumerate(need):
+        bt[b, :n] = perm[k:k + n]
+        bt[b, n:] = N + b  # sentinels (>= N)
+        k += n
+    kvp = _ring_positions(B, ring, ctx)
+    kp = torch.randn(L, N + 1, bs, Hkv, D, generator=g, device=dev, dtype=dt)
+    vp = torch.randn(L, N + 1, bs, Hkv, D, generator=g, device=dev, dtype=dt)
+    q = torch.randn(B, CB, Hq, D, generator=g, device=dev, dtype=dt)
+    kn = torch.randn(B, CB, Hkv, D, generator=g, device=dev, dtype=dt)
+    vn = torch.randn(B, CB, Hkv, D, generator=g, device=dev, dtype=dt)
+    G = Hq // Hkv
+    planted = 0
+    for b in range(B):
+        for i in range(qlens[b]):
+            t = (ctx[b] + i) % ring
+            if kvp[b, t] >= 0:
+                blk = bt[b, t // bs]
+                kp[L - 1, blk, t % bs] = 4 * q[b, i, ::G]
+                vp[L - 1, blk, t % bs] = 8
+                planted += 1
+    nblk = np.minimum(MB, -(-(kvp >= 0).sum(1) // bs)).astype(np.int32)
+    T = lambda x: torch.tensor(x, device=dev)  # noqa: E731
+    return dict(name=name, q=q, kp=kp, vp=vp, kn=kn, vn=vn,
+                qpos=T(np.asarray(ctx, np.int32)),
+                qlen=T(np.asarray(qlens, np.int32)), kvp=T(kvp), bt=T(bt),
+                nblk=T(nblk), slot0=T(np.asarray(ctx, np.int32) % ring),
+                layer=L - 1, n_cols=n_cols, window=window, planted=planted)
+
+
+def _paged_visibility(c):
+    """[B, CB, T] bool cache visibility of every live query row (the
+    plain version's mask) over the first n_cols table columns, and the
+    [B, CB, CB] visibility of the fresh keys."""
+    from llmss_tpu_torch.ops import attention as att
+
+    B, CB = c["q"].shape[:2]
+    bs, MB = c["kp"].shape[2], c["bt"].shape[1]
+    Tv = (c["n_cols"] or MB) * bs
+    kvp = c["kvp"][:, :Tv]
+    rel = torch.arange(CB, device="cuda", dtype=torch.int32)
+    live = rel[None, :] < c["qlen"][:, None]
+    qpos = c["qpos"][:, None] + rel[None, :]
+    vis = att.ragged_cache_visibility(c["qlen"], kvp, c["slot0"], MB * bs)
+    mask = vis[:, None, :] & (kvp[:, None, :] <= qpos[:, :, None])
+    fresh = (rel[None, :, None] >= rel[None, None, :]) & (
+        rel[None, None, :] < c["qlen"][:, None, None])
+    if c["window"] is not None:
+        mask &= kvp[:, None, :] > qpos[:, :, None] - c["window"]
+        fresh &= (rel[None, :, None] - rel[None, None, :]) < c["window"]
+    return mask & live[:, :, None], fresh & live[:, :, None]
+
+
+def _paged_row(kernel, c, fn, ref_fn, lib_fn):
+    """Run one K3 / K4 case: agreement within REL_TOL, then kernel, plain,
+    library and bound times. Returns (row, kernel output)."""
+    dt = c["q"].dtype
+    got = fn(c).float()
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{kernel} {c['name']}: non-finite output")
+    f32 = {k: (v.float() if torch.is_tensor(v) and v.is_floating_point() else v)
+           for k, v in c.items()}
+    ref = ref_fn(f32)
+    ref_abs = ref_fn({**f32, "vp": f32["vp"].abs(), "vn": f32["vn"].abs()})
+    # Live query rows only: chunk padding (rows past q_len) is never read.
+    CB = c["q"].shape[1]
+    live = torch.arange(CB, device="cuda")[None, :] < c["qlen"][:, None]
+    err, ratio = _agree(kernel, c["name"], got[live], ref[live], ref_abs[live],
+                        dt)
+    mask, fresh = _paged_visibility(c)
+    B, CB, Hq, D = c["q"].shape
+    Hkv = c["kp"].shape[3]
+    es = c["q"].element_size()
+    live_q = int(c["qlen"].sum().item())
+    slots = int(mask.any(1).sum().item())
+    pairs = int(mask.sum().item()) + int(fresh.sum().item())
+    nbytes = (2 * slots * Hkv * D * es + 2 * live_q * Hq * D * es
+              + 2 * live_q * Hkv * D * es + mask.shape[2] * B * 4
+              + c["bt"].numel() * 4)
+    b_ms, b_by = bound(nbytes, 4.0 * pairs * Hq * D, dt)
+    row = {"phase": "kernel", "kernel": kernel, "case": c["name"],
+           "max_abs_err": err, "rel_tol": REL_TOL[dt], "err_over_tol": ratio,
+           "planted_pending_keys": c["planted"],
+           "ms": device_ms(lambda: fn(c), iters=50),
+           "plain_ms": device_ms(lambda: ref_fn(c), iters=5),
+           "library_ms": device_ms(lambda: lib_fn(c, mask), iters=20),
+           "bound_ms": b_ms, "bound_by": b_by}
+    emit(row)
+    return row, got
+
+
+def _gather_sdpa(c, mask):
+    """The yardstick: gather the rows' logical views, then one
+    scaled_dot_product_attention over them (fresh keys left out)."""
+    from llmss_tpu_torch.engine.cache import gather_block_view
+
+    L = c["layer"]
+    kv = gather_block_view(c["kp"][L], c["bt"], c["n_cols"])
+    vv = gather_block_view(c["vp"][L], c["bt"], c["n_cols"])
+    return _sdpa(c["q"], kv, vv, mask[:, None])
+
+
+def check_paged_kernels(out: dict) -> None:
+    """K3 and K4 against their plain (fp32) versions within REL_TOL, and K3
+    == K4 at CB = 1 bit for bit. The first case of each list is the shape
+    the serve_continuous phase gives the kernel; its numbers go into the
+    kernels line."""
+    from llmss_tpu_torch.ops import paged_attention as pa
+
+    def k3(c):
+        return pa.paged_decode_attention(
+            c["q"], c["kp"], c["vp"], c["kn"], c["vn"], c["qpos"][:, None],
+            c["kvp"], c["bt"], c["nblk"], c["slot0"][:, None], c["layer"],
+            n_cols=c["n_cols"], window=c["window"])
+
+    def k3_ref(c):
+        return pa.paged_decode_attention_ref(
+            c["q"], c["kp"], c["vp"], c["kn"], c["vn"], c["qpos"][:, None],
+            c["kvp"], c["bt"], c["nblk"], c["slot0"][:, None], c["layer"],
+            n_cols=c["n_cols"], window=c["window"])
+
+    def k4(c):
+        return pa.ragged_paged_attention(
+            c["q"], c["kp"], c["vp"], c["kn"], c["vn"], c["qpos"], c["qlen"],
+            c["kvp"], c["bt"], c["nblk"], c["slot0"], c["layer"],
+            n_cols=c["n_cols"], window=c["window"])
+
+    def k4_ref(c):
+        return pa.ragged_paged_attention_ref(
+            c["q"], c["kp"], c["vp"], c["kn"], c["vn"], c["qpos"], c["qlen"],
+            c["kvp"], c["bt"], c["nblk"], c["slot0"], c["layer"],
+            n_cols=c["n_cols"], window=c["window"])
+
+    serve_ctx = [700, 45, 300, 812, 128, 33, 560, 400]
+    k3_cases = [
+        # The serve phase's decode: 8 rows at its 832-slot bucket (52 cols).
+        _paged_case("k3_serve_decode", 8, 32, 32, serve_ctx, [1] * 8, 1,
+                    n_cols=52),
+        _paged_case("k3_gqa", 8, 32, 8, serve_ctx[::-1], [1] * 8, 1, seed=1),
+        _paged_case("k3_window", 4, 32, 8, [900, 300, 1000, 20], [1] * 4, 1,
+                    window=256, seed=2),
+        # Wrapped rows (the pending slot holds a visible old position), an
+        # empty row (nblk = 0: exactly v_new), sentinel columns.
+        _paged_case("k3_wrap_empty_sentinel", 4, 32, 32, [1500, 0, 2047, 77],
+                    [1] * 4, 1, seed=3),
+        _paged_case("k3_fp32", 3, 8, 4, [300, 0, 1000], [1] * 3, 1, seed=4,
+                    dt=torch.float32),
+    ]
+    worst = 0.0
+    for c in k3_cases:
+        row, got = _paged_row("K3", c, k3, k3_ref, _gather_sdpa)
+        worst = max(worst, row["max_abs_err"])
+        out.setdefault("K3", row)
+        G = c["q"].shape[2] // c["kn"].shape[2]
+        for b in range(c["q"].shape[0]):
+            if int(c["nblk"][b]) == 0 and not torch.equal(
+                    got[b, 0], c["vn"][b, 0].float().repeat_interleave(G, 0)):
+                raise AssertionError(f"K3 {c['name']}: empty row {b} != v_new")
+        # K3 is the template at CB = 1: an all-decode K4 call is bitwise it.
+        k4_cb1 = k4({**c, "qlen": torch.ones_like(c["qlen"])})
+        if not torch.equal(k4_cb1.float(), got):
+            raise AssertionError(f"K4 at CB=1 != K3 on {c['name']}")
+    out["K3"]["max_abs_err"] = worst
+    emit({"phase": "kernel", "check": "k3_equals_k4_at_cb1",
+          "cases": len(k3_cases), "bit_identical": True})
+
+    k4_cases = [
+        # The serve phase's chunked pass at chunked_prefill=128: prompt rows
+        # at their first, second and last (37-token) chunks beside decode
+        # rows.
+        _paged_case("k4_serve_mixed", 8, 32, 32,
+                    [0, 128, 256, 400, 700, 33, 812, 512],
+                    [128, 128, 37, 1, 1, 1, 1, 1], 128, seed=5),
+        _paged_case("k4_gqa_window", 4, 32, 8, [300, 0, 900, 64],
+                    [128, 37, 1, 128], 128, window=256, seed=6),
+        # Row 0's 100-token chunk from slot 1000 wraps onto slots 0..75,
+        # which still hold visible positions: all pending.
+        _paged_case("k4_ring_wrap", 3, 32, 32, [1000, 2000, 5],
+                    [100, 1, 60], 128, seed=7),
+        _paged_case("k4_fp32", 3, 8, 4, [30, 0, 100], [16, 5, 1], 16,
+                    seed=8, dt=torch.float32),
+    ]
+    worst = 0.0
+    for c in k4_cases:
+        row, _ = _paged_row("K4", c, k4, k4_ref, _gather_sdpa)
+        worst = max(worst, row["max_abs_err"])
+        out.setdefault("K4", row)
+    out["K4"]["max_abs_err"] = worst
+
+
 # -- phase 4 -------------------------------------------------------------------
+
+
+def _to(p, dev):
+    """A parameter tree moved to ``dev``."""
+    if isinstance(p, dict):
+        return {k: _to(v, dev) for k, v in p.items()}
+    if isinstance(p, tuple):
+        return type(p)(*(_to(x, dev) for x in p))
+    return None if p is None else p.to(dev)
 
 
 def phase_reference() -> None:
@@ -377,24 +594,71 @@ def phase_reference() -> None:
         "intermediate_size": 512, "dtype": "float32",
     })
     cpu_params = init_params(cfg, seed=3, device="cpu")
-
-    def to(p, dev):
-        if isinstance(p, dict):
-            return {k: to(v, dev) for k, v in p.items()}
-        if isinstance(p, tuple):
-            return type(p)(*(to(x, dev) for x in p))
-        return None if p is None else p.to(dev)
-
     prompts = [[int(t) for t in np.random.default_rng(s).integers(1, 512, n)]
                for s, n in ((0, 20), (1, 7), (2, 33))]
     gen = GenerationParams(max_new_tokens=16)
     want = DecodeEngine(cfg, cpu_params, device="cpu", max_seq_len=64).generate(
         prompts, gen, chunk_steps=4)
-    got = DecodeEngine(cfg, to(cpu_params, "cuda"), max_seq_len=64).generate(
+    got = DecodeEngine(cfg, _to(cpu_params, "cuda"), max_seq_len=64).generate(
         prompts, gen, chunk_steps=4)
     emit({"phase": "reference", "identical": got == want, "tokens": got})
     if got != want:
         raise AssertionError(f"GPU tokens {got} != CPU plain-path tokens {want}")
+
+
+def phase_reference_paged() -> None:
+    """The continuous batcher over the paged pool, on a tiny fp32 llama:
+    6 greedy requests of mixed lengths through split admission (K1 + K3)
+    and through chunked prefill (K4 + K3) give, on the card, exactly the
+    tokens the same batcher gives through the plain path on the CPU."""
+    from llmss_tpu_torch.engine.engine import DecodeEngine, GenerationParams
+    from llmss_tpu_torch.engine.scheduler import ContinuousBatcher
+    from llmss_tpu_torch.models.common import DecoderConfig
+    from llmss_tpu_torch.models.decoder import init_params
+    from llmss_tpu_torch.ops import paged_attention as pa
+
+    cfg = DecoderConfig(**{
+        **LLAMA2_7B, "vocab_size": 512, "hidden_size": 256, "n_layers": 2,
+        "n_heads": 4, "n_kv_heads": 2, "head_dim": 64, "rotary_dim": 64,
+        "intermediate_size": 512, "dtype": "float32",
+    })
+    cpu_params = init_params(cfg, seed=5, device="cpu")
+    gpu_params = _to(cpu_params, "cuda")
+    rng = np.random.default_rng(4)
+    lens = (5, 20, 33, 7, 48, 12)
+    prompts = [[int(t) for t in rng.integers(1, 512, n)] for n in lens]
+    news = (16, 9, 12, 20, 6, 14)
+
+    def serve(params, device, chunked):
+        eng = DecodeEngine(cfg, params, device=device, max_seq_len=128,
+                           kv_layout="paged", block_size=16)
+        bat = ContinuousBatcher(eng, rows=4, chunk_steps=4, group_chunks=2,
+                                chunked_prefill=16 if chunked else None)
+        out = {}
+        for i, (p, n) in enumerate(zip(prompts, news)):
+            bat.submit(p, GenerationParams(max_new_tokens=n),
+                       lambda t, *a, i=i, **k: out.__setitem__(i, t))
+        bat.run_until_idle()
+        if bat.allocator.blocks_in_use:
+            raise AssertionError("blocks still in use after the run")
+        return [out[i] for i in range(len(prompts))]
+
+    for chunked in (False, True):
+        want = serve(cpu_params, "cpu", chunked)
+        pa.paged_decode_attention.launches = 0
+        pa.ragged_paged_attention.launches = 0
+        got = serve(gpu_params, None, chunked)
+        k3, k4 = (pa.paged_decode_attention.launches,
+                  pa.ragged_paged_attention.launches)
+        emit({"phase": "reference_paged",
+              "admission": "chunked_prefill=16" if chunked else "split",
+              "identical": got == want, "k3_launches": k3,
+              "k4_launches": k4, "tokens": got})
+        if got != want:
+            raise AssertionError(
+                f"paged batcher on the card {got} != CPU plain path {want}")
+        if k3 == 0 or (chunked and k4 == 0):
+            raise AssertionError("the paged kernels were not launched")
 
 
 # -- phase 5 -------------------------------------------------------------------
@@ -578,6 +842,213 @@ def phase_serve(eng) -> None:
           "stream_increments_ok": True})
 
 
+# -- phase 6b ------------------------------------------------------------------
+
+
+def _count_steps(eng):
+    """Wrap the engine's grouped programs to count the decode steps and
+    ragged steps they run; returns the counter dict."""
+    n = {"decode": 0, "ragged": 0}
+    decode_group, ragged_group = eng._decode_group, eng._ragged_group
+
+    def counted_decode(*a, n_steps, n_chunks=1, **kw):
+        n["decode"] += n_steps * n_chunks
+        return decode_group(*a, n_steps=n_steps, n_chunks=n_chunks, **kw)
+
+    def counted_ragged(*a):
+        n["ragged"] += a[6].shape[0]  # ids_seq [nc, B, CB]
+        return ragged_group(*a)
+
+    eng._decode_group, eng._ragged_group = counted_decode, counted_ragged
+    return n
+
+
+def phase_serve_continuous(params, kernels: dict):
+    """The slice's main path: ContinuousWorker over InProcBroker at
+    Llama-2-7B width (bf16, random weights from seed 0), 8 rows,
+    max_seq_len 1024, block_size 16, a 256-block pool (2 GiB, half the
+    dense equivalent), chunk_steps 8, group_chunks 2. 16 requests (prompts
+    of 32-768 tokens from a seed, 48 new tokens each: 12 greedy of which 2
+    streamed, 3 top-k/top-p sampled, 1 cancelled mid-decode), served with
+    split admission (K1 + K3), then with chunked_prefill=128 (K4 + K3),
+    then the chunked pass again, which must repeat its tokens."""
+    from llmss_tpu_torch.engine.engine import DecodeEngine
+    from llmss_tpu_torch.engine.metrics import EngineMetrics
+    from llmss_tpu_torch.models.common import DecoderConfig
+    from llmss_tpu_torch.ops import decode_attention as da
+    from llmss_tpu_torch.ops import flash_attention as fa
+    from llmss_tpu_torch.ops import paged_attention as pa
+    from llmss_tpu_torch.serve.broker import InProcBroker
+    from llmss_tpu_torch.serve.consumer import ContinuousWorker
+    from llmss_tpu_torch.serve.protocol import GenerateRequest
+
+    cfg = DecoderConfig(**LLAMA2_7B)
+    L, new = cfg.n_layers, 48
+    eng = DecodeEngine(cfg, params, max_seq_len=1024, kv_layout="paged",
+                       block_size=16, kv_blocks=256)
+    steps = _count_steps(eng)
+    rng = np.random.default_rng(11)
+    lens = [int(n) for n in rng.integers(32, 769, 16)]
+    prompts = [[int(t) for t in rng.integers(1, cfg.vocab_size, n)]
+               for n in lens]
+    CANCEL = 3  # admitted in the first wave, cancelled once it decodes
+
+    def requests():
+        out = []
+        for i, p in enumerate(prompts):
+            kw = {}
+            if 12 <= i < 15:
+                kw = dict(is_greedy=False, temperature=0.8, top_k=40,
+                          top_p=0.9, seed=100 + i)
+            out.append(GenerateRequest(token_ids=p, max_new_tokens=new,
+                                       stream=i in (0, 1), **kw))
+        return out
+
+    def run(chunked):
+        eng.metrics = EngineMetrics()
+        broker = InProcBroker()
+        worker = ContinuousWorker(
+            eng, broker, rows=8, chunk_steps=8, group_chunks=2,
+            chunked_prefill=128 if chunked else None)
+        reqs = requests()
+        for r in reqs:
+            broker.push_request(r)
+        fa.flash_attention.launches = da.decode_attention.launches = 0
+        pa.paged_decode_attention.launches = 0
+        pa.ragged_paged_attention.launches = 0
+        steps.update(decode=0, ragged=0)
+        answers, cancel_sent = {}, False
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        while len(answers) < len(reqs):
+            worker.run_once()
+            if not cancel_sent and any(
+                    r.req_id == reqs[CANCEL].id and r.out
+                    for r in worker.batcher.active.values()):
+                broker.cancel_request(reqs[CANCEL].id)
+                cancel_sent = True
+            for r in reqs:
+                if r.id not in answers:
+                    a = broker.wait_response(r.id, timeout=0.0)
+                    if a is not None:
+                        answers[r.id] = a
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(k1=fa.flash_attention.launches,
+                      k2=da.decode_attention.launches,
+                      k3=pa.paged_decode_attention.launches,
+                      k4=pa.ragged_paged_attention.launches)
+        toks = [answers[r.id].token_ids or [] for r in reqs]
+        for i, (r, a) in enumerate(zip(reqs, (answers[r.id] for r in reqs))):
+            if i == CANCEL:
+                if a.error != "cancelled" or not 0 < len(toks[i]) < new:
+                    raise AssertionError(f"cancelled request answered {a}")
+            elif a.error or len(toks[i]) != new or not all(
+                    0 <= t < cfg.vocab_size for t in toks[i]):
+                raise AssertionError(f"request {i}: bad answer {a}")
+        streamed = []
+        while (inc := broker.pop_stream(reqs[0].id)) is not None:
+            streamed += inc
+        if streamed != toks[0]:
+            raise AssertionError("stream increments != final answer")
+        if counts["k2"] or counts["k3"] != L * steps["decode"] or (
+                counts["k4"] != L * steps["ragged"]):
+            raise AssertionError(f"launch counts {counts} for steps {steps}")
+        if chunked and not counts["k4"]:
+            raise AssertionError("chunked pass launched no K4")
+        if worker.batcher.allocator.blocks_in_use:
+            raise AssertionError("blocks in use after the pass")
+        m = eng.metrics
+        served = sum(len(t) for i, t in enumerate(toks) if i != CANCEL)
+        row = {"phase": "serve_continuous",
+               "admission": "chunked_prefill=128" if chunked else "split",
+               "requests": len(reqs), "prompt_lens": lens, "new_tokens": new,
+               "wall_s": wall, "tokens_per_s": served / wall,
+               "ttft_p50_ms": m.ttft.quantile_ms(50),
+               "ttft_p90_ms": m.ttft.quantile_ms(90),
+               "decode_ms_per_step": m.decode_step.to_dict()["mean_ms"],
+               "decode_steps": steps["decode"], "ragged_steps": steps["ragged"],
+               "launches": counts,
+               "host_overhead": m.to_dict()["host_overhead"],
+               "mixed_batch": m.to_dict()["mixed_batch"],
+               "blocks_in_use_after": 0}
+        emit(row)
+        return toks, counts
+
+    split, c_split = run(False)
+    chunk, c_chunk = run(True)
+    again, _ = run(True)
+    same = all(a == b for i, (a, b) in enumerate(zip(chunk, again))
+               if i != CANCEL)
+    emit({"phase": "serve_continuous", "check": "chunked_pass_repeats",
+          "identical": same})
+    if not same:
+        raise AssertionError("a repeat of the chunked pass gave other tokens")
+    kernels["K3"]["launches"] = c_split["k3"] + c_chunk["k3"]
+    kernels["K4"]["launches"] = c_chunk["k4"]
+    return eng
+
+
+def phase_profile_paged(eng) -> None:
+    """Where the time goes on the serving path: one paged decode group
+    (2 chunks x 8 steps) and one ragged group (4 steps, two rows feeding
+    128-token chunks beside six decode rows) over 8 rows of the serve
+    engine, wall time without the profiler, kernel time from
+    torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from llmss_tpu_torch.engine.engine import GenerationParams
+
+    B = 8
+    rng = np.random.default_rng(0)
+    prompts = [[int(t) for t in rng.integers(1, 32000, n)]
+               for n in (300, 45, 700, 128, 33, 560, 400, 200)]
+    ids, lens = eng._pad_prompts(prompts)
+    sa = eng._sample_args(GenerationParams(), B)
+    cache = eng.new_cache(B)  # identity tables over a full pool
+    dev = "cuda"
+    cur = torch.as_tensor(lens, device=dev)
+    tok, _ = eng._prefill(torch.as_tensor(ids, device=dev), cache, cur, sa)
+    done = torch.zeros(B, dtype=torch.bool, device=dev)
+    eos = torch.full((B,), -1, dtype=torch.int32, device=dev)
+    tb = eng.decode_bucket(int(lens.max()) + 16)
+    nc, CB = 4, 128
+    qlens = np.ones((nc, B), np.int32)
+    qlens[:, :2] = CB
+    feed = np.zeros((nc, B), bool)
+    feed[:, :2] = True
+    emit_ = ~feed
+    xs = [torch.as_tensor(a, device=dev) for a in (
+        rng.integers(1, 32000, (nc, B, CB)).astype(np.int32), qlens, feed,
+        emit_)]
+
+    def decode():
+        return eng._decode_group(tok, cache, cur, sa, done, eos, n_chunks=2,
+                                 n_steps=8, t_bucket=tb)
+
+    def ragged():
+        return eng._ragged_group(tok, cache, cur, sa, done, eos, *xs)
+
+    for name, fn in (("paged_decode_group_2x8", decode),
+                     ("ragged_group_4_steps", ragged)):
+        fn()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        rows = _kernel_rows(prof)
+        kernel_ms = sum(r[0] for r in rows) / 1e3
+        emit({"phase": "profile", "what": name, "wall_ms": wall_ms,
+              "device_kernel_ms": kernel_ms,
+              "device_idle_share": max(0.0, 1 - kernel_ms / wall_ms),
+              "top": [{"kernel": k[:80], "ms": us / 1e3, "calls": n}
+                      for us, k, n in rows[:8]]})
+
+
 # -- phase 7 -------------------------------------------------------------------
 
 
@@ -652,24 +1123,36 @@ def main() -> int:
     smi = phase_device()
     phase_build()
     kernels = check_kernels()
+    check_paged_kernels(kernels)
     phase_reference()
+    phase_reference_paged()
     eng = phase_engine(kernels)
     phase_profile(eng)
     phase_serve(eng)
+    params = eng.params
     del eng
+    torch.cuda.empty_cache()
+    peng = phase_serve_continuous(params, kernels)
+    phase_profile_paged(peng)
+    del peng, params
     torch.cuda.empty_cache()
     phase_cli()
     rows = []
-    for name, src, replaces in (
-        ("K1", "llmss_tpu_torch/csrc/flash_attention.cu",
+    for name, fn, src, replaces in (
+        ("K1", "flash_attention", "llmss_tpu_torch/csrc/flash_attention.cu",
          "llmss_tpu/ops/pallas_attention.py:136"),
-        ("K2", "llmss_tpu_torch/csrc/decode_attention.cu",
+        ("K2", "decode_attention", "llmss_tpu_torch/csrc/decode_attention.cu",
          "llmss_tpu/ops/pallas_decode.py:181"),
+        ("K3", "paged_decode_attention",
+         "llmss_tpu_torch/csrc/paged_attention.cu",
+         "llmss_tpu/ops/pallas_paged_decode.py:160"),
+        ("K4", "ragged_paged_attention",
+         "llmss_tpu_torch/csrc/paged_attention.cu",
+         "llmss_tpu/ops/pallas_ragged.py:220"),
     ):
         k = kernels[name]
         rows.append({
-            "name": {"K1": "flash_attention", "K2": "decode_attention"}[name],
-            "route": "cuda", "source": src, "replaces": replaces,
+            "name": fn, "route": "cuda", "source": src, "replaces": replaces,
             "launches": k["launches"], "max_abs_err": k["max_abs_err"],
             "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
             "bound_by": k["bound_by"], "library_ms": k["library_ms"],

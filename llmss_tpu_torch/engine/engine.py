@@ -9,8 +9,17 @@ poison folded into device-side state (done rows stop writing KV: their
 slot is set past the ring and the write is dropped), and the host reads
 the chunk's tokens and poison flags in ONE packed transfer.
 
+``kv_layout="paged"`` keeps the KV in a block pool addressed through
+per-row block tables (engine/cache.py); ``generate`` then runs over
+identity tables, and the continuous batcher (engine/scheduler.py) drives
+the tables from its allocator. The batcher's device programs live here:
+``_admit_merge`` (fold admitted rows into the device-resident decode
+state), the grouped decode ``_decode_group`` (``n_chunks`` chunks of
+``n_steps`` steps, one packed result) and the ragged mixed
+prefill+decode group ``_ragged_group`` (chunked prefill).
+
 Not in this port yet: prefix reuse (``build_prefix``), ``generate_fused``,
-speculative decoding, ``prewarm`` and the paged and ragged programs.
+speculative decoding and ``prewarm``.
 """
 
 from __future__ import annotations
@@ -22,10 +31,14 @@ import numpy as np
 import torch
 
 from llmss_tpu_torch.device import resolve_device
-from llmss_tpu_torch.engine.cache import KVCache, init_cache
+from llmss_tpu_torch.engine.cache import (
+    KVCache, PagedKVCache, init_cache, init_paged_cache,
+)
 from llmss_tpu_torch.engine.metrics import EngineMetrics
 from llmss_tpu_torch.models.common import DecoderConfig
-from llmss_tpu_torch.models.decoder import Params, forward, unstack_layers
+from llmss_tpu_torch.models.decoder import (
+    Params, forward, forward_ragged, unstack_layers,
+)
 from llmss_tpu_torch.ops.sampling import fold_step_outcome, sample
 
 
@@ -65,6 +78,16 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def to_device(arr, device: torch.device) -> torch.Tensor:
+    """A host array on ``device`` without waiting on the device: on CUDA
+    it is staged in pinned memory and copied asynchronously (a plain copy
+    from pageable memory would synchronise the stream)."""
+    t = torch.from_numpy(np.ascontiguousarray(arr))
+    if device.type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
+
+
 class DecodeEngine:
     """Drives one model on one device with a fixed (batch, max_seq) envelope.
 
@@ -79,10 +102,29 @@ class DecodeEngine:
         device=None,
         batch_size: int = 1,
         max_seq_len: int | None = None,
+        kv_layout: str = "dense",
+        block_size: int = 16,
+        kv_blocks: int | None = None,
     ):
         self.device = resolve_device(device)
         self.batch_size = batch_size
         self.max_seq_len = max_seq_len or cfg.max_position_embeddings
+        # kv_layout="paged": KV in a global block pool addressed through
+        # per-row block tables, with the dense logical-slot contract.
+        # ``kv_blocks`` sizes the batcher's pool (None: the dense
+        # equivalent rows * max_seq_len / block_size).
+        if kv_layout not in ("dense", "paged"):
+            raise ValueError(
+                f"kv_layout must be 'dense' or 'paged', got {kv_layout!r}"
+            )
+        if kv_layout == "paged" and self.max_seq_len % block_size:
+            raise ValueError(
+                f"kv_layout='paged' needs max_seq_len ({self.max_seq_len}) "
+                f"divisible by block_size ({block_size})"
+            )
+        self.kv_layout = kv_layout
+        self.block_size = block_size
+        self.kv_blocks = kv_blocks
         if (
             cfg.rope_original_max_positions is not None
             and cfg.rope_freq_factors_short is not None
@@ -138,12 +180,33 @@ class DecodeEngine:
                 f"({self.max_seq_len})"
             )
 
-    def new_cache(self, batch: int | None = None) -> KVCache:
+    def new_cache(self, batch: int | None = None) -> KVCache | PagedKVCache:
+        if self.kv_layout == "paged":
+            return self.new_paged_cache(batch)
         return init_cache(
             n_layers=self.cfg.n_layers, batch=batch or self.batch_size,
             max_len=self.max_seq_len, n_kv_heads=self.cfg.n_kv_heads,
             head_dim=self.cfg.head_dim, dtype=self.cfg.torch_dtype,
             device=self.device,
+        )
+
+    def new_paged_cache(
+        self, batch: int | None = None, *, num_blocks: int | None = None,
+        identity: bool = True,
+    ) -> PagedKVCache:
+        """Fresh paged cache. ``identity=True`` (the engine's generate)
+        maps row b to blocks [b*MB, (b+1)*MB) of a full pool;
+        ``identity=False`` (the batcher) starts every table at the sentinel
+        over a pool of ``num_blocks`` (default: ``kv_blocks``, else the
+        dense equivalent)."""
+        if num_blocks is None and not identity:
+            num_blocks = self.kv_blocks
+        return init_paged_cache(
+            n_layers=self.cfg.n_layers, batch=batch or self.batch_size,
+            max_len=self.max_seq_len, n_kv_heads=self.cfg.n_kv_heads,
+            head_dim=self.cfg.head_dim, dtype=self.cfg.torch_dtype,
+            device=self.device, block_size=self.block_size,
+            num_blocks=num_blocks, identity_tables=identity,
         )
 
     def _sample_args(self, gens: "GenerationParams | list[GenerationParams]",
@@ -152,17 +215,16 @@ class DecodeEngine:
         branch flags, known here on the host (ops/sampling.sample)."""
         if isinstance(gens, GenerationParams):
             gens = [gens] * batch
-        dev = self.device
+
+        def dev(values, dtype):
+            return to_device(np.asarray(values, dtype), self.device)
+
         return dict(
-            seeds=torch.tensor([g.seed for g in gens], dtype=torch.int32,
-                               device=dev),
-            temperature=torch.tensor([g.temperature for g in gens],
-                                     dtype=torch.float32, device=dev),
-            top_k=torch.tensor([g.top_k for g in gens], dtype=torch.int32,
-                               device=dev),
-            top_p=torch.tensor([g.top_p for g in gens], dtype=torch.float32,
-                               device=dev),
-            greedy=torch.tensor([g.is_greedy for g in gens], device=dev),
+            seeds=dev([g.seed for g in gens], np.int32),
+            temperature=dev([g.temperature for g in gens], np.float32),
+            top_k=dev([g.top_k for g in gens], np.int32),
+            top_p=dev([g.top_p for g in gens], np.float32),
+            greedy=dev([g.is_greedy for g in gens], np.bool_),
             any_sampled=any(not g.is_greedy for g in gens),
             needs_filter=any(
                 not g.is_greedy and (g.top_k > 0 or g.top_p < 1.0)
@@ -219,35 +281,109 @@ class DecodeEngine:
         tok = sample(logits[:, 0], counters=cur_pos + 1, **sample_args)
         return tok, logits[:, 0]
 
+    @staticmethod
+    def _admit_merge(tokens, cur_pos, adm_tok, adm_lens, rows):
+        """Fold an admission batch into the device-resident decode state:
+        ``tokens[rows] = adm_tok`` and ``cur_pos[rows] = adm_lens``.
+        ``rows`` [P] is padded with a positive out-of-range sentinel, whose
+        entries are dropped (never wrapped). A one-hot match instead of a
+        scatter, so nothing waits on the device. Returns new tensors."""
+        R = tokens.shape[0]
+        match = rows[None, :] == torch.arange(R, device=rows.device)[:, None]
+        hit = match.any(1)
+
+        def put(old, new):
+            val = (match * new[None, :].to(old.dtype)).sum(1).to(old.dtype)
+            return torch.where(hit, val, old)
+
+        return put(tokens, adm_tok), put(cur_pos, adm_lens)
+
     @torch.inference_mode()
     def _decode_group(self, tokens, cache, cur_pos, sample_args, done, eos,
-                      *, n_steps: int, t_bucket=None):
-        """``n_steps`` fused decode steps with EOS / poison carried on the
-        device. Returns ``(packed, last_tok, cur_pos, done)`` where
-        ``packed`` is [B*n_steps tokens | B poison flags] int32, read by
-        the host in one transfer."""
+                      *, n_steps: int, n_chunks: int = 1, t_bucket=None):
+        """``n_chunks`` chunks of ``n_steps`` fused decode steps with EOS /
+        poison carried on the device (the reference's grouped program,
+        engine.py:496). Returns ``(packed, last_tok, cur_pos, done)`` where
+        ``packed`` is ``[n_chunks*B*n_steps tokens | n_chunks*B poison
+        flags]`` int32, chunk-major, the poison flags cumulative and
+        snapshotted after each chunk: read by the host in one transfer."""
         poisoned = torch.zeros_like(done)
-        toks = []
+        toks, pois = [], []
         T = cache.max_len
-        for _ in range(n_steps):
-            positions = cur_pos[:, None]
-            # Done rows stop writing KV: their slot goes past the ring and
-            # every write site drops it.
-            slots = torch.where(done[:, None], T, positions % T)
-            logits, _ = forward(
-                self.cfg, self.params, tokens[:, None], positions, cache,
-                slots, t_bucket=t_bucket,
-                layers=self._layers,
+        for _ in range(n_chunks):
+            chunk = []
+            for _ in range(n_steps):
+                positions = cur_pos[:, None]
+                # Done rows stop writing KV: their slot goes past the ring
+                # and every write site drops it (under the paged layout a
+                # freed row's stale table may point at reassigned blocks).
+                slots = torch.where(done[:, None], T, positions % T)
+                logits, _ = forward(
+                    self.cfg, self.params, tokens[:, None], positions, cache,
+                    slots, t_bucket=t_bucket, layers=self._layers,
+                )
+                tok = sample(logits[:, 0], counters=cur_pos + 1, **sample_args)
+                tokens, done, poisoned = fold_step_outcome(
+                    logits[:, 0], tok, done, poisoned, eos
+                )
+                cur_pos = cur_pos + 1
+                chunk.append(tokens)
+            toks.append(torch.stack(chunk, 1).reshape(-1))
+            pois.append(poisoned.to(torch.int32))
+        packed = torch.cat(toks + pois)
+        return packed, tokens, cur_pos, done
+
+    @torch.inference_mode()
+    def _ragged_step(self, tokens, cache, cur_pos, sample_args, done,
+                     poisoned, eos, ids, q_lens, feed, emit):
+        """One ragged mixed prefill+decode step (engine.py:549): every row
+        carries a CB-token chunk, ``q_lens`` live. Decode rows (q_len 1,
+        ``feed`` False) take the carried token as input and reduce exactly
+        to a decode step; prompt rows feed their slice and emit nothing
+        until the step that completes the prompt (``emit``), whose sample,
+        at counter ``cur_pos + q_len`` (the prompt length), is the first
+        token."""
+        CB = ids.shape[1]
+        ids = ids.clone()
+        ids[:, 0] = torch.where(feed, ids[:, 0], tokens)
+        rel = torch.arange(CB, dtype=torch.int32, device=ids.device)
+        positions = cur_pos[:, None] + rel[None, :]
+        live = (rel[None, :] < q_lens[:, None]) & ~done[:, None]
+        # Dead columns (chunk padding, done rows) write nowhere.
+        slots = torch.where(live, positions % cache.max_len, cache.max_len)
+        kv_pos = torch.where(live, positions, -1)
+        logits, _ = forward_ragged(
+            self.cfg, self.params, ids, positions, cache, slots, q_lens,
+            kv_write_positions=kv_pos, layers=self._layers,
+        )
+        tok = sample(logits[:, 0], counters=cur_pos + q_lens, **sample_args)
+        tok, done2, poisoned = fold_step_outcome(
+            logits[:, 0], tok, done, poisoned, eos
+        )
+        # Mid-prompt rows keep their carried token and done state; poison
+        # is cumulative regardless.
+        tok = torch.where(emit, tok, tokens)
+        done = torch.where(emit, done2, done)
+        return tok, cur_pos + q_lens, done, poisoned
+
+    @torch.inference_mode()
+    def _ragged_group(self, tokens, cache, cur_pos, sample_args, done, eos,
+                      ids_seq, qlens_seq, feed_seq, emit_seq):
+        """``nc`` ragged steps (engine.py:598): ``ids_seq`` [nc, B, CB],
+        the others [nc, B], planned by the host. Returns ``(packed,
+        last_tok, cur_pos, done)`` with ``packed`` = ``[nc*B tokens | nc*B
+        cumulative poison flags]``, the decode group's layout at
+        ``n_steps == 1``."""
+        poisoned = torch.zeros_like(done)
+        toks, pois = [], []
+        for s in range(ids_seq.shape[0]):
+            tokens, cur_pos, done, poisoned = self._ragged_step(
+                tokens, cache, cur_pos, sample_args, done, poisoned, eos,
+                ids_seq[s], qlens_seq[s], feed_seq[s], emit_seq[s],
             )
-            tok = sample(logits[:, 0], counters=cur_pos + 1, **sample_args)
-            tokens, done, poisoned = fold_step_outcome(
-                logits[:, 0], tok, done, poisoned, eos
-            )
-            cur_pos = cur_pos + 1
             toks.append(tokens)
-        packed = torch.cat([
-            torch.stack(toks, 1).reshape(-1), poisoned.to(torch.int32)
-        ])
+            pois.append(poisoned.to(torch.int32))
+        packed = torch.cat(toks + pois)
         return packed, tokens, cur_pos, done
 
     def timed_prefill(self, ids, cache, lens, sample_args, *, batch: int):

@@ -1,6 +1,8 @@
-"""Engine metrics: the subset of llmss_tpu/utils/metrics.py the dense
-generate path and the batch worker record (latency timers with a bounded
-reservoir, request / token / error counters, and ``to_dict``)."""
+"""Engine metrics: the subset of llmss_tpu/utils/metrics.py that the
+generate path, the batch worker, the continuous batcher and its worker
+record (latency timers with a bounded reservoir, request / token / error
+counters, the block-pool gauges, the batcher's per-group host overhead and
+mixed-batch composition, and ``to_dict``), under the reference's names."""
 
 from __future__ import annotations
 
@@ -50,6 +52,12 @@ class LatencyStat:
             return None
         return s[min(int(q / 100.0 * len(s)), len(s) - 1)]
 
+    def quantile_ms(self, q: float) -> float | None:
+        """The q-th percentile of the kept samples, in milliseconds."""
+        with self._lock:
+            s = sorted(self._samples)
+        return _ms(self._pick(s, q))
+
     def to_dict(self) -> dict:
         with self._lock:
             n = self._count
@@ -75,7 +83,24 @@ class EngineMetrics:
         self.ttft = LatencyStat("ttft")
         self.prefill = LatencyStat("prefill")
         self.decode_step = LatencyStat("decode_step")
+        # Per-group host overhead of the continuous batcher: dispatch
+        # (enqueue a group), fetch (the blocking packed device->host read),
+        # callback (token accounting, stream flushes, row frees).
+        self.host_dispatch = LatencyStat("host_dispatch")
+        self.host_fetch = LatencyStat("host_fetch")
+        self.host_callback = LatencyStat("host_callback")
         self._lock = threading.Lock()
+        self.host_syncs = 0  # guarded_by: self._lock
+        self.groups_dispatched = 0  # guarded_by: self._lock
+        self.kv_blocks_total = 0  # guarded_by: self._lock
+        self.kv_blocks_in_use = 0  # guarded_by: self._lock
+        self.kv_block_seconds = 0.0  # guarded_by: self._lock
+        self.finish_classes: dict[str, int] = {}  # guarded_by: self._lock
+        self.mixed_steps = 0  # guarded_by: self._lock
+        self.mixed_decode_rows = 0  # guarded_by: self._lock
+        self.mixed_prefill_rows = 0  # guarded_by: self._lock
+        self.prefill_tokens_chunked = 0  # guarded_by: self._lock
+        self.chunk_budget_tokens = 0  # guarded_by: self._lock
         self.tokens_generated = 0  # guarded_by: self._lock
         self.requests_served = 0  # guarded_by: self._lock
         self.errors = 0  # guarded_by: self._lock
@@ -108,12 +133,64 @@ class EngineMetrics:
         """Rows errored out because their logits went non-finite."""
         self._add("poisoned", n)
 
+    def set_kv_blocks(self, total: int | None = None,
+                      in_use: int | None = None) -> None:
+        """Block-pool gauges from the batcher's BlockAllocator."""
+        with self._lock:
+            if total is not None:
+                self.kv_blocks_total = total
+            if in_use is not None:
+                self.kv_blocks_in_use = in_use
+
+    def add_kv_block_seconds(self, s: float) -> None:
+        """A row released blocks it held for ``blocks x held`` seconds."""
+        with self._lock:
+            self.kv_block_seconds += s
+
+    def add_finish(self, disposition: str, n: int = 1) -> None:
+        """A row reached a terminal disposition (served/cancelled/error)."""
+        with self._lock:
+            self.finish_classes[disposition] = (
+                self.finish_classes.get(disposition, 0) + n
+            )
+
+    def add_mixed_steps(self, steps: int, decode_rows: int, prefill_rows: int,
+                        prefill_tokens: int, budget_tokens: int) -> None:
+        """One ragged group was planned: ``steps`` steps whose row-steps
+        split into decode rows and chunk-fed prompt rows; ``prefill_tokens``
+        prompt tokens streamed against ``budget_tokens`` of capacity."""
+        with self._lock:
+            self.mixed_steps += steps
+            self.mixed_decode_rows += decode_rows
+            self.mixed_prefill_rows += prefill_rows
+            self.prefill_tokens_chunked += prefill_tokens
+            self.chunk_budget_tokens += budget_tokens
+
+    def add_host_sync(self, n: int = 1) -> None:
+        """A blocking device->host fetch."""
+        self._add("host_syncs", n)
+
+    def add_group(self, n: int = 1) -> None:
+        """A grouped decode or ragged program was dispatched."""
+        self._add("groups_dispatched", n)
+
     def to_dict(self) -> dict:
         uptime = time.monotonic() - self._start
         with self._lock:
             toks, reqs, errs, canc, exp, pois = (
                 self.tokens_generated, self.requests_served, self.errors,
                 self.cancelled, self.deadline_expired, self.poisoned,
+            )
+            kv_total, kv_used, kv_bs = (
+                self.kv_blocks_total, self.kv_blocks_in_use,
+                self.kv_block_seconds,
+            )
+            fin = dict(self.finish_classes)
+            syncs, groups = self.host_syncs, self.groups_dispatched
+            m_steps, m_dec, m_pre, m_tok, m_budget = (
+                self.mixed_steps, self.mixed_decode_rows,
+                self.mixed_prefill_rows, self.prefill_tokens_chunked,
+                self.chunk_budget_tokens,
             )
         return {
             "uptime_s": round(uptime, 1),
@@ -127,4 +204,25 @@ class EngineMetrics:
             "ttft": self.ttft.to_dict(),
             "prefill": self.prefill.to_dict(),
             "decode_step": self.decode_step.to_dict(),
+            "kv_blocks_total": kv_total,
+            "kv_blocks_in_use": kv_used,
+            "kv_block_seconds": round(kv_bs, 6),
+            **({"finish_classes": fin} if fin else {}),
+            "host_overhead": {
+                "host_syncs": syncs,
+                "groups_dispatched": groups,
+                "dispatch": self.host_dispatch.to_dict(),
+                "fetch": self.host_fetch.to_dict(),
+                "callback": self.host_callback.to_dict(),
+            },
+            "mixed_batch": {
+                "steps": m_steps,
+                "decode_rows": m_dec,
+                "prefill_rows": m_pre,
+                "prefill_tokens_chunked": m_tok,
+                "chunk_budget_tokens": m_budget,
+                "chunk_budget_utilization": (
+                    round(m_tok / m_budget, 4) if m_budget else None
+                ),
+            },
         }

@@ -18,8 +18,21 @@ Python loop over layers (the reference's ``lax.scan``).
   scattered into the cache once, after the layer loop. ``t_bucket`` bounds
   the read to ring slots ``[0, t_bucket)`` (:535-544).
 
-Not in this port yet: sequence/tensor parallelism, the paged and ragged
-layouts, the speculative multi-token window and the int8 cache.
+Over the paged block pool (``PagedKVCache``, decoder.py:871-1081) the
+caller contract is the same, with logical slots indirected through each
+row's block table:
+
+- ``forward_paged`` decode (S == 1): kernel K3 reads every layer of the
+  stale pool in place, the fresh KV lands in one all-layer pool write
+  after the layer loop; prefill (S > 1): each layer's fresh KV is written
+  into the pool, the row's logical view is gathered and K1 attends it;
+- ``forward_ragged`` (decoder.py:1159-1305): a CB-token chunk per row,
+  ``q_lens`` live (1 for decode rows), through kernel K4 with the same
+  deferred write; logits come from each row's last live column.
+
+Pool, positions and tables are updated in place, where the reference
+donates them. Not in this port yet: sequence/tensor parallelism, the
+speculative multi-token window and the int8 cache.
 """
 
 from __future__ import annotations
@@ -30,10 +43,15 @@ import torch
 
 from llmss_tpu_torch.device import resolve_device
 from llmss_tpu_torch.engine.cache import (
-    KVCache, write_layer, write_positions, write_stacked,
+    KVCache, PagedKVCache, gather_block_view, paged_write_layer,
+    paged_write_stacked, write_layer, write_positions, write_slots,
+    write_stacked,
 )
 from llmss_tpu_torch.models.common import DecoderConfig, act_fn
-from llmss_tpu_torch.ops.attention import decode_attention, prefill_attention
+from llmss_tpu_torch.ops.attention import (
+    decode_attention, paged_decode_attention, prefill_attention,
+    ragged_attention,
+)
 from llmss_tpu_torch.ops.layers import (
     LinearParams, NormParams, dense, dense_t, embedding, layer_norm, lm_head,
     rms_norm,
@@ -171,12 +189,21 @@ def _head_out(cfg: DecoderConfig, params: Params, h, gather_idx):
     return lm_head(h, params["head"])
 
 
+def _rope_tables(cfg: DecoderConfig, positions):
+    if cfg.positions != "rotary":
+        return None
+    return sin_cos_tables(
+        positions, cfg.rotary_dim or cfg.head_dim, cfg.rope_theta,
+        cfg.rope_freq_factors, cfg.rope_attn_factor,
+    )
+
+
 def forward(
     cfg: DecoderConfig,
     params: Params,
     input_ids: torch.Tensor,  # [B, S]
     positions: torch.Tensor,  # [B, S] absolute positions
-    cache: KVCache,  # updated in place
+    cache: KVCache | PagedKVCache,  # updated in place
     slots: torch.Tensor,  # [B, S] ring slots; out-of-range slots are dropped
     *,
     gather_idx: torch.Tensor | None = None,  # [B] per-row index into S
@@ -189,18 +216,19 @@ def forward(
 
     ``t_bucket`` caller contract (as in the reference): every live slot of
     every row, and every slot written this call, is < ``t_bucket``."""
+    if isinstance(cache, PagedKVCache):
+        return forward_paged(
+            cfg, params, input_ids, positions, cache, slots,
+            gather_idx=gather_idx, kv_write_positions=kv_write_positions,
+            t_bucket=t_bucket, layers=layers,
+        )
     if layers is None:
         layers = unstack_layers(params)
     S = input_ids.shape[1]
     h = _embed_in(cfg, params, input_ids, positions)
     if kv_write_positions is None:
         kv_write_positions = positions
-    sin_cos = None
-    if cfg.positions == "rotary":
-        sin_cos = sin_cos_tables(
-            positions, cfg.rotary_dim or cfg.head_dim, cfg.rope_theta,
-            cfg.rope_freq_factors, cfg.rope_attn_factor,
-        )
+    sin_cos = _rope_tables(cfg, positions)
     scale, window = cfg.attn_scale, cfg.sliding_window
 
     if S == 1:
@@ -235,3 +263,136 @@ def forward(
 
             h, _, _ = _block(cfg, bp, h, positions, sin_cos, attend)
     return _head_out(cfg, params, h, gather_idx), cache
+
+
+def _occupied_blocks(cache: PagedKVCache) -> torch.Tensor:
+    """[B] int32 occupied table columns per row, ``ceil(#(positions >= 0)
+    / bs)``, computed on the device: the kernels read it from device
+    memory, so no host sync."""
+    bs = cache.block_size
+    occ = (cache.positions >= 0).sum(1, dtype=torch.int32)
+    nblk = torch.div(occ + bs - 1, bs, rounding_mode="floor")
+    return torch.clamp(nblk, 0, cache.max_blocks).to(torch.int32)
+
+
+def _table_cols(cache: PagedKVCache, t_bucket: int | None) -> int | None:
+    """Table columns a bucketed read walks: ``ceil(t_bucket / bs)``."""
+    if t_bucket is None or t_bucket >= cache.max_len:
+        return None
+    return min(-(-t_bucket // cache.block_size), cache.max_blocks)
+
+
+def forward_paged(
+    cfg: DecoderConfig,
+    params: Params,
+    input_ids: torch.Tensor,  # [B, S]
+    positions: torch.Tensor,  # [B, S]
+    cache: PagedKVCache,  # pool and positions updated in place
+    slots: torch.Tensor,  # [B, S] LOGICAL slots; >= max_len writes nowhere
+    *,
+    gather_idx: torch.Tensor | None = None,
+    kv_write_positions: torch.Tensor | None = None,
+    t_bucket: int | None = None,
+    layers: list[Params] | None = None,
+) -> tuple[torch.Tensor, PagedKVCache]:
+    """``forward`` over the paged block pool (counterpart:
+    ``_forward_paged``, decoder.py:871). ``t_bucket`` rounds up to whole
+    table columns (same caller contract as dense)."""
+    if layers is None:
+        layers = unstack_layers(params)
+    B, S = input_ids.shape
+    bs = cache.block_size
+    h = _embed_in(cfg, params, input_ids, positions)
+    if kv_write_positions is None:
+        kv_write_positions = positions
+    sin_cos = _rope_tables(cfg, positions)
+    scale, window = cfg.attn_scale, cfg.sliding_window
+
+    if S == 1:
+        n_cols = _table_cols(cache, t_bucket)
+        nblk = _occupied_blocks(cache)
+        fresh_k, fresh_v = [], []
+        for layer, bp in enumerate(layers):
+            def attend(q, k, v, layer=layer):
+                return paged_decode_attention(
+                    q, cache.k, cache.v, k, v, positions, cache.positions,
+                    cache.block_tables, nblk, slots, layer, n_cols=n_cols,
+                    scale=scale, window=window,
+                )
+
+            h, k, v = _block(cfg, bp, h, positions, sin_cos, attend)
+            fresh_k.append(k)
+            fresh_v.append(v)
+        paged_write_stacked(cache.k, torch.stack(fresh_k), cache.block_tables,
+                            slots, bs)
+        paged_write_stacked(cache.v, torch.stack(fresh_v), cache.block_tables,
+                            slots, bs)
+        write_positions(cache.positions, kv_write_positions, slots)
+    else:
+        # Write-then-attend: this layer's fresh KV goes into the pool first
+        # (writes through unmapped entries land in the drop block), then
+        # the row's logical view, which now holds it, is gathered for K1.
+        write_slots(cache.positions, slots, kv_write_positions)
+        for layer, bp in enumerate(layers):
+            def attend(q, k, v, layer=layer):
+                paged_write_layer(cache.k, layer, k, cache.block_tables,
+                                  slots, bs)
+                paged_write_layer(cache.v, layer, v, cache.block_tables,
+                                  slots, bs)
+                k_l = gather_block_view(cache.k[layer], cache.block_tables)
+                v_l = gather_block_view(cache.v[layer], cache.block_tables)
+                return prefill_attention(
+                    q, k_l, v_l, positions, cache.positions,
+                    scale=scale, window=window,
+                )
+
+            h, _, _ = _block(cfg, bp, h, positions, sin_cos, attend)
+    return _head_out(cfg, params, h, gather_idx), cache
+
+
+def forward_ragged(
+    cfg: DecoderConfig,
+    params: Params,
+    input_ids: torch.Tensor,  # [B, CB] ragged chunks, q_lens live per row
+    positions: torch.Tensor,  # [B, CB] row's first query at positions[:, 0]
+    cache: PagedKVCache,  # pool and positions updated in place
+    slots: torch.Tensor,  # [B, CB] LOGICAL slots; max_len marks dead columns
+    q_lens: torch.Tensor,  # [B] int32: 1 for decode rows, up to CB mid-prefill
+    *,
+    kv_write_positions: torch.Tensor | None = None,  # [B, CB]; -1 = no write
+    layers: list[Params] | None = None,
+) -> tuple[torch.Tensor, PagedKVCache]:
+    """Mixed prefill+decode forward over the pool (counterpart:
+    decoder.py:1159): kernel K4 attends each row's chunk against the stale
+    pool plus the chunk's own fresh KV, and the chunk's KV lands in one
+    all-layer pool write after the layer loop. Returns the logits at each
+    row's last live column (``q_lens - 1``): a prompt's final chunk gives
+    its first token, a decode row its next one."""
+    if layers is None:
+        layers = unstack_layers(params)
+    bs = cache.block_size
+    h = _embed_in(cfg, params, input_ids, positions)
+    if kv_write_positions is None:
+        kv_write_positions = positions
+    sin_cos = _rope_tables(cfg, positions)
+    scale, window = cfg.attn_scale, cfg.sliding_window
+    nblk = _occupied_blocks(cache)
+    q_pos0, slot0 = positions[:, 0], slots[:, 0]
+    fresh_k, fresh_v = [], []
+    for layer, bp in enumerate(layers):
+        def attend(q, k, v, layer=layer):
+            return ragged_attention(
+                q, cache.k, cache.v, k, v, q_pos0, q_lens, cache.positions,
+                cache.block_tables, nblk, slot0, layer, scale=scale,
+                window=window,
+            )
+
+        h, k, v = _block(cfg, bp, h, positions, sin_cos, attend)
+        fresh_k.append(k)
+        fresh_v.append(v)
+    paged_write_stacked(cache.k, torch.stack(fresh_k), cache.block_tables,
+                        slots, bs)
+    paged_write_stacked(cache.v, torch.stack(fresh_v), cache.block_tables,
+                        slots, bs)
+    write_slots(cache.positions, slots, kv_write_positions)
+    return _head_out(cfg, params, h, q_lens - 1), cache

@@ -27,7 +27,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
-SOURCES = ("flash_attention", "decode_attention")
+SOURCES = ("flash_attention", "decode_attention", "paged_attention")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
@@ -117,6 +117,11 @@ def _declare(lib: ctypes.CDLL, name: str) -> None:
         # q kc vc kn vn out qpos kvpos slots | layer B T t_len Hq Hkv D GB dtype
         # | scale window stream
         fn.argtypes = [P] * 9 + [I] * 9 + [F, I, P]
+    elif name == "paged_attention":
+        fn = lib.llmss_paged_attention
+        # q kp vp kn vn out qpos qlen kvpos tables nblk slot0 | layer B CB Np
+        # bs MB n_cols Hq Hkv D R dtype | scale window stream
+        fn.argtypes = [P] * 12 + [I] * 12 + [F, I, P]
     fn.restype = ctypes.c_int
 
 

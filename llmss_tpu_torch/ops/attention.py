@@ -7,11 +7,13 @@ layout is ``[batch, seq, heads, head_dim]``; GQA/MQA map query head ``h``
 to KV head ``h // G``. Masked lanes take the finite fp32 minimum, never
 -inf, so a fully masked row degrades to a uniform average instead of NaN.
 
-``prefill_attention`` and ``decode_attention`` are the dispatch (the
-non-sharded part of the reference's ``dispatch_attention`` :543-639): CUDA
-tensors go to the hand-written kernels (ops/flash_attention.py,
-ops/decode_attention.py), CPU tensors to the plain versions. A CUDA tensor
-never reaches a plain version, and any other device raises.
+``prefill_attention``, ``decode_attention``, ``paged_decode_attention``
+and ``ragged_attention`` are the dispatch (the non-sharded part of the
+reference's ``dispatch_attention`` :543-639 and of the paged kernel hooks
+in models/decoder.py): CUDA tensors go to the hand-written kernels
+(ops/flash_attention.py, ops/decode_attention.py, ops/paged_attention.py),
+CPU tensors to the plain versions. A CUDA tensor never reaches a plain
+version, and any other device raises.
 """
 
 from __future__ import annotations
@@ -118,6 +120,77 @@ def fresh_kv_decode_attention(
     return out.permute(0, 3, 1, 2, 4).reshape(B, S, Hq, D).to(q.dtype)
 
 
+def ragged_cache_visibility(
+    q_len: torch.Tensor,  # [B] live query rows per chunk (1..CB)
+    kv_pos_old: torch.Tensor,  # [B, T] pre-write slot positions
+    slot0: torch.Tensor,  # [B] or [B, 1] logical slot of the first query
+    ring_len: int,  # logical ring capacity (cache.max_len)
+) -> torch.Tensor:
+    """Query-invariant [B, T] bool: the slot holds a live token and is not
+    among the chunk's ``q_len`` pending slots, the ring range from
+    ``slot0`` that the chunk's deferred write overwrites."""
+    B, T = kv_pos_old.shape
+    slot0 = slot0.reshape(B, 1)
+    d = torch.arange(T, dtype=torch.int32, device=kv_pos_old.device)[None] - slot0
+    d = torch.where(d < 0, d + ring_len, d)
+    pending = d < q_len.reshape(B, 1)
+    return (kv_pos_old >= 0) & ~pending
+
+
+def ragged_fresh_kv_attention(
+    q: torch.Tensor,  # [B, S, Hq, D] S = chunk budget, ragged per q_len
+    k_cache: torch.Tensor,  # [B, T, Hkv, D] stale (chunk not written)
+    v_cache: torch.Tensor,
+    k_new: torch.Tensor,  # [B, S, Hkv, D] the chunk's own fresh KV
+    v_new: torch.Tensor,
+    q_pos: torch.Tensor,  # [B] or [B, 1] first query's absolute position
+    q_len: torch.Tensor,  # [B] live query rows (1..S)
+    kv_pos_old: torch.Tensor,  # [B, T]
+    slot0: torch.Tensor,  # [B] or [B, 1]
+    ring_len: int,
+    *,
+    scale: float | None = None,
+    window: int | None = None,
+) -> torch.Tensor:
+    """One exact fp32 softmax over the stale cache plus each row's fresh
+    ``q_len``-token chunk: query ``i`` sees cache positions ``<= q_pos + i``
+    outside the pending range, and fresh key ``j`` when ``j <= i`` and ``j <
+    q_len``. Key 0 is visible to every query row, padding included, so no
+    denominator is 0."""
+    B, S, Hq, D = q.shape
+    Hkv = k_cache.shape[2]
+    G = Hq // Hkv
+    if scale is None:
+        scale = 1.0 / (D ** 0.5)
+    dev = q.device
+    rel = torch.arange(S, dtype=torch.int32, device=dev)
+    qpos = q_pos.reshape(B, 1) + rel[None, :]  # [B, S]
+    vis = ragged_cache_visibility(q_len, kv_pos_old, slot0, ring_len)
+    kvp = kv_pos_old[:, None, :]
+    mask = vis[:, None, :] & (kvp <= qpos[:, :, None])  # [B, S, T]
+    if window is not None:
+        mask &= kvp > qpos[:, :, None] - window
+    qf = q.float().reshape(B, S, Hkv, G, D) * scale
+    s_c = torch.einsum("bskgd,btkd->bkgst", qf, k_cache.float())
+    s_c = s_c.masked_fill(~mask[:, None, None], NEG_INF)
+    s_w = torch.einsum("bskgd,btkd->bkgst", qf, k_new.float())
+    tri = (rel[None, :, None] >= rel[None, None, :]) & (
+        rel[None, None, :] < q_len.reshape(B, 1, 1)
+    )  # [B, S(query), S(key)]
+    if window is not None:
+        tri &= (rel[None, :, None] - rel[None, None, :]) < window
+    s_w = s_w.masked_fill(~tri[:, None, None], NEG_INF)
+    m = torch.maximum(s_c.amax(-1, keepdim=True), s_w.amax(-1, keepdim=True))
+    p_c = torch.exp(s_c - m)
+    p_w = torch.exp(s_w - m)
+    denom = p_c.sum(-1, keepdim=True) + p_w.sum(-1, keepdim=True)
+    out = (
+        torch.einsum("bkgst,btkd->bkgsd", p_c, v_cache.float())
+        + torch.einsum("bkgst,btkd->bkgsd", p_w, v_new.float())
+    ) / denom
+    return out.permute(0, 3, 1, 2, 4).reshape(B, S, Hq, D).to(q.dtype)
+
+
 def _route(*tensors: torch.Tensor) -> str:
     """"cuda" or "cpu" for a set of tensors on one device; raises for a
     mix of devices or any other device type."""
@@ -179,3 +252,62 @@ def decode_attention(
     if _route(*args[:-1]) == "cuda":
         return da.decode_attention(*args, t_len=t_len, scale=scale, window=window)
     return da.decode_attention_ref(*args, t_len=t_len, scale=scale, window=window)
+
+
+def paged_decode_attention(
+    q: torch.Tensor,  # [B, 1, Hq, D]
+    k_pool: torch.Tensor,  # [L, N + 1, bs, Hkv, D] stale pool
+    v_pool: torch.Tensor,
+    k_new: torch.Tensor,  # [B, 1, Hkv, D]
+    v_new: torch.Tensor,
+    q_pos: torch.Tensor,  # [B, 1]
+    kv_pos: torch.Tensor,  # [B, MB*bs] pre-write logical slot positions
+    block_tables: torch.Tensor,  # [B, MB]
+    n_blocks: torch.Tensor,  # [B] occupied table columns per row
+    slots: torch.Tensor,  # [B, 1] logical slot the token will take
+    layer: int,
+    *,
+    n_cols: int | None = None,
+    scale: float | None = None,
+    window: int | None = None,
+) -> torch.Tensor:
+    """Single-token decode attention over layer ``layer`` of the block
+    pool, reading table columns ``[0, n_cols)``: kernel K3 for CUDA
+    tensors, ``paged_decode_attention_ref`` for CPU tensors."""
+    from llmss_tpu_torch.ops import paged_attention as pa
+
+    args = (q, k_pool, v_pool, k_new, v_new, q_pos, kv_pos, block_tables,
+            n_blocks, slots)
+    fn = (pa.paged_decode_attention if _route(*args) == "cuda"
+          else pa.paged_decode_attention_ref)
+    return fn(*args, layer, n_cols=n_cols, scale=scale, window=window)
+
+
+def ragged_attention(
+    q: torch.Tensor,  # [B, CB, Hq, D]
+    k_pool: torch.Tensor,  # [L, N + 1, bs, Hkv, D] stale pool
+    v_pool: torch.Tensor,
+    k_new: torch.Tensor,  # [B, CB, Hkv, D]
+    v_new: torch.Tensor,
+    q_pos: torch.Tensor,  # [B] first query's position
+    q_len: torch.Tensor,  # [B] live query rows
+    kv_pos: torch.Tensor,  # [B, MB*bs]
+    block_tables: torch.Tensor,  # [B, MB]
+    n_blocks: torch.Tensor,  # [B]
+    slot0: torch.Tensor,  # [B] logical slot of the first query
+    layer: int,
+    *,
+    n_cols: int | None = None,
+    scale: float | None = None,
+    window: int | None = None,
+) -> torch.Tensor:
+    """Ragged mixed prefill+decode attention over layer ``layer`` of the
+    block pool: kernel K4 for CUDA tensors, ``ragged_paged_attention_ref``
+    for CPU tensors."""
+    from llmss_tpu_torch.ops import paged_attention as pa
+
+    args = (q, k_pool, v_pool, k_new, v_new, q_pos, q_len, kv_pos,
+            block_tables, n_blocks, slot0)
+    fn = (pa.ragged_paged_attention if _route(*args) == "cuda"
+          else pa.ragged_paged_attention_ref)
+    return fn(*args, layer, n_cols=n_cols, scale=scale, window=window)

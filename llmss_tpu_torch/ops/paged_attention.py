@@ -1,0 +1,212 @@
+"""Kernels K3 and K4: attention over the paged block pool
+(csrc/paged_attention.cu, one template).
+
+- ``paged_decode_attention`` (K3) replaces
+  ``llmss_tpu/ops/pallas_paged_decode.py::paged_decode_attention``:
+  single-token decode over layer ``layer`` of the stale pool, merged with
+  the fresh token's KV.
+- ``ragged_paged_attention`` (K4) replaces
+  ``llmss_tpu/ops/pallas_ragged.py::ragged_paged_attention`` without int8
+  scales: a ``CB``-token query chunk per row, ``q_len`` of them live.
+
+K3 is K4's ``CB == 1`` launch of the same CUDA template, so an all-decode
+K4 call at ``CB == 1`` gives bit-identical outputs. K4 writes zeros for
+query rows past ``q_len`` that share no kernel tile with a live row (chunk
+padding nothing reads); the plain version computes every row, as the
+reference's oracle does, so the two agree on live rows. Both wrappers take
+CUDA tensors only, launch on the current stream and count their launches
+(``paged_decode_attention.launches``, ``ragged_paged_attention.launches``).
+The kernels read ``n_blocks`` (occupied table columns per row) from device
+memory and walk at most ``n_cols`` columns (the bucketed read).
+
+The ``*_ref`` functions are the plain PyTorch versions (the reference's XLA
+oracles, ``ops/attention.py:352`` and ``:503``): gather the row-indirected
+logical view of the first ``n_cols`` columns and run the fp32 fresh-KV
+softmax over it. They read every gathered slot the positions allow, so they
+agree with the kernels when each row's occupied slots are its first
+``n_blocks * bs`` logical slots, which the serving path maintains (no row
+wraps its ring). The kernels round P to the value dtype before the cache's
+P.V, as the Pallas kernels do.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from llmss_tpu_torch.engine.cache import gather_block_view
+from llmss_tpu_torch.ops import _build
+from llmss_tpu_torch.ops.attention import (
+    fresh_kv_decode_attention, ragged_fresh_kv_attention,
+)
+
+HEAD_DIMS = (64, 128, 256)
+DTYPES = (torch.bfloat16, torch.float32)
+SMEM_LIMIT = 232448  # bytes of shared memory one block may use on the H100
+
+
+def paged_decode_attention_ref(
+    q, k_pool, v_pool, k_new, v_new, q_pos, kv_pos, block_tables, n_blocks,
+    slots, layer: int, *, n_cols: int | None = None,
+    scale: float | None = None, window: int | None = None,
+) -> torch.Tensor:
+    del n_blocks  # the oracle reads every gathered slot the mask allows
+    nc = block_tables.shape[1] if n_cols is None else n_cols
+    T = nc * k_pool.shape[2]
+    return fresh_kv_decode_attention(
+        q, gather_block_view(k_pool[layer], block_tables, nc),
+        gather_block_view(v_pool[layer], block_tables, nc), k_new, v_new,
+        q_pos, kv_pos[:, :T], slots, scale=scale, window=window,
+    )
+
+
+def ragged_paged_attention_ref(
+    q, k_pool, v_pool, k_new, v_new, q_pos, q_len, kv_pos, block_tables,
+    n_blocks, slot0, layer: int, *, n_cols: int | None = None,
+    scale: float | None = None, window: int | None = None,
+) -> torch.Tensor:
+    del n_blocks
+    MB = block_tables.shape[1]
+    nc = MB if n_cols is None else n_cols
+    T = nc * k_pool.shape[2]
+    return ragged_fresh_kv_attention(
+        q, gather_block_view(k_pool[layer], block_tables, nc),
+        gather_block_view(v_pool[layer], block_tables, nc), k_new, v_new,
+        q_pos, q_len, kv_pos[:, :T], slot0, MB * k_pool.shape[2],
+        scale=scale, window=window,
+    )
+
+
+def _rows_per_block(n: int) -> int:
+    r = 1
+    while r < min(n, 8):
+        r *= 2
+    return r
+
+
+def _launch(name, q, k_pool, v_pool, k_new, v_new, q_pos, q_len, kv_pos,
+            block_tables, n_blocks, slot0, layer, n_cols, scale, window):
+    """Check the envelope and launch the template; q_len None means K3."""
+    tensors = [q, k_pool, v_pool, k_new, v_new, q_pos, kv_pos, block_tables,
+               n_blocks, slot0] + ([q_len] if q_len is not None else [])
+    if not all(t.is_cuda for t in tensors):
+        raise RuntimeError(f"{name} takes CUDA tensors only")
+    B, CB, Hq, D = q.shape
+    L, Np, bs, Hkv, Dp = k_pool.shape
+    MB = block_tables.shape[1]
+    if q.dtype not in DTYPES or not (
+        q.dtype == k_pool.dtype == v_pool.dtype == k_new.dtype == v_new.dtype
+    ):
+        raise _build.KernelError(
+            f"{name} takes bf16 or fp32 q, pool and fresh KV of one dtype; got "
+            f"{q.dtype}, {k_pool.dtype}, {k_new.dtype}")
+    if D not in HEAD_DIMS or Dp != D or bs % 8 or Hq % Hkv:
+        raise _build.KernelError(
+            f"{name} envelope: head_dim in {HEAD_DIMS}, block_size % 8 == 0, "
+            f"Hq % Hkv == 0; got D={D}, bs={bs}, Hq={Hq}, Hkv={Hkv}")
+    if v_pool.shape != k_pool.shape or k_new.shape != (B, CB, Hkv, D) \
+            or v_new.shape != k_new.shape:
+        raise _build.KernelError(f"{name}: bad pool / fresh KV shapes")
+    if not (k_pool.is_contiguous() and v_pool.is_contiguous()):
+        raise _build.KernelError(f"{name} reads the pool in place: it must be "
+                                 "contiguous")
+    if not 0 <= layer < L:
+        raise _build.KernelError(f"layer {layer} out of range [0, {L})")
+    n_cols = MB if n_cols is None else int(n_cols)
+    if not 0 < n_cols <= MB:
+        raise _build.KernelError(f"n_cols must be in (0, {MB}], got {n_cols}")
+    if window is not None and window <= 0:
+        raise _build.KernelError(f"window must be positive, got {window}")
+    R = _rows_per_block(CB * (Hq // Hkv))
+    smem = 4 * (8 * R * D + 3 * 8 * R + 2 * R + R * CB)
+    if smem > SMEM_LIMIT:
+        raise _build.KernelError(f"{name}: chunk of {CB} needs {smem} bytes of "
+                                 "shared memory")
+    if scale is None:
+        scale = 1.0 / (D ** 0.5)
+
+    def i32(t, shape):
+        return t.to(torch.int32).reshape(shape).contiguous()
+
+    qc, kn, vn = q.contiguous(), k_new.contiguous(), v_new.contiguous()
+    qp, sl = i32(q_pos, (B,)), i32(slot0, (B,))
+    nb = i32(n_blocks, (B,))
+    ql = i32(q_len, (B,)) if q_len is not None else None
+    kvp = i32(kv_pos, (B, -1))
+    bt = i32(block_tables, (B, MB))
+    if kvp.shape[1] != MB * bs:
+        raise _build.KernelError(f"kv_pos must be [B, {MB * bs}]")
+    for t in (qc, k_pool, v_pool, kn, vn):
+        if t.data_ptr() % 16:
+            raise _build.KernelError(f"{name} needs 16-byte aligned tensors")
+    out = torch.empty_like(qc)
+    lib = _build.load("paged_attention")
+    code = lib.llmss_paged_attention(
+        qc.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), kn.data_ptr(),
+        vn.data_ptr(), out.data_ptr(), qp.data_ptr(),
+        ql.data_ptr() if ql is not None else None, kvp.data_ptr(),
+        bt.data_ptr(), nb.data_ptr(), sl.data_ptr(), int(layer), B, CB, Np,
+        bs, MB, n_cols, Hq, Hkv, D, R, _build.dtype_code(q), float(scale),
+        window or 0, _build.stream_ptr(q.device),
+    )
+    _build.check(code, name)
+    return out
+
+
+def paged_decode_attention(
+    q: torch.Tensor,  # [B, 1, Hq, D]
+    k_pool: torch.Tensor,  # [L, N + 1, bs, Hkv, D]
+    v_pool: torch.Tensor,
+    k_new: torch.Tensor,  # [B, 1, Hkv, D]
+    v_new: torch.Tensor,
+    q_pos: torch.Tensor,  # [B, 1]
+    kv_pos: torch.Tensor,  # [B, MB*bs]
+    block_tables: torch.Tensor,  # [B, MB]
+    n_blocks: torch.Tensor,  # [B]
+    slots: torch.Tensor,  # [B, 1]
+    layer: int,
+    *,
+    n_cols: int | None = None,
+    scale: float | None = None,
+    window: int | None = None,
+) -> torch.Tensor:
+    """Launch K3 (the template at CB = 1); returns [B, 1, Hq, D]."""
+    if q.shape[1] != 1:
+        raise _build.KernelError(f"paged_decode_attention is single-token, "
+                                 f"got S={q.shape[1]}")
+    out = _launch("paged_decode_attention (K3)", q, k_pool, v_pool, k_new,
+                  v_new, q_pos, None, kv_pos, block_tables, n_blocks, slots,
+                  layer, n_cols, scale, window)
+    paged_decode_attention.launches += 1
+    return out
+
+
+def ragged_paged_attention(
+    q: torch.Tensor,  # [B, CB, Hq, D]
+    k_pool: torch.Tensor,  # [L, N + 1, bs, Hkv, D]
+    v_pool: torch.Tensor,
+    k_new: torch.Tensor,  # [B, CB, Hkv, D]
+    v_new: torch.Tensor,
+    q_pos: torch.Tensor,  # [B]
+    q_len: torch.Tensor,  # [B]
+    kv_pos: torch.Tensor,  # [B, MB*bs]
+    block_tables: torch.Tensor,  # [B, MB]
+    n_blocks: torch.Tensor,  # [B]
+    slot0: torch.Tensor,  # [B]
+    layer: int,
+    *,
+    n_cols: int | None = None,
+    scale: float | None = None,
+    window: int | None = None,
+) -> torch.Tensor:
+    """Launch K4; returns [B, CB, Hq, D] (rows past q_len are finite
+    padding: zeros, or the reference's values where they share a tile with
+    live rows)."""
+    out = _launch("ragged_paged_attention (K4)", q, k_pool, v_pool, k_new,
+                  v_new, q_pos, q_len, kv_pos, block_tables, n_blocks, slot0,
+                  layer, n_cols, scale, window)
+    ragged_paged_attention.launches += 1
+    return out
+
+
+paged_decode_attention.launches = 0
+ragged_paged_attention.launches = 0

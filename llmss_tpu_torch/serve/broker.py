@@ -1,11 +1,13 @@
 """In-process broker: the subset of llmss_tpu/serve/broker.py (InProcBroker,
-:409) that the batch worker uses.
+:409) that the batch and continuous workers use.
 
 Requests queue FIFO per SLO class and drain in class-priority order;
 responses are correlated by request id; stream increments and cancellation
 flags are per-request channels; the last published metrics snapshot is
-readable. Redis, leases with redelivery and the fleet registry wait for
-later work.
+readable. A popped request is held until its response is pushed, so a
+draining worker can hand back requests it never started
+(``release_requests``). Redis, lease expiry with redelivery and the fleet
+registry wait for later work.
 """
 
 from __future__ import annotations
@@ -35,6 +37,8 @@ class InProcBroker:
         self._streams: dict[str, queue.Queue] = {}  # guarded_by: self._lock
         self._lock = threading.Lock()
         self._metrics: dict = {}
+        # Popped requests awaiting their response (release_requests).
+        self._held: dict[str, GenerateRequest] = {}  # guarded_by: self._req_cond
 
     # -- requests -----------------------------------------------------------
 
@@ -60,6 +64,7 @@ class InProcBroker:
                     self._req_cond.wait(remaining)
                     continue
                 break
+            self._held[req.id] = req
         req.delivery_attempts += 1
         return req
 
@@ -67,11 +72,30 @@ class InProcBroker:
         """Lease renewal: a no-op, since in-process requests are never
         redelivered."""
 
+    def release_requests(self, request_ids) -> int:
+        """Return popped-but-never-started requests to the head of their
+        class queue, refunding the delivery attempt (a draining worker
+        hands them to another worker). Unknown ids are ignored. Returns the
+        number requeued."""
+        n = 0
+        with self._req_cond:
+            for rid in reversed(list(request_ids)):
+                req = self._held.pop(rid, None)
+                if req is None:
+                    continue
+                req.delivery_attempts = max(0, req.delivery_attempts - 1)
+                self._queues[req.slo_class].appendleft(req)
+                n += 1
+            self._req_cond.notify_all()
+        return n
+
     # -- responses ------------------------------------------------------------
 
     def push_response(self, resp: GenerateResponse) -> None:
         """Terminal response: wakes the waiter."""
         now = time.monotonic()
+        with self._req_cond:
+            self._held.pop(resp.id, None)
         with self._cond:
             for rid in [r for r, (t, _) in self._responses.items() if t <= now]:
                 del self._responses[rid]

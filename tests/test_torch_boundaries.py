@@ -16,6 +16,9 @@ from llmss_tpu_torch.ops import _build
 from llmss_tpu_torch.ops import attention as tatt
 from llmss_tpu_torch.ops.decode_attention import decode_attention
 from llmss_tpu_torch.ops.flash_attention import flash_attention
+from llmss_tpu_torch.ops.paged_attention import (
+    paged_decode_attention, ragged_paged_attention,
+)
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "llmss_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
@@ -60,6 +63,20 @@ def test_entry_points_default_to_gpu_and_raise_without_one(no_gpu):
     assert resolve_device("cpu").type == "cpu"
 
 
+def test_batcher_and_worker_default_to_gpu(no_gpu):
+    """The continuous batcher and worker are built on an engine, whose
+    default device is the GPU: without one they cannot be built."""
+    from llmss_tpu_torch.engine.scheduler import ContinuousBatcher
+    from llmss_tpu_torch.serve.broker import InProcBroker
+    from llmss_tpu_torch.serve.consumer import ContinuousWorker
+
+    params = init_params(CFG, seed=0, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ContinuousBatcher(DecodeEngine(CFG, params, kv_layout="paged"), rows=2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ContinuousWorker(DecodeEngine(CFG, params), InProcBroker(), rows=2)
+
+
 def test_cli_defaults_to_gpu(no_gpu, tmp_path):
     from llmss_tpu_torch.cli.generate import main
 
@@ -79,6 +96,15 @@ def test_kernel_wrappers_take_cuda_tensors_only():
     p1 = torch.zeros(1, 1, dtype=torch.int32)
     with pytest.raises(RuntimeError, match="CUDA tensors only"):
         decode_attention(q1, cache, cache, q1, q1, p1, pos, p1, 0)
+    pool = torch.zeros(1, 3, 8, 2, 64)
+    kvp = torch.zeros(1, 16, dtype=torch.int32)
+    bt = torch.zeros(1, 2, dtype=torch.int32)
+    row = torch.zeros(1, dtype=torch.int32)
+    with pytest.raises(RuntimeError, match="CUDA tensors only"):
+        paged_decode_attention(q1, pool, pool, q1, q1, p1, kvp, bt, row, p1, 0)
+    with pytest.raises(RuntimeError, match="CUDA tensors only"):
+        ragged_paged_attention(q1, pool, pool, q1, q1, row, row, kvp, bt, row,
+                               row, 0)
 
 
 def test_dispatch_refuses_other_devices():
@@ -91,6 +117,19 @@ def test_dispatch_refuses_other_devices():
     cpu_pos = torch.zeros(1, 16, dtype=torch.int32)
     with pytest.raises(RuntimeError, match="must all be CUDA"):
         tatt.prefill_attention(q, q, q, pos, cpu_pos)
+    # The paged dispatchers: one tensor elsewhere than the rest raises.
+    q1 = torch.zeros(1, 1, 2, 64)
+    pool = torch.zeros(1, 3, 8, 2, 64, device="meta")
+    kvp = torch.zeros(1, 16, dtype=torch.int32)
+    bt = torch.zeros(1, 2, dtype=torch.int32)
+    row = torch.zeros(1, dtype=torch.int32)
+    p1 = torch.zeros(1, 1, dtype=torch.int32)
+    with pytest.raises(RuntimeError, match="must all be CUDA"):
+        tatt.paged_decode_attention(q1, pool, pool, q1, q1, p1, kvp, bt, row,
+                                    p1, 0)
+    with pytest.raises(RuntimeError, match="must all be CUDA"):
+        tatt.ragged_attention(q1, pool, pool, q1, q1, row, row, kvp, bt, row,
+                              row, 0)
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):
