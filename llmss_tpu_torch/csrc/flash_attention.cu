@@ -8,24 +8,33 @@
 // are fp32; P is rounded to the value dtype before P.V, as in the Pallas
 // kernel. Masked lanes use the finite fp32 minimum (see common.cuh); a row
 // with no visible slot in any live tile ends as 0 (the l == 0 guard).
+// q, k, v and out are read in their [B, S, H, D] layout through strides:
+// no transposed copies.
 //
-// What bounds it on the H100: at prefill shapes (S and T in the hundreds to
-// thousands, D = 128) the work is O(S*T*D) multiply-adds against O((S+T)*D)
-// bytes, so it is bound by arithmetic. This first version does that
-// arithmetic with plain fp32 FMAs from shared memory (no tensor cores; wgmma
-// and TMA are later work), so it runs far below the 989 TFLOP/s bf16 peak.
-// What the design does about it:
-//   * one block per (q tile of 64 rows, q head, batch row), so the grid has
-//     thousands of blocks to spread over 132 SMs;
-//   * a loop over 64-slot KV tiles staged in shared memory replaces the
-//     TPU's sequential grid axis; each K/V element loaded is reused by the
-//     64 query rows of the tile;
-//   * KV tiles that no query row of the tile can see (empty slots, -1,
-//     future positions, or slots behind the window) are skipped before they
-//     are loaded, so a long, mostly empty ring costs little;
-//   * q, k, v and out are read in their [B, S, H, D] layout through strides:
-//     no transposed copies.
+// Two instantiations; the wrapper picks one from the dtype alone and this
+// file refuses any other pairing:
+//
+// bf16 / f16 -> flash_mma, the tensor-core tile of attn_tile.cuh. One
+// block per (64 flat query rows f = s*G + g, KV head, batch row), so the G
+// query heads of a KV head share each K/V tile (GQA). What bounds it on
+// the H100: at the engine's prefill shapes (S 128-512 in a ring of 1024
+// slots, D = 128) a block does a few MFLOP against the K/V bytes of its
+// live tiles, so bytes and launch latency bound it; for a long prompt
+// against itself (S = T = 2048, causal) the S*T*D multiply-adds do, and
+// mma.sync is then the limit short of wgmma. The design: K/V tiles
+// double-buffered by cp.async, so the next live tile's copy overlaps this
+// tile's products; tiles no row can see (empty ring slots, future
+// positions, behind the window) are found from their positions before a
+// copy is issued, so a mostly empty ring costs a read of its positions;
+// Q.K^T and P.V on the tensor cores with fp32 accumulation. Rows must be
+// 16-byte aligned (strides multiples of 8 elements); the wrapper checks.
+//
+// fp32 -> flash_fwd, fp32 FMAs from shared memory (the tensor cores would
+// mean TF32, outside fp32's tolerance): one block per (64-row q tile, q
+// head, batch row) over 64-slot KV tiles staged in shared memory, tiles
+// no query can see skipped before they are loaded.
 
+#include "attn_tile.cuh"
 #include "common.cuh"
 
 #include <limits.h>
@@ -243,16 +252,140 @@ cudaError_t dispatch_d(int D, void* q, void* k, void* v, void* o,
   }
 }
 
+// -- bf16 / f16: the tensor-core tile --------------------------------------
+
+struct MmaArgs {
+  const void* q;
+  const void* k;
+  const void* v;
+  void* o;
+  const int* qpos;   // [B, S]
+  const int* kvpos;  // [B, T]
+  int S, Tn, Hq, Hkv;
+  int st[12];  // element strides (batch, seq, head) of q, k, v, out
+  float scale;
+  int window;
+};
+
+// tile::attend's Source for one block: flat rows f0 .. f0+63 of batch row
+// b and KV head hk over the slots [0, Tn) of k / v.
+template <typename T>
+struct FlashSrc {
+  const T *q, *k, *v;
+  T* o;
+  const int *qpos, *kvpos;  // row b's
+  int Tn, G, hk, f0, nrows;
+  long long q_ss, q_sh, k_ss, v_ss, o_ss, o_sh;
+  int n_tiles, qmax, qmin, window;
+  float scale_log2;
+
+  __device__ bool has(int r) const { return f0 + r < nrows; }
+  __device__ long long q_off(int r, long long ss, long long sh) const {
+    const int f = f0 + r;
+    return (long long)(f / G) * ss + (long long)(hk * G + f % G) * sh;
+  }
+  __device__ const T* q_row(int r) const {
+    return has(r) ? q + q_off(r, q_ss, q_sh) : nullptr;
+  }
+  __device__ int q_pos(int r) const {
+    return has(r) ? qpos[(f0 + r) / G] : -1;
+  }
+  __device__ T* o_row(int r) const {
+    return has(r) ? o + q_off(r, o_ss, o_sh) : nullptr;
+  }
+  __device__ int slot_pos(int t, int j) const {
+    const int x = t * tile::kSlots + j;
+    return x < Tn ? kvpos[x] : -1;
+  }
+  __device__ bool rows(int t, int j, const T*& kr, const T*& vr) const {
+    const int x = t * tile::kSlots + j;
+    if (x >= Tn) return false;
+    kr = k + x * k_ss;
+    vr = v + x * v_ss;
+    return true;
+  }
+  __device__ const T* any_ptr() const { return k; }
+};
+
+template <typename T, int D>
+__global__ void __launch_bounds__(tile::kThreads) flash_mma(MmaArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int b = blockIdx.z, hk = blockIdx.y;
+  FlashSrc<T> s;
+  s.G = a.Hq / a.Hkv;
+  s.hk = hk;
+  s.Tn = a.Tn;
+  s.f0 = blockIdx.x * tile::kRows;
+  s.nrows = a.S * s.G;
+  s.q = static_cast<const T*>(a.q) + (long long)b * a.st[0];
+  s.k = static_cast<const T*>(a.k) + (long long)b * a.st[3] + (long long)hk * a.st[5];
+  s.v = static_cast<const T*>(a.v) + (long long)b * a.st[6] + (long long)hk * a.st[8];
+  s.o = static_cast<T*>(a.o) + (long long)b * a.st[9];
+  s.q_ss = a.st[1];
+  s.q_sh = a.st[2];
+  s.k_ss = a.st[4];
+  s.v_ss = a.st[7];
+  s.o_ss = a.st[10];
+  s.o_sh = a.st[11];
+  s.qpos = a.qpos + (long long)b * a.S;
+  s.kvpos = a.kvpos + (long long)b * a.Tn;
+  s.n_tiles = (a.Tn + tile::kSlots - 1) / tile::kSlots;
+  s.window = a.window;
+  s.scale_log2 = a.scale * 1.4426950408889634f;
+  // Tile-skip bounds: the latest and earliest query of the block (every
+  // warp reduces the same values).
+  int hi = INT_MIN, lo = INT_MAX;
+  for (int r = threadIdx.x % 32; r < tile::kRows; r += 32) {
+    if (!s.has(r)) continue;
+    const int p = s.q_pos(r);
+    hi = max(hi, p);
+    lo = min(lo, p);
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    hi = max(hi, __shfl_xor_sync(0xffffffffu, hi, off));
+    lo = min(lo, __shfl_xor_sync(0xffffffffu, lo, off));
+  }
+  s.qmax = hi;
+  s.qmin = lo;
+  tile::attend<T, D, false>(s, smem);
+}
+
+template <typename T, int D>
+cudaError_t launch_mma(const MmaArgs& a, int B, cudaStream_t stream) {
+  constexpr size_t smem = tile::Smem<D>::bytes;
+  auto kern = flash_mma<T, D>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const int G = a.Hq / a.Hkv;
+  dim3 grid((a.S * G + tile::kRows - 1) / tile::kRows, a.Hkv, B);
+  kern<<<grid, tile::kThreads, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t dispatch_mma(int D, const MmaArgs& a, int B, cudaStream_t s) {
+  switch (D) {
+    case 64: return launch_mma<T, 64>(a, B, s);
+    case 128: return launch_mma<T, 128>(a, B, s);
+    case 256: return launch_mma<T, 256>(a, B, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 }  // namespace llmss
 
 // strides: 12 element strides (batch, seq, head) for q, k, v, out in that
-// order; the feature dim must be contiguous. window <= 0 means full causal.
-// Returns cudaGetLastError() after the launch (0 on success).
+// order; the feature dim must be contiguous. impl: 0 = flash_fwd (fp32
+// only), 1 = flash_mma (bf16 / f16 only; strides multiples of 8, pointers
+// 16-byte aligned). window <= 0 means full causal. Returns
+// cudaGetLastError() after the launch (0 on success).
 extern "C" int llmss_flash_attention(void* q, void* k, void* v, void* o,
                                      void* qpos, void* kvpos, void* strides,
                                      int B, int S, int T, int Hq, int Hkv,
-                                     int D, int dtype, float scale,
+                                     int D, int dtype, int impl, float scale,
                                      int window, void* stream) {
   using namespace llmss;
   if (B == 0 || S == 0) return 0;
@@ -260,22 +393,15 @@ extern "C" int llmss_flash_attention(void* q, void* k, void* v, void* o,
   const int* qp = static_cast<const int*>(qpos);
   const int* kp = static_cast<const int*>(kvpos);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  switch (dtype) {
-    case kF32:
-      err = dispatch_d<float>(D, q, k, v, o, qp, kp, B, S, T, Hq, Hkv, st,
-                              scale, window, s);
-      break;
-    case kBF16:
-      err = dispatch_d<__nv_bfloat16>(D, q, k, v, o, qp, kp, B, S, T, Hq,
-                                      Hkv, st, scale, window, s);
-      break;
-    case kF16:
-      err = dispatch_d<__half>(D, q, k, v, o, qp, kp, B, S, T, Hq, Hkv, st,
-                               scale, window, s);
-      break;
-    default:
-      err = cudaErrorInvalidValue;
+  cudaError_t err = cudaErrorInvalidValue;
+  if (impl == 0 && dtype == kF32) {
+    err = dispatch_d<float>(D, q, k, v, o, qp, kp, B, S, T, Hq, Hkv, st,
+                            scale, window, s);
+  } else if (impl == 1 && (dtype == kBF16 || dtype == kF16)) {
+    MmaArgs a{q, k, v, o, qp, kp, S, T, Hq, Hkv, {}, scale, window};
+    for (int i = 0; i < 12; ++i) a.st[i] = st[i];
+    err = dtype == kBF16 ? dispatch_mma<__nv_bfloat16>(D, a, B, s)
+                         : dispatch_mma<__half>(D, a, B, s);
   }
   return static_cast<int>(err);
 }

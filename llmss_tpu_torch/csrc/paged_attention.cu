@@ -1,4 +1,4 @@
-// K3 and K4: attention over the paged KV block pool, from one template.
+// K3 and K4: attention over the paged KV block pool.
 //
 // Replaces two TPU kernels:
 //   * llmss_tpu/ops/pallas_paged_decode.py::paged_decode_attention (K3):
@@ -6,10 +6,6 @@
 //   * llmss_tpu/ops/pallas_ragged.py::ragged_paged_attention (K4): a
 //     CB-token query chunk per row of which q_len are live (1 for decode
 //     rows, up to CB for rows streaming a prompt), without int8 scales.
-// K3 is this template launched with CB = 1 (q_len = 1, slot0 = the decode
-// slot): the ragged masks then reduce exactly to the decode masks, so an
-// all-decode batch through K4 at CB = 1 runs the same instantiation, grid
-// and instruction sequence as K3 and gives bit-identical outputs.
 //
 // Function, for row b, KV head hk, query i < CB of the chunk and query head
 // h = hk*G + g: one softmax over
@@ -32,13 +28,36 @@
 // Numerics follow the Pallas kernels: fp32 scores and running max / sum /
 // accumulators, masked scores at the finite fp32 minimum, probabilities of
 // masked slots exactly 0, P rounded to the value dtype before the cache's
-// P.V, fresh V applied in fp32.
+// P.V.
 //
-// What bounds it on the H100: memory. Each (row, KV head) needs the live
-// blocks of the row once (q_len * G query rows share them), plus q, the
-// fresh KV and the output; at decode that is ~4 flops per KV byte per query
-// head, far below the ~295 flops per byte where the tensor cores would be
-// the limit. The design, a correct first version:
+// Two instantiations; the wrapper picks one from the dtype and CB alone and
+// this file refuses any other pairing:
+//
+// bf16 at CB > 1 (K4 with prompt chunks) -> paged_mma, the tensor-core
+// tile of attn_tile.cuh. What bounds it on the H100: bytes. Each (row, KV
+// head) needs the row's live blocks once, shared by its q_len*G query
+// rows; at the serve shapes that read is the whole bound, far under the
+// ~295 flops per byte where the tensor cores would limit. The design: one
+// block per (row, KV head, 64 flat query rows f = i*G + g), so a chunk of
+// 128 queries streams its row's KV twice (once per tile) where the lane
+// template's 8-row tiles streamed it 16 times; each 64-slot tile is
+// gathered through block_tables by one cp.async per 16 bytes of a slot
+// row, double-buffered so the next tile's copy overlaps this tile's
+// products; tiles no row can see are skipped before their copy; the fresh
+// keys follow as trailing tiles of <= 64 keys read from k_new / v_new on
+// the same tensor-core loop. Their P is therefore rounded to bf16 like the
+// cache's, where the Pallas kernel applies fresh V in fp32: one more
+// rounding of P, which chip_smoke.py's 2^-7 relative tolerance already
+// bounds (its derivation assumes every P is rounded).
+//
+// fp32 at any CB, and CB == 1 (K3, and K4 all-decode) -> paged_fwd, the
+// lane template below (fp32 on the tensor cores would mean TF32). K3 is
+// its CB = 1 launch: the ragged masks then reduce exactly to the decode
+// masks, so an all-decode batch through K4 at CB = 1 runs the same
+// instantiation, grid and instruction sequence as K3 and gives
+// bit-identical outputs. Here the fresh V is applied in fp32. At decode
+// each (row, KV head) reads the row's live blocks for G query heads, ~4
+// flops per KV byte, so bytes bound it too. Its design:
 //   * one block per (row, KV head, tile of R <= 8 of the CB*G query rows);
 //     the block walks the row's table columns itself (the TPU's sequential
 //     (row, column) grid becomes a loop), reading the stacked pool in place
@@ -49,10 +68,10 @@
 //     partial states merge by shuffles, then through shared memory, where
 //     the fresh keys are folded in, up to the last key any row of the tile
 //     can see (one key for a decode row).
-// Later work: tensor cores for long chunks (a K1-style tile), cp.async/TMA
-// double buffering, and a split over table columns when B*Hkv leaves SMs
-// idle at small batch.
+// Later work: a split over table columns when B*Hkv leaves SMs idle at
+// small batch (flash-decoding), for the GQA decode case.
 
+#include "attn_tile.cuh"
 #include "common.cuh"
 
 namespace llmss {
@@ -384,20 +403,153 @@ cudaError_t dispatch_d(int D, int R, const Args& a, cudaStream_t s) {
   }
 }
 
+// -- bf16 at CB > 1: the tensor-core tile ----------------------------------
+
+// tile::attend's Source for one block: flat rows f0 .. f0+63 of row b and
+// KV head hk. Tiles [0, n_cache) gather the pool through the row's table
+// (slots past t_end zero-filled, pending or empty ones hidden by position
+// -1); the rest read the fresh keys jj < jmax, whose position is qp + jj.
+template <int D>
+struct PagedSrc {
+  using T = __nv_bfloat16;
+  const T *q, *kp, *vp, *kn, *vn;
+  T* o;
+  const int *kvp, *bt;  // row b's positions and table
+  int b, hk, G, f0, nrows, CB, Hq, Hkv, qp, ql, sl0, ring, t_end, jmax;
+  int bs, last_blk, n_cache;
+  long long base, blk_stride, slot_stride;
+  int n_tiles, qmax, qmin, window;
+  float scale_log2;
+
+  __device__ bool has(int r) const { return f0 + r < nrows; }
+  __device__ long long q_off(int r) const {
+    const int f = f0 + r;
+    return ((long long)(b * CB + f / G) * Hq + hk * G + f % G) * D;
+  }
+  __device__ const T* q_row(int r) const { return has(r) ? q + q_off(r) : nullptr; }
+  __device__ int q_pos(int r) const { return has(r) ? qp + (f0 + r) / G : -1; }
+  __device__ T* o_row(int r) const { return has(r) ? o + q_off(r) : nullptr; }
+  __device__ int slot_pos(int t, int j) const {
+    if (t >= n_cache) {
+      const int jj = (t - n_cache) * tile::kSlots + j;
+      return jj < jmax ? qp + jj : -1;
+    }
+    const int x = t * tile::kSlots + j;
+    if (x >= t_end) return -1;
+    int d = x - sl0;
+    if (d < 0) d += ring;
+    return d >= ql ? kvp[x] : -1;
+  }
+  __device__ bool rows(int t, int j, const T*& kr, const T*& vr) const {
+    long long off;
+    if (t >= n_cache) {
+      const int jj = (t - n_cache) * tile::kSlots + j;
+      if (jj >= jmax) return false;
+      off = ((long long)(b * CB + jj) * Hkv + hk) * D;
+      kr = kn + off;
+      vr = vn + off;
+      return true;
+    }
+    const int x = t * tile::kSlots + j;
+    if (x >= t_end) return false;
+    const int blk = min(bt[x / bs], last_blk);
+    off = base + blk * blk_stride + (long long)(x % bs) * slot_stride;
+    kr = kp + off;
+    vr = vp + off;
+    return true;
+  }
+  __device__ const T* any_ptr() const { return kn; }
+};
+
+template <int D>
+__global__ void __launch_bounds__(tile::kThreads) paged_mma(Args a) {
+  using T = __nv_bfloat16;
+  extern __shared__ __align__(16) unsigned char tile_smem[];
+  const int b = blockIdx.x, hk = blockIdx.y;
+  PagedSrc<D> s;
+  s.G = a.Hq / a.Hkv;
+  s.b = b;
+  s.hk = hk;
+  s.CB = a.CB;
+  s.Hq = a.Hq;
+  s.Hkv = a.Hkv;
+  s.f0 = blockIdx.z * tile::kRows;
+  s.nrows = a.CB * s.G;
+  s.ql = a.qlen[b];
+  const int i_lo = s.f0 / s.G;
+  const int i_hi = (min(s.f0 + tile::kRows, s.nrows) - 1) / s.G;
+  s.q = static_cast<const T*>(a.q);
+  s.o = static_cast<T*>(a.o);
+  if (i_lo >= s.ql) {  // a tile of chunk padding only: nobody reads it
+    for (int idx = threadIdx.x; idx < tile::kRows * D; idx += tile::kThreads) {
+      const int r = idx / D;
+      if (s.has(r)) s.o[s.q_off(r) + idx % D] = from_f<T>(0.f);
+    }
+    return;
+  }
+  s.kp = static_cast<const T*>(a.kp);
+  s.vp = static_cast<const T*>(a.vp);
+  s.kn = static_cast<const T*>(a.kn);
+  s.vn = static_cast<const T*>(a.vn);
+  s.qp = a.qpos[b];
+  s.sl0 = a.slot0[b];
+  s.ring = a.MB * a.bs;
+  s.bs = a.bs;
+  s.t_end = min(max(a.nblk[b], 0), a.n_cols) * a.bs;
+  s.jmax = min(s.ql, i_hi + 1);  // fresh keys past it: invisible to all rows
+  s.kvp = a.kvpos + (long long)b * s.ring;
+  s.bt = a.tables + (long long)b * a.MB;
+  s.last_blk = a.Np - 2;  // N - 1: block N is the write drop target
+  s.slot_stride = (long long)a.Hkv * D;
+  s.blk_stride = (long long)a.bs * s.slot_stride;
+  s.base = (long long)a.layer * a.Np * s.blk_stride + (long long)hk * D;
+  s.n_cache = (s.t_end + tile::kSlots - 1) / tile::kSlots;
+  s.n_tiles = s.n_cache + (s.jmax + tile::kSlots - 1) / tile::kSlots;
+  s.qmax = s.qp + i_hi;
+  s.qmin = s.qp + i_lo;
+  s.window = a.window;
+  s.scale_log2 = a.scale * 1.4426950408889634f;
+  tile::attend<T, D, true>(s, tile_smem);
+}
+
+template <int D>
+cudaError_t launch_mma(const Args& a, cudaStream_t stream) {
+  constexpr size_t smem = tile::Smem<D>::bytes;
+  auto kern = paged_mma<D>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const int rows = a.CB * (a.Hq / a.Hkv);
+  dim3 grid(a.B, a.Hkv, (rows + tile::kRows - 1) / tile::kRows);
+  kern<<<grid, tile::kThreads, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+cudaError_t dispatch_mma(int D, const Args& a, cudaStream_t s) {
+  switch (D) {
+    case 64: return launch_mma<64>(a, s);
+    case 128: return launch_mma<128>(a, s);
+    case 256: return launch_mma<256>(a, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 }  // namespace llmss
 
 // q [B,CB,Hq,D], pools [L,Np,bs,Hkv,D] (block Np-1 is the write drop
 // target; table entries are clamped to Np-2), k_new / v_new [B,CB,Hkv,D],
-// out [B,CB,Hq,D], all contiguous; q_pos / q_len / n_blocks / slot0 [B],
-// kv_pos [B,MB*bs] and tables [B,MB] int32. q_len null means every row has
-// one live query (K3). R (1, 2, 4 or 8) query rows per block. window <= 0
-// means full causal. Returns cudaGetLastError() after the launch.
+// out [B,CB,Hq,D], all contiguous and 16-byte aligned; q_pos / q_len /
+// n_blocks / slot0 [B], kv_pos [B,MB*bs] and tables [B,MB] int32. q_len
+// null means every row has one live query (K3). impl: 0 = paged_fwd with R
+// (1, 2, 4 or 8) query rows per block, for fp32 or CB == 1; 1 = paged_mma,
+// for bf16 at CB > 1 (q_len required). window <= 0 means full causal.
+// Returns cudaGetLastError() after the launch.
 extern "C" int llmss_paged_attention(
     void* q, void* kp, void* vp, void* kn, void* vn, void* o, void* qpos,
     void* qlen, void* kvpos, void* tables, void* nblk, void* slot0, int layer,
     int B, int CB, int Np, int bs, int MB, int n_cols, int Hq, int Hkv, int D,
-    int R, int dtype, float scale, int window, void* stream) {
+    int R, int dtype, int impl, float scale, int window, void* stream) {
   using namespace llmss;
   if (B == 0) return 0;
   Args a{q, kp, vp, kn, vn, o,
@@ -406,11 +558,13 @@ extern "C" int llmss_paged_attention(
          static_cast<const int*>(nblk), static_cast<const int*>(slot0),
          layer, B, CB, Np, bs, MB, n_cols, Hq, Hkv, scale, window};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  switch (dtype) {
-    case kF32: err = dispatch_d<float>(D, R, a, s); break;
-    case kBF16: err = dispatch_d<__nv_bfloat16>(D, R, a, s); break;
-    default: err = cudaErrorInvalidValue;
+  const bool mma = dtype == kBF16 && CB > 1;
+  cudaError_t err = cudaErrorInvalidValue;
+  if (impl == 1 && mma && qlen != nullptr) {
+    err = dispatch_mma(D, a, s);
+  } else if (impl == 0 && !mma) {
+    if (dtype == kF32) err = dispatch_d<float>(D, R, a, s);
+    if (dtype == kBF16) err = dispatch_d<__nv_bfloat16>(D, R, a, s);
   }
   return static_cast<int>(err);
 }

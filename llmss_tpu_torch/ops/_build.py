@@ -35,6 +35,9 @@ NVCC_FLAGS = (
 
 # dtype codes of csrc/common.cuh
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+# instantiation codes of the entry points' ``impl`` argument
+IMPL_CODES = {"lanes": 0, "fma": 0, "mma": 1}
+SMEM_LIMIT = 232448  # bytes of shared memory one block may use on the H100
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -42,6 +45,13 @@ _libs: dict[str, ctypes.CDLL] = {}
 
 class KernelError(RuntimeError):
     """A kernel failed to build or to launch."""
+
+
+def tile_smem_bytes(D: int) -> int:
+    """Shared memory of one block of the tensor-core tile (csrc/
+    attn_tile.cuh ``Smem<D>``): Q and double-buffered K and V tiles of 64
+    rows of D + 8 16-bit elements, and two stages of 64 int32 positions."""
+    return 2 * 5 * 64 * (D + 8) + 2 * 64 * 4
 
 
 def _nvcc() -> str:
@@ -110,8 +120,9 @@ def _declare(lib: ctypes.CDLL, name: str) -> None:
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     if name == "flash_attention":
         fn = lib.llmss_flash_attention
-        # q k v out qpos kvpos strides | B S T Hq Hkv D dtype | scale window stream
-        fn.argtypes = [P] * 7 + [I] * 7 + [F, I, P]
+        # q k v out qpos kvpos strides | B S T Hq Hkv D dtype impl | scale
+        # window stream
+        fn.argtypes = [P] * 7 + [I] * 8 + [F, I, P]
     elif name == "decode_attention":
         fn = lib.llmss_decode_attention
         # q kc vc kn vn out qpos kvpos slots | layer B T t_len Hq Hkv D GB dtype
@@ -120,8 +131,8 @@ def _declare(lib: ctypes.CDLL, name: str) -> None:
     elif name == "paged_attention":
         fn = lib.llmss_paged_attention
         # q kp vp kn vn out qpos qlen kvpos tables nblk slot0 | layer B CB Np
-        # bs MB n_cols Hq Hkv D R dtype | scale window stream
-        fn.argtypes = [P] * 12 + [I] * 12 + [F, I, P]
+        # bs MB n_cols Hq Hkv D R dtype impl | scale window stream
+        fn.argtypes = [P] * 12 + [I] * 13 + [F, I, P]
     fn.restype = ctypes.c_int
 
 

@@ -8,6 +8,13 @@ Replaces ``llmss_tpu/ops/pallas_attention.py::flash_attention``.
 card. Numerics: the kernel rounds P to the value dtype before P.V (as the
 Pallas kernel does) where the plain version stays in fp32, so the two agree
 to within the value dtype's rounding.
+
+Two instantiations, chosen by ``kernel_plan`` from the dtype alone:
+``"mma"`` (the tensor-core tile, csrc/attn_tile.cuh) for bf16 and f16,
+``"fma"`` (fp32 FMAs) for fp32. The mma instantiation copies 16-byte rows
+with cp.async, so every stride of q, k and v must be a multiple of 8
+elements; a call it cannot take raises ``KernelError`` and no other
+instantiation is tried.
 """
 
 from __future__ import annotations
@@ -20,6 +27,20 @@ from llmss_tpu_torch.ops import _build
 from llmss_tpu_torch.ops.attention import attention, make_causal_mask
 
 HEAD_DIMS = (64, 128, 256)
+MMA_DTYPES = (torch.bfloat16, torch.float16)
+
+
+def kernel_plan(dtype: torch.dtype, D: int) -> tuple[str, int]:
+    """The instantiation a K1 launch takes and the shared memory one of its
+    blocks needs, in bytes: ``"mma"`` for bf16 / f16, ``"fma"`` for fp32
+    (64 query rows and two 64-slot tiles of D + 1 floats, the 64 x 68
+    probability tile, 128 positions)."""
+    if dtype in MMA_DTYPES:
+        return "mma", _build.tile_smem_bytes(D)
+    if dtype == torch.float32:
+        return "fma", 4 * (192 * (D + 1) + 64 * 68 + 128)
+    raise _build.KernelError(f"flash_attention (K1) takes bf16, f16 or fp32, "
+                             f"got {dtype}")
 
 
 def flash_attention_ref(
@@ -40,6 +61,20 @@ def _strides(t: torch.Tensor) -> tuple[int, int, int]:
     if t.stride(-1) != 1:
         raise ValueError("flash_attention needs a contiguous feature dim")
     return t.stride(0), t.stride(1), t.stride(2)
+
+
+def launch_strides(q, k, v, out, impl: str) -> tuple[int, ...]:
+    """The 12 element strides (batch, seq, head) of q, k, v and out that
+    the kernel reads; the mma instantiation's 16-byte copies need each to
+    be a multiple of 8 elements."""
+    st = (*_strides(q), *_strides(k), *_strides(v), *_strides(out))
+    if max(st) >= 2 ** 31:
+        raise ValueError("tensor too large for 32-bit strides")
+    if impl == "mma" and any(x % 8 for x in st):
+        raise _build.KernelError(
+            f"flash_attention (K1) mma instantiation needs strides that are "
+            f"multiples of 8 elements (16-byte rows), got {st}")
+    return st
 
 
 def flash_attention(
@@ -73,20 +108,24 @@ def flash_attention(
     kvp = kv_positions.to(torch.int32).contiguous()
     if qp.shape != (B, S) or kvp.shape != (B, T):
         raise ValueError("positions must be [B, S] and [B, T]")
+    impl, smem = kernel_plan(q.dtype, D)
+    if smem > _build.SMEM_LIMIT:
+        raise _build.KernelError(f"flash_attention (K1): the {impl} "
+                                 f"instantiation needs {smem} bytes of shared "
+                                 "memory")
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
-    st = (*_strides(q), *_strides(k), *_strides(v), *_strides(out))
-    if max(st) >= 2 ** 31:
-        raise ValueError("tensor too large for 32-bit strides")
+    st = launch_strides(q, k, v, out, impl)
     for t in (q, k, v):
         if t.data_ptr() % 16:
-            raise ValueError("flash_attention needs 16-byte aligned tensors")
+            raise _build.KernelError("flash_attention needs 16-byte aligned "
+                                     "tensors")
     strides = (ctypes.c_int * 12)(*st)
     lib = _build.load("flash_attention")
     code = lib.llmss_flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         qp.data_ptr(), kvp.data_ptr(), ctypes.addressof(strides),
-        B, S, T, Hq, Hkv, D, _build.dtype_code(q), float(scale),
-        window or 0, _build.stream_ptr(q.device),
+        B, S, T, Hq, Hkv, D, _build.dtype_code(q), _build.IMPL_CODES[impl],
+        float(scale), window or 0, _build.stream_ptr(q.device),
     )
     _build.check(code, "flash_attention")
     flash_attention.launches += 1

@@ -9,8 +9,14 @@
   ``llmss_tpu/ops/pallas_ragged.py::ragged_paged_attention`` without int8
   scales: a ``CB``-token query chunk per row, ``q_len`` of them live.
 
-K3 is K4's ``CB == 1`` launch of the same CUDA template, so an all-decode
-K4 call at ``CB == 1`` gives bit-identical outputs. K4 writes zeros for
+Two instantiations, chosen by ``kernel_plan`` from the dtype and ``CB``
+alone: ``"mma"`` (the tensor-core tile, csrc/attn_tile.cuh) for bf16 at
+``CB > 1``, ``"lanes"`` (the lane template) for fp32 and for ``CB == 1``.
+K3 is the lane template's ``CB == 1`` launch, so an all-decode K4 call at
+``CB == 1`` gives bit-identical outputs. A call the chosen instantiation
+cannot take raises ``KernelError``; no other instantiation is tried. The
+mma instantiation applies the fresh keys' P rounded to bf16, like the
+cache's; the lane template applies fresh V in fp32. K4 writes zeros for
 query rows past ``q_len`` that share no kernel tile with a live row (chunk
 padding nothing reads); the plain version computes every row, as the
 reference's oracle does, so the two agree on live rows. Both wrappers take
@@ -41,7 +47,6 @@ from llmss_tpu_torch.ops.attention import (
 
 HEAD_DIMS = (64, 128, 256)
 DTYPES = (torch.bfloat16, torch.float32)
-SMEM_LIMIT = 232448  # bytes of shared memory one block may use on the H100
 
 
 def paged_decode_attention_ref(
@@ -83,6 +88,16 @@ def _rows_per_block(n: int) -> int:
     return r
 
 
+def kernel_plan(dtype: torch.dtype, CB: int, G: int, D: int) -> tuple[str, int]:
+    """The instantiation a K3 / K4 launch takes and the shared memory one
+    of its blocks needs, in bytes: ``"mma"`` for bf16 at ``CB > 1``, else
+    ``"lanes"`` (R <= 8 of the ``CB * G`` flat query rows per block)."""
+    if dtype == torch.bfloat16 and CB > 1:
+        return "mma", _build.tile_smem_bytes(D)
+    R = _rows_per_block(CB * G)
+    return "lanes", 4 * (8 * R * D + 3 * 8 * R + 2 * R + R * CB)
+
+
 def _launch(name, q, k_pool, v_pool, k_new, v_new, q_pos, q_len, kv_pos,
             block_tables, n_blocks, slot0, layer, n_cols, scale, window):
     """Check the envelope and launch the template; q_len None means K3."""
@@ -116,11 +131,10 @@ def _launch(name, q, k_pool, v_pool, k_new, v_new, q_pos, q_len, kv_pos,
         raise _build.KernelError(f"n_cols must be in (0, {MB}], got {n_cols}")
     if window is not None and window <= 0:
         raise _build.KernelError(f"window must be positive, got {window}")
-    R = _rows_per_block(CB * (Hq // Hkv))
-    smem = 4 * (8 * R * D + 3 * 8 * R + 2 * R + R * CB)
-    if smem > SMEM_LIMIT:
-        raise _build.KernelError(f"{name}: chunk of {CB} needs {smem} bytes of "
-                                 "shared memory")
+    impl, smem = kernel_plan(q.dtype, CB, Hq // Hkv, D)
+    if smem > _build.SMEM_LIMIT:
+        raise _build.KernelError(f"{name}: the {impl} instantiation at chunk "
+                                 f"{CB} needs {smem} bytes of shared memory")
     if scale is None:
         scale = 1.0 / (D ** 0.5)
 
@@ -145,7 +159,8 @@ def _launch(name, q, k_pool, v_pool, k_new, v_new, q_pos, q_len, kv_pos,
         vn.data_ptr(), out.data_ptr(), qp.data_ptr(),
         ql.data_ptr() if ql is not None else None, kvp.data_ptr(),
         bt.data_ptr(), nb.data_ptr(), sl.data_ptr(), int(layer), B, CB, Np,
-        bs, MB, n_cols, Hq, Hkv, D, R, _build.dtype_code(q), float(scale),
+        bs, MB, n_cols, Hq, Hkv, D, _rows_per_block(CB * (Hq // Hkv)),
+        _build.dtype_code(q), _build.IMPL_CODES[impl], float(scale),
         window or 0, _build.stream_ptr(q.device),
     )
     _build.check(code, name)
