@@ -12,13 +12,18 @@ exits non-zero without printing a result:
               (paged decode) and K4 (ragged paged attention) against their
               plain PyTorch versions on the card, at the Llama-2-7B path
               shapes plus GQA / padding / ring-wrap / window / empty-row /
-              tile-edge / block-size / head-dim / dtype cases, with kernel,
-              plain, bound and library (scaled_dot_product_attention, timed
-              as a yardstick only) times and the instantiation each case
-              took ("mma": the tensor-core tile; "fma" / "lanes": the fp32
-              and CB = 1 kernels);
+              long-row / tile-edge / block-size / head-dim / dtype cases,
+              with kernel, plain, bound and library
+              (scaled_dot_product_attention, timed as a yardstick only)
+              times, the instantiation each case took ("mma": the
+              tensor-core tile; "fma" / "lanes": the fp32 and CB = 1
+              kernels) and, for K2 / K3, its split along the KV axis
+              (flash-decoding: "splits", "split_slots") beside the same
+              call launched unsplit ("unsplit_ms", checked too);
 4. reference -- a tiny fp32 llama generates the same greedy tokens through
               the kernels on the card as through the plain path on the CPU;
+   reference_paged -- the same through the continuous batcher over the
+              paged pool, with split admission and with chunked prefill;
 5. engine  -- Llama-2-7B width (hidden 4096, 32 layers, 32 heads, head_dim
               128, intermediate 11008, vocab 32000), random weights from a
               seed, bf16, max_seq_len 1024, batch 4: grouped decode
@@ -29,11 +34,19 @@ exits non-zero without printing a result:
               device kernel time, idle share, top kernels;
 6. serve   -- the port's batch Worker over its in-process broker answers 4
               requests (2 greedy, 1 top-k/top-p sampled, 1 streamed);
+   serve_continuous -- the serving main path: ContinuousWorker at
+              Llama-2-7B width answers 16 requests three times (split
+              admission, chunked prefill, chunked again: same tokens);
+   profile -- one paged decode group and one ragged group;
 7. cli     -- writes a 2-layer llama checkpoint at 1b2 width
               (safetensors + config.json) and runs the port's CLI on it.
 
 Then one JSON line with every kernel's numbers, the nvidia-smi line, and
 last the result line {"ok": true, "device": {...}}.
+
+Kernel and library times are device times of one call from CUDA-graph
+replays (``device_ms``); plain versions' times are summed kernel
+durations from torch.profiler (``profiled_ms``).
 """
 
 from __future__ import annotations
@@ -95,17 +108,42 @@ def _kernel_rows(prof):
     )
 
 
-def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean device time of one call: the summed duration of every kernel
-    it launches, from torch.profiler. Host launch gaps are excluded, so a
-    ~10 us kernel is not timed at the rate Python can launch it."""
+def device_ms(fn, iters: int = 20, warmup: int = 3, reps: int = 5) -> float:
+    """Device time of one call: ``iters`` calls captured in one CUDA graph,
+    each replay timed with CUDA events; the median of ``reps`` replays,
+    over ``iters``. Host launch gaps are excluded, so a ~10 us kernel is
+    not timed at the rate Python can launch it; the device's gaps between
+    one call's kernels (a split kernel and its merge) are included."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    times = []
+    for _ in range(reps):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / iters)
+    del graph
+    return sorted(times)[reps // 2]
+
+
+def profiled_ms(fn, iters: int = 5, warmup: int = 2) -> float:
+    """Mean summed duration of the kernels one call launches, from
+    torch.profiler: for the plain versions, whose many small kernels are
+    not all capturable in a graph."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    # A profile that recorded no kernel (seen once for a call that launches
-    # several) is a lost trace, not a free call: profile again.
+    # A profile that recorded no kernel is a lost trace: profile again.
     for _ in range(3):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
@@ -165,17 +203,27 @@ def phase_build() -> None:
     text = "\n".join(out.values())
     regs = [int(n) for n in re.findall(r"Used (\d+) registers", text)]
     spills = [int(n) for n in re.findall(r"(\d+) bytes spill stores", text)]
-    # The tensor-core instantiations, one entry each: ptxas reports the
-    # entry's name, then its spills, then its registers.
-    mma = re.findall(r"entry function '\w*?(\w{5}_mma\w*?)EEEv\w*' for[^\n]*\n"
-                     r"[^\n]*\n\s*\d+ bytes stack frame, (\d+) bytes spill "
-                     r"stores[^\n]*\n[^\n]*Used (\d+) registers", text)
+    # Every instantiation: ptxas reports the entry's name, then its
+    # spills, then its registers. Listed: the tensor-core ones, and the
+    # bf16 D 128 lane-template and merge ones that the decode paths run.
+    name = r"(?:\w{5}_mma|(?:flash|paged|decode)_fwd|split_merge)"
+    entries = re.findall(
+        rf"entry function '\w*?({name}\w*?)EEEv\w*' for[^\n]*\n[^\n]*\n"
+        r"\s*\d+ bytes stack frame, (\d+) bytes spill stores[^\n]*\n[^\n]*"
+        r"Used (\d+) registers", text)
+
+    def listed(kernels):
+        return [{"kernel": k, "registers": int(r), "spill_store_bytes": int(sp)}
+                for k, sp, r in entries if kernels(k)]
+
     emit({"phase": "build", "seconds": round(secs, 3),
           "sources": sorted(out), "max_registers": max(regs, default=None),
           "kernels_with_spills": sum(1 for n in spills if n > 0),
-          "mma_instantiations": [
-              {"kernel": k, "registers": int(r), "spill_store_bytes": int(sp)}
-              for k, sp, r in mma]})
+          "mma_instantiations": listed(lambda k: "_mma" in k),
+          "decode_instantiations": listed(
+              lambda k: "_mma" not in k and "nv_bfloat16Li128" in k),
+          "spilling": [{"kernel": k, "spill_store_bytes": int(sp)}
+                       for k, sp, _ in entries if int(sp) > 0]})
 
 
 # -- phase 3 -------------------------------------------------------------------
@@ -270,19 +318,42 @@ def _main_path_impl(kernel, row, want="mma") -> None:
                              f"{row['impl']}, want {want}")
 
 
-def check_kernels() -> dict:
-    """K1 / K2 against their plain (fp32) versions, within REL_TOL. The
-    first case of each list is the shape the engine phase gives the kernel
-    (prompts of 128/100/77/128 tokens padded to 128, decode in the 192-slot
-    bucket); its numbers go into the final kernels line."""
-    from llmss_tpu_torch.ops import attention as att
-    from llmss_tpu_torch.ops import decode_attention as da
-    from llmss_tpu_torch.ops import flash_attention as fa
+# At a main-path decode shape the plan may be no slower than the unsplit
+# kernel beyond the spread of graph replays within one run.
+SPLIT_MARGIN = 1.05
 
-    engine_lens = [128, 100, 77, 128]
-    out = {}
-    k1_cases = [
-        _k1_case("k1_engine_prefill", 4, 128, 1024, 32, 32, lens=engine_lens),
+
+def _main_path_split(kernel, row, split: bool) -> None:
+    """The plan at a main-path decode shape: split along the KV axis or
+    not, as wanted, and no slower than the unsplit kernel."""
+    if (row["splits"] > 1) != split:
+        raise AssertionError(f"{kernel} {row['case']}: {row['splits']} "
+                             f"split(s), want {'>1' if split else '1'}")
+    if row["ms"] > SPLIT_MARGIN * row["unsplit_ms"]:
+        raise AssertionError(f"{kernel} {row['case']}: {row['ms']} ms split, "
+                             f"{row['unsplit_ms']} unsplit")
+
+
+def _unsplit(row, fn, check) -> None:
+    """Time ``fn``, the same K2 / K3 call launched unsplit (max_splits=1),
+    into ``row["unsplit_ms"]`` after ``check`` held its output within
+    REL_TOL; a call the plan does not split is its own unsplit time."""
+    if row["splits"] == 1:
+        row["unsplit_ms"] = row["ms"]
+        return
+    check(fn())
+    row["unsplit_ms"] = device_ms(fn, iters=50)
+
+
+ENGINE_LENS = [128, 100, 77, 128]  # the engine phase's prompts
+SERVE_CTX = [700, 45, 300, 812, 128, 33, 560, 400]  # its serve decode rows
+
+
+def k1_cases() -> list[dict]:
+    """K1's cases; the first is the engine phase's prefill (prompts of
+    128/100/77/128 tokens padded to 128)."""
+    return [
+        _k1_case("k1_engine_prefill", 4, 128, 1024, 32, 32, lens=ENGINE_LENS),
         _k1_case("k1_7b_padded", 4, 512, 1024, 32, 32,
                  lens=[512, 400, 301, 512]),
         _k1_case("k1_gqa", 4, 512, 1024, 32, 8, lens=[512, 256, 511, 77],
@@ -301,8 +372,47 @@ def check_kernels() -> dict:
         _k1_case("k1_d64_gqa", 2, 100, 160, 8, 2, lens=[100, 61], seed=4,
                  D=64),
     ]
+
+
+def k2_cases() -> list[dict]:
+    """K2's cases; the first is the engine phase's decode in its 192-slot
+    bucket."""
+    return [
+        # The engine phase's batch 40 steps into decode, in its bucket.
+        _k2_case("k2_engine_decode", 4, 1024, 32, 32,
+                 [n + 40 for n in ENGINE_LENS], 192, seed=5),
+        # t_len < T: a live row, a half-full row, an empty row, a row at
+        # the bucket's edge.
+        _k2_case("k2_7b_tlen", 4, 1024, 32, 32, [600, 300, 0, 639], 640),
+        # t_len = T: wrapped rows (the pending slot holds the token being
+        # overwritten and must be excluded).
+        _k2_case("k2_7b_full_wrap", 4, 1024, 32, 32, [1000, 1500, 0, 2047],
+                 1024, seed=1),
+        _k2_case("k2_gqa", 4, 1024, 32, 8, [1023, 1300, 5, 0], 1024, seed=2),
+        _k2_case("k2_window", 2, 1024, 32, 8, [900, 1800], 1024,
+                 window=256, seed=3),
+        _k2_case("k2_d256_fp32", 3, 256, 8, 4, [300, 1000, 0], 256, seed=4,
+                 D=256, dt=torch.float32),
+        # One row over the whole (wrapped) ring: the unsplit grid had 8
+        # (GQA) or 32 (MHA) blocks for 132 SMs.
+        _k2_case("k2_b1_gqa_full", 1, 1024, 32, 8, [1024], 1024, seed=6),
+        _k2_case("k2_b1_mha_full", 1, 1024, 32, 32, [1536], 1024, seed=7),
+    ]
+
+
+def check_kernels() -> dict:
+    """K1 / K2 against their plain (fp32) versions, within REL_TOL. The
+    first case of each list is the shape the engine phase gives the kernel
+    (prompts of 128/100/77/128 tokens padded to 128, decode in the 192-slot
+    bucket); its numbers go into the final kernels line."""
+    from llmss_tpu_torch.ops import _build
+    from llmss_tpu_torch.ops import attention as att
+    from llmss_tpu_torch.ops import decode_attention as da
+    from llmss_tpu_torch.ops import flash_attention as fa
+
+    out = {}
     worst = 0.0
-    for c in k1_cases:
+    for c in k1_cases():
         args = (c["q"], c["k"], c["v"], c["qp"], c["kvp"])
         kw = dict(window=c["window"])
         got = fa.flash_attention(*args, **kw).float()
@@ -329,7 +439,7 @@ def check_kernels() -> dict:
                "max_abs_err": err, "rel_tol": REL_TOL[c["q"].dtype],
                "err_over_tol": ratio,
                "ms": device_ms(lambda: fa.flash_attention(*args, **kw)),
-               "plain_ms": device_ms(
+               "plain_ms": profiled_ms(
                    lambda: fa.flash_attention_ref(*args, **kw), iters=5),
                "library_ms": device_ms(
                    lambda: _sdpa(c["q"], c["k"], c["v"], mask[:, None])),
@@ -342,25 +452,8 @@ def check_kernels() -> dict:
         emit(row)
     out["K1"]["max_abs_err"] = worst
 
-    k2_cases = [
-        # The engine phase's batch 40 steps into decode, in its bucket.
-        _k2_case("k2_engine_decode", 4, 1024, 32, 32,
-                 [n + 40 for n in engine_lens], 192, seed=5),
-        # t_len < T: a live row, a half-full row, an empty row, a row at
-        # the bucket's edge.
-        _k2_case("k2_7b_tlen", 4, 1024, 32, 32, [600, 300, 0, 639], 640),
-        # t_len = T: wrapped rows (the pending slot holds the token being
-        # overwritten and must be excluded).
-        _k2_case("k2_7b_full_wrap", 4, 1024, 32, 32, [1000, 1500, 0, 2047],
-                 1024, seed=1),
-        _k2_case("k2_gqa", 4, 1024, 32, 8, [1023, 1300, 5, 0], 1024, seed=2),
-        _k2_case("k2_window", 2, 1024, 32, 8, [900, 1800], 1024,
-                 window=256, seed=3),
-        _k2_case("k2_d256_fp32", 3, 256, 8, 4, [300, 1000, 0], 256, seed=4,
-                 D=256, dt=torch.float32),
-    ]
     worst = 0.0
-    for c in k2_cases:
+    for c in k2_cases():
         args = (c["q"], c["kc"], c["vc"], c["kn"], c["vn"], c["qpos"],
                 c["kvp"], c["slots"], c["layer"])
         kw = dict(t_len=c["t_len"], window=c["window"])
@@ -394,17 +487,27 @@ def check_kernels() -> dict:
         kl = c["kc"][c["layer"], :, :t]
         vl = c["vc"][c["layer"], :, :t]
         mask = (pen == 0)[:, None, None, :]
+        plan = da.kernel_plan(c["q"].dtype, B, Hq, Hkv, D, t,
+                              sms=_build.sm_count(c["q"].device))
         row = {"phase": "kernel", "kernel": "K2", "case": c["name"],
+               "impl": plan.impl, "splits": plan.splits,
+               "split_slots": plan.split_slots,
                "max_abs_err": err, "rel_tol": REL_TOL[c["q"].dtype],
                "err_over_tol": ratio,
                "ms": device_ms(lambda: da.decode_attention(*args, **kw), iters=50),
-               "plain_ms": device_ms(lambda: da.decode_attention_ref(*args, **kw)),
+               "plain_ms": profiled_ms(lambda: da.decode_attention_ref(*args, **kw)),
                "library_ms": device_ms(
                    lambda: _sdpa(c["q"], kl, vl, mask), iters=50),
                "bound_ms": b_ms, "bound_by": b_by}
+        _unsplit(row, lambda: da._launch(*args, max_splits=1, **kw),
+                 lambda g: _agree("K2", c["name"] + " unsplit", g.float(), ref,
+                                  ref_abs, c["q"].dtype))
         out.setdefault("K2", row)
         emit(row)
     out["K2"]["max_abs_err"] = worst
+    # The engine's 192-slot bucket nearly fills the card unsplit (128
+    # blocks): the plan keeps it whole.
+    _main_path_split("K2", out["K2"], split=False)
     return out
 
 
@@ -456,6 +559,72 @@ def _paged_case(name, B, Hq, Hkv, ctx, qlens, CB, *, n_cols=None, window=None,
                 layer=L - 1, n_cols=n_cols, window=window, planted=planted)
 
 
+def k3_cases() -> list[dict]:
+    """K3's cases; the first is the serve_continuous phase's decode."""
+    return [
+        # The serve phase's decode: 8 rows at its 832-slot bucket (52 cols).
+        _paged_case("k3_serve_decode", 8, 32, 32, SERVE_CTX, [1] * 8, 1,
+                    n_cols=52),
+        _paged_case("k3_gqa", 8, 32, 8, SERVE_CTX[::-1], [1] * 8, 1, seed=1),
+        _paged_case("k3_window", 4, 32, 8, [900, 300, 1000, 20], [1] * 4, 1,
+                    window=256, seed=2),
+        # Wrapped rows (the pending slot holds a visible old position), an
+        # empty row (nblk = 0: exactly v_new), sentinel columns.
+        _paged_case("k3_wrap_empty_sentinel", 4, 32, 32, [1500, 0, 2047, 77],
+                    [1] * 4, 1, seed=3),
+        _paged_case("k3_fp32", 3, 8, 4, [300, 0, 1000], [1] * 3, 1, seed=4,
+                    dt=torch.float32),
+        # One long row, where the unsplit kernel's tail was longest: 32
+        # (MHA) or 8 (GQA) blocks walked 125 table columns each.
+        _paged_case("k3_long_mha", 1, 32, 32, [2000], [1], 1, MB=128,
+                    seed=15),
+        _paged_case("k3_long_gqa", 1, 32, 8, [2000], [1], 1, MB=128,
+                    seed=16),
+        # Rows whose occupied slots end inside their first split beside a
+        # long row and an empty one (nblk = 0: only the merge writes it,
+        # and it must give exactly v_new).
+        _paged_case("k3_first_split_only", 4, 32, 8, [1000, 60, 0, 30],
+                    [1] * 4, 1, seed=17),
+    ]
+
+
+def k4_cases() -> list[dict]:
+    """K4's cases; the first is the serve_continuous phase's chunked
+    step."""
+    return [
+        # The serve phase's chunked pass at chunked_prefill=128: prompt rows
+        # at their first, second and last (37-token) chunks beside decode
+        # rows.
+        _paged_case("k4_serve_mixed", 8, 32, 32,
+                    [0, 128, 256, 400, 700, 33, 812, 512],
+                    [128, 128, 37, 1, 1, 1, 1, 1], 128, seed=5),
+        _paged_case("k4_gqa_window", 4, 32, 8, [300, 0, 900, 64],
+                    [128, 37, 1, 128], 128, window=256, seed=6),
+        # Row 0's 100-token chunk from slot 1000 wraps onto slots 0..75,
+        # which still hold visible positions: all pending.
+        _paged_case("k4_ring_wrap", 3, 32, 32, [1000, 2000, 5],
+                    [100, 1, 60], 128, seed=7),
+        _paged_case("k4_fp32", 3, 8, 4, [30, 0, 100], [16, 5, 1], 16,
+                    seed=8, dt=torch.float32),
+        # Tile edges of the tensor-core instantiation: q_len not a multiple
+        # of 16 (37, 100, 13) beside a decode row; GQA (G = 4) at CB 64,
+        # whose 64-row tiles hold 16 queries x 4 heads; block sizes that
+        # do not divide the 64-slot tile; head dims 64 and 256.
+        _paged_case("k4_qlen_odd", 4, 32, 32, [0, 300, 77, 500],
+                    [37, 100, 1, 13], 128, seed=9),
+        _paged_case("k4_gqa_cb64", 4, 32, 8, [100, 0, 640, 33],
+                    [64, 50, 1, 17], 64, seed=10),
+        _paged_case("k4_bs8", 3, 32, 32, [200, 0, 90], [128, 60, 1], 128,
+                    bs=8, MB=128, seed=11),
+        _paged_case("k4_bs24", 3, 32, 32, [200, 0, 90], [128, 60, 1], 128,
+                    bs=24, MB=43, seed=12),
+        _paged_case("k4_d64", 3, 16, 4, [200, 0, 90], [128, 60, 1], 128,
+                    D=64, seed=13),
+        _paged_case("k4_d256", 3, 16, 8, [200, 0, 90], [128, 60, 1], 128,
+                    D=256, seed=14),
+    ]
+
+
 def _paged_visibility(c):
     """[B, CB, T] bool cache visibility of every live query row (the
     plain version's mask) over the first n_cols table columns, and the
@@ -479,9 +648,11 @@ def _paged_visibility(c):
     return mask & live[:, :, None], fresh & live[:, :, None]
 
 
-def _paged_row(kernel, c, fn, ref_fn, lib_fn):
+def _paged_row(kernel, c, fn, ref_fn, lib_fn, unsplit_fn=None):
     """Run one K3 / K4 case: agreement within REL_TOL, then kernel, plain,
-    library and bound times. Returns (row, kernel output)."""
+    library and bound times, and for K3 (``unsplit_fn``) the unsplit
+    kernel's. Returns (row, kernel output)."""
+    from llmss_tpu_torch.ops import _build
     from llmss_tpu_torch.ops import paged_attention as pa
 
     dt = c["q"].dtype
@@ -502,7 +673,10 @@ def _paged_row(kernel, c, fn, ref_fn, lib_fn):
     Hkv = c["kp"].shape[3]
     es = c["q"].element_size()
     # K3 runs the CB = 1 launch whatever the case's chunk.
-    impl = pa.kernel_plan(dt, CB if kernel == "K4" else 1, Hq // Hkv, D)[0]
+    bs, MB = c["kp"].shape[2], c["bt"].shape[1]
+    plan = pa.kernel_plan(dt, CB if kernel == "K4" else 1, Hq // Hkv, D, B=B,
+                          Hkv=Hkv, n_slots=(c["n_cols"] or MB) * bs, bs=bs,
+                          sms=_build.sm_count(c["q"].device))
     live_q = int(c["qlen"].sum().item())
     slots = int(mask.any(1).sum().item())
     pairs = int(mask.sum().item()) + int(fresh.sum().item())
@@ -510,13 +684,22 @@ def _paged_row(kernel, c, fn, ref_fn, lib_fn):
               + 2 * live_q * Hkv * D * es + mask.shape[2] * B * 4
               + c["bt"].numel() * 4)
     b_ms, b_by = bound(nbytes, 4.0 * pairs * Hq * D, dt)
+    # Splits at or past a row's occupied slots return at once.
+    live_splits = [-(-int(n) * bs // plan.split_slots) if plan.split_slots
+                   else 1 for n in c["nblk"].tolist()]
     row = {"phase": "kernel", "kernel": kernel, "case": c["name"],
-           "impl": impl, "max_abs_err": err, "rel_tol": REL_TOL[dt],
+           "impl": plan.impl, "splits": plan.splits,
+           "split_slots": plan.split_slots, "live_splits": live_splits,
+           "max_abs_err": err, "rel_tol": REL_TOL[dt],
            "err_over_tol": ratio, "planted_pending_keys": c["planted"],
            "ms": device_ms(lambda: fn(c), iters=50),
-           "plain_ms": device_ms(lambda: ref_fn(c), iters=5),
+           "plain_ms": profiled_ms(lambda: ref_fn(c), iters=5),
            "library_ms": device_ms(lambda: lib_fn(c, mask), iters=20),
            "bound_ms": b_ms, "bound_by": b_by}
+    if unsplit_fn is not None:
+        _unsplit(row, lambda: unsplit_fn(c),
+                 lambda g: _agree(kernel, c["name"] + " unsplit", g.float()[live],
+                                  ref[live], ref_abs[live], dt))
     emit(row)
     return row, got
 
@@ -551,6 +734,13 @@ def check_paged_kernels(out: dict) -> None:
             c["kvp"], c["bt"], c["nblk"], c["slot0"][:, None], c["layer"],
             n_cols=c["n_cols"], window=c["window"])
 
+    def k3_unsplit(c):
+        return pa._launch(
+            "paged_decode_attention (K3)", c["q"], c["kp"], c["vp"], c["kn"],
+            c["vn"], c["qpos"][:, None], None, c["kvp"], c["bt"], c["nblk"],
+            c["slot0"][:, None], c["layer"], c["n_cols"], None, c["window"],
+            max_splits=1)
+
     def k4(c):
         return pa.ragged_paged_attention(
             c["q"], c["kp"], c["vp"], c["kn"], c["vn"], c["qpos"], c["qlen"],
@@ -563,25 +753,15 @@ def check_paged_kernels(out: dict) -> None:
             c["kvp"], c["bt"], c["nblk"], c["slot0"], c["layer"],
             n_cols=c["n_cols"], window=c["window"])
 
-    serve_ctx = [700, 45, 300, 812, 128, 33, 560, 400]
-    k3_cases = [
-        # The serve phase's decode: 8 rows at its 832-slot bucket (52 cols).
-        _paged_case("k3_serve_decode", 8, 32, 32, serve_ctx, [1] * 8, 1,
-                    n_cols=52),
-        _paged_case("k3_gqa", 8, 32, 8, serve_ctx[::-1], [1] * 8, 1, seed=1),
-        _paged_case("k3_window", 4, 32, 8, [900, 300, 1000, 20], [1] * 4, 1,
-                    window=256, seed=2),
-        # Wrapped rows (the pending slot holds a visible old position), an
-        # empty row (nblk = 0: exactly v_new), sentinel columns.
-        _paged_case("k3_wrap_empty_sentinel", 4, 32, 32, [1500, 0, 2047, 77],
-                    [1] * 4, 1, seed=3),
-        _paged_case("k3_fp32", 3, 8, 4, [300, 0, 1000], [1] * 3, 1, seed=4,
-                    dt=torch.float32),
-    ]
+    k3_list = k3_cases()
     worst = 0.0
-    for c in k3_cases:
-        row, got = _paged_row("K3", c, k3, k3_ref, _gather_sdpa)
+    for c in k3_list:
+        row, got = _paged_row("K3", c, k3, k3_ref, _gather_sdpa, k3_unsplit)
         _main_path_impl("K3", row, "lanes")
+        if c["name"] == "k3_first_split_only" and (
+                row["splits"] < 2 or sorted(row["live_splits"])[:3] != [0, 1, 1]):
+            raise AssertionError(f"K3 {c['name']}: live splits "
+                                 f"{row['live_splits']} of {row['splits']}")
         worst = max(worst, row["max_abs_err"])
         out.setdefault("K3", row)
         G = c["q"].shape[2] // c["kn"].shape[2]
@@ -594,43 +774,12 @@ def check_paged_kernels(out: dict) -> None:
         if not torch.equal(k4_cb1.float(), got):
             raise AssertionError(f"K4 at CB=1 != K3 on {c['name']}")
     out["K3"]["max_abs_err"] = worst
+    _main_path_split("K3", out["K3"], split=True)
     emit({"phase": "kernel", "check": "k3_equals_k4_at_cb1",
-          "cases": len(k3_cases), "bit_identical": True})
+          "cases": len(k3_list), "bit_identical": True})
 
-    k4_cases = [
-        # The serve phase's chunked pass at chunked_prefill=128: prompt rows
-        # at their first, second and last (37-token) chunks beside decode
-        # rows.
-        _paged_case("k4_serve_mixed", 8, 32, 32,
-                    [0, 128, 256, 400, 700, 33, 812, 512],
-                    [128, 128, 37, 1, 1, 1, 1, 1], 128, seed=5),
-        _paged_case("k4_gqa_window", 4, 32, 8, [300, 0, 900, 64],
-                    [128, 37, 1, 128], 128, window=256, seed=6),
-        # Row 0's 100-token chunk from slot 1000 wraps onto slots 0..75,
-        # which still hold visible positions: all pending.
-        _paged_case("k4_ring_wrap", 3, 32, 32, [1000, 2000, 5],
-                    [100, 1, 60], 128, seed=7),
-        _paged_case("k4_fp32", 3, 8, 4, [30, 0, 100], [16, 5, 1], 16,
-                    seed=8, dt=torch.float32),
-        # Tile edges of the tensor-core instantiation: q_len not a multiple
-        # of 16 (37, 100, 13) beside a decode row; GQA (G = 4) at CB 64,
-        # whose 64-row tiles hold 16 queries x 4 heads; block sizes that
-        # do not divide the 64-slot tile; head dims 64 and 256.
-        _paged_case("k4_qlen_odd", 4, 32, 32, [0, 300, 77, 500],
-                    [37, 100, 1, 13], 128, seed=9),
-        _paged_case("k4_gqa_cb64", 4, 32, 8, [100, 0, 640, 33],
-                    [64, 50, 1, 17], 64, seed=10),
-        _paged_case("k4_bs8", 3, 32, 32, [200, 0, 90], [128, 60, 1], 128,
-                    bs=8, MB=128, seed=11),
-        _paged_case("k4_bs24", 3, 32, 32, [200, 0, 90], [128, 60, 1], 128,
-                    bs=24, MB=43, seed=12),
-        _paged_case("k4_d64", 3, 16, 4, [200, 0, 90], [128, 60, 1], 128,
-                    D=64, seed=13),
-        _paged_case("k4_d256", 3, 16, 8, [200, 0, 90], [128, 60, 1], 128,
-                    D=256, seed=14),
-    ]
     worst = 0.0
-    for c in k4_cases:
+    for c in k4_cases():
         row, _ = _paged_row("K4", c, k4, k4_ref, _gather_sdpa)
         worst = max(worst, row["max_abs_err"])
         out.setdefault("K4", row)

@@ -1,0 +1,94 @@
+"""Device times of the port's four kernels in one checkout, at the kernel
+cases of this checkout's chip_smoke.py, timed as chip_smoke.py times them
+(``device_ms``: calls captured in a CUDA graph, replays timed by CUDA
+events).
+
+    python3 kernel_ab.py [--tree DIR] [--label NAME] [--kernels K1,K2,K3,K4]
+
+``--tree`` is a checkout of the repo whose ``llmss_tpu_torch`` is built
+and timed (default: this one). The cases and the timer always come from
+this checkout, so two trees timed by it differ only in their package. To
+compare two trees, run them in turns on one card (A, B, B, A). Prints the
+device line (with the card's name and power limit), one JSON line per
+case, and last a JSON line with every case's ms; exits non-zero without a
+GPU.
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib.util
+import json
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+
+
+def _cases(cs, da, fa, pa, kernels):
+    """(kernel, case, one call, graph iterations) for every case of the
+    named kernels; the cases of the others are not made."""
+    for c in cs.k1_cases() if "K1" in kernels else ():
+        yield "K1", c["name"], (
+            lambda c=c: fa.flash_attention(c["q"], c["k"], c["v"], c["qp"],
+                                           c["kvp"], window=c["window"])), 20
+    for c in cs.k2_cases() if "K2" in kernels else ():
+        yield "K2", c["name"], (
+            lambda c=c: da.decode_attention(
+                c["q"], c["kc"], c["vc"], c["kn"], c["vn"], c["qpos"],
+                c["kvp"], c["slots"], c["layer"], t_len=c["t_len"],
+                window=c["window"])), 50
+    for c in cs.k3_cases() if "K3" in kernels else ():
+        yield "K3", c["name"], (
+            lambda c=c: pa.paged_decode_attention(
+                c["q"], c["kp"], c["vp"], c["kn"], c["vn"], c["qpos"][:, None],
+                c["kvp"], c["bt"], c["nblk"], c["slot0"][:, None], c["layer"],
+                n_cols=c["n_cols"], window=c["window"])), 50
+    for c in cs.k4_cases() if "K4" in kernels else ():
+        yield "K4", c["name"], (
+            lambda c=c: pa.ragged_paged_attention(
+                c["q"], c["kp"], c["vp"], c["kn"], c["vn"], c["qpos"],
+                c["qlen"], c["kvp"], c["bt"], c["nblk"], c["slot0"],
+                c["layer"], n_cols=c["n_cols"], window=c["window"])), 50
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--tree", default=str(ROOT),
+                    help="checkout whose llmss_tpu_torch is timed")
+    ap.add_argument("--label", default="this", help="name in every line")
+    ap.add_argument("--kernels", default="K1,K2,K3,K4",
+                    help="the kernels whose cases are timed")
+    args = ap.parse_args()
+    tree = Path(args.tree).resolve()
+    sys.path.insert(0, str(tree))
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)  # imports llmss_tpu_torch from ``tree``
+
+    import llmss_tpu_torch
+    from llmss_tpu_torch.ops import _build
+    from llmss_tpu_torch.ops import decode_attention as da
+    from llmss_tpu_torch.ops import flash_attention as fa
+    from llmss_tpu_torch.ops import paged_attention as pa
+
+    if Path(llmss_tpu_torch.__file__).resolve().parent.parent != tree:
+        raise RuntimeError(f"llmss_tpu_torch came from {llmss_tpu_torch.__file__}")
+    cs.phase_device()
+    secs, _ = _build.build_all()
+    tag = {"label": args.label, "tree": str(tree)}
+    cs.emit({"phase": "build", **tag, "seconds": round(secs, 3)})
+    times = {}
+    for kernel, case, fn, iters in _cases(cs, da, fa, pa,
+                                               args.kernels.split(",")):
+        ms = cs.device_ms(fn, iters=iters)
+        times[case] = ms
+        cs.emit({"phase": "kernel", **tag, "kernel": kernel, "case": case,
+                 "ms": ms})
+    print(json.dumps({"ab": {**tag, "ms": times}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -17,22 +17,42 @@
 // What bounds it on the H100: memory. Each (row, kv head) streams
 // t_len * D keys and values once and does ~4 flops per element for each of
 // its G query heads, far below the ~295 flops per byte where the tensor
-// cores would become the limit. What the design does about it:
+// cores would become the limit. It stays on fp32 FMA lanes: a tensor-core
+// tile needs 16 query rows where a decode (row, kv head) has G <= 8, and
+// FMA keeps the fresh V in fp32 as the Pallas kernel does. The design:
 //   * the layer is addressed in place (cache + layer*B*T*Hkv*D), the GPU
 //     form of the Pallas kernel's scalar-prefetched layer index: no
 //     per-layer slice copy;
-//   * one block per (row, kv head, group of up to 8 query heads): a KV
-//     element is read once for all the query heads that share it (GQA/MQA);
-//   * each lane reads 16 bytes at a time and keeps several slots' keys and
-//     values in flight before it computes, so the loads of a block overlap;
+//   * one block per (row, kv head, group of GB <= 8 query heads, split s
+//     of S along the slots: flash-decoding, csrc/split_merge.cuh): a KV
+//     element is read once for all the query heads that share it
+//     (GQA/MQA), and split s reads slots [s*split, (s+1)*split) of
+//     [0, t_len). Without the split the engine's decode (batch 4, 32 kv
+//     heads) launched 128 blocks for 132 SMs, each walking its whole read,
+//     and GQA at batch 4 only 32; the host picks S from t_len and the
+//     card's SM count (ops/split_plan.py): a long read splits until the
+//     grid has two blocks per SM, and a read of at most two splits on a
+//     grid that nearly fills the card stays whole, since there the merge
+//     costs more than the shorter walk saves;
+//   * every load the KV loop needs first (the row's scalars, its query
+//     heads, the first kStage slots' positions) is issued before any is
+//     used; the positions, already masked (empty, future, pending or
+//     outside the window: -1), are staged in shared memory, so no K/V
+//     load waits on a position load;
+//   * each warp streams its slots' K and V rows through its own cp.async
+//     ring of 4 stages in shared memory (csrc/split_merge.cuh LaneRing):
+//     three stages' loads are in flight while one is computed, and they
+//     hold no registers, so the MHA instantiations fit three blocks on an
+//     SM; a step no lane of the warp sees is skipped;
 //   * every half-warp (D = 128) keeps its own running max / sum / output
-//     over the slots it read; the partial states are merged with shuffles
-//     and then through shared memory at the end, where the fresh token is
-//     folded in.
-// Known limit: at small batch with few kv heads the grid has fewer blocks
-// than the 132 SMs (a split over T with a merge pass is the next step).
+//     over the slots it read; the partial states merge by shuffles, then
+//     through shared memory (reusing the rings). At S = 1 the block folds
+//     in the fresh token there and writes the output; at S > 1 it stores
+//     its fp32 (m, l, acc) and split_merge, launched next on the same
+//     stream, folds the splits in split order, then the fresh token.
 
 #include "common.cuh"
+#include "split_merge.cuh"
 
 namespace llmss {
 namespace {
@@ -40,54 +60,96 @@ namespace {
 constexpr int NWARP = 8;
 constexpr int NT = NWARP * 32;
 
-template <int D, int GB>
-struct Cfg {
-  static constexpr int LPS = D / 8;          // lanes per slot (8 elements each)
-  static constexpr int SPW = 32 / LPS;       // slots per warp per step
-  static constexpr int U = GB >= 4 ? 2 : 4;  // steps kept in flight
-  static constexpr int SLOTS = NWARP * SPW * U;  // slots per block iteration
-  static constexpr size_t smem =
-      sizeof(float) * (size_t(NWARP) * GB * D + 2 * NWARP * GB + GB);
+struct Args {
+  const void* q;   // [B, 1, Hq, D]
+  const void* kc;  // [L, B, T, Hkv, D]
+  const void* vc;
+  const void* kn;  // [B, 1, Hkv, D]
+  const void* vn;
+  void* o;         // [B, 1, Hq, D]
+  const int* qpos;   // [B]
+  const int* kvpos;  // [B, T]
+  const int* slots;  // [B]
+  float* ws;         // split partials (split_merge.cuh), null at S = 1
+  int layer, B, Tn, t_len, Hq, Hkv, S, split;
+  float scale;
+  int window;  // <= 0: full causal
 };
 
 template <typename T, int D, int GB>
-__global__ void __launch_bounds__(NT) decode_fwd(
-    const T* __restrict__ q, const T* __restrict__ kc,
-    const T* __restrict__ vc, const T* __restrict__ kn,
-    const T* __restrict__ vn, T* __restrict__ o,
-    const int* __restrict__ qpos, const int* __restrict__ kvpos,
-    const int* __restrict__ slots, int layer, int B, int Tn, int t_len,
-    int Hq, int Hkv, float scale, int window) {
-  using C = Cfg<D, GB>;
-  constexpr int LPS = C::LPS, SPW = C::SPW, U = C::U;
+struct Cfg {
+  static constexpr int LPS = D / 8;          // lanes per slot (8 elements each)
+  static constexpr int SPW = 32 / LPS;       // slots per warp per step
+  static constexpr int STEP = NWARP * SPW;   // slots per step of the block
+  static constexpr int SLOTS = STEP * kSteps;  // slots per ring stage
+  // The warps' K/V rings, reused by s_acc [NWARP][GB][D] once the KV loop
+  // is done | s_m, s_l [NWARP][GB] | s_new [GB] | staged positions
+  static constexpr size_t ring = size_t(NWARP) * LaneRing<T>::WARP_BYTES;
+  static constexpr size_t acc = sizeof(float) * NWARP * GB * D;
+  static constexpr size_t region = ring > acc ? ring : acc;
+  static constexpr size_t smem =
+      region + sizeof(float) * (2 * NWARP * GB + GB) + sizeof(int) * kStage;
+};
+
+template <typename T, int D, int GB>
+__global__ void __launch_bounds__(NT, kLaneMinBlocks<T, GB>) decode_fwd(Args a) {
+  using C = Cfg<T, D, GB>;
+  using Ring = LaneRing<T>;
+  constexpr int LPS = C::LPS, SPW = C::SPW;
   extern __shared__ __align__(16) float smem[];
-  float* s_acc = smem;                       // [NWARP][GB][D]
-  float* s_m = s_acc + NWARP * GB * D;       // [NWARP][GB]
+  float* s_acc = smem;                       // [NWARP][GB][D], after the KV loop
+  float* s_m = smem + C::region / sizeof(float);  // [NWARP][GB]
   float* s_l = s_m + NWARP * GB;             // [NWARP][GB]
   float* s_new = s_l + NWARP * GB;           // [GB] fresh-token scores
+  int* s_pos = reinterpret_cast<int*>(s_new + GB);  // [kStage]
+
+  pdl_trigger();  // split_merge may start; it waits for this grid's writes
+
+  const T* q = static_cast<const T*>(a.q);
+  const T* kc = static_cast<const T*>(a.kc);
+  const T* vc = static_cast<const T*>(a.vc);
+  const T* kn = static_cast<const T*>(a.kn);
+  const T* vn = static_cast<const T*>(a.vn);
+  T* o = static_cast<T*>(a.o);
 
   const int b = blockIdx.x;
-  const int G = Hq / Hkv;
+  const int G = a.Hq / a.Hkv;
   const int hk = blockIdx.y / (G / GB);
   const int h0 = hk * G + (blockIdx.y % (G / GB)) * GB;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int sub = lane / LPS, part = lane % LPS;
   const int e0 = part * 8;  // this lane's 8 features
+  const int split = blockIdx.z;
+  const int t_lo = split * a.split;
+  const int t_hi = min(a.t_len, t_lo + a.split);
 
-  const int qp = qpos[b];
-  const int slot = slots[b];
-  const long long row_stride = (long long)Hkv * D;
+  const long long row_stride = (long long)a.Hkv * D;
   const long long base =
-      ((long long)layer * B + b) * (long long)Tn * row_stride + hk * D + e0;
-  const int* kvp = kvpos + (long long)b * Tn;
+      ((long long)a.layer * a.B + b) * (long long)a.Tn * row_stride + hk * D + e0;
+  const int* kvp = a.kvpos + (long long)b * a.Tn;
+
+  // Every load the KV loop needs first is issued here, before any is
+  // used: the row's scalars, its query heads, and the first window's
+  // positions (kStage / NT per thread).
+  constexpr int PPT = kStage / NT;
+  int pv[PPT];
+  auto load_window = [&](int w0, int w1) {
+#pragma unroll
+    for (int j = 0; j < PPT; ++j) {
+      const int t = w0 + j * NT + threadIdx.x;
+      pv[j] = t < w1 ? kvp[t] : -1;
+    }
+  };
+  const int qp = a.qpos[b];
+  const int slot = a.slots[b];
+  Vec8<T> qv[GB];
+#pragma unroll
+  for (int g = 0; g < GB; ++g) qv[g].load(q + ((long long)b * a.Hq + h0 + g) * D + e0);
+  if (t_lo < t_hi) load_window(t_lo, min(t_hi, t_lo + kStage));
 
   float qf[GB][8];
 #pragma unroll
-  for (int g = 0; g < GB; ++g) {
-    Vec8<T> v;
-    v.load(q + ((long long)b * Hq + h0 + g) * D + e0);
-    v.to_float(qf[g]);
-  }
+  for (int g = 0; g < GB; ++g) qv[g].to_float(qf[g]);
 
   float m[GB], l[GB], acc[GB][8];
 #pragma unroll
@@ -97,27 +159,15 @@ __global__ void __launch_bounds__(NT) decode_fwd(
 #pragma unroll
     for (int e = 0; e < 8; ++e) acc[g][e] = 0.f;
   }
+  char* wring = reinterpret_cast<char*>(smem) + warp * Ring::WARP_BYTES;
 
-  for (int t0 = 0; t0 < t_len; t0 += C::SLOTS) {
-    Vec8<T> kv[U], vv[U];
-    bool ok[U];
+  // Fold one step's slots (K/V rows read back from the ring) into each
+  // head's running softmax; ok[u]: slot u is visible.
+  auto step = [&](const Vec8<T>(&kv)[kSteps], const Vec8<T>(&vv)[kSteps],
+                  const bool(&ok)[kSteps]) {
+    float s[kSteps][GB];
 #pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const int t = t0 + (u * NWARP + warp) * SPW + sub;
-      ok[u] = false;
-      if (t < t_len) {
-        const int p = kvp[t];
-        ok[u] = p >= 0 && p <= qp && t != slot &&
-                (window <= 0 || p > qp - window);
-      }
-      if (ok[u]) {
-        kv[u].load(kc + base + (long long)t * row_stride);
-        vv[u].load(vc + base + (long long)t * row_stride);
-      }
-    }
-    float s[U][GB];
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
+    for (int u = 0; u < kSteps; ++u) {
       float kf[8];
       if (ok[u]) kv[u].to_float(kf);
 #pragma unroll
@@ -130,21 +180,21 @@ __global__ void __launch_bounds__(NT) decode_fwd(
 #pragma unroll
         for (int off = LPS / 2; off > 0; off >>= 1)
           d += __shfl_xor_sync(0xffffffffu, d, off);
-        s[u][g] = ok[u] ? d * scale : kNegInf;
+        s[u][g] = ok[u] ? d * a.scale : kNegInf;
       }
     }
 #pragma unroll
     for (int g = 0; g < GB; ++g) {
       float m_new = m[g];
 #pragma unroll
-      for (int u = 0; u < U; ++u) m_new = fmaxf(m_new, s[u][g]);
+      for (int u = 0; u < kSteps; ++u) m_new = fmaxf(m_new, s[u][g]);
       if (m_new == kNegInf) continue;  // nothing visible yet in this stream
       const float alpha = expf(m[g] - m_new);
       l[g] *= alpha;
 #pragma unroll
       for (int e = 0; e < 8; ++e) acc[g][e] *= alpha;
 #pragma unroll
-      for (int u = 0; u < U; ++u) {
+      for (int u = 0; u < kSteps; ++u) {
         if (!ok[u]) continue;  // masked slots contribute exactly 0
         const float p = expf(s[u][g] - m_new);
         l[g] += p;
@@ -156,6 +206,61 @@ __global__ void __launch_bounds__(NT) decode_fwd(
       }
       m[g] = m_new;
     }
+  };
+
+  for (int w0 = t_lo; w0 < t_hi; w0 += kStage) {
+    const int w1 = min(t_hi, w0 + kStage);
+    if (w0 != t_lo) load_window(w0, w1);
+    __syncthreads();  // the previous window's staged slots are consumed
+#pragma unroll
+    for (int j = 0; j < PPT; ++j) {
+      const int i = j * NT + threadIdx.x, t = w0 + i, p = pv[j];
+      s_pos[i] = p >= 0 && p <= qp && t != slot &&
+                         (a.window <= 0 || p > qp - a.window)
+                     ? p
+                     : -1;
+    }
+    __syncthreads();
+
+    // Ring stage i holds the window's slots [i * SLOTS, (i + 1) * SLOTS):
+    // slot w0 + (i * kSteps + u) * STEP + warp * SPW + sub for this lane.
+    const int n_st = (w1 - w0 + C::SLOTS - 1) / C::SLOTS;
+    auto slot_of = [&](int i, int u) { return w0 + (i * kSteps + u) * C::STEP + warp * SPW + sub; };
+    auto issue = [&](int i) {
+      if (i < n_st) {
+#pragma unroll
+        for (int u = 0; u < kSteps; ++u) {
+          const int t = slot_of(i, u);
+          if (t < w1 && s_pos[t - w0] >= 0) {
+            const long long off = base + (long long)t * row_stride;
+            Ring::put(wring, i % Ring::STAGES, u, lane, kc + off, vc + off);
+          }
+        }
+      }
+      tile::cp_async_commit();  // empty past the window: keeps the count
+    };
+#pragma unroll
+    for (int i = 0; i < Ring::STAGES - 1; ++i) issue(i);
+    for (int i = 0; i < n_st; ++i) {
+      issue(i + Ring::STAGES - 1);
+      tile::cp_async_wait<Ring::STAGES - 1>();  // this lane's stage i landed
+      Vec8<T> kv[kSteps], vv[kSteps];
+      bool ok[kSteps];
+#pragma unroll
+      for (int u = 0; u < kSteps; ++u) {
+        const int t = slot_of(i, u);
+        ok[u] = t < w1 && s_pos[t - w0] >= 0;
+        if (ok[u]) {
+          ring_get(kv[u], wring, i % Ring::STAGES, u, 0, lane);
+          ring_get(vv[u], wring, i % Ring::STAGES, u, 1, lane);
+        }
+      }
+      bool any = false;
+#pragma unroll
+      for (int u = 0; u < kSteps; ++u) any |= ok[u];
+      // A step no lane of the warp sees leaves the state as it is.
+      if (__any_sync(0xffffffffu, any)) step(kv, vv, ok);
+    }
   }
 
   // Merge the SPW slot streams of this warp (lanes differing in `sub`).
@@ -166,16 +271,17 @@ __global__ void __launch_bounds__(NT) decode_fwd(
       const float m_o = __shfl_xor_sync(0xffffffffu, m[g], off);
       const float l_o = __shfl_xor_sync(0xffffffffu, l[g], off);
       const float mm = fmaxf(m[g], m_o);
-      const float a = expf(m[g] - mm), bo = expf(m_o - mm);
-      l[g] = l[g] * a + l_o * bo;
+      const float x = expf(m[g] - mm), y = expf(m_o - mm);
+      l[g] = l[g] * x + l_o * y;
 #pragma unroll
       for (int e = 0; e < 8; ++e) {
         const float acc_o = __shfl_xor_sync(0xffffffffu, acc[g][e], off);
-        acc[g][e] = acc[g][e] * a + acc_o * bo;
+        acc[g][e] = acc[g][e] * x + acc_o * y;
       }
       m[g] = mm;
     }
   }
+  __syncthreads();  // every warp is done with its ring: s_acc reuses it
   if (sub == 0) {
 #pragma unroll
     for (int g = 0; g < GB; ++g) {
@@ -188,19 +294,25 @@ __global__ void __launch_bounds__(NT) decode_fwd(
       }
     }
   }
+  if (a.S > 1) {
+    __syncthreads();
+    store_partial<NWARP, D, GB>(s_acc, s_m, s_l, a.ws, a.B, a.Hq, a.S, b,
+                                split, [&](int g) { return h0 + g; });
+    return;
+  }
   // Fresh-token scores: warp g computes head g's q . k_new.
   if (warp < GB) {
     float d = 0.f;
-    const T* knp = kn + ((long long)b * Hkv + hk) * D;
-    const T* qh = q + ((long long)b * Hq + h0 + warp) * D;
+    const T* knp = kn + ((long long)b * a.Hkv + hk) * D;
+    const T* qh = q + ((long long)b * a.Hq + h0 + warp) * D;
     for (int e = lane; e < D; e += 32) d = fmaf(to_f<T>(qh[e]), to_f<T>(knp[e]), d);
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) d += __shfl_xor_sync(0xffffffffu, d, off);
-    if (lane == 0) s_new[warp] = d * scale;
+    if (lane == 0) s_new[warp] = d * a.scale;
   }
   __syncthreads();
 
-  const T* vnp = vn + ((long long)b * Hkv + hk) * D;
+  const T* vnp = vn + ((long long)b * a.Hkv + hk) * D;
   for (int i = threadIdx.x; i < GB * D; i += NT) {
     const int g = i / D, d = i % D;
     float M = kNegInf;
@@ -209,79 +321,59 @@ __global__ void __launch_bounds__(NT) decode_fwd(
     float L = 0.f, O = 0.f;
 #pragma unroll
     for (int w = 0; w < NWARP; ++w) {
-      const float a = expf(s_m[w * GB + g] - M);
-      L += s_l[w * GB + g] * a;
-      O += s_acc[(w * GB + g) * D + d] * a;
+      const float x = expf(s_m[w * GB + g] - M);
+      L += s_l[w * GB + g] * x;
+      O += s_acc[(w * GB + g) * D + d] * x;
     }
     const float sn = s_new[g];
     const float M2 = fmaxf(M, sn);
     const float alpha = expf(M - M2);
     const float pn = expf(sn - M2);
     const float out = (O * alpha + pn * to_f<T>(vnp[d])) / (L * alpha + pn);
-    o[((long long)b * Hq + h0 + g) * D + d] = from_f<T>(out);
+    o[((long long)b * a.Hq + h0 + g) * D + d] = from_f<T>(out);
   }
 }
 
+// The split kernel, then at S > 1 split_merge on the same stream. A split
+// is whole ring stages, and S splits cover [0, t_len).
 template <typename T, int D, int GB>
-cudaError_t launch(void* q, void* kc, void* vc, void* kn, void* vn, void* o,
-                   const int* qpos, const int* kvpos, const int* slots,
-                   int layer, int B, int Tn, int t_len, int Hq, int Hkv,
-                   float scale, int window, cudaStream_t stream) {
-  constexpr size_t smem = Cfg<D, GB>::smem;
+cudaError_t launch(const Args& a, cudaStream_t stream) {
+  if (a.S < 1 || a.S > kMaxSplits || a.split <= 0 ||
+      a.split % Cfg<T, D, GB>::SLOTS || (long long)a.S * a.split < a.t_len ||
+      (a.S > 1 && a.ws == nullptr))
+    return cudaErrorInvalidValue;
+  constexpr size_t smem = Cfg<T, D, GB>::smem;
   auto kern = decode_fwd<T, D, GB>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  dim3 grid(B, Hkv * ((Hq / Hkv) / GB));
-  kern<<<grid, NT, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(kc),
-      static_cast<const T*>(vc), static_cast<const T*>(kn),
-      static_cast<const T*>(vn), static_cast<T*>(o), qpos, kvpos, slots,
-      layer, B, Tn, t_len, Hq, Hkv, scale, window);
-  return cudaGetLastError();
+  dim3 grid(a.B, a.Hkv * ((a.Hq / a.Hkv) / GB), a.S);
+  kern<<<grid, NT, smem, stream>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || a.S == 1) return err;
+  const MergeArgs m{a.q, a.kn, a.vn, a.o, a.ws, nullptr, nullptr, a.B, a.Hq,
+                    a.Hkv, a.S, a.split, 1, 0, a.scale};
+  return launch_merge<T>(D, m, stream);
 }
 
 template <typename T, int D>
-cudaError_t dispatch_g(int GB, void* q, void* kc, void* vc, void* kn,
-                       void* vn, void* o, const int* qpos, const int* kvpos,
-                       const int* slots, int layer, int B, int Tn, int t_len,
-                       int Hq, int Hkv, float scale, int window,
-                       cudaStream_t s) {
-#define LLMSS_CASE(G)                                                       \
-  case G:                                                                   \
-    return launch<T, D, G>(q, kc, vc, kn, vn, o, qpos, kvpos, slots, layer, \
-                           B, Tn, t_len, Hq, Hkv, scale, window, s);
+cudaError_t dispatch_g(int GB, const Args& a, cudaStream_t s) {
   switch (GB) {
-    LLMSS_CASE(1)
-    LLMSS_CASE(2)
-    LLMSS_CASE(4)
-    LLMSS_CASE(8)
-    default:
-      return cudaErrorInvalidValue;
+    case 1: return launch<T, D, 1>(a, s);
+    case 2: return launch<T, D, 2>(a, s);
+    case 4: return launch<T, D, 4>(a, s);
+    case 8: return launch<T, D, 8>(a, s);
+    default: return cudaErrorInvalidValue;
   }
-#undef LLMSS_CASE
 }
 
 template <typename T>
-cudaError_t dispatch_d(int D, int GB, void* q, void* kc, void* vc, void* kn,
-                       void* vn, void* o, const int* qpos, const int* kvpos,
-                       const int* slots, int layer, int B, int Tn, int t_len,
-                       int Hq, int Hkv, float scale, int window,
-                       cudaStream_t s) {
+cudaError_t dispatch_d(int D, int GB, const Args& a, cudaStream_t s) {
   switch (D) {
-    case 64:
-      return dispatch_g<T, 64>(GB, q, kc, vc, kn, vn, o, qpos, kvpos, slots,
-                               layer, B, Tn, t_len, Hq, Hkv, scale, window, s);
-    case 128:
-      return dispatch_g<T, 128>(GB, q, kc, vc, kn, vn, o, qpos, kvpos, slots,
-                                layer, B, Tn, t_len, Hq, Hkv, scale, window,
-                                s);
-    case 256:
-      return dispatch_g<T, 256>(GB, q, kc, vc, kn, vn, o, qpos, kvpos, slots,
-                                layer, B, Tn, t_len, Hq, Hkv, scale, window,
-                                s);
-    default:
-      return cudaErrorInvalidValue;
+    case 64: return dispatch_g<T, 64>(GB, a, s);
+    case 128: return dispatch_g<T, 128>(GB, a, s);
+    case 256: return dispatch_g<T, 256>(GB, a, s);
+    default: return cudaErrorInvalidValue;
   }
 }
 
@@ -290,37 +382,28 @@ cudaError_t dispatch_d(int D, int GB, void* q, void* kc, void* vc, void* kn,
 
 // q [B,1,Hq,D], cache [L,B,T,Hkv,D], k_new / v_new [B,1,Hkv,D], out
 // [B,1,Hq,D], all contiguous; q_pos / slots [B] and kv_pos [B,T] int32.
-// GB (1, 2, 4 or 8, dividing Hq/Hkv) query heads per block. window <= 0
-// means full causal. Returns cudaGetLastError() after the launch.
+// GB (1, 2, 4 or 8, dividing Hq/Hkv) query heads per block, S splits of
+// `split` slots (a multiple of the lane loop's step; ws the fp32 workspace
+// of split_merge.cuh, [B*Hq*S*(D+2)], null at S = 1). window <= 0 means
+// full causal. Returns cudaGetLastError() after the last launch.
 extern "C" int llmss_decode_attention(void* q, void* kc, void* vc, void* kn,
                                       void* vn, void* o, void* qpos,
-                                      void* kvpos, void* slots, int layer,
-                                      int B, int T, int t_len, int Hq,
-                                      int Hkv, int D, int GB, int dtype,
-                                      float scale, int window, void* stream) {
+                                      void* kvpos, void* slots, void* ws,
+                                      int layer, int B, int T, int t_len,
+                                      int Hq, int Hkv, int D, int GB, int S,
+                                      int split, int dtype, float scale,
+                                      int window, void* stream) {
   using namespace llmss;
   if (B == 0) return 0;
-  const int* qp = static_cast<const int*>(qpos);
-  const int* kp = static_cast<const int*>(kvpos);
-  const int* sl = static_cast<const int*>(slots);
+  const Args a{q, kc, vc, kn, vn, o,
+               static_cast<const int*>(qpos), static_cast<const int*>(kvpos),
+               static_cast<const int*>(slots), static_cast<float*>(ws),
+               layer, B, T, t_len, Hq, Hkv, S, split, scale, window};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
   switch (dtype) {
-    case kF32:
-      err = dispatch_d<float>(D, GB, q, kc, vc, kn, vn, o, qp, kp, sl, layer,
-                              B, T, t_len, Hq, Hkv, scale, window, s);
-      break;
-    case kBF16:
-      err = dispatch_d<__nv_bfloat16>(D, GB, q, kc, vc, kn, vn, o, qp, kp, sl,
-                                      layer, B, T, t_len, Hq, Hkv, scale,
-                                      window, s);
-      break;
-    case kF16:
-      err = dispatch_d<__half>(D, GB, q, kc, vc, kn, vn, o, qp, kp, sl, layer,
-                               B, T, t_len, Hq, Hkv, scale, window, s);
-      break;
-    default:
-      err = cudaErrorInvalidValue;
+    case kF32: return static_cast<int>(dispatch_d<float>(D, GB, a, s));
+    case kBF16: return static_cast<int>(dispatch_d<__nv_bfloat16>(D, GB, a, s));
+    case kF16: return static_cast<int>(dispatch_d<__half>(D, GB, a, s));
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(err);
 }

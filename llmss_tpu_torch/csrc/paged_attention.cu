@@ -51,28 +51,52 @@
 // bounds (its derivation assumes every P is rounded).
 //
 // fp32 at any CB, and CB == 1 (K3, and K4 all-decode) -> paged_fwd, the
-// lane template below (fp32 on the tensor cores would mean TF32). K3 is
-// its CB = 1 launch: the ragged masks then reduce exactly to the decode
-// masks, so an all-decode batch through K4 at CB = 1 runs the same
-// instantiation, grid and instruction sequence as K3 and gives
-// bit-identical outputs. Here the fresh V is applied in fp32. At decode
-// each (row, KV head) reads the row's live blocks for G query heads, ~4
-// flops per KV byte, so bytes bound it too. Its design:
-//   * one block per (row, KV head, tile of R <= 8 of the CB*G query rows);
-//     the block walks the row's table columns itself (the TPU's sequential
-//     (row, column) grid becomes a loop), reading the stacked pool in place
-//     at the layer offset: no per-layer slice and no gathered copy;
-//   * each lane reads 16 bytes of a slot's K and V and keeps several slots
-//     in flight; slots no row of the tile can see are not loaded;
+// lane template below. It keeps fp32 FMA: at decode each (row, KV head)
+// reads the row's live blocks for G <= 8 query heads, ~4 flops per KV
+// byte, so bytes bound it and a tensor-core tile (whose 16-row minimum G
+// cannot fill) would buy nothing; fp32 on the tensor cores would mean
+// TF32; and FMA keeps the fresh V in fp32, as the Pallas kernel does. K3
+// is its CB = 1 launch: the ragged masks then reduce exactly to the
+// decode masks, so an all-decode batch through K4 at CB = 1 takes the
+// same split plan, grids and instruction sequence as K3 and gives
+// bit-identical outputs. Its design:
+//   * one block per (row, KV head, tile of R <= 8 of the CB*G query rows,
+//     split s of S along the KV axis: flash-decoding, csrc/
+//     split_merge.cuh). Split s reads table columns [s*C, (s+1)*C), C =
+//     split_slots / bs, of the row, in place at the layer offset of the
+//     stacked pool: no per-layer slice and no gathered copy. Without the
+//     split each block walked its row's whole table, so the batch's
+//     longest row set the kernel's time (the 812-slot row's blocks did 13
+//     iterations while a 33-slot row's did one), and at small batch or
+//     GQA the B*Hkv blocks left most of the 132 SMs idle. The host picks
+//     S from the bucketed read n_cols*bs (ops/split_plan.py), never from
+//     n_blocks, so a bucket always launches one grid; splits at or past
+//     a row's ceil(n_blocks*bs / split_slots) return at once;
+//   * every load the KV loop needs first (the row's scalars, its query
+//     rows, the first kStage slots' positions and table entries) is
+//     issued before any is used, without waiting for n_blocks; positions
+//     (masked to the candidates any row of the tile can see) and table
+//     entries are staged in shared memory. A loop that read a slot's
+//     position, then its table entry, then its K/V would chain three
+//     dependent loads per slot; each ring stage issues its K/V copies at
+//     once;
+//   * each warp streams its slots' K and V rows through its own cp.async
+//     ring of 4 stages in shared memory (csrc/split_merge.cuh LaneRing):
+//     three stages' loads are in flight while one is computed, and they
+//     hold no registers, so the MHA instantiation fits three blocks on an
+//     SM; slots no row of the tile can see are not copied, and a step no
+//     lane of the warp sees is skipped;
 //   * every lane group keeps its own running softmax per query row; the
-//     partial states merge by shuffles, then through shared memory, where
-//     the fresh keys are folded in, up to the last key any row of the tile
-//     can see (one key for a decode row).
-// Later work: a split over table columns when B*Hkv leaves SMs idle at
-// small batch (flash-decoding), for the GQA decode case.
+//     partial states merge by shuffles, then through shared memory
+//     (reusing the rings). At S = 1 the block folds in the fresh keys
+//     there (up to the last key any row of the tile can see: one for a
+//     decode row) and writes the output; at S > 1 (CB == 1 only) it stores
+//     its fp32 (m, l, acc) and split_merge, launched next on the same
+//     stream, folds the live splits in split order and then the fresh key.
 
 #include "attn_tile.cuh"
 #include "common.cuh"
+#include "split_merge.cuh"
 
 namespace llmss {
 namespace {
@@ -96,31 +120,44 @@ struct Args {
   int layer, B, CB, Np, bs, MB, n_cols, Hq, Hkv;
   float scale;
   int window;  // <= 0: full causal
-};
-
-template <int D, int R>
-struct Cfg {
-  static constexpr int LPS = D / 8;          // lanes per slot (8 elements each)
-  static constexpr int SPW = 32 / LPS;       // slots per warp per step
-  static constexpr int U = R >= 4 ? 2 : 4;   // steps kept in flight
-  static constexpr int SLOTS = NWARP * SPW * U;
-  // s_acc [NWARP][R][D] | s_m, s_l, s_wsc [NWARP][R] | s_den [R], pad [R]
-  // | s_w [R][CB] (dynamic)
-  static constexpr size_t fixed =
-      sizeof(float) * (size_t(NWARP) * R * D + 3 * NWARP * R + 2 * R);
+  // The split (paged_fwd only; last, so paged_mma's parameters keep
+  // their offsets): partials (split_merge.cuh, null at S = 1), splits
+  // along the KV axis and slots per split.
+  float* ws;
+  int S, split;
 };
 
 template <typename T, int D, int R>
-__global__ void __launch_bounds__(NT) paged_fwd(Args a) {
-  using C = Cfg<D, R>;
-  constexpr int LPS = C::LPS, SPW = C::SPW, U = C::U;
+struct Cfg {
+  static constexpr int LPS = D / 8;          // lanes per slot (8 elements each)
+  static constexpr int SPW = 32 / LPS;       // slots per warp per step
+  static constexpr int STEP = NWARP * SPW;   // slots per step of the block
+  static constexpr int SLOTS = STEP * kSteps;  // slots per ring stage
+  // The warps' K/V rings, reused by s_acc [NWARP][R][D] once the KV loop
+  // is done | s_m, s_l, s_wsc [NWARP][R] | s_den [R], pad [R] | s_w [R][CB]
+  // | staged positions and table entries (dynamic)
+  static constexpr size_t ring = size_t(NWARP) * LaneRing<T>::WARP_BYTES;
+  static constexpr size_t acc = sizeof(float) * NWARP * R * D;
+  static constexpr size_t region = ring > acc ? ring : acc;
+  static constexpr size_t fixed = region + sizeof(float) * (3 * NWARP * R + 2 * R);
+};
+
+template <typename T, int D, int R>
+__global__ void __launch_bounds__(NT, kLaneMinBlocks<T, R>) paged_fwd(Args a) {
+  using C = Cfg<T, D, R>;
+  using Ring = LaneRing<T>;
+  constexpr int LPS = C::LPS, SPW = C::SPW;
   extern __shared__ __align__(16) float smem[];
-  float* s_acc = smem;                  // [NWARP][R][D]
-  float* s_m = s_acc + NWARP * R * D;   // [NWARP][R]
+  float* s_acc = smem;                  // [NWARP][R][D], after the KV loop
+  float* s_m = smem + C::region / sizeof(float);  // [NWARP][R]
   float* s_l = s_m + NWARP * R;         // [NWARP][R]
   float* s_wsc = s_l + NWARP * R;       // [NWARP][R] scale of each partial
   float* s_den = s_wsc + NWARP * R;     // [R]
   float* s_w = s_den + 2 * R;           // [R][CB] fresh-key weights
+  int* s_pos = reinterpret_cast<int*>(s_w + R * a.CB);  // [kStage]
+  int* s_blk = s_pos + kStage;          // [kStage / bs + 2]
+
+  pdl_trigger();  // split_merge may start; it waits for this grid's writes
 
   const T* q = static_cast<const T*>(a.q);
   const T* kp = static_cast<const T*>(a.kp);
@@ -139,12 +176,14 @@ __global__ void __launch_bounds__(NT) paged_fwd(Args a) {
   const int sub = lane / LPS, part = lane % LPS;
   const int e0 = part * 8;
 
-  const int qp = a.qpos[b];
-  const int ql = a.qlen ? a.qlen[b] : 1;
-  const int sl0 = a.slot0[b];
+  const bool partial = a.S > 1;  // store split state for split_merge
+  const int split = blockIdx.z;
+  const int t_lo = split * a.split;
+  // The split's slots before n_blocks is known: staging starts without it.
+  const int t_cap = min(a.n_cols * a.bs, t_lo + a.split);
   const int ring = a.MB * a.bs;
-  const int ncols = min(max(a.nblk[b], 0), a.n_cols);
-  const int t_end = ncols * a.bs;
+  const int* kvp = a.kvpos + (long long)b * ring;
+  const int* bt = a.tables + (long long)b * a.MB;
 
   int qi[R];
   bool live[R];
@@ -160,7 +199,37 @@ __global__ void __launch_bounds__(NT) paged_fwd(Args a) {
     }
   }
 
+  // Every load the KV loop needs first is issued here, before any is
+  // used: the row's scalars, its query rows, and the first window's
+  // positions and table entries (kStage / NT and one per thread).
+  constexpr int PPT = kStage / NT;
+  int pv[PPT], bv = 0;
+  auto load_window = [&](int w0, int ws1) {
+#pragma unroll
+    for (int j = 0; j < PPT; ++j) {
+      const int t = w0 + j * NT + threadIdx.x;
+      pv[j] = t < ws1 ? kvp[t] : -1;
+    }
+    const int c = w0 / a.bs + threadIdx.x;
+    if (c <= (ws1 - 1) / a.bs) bv = bt[c];
+  };
+  const int qp = a.qpos[b];
+  const int ql = a.qlen ? a.qlen[b] : 1;
+  const int sl0 = a.slot0[b];
+  const int nb = a.nblk[b];
+  Vec8<T> qv[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+    if (live[r])
+      qv[r].load(q + ((long long)(b * a.CB + qi[r]) * a.Hq + hk * G + (f0 + r) % G) * D + e0);
+  if (t_lo < t_cap) load_window(t_lo, min(t_cap, t_lo + kStage));
+
+  const int ncols = min(max(nb, 0), a.n_cols);
+  const int t_end = ncols * a.bs;
+  const int t_hi = min(t_end, t_lo + a.split);
+
   if (i_lo >= ql) {  // a tile of chunk padding only: nobody reads it
+    if (partial) return;  // split_merge writes its zeros
     for (int idx = threadIdx.x; idx < R * D; idx += NT) {
       const int f = f0 + idx / D;
       if (f < nrows)
@@ -169,6 +238,8 @@ __global__ void __launch_bounds__(NT) paged_fwd(Args a) {
     }
     return;
   }
+  // A split past the row's occupied columns: split_merge skips it.
+  if (partial && t_lo >= t_end) return;
   // Fresh keys past jmax are invisible to every row of the tile.
   const int jmax = min(ql, i_hi + 1);
 
@@ -176,11 +247,7 @@ __global__ void __launch_bounds__(NT) paged_fwd(Args a) {
 #pragma unroll
   for (int r = 0; r < R; ++r) {
     if (live[r]) {
-      const int f = f0 + r;
-      const int h = hk * G + f % G;
-      Vec8<T> v;
-      v.load(q + ((long long)(b * a.CB + qi[r]) * a.Hq + h) * D + e0);
-      v.to_float(qf[r]);
+      qv[r].to_float(qf[r]);
     } else {
 #pragma unroll
       for (int e = 0; e < 8; ++e) qf[r][e] = 0.f;
@@ -200,51 +267,29 @@ __global__ void __launch_bounds__(NT) paged_fwd(Args a) {
   const long long blk_stride = (long long)a.bs * slot_stride;
   const long long base =
       (long long)a.layer * a.Np * blk_stride + (long long)hk * D + e0;
-  const int* kvp = a.kvpos + (long long)b * ring;
-  const int* bt = a.tables + (long long)b * a.MB;
   const int last_blk = a.Np - 2;  // N - 1: block N is the write drop target
+  char* wring = reinterpret_cast<char*>(smem) + warp * Ring::WARP_BYTES;
 
-  for (int t0 = 0; t0 < t_end; t0 += C::SLOTS) {
-    Vec8<T> kv[U], vv[U];
-    int pp[U];
-    bool any[U];
+  // Fold one step's slots (K/V rows read back from the ring) into each
+  // row's running softmax; pp[u] < 0: no row of the tile sees slot u.
+  auto step = [&](const Vec8<T>(&kv)[kSteps], const Vec8<T>(&vv)[kSteps],
+                  const int(&pp)[kSteps]) {
+    float s[kSteps][R];
 #pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const int t = t0 + (u * NWARP + warp) * SPW + sub;
-      any[u] = false;
-      pp[u] = -1;
-      if (t < t_end) {
-        const int p = kvp[t];
-        int d = t - sl0;
-        if (d < 0) d += ring;
-        any[u] = p >= 0 && d >= ql && p <= qp + i_hi &&
-                 (a.window <= 0 || p > qp + i_lo - a.window);
-        pp[u] = p;
-      }
-      if (any[u]) {
-        const int blk = min(bt[t / a.bs], last_blk);
-        const long long off =
-            base + (long long)blk * blk_stride + (long long)(t % a.bs) * slot_stride;
-        kv[u].load(kp + off);
-        vv[u].load(vp + off);
-      }
-    }
-    float s[U][R];
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
+    for (int u = 0; u < kSteps; ++u) {
       float kf[8];
-      if (any[u]) kv[u].to_float(kf);
+      if (pp[u] >= 0) kv[u].to_float(kf);
 #pragma unroll
       for (int r = 0; r < R; ++r) {
         float d = 0.f;
-        if (any[u]) {
+        if (pp[u] >= 0) {
 #pragma unroll
           for (int e = 0; e < 8; ++e) d = fmaf(qf[r][e], kf[e], d);
         }
 #pragma unroll
         for (int off = LPS / 2; off > 0; off >>= 1)
           d += __shfl_xor_sync(0xffffffffu, d, off);
-        const bool vis = any[u] && live[r] && pp[u] <= qp + qi[r] &&
+        const bool vis = pp[u] >= 0 && live[r] && pp[u] <= qp + qi[r] &&
                          (a.window <= 0 || pp[u] > qp + qi[r] - a.window);
         s[u][r] = vis ? d * a.scale : kNegInf;
       }
@@ -253,14 +298,14 @@ __global__ void __launch_bounds__(NT) paged_fwd(Args a) {
     for (int r = 0; r < R; ++r) {
       float m_new = m[r];
 #pragma unroll
-      for (int u = 0; u < U; ++u) m_new = fmaxf(m_new, s[u][r]);
+      for (int u = 0; u < kSteps; ++u) m_new = fmaxf(m_new, s[u][r]);
       if (m_new == kNegInf) continue;  // nothing visible yet in this stream
       const float alpha = expf(m[r] - m_new);
       l[r] *= alpha;
 #pragma unroll
       for (int e = 0; e < 8; ++e) acc[r][e] *= alpha;
 #pragma unroll
-      for (int u = 0; u < U; ++u) {
+      for (int u = 0; u < kSteps; ++u) {
         if (s[u][r] == kNegInf) continue;  // masked slots contribute 0
         const float p = expf(s[u][r] - m_new);
         l[r] += p;
@@ -271,6 +316,68 @@ __global__ void __launch_bounds__(NT) paged_fwd(Args a) {
         for (int e = 0; e < 8; ++e) acc[r][e] = fmaf(pr, vf[e], acc[r][e]);
       }
       m[r] = m_new;
+    }
+  };
+
+  for (int w0 = t_lo; w0 < t_hi; w0 += kStage) {
+    const int ws1 = min(t_cap, w0 + kStage), w1 = min(t_hi, ws1);
+    if (w0 != t_lo) load_window(w0, ws1);
+    __syncthreads();  // the previous window's staged slots are consumed
+    // Stage positions (-1 unless some row of the tile may see the slot)
+    // and table entries.
+#pragma unroll
+    for (int j = 0; j < PPT; ++j) {
+      const int i = j * NT + threadIdx.x, t = w0 + i, p = pv[j];
+      int d = t - sl0;
+      if (d < 0) d += ring;
+      s_pos[i] = t < w1 && p >= 0 && d >= ql && p <= qp + i_hi &&
+                         (a.window <= 0 || p > qp + i_lo - a.window)
+                     ? p
+                     : -1;
+    }
+    const int c0 = w0 / a.bs;
+    if (threadIdx.x <= (ws1 - 1) / a.bs - c0) s_blk[threadIdx.x] = min(bv, last_blk);
+    __syncthreads();
+
+    // Ring stage i holds the window's slots [i * SLOTS, (i + 1) * SLOTS):
+    // slot w0 + (i * kSteps + u) * STEP + warp * SPW + sub for this lane.
+    const int n_st = (w1 - w0 + C::SLOTS - 1) / C::SLOTS;
+    auto slot = [&](int i, int u) { return w0 + (i * kSteps + u) * C::STEP + warp * SPW + sub; };
+    auto issue = [&](int i) {
+      if (i < n_st) {
+#pragma unroll
+        for (int u = 0; u < kSteps; ++u) {
+          const int t = slot(i, u);
+          if (t < w1 && s_pos[t - w0] >= 0) {
+            const long long off = base + (long long)s_blk[t / a.bs - c0] * blk_stride +
+                                  (long long)(t % a.bs) * slot_stride;
+            Ring::put(wring, i % Ring::STAGES, u, lane, kp + off, vp + off);
+          }
+        }
+      }
+      tile::cp_async_commit();  // empty past the window: keeps the count
+    };
+#pragma unroll
+    for (int i = 0; i < Ring::STAGES - 1; ++i) issue(i);
+    for (int i = 0; i < n_st; ++i) {
+      issue(i + Ring::STAGES - 1);
+      tile::cp_async_wait<Ring::STAGES - 1>();  // this lane's stage i landed
+      Vec8<T> kv[kSteps], vv[kSteps];
+      int pp[kSteps];
+#pragma unroll
+      for (int u = 0; u < kSteps; ++u) {
+        const int t = slot(i, u);
+        pp[u] = t < w1 ? s_pos[t - w0] : -1;
+        if (pp[u] >= 0) {
+          ring_get(kv[u], wring, i % Ring::STAGES, u, 0, lane);
+          ring_get(vv[u], wring, i % Ring::STAGES, u, 1, lane);
+        }
+      }
+      bool any = false;
+#pragma unroll
+      for (int u = 0; u < kSteps; ++u) any |= pp[u] >= 0;
+      // A step no lane of the warp sees leaves the state as it is.
+      if (__any_sync(0xffffffffu, any)) step(kv, vv, pp);
     }
   }
 
@@ -292,6 +399,7 @@ __global__ void __launch_bounds__(NT) paged_fwd(Args a) {
       m[r] = mm;
     }
   }
+  __syncthreads();  // every warp is done with its ring: s_acc reuses it
   if (sub == 0) {
 #pragma unroll
     for (int r = 0; r < R; ++r) {
@@ -303,6 +411,12 @@ __global__ void __launch_bounds__(NT) paged_fwd(Args a) {
         s_l[warp * R + r] = l[r];
       }
     }
+  }
+  if (partial) {  // CB == 1: flat row f is query head hk*G + f
+    __syncthreads();
+    store_partial<NWARP, D, R>(s_acc, s_m, s_l, a.ws, a.B, a.Hq, a.S, b, split,
+                               [&](int r) { return f0 + r < nrows ? hk * G + f0 + r : -1; });
+    return;
   }
 
   // Fresh-key scores: warp w takes (row, key) pairs w, w + NWARP, ...
@@ -369,17 +483,30 @@ __global__ void __launch_bounds__(NT) paged_fwd(Args a) {
   }
 }
 
+// The split kernel, then at S > 1 split_merge on the same stream. A split
+// is whole ring stages of whole table columns, S splits cover the read,
+// and only CB == 1 splits (its merge folds the one fresh key).
 template <typename T, int D, int R>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
-  const size_t smem = Cfg<D, R>::fixed + sizeof(float) * size_t(R) * a.CB;
+  if (a.S < 1 || a.S > kMaxSplits || a.split <= 0 ||
+      a.split % Cfg<T, D, R>::SLOTS || a.split % a.bs ||
+      (long long)a.S * a.split < (long long)a.n_cols * a.bs ||
+      (a.S > 1 && (a.CB != 1 || a.ws == nullptr)))
+    return cudaErrorInvalidValue;
+  const size_t smem =
+      Cfg<T, D, R>::fixed + sizeof(float) * size_t(R) * a.CB + stage_bytes(a.bs);
   auto kern = paged_fwd<T, D, R>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const int tiles = (a.CB * (a.Hq / a.Hkv) + R - 1) / R;
-  dim3 grid(a.B, a.Hkv * tiles);
+  dim3 grid(a.B, a.Hkv * tiles, a.S);
   kern<<<grid, NT, smem, stream>>>(a);
-  return cudaGetLastError();
+  err = cudaGetLastError();
+  if (err != cudaSuccess || a.S == 1) return err;
+  const MergeArgs m{a.q, a.kn, a.vn, a.o, a.ws, a.nblk, a.qlen, a.B, a.Hq,
+                    a.Hkv, a.S, a.split, a.bs, a.n_cols, a.scale};
+  return launch_merge<T>(D, m, stream);
 }
 
 template <typename T, int D>
@@ -542,21 +669,25 @@ cudaError_t dispatch_mma(int D, const Args& a, cudaStream_t s) {
 // out [B,CB,Hq,D], all contiguous and 16-byte aligned; q_pos / q_len /
 // n_blocks / slot0 [B], kv_pos [B,MB*bs] and tables [B,MB] int32. q_len
 // null means every row has one live query (K3). impl: 0 = paged_fwd with R
-// (1, 2, 4 or 8) query rows per block, for fp32 or CB == 1; 1 = paged_mma,
-// for bf16 at CB > 1 (q_len required). window <= 0 means full causal.
-// Returns cudaGetLastError() after the launch.
+// (1, 2, 4 or 8) query rows per block, for fp32 or CB == 1, in S splits of
+// `split` slots (S > 1 only at CB == 1, with ws the fp32 workspace of
+// split_merge.cuh, [B*Hq*S*(D+2)]; null at S = 1); 1 = paged_mma, for bf16
+// at CB > 1 (q_len required; S, split and ws unused). window <= 0 means
+// full causal. Returns cudaGetLastError() after the last launch.
 extern "C" int llmss_paged_attention(
     void* q, void* kp, void* vp, void* kn, void* vn, void* o, void* qpos,
-    void* qlen, void* kvpos, void* tables, void* nblk, void* slot0, int layer,
-    int B, int CB, int Np, int bs, int MB, int n_cols, int Hq, int Hkv, int D,
-    int R, int dtype, int impl, float scale, int window, void* stream) {
+    void* qlen, void* kvpos, void* tables, void* nblk, void* slot0, void* ws,
+    int layer, int B, int CB, int Np, int bs, int MB, int n_cols, int Hq,
+    int Hkv, int D, int R, int S, int split, int dtype, int impl, float scale,
+    int window, void* stream) {
   using namespace llmss;
   if (B == 0) return 0;
   Args a{q, kp, vp, kn, vn, o,
          static_cast<const int*>(qpos), static_cast<const int*>(qlen),
          static_cast<const int*>(kvpos), static_cast<const int*>(tables),
          static_cast<const int*>(nblk), static_cast<const int*>(slot0),
-         layer, B, CB, Np, bs, MB, n_cols, Hq, Hkv, scale, window};
+         layer, B, CB, Np, bs, MB, n_cols, Hq, Hkv, scale, window,
+         static_cast<float*>(ws), S, split};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool mma = dtype == kBF16 && CB > 1;
   cudaError_t err = cudaErrorInvalidValue;

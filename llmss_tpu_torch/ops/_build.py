@@ -16,6 +16,7 @@ returns ``cudaGetLastError()``; ``check`` raises on a non-zero code.
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
 import shutil
 import subprocess
@@ -125,14 +126,14 @@ def _declare(lib: ctypes.CDLL, name: str) -> None:
         fn.argtypes = [P] * 7 + [I] * 8 + [F, I, P]
     elif name == "decode_attention":
         fn = lib.llmss_decode_attention
-        # q kc vc kn vn out qpos kvpos slots | layer B T t_len Hq Hkv D GB dtype
-        # | scale window stream
-        fn.argtypes = [P] * 9 + [I] * 9 + [F, I, P]
+        # q kc vc kn vn out qpos kvpos slots ws | layer B T t_len Hq Hkv D GB
+        # S split dtype | scale window stream
+        fn.argtypes = [P] * 10 + [I] * 11 + [F, I, P]
     elif name == "paged_attention":
         fn = lib.llmss_paged_attention
-        # q kp vp kn vn out qpos qlen kvpos tables nblk slot0 | layer B CB Np
-        # bs MB n_cols Hq Hkv D R dtype impl | scale window stream
-        fn.argtypes = [P] * 12 + [I] * 13 + [F, I, P]
+        # q kp vp kn vn out qpos qlen kvpos tables nblk slot0 ws | layer B CB
+        # Np bs MB n_cols Hq Hkv D R S split dtype impl | scale window stream
+        fn.argtypes = [P] * 13 + [I] * 15 + [F, I, P]
     fn.restype = ctypes.c_int
 
 
@@ -164,3 +165,9 @@ def dtype_code(t) -> int:
 def stream_ptr(device) -> int:
     """The handle of PyTorch's current CUDA stream on ``device``."""
     return torch.cuda.current_stream(device).cuda_stream
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device) -> int:
+    """SMs of the CUDA ``device``: the decode kernels' split plan fills them."""
+    return torch.cuda.get_device_properties(device).multi_processor_count

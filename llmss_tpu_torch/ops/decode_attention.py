@@ -3,8 +3,12 @@
 
 Replaces ``llmss_tpu/ops/pallas_decode.py::decode_attention``, with the
 XLA path's bucketed read added: ``t_len`` bounds the read to ring slots
-``[0, t_len)``. ``decode_attention`` launches the CUDA kernel and counts
-each launch in ``decode_attention.launches``; it takes CUDA tensors only.
+``[0, t_len)``, cut into ``S`` splits along the slots (flash-decoding,
+``ops/split_plan.py``) that ``kernel_plan`` picks from the shapes and the
+card's SM count.
+``decode_attention`` launches the CUDA kernel (and, at ``S > 1``, its
+merge) and counts each call in ``decode_attention.launches``; it takes
+CUDA tensors only.
 ``decode_attention_ref`` is the plain PyTorch version (fp32 throughout:
 ``fresh_kv_decode_attention`` on the layer's first ``t_len`` slots), used
 for CPU tensors and as the kernel's check on the card. The kernel rounds P
@@ -16,6 +20,7 @@ from __future__ import annotations
 import torch
 
 from llmss_tpu_torch.ops import _build
+from llmss_tpu_torch.ops import split_plan as sp
 from llmss_tpu_torch.ops.attention import fresh_kv_decode_attention
 
 HEAD_DIMS = (64, 128, 256)
@@ -40,6 +45,21 @@ def _heads_per_block(G: int) -> int:
     return 1
 
 
+def kernel_plan(dtype: torch.dtype, B: int, Hq: int, Hkv: int, D: int,
+                t_len: int, *, sms: int = sp.H100_SMS,
+                max_splits: int = sp.MAX_SPLITS) -> sp.Plan:
+    """How a K2 call launches on a card of ``sms`` SMs: the lane template
+    with ``GB`` query heads per block (``_heads_per_block``), the shared
+    memory one block needs (bytes), and the split of slots ``[0, t_len)``
+    (into at most ``max_splits``)."""
+    GB = _heads_per_block(Hq // Hkv)
+    S, split = sp.split_plan(B, Hq // GB, t_len, step=sp.lane_step(D),
+                             sms=sms, max_splits=max_splits)
+    smem = (sp.lane_region_bytes(dtype.itemsize, GB, D) + 4 * (2 * 8 * GB + GB)
+            + sp.stage_smem_bytes(1))
+    return sp.Plan("lanes", smem, S, split)
+
+
 def decode_attention(
     q: torch.Tensor,  # [B, 1, Hq, D]
     k_cache: torch.Tensor,  # [L, B, T, Hkv, D]
@@ -56,6 +76,16 @@ def decode_attention(
     window: int | None = None,
 ) -> torch.Tensor:
     """Launch K2 on the current stream; returns [B, 1, Hq, D] in q's dtype."""
+    out = _launch(q, k_cache, v_cache, k_new, v_new, q_pos, kv_pos, slots,
+                  layer, t_len=t_len, scale=scale, window=window)
+    decode_attention.launches += 1
+    return out
+
+
+def _launch(q, k_cache, v_cache, k_new, v_new, q_pos, kv_pos, slots, layer,
+            *, t_len=None, scale=None, window=None, max_splits=sp.MAX_SPLITS):
+    """Check the envelope and launch K2 split into at most ``max_splits``
+    (1: the unsplit kernel, which chip_smoke.py times beside the plan's)."""
     tensors = (q, k_cache, v_cache, k_new, v_new, q_pos, kv_pos, slots)
     if not all(t.is_cuda for t in tensors):
         raise RuntimeError("decode_attention (K2) takes CUDA tensors only")
@@ -94,17 +124,25 @@ def decode_attention(
     for t in (qc, k_cache, v_cache, kn, vn):
         if t.data_ptr() % 16:
             raise ValueError("decode_attention needs 16-byte aligned tensors")
+    plan = kernel_plan(q.dtype, B, Hq, Hkv, D, t_len,
+                       sms=_build.sm_count(q.device), max_splits=max_splits)
+    if plan.smem > _build.SMEM_LIMIT:
+        raise _build.KernelError(f"decode_attention (K2) needs {plan.smem} "
+                                 "bytes of shared memory")
     out = torch.empty_like(qc)
+    ws = (torch.empty(sp.workspace_numel(B, Hq, plan.splits, D),
+                      dtype=torch.float32, device=q.device)
+          if plan.splits > 1 else None)
     lib = _build.load("decode_attention")
     code = lib.llmss_decode_attention(
         qc.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), kn.data_ptr(),
         vn.data_ptr(), out.data_ptr(), qp.data_ptr(), kvp.data_ptr(),
-        sl.data_ptr(), int(layer), B, T, t_len, Hq, Hkv, D,
-        _heads_per_block(Hq // Hkv), _build.dtype_code(q), float(scale),
-        window or 0, _build.stream_ptr(q.device),
+        sl.data_ptr(), ws.data_ptr() if ws is not None else None, int(layer),
+        B, T, t_len, Hq, Hkv, D, _heads_per_block(Hq // Hkv), plan.splits,
+        plan.split_slots, _build.dtype_code(q), float(scale), window or 0,
+        _build.stream_ptr(q.device),
     )
     _build.check(code, "decode_attention")
-    decode_attention.launches += 1
     return out
 
 

@@ -12,11 +12,14 @@
 Two instantiations, chosen by ``kernel_plan`` from the dtype and ``CB``
 alone: ``"mma"`` (the tensor-core tile, csrc/attn_tile.cuh) for bf16 at
 ``CB > 1``, ``"lanes"`` (the lane template) for fp32 and for ``CB == 1``.
-K3 is the lane template's ``CB == 1`` launch, so an all-decode K4 call at
-``CB == 1`` gives bit-identical outputs. A call the chosen instantiation
-cannot take raises ``KernelError``; no other instantiation is tried. The
-mma instantiation applies the fresh keys' P rounded to bf16, like the
-cache's; the lane template applies fresh V in fp32. K4 writes zeros for
+At ``CB == 1`` the lane template splits the bucketed read ``n_cols * bs``
+into ``S`` splits along the KV axis (flash-decoding, ``ops/split_plan.py``,
+from the shapes and the card's SM count) and a merge kernel folds them. K3 is the lane
+template's ``CB == 1`` launch, so an all-decode K4 call at ``CB == 1``
+takes the same plan and gives bit-identical outputs. A call the chosen
+instantiation cannot take raises ``KernelError``; no other instantiation
+is tried. The mma instantiation applies the fresh keys' P rounded to
+bf16, like the cache's; the lane template applies fresh V in fp32. K4 writes zeros for
 query rows past ``q_len`` that share no kernel tile with a live row (chunk
 padding nothing reads); the plain version computes every row, as the
 reference's oracle does, so the two agree on live rows. Both wrappers take
@@ -41,6 +44,7 @@ import torch
 
 from llmss_tpu_torch.engine.cache import gather_block_view
 from llmss_tpu_torch.ops import _build
+from llmss_tpu_torch.ops import split_plan as sp
 from llmss_tpu_torch.ops.attention import (
     fresh_kv_decode_attention, ragged_fresh_kv_attention,
 )
@@ -88,19 +92,34 @@ def _rows_per_block(n: int) -> int:
     return r
 
 
-def kernel_plan(dtype: torch.dtype, CB: int, G: int, D: int) -> tuple[str, int]:
-    """The instantiation a K3 / K4 launch takes and the shared memory one
-    of its blocks needs, in bytes: ``"mma"`` for bf16 at ``CB > 1``, else
-    ``"lanes"`` (R <= 8 of the ``CB * G`` flat query rows per block)."""
+def kernel_plan(dtype: torch.dtype, CB: int, G: int, D: int, *, B: int = 1,
+                Hkv: int = 1, n_slots: int = 0, bs: int = 16,
+                sms: int = sp.H100_SMS, max_splits: int = sp.MAX_SPLITS
+                ) -> sp.Plan:
+    """How a K3 / K4 launch over ``B`` rows, ``Hkv`` KV heads and a read of
+    ``n_slots`` slots (``n_cols * bs``) goes on a card of ``sms`` SMs:
+    ``"mma"`` for bf16 at ``CB > 1`` (never split), else ``"lanes"`` (R <=
+    8 of the ``CB * G`` flat query rows per block), split along the KV axis
+    (into at most ``max_splits``) only at ``CB == 1``; and the shared
+    memory one block needs, in bytes."""
     if dtype == torch.bfloat16 and CB > 1:
-        return "mma", _build.tile_smem_bytes(D)
+        return sp.Plan("mma", _build.tile_smem_bytes(D), 1, 0)
     R = _rows_per_block(CB * G)
-    return "lanes", 4 * (8 * R * D + 3 * 8 * R + 2 * R + R * CB)
+    tiles = -(-CB * G // R)
+    S, split = sp.split_plan(B, Hkv * tiles, n_slots, bs,
+                             step=sp.lane_step(D), sms=sms,
+                             max_splits=max_splits if CB == 1 else 1)
+    smem = (sp.lane_region_bytes(dtype.itemsize, R, D)
+            + 4 * (3 * 8 * R + 2 * R + R * CB) + sp.stage_smem_bytes(bs))
+    return sp.Plan("lanes", smem, S, split)
 
 
 def _launch(name, q, k_pool, v_pool, k_new, v_new, q_pos, q_len, kv_pos,
-            block_tables, n_blocks, slot0, layer, n_cols, scale, window):
-    """Check the envelope and launch the template; q_len None means K3."""
+            block_tables, n_blocks, slot0, layer, n_cols, scale, window,
+            max_splits=sp.MAX_SPLITS):
+    """Check the envelope and launch the template; q_len None means K3.
+    ``max_splits`` 1 launches the unsplit kernel (which chip_smoke.py times
+    beside the plan's)."""
     tensors = [q, k_pool, v_pool, k_new, v_new, q_pos, kv_pos, block_tables,
                n_blocks, slot0] + ([q_len] if q_len is not None else [])
     if not all(t.is_cuda for t in tensors):
@@ -131,10 +150,13 @@ def _launch(name, q, k_pool, v_pool, k_new, v_new, q_pos, q_len, kv_pos,
         raise _build.KernelError(f"n_cols must be in (0, {MB}], got {n_cols}")
     if window is not None and window <= 0:
         raise _build.KernelError(f"window must be positive, got {window}")
-    impl, smem = kernel_plan(q.dtype, CB, Hq // Hkv, D)
-    if smem > _build.SMEM_LIMIT:
-        raise _build.KernelError(f"{name}: the {impl} instantiation at chunk "
-                                 f"{CB} needs {smem} bytes of shared memory")
+    plan = kernel_plan(q.dtype, CB, Hq // Hkv, D, B=B, Hkv=Hkv,
+                       n_slots=n_cols * bs, bs=bs,
+                       sms=_build.sm_count(q.device), max_splits=max_splits)
+    if plan.smem > _build.SMEM_LIMIT:
+        raise _build.KernelError(
+            f"{name}: the {plan.impl} instantiation at chunk {CB} needs "
+            f"{plan.smem} bytes of shared memory")
     if scale is None:
         scale = 1.0 / (D ** 0.5)
 
@@ -153,15 +175,20 @@ def _launch(name, q, k_pool, v_pool, k_new, v_new, q_pos, q_len, kv_pos,
         if t.data_ptr() % 16:
             raise _build.KernelError(f"{name} needs 16-byte aligned tensors")
     out = torch.empty_like(qc)
+    ws = (torch.empty(sp.workspace_numel(B, Hq, plan.splits, D),
+                      dtype=torch.float32, device=q.device)
+          if plan.splits > 1 else None)
     lib = _build.load("paged_attention")
     code = lib.llmss_paged_attention(
         qc.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), kn.data_ptr(),
         vn.data_ptr(), out.data_ptr(), qp.data_ptr(),
         ql.data_ptr() if ql is not None else None, kvp.data_ptr(),
-        bt.data_ptr(), nb.data_ptr(), sl.data_ptr(), int(layer), B, CB, Np,
+        bt.data_ptr(), nb.data_ptr(), sl.data_ptr(),
+        ws.data_ptr() if ws is not None else None, int(layer), B, CB, Np,
         bs, MB, n_cols, Hq, Hkv, D, _rows_per_block(CB * (Hq // Hkv)),
-        _build.dtype_code(q), _build.IMPL_CODES[impl], float(scale),
-        window or 0, _build.stream_ptr(q.device),
+        plan.splits, plan.split_slots, _build.dtype_code(q),
+        _build.IMPL_CODES[plan.impl], float(scale), window or 0,
+        _build.stream_ptr(q.device),
     )
     _build.check(code, name)
     return out

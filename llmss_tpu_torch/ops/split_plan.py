@@ -1,0 +1,119 @@
+"""The split over the KV axis (flash-decoding) of the decode kernels K2 and
+K3 (csrc/decode_attention.cu, csrc/paged_attention.cu at CB = 1).
+
+An unsplit decode grid has one block per (row, KV head, tile of query
+rows) and each block walks its row's whole read. At small batch or at GQA
+that leaves most of the H100's 132 SMs idle, and a batch's longest row
+sets the kernel's time. The split gives each of those blocks ``S``
+siblings along the KV axis: split ``s`` reads slots
+``[s * split_slots, (s + 1) * split_slots)`` and writes an fp32 partial
+softmax state (m, l, acc); a merge kernel, launched by the same C entry
+point, folds the live splits in split order, then the fresh key, and
+writes the output (csrc/split_merge.cuh).
+
+``split_plan`` picks ``S`` from shapes the host already knows: K3's
+bucketed read ``n_cols * bs`` and K2's ``t_len``, never ``n_blocks``,
+which lives on the device, and the card's SM count, which the wrappers
+read once per device. So planning needs no host sync, and one bucket
+always launches one grid.
+"""
+
+from __future__ import annotations
+
+import functools
+import math
+from typing import NamedTuple
+
+# A split covers at most SPLIT_SLOTS slots (128 led 256 and 512, summed
+# over nine decode cases timed on the H100, PERF.md), and the plan shrinks
+# the split until the grid has two blocks per SM or the split is one unit.
+SPLIT_SLOTS = 128
+MAX_SPLITS = 16
+# A read of at most SHORT_READ slots is split only when its unsplit grid
+# leaves at least half the SMs idle: on a grid that nearly fills the card
+# the merge costs more than the shorter walk saves (K2 at the engine's
+# 192-slot bucket, 128 blocks: split 0.0069 ms, unsplit 0.0064, PERF.md).
+SHORT_READ = 2 * SPLIT_SLOTS
+H100_SMS = 132  # SMs of an H100 SXM: the count a plan made off the card uses
+# Slots whose positions (and, for K3, table entries) a block stages in
+# shared memory at a time: csrc/split_merge.cuh ``kStage``.
+STAGE_SLOTS = 512
+NWARP = 8  # warps of a lane-template block
+STEPS = 2  # steps of SPW slots per warp in one ring stage (``kSteps``)
+
+
+class Plan(NamedTuple):
+    """How a K2 / K3 / K4 call launches: the instantiation, the shared
+    memory one block of it needs (bytes), the number of splits along the
+    KV axis and the slots each split covers (0 for the tensor-core
+    instantiation, which does not split)."""
+
+    impl: str
+    smem: int
+    splits: int
+    split_slots: int
+
+
+def lane_step(D: int) -> int:
+    """Slots one ring stage of the lane template covers (``Cfg::SLOTS``):
+    8 warps, 32 / (D / 8) slots per warp and step, ``STEPS`` steps."""
+    return NWARP * (32 // (D // 8)) * STEPS
+
+
+def stage_smem_bytes(bs: int) -> int:
+    """Shared memory of the staged positions, and for a paged read
+    (``bs > 1``) the staged table entries of those slots."""
+    cols = STAGE_SLOTS // bs + 2 if bs > 1 else 0
+    return 4 * (STAGE_SLOTS + cols)
+
+
+def lane_region_bytes(elem_size: int, rows: int, D: int) -> int:
+    """Shared memory of the lane template's K/V rings (``LaneRing``: per
+    warp 4 stages of 16-bit rows, or 2 of fp32 rows, each ``STEPS`` steps
+    of K and V, 16 bytes per lane and chunk), which the per-warp fp32
+    accumulators ``[8][rows][D]`` reuse after the KV loop."""
+    stages, chunks = (2, 2) if elem_size == 4 else (4, 1)
+    ring = NWARP * stages * STEPS * 2 * chunks * 32 * 16
+    return max(ring, 4 * NWARP * rows * D)
+
+
+@functools.lru_cache(maxsize=4096)
+def split_plan(B: int, blocks_per_row: int, n_slots: int, bs: int = 1, *,
+               step: int, sms: int, max_splits: int = MAX_SPLITS
+               ) -> tuple[int, int]:
+    """(S, split_slots) for a read of ``n_slots`` slots per row, on a grid
+    of ``B * blocks_per_row`` blocks before the split, on a card of ``sms``
+    SMs.
+
+    ``split_slots`` is a multiple of ``step`` (the lane loop's slots per
+    ring stage) and of ``bs`` (K3's block size; 1 for K2) and covers at
+    most ``SPLIT_SLOTS`` slots, unless one such unit is larger. It
+    shrinks, one unit at a time, while the grid has fewer than two blocks
+    per SM; ``S`` is at most ``max_splits`` (``max_splits=1``: never
+    split). ``S == 1`` when the read fits one split, and for a read of at
+    most ``SHORT_READ`` slots whose unsplit grid has at least ``sms / 2``
+    blocks."""
+    unit = step * bs // math.gcd(step, bs)
+    grid = B * blocks_per_row
+
+    def splits(x):
+        return max(1, -(-n_slots // x))
+
+    if max_splits == 1 or (n_slots <= SHORT_READ and 2 * grid >= sms):
+        return 1, max(unit, -(-n_slots // unit) * unit)
+    split = max(unit, SPLIT_SLOTS // unit * unit)
+    while (split > unit and grid * splits(split) < 2 * sms
+           and splits(split - unit) <= max_splits):
+        split -= unit
+    if splits(split) > max_splits:
+        split = -(-n_slots // (max_splits * unit)) * unit
+    S = splits(split)
+    if S == 1:  # one split covers the whole read
+        split = max(unit, -(-n_slots // unit) * unit)
+    return S, split
+
+
+def workspace_numel(B: int, Hq: int, S: int, D: int) -> int:
+    """fp32 elements of the split kernels' partial states: acc
+    ``[B, Hq, S, D]``, then m and l ``[B, Hq, S]``."""
+    return B * Hq * S * (D + 2)

@@ -21,7 +21,8 @@ from llmss_tpu_torch.ops.paged_attention import (
 )
 
 ROOT = Path(__file__).resolve().parent.parent
-PORT_FILES = sorted((ROOT / "llmss_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_FILES = sorted((ROOT / "llmss_tpu_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py", ROOT / "kernel_ab.py"]
 CFG = DecoderConfig(
     model_type="llama", vocab_size=32, hidden_size=32, n_layers=1, n_heads=2,
     n_kv_heads=2, head_dim=16, intermediate_size=32,
