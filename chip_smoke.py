@@ -21,23 +21,32 @@ exits non-zero without printing a result:
               (flash-decoding: "splits", "split_slots") beside the same
               call launched unsplit ("unsplit_ms", checked too);
 4. reference -- a tiny fp32 llama generates the same greedy tokens through
-              the kernels on the card as through the plain path on the CPU;
+              the kernels on the card, decoding by CUDA-graph replays, as
+              through the plain path on the CPU;
    reference_paged -- the same through the continuous batcher over the
               paged pool, with split admission and with chunked prefill;
 5. engine  -- Llama-2-7B width (hidden 4096, 32 layers, 32 heads, head_dim
               128, intermediate 11008, vocab 32000), random weights from a
-              seed, bf16, max_seq_len 1024, batch 4: grouped decode
-              (chunk_steps=8, one sampled row) twice with identical tokens,
-              then greedy chunk_steps=1; the launch counters must rise by
-              n_layers per prefill (K1) and per decode step (K2);
-   profile -- one prefill and one 8-step decode chunk under torch.profiler:
-              device kernel time, idle share, top kernels;
-6. serve   -- the port's batch Worker over its in-process broker answers 4
-              requests (2 greedy, 1 top-k/top-p sampled, 1 streamed);
-   serve_continuous -- the serving main path: ContinuousWorker at
-              Llama-2-7B width answers 16 requests three times (split
-              admission, chunked prefill, chunked again: same tokens);
-   profile -- one paged decode group and one ragged group;
+              seed, bf16, max_seq_len 1024, batch 4: ``prewarm`` captures
+              every decode step graph, then grouped decode (chunk_steps=8,
+              one sampled row) twice with identical tokens, greedy
+              chunk_steps=1, and ``generate_fused`` (greedy and sampled)
+              with generate's tokens, all with no new graph capture; the
+              launch counters must rise by n_layers per prefill (K1) and
+              per decode step replayed (K2);
+   profile -- one prefill, and one 8-step decode chunk by graph replays
+              beside the same steps run eagerly from the same state (same
+              tokens): wall, host enqueue, device kernel time, idle share,
+              top kernels;
+6. serve   -- the port's batch Worker, prewarmed, over its in-process
+              broker answers 4 requests (2 greedy, 1 top-k/top-p sampled, 1
+              streamed) with no new graph capture;
+   serve_continuous -- the serving main path: two ContinuousWorkers at
+              Llama-2-7B width (split admission; chunked prefill), each
+              prewarmed, answer 16 requests three times (split, chunked,
+              chunked again: same tokens) with no new graph capture;
+   profile -- one paged decode group (graph replays beside the eager
+              steps, same tokens) and one ragged group (eager);
 7. cli     -- writes a 2-layer llama checkpoint at 1b2 width
               (safetensors + config.json) and runs the port's CLI on it.
 
@@ -51,6 +60,8 @@ durations from torch.profiler (``profiled_ms``).
 
 from __future__ import annotations
 
+import ctypes
+import gc
 import json
 import math
 import os
@@ -824,11 +835,15 @@ def phase_reference() -> None:
     gen = GenerationParams(max_new_tokens=16)
     want = DecodeEngine(cfg, cpu_params, device="cpu", max_seq_len=64).generate(
         prompts, gen, chunk_steps=4)
-    got = DecodeEngine(cfg, _to(cpu_params, "cuda"), max_seq_len=64).generate(
-        prompts, gen, chunk_steps=4)
-    emit({"phase": "reference", "identical": got == want, "tokens": got})
+    eng = DecodeEngine(cfg, _to(cpu_params, "cuda"), max_seq_len=64)
+    got = eng.generate(prompts, gen, chunk_steps=4)
+    m = eng.metrics
+    emit({"phase": "reference", "identical": got == want, "tokens": got,
+          "graph_captures": m.graph_captures, "graph_replays": m.graph_replays})
     if got != want:
         raise AssertionError(f"GPU tokens {got} != CPU plain-path tokens {want}")
+    if not m.graph_replays:
+        raise AssertionError("the decode steps were not graph replays")
 
 
 def phase_reference_paged() -> None:
@@ -866,19 +881,20 @@ def phase_reference_paged() -> None:
         bat.run_until_idle()
         if bat.allocator.blocks_in_use:
             raise AssertionError("blocks still in use after the run")
-        return [out[i] for i in range(len(prompts))]
+        return [out[i] for i in range(len(prompts))], eng.metrics
 
     for chunked in (False, True):
-        want = serve(cpu_params, "cpu", chunked)
+        want, _ = serve(cpu_params, "cpu", chunked)
         pa.paged_decode_attention.launches = 0
         pa.ragged_paged_attention.launches = 0
-        got = serve(gpu_params, None, chunked)
+        got, m = serve(gpu_params, None, chunked)
         k3, k4 = (pa.paged_decode_attention.launches,
                   pa.ragged_paged_attention.launches)
         emit({"phase": "reference_paged",
               "admission": "chunked_prefill=16" if chunked else "split",
               "identical": got == want, "k3_launches": k3,
-              "k4_launches": k4, "tokens": got})
+              "k4_launches": k4, "graph_captures": m.graph_captures,
+              "graph_replays": m.graph_replays, "tokens": got})
         if got != want:
             raise AssertionError(
                 f"paged batcher on the card {got} != CPU plain path {want}")
@@ -921,22 +937,32 @@ def phase_engine(kernels: dict):
             raise AssertionError("non-finite or misshapen logits")
     del cache
 
+    # Every decode step graph generate / generate_fused can pick at 4 rows.
+    t = time.perf_counter()
+    warmed = eng.prewarm(B, chunk_steps=8)
+    prewarm_s = time.perf_counter() - t
+    keys = eng._graphs.keys()
+    emit({"phase": "engine", "prewarm": warmed, "prewarm_s": prewarm_s,
+          "graph_captures": eng.metrics.graph_captures,
+          **_graph_memory(eng, [eng._cache])})
+    sampled = GenerationParams(max_new_tokens=new, is_greedy=False,
+                               temperature=0.8, top_k=40, top_p=0.9,
+                               seed=1234)
+
     def gens():
-        sampled = GenerationParams(max_new_tokens=new, is_greedy=False,
-                                   temperature=0.8, top_k=40, top_p=0.9,
-                                   seed=1234)
         return [GenerationParams(max_new_tokens=new)] * 3 + [sampled]
 
-    def run(gen, chunk):
+    def counted(call, steps):
+        """Run ``call``; check K1 ran n_layers times and K2 n_layers per
+        decode step (replays count the launches their graph holds)."""
         fa.flash_attention.launches = 0
         da.decode_attention.launches = 0
         torch.cuda.synchronize()
         t = time.perf_counter()
-        out = eng.generate(prompts, gen, chunk_steps=chunk)
+        out = call()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
         k1, k2 = fa.flash_attention.launches, da.decode_attention.launches
-        steps = (math.ceil((new - 1) / chunk) * chunk) if chunk > 1 else new - 1
         if k1 != L or k2 != L * steps:
             raise AssertionError(
                 f"launch counts K1={k1} (want {L}), K2={k2} (want {L * steps})")
@@ -945,8 +971,14 @@ def phase_engine(kernels: dict):
                 raise AssertionError("tokens outside the vocab or wrong length")
         return out, wall, k1, k2
 
+    def run(gen, chunk):
+        steps = (math.ceil((new - 1) / chunk) * chunk) if chunk > 1 else new - 1
+        return counted(lambda: eng.generate(prompts, gen, chunk_steps=chunk),
+                       steps)
+
+    eng.metrics = EngineMetrics()
     a, _, k1_main, k2_main = run(gens(), 8)
-    ttft_first_ms = eng.metrics.ttft.last_s * 1e3  # includes lazy kernel loads
+    ttft_first_ms = eng.metrics.ttft.last_s * 1e3
     eng.metrics = EngineMetrics()  # steady-state numbers from the repeat
     b, wall_b, _, _ = run(gens(), 8)
     if a != b:
@@ -956,6 +988,19 @@ def phase_engine(kernels: dict):
     c, wall_c, _, _ = run(GenerationParams(max_new_tokens=new), 1)
     if c[:3] != a[:3]:
         raise AssertionError("greedy rows differ between chunk_steps 8 and 1")
+    # generate_fused: greedy gives the greedy rows; every row sampled with
+    # the sampled row's settings gives that row its tokens (rows are
+    # isolated, and a draw depends on the seed and the position only).
+    fused, wall_f, _, _ = counted(
+        lambda: eng.generate_fused(prompts, GenerationParams(max_new_tokens=new)),
+        new - 1)
+    fused_s, _, _, _ = counted(lambda: eng.generate_fused(prompts, sampled),
+                               new - 1)
+    if fused != c or fused_s[3] != a[3]:
+        raise AssertionError("generate_fused tokens differ from generate's")
+    captured = len(eng._graphs.keys() - keys)
+    if captured:
+        raise AssertionError(f"{captured} graph captures after prewarm")
     kernels["K1"]["launches"] = k1_main
     kernels["K2"]["launches"] = k2_main
     emit({"phase": "engine", "model": "llama-2-7b dims, random init (seed 0)",
@@ -965,19 +1010,169 @@ def phase_engine(kernels: dict):
           "decode_ms_per_step_chunk8": step_ms,
           "tokens_per_s_chunk8_one_sampled_row": B * new / wall_b,
           "tokens_per_s_chunk1_greedy": B * new / wall_c,
+          "tokens_per_s_fused_greedy": B * new / wall_f,
           "k1_launches_per_prefill": k1_main,
           "k2_launches_chunk8": k2_main, "deterministic": True,
+          "fused_equals_generate": True,
+          "graph_captures_after_prewarm": captured,
+          "graph_replays": eng.metrics.graph_replays,
           "sampled_row_head": a[3][:8]})
     return eng
 
 
-def phase_profile(eng) -> None:
-    """Where the time goes: one prefill and one 8-step decode chunk of the
-    engine phase's batch. Wall time is taken without the profiler; summed
-    kernel time and the top kernels come from a second, profiled run; the
-    idle share is 1 - kernel time / wall time."""
+def _graph_memory(eng, caches) -> dict:
+    """What the engine's step graphs hold on the card: how many caches
+    they are kept for, the bytes of ``caches`` (those caches), and the
+    bytes the caching allocator reserves for the graphs' shared pool."""
+    pool = eng._graphs._pool
+    segs = torch.cuda.memory_snapshot()
+    if pool is None or any("segment_pool_id" not in s for s in segs):
+        raise RuntimeError("no graph pool, or no pool ids in the snapshot")
+    return {"graph_caches": len(eng._graphs),
+            "cache_bytes": sum(t.numel() * t.element_size()
+                               for c in caches for t in c),
+            "graph_pool_bytes": sum(
+                s["total_size"] for s in segs
+                if tuple(s["segment_pool_id"]) == tuple(pool))}
+
+
+def _profile_row(what, fn, path=None, count=()) -> tuple[dict, object]:
+    """Where the time of ``fn`` goes: after a warm call, wall time without
+    the profiler (and the host's enqueue time, to the return of ``fn``),
+    then summed kernel time, the top kernels and the calls of the kernels
+    whose names hold a ``count`` symbol, from a profiled call; the idle
+    share is 1 - kernel time / wall time. Returns (row, the timed call's
+    result)."""
     from torch.profiler import ProfilerActivity, profile
 
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    enqueue_ms = (time.perf_counter() - t) * 1e3
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t) * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = _kernel_rows(prof)
+    kernel_ms = sum(r[0] for r in rows) / 1e3
+    row = {"phase": "profile", "what": what, **({"path": path} if path else {}),
+           "wall_ms": wall_ms, "host_enqueue_ms": enqueue_ms,
+           "device_kernel_ms": kernel_ms,
+           "device_idle_share": max(0.0, 1 - kernel_ms / wall_ms),
+           "kernels": sum(r[2] for r in rows),
+           "kernel_calls": {c: sum(n for _, k, n in rows if c in k)
+                            for c in count},
+           "top": [{"kernel": k[:80], "ms": us / 1e3, "calls": n}
+                   for us, k, n in rows[:8]]}
+    emit(row)
+    return row, out
+
+
+def _graph_vs_eager(eng, what, tok, cache, cur, sa, done, eos, *, n_chunks,
+                    n_steps, t_bucket) -> None:
+    """One decode group by graph replays (the engine's path) beside the
+    same steps run eagerly over the same buffers, each call from the same
+    state (the cache's positions put back: the KV a call wrote is then
+    masked again); both must give the same packed tokens, and the profiler
+    must see both launch the decode kernel n_layers times a step, and its
+    merge as often when the plan splits. The engine's captured step graph
+    must keep each merge a programmatic dependent launch."""
+    from llmss_tpu_torch.engine.cache import PagedKVCache
+
+    pos0 = cache.positions.clone()
+    kernel = "paged_fwd" if isinstance(cache, PagedKVCache) else "decode_fwd"
+
+    def graph():
+        cache.positions.copy_(pos0)
+        return eng._decode_group(tok, cache, cur, sa, done, eos,
+                                 n_chunks=n_chunks, n_steps=n_steps,
+                                 t_bucket=t_bucket)[0]
+
+    def eager():
+        cache.positions.copy_(pos0)
+        g = eng._graphs.for_cache(cache)
+        g.bufs.load(tok, cur, sa, done, eos)
+        body = eng._step_body("fold", g.bufs, cache, sa, t_bucket)
+        return eng._run_group(g.bufs, body, n_chunks, n_steps)[0]
+
+    count = (kernel, "split_merge")
+    g_row, g_out = _profile_row(what, graph, "graph", count)
+    e_row, e_out = _profile_row(what, eager, "eager", count)
+    same = torch.equal(g_out, e_out)
+    step = eng._graphs.for_cache(cache).steps[
+        eng._step_key("fold", sa, t_bucket)]
+    edges = _programmatic_edges(step.graph)
+    L, steps = eng.cfg.n_layers, n_chunks * n_steps
+    merges = L if _decode_plan(eng, cache, t_bucket).splits > 1 else 0
+    want_calls = {kernel: L * steps, "split_merge": merges * steps}
+    emit({"phase": "profile", "what": what, "check": "graph_equals_eager",
+          "identical": same,
+          "wall_ratio_eager_over_graph": e_row["wall_ms"] / g_row["wall_ms"],
+          "kernel_ms_ratio_graph_over_eager": (
+              g_row["device_kernel_ms"] / e_row["device_kernel_ms"]),
+          "kernel_calls_graph": g_row["kernel_calls"],
+          "kernel_calls_eager": e_row["kernel_calls"],
+          "kernel_calls_want": want_calls,
+          "step_graph_edges": edges[1], "programmatic_edges": edges[0],
+          "split_merges_per_step": merges})
+    if not same:
+        raise AssertionError(f"{what}: graph and eager packed tokens differ")
+    for path, row in (("graph", g_row), ("eager", e_row)):
+        if row["kernel_calls"] != want_calls:
+            raise AssertionError(f"{what}: the {path} path's profile shows "
+                                 f"{row['kernel_calls']}, want {want_calls}")
+    if edges[0] != merges:
+        raise AssertionError(f"{what}: {edges[0]} programmatic edges in the "
+                             f"step graph, {merges} split merges")
+    cache.positions.copy_(pos0)
+
+
+def _decode_plan(eng, cache, t_bucket):
+    """The K2 / K3 plan of one decode step of ``eng`` over ``cache``."""
+    from llmss_tpu_torch.engine.cache import PagedKVCache
+    from llmss_tpu_torch.ops import _build
+    from llmss_tpu_torch.ops import decode_attention as da
+    from llmss_tpu_torch.ops import paged_attention as pa
+
+    cfg, B = eng.cfg, cache.positions.shape[0]
+    sms = _build.sm_count(cache.k.device)
+    T = cache.max_len if t_bucket is None else min(t_bucket, cache.max_len)
+    if isinstance(cache, PagedKVCache):
+        bs = cache.block_size
+        return pa.kernel_plan(cfg.torch_dtype, 1, cfg.n_heads // cfg.n_kv_heads,
+                              cfg.head_dim, B=B, Hkv=cfg.n_kv_heads,
+                              n_slots=-(-T // bs) * bs, bs=bs, sms=sms)
+    return da.kernel_plan(cfg.torch_dtype, B, cfg.n_heads, cfg.n_kv_heads,
+                          cfg.head_dim, T, sms=sms)
+
+
+def _programmatic_edges(graph) -> tuple[int, int]:
+    """(programmatic edges, all edges) of a captured CUDA graph (kept, as
+    the engine's step graphs are), read with libcuda's
+    ``cuGraphGetEdges_v2``: a split decode kernel's merge, launched with
+    programmatic stream serialization, must keep that edge inside a
+    graph."""
+    get = ctypes.CDLL("libcuda.so.1").cuGraphGetEdges_v2
+    get.argtypes = [ctypes.c_void_p] * 4 + [ctypes.POINTER(ctypes.c_size_t)]
+    n = ctypes.c_size_t(0)
+    raw = graph.raw_cuda_graph()
+    if get(raw, None, None, None, ctypes.byref(n)):
+        raise RuntimeError("cuGraphGetEdges_v2 failed")
+    frm, to = (ctypes.c_void_p * n.value)(), (ctypes.c_void_p * n.value)()
+    data = (ctypes.c_uint8 * (8 * n.value))()  # CUgraphEdgeData, 8 bytes
+    if get(raw, frm, to, data, ctypes.byref(n)):
+        raise RuntimeError("cuGraphGetEdges_v2 failed")
+    # Byte 0: the edge's from_port, byte 2: its type; 1 in either marks a
+    # programmatic dependency.
+    prog = sum(1 for i in range(n.value) if 1 in (data[8 * i], data[8 * i + 2]))
+    return prog, n.value
+
+
+def phase_profile(eng) -> None:
+    """Where the time goes: one prefill and one 8-step decode chunk of the
+    engine phase's batch, the chunk by graph replays and eagerly."""
     from llmss_tpu_torch.engine.engine import GenerationParams
 
     B = 4
@@ -990,35 +1185,18 @@ def phase_profile(eng) -> None:
     lens_d = torch.as_tensor(lens, device="cuda")
     done = torch.zeros(B, dtype=torch.bool, device="cuda")
     eos = torch.full((B,), -1, dtype=torch.int32, device="cuda")
+    cache = eng.new_cache(B)
 
     def prefill():
-        cache = eng.new_cache(B)
+        cache.positions.fill_(-1)
         tok, _ = eng._prefill(ids_d, cache, lens_d, sa)
-        return tok, cache
+        return tok
 
-    def chunk(tok, cache):
-        return eng._decode_group(tok, cache, lens_d, sa, done, eos, n_steps=8,
-                                 t_bucket=eng.decode_bucket(int(lens.max()) + 8))
-
-    tok, cache = prefill()  # warm
-    chunk(tok, cache)
-    torch.cuda.synchronize()
-    for name, fn in (("prefill", prefill), ("decode_chunk8", lambda: chunk(tok, cache))):
-        # Wall time without the profiler (it slows the host loop down).
-        t = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t) * 1e3
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        rows = _kernel_rows(prof)
-        kernel_ms = sum(r[0] for r in rows) / 1e3
-        emit({"phase": "profile", "what": name, "wall_ms": wall_ms,
-              "device_kernel_ms": kernel_ms,
-              "device_idle_share": max(0.0, 1 - kernel_ms / wall_ms),
-              "top": [{"kernel": k[:80], "ms": us / 1e3, "calls": n}
-                      for us, k, n in rows[:8]]})
+    _profile_row("prefill", prefill)
+    tok = prefill()
+    _graph_vs_eager(eng, "decode_chunk8", tok, cache, lens_d, sa, done, eos,
+                    n_chunks=1, n_steps=8,
+                    t_bucket=eng.decode_bucket(int(lens.max()) + 8))
 
 
 # -- phase 6 -------------------------------------------------------------------
@@ -1031,8 +1209,13 @@ def phase_serve(eng) -> None:
     from llmss_tpu_torch.serve.consumer import Worker
     from llmss_tpu_torch.serve.protocol import GenerateRequest
 
+    L = eng.cfg.n_layers
     broker = InProcBroker()
     worker = Worker(eng, broker, batch_size=4, chunk_steps=8)
+    t = time.perf_counter()
+    warmed = worker.prewarm()
+    prewarm_s = time.perf_counter() - t
+    keys = eng._graphs.keys()
     rng = np.random.default_rng(7)
 
     def ids(n):
@@ -1061,10 +1244,17 @@ def phase_serve(eng) -> None:
         streamed += inc
     if streamed != answers[3].token_ids:
         raise AssertionError("stream increments != final answer")
+    # 8-step chunks until the longest request (24 tokens) is done.
+    k1, k2 = fa.flash_attention.launches, da.decode_attention.launches
+    if k1 != L or k2 != L * 24:
+        raise AssertionError(f"launch counts K1={k1}, K2={k2}")
+    captured = len(eng._graphs.keys() - keys)
+    if captured:
+        raise AssertionError(f"{captured} graph captures after prewarm")
     emit({"phase": "serve", "taken": taken, "answered": len(answers),
-          "wall_s": wall, "k1_launches": fa.flash_attention.launches,
-          "k2_launches": da.decode_attention.launches,
-          "stream_increments_ok": True})
+          "wall_s": wall, "prewarm": warmed, "prewarm_s": prewarm_s,
+          "graph_captures_after_prewarm": captured,
+          "k1_launches": k1, "k2_launches": k2, "stream_increments_ok": True})
 
 
 # -- phase 6b ------------------------------------------------------------------
@@ -1129,12 +1319,25 @@ def phase_serve_continuous(params, kernels: dict):
                                        stream=i in (0, 1), **kw))
         return out
 
-    def run(chunked):
-        eng.metrics = EngineMetrics()
+    # One worker per admission mode, each prewarmed before any pass: the
+    # passes capture no graph.
+    workers, warm = {}, {}
+    for chunked in (False, True):
         broker = InProcBroker()
-        worker = ContinuousWorker(
+        w = workers[chunked] = ContinuousWorker(
             eng, broker, rows=8, chunk_steps=8, group_chunks=2,
             chunked_prefill=128 if chunked else None)
+        t = time.perf_counter()
+        n = w.prewarm()
+        warm[chunked] = {"prewarm": n, "prewarm_s": time.perf_counter() - t}
+    keys = eng._graphs.keys()
+    emit({"phase": "serve_continuous", "prewarmed_workers": 2,
+          **_graph_memory(eng, [w.batcher.cache for w in workers.values()])})
+
+    def run(chunked):
+        eng.metrics = EngineMetrics()
+        worker = workers[chunked]
+        broker = worker.broker
         reqs = requests()
         for r in reqs:
             broker.push_request(r)
@@ -1183,6 +1386,8 @@ def phase_serve_continuous(params, kernels: dict):
             raise AssertionError("chunked pass launched no K4")
         if worker.batcher.allocator.blocks_in_use:
             raise AssertionError("blocks in use after the pass")
+        if eng.metrics.graph_captures:
+            raise AssertionError("a serving pass captured a graph")
         m = eng.metrics
         served = sum(len(t) for i, t in enumerate(toks) if i != CANCEL)
         row = {"phase": "serve_continuous",
@@ -1196,6 +1401,8 @@ def phase_serve_continuous(params, kernels: dict):
                "launches": counts,
                "host_overhead": m.to_dict()["host_overhead"],
                "mixed_batch": m.to_dict()["mixed_batch"],
+               **warm[chunked], "graph_captures_after_prewarm": 0,
+               "graph_replays": m.graph_replays,
                "blocks_in_use_after": 0}
         emit(row)
         return toks, counts
@@ -1209,19 +1416,22 @@ def phase_serve_continuous(params, kernels: dict):
           "identical": same})
     if not same:
         raise AssertionError("a repeat of the chunked pass gave other tokens")
+    if eng._graphs.keys() != keys:
+        raise AssertionError("a serving pass captured a graph")
     kernels["K3"]["launches"] = c_split["k3"] + c_chunk["k3"]
     kernels["K4"]["launches"] = c_chunk["k4"]
+    del workers, w
+    gc.collect()
+    if len(eng._graphs):
+        raise AssertionError("the workers' step graphs outlived their caches")
     return eng
 
 
 def phase_profile_paged(eng) -> None:
     """Where the time goes on the serving path: one paged decode group
-    (2 chunks x 8 steps) and one ragged group (4 steps, two rows feeding
-    128-token chunks beside six decode rows) over 8 rows of the serve
-    engine, wall time without the profiler, kernel time from
-    torch.profiler."""
-    from torch.profiler import ProfilerActivity, profile
-
+    (2 chunks x 8 steps) by graph replays and eagerly, and one ragged group
+    (4 steps, two rows feeding 128-token chunks beside six decode rows,
+    eager) over 8 rows of the serve engine."""
     from llmss_tpu_torch.engine.engine import GenerationParams
 
     B = 8
@@ -1236,7 +1446,9 @@ def phase_profile_paged(eng) -> None:
     tok, _ = eng._prefill(torch.as_tensor(ids, device=dev), cache, cur, sa)
     done = torch.zeros(B, dtype=torch.bool, device=dev)
     eos = torch.full((B,), -1, dtype=torch.int32, device=dev)
-    tb = eng.decode_bucket(int(lens.max()) + 16)
+    _graph_vs_eager(eng, "paged_decode_group_2x8", tok, cache, cur, sa, done,
+                    eos, n_chunks=2, n_steps=8,
+                    t_bucket=eng.decode_bucket(int(lens.max()) + 16))
     nc, CB = 4, 128
     qlens = np.ones((nc, B), np.int32)
     qlens[:, :2] = CB
@@ -1246,32 +1458,8 @@ def phase_profile_paged(eng) -> None:
     xs = [torch.as_tensor(a, device=dev) for a in (
         rng.integers(1, 32000, (nc, B, CB)).astype(np.int32), qlens, feed,
         emit_)]
-
-    def decode():
-        return eng._decode_group(tok, cache, cur, sa, done, eos, n_chunks=2,
-                                 n_steps=8, t_bucket=tb)
-
-    def ragged():
-        return eng._ragged_group(tok, cache, cur, sa, done, eos, *xs)
-
-    for name, fn in (("paged_decode_group_2x8", decode),
-                     ("ragged_group_4_steps", ragged)):
-        fn()
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t) * 1e3
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        rows = _kernel_rows(prof)
-        kernel_ms = sum(r[0] for r in rows) / 1e3
-        emit({"phase": "profile", "what": name, "wall_ms": wall_ms,
-              "device_kernel_ms": kernel_ms,
-              "device_idle_share": max(0.0, 1 - kernel_ms / wall_ms),
-              "top": [{"kernel": k[:80], "ms": us / 1e3, "calls": n}
-                      for us, k, n in rows[:8]]})
+    _profile_row("ragged_group_4_steps",
+                 lambda: eng._ragged_group(tok, cache, cur, sa, done, eos, *xs))
 
 
 # -- phase 7 -------------------------------------------------------------------

@@ -1,9 +1,14 @@
 """DecodeEngine: prefill, decode steps and the generation loop
 (counterpart: llmss_tpu/engine/engine.py).
 
-The reference jits its programs and donates the cache; the port runs the
-same steps eagerly on the GPU and updates the cache in place
-(engine/cache.py). The grouped decode keeps the reference's contract:
+The reference jits its programs and donates the cache; the port updates
+the cache in place (engine/cache.py) and runs each decode step on the GPU
+as a replay of a CUDA graph captured over persistent buffers
+(engine/graphs.py), which ``prewarm`` captures up front; prefill and the
+ragged group run eagerly. ``generate`` decodes into one persistent cache,
+reset in full at every call, so its graphs stay valid (a call with another
+row count replaces it, and its graphs go with it).
+The grouped decode keeps the reference's contract:
 ``chunk_steps`` steps run back to back on the device with EOS and NaN
 poison folded into device-side state (done rows stop writing KV: their
 slot is set past the ring and the write is dropped), and the host reads
@@ -18,8 +23,11 @@ state), the grouped decode ``_decode_group`` (``n_chunks`` chunks of
 ``n_steps`` steps, one packed result) and the ragged mixed
 prefill+decode group ``_ragged_group`` (chunked prefill).
 
-Not in this port yet: prefix reuse (``build_prefix``), ``generate_fused``,
-speculative decoding and ``prewarm``.
+``generate_fused`` runs a whole generation as a prefill, ``max_new - 1``
+replays and one fetch.
+
+Not in this port yet: prefix reuse (``build_prefix``) and speculative
+decoding.
 """
 
 from __future__ import annotations
@@ -33,6 +41,9 @@ import torch
 from llmss_tpu_torch.device import resolve_device
 from llmss_tpu_torch.engine.cache import (
     KVCache, PagedKVCache, init_cache, init_paged_cache,
+)
+from llmss_tpu_torch.engine.graphs import (
+    SAMPLING_VARIANTS, DecodeGraphs, StepBuffers,
 )
 from llmss_tpu_torch.engine.metrics import EngineMetrics
 from llmss_tpu_torch.models.common import DecoderConfig
@@ -142,6 +153,10 @@ class DecodeEngine:
         self._layers = unstack_layers(params)
         self.metrics = EngineMetrics()
         self._ladder = self.bucket_ladder()
+        self._graphs = DecodeGraphs(self.device, cfg.vocab_size)
+        # generate's persistent cache (the step graphs hold its addresses);
+        # a call with another row count replaces it.
+        self._cache: KVCache | PagedKVCache | None = None
 
     # -- envelope -------------------------------------------------------------
 
@@ -170,6 +185,11 @@ class DecodeEngine:
             if b >= pos_bound:
                 return b
         return None
+
+    def prewarm_bucket_set(self) -> "list[int | None]":
+        """Every ``t_bucket`` the live decode path can pick: the full ring
+        and the ladder."""
+        return [None] + self._ladder
 
     def check_capacity(self, n_prompt_tokens: int, max_new_tokens: int):
         """Reject a request that would wrap the ring mid-generation."""
@@ -208,6 +228,25 @@ class DecodeEngine:
             device=self.device, block_size=self.block_size,
             num_blocks=num_blocks, identity_tables=identity,
         )
+
+    def _generate_cache(self, batch: int) -> KVCache | PagedKVCache:
+        """``generate``'s persistent cache for ``batch`` rows, reset in
+        full: positions to -1 and K/V to zero (a masked slot left holding a
+        poisoned row's NaN would turn into 0 * NaN in a later P.V). A new
+        row count frees the old cache, and with it its step graphs and
+        buffers, before allocating the new one."""
+        cache = self._cache
+        if cache is None or cache.positions.shape[0] != batch:
+            self._cache = cache = None
+            # Normal tensors, which code in and out of inference mode can
+            # reset.
+            with torch.inference_mode(False):
+                cache = self._cache = self.new_cache(batch)
+        else:
+            cache.k.zero_()
+            cache.v.zero_()
+            cache.positions.fill_(-1)
+        return cache
 
     def _sample_args(self, gens: "GenerationParams | list[GenerationParams]",
                      batch: int) -> dict:
@@ -270,16 +309,112 @@ class DecodeEngine:
         tok = sample(logits[:, 0], counters=prompt_lens, **sample_args)
         return tok, logits[:, 0]
 
+    def _step_body(self, kind: str, bufs: StepBuffers, cache, sample_args,
+                   t_bucket):
+        """One decode step over ``bufs`` and ``cache``, updating both in
+        place: ``"plain"`` (the reference's ``_decode``: sample the next
+        token, keep the logits) or ``"fold"`` (a step of the grouped
+        decode: done rows write no KV, EOS and poison fold into the carry,
+        and the position advances)."""
+        sa = bufs.sample_args(sample_args["any_sampled"],
+                              sample_args["needs_filter"])
+        T = cache.max_len
+
+        def step():
+            positions = bufs.cur_pos[:, None]
+            slots = positions % T
+            if kind == "fold":
+                # Done rows stop writing KV: their slot goes past the ring
+                # and every write site drops it (under the paged layout a
+                # freed row's stale table may point at reassigned blocks).
+                slots = torch.where(bufs.done[:, None], T, slots)
+            logits, _ = forward(
+                self.cfg, self.params, bufs.tokens[:, None], positions, cache,
+                slots, t_bucket=t_bucket, layers=self._layers,
+            )
+            logits = logits[:, 0]
+            tok = sample(logits, counters=bufs.cur_pos + 1, **sa)
+            if kind == "plain":
+                bufs.tokens.copy_(tok)
+                bufs.logits.copy_(logits)
+                return
+            tok, done, poisoned = fold_step_outcome(
+                logits, tok, bufs.done, bufs.poisoned, bufs.eos
+            )
+            bufs.tokens.copy_(tok)
+            bufs.done.copy_(done)
+            bufs.poisoned.copy_(poisoned)
+            bufs.cur_pos.add_(1)
+
+        return step
+
+    @staticmethod
+    def _step_key(kind: str, sample_args, t_bucket) -> tuple:
+        """A step graph's key within its cache's graphs."""
+        return (kind, t_bucket, sample_args["any_sampled"],
+                sample_args["needs_filter"])
+
+    def _step(self, kind: str, cache, sample_args, t_bucket, load):
+        """``(bufs, step)``: the cache's step buffers, filled by ``load``,
+        and the step's graph replay over them (captured now if new, which
+        the metrics count; the CPU runs the body)."""
+        g = self._graphs.for_cache(cache)
+        load(g.bufs)
+        step, captured = g.step(
+            self._step_key(kind, sample_args, t_bucket),
+            self._step_body(kind, g.bufs, cache, sample_args, t_bucket),
+        )
+        if captured:
+            self.metrics.add_graph(captures=1)
+        return g.bufs, step
+
     @torch.inference_mode()
     def _decode(self, tokens, cache, cur_pos, sample_args, *, t_bucket=None):
-        positions = cur_pos[:, None]
-        slots = positions % cache.max_len
-        logits, _ = forward(
-            self.cfg, self.params, tokens[:, None], positions, cache, slots,
-            t_bucket=t_bucket, layers=self._layers,
-        )
-        tok = sample(logits[:, 0], counters=cur_pos + 1, **sample_args)
-        return tok, logits[:, 0]
+        """One decode step; returns (token [B], logits [B, V]), both the
+        step buffers (valid until the next step over this cache)."""
+        bufs, step = self._step(
+            "plain", cache, sample_args, t_bucket,
+            lambda b: b.load(tokens, cur_pos, sample_args))
+        step()
+        self.metrics.add_graph(replays=1)
+        return bufs.tokens, bufs.logits
+
+    @torch.inference_mode()
+    def _decode_group(self, tokens, cache, cur_pos, sample_args, done, eos,
+                      *, n_steps: int, n_chunks: int = 1, t_bucket=None):
+        """``n_chunks`` chunks of ``n_steps`` fused decode steps with EOS /
+        poison carried on the device (the reference's grouped program,
+        engine.py:496), each step a replay of one step graph. Returns
+        ``(packed, last_tok, cur_pos, done)`` where ``packed`` is
+        ``[n_chunks*B*n_steps tokens | n_chunks*B poison flags]`` int32,
+        chunk-major, the poison flags cumulative and snapshotted after each
+        chunk: read by the host in one transfer. The other three are the
+        step buffers (valid until the next step over this cache)."""
+        bufs, step = self._step(
+            "fold", cache, sample_args, t_bucket,
+            lambda b: b.load(tokens, cur_pos, sample_args, done, eos))
+        out = self._run_group(bufs, step, n_chunks, n_steps)
+        self.metrics.add_graph(replays=n_chunks * n_steps)
+        return out
+
+    @torch.inference_mode()
+    def _run_group(self, bufs: StepBuffers, step, n_chunks: int,
+                   n_steps: int):
+        """Run ``step`` ``n_chunks * n_steps`` times, gathering each step's
+        tokens and each chunk's poison flags into ``packed`` (allocated
+        outside the graphs' pool, so no replay overwrites it before the
+        host has read it)."""
+        B = bufs.tokens.shape[0]
+        packed = torch.empty(n_chunks * B * (n_steps + 1), dtype=torch.int32,
+                             device=bufs.tokens.device)
+        toks = packed[: n_chunks * B * n_steps].view(n_chunks, B, n_steps)
+        pois = packed[n_chunks * B * n_steps:].view(n_chunks, B)
+        for c in range(n_chunks):
+            for s in range(n_steps):
+                step()
+                toks[c, :, s].copy_(bufs.tokens)
+            pois[c].copy_(bufs.poisoned)
+        return packed, bufs.tokens, bufs.cur_pos, bufs.done
 
     @staticmethod
     def _admit_merge(tokens, cur_pos, adm_tok, adm_lens, rows):
@@ -297,41 +432,6 @@ class DecodeEngine:
             return torch.where(hit, val, old)
 
         return put(tokens, adm_tok), put(cur_pos, adm_lens)
-
-    @torch.inference_mode()
-    def _decode_group(self, tokens, cache, cur_pos, sample_args, done, eos,
-                      *, n_steps: int, n_chunks: int = 1, t_bucket=None):
-        """``n_chunks`` chunks of ``n_steps`` fused decode steps with EOS /
-        poison carried on the device (the reference's grouped program,
-        engine.py:496). Returns ``(packed, last_tok, cur_pos, done)`` where
-        ``packed`` is ``[n_chunks*B*n_steps tokens | n_chunks*B poison
-        flags]`` int32, chunk-major, the poison flags cumulative and
-        snapshotted after each chunk: read by the host in one transfer."""
-        poisoned = torch.zeros_like(done)
-        toks, pois = [], []
-        T = cache.max_len
-        for _ in range(n_chunks):
-            chunk = []
-            for _ in range(n_steps):
-                positions = cur_pos[:, None]
-                # Done rows stop writing KV: their slot goes past the ring
-                # and every write site drops it (under the paged layout a
-                # freed row's stale table may point at reassigned blocks).
-                slots = torch.where(done[:, None], T, positions % T)
-                logits, _ = forward(
-                    self.cfg, self.params, tokens[:, None], positions, cache,
-                    slots, t_bucket=t_bucket, layers=self._layers,
-                )
-                tok = sample(logits[:, 0], counters=cur_pos + 1, **sample_args)
-                tokens, done, poisoned = fold_step_outcome(
-                    logits[:, 0], tok, done, poisoned, eos
-                )
-                cur_pos = cur_pos + 1
-                chunk.append(tokens)
-            toks.append(torch.stack(chunk, 1).reshape(-1))
-            pois.append(poisoned.to(torch.int32))
-        packed = torch.cat(toks + pois)
-        return packed, tokens, cur_pos, done
 
     @torch.inference_mode()
     def _ragged_step(self, tokens, cache, cur_pos, sample_args, done,
@@ -431,7 +531,7 @@ class DecodeEngine:
         for g in gens:
             g.validate()
         dev = self.device
-        cache = self.new_cache(B)
+        cache = self._generate_cache(B)
         sample_args = self._sample_args(gens, B)
         ids, lens = self._pad_prompts(prompts)
         tok, _ = self.timed_prefill(
@@ -504,7 +604,7 @@ class DecodeEngine:
                 t0 = time.perf_counter()
                 packed, tok, cur_pos, _ = self._decode_group(
                     tok, cache, cur_pos, sample_args,
-                    torch.as_tensor(done, device=dev), eos_dev,
+                    to_device(done, dev), eos_dev,
                     n_steps=k, t_bucket=self.decode_bucket(pos_hi + k),
                 )
                 pos_hi += k
@@ -526,3 +626,92 @@ class DecodeEngine:
                 flush_increments()
         self.metrics.add_tokens(sum(len(o) for o in out[: live_rows or B]))
         return out
+
+    @torch.inference_mode()
+    def generate_fused(
+        self, prompts: list[list[int]], gen: GenerationParams
+    ) -> list[list[int]]:
+        """The whole generation on the device (engine.py:1268): the
+        prefill, ``max_new_tokens - 1`` step replays with no host read
+        between them, then ONE fetch, each row trimmed at its first EOS."""
+        gen.validate()
+        B = len(prompts)
+        dev = self.device
+        ids, lens = self._pad_prompts(prompts)
+        cache = self._generate_cache(B)
+        sample_args = self._sample_args(gen, B)
+        lens_d = torch.as_tensor(lens, device=dev)
+        tok, _ = self.timed_prefill(
+            torch.as_tensor(ids, device=dev), cache, lens_d, sample_args,
+            batch=B,
+        )
+        eos = gen.eos_token_id if gen.eos_token_id is not None else -1
+        eos_dev = torch.full((B,), eos, dtype=torch.int32, device=dev)
+        n_steps = gen.max_new_tokens - 1
+        rows = tok[:, None]
+        if n_steps:
+            packed, _, _, _ = self._decode_group(
+                tok, cache, lens_d, sample_args, tok == eos_dev, eos_dev,
+                n_steps=n_steps,
+                t_bucket=self.decode_bucket(int(lens.max()) + n_steps),
+            )
+            rows = torch.cat([rows, packed[: B * n_steps].view(B, n_steps)], 1)
+        out = []
+        for row in rows.cpu().numpy():  # the one fetch
+            stop = np.flatnonzero(row == eos)
+            out.append(row[: stop[0]].tolist() if stop.size else row.tolist())
+        self.metrics.add_tokens(sum(len(o) for o in out))
+        return out
+
+    @torch.inference_mode()
+    def prewarm(
+        self, batch: int, *, chunk_steps: tuple[int, ...] | int = (),
+        buckets: bool = True,
+    ) -> int:
+        """Warm everything ``generate`` / ``generate_fused`` can run at
+        ``batch`` rows (engine.py:762): a prefill for each seq bucket, then
+        every decode step graph the live path can pick over the persistent
+        cache, the single step and, when a ``chunk_steps`` entry is above
+        1, the grouped step, each at every cache-read bucket (``buckets``)
+        and every sampling variant. Drains the device, leaves the cache
+        reset, and returns the number of programs warmed: seq buckets +
+        step kinds x buckets x sampling variants (captured now or
+        before)."""
+        if isinstance(chunk_steps, int):
+            chunk_steps = (chunk_steps,)
+        dev = self.device
+        cache = self._generate_cache(batch)
+        n = 0
+        for S in self.seq_buckets():
+            sa = self._sample_args(GenerationParams(), batch)
+            tok, _ = self._prefill(
+                torch.zeros((batch, S), dtype=torch.int32, device=dev), cache,
+                torch.ones(batch, dtype=torch.int32, device=dev), sa,
+            )
+            n += 1
+        kinds = ["plain"] + (["fold"] if any(k > 1 for k in chunk_steps)
+                             else [])
+        cur = torch.ones(batch, dtype=torch.int32, device=dev)
+        done = torch.zeros(batch, dtype=torch.bool, device=dev)
+        eos = torch.full((batch,), -1, dtype=torch.int32, device=dev)
+        for variant in SAMPLING_VARIANTS:
+            sa = self._sample_args(variant_params(*variant), batch)
+            for tb in self.prewarm_bucket_set() if buckets else [None]:
+                for kind in kinds:
+                    if kind == "plain":
+                        self._decode(tok, cache, cur, sa, t_bucket=tb)
+                    else:
+                        self._decode_group(tok, cache, cur, sa, done, eos,
+                                           n_steps=1, t_bucket=tb)
+                    n += 1
+        self._generate_cache(batch)
+        _sync(dev)
+        return n
+
+
+def variant_params(any_sampled: bool, needs_filter: bool) -> GenerationParams:
+    """Generation settings whose batch takes the given sampling branch
+    flags (``DecodeEngine._sample_args``)."""
+    if not any_sampled:
+        return GenerationParams()
+    return GenerationParams(is_greedy=False, top_k=40 if needs_filter else 0)

@@ -2,7 +2,8 @@
 generate path, the batch worker, the continuous batcher and its worker
 record (latency timers with a bounded reservoir, request / token / error
 counters, the block-pool gauges, the batcher's per-group host overhead and
-mixed-batch composition, and ``to_dict``), under the reference's names."""
+mixed-batch composition, and ``to_dict``), under the reference's names,
+plus the decode step graphs' captures and replays (engine/graphs.py)."""
 
 from __future__ import annotations
 
@@ -92,6 +93,8 @@ class EngineMetrics:
         self._lock = threading.Lock()
         self.host_syncs = 0  # guarded_by: self._lock
         self.groups_dispatched = 0  # guarded_by: self._lock
+        self.graph_captures = 0  # guarded_by: self._lock
+        self.graph_replays = 0  # guarded_by: self._lock
         self.kv_blocks_total = 0  # guarded_by: self._lock
         self.kv_blocks_in_use = 0  # guarded_by: self._lock
         self.kv_block_seconds = 0.0  # guarded_by: self._lock
@@ -174,6 +177,13 @@ class EngineMetrics:
         """A grouped decode or ragged program was dispatched."""
         self._add("groups_dispatched", n)
 
+    def add_graph(self, captures: int = 0, replays: int = 0) -> None:
+        """Decode step graphs captured (after a prewarm: the steady-state
+        recompiles) and replayed."""
+        with self._lock:
+            self.graph_captures += captures
+            self.graph_replays += replays
+
     def to_dict(self) -> dict:
         uptime = time.monotonic() - self._start
         with self._lock:
@@ -187,6 +197,7 @@ class EngineMetrics:
             )
             fin = dict(self.finish_classes)
             syncs, groups = self.host_syncs, self.groups_dispatched
+            captures, replays = self.graph_captures, self.graph_replays
             m_steps, m_dec, m_pre, m_tok, m_budget = (
                 self.mixed_steps, self.mixed_decode_rows,
                 self.mixed_prefill_rows, self.prefill_tokens_chunked,
@@ -208,6 +219,8 @@ class EngineMetrics:
             "kv_blocks_in_use": kv_used,
             "kv_block_seconds": round(kv_bs, 6),
             **({"finish_classes": fin} if fin else {}),
+            "graph_captures": captures,
+            "graph_replays": replays,
             "host_overhead": {
                 "host_syncs": syncs,
                 "groups_dispatched": groups,

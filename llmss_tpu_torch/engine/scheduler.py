@@ -16,7 +16,11 @@ runs. Admissions fold their first tokens into the device state
 (``DecodeEngine._admit_merge``), so the device never waits on the host.
 Everything runs on one CUDA stream, so work executes in the order it was
 enqueued and in-place cache updates land between the groups that read
-them, as the reference's donated buffers do.
+them, as the reference's donated buffers do. The decode groups replay the
+engine's step graphs (engine/graphs.py), which hold the addresses of the
+cache, so the batcher's device state never moves: block tables are
+uploaded and admissions merged into the same tensors (``copy_``), and
+``prewarm`` captures every step graph before serving.
 
 Two layouts:
 
@@ -36,9 +40,9 @@ Interleaved admission gives a request exactly the tokens it gets alone
 one-group lag changes when the host learns tokens, never which tokens the
 device computes.
 
-Not in this port yet: shared-prefix copy-on-write, preemption, parking and
-tiered KV, the prefill-only / adopt halves of disaggregated serving, device
-telemetry and ``prewarm``.
+The ragged group runs eagerly. Not in this port yet: shared-prefix
+copy-on-write, preemption, parking and tiered KV, the prefill-only / adopt
+halves of disaggregated serving, and device telemetry.
 """
 
 from __future__ import annotations
@@ -54,8 +58,9 @@ import torch
 
 from llmss_tpu_torch.engine.cache import BlockAllocator, table_sentinel
 from llmss_tpu_torch.engine.engine import (
-    DecodeEngine, GenerationParams, _bucket, to_device,
+    DecodeEngine, GenerationParams, _bucket, _sync, to_device, variant_params,
 )
+from llmss_tpu_torch.engine.graphs import SAMPLING_VARIANTS
 
 POISONED = "non-finite logits: row poisoned (NaN/inf in model output)"
 IDLE_POLL_S = 0.005  # run_forever's sleep while nothing is queued or running
@@ -182,6 +187,11 @@ class ContinuousBatcher:
     def _dev(self, arr) -> torch.Tensor:
         return to_device(arr, self.engine.device)
 
+    def _set_state(self, tokens, cur_pos) -> None:
+        """Copy new decode state into the persistent device tensors."""
+        self._tokens_dev.copy_(tokens)
+        self._cur_pos_dev.copy_(cur_pos)
+
     def _pad_row_idx(self, P: int, rows: list[int]) -> np.ndarray:
         """[P] row indices for an admission merge: real rows first, padding
         a POSITIVE out-of-range sentinel (``rows``), which is dropped; a
@@ -260,12 +270,10 @@ class ContinuousBatcher:
     def _paged_absorb(self, view, rows: list[int]) -> None:
         """Fold a prefilled scratch view into the cache: the rows'
         positions, then the host tables (which also cuts freed rows' stale
-        mappings)."""
+        mappings), uploaded in place."""
         idx = self._dev(np.asarray(rows, np.int64))
         self.cache.positions.index_copy_(0, idx, view.positions[: len(rows)])
-        self.cache = self.cache._replace(
-            block_tables=self._dev(self._host_tables)
-        )
+        self.cache.block_tables.copy_(self._dev(self._host_tables))
 
     def _insert(self, small, rows: list[int]) -> None:
         """Dense layout: copy the scratch cache's first rows into the
@@ -276,6 +284,57 @@ class ContinuousBatcher:
         self.cache.k.index_copy_(1, idx, small.k[:, :n])
         self.cache.v.index_copy_(1, idx, small.v[:, :n])
         self.cache.positions.index_copy_(0, idx, small.positions[:n])
+
+    @torch.inference_mode()
+    def prewarm(self, seq_buckets: list[int] | None = None) -> int:
+        """Warm every program the batcher runs, before it serves
+        (scheduler.py:604, without the prefix variant): unless prompts are
+        chunked, the admission prefill for each (admission batch P, seq
+        bucket S), ``seq_buckets`` narrowing the prompt envelope; then
+        every decode step graph the groups can pick over the batcher's
+        cache, each cache-read bucket x sampling variant (the busy and the
+        low-load group replay the same step graphs). The ragged group runs
+        eagerly and is not warmed. Resets positions, tokens and cur_pos,
+        drains the device, and returns the number of programs warmed."""
+        eng = self.engine
+        dev = eng.device
+        if seq_buckets is None:
+            seq_buckets = eng.seq_buckets()
+        Ps, p = [], 1
+        while p < self.rows:
+            Ps.append(p)
+            p *= 2
+        Ps.append(p)  # n == rows when rows is not a power of two
+        n = 0
+        for P in [] if self._chunked else Ps:
+            sa = eng._sample_args(GenerationParams(), P)
+            lens = torch.ones(P, dtype=torch.int32, device=dev)
+            for S in seq_buckets:
+                if self._paged:
+                    # All-sentinel tables: the writes land in the drop block.
+                    mb = eng.max_seq_len // eng.block_size
+                    scratch = self._paged_scratch_view(
+                        np.full((P, mb), self._sentinel, np.int32))
+                else:
+                    scratch = eng.new_cache(P)
+                eng._prefill(torch.zeros((P, S), dtype=torch.int32,
+                                         device=dev), scratch, lens, sa)
+                n += 1
+        # Every row done: the steps write no KV.
+        done = torch.ones(self.rows, dtype=torch.bool, device=dev)
+        eos = torch.full((self.rows,), -1, dtype=torch.int32, device=dev)
+        for variant in SAMPLING_VARIANTS:
+            sa = eng._sample_args(variant_params(*variant), self.rows)
+            for tb in eng.prewarm_bucket_set():
+                eng._decode_group(self._tokens_dev, self.cache,
+                                  self._cur_pos_dev, sa, done, eos,
+                                  n_steps=1, t_bucket=tb)
+                n += 1
+        self.cache.positions.fill_(-1)
+        self._tokens_dev.zero_()
+        self._cur_pos_dev.zero_()
+        _sync(dev)
+        return n
 
     # -- submission ---------------------------------------------------------
 
@@ -346,10 +405,10 @@ class ContinuousBatcher:
             scratch = eng.new_cache(P)
             tok, _ = eng._prefill(ids_d, scratch, lens_d, sample_args)
             self._insert(scratch, rows)
-        self._tokens_dev, self._cur_pos_dev = eng._admit_merge(
+        self._set_state(*eng._admit_merge(
             self._tokens_dev, self._cur_pos_dev, tok, lens_d,
             self._dev(self._pad_row_idx(P, rows)),
-        )
+        ))
         entries = []
         for row, (req_id, ids, gen, cb, scb, t_submit) in zip(rows, taken):
             r = _Row(req_id=req_id, gen=gen, out=[], done_cb=cb,
@@ -368,14 +427,12 @@ class ContinuousBatcher:
         n = len(taken)
         idx = self._dev(np.asarray(rows, np.int64))
         self.cache.positions.index_fill_(0, idx, -1)
-        self.cache = self.cache._replace(
-            block_tables=self._dev(self._host_tables)
-        )
+        self.cache.block_tables.copy_(self._dev(self._host_tables))
         zeros = torch.zeros(P, dtype=torch.int32, device=eng.device)
-        self._tokens_dev, self._cur_pos_dev = eng._admit_merge(
+        self._set_state(*eng._admit_merge(
             self._tokens_dev, self._cur_pos_dev, zeros, zeros,
             self._dev(self._pad_row_idx(P, rows)),
-        )
+        ))
         for row, (req_id, ids, gen, cb, scb, t_submit) in zip(rows, taken[:n]):
             self.active[row] = _Row(req_id=req_id, gen=gen, out=[],
                                     done_cb=cb, stream_cb=scb,
@@ -687,7 +744,7 @@ class ContinuousBatcher:
             group = _InFlightGroup(packed=_HostFetch(packed), n_chunks=nc,
                                    k=k,
                                    has_admission=self._pending_adm is not None)
-        self._tokens_dev, self._cur_pos_dev = last_tok, cur_pos
+        self._set_state(last_tok, cur_pos)
         eng.metrics.host_dispatch.record(time.perf_counter() - t0)
         eng.metrics.add_group()
 

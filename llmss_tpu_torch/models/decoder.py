@@ -172,7 +172,9 @@ def _embed_in(cfg: DecoderConfig, params: Params, input_ids, positions):
     dtype = cfg.torch_dtype
     h = embedding(input_ids, params["wte"].to(dtype))
     if cfg.embed_multiplier is not None:
-        h = h * torch.tensor(cfg.embed_multiplier, dtype=dtype, device=h.device)
+        # A CPU scalar: no host-to-device copy, which a captured decode
+        # step could not contain.
+        h = h * torch.tensor(cfg.embed_multiplier, dtype=dtype)
     if cfg.positions == "learned":
         h = h + embedding(positions, params["wpe"].to(dtype))
     return h

@@ -190,6 +190,13 @@ class Worker:
         while stop is None or not stop.is_set():
             self.run_once()
 
+    def prewarm(self) -> int:
+        """Warm the worker's whole envelope before it serves
+        (consumer.py:208): every prompt bucket at the padded batch size and
+        every decode step graph of its chunked decode."""
+        return self.engine.prewarm(self.batch_size,
+                                   chunk_steps=self.chunk_steps)
+
 
 def _unserved_field(req: GenerateRequest) -> str | None:
     """The first request field the continuous worker cannot honour yet."""
@@ -224,6 +231,12 @@ class ContinuousWorker:
         )
         self._publish_counter = 0
         self.draining = False
+
+    def prewarm(self, seq_buckets: list[int] | None = None) -> int:
+        """Warm the batcher's whole envelope before it serves
+        (consumer.py:601, without the prefix variant); ``seq_buckets``
+        narrows the prompt-length envelope when it is known."""
+        return self.batcher.prewarm(seq_buckets)
 
     def _drain_broker(self) -> int:
         """Move every queued request into the batcher (blocking briefly
