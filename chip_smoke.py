@@ -19,12 +19,15 @@ exits non-zero without printing a result:
               tensor-core tile; "fma" / "lanes": the fp32 and CB = 1
               kernels) and, for K2 / K3, its split along the KV axis
               (flash-decoding: "splits", "split_slots") beside the same
-              call launched unsplit ("unsplit_ms", checked too);
+              call launched unsplit ("unsplit_ms", checked too); K2, K3
+              and K4 also over int8 caches with their scales
+              ("lanes_int8"; library: dequantize + SDPA);
 4. reference -- a tiny fp32 llama generates the same greedy tokens through
               the kernels on the card, decoding by CUDA-graph replays, as
               through the plain path on the CPU;
    reference_paged -- the same through the continuous batcher over the
               paged pool, with split admission and with chunked prefill;
+   reference_int8 -- the same, dense and paged, over int8 caches;
 5. engine  -- Llama-2-7B width (hidden 4096, 32 layers, 32 heads, head_dim
               128, intermediate 11008, vocab 32000), random weights from a
               seed, bf16, max_seq_len 1024, batch 4: ``prewarm`` captures
@@ -47,6 +50,11 @@ exits non-zero without printing a result:
               chunked again: same tokens) with no new graph capture;
    profile -- one paged decode group (graph replays beside the eager
               steps, same tokens) and one ragged group (eager);
+   int8    -- the engine's generate (prewarmed, no capture after) and one
+              chunked serving pass (a 496-block int8 pool) on int8 caches
+              at Llama-2-7B width: cache bytes against bf16's (<= 0.52x),
+              the share of tokens equal to the bf16 runs', and a decode
+              chunk profiled (only int8 decode_fwd instantiations);
 7. cli     -- writes a 2-layer llama checkpoint at 1b2 width
               (safetensors + config.json) and runs the port's CLI on it.
 
@@ -216,7 +224,8 @@ def phase_build() -> None:
     spills = [int(n) for n in re.findall(r"(\d+) bytes spill stores", text)]
     # Every instantiation: ptxas reports the entry's name, then its
     # spills, then its registers. Listed: the tensor-core ones, and the
-    # bf16 D 128 lane-template and merge ones that the decode paths run.
+    # bf16-query D 128 lane-template ones (over bf16 or int8 caches) and
+    # merge ones that the decode paths run.
     name = r"(?:\w{5}_mma|(?:flash|paged|decode)_fwd|split_merge)"
     entries = re.findall(
         rf"entry function '\w*?({name}\w*?)EEEv\w*' for[^\n]*\n[^\n]*\n"
@@ -232,7 +241,8 @@ def phase_build() -> None:
           "kernels_with_spills": sum(1 for n in spills if n > 0),
           "mma_instantiations": listed(lambda k: "_mma" in k),
           "decode_instantiations": listed(
-              lambda k: "_mma" not in k and "nv_bfloat16Li128" in k),
+              lambda k: "_mma" not in k
+              and re.search(r"nv_bfloat16(?:S\d_|a)?Li128", k)),
           "spilling": [{"kernel": k, "spill_store_bytes": int(sp)}
                        for k, sp, _ in entries if int(sp) > 0]})
 
@@ -270,14 +280,30 @@ def _k1_case(name, B, S, T, Hq, Hkv, *, lens=None, q0=0, window=None, seed=0,
                 kvp=torch.tensor(kvp, device=dev), window=window)
 
 
+def _quantized(case, *names):
+    """The case with its caches ``names`` (K first, then V) quantized to
+    int8 (the engine's int8 cache: ``engine.cache.quantize_kv``), their
+    fp32 scales as ``ks`` / ``vs``; a case without ``kv="int8"`` gets
+    ``ks`` / ``vs`` None."""
+    case.update(ks=None, vs=None, row=case["kernel"])
+    if case.pop("kv", None) == "int8":
+        from llmss_tpu_torch.engine.cache import quantize_kv
+
+        (case[names[0]], case["ks"]), (case[names[1]], case["vs"]) = (
+            quantize_kv(case[n]) for n in names)
+        case["row"] += "_int8"
+    return case
+
+
 def _k2_case(name, B, T, Hq, Hkv, hist, t_len, *, window=None, seed=0, L=2,
-             D=128, dt=torch.bfloat16):
+             D=128, dt=torch.bfloat16, kv=None):
     """Single-token decode of layer L-1 for rows whose histories are
     positions 0..hist[b]-1. The pending slot (hist[b] % T, about to be
     overwritten) gets a key 4x the group's first query head and values of
     8: a kernel that failed to exclude it would put nearly all of that
     head's weight there and miss by ~8. On a wrapped row that slot still
-    holds a visible old position, so only the slot exclusion drops it."""
+    holds a visible old position, so only the slot exclusion drops it.
+    ``kv="int8"``: the cache quantized, with its scales."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     dev = "cuda"
     kc = torch.randn(L, B, T, Hkv, D, generator=g, device=dev, dtype=dt)
@@ -292,11 +318,19 @@ def _k2_case(name, B, T, Hq, Hkv, hist, t_len, *, window=None, seed=0, L=2,
     for b in range(B):
         kc[L - 1, b, slots[b, 0]] = 4 * q[b, 0, ::G]
         vc[L - 1, b, slots[b, 0]] = 8
-    return dict(name=name, q=q, kc=kc, vc=vc, kn=kn, vn=vn,
-                qpos=torch.tensor(qpos, device=dev),
-                kvp=torch.tensor(kvp, device=dev),
-                slots=torch.tensor(slots, device=dev), layer=L - 1,
-                t_len=t_len, window=window)
+    return _quantized(dict(
+        name=name, kernel="K2", kv=kv, q=q, kc=kc, vc=vc, kn=kn, vn=vn,
+        qpos=torch.tensor(qpos, device=dev), kvp=torch.tensor(kvp, device=dev),
+        slots=torch.tensor(slots, device=dev), layer=L - 1, t_len=t_len,
+        window=window), "kc", "vc")
+
+
+def _dequant(x, scale, dtype):
+    """``x`` as the library yardstick reads it: a compute-dtype cache as
+    it is, an int8 one dequantized (``engine.cache.dequantize_kv``)."""
+    from llmss_tpu_torch.engine.cache import dequantize_kv
+
+    return x if scale is None else dequantize_kv(x, scale, dtype)
 
 
 def _sdpa(q, k, v, mask):
@@ -385,10 +419,10 @@ def k1_cases() -> list[dict]:
     ]
 
 
-def k2_cases() -> list[dict]:
+def k2_cases(int8: bool = True) -> list[dict]:
     """K2's cases; the first is the engine phase's decode in its 192-slot
-    bucket."""
-    return [
+    bucket, the first int8 one (unless ``int8`` is False) the int8 phase's."""
+    cases = [
         # The engine phase's batch 40 steps into decode, in its bucket.
         _k2_case("k2_engine_decode", 4, 1024, 32, 32,
                  [n + 40 for n in ENGINE_LENS], 192, seed=5),
@@ -409,6 +443,17 @@ def k2_cases() -> list[dict]:
         _k2_case("k2_b1_gqa_full", 1, 1024, 32, 8, [1024], 1024, seed=6),
         _k2_case("k2_b1_mha_full", 1, 1024, 32, 32, [1536], 1024, seed=7),
     ]
+    return cases + ([
+        # The int8 cache: the int8 engine phase's decode in its bucket
+        # first, then GQA with wrapped and empty rows, and the tiny fp32
+        # reference model's instantiation (fp32 queries, head_dim 64).
+        _k2_case("k2_int8_engine_decode", 4, 1024, 32, 32,
+                 [n + 40 for n in ENGINE_LENS], 192, seed=5, kv="int8"),
+        _k2_case("k2_int8_gqa_wrap", 4, 1024, 32, 8, [1023, 1300, 5, 0], 1024,
+                 seed=2, kv="int8"),
+        _k2_case("k2_int8_fp32_d64", 3, 256, 8, 4, [300, 1000, 0], 256,
+                 seed=4, D=64, dt=torch.float32, kv="int8"),
+    ] if int8 else [])
 
 
 def check_kernels() -> dict:
@@ -463,28 +508,30 @@ def check_kernels() -> dict:
         emit(row)
     out["K1"]["max_abs_err"] = worst
 
-    worst = 0.0
+    worst_of = {}
     for c in k2_cases():
         args = (c["q"], c["kc"], c["vc"], c["kn"], c["vn"], c["qpos"],
                 c["kvp"], c["slots"], c["layer"])
-        kw = dict(t_len=c["t_len"], window=c["window"])
+        kw = dict(t_len=c["t_len"], window=c["window"], k_scale=c["ks"],
+                  v_scale=c["vs"])
         got = da.decode_attention(*args, **kw).float()
+        # fp32 plain version (an int8 cache stays int8: it converts exactly)
         q32, kc32, vc32, kn32, vn32 = (
-            a.float() for a in (c["q"], c["kc"], c["vc"], c["kn"], c["vn"]))
+            a.float() if a.is_floating_point() else a
+            for a in (c["q"], c["kc"], c["vc"], c["kn"], c["vn"]))
         pos = (c["qpos"], c["kvp"], c["slots"], c["layer"])
         ref = da.decode_attention_ref(q32, kc32, vc32, kn32, vn32, *pos, **kw)
         ref_abs = da.decode_attention_ref(q32, kc32, vc32.abs(), kn32,
                                           vn32.abs(), *pos, **kw)
         err, ratio = _agree("K2", c["name"], got, ref, ref_abs, c["q"].dtype)
-        worst = max(worst, err)
         # An empty row attends only its own fresh token: exactly v_new.
         G = c["q"].shape[2] // c["kn"].shape[2]
         for b in range(c["q"].shape[0]):
             if int(c["qpos"][b, 0]) == 0 and not torch.equal(
                     got[b, 0], vn32[b, 0].repeat_interleave(G, 0)):
                 raise AssertionError(f"K2 {c['name']}: empty row {b} != v_new")
-        # Bound: only the visible cache slots' K/V are needed, plus q, the
-        # fresh K/V, the positions and the output.
+        # Bound: only the visible cache slots' K/V (and int8 scales) are
+        # needed, plus q, the fresh K/V, the positions and the output.
         B, _, Hq, D = c["q"].shape
         Hkv = c["kc"].shape[3]
         t = c["t_len"]
@@ -492,30 +539,44 @@ def check_kernels() -> dict:
                                       c["slots"], c["window"])
         visible = int((pen == 0).sum().item())
         es = c["q"].element_size()
-        nbytes = (2 * visible * Hkv * D * es + 2 * c["q"].numel() * es
+        slot_bytes = D * c["kc"].element_size() + (4 if c["ks"] is not None else 0)
+        nbytes = (2 * visible * Hkv * slot_bytes + 2 * c["q"].numel() * es
                   + 2 * c["kn"].numel() * es + B * t * 4 + 2 * B * 4)
         b_ms, b_by = bound(nbytes, 4.0 * (visible + B) * Hq * D, c["q"].dtype)
-        kl = c["kc"][c["layer"], :, :t]
-        vl = c["vc"][c["layer"], :, :t]
+
+        def layer_t(x):
+            return None if x is None else x[c["layer"], :, :t]
+
         mask = (pen == 0)[:, None, None, :]
         plan = da.kernel_plan(c["q"].dtype, B, Hq, Hkv, D, t,
-                              sms=_build.sm_count(c["q"].device))
+                              sms=_build.sm_count(c["q"].device),
+                              kv_dtype=c["kc"].dtype)
         row = {"phase": "kernel", "kernel": "K2", "case": c["name"],
+               "kv": str(c["kc"].dtype).removeprefix("torch."),
                "impl": plan.impl, "splits": plan.splits,
                "split_slots": plan.split_slots,
                "max_abs_err": err, "rel_tol": REL_TOL[c["q"].dtype],
                "err_over_tol": ratio,
                "ms": device_ms(lambda: da.decode_attention(*args, **kw), iters=50),
                "plain_ms": profiled_ms(lambda: da.decode_attention_ref(*args, **kw)),
-               "library_ms": device_ms(
-                   lambda: _sdpa(c["q"], kl, vl, mask), iters=50),
+               # int8: the layer's slice dequantized, then SDPA.
+               "library_ms": device_ms(lambda: _sdpa(
+                   c["q"], _dequant(layer_t(c["kc"]), layer_t(c["ks"]),
+                                    c["q"].dtype),
+                   _dequant(layer_t(c["vc"]), layer_t(c["vs"]), c["q"].dtype),
+                   mask), iters=50),
                "bound_ms": b_ms, "bound_by": b_by}
+        if c["ks"] is not None:
+            row["library"] = "dequantize_kv + scaled_dot_product_attention"
         _unsplit(row, lambda: da._launch(*args, max_splits=1, **kw),
                  lambda g: _agree("K2", c["name"] + " unsplit", g.float(), ref,
                                   ref_abs, c["q"].dtype))
-        out.setdefault("K2", row)
+        out.setdefault(c["row"], row)
+        worst_of[c["row"]] = max(worst_of.get(c["row"], 0.0), err)
         emit(row)
-    out["K2"]["max_abs_err"] = worst
+    for name in ("K2", "K2_int8"):
+        out[name]["max_abs_err"] = worst_of[name]
+    _main_path_impl("K2_int8", out["K2_int8"], "lanes_int8")
     # The engine's 192-slot bucket nearly fills the card unsplit (128
     # blocks): the plan keeps it whole.
     _main_path_split("K2", out["K2"], split=False)
@@ -523,7 +584,7 @@ def check_kernels() -> dict:
 
 
 def _paged_case(name, B, Hq, Hkv, ctx, qlens, CB, *, n_cols=None, window=None,
-                seed=0, L=2, D=128, bs=16, MB=64, dt=torch.bfloat16):
+                seed=0, L=2, D=128, bs=16, MB=64, dt=torch.bfloat16, kv=None):
     """Attention over layer L-1 of a block pool for rows whose histories
     are positions 0..ctx[b]-1 (ring order), each with a CB-token chunk of
     which qlens[b] are live, starting at position ctx[b]. Each row's blocks
@@ -531,7 +592,7 @@ def _paged_case(name, B, Hq, Hkv, ctx, qlens, CB, *, n_cols=None, window=None,
     Every pending slot that still holds a visible old position (the chunk
     overwrites it on a ring wrap) gets a key 4x the group's first query
     head at that query and values of 8: a kernel that kept it would miss
-    by ~8."""
+    by ~8. ``kv="int8"``: the pool quantized, with its scales."""
     rng = np.random.default_rng(seed)
     g = torch.Generator(device="cuda").manual_seed(seed)
     dev, ring = "cuda", MB * bs
@@ -563,16 +624,18 @@ def _paged_case(name, B, Hq, Hkv, ctx, qlens, CB, *, n_cols=None, window=None,
                 planted += 1
     nblk = np.minimum(MB, -(-(kvp >= 0).sum(1) // bs)).astype(np.int32)
     T = lambda x: torch.tensor(x, device=dev)  # noqa: E731
-    return dict(name=name, q=q, kp=kp, vp=vp, kn=kn, vn=vn,
-                qpos=T(np.asarray(ctx, np.int32)),
-                qlen=T(np.asarray(qlens, np.int32)), kvp=T(kvp), bt=T(bt),
-                nblk=T(nblk), slot0=T(np.asarray(ctx, np.int32) % ring),
-                layer=L - 1, n_cols=n_cols, window=window, planted=planted)
+    return _quantized(dict(
+        name=name, kernel="K3" if CB == 1 else "K4", kv=kv, q=q, kp=kp,
+        vp=vp, kn=kn, vn=vn, qpos=T(np.asarray(ctx, np.int32)),
+        qlen=T(np.asarray(qlens, np.int32)), kvp=T(kvp), bt=T(bt),
+        nblk=T(nblk), slot0=T(np.asarray(ctx, np.int32) % ring),
+        layer=L - 1, n_cols=n_cols, window=window, planted=planted), "kp", "vp")
 
 
-def k3_cases() -> list[dict]:
-    """K3's cases; the first is the serve_continuous phase's decode."""
-    return [
+def k3_cases(int8: bool = True) -> list[dict]:
+    """K3's cases; the first is the serve_continuous phase's decode, the
+    first int8 one (unless ``int8`` is False) the int8 phase's."""
+    cases = [
         # The serve phase's decode: 8 rows at its 832-slot bucket (52 cols).
         _paged_case("k3_serve_decode", 8, 32, 32, SERVE_CTX, [1] * 8, 1,
                     n_cols=52),
@@ -597,12 +660,23 @@ def k3_cases() -> list[dict]:
         _paged_case("k3_first_split_only", 4, 32, 8, [1000, 60, 0, 30],
                     [1] * 4, 1, seed=17),
     ]
+    return cases + ([
+        # The int8 pool: the int8 serve phase's decode first, then wrapped
+        # and empty rows with sentinel columns under GQA, and fp32 queries
+        # at head_dim 64 (the tiny reference model's instantiation).
+        _paged_case("k3_int8_serve_decode", 8, 32, 32, SERVE_CTX, [1] * 8, 1,
+                    n_cols=52, kv="int8"),
+        _paged_case("k3_int8_gqa_wrap_empty", 4, 32, 8, [1500, 0, 2047, 77],
+                    [1] * 4, 1, seed=3, kv="int8"),
+        _paged_case("k3_int8_fp32_d64", 3, 8, 4, [300, 0, 1000], [1] * 3, 1,
+                    seed=4, D=64, dt=torch.float32, kv="int8"),
+    ] if int8 else [])
 
 
-def k4_cases() -> list[dict]:
+def k4_cases(int8: bool = True) -> list[dict]:
     """K4's cases; the first is the serve_continuous phase's chunked
-    step."""
-    return [
+    step, the first int8 one (unless ``int8`` is False) the int8 phase's."""
+    cases = [
         # The serve phase's chunked pass at chunked_prefill=128: prompt rows
         # at their first, second and last (37-token) chunks beside decode
         # rows.
@@ -634,6 +708,18 @@ def k4_cases() -> list[dict]:
         _paged_case("k4_d256", 3, 16, 8, [200, 0, 90], [128, 60, 1], 128,
                     D=256, seed=14),
     ]
+    return cases + ([
+        # The int8 pool (the lane template at every CB): the int8 serve
+        # phase's chunked step first, then a ring wrap under a window and
+        # GQA, and fp32 queries at head_dim 64 and CB 16.
+        _paged_case("k4_int8_serve_mixed", 8, 32, 32,
+                    [0, 128, 256, 400, 700, 33, 812, 512],
+                    [128, 128, 37, 1, 1, 1, 1, 1], 128, seed=5, kv="int8"),
+        _paged_case("k4_int8_gqa_wrap_window", 3, 32, 8, [1000, 2000, 5],
+                    [100, 1, 60], 128, window=256, seed=7, kv="int8"),
+        _paged_case("k4_int8_fp32_d64", 3, 8, 4, [30, 0, 100], [16, 5, 1], 16,
+                    seed=8, D=64, dt=torch.float32, kv="int8"),
+    ] if int8 else [])
 
 
 def _paged_visibility(c):
@@ -687,11 +773,14 @@ def _paged_row(kernel, c, fn, ref_fn, lib_fn, unsplit_fn=None):
     bs, MB = c["kp"].shape[2], c["bt"].shape[1]
     plan = pa.kernel_plan(dt, CB if kernel == "K4" else 1, Hq // Hkv, D, B=B,
                           Hkv=Hkv, n_slots=(c["n_cols"] or MB) * bs, bs=bs,
-                          sms=_build.sm_count(c["q"].device))
+                          sms=_build.sm_count(c["q"].device),
+                          kv_dtype=c["kp"].dtype)
     live_q = int(c["qlen"].sum().item())
     slots = int(mask.any(1).sum().item())
     pairs = int(mask.sum().item()) + int(fresh.sum().item())
-    nbytes = (2 * slots * Hkv * D * es + 2 * live_q * Hq * D * es
+    # A visible slot's K and V rows (and, int8, their fp32 scales).
+    slot_bytes = D * c["kp"].element_size() + (4 if c["ks"] is not None else 0)
+    nbytes = (2 * slots * Hkv * slot_bytes + 2 * live_q * Hq * D * es
               + 2 * live_q * Hkv * D * es + mask.shape[2] * B * 4
               + c["bt"].numel() * 4)
     b_ms, b_by = bound(nbytes, 4.0 * pairs * Hq * D, dt)
@@ -699,6 +788,7 @@ def _paged_row(kernel, c, fn, ref_fn, lib_fn, unsplit_fn=None):
     live_splits = [-(-int(n) * bs // plan.split_slots) if plan.split_slots
                    else 1 for n in c["nblk"].tolist()]
     row = {"phase": "kernel", "kernel": kernel, "case": c["name"],
+           "kv": str(c["kp"].dtype).removeprefix("torch."),
            "impl": plan.impl, "splits": plan.splits,
            "split_slots": plan.split_slots, "live_splits": live_splits,
            "max_abs_err": err, "rel_tol": REL_TOL[dt],
@@ -707,6 +797,9 @@ def _paged_row(kernel, c, fn, ref_fn, lib_fn, unsplit_fn=None):
            "plain_ms": profiled_ms(lambda: ref_fn(c), iters=5),
            "library_ms": device_ms(lambda: lib_fn(c, mask), iters=20),
            "bound_ms": b_ms, "bound_by": b_by}
+    if c["ks"] is not None:
+        row["library"] = ("gather_block_view + dequantize_kv + "
+                          "scaled_dot_product_attention")
     if unsplit_fn is not None:
         _unsplit(row, lambda: unsplit_fn(c),
                  lambda g: _agree(kernel, c["name"] + " unsplit", g.float()[live],
@@ -716,14 +809,22 @@ def _paged_row(kernel, c, fn, ref_fn, lib_fn, unsplit_fn=None):
 
 
 def _gather_sdpa(c, mask):
-    """The yardstick: gather the rows' logical views, then one
-    scaled_dot_product_attention over them (fresh keys left out)."""
+    """The yardstick: gather the rows' logical views (dequantized, over an
+    int8 pool), then one scaled_dot_product_attention over them (fresh
+    keys left out)."""
     from llmss_tpu_torch.engine.cache import gather_block_view
 
     L = c["layer"]
-    kv = gather_block_view(c["kp"][L], c["bt"], c["n_cols"])
-    vv = gather_block_view(c["vp"][L], c["bt"], c["n_cols"])
-    return _sdpa(c["q"], kv, vv, mask[:, None])
+
+    def view(pool, scale):
+        v = gather_block_view(pool[L], c["bt"], c["n_cols"])
+        if scale is None:
+            return v
+        return _dequant(v, gather_block_view(scale[L], c["bt"], c["n_cols"]),
+                        c["q"].dtype)
+
+    return _sdpa(c["q"], view(c["kp"], c["ks"]), view(c["vp"], c["vs"]),
+                 mask[:, None])
 
 
 def check_paged_kernels(out: dict) -> None:
@@ -733,48 +834,51 @@ def check_paged_kernels(out: dict) -> None:
     kernels line."""
     from llmss_tpu_torch.ops import paged_attention as pa
 
+    def kw(c):
+        return dict(n_cols=c["n_cols"], window=c["window"], k_scale=c["ks"],
+                    v_scale=c["vs"])
+
     def k3(c):
         return pa.paged_decode_attention(
             c["q"], c["kp"], c["vp"], c["kn"], c["vn"], c["qpos"][:, None],
             c["kvp"], c["bt"], c["nblk"], c["slot0"][:, None], c["layer"],
-            n_cols=c["n_cols"], window=c["window"])
+            **kw(c))
 
     def k3_ref(c):
         return pa.paged_decode_attention_ref(
             c["q"], c["kp"], c["vp"], c["kn"], c["vn"], c["qpos"][:, None],
             c["kvp"], c["bt"], c["nblk"], c["slot0"][:, None], c["layer"],
-            n_cols=c["n_cols"], window=c["window"])
+            **kw(c))
 
     def k3_unsplit(c):
         return pa._launch(
             "paged_decode_attention (K3)", c["q"], c["kp"], c["vp"], c["kn"],
             c["vn"], c["qpos"][:, None], None, c["kvp"], c["bt"], c["nblk"],
             c["slot0"][:, None], c["layer"], c["n_cols"], None, c["window"],
-            max_splits=1)
+            c["ks"], c["vs"], max_splits=1)
 
     def k4(c):
         return pa.ragged_paged_attention(
             c["q"], c["kp"], c["vp"], c["kn"], c["vn"], c["qpos"], c["qlen"],
-            c["kvp"], c["bt"], c["nblk"], c["slot0"], c["layer"],
-            n_cols=c["n_cols"], window=c["window"])
+            c["kvp"], c["bt"], c["nblk"], c["slot0"], c["layer"], **kw(c))
 
     def k4_ref(c):
         return pa.ragged_paged_attention_ref(
             c["q"], c["kp"], c["vp"], c["kn"], c["vn"], c["qpos"], c["qlen"],
-            c["kvp"], c["bt"], c["nblk"], c["slot0"], c["layer"],
-            n_cols=c["n_cols"], window=c["window"])
+            c["kvp"], c["bt"], c["nblk"], c["slot0"], c["layer"], **kw(c))
 
     k3_list = k3_cases()
-    worst = 0.0
+    worst = {}
     for c in k3_list:
         row, got = _paged_row("K3", c, k3, k3_ref, _gather_sdpa, k3_unsplit)
-        _main_path_impl("K3", row, "lanes")
+        _main_path_impl("K3", row, "lanes_int8" if c["ks"] is not None
+                        else "lanes")
         if c["name"] == "k3_first_split_only" and (
                 row["splits"] < 2 or sorted(row["live_splits"])[:3] != [0, 1, 1]):
             raise AssertionError(f"K3 {c['name']}: live splits "
                                  f"{row['live_splits']} of {row['splits']}")
-        worst = max(worst, row["max_abs_err"])
-        out.setdefault("K3", row)
+        worst[c["row"]] = max(worst.get(c["row"], 0.0), row["max_abs_err"])
+        out.setdefault(c["row"], row)
         G = c["q"].shape[2] // c["kn"].shape[2]
         for b in range(c["q"].shape[0]):
             if int(c["nblk"][b]) == 0 and not torch.equal(
@@ -784,18 +888,18 @@ def check_paged_kernels(out: dict) -> None:
         k4_cb1 = k4({**c, "qlen": torch.ones_like(c["qlen"])})
         if not torch.equal(k4_cb1.float(), got):
             raise AssertionError(f"K4 at CB=1 != K3 on {c['name']}")
-    out["K3"]["max_abs_err"] = worst
     _main_path_split("K3", out["K3"], split=True)
     emit({"phase": "kernel", "check": "k3_equals_k4_at_cb1",
           "cases": len(k3_list), "bit_identical": True})
 
-    worst = 0.0
     for c in k4_cases():
         row, _ = _paged_row("K4", c, k4, k4_ref, _gather_sdpa)
-        worst = max(worst, row["max_abs_err"])
-        out.setdefault("K4", row)
+        worst[c["row"]] = max(worst.get(c["row"], 0.0), row["max_abs_err"])
+        out.setdefault(c["row"], row)
     _main_path_impl("K4", out["K4"])
-    out["K4"]["max_abs_err"] = worst
+    _main_path_impl("K4_int8", out["K4_int8"], "lanes_int8")
+    for name, err in worst.items():
+        out[name]["max_abs_err"] = err
     out["vs_library"]["k4_serve_mixed"] = (out["K4"]["ms"],
                                            out["K4"]["library_ms"])
     # A measurement, not a pass condition: kernel times vary by card.
@@ -821,14 +925,9 @@ def phase_reference() -> None:
     """Tokens through the kernels on the card == tokens through the plain
     path on the CPU, for a tiny fp32 llama (TF32 is off)."""
     from llmss_tpu_torch.engine.engine import DecodeEngine, GenerationParams
-    from llmss_tpu_torch.models.common import DecoderConfig
     from llmss_tpu_torch.models.decoder import init_params
 
-    cfg = DecoderConfig(**{
-        **LLAMA2_7B, "vocab_size": 512, "hidden_size": 256, "n_layers": 2,
-        "n_heads": 4, "n_kv_heads": 2, "head_dim": 64, "rotary_dim": 64,
-        "intermediate_size": 512, "dtype": "float32",
-    })
+    cfg = _tiny_llama()
     cpu_params = init_params(cfg, seed=3, device="cpu")
     prompts = [[int(t) for t in np.random.default_rng(s).integers(1, 512, n)]
                for s, n in ((0, 20), (1, 7), (2, 33))]
@@ -846,22 +945,61 @@ def phase_reference() -> None:
         raise AssertionError("the decode steps were not graph replays")
 
 
-def phase_reference_paged() -> None:
-    """The continuous batcher over the paged pool, on a tiny fp32 llama:
-    6 greedy requests of mixed lengths through split admission (K1 + K3)
-    and through chunked prefill (K4 + K3) give, on the card, exactly the
-    tokens the same batcher gives through the plain path on the CPU."""
-    from llmss_tpu_torch.engine.engine import DecodeEngine, GenerationParams
-    from llmss_tpu_torch.engine.scheduler import ContinuousBatcher
+def _tiny_llama():
+    """The reference phases' model: a tiny fp32 llama (D 64, GQA 2)."""
     from llmss_tpu_torch.models.common import DecoderConfig
-    from llmss_tpu_torch.models.decoder import init_params
-    from llmss_tpu_torch.ops import paged_attention as pa
 
-    cfg = DecoderConfig(**{
+    return DecoderConfig(**{
         **LLAMA2_7B, "vocab_size": 512, "hidden_size": 256, "n_layers": 2,
         "n_heads": 4, "n_kv_heads": 2, "head_dim": 64, "rotary_dim": 64,
         "intermediate_size": 512, "dtype": "float32",
     })
+
+
+def phase_reference_int8() -> None:
+    """The int8 cache on the tiny fp32 llama: greedy tokens through the
+    int8 kernels on the card (K1 over the dequantized layer, K2 with the
+    scales folded in), decoding by graph replays, equal the plain path's on
+    the CPU; then the paged batcher over an int8 pool, split and chunked
+    (``phase_reference_paged``)."""
+    from llmss_tpu_torch.engine.engine import DecodeEngine, GenerationParams
+    from llmss_tpu_torch.models.decoder import init_params
+    from llmss_tpu_torch.ops import decode_attention as da
+
+    cfg = _tiny_llama()
+    cpu_params = init_params(cfg, seed=3, device="cpu")
+    prompts = [[int(t) for t in np.random.default_rng(s).integers(1, 512, n)]
+               for s, n in ((0, 20), (1, 7), (2, 33))]
+    gen = GenerationParams(max_new_tokens=16)
+    want = DecodeEngine(cfg, cpu_params, device="cpu", max_seq_len=64,
+                        kv_dtype="int8").generate(prompts, gen, chunk_steps=4)
+    eng = DecodeEngine(cfg, _to(cpu_params, "cuda"), max_seq_len=64,
+                       kv_dtype="int8")
+    da.decode_attention.launches = 0
+    got = eng.generate(prompts, gen, chunk_steps=4)
+    m = eng.metrics
+    emit({"phase": "reference_int8", "layout": "dense", "identical": got == want,
+          "k2_launches": da.decode_attention.launches, "tokens": got,
+          "graph_captures": m.graph_captures, "graph_replays": m.graph_replays})
+    if got != want:
+        raise AssertionError(f"int8 GPU tokens {got} != CPU plain-path {want}")
+    if not m.graph_replays or not da.decode_attention.launches:
+        raise AssertionError("the int8 decode steps did not replay K2")
+    phase_reference_paged(kv_dtype="int8")
+
+
+def phase_reference_paged(kv_dtype=None) -> None:
+    """The continuous batcher over the paged pool, on a tiny fp32 llama:
+    6 greedy requests of mixed lengths through split admission (K1 + K3)
+    and through chunked prefill (K4 + K3) give, on the card, exactly the
+    tokens the same batcher gives through the plain path on the CPU
+    (``kv_dtype="int8"``: over an int8 pool)."""
+    from llmss_tpu_torch.engine.engine import DecodeEngine, GenerationParams
+    from llmss_tpu_torch.engine.scheduler import ContinuousBatcher
+    from llmss_tpu_torch.models.decoder import init_params
+    from llmss_tpu_torch.ops import paged_attention as pa
+
+    cfg = _tiny_llama()
     cpu_params = init_params(cfg, seed=5, device="cpu")
     gpu_params = _to(cpu_params, "cuda")
     rng = np.random.default_rng(4)
@@ -871,7 +1009,7 @@ def phase_reference_paged() -> None:
 
     def serve(params, device, chunked):
         eng = DecodeEngine(cfg, params, device=device, max_seq_len=128,
-                           kv_layout="paged", block_size=16)
+                           kv_layout="paged", block_size=16, kv_dtype=kv_dtype)
         bat = ContinuousBatcher(eng, rows=4, chunk_steps=4, group_chunks=2,
                                 chunked_prefill=16 if chunked else None)
         out = {}
@@ -890,7 +1028,7 @@ def phase_reference_paged() -> None:
         got, m = serve(gpu_params, None, chunked)
         k3, k4 = (pa.paged_decode_attention.launches,
                   pa.ragged_paged_attention.launches)
-        emit({"phase": "reference_paged",
+        emit({"phase": "reference_paged", "kv": kv_dtype or "float32",
               "admission": "chunked_prefill=16" if chunked else "split",
               "identical": got == want, "k3_launches": k3,
               "k4_launches": k4, "graph_captures": m.graph_captures,
@@ -942,9 +1080,9 @@ def phase_engine(kernels: dict):
     warmed = eng.prewarm(B, chunk_steps=8)
     prewarm_s = time.perf_counter() - t
     keys = eng._graphs.keys()
+    mem = _graph_memory(eng, [eng._cache])
     emit({"phase": "engine", "prewarm": warmed, "prewarm_s": prewarm_s,
-          "graph_captures": eng.metrics.graph_captures,
-          **_graph_memory(eng, [eng._cache])})
+          "graph_captures": eng.metrics.graph_captures, **mem})
     sampled = GenerationParams(max_new_tokens=new, is_greedy=False,
                                temperature=0.8, top_k=40, top_p=0.9,
                                seed=1234)
@@ -1017,7 +1155,7 @@ def phase_engine(kernels: dict):
           "graph_captures_after_prewarm": captured,
           "graph_replays": eng.metrics.graph_replays,
           "sampled_row_head": a[3][:8]})
-    return eng
+    return eng, {"tokens": a, "cache_bytes": mem["cache_bytes"]}
 
 
 def _graph_memory(eng, caches) -> dict:
@@ -1030,10 +1168,26 @@ def _graph_memory(eng, caches) -> dict:
         raise RuntimeError("no graph pool, or no pool ids in the snapshot")
     return {"graph_caches": len(eng._graphs),
             "cache_bytes": sum(t.numel() * t.element_size()
-                               for c in caches for t in c),
+                               for c in caches for t in c if t is not None),
             "graph_pool_bytes": sum(
                 s["total_size"] for s in segs
                 if tuple(s["segment_pool_id"]) == tuple(pool))}
+
+
+def _int8_kernel(name: str, sym: str) -> bool:
+    """Whether the kernel ``name`` is an int8-cache instantiation of
+    ``sym`` (``decode_fwd`` / ``paged_fwd``): a ``signed char`` template
+    argument, demangled, or ``a`` after the query type, mangled."""
+    return sym in name and ("signed char" in name or re.search(
+        sym + r"I(?:f|13__nv_bfloat16)aLi", name) is not None)
+
+
+def _calls(rows, c: str) -> int:
+    """Calls of the profiled kernels whose name holds ``c``; ``"int8:"``
+    before it counts only the int8-cache instantiations."""
+    if c.startswith("int8:"):
+        return sum(n for _, k, n in rows if _int8_kernel(k, c[5:]))
+    return sum(n for _, k, n in rows if c in k)
 
 
 def _profile_row(what, fn, path=None, count=()) -> tuple[dict, object]:
@@ -1062,8 +1216,7 @@ def _profile_row(what, fn, path=None, count=()) -> tuple[dict, object]:
            "device_kernel_ms": kernel_ms,
            "device_idle_share": max(0.0, 1 - kernel_ms / wall_ms),
            "kernels": sum(r[2] for r in rows),
-           "kernel_calls": {c: sum(n for _, k, n in rows if c in k)
-                            for c in count},
+           "kernel_calls": {c: _calls(rows, c) for c in count},
            "top": [{"kernel": k[:80], "ms": us / 1e3, "calls": n}
                    for us, k, n in rows[:8]]}
     emit(row)
@@ -1097,7 +1250,9 @@ def _graph_vs_eager(eng, what, tok, cache, cur, sa, done, eos, *, n_chunks,
         body = eng._step_body("fold", g.bufs, cache, sa, t_bucket)
         return eng._run_group(g.bufs, body, n_chunks, n_steps)[0]
 
-    count = (kernel, "split_merge")
+    # Over an int8 cache every decode kernel must be its int8 instantiation.
+    count = (kernel, "split_merge") + ((f"int8:{kernel}",) if cache.quantized
+                                       else ())
     g_row, g_out = _profile_row(what, graph, "graph", count)
     e_row, e_out = _profile_row(what, eager, "eager", count)
     same = torch.equal(g_out, e_out)
@@ -1107,6 +1262,8 @@ def _graph_vs_eager(eng, what, tok, cache, cur, sa, done, eos, *, n_chunks,
     L, steps = eng.cfg.n_layers, n_chunks * n_steps
     merges = L if _decode_plan(eng, cache, t_bucket).splits > 1 else 0
     want_calls = {kernel: L * steps, "split_merge": merges * steps}
+    if cache.quantized:
+        want_calls[f"int8:{kernel}"] = L * steps
     emit({"phase": "profile", "what": what, "check": "graph_equals_eager",
           "identical": same,
           "wall_ratio_eager_over_graph": e_row["wall_ms"] / g_row["wall_ms"],
@@ -1278,35 +1435,21 @@ def _count_steps(eng):
     return n
 
 
-def phase_serve_continuous(params, kernels: dict):
-    """The slice's main path: ContinuousWorker over InProcBroker at
-    Llama-2-7B width (bf16, random weights from seed 0), 8 rows,
-    max_seq_len 1024, block_size 16, a 256-block pool (2 GiB, half the
-    dense equivalent), chunk_steps 8, group_chunks 2. 16 requests (prompts
-    of 32-768 tokens from a seed, 48 new tokens each: 12 greedy of which 2
-    streamed, 3 top-k/top-p sampled, 1 cancelled mid-decode), served with
-    split admission (K1 + K3), then with chunked_prefill=128 (K4 + K3),
-    then the chunked pass again, which must repeat its tokens."""
-    from llmss_tpu_torch.engine.engine import DecodeEngine
-    from llmss_tpu_torch.engine.metrics import EngineMetrics
-    from llmss_tpu_torch.models.common import DecoderConfig
-    from llmss_tpu_torch.ops import decode_attention as da
-    from llmss_tpu_torch.ops import flash_attention as fa
-    from llmss_tpu_torch.ops import paged_attention as pa
-    from llmss_tpu_torch.serve.broker import InProcBroker
-    from llmss_tpu_torch.serve.consumer import ContinuousWorker
+SERVE_NEW = 48  # new tokens per serve_continuous request
+SERVE_CANCEL = 3  # admitted in the first wave, cancelled once it decodes
+
+
+def _serve_requests(cfg):
+    """The serve_continuous phase's 16 requests (prompts of 32-768 tokens
+    from seed 11, 48 new tokens each: 12 greedy of which 2 streamed, 3
+    top-k/top-p sampled, 1 cancelled mid-decode), made anew per pass;
+    returns (prompt lengths, the maker)."""
     from llmss_tpu_torch.serve.protocol import GenerateRequest
 
-    cfg = DecoderConfig(**LLAMA2_7B)
-    L, new = cfg.n_layers, 48
-    eng = DecodeEngine(cfg, params, max_seq_len=1024, kv_layout="paged",
-                       block_size=16, kv_blocks=256)
-    steps = _count_steps(eng)
     rng = np.random.default_rng(11)
     lens = [int(n) for n in rng.integers(32, 769, 16)]
     prompts = [[int(t) for t in rng.integers(1, cfg.vocab_size, n)]
                for n in lens]
-    CANCEL = 3  # admitted in the first wave, cancelled once it decodes
 
     def requests():
         out = []
@@ -1315,9 +1458,119 @@ def phase_serve_continuous(params, kernels: dict):
             if 12 <= i < 15:
                 kw = dict(is_greedy=False, temperature=0.8, top_k=40,
                           top_p=0.9, seed=100 + i)
-            out.append(GenerateRequest(token_ids=p, max_new_tokens=new,
+            out.append(GenerateRequest(token_ids=p, max_new_tokens=SERVE_NEW,
                                        stream=i in (0, 1), **kw))
         return out
+
+    return lens, requests
+
+
+def _serve_pass(eng, worker, requests, steps, extra: dict):
+    """One serving pass of ``requests()`` through a prewarmed
+    ContinuousWorker: every answer checked (the cancelled one cancelled,
+    the stream equal to its answer), the launch counts against the steps
+    run (K2 never; K3 n_layers per decode step, K4 per ragged step), every
+    block returned and no graph captured. Emits and returns (row, tokens,
+    launch counts)."""
+    from llmss_tpu_torch.engine.metrics import EngineMetrics
+    from llmss_tpu_torch.ops import decode_attention as da
+    from llmss_tpu_torch.ops import flash_attention as fa
+    from llmss_tpu_torch.ops import paged_attention as pa
+
+    cfg = eng.cfg
+    L, new = cfg.n_layers, SERVE_NEW
+    eng.metrics = EngineMetrics()
+    broker = worker.broker
+    reqs = requests()
+    for r in reqs:
+        broker.push_request(r)
+    fa.flash_attention.launches = da.decode_attention.launches = 0
+    pa.paged_decode_attention.launches = 0
+    pa.ragged_paged_attention.launches = 0
+    steps.update(decode=0, ragged=0)
+    answers, cancel_sent = {}, False
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    while len(answers) < len(reqs):
+        worker.run_once()
+        if not cancel_sent and any(
+                r.req_id == reqs[SERVE_CANCEL].id and r.out
+                for r in worker.batcher.active.values()):
+            broker.cancel_request(reqs[SERVE_CANCEL].id)
+            cancel_sent = True
+        for r in reqs:
+            if r.id not in answers:
+                a = broker.wait_response(r.id, timeout=0.0)
+                if a is not None:
+                    answers[r.id] = a
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(k1=fa.flash_attention.launches,
+                  k2=da.decode_attention.launches,
+                  k3=pa.paged_decode_attention.launches,
+                  k4=pa.ragged_paged_attention.launches)
+    toks = [answers[r.id].token_ids or [] for r in reqs]
+    for i, (r, a) in enumerate(zip(reqs, (answers[r.id] for r in reqs))):
+        if i == SERVE_CANCEL:
+            if a.error != "cancelled" or not 0 < len(toks[i]) < new:
+                raise AssertionError(f"cancelled request answered {a}")
+        elif a.error or len(toks[i]) != new or not all(
+                0 <= t < cfg.vocab_size for t in toks[i]):
+            raise AssertionError(f"request {i}: bad answer {a}")
+    streamed = []
+    while (inc := broker.pop_stream(reqs[0].id)) is not None:
+        streamed += inc
+    if streamed != toks[0]:
+        raise AssertionError("stream increments != final answer")
+    if counts["k2"] or counts["k3"] != L * steps["decode"] or (
+            counts["k4"] != L * steps["ragged"]):
+        raise AssertionError(f"launch counts {counts} for steps {steps}")
+    chunked = worker.batcher.chunked_prefill is not None
+    if chunked and not counts["k4"]:
+        raise AssertionError("chunked pass launched no K4")
+    if worker.batcher.allocator.blocks_in_use:
+        raise AssertionError("blocks in use after the pass")
+    if eng.metrics.graph_captures:
+        raise AssertionError("a serving pass captured a graph")
+    m = eng.metrics
+    served = sum(len(t) for i, t in enumerate(toks) if i != SERVE_CANCEL)
+    row = {"phase": "serve_continuous",
+           "admission": (f"chunked_prefill={worker.batcher.chunked_prefill}"
+                         if chunked else "split"),
+           "requests": len(reqs), "new_tokens": new,
+           "wall_s": wall, "tokens_per_s": served / wall,
+           "ttft_p50_ms": m.ttft.quantile_ms(50),
+           "ttft_p90_ms": m.ttft.quantile_ms(90),
+           "decode_ms_per_step": m.decode_step.to_dict()["mean_ms"],
+           "decode_steps": steps["decode"], "ragged_steps": steps["ragged"],
+           "launches": counts,
+           "host_overhead": m.to_dict()["host_overhead"],
+           "mixed_batch": m.to_dict()["mixed_batch"],
+           **extra, "graph_captures_after_prewarm": 0,
+           "graph_replays": m.graph_replays,
+           "blocks_in_use_after": 0}
+    return row, toks, counts
+
+
+def phase_serve_continuous(params, kernels: dict):
+    """The slice's main path: ContinuousWorker over InProcBroker at
+    Llama-2-7B width (bf16, random weights from seed 0), 8 rows,
+    max_seq_len 1024, block_size 16, a 256-block pool (2 GiB, half the
+    dense equivalent), chunk_steps 8, group_chunks 2. 16 requests
+    (``_serve_requests``), served with split admission (K1 + K3), then
+    with chunked_prefill=128 (K4 + K3), then the chunked pass again, which
+    must repeat its tokens. Returns the engine and the chunked pass's
+    tokens."""
+    from llmss_tpu_torch.engine.engine import DecodeEngine
+    from llmss_tpu_torch.models.common import DecoderConfig
+    from llmss_tpu_torch.serve.broker import InProcBroker
+    from llmss_tpu_torch.serve.consumer import ContinuousWorker
+
+    cfg = DecoderConfig(**LLAMA2_7B)
+    eng = DecodeEngine(cfg, params, max_seq_len=1024, kv_layout="paged",
+                       block_size=16, kv_blocks=256)
+    steps = _count_steps(eng)
+    lens, requests = _serve_requests(cfg)
 
     # One worker per admission mode, each prewarmed before any pass: the
     # passes capture no graph.
@@ -1335,75 +1588,9 @@ def phase_serve_continuous(params, kernels: dict):
           **_graph_memory(eng, [w.batcher.cache for w in workers.values()])})
 
     def run(chunked):
-        eng.metrics = EngineMetrics()
-        worker = workers[chunked]
-        broker = worker.broker
-        reqs = requests()
-        for r in reqs:
-            broker.push_request(r)
-        fa.flash_attention.launches = da.decode_attention.launches = 0
-        pa.paged_decode_attention.launches = 0
-        pa.ragged_paged_attention.launches = 0
-        steps.update(decode=0, ragged=0)
-        answers, cancel_sent = {}, False
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        while len(answers) < len(reqs):
-            worker.run_once()
-            if not cancel_sent and any(
-                    r.req_id == reqs[CANCEL].id and r.out
-                    for r in worker.batcher.active.values()):
-                broker.cancel_request(reqs[CANCEL].id)
-                cancel_sent = True
-            for r in reqs:
-                if r.id not in answers:
-                    a = broker.wait_response(r.id, timeout=0.0)
-                    if a is not None:
-                        answers[r.id] = a
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        counts = dict(k1=fa.flash_attention.launches,
-                      k2=da.decode_attention.launches,
-                      k3=pa.paged_decode_attention.launches,
-                      k4=pa.ragged_paged_attention.launches)
-        toks = [answers[r.id].token_ids or [] for r in reqs]
-        for i, (r, a) in enumerate(zip(reqs, (answers[r.id] for r in reqs))):
-            if i == CANCEL:
-                if a.error != "cancelled" or not 0 < len(toks[i]) < new:
-                    raise AssertionError(f"cancelled request answered {a}")
-            elif a.error or len(toks[i]) != new or not all(
-                    0 <= t < cfg.vocab_size for t in toks[i]):
-                raise AssertionError(f"request {i}: bad answer {a}")
-        streamed = []
-        while (inc := broker.pop_stream(reqs[0].id)) is not None:
-            streamed += inc
-        if streamed != toks[0]:
-            raise AssertionError("stream increments != final answer")
-        if counts["k2"] or counts["k3"] != L * steps["decode"] or (
-                counts["k4"] != L * steps["ragged"]):
-            raise AssertionError(f"launch counts {counts} for steps {steps}")
-        if chunked and not counts["k4"]:
-            raise AssertionError("chunked pass launched no K4")
-        if worker.batcher.allocator.blocks_in_use:
-            raise AssertionError("blocks in use after the pass")
-        if eng.metrics.graph_captures:
-            raise AssertionError("a serving pass captured a graph")
-        m = eng.metrics
-        served = sum(len(t) for i, t in enumerate(toks) if i != CANCEL)
-        row = {"phase": "serve_continuous",
-               "admission": "chunked_prefill=128" if chunked else "split",
-               "requests": len(reqs), "prompt_lens": lens, "new_tokens": new,
-               "wall_s": wall, "tokens_per_s": served / wall,
-               "ttft_p50_ms": m.ttft.quantile_ms(50),
-               "ttft_p90_ms": m.ttft.quantile_ms(90),
-               "decode_ms_per_step": m.decode_step.to_dict()["mean_ms"],
-               "decode_steps": steps["decode"], "ragged_steps": steps["ragged"],
-               "launches": counts,
-               "host_overhead": m.to_dict()["host_overhead"],
-               "mixed_batch": m.to_dict()["mixed_batch"],
-               **warm[chunked], "graph_captures_after_prewarm": 0,
-               "graph_replays": m.graph_replays,
-               "blocks_in_use_after": 0}
+        row, toks, counts = _serve_pass(eng, workers[chunked], requests,
+                                        steps, {"prompt_lens": lens,
+                                                **warm[chunked]})
         emit(row)
         return toks, counts
 
@@ -1411,7 +1598,7 @@ def phase_serve_continuous(params, kernels: dict):
     chunk, c_chunk = run(True)
     again, _ = run(True)
     same = all(a == b for i, (a, b) in enumerate(zip(chunk, again))
-               if i != CANCEL)
+               if i != SERVE_CANCEL)
     emit({"phase": "serve_continuous", "check": "chunked_pass_repeats",
           "identical": same})
     if not same:
@@ -1424,14 +1611,16 @@ def phase_serve_continuous(params, kernels: dict):
     gc.collect()
     if len(eng._graphs):
         raise AssertionError("the workers' step graphs outlived their caches")
-    return eng
+    return eng, chunk
 
 
-def phase_profile_paged(eng) -> None:
+def phase_profile_paged(eng, tag: str = "") -> None:
     """Where the time goes on the serving path: one paged decode group
     (2 chunks x 8 steps) by graph replays and eagerly, and one ragged group
     (4 steps, two rows feeding 128-token chunks beside six decode rows,
-    eager) over 8 rows of the serve engine."""
+    eager) over 8 rows of the serve engine. Over an int8 pool (rows named
+    ``tag`` first) every ``paged_fwd`` the profiler sees must be an int8
+    instantiation: n_layers per step in the ragged group too."""
     from llmss_tpu_torch.engine.engine import GenerationParams
 
     B = 8
@@ -1446,8 +1635,8 @@ def phase_profile_paged(eng) -> None:
     tok, _ = eng._prefill(torch.as_tensor(ids, device=dev), cache, cur, sa)
     done = torch.zeros(B, dtype=torch.bool, device=dev)
     eos = torch.full((B,), -1, dtype=torch.int32, device=dev)
-    _graph_vs_eager(eng, "paged_decode_group_2x8", tok, cache, cur, sa, done,
-                    eos, n_chunks=2, n_steps=8,
+    _graph_vs_eager(eng, tag + "paged_decode_group_2x8", tok, cache, cur, sa,
+                    done, eos, n_chunks=2, n_steps=8,
                     t_bucket=eng.decode_bucket(int(lens.max()) + 16))
     nc, CB = 4, 128
     qlens = np.ones((nc, B), np.int32)
@@ -1458,8 +1647,143 @@ def phase_profile_paged(eng) -> None:
     xs = [torch.as_tensor(a, device=dev) for a in (
         rng.integers(1, 32000, (nc, B, CB)).astype(np.int32), qlens, feed,
         emit_)]
-    _profile_row("ragged_group_4_steps",
-                 lambda: eng._ragged_group(tok, cache, cur, sa, done, eos, *xs))
+    count = ("paged_fwd", "int8:paged_fwd") if cache.quantized else ()
+    row, _ = _profile_row(
+        tag + "ragged_group_4_steps",
+        lambda: eng._ragged_group(tok, cache, cur, sa, done, eos, *xs),
+        count=count)
+    want = eng.cfg.n_layers * nc
+    if count and set(row["kernel_calls"].values()) != {want}:
+        raise AssertionError(f"{tag}ragged group: {row['kernel_calls']}, "
+                             f"want {want} each")
+
+
+# -- phase 6c ------------------------------------------------------------------
+
+
+def phase_int8(params, kernels: dict, bf16: dict) -> None:
+    """The int8 KV cache at Llama-2-7B width (the same random bf16 weights):
+    dense ``generate`` at batch 4 (prompts 128/100/77/128, 64 new tokens,
+    ring 1024, chunk_steps 8, one sampled row) after ``prewarm``, one
+    8-step decode chunk profiled by graph and eagerly (int8 ``decode_fwd``
+    only), then one chunked serving pass (chunked_prefill=128) of the
+    serve_continuous requests over a 496-block int8 pool, about the bytes
+    of that phase's 256-block bf16 pool. Launch counts: K1 and K2 in the
+    generate, K3 and K4 in the pass, all over the int8 instantiations; the
+    dense cache's bytes against the bf16 engine's, and the share of tokens
+    equal to the bf16 runs' (``bf16``: the engine phase's chunk-8 tokens and
+    cache bytes, the serve phase's chunked tokens)."""
+    from llmss_tpu_torch.engine.engine import DecodeEngine, GenerationParams
+    from llmss_tpu_torch.engine.metrics import EngineMetrics
+    from llmss_tpu_torch.models.common import DecoderConfig
+    from llmss_tpu_torch.ops import decode_attention as da
+    from llmss_tpu_torch.ops import flash_attention as fa
+    from llmss_tpu_torch.serve.broker import InProcBroker
+    from llmss_tpu_torch.serve.consumer import ContinuousWorker
+
+    cfg = DecoderConfig(**LLAMA2_7B)
+    L, B, new = cfg.n_layers, 4, 64
+    eng = DecodeEngine(cfg, params, batch_size=B, max_seq_len=1024,
+                       kv_dtype="int8")
+    rng = np.random.default_rng(0)
+    prompts = [[int(t) for t in rng.integers(1, cfg.vocab_size, n)]
+               for n in ENGINE_LENS]
+    t = time.perf_counter()
+    warmed = eng.prewarm(B, chunk_steps=8)
+    prewarm_s = time.perf_counter() - t
+    keys = eng._graphs.keys()
+    mem = _graph_memory(eng, [eng._cache])
+    ratio = mem["cache_bytes"] / bf16["cache_bytes"]
+    sampled = GenerationParams(max_new_tokens=new, is_greedy=False,
+                               temperature=0.8, top_k=40, top_p=0.9,
+                               seed=1234)
+    gens = [GenerationParams(max_new_tokens=new)] * 3 + [sampled]
+    eng.metrics = EngineMetrics()
+    fa.flash_attention.launches = da.decode_attention.launches = 0
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    toks = eng.generate(prompts, gens, chunk_steps=8)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    k1, k2 = fa.flash_attention.launches, da.decode_attention.launches
+    steps = math.ceil((new - 1) / 8) * 8
+    if k1 != L or k2 != L * steps:
+        raise AssertionError(f"int8 launch counts K1={k1}, K2={k2}")
+    for row in toks:
+        if len(row) != new or not all(0 <= x < cfg.vocab_size for x in row):
+            raise AssertionError("int8 tokens outside the vocab or wrong length")
+    equal = sum(x == y for a, b in zip(toks, bf16["tokens"])
+                for x, y in zip(a, b)) / (B * new)
+    m = eng.metrics
+    captured = len(eng._graphs.keys() - keys)
+    # The prefill profiled (eager: a dequantized copy of each layer, K1,
+    # then the quantizing writes), then one decode chunk, graph and eager,
+    # from the same state over a cache of its own (whose graphs this
+    # captures): the profiler must see only the int8 decode_fwd.
+    ids, lens = eng._pad_prompts(prompts)
+    sa = eng._sample_args(GenerationParams(), B)
+    ids_d = torch.as_tensor(ids, device="cuda")
+    lens_d = torch.as_tensor(lens, device="cuda")
+    cache = eng.new_cache(B)
+
+    def prefill():
+        cache.positions.fill_(-1)
+        return eng._prefill(ids_d, cache, lens_d, sa)[0]
+
+    _profile_row("int8_prefill", prefill)
+    tok = prefill()
+    _graph_vs_eager(eng, "int8_decode_chunk8", tok, cache, lens_d, sa,
+                    torch.zeros(B, dtype=torch.bool, device="cuda"),
+                    torch.full((B,), -1, dtype=torch.int32, device="cuda"),
+                    n_chunks=1, n_steps=8,
+                    t_bucket=eng.decode_bucket(int(lens.max()) + 8))
+    del cache
+    emit({"phase": "int8", "path": "generate", "kv_dtype": "int8",
+          "batch": B, "prompt_lens": ENGINE_LENS, "new_tokens": new,
+          "prewarm": warmed, "prewarm_s": prewarm_s, **mem,
+          "cache_bytes_bf16": bf16["cache_bytes"],
+          "cache_bytes_over_bf16": ratio, "ttft_ms": m.ttft.last_s * 1e3,
+          "decode_ms_per_step_chunk8": m.decode_step.to_dict()["mean_ms"],
+          "tokens_per_s_chunk8_one_sampled_row": B * new / wall,
+          "k1_launches": k1, "k2_launches": k2,
+          "graph_captures_after_prewarm": captured,
+          "graph_replays": m.graph_replays,
+          "tokens_equal_to_bf16_share": equal})
+    if captured:
+        raise AssertionError(f"{captured} int8 graph captures after prewarm")
+    if not ratio <= 0.52:
+        raise AssertionError(f"int8 cache is {ratio:.4f} of the bf16 cache")
+    kernels["K2_int8"]["launches"] = k2
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    peng = DecodeEngine(cfg, params, max_seq_len=1024, kv_layout="paged",
+                        block_size=16, kv_blocks=496, kv_dtype="int8")
+    steps = _count_steps(peng)
+    _, requests = _serve_requests(cfg)
+    worker = ContinuousWorker(peng, InProcBroker(), rows=8, chunk_steps=8,
+                              group_chunks=2, chunked_prefill=128)
+    t = time.perf_counter()
+    warm = {"prewarm": worker.prewarm(), "prewarm_s": time.perf_counter() - t}
+    keys = peng._graphs.keys()
+    pool = _graph_memory(peng, [worker.batcher.cache])
+    row, stoks, counts = _serve_pass(peng, worker, requests, steps, warm)
+    served = [i for i in range(len(stoks)) if i != SERVE_CANCEL]
+    equal = (sum(x == y for i in served
+                 for x, y in zip(stoks[i], bf16["serve_tokens"][i]))
+             / sum(len(stoks[i]) for i in served))
+    row.update(phase="int8", path="serve_continuous", kv_dtype="int8",
+               kv_blocks=496, pool_bytes=pool["cache_bytes"],
+               tokens_equal_to_bf16_share=equal)
+    emit(row)
+    if peng._graphs.keys() != keys:
+        raise AssertionError("the int8 serving pass captured a graph")
+    kernels["K3_int8"]["launches"] = counts["k3"]
+    kernels["K4_int8"]["launches"] = counts["k4"]
+    del worker
+    gc.collect()
+    phase_profile_paged(peng, "int8_")
 
 
 # -- phase 7 -------------------------------------------------------------------
@@ -1539,15 +1863,21 @@ def main() -> int:
     check_paged_kernels(kernels)
     phase_reference()
     phase_reference_paged()
-    eng = phase_engine(kernels)
+    phase_reference_int8()
+    eng, bf16 = phase_engine(kernels)
     phase_profile(eng)
     phase_serve(eng)
     params = eng.params
     del eng
     torch.cuda.empty_cache()
-    peng = phase_serve_continuous(params, kernels)
+    peng, bf16["serve_tokens"] = phase_serve_continuous(params, kernels)
     phase_profile_paged(peng)
-    del peng, params
+    del peng
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_int8(params, kernels, bf16)
+    del params
+    gc.collect()
     torch.cuda.empty_cache()
     phase_cli()
     rows = []
@@ -1562,6 +1892,18 @@ def main() -> int:
         ("K4", "ragged_paged_attention",
          "llmss_tpu_torch/csrc/paged_attention.cu",
          "llmss_tpu/ops/pallas_ragged.py:220"),
+        # The int8 cache: K2 and K3 compute the reference's XLA oracles
+        # with scales (the Pallas K2 / K3 take none); K4 the Pallas int8
+        # branch.
+        ("K2_int8", "decode_attention (int8 cache)",
+         "llmss_tpu_torch/csrc/decode_attention.cu",
+         "llmss_tpu/ops/attention.py:242"),
+        ("K3_int8", "paged_decode_attention (int8 pool)",
+         "llmss_tpu_torch/csrc/paged_attention.cu",
+         "llmss_tpu/ops/attention.py:352"),
+        ("K4_int8", "ragged_paged_attention (int8 pool)",
+         "llmss_tpu_torch/csrc/paged_attention.cu",
+         "llmss_tpu/ops/pallas_ragged.py:144"),
     ):
         k = kernels[name]
         rows.append({

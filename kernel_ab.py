@@ -5,6 +5,8 @@ events).
 
     python3 kernel_ab.py [--tree DIR] [--label NAME] [--kernels K1,K2,K3,K4]
 
+(default: those four and the int8-cache cases K2_int8,K3_int8,K4_int8)
+
 ``--tree`` is a checkout of the repo whose ``llmss_tpu_torch`` is built
 and timed (default: this one). The cases and the timer always come from
 this checkout, so two trees timed by it differ only in their package. To
@@ -25,31 +27,48 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 
 
+def _scales(c):
+    """An int8 case's scale arguments; none for a case over a cache of the
+    query's dtype, so a tree without the int8 cache times those too."""
+    return {} if c["ks"] is None else dict(k_scale=c["ks"], v_scale=c["vs"])
+
+
 def _cases(cs, da, fa, pa, kernels):
     """(kernel, case, one call, graph iterations) for every case of the
-    named kernels; the cases of the others are not made."""
-    for c in cs.k1_cases() if "K1" in kernels else ():
-        yield "K1", c["name"], (
-            lambda c=c: fa.flash_attention(c["q"], c["k"], c["v"], c["qp"],
-                                           c["kvp"], window=c["window"])), 20
-    for c in cs.k2_cases() if "K2" in kernels else ():
-        yield "K2", c["name"], (
-            lambda c=c: da.decode_attention(
-                c["q"], c["kc"], c["vc"], c["kn"], c["vn"], c["qpos"],
-                c["kvp"], c["slots"], c["layer"], t_len=c["t_len"],
-                window=c["window"])), 50
-    for c in cs.k3_cases() if "K3" in kernels else ():
-        yield "K3", c["name"], (
-            lambda c=c: pa.paged_decode_attention(
-                c["q"], c["kp"], c["vp"], c["kn"], c["vn"], c["qpos"][:, None],
-                c["kvp"], c["bt"], c["nblk"], c["slot0"][:, None], c["layer"],
-                n_cols=c["n_cols"], window=c["window"])), 50
-    for c in cs.k4_cases() if "K4" in kernels else ():
-        yield "K4", c["name"], (
-            lambda c=c: pa.ragged_paged_attention(
-                c["q"], c["kp"], c["vp"], c["kn"], c["vn"], c["qpos"],
-                c["qlen"], c["kvp"], c["bt"], c["nblk"], c["slot0"],
-                c["layer"], n_cols=c["n_cols"], window=c["window"])), 50
+    named kernels (``K2_int8``, ``K3_int8``, ``K4_int8``: the int8-cache
+    cases, made only when named); the cases of the others are not
+    timed."""
+    if "K1" in kernels:
+        for c in cs.k1_cases():
+            yield "K1", c["name"], (
+                lambda c=c: fa.flash_attention(c["q"], c["k"], c["v"], c["qp"],
+                                               c["kvp"], window=c["window"])), 20
+    wanted = {"K2", "K2_int8"} & set(kernels)
+    for c in cs.k2_cases("K2_int8" in kernels) if wanted else ():
+        if c["row"] in kernels:
+            yield c["row"], c["name"], (
+                lambda c=c: da.decode_attention(
+                    c["q"], c["kc"], c["vc"], c["kn"], c["vn"], c["qpos"],
+                    c["kvp"], c["slots"], c["layer"], t_len=c["t_len"],
+                    window=c["window"], **_scales(c))), 50
+    wanted = {"K3", "K3_int8"} & set(kernels)
+    for c in cs.k3_cases("K3_int8" in kernels) if wanted else ():
+        if c["row"] in kernels:
+            yield c["row"], c["name"], (
+                lambda c=c: pa.paged_decode_attention(
+                    c["q"], c["kp"], c["vp"], c["kn"], c["vn"],
+                    c["qpos"][:, None], c["kvp"], c["bt"], c["nblk"],
+                    c["slot0"][:, None], c["layer"], n_cols=c["n_cols"],
+                    window=c["window"], **_scales(c))), 50
+    wanted = {"K4", "K4_int8"} & set(kernels)
+    for c in cs.k4_cases("K4_int8" in kernels) if wanted else ():
+        if c["row"] in kernels:
+            yield c["row"], c["name"], (
+                lambda c=c: pa.ragged_paged_attention(
+                    c["q"], c["kp"], c["vp"], c["kn"], c["vn"], c["qpos"],
+                    c["qlen"], c["kvp"], c["bt"], c["nblk"], c["slot0"],
+                    c["layer"], n_cols=c["n_cols"], window=c["window"],
+                    **_scales(c))), 50
 
 
 def main() -> int:
@@ -57,8 +76,10 @@ def main() -> int:
     ap.add_argument("--tree", default=str(ROOT),
                     help="checkout whose llmss_tpu_torch is timed")
     ap.add_argument("--label", default="this", help="name in every line")
-    ap.add_argument("--kernels", default="K1,K2,K3,K4",
-                    help="the kernels whose cases are timed")
+    ap.add_argument("--kernels", default="K1,K2,K3,K4,K2_int8,K3_int8,K4_int8",
+                    help="the kernels whose cases are timed (K2_int8, "
+                         "K3_int8, K4_int8: the int8-cache cases, which an "
+                         "older tree cannot run)")
     args = ap.parse_args()
     tree = Path(args.tree).resolve()
     sys.path.insert(0, str(tree))

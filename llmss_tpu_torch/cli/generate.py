@@ -1,8 +1,9 @@
 """CLI generation entry point (counterpart: llmss_tpu/cli/generate.py:29-169).
 
-Same flags as the reference, plus ``--device`` (default ``cuda``). The
-port refuses, with a message, what it does not run yet: ``--speculative``,
-``--kv_dtype int8`` and the ``--sp``/``--tp``/``--dp`` mesh flags.
+Same flags as the reference, plus ``--device`` (default ``cuda``);
+``--kv_dtype int8`` stores the KV cache quantized (engine/cache.py). The
+port refuses, with a message, what it does not run yet: ``--speculative``
+and the ``--sp``/``--tp``/``--dp`` mesh flags.
 ``--token_ids`` bypasses the tokenizer; ``--prompts`` needs the optional
 ``transformers`` tokenizer.
 
@@ -36,8 +37,11 @@ def get_args(argv=None):
     parser.add_argument("--dp", type=int, default=1)
     parser.add_argument("--sp", type=int, default=1)
     parser.add_argument("--dtype", type=str, default="bfloat16")
-    parser.add_argument("--kv_dtype", type=str, default=None,
-                        choices=[None, "int8"])
+    parser.add_argument(
+        "--kv_dtype", type=str, default=None, choices=[None, "int8"],
+        help="int8 = quantized KV cache (half the KV bytes; "
+             "per-token-per-head scales)",
+    )
     parser.add_argument("--max_seq_len", type=int, default=None)
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--speculative", type=int, default=0, metavar="GAMMA")
@@ -48,8 +52,6 @@ def get_args(argv=None):
 def _refuse_unported(args) -> None:
     if args.speculative:
         raise SystemExit("--speculative is not supported by the torch port yet")
-    if args.kv_dtype == "int8":
-        raise SystemExit("--kv_dtype int8 is not supported by the torch port yet")
     if args.sp != 1 or args.dp != 1 or args.tp not in (None, 1):
         raise SystemExit(
             "--sp/--tp/--dp: the torch port runs one model on one device"
@@ -97,7 +99,7 @@ def main(argv=None):
         prompts = [tokenizer(p)["input_ids"] for p in args.prompts]
 
     engine = DecodeEngine(
-        cfg, params, device=args.device,
+        cfg, params, device=args.device, kv_dtype=args.kv_dtype,
         max_seq_len=args.max_seq_len
         or min(cfg.max_position_embeddings,
                max(len(p) for p in prompts) + args.max_new_tokens),

@@ -7,6 +7,8 @@
 #include <float.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace llmss {
 
 // Masked lanes hold the finite fp32 minimum, never -inf: exp() of a masked
@@ -17,7 +19,11 @@ namespace llmss {
 constexpr float kNegInf = -FLT_MAX;
 
 // dtype codes shared with the Python wrappers (ops/_build.py).
-enum DType : int { kF32 = 0, kBF16 = 1, kF16 = 2 };
+enum DType : int { kF32 = 0, kBF16 = 1, kF16 = 2, kI8 = 3 };
+
+// An int8 KV cache stores value = int8 * scale, one fp32 scale per (slot,
+// KV head); the decode kernels read the raw int8 and fold the scales in.
+template <typename KV> constexpr bool kQuant = sizeof(KV) == 1;
 
 template <typename T> __device__ __forceinline__ float to_f(T x);
 template <> __device__ __forceinline__ float to_f<float>(float x) { return x; }
@@ -26,6 +32,10 @@ template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 x
 }
 template <> __device__ __forceinline__ float to_f<__half>(__half x) {
   return __half2float(x);
+}
+// Exact: every int8 value is an fp32 value.
+template <> __device__ __forceinline__ float to_f<int8_t>(int8_t x) {
+  return static_cast<float>(x);
 }
 
 template <typename T> __device__ __forceinline__ T from_f(float x);
@@ -66,6 +76,19 @@ template <> struct Vec8<float> {
   __device__ __forceinline__ void to_float(float out[8]) const {
     out[0] = a.x; out[1] = a.y; out[2] = a.z; out[3] = a.w;
     out[4] = b.x; out[5] = b.y; out[6] = b.z; out[7] = b.w;
+  }
+};
+
+// Eight int8 values read with one 8-byte load.
+template <> struct Vec8<int8_t> {
+  uint2 raw;
+  __device__ __forceinline__ void load(const int8_t* p) {
+    raw = __ldg(reinterpret_cast<const uint2*>(p));
+  }
+  __device__ __forceinline__ void to_float(float out[8]) const {
+    const int8_t* e = reinterpret_cast<const int8_t*>(&raw);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) out[i] = to_f<int8_t>(e[i]);
   }
 };
 

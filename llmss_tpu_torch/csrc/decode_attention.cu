@@ -14,6 +14,16 @@
 // ring prefix (the reference XLA path's t_bucket); the Pallas kernel always
 // read the whole ring.
 //
+// Over an int8 cache (KV = int8_t, the engine's kv_dtype="int8") the same
+// template computes what the reference's XLA oracle
+// fresh_kv_decode_attention(k_scale=, v_scale=) (llmss_tpu/ops/
+// attention.py:242) computes: the Pallas K2 takes no scales. Each slot's
+// score is multiplied by its K scale after the Q.K dot and before the mask,
+// and P by its V scale before P.V, in fp32 (P is not rounded); the fresh
+// token's score and value are not scaled, and the split partials and
+// split_merge.cuh are unchanged. The int8 rows halve the bytes a slot
+// moves; each lane also copies the slot's two fp32 scales into its ring.
+//
 // What bounds it on the H100: memory. Each (row, kv head) streams
 // t_len * D keys and values once and does ~4 flops per element for each of
 // its G query heads, far below the ~295 flops per byte where the tensor
@@ -76,7 +86,17 @@ struct Args {
   int window;  // <= 0: full causal
 };
 
-template <typename T, int D, int GB>
+// The int8-cache instantiations take Args and the per-(slot, KV head)
+// scales [L, B, T, Hkv]; the others take Args alone, as before the int8
+// cache (a parameter struct that grew, even at its end, changed their
+// register allocation and slowed K2 by up to 7%, PERF.md).
+struct ArgsI8 : Args {
+  const float* ks;
+  const float* vs;
+};
+template <typename KV> using ArgsOf = std::conditional_t<kQuant<KV>, ArgsI8, Args>;
+
+template <typename KV, int D, int GB>
 struct Cfg {
   static constexpr int LPS = D / 8;          // lanes per slot (8 elements each)
   static constexpr int SPW = 32 / LPS;       // slots per warp per step
@@ -84,17 +104,18 @@ struct Cfg {
   static constexpr int SLOTS = STEP * kSteps;  // slots per ring stage
   // The warps' K/V rings, reused by s_acc [NWARP][GB][D] once the KV loop
   // is done | s_m, s_l [NWARP][GB] | s_new [GB] | staged positions
-  static constexpr size_t ring = size_t(NWARP) * LaneRing<T>::WARP_BYTES;
+  static constexpr size_t ring = size_t(NWARP) * LaneRing<KV>::WARP_BYTES;
   static constexpr size_t acc = sizeof(float) * NWARP * GB * D;
   static constexpr size_t region = ring > acc ? ring : acc;
   static constexpr size_t smem =
       region + sizeof(float) * (2 * NWARP * GB + GB) + sizeof(int) * kStage;
 };
 
-template <typename T, int D, int GB>
-__global__ void __launch_bounds__(NT, kLaneMinBlocks<T, GB>) decode_fwd(Args a) {
-  using C = Cfg<T, D, GB>;
-  using Ring = LaneRing<T>;
+// T: the query / fresh KV / output type; KV: the cache's (T, or int8_t).
+template <typename T, typename KV, int D, int GB>
+__global__ void __launch_bounds__(NT, kLaneMinBlocks<T, GB>) decode_fwd(ArgsOf<KV> a) {
+  using C = Cfg<KV, D, GB>;
+  using Ring = LaneRing<KV>;
   constexpr int LPS = C::LPS, SPW = C::SPW;
   extern __shared__ __align__(16) float smem[];
   float* s_acc = smem;                       // [NWARP][GB][D], after the KV loop
@@ -106,8 +127,8 @@ __global__ void __launch_bounds__(NT, kLaneMinBlocks<T, GB>) decode_fwd(Args a) 
   pdl_trigger();  // split_merge may start; it waits for this grid's writes
 
   const T* q = static_cast<const T*>(a.q);
-  const T* kc = static_cast<const T*>(a.kc);
-  const T* vc = static_cast<const T*>(a.vc);
+  const KV* kc = static_cast<const KV*>(a.kc);
+  const KV* vc = static_cast<const KV*>(a.vc);
   const T* kn = static_cast<const T*>(a.kn);
   const T* vn = static_cast<const T*>(a.vn);
   T* o = static_cast<T*>(a.o);
@@ -160,10 +181,12 @@ __global__ void __launch_bounds__(NT, kLaneMinBlocks<T, GB>) decode_fwd(Args a) 
     for (int e = 0; e < 8; ++e) acc[g][e] = 0.f;
   }
   char* wring = reinterpret_cast<char*>(smem) + warp * Ring::WARP_BYTES;
+  float ksc[kSteps], vsc[kSteps];  // int8 only: the step's slots' scales
 
-  // Fold one step's slots (K/V rows read back from the ring) into each
-  // head's running softmax; ok[u]: slot u is visible.
-  auto step = [&](const Vec8<T>(&kv)[kSteps], const Vec8<T>(&vv)[kSteps],
+  // Fold one step's slots (K/V rows and, int8, their scales read back
+  // from the ring) into each head's running softmax; ok[u]: slot u is
+  // visible.
+  auto step = [&](const Vec8<KV>(&kv)[kSteps], const Vec8<KV>(&vv)[kSteps],
                   const bool(&ok)[kSteps]) {
     float s[kSteps][GB];
 #pragma unroll
@@ -180,7 +203,11 @@ __global__ void __launch_bounds__(NT, kLaneMinBlocks<T, GB>) decode_fwd(Args a) 
 #pragma unroll
         for (int off = LPS / 2; off > 0; off >>= 1)
           d += __shfl_xor_sync(0xffffffffu, d, off);
-        s[u][g] = ok[u] ? d * a.scale : kNegInf;
+        if constexpr (kQuant<KV>) {
+          s[u][g] = ok[u] ? d * a.scale * ksc[u] : kNegInf;
+        } else {
+          s[u][g] = ok[u] ? d * a.scale : kNegInf;
+        }
       }
     }
 #pragma unroll
@@ -198,7 +225,13 @@ __global__ void __launch_bounds__(NT, kLaneMinBlocks<T, GB>) decode_fwd(Args a) 
         if (!ok[u]) continue;  // masked slots contribute exactly 0
         const float p = expf(s[u][g] - m_new);
         l[g] += p;
-        const float pr = round_to<T>(p);
+        // int8: P times the slot's V scale, in fp32, as the oracle's P.V.
+        float pr;
+        if constexpr (kQuant<KV>) {
+          pr = p * vsc[u];
+        } else {
+          pr = round_to<KV>(p);
+        }
         float vf[8];
         vv[u].to_float(vf);
 #pragma unroll
@@ -234,6 +267,10 @@ __global__ void __launch_bounds__(NT, kLaneMinBlocks<T, GB>) decode_fwd(Args a) 
           if (t < w1 && s_pos[t - w0] >= 0) {
             const long long off = base + (long long)t * row_stride;
             Ring::put(wring, i % Ring::STAGES, u, lane, kc + off, vc + off);
+            if constexpr (kQuant<KV>) {  // the slot's scales: [L, B, T, Hkv]
+              const long long so = (((long long)a.layer * a.B + b) * a.Tn + t) * a.Hkv + hk;
+              Ring::put_scales(wring, i % Ring::STAGES, u, lane, a.ks + so, a.vs + so);
+            }
           }
         }
       }
@@ -244,7 +281,7 @@ __global__ void __launch_bounds__(NT, kLaneMinBlocks<T, GB>) decode_fwd(Args a) 
     for (int i = 0; i < n_st; ++i) {
       issue(i + Ring::STAGES - 1);
       tile::cp_async_wait<Ring::STAGES - 1>();  // this lane's stage i landed
-      Vec8<T> kv[kSteps], vv[kSteps];
+      Vec8<KV> kv[kSteps], vv[kSteps];
       bool ok[kSteps];
 #pragma unroll
       for (int u = 0; u < kSteps; ++u) {
@@ -253,6 +290,10 @@ __global__ void __launch_bounds__(NT, kLaneMinBlocks<T, GB>) decode_fwd(Args a) 
         if (ok[u]) {
           ring_get(kv[u], wring, i % Ring::STAGES, u, 0, lane);
           ring_get(vv[u], wring, i % Ring::STAGES, u, 1, lane);
+          if constexpr (kQuant<KV>) {
+            ksc[u] = *Ring::scale_at(wring, i % Ring::STAGES, u, 0, lane);
+            vsc[u] = *Ring::scale_at(wring, i % Ring::STAGES, u, 1, lane);
+          }
         }
       }
       bool any = false;
@@ -336,19 +377,20 @@ __global__ void __launch_bounds__(NT, kLaneMinBlocks<T, GB>) decode_fwd(Args a) 
 
 // The split kernel, then at S > 1 split_merge on the same stream. A split
 // is whole ring stages, and S splits cover [0, t_len).
-template <typename T, int D, int GB>
-cudaError_t launch(const Args& a, cudaStream_t stream) {
+template <typename T, typename KV, int D, int GB>
+cudaError_t launch(const ArgsI8& a, cudaStream_t stream) {
   if (a.S < 1 || a.S > kMaxSplits || a.split <= 0 ||
-      a.split % Cfg<T, D, GB>::SLOTS || (long long)a.S * a.split < a.t_len ||
-      (a.S > 1 && a.ws == nullptr))
+      a.split % Cfg<KV, D, GB>::SLOTS || (long long)a.S * a.split < a.t_len ||
+      (a.S > 1 && a.ws == nullptr) ||
+      (kQuant<KV> && (a.ks == nullptr || a.vs == nullptr)))
     return cudaErrorInvalidValue;
-  constexpr size_t smem = Cfg<T, D, GB>::smem;
-  auto kern = decode_fwd<T, D, GB>;
+  constexpr size_t smem = Cfg<KV, D, GB>::smem;
+  auto kern = decode_fwd<T, KV, D, GB>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid(a.B, a.Hkv * ((a.Hq / a.Hkv) / GB), a.S);
-  kern<<<grid, NT, smem, stream>>>(a);
+  kern<<<grid, NT, smem, stream>>>(static_cast<const ArgsOf<KV>&>(a));
   err = cudaGetLastError();
   if (err != cudaSuccess || a.S == 1) return err;
   const MergeArgs m{a.q, a.kn, a.vn, a.o, a.ws, nullptr, nullptr, a.B, a.Hq,
@@ -356,23 +398,23 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
   return launch_merge<T>(D, m, stream);
 }
 
-template <typename T, int D>
-cudaError_t dispatch_g(int GB, const Args& a, cudaStream_t s) {
+template <typename T, typename KV, int D>
+cudaError_t dispatch_g(int GB, const ArgsI8& a, cudaStream_t s) {
   switch (GB) {
-    case 1: return launch<T, D, 1>(a, s);
-    case 2: return launch<T, D, 2>(a, s);
-    case 4: return launch<T, D, 4>(a, s);
-    case 8: return launch<T, D, 8>(a, s);
+    case 1: return launch<T, KV, D, 1>(a, s);
+    case 2: return launch<T, KV, D, 2>(a, s);
+    case 4: return launch<T, KV, D, 4>(a, s);
+    case 8: return launch<T, KV, D, 8>(a, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
-template <typename T>
-cudaError_t dispatch_d(int D, int GB, const Args& a, cudaStream_t s) {
+template <typename T, typename KV>
+cudaError_t dispatch_d(int D, int GB, const ArgsI8& a, cudaStream_t s) {
   switch (D) {
-    case 64: return dispatch_g<T, 64>(GB, a, s);
-    case 128: return dispatch_g<T, 128>(GB, a, s);
-    case 256: return dispatch_g<T, 256>(GB, a, s);
+    case 64: return dispatch_g<T, KV, 64>(GB, a, s);
+    case 128: return dispatch_g<T, KV, 128>(GB, a, s);
+    case 256: return dispatch_g<T, KV, 256>(GB, a, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -385,25 +427,34 @@ cudaError_t dispatch_d(int D, int GB, const Args& a, cudaStream_t s) {
 // GB (1, 2, 4 or 8, dividing Hq/Hkv) query heads per block, S splits of
 // `split` slots (a multiple of the lane loop's step; ws the fp32 workspace
 // of split_merge.cuh, [B*Hq*S*(D+2)], null at S = 1). window <= 0 means
-// full causal. Returns cudaGetLastError() after the last launch.
+// full causal. kv_dtype: the cache's dtype, dtype's own, or kI8 under fp32
+// or bf16 queries, with k_scale / v_scale [L,B,T,Hkv] fp32 (null
+// otherwise). Returns cudaGetLastError() after the last launch.
 extern "C" int llmss_decode_attention(void* q, void* kc, void* vc, void* kn,
                                       void* vn, void* o, void* qpos,
                                       void* kvpos, void* slots, void* ws,
                                       int layer, int B, int T, int t_len,
                                       int Hq, int Hkv, int D, int GB, int S,
                                       int split, int dtype, float scale,
-                                      int window, void* stream) {
+                                      int window, void* stream, void* k_scale,
+                                      void* v_scale, int kv_dtype) {
   using namespace llmss;
   if (B == 0) return 0;
-  const Args a{q, kc, vc, kn, vn, o,
-               static_cast<const int*>(qpos), static_cast<const int*>(kvpos),
-               static_cast<const int*>(slots), static_cast<float*>(ws),
-               layer, B, T, t_len, Hq, Hkv, S, split, scale, window};
+  const ArgsI8 a{{q, kc, vc, kn, vn, o,
+                 static_cast<const int*>(qpos), static_cast<const int*>(kvpos),
+                 static_cast<const int*>(slots), static_cast<float*>(ws),
+                 layer, B, T, t_len, Hq, Hkv, S, split, scale, window},
+                static_cast<const float*>(k_scale),
+                static_cast<const float*>(v_scale)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case kF32: return static_cast<int>(dispatch_d<float>(D, GB, a, s));
-    case kBF16: return static_cast<int>(dispatch_d<__nv_bfloat16>(D, GB, a, s));
-    case kF16: return static_cast<int>(dispatch_d<__half>(D, GB, a, s));
-    default: return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaErrorInvalidValue;
+  if (kv_dtype == dtype) {
+    if (dtype == kF32) err = dispatch_d<float, float>(D, GB, a, s);
+    if (dtype == kBF16) err = dispatch_d<__nv_bfloat16, __nv_bfloat16>(D, GB, a, s);
+    if (dtype == kF16) err = dispatch_d<__half, __half>(D, GB, a, s);
+  } else if (kv_dtype == kI8) {
+    if (dtype == kF32) err = dispatch_d<float, int8_t>(D, GB, a, s);
+    if (dtype == kBF16) err = dispatch_d<__nv_bfloat16, int8_t>(D, GB, a, s);
   }
+  return static_cast<int>(err);
 }

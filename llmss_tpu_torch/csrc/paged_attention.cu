@@ -5,7 +5,8 @@
 //     single-token decode over the pool;
 //   * llmss_tpu/ops/pallas_ragged.py::ragged_paged_attention (K4): a
 //     CB-token query chunk per row of which q_len are live (1 for decode
-//     rows, up to CB for rows streaming a prompt), without int8 scales.
+//     rows, up to CB for rows streaming a prompt), its int8 branch
+//     (`quant`, pallas_ragged.py:80-87, :144-145, :163-168) included.
 //
 // Function, for row b, KV head hk, query i < CB of the chunk and query head
 // h = hk*G + g: one softmax over
@@ -30,8 +31,8 @@
 // masked slots exactly 0, P rounded to the value dtype before the cache's
 // P.V.
 //
-// Two instantiations; the wrapper picks one from the dtype and CB alone and
-// this file refuses any other pairing:
+// Three instantiations; the wrapper picks one from the dtypes and CB alone
+// and this file refuses any other pairing:
 //
 // bf16 at CB > 1 (K4 with prompt chunks) -> paged_mma, the tensor-core
 // tile of attn_tile.cuh. What bounds it on the H100: bytes. Each (row, KV
@@ -93,6 +94,20 @@
 //     decode row) and writes the output; at S > 1 (CB == 1 only) it stores
 //     its fp32 (m, l, acc) and split_merge, launched next on the same
 //     stream, folds the live splits in split order and then the fresh key.
+//
+// int8 pool at any CB (KV = int8_t, the engine's kv_dtype="int8") ->
+// paged_fwd over int8 rows, with k_scale / v_scale [L, Np, bs, Hkv] fp32:
+// the Pallas kernel's int8 branch. Each slot's score is multiplied by its K
+// scale after the Q.K dot and before the mask; P is multiplied by the V
+// scale and P.V runs in fp32 (P is not rounded). The fresh keys come from
+// k_new / v_new in the query's dtype and are not scaled. Each lane copies
+// its slot's two scales into its ring beside its 8-byte K and V chunks.
+// At CB > 1 this is the lane template, not paged_mma: its fp32 FMA
+// computes the branch's fp32 P.V as it stands, where the tensor-core tile
+// would round P x v_scale to bf16. At CB == 1 (K3 over an int8 pool) it
+// computes what the reference's oracle paged_decode_attention(
+// k_scale_layer=) does (the Pallas K3 takes no scales), split and merged
+// as the 16-bit K3 is.
 
 #include "attn_tile.cuh"
 #include "common.cuh"
@@ -127,7 +142,17 @@ struct Args {
   int S, split;
 };
 
-template <typename T, int D, int R>
+// The int8-pool instantiations of paged_fwd take Args and the per-(block,
+// slot, KV head) scales [L, Np, bs, Hkv]; the others take Args alone, as
+// before the int8 pool (a parameter struct that grew, even at its end,
+// changed their register allocation and slowed K3 by up to 17%, PERF.md).
+struct ArgsI8 : Args {
+  const float* ks;
+  const float* vs;
+};
+template <typename KV> using ArgsOf = std::conditional_t<kQuant<KV>, ArgsI8, Args>;
+
+template <typename KV, int D, int R>
 struct Cfg {
   static constexpr int LPS = D / 8;          // lanes per slot (8 elements each)
   static constexpr int SPW = 32 / LPS;       // slots per warp per step
@@ -136,16 +161,17 @@ struct Cfg {
   // The warps' K/V rings, reused by s_acc [NWARP][R][D] once the KV loop
   // is done | s_m, s_l, s_wsc [NWARP][R] | s_den [R], pad [R] | s_w [R][CB]
   // | staged positions and table entries (dynamic)
-  static constexpr size_t ring = size_t(NWARP) * LaneRing<T>::WARP_BYTES;
+  static constexpr size_t ring = size_t(NWARP) * LaneRing<KV>::WARP_BYTES;
   static constexpr size_t acc = sizeof(float) * NWARP * R * D;
   static constexpr size_t region = ring > acc ? ring : acc;
   static constexpr size_t fixed = region + sizeof(float) * (3 * NWARP * R + 2 * R);
 };
 
-template <typename T, int D, int R>
-__global__ void __launch_bounds__(NT, kLaneMinBlocks<T, R>) paged_fwd(Args a) {
-  using C = Cfg<T, D, R>;
-  using Ring = LaneRing<T>;
+// T: the query / fresh KV / output type; KV: the pool's (T, or int8_t).
+template <typename T, typename KV, int D, int R>
+__global__ void __launch_bounds__(NT, kLaneMinBlocks<T, R>) paged_fwd(ArgsOf<KV> a) {
+  using C = Cfg<KV, D, R>;
+  using Ring = LaneRing<KV>;
   constexpr int LPS = C::LPS, SPW = C::SPW;
   extern __shared__ __align__(16) float smem[];
   float* s_acc = smem;                  // [NWARP][R][D], after the KV loop
@@ -160,8 +186,8 @@ __global__ void __launch_bounds__(NT, kLaneMinBlocks<T, R>) paged_fwd(Args a) {
   pdl_trigger();  // split_merge may start; it waits for this grid's writes
 
   const T* q = static_cast<const T*>(a.q);
-  const T* kp = static_cast<const T*>(a.kp);
-  const T* vp = static_cast<const T*>(a.vp);
+  const KV* kp = static_cast<const KV*>(a.kp);
+  const KV* vp = static_cast<const KV*>(a.vp);
   const T* kn = static_cast<const T*>(a.kn);
   const T* vn = static_cast<const T*>(a.vn);
   T* o = static_cast<T*>(a.o);
@@ -269,10 +295,12 @@ __global__ void __launch_bounds__(NT, kLaneMinBlocks<T, R>) paged_fwd(Args a) {
       (long long)a.layer * a.Np * blk_stride + (long long)hk * D + e0;
   const int last_blk = a.Np - 2;  // N - 1: block N is the write drop target
   char* wring = reinterpret_cast<char*>(smem) + warp * Ring::WARP_BYTES;
+  float ksc[kSteps], vsc[kSteps];  // int8 only: the step's slots' scales
 
-  // Fold one step's slots (K/V rows read back from the ring) into each
-  // row's running softmax; pp[u] < 0: no row of the tile sees slot u.
-  auto step = [&](const Vec8<T>(&kv)[kSteps], const Vec8<T>(&vv)[kSteps],
+  // Fold one step's slots (K/V rows and, int8, their scales read back from
+  // the ring) into each row's running softmax; pp[u] < 0: no row of the
+  // tile sees slot u.
+  auto step = [&](const Vec8<KV>(&kv)[kSteps], const Vec8<KV>(&vv)[kSteps],
                   const int(&pp)[kSteps]) {
     float s[kSteps][R];
 #pragma unroll
@@ -291,7 +319,11 @@ __global__ void __launch_bounds__(NT, kLaneMinBlocks<T, R>) paged_fwd(Args a) {
           d += __shfl_xor_sync(0xffffffffu, d, off);
         const bool vis = pp[u] >= 0 && live[r] && pp[u] <= qp + qi[r] &&
                          (a.window <= 0 || pp[u] > qp + qi[r] - a.window);
-        s[u][r] = vis ? d * a.scale : kNegInf;
+        if constexpr (kQuant<KV>) {
+          s[u][r] = vis ? d * a.scale * ksc[u] : kNegInf;
+        } else {
+          s[u][r] = vis ? d * a.scale : kNegInf;
+        }
       }
     }
 #pragma unroll
@@ -309,7 +341,14 @@ __global__ void __launch_bounds__(NT, kLaneMinBlocks<T, R>) paged_fwd(Args a) {
         if (s[u][r] == kNegInf) continue;  // masked slots contribute 0
         const float p = expf(s[u][r] - m_new);
         l[r] += p;
-        const float pr = round_to<T>(p);
+        // int8: P times the slot's V scale, in fp32, as the Pallas int8
+        // branch's P.V.
+        float pr;
+        if constexpr (kQuant<KV>) {
+          pr = p * vsc[u];
+        } else {
+          pr = round_to<KV>(p);
+        }
         float vf[8];
         vv[u].to_float(vf);
 #pragma unroll
@@ -352,6 +391,11 @@ __global__ void __launch_bounds__(NT, kLaneMinBlocks<T, R>) paged_fwd(Args a) {
             const long long off = base + (long long)s_blk[t / a.bs - c0] * blk_stride +
                                   (long long)(t % a.bs) * slot_stride;
             Ring::put(wring, i % Ring::STAGES, u, lane, kp + off, vp + off);
+            if constexpr (kQuant<KV>) {  // the slot's scales: [L, Np, bs, Hkv]
+              const long long so = (((long long)a.layer * a.Np + s_blk[t / a.bs - c0]) *
+                                    a.bs + t % a.bs) * a.Hkv + hk;
+              Ring::put_scales(wring, i % Ring::STAGES, u, lane, a.ks + so, a.vs + so);
+            }
           }
         }
       }
@@ -362,7 +406,7 @@ __global__ void __launch_bounds__(NT, kLaneMinBlocks<T, R>) paged_fwd(Args a) {
     for (int i = 0; i < n_st; ++i) {
       issue(i + Ring::STAGES - 1);
       tile::cp_async_wait<Ring::STAGES - 1>();  // this lane's stage i landed
-      Vec8<T> kv[kSteps], vv[kSteps];
+      Vec8<KV> kv[kSteps], vv[kSteps];
       int pp[kSteps];
 #pragma unroll
       for (int u = 0; u < kSteps; ++u) {
@@ -371,6 +415,10 @@ __global__ void __launch_bounds__(NT, kLaneMinBlocks<T, R>) paged_fwd(Args a) {
         if (pp[u] >= 0) {
           ring_get(kv[u], wring, i % Ring::STAGES, u, 0, lane);
           ring_get(vv[u], wring, i % Ring::STAGES, u, 1, lane);
+          if constexpr (kQuant<KV>) {
+            ksc[u] = *Ring::scale_at(wring, i % Ring::STAGES, u, 0, lane);
+            vsc[u] = *Ring::scale_at(wring, i % Ring::STAGES, u, 1, lane);
+          }
         }
       }
       bool any = false;
@@ -486,22 +534,23 @@ __global__ void __launch_bounds__(NT, kLaneMinBlocks<T, R>) paged_fwd(Args a) {
 // The split kernel, then at S > 1 split_merge on the same stream. A split
 // is whole ring stages of whole table columns, S splits cover the read,
 // and only CB == 1 splits (its merge folds the one fresh key).
-template <typename T, int D, int R>
-cudaError_t launch(const Args& a, cudaStream_t stream) {
+template <typename T, typename KV, int D, int R>
+cudaError_t launch(const ArgsI8& a, cudaStream_t stream) {
   if (a.S < 1 || a.S > kMaxSplits || a.split <= 0 ||
-      a.split % Cfg<T, D, R>::SLOTS || a.split % a.bs ||
+      a.split % Cfg<KV, D, R>::SLOTS || a.split % a.bs ||
       (long long)a.S * a.split < (long long)a.n_cols * a.bs ||
-      (a.S > 1 && (a.CB != 1 || a.ws == nullptr)))
+      (a.S > 1 && (a.CB != 1 || a.ws == nullptr)) ||
+      (kQuant<KV> && (a.ks == nullptr || a.vs == nullptr)))
     return cudaErrorInvalidValue;
   const size_t smem =
-      Cfg<T, D, R>::fixed + sizeof(float) * size_t(R) * a.CB + stage_bytes(a.bs);
-  auto kern = paged_fwd<T, D, R>;
+      Cfg<KV, D, R>::fixed + sizeof(float) * size_t(R) * a.CB + stage_bytes(a.bs);
+  auto kern = paged_fwd<T, KV, D, R>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const int tiles = (a.CB * (a.Hq / a.Hkv) + R - 1) / R;
   dim3 grid(a.B, a.Hkv * tiles, a.S);
-  kern<<<grid, NT, smem, stream>>>(a);
+  kern<<<grid, NT, smem, stream>>>(static_cast<const ArgsOf<KV>&>(a));
   err = cudaGetLastError();
   if (err != cudaSuccess || a.S == 1) return err;
   const MergeArgs m{a.q, a.kn, a.vn, a.o, a.ws, a.nblk, a.qlen, a.B, a.Hq,
@@ -509,23 +558,23 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
   return launch_merge<T>(D, m, stream);
 }
 
-template <typename T, int D>
-cudaError_t dispatch_r(int R, const Args& a, cudaStream_t s) {
+template <typename T, typename KV, int D>
+cudaError_t dispatch_r(int R, const ArgsI8& a, cudaStream_t s) {
   switch (R) {
-    case 1: return launch<T, D, 1>(a, s);
-    case 2: return launch<T, D, 2>(a, s);
-    case 4: return launch<T, D, 4>(a, s);
-    case 8: return launch<T, D, 8>(a, s);
+    case 1: return launch<T, KV, D, 1>(a, s);
+    case 2: return launch<T, KV, D, 2>(a, s);
+    case 4: return launch<T, KV, D, 4>(a, s);
+    case 8: return launch<T, KV, D, 8>(a, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
-template <typename T>
-cudaError_t dispatch_d(int D, int R, const Args& a, cudaStream_t s) {
+template <typename T, typename KV>
+cudaError_t dispatch_d(int D, int R, const ArgsI8& a, cudaStream_t s) {
   switch (D) {
-    case 64: return dispatch_r<T, 64>(R, a, s);
-    case 128: return dispatch_r<T, 128>(R, a, s);
-    case 256: return dispatch_r<T, 256>(R, a, s);
+    case 64: return dispatch_r<T, KV, 64>(R, a, s);
+    case 128: return dispatch_r<T, KV, 128>(R, a, s);
+    case 256: return dispatch_r<T, KV, 256>(R, a, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -669,33 +718,42 @@ cudaError_t dispatch_mma(int D, const Args& a, cudaStream_t s) {
 // out [B,CB,Hq,D], all contiguous and 16-byte aligned; q_pos / q_len /
 // n_blocks / slot0 [B], kv_pos [B,MB*bs] and tables [B,MB] int32. q_len
 // null means every row has one live query (K3). impl: 0 = paged_fwd with R
-// (1, 2, 4 or 8) query rows per block, for fp32 or CB == 1, in S splits of
-// `split` slots (S > 1 only at CB == 1, with ws the fp32 workspace of
-// split_merge.cuh, [B*Hq*S*(D+2)]; null at S = 1); 1 = paged_mma, for bf16
-// at CB > 1 (q_len required; S, split and ws unused). window <= 0 means
-// full causal. Returns cudaGetLastError() after the last launch.
+// (1, 2, 4 or 8) query rows per block, for fp32, CB == 1 or an int8 pool,
+// in S splits of `split` slots (S > 1 only at CB == 1, with ws the fp32
+// workspace of split_merge.cuh, [B*Hq*S*(D+2)]; null at S = 1); 1 =
+// paged_mma, for a bf16 pool at CB > 1 (q_len required; S, split and ws
+// unused). kv_dtype: the pool's dtype, dtype's own, or kI8 under fp32 or
+// bf16 queries, with k_scale / v_scale [L,Np,bs,Hkv] fp32 (null otherwise).
+// window <= 0 means full causal. Returns cudaGetLastError() after the last
+// launch.
 extern "C" int llmss_paged_attention(
     void* q, void* kp, void* vp, void* kn, void* vn, void* o, void* qpos,
     void* qlen, void* kvpos, void* tables, void* nblk, void* slot0, void* ws,
     int layer, int B, int CB, int Np, int bs, int MB, int n_cols, int Hq,
     int Hkv, int D, int R, int S, int split, int dtype, int impl, float scale,
-    int window, void* stream) {
+    int window, void* stream, void* k_scale, void* v_scale, int kv_dtype) {
   using namespace llmss;
   if (B == 0) return 0;
-  Args a{q, kp, vp, kn, vn, o,
-         static_cast<const int*>(qpos), static_cast<const int*>(qlen),
-         static_cast<const int*>(kvpos), static_cast<const int*>(tables),
-         static_cast<const int*>(nblk), static_cast<const int*>(slot0),
-         layer, B, CB, Np, bs, MB, n_cols, Hq, Hkv, scale, window,
-         static_cast<float*>(ws), S, split};
+  const ArgsI8 a{{q, kp, vp, kn, vn, o,
+                 static_cast<const int*>(qpos), static_cast<const int*>(qlen),
+                 static_cast<const int*>(kvpos), static_cast<const int*>(tables),
+                 static_cast<const int*>(nblk), static_cast<const int*>(slot0),
+                 layer, B, CB, Np, bs, MB, n_cols, Hq, Hkv, scale, window,
+                 static_cast<float*>(ws), S, split},
+                static_cast<const float*>(k_scale),
+                static_cast<const float*>(v_scale)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool mma = dtype == kBF16 && CB > 1;
+  const bool mma = dtype == kBF16 && kv_dtype == kBF16 && CB > 1;
   cudaError_t err = cudaErrorInvalidValue;
   if (impl == 1 && mma && qlen != nullptr) {
     err = dispatch_mma(D, a, s);
   } else if (impl == 0 && !mma) {
-    if (dtype == kF32) err = dispatch_d<float>(D, R, a, s);
-    if (dtype == kBF16) err = dispatch_d<__nv_bfloat16>(D, R, a, s);
+    if (dtype == kF32 && kv_dtype == kF32) err = dispatch_d<float, float>(D, R, a, s);
+    if (dtype == kBF16 && kv_dtype == kBF16)
+      err = dispatch_d<__nv_bfloat16, __nv_bfloat16>(D, R, a, s);
+    if (dtype == kF32 && kv_dtype == kI8) err = dispatch_d<float, int8_t>(D, R, a, s);
+    if (dtype == kBF16 && kv_dtype == kI8)
+      err = dispatch_d<__nv_bfloat16, int8_t>(D, R, a, s);
   }
   return static_cast<int>(err);
 }

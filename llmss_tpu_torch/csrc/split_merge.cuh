@@ -9,7 +9,9 @@
 // memory: a lane cp.async-copies its 16-byte chunks of a slot's rows and
 // later reads back exactly those chunks, so the ring needs no barrier, and
 // the loads of STAGES - 1 stages are in flight while one is computed,
-// costing no registers.
+// costing no registers. Over an int8 cache a lane also copies its slot's
+// K and V scales beside its 8-byte chunks (every lane of the slot its own
+// copy), so the ring still needs no barrier.
 //
 // Split. A split kernel's block reads one range of a row's slots and
 // leaves one fp32 partial softmax state per query head in a workspace the
@@ -43,9 +45,10 @@ constexpr int kSteps = 2;
 // Most splits split_merge folds (ops/split_plan.py MAX_SPLITS).
 constexpr int kMaxSplits = 16;
 
-// Occupancy of the 16-bit lane-template instantiations by query rows per
-// block: R <= 2 (MHA decode) is held to 85 registers, three blocks per SM;
-// R == 4 (G = 4) to 128, two. The rings' 64 KB allow three.
+// Occupancy of the lane-template instantiations with 16-bit queries (T),
+// over a 16-bit or an int8 cache, by query rows per block: R <= 2 (MHA
+// decode) is held to 85 registers, three blocks per SM; R == 4 (G = 4) to
+// 128, two. The rings' 64 KB (48 KB for int8) allow three.
 template <typename T, int R>
 constexpr int kLaneMinBlocks = sizeof(T) != 2 ? 1 : R <= 2 ? 3 : R == 4 ? 2 : 1;
 
@@ -79,6 +82,42 @@ template <typename T> struct LaneRing {
   }
 };
 
+// 4 or 8 bytes global -> shared (cp.async.cg takes 16 only).
+template <int N>
+__device__ __forceinline__ void cp_async_ca(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(
+                   tile::smem_addr(dst)),
+               "l"(src), "n"(N));
+}
+
+// The int8 ring: per (step, K or V) a lane's 8-byte chunk, then, after
+// the stage's chunks, the slot's fp32 scale (ops/split_plan.py
+// lane_region_bytes).
+template <> struct LaneRing<int8_t> {
+  static constexpr int STAGES = 4;
+  static constexpr int VAL_BYTES = kSteps * 2 * 32 * 8;
+  static constexpr int STAGE_BYTES = VAL_BYTES + kSteps * 2 * 32 * 4;
+  static constexpr int WARP_BYTES = STAGES * STAGE_BYTES;
+
+  __device__ static char* at(char* ring, int st, int u, int kv, int c, int lane) {
+    return ring + st * STAGE_BYTES + ((u * 2 + kv) * 32 + lane) * 8;
+  }
+  __device__ static float* scale_at(char* ring, int st, int u, int kv, int lane) {
+    return reinterpret_cast<float*>(ring + st * STAGE_BYTES + VAL_BYTES +
+                                    ((u * 2 + kv) * 32 + lane) * 4);
+  }
+  __device__ static void put(char* ring, int st, int u, int lane,
+                             const int8_t* k, const int8_t* v) {
+    cp_async_ca<8>(at(ring, st, u, 0, 0, lane), k);
+    cp_async_ca<8>(at(ring, st, u, 1, 0, lane), v);
+  }
+  __device__ static void put_scales(char* ring, int st, int u, int lane,
+                                    const float* ks, const float* vs) {
+    cp_async_ca<4>(scale_at(ring, st, u, 0, lane), ks);
+    cp_async_ca<4>(scale_at(ring, st, u, 1, lane), vs);
+  }
+};
+
 template <typename T>
 __device__ __forceinline__ void ring_get(Vec8<T>& x, char* ring, int st, int u,
                                          int kv, int lane) {
@@ -88,6 +127,10 @@ __device__ __forceinline__ void ring_get(Vec8<float>& x, char* ring, int st,
                                          int u, int kv, int lane) {
   x.a = *reinterpret_cast<const float4*>(LaneRing<float>::at(ring, st, u, kv, 0, lane));
   x.b = *reinterpret_cast<const float4*>(LaneRing<float>::at(ring, st, u, kv, 1, lane));
+}
+__device__ __forceinline__ void ring_get(Vec8<int8_t>& x, char* ring, int st,
+                                         int u, int kv, int lane) {
+  x.raw = *reinterpret_cast<const uint2*>(LaneRing<int8_t>::at(ring, st, u, kv, 0, lane));
 }
 
 // Programmatic dependent launch (sm_90): let the next grid on the stream

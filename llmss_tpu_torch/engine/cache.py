@@ -26,6 +26,13 @@ dense slot arithmetic carries over. The pool holds one block more than the
 through a sentinel table entry (``>= N``) or to an out-of-range logical
 slot is routed there with ``torch.where`` instead of being filtered out,
 so no paged write waits on the device, and nothing ever reads block ``N``.
+
+The int8 cache (``dtype=torch.int8``, the reference's ``kv_dtype="int8"``)
+stores K and V quantized per (token, head) over the head dim, with fp32
+scales beside them (``k_scale`` / ``v_scale``: ``[L, B, T, Hkv]`` dense,
+``[L, N + 1, bs, Hkv]`` paged, drop block included). Every write quantizes
+only the fresh tokens and scatters values and scales through the same
+slots, so untouched slots are never round-tripped.
 """
 
 from __future__ import annotations
@@ -40,22 +47,59 @@ class KVCache(NamedTuple):
     k: torch.Tensor  # [L, B, T, Hkv, D]
     v: torch.Tensor  # [L, B, T, Hkv, D]
     positions: torch.Tensor  # [B, T] int32, -1 = empty slot
+    # Dequant scales, set iff k / v are int8: value = int8 * scale.
+    k_scale: torch.Tensor | None = None  # [L, B, T, Hkv] fp32
+    v_scale: torch.Tensor | None = None
 
     @property
     def max_len(self) -> int:
         return self.k.shape[2]
+
+    @property
+    def quantized(self) -> bool:
+        return self.k_scale is not None
+
+
+def quantize_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric int8 quantization per (..., head) over the last dim, in
+    fp32 (the reference's ``quantize_kv``, bit for bit): scale
+    ``max(amax, 1e-8) / 127``, values rounded half to even and clipped to
+    +-127. Returns (int8 values, fp32 scales of ``x.shape[:-1]``). All
+    device ops: nothing is read back to the host."""
+    xf = x.float()
+    scale = torch.clamp(xf.abs().amax(-1), min=1e-8) / 127.0
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def dequantize_kv(q: torch.Tensor, scale: torch.Tensor,
+                  dtype: torch.dtype) -> torch.Tensor:
+    """``q * scale`` in ``dtype``, the scale rounded to ``dtype`` first, as
+    the reference does."""
+    return q.to(dtype) * scale[..., None].to(dtype)
+
+
+def _zeros_and_scales(shape, dtype, device):
+    """K and V buffers of ``shape``, and their fp32 scales (``shape[:-1]``)
+    when ``dtype`` is int8, else None."""
+    kv = [torch.zeros(shape, dtype=dtype, device=device) for _ in range(2)]
+    sc = ([torch.zeros(shape[:-1], dtype=torch.float32, device=device)
+           for _ in range(2)] if dtype == torch.int8 else [None, None])
+    return kv, sc
 
 
 def init_cache(
     *, n_layers: int, batch: int, max_len: int, n_kv_heads: int,
     head_dim: int, dtype: torch.dtype, device: torch.device,
 ) -> KVCache:
-    shape = (n_layers, batch, max_len, n_kv_heads, head_dim)
+    """Zeroed ring; ``dtype=torch.int8`` adds zeroed scales."""
+    (k, v), (ks, vs) = _zeros_and_scales(
+        (n_layers, batch, max_len, n_kv_heads, head_dim), dtype, device)
     return KVCache(
-        k=torch.zeros(shape, dtype=dtype, device=device),
-        v=torch.zeros(shape, dtype=dtype, device=device),
+        k=k, v=v,
         positions=torch.full((batch, max_len), -1, dtype=torch.int32,
                              device=device),
+        k_scale=ks, v_scale=vs,
     )
 
 
@@ -90,16 +134,31 @@ def write_positions(
     return cache_positions
 
 
+def _scatter_kv(buf, scale, slots, new, lead: int) -> None:
+    """``_scatter`` of ``new`` into ``buf``; with a ``scale`` buffer (int8
+    storage) ``new`` is quantized first and its scales scattered through
+    the same slots."""
+    if scale is None:
+        _scatter(buf, slots, new, lead)
+        return
+    q, s = quantize_kv(new)
+    _scatter(buf, slots, q, lead)
+    _scatter(scale, slots, s, lead)
+
+
 def write_layer(
     k_cache: torch.Tensor,  # [B, T, Hkv, D] one layer, updated in place
     v_cache: torch.Tensor,
     k_new: torch.Tensor,  # [B, S, Hkv, D]
     v_new: torch.Tensor,
     slots: torch.Tensor,  # [B, S]
+    k_scale: torch.Tensor | None = None,  # [B, T, Hkv] iff int8 storage
+    v_scale: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Scatter new KV into ring slots."""
-    _scatter(k_cache, slots, k_new, 0)
-    _scatter(v_cache, slots, v_new, 0)
+    """Scatter new KV into ring slots (quantized, with its scales, into
+    int8 storage)."""
+    _scatter_kv(k_cache, k_scale, slots, k_new, 0)
+    _scatter_kv(v_cache, v_scale, slots, v_new, 0)
     return k_cache, v_cache
 
 
@@ -110,9 +169,9 @@ def write_stacked(
     slots: torch.Tensor,  # [B, S]
 ) -> None:
     """The decode step's single post-layer-loop scatter of every layer's
-    fresh KV."""
-    _scatter(cache.k, slots, k_new, 1)
-    _scatter(cache.v, slots, v_new, 1)
+    fresh KV (quantized here, once, on an int8 cache)."""
+    _scatter_kv(cache.k, cache.k_scale, slots, k_new, 1)
+    _scatter_kv(cache.v, cache.v_scale, slots, v_new, 1)
 
 
 # -- paged layout --------------------------------------------------------------
@@ -130,6 +189,9 @@ class PagedKVCache(NamedTuple):
     v: torch.Tensor
     block_tables: torch.Tensor  # [B, MB] int32; >= N = unmapped sentinel
     positions: torch.Tensor  # [B, MB * bs] int32 per LOGICAL slot, -1 = empty
+    # Dequant scales, set iff k / v are int8 (drop block included).
+    k_scale: torch.Tensor | None = None  # [L, N + 1, bs, Hkv] fp32
+    v_scale: torch.Tensor | None = None
 
     @property
     def max_len(self) -> int:
@@ -149,6 +211,10 @@ class PagedKVCache(NamedTuple):
     def max_blocks(self) -> int:
         return self.block_tables.shape[1]
 
+    @property
+    def quantized(self) -> bool:
+        return self.k_scale is not None
+
 
 def init_paged_cache(
     *, n_layers: int, batch: int, max_len: int, n_kv_heads: int,
@@ -156,9 +222,10 @@ def init_paged_cache(
     block_size: int = 16, num_blocks: int | None = None,
     identity_tables: bool = True,
 ) -> PagedKVCache:
-    """Zeroed paged cache. ``identity_tables=True`` maps row ``b`` to blocks
-    ``[b*MB, (b+1)*MB)`` (the engine's own generate paths, no allocator);
-    the scheduler passes False and drives the all-sentinel tables from its
+    """Zeroed paged cache (with zeroed scales for ``dtype=torch.int8``).
+    ``identity_tables=True`` maps row ``b`` to blocks ``[b*MB, (b+1)*MB)``
+    (the engine's own generate paths, no allocator); the scheduler passes
+    False and drives the all-sentinel tables from its
     ``BlockAllocator``."""
     if max_len % block_size:
         raise ValueError(
@@ -168,7 +235,8 @@ def init_paged_cache(
     n = num_blocks if num_blocks is not None else batch * mb
     if identity_tables and n < batch * mb:
         raise ValueError(f"identity tables need {batch * mb} blocks, pool has {n}")
-    shape = (n_layers, n + 1, block_size, n_kv_heads, head_dim)
+    (k, v), (ks, vs) = _zeros_and_scales(
+        (n_layers, n + 1, block_size, n_kv_heads, head_dim), dtype, device)
     if identity_tables:
         tables = torch.arange(batch * mb, dtype=torch.int32,
                               device=device).reshape(batch, mb)
@@ -176,11 +244,10 @@ def init_paged_cache(
         tables = torch.full((batch, mb), table_sentinel(n), dtype=torch.int32,
                             device=device)
     return PagedKVCache(
-        k=torch.zeros(shape, dtype=dtype, device=device),
-        v=torch.zeros(shape, dtype=dtype, device=device),
-        block_tables=tables,
+        k=k, v=v, block_tables=tables,
         positions=torch.full((batch, max_len), -1, dtype=torch.int32,
                              device=device),
+        k_scale=ks, v_scale=vs,
     )
 
 
@@ -229,31 +296,44 @@ def _pool_index(pool: torch.Tensor, block_tables, slots, block_size):
     return (blk.long() * block_size + off.long()).reshape(-1)
 
 
+def _pool_put(pool: torch.Tensor, idx: torch.Tensor, new: torch.Tensor,
+              block_size: int) -> None:
+    """``pool`` viewed as [L, (N + 1) * bs, ...], its entries ``idx`` set
+    to ``new`` [L, B, S, ...]."""
+    L = pool.shape[0]
+    flat = pool.view((L, pool.shape[1] * block_size) + tuple(pool.shape[3:]))
+    flat[:, idx] = new.reshape((L, idx.shape[0]) + tuple(new.shape[3:])).to(
+        pool.dtype)
+
+
 def paged_write_stacked(
     pool: torch.Tensor,  # [L, N + 1, bs, ...] updated in place
     new: torch.Tensor,  # [L, B, S, ...] fresh values of every layer
     block_tables: torch.Tensor,  # [B, MB]
     slots: torch.Tensor,  # [B, S] logical slots
     block_size: int,
+    scale: torch.Tensor | None = None,  # [L, N + 1, bs, Hkv] iff int8 pool
 ) -> None:
     """One all-layer scatter into the pool (the reference's ``pool.at[:,
     blk, off].set(new, mode="drop")``), in place and without a host sync:
     writes through unmapped entries or to out-of-range slots land in the
-    drop block."""
-    L = pool.shape[0]
+    drop block. With a ``scale`` pool, ``new`` is quantized and its scales
+    land in the same (block, offset) entries."""
     idx = _pool_index(pool, block_tables, slots, block_size)
-    flat = pool.view((L, pool.shape[1] * block_size) + tuple(pool.shape[3:]))
-    vals = new.reshape((L, idx.shape[0]) + tuple(new.shape[3:]))
-    flat[:, idx] = vals.to(pool.dtype)
+    if scale is not None:
+        new, s = quantize_kv(new)
+        _pool_put(scale, idx, s, block_size)
+    _pool_put(pool, idx, new, block_size)
 
 
 def paged_write_layer(
     pool: torch.Tensor, layer: int, new: torch.Tensor, block_tables,
-    slots, block_size: int,
+    slots, block_size: int, scale: torch.Tensor | None = None,
 ) -> None:
     """``paged_write_stacked`` for one layer: ``new`` is [B, S, ...]."""
-    paged_write_stacked(pool[layer:layer + 1], new[None], block_tables,
-                        slots, block_size)
+    paged_write_stacked(
+        pool[layer:layer + 1], new[None], block_tables, slots, block_size,
+        None if scale is None else scale[layer:layer + 1])
 
 
 def write_slots(

@@ -26,6 +26,11 @@ prefill+decode group ``_ragged_group`` (chunked prefill).
 ``generate_fused`` runs a whole generation as a prefill, ``max_new - 1``
 replays and one fetch.
 
+``kv_dtype="int8"`` stores the cache quantized with per-(token, head)
+scales (engine/cache.py): half the KV bytes, so twice the rows or the
+context on a card. Every path above runs on it unchanged; the kernels fold
+the scales in (models/decoder.py).
+
 Not in this port yet: prefix reuse (``build_prefix``) and speculative
 decoding.
 """
@@ -116,6 +121,7 @@ class DecodeEngine:
         kv_layout: str = "dense",
         block_size: int = 16,
         kv_blocks: int | None = None,
+        kv_dtype: str | None = None,
     ):
         self.device = resolve_device(device)
         self.batch_size = batch_size
@@ -136,6 +142,12 @@ class DecodeEngine:
         self.kv_layout = kv_layout
         self.block_size = block_size
         self.kv_blocks = kv_blocks
+        # kv_dtype="int8": the cache stored quantized, None: the compute
+        # dtype (llmss_tpu/engine/engine.py:176-183).
+        if kv_dtype not in (None, "int8"):
+            raise ValueError(f"kv_dtype must be None or 'int8', got {kv_dtype!r}")
+        self._cache_dtype = (torch.int8 if kv_dtype == "int8"
+                             else cfg.torch_dtype)
         if (
             cfg.rope_original_max_positions is not None
             and cfg.rope_freq_factors_short is not None
@@ -206,7 +218,7 @@ class DecodeEngine:
         return init_cache(
             n_layers=self.cfg.n_layers, batch=batch or self.batch_size,
             max_len=self.max_seq_len, n_kv_heads=self.cfg.n_kv_heads,
-            head_dim=self.cfg.head_dim, dtype=self.cfg.torch_dtype,
+            head_dim=self.cfg.head_dim, dtype=self._cache_dtype,
             device=self.device,
         )
 
@@ -224,15 +236,16 @@ class DecodeEngine:
         return init_paged_cache(
             n_layers=self.cfg.n_layers, batch=batch or self.batch_size,
             max_len=self.max_seq_len, n_kv_heads=self.cfg.n_kv_heads,
-            head_dim=self.cfg.head_dim, dtype=self.cfg.torch_dtype,
+            head_dim=self.cfg.head_dim, dtype=self._cache_dtype,
             device=self.device, block_size=self.block_size,
             num_blocks=num_blocks, identity_tables=identity,
         )
 
     def _generate_cache(self, batch: int) -> KVCache | PagedKVCache:
         """``generate``'s persistent cache for ``batch`` rows, reset in
-        full: positions to -1 and K/V to zero (a masked slot left holding a
-        poisoned row's NaN would turn into 0 * NaN in a later P.V). A new
+        full: positions to -1 and K/V (and int8 scales) to zero (a masked
+        slot left holding a poisoned row's NaN would turn into 0 * NaN in a
+        later P.V). A new
         row count frees the old cache, and with it its step graphs and
         buffers, before allocating the new one."""
         cache = self._cache
@@ -243,8 +256,9 @@ class DecodeEngine:
             with torch.inference_mode(False):
                 cache = self._cache = self.new_cache(batch)
         else:
-            cache.k.zero_()
-            cache.v.zero_()
+            for t in (cache.k, cache.v, cache.k_scale, cache.v_scale):
+                if t is not None:
+                    t.zero_()
             cache.positions.fill_(-1)
         return cache
 

@@ -215,11 +215,18 @@ class StepBuffers:
         return [getattr(self, n) for n in self.CARRY]
 
 
+def cache_tensors(cache) -> list[torch.Tensor]:
+    """Every tensor of a cache: its fields, but for the int8 scales a cache
+    of the compute dtype leaves None."""
+    return [t for t in cache if t is not None]
+
+
 def cache_key(cache) -> tuple:
-    """The layout and the identity and shape of every tensor of a cache:
-    a graph reads and writes exactly these addresses."""
+    """The layout and the identity and shape of every tensor of a cache
+    (scales included): a graph reads and writes exactly these
+    addresses."""
     return (type(cache).__name__,) + tuple(
-        (t.data_ptr(), tuple(t.shape)) for t in cache)
+        (t.data_ptr(), tuple(t.shape)) for t in cache_tensors(cache))
 
 
 class CacheGraphs:
@@ -267,7 +274,7 @@ class DecodeGraphs:
             # Freed with the cache: the first of its tensors to go drops
             # the buffers and graphs (whose pool memory later captures
             # reuse).
-            for t in cache:
+            for t in cache_tensors(cache):
                 weakref.finalize(t, self._entries.pop, key, None)
         return entry
 

@@ -257,9 +257,9 @@ class ContinuousBatcher:
         self.engine.metrics.set_kv_blocks(in_use=self.allocator.blocks_in_use)
 
     def _paged_scratch_view(self, tables: np.ndarray):
-        """An admission 'scratch cache' that SHARES the pool: the admitted
-        rows' tables and fresh positions; the prefill writes the pool in
-        place."""
+        """An admission 'scratch cache' that SHARES the pool (and an int8
+        pool's scales): the admitted rows' tables and fresh positions; the
+        prefill writes the pool in place."""
         eng = self.engine
         return self.cache._replace(
             block_tables=self._dev(tables),
@@ -281,8 +281,10 @@ class ContinuousBatcher:
         not copied)."""
         n = len(rows)
         idx = self._dev(np.asarray(rows, np.int64))
-        self.cache.k.index_copy_(1, idx, small.k[:, :n])
-        self.cache.v.index_copy_(1, idx, small.v[:, :n])
+        for name in ("k", "v", "k_scale", "v_scale"):
+            dst = getattr(self.cache, name)
+            if dst is not None:  # int8 scales
+                dst.index_copy_(1, idx, getattr(small, name)[:, :n])
         self.cache.positions.index_copy_(0, idx, small.positions[:n])
 
     @torch.inference_mode()

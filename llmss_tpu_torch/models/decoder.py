@@ -31,8 +31,19 @@ row's block table:
   deferred write; logits come from each row's last live column.
 
 Pool, positions and tables are updated in place, where the reference
-donates them. Not in this port yet: sequence/tensor parallelism, the
-speculative multi-token window and the int8 cache.
+donates them.
+
+Over an int8 cache (``cache.quantized``, decoder.py:597-778, :1029-1060,
+:1222-1292) decode and ragged steps hand the raw int8 cache and its scales
+to K2 / K3 / K4, which fold the scales in, and the step's one deferred
+write quantizes the fresh KV. A prefill (S > 1) dequantizes the layer (or
+the row's gathered view) to the compute dtype, writes the fresh KV into
+that copy, runs K1 over it, and quantizes only the fresh tokens into the
+int8 storage: untouched slots are never round-tripped, and the fresh
+tokens are attended at full precision.
+
+Not in this port yet: sequence/tensor parallelism and the speculative
+multi-token window.
 """
 
 from __future__ import annotations
@@ -43,9 +54,9 @@ import torch
 
 from llmss_tpu_torch.device import resolve_device
 from llmss_tpu_torch.engine.cache import (
-    KVCache, PagedKVCache, gather_block_view, paged_write_layer,
-    paged_write_stacked, write_layer, write_positions, write_slots,
-    write_stacked,
+    KVCache, PagedKVCache, dequantize_kv, gather_block_view,
+    paged_write_layer, paged_write_stacked, write_layer, write_positions,
+    write_slots, write_stacked,
 )
 from llmss_tpu_torch.models.common import DecoderConfig, act_fn
 from llmss_tpu_torch.ops.attention import (
@@ -244,6 +255,7 @@ def forward(
                 return decode_attention(
                     q, cache.k, cache.v, k, v, positions, cache.positions,
                     slots, layer, t_len=t_len, scale=scale, window=window,
+                    k_scale=cache.k_scale, v_scale=cache.v_scale,
                 )
 
             h, k, v = _block(cfg, bp, h, positions, sin_cos, attend)
@@ -255,6 +267,22 @@ def forward(
         write_positions(cache.positions, kv_write_positions, slots)
         for layer, bp in enumerate(layers):
             def attend(q, k, v, layer=layer):
+                if cache.quantized:
+                    # A compute-dtype copy of the layer holding the fresh
+                    # KV is attended; then only the fresh tokens are
+                    # quantized into the storage.
+                    k_l, v_l = write_layer(
+                        dequantize_kv(cache.k[layer], cache.k_scale[layer],
+                                      q.dtype),
+                        dequantize_kv(cache.v[layer], cache.v_scale[layer],
+                                      q.dtype), k, v, slots)
+                    out = prefill_attention(
+                        q, k_l, v_l, positions, cache.positions,
+                        scale=scale, window=window,
+                    )
+                    write_layer(cache.k[layer], cache.v[layer], k, v, slots,
+                                cache.k_scale[layer], cache.v_scale[layer])
+                    return out
                 k_l, v_l = write_layer(
                     cache.k[layer], cache.v[layer], k, v, slots
                 )
@@ -282,6 +310,17 @@ def _table_cols(cache: PagedKVCache, t_bucket: int | None) -> int | None:
     if t_bucket is None or t_bucket >= cache.max_len:
         return None
     return min(-(-t_bucket // cache.block_size), cache.max_blocks)
+
+
+def _pool_write(cache: PagedKVCache, fresh_k: list, fresh_v: list,
+                slots) -> None:
+    """The step's one all-layer pool write of every layer's fresh KV
+    (quantized, with its scales, into an int8 pool)."""
+    bs = cache.block_size
+    paged_write_stacked(cache.k, torch.stack(fresh_k), cache.block_tables,
+                        slots, bs, cache.k_scale)
+    paged_write_stacked(cache.v, torch.stack(fresh_v), cache.block_tables,
+                        slots, bs, cache.v_scale)
 
 
 def forward_paged(
@@ -319,30 +358,48 @@ def forward_paged(
                 return paged_decode_attention(
                     q, cache.k, cache.v, k, v, positions, cache.positions,
                     cache.block_tables, nblk, slots, layer, n_cols=n_cols,
-                    scale=scale, window=window,
+                    scale=scale, window=window, k_scale=cache.k_scale,
+                    v_scale=cache.v_scale,
                 )
 
             h, k, v = _block(cfg, bp, h, positions, sin_cos, attend)
             fresh_k.append(k)
             fresh_v.append(v)
-        paged_write_stacked(cache.k, torch.stack(fresh_k), cache.block_tables,
-                            slots, bs)
-        paged_write_stacked(cache.v, torch.stack(fresh_v), cache.block_tables,
-                            slots, bs)
+        _pool_write(cache, fresh_k, fresh_v, slots)
         write_positions(cache.positions, kv_write_positions, slots)
     else:
         # Write-then-attend: this layer's fresh KV goes into the pool first
         # (writes through unmapped entries land in the drop block), then
         # the row's logical view, which now holds it, is gathered for K1.
+        # Over int8 the view is gathered and dequantized, the fresh KV
+        # written into it and attended at full precision, and only then
+        # quantized into the pool (as the reference does).
         write_slots(cache.positions, slots, kv_write_positions)
+        bt = cache.block_tables
         for layer, bp in enumerate(layers):
             def attend(q, k, v, layer=layer):
-                paged_write_layer(cache.k, layer, k, cache.block_tables,
-                                  slots, bs)
-                paged_write_layer(cache.v, layer, v, cache.block_tables,
-                                  slots, bs)
-                k_l = gather_block_view(cache.k[layer], cache.block_tables)
-                v_l = gather_block_view(cache.v[layer], cache.block_tables)
+                if cache.quantized:
+                    def view(pool, sc):
+                        return dequantize_kv(
+                            gather_block_view(pool[layer], bt),
+                            gather_block_view(sc[layer], bt), q.dtype)
+
+                    k_l, v_l = write_layer(view(cache.k, cache.k_scale),
+                                           view(cache.v, cache.v_scale), k, v,
+                                           slots)
+                    out = prefill_attention(
+                        q, k_l, v_l, positions, cache.positions,
+                        scale=scale, window=window,
+                    )
+                    paged_write_layer(cache.k, layer, k, bt, slots, bs,
+                                      cache.k_scale)
+                    paged_write_layer(cache.v, layer, v, bt, slots, bs,
+                                      cache.v_scale)
+                    return out
+                paged_write_layer(cache.k, layer, k, bt, slots, bs)
+                paged_write_layer(cache.v, layer, v, bt, slots, bs)
+                k_l = gather_block_view(cache.k[layer], bt)
+                v_l = gather_block_view(cache.v[layer], bt)
                 return prefill_attention(
                     q, k_l, v_l, positions, cache.positions,
                     scale=scale, window=window,
@@ -372,7 +429,6 @@ def forward_ragged(
     its first token, a decode row its next one."""
     if layers is None:
         layers = unstack_layers(params)
-    bs = cache.block_size
     h = _embed_in(cfg, params, input_ids, positions)
     if kv_write_positions is None:
         kv_write_positions = positions
@@ -386,15 +442,12 @@ def forward_ragged(
             return ragged_attention(
                 q, cache.k, cache.v, k, v, q_pos0, q_lens, cache.positions,
                 cache.block_tables, nblk, slot0, layer, scale=scale,
-                window=window,
+                window=window, k_scale=cache.k_scale, v_scale=cache.v_scale,
             )
 
         h, k, v = _block(cfg, bp, h, positions, sin_cos, attend)
         fresh_k.append(k)
         fresh_v.append(v)
-    paged_write_stacked(cache.k, torch.stack(fresh_k), cache.block_tables,
-                        slots, bs)
-    paged_write_stacked(cache.v, torch.stack(fresh_v), cache.block_tables,
-                        slots, bs)
+    _pool_write(cache, fresh_k, fresh_v, slots)
     write_slots(cache.positions, slots, kv_write_positions)
     return _head_out(cfg, params, h, q_lens - 1), cache

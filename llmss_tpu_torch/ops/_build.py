@@ -35,9 +35,13 @@ NVCC_FLAGS = (
 )
 
 # dtype codes of csrc/common.cuh
-DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-# instantiation codes of the entry points' ``impl`` argument
-IMPL_CODES = {"lanes": 0, "fma": 0, "mma": 1}
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2,
+               torch.int8: 3}
+# instantiation codes of the entry points' ``impl`` argument (the lane
+# template's int8 instantiation is chosen by the cache's dtype code)
+IMPL_CODES = {"lanes": 0, "lanes_int8": 0, "fma": 0, "mma": 1}
+# q / fresh KV dtypes an int8 cache's kernels take
+INT8_QUERY_DTYPES = (torch.float32, torch.bfloat16)
 SMEM_LIMIT = 232448  # bytes of shared memory one block may use on the H100
 
 _lock = threading.Lock()
@@ -127,13 +131,14 @@ def _declare(lib: ctypes.CDLL, name: str) -> None:
     elif name == "decode_attention":
         fn = lib.llmss_decode_attention
         # q kc vc kn vn out qpos kvpos slots ws | layer B T t_len Hq Hkv D GB
-        # S split dtype | scale window stream
-        fn.argtypes = [P] * 10 + [I] * 11 + [F, I, P]
+        # S split dtype | scale window stream | k_scale v_scale kv_dtype
+        fn.argtypes = [P] * 10 + [I] * 11 + [F, I, P] + [P, P, I]
     elif name == "paged_attention":
         fn = lib.llmss_paged_attention
         # q kp vp kn vn out qpos qlen kvpos tables nblk slot0 ws | layer B CB
         # Np bs MB n_cols Hq Hkv D R S split dtype impl | scale window stream
-        fn.argtypes = [P] * 13 + [I] * 15 + [F, I, P]
+        # | k_scale v_scale kv_dtype
+        fn.argtypes = [P] * 13 + [I] * 15 + [F, I, P] + [P, P, I]
     fn.restype = ctypes.c_int
 
 
@@ -160,6 +165,28 @@ def dtype_code(t) -> int:
         return DTYPE_CODES[t.dtype]
     except KeyError:
         raise KernelError(f"unsupported dtype {t.dtype}") from None
+
+
+def scale_args(name: str, q, kv, k_scale, v_scale) -> tuple:
+    """The int8 scale operands' pointers ``(k_scale, v_scale)``, checked:
+    fp32, contiguous, CUDA, ``kv.shape[:-1]``, present iff the cache ``kv``
+    is int8, whose q must be fp32 or bf16; ``(None, None)`` for a cache of
+    q's dtype. Raises ``KernelError`` for anything else."""
+    if kv.dtype != torch.int8:
+        if kv.dtype != q.dtype or k_scale is not None or v_scale is not None:
+            raise KernelError(f"{name}: a {kv.dtype} cache under {q.dtype} "
+                              "queries, or scales without an int8 cache")
+        return None, None
+    if q.dtype not in INT8_QUERY_DTYPES:
+        raise KernelError(f"{name}: an int8 cache takes fp32 or bf16 "
+                          f"queries, got {q.dtype}")
+    want = tuple(kv.shape[:-1])
+    for t in (k_scale, v_scale):
+        if t is None or t.dtype != torch.float32 or not t.is_cuda or \
+                tuple(t.shape) != want or not t.is_contiguous():
+            raise KernelError(f"{name}: an int8 cache needs contiguous fp32 "
+                              f"CUDA k_scale and v_scale of shape {want}")
+    return k_scale.data_ptr(), v_scale.data_ptr()
 
 
 def stream_ptr(device) -> int:

@@ -7,6 +7,12 @@ layout is ``[batch, seq, heads, head_dim]``; GQA/MQA map query head ``h``
 to KV head ``h // G``. Masked lanes take the finite fp32 minimum, never
 -inf, so a fully masked row degrades to a uniform average instead of NaN.
 
+Over an int8 cache the plain versions take its fp32 scales (``k_scale``,
+``v_scale``, per slot and KV head) and fold them in as the reference's
+oracles do (:296-319, :533-535): each cache score is multiplied by its
+slot's K scale, and each cache probability by its slot's V scale before
+the fp32 P.V. The fresh tokens' K / V are never quantized here.
+
 ``prefill_attention``, ``decode_attention``, ``paged_decode_attention``
 and ``ragged_attention`` are the dispatch (the non-sharded part of the
 reference's ``dispatch_attention`` :543-639 and of the paged kernel hooks
@@ -92,6 +98,8 @@ def fresh_kv_decode_attention(
     *,
     scale: float | None = None,
     window: int | None = None,
+    k_scale: torch.Tensor | None = None,  # [B, T, Hkv] fp32 iff int8 cache
+    v_scale: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Single-token attention over a stale cache plus the fresh token's own
     KV, merged in one exact fp32 softmax. The pending slot is masked out
@@ -105,7 +113,8 @@ def fresh_kv_decode_attention(
     if scale is None:
         scale = 1.0 / (D ** 0.5)
     qf = q.float().reshape(B, S, Hkv, G, D) * scale
-    s_c = torch.einsum("bskgd,btkd->bkgst", qf, k_cache.float())
+    s_c = _fold(torch.einsum("bskgd,btkd->bkgst", qf, k_cache.float()),
+                k_scale)
     penalty = decode_mask_penalty(q_pos, kv_pos_old, slots, window)
     s_c = s_c + penalty[:, None, None, None, :]
     s_s = torch.einsum("bskgd,bskd->bkgs", qf, k_new.float())[..., None]
@@ -113,11 +122,20 @@ def fresh_kv_decode_attention(
     p_c = torch.exp(s_c - m)
     p_s = torch.exp(s_s - m)
     denom = p_c.sum(-1, keepdim=True) + p_s
-    out_c = torch.einsum("bkgst,btkd->bkgsd", p_c, v_cache.float())
+    out_c = torch.einsum("bkgst,btkd->bkgsd", _fold(p_c, v_scale),
+                         v_cache.float())
     out = (
         out_c + p_s * v_new.float().permute(0, 2, 1, 3)[:, :, None]
     ) / denom
     return out.permute(0, 3, 1, 2, 4).reshape(B, S, Hq, D).to(q.dtype)
+
+
+def _fold(x: torch.Tensor, scale: torch.Tensor | None) -> torch.Tensor:
+    """``x`` [B, Hkv, G, S, T] times ``scale`` [B, T, Hkv] per (row, slot,
+    KV head); ``x`` itself without a scale."""
+    if scale is None:
+        return x
+    return x * scale.permute(0, 2, 1)[:, :, None, None, :]
 
 
 def ragged_cache_visibility(
@@ -151,6 +169,8 @@ def ragged_fresh_kv_attention(
     *,
     scale: float | None = None,
     window: int | None = None,
+    k_scale: torch.Tensor | None = None,  # [B, T, Hkv] fp32 iff int8 cache
+    v_scale: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """One exact fp32 softmax over the stale cache plus each row's fresh
     ``q_len``-token chunk: query ``i`` sees cache positions ``<= q_pos + i``
@@ -171,7 +191,8 @@ def ragged_fresh_kv_attention(
     if window is not None:
         mask &= kvp > qpos[:, :, None] - window
     qf = q.float().reshape(B, S, Hkv, G, D) * scale
-    s_c = torch.einsum("bskgd,btkd->bkgst", qf, k_cache.float())
+    s_c = _fold(torch.einsum("bskgd,btkd->bkgst", qf, k_cache.float()),
+                k_scale)
     s_c = s_c.masked_fill(~mask[:, None, None], NEG_INF)
     s_w = torch.einsum("bskgd,btkd->bkgst", qf, k_new.float())
     tri = (rel[None, :, None] >= rel[None, None, :]) & (
@@ -185,16 +206,17 @@ def ragged_fresh_kv_attention(
     p_w = torch.exp(s_w - m)
     denom = p_c.sum(-1, keepdim=True) + p_w.sum(-1, keepdim=True)
     out = (
-        torch.einsum("bkgst,btkd->bkgsd", p_c, v_cache.float())
+        torch.einsum("bkgst,btkd->bkgsd", _fold(p_c, v_scale),
+                     v_cache.float())
         + torch.einsum("bkgst,btkd->bkgsd", p_w, v_new.float())
     ) / denom
     return out.permute(0, 3, 1, 2, 4).reshape(B, S, Hq, D).to(q.dtype)
 
 
-def _route(*tensors: torch.Tensor) -> str:
-    """"cuda" or "cpu" for a set of tensors on one device; raises for a
-    mix of devices or any other device type."""
-    kinds = {t.device.type for t in tensors}
+def _route(*tensors: torch.Tensor | None) -> str:
+    """"cuda" or "cpu" for a set of tensors (None entries skipped) on one
+    device; raises for a mix of devices or any other device type."""
+    kinds = {t.device.type for t in tensors if t is not None}
     if kinds == {"cuda"}:
         return "cuda"
     if kinds == {"cpu"}:
@@ -242,6 +264,8 @@ def decode_attention(
     t_len: int | None = None,
     scale: float | None = None,
     window: int | None = None,
+    k_scale: torch.Tensor | None = None,  # [L, B, T, Hkv] iff int8 cache
+    v_scale: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Single-token decode attention over layer ``layer`` of the stacked
     cache, reading slots ``[0, t_len)``: kernel K2 for CUDA tensors,
@@ -249,9 +273,10 @@ def decode_attention(
     from llmss_tpu_torch.ops import decode_attention as da
 
     args = (q, k_cache, v_cache, k_new, v_new, q_pos, kv_pos, slots, layer)
-    if _route(*args[:-1]) == "cuda":
-        return da.decode_attention(*args, t_len=t_len, scale=scale, window=window)
-    return da.decode_attention_ref(*args, t_len=t_len, scale=scale, window=window)
+    fn = (da.decode_attention if _route(*args[:-1], k_scale, v_scale) == "cuda"
+          else da.decode_attention_ref)
+    return fn(*args, t_len=t_len, scale=scale, window=window,
+              k_scale=k_scale, v_scale=v_scale)
 
 
 def paged_decode_attention(
@@ -270,6 +295,8 @@ def paged_decode_attention(
     n_cols: int | None = None,
     scale: float | None = None,
     window: int | None = None,
+    k_scale: torch.Tensor | None = None,  # [L, N + 1, bs, Hkv] iff int8 pool
+    v_scale: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Single-token decode attention over layer ``layer`` of the block
     pool, reading table columns ``[0, n_cols)``: kernel K3 for CUDA
@@ -278,9 +305,11 @@ def paged_decode_attention(
 
     args = (q, k_pool, v_pool, k_new, v_new, q_pos, kv_pos, block_tables,
             n_blocks, slots)
-    fn = (pa.paged_decode_attention if _route(*args) == "cuda"
+    fn = (pa.paged_decode_attention
+          if _route(*args, k_scale, v_scale) == "cuda"
           else pa.paged_decode_attention_ref)
-    return fn(*args, layer, n_cols=n_cols, scale=scale, window=window)
+    return fn(*args, layer, n_cols=n_cols, scale=scale, window=window,
+              k_scale=k_scale, v_scale=v_scale)
 
 
 def ragged_attention(
@@ -300,6 +329,8 @@ def ragged_attention(
     n_cols: int | None = None,
     scale: float | None = None,
     window: int | None = None,
+    k_scale: torch.Tensor | None = None,  # [L, N + 1, bs, Hkv] iff int8 pool
+    v_scale: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Ragged mixed prefill+decode attention over layer ``layer`` of the
     block pool: kernel K4 for CUDA tensors, ``ragged_paged_attention_ref``
@@ -308,6 +339,8 @@ def ragged_attention(
 
     args = (q, k_pool, v_pool, k_new, v_new, q_pos, q_len, kv_pos,
             block_tables, n_blocks, slot0)
-    fn = (pa.ragged_paged_attention if _route(*args) == "cuda"
+    fn = (pa.ragged_paged_attention
+          if _route(*args, k_scale, v_scale) == "cuda"
           else pa.ragged_paged_attention_ref)
-    return fn(*args, layer, n_cols=n_cols, scale=scale, window=window)
+    return fn(*args, layer, n_cols=n_cols, scale=scale, window=window,
+              k_scale=k_scale, v_scale=v_scale)

@@ -13,6 +13,14 @@ CUDA tensors only.
 ``fresh_kv_decode_attention`` on the layer's first ``t_len`` slots), used
 for CPU tensors and as the kernel's check on the card. The kernel rounds P
 to the value dtype before P.V, as the Pallas kernel does.
+
+Over an int8 cache (``k_scale`` / ``v_scale`` ``[L, B, T, Hkv]`` fp32,
+q and fresh KV in fp32 or bf16) the kernel is the int8 instantiation of
+the same template (``kernel_plan`` names it ``"lanes_int8"``): it computes
+what the reference's XLA oracle ``fresh_kv_decode_attention(k_scale=,
+v_scale=)`` (llmss_tpu/ops/attention.py:242) computes, since the Pallas K2
+takes no scales: each cache score times its slot's K scale, and P times
+the V scale in fp32 (no rounding of P), the fresh token unscaled.
 """
 
 from __future__ import annotations
@@ -29,12 +37,18 @@ HEAD_DIMS = (64, 128, 256)
 def decode_attention_ref(
     q, k_cache, v_cache, k_new, v_new, q_pos, kv_pos, slots, layer: int,
     *, t_len: int | None = None, scale: float | None = None,
-    window: int | None = None,
+    window: int | None = None, k_scale: torch.Tensor | None = None,
+    v_scale: torch.Tensor | None = None,
 ) -> torch.Tensor:
     t = k_cache.shape[2] if t_len is None else t_len
+
+    def sl(x):
+        return None if x is None else x[layer, :, :t]
+
     return fresh_kv_decode_attention(
-        q, k_cache[layer, :, :t], v_cache[layer, :, :t], k_new, v_new,
-        q_pos, kv_pos[:, :t], slots, scale=scale, window=window,
+        q, sl(k_cache), sl(v_cache), k_new, v_new, q_pos, kv_pos[:, :t],
+        slots, scale=scale, window=window, k_scale=sl(k_scale),
+        v_scale=sl(v_scale),
     )
 
 
@@ -47,17 +61,21 @@ def _heads_per_block(G: int) -> int:
 
 def kernel_plan(dtype: torch.dtype, B: int, Hq: int, Hkv: int, D: int,
                 t_len: int, *, sms: int = sp.H100_SMS,
-                max_splits: int = sp.MAX_SPLITS) -> sp.Plan:
+                max_splits: int = sp.MAX_SPLITS,
+                kv_dtype: torch.dtype | None = None) -> sp.Plan:
     """How a K2 call launches on a card of ``sms`` SMs: the lane template
-    with ``GB`` query heads per block (``_heads_per_block``), the shared
-    memory one block needs (bytes), and the split of slots ``[0, t_len)``
-    (into at most ``max_splits``)."""
+    with ``GB`` query heads per block (``_heads_per_block``), ``"lanes"``
+    over a cache of the query's dtype or ``"lanes_int8"`` over an int8
+    cache (``kv_dtype``), the shared memory one block needs (bytes), and
+    the split of slots ``[0, t_len)`` (into at most ``max_splits``), which
+    the cache's dtype does not change."""
+    kv_dtype = dtype if kv_dtype is None else kv_dtype
     GB = _heads_per_block(Hq // Hkv)
     S, split = sp.split_plan(B, Hq // GB, t_len, step=sp.lane_step(D),
                              sms=sms, max_splits=max_splits)
-    smem = (sp.lane_region_bytes(dtype.itemsize, GB, D) + 4 * (2 * 8 * GB + GB)
-            + sp.stage_smem_bytes(1))
-    return sp.Plan("lanes", smem, S, split)
+    smem = (sp.lane_region_bytes(kv_dtype.itemsize, GB, D)
+            + 4 * (2 * 8 * GB + GB) + sp.stage_smem_bytes(1))
+    return sp.Plan(sp.lane_impl(kv_dtype), smem, S, split)
 
 
 def decode_attention(
@@ -74,16 +92,20 @@ def decode_attention(
     t_len: int | None = None,
     scale: float | None = None,
     window: int | None = None,
+    k_scale: torch.Tensor | None = None,  # [L, B, T, Hkv] fp32 iff int8
+    v_scale: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Launch K2 on the current stream; returns [B, 1, Hq, D] in q's dtype."""
     out = _launch(q, k_cache, v_cache, k_new, v_new, q_pos, kv_pos, slots,
-                  layer, t_len=t_len, scale=scale, window=window)
+                  layer, t_len=t_len, scale=scale, window=window,
+                  k_scale=k_scale, v_scale=v_scale)
     decode_attention.launches += 1
     return out
 
 
 def _launch(q, k_cache, v_cache, k_new, v_new, q_pos, kv_pos, slots, layer,
-            *, t_len=None, scale=None, window=None, max_splits=sp.MAX_SPLITS):
+            *, t_len=None, scale=None, window=None, k_scale=None,
+            v_scale=None, max_splits=sp.MAX_SPLITS):
     """Check the envelope and launch K2 split into at most ``max_splits``
     (1: the unsplit kernel, which chip_smoke.py times beside the plan's)."""
     tensors = (q, k_cache, v_cache, k_new, v_new, q_pos, kv_pos, slots)
@@ -100,8 +122,12 @@ def _launch(q, k_cache, v_cache, k_new, v_new, q_pos, kv_pos, slots, layer,
                          f"cache={tuple(k_cache.shape)}")
     if k_new.shape != (B, 1, Hkv, D) or v_new.shape != k_new.shape:
         raise ValueError("k_new / v_new must be [B, 1, Hkv, D]")
-    if not (q.dtype == k_cache.dtype == v_cache.dtype == k_new.dtype == v_new.dtype):
-        raise ValueError("q, cache and fresh KV must share a dtype")
+    if not (q.dtype == k_new.dtype == v_new.dtype
+            and k_cache.dtype == v_cache.dtype):
+        raise ValueError("q and fresh KV must share a dtype, and K and V "
+                         "caches theirs")
+    sc = _build.scale_args("decode_attention (K2)", q, k_cache, k_scale,
+                           v_scale)
     if not (k_cache.is_contiguous() and v_cache.is_contiguous()):
         raise ValueError("decode_attention reads the cache in place: it "
                          "must be contiguous")
@@ -125,7 +151,8 @@ def _launch(q, k_cache, v_cache, k_new, v_new, q_pos, kv_pos, slots, layer,
         if t.data_ptr() % 16:
             raise ValueError("decode_attention needs 16-byte aligned tensors")
     plan = kernel_plan(q.dtype, B, Hq, Hkv, D, t_len,
-                       sms=_build.sm_count(q.device), max_splits=max_splits)
+                       sms=_build.sm_count(q.device), max_splits=max_splits,
+                       kv_dtype=k_cache.dtype)
     if plan.smem > _build.SMEM_LIMIT:
         raise _build.KernelError(f"decode_attention (K2) needs {plan.smem} "
                                  "bytes of shared memory")
@@ -140,7 +167,8 @@ def _launch(q, k_cache, v_cache, k_new, v_new, q_pos, kv_pos, slots, layer,
         sl.data_ptr(), ws.data_ptr() if ws is not None else None, int(layer),
         B, T, t_len, Hq, Hkv, D, _heads_per_block(Hq // Hkv), plan.splits,
         plan.split_slots, _build.dtype_code(q), float(scale), window or 0,
-        _build.stream_ptr(q.device),
+        _build.stream_ptr(q.device), sc[0], sc[1],
+        _build.dtype_code(k_cache),
     )
     _build.check(code, "decode_attention")
     return out

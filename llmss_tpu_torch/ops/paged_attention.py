@@ -6,12 +6,21 @@
   single-token decode over layer ``layer`` of the stale pool, merged with
   the fresh token's KV.
 - ``ragged_paged_attention`` (K4) replaces
-  ``llmss_tpu/ops/pallas_ragged.py::ragged_paged_attention`` without int8
-  scales: a ``CB``-token query chunk per row, ``q_len`` of them live.
+  ``llmss_tpu/ops/pallas_ragged.py::ragged_paged_attention``, its int8
+  branch (``quant``) included: a ``CB``-token query chunk per row,
+  ``q_len`` of them live.
 
-Two instantiations, chosen by ``kernel_plan`` from the dtype and ``CB``
-alone: ``"mma"`` (the tensor-core tile, csrc/attn_tile.cuh) for bf16 at
-``CB > 1``, ``"lanes"`` (the lane template) for fp32 and for ``CB == 1``.
+Three instantiations, chosen by ``kernel_plan`` from the dtypes and ``CB``
+alone: ``"mma"`` (the tensor-core tile, csrc/attn_tile.cuh) for a bf16
+pool at ``CB > 1``, ``"lanes"`` (the lane template) for fp32 and for
+``CB == 1``, and ``"lanes_int8"``, the lane template over an int8 pool
+(``k_scale`` / ``v_scale`` ``[L, N + 1, bs, Hkv]`` fp32; q and fresh KV in
+fp32 or bf16) at every ``CB``. It folds the scales as the Pallas int8
+branch does (pallas_ragged.py:144-145, :163-168): each cache score times
+its slot's K scale, P times the V scale and P.V in fp32; the fresh keys
+are never quantized. At ``CB == 1`` (K3 over an int8 pool) it computes
+what the reference's oracle ``paged_decode_attention(k_scale_layer=)``
+computes; the Pallas K3 takes no scales.
 At ``CB == 1`` the lane template splits the bucketed read ``n_cols * bs``
 into ``S`` splits along the KV axis (flash-decoding, ``ops/split_plan.py``,
 from the shapes and the card's SM count) and a merge kernel folds them. K3 is the lane
@@ -53,18 +62,27 @@ HEAD_DIMS = (64, 128, 256)
 DTYPES = (torch.bfloat16, torch.float32)
 
 
+def _views(layer, block_tables, nc, *pools):
+    """The logical views of the first ``nc`` table columns of layer
+    ``layer`` of each pool (None stays None)."""
+    return [None if p is None else gather_block_view(p[layer], block_tables, nc)
+            for p in pools]
+
+
 def paged_decode_attention_ref(
     q, k_pool, v_pool, k_new, v_new, q_pos, kv_pos, block_tables, n_blocks,
     slots, layer: int, *, n_cols: int | None = None,
     scale: float | None = None, window: int | None = None,
+    k_scale: torch.Tensor | None = None, v_scale: torch.Tensor | None = None,
 ) -> torch.Tensor:
     del n_blocks  # the oracle reads every gathered slot the mask allows
     nc = block_tables.shape[1] if n_cols is None else n_cols
     T = nc * k_pool.shape[2]
+    kv, vv, ks, vs = _views(layer, block_tables, nc, k_pool, v_pool, k_scale,
+                            v_scale)
     return fresh_kv_decode_attention(
-        q, gather_block_view(k_pool[layer], block_tables, nc),
-        gather_block_view(v_pool[layer], block_tables, nc), k_new, v_new,
-        q_pos, kv_pos[:, :T], slots, scale=scale, window=window,
+        q, kv, vv, k_new, v_new, q_pos, kv_pos[:, :T], slots, scale=scale,
+        window=window, k_scale=ks, v_scale=vs,
     )
 
 
@@ -72,16 +90,18 @@ def ragged_paged_attention_ref(
     q, k_pool, v_pool, k_new, v_new, q_pos, q_len, kv_pos, block_tables,
     n_blocks, slot0, layer: int, *, n_cols: int | None = None,
     scale: float | None = None, window: int | None = None,
+    k_scale: torch.Tensor | None = None, v_scale: torch.Tensor | None = None,
 ) -> torch.Tensor:
     del n_blocks
     MB = block_tables.shape[1]
     nc = MB if n_cols is None else n_cols
     T = nc * k_pool.shape[2]
+    kv, vv, ks, vs = _views(layer, block_tables, nc, k_pool, v_pool, k_scale,
+                            v_scale)
     return ragged_fresh_kv_attention(
-        q, gather_block_view(k_pool[layer], block_tables, nc),
-        gather_block_view(v_pool[layer], block_tables, nc), k_new, v_new,
-        q_pos, q_len, kv_pos[:, :T], slot0, MB * k_pool.shape[2],
-        scale=scale, window=window,
+        q, kv, vv, k_new, v_new, q_pos, q_len, kv_pos[:, :T], slot0,
+        MB * k_pool.shape[2], scale=scale, window=window, k_scale=ks,
+        v_scale=vs,
     )
 
 
@@ -94,29 +114,32 @@ def _rows_per_block(n: int) -> int:
 
 def kernel_plan(dtype: torch.dtype, CB: int, G: int, D: int, *, B: int = 1,
                 Hkv: int = 1, n_slots: int = 0, bs: int = 16,
-                sms: int = sp.H100_SMS, max_splits: int = sp.MAX_SPLITS
-                ) -> sp.Plan:
+                sms: int = sp.H100_SMS, max_splits: int = sp.MAX_SPLITS,
+                kv_dtype: torch.dtype | None = None) -> sp.Plan:
     """How a K3 / K4 launch over ``B`` rows, ``Hkv`` KV heads and a read of
     ``n_slots`` slots (``n_cols * bs``) goes on a card of ``sms`` SMs:
-    ``"mma"`` for bf16 at ``CB > 1`` (never split), else ``"lanes"`` (R <=
-    8 of the ``CB * G`` flat query rows per block), split along the KV axis
-    (into at most ``max_splits``) only at ``CB == 1``; and the shared
-    memory one block needs, in bytes."""
-    if dtype == torch.bfloat16 and CB > 1:
+    ``"mma"`` for a bf16 pool (``kv_dtype``, default ``dtype``) at ``CB >
+    1`` (never split), else the lane template (R <= 8 of the ``CB * G``
+    flat query rows per block): ``"lanes_int8"`` over an int8 pool at any
+    ``CB``, ``"lanes"`` otherwise; split along the KV axis (into at most
+    ``max_splits``) only at ``CB == 1``; and the shared memory one block
+    needs, in bytes."""
+    kv_dtype = dtype if kv_dtype is None else kv_dtype
+    if kv_dtype == torch.bfloat16 and CB > 1:
         return sp.Plan("mma", _build.tile_smem_bytes(D), 1, 0)
     R = _rows_per_block(CB * G)
     tiles = -(-CB * G // R)
     S, split = sp.split_plan(B, Hkv * tiles, n_slots, bs,
                              step=sp.lane_step(D), sms=sms,
                              max_splits=max_splits if CB == 1 else 1)
-    smem = (sp.lane_region_bytes(dtype.itemsize, R, D)
+    smem = (sp.lane_region_bytes(kv_dtype.itemsize, R, D)
             + 4 * (3 * 8 * R + 2 * R + R * CB) + sp.stage_smem_bytes(bs))
-    return sp.Plan("lanes", smem, S, split)
+    return sp.Plan(sp.lane_impl(kv_dtype), smem, S, split)
 
 
 def _launch(name, q, k_pool, v_pool, k_new, v_new, q_pos, q_len, kv_pos,
             block_tables, n_blocks, slot0, layer, n_cols, scale, window,
-            max_splits=sp.MAX_SPLITS):
+            k_scale=None, v_scale=None, max_splits=sp.MAX_SPLITS):
     """Check the envelope and launch the template; q_len None means K3.
     ``max_splits`` 1 launches the unsplit kernel (which chip_smoke.py times
     beside the plan's)."""
@@ -128,11 +151,13 @@ def _launch(name, q, k_pool, v_pool, k_new, v_new, q_pos, q_len, kv_pos,
     L, Np, bs, Hkv, Dp = k_pool.shape
     MB = block_tables.shape[1]
     if q.dtype not in DTYPES or not (
-        q.dtype == k_pool.dtype == v_pool.dtype == k_new.dtype == v_new.dtype
+        q.dtype == k_new.dtype == v_new.dtype and k_pool.dtype == v_pool.dtype
     ):
         raise _build.KernelError(
-            f"{name} takes bf16 or fp32 q, pool and fresh KV of one dtype; got "
-            f"{q.dtype}, {k_pool.dtype}, {k_new.dtype}")
+            f"{name} takes bf16 or fp32 q and fresh KV of one dtype over a "
+            f"pool of that dtype or int8; got {q.dtype}, {k_pool.dtype}, "
+            f"{k_new.dtype}")
+    sc = _build.scale_args(name, q, k_pool, k_scale, v_scale)
     if D not in HEAD_DIMS or Dp != D or bs % 8 or Hq % Hkv:
         raise _build.KernelError(
             f"{name} envelope: head_dim in {HEAD_DIMS}, block_size % 8 == 0, "
@@ -152,7 +177,8 @@ def _launch(name, q, k_pool, v_pool, k_new, v_new, q_pos, q_len, kv_pos,
         raise _build.KernelError(f"window must be positive, got {window}")
     plan = kernel_plan(q.dtype, CB, Hq // Hkv, D, B=B, Hkv=Hkv,
                        n_slots=n_cols * bs, bs=bs,
-                       sms=_build.sm_count(q.device), max_splits=max_splits)
+                       sms=_build.sm_count(q.device), max_splits=max_splits,
+                       kv_dtype=k_pool.dtype)
     if plan.smem > _build.SMEM_LIMIT:
         raise _build.KernelError(
             f"{name}: the {plan.impl} instantiation at chunk {CB} needs "
@@ -188,7 +214,8 @@ def _launch(name, q, k_pool, v_pool, k_new, v_new, q_pos, q_len, kv_pos,
         bs, MB, n_cols, Hq, Hkv, D, _rows_per_block(CB * (Hq // Hkv)),
         plan.splits, plan.split_slots, _build.dtype_code(q),
         _build.IMPL_CODES[plan.impl], float(scale), window or 0,
-        _build.stream_ptr(q.device),
+        _build.stream_ptr(q.device), sc[0], sc[1],
+        _build.dtype_code(k_pool),
     )
     _build.check(code, name)
     return out
@@ -210,6 +237,8 @@ def paged_decode_attention(
     n_cols: int | None = None,
     scale: float | None = None,
     window: int | None = None,
+    k_scale: torch.Tensor | None = None,  # [L, N + 1, bs, Hkv] iff int8
+    v_scale: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Launch K3 (the template at CB = 1); returns [B, 1, Hq, D]."""
     if q.shape[1] != 1:
@@ -217,7 +246,7 @@ def paged_decode_attention(
                                  f"got S={q.shape[1]}")
     out = _launch("paged_decode_attention (K3)", q, k_pool, v_pool, k_new,
                   v_new, q_pos, None, kv_pos, block_tables, n_blocks, slots,
-                  layer, n_cols, scale, window)
+                  layer, n_cols, scale, window, k_scale, v_scale)
     paged_decode_attention.launches += 1
     return out
 
@@ -239,13 +268,15 @@ def ragged_paged_attention(
     n_cols: int | None = None,
     scale: float | None = None,
     window: int | None = None,
+    k_scale: torch.Tensor | None = None,  # [L, N + 1, bs, Hkv] iff int8
+    v_scale: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Launch K4; returns [B, CB, Hq, D] (rows past q_len are finite
     padding: zeros, or the reference's values where they share a tile with
     live rows)."""
     out = _launch("ragged_paged_attention (K4)", q, k_pool, v_pool, k_new,
                   v_new, q_pos, q_len, kv_pos, block_tables, n_blocks, slot0,
-                  layer, n_cols, scale, window)
+                  layer, n_cols, scale, window, k_scale, v_scale)
     ragged_paged_attention.launches += 1
     return out
 

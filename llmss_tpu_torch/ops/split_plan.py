@@ -69,12 +69,19 @@ def stage_smem_bytes(bs: int) -> int:
 
 def lane_region_bytes(elem_size: int, rows: int, D: int) -> int:
     """Shared memory of the lane template's K/V rings (``LaneRing``: per
-    warp 4 stages of 16-bit rows, or 2 of fp32 rows, each ``STEPS`` steps
-    of K and V, 16 bytes per lane and chunk), which the per-warp fp32
-    accumulators ``[8][rows][D]`` reuse after the KV loop."""
-    stages, chunks = (2, 2) if elem_size == 4 else (4, 1)
-    ring = NWARP * stages * STEPS * 2 * chunks * 32 * 16
+    warp 4 stages of 16-bit or int8 rows, or 2 of fp32 rows, each
+    ``STEPS`` steps of K and V; a lane holds 8 elements of a row, 32, 16 or
+    8 bytes, and for int8 also the slot's 4-byte scale), which the per-warp
+    fp32 accumulators ``[8][rows][D]`` reuse after the KV loop."""
+    stages, lane_bytes = {4: (2, 32), 2: (4, 16), 1: (4, 8 + 4)}[elem_size]
+    ring = NWARP * stages * STEPS * 2 * 32 * lane_bytes
     return max(ring, 4 * NWARP * rows * D)
+
+
+def lane_impl(kv_dtype) -> str:
+    """The lane template's instantiation for a cache of ``kv_dtype``:
+    ``"lanes_int8"`` (scales folded in) over int8, else ``"lanes"``."""
+    return "lanes_int8" if kv_dtype.itemsize == 1 else "lanes"
 
 
 @functools.lru_cache(maxsize=4096)

@@ -163,7 +163,7 @@ def test_batcher_state_keeps_its_addresses(model, mode):
                             chunked_prefill=chunked)
 
     def ptrs():
-        return ([t.data_ptr() for t in bat.cache]
+        return ([t.data_ptr() for t in graphs.cache_tensors(bat.cache)]
                 + [bat._tokens_dev.data_ptr(), bat._cur_pos_dev.data_ptr()])
 
     before = ptrs()

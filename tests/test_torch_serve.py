@@ -161,9 +161,15 @@ def test_cli_runs_on_a_written_checkpoint(tmp_path, capsys):
     with pytest.raises(SystemExit, match="speculative"):
         cli_main(["--pretrained_model_path", str(tmp_path), "--device", "cpu",
                   "--token_ids", "1", "--speculative", "2"])
-    with pytest.raises(SystemExit, match="int8"):
-        cli_main(["--pretrained_model_path", str(tmp_path), "--device", "cpu",
-                  "--token_ids", "1", "--kv_dtype", "int8"])
+    # --kv_dtype int8 is ported: it reaches the engine's int8 cache.
+    out8 = cli_main(["--pretrained_model_path", str(tmp_path), "--device",
+                     "cpu", "--dtype", "float32", "--token_ids", "1,2,3,4,5",
+                     "--max_new_tokens", "6", "--is_greedy", "--kv_dtype",
+                     "int8"])
+    eng8 = DecodeEngine(cfg, params, device="cpu", max_seq_len=11,
+                        kv_dtype="int8")
+    assert out8 == eng8.generate([[1, 2, 3, 4, 5]],
+                                 GenerationParams(max_new_tokens=6))
 
 
 def test_loader_matches_jax_load_model(tmp_path):
