@@ -21,7 +21,9 @@ exits non-zero without printing a result:
               (flash-decoding: "splits", "split_slots") beside the same
               call launched unsplit ("unsplit_ms", checked too); K2, K3
               and K4 also over int8 caches with their scales
-              ("lanes_int8"; library: dequantize + SDPA);
+              ("lanes_int8"; K4 with bf16 queries at CB > 1 "mma_int8",
+              the tensor-core tile over int8 tiles; library: dequantize
+              + SDPA);
 4. reference -- a tiny fp32 llama generates the same greedy tokens through
               the kernels on the card, decoding by CUDA-graph replays, as
               through the plain path on the CPU;
@@ -215,6 +217,23 @@ def phase_device() -> str:
 # -- phase 2 -------------------------------------------------------------------
 
 
+def ptxas_entries(text: str) -> list[tuple[str, int, int]]:
+    """(kernel, spill store bytes, registers) of every instantiation in
+    ``nvcc -Xptxas=-v`` output: ptxas reports the entry's name, then its
+    spills, then its registers."""
+    name = r"(?:\w{5}_mma|(?:flash|paged|decode)_fwd|split_merge)"
+    return [(k, int(sp), int(r)) for k, sp, r in re.findall(
+        rf"entry function '\w*?({name}\w*?)EEEv\w*' for[^\n]*\n[^\n]*\n"
+        r"\s*\d+ bytes stack frame, (\d+) bytes spill stores[^\n]*\n[^\n]*"
+        r"Used (\d+) registers", text)]
+
+
+def mma_registers(text: str) -> list[dict]:
+    """The tensor-core instantiations' registers and spills."""
+    return [{"kernel": k, "registers": r, "spill_store_bytes": sp}
+            for k, sp, r in ptxas_entries(text) if "_mma" in k]
+
+
 def phase_build() -> None:
     from llmss_tpu_torch.ops import _build
 
@@ -222,29 +241,20 @@ def phase_build() -> None:
     text = "\n".join(out.values())
     regs = [int(n) for n in re.findall(r"Used (\d+) registers", text)]
     spills = [int(n) for n in re.findall(r"(\d+) bytes spill stores", text)]
-    # Every instantiation: ptxas reports the entry's name, then its
-    # spills, then its registers. Listed: the tensor-core ones, and the
-    # bf16-query D 128 lane-template ones (over bf16 or int8 caches) and
-    # merge ones that the decode paths run.
-    name = r"(?:\w{5}_mma|(?:flash|paged|decode)_fwd|split_merge)"
-    entries = re.findall(
-        rf"entry function '\w*?({name}\w*?)EEEv\w*' for[^\n]*\n[^\n]*\n"
-        r"\s*\d+ bytes stack frame, (\d+) bytes spill stores[^\n]*\n[^\n]*"
-        r"Used (\d+) registers", text)
-
-    def listed(kernels):
-        return [{"kernel": k, "registers": int(r), "spill_store_bytes": int(sp)}
-                for k, sp, r in entries if kernels(k)]
-
+    # Listed: the tensor-core instantiations, and the bf16-query D 128
+    # lane-template ones (over bf16 or int8 caches) and merge ones that the
+    # decode paths run.
+    entries = ptxas_entries(text)
     emit({"phase": "build", "seconds": round(secs, 3),
           "sources": sorted(out), "max_registers": max(regs, default=None),
           "kernels_with_spills": sum(1 for n in spills if n > 0),
-          "mma_instantiations": listed(lambda k: "_mma" in k),
-          "decode_instantiations": listed(
-              lambda k: "_mma" not in k
-              and re.search(r"nv_bfloat16(?:S\d_|a)?Li128", k)),
-          "spilling": [{"kernel": k, "spill_store_bytes": int(sp)}
-                       for k, sp, _ in entries if int(sp) > 0]})
+          "mma_instantiations": mma_registers(text),
+          "decode_instantiations": [
+              {"kernel": k, "registers": r, "spill_store_bytes": sp}
+              for k, sp, r in entries if "_mma" not in k
+              and re.search(r"nv_bfloat16(?:S\d_|a)?Li128", k)],
+          "spilling": [{"kernel": k, "spill_store_bytes": sp}
+                       for k, sp, _ in entries if sp > 0]})
 
 
 # -- phase 3 -------------------------------------------------------------------
@@ -709,14 +719,27 @@ def k4_cases(int8: bool = True) -> list[dict]:
                     D=256, seed=14),
     ]
     return cases + ([
-        # The int8 pool (the lane template at every CB): the int8 serve
-        # phase's chunked step first, then a ring wrap under a window and
-        # GQA, and fp32 queries at head_dim 64 and CB 16.
+        # The int8 pool (bf16 queries: the tensor-core tile over int8
+        # tiles): the int8 serve phase's chunked step first, then a ring
+        # wrap under a window and GQA, the tile edges of the bf16 cases
+        # above (q_len 37 / 100 / 13, GQA at CB 64, block size 24, head
+        # dims 64 and 256), and fp32 queries at head_dim 64 and CB 16 (the
+        # lane template).
         _paged_case("k4_int8_serve_mixed", 8, 32, 32,
                     [0, 128, 256, 400, 700, 33, 812, 512],
                     [128, 128, 37, 1, 1, 1, 1, 1], 128, seed=5, kv="int8"),
         _paged_case("k4_int8_gqa_wrap_window", 3, 32, 8, [1000, 2000, 5],
                     [100, 1, 60], 128, window=256, seed=7, kv="int8"),
+        _paged_case("k4_int8_qlen_odd", 4, 32, 32, [0, 300, 77, 500],
+                    [37, 100, 1, 13], 128, seed=9, kv="int8"),
+        _paged_case("k4_int8_gqa_cb64", 4, 32, 8, [100, 0, 640, 33],
+                    [64, 50, 1, 17], 64, seed=10, kv="int8"),
+        _paged_case("k4_int8_bs24", 3, 32, 32, [200, 0, 90], [128, 60, 1],
+                    128, bs=24, MB=43, seed=12, kv="int8"),
+        _paged_case("k4_int8_d64", 3, 16, 4, [200, 0, 90], [128, 60, 1], 128,
+                    D=64, seed=13, kv="int8"),
+        _paged_case("k4_int8_d256", 3, 16, 8, [200, 0, 90], [128, 60, 1], 128,
+                    D=256, seed=14, kv="int8"),
         _paged_case("k4_int8_fp32_d64", 3, 8, 4, [30, 0, 100], [16, 5, 1], 16,
                     seed=8, D=64, dt=torch.float32, kv="int8"),
     ] if int8 else [])
@@ -894,14 +917,19 @@ def check_paged_kernels(out: dict) -> None:
 
     for c in k4_cases():
         row, _ = _paged_row("K4", c, k4, k4_ref, _gather_sdpa)
+        # bf16 queries over an int8 pool at CB > 1: the int8 tensor-core
+        # tile; fp32 queries stay on the lanes.
+        if c["ks"] is not None:
+            _main_path_impl("K4", row, "mma_int8" if c["q"].dtype
+                            == torch.bfloat16 else "lanes_int8")
         worst[c["row"]] = max(worst.get(c["row"], 0.0), row["max_abs_err"])
         out.setdefault(c["row"], row)
     _main_path_impl("K4", out["K4"])
-    _main_path_impl("K4_int8", out["K4_int8"], "lanes_int8")
     for name, err in worst.items():
         out[name]["max_abs_err"] = err
-    out["vs_library"]["k4_serve_mixed"] = (out["K4"]["ms"],
-                                           out["K4"]["library_ms"])
+    for name in ("K4", "K4_int8"):
+        out["vs_library"][out[name]["case"]] = (out[name]["ms"],
+                                                out[name]["library_ms"])
     # A measurement, not a pass condition: kernel times vary by card.
     emit({"phase": "kernel", "check": "mma_below_library",
           "cases": {k: {"ms": a, "library_ms": b}
@@ -1176,10 +1204,11 @@ def _graph_memory(eng, caches) -> dict:
 
 def _int8_kernel(name: str, sym: str) -> bool:
     """Whether the kernel ``name`` is an int8-cache instantiation of
-    ``sym`` (``decode_fwd`` / ``paged_fwd``): a ``signed char`` template
-    argument, demangled, or ``a`` after the query type, mangled."""
+    ``sym`` (``decode_fwd`` / ``paged_fwd`` / ``paged_mma``): a ``signed
+    char`` template argument, demangled, or ``a`` for it, mangled (after
+    the query type in the lane templates, first in ``paged_mma``)."""
     return sym in name and ("signed char" in name or re.search(
-        sym + r"I(?:f|13__nv_bfloat16)aLi", name) is not None)
+        sym + r"I(?:f|13__nv_bfloat16)?aLi", name) is not None)
 
 
 def _calls(rows, c: str) -> int:
@@ -1620,7 +1649,9 @@ def phase_profile_paged(eng, tag: str = "") -> None:
     (4 steps, two rows feeding 128-token chunks beside six decode rows,
     eager) over 8 rows of the serve engine. Over an int8 pool (rows named
     ``tag`` first) every ``paged_fwd`` the profiler sees must be an int8
-    instantiation: n_layers per step in the ragged group too."""
+    instantiation, and the ragged group must run K4 only as the int8
+    tensor-core tile (``paged_mma`` over int8): n_layers per step, and no
+    ``paged_fwd``."""
     from llmss_tpu_torch.engine.engine import GenerationParams
 
     B = 8
@@ -1647,15 +1678,17 @@ def phase_profile_paged(eng, tag: str = "") -> None:
     xs = [torch.as_tensor(a, device=dev) for a in (
         rng.integers(1, 32000, (nc, B, CB)).astype(np.int32), qlens, feed,
         emit_)]
-    count = ("paged_fwd", "int8:paged_fwd") if cache.quantized else ()
+    count = ("paged_fwd", "paged_mma", "int8:paged_mma") if cache.quantized \
+        else ()
     row, _ = _profile_row(
         tag + "ragged_group_4_steps",
         lambda: eng._ragged_group(tok, cache, cur, sa, done, eos, *xs),
         count=count)
     want = eng.cfg.n_layers * nc
-    if count and set(row["kernel_calls"].values()) != {want}:
+    if count and row["kernel_calls"] != {"paged_fwd": 0, "paged_mma": want,
+                                         "int8:paged_mma": want}:
         raise AssertionError(f"{tag}ragged group: {row['kernel_calls']}, "
-                             f"want {want} each")
+                             f"want {want} int8 paged_mma and no other")
 
 
 # -- phase 6c ------------------------------------------------------------------

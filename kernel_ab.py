@@ -4,8 +4,11 @@ cases of this checkout's chip_smoke.py, timed as chip_smoke.py times them
 events).
 
     python3 kernel_ab.py [--tree DIR] [--label NAME] [--kernels K1,K2,K3,K4]
+                         [--registers]
 
-(default: those four and the int8-cache cases K2_int8,K3_int8,K4_int8)
+(default: those four and the int8-cache cases K2_int8,K3_int8,K4_int8;
+``--registers``: build with ``-Xptxas=-v`` and print the tensor-core
+instantiations' registers and spills first)
 
 ``--tree`` is a checkout of the repo whose ``llmss_tpu_torch`` is built
 and timed (default: this one). The cases and the timer always come from
@@ -80,6 +83,8 @@ def main() -> int:
                     help="the kernels whose cases are timed (K2_int8, "
                          "K3_int8, K4_int8: the int8-cache cases, which an "
                          "older tree cannot run)")
+    ap.add_argument("--registers", action="store_true",
+                    help="build verbose and print the mma kernels' registers")
     args = ap.parse_args()
     tree = Path(args.tree).resolve()
     sys.path.insert(0, str(tree))
@@ -97,9 +102,11 @@ def main() -> int:
     if Path(llmss_tpu_torch.__file__).resolve().parent.parent != tree:
         raise RuntimeError(f"llmss_tpu_torch came from {llmss_tpu_torch.__file__}")
     cs.phase_device()
-    secs, _ = _build.build_all()
+    secs, out = _build.build_all(verbose=args.registers)
     tag = {"label": args.label, "tree": str(tree)}
-    cs.emit({"phase": "build", **tag, "seconds": round(secs, 3)})
+    cs.emit({"phase": "build", **tag, "seconds": round(secs, 3),
+             **({"mma_instantiations": cs.mma_registers("\n".join(out.values()))}
+                if args.registers else {})})
     times = {}
     for kernel, case, fn, iters in _cases(cs, da, fa, pa,
                                                args.kernels.split(",")):

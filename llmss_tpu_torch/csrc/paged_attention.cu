@@ -29,20 +29,21 @@
 // Numerics follow the Pallas kernels: fp32 scores and running max / sum /
 // accumulators, masked scores at the finite fp32 minimum, probabilities of
 // masked slots exactly 0, P rounded to the value dtype before the cache's
-// P.V.
+// P.V (over an int8 pool: P x v_scale, carried to 2^-16 relative on the
+// tensor cores, unrounded on the lanes).
 //
-// Three instantiations; the wrapper picks one from the dtypes and CB alone
+// Four instantiations; the wrapper picks one from the dtypes and CB alone
 // and this file refuses any other pairing:
 //
-// bf16 at CB > 1 (K4 with prompt chunks) -> paged_mma, the tensor-core
-// tile of attn_tile.cuh. What bounds it on the H100: bytes. Each (row, KV
-// head) needs the row's live blocks once, shared by its q_len*G query
-// rows; at the serve shapes that read is the whole bound, far under the
-// ~295 flops per byte where the tensor cores would limit. The design: one
-// block per (row, KV head, 64 flat query rows f = i*G + g), so a chunk of
-// 128 queries streams its row's KV twice (once per tile) where the lane
-// template's 8-row tiles streamed it 16 times; each 64-slot tile is
-// gathered through block_tables by one cp.async per 16 bytes of a slot
+// bf16 at CB > 1 (K4 with prompt chunks) -> paged_mma<bf16>, the
+// tensor-core tile of attn_tile.cuh. What bounds it on the H100: bytes.
+// Each (row, KV head) needs the row's live blocks once, shared by its
+// q_len*G query rows; at the serve shapes that read is the whole bound, far
+// under the ~295 flops per byte where the tensor cores would limit. The
+// design: one block per (row, KV head, 64 flat query rows f = i*G + g), so
+// a chunk of 128 queries streams its row's KV twice (once per tile) where
+// the lane template's 8-row tiles streamed it 16 times; each 64-slot tile
+// is gathered through block_tables by one cp.async per 16 bytes of a slot
 // row, double-buffered so the next tile's copy overlaps this tile's
 // products; tiles no row can see are skipped before their copy; the fresh
 // keys follow as trailing tiles of <= 64 keys read from k_new / v_new on
@@ -50,6 +51,14 @@
 // cache's, where the Pallas kernel applies fresh V in fp32: one more
 // rounding of P, which chip_smoke.py's 2^-7 relative tolerance already
 // bounds (its derivation assumes every P is rounded).
+//
+// int8 pool, bf16 queries, CB > 1 -> paged_mma<int8> ("mma_int8"), the
+// same block, grid and tiles over attn_tile_i8.cuh: int8 tiles (half the
+// bytes) and their scales are copied, widened to bf16 in shared memory
+// (exact), and run through the same mma.sync loop; each score times its
+// slot's K scale, and P x v_scale enters P.V as two bf16 terms, hi + lo,
+// so it is carried to 2^-16 relative, not bf16's 2^-8 (the header has the
+// bound). The fresh keys take the same two terms with scale 1.
 //
 // fp32 at any CB, and CB == 1 (K3, and K4 all-decode) -> paged_fwd, the
 // lane template below. It keeps fp32 FMA: at decode each (row, KV head)
@@ -95,21 +104,22 @@
 //     its fp32 (m, l, acc) and split_merge, launched next on the same
 //     stream, folds the live splits in split order and then the fresh key.
 //
-// int8 pool at any CB (KV = int8_t, the engine's kv_dtype="int8") ->
-// paged_fwd over int8 rows, with k_scale / v_scale [L, Np, bs, Hkv] fp32:
-// the Pallas kernel's int8 branch. Each slot's score is multiplied by its K
-// scale after the Q.K dot and before the mask; P is multiplied by the V
-// scale and P.V runs in fp32 (P is not rounded). The fresh keys come from
-// k_new / v_new in the query's dtype and are not scaled. Each lane copies
-// its slot's two scales into its ring beside its 8-byte K and V chunks.
-// At CB > 1 this is the lane template, not paged_mma: its fp32 FMA
-// computes the branch's fp32 P.V as it stands, where the tensor-core tile
-// would round P x v_scale to bf16. At CB == 1 (K3 over an int8 pool) it
-// computes what the reference's oracle paged_decode_attention(
-// k_scale_layer=) does (the Pallas K3 takes no scales), split and merged
-// as the 16-bit K3 is.
+// int8 pool under fp32 queries at any CB, and under bf16 queries at CB == 1
+// (KV = int8_t, the engine's kv_dtype="int8") -> paged_fwd over int8 rows
+// ("lanes_int8"), with k_scale / v_scale [L, Np, bs, Hkv] fp32: the Pallas
+// kernel's int8 branch. Each slot's score is multiplied by its K scale
+// after the Q.K dot and before the mask; P is multiplied by the V scale
+// and P.V runs in fp32 (P is not rounded). The fresh keys come from k_new
+// / v_new in the query's dtype and are not scaled. Each lane copies its
+// slot's two scales into its ring beside its 8-byte K and V chunks. fp32
+// queries stay here at CB > 1 (the tensor cores would mean TF32); at CB
+// == 1 (K3 over an int8 pool) it computes what the reference's oracle
+// paged_decode_attention(k_scale_layer=) does (the Pallas K3 takes no
+// scales), split and merged as the 16-bit K3 is, and an all-decode K4 at
+// CB = 1 is bitwise K3 over int8 too.
 
 #include "attn_tile.cuh"
+#include "attn_tile_i8.cuh"
 #include "common.cuh"
 #include "split_merge.cuh"
 
@@ -142,8 +152,8 @@ struct Args {
   int S, split;
 };
 
-// The int8-pool instantiations of paged_fwd take Args and the per-(block,
-// slot, KV head) scales [L, Np, bs, Hkv]; the others take Args alone, as
+// The int8-pool instantiations of paged_fwd and paged_mma take Args and the
+// per-(block, slot, KV head) scales [L, Np, bs, Hkv]; the others take Args alone, as
 // before the int8 pool (a parameter struct that grew, even at its end,
 // changed their register allocation and slowed K3 by up to 17%, PERF.md).
 struct ArgsI8 : Args {
@@ -579,7 +589,7 @@ cudaError_t dispatch_d(int D, int R, const ArgsI8& a, cudaStream_t s) {
   }
 }
 
-// -- bf16 at CB > 1: the tensor-core tile ----------------------------------
+// -- bf16 queries at CB > 1: the tensor-core tiles --------------------------
 
 // tile::attend's Source for one block: flat rows f0 .. f0+63 of row b and
 // KV head hk. Tiles [0, n_cache) gather the pool through the row's table
@@ -637,12 +647,35 @@ struct PagedSrc {
   __device__ const T* any_ptr() const { return kn; }
 };
 
+// tile::attend_i8's Source over an int8 pool: PagedSrc (kp / vp unused;
+// fresh tiles through its rows()), the pool's int8 rows and its scales
+// [L, Np, bs, Hkv], whose offset is the row's element offset / D.
 template <int D>
-__global__ void __launch_bounds__(tile::kThreads) paged_mma(Args a) {
+struct PagedSrcI8 : PagedSrc<D> {
+  const int8_t *kq, *vq;
+  const float *ks, *vs;
+
+  __device__ bool rows8(int t, int j, const int8_t*& kr, const int8_t*& vr,
+                        long long& so) const {
+    const int x = t * tile::kSlots + j;
+    if (x >= this->t_end) return false;
+    const int blk = min(this->bt[x / this->bs], this->last_blk);
+    const long long off =
+        this->base + blk * this->blk_stride + (long long)(x % this->bs) * this->slot_stride;
+    kr = kq + off;
+    vr = vq + off;
+    so = off / D;
+    return true;
+  }
+};
+
+// KV: the pool's type, bf16 (attn_tile.cuh) or int8 (attn_tile_i8.cuh).
+template <typename KV, int D>
+__global__ void __launch_bounds__(tile::kThreads) paged_mma(ArgsOf<KV> a) {
   using T = __nv_bfloat16;
   extern __shared__ __align__(16) unsigned char tile_smem[];
   const int b = blockIdx.x, hk = blockIdx.y;
-  PagedSrc<D> s;
+  std::conditional_t<kQuant<KV>, PagedSrcI8<D>, PagedSrc<D>> s;
   s.G = a.Hq / a.Hkv;
   s.b = b;
   s.hk = hk;
@@ -663,8 +696,16 @@ __global__ void __launch_bounds__(tile::kThreads) paged_mma(Args a) {
     }
     return;
   }
-  s.kp = static_cast<const T*>(a.kp);
-  s.vp = static_cast<const T*>(a.vp);
+  if constexpr (kQuant<KV>) {
+    s.kp = s.vp = nullptr;
+    s.kq = static_cast<const int8_t*>(a.kp);
+    s.vq = static_cast<const int8_t*>(a.vp);
+    s.ks = a.ks;
+    s.vs = a.vs;
+  } else {
+    s.kp = static_cast<const T*>(a.kp);
+    s.vp = static_cast<const T*>(a.vp);
+  }
   s.kn = static_cast<const T*>(a.kn);
   s.vn = static_cast<const T*>(a.vn);
   s.qp = a.qpos[b];
@@ -685,27 +726,33 @@ __global__ void __launch_bounds__(tile::kThreads) paged_mma(Args a) {
   s.qmin = s.qp + i_lo;
   s.window = a.window;
   s.scale_log2 = a.scale * 1.4426950408889634f;
-  tile::attend<T, D, true>(s, tile_smem);
+  if constexpr (kQuant<KV>) {
+    tile::attend_i8<D>(s, tile_smem);
+  } else {
+    tile::attend<T, D, true>(s, tile_smem);
+  }
 }
 
-template <int D>
-cudaError_t launch_mma(const Args& a, cudaStream_t stream) {
-  constexpr size_t smem = tile::Smem<D>::bytes;
-  auto kern = paged_mma<D>;
+template <typename KV, int D>
+cudaError_t launch_mma(const ArgsI8& a, cudaStream_t stream) {
+  if (kQuant<KV> && (a.ks == nullptr || a.vs == nullptr)) return cudaErrorInvalidValue;
+  constexpr size_t smem = kQuant<KV> ? tile::SmemI8<D>::bytes : tile::Smem<D>::bytes;
+  auto kern = paged_mma<KV, D>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const int rows = a.CB * (a.Hq / a.Hkv);
   dim3 grid(a.B, a.Hkv, (rows + tile::kRows - 1) / tile::kRows);
-  kern<<<grid, tile::kThreads, smem, stream>>>(a);
+  kern<<<grid, tile::kThreads, smem, stream>>>(static_cast<const ArgsOf<KV>&>(a));
   return cudaGetLastError();
 }
 
-cudaError_t dispatch_mma(int D, const Args& a, cudaStream_t s) {
+template <typename KV>
+cudaError_t dispatch_mma(int D, const ArgsI8& a, cudaStream_t s) {
   switch (D) {
-    case 64: return launch_mma<64>(a, s);
-    case 128: return launch_mma<128>(a, s);
-    case 256: return launch_mma<256>(a, s);
+    case 64: return launch_mma<KV, 64>(a, s);
+    case 128: return launch_mma<KV, 128>(a, s);
+    case 256: return launch_mma<KV, 256>(a, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -718,10 +765,11 @@ cudaError_t dispatch_mma(int D, const Args& a, cudaStream_t s) {
 // out [B,CB,Hq,D], all contiguous and 16-byte aligned; q_pos / q_len /
 // n_blocks / slot0 [B], kv_pos [B,MB*bs] and tables [B,MB] int32. q_len
 // null means every row has one live query (K3). impl: 0 = paged_fwd with R
-// (1, 2, 4 or 8) query rows per block, for fp32, CB == 1 or an int8 pool,
-// in S splits of `split` slots (S > 1 only at CB == 1, with ws the fp32
-// workspace of split_merge.cuh, [B*Hq*S*(D+2)]; null at S = 1); 1 =
-// paged_mma, for a bf16 pool at CB > 1 (q_len required; S, split and ws
+// (1, 2, 4 or 8) query rows per block, for fp32, CB == 1 or an int8 pool
+// under fp32 queries, in S splits of `split` slots (S > 1 only at CB == 1,
+// with ws the fp32 workspace of split_merge.cuh, [B*Hq*S*(D+2)]; null at
+// S = 1); 1 = paged_mma over a bf16 pool and 2 = paged_mma over an int8
+// pool, for bf16 queries at CB > 1 (q_len required; R, S, split and ws
 // unused). kv_dtype: the pool's dtype, dtype's own, or kI8 under fp32 or
 // bf16 queries, with k_scale / v_scale [L,Np,bs,Hkv] fp32 (null otherwise).
 // window <= 0 means full causal. Returns cudaGetLastError() after the last
@@ -744,10 +792,13 @@ extern "C" int llmss_paged_attention(
                 static_cast<const float*>(v_scale)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool mma = dtype == kBF16 && kv_dtype == kBF16 && CB > 1;
+  const bool mma8 = dtype == kBF16 && kv_dtype == kI8 && CB > 1;
   cudaError_t err = cudaErrorInvalidValue;
   if (impl == 1 && mma && qlen != nullptr) {
-    err = dispatch_mma(D, a, s);
-  } else if (impl == 0 && !mma) {
+    err = dispatch_mma<__nv_bfloat16>(D, a, s);
+  } else if (impl == 2 && mma8 && qlen != nullptr) {
+    err = dispatch_mma<int8_t>(D, a, s);
+  } else if (impl == 0 && !mma && !mma8) {
     if (dtype == kF32 && kv_dtype == kF32) err = dispatch_d<float, float>(D, R, a, s);
     if (dtype == kBF16 && kv_dtype == kBF16)
       err = dispatch_d<__nv_bfloat16, __nv_bfloat16>(D, R, a, s);

@@ -51,7 +51,10 @@ SAMPLING_VARIANTS = ((False, False), (True, False), (True, True))
 
 # The symbol of the kernel each wrapper launches once per call (a split
 # call adds a ``split_merge``, which is not counted). K3 and K4 share the
-# paged kernels; a step graph holds K3 only.
+# paged kernels; a step graph holds K3 only. A symbol names every
+# instantiation of its template: ``paged_mma`` is K4's tensor-core tile
+# over a bf16 pool and over an int8 one, ``paged_fwd`` / ``decode_fwd``
+# the lane templates over either cache.
 KERNEL_SYMBOLS = {
     "flash_attention": ("flash_fwd", "flash_mma"),
     "decode_attention": ("decode_fwd",),

@@ -39,7 +39,7 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2,
                torch.int8: 3}
 # instantiation codes of the entry points' ``impl`` argument (the lane
 # template's int8 instantiation is chosen by the cache's dtype code)
-IMPL_CODES = {"lanes": 0, "lanes_int8": 0, "fma": 0, "mma": 1}
+IMPL_CODES = {"lanes": 0, "lanes_int8": 0, "fma": 0, "mma": 1, "mma_int8": 2}
 # q / fresh KV dtypes an int8 cache's kernels take
 INT8_QUERY_DTYPES = (torch.float32, torch.bfloat16)
 SMEM_LIMIT = 232448  # bytes of shared memory one block may use on the H100
@@ -57,6 +57,16 @@ def tile_smem_bytes(D: int) -> int:
     attn_tile.cuh ``Smem<D>``): Q and double-buffered K and V tiles of 64
     rows of D + 8 16-bit elements, and two stages of 64 int32 positions."""
     return 2 * 5 * 64 * (D + 8) + 2 * 64 * 4
+
+
+def tile_i8_smem_bytes(D: int) -> int:
+    """Shared memory of one block of the int8-pool tensor-core tile (csrc/
+    attn_tile_i8.cuh ``SmemI8<D>``): Q and one widened K and V tile of 64
+    rows of D + 8 bf16 elements; two stages of int8 K and V tiles of 64
+    rows of D + 16 bytes (a fresh bf16 K and V tile reuses their bytes);
+    two stages of 64 K and 64 V fp32 scales and of 64 int32 positions.
+    At D = 128: 90,624 bytes, two blocks per SM."""
+    return 2 * 3 * 64 * (D + 8) + 4 * 64 * (D + 16) + 4 * 2 * 2 * 64 + 2 * 64 * 4
 
 
 def _nvcc() -> str:

@@ -10,17 +10,23 @@
   branch (``quant``) included: a ``CB``-token query chunk per row,
   ``q_len`` of them live.
 
-Three instantiations, chosen by ``kernel_plan`` from the dtypes and ``CB``
+Four instantiations, chosen by ``kernel_plan`` from the dtypes and ``CB``
 alone: ``"mma"`` (the tensor-core tile, csrc/attn_tile.cuh) for a bf16
-pool at ``CB > 1``, ``"lanes"`` (the lane template) for fp32 and for
-``CB == 1``, and ``"lanes_int8"``, the lane template over an int8 pool
-(``k_scale`` / ``v_scale`` ``[L, N + 1, bs, Hkv]`` fp32; q and fresh KV in
-fp32 or bf16) at every ``CB``. It folds the scales as the Pallas int8
-branch does (pallas_ragged.py:144-145, :163-168): each cache score times
-its slot's K scale, P times the V scale and P.V in fp32; the fresh keys
-are never quantized. At ``CB == 1`` (K3 over an int8 pool) it computes
-what the reference's oracle ``paged_decode_attention(k_scale_layer=)``
-computes; the Pallas K3 takes no scales.
+pool at ``CB > 1``; ``"mma_int8"`` (the same tile over an int8 pool,
+csrc/attn_tile_i8.cuh) for bf16 queries at ``CB > 1``; ``"lanes"`` (the
+lane template) for fp32 and for ``CB == 1``; and ``"lanes_int8"``, the
+lane template over an int8 pool, for fp32 queries at every ``CB`` and bf16
+queries at ``CB == 1``. An int8 pool has ``k_scale`` / ``v_scale`` ``[L, N
++ 1, bs, Hkv]`` fp32, and q and fresh KV in fp32 or bf16. Both int8
+instantiations fold the scales as the Pallas int8 branch does
+(pallas_ragged.py:144-145, :163-168): each cache score times its slot's K
+scale and P times the V scale before P.V; the fresh keys are never
+quantized. The lanes run P.V in fp32; ``"mma_int8"`` widens the int8 tiles
+to bf16 (exact) and feeds P x v_scale to the tensor cores as two bf16
+terms, hi + lo, which carry it to 2^-16 relative (one bf16 rounding: 2^-8),
+the fresh keys' P included. At ``CB == 1`` (K3 over an int8 pool) the lanes
+compute what the reference's oracle ``paged_decode_attention(
+k_scale_layer=)`` computes; the Pallas K3 takes no scales.
 At ``CB == 1`` the lane template splits the bucketed read ``n_cols * bs``
 into ``S`` splits along the KV axis (flash-decoding, ``ops/split_plan.py``,
 from the shapes and the card's SM count) and a merge kernel folds them. K3 is the lane
@@ -28,7 +34,8 @@ template's ``CB == 1`` launch, so an all-decode K4 call at ``CB == 1``
 takes the same plan and gives bit-identical outputs. A call the chosen
 instantiation cannot take raises ``KernelError``; no other instantiation
 is tried. The mma instantiation applies the fresh keys' P rounded to
-bf16, like the cache's; the lane template applies fresh V in fp32. K4 writes zeros for
+bf16, like the cache's; the lane template applies fresh V in fp32. K4
+writes zeros for
 query rows past ``q_len`` that share no kernel tile with a live row (chunk
 padding nothing reads); the plain version computes every row, as the
 reference's oracle does, so the two agree on live rows. Both wrappers take
@@ -118,15 +125,18 @@ def kernel_plan(dtype: torch.dtype, CB: int, G: int, D: int, *, B: int = 1,
                 kv_dtype: torch.dtype | None = None) -> sp.Plan:
     """How a K3 / K4 launch over ``B`` rows, ``Hkv`` KV heads and a read of
     ``n_slots`` slots (``n_cols * bs``) goes on a card of ``sms`` SMs:
-    ``"mma"`` for a bf16 pool (``kv_dtype``, default ``dtype``) at ``CB >
-    1`` (never split), else the lane template (R <= 8 of the ``CB * G``
-    flat query rows per block): ``"lanes_int8"`` over an int8 pool at any
-    ``CB``, ``"lanes"`` otherwise; split along the KV axis (into at most
+    at ``CB > 1`` the tensor-core tile (never split), ``"mma"`` over a
+    bf16 pool (``kv_dtype``, default ``dtype``) and ``"mma_int8"`` over an
+    int8 pool under bf16 queries; else the lane template (R <= 8 of the
+    ``CB * G`` flat query rows per block): ``"lanes_int8"`` over an int8
+    pool, ``"lanes"`` otherwise; split along the KV axis (into at most
     ``max_splits``) only at ``CB == 1``; and the shared memory one block
     needs, in bytes."""
     kv_dtype = dtype if kv_dtype is None else kv_dtype
     if kv_dtype == torch.bfloat16 and CB > 1:
         return sp.Plan("mma", _build.tile_smem_bytes(D), 1, 0)
+    if kv_dtype == torch.int8 and dtype == torch.bfloat16 and CB > 1:
+        return sp.Plan("mma_int8", _build.tile_i8_smem_bytes(D), 1, 0)
     R = _rows_per_block(CB * G)
     tiles = -(-CB * G // R)
     S, split = sp.split_plan(B, Hkv * tiles, n_slots, bs,

@@ -729,20 +729,31 @@ def test_engine_kv_dtype_validation_and_reset(model):
 @pytest.mark.parametrize("G", [1, 4])
 @pytest.mark.parametrize("D", pa.HEAD_DIMS)
 def test_int8_plan_takes_the_lane_template(CB, G, D):
-    """An int8 pool takes ``lanes_int8`` at every CB (never the tensor-core
-    tile, whose P.V would round P x v_scale to bf16), with the split of a
-    pool of the query's dtype and the int8 ring's shared memory; K2 the
-    same over an int8 ring."""
+    """Which int8 launches take the lane template. bf16 queries over an
+    int8 pool at CB > 1 take ``mma_int8`` (the tensor-core tile over int8
+    tiles, P x v_scale as two bf16 terms), unsplit, with the shared memory
+    of ``SmemI8`` under the limit. CB == 1 (K3, all-decode K4) and fp32
+    queries at every CB take ``lanes_int8``, with the split of a pool of
+    the query's dtype and the int8 ring's shared memory; K2 the same over
+    an int8 ring."""
+    from llmss_tpu_torch.ops import _build
     from llmss_tpu_torch.ops import decode_attention as da
     from llmss_tpu_torch.ops import split_plan as sp
 
     kw = dict(B=8, Hkv=4, n_slots=832, bs=16)
     p8 = pa.kernel_plan(torch.bfloat16, CB, G, D, kv_dtype=torch.int8, **kw)
+    f8 = pa.kernel_plan(torch.float32, CB, G, D, kv_dtype=torch.int8, **kw)
     p32 = pa.kernel_plan(torch.float32, CB, G, D, **kw)
-    assert p8.impl == "lanes_int8"
-    assert (p8.splits, p8.split_slots) == (p32.splits, p32.split_slots)
-    assert p8.smem - p32.smem == (sp.lane_region_bytes(1, pa._rows_per_block(CB * G), D)
-                                  - sp.lane_region_bytes(4, pa._rows_per_block(CB * G), D))
+    ring = (sp.lane_region_bytes(1, pa._rows_per_block(CB * G), D)
+            - sp.lane_region_bytes(4, pa._rows_per_block(CB * G), D))
+    lanes = [f8] if CB > 1 else [p8, f8]
+    for p in lanes:
+        assert p.impl == "lanes_int8"
+        assert (p.splits, p.split_slots) == (p32.splits, p32.split_slots)
+        assert p.smem - p32.smem == ring
+    if CB > 1:
+        assert p8 == ("mma_int8", _build.tile_i8_smem_bytes(D), 1, 0)
+        assert p8.smem <= _build.SMEM_LIMIT
     d8 = da.kernel_plan(torch.bfloat16, 4, 4 * G, 4, D, 192, kv_dtype=torch.int8)
     d16 = da.kernel_plan(torch.bfloat16, 4, 4 * G, 4, D, 192)
     assert d8.impl == "lanes_int8" and d16.impl == "lanes"

@@ -1,8 +1,9 @@
 """The kernels' host-side plan on the CPU: which instantiation each call
 takes, the shared memory it needs, what the wrappers refuse, that every
-CUDA source is built and declared with its C signature, and a torch
-emulation of the tensor-core instantiation's rounding held to the card's
-tolerance.
+CUDA source is built and declared with its C signature, and torch
+emulations of the tensor-core instantiations' rounding held to the card's
+tolerance and, over an int8 pool, to the plain version and the Pallas int8
+branch.
 
 The tensor-core instantiation (csrc/attn_tile.cuh) runs a per-64-slot-tile
 online softmax and rounds every P to bf16 before P.V, the chunk's fresh
@@ -12,6 +13,14 @@ element's error by REL_TOL[dtype] times its row's softmax-weighted mean
 |v|, a derivation that assumes every P is rounded. The emulation below
 shows that bound holding at the main path's K4 and K1 GQA shapes (cut to
 2 KV heads), on bf16 inputs from a seed, against the fp32 plain versions.
+
+Over an int8 pool (csrc/attn_tile_i8.cuh, ``"mma_int8"``) the tiles are
+widened to bf16 (exact), each score is scaled by its slot's K scale, and
+P' = P x v_scale enters P.V as two bf16 terms, hi = bf16(P') and lo =
+bf16(P' - hi), which carry it to 2^-16 relative. Its emulation is held to
+the plain version with scales and to the Pallas int8 branch (interpret
+mode) within 2^-12 of the row's weighted |v| before the output rounding;
+one bf16 rounding of P' (the bf16 tile's arithmetic) misses that bound.
 """
 
 import ctypes
@@ -19,11 +28,15 @@ import os
 import re
 from types import SimpleNamespace
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 import chip_smoke
+from llmss_tpu.ops import pallas_ragged
+from llmss_tpu_torch.engine import graphs
+from llmss_tpu_torch.engine.cache import gather_block_view, quantize_kv
 from llmss_tpu_torch.ops import _build
 from llmss_tpu_torch.ops import attention as tatt
 from llmss_tpu_torch.ops import flash_attention as fa
@@ -71,6 +84,25 @@ def test_tile_smem_matches_the_header():
     assert "LD = D + 8" in src and "kRows = 64" in src and "kSlots = 64" in src
     assert "2 * (size_t(Q) + 4 * size_t(KV)) + 2 * kSlots * sizeof(int)" in src
     assert _build.tile_smem_bytes(128) == 2 * (64 * 136 + 4 * 64 * 136) + 512
+
+
+def test_tile_i8_smem_matches_the_header():
+    """tile_i8_smem_bytes mirrors attn_tile_i8.cuh's SmemI8<D>: Q and one
+    widened K and V tile (rows of D + 8 bf16 elements), two stages of int8
+    K and V tiles (rows of D + 16 bytes), two stages of 64 K and 64 V fp32
+    scales and of 64 int32 positions: 90,624 bytes at D = 128, two blocks
+    per SM."""
+    src = (_build.CSRC / "attn_tile_i8.cuh").read_text()
+    assert "LD = D + 8;" in src and "LD8 = D + 16;" in src
+    assert ("2 * (size_t(Q) + 2 * size_t(KV)) + 4 * size_t(KV8) +\n"
+            "                                  4 * 2 * 2 * kSlots + 2 * kSlots"
+            " * sizeof(int)") in src
+    assert _build.tile_i8_smem_bytes(128) == (
+        2 * (64 * 136 + 2 * 64 * 136) + 4 * 64 * 144 + 4 * 2 * 2 * 64
+        + 2 * 64 * 4) == 90624
+    assert 2 * (_build.tile_i8_smem_bytes(128) + 1024) <= 228 * 1024
+    for D in pa.HEAD_DIMS:
+        assert _build.tile_i8_smem_bytes(D) <= _build.SMEM_LIMIT
 
 
 @pytest.mark.parametrize("D", fa.HEAD_DIMS)
@@ -126,6 +158,51 @@ def test_declared_argtypes_match_the_c_signature(name):
     _build._declare(SimpleNamespace(**{f"llmss_{name}": fn}), name)
     assert fn.argtypes == [_CTYPES[k] for k in kinds]
     assert fn.restype is ctypes.c_int
+
+
+# K4's tensor-core tile over a bf16 and an int8 pool, and the lane
+# template over a bf16 and an int8 pool, as libcuda (mangled) and the
+# profiler (demangled) name them.
+_K4_SYMBOLS = [
+    ("_ZN5llmss12_GLOBAL__N_19paged_mmaIaLi128EEEvNS0_6ArgsI8E", "paged_mma",
+     True),
+    ("void llmss::(anonymous namespace)::paged_mma<signed char, 128>"
+     "(llmss::(anonymous namespace)::ArgsI8)", "paged_mma", True),
+    ("_ZN5llmss12_GLOBAL__N_19paged_mmaI13__nv_bfloat16Li128EEEvNS0_4ArgsE",
+     "paged_mma", False),
+    ("void llmss::(anonymous namespace)::paged_mma<__nv_bfloat16, 128>"
+     "(llmss::(anonymous namespace)::Args)", "paged_mma", False),
+    ("_ZN5llmss12_GLOBAL__N_19paged_fwdI13__nv_bfloat16aLi128ELi8EEEvNS0_"
+     "6ArgsI8E", "paged_fwd", True),
+    ("_ZN5llmss12_GLOBAL__N_19paged_fwdI13__nv_bfloat16S2_Li128ELi8EEEvNS0_"
+     "4ArgsE", "paged_fwd", False),
+]
+
+
+@pytest.mark.parametrize("name, sym, int8", _K4_SYMBOLS)
+def test_k4_kernel_symbols_are_recognised(name, sym, int8):
+    """A graph's K4 node counts for ragged_paged_attention whichever
+    instantiation it is, and chip_smoke tells the int8-pool ones apart."""
+    fn = pa.ragged_paged_attention
+    assert graphs.node_launches([name], [(fn, 1)]) == [(fn, 1)]
+    assert chip_smoke._int8_kernel(name, sym) is int8
+
+
+def test_ptxas_report_lists_both_k4_tiles():
+    """chip_smoke / kernel_ab read each tensor-core instantiation's
+    registers and spills from ``-Xptxas=-v`` output."""
+    text = "".join(
+        f"ptxas info    : Compiling entry function '{name}' for 'sm_90a'\n"
+        f"ptxas info    : Function properties for {name}\n"
+        f"    0 bytes stack frame, {sp} bytes spill stores, 0 bytes spill "
+        f"loads\nptxas info    : Used {r} registers, 16 bytes smem\n"
+        for (name, _, _), r, sp in zip(_K4_SYMBOLS[::2], (168, 154, 40),
+                                       (0, 8, 0)))
+    assert chip_smoke.mma_registers(text) == [
+        {"kernel": "paged_mmaIaLi128", "registers": 168,
+         "spill_store_bytes": 0},
+        {"kernel": "paged_mmaI13__nv_bfloat16Li128", "registers": 154,
+         "spill_store_bytes": 8}]
 
 
 def test_every_source_is_built():
@@ -306,3 +383,186 @@ def test_rounding_every_p_stays_within_rel_tol(case):
                                          c["kvp"])
     assert torch.isfinite(got).all()
     assert _ratio(got, ref, ref_abs) <= 1.0
+
+
+# -- the int8-pool tensor-core instantiation's arithmetic ---------------------
+
+# Its emulation against the plain version and the Pallas int8 branch, both
+# fp32 with P x v_scale unrounded: at most 2^-12 of the row's weighted |v|
+# before the output rounding (the two-term split errs by at most 2^-16
+# relative in each P'; the rest is fp32 summation order).
+INT8_EMU_TOL = 2.0 ** -12
+
+
+def tile_attention_int8(q, k, v, ks, vs, mask, *, pv, tile=64):
+    """The mma_int8 instantiation's arithmetic in torch, per tile of `tile`
+    keys: fp32 scores of bf16 queries and int8-valued keys (widened to bf16
+    exactly), each column times its slot's K scale, an online softmax with
+    masked probabilities exactly 0, P' = p x v_scale entering P.V as
+    `pv`: "split" hi = bf16(P') plus lo = bf16(P' - hi), the kernel's;
+    "single" bf16(P') alone; "none" P' unrounded. The row sum uses the
+    unrounded p. Returns the fp32 output before its rounding to bf16. q
+    [B, S, Hq, D]; k / v [B, T, Hkv, D] and ks / vs [B, T, Hkv] (fresh keys:
+    scale 1); mask [B, S, T]."""
+    B, S, Hq, D = q.shape
+    T, Hkv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    qf = q.reshape(B, S, Hkv, G, D) / D ** 0.5
+    m = torch.full((B, Hkv, G, S), NEG)
+    l = torch.zeros(B, Hkv, G, S)
+    o = torch.zeros(B, Hkv, G, S, D)
+    for t0 in range(0, T, tile):
+        cols = slice(t0, t0 + tile)
+        vis = mask[:, None, None, :, cols]
+        s = torch.einsum("bskgd,btkd->bkgst", qf, k[:, cols])
+        s = s * ks[:, cols].permute(0, 2, 1)[:, :, None, None, :]
+        s = s.masked_fill(~vis, NEG)
+        mx = torch.maximum(m, s.amax(-1))
+        alpha = torch.exp(m - mx)
+        p = torch.exp(s - mx[..., None]).masked_fill(~vis, 0.0)
+        l = l * alpha + p.sum(-1)
+        pv_ = p * vs[:, cols].permute(0, 2, 1)[:, :, None, None, :]
+        if pv == "split":
+            hi = pv_.to(torch.bfloat16).float()
+            pv_ = hi + (pv_ - hi).to(torch.bfloat16).float()
+        elif pv == "single":
+            pv_ = pv_.to(torch.bfloat16).float()
+        o = o * alpha[..., None] + torch.einsum("bkgst,btkd->bkgsd", pv_,
+                                                v[:, cols])
+        m = mx
+    out = o / torch.where(l == 0, 1.0, l)[..., None]
+    return out.permute(0, 3, 1, 2, 4).reshape(B, S, Hq, D)
+
+
+def _k4_int8_emulated(c, pv):
+    """tile_attention_int8 over a K4 case with an int8 pool (``k8``,
+    ``v8``, ``ks``, ``vs``, layer ``layer``): the rows' gathered logical
+    slots, padded with hidden slots to whole 64-slot tiles, then the fresh
+    keys as trailing tiles, as the kernel walks them."""
+    B, CB = c["q"].shape[:2]
+    rel = torch.arange(CB, dtype=torch.int32)
+    qpos = c["qpos"][:, None] + rel[None, :]
+    vis = tatt.ragged_cache_visibility(c["qlen"], c["kvp"], c["slot0"], c["ring"])
+    cache = vis[:, None, :] & (c["kvp"][:, None, :] <= qpos[:, :, None])
+    fresh = (rel[None, :, None] >= rel[None, None, :]) & (
+        rel[None, None, :] < c["qlen"][:, None, None])
+    pad = -c["ring"] % 64
+
+    def view(pool, fresh):
+        v = gather_block_view(pool[c["layer"]], c["bt"]).float()
+        return torch.cat([v, torch.zeros((B, pad) + v.shape[2:]), fresh], 1)
+
+    ones = torch.ones(c["kn"].shape[:3])  # the fresh keys' scales
+    k, v = view(c["k8"], c["kn"]), view(c["v8"], c["vn"])
+    ks, vs = view(c["ks"], ones), view(c["vs"], ones)
+    mask = torch.cat([cache, torch.zeros(B, CB, pad, dtype=torch.bool), fresh], 2)
+    return tile_attention_int8(c["q"], k, v, ks, vs, mask, pv=pv)
+
+
+def _k4_int8_plain(c, v8, vn):
+    return pa.ragged_paged_attention_ref(
+        c["q"], c["k8"], v8, c["kn"], vn, c["qpos"], c["qlen"], c["kvp"],
+        c["bt"], c["nblk"], c["slot0"], c["layer"], k_scale=c["ks"],
+        v_scale=c["vs"])
+
+
+def _k4_int8_serve_mixed():
+    """_k4_serve_mixed with its pools quantized (the engine's
+    ``quantize_kv``), as chip_smoke's k4_int8_serve_mixed at 2 heads."""
+    c = _k4_serve_mixed()
+    (c["k8"], c["ks"]), (c["v8"], c["vs"]) = quantize_kv(c["kp"]), quantize_kv(c["vp"])
+    c["layer"] = 0
+    return c
+
+
+def _int8_ratio(got, ref, ref_abs, live):
+    """Worst |got - ref| over its INT8_EMU_TOL bound on the live rows."""
+    tol = INT8_EMU_TOL * ref_abs + 1e-6
+    return ((got - ref).abs() / tol)[live].max().item()
+
+
+def test_int8_emulation_matches_the_plain_version():
+    """At k4_serve_mixed's int8 form the split P' stays within
+    INT8_EMU_TOL x the weighted |v| of the fp32 plain version with scales;
+    rounded to bf16, within the card's REL_TOL[bf16]. Unrounded, the
+    emulation's tile loop is the plain version's function (1e-5)."""
+    c = _k4_int8_serve_mixed()
+    live = torch.arange(c["q"].shape[1])[None, :] < c["qlen"][:, None]
+    ref = _k4_int8_plain(c, c["v8"], c["vn"])
+    ref_abs = _k4_int8_plain(c, c["v8"].abs(), c["vn"].abs())
+    torch.testing.assert_close(_k4_int8_emulated(c, "none")[live], ref[live],
+                               rtol=1e-5, atol=1e-5)
+    got = _k4_int8_emulated(c, "split")
+    assert torch.isfinite(got).all()
+    assert _int8_ratio(got, ref, ref_abs, live) <= 1.0
+    assert _ratio(got.to(torch.bfloat16).float()[live], ref[live],
+                  ref_abs[live]) <= 1.0
+
+
+def test_int8_emulation_matches_the_pallas_int8_branch():
+    """test_torch_int8.py's Pallas int8 case (L 2, 16 blocks of 8, Hkv 2,
+    Hq 4, D 128, chunks of 4: a partial tail block, an empty row whose
+    whole prompt is in its chunk, a decode row crossing a block boundary),
+    from the same seed, with q and the fresh K/V rounded to bf16 (the
+    values the kernel takes) on both sides. The Pallas kernel runs in
+    interpret mode; live rows agree within INT8_EMU_TOL x the weighted
+    |v| (plain version on |v|)."""
+    Lp, Np, bs, Hkv, Hq, D, B, MBp, CB = 2, 16, 8, 2, 4, 128, 3, 4, 4
+    ring = MBp * bs
+    ctx, qlen = np.array([13, 0, 27]), np.array([3, 4, 1], np.int32)
+    bt = np.asarray([[1, 5, 9, 13], [2, 6, 10, 14], [3, 7, 11, 15]], np.int32)
+    rng = np.random.default_rng(1)
+    k8 = rng.integers(-127, 127, size=(Lp, Np, bs, Hkv, D)).astype(np.int8)
+    v8 = rng.integers(-127, 127, size=(Lp, Np, bs, Hkv, D)).astype(np.int8)
+    ks = rng.uniform(0.01, 0.03, size=(Lp, Np, bs, Hkv)).astype(np.float32)
+    vs = rng.uniform(0.01, 0.03, size=(Lp, Np, bs, Hkv)).astype(np.float32)
+    nblk = np.asarray([max(-(-int(c + q) // bs), 1) for c, q in zip(ctx, qlen)],
+                      np.int32)
+    kvp = np.full((B, ring), -1, np.int32)
+    for b in range(B):
+        kvp[b, :ctx[b]] = np.arange(ctx[b])
+
+    def bf16(*shape):
+        x = torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+        return x.to(torch.bfloat16).float().numpy()
+
+    q, kn, vn = bf16(B, CB, Hq, D), bf16(B, CB, Hkv, D), bf16(B, CB, Hkv, D)
+    q_pos = ctx.astype(np.int32)
+    slot0 = (ctx % ring).astype(np.int32)
+    want = np.asarray(pallas_ragged.ragged_paged_attention(
+        jnp.asarray(q), jnp.asarray(k8), jnp.asarray(v8), jnp.asarray(kn),
+        jnp.asarray(vn), jnp.asarray(q_pos), jnp.asarray(qlen),
+        jnp.asarray(kvp), jnp.asarray(bt), jnp.asarray(nblk),
+        jnp.asarray(slot0), jnp.int32(1), k_scale_pool=jnp.asarray(ks),
+        v_scale_pool=jnp.asarray(vs), interpret=True))
+    T = torch.from_numpy
+
+    def drop_block(x, fill):  # the port's pool has block N for dropped writes
+        pad = np.full((Lp, 1) + x.shape[2:], fill, x.dtype)
+        return T(np.concatenate([x, pad], 1))
+
+    c = dict(q=T(q), kn=T(kn), vn=T(vn), k8=drop_block(k8, 127),
+             v8=drop_block(v8, 127), ks=drop_block(ks, 1e4),
+             vs=drop_block(vs, 1e4), qpos=T(q_pos), qlen=T(qlen), kvp=T(kvp),
+             bt=T(bt), nblk=T(nblk), slot0=T(slot0), ring=ring, layer=1)
+    live = torch.arange(CB)[None, :] < c["qlen"][:, None]
+    got = _k4_int8_emulated(c, "split")
+    ref_abs = _k4_int8_plain(c, c["v8"].abs(), c["vn"].abs())
+    assert _int8_ratio(got, T(want), ref_abs, live) <= 1.0
+
+
+def test_int8_single_rounding_errs_more_than_the_split():
+    """The reason for the two-term P': at k4_serve_mixed's int8 form one
+    bf16 rounding of P' x V (the bf16 tile's arithmetic) misses the
+    INT8_EMU_TOL bound that the split meets, and errs by at least 64 times
+    more against the fp32 plain version."""
+    c = _k4_int8_serve_mixed()
+    live = torch.arange(c["q"].shape[1])[None, :] < c["qlen"][:, None]
+    ref = _k4_int8_plain(c, c["v8"], c["vn"])
+    ref_abs = _k4_int8_plain(c, c["v8"].abs(), c["vn"].abs())
+    split = _k4_int8_emulated(c, "split")
+    single = _k4_int8_emulated(c, "single")
+    assert _int8_ratio(split, ref, ref_abs, live) <= 1.0
+    assert _int8_ratio(single, ref, ref_abs, live) > 1.0
+    err = [(x - ref)[live].abs().max().item() for x in (split, single)]
+    assert err[1] >= 64 * err[0]
