@@ -7,7 +7,11 @@ exits non-zero without printing a result:
 
 1. device  -- needs CUDA; prints the card's name and power limit;
 2. build   -- compiles every kernel of the path (one nvcc per source, in
-              parallel) from the sources in this checkout;
+              parallel) from the sources in this checkout, lists the
+              registers and spills of the tensor-core, decode and int8
+              lane instantiations, and fails if the int8 lane
+              instantiations' SASS holds a conversion instruction other
+              than an integer division's (cuobjdump);
 3. kernels -- K1 (prefill flash attention), K2 (stacked-cache decode), K3
               (paged decode) and K4 (ragged paged attention) against their
               plain PyTorch versions on the card, at the Llama-2-7B path
@@ -23,7 +27,8 @@ exits non-zero without printing a result:
               and K4 also over int8 caches with their scales
               ("lanes_int8"; K4 with bf16 queries at CB > 1 "mma_int8",
               the tensor-core tile over int8 tiles; library: dequantize
-              + SDPA);
+              + SDPA), with K2 / K3 int8 over K2 / K3 at the main path's
+              decode shapes ("int8_lanes_vs_bf16", a measurement);
 4. reference -- a tiny fp32 llama generates the same greedy tokens through
               the kernels on the card, decoding by CUDA-graph replays, as
               through the plain path on the CPU;
@@ -81,6 +86,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -228,6 +234,40 @@ def ptxas_entries(text: str) -> list[tuple[str, int, int]]:
         r"Used (\d+) registers", text)]
 
 
+# The lane template's instantiations over an int8 cache (KV = signed char,
+# mangled "a"), fp32 or bf16 queries.
+INT8_LANE = re.compile(r"_fwdI(?:f|13__nv_bfloat16)aLi")
+
+
+def int8_lane_conversions() -> tuple[dict, dict] | None:
+    """Integer-to-float conversions (I2F, I2FP) in the int8 lane-template
+    instantiations' SASS (``cuobjdump -sass`` of the built libraries):
+    (per instantiation, those that are not part of an integer division,
+    whose reciprocal is an I2F.U32.RP; every form's count over all of
+    them). The int8 rows are widened with byte permutes and fp32 adds, so
+    the first must be all 0. None when the toolkit has no cuobjdump."""
+    from llmss_tpu_torch.ops import _build
+
+    tool = Path(_build._nvcc()).parent / "cuobjdump"
+    if not tool.exists():
+        return None
+    found, forms = {}, {}
+    for name in ("decode_attention", "paged_attention"):
+        sass = subprocess.run(
+            [str(tool), "-sass", str(_build.BUILD_DIR / f"lib{name}.so")],
+            capture_output=True, text=True, check=True, timeout=300).stdout
+        parts = re.split(r"Function : (\S+)", sass)
+        for fn, body in zip(parts[1::2], parts[2::2]):
+            if INT8_LANE.search(fn):
+                ops = re.findall(r"\bI2FP?(?:\.\w+)*", body)
+                for op in ops:
+                    forms[op] = forms.get(op, 0) + 1
+                found[fn] = sum(not op.endswith(".RP") for op in ops)
+    if not found:
+        raise AssertionError("no int8 lane-template instantiation in the SASS")
+    return found, forms
+
+
 def mma_registers(text: str) -> list[dict]:
     """The tensor-core instantiations' registers and spills."""
     return [{"kernel": k, "registers": r, "spill_store_bytes": sp}
@@ -241,10 +281,13 @@ def phase_build() -> None:
     text = "\n".join(out.values())
     regs = [int(n) for n in re.findall(r"Used (\d+) registers", text)]
     spills = [int(n) for n in re.findall(r"(\d+) bytes spill stores", text)]
-    # Listed: the tensor-core instantiations, and the bf16-query D 128
-    # lane-template ones (over bf16 or int8 caches) and merge ones that the
-    # decode paths run.
+    # Listed: the tensor-core instantiations, the bf16-query D 128
+    # lane-template ones and merge ones that the decode paths run, and
+    # every int8 lane-template one.
     entries = ptxas_entries(text)
+    conv, forms = int8_lane_conversions() or (None, None)
+    if conv and any(conv.values()):
+        raise AssertionError(f"int8 lane instantiations convert: {conv}")
     emit({"phase": "build", "seconds": round(secs, 3),
           "sources": sorted(out), "max_registers": max(regs, default=None),
           "kernels_with_spills": sum(1 for n in spills if n > 0),
@@ -252,7 +295,10 @@ def phase_build() -> None:
           "decode_instantiations": [
               {"kernel": k, "registers": r, "spill_store_bytes": sp}
               for k, sp, r in entries if "_mma" not in k
-              and re.search(r"nv_bfloat16(?:S\d_|a)?Li128", k)],
+              and (re.search(r"nv_bfloat16(?:S\d_|a)?Li128", k)
+                   or INT8_LANE.search(k))],
+          "int8_lane_conversions": None if conv is None else sum(conv.values()),
+          "int8_lane_i2f_forms": forms,
           "spilling": [{"kernel": k, "spill_store_bytes": sp}
                        for k, sp, _ in entries if sp > 0]})
 
@@ -935,6 +981,14 @@ def check_paged_kernels(out: dict) -> None:
           "cases": {k: {"ms": a, "library_ms": b}
                     for k, (a, b) in out["vs_library"].items()},
           "all_below": all(a < b for a, b in out["vs_library"].values())})
+    # A measurement too: the int8 lanes' time over the compute-dtype
+    # lanes' at the main path's decode shapes, from this run.
+    emit({"phase": "kernel", "check": "int8_lanes_vs_bf16", **{
+        f"{k}_int8_over_{k}": {
+            "cases": [out[f"{k}_int8"]["case"], out[k]["case"]],
+            "ms": [out[f"{k}_int8"]["ms"], out[k]["ms"]],
+            "ratio": out[f"{k}_int8"]["ms"] / out[k]["ms"]}
+        for k in ("K2", "K3")}})
 
 
 # -- phase 4 -------------------------------------------------------------------

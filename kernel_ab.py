@@ -7,25 +7,29 @@ events).
                          [--registers]
 
 (default: those four and the int8-cache cases K2_int8,K3_int8,K4_int8;
-``--registers``: build with ``-Xptxas=-v`` and print the tensor-core
-instantiations' registers and spills first)
+``--registers``: build with ``-Xptxas=-v`` and print the registers and
+spills of the tensor-core and lane-template instantiations first)
 
 ``--tree`` is a checkout of the repo whose ``llmss_tpu_torch`` is built
 and timed (default: this one). The cases and the timer always come from
 this checkout, so two trees timed by it differ only in their package. To
 compare two trees, run them in turns on one card (A, B, B, A). Prints the
 device line (with the card's name and power limit), one JSON line per
-case, and last a JSON line with every case's ms; exits non-zero without a
-GPU.
+case, and last a JSON line with every case's ms and the sha256 of its
+output's bytes (equal digests: the two trees' kernels agree bit for bit on
+that case); exits non-zero without a GPU.
 """
 
 from __future__ import annotations
 
 import argparse
+import hashlib
 import importlib.util
 import json
 import sys
 from pathlib import Path
+
+import torch
 
 ROOT = Path(__file__).resolve().parent
 
@@ -34,6 +38,12 @@ def _scales(c):
     """An int8 case's scale arguments; none for a case over a cache of the
     query's dtype, so a tree without the int8 cache times those too."""
     return {} if c["ks"] is None else dict(k_scale=c["ks"], v_scale=c["vs"])
+
+
+def digest(out) -> str:
+    """sha256 of a kernel output's bytes."""
+    raw = out.contiguous().view(-1).view(torch.uint8).cpu().numpy()
+    return hashlib.sha256(raw.tobytes()).hexdigest()
 
 
 def _cases(cs, da, fa, pa, kernels):
@@ -84,7 +94,8 @@ def main() -> int:
                          "K3_int8, K4_int8: the int8-cache cases, which an "
                          "older tree cannot run)")
     ap.add_argument("--registers", action="store_true",
-                    help="build verbose and print the mma kernels' registers")
+                    help="build verbose and print the tensor-core and lane "
+                         "kernels' registers")
     args = ap.parse_args()
     tree = Path(args.tree).resolve()
     sys.path.insert(0, str(tree))
@@ -105,16 +116,20 @@ def main() -> int:
     secs, out = _build.build_all(verbose=args.registers)
     tag = {"label": args.label, "tree": str(tree)}
     cs.emit({"phase": "build", **tag, "seconds": round(secs, 3),
-             **({"mma_instantiations": cs.mma_registers("\n".join(out.values()))}
-                if args.registers else {})})
-    times = {}
+             **({"instantiations": [
+                 {"kernel": k, "registers": r, "spill_store_bytes": sp}
+                 for k, sp, r in cs.ptxas_entries("\n".join(out.values()))
+                 if "split_merge" not in k]} if args.registers else {})})
+    times, digests = {}, {}
     for kernel, case, fn, iters in _cases(cs, da, fa, pa,
                                                args.kernels.split(",")):
+        digests[case] = digest(fn())
         ms = cs.device_ms(fn, iters=iters)
         times[case] = ms
         cs.emit({"phase": "kernel", **tag, "kernel": kernel, "case": case,
-                 "ms": ms})
-    print(json.dumps({"ab": {**tag, "ms": times}}), flush=True)
+                 "ms": ms, "digest": digests[case]})
+    print(json.dumps({"ab": {**tag, "ms": times, "digest": digests}}),
+          flush=True)
     return 0
 
 

@@ -33,10 +33,6 @@ template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 x
 template <> __device__ __forceinline__ float to_f<__half>(__half x) {
   return __half2float(x);
 }
-// Exact: every int8 value is an fp32 value.
-template <> __device__ __forceinline__ float to_f<int8_t>(int8_t x) {
-  return static_cast<float>(x);
-}
 
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
@@ -79,16 +75,22 @@ template <> struct Vec8<float> {
   }
 };
 
-// Eight int8 values read with one 8-byte load.
+// Eight int8 values (a lane's 8 bytes of an int8 KV row, read back from
+// the lane template's ring), widened to fp32 without a conversion
+// instruction (I2F runs at a quarter of the FMA rate or less): byte x ^
+// 0x80 (x + 128) as the low byte of the fp32 2^23 + x + 128, minus 2^23 +
+// 128, is x, exactly (attn_tile_i8.cuh widen16's fp32 step).
 template <> struct Vec8<int8_t> {
   uint2 raw;
-  __device__ __forceinline__ void load(const int8_t* p) {
-    raw = __ldg(reinterpret_cast<const uint2*>(p));
-  }
   __device__ __forceinline__ void to_float(float out[8]) const {
-    const int8_t* e = reinterpret_cast<const int8_t*>(&raw);
+    const uint32_t w[2] = {raw.x ^ 0x80808080u, raw.y ^ 0x80808080u};
 #pragma unroll
-    for (int i = 0; i < 8; ++i) out[i] = to_f<int8_t>(e[i]);
+    for (int i = 0; i < 2; ++i) {
+#pragma unroll
+      for (int b = 0; b < 4; ++b)
+        out[4 * i + b] =
+            __uint_as_float(__byte_perm(w[i], 0x4B000000u, 0x7650 + b)) - 8388736.f;
+    }
   }
 };
 

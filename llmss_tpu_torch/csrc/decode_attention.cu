@@ -22,7 +22,12 @@
 // and P by its V scale before P.V, in fp32 (P is not rounded); the fresh
 // token's score and value are not scaled, and the split partials and
 // split_merge.cuh are unchanged. The int8 rows halve the bytes a slot
-// moves; each lane also copies the slot's two fp32 scales into its ring.
+// moves, in one 16-byte copy per lane and step: each lane copies a 16-byte
+// chunk of the slot's K or V row and reads its 8 bytes of each back from
+// its pair's chunks; a slot's two fp32 scales are copied once per window,
+// by a lane of its warp; and each V row is widened once per step for all
+// query heads, with byte permutes and fp32 adds instead of conversions
+// (csrc/split_merge.cuh LaneRing<int8_t>, csrc/common.cuh Vec8<int8_t>).
 //
 // What bounds it on the H100: memory. Each (row, kv head) streams
 // t_len * D keys and values once and does ~4 flops per element for each of
@@ -50,10 +55,11 @@
 //     outside the window: -1), are staged in shared memory, so no K/V
 //     load waits on a position load;
 //   * each warp streams its slots' K and V rows through its own cp.async
-//     ring of 4 stages in shared memory (csrc/split_merge.cuh LaneRing):
-//     three stages' loads are in flight while one is computed, and they
-//     hold no registers, so the MHA instantiations fit three blocks on an
-//     SM; a step no lane of the warp sees is skipped;
+//     ring of 4 stages (6 over an int8 cache) in shared memory (csrc/
+//     split_merge.cuh LaneRing): the loads of all but one stage are in
+//     flight while one is computed, and they hold no registers, so the
+//     MHA instantiations fit three blocks on an SM; a step no lane of the
+//     warp sees is skipped;
 //   * every half-warp (D = 128) keeps its own running max / sum / output
 //     over the slots it read; the partial states merge by shuffles, then
 //     through shared memory (reusing the rings). At S = 1 the block folds
@@ -117,6 +123,7 @@ __global__ void __launch_bounds__(NT, kLaneMinBlocks<T, GB>) decode_fwd(ArgsOf<K
   using C = Cfg<KV, D, GB>;
   using Ring = LaneRing<KV>;
   constexpr int LPS = C::LPS, SPW = C::SPW;
+  static_assert(!kQuant<KV> || NWARP * LaneRing<int8_t>::SCALE_SLOTS >= kStage);
   extern __shared__ __align__(16) float smem[];
   float* s_acc = smem;                       // [NWARP][GB][D], after the KV loop
   float* s_m = smem + C::region / sizeof(float);  // [NWARP][GB]
@@ -182,10 +189,14 @@ __global__ void __launch_bounds__(NT, kLaneMinBlocks<T, GB>) decode_fwd(ArgsOf<K
   }
   char* wring = reinterpret_cast<char*>(smem) + warp * Ring::WARP_BYTES;
   float ksc[kSteps], vsc[kSteps];  // int8 only: the step's slots' scales
+  int st8 = 0;  // int8 only: the ring stage step() reads its V rows from
+  // int8 only: the start of this lane's 16-byte copies, the K row (even
+  // lane) or V row (odd) of its pair of lanes, less the slot's offset.
+  const KV* src8 = lane & 1 ? vc + (base - 8) : kc + base;
 
   // Fold one step's slots (K/V rows and, int8, their scales read back
-  // from the ring) into each head's running softmax; ok[u]: slot u is
-  // visible.
+  // from the ring; int8: its V rows read here) into each head's running
+  // softmax; ok[u]: slot u is visible.
   auto step = [&](const Vec8<KV>(&kv)[kSteps], const Vec8<KV>(&vv)[kSteps],
                   const bool(&ok)[kSteps]) {
     float s[kSteps][GB];
@@ -210,34 +221,63 @@ __global__ void __launch_bounds__(NT, kLaneMinBlocks<T, GB>) decode_fwd(ArgsOf<K
         }
       }
     }
+    if constexpr (kQuant<KV>) {
+      // int8: every head's rescale first, then slot by slot, so that each
+      // V row is widened once for all of them (per head, the same
+      // operations in the same order as below). P times the slot's V
+      // scale, in fp32, as the oracle's P.V.
 #pragma unroll
-    for (int g = 0; g < GB; ++g) {
-      float m_new = m[g];
+      for (int g = 0; g < GB; ++g) {
+        float m_new = m[g];
 #pragma unroll
-      for (int u = 0; u < kSteps; ++u) m_new = fmaxf(m_new, s[u][g]);
-      if (m_new == kNegInf) continue;  // nothing visible yet in this stream
-      const float alpha = expf(m[g] - m_new);
-      l[g] *= alpha;
+        for (int u = 0; u < kSteps; ++u) m_new = fmaxf(m_new, s[u][g]);
+        if (m_new == kNegInf) continue;  // nothing visible yet in this stream
+        const float alpha = expf(m[g] - m_new);
+        l[g] *= alpha;
 #pragma unroll
-      for (int e = 0; e < 8; ++e) acc[g][e] *= alpha;
+        for (int e = 0; e < 8; ++e) acc[g][e] *= alpha;
+        m[g] = m_new;
+      }
 #pragma unroll
       for (int u = 0; u < kSteps; ++u) {
         if (!ok[u]) continue;  // masked slots contribute exactly 0
-        const float p = expf(s[u][g] - m_new);
-        l[g] += p;
-        // int8: P times the slot's V scale, in fp32, as the oracle's P.V.
-        float pr;
-        if constexpr (kQuant<KV>) {
-          pr = p * vsc[u];
-        } else {
-          pr = round_to<KV>(p);
-        }
         float vf[8];
-        vv[u].to_float(vf);
+        Vec8<KV> v8;
+        ring_get(v8, wring, st8, u, 1, lane);
+        v8.to_float(vf);
 #pragma unroll
-        for (int e = 0; e < 8; ++e) acc[g][e] = fmaf(pr, vf[e], acc[g][e]);
+        for (int g = 0; g < GB; ++g) {
+          const float p = expf(s[u][g] - m[g]);
+          l[g] += p;
+          const float pr = p * vsc[u];
+#pragma unroll
+          for (int e = 0; e < 8; ++e) acc[g][e] = fmaf(pr, vf[e], acc[g][e]);
+        }
       }
-      m[g] = m_new;
+    } else {
+#pragma unroll
+      for (int g = 0; g < GB; ++g) {
+        float m_new = m[g];
+#pragma unroll
+        for (int u = 0; u < kSteps; ++u) m_new = fmaxf(m_new, s[u][g]);
+        if (m_new == kNegInf) continue;  // nothing visible yet in this stream
+        const float alpha = expf(m[g] - m_new);
+        l[g] *= alpha;
+#pragma unroll
+        for (int e = 0; e < 8; ++e) acc[g][e] *= alpha;
+#pragma unroll
+        for (int u = 0; u < kSteps; ++u) {
+          if (!ok[u]) continue;  // masked slots contribute exactly 0
+          const float p = expf(s[u][g] - m_new);
+          l[g] += p;
+          const float pr = round_to<KV>(p);
+          float vf[8];
+          vv[u].to_float(vf);
+#pragma unroll
+          for (int e = 0; e < 8; ++e) acc[g][e] = fmaf(pr, vf[e], acc[g][e]);
+        }
+        m[g] = m_new;
+      }
     }
   };
 
@@ -265,22 +305,39 @@ __global__ void __launch_bounds__(NT, kLaneMinBlocks<T, GB>) decode_fwd(ArgsOf<K
         for (int u = 0; u < kSteps; ++u) {
           const int t = slot_of(i, u);
           if (t < w1 && s_pos[t - w0] >= 0) {
-            const long long off = base + (long long)t * row_stride;
-            Ring::put(wring, i % Ring::STAGES, u, lane, kc + off, vc + off);
-            if constexpr (kQuant<KV>) {  // the slot's scales: [L, B, T, Hkv]
-              const long long so = (((long long)a.layer * a.B + b) * a.Tn + t) * a.Hkv + hk;
-              Ring::put_scales(wring, i % Ring::STAGES, u, lane, a.ks + so, a.vs + so);
+            if constexpr (kQuant<KV>) {
+              Ring::put(wring, i % Ring::STAGES, u, lane, src8 + (long long)t * row_stride);
+            } else {
+              const long long off = base + (long long)t * row_stride;
+              Ring::put(wring, i % Ring::STAGES, u, lane, kc + off, vc + off);
             }
           }
         }
       }
       tile::cp_async_commit();  // empty past the window: keeps the count
     };
+    if constexpr (kQuant<KV>) {
+      // The scales ([L, B, T, Hkv]) of this warp's visible slots of the
+      // window, lane j its slots j, j + 32, ... (k-th: step k / SPW, sub k %
+      // SPW), in issue(0)'s group (csrc/split_merge.cuh LaneRing<int8_t>).
+      const long long s0 = ((long long)a.layer * a.B + b) * a.Tn * a.Hkv + hk;
+      for (int k = lane; k < n_st * kSteps * SPW; k += 32) {
+        const int t = w0 + (k / SPW) * C::STEP + warp * SPW + k % SPW;
+        if (t < w1 && s_pos[t - w0] >= 0) {
+          const long long so = s0 + (long long)t * a.Hkv;
+          Ring::put_scales(wring, k, a.ks + so, a.vs + so);
+        }
+      }
+    }
 #pragma unroll
     for (int i = 0; i < Ring::STAGES - 1; ++i) issue(i);
     for (int i = 0; i < n_st; ++i) {
+      // int8: every lane of the warp is done reading the stage issue()
+      // copies into (csrc/split_merge.cuh has the ordering argument).
+      if constexpr (kQuant<KV>) __syncwarp();
       issue(i + Ring::STAGES - 1);
       tile::cp_async_wait<Ring::STAGES - 1>();  // this lane's stage i landed
+      if constexpr (kQuant<KV>) __syncwarp();  // int8: and every lane's
       Vec8<KV> kv[kSteps], vv[kSteps];
       bool ok[kSteps];
 #pragma unroll
@@ -289,13 +346,15 @@ __global__ void __launch_bounds__(NT, kLaneMinBlocks<T, GB>) decode_fwd(ArgsOf<K
         ok[u] = t < w1 && s_pos[t - w0] >= 0;
         if (ok[u]) {
           ring_get(kv[u], wring, i % Ring::STAGES, u, 0, lane);
-          ring_get(vv[u], wring, i % Ring::STAGES, u, 1, lane);
+          // int8: step() reads the V row where it widens it.
+          if constexpr (!kQuant<KV>) ring_get(vv[u], wring, i % Ring::STAGES, u, 1, lane);
           if constexpr (kQuant<KV>) {
-            ksc[u] = *Ring::scale_at(wring, i % Ring::STAGES, u, 0, lane);
-            vsc[u] = *Ring::scale_at(wring, i % Ring::STAGES, u, 1, lane);
+            ksc[u] = *Ring::scale_at(wring, 0, (i * kSteps + u) * SPW + sub);
+            vsc[u] = *Ring::scale_at(wring, 1, (i * kSteps + u) * SPW + sub);
           }
         }
       }
+      if constexpr (kQuant<KV>) st8 = i % Ring::STAGES;
       bool any = false;
 #pragma unroll
       for (int u = 0; u < kSteps; ++u) any |= ok[u];

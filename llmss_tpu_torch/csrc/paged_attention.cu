@@ -91,11 +91,12 @@
 //     dependent loads per slot; each ring stage issues its K/V copies at
 //     once;
 //   * each warp streams its slots' K and V rows through its own cp.async
-//     ring of 4 stages in shared memory (csrc/split_merge.cuh LaneRing):
-//     three stages' loads are in flight while one is computed, and they
-//     hold no registers, so the MHA instantiation fits three blocks on an
-//     SM; slots no row of the tile can see are not copied, and a step no
-//     lane of the warp sees is skipped;
+//     ring of 4 stages (6 over an int8 cache) in shared memory (csrc/
+//     split_merge.cuh LaneRing): the loads of all but one stage are in
+//     flight while one is computed, and they hold no registers, so the
+//     MHA instantiation fits three blocks on an SM; slots no row of the
+//     tile can see are not copied, and a step no lane of the warp sees is
+//     skipped;
 //   * every lane group keeps its own running softmax per query row; the
 //     partial states merge by shuffles, then through shared memory
 //     (reusing the rings). At S = 1 the block folds in the fresh keys
@@ -110,8 +111,11 @@
 // kernel's int8 branch. Each slot's score is multiplied by its K scale
 // after the Q.K dot and before the mask; P is multiplied by the V scale
 // and P.V runs in fp32 (P is not rounded). The fresh keys come from k_new
-// / v_new in the query's dtype and are not scaled. Each lane copies its
-// slot's two scales into its ring beside its 8-byte K and V chunks. fp32
+// / v_new in the query's dtype and are not scaled. The int8 rows move in
+// one 16-byte copy per lane and step, a slot's two scales in one copy each
+// per window, and each V row is widened once per step for all query rows,
+// without conversion instructions (csrc/split_merge.cuh LaneRing<int8_t>,
+// csrc/common.cuh Vec8<int8_t>). fp32
 // queries stay here at CB > 1 (the tensor cores would mean TF32); at CB
 // == 1 (K3 over an int8 pool) it computes what the reference's oracle
 // paged_decode_attention(k_scale_layer=) does (the Pallas K3 takes no
@@ -183,6 +187,7 @@ __global__ void __launch_bounds__(NT, kLaneMinBlocks<T, R>) paged_fwd(ArgsOf<KV>
   using C = Cfg<KV, D, R>;
   using Ring = LaneRing<KV>;
   constexpr int LPS = C::LPS, SPW = C::SPW;
+  static_assert(!kQuant<KV> || NWARP * LaneRing<int8_t>::SCALE_SLOTS >= kStage);
   extern __shared__ __align__(16) float smem[];
   float* s_acc = smem;                  // [NWARP][R][D], after the KV loop
   float* s_m = smem + C::region / sizeof(float);  // [NWARP][R]
@@ -239,7 +244,7 @@ __global__ void __launch_bounds__(NT, kLaneMinBlocks<T, R>) paged_fwd(ArgsOf<KV>
   // used: the row's scalars, its query rows, and the first window's
   // positions and table entries (kStage / NT and one per thread).
   constexpr int PPT = kStage / NT;
-  int pv[PPT], bv = 0;
+  int pv[PPT], bv = 0, pb[PPT];  // pb: int8 only
   auto load_window = [&](int w0, int ws1) {
 #pragma unroll
     for (int j = 0; j < PPT; ++j) {
@@ -248,6 +253,13 @@ __global__ void __launch_bounds__(NT, kLaneMinBlocks<T, R>) paged_fwd(ArgsOf<KV>
     }
     const int c = w0 / a.bs + threadIdx.x;
     if (c <= (ws1 - 1) / a.bs) bv = bt[c];
+    if constexpr (kQuant<KV>) {  // the blocks of this thread's slots, for their scales
+#pragma unroll
+      for (int j = 0; j < PPT; ++j) {
+        const int t = w0 + j * NT + threadIdx.x;
+        pb[j] = t < ws1 ? bt[t / a.bs] : 0;
+      }
+    }
   };
   const int qp = a.qpos[b];
   const int ql = a.qlen ? a.qlen[b] : 1;
@@ -305,11 +317,18 @@ __global__ void __launch_bounds__(NT, kLaneMinBlocks<T, R>) paged_fwd(ArgsOf<KV>
       (long long)a.layer * a.Np * blk_stride + (long long)hk * D + e0;
   const int last_blk = a.Np - 2;  // N - 1: block N is the write drop target
   char* wring = reinterpret_cast<char*>(smem) + warp * Ring::WARP_BYTES;
-  float ksc[kSteps], vsc[kSteps];  // int8 only: the step's slots' scales
+  // int8 only: the ring stage step() reads its V rows from, and the index
+  // of its first slot in the window's scales (read where they are used:
+  // held from the read-back, they raised the R = 2 instantiations' spills
+  // at their 80 registers).
+  int st8 = 0, sk = 0;
+  // int8 only: the start of this lane's 16-byte copies, the K row (even
+  // lane) or V row (odd) of its pair of lanes, less the slot's offset.
+  const KV* src8 = lane & 1 ? vp + (base - 8) : kp + base;
 
-  // Fold one step's slots (K/V rows and, int8, their scales read back from
-  // the ring) into each row's running softmax; pp[u] < 0: no row of the
-  // tile sees slot u.
+  // Fold one step's slots (K/V rows read back from the ring; int8: K rows,
+  // its V rows and scales read here) into each row's running softmax;
+  // pp[u] < 0: no row of the tile sees slot u.
   auto step = [&](const Vec8<KV>(&kv)[kSteps], const Vec8<KV>(&vv)[kSteps],
                   const int(&pp)[kSteps]) {
     float s[kSteps][R];
@@ -330,41 +349,70 @@ __global__ void __launch_bounds__(NT, kLaneMinBlocks<T, R>) paged_fwd(ArgsOf<KV>
         const bool vis = pp[u] >= 0 && live[r] && pp[u] <= qp + qi[r] &&
                          (a.window <= 0 || pp[u] > qp + qi[r] - a.window);
         if constexpr (kQuant<KV>) {
-          s[u][r] = vis ? d * a.scale * ksc[u] : kNegInf;
+          s[u][r] = vis ? d * a.scale * *Ring::scale_at(wring, 0, sk + u * SPW) : kNegInf;
         } else {
           s[u][r] = vis ? d * a.scale : kNegInf;
         }
       }
     }
+    if constexpr (kQuant<KV>) {
+      // int8: every row's rescale first, then slot by slot, so that each
+      // V row is widened once for all of them (per row, the same
+      // operations in the same order as below). P times the slot's V
+      // scale, in fp32, as the Pallas int8 branch's P.V.
 #pragma unroll
-    for (int r = 0; r < R; ++r) {
-      float m_new = m[r];
+      for (int r = 0; r < R; ++r) {
+        float m_new = m[r];
 #pragma unroll
-      for (int u = 0; u < kSteps; ++u) m_new = fmaxf(m_new, s[u][r]);
-      if (m_new == kNegInf) continue;  // nothing visible yet in this stream
-      const float alpha = expf(m[r] - m_new);
-      l[r] *= alpha;
+        for (int u = 0; u < kSteps; ++u) m_new = fmaxf(m_new, s[u][r]);
+        if (m_new == kNegInf) continue;  // nothing visible yet in this stream
+        const float alpha = expf(m[r] - m_new);
+        l[r] *= alpha;
 #pragma unroll
-      for (int e = 0; e < 8; ++e) acc[r][e] *= alpha;
+        for (int e = 0; e < 8; ++e) acc[r][e] *= alpha;
+        m[r] = m_new;
+      }
 #pragma unroll
       for (int u = 0; u < kSteps; ++u) {
-        if (s[u][r] == kNegInf) continue;  // masked slots contribute 0
-        const float p = expf(s[u][r] - m_new);
-        l[r] += p;
-        // int8: P times the slot's V scale, in fp32, as the Pallas int8
-        // branch's P.V.
-        float pr;
-        if constexpr (kQuant<KV>) {
-          pr = p * vsc[u];
-        } else {
-          pr = round_to<KV>(p);
-        }
+        if (pp[u] < 0) continue;  // no row of the tile sees slot u
         float vf[8];
-        vv[u].to_float(vf);
+        Vec8<KV> v8;
+        ring_get(v8, wring, st8, u, 1, lane);
+        v8.to_float(vf);
 #pragma unroll
-        for (int e = 0; e < 8; ++e) acc[r][e] = fmaf(pr, vf[e], acc[r][e]);
+        for (int r = 0; r < R; ++r) {
+          if (s[u][r] == kNegInf) continue;  // masked slots contribute 0
+          const float p = expf(s[u][r] - m[r]);
+          l[r] += p;
+          const float pr = p * *Ring::scale_at(wring, 1, sk + u * SPW);
+#pragma unroll
+          for (int e = 0; e < 8; ++e) acc[r][e] = fmaf(pr, vf[e], acc[r][e]);
+        }
       }
-      m[r] = m_new;
+    } else {
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        float m_new = m[r];
+#pragma unroll
+        for (int u = 0; u < kSteps; ++u) m_new = fmaxf(m_new, s[u][r]);
+        if (m_new == kNegInf) continue;  // nothing visible yet in this stream
+        const float alpha = expf(m[r] - m_new);
+        l[r] *= alpha;
+#pragma unroll
+        for (int e = 0; e < 8; ++e) acc[r][e] *= alpha;
+#pragma unroll
+        for (int u = 0; u < kSteps; ++u) {
+          if (s[u][r] == kNegInf) continue;  // masked slots contribute 0
+          const float p = expf(s[u][r] - m_new);
+          l[r] += p;
+          const float pr = round_to<KV>(p);
+          float vf[8];
+          vv[u].to_float(vf);
+#pragma unroll
+          for (int e = 0; e < 8; ++e) acc[r][e] = fmaf(pr, vf[e], acc[r][e]);
+        }
+        m[r] = m_new;
+      }
     }
   };
 
@@ -383,6 +431,17 @@ __global__ void __launch_bounds__(NT, kLaneMinBlocks<T, R>) paged_fwd(ArgsOf<KV>
                          (a.window <= 0 || p > qp + i_lo - a.window)
                      ? p
                      : -1;
+      if constexpr (kQuant<KV>) {
+        // The slot's scales ([L, Np, bs, Hkv]), in issue(0)'s group, to
+        // where its warp reads them: slot i is step i / STEP of warp (i %
+        // STEP) / SPW, sub i % SPW (csrc/split_merge.cuh LaneRing<int8_t>).
+        if (s_pos[i] >= 0) {
+          const long long so =
+              (((long long)a.layer * a.Np + min(pb[j], last_blk)) * a.bs + t % a.bs) * a.Hkv + hk;
+          Ring::put_scales(reinterpret_cast<char*>(smem) + (i % C::STEP) / SPW * Ring::WARP_BYTES,
+                           i / C::STEP * SPW + i % SPW, a.ks + so, a.vs + so);
+        }
+      }
     }
     const int c0 = w0 / a.bs;
     if (threadIdx.x <= (ws1 - 1) / a.bs - c0) s_blk[threadIdx.x] = min(bv, last_blk);
@@ -398,13 +457,14 @@ __global__ void __launch_bounds__(NT, kLaneMinBlocks<T, R>) paged_fwd(ArgsOf<KV>
         for (int u = 0; u < kSteps; ++u) {
           const int t = slot(i, u);
           if (t < w1 && s_pos[t - w0] >= 0) {
-            const long long off = base + (long long)s_blk[t / a.bs - c0] * blk_stride +
-                                  (long long)(t % a.bs) * slot_stride;
-            Ring::put(wring, i % Ring::STAGES, u, lane, kp + off, vp + off);
-            if constexpr (kQuant<KV>) {  // the slot's scales: [L, Np, bs, Hkv]
-              const long long so = (((long long)a.layer * a.Np + s_blk[t / a.bs - c0]) *
-                                    a.bs + t % a.bs) * a.Hkv + hk;
-              Ring::put_scales(wring, i % Ring::STAGES, u, lane, a.ks + so, a.vs + so);
+            if constexpr (kQuant<KV>) {
+              Ring::put(wring, i % Ring::STAGES, u, lane,
+                        src8 + ((long long)s_blk[t / a.bs - c0] * blk_stride +
+                                (long long)(t % a.bs) * slot_stride));
+            } else {
+              const long long off = base + (long long)s_blk[t / a.bs - c0] * blk_stride +
+                                    (long long)(t % a.bs) * slot_stride;
+              Ring::put(wring, i % Ring::STAGES, u, lane, kp + off, vp + off);
             }
           }
         }
@@ -414,8 +474,19 @@ __global__ void __launch_bounds__(NT, kLaneMinBlocks<T, R>) paged_fwd(ArgsOf<KV>
 #pragma unroll
     for (int i = 0; i < Ring::STAGES - 1; ++i) issue(i);
     for (int i = 0; i < n_st; ++i) {
+      // int8: every lane of the warp is done reading the stage issue()
+      // copies into (csrc/split_merge.cuh has the ordering argument).
+      if constexpr (kQuant<KV>) __syncwarp();
       issue(i + Ring::STAGES - 1);
       tile::cp_async_wait<Ring::STAGES - 1>();  // this lane's stage i landed
+      // int8: and every lane's; at i = 0 every thread's scale copies too.
+      if constexpr (kQuant<KV>) {
+        if (i == 0) {
+          __syncthreads();
+        } else {
+          __syncwarp();
+        }
+      }
       Vec8<KV> kv[kSteps], vv[kSteps];
       int pp[kSteps];
 #pragma unroll
@@ -424,13 +495,11 @@ __global__ void __launch_bounds__(NT, kLaneMinBlocks<T, R>) paged_fwd(ArgsOf<KV>
         pp[u] = t < w1 ? s_pos[t - w0] : -1;
         if (pp[u] >= 0) {
           ring_get(kv[u], wring, i % Ring::STAGES, u, 0, lane);
-          ring_get(vv[u], wring, i % Ring::STAGES, u, 1, lane);
-          if constexpr (kQuant<KV>) {
-            ksc[u] = *Ring::scale_at(wring, i % Ring::STAGES, u, 0, lane);
-            vsc[u] = *Ring::scale_at(wring, i % Ring::STAGES, u, 1, lane);
-          }
+          // int8: step() reads the V row where it widens it.
+          if constexpr (!kQuant<KV>) ring_get(vv[u], wring, i % Ring::STAGES, u, 1, lane);
         }
       }
+      if constexpr (kQuant<KV>) st8 = i % Ring::STAGES, sk = i * kSteps * SPW + sub;
       bool any = false;
 #pragma unroll
       for (int u = 0; u < kSteps; ++u) any |= pp[u] >= 0;

@@ -9,9 +9,40 @@
 // memory: a lane cp.async-copies its 16-byte chunks of a slot's rows and
 // later reads back exactly those chunks, so the ring needs no barrier, and
 // the loads of STAGES - 1 stages are in flight while one is computed,
-// costing no registers. Over an int8 cache a lane also copies its slot's
-// K and V scales beside its 8-byte chunks (every lane of the slot its own
-// copy), so the ring still needs no barrier.
+// costing no registers.
+//
+// Over an int8 cache (LaneRing<int8_t>) a lane still holds 8 elements of a
+// slot's K row and 8 of its V row, but those are 8 bytes each, and the
+// copies are 16 bytes: a slot's K and V rows are D / 8 16-byte chunks, one
+// for each of its LPS lanes. Of each pair of lanes (2c, 2c + 1) of a slot,
+// the even lane copies the pair's 16 bytes of the K row and the odd lane
+// those of the V row, to where the pair reads them back. A step's rows sit
+// in lane order (the K rows of its slots, then their V rows), so a warp's
+// 8-byte reads are conflict-free. The scales (one fp32 K and V scale per
+// slot, 4 bytes each, one 32-byte sector apiece in device memory) are
+// copied once per window instead, in the ring's first stage's commit
+// group, to the window area of the warp that reads them, where each lane
+// of a slot reads them as a shared-memory broadcast. In K2 lane j of a
+// warp copies the scales of the warp's slots j, j + 32, ...; in K3 the
+// thread that stages a slot's position does (it reads the slot's table
+// entry beside the position for that), which takes the scales' address
+// arithmetic and table reads off the warps' path to their first stage.
+// Per stage, a warp so issues one 16-byte copy a lane; copying a slot's
+// scales with its rows would add two 4-byte copies per slot and step. A
+// lane reads bytes that other lanes of its warp copied, and copies into a
+// stage that they read on the ring's previous lap, so the int8 loop takes
+// two __syncwarp()s per stage, both outside every per-slot test and the
+// skip of steps no lane sees, so that every lane reaches them:
+//   * after cp_async_wait: each lane's copies into stage i (and, at i = 0,
+//     its scale copies) are complete and visible to itself; the barrier
+//     (which orders shared memory among the warp's lanes) makes them
+//     visible to the lanes that read them. At i = 0 K3 takes a
+//     __syncthreads() instead: other warps' threads copied its scales;
+//   * before issue(i + STAGES - 1), which copies into the stage the warp
+//     read on iteration i - 1: every lane's reads of it are done. The
+//     shuffles in between are not memory fences.
+// The window's __syncthreads() order the first stages and the scales of a
+// window after the previous window's reads.
 //
 // Split. A split kernel's block reads one range of a row's slots and
 // leaves one fp32 partial softmax state per query head in a workspace the
@@ -48,7 +79,7 @@ constexpr int kMaxSplits = 16;
 // Occupancy of the lane-template instantiations with 16-bit queries (T),
 // over a 16-bit or an int8 cache, by query rows per block: R <= 2 (MHA
 // decode) is held to 85 registers, three blocks per SM; R == 4 (G = 4) to
-// 128, two. The rings' 64 KB (48 KB for int8) allow three.
+// 128, two. The rings' 64 KB (52 KB for int8) allow three.
 template <typename T, int R>
 constexpr int kLaneMinBlocks = sizeof(T) != 2 ? 1 : R <= 2 ? 3 : R == 4 ? 2 : 1;
 
@@ -82,39 +113,44 @@ template <typename T> struct LaneRing {
   }
 };
 
-// 4 or 8 bytes global -> shared (cp.async.cg takes 16 only).
-template <int N>
-__device__ __forceinline__ void cp_async_ca(void* dst, const void* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(
-                   tile::smem_addr(dst)),
-               "l"(src), "n"(N));
+// 4 bytes global -> shared (cp.async.cg takes 16 only).
+__device__ __forceinline__ void cp_async_ca4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(tile::smem_addr(dst)),
+               "l"(src));
 }
 
-// The int8 ring: per (step, K or V) a lane's 8-byte chunk, then, after
-// the stage's chunks, the slot's fp32 scale (ops/split_plan.py
-// lane_region_bytes).
+// The int8 ring (ops/split_plan.py lane_region_bytes): per stage and step,
+// the K rows of the warp's SPW slots (SPW * D = 256 bytes: lane `lane`
+// reads bytes [8 lane, 8 lane + 8)), then their V rows; after the stages,
+// the fp32 K scales, then V scales, of the warp's slots of one window of
+// kStage slots, in the order the warp reads them.
 template <> struct LaneRing<int8_t> {
-  static constexpr int STAGES = 4;
-  static constexpr int VAL_BYTES = kSteps * 2 * 32 * 8;
-  static constexpr int STAGE_BYTES = VAL_BYTES + kSteps * 2 * 32 * 4;
-  static constexpr int WARP_BYTES = STAGES * STAGE_BYTES;
+  static constexpr int STAGES = 6;
+  static constexpr int ROWS_BYTES = 32 * 8;  // a step's K (or V) rows
+  static constexpr int STAGE_BYTES = kSteps * 2 * ROWS_BYTES;
+  static constexpr int SCALE_SLOTS = kStage / 8;  // a warp's slots of a window, of 8 warps
+  static constexpr int WARP_BYTES = STAGES * STAGE_BYTES + 2 * SCALE_SLOTS * 4;
 
-  __device__ static char* at(char* ring, int st, int u, int kv, int c, int lane) {
-    return ring + st * STAGE_BYTES + ((u * 2 + kv) * 32 + lane) * 8;
+  // Lane `lane`'s 8 bytes of its slot's K (kv 0) or V (kv 1) row of step u
+  // in stage st.
+  __device__ static char* at(char* ring, int st, int u, int kv, int lane) {
+    return ring + st * STAGE_BYTES + (u * 2 + kv) * ROWS_BYTES + lane * 8;
   }
-  __device__ static float* scale_at(char* ring, int st, int u, int kv, int lane) {
-    return reinterpret_cast<float*>(ring + st * STAGE_BYTES + VAL_BYTES +
-                                    ((u * 2 + kv) * 32 + lane) * 4);
+  // The K (kv 0) or V (kv 1) scale of the warp's k-th slot of the window.
+  __device__ static float* scale_at(char* ring, int kv, int k) {
+    return reinterpret_cast<float*>(ring + STAGES * STAGE_BYTES) + kv * SCALE_SLOTS + k;
   }
-  __device__ static void put(char* ring, int st, int u, int lane,
-                             const int8_t* k, const int8_t* v) {
-    cp_async_ca<8>(at(ring, st, u, 0, 0, lane), k);
-    cp_async_ca<8>(at(ring, st, u, 1, 0, lane), v);
+  // Lane `lane`'s one 16-byte copy of a step, of the pair of lanes lane &
+  // ~1 and lane | 1 (a slot has an even number of lanes): the even lane
+  // copies the pair's 16 bytes of the slot's K row, the odd one those of
+  // its V row, into the bytes the pair reads back.
+  __device__ static void put(char* ring, int st, int u, int lane, const int8_t* src) {
+    tile::cp_async16(at(ring, st, u, lane & 1, lane & ~1), src, true);
   }
-  __device__ static void put_scales(char* ring, int st, int u, int lane,
-                                    const float* ks, const float* vs) {
-    cp_async_ca<4>(scale_at(ring, st, u, 0, lane), ks);
-    cp_async_ca<4>(scale_at(ring, st, u, 1, lane), vs);
+  // The warp's k-th slot's K and V scales.
+  __device__ static void put_scales(char* ring, int k, const float* ks, const float* vs) {
+    cp_async_ca4(scale_at(ring, 0, k), ks);
+    cp_async_ca4(scale_at(ring, 1, k), vs);
   }
 };
 
@@ -130,7 +166,7 @@ __device__ __forceinline__ void ring_get(Vec8<float>& x, char* ring, int st,
 }
 __device__ __forceinline__ void ring_get(Vec8<int8_t>& x, char* ring, int st,
                                          int u, int kv, int lane) {
-  x.raw = *reinterpret_cast<const uint2*>(LaneRing<int8_t>::at(ring, st, u, kv, 0, lane));
+  x.raw = *reinterpret_cast<const uint2*>(LaneRing<int8_t>::at(ring, st, u, kv, lane));
 }
 
 // Programmatic dependent launch (sm_90): let the next grid on the stream

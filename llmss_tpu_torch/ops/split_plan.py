@@ -40,6 +40,10 @@ H100_SMS = 132  # SMs of an H100 SXM: the count a plan made off the card uses
 STAGE_SLOTS = 512
 NWARP = 8  # warps of a lane-template block
 STEPS = 2  # steps of SPW slots per warp in one ring stage (``kSteps``)
+# The int8 ring (``LaneRing<int8_t>``): its stages, and the slots of a
+# window whose scales each warp stages beside them.
+INT8_STAGES = 6
+INT8_SCALE_SLOTS = STAGE_SLOTS // NWARP
 
 
 class Plan(NamedTuple):
@@ -68,13 +72,19 @@ def stage_smem_bytes(bs: int) -> int:
 
 
 def lane_region_bytes(elem_size: int, rows: int, D: int) -> int:
-    """Shared memory of the lane template's K/V rings (``LaneRing``: per
-    warp 4 stages of 16-bit or int8 rows, or 2 of fp32 rows, each
-    ``STEPS`` steps of K and V; a lane holds 8 elements of a row, 32, 16 or
-    8 bytes, and for int8 also the slot's 4-byte scale), which the per-warp
-    fp32 accumulators ``[8][rows][D]`` reuse after the KV loop."""
-    stages, lane_bytes = {4: (2, 32), 2: (4, 16), 1: (4, 8 + 4)}[elem_size]
-    ring = NWARP * stages * STEPS * 2 * 32 * lane_bytes
+    """Shared memory of the lane template's K/V rings (``LaneRing``), which
+    the per-warp fp32 accumulators ``[8][rows][D]`` reuse after the KV
+    loop. A lane holds 8 elements of a slot's K row and 8 of its V row in
+    each of a stage's ``STEPS`` steps: per warp 4 stages of 16-bit rows (16
+    bytes a lane) or 2 of fp32 rows (32 bytes); over an int8 cache
+    ``INT8_STAGES`` stages of 8 bytes a lane, and the fp32 K and V scales
+    of the warp's ``INT8_SCALE_SLOTS`` slots of a window (one copy per
+    slot)."""
+    if elem_size == 1:
+        ring = NWARP * (INT8_STAGES * STEPS * 2 * 32 * 8 + 2 * INT8_SCALE_SLOTS * 4)
+    else:
+        stages, lane_bytes = {4: (2, 32), 2: (4, 16)}[elem_size]
+        ring = NWARP * stages * STEPS * 2 * 32 * lane_bytes
     return max(ring, 4 * NWARP * rows * D)
 
 
