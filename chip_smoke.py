@@ -16,7 +16,8 @@ exits non-zero without printing a result:
               (paged decode) and K4 (ragged paged attention) against their
               plain PyTorch versions on the card, at the Llama-2-7B path
               shapes plus GQA / padding / ring-wrap / window / empty-row /
-              long-row / tile-edge / block-size / head-dim / dtype cases,
+              long-row / tile-edge / block-size / head-dim / dtype cases
+              and the gptj_6b / starcoder phases' shapes,
               with kernel, plain, bound and library
               (scaled_dot_product_attention, timed as a yardstick only)
               times, the instantiation each case took ("mma": the
@@ -35,6 +36,11 @@ exits non-zero without printing a result:
    reference_paged -- the same through the continuous batcher over the
               paged pool, with split admission and with chunked prefill;
    reference_int8 -- the same, dense and paged, over int8 caches;
+   reference_families -- the same for a tiny fp32 model of every family
+              of the registry (GPT-J, GPT-BigCode, GPT-2, Llama, Mistral,
+              Qwen2, GPT-NeoX, Phi-3 with LongRoPE on both sides of its
+              original context, Gemma), dense and paged with chunked
+              prefill, after prewarm, with no capture after it;
 5. engine  -- Llama-2-7B width (hidden 4096, 32 layers, 32 heads, head_dim
               128, intermediate 11008, vocab 32000), random weights from a
               seed, bf16, max_seq_len 1024, batch 4: ``prewarm`` captures
@@ -62,8 +68,21 @@ exits non-zero without printing a result:
               at Llama-2-7B width: cache bytes against bf16's (<= 0.52x),
               the share of tokens equal to the bf16 runs', and a decode
               chunk profiled (only int8 decode_fwd instantiations);
+   gptj_6b, starcoder -- the published configs of EleutherAI/gpt-j-6b
+              (D 256, untied biased head) and bigcode/starcoder (48 query
+              heads on one KV head, learned positions) at full width and
+              depth, random bf16 weights from a seed: prewarm, generate
+              twice (identical tokens, launch counts, no capture), prefill
+              and decode chunk profiled against the weight-read bound, a
+              split and a chunked ContinuousWorker pass, a paged decode
+              group and a ragged group profiled, and each kernel's case
+              at the model's shapes beside its launches;
 7. cli     -- writes a 2-layer llama checkpoint at 1b2 width
-              (safetensors + config.json) and runs the port's CLI on it.
+              (safetensors + config.json) and runs the port's CLI on it;
+              then 2-layer GPT-J-6B and StarCoder checkpoints in HF names
+              and layouts (StarCoder's c_attn fused), each through the CLI
+              and load_model, the loaded tensors held to the written
+              ones.
 
 Then one JSON line with every kernel's numbers, the nvidia-smi line, and
 last the result line {"ok": true, "device": {...}}.
@@ -76,6 +95,7 @@ durations from torch.profiler (``profiled_ms``).
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import gc
 import json
 import math
@@ -281,9 +301,9 @@ def phase_build() -> None:
     text = "\n".join(out.values())
     regs = [int(n) for n in re.findall(r"Used (\d+) registers", text)]
     spills = [int(n) for n in re.findall(r"(\d+) bytes spill stores", text)]
-    # Listed: the tensor-core instantiations, the bf16-query D 128
-    # lane-template ones and merge ones that the decode paths run, and
-    # every int8 lane-template one.
+    # Listed: the tensor-core instantiations, the bf16-query D 128 and
+    # D 256 (GPT-J) lane-template ones and merge ones that the decode paths
+    # run, and every int8 lane-template one.
     entries = ptxas_entries(text)
     conv, forms = int8_lane_conversions() or (None, None)
     if conv and any(conv.values()):
@@ -295,7 +315,7 @@ def phase_build() -> None:
           "decode_instantiations": [
               {"kernel": k, "registers": r, "spill_store_bytes": sp}
               for k, sp, r in entries if "_mma" not in k
-              and (re.search(r"nv_bfloat16(?:S\d_|a)?Li128", k)
+              and (re.search(r"nv_bfloat16(?:S\d_|a)?Li(?:128|256)", k)
                    or INT8_LANE.search(k))],
           "int8_lane_conversions": None if conv is None else sum(conv.values()),
           "int8_lane_i2f_forms": forms,
@@ -472,6 +492,13 @@ def k1_cases() -> list[dict]:
                  D=256, dt=torch.float32),
         _k1_case("k1_d64_gqa", 2, 100, 160, 8, 2, lens=[100, 61], seed=4,
                  D=64),
+        # The gptj_6b and starcoder phases' engine prefill: 16 MHA heads of
+        # 256 (the tile's largest instantiation); 48 query heads on one KV
+        # head.
+        _k1_case("k1_gptj_prefill", 4, 128, 1024, 16, 16, lens=ENGINE_LENS,
+                 seed=7, D=256),
+        _k1_case("k1_starcoder_prefill", 4, 128, 1024, 48, 1,
+                 lens=ENGINE_LENS, seed=8),
     ]
 
 
@@ -498,6 +525,12 @@ def k2_cases(int8: bool = True) -> list[dict]:
         # (GQA) or 32 (MHA) blocks for 132 SMs.
         _k2_case("k2_b1_gqa_full", 1, 1024, 32, 8, [1024], 1024, seed=6),
         _k2_case("k2_b1_mha_full", 1, 1024, 32, 32, [1536], 1024, seed=7),
+        # The gptj_6b and starcoder phases' decode in the 192-slot bucket:
+        # D 256 (32 lanes a slot); G 48 (6 blocks of 8 heads per KV head).
+        _k2_case("k2_gptj_engine_decode", 4, 1024, 16, 16,
+                 [n + 40 for n in ENGINE_LENS], 192, seed=8, D=256),
+        _k2_case("k2_starcoder_engine_decode", 4, 1024, 48, 1,
+                 [n + 40 for n in ENGINE_LENS], 192, seed=9),
     ]
     return cases + ([
         # The int8 cache: the int8 engine phase's decode in its bucket
@@ -557,7 +590,9 @@ def check_kernels() -> dict:
                    lambda: _sdpa(c["q"], c["k"], c["v"], mask[:, None])),
                "bound_ms": b_ms, "bound_by": b_by}
         out.setdefault("K1", row)
-        if c["name"] in ("k1_engine_prefill", "k1_7b_padded"):
+        out.setdefault("cases", {})[c["name"]] = row
+        if c["name"] in ("k1_engine_prefill", "k1_7b_padded",
+                         "k1_gptj_prefill", "k1_starcoder_prefill"):
             _main_path_impl("K1", row)
             out.setdefault("vs_library", {})[c["name"]] = (
                 row["ms"], row["library_ms"])
@@ -628,6 +663,7 @@ def check_kernels() -> dict:
                  lambda g: _agree("K2", c["name"] + " unsplit", g.float(), ref,
                                   ref_abs, c["q"].dtype))
         out.setdefault(c["row"], row)
+        out["cases"][c["name"]] = row
         worst_of[c["row"]] = max(worst_of.get(c["row"], 0.0), err)
         emit(row)
     for name in ("K2", "K2_int8"):
@@ -715,6 +751,11 @@ def k3_cases(int8: bool = True) -> list[dict]:
         # and it must give exactly v_new).
         _paged_case("k3_first_split_only", 4, 32, 8, [1000, 60, 0, 30],
                     [1] * 4, 1, seed=17),
+        # The serve decode of the gptj_6b and starcoder phases.
+        _paged_case("k3_gptj_serve_decode", 8, 16, 16, SERVE_CTX, [1] * 8, 1,
+                    n_cols=52, D=256, seed=18),
+        _paged_case("k3_starcoder_serve_decode", 8, 48, 1, SERVE_CTX,
+                    [1] * 8, 1, n_cols=52, seed=19),
     ]
     return cases + ([
         # The int8 pool: the int8 serve phase's decode first, then wrapped
@@ -763,6 +804,14 @@ def k4_cases(int8: bool = True) -> list[dict]:
                     D=64, seed=13),
         _paged_case("k4_d256", 3, 16, 8, [200, 0, 90], [128, 60, 1], 128,
                     D=256, seed=14),
+        # The chunked step of the gptj_6b and starcoder phases: D 256, and
+        # 48 x 128 = 6144 flat query rows per row (96 tiles).
+        _paged_case("k4_gptj_serve_mixed", 8, 16, 16,
+                    [0, 128, 256, 400, 700, 33, 812, 512],
+                    [128, 128, 37, 1, 1, 1, 1, 1], 128, D=256, seed=20),
+        _paged_case("k4_starcoder_serve_mixed", 8, 48, 1,
+                    [0, 128, 256, 400, 700, 33, 812, 512],
+                    [128, 128, 37, 1, 1, 1, 1, 1], 128, seed=21),
     ]
     return cases + ([
         # The int8 pool (bf16 queries: the tensor-core tile over int8
@@ -948,6 +997,7 @@ def check_paged_kernels(out: dict) -> None:
                                  f"{row['live_splits']} of {row['splits']}")
         worst[c["row"]] = max(worst.get(c["row"], 0.0), row["max_abs_err"])
         out.setdefault(c["row"], row)
+        out["cases"][c["name"]] = row
         G = c["q"].shape[2] // c["kn"].shape[2]
         for b in range(c["q"].shape[0]):
             if int(c["nblk"][b]) == 0 and not torch.equal(
@@ -968,8 +1018,11 @@ def check_paged_kernels(out: dict) -> None:
         if c["ks"] is not None:
             _main_path_impl("K4", row, "mma_int8" if c["q"].dtype
                             == torch.bfloat16 else "lanes_int8")
+        if c["name"] in ("k4_gptj_serve_mixed", "k4_starcoder_serve_mixed"):
+            _main_path_impl("K4", row)
         worst[c["row"]] = max(worst.get(c["row"], 0.0), row["max_abs_err"])
         out.setdefault(c["row"], row)
+        out["cases"][c["name"]] = row
     _main_path_impl("K4", out["K4"])
     for name, err in worst.items():
         out[name]["max_abs_err"] = err
@@ -1122,7 +1175,187 @@ def phase_reference_paged(kv_dtype=None) -> None:
             raise AssertionError("the paged kernels were not launched")
 
 
+def _family_configs() -> dict:
+    """The reference_families phase's tiny fp32 models: one per family of
+    the registry, each with that family's feature set (GPT-J's parallel
+    block, interleaved partial rotary and biased head; BigCode's MQA and
+    learned positions; GPT-2's MHA; Mistral's window; Qwen2's q/k/v
+    biases; NeoX's two-norm parallel block and partial half rotary;
+    Phi-3's LongRoPE; Gemma's (1 + w) norm, embedding multiplier and head
+    dim apart from hidden / heads), at head_dim 64."""
+    from llmss_tpu_torch.models.common import DecoderConfig
+
+    base = dict(vocab_size=512, hidden_size=256, n_layers=2, n_heads=4,
+                head_dim=64, intermediate_size=512,
+                max_position_embeddings=256, dtype="float32")
+    llama = dict(activation="silu", norm="rmsnorm", mlp="swiglu",
+                 positions="rotary", rope_style="half", attn_bias=False,
+                 mlp_bias=False, n_kv_heads=2)
+    gpt = dict(norm="layernorm", mlp="mlp", activation="gelu_new")
+    short = tuple(1.0 + 0.05 * i for i in range(32))
+    long = tuple(1.0 + 0.9 * i for i in range(32))
+    fams = {
+        "gptj": dict(model_type="gptj", n_kv_heads=4, **gpt,
+                     positions="rotary", rope_style="interleaved",
+                     rotary_dim=16, parallel_residual=True, attn_bias=False,
+                     head_bias=True),
+        "gpt_bigcode": dict(model_type="gpt_bigcode", n_kv_heads=1,
+                            **{**gpt, "activation": "gelu_pytorch_tanh"},
+                            positions="learned", tie_word_embeddings=True),
+        "gpt2": dict(model_type="gpt2", n_kv_heads=4, **gpt,
+                     positions="learned", tie_word_embeddings=True),
+        "llama": dict(model_type="llama", **llama),
+        "mistral": dict(model_type="mistral", **llama, sliding_window=24),
+        "qwen2": dict(model_type="qwen2", **{**llama, "attn_bias": True},
+                      attn_out_bias=False),
+        "gpt_neox": dict(model_type="gpt_neox", n_kv_heads=4,
+                         **{**gpt, "activation": "gelu"}, positions="rotary",
+                         rope_style="half", rotary_dim=16,
+                         parallel_residual=True, parallel_residual_ln2=True),
+        # LongRoPE with an original context of 64: the engines of 48 and
+        # 128 slots run the short and the long factors.
+        "phi3": dict(model_type="phi3", **llama, rope_freq_factors=long,
+                     rope_freq_factors_short=short,
+                     rope_freq_factors_long=long,
+                     rope_original_max_positions=64,
+                     rope_attn_factor=math.sqrt(1 + math.log(4) / math.log(64))),
+        "gemma": dict(model_type="gemma",
+                      **{**llama, "n_kv_heads": 1,
+                         "activation": "gelu_pytorch_tanh"},
+                      hidden_size=128, norm_scale_offset=1.0,
+                      embed_multiplier=128 ** 0.5, tie_word_embeddings=True),
+    }
+    return {k: DecoderConfig(**{**base, **v}) for k, v in fams.items()}
+
+
+def phase_reference_families() -> None:
+    """Every family of the registry, as a tiny fp32 model whose block
+    weights are scaled up (so greedy tokens vary): greedy tokens through
+    the kernels on the card, after ``prewarm``, with every decode step a
+    graph replay and no capture after it, equal the plain path's on the
+    CPU, over the dense ring and through the continuous batcher with
+    chunked prefill over the paged pool. Phi-3 runs on both sides of its
+    LongRoPE original context (engines of 48 and 128 slots: short and long
+    factors), which a per-call upload of the factors would fail to
+    capture."""
+    from llmss_tpu_torch.engine.engine import DecodeEngine, GenerationParams
+    from llmss_tpu_torch.engine.scheduler import ContinuousBatcher
+    from llmss_tpu_torch.models.decoder import init_params
+    from llmss_tpu_torch.ops import decode_attention as da
+    from llmss_tpu_torch.ops import flash_attention as fa
+    from llmss_tpu_torch.ops import paged_attention as pa
+
+    runs = [(name, cfg, None) for name, cfg in _family_configs().items()]
+    phi3 = runs.pop(7)
+    runs[7:7] = [(phi3[0], phi3[1], 48), (phi3[0], phi3[1], 128)]
+    news = (16, 9, 12, 20, 6, 14)
+
+    def serve(eng, prompts, chunked_prewarm):
+        bat = ContinuousBatcher(eng, rows=4, chunk_steps=4, group_chunks=2,
+                                chunked_prefill=16)
+        warmed = bat.prewarm() if chunked_prewarm else 0
+        keys = eng._graphs.keys()
+        out = {}
+        for i, (p, n) in enumerate(zip(prompts, news)):
+            bat.submit(p, GenerationParams(max_new_tokens=n),
+                       lambda t, *a, i=i, **k: out.__setitem__(i, t))
+        bat.run_until_idle()
+        if bat.allocator.blocks_in_use:
+            raise AssertionError("blocks still in use after the run")
+        return [out[i] for i in range(len(prompts))], warmed, keys
+
+    for i, (name, cfg, msl) in enumerate(runs):
+        cpu_params = init_params(cfg, seed=20 + i, device="cpu")
+        for k, lin in cpu_params["blocks"].items():
+            for t in lin:
+                if t is not None:
+                    t.mul_(10.0)
+        gpu_params = _to(cpu_params, "cuda")
+        rng = np.random.default_rng(i)
+        dense_len = msl or 64
+        prompts = [[int(t) for t in rng.integers(1, cfg.vocab_size, n)]
+                   for n in (20, 7, min(33, dense_len - 17))]
+        gen = GenerationParams(max_new_tokens=16)
+        row = {"phase": "reference_families", "family": name,
+               "max_seq_len": dense_len}
+        want = DecodeEngine(cfg, cpu_params, device="cpu",
+                            max_seq_len=dense_len).generate(
+            prompts, gen, chunk_steps=4)
+        eng = DecodeEngine(cfg, gpu_params, max_seq_len=dense_len)
+        if cfg.rope_freq_factors_short is not None:
+            picked = ("long" if eng.cfg.rope_freq_factors
+                      == cfg.rope_freq_factors_long else "short")
+            if picked != ("long" if dense_len > 64 else "short"):
+                raise AssertionError(f"{name}: {picked} LongRoPE factors at "
+                                     f"max_seq_len {dense_len}")
+            row["longrope_factors"] = picked
+        warmed = eng.prewarm(len(prompts), chunk_steps=4)
+        keys = eng._graphs.keys()
+        fa.flash_attention.launches = da.decode_attention.launches = 0
+        got = eng.generate(prompts, gen, chunk_steps=4)
+        captured = len(eng._graphs.keys() - keys)
+        row["dense"] = {"identical": got == want, "prewarm": warmed,
+                        "graph_captures_after_prewarm": captured,
+                        "graph_replays": eng.metrics.graph_replays,
+                        "k1_launches": fa.flash_attention.launches,
+                        "k2_launches": da.decode_attention.launches,
+                        "tokens": got[0]}
+        if got != want or captured or not eng.metrics.graph_replays or not (
+                fa.flash_attention.launches and da.decode_attention.launches):
+            emit(row)
+            raise AssertionError(f"{name} dense: GPU {got} != CPU {want}, or "
+                                 "captured after prewarm, or no replays")
+        del eng
+        paged_len = msl or 128
+        plens = [min(n, paged_len - 21) for n in (5, 20, 33, 7, 48, 12)]
+        prompts = [[int(t) for t in rng.integers(1, cfg.vocab_size, n)]
+                   for n in plens]
+        kw = dict(max_seq_len=paged_len, kv_layout="paged", block_size=16)
+        want, _, _ = serve(DecodeEngine(cfg, cpu_params, device="cpu", **kw),
+                           prompts, False)
+        eng = DecodeEngine(cfg, gpu_params, **kw)
+        pa.paged_decode_attention.launches = 0
+        pa.ragged_paged_attention.launches = 0
+        got, warmed, keys = serve(eng, prompts, True)
+        captured = len(eng._graphs.keys() - keys)
+        row["paged_chunked"] = {
+            "identical": got == want, "prewarm": warmed,
+            "graph_captures_after_prewarm": captured,
+            "graph_replays": eng.metrics.graph_replays,
+            "k3_launches": pa.paged_decode_attention.launches,
+            "k4_launches": pa.ragged_paged_attention.launches,
+            "tokens": got[0]}
+        emit(row)
+        if got != want or captured or not eng.metrics.graph_replays or not (
+                pa.paged_decode_attention.launches
+                and pa.ragged_paged_attention.launches):
+            raise AssertionError(f"{name} paged: GPU {got} != CPU {want}, or "
+                                 "captured after prewarm, or no replays")
+        del eng, gpu_params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 # -- phase 5 -------------------------------------------------------------------
+
+
+def _check_logits(eng, prompts) -> None:
+    """Logits of the main path (a prefill, then one decode step) are
+    finite and of the expected shape."""
+    from llmss_tpu_torch.engine.engine import GenerationParams
+
+    B = len(prompts)
+    cache = eng.new_cache(B)
+    ids, lens = eng._pad_prompts(prompts)
+    sa = eng._sample_args(GenerationParams(), B)
+    lens_d = torch.as_tensor(lens, device="cuda")
+    tok, logits = eng._prefill(torch.as_tensor(ids, device="cuda"), cache,
+                               lens_d, sa)
+    _, logits2 = eng._decode(tok, cache, lens_d, sa)
+    for lg in (logits, logits2):
+        if tuple(lg.shape) != (B, eng.cfg.vocab_size) or not torch.isfinite(
+                lg).all():
+            raise AssertionError("non-finite or misshapen logits")
 
 
 def phase_engine(kernels: dict):
@@ -1145,17 +1378,7 @@ def phase_engine(kernels: dict):
                for n in (128, 100, 77, 128)]
     L = cfg.n_layers
 
-    # Logits of the main path are finite and of the expected shape.
-    cache = eng.new_cache(B)
-    ids, lens = eng._pad_prompts(prompts)
-    sa = eng._sample_args(GenerationParams(), B)
-    tok, logits = eng._prefill(torch.as_tensor(ids, device="cuda"), cache,
-                               torch.as_tensor(lens, device="cuda"), sa)
-    tok2, logits2 = eng._decode(tok, cache, torch.as_tensor(lens, device="cuda"), sa)
-    for lg in (logits, logits2):
-        if tuple(lg.shape) != (B, cfg.vocab_size) or not torch.isfinite(lg).all():
-            raise AssertionError("non-finite or misshapen logits")
-    del cache
+    _check_logits(eng, prompts)
 
     # Every decode step graph generate / generate_fused can pick at 4 rows.
     t = time.perf_counter()
@@ -1228,6 +1451,8 @@ def phase_engine(kernels: dict):
           "new_tokens": new, "init_s": round(init_s, 3),
           "ttft_ms_first_call": ttft_first_ms, "ttft_ms": ttft_ms,
           "decode_ms_per_step_chunk8": step_ms,
+          "weight_read_bound_ms_per_step": (
+              _weight_read_bytes(cfg, params) / HBM_BYTES_PER_S * 1e3),
           "tokens_per_s_chunk8_one_sampled_row": B * new / wall_b,
           "tokens_per_s_chunk1_greedy": B * new / wall_c,
           "tokens_per_s_fused_greedy": B * new / wall_f,
@@ -1410,15 +1635,16 @@ def _programmatic_edges(graph) -> tuple[int, int]:
     return prog, n.value
 
 
-def phase_profile(eng) -> None:
+def phase_profile(eng, tag: str = "") -> None:
     """Where the time goes: one prefill and one 8-step decode chunk of the
-    engine phase's batch, the chunk by graph replays and eagerly."""
+    engine phase's batch (prompts of 128/100/77/128 tokens), the chunk by
+    graph replays and eagerly; rows named ``tag`` first."""
     from llmss_tpu_torch.engine.engine import GenerationParams
 
     B = 4
     rng = np.random.default_rng(0)
-    prompts = [[int(t) for t in rng.integers(1, 32000, n)]
-               for n in (128, 100, 77, 128)]
+    prompts = [[int(t) for t in rng.integers(1, eng.cfg.vocab_size, n)]
+               for n in ENGINE_LENS]
     ids, lens = eng._pad_prompts(prompts)
     sa = eng._sample_args(GenerationParams(), B)
     ids_d = torch.as_tensor(ids, device="cuda")
@@ -1432,9 +1658,9 @@ def phase_profile(eng) -> None:
         tok, _ = eng._prefill(ids_d, cache, lens_d, sa)
         return tok
 
-    _profile_row("prefill", prefill)
+    _profile_row(tag + "prefill", prefill)
     tok = prefill()
-    _graph_vs_eager(eng, "decode_chunk8", tok, cache, lens_d, sa, done, eos,
+    _graph_vs_eager(eng, tag + "decode_chunk8", tok, cache, lens_d, sa, done, eos,
                     n_chunks=1, n_steps=8,
                     t_bucket=eng.decode_bucket(int(lens.max()) + 8))
 
@@ -1522,11 +1748,12 @@ SERVE_NEW = 48  # new tokens per serve_continuous request
 SERVE_CANCEL = 3  # admitted in the first wave, cancelled once it decodes
 
 
-def _serve_requests(cfg):
+def _serve_requests(cfg, new: int = SERVE_NEW):
     """The serve_continuous phase's 16 requests (prompts of 32-768 tokens
-    from seed 11, 48 new tokens each: 12 greedy of which 2 streamed, 3
-    top-k/top-p sampled, 1 cancelled mid-decode), made anew per pass;
-    returns (prompt lengths, the maker)."""
+    from seed 11, token ids within the config's vocab, ``new`` new tokens
+    each: 12 greedy of which 2 streamed, 3 top-k/top-p sampled, 1
+    cancelled mid-decode), made anew per pass; returns (prompt lengths,
+    the maker)."""
     from llmss_tpu_torch.serve.protocol import GenerateRequest
 
     rng = np.random.default_rng(11)
@@ -1541,7 +1768,7 @@ def _serve_requests(cfg):
             if 12 <= i < 15:
                 kw = dict(is_greedy=False, temperature=0.8, top_k=40,
                           top_p=0.9, seed=100 + i)
-            out.append(GenerateRequest(token_ids=p, max_new_tokens=SERVE_NEW,
+            out.append(GenerateRequest(token_ids=p, max_new_tokens=new,
                                        stream=i in (0, 1), **kw))
         return out
 
@@ -1561,10 +1788,11 @@ def _serve_pass(eng, worker, requests, steps, extra: dict):
     from llmss_tpu_torch.ops import paged_attention as pa
 
     cfg = eng.cfg
-    L, new = cfg.n_layers, SERVE_NEW
+    L = cfg.n_layers
     eng.metrics = EngineMetrics()
     broker = worker.broker
     reqs = requests()
+    new = reqs[0].max_new_tokens
     for r in reqs:
         broker.push_request(r)
     fa.flash_attention.launches = da.decode_attention.launches = 0
@@ -1873,6 +2101,189 @@ def phase_int8(params, kernels: dict, bf16: dict) -> None:
     phase_profile_paged(peng, "int8_")
 
 
+# -- phase 6d ------------------------------------------------------------------
+
+
+# The published configs of the two families the reference system served
+# (SURVEY: custom_modeling/__init__.py), as their config.json give them
+# (keys that do not shape the model left out).
+GPTJ_6B_HF = {  # EleutherAI/gpt-j-6b config.json
+    "model_type": "gptj", "n_embd": 4096, "n_layer": 28, "n_head": 16,
+    "rotary_dim": 64, "n_inner": None, "n_positions": 2048,
+    "vocab_size": 50400, "activation_function": "gelu_new",
+    "layer_norm_epsilon": 1e-05, "tie_word_embeddings": False,
+}
+STARCODER_HF = {  # bigcode/starcoder config.json
+    "model_type": "gpt_bigcode", "n_embd": 6144, "n_layer": 40,
+    "n_head": 48, "multi_query": True, "n_inner": 24576,
+    "n_positions": 8192, "vocab_size": 49152,
+    "activation_function": "gelu_pytorch_tanh", "layer_norm_epsilon": 1e-05,
+}
+MODEL_NEW = 32  # new tokens per request in the model phases' serving passes
+POOL_BYTES = 256 * 16 * 524288  # the serve_continuous phase's bf16 pool
+
+
+def _weight_read_bytes(cfg, params) -> int:
+    """Bytes of the weights one decode step reads: every parameter but the
+    embedding tables, whose rows are gathered (a tied head reads the whole
+    token table, so it counts)."""
+    total = sum(t.numel() * t.element_size() for t in _leaves(params))
+    skip = [params["wpe"]] if "wpe" in params else []
+    if not cfg.tie_word_embeddings:
+        skip.append(params["wte"])
+    return total - sum(t.numel() * t.element_size() for t in skip)
+
+
+def _leaves(p):
+    if isinstance(p, dict):
+        for v in p.values():
+            yield from _leaves(v)
+    elif isinstance(p, tuple):
+        for v in p:
+            yield from _leaves(v)
+    elif p is not None:
+        yield p
+
+
+def phase_model(name: str, hf: dict, kernels: dict, seed: int) -> None:
+    """A published configuration at full width and depth through the
+    port's entry points, with random bf16 weights from ``seed`` made on the
+    card: ``prewarm`` then ``generate`` at batch 4 (prompts 128/100/77/128,
+    64 new tokens, ring 1024, chunk_steps 8, one sampled row) twice with
+    identical tokens, K1 n_layers per prefill and K2 n_layers per replayed
+    step, no capture after prewarm; the prefill and one 8-step decode
+    chunk profiled (graph and eager) against the weight-read bound; then
+    two prewarmed ContinuousWorkers (split admission; chunked_prefill=128)
+    over a pool of the serve_continuous phase's bytes, 8 rows, block_size
+    16, serving the serve_continuous requests with ``MODEL_NEW`` new
+    tokens; then a paged decode group and a ragged group profiled. Ends
+    with the model's kernel line: each kernel's case at this model's
+    shapes beside its launches here."""
+    from llmss_tpu_torch.engine.engine import DecodeEngine, GenerationParams
+    from llmss_tpu_torch.engine.metrics import EngineMetrics
+    from llmss_tpu_torch.models.decoder import init_params
+    from llmss_tpu_torch.models.registry import config_from_hf
+    from llmss_tpu_torch.ops import decode_attention as da
+    from llmss_tpu_torch.ops import flash_attention as fa
+    from llmss_tpu_torch.serve.broker import InProcBroker
+    from llmss_tpu_torch.serve.consumer import ContinuousWorker
+
+    cfg = config_from_hf(hf)
+    L, B, new = cfg.n_layers, 4, 64
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    params = init_params(cfg, seed=seed)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    n_params = sum(x.numel() for x in _leaves(params))
+    weight_bytes = _weight_read_bytes(cfg, params)
+    step_bound_ms = weight_bytes / HBM_BYTES_PER_S * 1e3
+    emit({"phase": name, "config": {k: v for k, v in
+                                    dataclasses.asdict(cfg).items()
+                                    if v is not None},
+          "params": n_params, "param_bytes": 2 * n_params,
+          "weight_read_bytes_per_step": weight_bytes,
+          "weight_read_bound_ms_per_step": step_bound_ms,
+          "init_s": init_s, "memory_allocated": torch.cuda.memory_allocated()})
+
+    eng = DecodeEngine(cfg, params, batch_size=B, max_seq_len=1024)
+    rng = np.random.default_rng(seed)
+    prompts = [[int(x) for x in rng.integers(1, cfg.vocab_size, n)]
+               for n in ENGINE_LENS]
+    _check_logits(eng, prompts)
+    t = time.perf_counter()
+    warmed = eng.prewarm(B, chunk_steps=8)
+    prewarm_s = time.perf_counter() - t
+    keys = eng._graphs.keys()
+    sampled = GenerationParams(max_new_tokens=new, is_greedy=False,
+                               temperature=0.8, top_k=40, top_p=0.9,
+                               seed=1234)
+    gens = [GenerationParams(max_new_tokens=new)] * 3 + [sampled]
+    steps = math.ceil((new - 1) / 8) * 8
+    runs = []
+    for _ in range(2):
+        eng.metrics = EngineMetrics()
+        fa.flash_attention.launches = da.decode_attention.launches = 0
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        toks = eng.generate(prompts, gens, chunk_steps=8)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        k1, k2 = fa.flash_attention.launches, da.decode_attention.launches
+        if k1 != L or k2 != L * steps:
+            raise AssertionError(f"{name}: launch counts K1={k1} (want {L}), "
+                                 f"K2={k2} (want {L * steps})")
+        for row in toks:
+            if len(row) != new or not all(0 <= x < cfg.vocab_size for x in row):
+                raise AssertionError(f"{name}: tokens outside the vocab or "
+                                     "of the wrong length")
+        runs.append((toks, wall, k1, k2, eng.metrics))
+    (a, _, k1, k2, _), (b, wall, _, _, m) = runs
+    captured = len(eng._graphs.keys() - keys)
+    emit({"phase": name, "path": "generate", "batch": B,
+          "prompt_lens": ENGINE_LENS, "new_tokens": new, "prewarm": warmed,
+          "prewarm_s": prewarm_s, **_graph_memory(eng, [eng._cache]),
+          "ttft_ms": m.ttft.last_s * 1e3,
+          "decode_ms_per_step_chunk8": m.decode_step.to_dict()["mean_ms"],
+          "weight_read_bound_ms_per_step": step_bound_ms,
+          "tokens_per_s_chunk8_one_sampled_row": B * new / wall,
+          "k1_launches_per_prefill": k1, "k2_launches": k2,
+          "deterministic": a == b, "graph_captures_after_prewarm": captured,
+          "graph_replays": m.graph_replays, "sampled_row_head": a[3][:8]})
+    if a != b:
+        raise AssertionError(f"{name}: same seed, different tokens")
+    if captured:
+        raise AssertionError(f"{name}: {captured} graph captures after prewarm")
+    phase_profile(eng, name + "_")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    kv_token = 2 * L * cfg.n_kv_heads * cfg.head_dim * 2
+    blocks = POOL_BYTES // (16 * kv_token)
+    peng = DecodeEngine(cfg, params, max_seq_len=1024, kv_layout="paged",
+                        block_size=16, kv_blocks=blocks)
+    steps = _count_steps(peng)
+    lens, requests = _serve_requests(cfg, new=MODEL_NEW)
+    counts = {}
+    for chunked in (False, True):
+        w = ContinuousWorker(peng, InProcBroker(), rows=8, chunk_steps=8,
+                             group_chunks=2,
+                             chunked_prefill=128 if chunked else None)
+        t = time.perf_counter()
+        warm = {"prewarm": w.prewarm(), "prewarm_s": time.perf_counter() - t,
+                "kv_blocks": blocks, "kv_bytes_per_token": kv_token,
+                "pool_bytes": _graph_memory(peng, [w.batcher.cache])[
+                    "cache_bytes"]}
+        keys = peng._graphs.keys()
+        row, _, counts[chunked] = _serve_pass(peng, w, requests, steps,
+                                              {"prompt_lens": lens, **warm})
+        row["phase"] = name
+        emit(row)
+        if peng._graphs.keys() != keys:
+            raise AssertionError(f"{name}: a serving pass captured a graph")
+        del w
+        gc.collect()
+    phase_profile_paged(peng, name + "_")
+    del peng, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    launches = {"K1": k1, "K2": k2,
+                "K3": counts[False]["k3"] + counts[True]["k3"],
+                "K4": counts[True]["k4"]}
+    short = name.split("_")[0]
+    cases = {"K1": f"k1_{short}_prefill", "K2": f"k2_{short}_engine_decode",
+             "K3": f"k3_{short}_serve_decode", "K4": f"k4_{short}_serve_mixed"}
+    emit({"phase": name, "kernels": [
+        {"kernel": k, "case": c, "launches": launches[k],
+         **{f: kernels["cases"][c].get(f) for f in (
+             "impl", "splits", "split_slots", "max_abs_err", "err_over_tol",
+             "ms", "unsplit_ms", "plain_ms", "bound_ms", "bound_by",
+             "library_ms")}}
+        for k, c in cases.items()]})
+
+
 # -- phase 7 -------------------------------------------------------------------
 
 
@@ -1896,6 +2307,102 @@ def write_safetensors(path: str, tensors: dict[str, torch.Tensor]) -> None:
         f.write(hb)
         for raw in blobs:
             f.write(raw)
+
+
+def _run_cli(config: dict, tensors: dict, token_ids: list[str], new: int):
+    """Write ``tensors`` (HF names and layouts) and ``config`` as a
+    checkpoint directory, run the port's CLI on it (greedy), and load it
+    again through ``load_model``; returns (the CLI's tokens, the loaded
+    config and parameters)."""
+    from llmss_tpu_torch.cli.generate import main as cli_main
+    from llmss_tpu_torch.models.registry import load_model
+
+    with tempfile.TemporaryDirectory() as d:
+        write_safetensors(os.path.join(d, "model.safetensors"), tensors)
+        with open(os.path.join(d, "config.json"), "w") as f:
+            json.dump(config, f)
+        out = cli_main(["--pretrained_model_path", d, "--token_ids",
+                        *token_ids, "--max_new_tokens", str(new),
+                        "--is_greedy"])
+        cfg, params = load_model(d)
+    if [len(o) for o in out] != [new] * len(token_ids) or not all(
+            0 <= t < cfg.vocab_size for o in out for t in o):
+        raise AssertionError(f"CLI returned {out}")
+    return out, cfg, params
+
+
+def _cli_family(name: str, hf: dict) -> dict:
+    """A 2-layer checkpoint at the published widths of ``hf`` (GPT-J-6B or
+    StarCoder) in HF tensor names and layouts (StarCoder's ``c_attn``
+    fused), through the CLI and ``load_model``; the loaded parameters must
+    equal the written tensors in the decoder's layout (q/k ``[out, in]``,
+    the rest ``[in, out]``, the fused ``c_attn`` split at E and E + kv)."""
+    hf = {**hf, "n_layer": 2}
+    E, V = hf["n_embd"], hf["vocab_size"]
+    I = hf["n_inner"] or 4 * E
+    g = torch.Generator(device="cuda").manual_seed(6)
+
+    def w(*shape):
+        return torch.randn(shape, generator=g, device="cuda",
+                           dtype=torch.bfloat16) * 0.02
+
+    def ln():
+        return {"weight": 1 + w(E), "bias": w(E)}
+
+    t, h = {"transformer.wte.weight": w(V, E)}, "transformer.h"
+    for k, x in ln().items():
+        t[f"transformer.ln_f.{k}"] = x
+    gptj = hf["model_type"] == "gptj"
+    kv = E if gptj else E // hf["n_head"]
+    for i in range(2):
+        p = f"{h}.{i}"
+        for k, x in ln().items():
+            t[f"{p}.ln_1.{k}"] = x
+        if gptj:
+            t.update({f"{p}.attn.{n}_proj.weight": w(E, E)
+                      for n in ("q", "k", "v", "out")})
+            t.update({f"{p}.mlp.fc_in.weight": w(I, E),
+                      f"{p}.mlp.fc_in.bias": w(I),
+                      f"{p}.mlp.fc_out.weight": w(E, I),
+                      f"{p}.mlp.fc_out.bias": w(E)})
+        else:
+            for k, x in ln().items():
+                t[f"{p}.ln_2.{k}"] = x
+            t.update({f"{p}.attn.c_attn.weight": w(E + 2 * kv, E),
+                      f"{p}.attn.c_attn.bias": w(E + 2 * kv),
+                      f"{p}.attn.c_proj.weight": w(E, E),
+                      f"{p}.attn.c_proj.bias": w(E),
+                      f"{p}.mlp.c_fc.weight": w(I, E),
+                      f"{p}.mlp.c_fc.bias": w(I),
+                      f"{p}.mlp.c_proj.weight": w(E, I),
+                      f"{p}.mlp.c_proj.bias": w(E)})
+    if gptj:
+        t.update({"lm_head.weight": w(V, E), "lm_head.bias": w(V)})
+    else:
+        t["transformer.wpe.weight"] = w(hf["n_positions"], E)
+    out, cfg, params = _run_cli(hf, t, ["1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17",
+                                        "5,9,23"], 8)
+    bl = params["blocks"]
+    if gptj:
+        want = {"q": t[f"{h}.1.attn.q_proj.weight"],
+                "k": t[f"{h}.1.attn.k_proj.weight"],
+                "v": t[f"{h}.1.attn.v_proj.weight"].T,
+                "head": t["lm_head.weight"].T, "head_b": t["lm_head.bias"]}
+        got = {"q": bl["q"].w[1], "k": bl["k"].w[1], "v": bl["v"].w[1],
+               "head": params["head"].w, "head_b": params["head"].b}
+    else:
+        ca, cb = t[f"{h}.1.attn.c_attn.weight"], t[f"{h}.1.attn.c_attn.bias"]
+        want = {"q": ca[:E], "k": ca[E:E + kv], "v": ca[E + kv:].T,
+                "q_b": cb[:E], "k_b": cb[E:E + kv], "v_b": cb[E + kv:],
+                "wpe": t["transformer.wpe.weight"]}
+        got = {"q": bl["q"].w[1], "k": bl["k"].w[1], "v": bl["v"].w[1],
+               "q_b": bl["q"].b[1], "k_b": bl["k"].b[1], "v_b": bl["v"].b[1],
+               "wpe": params["wpe"]}
+    bad = [k for k in want if not torch.equal(got[k], want[k])]
+    if bad or cfg.n_kv_heads != (hf["n_head"] if gptj else 1):
+        raise AssertionError(f"{name} checkpoint loaded wrong: {bad}")
+    return {"rows": len(out), "tokens": out, "loaded_equal": sorted(want),
+            "n_kv_heads": cfg.n_kv_heads, "hidden": E, "intermediate": I}
 
 
 def phase_cli() -> None:
@@ -1941,6 +2448,11 @@ def phase_cli() -> None:
             0 <= t < V for o in out for t in o):
         raise AssertionError(f"CLI returned {out}")
     emit({"phase": "cli", "rows": len(out), "tokens": out})
+    for name, hf in (("gptj_6b", GPTJ_6B_HF), ("starcoder", STARCODER_HF)):
+        emit({"phase": "cli", "model": f"{name}, 2 layers",
+              **_cli_family(name, hf)})
+        gc.collect()
+        torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -1951,6 +2463,7 @@ def main() -> int:
     phase_reference()
     phase_reference_paged()
     phase_reference_int8()
+    phase_reference_families()
     eng, bf16 = phase_engine(kernels)
     phase_profile(eng)
     phase_serve(eng)
@@ -1966,6 +2479,8 @@ def main() -> int:
     del params
     gc.collect()
     torch.cuda.empty_cache()
+    phase_model("gptj_6b", GPTJ_6B_HF, kernels, seed=1)
+    phase_model("starcoder", STARCODER_HF, kernels, seed=2)
     phase_cli()
     rows = []
     for name, fn, src, replaces in (

@@ -1,11 +1,11 @@
 """CLI generation entry point (counterpart: llmss_tpu/cli/generate.py:29-169).
 
-Same flags as the reference, plus ``--device`` (default ``cuda``);
+Same flags as the reference, plus ``--device`` (default ``cuda``); any
+family of ``models/registry.MODEL_REGISTRY`` loads.
 ``--kv_dtype int8`` stores the KV cache quantized (engine/cache.py). The
-port refuses, with a message, what it does not run yet: ``--speculative``
-and the ``--sp``/``--tp``/``--dp`` mesh flags.
-``--token_ids`` bypasses the tokenizer; ``--prompts`` needs the optional
-``transformers`` tokenizer.
+port refuses, with a message, what it does not run yet: ``--speculative``,
+the ``--sp``/``--tp``/``--dp`` mesh flags, and ``--prompts`` (text needs a
+tokenizer, which the port does not have: it takes ``--token_ids``).
 
     python -m llmss_tpu_torch.cli.generate --pretrained_model_path DIR \\
         --token_ids 1,2,3,4 --max_new_tokens 8 --is_greedy
@@ -56,8 +56,11 @@ def _refuse_unported(args) -> None:
         raise SystemExit(
             "--sp/--tp/--dp: the torch port runs one model on one device"
         )
-    if not args.token_ids and not args.prompts:
-        raise SystemExit("one of --token_ids / --prompts is required")
+    if args.prompts:
+        raise SystemExit("--prompts needs a tokenizer, which the torch port "
+                         "does not have yet; pass --token_ids")
+    if not args.token_ids:
+        raise SystemExit("--token_ids is required")
 
 
 def _validate(args) -> None:
@@ -82,21 +85,7 @@ def main(argv=None):
     cfg, params = load_model(
         args.pretrained_model_path, device=args.device, dtype=args.dtype
     )
-    tokenizer = None
-    eos_id = None
-    if args.token_ids:
-        prompts = [[int(t) for t in s.split(",")] for s in args.token_ids]
-    else:
-        try:
-            from transformers import AutoTokenizer
-        except ImportError:
-            raise SystemExit(
-                "--prompts needs the transformers tokenizer, which is not "
-                "installed here; pass --token_ids instead"
-            ) from None
-        tokenizer = AutoTokenizer.from_pretrained(args.pretrained_model_path)
-        eos_id = tokenizer.eos_token_id
-        prompts = [tokenizer(p)["input_ids"] for p in args.prompts]
+    prompts = [[int(t) for t in s.split(",")] for s in args.token_ids]
 
     engine = DecodeEngine(
         cfg, params, device=args.device, kv_dtype=args.kv_dtype,
@@ -107,7 +96,7 @@ def main(argv=None):
     gen = GenerationParams(
         max_new_tokens=args.max_new_tokens, is_greedy=args.is_greedy,
         temperature=args.temperature, top_k=args.top_k, top_p=args.top_p,
-        eos_token_id=eos_id, seed=args.seed,
+        seed=args.seed,
     )
     t0 = time.monotonic()
     first_token_at = []
@@ -120,12 +109,8 @@ def main(argv=None):
 
     n_generated = sum(len(o) for o in out)
     for i, (p, o) in enumerate(zip(prompts, out)):
-        if tokenizer is not None:
-            print(f"[{i}] prompt: {tokenizer.decode(p)!r}")
-            print(f"[{i}] continuation: {tokenizer.decode(o)!r}")
-        else:
-            print(f"[{i}] prompt ids: {p}")
-            print(f"[{i}] continuation ids: {o}")
+        print(f"[{i}] prompt ids: {p}")
+        print(f"[{i}] continuation ids: {o}")
     elapsed = time.monotonic() - start
     ttft = (
         f"ttft: {(first_token_at[0] - t0) * 1000:.1f}ms | "

@@ -53,8 +53,9 @@ from llmss_tpu_torch.engine.graphs import (
 from llmss_tpu_torch.engine.metrics import EngineMetrics
 from llmss_tpu_torch.models.common import DecoderConfig
 from llmss_tpu_torch.models.decoder import (
-    Params, forward, forward_ragged, unstack_layers,
+    Params, forward, forward_ragged, rope_inv_freq, unstack_layers,
 )
+from llmss_tpu_torch.ops._build import check_head_dim
 from llmss_tpu_torch.ops.sampling import fold_step_outcome, sample
 
 
@@ -124,6 +125,7 @@ class DecodeEngine:
         kv_dtype: str | None = None,
     ):
         self.device = resolve_device(device)
+        check_head_dim(cfg.head_dim, self.device)
         self.batch_size = batch_size
         self.max_seq_len = max_seq_len or cfg.max_position_embeddings
         # kv_layout="paged": KV in a global block pool addressed through
@@ -161,6 +163,10 @@ class DecodeEngine:
             )
             cfg = dataclasses.replace(cfg, rope_freq_factors=chosen)
         self.cfg = cfg
+        if cfg.positions == "rotary":
+            # Built now, outside any graph capture (the tensors' device:
+            # "cuda" resolves to "cuda:0").
+            rope_inv_freq(cfg, torch.empty(0, device=self.device).device)
         self.params = params
         self._layers = unstack_layers(params)
         self.metrics = EngineMetrics()

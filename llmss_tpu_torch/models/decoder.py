@@ -48,6 +48,7 @@ multi-token window.
 
 from __future__ import annotations
 
+import functools
 from typing import Any
 
 import torch
@@ -67,7 +68,7 @@ from llmss_tpu_torch.ops.layers import (
     LinearParams, NormParams, dense, dense_t, embedding, layer_norm, lm_head,
     rms_norm,
 )
-from llmss_tpu_torch.ops.rope import apply_rope, sin_cos_tables
+from llmss_tpu_torch.ops.rope import apply_rope, inv_freq_table, sin_cos_tables
 
 Params = dict[str, Any]
 
@@ -187,8 +188,24 @@ def _embed_in(cfg: DecoderConfig, params: Params, input_ids, positions):
         # step could not contain.
         h = h * torch.tensor(cfg.embed_multiplier, dtype=dtype)
     if cfg.positions == "learned":
-        h = h + embedding(positions, params["wpe"].to(dtype))
+        h = h + _learned_positions(positions, params["wpe"].to(dtype))
     return h
+
+
+def _learned_positions(positions, wpe):
+    """``wpe[positions]`` with the reference's bounds, never an
+    out-of-range read (on the GPU, a device-side fault). A multi-token
+    call embeds by a one-hot product there (decoder.py:467-476): a
+    position outside the table (a dead column of a ragged chunk, padding
+    at -1) adds a zero row. A one-token step gathers with ``jnp.take``: a
+    position past the table (a done row still counting) gives NaN, and -1
+    wraps to the last row."""
+    n = wpe.shape[0]
+    rows = embedding(positions.clamp(max=n - 1), wpe)
+    if positions.shape[1] > 1:
+        inside = (positions >= 0) & (positions < n)
+        return torch.where(inside[..., None], rows, 0.0)
+    return torch.where((positions < n)[..., None], rows, float("nan"))
 
 
 def _head_out(cfg: DecoderConfig, params: Params, h, gather_idx):
@@ -202,12 +219,23 @@ def _head_out(cfg: DecoderConfig, params: Params, h, gather_idx):
     return lm_head(h, params["head"])
 
 
+@functools.lru_cache(maxsize=None)
+def rope_inv_freq(cfg: DecoderConfig, device: torch.device) -> torch.Tensor:
+    """The config's rotary frequencies on ``device`` (LongRoPE's factors
+    folded in), built once per (config, device): a forward only reads
+    them, so a captured decode step holds no host-to-device copy.
+    ``DecodeEngine`` builds its config's before any capture."""
+    return inv_freq_table(cfg.rotary_dim or cfg.head_dim, cfg.rope_theta,
+                          cfg.rope_freq_factors, device)
+
+
 def _rope_tables(cfg: DecoderConfig, positions):
     if cfg.positions != "rotary":
         return None
     return sin_cos_tables(
         positions, cfg.rotary_dim or cfg.head_dim, cfg.rope_theta,
-        cfg.rope_freq_factors, cfg.rope_attn_factor,
+        attn_factor=cfg.rope_attn_factor,
+        inv_freq=rope_inv_freq(cfg, positions.device),
     )
 
 

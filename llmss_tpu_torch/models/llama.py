@@ -3,11 +3,11 @@
 
 from __future__ import annotations
 
-import torch
-
+from llmss_tpu_torch.models._loading import (
+    lm_head, norm, stacked_linear, stacked_norm,
+)
 from llmss_tpu_torch.models.common import DecoderConfig
 from llmss_tpu_torch.models.decoder import Params
-from llmss_tpu_torch.ops.layers import LinearParams, NormParams
 from llmss_tpu_torch.weights.loader import CheckpointShards
 
 
@@ -41,49 +41,40 @@ def config_from_hf(hf: dict, dtype: str = "bfloat16") -> DecoderConfig:
     )
 
 
-def _stack(ckpt: CheckpointShards, names, transpose: bool) -> torch.Tensor:
-    return torch.stack([
-        ckpt.get(n).T.contiguous() if transpose else ckpt.get(n) for n in names
-    ])
-
-
-def load_params(ckpt: CheckpointShards, cfg: DecoderConfig) -> Params:
-    """Stacked parameters in the decoder's layout. The torch ``nn.Linear``
-    disk layout is ``[out, in]``: q/k keep it, the rest are transposed to
-    ``[in, out]``. Biases are loaded where the checkpoint has them."""
+def load_params(ckpt: CheckpointShards, cfg: DecoderConfig,
+                overrides=None) -> Params:
+    """Stacked parameters in the decoder's layout (q/k ``[L, out, in]``,
+    the rest ``[L, in, out]``). Biases are loaded where every layer has
+    them (Qwen2's q/k/v). ``overrides`` maps a block key ("q", "gate", ...)
+    to a ``(ckpt, cfg) -> LinearParams`` loader: how a family with this
+    structure but fused checkpoint tensors (Phi-3) reuses this loader."""
     L, pre = cfg.n_layers, "model.layers"
 
-    def lin(attr, key):
-        names = [f"{pre}.{i}.{attr}" for i in range(L)]
-        w = _stack(ckpt, [f"{n}.weight" for n in names],
-                   transpose=key not in ("q", "k"))
-        b = None
-        if all(f"{n}.bias" in ckpt for n in names):
-            b = _stack(ckpt, [f"{n}.bias" for n in names], transpose=False)
-        return LinearParams(w, b)
+    def entry(attr, key):
+        if overrides and key in overrides:
+            return overrides[key](ckpt, cfg)
+        return stacked_linear(ckpt, lambda i: f"{pre}.{i}.{attr}", L,
+                              transpose=key not in ("q", "k"))
 
-    def norm(attr):
-        return NormParams(
-            _stack(ckpt, [f"{pre}.{i}.{attr}.weight" for i in range(L)], False),
-            None,
-        )
+    def norm_of(attr):
+        return stacked_norm(ckpt, lambda i: f"{pre}.{i}.{attr}", L, bias=False)
 
     blocks: Params = {
-        "ln1": norm("input_layernorm"),
-        "ln2": norm("post_attention_layernorm"),
-        "q": lin("self_attn.q_proj", "q"),
-        "k": lin("self_attn.k_proj", "k"),
-        "v": lin("self_attn.v_proj", "v"),
-        "o": lin("self_attn.o_proj", "o"),
-        "gate": lin("mlp.gate_proj", "gate"),
-        "up": lin("mlp.up_proj", "up"),
-        "down": lin("mlp.down_proj", "down"),
+        "ln1": norm_of("input_layernorm"),
+        "ln2": norm_of("post_attention_layernorm"),
+        "q": entry("self_attn.q_proj", "q"),
+        "k": entry("self_attn.k_proj", "k"),
+        "v": entry("self_attn.v_proj", "v"),
+        "o": entry("self_attn.o_proj", "o"),
+        "gate": entry("mlp.gate_proj", "gate"),
+        "up": entry("mlp.up_proj", "up"),
+        "down": entry("mlp.down_proj", "down"),
     }
     params: Params = {
         "wte": ckpt.get("model.embed_tokens.weight"),
         "blocks": blocks,
-        "ln_f": NormParams(ckpt.get("model.norm.weight"), None),
+        "ln_f": norm(ckpt, "model.norm", bias=False),
     }
     if not cfg.tie_word_embeddings:
-        params["head"] = LinearParams(ckpt.get("lm_head.weight").T.contiguous(), None)
+        params["head"] = lm_head(ckpt, "lm_head.weight")
     return params

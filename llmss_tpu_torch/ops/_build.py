@@ -43,6 +43,8 @@ IMPL_CODES = {"lanes": 0, "lanes_int8": 0, "fma": 0, "mma": 1, "mma_int8": 2}
 # q / fresh KV dtypes an int8 cache's kernels take
 INT8_QUERY_DTYPES = (torch.float32, torch.bfloat16)
 SMEM_LIMIT = 232448  # bytes of shared memory one block may use on the H100
+# The head dims every kernel (K1-K4) is instantiated for.
+HEAD_DIMS = (64, 128, 256)
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -50,6 +52,18 @@ _libs: dict[str, ctypes.CDLL] = {}
 
 class KernelError(RuntimeError):
     """A kernel failed to build or to launch."""
+
+
+def check_head_dim(head_dim: int, device) -> None:
+    """Refuse, on a CUDA device, a model whose head dim no kernel is
+    instantiated for: there every attention call goes to a kernel, and
+    nothing falls back to a plain version. The CPU runs the plain versions
+    at any head dim."""
+    if torch.device(device).type == "cuda" and head_dim not in HEAD_DIMS:
+        raise KernelError(
+            f"head_dim {head_dim} has no kernel instantiation: the CUDA "
+            f"kernels take head_dim {HEAD_DIMS} (device='cpu' runs the "
+            "plain versions)")
 
 
 def tile_smem_bytes(D: int) -> int:

@@ -31,7 +31,7 @@ from llmss_tpu_torch.ops import _build
 from llmss_tpu_torch.ops import split_plan as sp
 from llmss_tpu_torch.ops.attention import fresh_kv_decode_attention
 
-HEAD_DIMS = (64, 128, 256)
+HEAD_DIMS = _build.HEAD_DIMS
 
 
 def decode_attention_ref(

@@ -26,7 +26,7 @@ import torch
 from llmss_tpu_torch.ops import _build
 from llmss_tpu_torch.ops.attention import attention, make_causal_mask
 
-HEAD_DIMS = (64, 128, 256)
+HEAD_DIMS = _build.HEAD_DIMS
 MMA_DTYPES = (torch.bfloat16, torch.float16)
 
 

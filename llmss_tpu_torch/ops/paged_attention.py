@@ -65,7 +65,7 @@ from llmss_tpu_torch.ops.attention import (
     fresh_kv_decode_attention, ragged_fresh_kv_attention,
 )
 
-HEAD_DIMS = (64, 128, 256)
+HEAD_DIMS = _build.HEAD_DIMS
 DTYPES = (torch.bfloat16, torch.float32)
 
 

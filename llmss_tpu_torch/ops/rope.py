@@ -10,21 +10,35 @@ from __future__ import annotations
 import torch
 
 
+def inv_freq_table(dim: int, theta: float, freq_factors=None,
+                   device="cpu") -> torch.Tensor:
+    """The ``dim/2`` fp32 rotary frequencies on ``device``, divided by
+    LongRoPE's per-frequency ``freq_factors`` when given. Uploading the
+    factors is a host-to-device copy, which a captured CUDA graph cannot
+    hold: callers that run under capture build this once beforehand
+    (models/decoder.py ``rope_inv_freq``)."""
+    inv_freq = 1.0 / (
+        theta ** (torch.arange(0, dim, 2, dtype=torch.float32, device=device)
+                  / dim)
+    )
+    if freq_factors is not None:
+        inv_freq = inv_freq / torch.tensor(
+            freq_factors, dtype=torch.float32).to(device)
+    return inv_freq
+
+
 def sin_cos_tables(
     positions: torch.Tensor, dim: int, theta: float,
-    freq_factors=None, attn_factor: float = 1.0,
+    freq_factors=None, attn_factor: float = 1.0, *,
+    inv_freq: torch.Tensor | None = None,
 ):
     """sin/cos ``[B, S, dim/2]`` in fp32 for integer positions.
     ``freq_factors`` are LongRoPE's per-frequency divisors and
-    ``attn_factor`` its scalar sin/cos multiplier."""
-    dev = positions.device
-    inv_freq = 1.0 / (
-        theta ** (torch.arange(0, dim, 2, dtype=torch.float32, device=dev) / dim)
-    )
-    if freq_factors is not None:
-        inv_freq = inv_freq / torch.as_tensor(
-            freq_factors, dtype=torch.float32, device=dev
-        )
+    ``attn_factor`` its scalar sin/cos multiplier; ``inv_freq`` is
+    ``inv_freq_table(dim, theta, freq_factors, positions.device)`` built
+    beforehand (then ``freq_factors`` is not read)."""
+    if inv_freq is None:
+        inv_freq = inv_freq_table(dim, theta, freq_factors, positions.device)
     angles = positions[..., None].float() * inv_freq
     sin, cos = torch.sin(angles), torch.cos(angles)
     if attn_factor != 1.0:

@@ -6,6 +6,14 @@ bytes. ``SafetensorsFile`` maps the file and builds tensors with
 ``torch.frombuffer``; it needs neither the ``safetensors`` package nor
 ``transformers`` nor ``ml_dtypes``. Local directories only: nothing is
 downloaded.
+
+One device needs no per-shard reads (the reference's ``read_slice`` /
+``get_stacked_array``, loader.py:116-317): ``CheckpointShards.get`` takes
+the mapped tensor, optionally its 2D transpose and a sub-range of one axis
+(a part of a fused tensor), and copies only that into a new tensor on the
+target device. Host memory holds at most one tensor's bytes beyond the
+mapping at a time; ``get_stacked`` fills a preallocated ``[L, ...]``
+tensor layer by layer.
 """
 
 from __future__ import annotations
@@ -52,8 +60,8 @@ class SafetensorsFile:
     def __contains__(self, name: str) -> bool:
         return name in self._entries
 
-    def get(self, name: str) -> torch.Tensor:
-        """The tensor as stored (a CPU copy, detached from the mapping)."""
+    def view(self, name: str) -> torch.Tensor:
+        """The tensor as stored, aliasing the mapping (copy before use)."""
         e = self._entries[name]
         if e["dtype"] not in _DTYPES:
             raise ValueError(f"{name}: unsupported dtype {e['dtype']}")
@@ -67,7 +75,11 @@ class SafetensorsFile:
             self._mm, dtype=torch.uint8, count=count,
             offset=self._data_start + start,
         )
-        return t.view(dt).reshape(shape).clone()
+        return t.view(dt).reshape(shape)
+
+    def get(self, name: str) -> torch.Tensor:
+        """The tensor as stored (a CPU copy, detached from the mapping)."""
+        return self.view(name).clone()
 
     def close(self) -> None:
         self._mm.close()
@@ -93,14 +105,51 @@ class CheckpointShards:
     def __contains__(self, name: str) -> bool:
         return name in self._routing
 
-    def get(self, name: str) -> torch.Tensor:
-        """Tensor on the target device; floating tensors are cast to the
-        target dtype, integer tensors are left as stored."""
+    def _logical(self, name: str, transpose: bool, sub) -> torch.Tensor:
+        """The mapped tensor ``name`` (no copy), transposed if asked (2D
+        only), narrowed to ``sub = (axis, lo, hi)`` of that view."""
         if name not in self._routing:
             raise KeyError(f"tensor {name!r} not in checkpoint")
-        t = self._routing[name].get(name)
-        dt = self.dtype if (self.dtype is not None and t.is_floating_point()) else t.dtype
-        return t.to(device=self.device, dtype=dt)
+        t = self._routing[name].view(name)
+        if transpose:
+            if t.dim() != 2:
+                raise ValueError(f"{name}: transpose load needs a 2D tensor")
+            t = t.T
+        if sub is not None:
+            axis, lo, hi = sub
+            t = t.narrow(axis, lo, hi - lo)
+        return t
+
+    def _target_dtype(self, t: torch.Tensor) -> torch.dtype:
+        # Floating tensors are cast to the target dtype, integer tensors
+        # are left as stored.
+        return self.dtype if (self.dtype is not None
+                              and t.is_floating_point()) else t.dtype
+
+    def get(self, name: str, *, transpose: bool = False,
+            sub: tuple[int, int, int] | None = None) -> torch.Tensor:
+        """Tensor ``name`` (its 2D transpose with ``transpose``, and of
+        that the range ``lo:hi`` of ``axis`` with ``sub=(axis, lo, hi)``),
+        contiguous on the target device."""
+        t = self._logical(name, transpose, sub)
+        out = torch.empty(t.shape, dtype=self._target_dtype(t),
+                          device=self.device)
+        return out.copy_(t)
+
+    def get_stacked(self, names, *, transpose: bool = False,
+                    sub: tuple[int, int, int] | None = None) -> torch.Tensor:
+        """``get`` of every name, stacked on a new leading axis: the
+        per-layer tensors of one parameter as ``[len(names), ...]``."""
+        first = self._logical(names[0], transpose, sub)
+        out = torch.empty((len(names), *first.shape),
+                          dtype=self._target_dtype(first), device=self.device)
+        for i, n in enumerate(names):
+            t = self._logical(n, transpose, sub)
+            if t.shape != first.shape:
+                raise ValueError(f"{n}: shape {tuple(t.shape)}, the first "
+                                 f"layer's is {tuple(first.shape)}")
+            out[i].copy_(t)
+        return out
 
     def close(self) -> None:
         for f in self._files:

@@ -1,15 +1,18 @@
 """Boundaries of the torch port: it imports nothing of JAX or of the JAX
-package, its entry points default to the GPU and raise without one, and a
-CUDA request never falls back to the plain CPU versions."""
+package, nor ``transformers`` or ``safetensors`` (the GPU machine has
+neither), its entry points default to the GPU and raise without one, a
+CUDA request never falls back to the plain CPU versions, and a model
+whose head dim no kernel takes is refused on the GPU at construction."""
 
 import ast
+import dataclasses
 from pathlib import Path
 
 import pytest
 import torch
 
 from llmss_tpu_torch import resolve_device
-from llmss_tpu_torch.engine.engine import DecodeEngine
+from llmss_tpu_torch.engine.engine import DecodeEngine, GenerationParams
 from llmss_tpu_torch.models.common import DecoderConfig
 from llmss_tpu_torch.models.decoder import init_params
 from llmss_tpu_torch.ops import _build
@@ -44,7 +47,8 @@ def _imported_roots(path: Path) -> set[str]:
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_port_imports_no_jax(path):
-    bad = _imported_roots(path) & {"jax", "jaxlib", "llmss_tpu", "flax"}
+    bad = _imported_roots(path) & {"jax", "jaxlib", "llmss_tpu", "flax",
+                                   "transformers", "safetensors"}
     assert not bad, f"{path} imports {bad}"
 
 
@@ -139,3 +143,30 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
     with pytest.raises(_build.KernelError, match="nvcc"):
         _build.build(("flash_attention",))
+
+
+def test_head_dim_envelope_names_the_head_dim():
+    """Phi-3-mini's head_dim 96 has no kernel: on CUDA the check names it
+    and the supported set; the kernels' head dims pass; the CPU takes any."""
+    with pytest.raises(_build.KernelError, match=r"head_dim 96 .*\(64, 128, 256\)"):
+        _build.check_head_dim(96, "cuda")
+    for d in _build.HEAD_DIMS:
+        _build.check_head_dim(d, torch.device("cuda", 0))
+    _build.check_head_dim(96, "cpu")
+
+
+def test_engine_refuses_unsupported_head_dim_on_cuda(monkeypatch):
+    """An engine (and so a batcher or worker built on it) for head_dim 80
+    raises KernelError at construction on CUDA, before any tensor moves;
+    the same config runs its plain path on the CPU."""
+    cfg = dataclasses.replace(CFG, n_heads=2, n_kv_heads=2, head_dim=80,
+                              rotary_dim=80)
+    params = init_params(cfg, seed=0, device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    with pytest.raises(_build.KernelError, match="head_dim 80"):
+        DecodeEngine(cfg, params, device="cuda")
+    monkeypatch.undo()
+    eng = DecodeEngine(cfg, params, device="cpu", max_seq_len=32)
+    out = eng.generate([[1, 2, 3], [4, 5]], GenerationParams(max_new_tokens=5),
+                       chunk_steps=2)
+    assert [len(o) for o in out] == [5, 5]

@@ -45,6 +45,36 @@ CONFIGS = {
     "bigcode": dict(model_type="gpt_bigcode", n_heads=4, n_kv_heads=1,
                     activation="gelu_new", norm="layernorm", mlp="mlp",
                     positions="learned", tie_word_embeddings=True),
+    # GPT-2: MHA, learned positions, tied head, biases everywhere.
+    "gpt2": dict(model_type="gpt2", n_heads=4, n_kv_heads=4,
+                 activation="gelu_new", norm="layernorm", mlp="mlp",
+                 positions="learned", tie_word_embeddings=True),
+    # Qwen2: q/k/v biases without an o bias on the llama structure.
+    "qwen2": dict(model_type="qwen2", n_heads=4, n_kv_heads=2,
+                  activation="silu", norm="rmsnorm", mlp="swiglu",
+                  positions="rotary", rope_style="half", attn_bias=True,
+                  attn_out_bias=False, mlp_bias=False),
+    # GPT-NeoX: parallel residual with a second norm, partial half-style
+    # rotary (rotary_pct 0.25 of head_dim 16).
+    "gpt_neox": dict(model_type="gpt_neox", n_heads=4, n_kv_heads=4,
+                     activation="gelu", norm="layernorm", mlp="mlp",
+                     positions="rotary", rope_style="half", rotary_dim=4,
+                     parallel_residual=True, parallel_residual_ln2=True),
+    # Phi-3 LongRoPE: per-frequency divisors and the attention factor.
+    "phi3_longrope": dict(model_type="phi3", n_heads=4, n_kv_heads=2,
+                          activation="silu", norm="rmsnorm", mlp="swiglu",
+                          positions="rotary", rope_style="half",
+                          rotary_dim=16, attn_bias=False, mlp_bias=False,
+                          rope_freq_factors=tuple(1.0 + 0.7 * i
+                                                  for i in range(8)),
+                          rope_attn_factor=1.19),
+    # Gemma: (1 + w) RMSNorm, embeddings times sqrt(hidden), head_dim 32
+    # over a hidden size of 64 with 4 heads, tied head.
+    "gemma": dict(model_type="gemma", n_heads=4, n_kv_heads=1, head_dim=32,
+                  activation="gelu_pytorch_tanh", norm="rmsnorm",
+                  norm_scale_offset=1.0, embed_multiplier=8.0, mlp="swiglu",
+                  positions="rotary", rope_style="half", attn_bias=False,
+                  mlp_bias=False, tie_word_embeddings=True),
 }
 
 
