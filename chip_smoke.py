@@ -68,6 +68,10 @@ exits non-zero without printing a result:
               at Llama-2-7B width: cache bytes against bf16's (<= 0.52x),
               the share of tokens equal to the bf16 runs', and a decode
               chunk profiled (only int8 decode_fwd instantiations);
+   head_groups -- Qwen2-7B (G = 7), SantaCoder (G = 16) and StarCoder
+              over an int8 cache (G = 48) at full width, 2 layers: prewarm,
+              generate, and the dense and paged decode steps profiled
+              (graph and eager) with the decode template each takes;
    gptj_6b, starcoder -- the published configs of EleutherAI/gpt-j-6b
               (D 256, untied biased head) and bigcode/starcoder (48 query
               heads on one KV head, learned positions) at full width and
@@ -247,7 +251,7 @@ def ptxas_entries(text: str) -> list[tuple[str, int, int]]:
     """(kernel, spill store bytes, registers) of every instantiation in
     ``nvcc -Xptxas=-v`` output: ptxas reports the entry's name, then its
     spills, then its registers."""
-    name = r"(?:\w{5}_mma|(?:flash|paged|decode)_fwd|split_merge)"
+    name = r"(?:(?:flash|paged|decode)_(?:mma|fwd)|split_merge)"
     return [(k, int(sp), int(r)) for k, sp, r in re.findall(
         rf"entry function '\w*?({name}\w*?)EEEv\w*' for[^\n]*\n[^\n]*\n"
         r"\s*\d+ bytes stack frame, (\d+) bytes spill stores[^\n]*\n[^\n]*"
@@ -439,6 +443,36 @@ def _main_path_impl(kernel, row, want="mma") -> None:
                              f"{row['impl']}, want {want}")
 
 
+def _decode_impl(q, Hkv: int, int8: bool) -> str:
+    """The template a decode call (K2, K3) must take: the tensor-core tile
+    for bf16 queries with more than G_TILE query heads per KV head, the
+    lanes for fewer and for fp32 queries."""
+    from llmss_tpu_torch.ops import split_plan as sp
+
+    tile = q.dtype == torch.bfloat16 and q.shape[2] // Hkv > sp.G_TILE
+    return ("mma" if tile else "lanes") + ("_int8" if int8 else "")
+
+
+# Where the run times both decode templates, forced, on the same call: the
+# K2 and K3 cases at G = 1, 4, 7 and 8 (the plan's lanes), 16 and 48 (its
+# tile), so that the run itself shows where G_TILE belongs.
+G_TILE_CASES = {1: ("k2_engine_decode", "k3_serve_decode"),
+                4: ("k2_gqa", "k3_gqa"),
+                7: ("k2_qwen2_full_wrap", "k3_qwen2_serve_decode"),
+                8: ("k2_g8_engine_decode", "k3_g8_serve_decode"),
+                16: ("k2_santacoder_window", "k3_santacoder_window"),
+                48: ("k2_starcoder_engine_decode", "k3_starcoder_serve_decode")}
+FORCE = {"lanes_ms": 1 << 30, "tile_ms": 0}  # g_tile forcing each template
+
+
+def _both_templates(row, fn, check) -> None:
+    """``fn(g_tile)`` forced onto the lanes and onto the tile: each output
+    held within REL_TOL by ``check``, each timed into ``row``."""
+    for key, g_tile in FORCE.items():
+        check(fn(g_tile))
+        row[key] = device_ms(lambda: fn(g_tile), iters=50)
+
+
 # At a main-path decode shape the plan may be no slower than the unsplit
 # kernel beyond the spread of graph replays within one run.
 SPLIT_MARGIN = 1.05
@@ -531,6 +565,24 @@ def k2_cases(int8: bool = True) -> list[dict]:
                  [n + 40 for n in ENGINE_LENS], 192, seed=8, D=256),
         _k2_case("k2_starcoder_engine_decode", 4, 1024, 48, 1,
                  [n + 40 for n in ENGINE_LENS], 192, seed=9),
+        # Qwen/Qwen2-7B config.json's 28 query heads on 4 KV heads (G = 7:
+        # one lane group of 8 per KV head, one row dead), and G = 8, the
+        # largest lane group, in the engine's bucket.
+        _k2_case("k2_qwen2_engine_decode", 4, 1024, 28, 4,
+                 [n + 40 for n in ENGINE_LENS], 192, seed=10),
+        _k2_case("k2_g8_engine_decode", 4, 1024, 32, 4,
+                 [n + 40 for n in ENGINE_LENS], 192, seed=11),
+        # Qwen2-7B over the whole (wrapped) ring: a long read, where one
+        # group per KV head saves 6 of 7 reads.
+        _k2_case("k2_qwen2_full_wrap", 4, 1024, 28, 4, [1000, 1500, 0, 2047],
+                 1024, seed=14),
+        # bigcode/gpt_bigcode-santacoder's 16 heads of 128 on one KV head
+        # (the tile, a quarter full) under a window, with a wrapped and an
+        # empty row; G = 48 over the whole ring with wrapped and empty rows.
+        _k2_case("k2_santacoder_window", 4, 1024, 16, 1, [900, 1800, 0, 300],
+                 1024, window=256, seed=12),
+        _k2_case("k2_starcoder_wrap_empty", 4, 1024, 48, 1,
+                 [1000, 1500, 0, 2047], 1024, seed=13),
     ]
     return cases + ([
         # The int8 cache: the int8 engine phase's decode in its bucket
@@ -542,6 +594,9 @@ def k2_cases(int8: bool = True) -> list[dict]:
                  seed=2, kv="int8"),
         _k2_case("k2_int8_fp32_d64", 3, 256, 8, 4, [300, 1000, 0], 256,
                  seed=4, D=64, dt=torch.float32, kv="int8"),
+        # StarCoder's decode over an int8 cache: the tile over int8 tiles.
+        _k2_case("k2_int8_starcoder_engine_decode", 4, 1024, 48, 1,
+                 [n + 40 for n in ENGINE_LENS], 192, seed=9, kv="int8"),
     ] if int8 else [])
 
 
@@ -662,12 +717,21 @@ def check_kernels() -> dict:
         _unsplit(row, lambda: da._launch(*args, max_splits=1, **kw),
                  lambda g: _agree("K2", c["name"] + " unsplit", g.float(), ref,
                                   ref_abs, c["q"].dtype))
+        _main_path_impl("K2", row, _decode_impl(c["q"], Hkv, c["ks"] is not None))
+        if c["name"] in {k2 for k2, _ in G_TILE_CASES.values()}:
+            _both_templates(
+                row, lambda g_tile: da._launch(*args, g_tile=g_tile, **kw),
+                lambda g: _agree("K2", c["name"] + " forced", g.float(), ref,
+                                 ref_abs, c["q"].dtype))
         out.setdefault(c["row"], row)
         out["cases"][c["name"]] = row
         worst_of[c["row"]] = max(worst_of.get(c["row"], 0.0), err)
         emit(row)
     for name in ("K2", "K2_int8"):
         out[name]["max_abs_err"] = worst_of[name]
+    for name in ("k2_starcoder_engine_decode", "k2_int8_starcoder_engine_decode"):
+        row = out["cases"][name]
+        out["vs_library"][name] = (row["ms"], row["library_ms"])
     _main_path_impl("K2_int8", out["K2_int8"], "lanes_int8")
     # The engine's 192-slot bucket nearly fills the card unsplit (128
     # blocks): the plan keeps it whole.
@@ -756,6 +820,21 @@ def k3_cases(int8: bool = True) -> list[dict]:
                     n_cols=52, D=256, seed=18),
         _paged_case("k3_starcoder_serve_decode", 8, 48, 1, SERVE_CTX,
                     [1] * 8, 1, n_cols=52, seed=19),
+        # Qwen2-7B's G = 7 (K3 takes the 7 rows in one R = 8 lane tile) and
+        # G = 8 at the serve decode shape.
+        _paged_case("k3_qwen2_serve_decode", 8, 28, 4, SERVE_CTX, [1] * 8, 1,
+                    n_cols=52, seed=20),
+        _paged_case("k3_g8_serve_decode", 8, 32, 4, SERVE_CTX, [1] * 8, 1,
+                    n_cols=52, seed=21),
+        # SantaCoder's G = 16 under a window; G = 48 with wrapped rows, an
+        # empty row and sentinel columns, and with rows whose occupied
+        # slots end in their first split beside a long row and an empty one.
+        _paged_case("k3_santacoder_window", 4, 16, 1, [900, 300, 1000, 20],
+                    [1] * 4, 1, window=256, seed=22),
+        _paged_case("k3_starcoder_wrap_empty_sentinel", 4, 48, 1,
+                    [1500, 0, 2047, 77], [1] * 4, 1, seed=23),
+        _paged_case("k3_starcoder_first_split_only", 4, 48, 1,
+                    [1000, 60, 0, 30], [1] * 4, 1, seed=24),
     ]
     return cases + ([
         # The int8 pool: the int8 serve phase's decode first, then wrapped
@@ -767,6 +846,10 @@ def k3_cases(int8: bool = True) -> list[dict]:
                     [1] * 4, 1, seed=3, kv="int8"),
         _paged_case("k3_int8_fp32_d64", 3, 8, 4, [300, 0, 1000], [1] * 3, 1,
                     seed=4, D=64, dt=torch.float32, kv="int8"),
+        # StarCoder's serve decode over an int8 pool: the tile over int8
+        # tiles.
+        _paged_case("k3_int8_starcoder_serve_decode", 8, 48, 1, SERVE_CTX,
+                    [1] * 8, 1, n_cols=52, seed=19, kv="int8"),
     ] if int8 else [])
 
 
@@ -863,10 +946,11 @@ def _paged_visibility(c):
     return mask & live[:, :, None], fresh & live[:, :, None]
 
 
-def _paged_row(kernel, c, fn, ref_fn, lib_fn, unsplit_fn=None):
+def _paged_row(kernel, c, fn, ref_fn, lib_fn, unsplit_fn=None, forced_fn=None):
     """Run one K3 / K4 case: agreement within REL_TOL, then kernel, plain,
-    library and bound times, and for K3 (``unsplit_fn``) the unsplit
-    kernel's. Returns (row, kernel output)."""
+    library and bound times, for K3 (``unsplit_fn``) the unsplit kernel's,
+    and (``forced_fn(c, g_tile)``) both decode templates'. Returns (row,
+    kernel output)."""
     from llmss_tpu_torch.ops import _build
     from llmss_tpu_torch.ops import paged_attention as pa
 
@@ -922,6 +1006,11 @@ def _paged_row(kernel, c, fn, ref_fn, lib_fn, unsplit_fn=None):
         _unsplit(row, lambda: unsplit_fn(c),
                  lambda g: _agree(kernel, c["name"] + " unsplit", g.float()[live],
                                   ref[live], ref_abs[live], dt))
+    if forced_fn is not None:
+        _both_templates(row, lambda g_tile: forced_fn(c, g_tile),
+                        lambda g: _agree(kernel, c["name"] + " forced",
+                                         g.float()[live], ref[live],
+                                         ref_abs[live], dt))
     emit(row)
     return row, got
 
@@ -968,12 +1057,15 @@ def check_paged_kernels(out: dict) -> None:
             c["kvp"], c["bt"], c["nblk"], c["slot0"][:, None], c["layer"],
             **kw(c))
 
-    def k3_unsplit(c):
+    def k3_unsplit(c, **kw):
         return pa._launch(
             "paged_decode_attention (K3)", c["q"], c["kp"], c["vp"], c["kn"],
             c["vn"], c["qpos"][:, None], None, c["kvp"], c["bt"], c["nblk"],
             c["slot0"][:, None], c["layer"], c["n_cols"], None, c["window"],
-            c["ks"], c["vs"], max_splits=1)
+            c["ks"], c["vs"], **(kw or {"max_splits": 1}))
+
+    def k3_forced(c, g_tile):
+        return k3_unsplit(c, g_tile=g_tile)
 
     def k4(c):
         return pa.ragged_paged_attention(
@@ -988,10 +1080,13 @@ def check_paged_kernels(out: dict) -> None:
     k3_list = k3_cases()
     worst = {}
     for c in k3_list:
-        row, got = _paged_row("K3", c, k3, k3_ref, _gather_sdpa, k3_unsplit)
-        _main_path_impl("K3", row, "lanes_int8" if c["ks"] is not None
-                        else "lanes")
-        if c["name"] == "k3_first_split_only" and (
+        forced = c["name"] in {k3 for _, k3 in G_TILE_CASES.values()}
+        row, got = _paged_row("K3", c, k3, k3_ref, _gather_sdpa, k3_unsplit,
+                              k3_forced if forced else None)
+        _main_path_impl("K3", row, _decode_impl(c["q"], c["kn"].shape[2],
+                                                c["ks"] is not None))
+        if c["name"] in ("k3_first_split_only",
+                         "k3_starcoder_first_split_only") and (
                 row["splits"] < 2 or sorted(row["live_splits"])[:3] != [0, 1, 1]):
             raise AssertionError(f"K3 {c['name']}: live splits "
                                  f"{row['live_splits']} of {row['splits']}")
@@ -1029,11 +1124,27 @@ def check_paged_kernels(out: dict) -> None:
     for name in ("K4", "K4_int8"):
         out["vs_library"][out[name]["case"]] = (out[name]["ms"],
                                                 out[name]["library_ms"])
+    for name in ("k3_starcoder_serve_decode", "k3_int8_starcoder_serve_decode",
+                 "k4_ring_wrap"):
+        row = out["cases"][name]
+        out["vs_library"][name] = (row["ms"], row["library_ms"])
     # A measurement, not a pass condition: kernel times vary by card.
     emit({"phase": "kernel", "check": "mma_below_library",
           "cases": {k: {"ms": a, "library_ms": b}
                     for k, (a, b) in out["vs_library"].items()},
           "all_below": all(a < b for a, b in out["vs_library"].values())})
+    # A measurement: both decode templates at each G of G_TILE_CASES,
+    # forced, beside the plan's choice (G_TILE).
+    from llmss_tpu_torch.ops import split_plan as sp
+
+    emit({"phase": "kernel", "check": "g_tile_lanes_vs_tile", "G_TILE": sp.G_TILE,
+          "cases": {f"{k}_G{G}": {
+              "case": name, "impl": out["cases"][name]["impl"],
+              **{key: out["cases"][name][key] for key in FORCE},
+              "tile_faster": out["cases"][name]["tile_ms"]
+              < out["cases"][name]["lanes_ms"]}
+              for G, names in G_TILE_CASES.items()
+              for k, name in zip(("K2", "K3"), names)}})
     # A measurement too: the int8 lanes' time over the compute-dtype
     # lanes' at the main path's decode shapes, from this run.
     emit({"phase": "kernel", "check": "int8_lanes_vs_bf16", **{
@@ -1490,12 +1601,15 @@ def _int8_kernel(name: str, sym: str) -> bool:
         sym + r"I(?:f|13__nv_bfloat16)?aLi", name) is not None)
 
 
-def _calls(rows, c: str) -> int:
-    """Calls of the profiled kernels whose name holds ``c``; ``"int8:"``
-    before it counts only the int8-cache instantiations."""
+def _calls(rows, c: str, ms: bool = False):
+    """Calls (``ms``: device ms) of the profiled kernels whose name holds
+    ``c``; ``"int8:"`` before it counts only the int8-cache
+    instantiations."""
     if c.startswith("int8:"):
-        return sum(n for _, k, n in rows if _int8_kernel(k, c[5:]))
-    return sum(n for _, k, n in rows if c in k)
+        hit = [r for r in rows if _int8_kernel(r[1], c[5:])]
+    else:
+        hit = [r for r in rows if c in r[1]]
+    return sum(us / 1e3 if ms else n for us, _, n in hit)
 
 
 def _profile_row(what, fn, path=None, count=()) -> tuple[dict, object]:
@@ -1525,6 +1639,7 @@ def _profile_row(what, fn, path=None, count=()) -> tuple[dict, object]:
            "device_idle_share": max(0.0, 1 - kernel_ms / wall_ms),
            "kernels": sum(r[2] for r in rows),
            "kernel_calls": {c: _calls(rows, c) for c in count},
+           "kernel_ms_of": {c: _calls(rows, c, ms=True) for c in count},
            "top": [{"kernel": k[:80], "ms": us / 1e3, "calls": n}
                    for us, k, n in rows[:8]]}
     emit(row)
@@ -1541,9 +1656,12 @@ def _graph_vs_eager(eng, what, tok, cache, cur, sa, done, eos, *, n_chunks,
     merge as often when the plan splits. The engine's captured step graph
     must keep each merge a programmatic dependent launch."""
     from llmss_tpu_torch.engine.cache import PagedKVCache
+    from llmss_tpu_torch.ops import split_plan as sp
 
     pos0 = cache.positions.clone()
-    kernel = "paged_fwd" if isinstance(cache, PagedKVCache) else "decode_fwd"
+    plan = _decode_plan(eng, cache, t_bucket)
+    kernel = ("paged" if isinstance(cache, PagedKVCache) else "decode") + (
+        "_mma" if plan.impl in sp.TILE_IMPLS else "_fwd")
 
     def graph():
         cache.positions.copy_(pos0)
@@ -1561,17 +1679,31 @@ def _graph_vs_eager(eng, what, tok, cache, cur, sa, done, eos, *, n_chunks,
     # Over an int8 cache every decode kernel must be its int8 instantiation.
     count = (kernel, "split_merge") + ((f"int8:{kernel}",) if cache.quantized
                                        else ())
-    g_row, g_out = _profile_row(what, graph, "graph", count)
-    e_row, e_out = _profile_row(what, eager, "eager", count)
+    L, steps = eng.cfg.n_layers, n_chunks * n_steps
+    merges = L if sp.merges(plan) else 0
+    want_calls = {kernel: L * steps, "split_merge": merges * steps}
+    if cache.quantized:
+        want_calls[f"int8:{kernel}"] = L * steps
+    retries = {}
+
+    def profile(path, fn):
+        # The profiler can lose a kernel record out of ~30,000 (an eager
+        # group once counted 511 of its 512 identical launches): a count
+        # that misses is profiled again, twice at most. A path that really
+        # launches otherwise misses every time and fails below.
+        for attempt in range(3):
+            row, out = _profile_row(what, fn, path, count)
+            if row["kernel_calls"] == want_calls:
+                break
+        retries[path] = attempt
+        return row, out
+
+    g_row, g_out = profile("graph", graph)
+    e_row, e_out = profile("eager", eager)
     same = torch.equal(g_out, e_out)
     step = eng._graphs.for_cache(cache).steps[
         eng._step_key("fold", sa, t_bucket)]
     edges = _programmatic_edges(step.graph)
-    L, steps = eng.cfg.n_layers, n_chunks * n_steps
-    merges = L if _decode_plan(eng, cache, t_bucket).splits > 1 else 0
-    want_calls = {kernel: L * steps, "split_merge": merges * steps}
-    if cache.quantized:
-        want_calls[f"int8:{kernel}"] = L * steps
     emit({"phase": "profile", "what": what, "check": "graph_equals_eager",
           "identical": same,
           "wall_ratio_eager_over_graph": e_row["wall_ms"] / g_row["wall_ms"],
@@ -1581,7 +1713,15 @@ def _graph_vs_eager(eng, what, tok, cache, cur, sa, done, eos, *, n_chunks,
           "kernel_calls_eager": e_row["kernel_calls"],
           "kernel_calls_want": want_calls,
           "step_graph_edges": edges[1], "programmatic_edges": edges[0],
-          "split_merges_per_step": merges})
+          "split_merges_per_step": merges, "decode_impl": plan.impl,
+          "profile_retries": retries,
+          # the decode attention kernels' (with their merges) share of the
+          # graph path's kernel time
+          "decode_attention_ms_graph": (g_row["kernel_ms_of"][kernel]
+                                        + g_row["kernel_ms_of"]["split_merge"]),
+          "decode_attention_share_graph": (
+              (g_row["kernel_ms_of"][kernel] + g_row["kernel_ms_of"]["split_merge"])
+              / g_row["device_kernel_ms"])})
     if not same:
         raise AssertionError(f"{what}: graph and eager packed tokens differ")
     for path, row in (("graph", g_row), ("eager", e_row)):
@@ -1608,9 +1748,10 @@ def _decode_plan(eng, cache, t_bucket):
         bs = cache.block_size
         return pa.kernel_plan(cfg.torch_dtype, 1, cfg.n_heads // cfg.n_kv_heads,
                               cfg.head_dim, B=B, Hkv=cfg.n_kv_heads,
-                              n_slots=-(-T // bs) * bs, bs=bs, sms=sms)
+                              n_slots=-(-T // bs) * bs, bs=bs, sms=sms,
+                              kv_dtype=cache.k.dtype)
     return da.kernel_plan(cfg.torch_dtype, B, cfg.n_heads, cfg.n_kv_heads,
-                          cfg.head_dim, T, sms=sms)
+                          cfg.head_dim, T, sms=sms, kv_dtype=cache.k.dtype)
 
 
 def _programmatic_edges(graph) -> tuple[int, int]:
@@ -2284,6 +2425,82 @@ def phase_model(name: str, hf: dict, kernels: dict, seed: int) -> None:
         for k, c in cases.items()]})
 
 
+QWEN2_7B_HF = {  # Qwen/Qwen2-7B config.json
+    "model_type": "qwen2", "vocab_size": 152064, "hidden_size": 3584,
+    "intermediate_size": 18944, "num_hidden_layers": 28,
+    "num_attention_heads": 28, "num_key_value_heads": 4,
+    "max_position_embeddings": 131072, "rope_theta": 1000000.0,
+    "rms_norm_eps": 1e-06, "hidden_act": "silu",
+    "tie_word_embeddings": False, "use_sliding_window": False,
+    "sliding_window": 131072, "max_window_layers": 28,
+}
+SANTACODER_HF = {  # bigcode/gpt_bigcode-santacoder config.json
+    "model_type": "gpt_bigcode", "n_embd": 2048, "n_layer": 24, "n_head": 16,
+    "multi_query": True, "n_inner": 8192, "n_positions": 2048,
+    "vocab_size": 49280, "activation_function": "gelu_pytorch_tanh",
+    "layer_norm_epsilon": 1e-05,
+}
+HEAD_GROUP_LAYERS = 2  # the head_groups phase's depth (full width)
+
+
+def phase_head_groups() -> None:
+    """The decode templates on the main path at the head groups no full
+    model phase runs, each model at its published width cut to
+    ``HEAD_GROUP_LAYERS`` layers, random bf16 weights from a seed:
+    Qwen2-7B (G = 7: K2 on the lanes with one group of 8 per KV head, K3
+    on one R = 8 lane tile), SantaCoder (G = 16: the tile) and StarCoder
+    over an int8 cache (G = 48: the tile over int8 tiles). Each: prewarm,
+    ``generate`` at batch 4 (K2 n_layers per replayed step, no capture
+    after prewarm), the decode chunk profiled (graph and eager, the
+    template's kernel and its merges counted), then a paged engine's
+    decode group profiled the same way (K3) and its ragged group."""
+    from llmss_tpu_torch.engine.engine import DecodeEngine, GenerationParams
+    from llmss_tpu_torch.engine.metrics import EngineMetrics
+    from llmss_tpu_torch.models.decoder import init_params
+    from llmss_tpu_torch.models.registry import config_from_hf
+    from llmss_tpu_torch.ops import decode_attention as da
+
+    for name, hf, kv, seed in (("qwen2_7b", QWEN2_7B_HF, None, 3),
+                               ("santacoder", SANTACODER_HF, None, 4),
+                               ("starcoder_int8", STARCODER_HF, "int8", 2)):
+        depth = "n_layer" if "n_layer" in hf else "num_hidden_layers"
+        cfg = config_from_hf({**hf, depth: HEAD_GROUP_LAYERS})
+        params = init_params(cfg, seed=seed)
+        L, B, new = cfg.n_layers, 4, 24
+        eng = DecodeEngine(cfg, params, batch_size=B, max_seq_len=1024,
+                           kv_dtype=kv)
+        rng = np.random.default_rng(seed)
+        prompts = [[int(x) for x in rng.integers(1, cfg.vocab_size, n)]
+                   for n in ENGINE_LENS]
+        warmed = eng.prewarm(B, chunk_steps=8)
+        keys = eng._graphs.keys()
+        eng.metrics = EngineMetrics()
+        da.decode_attention.launches = 0
+        toks = eng.generate(prompts, GenerationParams(max_new_tokens=new),
+                            chunk_steps=8)
+        k2 = da.decode_attention.launches
+        steps = math.ceil((new - 1) / 8) * 8
+        captured = len(eng._graphs.keys() - keys)
+        plan = _decode_plan(eng, eng._cache, eng.decode_bucket(1024))
+        emit({"phase": "head_groups", "model": name, "layers": L,
+              "kv_dtype": kv or cfg.dtype, "G": cfg.n_heads // cfg.n_kv_heads,
+              "path": "generate", "prewarm": warmed, "k2_launches": k2,
+              "k2_impl": plan.impl, "graph_captures_after_prewarm": captured,
+              "tokens_in_vocab": all(len(r) == new and all(
+                  0 <= x < cfg.vocab_size for x in r) for r in toks)})
+        if k2 != L * steps or captured:
+            raise AssertionError(f"{name}: K2 launches {k2} (want "
+                                 f"{L * steps}), {captured} captures")
+        phase_profile(eng, f"{name}_")
+        del eng
+        peng = DecodeEngine(cfg, params, max_seq_len=1024, kv_layout="paged",
+                            block_size=16, kv_blocks=512, kv_dtype=kv)
+        phase_profile_paged(peng, f"{name}_")
+        del peng, params
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 # -- phase 7 -------------------------------------------------------------------
 
 
@@ -2481,6 +2698,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_model("gptj_6b", GPTJ_6B_HF, kernels, seed=1)
     phase_model("starcoder", STARCODER_HF, kernels, seed=2)
+    phase_head_groups()
     phase_cli()
     rows = []
     for name, fn, src, replaces in (

@@ -10,6 +10,10 @@ events).
 ``--registers``: build with ``-Xptxas=-v`` and print the registers and
 spills of the tensor-core and lane-template instantiations first)
 
+The cases include K2 and K3 at StarCoder's G = 48 (bf16 and int8), Qwen2-
+7B's G = 7, SantaCoder's G = 16 and G = 8, so a tree's decode templates
+are timed at every head-group shape beside the Llama-2-7B and GPT-J ones.
+
 ``--tree`` is a checkout of the repo whose ``llmss_tpu_torch`` is built
 and timed (default: this one). The cases and the timer always come from
 this checkout, so two trees timed by it differ only in their package. To

@@ -1,11 +1,13 @@
-// The tensor-core attention tile shared by K1 (flash_attention.cu) and K4
-// (paged_attention.cu) in bf16 / f16.
+// The tensor-core attention tile shared by K1 (flash_attention.cu), K4
+// (paged_attention.cu) in bf16 / f16, and the decode kernels K2 and K3 (K4
+// at CB = 1) when G > 8 query heads share a KV head.
 //
 // One block of 4 warps attends 64 flat query rows (16 per warp) against a
 // sequence of 64-slot KV tiles that a Source describes (strided prefill
 // K/V for K1; a gather through the block tables, then the fresh chunk, for
-// K4). A flat row f = i*G + g is query i under query head hk*G + g, so the
-// G query heads of one KV head share every K/V byte the block loads.
+// K4; one split's range of a row's cache for the decode kernels). A flat
+// row f = i*G + g is query i under query head hk*G + g, so the G query
+// heads of one KV head share every K/V byte the block loads.
 //
 //   * KV pipeline: K and V tiles double-buffered in shared memory, filled by
 //     cp.async.cg 16-byte copies; slots past the end are zero-filled by the
@@ -33,7 +35,15 @@
 // :157); otherwise exp2(kNegInf - m), which is 0 once the row has a real
 // max and 1 while it has none, so a row masked everywhere in the live
 // tiles ends as their uniform average (K1, common.cuh).
+//
+// Output: each row's o / l rounded to T at src.o_row(r); or, for a Source
+// with kPartial (WithPartial below: the decode kernels' splits), the
+// row's fp32 state (acc = o unnormalised, m, l) in split_merge.cuh's
+// workspace, which split_merge folds with the other splits and the fresh
+// key.
 #pragma once
+
+#include <utility>
 
 #include "common.cuh"
 
@@ -128,12 +138,75 @@ __device__ __forceinline__ bool sees(int p, int q, int window) {
   return p >= 0 && p <= q && (window <= 0 || p > q - window);
 }
 
+// Where a decode block leaves its partial softmax states: split_merge.cuh's
+// workspace, acc [B, Hq, S, D], then m [B, Hq, S], then l [B, Hq, S]. The
+// block's flat row r (< n) is state row row0 + r * S: query head h0 + r of
+// row b, split s (row0 = (b * Hq + h0) * S + s).
+struct PartialOut {
+  float* ws;
+  long long n_part;  // B * Hq * S
+  long long row0;
+  int S, n;
+};
+
+// A Source whose block stores partial states instead of outputs.
+template <class Src>
+struct WithPartial : Src {
+  static constexpr bool kPartial = true;
+  PartialOut part;
+};
+
+template <class Src, class = void>
+struct StoresPartial : std::false_type {};
+template <class Src>
+struct StoresPartial<Src, std::void_t<decltype(Src::kPartial)>>
+    : std::bool_constant<Src::kPartial> {};
+
+// The block's end, for this thread's rows row0 and row0 + 8 (quad t4 of
+// each): its running max m (scores in log2 units), its share l of the row
+// sum and its fragment o of the unnormalised output.
+template <typename T, int D, class Src>
+__device__ __forceinline__ void finish(const Src& src, int row0, int t4, const float (&m)[2],
+                                       const float (&l)[2], const float (&o)[D / 8][4]) {
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    float sum = l[rr];
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    const int r = row0 + 8 * rr;
+    if constexpr (StoresPartial<Src>::value) {
+      const PartialOut& p = src.part;
+      if (r >= p.n) continue;
+      const long long row = p.row0 + (long long)r * p.S;
+      float* acc = p.ws + row * D;
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n)
+        *reinterpret_cast<float2*>(acc + n * 8 + 2 * t4) =
+            make_float2(o[n][2 * rr], o[n][2 * rr + 1]);
+      if (t4 == 0) {
+        // split_merge takes m in the natural-log units of its scores.
+        p.ws[p.n_part * D + row] = m[rr] == kNegInf ? kNegInf : m[rr] * 0.6931471805599453f;
+        p.ws[p.n_part * D + p.n_part + row] = sum;
+      }
+    } else {
+      T* orow = src.o_row(r);
+      if (orow == nullptr) continue;
+      const float den = sum == 0.f ? 1.f : sum;  // no visible slot: 0
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n)
+        *reinterpret_cast<uint32_t*>(orow + n * 8 + 2 * t4) =
+            pack2<T>(o[n][2 * rr] / den, o[n][2 * rr + 1] / den);
+    }
+  }
+}
+
 // Source interface (all __device__, called with r in [0, kRows), j in
 // [0, kSlots)):
 //   int n_tiles, qmax, qmin, window;  float scale_log2;
 //   const T* q_row(int r)   query row of flat row r, nullptr if none
 //   int q_pos(int r)        its position, -1 if none
 //   T* o_row(int r)         where its output goes, nullptr if nowhere
+//                           (a WithPartial Source has `part` instead)
 //   int slot_pos(int t, int j)  position of slot j of tile t, -1 if hidden
 //   bool rows(int t, int j, const T*& k, const T*& v)  its K/V rows; false
 //                           past the end (zero-filled)
@@ -320,20 +393,7 @@ __device__ __forceinline__ void attend(const Src& src, unsigned char* smem) {
     stage ^= 1;
   }
   cp_async_wait<0>();
-
-#pragma unroll
-  for (int rr = 0; rr < 2; ++rr) {
-    float sum = l[rr];
-    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-    T* orow = src.o_row(row0 + 8 * rr);
-    if (orow == nullptr) continue;
-    const float den = sum == 0.f ? 1.f : sum;  // no visible slot: 0
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n)
-      *reinterpret_cast<uint32_t*>(orow + n * 8 + 2 * t4) =
-          pack2<T>(o[n][2 * rr] / den, o[n][2 * rr + 1] / den);
-  }
+  finish<T, D>(src, row0, t4, m, l, o);
 }
 
 }  // namespace tile

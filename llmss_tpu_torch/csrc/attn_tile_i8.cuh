@@ -337,20 +337,7 @@ __device__ __forceinline__ void attend_i8(const Src& src, unsigned char* smem) {
     stage ^= 1;
   }
   cp_async_wait<0>();
-
-#pragma unroll
-  for (int rr = 0; rr < 2; ++rr) {
-    float sum = l[rr];
-    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-    T* orow = src.o_row(row0 + 8 * rr);
-    if (orow == nullptr) continue;
-    const float den = sum == 0.f ? 1.f : sum;  // no visible slot: 0
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n)
-      *reinterpret_cast<uint32_t*>(orow + n * 8 + 2 * t4) =
-          pack2<T>(o[n][2 * rr] / den, o[n][2 * rr + 1] / den);
-  }
+  finish<T, D>(src, row0, t4, m, l, o);
 }
 
 }  // namespace tile

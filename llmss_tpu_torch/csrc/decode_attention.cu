@@ -29,18 +29,37 @@
 // query heads, with byte permutes and fp32 adds instead of conversions
 // (csrc/split_merge.cuh LaneRing<int8_t>, csrc/common.cuh Vec8<int8_t>).
 //
-// What bounds it on the H100: memory. Each (row, kv head) streams
+// What bounds it on the H100: memory. Each (row, kv head) needs its
 // t_len * D keys and values once and does ~4 flops per element for each of
 // its G query heads, far below the ~295 flops per byte where the tensor
-// cores would become the limit. It stays on fp32 FMA lanes: a tensor-core
-// tile needs 16 query rows where a decode (row, kv head) has G <= 8, and
-// FMA keeps the fresh V in fp32 as the Pallas kernel does. The design:
+// cores would become the limit. So the design reads each KV head once per
+// (row, split) for all G of its query heads, in one of two templates
+// (ops/decode_attention.py kernel_plan):
+//   * G <= 8, or fp32 / fp16 queries: decode_fwd, fp32 FMA lanes, GB
+//     query heads a block (the least power of two at or above min(G, 8):
+//     G = 7, Qwen2-7B's, takes one group of 8 with a dead row). Its fp32
+//     state per head lives in registers, so GB stops at 8; at G <= 8 one
+//     group is the whole KV head's. FMA keeps the fresh V in fp32 as the
+//     Pallas kernel does. (Measured on the H100, PERF.md: the lanes beat
+//     the tile at G = 1, the tile wins from G = 4; G_TILE stays 8 while
+//     moving it would change GQA models' outputs.)
+//   * bf16 queries with G > 8 (ops/split_plan.py G_TILE; StarCoder's 48
+//     heads on one KV head): decode_mma, the tensor-core tile of
+//     attn_tile.cuh (over an int8 cache attn_tile_i8.cuh) with its 64
+//     flat rows the query heads of one KV head, where the lanes took 6
+//     blocks of 8 heads that each streamed the same KV head. Split s reads
+//     slots [s*split, (s+1)*split) as whole 64-slot tiles, the pending
+//     slot hidden by its position, and stores each head's fp32 (m, l,
+//     acc); split_merge always folds the splits and then the fresh token
+//     in fp32, so the fresh V stays fp32. The cache's P is rounded to bf16
+//     before P.V (over int8: P x v_scale as two bf16 terms).
+// The lane template's design:
 //   * the layer is addressed in place (cache + layer*B*T*Hkv*D), the GPU
 //     form of the Pallas kernel's scalar-prefetched layer index: no
 //     per-layer slice copy;
 //   * one block per (row, kv head, group of GB <= 8 query heads, split s
 //     of S along the slots: flash-decoding, csrc/split_merge.cuh): a KV
-//     element is read once for all the query heads that share it
+//     element is read once for all the query heads of the group
 //     (GQA/MQA), and split s reads slots [s*split, (s+1)*split) of
 //     [0, t_len). Without the split the engine's decode (batch 4, 32 kv
 //     heads) launched 128 blocks for 132 SMs, each walking its whole read,
@@ -67,6 +86,8 @@
 //     its fp32 (m, l, acc) and split_merge, launched next on the same
 //     stream, folds the splits in split order, then the fresh token.
 
+#include "attn_tile.cuh"
+#include "attn_tile_i8.cuh"
 #include "common.cuh"
 #include "split_merge.cuh"
 
@@ -118,7 +139,10 @@ struct Cfg {
 };
 
 // T: the query / fresh KV / output type; KV: the cache's (T, or int8_t).
-template <typename T, typename KV, int D, int GB>
+// kPart: GB does not divide G, so each KV head's last group of GB rows is
+// partial (G = 7: one group of 8, one row dead); false compiles to the
+// code of a G that GB divides, unchanged by the partial groups.
+template <typename T, typename KV, int D, int GB, bool kPart = false>
 __global__ void __launch_bounds__(NT, kLaneMinBlocks<T, GB>) decode_fwd(ArgsOf<KV> a) {
   using C = Cfg<KV, D, GB>;
   using Ring = LaneRing<KV>;
@@ -142,8 +166,11 @@ __global__ void __launch_bounds__(NT, kLaneMinBlocks<T, GB>) decode_fwd(ArgsOf<K
 
   const int b = blockIdx.x;
   const int G = a.Hq / a.Hkv;
-  const int hk = blockIdx.y / (G / GB);
-  const int h0 = hk * G + (blockIdx.y % (G / GB)) * GB;
+  const int ng = kPart ? (G + GB - 1) / GB : G / GB;  // head groups per KV head
+  const int hk = blockIdx.y / ng;
+  const int g0 = (blockIdx.y % ng) * GB;
+  const int h0 = hk * G + g0;
+  const int gn = kPart ? min(GB, G - g0) : GB;  // live heads: g < gn
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int sub = lane / LPS, part = lane % LPS;
   const int e0 = part * 8;  // this lane's 8 features
@@ -172,12 +199,20 @@ __global__ void __launch_bounds__(NT, kLaneMinBlocks<T, GB>) decode_fwd(ArgsOf<K
   const int slot = a.slots[b];
   Vec8<T> qv[GB];
 #pragma unroll
-  for (int g = 0; g < GB; ++g) qv[g].load(q + ((long long)b * a.Hq + h0 + g) * D + e0);
+  for (int g = 0; g < GB; ++g)
+    if (g < gn) qv[g].load(q + ((long long)b * a.Hq + h0 + g) * D + e0);
   if (t_lo < t_hi) load_window(t_lo, min(t_hi, t_lo + kStage));
 
   float qf[GB][8];
 #pragma unroll
-  for (int g = 0; g < GB; ++g) qv[g].to_float(qf[g]);
+  for (int g = 0; g < GB; ++g) {
+    if (g < gn) {
+      qv[g].to_float(qf[g]);
+    } else {  // a dead row: computed, never stored
+#pragma unroll
+      for (int e = 0; e < 8; ++e) qf[g][e] = 0.f;
+    }
+  }
 
   float m[GB], l[GB], acc[GB][8];
 #pragma unroll
@@ -397,11 +432,11 @@ __global__ void __launch_bounds__(NT, kLaneMinBlocks<T, GB>) decode_fwd(ArgsOf<K
   if (a.S > 1) {
     __syncthreads();
     store_partial<NWARP, D, GB>(s_acc, s_m, s_l, a.ws, a.B, a.Hq, a.S, b,
-                                split, [&](int g) { return h0 + g; });
+                                split, [&](int g) { return g < gn ? h0 + g : -1; });
     return;
   }
   // Fresh-token scores: warp g computes head g's q . k_new.
-  if (warp < GB) {
+  if (warp < gn) {
     float d = 0.f;
     const T* knp = kn + ((long long)b * a.Hkv + hk) * D;
     const T* qh = q + ((long long)b * a.Hq + h0 + warp) * D;
@@ -413,7 +448,7 @@ __global__ void __launch_bounds__(NT, kLaneMinBlocks<T, GB>) decode_fwd(ArgsOf<K
   __syncthreads();
 
   const T* vnp = vn + ((long long)b * a.Hkv + hk) * D;
-  for (int i = threadIdx.x; i < GB * D; i += NT) {
+  for (int i = threadIdx.x; i < gn * D; i += NT) {
     const int g = i / D, d = i % D;
     float M = kNegInf;
 #pragma unroll
@@ -445,10 +480,17 @@ cudaError_t launch(const ArgsI8& a, cudaStream_t stream) {
     return cudaErrorInvalidValue;
   constexpr size_t smem = Cfg<KV, D, GB>::smem;
   auto kern = decode_fwd<T, KV, D, GB>;
+  if ((a.Hq / a.Hkv) % GB) {  // partial groups: GB is 4 (G = 3) or 8
+    if constexpr (GB >= 4) {
+      kern = decode_fwd<T, KV, D, GB, true>;
+    } else {
+      return cudaErrorInvalidValue;
+    }
+  }
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  dim3 grid(a.B, a.Hkv * ((a.Hq / a.Hkv) / GB), a.S);
+  dim3 grid(a.B, a.Hkv * ((a.Hq / a.Hkv + GB - 1) / GB), a.S);
   kern<<<grid, NT, smem, stream>>>(static_cast<const ArgsOf<KV>&>(a));
   err = cudaGetLastError();
   if (err != cudaSuccess || a.S == 1) return err;
@@ -478,17 +520,160 @@ cudaError_t dispatch_d(int D, int GB, const ArgsI8& a, cudaStream_t s) {
   }
 }
 
+// -- bf16 queries with G > 8 heads on a KV head: the tensor-core tile -------
+
+// tile::attend's Source for one block of decode_mma: query heads
+// hk*G + f0 .. + 63 of row b (flat row r is head f0 + r of the group, all
+// at position qp) against split s's slots [t_lo, t_hi) of layer `layer`,
+// addressed from t_lo: slot x is ring slot t_lo + x, hidden when it is
+// empty, the pending slot, or at or past t_hi.
+template <int D>
+struct DenseSrc {
+  using T = __nv_bfloat16;
+  const T *q, *kc, *vc;
+  const int* kvp;  // row b's positions from t_lo
+  int f0, G, hq0, qp, slot, t_end;  // hq0 = b*Hq + hk*G; slot, t_end from t_lo
+  long long base, row_stride;  // slot t_lo's K/V row of head hk; Hkv * D
+  int n_tiles, qmax, qmin, window;
+  float scale_log2;
+
+  __device__ bool has(int r) const { return f0 + r < G; }
+  __device__ const T* q_row(int r) const {
+    return has(r) ? q + (long long)(hq0 + f0 + r) * D : nullptr;
+  }
+  __device__ int q_pos(int r) const { return has(r) ? qp : -1; }
+  __device__ int slot_pos(int t, int j) const {
+    const int x = t * tile::kSlots + j;
+    return x < t_end && x != slot ? kvp[x] : -1;
+  }
+  __device__ bool rows(int t, int j, const T*& kr, const T*& vr) const {
+    const int x = t * tile::kSlots + j;
+    if (x >= t_end) return false;
+    const long long off = base + x * row_stride;
+    kr = kc + off;
+    vr = vc + off;
+    return true;
+  }
+  __device__ const T* any_ptr() const { return q; }
+};
+
+// tile::attend_i8's Source over an int8 cache: DenseSrc (kc / vc unused),
+// the int8 rows and their scales [L, B, T, Hkv], whose offset is the row's
+// element offset / D.
+template <int D>
+struct DenseSrcI8 : DenseSrc<D> {
+  const int8_t *kq, *vq;
+  const float *ks, *vs;
+  int n_cache;  // every tile is the cache's
+
+  __device__ bool rows8(int t, int j, const int8_t*& kr, const int8_t*& vr,
+                        long long& so) const {
+    const int x = t * tile::kSlots + j;
+    if (x >= this->t_end) return false;
+    const long long off = this->base + x * this->row_stride;
+    kr = kq + off;
+    vr = vq + off;
+    so = off / D;
+    return true;
+  }
+};
+
+// One block per (row b, KV head hk, 64 of its G query heads, split s of
+// S): slots [s * split, (s + 1) * split) of [0, t_len) on the tensor-core
+// tile; it stores each query head's fp32 (m, l, acc) for split_merge.
+template <typename KV, int D>
+__global__ void __launch_bounds__(tile::kThreads) decode_mma(ArgsOf<KV> a) {
+  using T = __nv_bfloat16;
+  extern __shared__ __align__(16) unsigned char tile_smem[];
+  pdl_trigger();  // split_merge may start; it waits for this grid's writes
+  const int b = blockIdx.x, hk = blockIdx.y;
+  const int G = a.Hq / a.Hkv;
+  const int split = blockIdx.z % a.S, f0 = blockIdx.z / a.S * tile::kRows;
+  const int t_lo = split * a.split, t_hi = min(a.t_len, t_lo + a.split);
+  tile::WithPartial<std::conditional_t<kQuant<KV>, DenseSrcI8<D>, DenseSrc<D>>> s;
+  s.q = static_cast<const T*>(a.q);
+  if constexpr (kQuant<KV>) {
+    s.kc = s.vc = nullptr;
+    s.kq = static_cast<const int8_t*>(a.kc);
+    s.vq = static_cast<const int8_t*>(a.vc);
+    s.ks = a.ks;
+    s.vs = a.vs;
+  } else {
+    s.kc = static_cast<const T*>(a.kc);
+    s.vc = static_cast<const T*>(a.vc);
+  }
+  s.kvp = a.kvpos + (long long)b * a.Tn + t_lo;
+  s.f0 = f0;
+  s.G = G;
+  s.hq0 = b * a.Hq + hk * G;
+  s.qp = a.qpos[b];
+  s.slot = a.slots[b] - t_lo;
+  s.t_end = t_hi - t_lo;
+  s.row_stride = (long long)a.Hkv * D;
+  s.base = (((long long)a.layer * a.B + b) * a.Tn + t_lo) * s.row_stride + (long long)hk * D;
+  s.n_tiles = (s.t_end + tile::kSlots - 1) / tile::kSlots;
+  s.qmax = s.qmin = s.qp;
+  s.window = a.window;
+  s.scale_log2 = a.scale * 1.4426950408889634f;
+  s.part = {a.ws, (long long)a.B * a.Hq * a.S,
+            ((long long)b * a.Hq + hk * G + f0) * a.S + split, a.S,
+            min(tile::kRows, G - f0)};
+  if constexpr (kQuant<KV>) {
+    s.n_cache = s.n_tiles;
+    tile::attend_i8<D>(s, tile_smem);
+  } else {
+    tile::attend<T, D, true>(s, tile_smem);
+  }
+}
+
+// decode_mma in S splits of `split` slots (whole 64-slot tiles covering
+// [0, t_len)), then split_merge on the same stream, whatever S.
+template <typename KV, int D>
+cudaError_t launch_mma(const ArgsI8& a, cudaStream_t stream) {
+  if (a.S < 1 || a.S > kMaxSplits || a.split <= 0 || a.split % tile::kSlots ||
+      (long long)a.S * a.split < a.t_len || a.ws == nullptr ||
+      (kQuant<KV> && (a.ks == nullptr || a.vs == nullptr)))
+    return cudaErrorInvalidValue;
+  constexpr size_t smem = kQuant<KV> ? tile::SmemI8<D>::bytes : tile::Smem<D>::bytes;
+  auto kern = decode_mma<KV, D>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const int tiles = (a.Hq / a.Hkv + tile::kRows - 1) / tile::kRows;
+  dim3 grid(a.B, a.Hkv, tiles * a.S);
+  kern<<<grid, tile::kThreads, smem, stream>>>(static_cast<const ArgsOf<KV>&>(a));
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const MergeArgs m{a.q, a.kn, a.vn, a.o, a.ws, nullptr, nullptr, a.B, a.Hq,
+                    a.Hkv, a.S, a.split, 1, 0, a.scale};
+  return launch_merge<__nv_bfloat16>(D, m, stream);
+}
+
+template <typename KV>
+cudaError_t dispatch_mma(int D, const ArgsI8& a, cudaStream_t s) {
+  switch (D) {
+    case 64: return launch_mma<KV, 64>(a, s);
+    case 128: return launch_mma<KV, 128>(a, s);
+    case 256: return launch_mma<KV, 256>(a, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 }  // namespace llmss
 
 // q [B,1,Hq,D], cache [L,B,T,Hkv,D], k_new / v_new [B,1,Hkv,D], out
 // [B,1,Hq,D], all contiguous; q_pos / slots [B] and kv_pos [B,T] int32.
-// GB (1, 2, 4 or 8, dividing Hq/Hkv) query heads per block, S splits of
-// `split` slots (a multiple of the lane loop's step; ws the fp32 workspace
-// of split_merge.cuh, [B*Hq*S*(D+2)], null at S = 1). window <= 0 means
-// full causal. kv_dtype: the cache's dtype, dtype's own, or kI8 under fp32
-// or bf16 queries, with k_scale / v_scale [L,B,T,Hkv] fp32 (null
-// otherwise). Returns cudaGetLastError() after the last launch.
+// impl: 0 = decode_fwd with GB (1, 2, 4 or 8) query heads per block (the
+// last of a KV head's ceil(Hq/Hkv / GB) groups may be partial), S splits
+// of `split` slots (a multiple of the lane loop's step; ws the fp32
+// workspace of split_merge.cuh, [B*Hq*S*(D+2)], null at S = 1); 1 =
+// decode_mma over a bf16 cache and 2 = decode_mma over an int8 cache, for
+// bf16 queries: S splits of `split` slots (a multiple of 64), ws required
+// at every S, GB unused. window <= 0 means full causal. kv_dtype: the
+// cache's dtype, dtype's own, or kI8 under fp32 or bf16 queries, with
+// k_scale / v_scale [L,B,T,Hkv] fp32 (null otherwise). Returns
+// cudaGetLastError() after the last launch.
 extern "C" int llmss_decode_attention(void* q, void* kc, void* vc, void* kn,
                                       void* vn, void* o, void* qpos,
                                       void* kvpos, void* slots, void* ws,
@@ -496,7 +681,7 @@ extern "C" int llmss_decode_attention(void* q, void* kc, void* vc, void* kn,
                                       int Hq, int Hkv, int D, int GB, int S,
                                       int split, int dtype, float scale,
                                       int window, void* stream, void* k_scale,
-                                      void* v_scale, int kv_dtype) {
+                                      void* v_scale, int kv_dtype, int impl) {
   using namespace llmss;
   if (B == 0) return 0;
   const ArgsI8 a{{q, kc, vc, kn, vn, o,
@@ -507,11 +692,15 @@ extern "C" int llmss_decode_attention(void* q, void* kc, void* vc, void* kn,
                 static_cast<const float*>(v_scale)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
-  if (kv_dtype == dtype) {
+  if (impl == 1) {
+    if (dtype == kBF16 && kv_dtype == kBF16) err = dispatch_mma<__nv_bfloat16>(D, a, s);
+  } else if (impl == 2) {
+    if (dtype == kBF16 && kv_dtype == kI8) err = dispatch_mma<int8_t>(D, a, s);
+  } else if (impl == 0 && kv_dtype == dtype) {
     if (dtype == kF32) err = dispatch_d<float, float>(D, GB, a, s);
     if (dtype == kBF16) err = dispatch_d<__nv_bfloat16, __nv_bfloat16>(D, GB, a, s);
     if (dtype == kF16) err = dispatch_d<__half, __half>(D, GB, a, s);
-  } else if (kv_dtype == kI8) {
+  } else if (impl == 0 && kv_dtype == kI8) {
     if (dtype == kF32) err = dispatch_d<float, int8_t>(D, GB, a, s);
     if (dtype == kBF16) err = dispatch_d<__nv_bfloat16, int8_t>(D, GB, a, s);
   }

@@ -32,8 +32,9 @@
 // P.V (over an int8 pool: P x v_scale, carried to 2^-16 relative on the
 // tensor cores, unrounded on the lanes).
 //
-// Four instantiations; the wrapper picks one from the dtypes and CB alone
-// and this file refuses any other pairing:
+// Four templates; the wrapper picks one from the dtypes, CB and G alone
+// (ops/paged_attention.py kernel_plan) and this file refuses any other
+// pairing:
 //
 // bf16 at CB > 1 (K4 with prompt chunks) -> paged_mma<bf16>, the
 // tensor-core tile of attn_tile.cuh. What bounds it on the H100: bytes.
@@ -60,16 +61,36 @@
 // so it is carried to 2^-16 relative, not bf16's 2^-8 (the header has the
 // bound). The fresh keys take the same two terms with scale 1.
 //
-// fp32 at any CB, and CB == 1 (K3, and K4 all-decode) -> paged_fwd, the
-// lane template below. It keeps fp32 FMA: at decode each (row, KV head)
-// reads the row's live blocks for G <= 8 query heads, ~4 flops per KV
-// byte, so bytes bound it and a tensor-core tile (whose 16-row minimum G
-// cannot fill) would buy nothing; fp32 on the tensor cores would mean
-// TF32; and FMA keeps the fresh V in fp32, as the Pallas kernel does. K3
-// is its CB = 1 launch: the ragged masks then reduce exactly to the
-// decode masks, so an all-decode batch through K4 at CB = 1 takes the
-// same split plan, grids and instruction sequence as K3 and gives
-// bit-identical outputs. Its design:
+// bf16 queries at CB == 1 (K3, and K4 all-decode) with G > 8 query heads
+// on a KV head (ops/split_plan.py G_TILE), over a bf16 or an int8 pool ->
+// paged_mma<KV, D, kDecode = true>, the same tiles as above. What bounds
+// decode: bytes, each KV head's live slots once per (row, KV head); so
+// the question is which template reads them once. The lanes take R <= 8
+// query rows a block (their fp32 state lives in registers), so at G = 48
+// (StarCoder's one KV head) 6 blocks each streamed the same KV head and
+// each did fp32 FMA for its 8 heads; the tile takes 64 flat rows, the
+// whole group, on the tensor cores. One block per (row, KV head, 64 of the
+// G query heads, split s of S); split s walks table columns [s*C, (s+1)*C)
+// of the row in place (C = split / bs, the split a whole number of 64-slot
+// tiles), reads no fresh key, and stores each query head's fp32 (m, l,
+// acc) in split_merge.cuh's workspace; split_merge, always launched next,
+// folds the live splits in split order and then the fresh key in fp32, so
+// the fresh V stays fp32 as in the Pallas K3 (not a trailing bf16 tile as
+// in K4's chunks). The cache's P is rounded to bf16 before P.V (over an
+// int8 pool: the two bf16 terms). K3 and an all-decode K4 take the same
+// plan and grid at CB = 1, so they stay bit-identical here too.
+//
+// fp32 at any CB, and CB == 1 with G <= 8 or fp32 queries (K3, and K4
+// all-decode) -> paged_fwd, the lane template below. It keeps fp32 FMA:
+// at decode each (row, KV head) reads the row's live blocks once for its
+// G <= 8 query heads, ~4 flops per KV byte, so bytes bound it; fp32 on the
+// tensor cores would mean TF32; and FMA keeps the fresh V in fp32, as the
+// Pallas kernel does. (Measured on the H100, PERF.md: at G = 1 the lanes
+// are faster than the tile, at G = 4 and 8 the tile is; G_TILE stays 8
+// while moving it would change GQA models' outputs.) K3 is its CB = 1 launch: the
+// ragged masks then reduce exactly to the decode masks, so an all-decode
+// batch through K4 at CB = 1 takes the same split plan, grids and
+// instruction sequence as K3 and gives bit-identical outputs. Its design:
 //   * one block per (row, KV head, tile of R <= 8 of the CB*G query rows,
 //     split s of S along the KV axis: flash-decoding, csrc/
 //     split_merge.cuh). Split s reads table columns [s*C, (s+1)*C), C =
@@ -106,7 +127,8 @@
 //     stream, folds the live splits in split order and then the fresh key.
 //
 // int8 pool under fp32 queries at any CB, and under bf16 queries at CB == 1
-// (KV = int8_t, the engine's kv_dtype="int8") -> paged_fwd over int8 rows
+// with G <= 8 (KV = int8_t, the engine's kv_dtype="int8") -> paged_fwd
+// over int8 rows
 // ("lanes_int8"), with k_scale / v_scale [L, Np, bs, Hkv] fp32: the Pallas
 // kernel's int8 branch. Each slot's score is multiplied by its K scale
 // after the Q.K dot and before the mask; P is multiplied by the V scale
@@ -739,26 +761,38 @@ struct PagedSrcI8 : PagedSrc<D> {
 };
 
 // KV: the pool's type, bf16 (attn_tile.cuh) or int8 (attn_tile_i8.cuh).
-template <typename KV, int D>
+// kDecode (CB == 1: K3, and an all-decode K4): blockIdx.z is a 64-row tile
+// of the G query heads times split s of S; the block reads table columns
+// [s * split / bs, (s + 1) * split / bs) of row b, no fresh key, and
+// leaves its fp32 partial states for split_merge.
+template <typename KV, int D, bool kDecode>
 __global__ void __launch_bounds__(tile::kThreads) paged_mma(ArgsOf<KV> a) {
   using T = __nv_bfloat16;
+  using Base = std::conditional_t<kQuant<KV>, PagedSrcI8<D>, PagedSrc<D>>;
   extern __shared__ __align__(16) unsigned char tile_smem[];
   const int b = blockIdx.x, hk = blockIdx.y;
-  std::conditional_t<kQuant<KV>, PagedSrcI8<D>, PagedSrc<D>> s;
+  std::conditional_t<kDecode, tile::WithPartial<Base>, Base> s;
   s.G = a.Hq / a.Hkv;
   s.b = b;
   s.hk = hk;
   s.CB = a.CB;
   s.Hq = a.Hq;
   s.Hkv = a.Hkv;
-  s.f0 = blockIdx.z * tile::kRows;
+  if constexpr (kDecode) {
+    pdl_trigger();  // split_merge may start; it waits for this grid's writes
+    s.f0 = blockIdx.z / a.S * tile::kRows;
+    s.ql = a.qlen ? a.qlen[b] : 1;
+  } else {
+    s.f0 = blockIdx.z * tile::kRows;
+    s.ql = a.qlen[b];
+  }
   s.nrows = a.CB * s.G;
-  s.ql = a.qlen[b];
   const int i_lo = s.f0 / s.G;
   const int i_hi = (min(s.f0 + tile::kRows, s.nrows) - 1) / s.G;
   s.q = static_cast<const T*>(a.q);
   s.o = static_cast<T*>(a.o);
   if (i_lo >= s.ql) {  // a tile of chunk padding only: nobody reads it
+    if constexpr (kDecode) return;  // split_merge writes its zeros
     for (int idx = threadIdx.x; idx < tile::kRows * D; idx += tile::kThreads) {
       const int r = idx / D;
       if (s.has(r)) s.o[s.q_off(r) + idx % D] = from_f<T>(0.f);
@@ -785,6 +819,21 @@ __global__ void __launch_bounds__(tile::kThreads) paged_mma(ArgsOf<KV> a) {
   s.jmax = min(s.ql, i_hi + 1);  // fresh keys past it: invisible to all rows
   s.kvp = a.kvpos + (long long)b * s.ring;
   s.bt = a.tables + (long long)b * a.MB;
+  if constexpr (kDecode) {
+    // The split's slots [t_lo, t_hi) as slots [0, t_hi - t_lo) of a row
+    // that starts at t_lo: t_lo is whole table columns, and the pending
+    // slot's ring distance is unchanged. The fresh key is split_merge's.
+    const int split = blockIdx.z % a.S, t_lo = split * a.split;
+    if (t_lo >= s.t_end) return;  // past the row's occupied slots: skipped
+    s.t_end = min(s.t_end, t_lo + a.split) - t_lo;
+    s.kvp += t_lo;
+    s.bt += t_lo / a.bs;
+    s.sl0 -= t_lo;
+    s.jmax = 0;
+    s.part = {a.ws, (long long)a.B * a.Hq * a.S,
+              ((long long)b * a.Hq + hk * s.G + s.f0) * a.S + split, a.S,
+              min(tile::kRows, s.nrows - s.f0)};
+  }
   s.last_blk = a.Np - 2;  // N - 1: block N is the write drop target
   s.slot_stride = (long long)a.Hkv * D;
   s.blk_stride = (long long)a.bs * s.slot_stride;
@@ -802,26 +851,38 @@ __global__ void __launch_bounds__(tile::kThreads) paged_mma(ArgsOf<KV> a) {
   }
 }
 
-template <typename KV, int D>
+// At CB == 1 (kDecode) the tile kernel in S splits of `split` slots, whole
+// 64-slot tiles and table columns covering the read, then split_merge on
+// the same stream, whatever S.
+template <typename KV, int D, bool kDecode>
 cudaError_t launch_mma(const ArgsI8& a, cudaStream_t stream) {
   if (kQuant<KV> && (a.ks == nullptr || a.vs == nullptr)) return cudaErrorInvalidValue;
+  if (kDecode && (a.CB != 1 || a.S < 1 || a.S > kMaxSplits || a.split <= 0 ||
+                  a.split % tile::kSlots || a.split % a.bs || a.ws == nullptr ||
+                  (long long)a.S * a.split < (long long)a.n_cols * a.bs))
+    return cudaErrorInvalidValue;
   constexpr size_t smem = kQuant<KV> ? tile::SmemI8<D>::bytes : tile::Smem<D>::bytes;
-  auto kern = paged_mma<KV, D>;
+  auto kern = paged_mma<KV, D, kDecode>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const int rows = a.CB * (a.Hq / a.Hkv);
-  dim3 grid(a.B, a.Hkv, (rows + tile::kRows - 1) / tile::kRows);
+  const int tiles = (rows + tile::kRows - 1) / tile::kRows;
+  dim3 grid(a.B, a.Hkv, kDecode ? tiles * a.S : tiles);
   kern<<<grid, tile::kThreads, smem, stream>>>(static_cast<const ArgsOf<KV>&>(a));
-  return cudaGetLastError();
+  err = cudaGetLastError();
+  if (!kDecode || err != cudaSuccess) return err;
+  const MergeArgs m{a.q, a.kn, a.vn, a.o, a.ws, a.nblk, a.qlen, a.B, a.Hq,
+                    a.Hkv, a.S, a.split, a.bs, a.n_cols, a.scale};
+  return launch_merge<__nv_bfloat16>(D, m, stream);
 }
 
-template <typename KV>
+template <typename KV, bool kDecode>
 cudaError_t dispatch_mma(int D, const ArgsI8& a, cudaStream_t s) {
   switch (D) {
-    case 64: return launch_mma<KV, 64>(a, s);
-    case 128: return launch_mma<KV, 128>(a, s);
-    case 256: return launch_mma<KV, 256>(a, s);
+    case 64: return launch_mma<KV, 64, kDecode>(a, s);
+    case 128: return launch_mma<KV, 128, kDecode>(a, s);
+    case 256: return launch_mma<KV, 256, kDecode>(a, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -838,9 +899,11 @@ cudaError_t dispatch_mma(int D, const ArgsI8& a, cudaStream_t s) {
 // under fp32 queries, in S splits of `split` slots (S > 1 only at CB == 1,
 // with ws the fp32 workspace of split_merge.cuh, [B*Hq*S*(D+2)]; null at
 // S = 1); 1 = paged_mma over a bf16 pool and 2 = paged_mma over an int8
-// pool, for bf16 queries at CB > 1 (q_len required; R, S, split and ws
-// unused). kv_dtype: the pool's dtype, dtype's own, or kI8 under fp32 or
-// bf16 queries, with k_scale / v_scale [L,Np,bs,Hkv] fp32 (null otherwise).
+// pool, for bf16 queries: at CB > 1 q_len required, R, S, split and ws
+// unused; at CB == 1 in S splits of `split` slots (a multiple of 64) with
+// ws required at every S (R unused). kv_dtype: the pool's dtype, dtype's
+// own, or kI8 under fp32 or bf16 queries, with k_scale / v_scale
+// [L,Np,bs,Hkv] fp32 (null otherwise).
 // window <= 0 means full causal. Returns cudaGetLastError() after the last
 // launch.
 extern "C" int llmss_paged_attention(
@@ -860,14 +923,18 @@ extern "C" int llmss_paged_attention(
                 static_cast<const float*>(k_scale),
                 static_cast<const float*>(v_scale)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool mma = dtype == kBF16 && kv_dtype == kBF16 && CB > 1;
-  const bool mma8 = dtype == kBF16 && kv_dtype == kI8 && CB > 1;
+  const bool tile16 = dtype == kBF16 && kv_dtype == kBF16;
+  const bool tile8 = dtype == kBF16 && kv_dtype == kI8;
   cudaError_t err = cudaErrorInvalidValue;
-  if (impl == 1 && mma && qlen != nullptr) {
-    err = dispatch_mma<__nv_bfloat16>(D, a, s);
-  } else if (impl == 2 && mma8 && qlen != nullptr) {
-    err = dispatch_mma<int8_t>(D, a, s);
-  } else if (impl == 0 && !mma && !mma8) {
+  if (impl == 1 && tile16 && CB > 1 && qlen != nullptr) {
+    err = dispatch_mma<__nv_bfloat16, false>(D, a, s);
+  } else if (impl == 1 && tile16 && CB == 1) {
+    err = dispatch_mma<__nv_bfloat16, true>(D, a, s);
+  } else if (impl == 2 && tile8 && CB > 1 && qlen != nullptr) {
+    err = dispatch_mma<int8_t, false>(D, a, s);
+  } else if (impl == 2 && tile8 && CB == 1) {
+    err = dispatch_mma<int8_t, true>(D, a, s);
+  } else if (impl == 0 && !((tile16 || tile8) && CB > 1)) {
     if (dtype == kF32 && kv_dtype == kF32) err = dispatch_d<float, float>(D, R, a, s);
     if (dtype == kBF16 && kv_dtype == kBF16)
       err = dispatch_d<__nv_bfloat16, __nv_bfloat16>(D, R, a, s);

@@ -49,15 +49,17 @@ import torch
 # sampled without top-k / top-p; sampled with either.
 SAMPLING_VARIANTS = ((False, False), (True, False), (True, True))
 
-# The symbol of the kernel each wrapper launches once per call (a split
-# call adds a ``split_merge``, which is not counted). K3 and K4 share the
-# paged kernels; a step graph holds K3 only. A symbol names every
-# instantiation of its template: ``paged_mma`` is K4's tensor-core tile
-# over a bf16 pool and over an int8 one, ``paged_fwd`` / ``decode_fwd``
-# the lane templates over either cache.
+# The symbols of the kernels each wrapper launches once per call (a split
+# lane call, and every decode call on the tile, adds a ``split_merge``,
+# which is not counted). K3 and K4 share the paged kernels; a step graph
+# holds K3 only. A symbol names every instantiation of its template:
+# ``paged_mma`` is the tensor-core tile over a bf16 pool and over an int8
+# one, K4's chunks and the decode form K3 takes above G_TILE query heads
+# per KV head; ``decode_mma`` K2's tile over either cache; ``paged_fwd`` /
+# ``decode_fwd`` the lane templates over either cache.
 KERNEL_SYMBOLS = {
     "flash_attention": ("flash_fwd", "flash_mma"),
-    "decode_attention": ("decode_fwd",),
+    "decode_attention": ("decode_fwd", "decode_mma"),
     "paged_decode_attention": ("paged_fwd", "paged_mma"),
     "ragged_paged_attention": ("paged_fwd", "paged_mma"),
 }

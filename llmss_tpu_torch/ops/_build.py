@@ -155,8 +155,8 @@ def _declare(lib: ctypes.CDLL, name: str) -> None:
     elif name == "decode_attention":
         fn = lib.llmss_decode_attention
         # q kc vc kn vn out qpos kvpos slots ws | layer B T t_len Hq Hkv D GB
-        # S split dtype | scale window stream | k_scale v_scale kv_dtype
-        fn.argtypes = [P] * 10 + [I] * 11 + [F, I, P] + [P, P, I]
+        # S split dtype | scale window stream | k_scale v_scale kv_dtype impl
+        fn.argtypes = [P] * 10 + [I] * 11 + [F, I, P] + [P, P, I, I]
     elif name == "paged_attention":
         fn = lib.llmss_paged_attention
         # q kp vp kn vn out qpos qlen kvpos tables nblk slot0 ws | layer B CB

@@ -5,10 +5,15 @@ Replaces ``llmss_tpu/ops/pallas_decode.py::decode_attention``, with the
 XLA path's bucketed read added: ``t_len`` bounds the read to ring slots
 ``[0, t_len)``, cut into ``S`` splits along the slots (flash-decoding,
 ``ops/split_plan.py``) that ``kernel_plan`` picks from the shapes and the
-card's SM count.
-``decode_attention`` launches the CUDA kernel (and, at ``S > 1``, its
-merge) and counts each call in ``decode_attention.launches``; it takes
-CUDA tensors only.
+card's SM count. Two templates read each KV head once per (row, split)
+for a group of its query heads: the lane template (``"lanes"``) at up to
+8 heads a block, and, for bf16 queries with more than 8 query heads per
+KV head (StarCoder's 48), the tensor-core tile (``"mma"``, 64 heads a
+block, ``decode_mma``), whose splits are whole 64-slot tiles and whose
+states always go through the merge (the fresh V stays fp32).
+``decode_attention`` launches the CUDA kernel (and, at ``S > 1`` or on
+the tile, its merge) and counts each call in
+``decode_attention.launches``; it takes CUDA tensors only.
 ``decode_attention_ref`` is the plain PyTorch version (fp32 throughout:
 ``fresh_kv_decode_attention`` on the layer's first ``t_len`` slots), used
 for CPU tensors and as the kernel's check on the card. The kernel rounds P
@@ -16,11 +21,13 @@ to the value dtype before P.V, as the Pallas kernel does.
 
 Over an int8 cache (``k_scale`` / ``v_scale`` ``[L, B, T, Hkv]`` fp32,
 q and fresh KV in fp32 or bf16) the kernel is the int8 instantiation of
-the same template (``kernel_plan`` names it ``"lanes_int8"``): it computes
+the same templates (``kernel_plan`` names them ``"lanes_int8"`` and,
+above 8 heads per KV head under bf16 queries, ``"mma_int8"``, the tile
+over int8 tiles with P x v_scale as two bf16 terms): it computes
 what the reference's XLA oracle ``fresh_kv_decode_attention(k_scale=,
 v_scale=)`` (llmss_tpu/ops/attention.py:242) computes, since the Pallas K2
 takes no scales: each cache score times its slot's K scale, and P times
-the V scale in fp32 (no rounding of P), the fresh token unscaled.
+the V scale (in fp32 on the lanes), the fresh token unscaled.
 """
 
 from __future__ import annotations
@@ -53,26 +60,40 @@ def decode_attention_ref(
 
 
 def _heads_per_block(G: int) -> int:
-    for gb in (8, 4, 2, 1):
-        if G % gb == 0:
-            return gb
-    return 1
+    """GB, the lane template's query heads per block: the least power of
+    two at or above ``min(G, 8)``, so each KV head's heads take
+    ``ceil(G / GB)`` groups (G = 7: one group of 8, one row dead)."""
+    gb = 1
+    while gb < min(G, 8):
+        gb *= 2
+    return gb
 
 
 def kernel_plan(dtype: torch.dtype, B: int, Hq: int, Hkv: int, D: int,
                 t_len: int, *, sms: int = sp.H100_SMS,
                 max_splits: int = sp.MAX_SPLITS,
-                kv_dtype: torch.dtype | None = None) -> sp.Plan:
-    """How a K2 call launches on a card of ``sms`` SMs: the lane template
-    with ``GB`` query heads per block (``_heads_per_block``), ``"lanes"``
-    over a cache of the query's dtype or ``"lanes_int8"`` over an int8
-    cache (``kv_dtype``), the shared memory one block needs (bytes), and
-    the split of slots ``[0, t_len)`` (into at most ``max_splits``), which
-    the cache's dtype does not change."""
+                kv_dtype: torch.dtype | None = None,
+                g_tile: int = sp.G_TILE) -> sp.Plan:
+    """How a K2 call launches on a card of ``sms`` SMs. bf16 queries with
+    more than ``g_tile`` query heads per KV head take the tensor-core tile
+    (``sp.decode_tile``: ``"mma"``, or ``"mma_int8"`` over an int8 cache),
+    64 heads a block, split into whole 64-slot tiles and always merged.
+    Every other call takes the lane template with ``GB`` query heads per
+    block (``_heads_per_block``), ``"lanes"`` over a cache of the query's
+    dtype or ``"lanes_int8"`` over an int8 cache (``kv_dtype``). Returns
+    the instantiation, the shared memory one block needs (bytes), and the
+    split of slots ``[0, t_len)`` (into at most ``max_splits``), which the
+    cache's dtype does not change."""
     kv_dtype = dtype if kv_dtype is None else kv_dtype
-    GB = _heads_per_block(Hq // Hkv)
-    S, split = sp.split_plan(B, Hq // GB, t_len, step=sp.lane_step(D),
-                             sms=sms, max_splits=max_splits)
+    G = Hq // Hkv
+    tile = sp.decode_tile(dtype, kv_dtype, G, g_tile)
+    if tile is not None:
+        return sp.decode_tile_plan(tile, B, Hkv, G, D, t_len, sms=sms,
+                                   max_splits=max_splits)
+    GB = _heads_per_block(G)
+    S, split = sp.split_plan(B, Hkv * -(-G // GB), t_len,
+                             step=sp.lane_step(D), sms=sms,
+                             max_splits=max_splits)
     smem = (sp.lane_region_bytes(kv_dtype.itemsize, GB, D)
             + 4 * (2 * 8 * GB + GB) + sp.stage_smem_bytes(1))
     return sp.Plan(sp.lane_impl(kv_dtype), smem, S, split)
@@ -105,9 +126,11 @@ def decode_attention(
 
 def _launch(q, k_cache, v_cache, k_new, v_new, q_pos, kv_pos, slots, layer,
             *, t_len=None, scale=None, window=None, k_scale=None,
-            v_scale=None, max_splits=sp.MAX_SPLITS):
+            v_scale=None, max_splits=sp.MAX_SPLITS, g_tile=sp.G_TILE):
     """Check the envelope and launch K2 split into at most ``max_splits``
-    (1: the unsplit kernel, which chip_smoke.py times beside the plan's)."""
+    (1: the unsplit kernel, which chip_smoke.py times beside the plan's),
+    on the tile above ``g_tile`` query heads per KV head (chip_smoke.py
+    forces either template to time them side by side)."""
     tensors = (q, k_cache, v_cache, k_new, v_new, q_pos, kv_pos, slots)
     if not all(t.is_cuda for t in tensors):
         raise RuntimeError("decode_attention (K2) takes CUDA tensors only")
@@ -152,14 +175,14 @@ def _launch(q, k_cache, v_cache, k_new, v_new, q_pos, kv_pos, slots, layer,
             raise ValueError("decode_attention needs 16-byte aligned tensors")
     plan = kernel_plan(q.dtype, B, Hq, Hkv, D, t_len,
                        sms=_build.sm_count(q.device), max_splits=max_splits,
-                       kv_dtype=k_cache.dtype)
+                       kv_dtype=k_cache.dtype, g_tile=g_tile)
     if plan.smem > _build.SMEM_LIMIT:
         raise _build.KernelError(f"decode_attention (K2) needs {plan.smem} "
                                  "bytes of shared memory")
     out = torch.empty_like(qc)
     ws = (torch.empty(sp.workspace_numel(B, Hq, plan.splits, D),
                       dtype=torch.float32, device=q.device)
-          if plan.splits > 1 else None)
+          if sp.merges(plan) else None)
     lib = _build.load("decode_attention")
     code = lib.llmss_decode_attention(
         qc.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), kn.data_ptr(),
@@ -168,7 +191,7 @@ def _launch(q, k_cache, v_cache, k_new, v_new, q_pos, kv_pos, slots, layer,
         B, T, t_len, Hq, Hkv, D, _heads_per_block(Hq // Hkv), plan.splits,
         plan.split_slots, _build.dtype_code(q), float(scale), window or 0,
         _build.stream_ptr(q.device), sc[0], sc[1],
-        _build.dtype_code(k_cache),
+        _build.dtype_code(k_cache), _build.IMPL_CODES[plan.impl],
     )
     _build.check(code, "decode_attention")
     return out

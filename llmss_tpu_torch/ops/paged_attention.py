@@ -10,14 +10,18 @@
   branch (``quant``) included: a ``CB``-token query chunk per row,
   ``q_len`` of them live.
 
-Four instantiations, chosen by ``kernel_plan`` from the dtypes and ``CB``
-alone: ``"mma"`` (the tensor-core tile, csrc/attn_tile.cuh) for a bf16
-pool at ``CB > 1``; ``"mma_int8"`` (the same tile over an int8 pool,
-csrc/attn_tile_i8.cuh) for bf16 queries at ``CB > 1``; ``"lanes"`` (the
-lane template) for fp32 and for ``CB == 1``; and ``"lanes_int8"``, the
-lane template over an int8 pool, for fp32 queries at every ``CB`` and bf16
-queries at ``CB == 1``. An int8 pool has ``k_scale`` / ``v_scale`` ``[L, N
-+ 1, bs, Hkv]`` fp32, and q and fresh KV in fp32 or bf16. Both int8
+Four instantiations, chosen by ``kernel_plan`` from the dtypes, ``CB``
+and G (query heads per KV head) alone: ``"mma"`` (the tensor-core tile,
+csrc/attn_tile.cuh) for a bf16 pool at ``CB > 1``; ``"mma_int8"`` (the
+same tile over an int8 pool, csrc/attn_tile_i8.cuh) for bf16 queries at
+``CB > 1``; at ``CB == 1`` with bf16 queries and G above
+``split_plan.G_TILE`` (8), the same two tiles in decode form (64 query
+heads a block, split along the KV axis, always merged, so the fresh V
+stays fp32); ``"lanes"`` (the lane template) for fp32 and for ``CB == 1``
+otherwise; and ``"lanes_int8"``, the lane template over an int8 pool, for
+fp32 queries at every ``CB`` and bf16 queries at ``CB == 1`` and G <= 8.
+An int8 pool has ``k_scale`` / ``v_scale`` ``[L, N + 1, bs, Hkv]`` fp32,
+and q and fresh KV in fp32 or bf16. The int8
 instantiations fold the scales as the Pallas int8 branch does
 (pallas_ragged.py:144-145, :163-168): each cache score times its slot's K
 scale and P times the V scale before P.V; the fresh keys are never
@@ -27,14 +31,15 @@ terms, hi + lo, which carry it to 2^-16 relative (one bf16 rounding: 2^-8),
 the fresh keys' P included. At ``CB == 1`` (K3 over an int8 pool) the lanes
 compute what the reference's oracle ``paged_decode_attention(
 k_scale_layer=)`` computes; the Pallas K3 takes no scales.
-At ``CB == 1`` the lane template splits the bucketed read ``n_cols * bs``
+At ``CB == 1`` both templates split the bucketed read ``n_cols * bs``
 into ``S`` splits along the KV axis (flash-decoding, ``ops/split_plan.py``,
-from the shapes and the card's SM count) and a merge kernel folds them. K3 is the lane
-template's ``CB == 1`` launch, so an all-decode K4 call at ``CB == 1``
+from the shapes and the card's SM count) and a merge kernel folds them.
+K3 is the ``CB == 1`` launch, so an all-decode K4 call at ``CB == 1``
 takes the same plan and gives bit-identical outputs. A call the chosen
 instantiation cannot take raises ``KernelError``; no other instantiation
-is tried. The mma instantiation applies the fresh keys' P rounded to
-bf16, like the cache's; the lane template applies fresh V in fp32. K4
+is tried. The mma instantiation at ``CB > 1`` applies the fresh keys' P
+rounded to bf16, like the cache's; at ``CB == 1`` the merge, and the lane
+template, apply fresh V in fp32. K4
 writes zeros for
 query rows past ``q_len`` that share no kernel tile with a live row (chunk
 padding nothing reads); the plain version computes every row, as the
@@ -122,21 +127,29 @@ def _rows_per_block(n: int) -> int:
 def kernel_plan(dtype: torch.dtype, CB: int, G: int, D: int, *, B: int = 1,
                 Hkv: int = 1, n_slots: int = 0, bs: int = 16,
                 sms: int = sp.H100_SMS, max_splits: int = sp.MAX_SPLITS,
-                kv_dtype: torch.dtype | None = None) -> sp.Plan:
+                kv_dtype: torch.dtype | None = None,
+                g_tile: int = sp.G_TILE) -> sp.Plan:
     """How a K3 / K4 launch over ``B`` rows, ``Hkv`` KV heads and a read of
     ``n_slots`` slots (``n_cols * bs``) goes on a card of ``sms`` SMs:
     at ``CB > 1`` the tensor-core tile (never split), ``"mma"`` over a
     bf16 pool (``kv_dtype``, default ``dtype``) and ``"mma_int8"`` over an
-    int8 pool under bf16 queries; else the lane template (R <= 8 of the
+    int8 pool under bf16 queries; at ``CB == 1`` with bf16 queries and
+    more than ``g_tile`` query heads per KV head the same tile in decode
+    form (``sp.decode_tile``), 64 heads a block, split into whole 64-slot
+    tiles and always merged; else the lane template (R <= 8 of the
     ``CB * G`` flat query rows per block): ``"lanes_int8"`` over an int8
     pool, ``"lanes"`` otherwise; split along the KV axis (into at most
     ``max_splits``) only at ``CB == 1``; and the shared memory one block
-    needs, in bytes."""
+    needs, in bytes. K3 and an all-decode K4 take one plan."""
     kv_dtype = dtype if kv_dtype is None else kv_dtype
     if kv_dtype == torch.bfloat16 and CB > 1:
         return sp.Plan("mma", _build.tile_smem_bytes(D), 1, 0)
     if kv_dtype == torch.int8 and dtype == torch.bfloat16 and CB > 1:
         return sp.Plan("mma_int8", _build.tile_i8_smem_bytes(D), 1, 0)
+    tile = sp.decode_tile(dtype, kv_dtype, G, g_tile) if CB == 1 else None
+    if tile is not None:
+        return sp.decode_tile_plan(tile, B, Hkv, G, D, n_slots, bs, sms=sms,
+                                   max_splits=max_splits)
     R = _rows_per_block(CB * G)
     tiles = -(-CB * G // R)
     S, split = sp.split_plan(B, Hkv * tiles, n_slots, bs,
@@ -149,10 +162,12 @@ def kernel_plan(dtype: torch.dtype, CB: int, G: int, D: int, *, B: int = 1,
 
 def _launch(name, q, k_pool, v_pool, k_new, v_new, q_pos, q_len, kv_pos,
             block_tables, n_blocks, slot0, layer, n_cols, scale, window,
-            k_scale=None, v_scale=None, max_splits=sp.MAX_SPLITS):
+            k_scale=None, v_scale=None, max_splits=sp.MAX_SPLITS,
+            g_tile=sp.G_TILE):
     """Check the envelope and launch the template; q_len None means K3.
     ``max_splits`` 1 launches the unsplit kernel (which chip_smoke.py times
-    beside the plan's)."""
+    beside the plan's); ``g_tile`` moves the decode tile's threshold
+    (chip_smoke.py forces either template to time them side by side)."""
     tensors = [q, k_pool, v_pool, k_new, v_new, q_pos, kv_pos, block_tables,
                n_blocks, slot0] + ([q_len] if q_len is not None else [])
     if not all(t.is_cuda for t in tensors):
@@ -188,7 +203,7 @@ def _launch(name, q, k_pool, v_pool, k_new, v_new, q_pos, q_len, kv_pos,
     plan = kernel_plan(q.dtype, CB, Hq // Hkv, D, B=B, Hkv=Hkv,
                        n_slots=n_cols * bs, bs=bs,
                        sms=_build.sm_count(q.device), max_splits=max_splits,
-                       kv_dtype=k_pool.dtype)
+                       kv_dtype=k_pool.dtype, g_tile=g_tile)
     if plan.smem > _build.SMEM_LIMIT:
         raise _build.KernelError(
             f"{name}: the {plan.impl} instantiation at chunk {CB} needs "
@@ -213,7 +228,7 @@ def _launch(name, q, k_pool, v_pool, k_new, v_new, q_pos, q_len, kv_pos,
     out = torch.empty_like(qc)
     ws = (torch.empty(sp.workspace_numel(B, Hq, plan.splits, D),
                       dtype=torch.float32, device=q.device)
-          if plan.splits > 1 else None)
+          if sp.merges(plan) else None)
     lib = _build.load("paged_attention")
     code = lib.llmss_paged_attention(
         qc.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), kn.data_ptr(),

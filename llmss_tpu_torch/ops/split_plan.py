@@ -1,5 +1,17 @@
 """The split over the KV axis (flash-decoding) of the decode kernels K2 and
-K3 (csrc/decode_attention.cu, csrc/paged_attention.cu at CB = 1).
+K3 (csrc/decode_attention.cu, csrc/paged_attention.cu at CB = 1), and
+which of their two templates a decode call takes.
+
+Both templates read each KV head's slots once per (row, KV head, split)
+for a group of its G query heads. The lane template (``"lanes"``,
+``"lanes_int8"``) holds each head's fp32 state in registers and takes at
+most 8 query rows a block; at G <= ``G_TILE`` that group is the whole KV
+head's. Above it, bf16 queries take the tensor-core tile (``"mma"``,
+``"mma_int8"``, csrc/attn_tile.cuh), whose 64 flat rows hold up to 64
+query heads of one KV head, so StarCoder's 48 heads read their one KV
+head once where 6 lane blocks read it 6 times. The tile's split is a
+whole number of its 64-slot tiles (``TILE_STEP``), and its states always
+go through the merge, which keeps the fresh V in fp32.
 
 An unsplit decode grid has one block per (row, KV head, tile of query
 rows) and each block walks its row's whole read. At small batch or at GQA
@@ -24,6 +36,10 @@ import functools
 import math
 from typing import NamedTuple
 
+import torch
+
+from llmss_tpu_torch.ops import _build
+
 # A split covers at most SPLIT_SLOTS slots (128 led 256 and 512, summed
 # over nine decode cases timed on the H100, PERF.md), and the plan shrinks
 # the split until the grid has two blocks per SM or the split is one unit.
@@ -44,6 +60,16 @@ STEPS = 2  # steps of SPW slots per warp in one ring stage (``kSteps``)
 # window whose scales each warp stages beside them.
 INT8_STAGES = 6
 INT8_SCALE_SLOTS = STAGE_SLOTS // NWARP
+# Above G_TILE query heads per KV head, bf16 decode queries take the
+# tensor-core tile; its splits are whole tiles of TILE_STEP slots and its
+# blocks hold TILE_ROWS query heads. chip_smoke.py times both templates at
+# G = 1, 4, 8, 16 and 48: on the H100 the lanes win at G = 1 and the tile
+# from G = 4 (PERF.md), but G <= 8 stays on the lanes, whose outputs GQA
+# models were held to.
+G_TILE = 8
+TILE_STEP = 64
+TILE_ROWS = 64
+TILE_IMPLS = ("mma", "mma_int8")
 
 
 class Plan(NamedTuple):
@@ -86,6 +112,37 @@ def lane_region_bytes(elem_size: int, rows: int, D: int) -> int:
         stages, lane_bytes = {4: (2, 32), 2: (4, 16)}[elem_size]
         ring = NWARP * stages * STEPS * 2 * 32 * lane_bytes
     return max(ring, 4 * NWARP * rows * D)
+
+
+def decode_tile(dtype, kv_dtype, G: int, g_tile: int = G_TILE) -> str | None:
+    """The tile instantiation a decode call (K2, K3, K4 at CB = 1) takes:
+    ``"mma"`` over a bf16 cache and ``"mma_int8"`` over an int8 cache, for
+    bf16 queries with more than ``g_tile`` query heads per KV head; None
+    (the lane template) otherwise."""
+    if dtype != torch.bfloat16 or G <= g_tile:
+        return None
+    return {torch.bfloat16: "mma", torch.int8: "mma_int8"}.get(kv_dtype)
+
+
+def decode_tile_plan(impl: str, B: int, Hkv: int, G: int, D: int,
+                     n_slots: int, bs: int = 1, *, sms: int,
+                     max_splits: int = MAX_SPLITS) -> Plan:
+    """The decode tile's plan (``impl`` from ``decode_tile``) for K2
+    (``bs`` 1) and K3 / K4 at CB = 1: ``ceil(G / TILE_ROWS)`` blocks per KV
+    head, the read split into whole ``TILE_STEP``-slot tiles, and the
+    shared memory of the tile (``_build.tile_smem_bytes``) or of its int8
+    form."""
+    S, split = split_plan(B, Hkv * -(-G // TILE_ROWS), n_slots, bs,
+                          step=TILE_STEP, sms=sms, max_splits=max_splits)
+    smem = (_build.tile_smem_bytes(D) if impl == "mma"
+            else _build.tile_i8_smem_bytes(D))
+    return Plan(impl, smem, S, split)
+
+
+def merges(plan: Plan) -> bool:
+    """Whether a decode launch of ``plan`` is followed by the merge kernel:
+    a split lane launch, and every decode launch of the tile."""
+    return plan.splits > 1 or (plan.impl in TILE_IMPLS and plan.split_slots > 0)
 
 
 def lane_impl(kv_dtype) -> str:

@@ -39,8 +39,10 @@ from llmss_tpu_torch.engine import graphs
 from llmss_tpu_torch.engine.cache import gather_block_view, quantize_kv
 from llmss_tpu_torch.ops import _build
 from llmss_tpu_torch.ops import attention as tatt
+from llmss_tpu_torch.ops import decode_attention as da
 from llmss_tpu_torch.ops import flash_attention as fa
 from llmss_tpu_torch.ops import paged_attention as pa
+from llmss_tpu_torch.ops import split_plan as sp
 
 NEG = float(torch.finfo(torch.float32).min)
 
@@ -71,6 +73,58 @@ def test_k1_plan_refuses_other_dtypes():
 @pytest.mark.parametrize("G", [1, 4])
 def test_k3_k4_plan_follows_dtype_and_chunk(dtype, CB, want, G):
     assert pa.kernel_plan(dtype, CB, G, 128)[0] == want
+
+
+@pytest.mark.parametrize("CB", [1, 128])
+@pytest.mark.parametrize("kv", ["query's", "int8"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("G", [1, 4, 7, 8, 16, 48])
+def test_decode_plan_follows_the_head_group(G, dtype, kv, CB):
+    """K3 / K4 and, at CB == 1, K2: bf16 queries take the tensor-core tile
+    at CB > 1, and at decode above G_TILE query heads per KV head (split
+    into whole 64-slot tiles, 64 heads a block, always merged); fp32
+    queries and G <= 8 take the lanes; over an int8 cache the int8 form of
+    each. Every plan's shared memory fits."""
+    kv_dtype = torch.int8 if kv == "int8" else dtype
+    Hkv = max(1, 8 // G)
+    plan = pa.kernel_plan(dtype, CB, G, 128, B=8, Hkv=Hkv, n_slots=832, bs=16,
+                          kv_dtype=kv_dtype)
+    tile = dtype == torch.bfloat16 and (CB > 1 or G > sp.G_TILE)
+    i8 = "_int8" if kv == "int8" else ""
+    assert plan.impl == ("mma" if tile else "lanes") + i8
+    assert plan.smem <= _build.SMEM_LIMIT
+    if tile:
+        assert plan.smem == (_build.tile_i8_smem_bytes(128) if i8
+                             else _build.tile_smem_bytes(128))
+    if CB > 1:
+        assert plan.splits == 1 and (plan.split_slots == 0) == tile
+        return
+    blocks = Hkv * (-(-G // 64) if tile else -(-G // pa._rows_per_block(G)))
+    step = sp.TILE_STEP if tile else sp.lane_step(128)
+    assert plan[2:] == sp.split_plan(8, blocks, 832, 16, step=step,
+                                     sms=sp.H100_SMS)
+    assert sp.merges(plan) == (tile or plan.splits > 1)
+    k2 = da.kernel_plan(dtype, 4, Hkv * G, Hkv, 128, 192, kv_dtype=kv_dtype)
+    assert k2.impl == plan.impl and k2.smem <= _build.SMEM_LIMIT
+    blocks = Hkv * (1 if tile else -(-G // da._heads_per_block(G)))
+    assert k2[2:] == sp.split_plan(4, blocks, 192, step=step, sms=sp.H100_SMS)
+
+
+def test_g_tile_forces_either_template():
+    """``g_tile`` moves the threshold: 0 puts any bf16 decode on the tile,
+    a large value on the lanes (chip_smoke.py times both at G = 8, 16 and
+    48); the default is G_TILE = 8."""
+    assert sp.G_TILE == 8
+    for G in (8, 16, 48):
+        kw = dict(B=8, Hkv=1, n_slots=832, bs=16)
+        assert pa.kernel_plan(torch.bfloat16, 1, G, 128, g_tile=0, **kw).impl == "mma"
+        assert pa.kernel_plan(torch.bfloat16, 1, G, 128, g_tile=1 << 30,
+                              **kw).impl == "lanes"
+        assert da.kernel_plan(torch.bfloat16, 4, G, 1, 128, 192,
+                              g_tile=0).impl == "mma"
+        assert da.kernel_plan(torch.bfloat16, 4, G, 1, 128, 192,
+                              g_tile=1 << 30).impl == "lanes"
+    assert pa.kernel_plan(torch.float32, 1, 48, 128, g_tile=0).impl == "lanes"
 
 
 # -- shared memory ------------------------------------------------------------
@@ -164,13 +218,13 @@ def test_declared_argtypes_match_the_c_signature(name):
 # template over a bf16 and an int8 pool, as libcuda (mangled) and the
 # profiler (demangled) name them.
 _K4_SYMBOLS = [
-    ("_ZN5llmss12_GLOBAL__N_19paged_mmaIaLi128EEEvNS0_6ArgsI8E", "paged_mma",
-     True),
-    ("void llmss::(anonymous namespace)::paged_mma<signed char, 128>"
+    ("_ZN5llmss12_GLOBAL__N_19paged_mmaIaLi128ELb0EEEvNS0_6ArgsI8E",
+     "paged_mma", True),
+    ("void llmss::(anonymous namespace)::paged_mma<signed char, 128, false>"
      "(llmss::(anonymous namespace)::ArgsI8)", "paged_mma", True),
-    ("_ZN5llmss12_GLOBAL__N_19paged_mmaI13__nv_bfloat16Li128EEEvNS0_4ArgsE",
+    ("_ZN5llmss12_GLOBAL__N_19paged_mmaI13__nv_bfloat16Li128ELb0EEEvNS0_4ArgsE",
      "paged_mma", False),
-    ("void llmss::(anonymous namespace)::paged_mma<__nv_bfloat16, 128>"
+    ("void llmss::(anonymous namespace)::paged_mma<__nv_bfloat16, 128, false>"
      "(llmss::(anonymous namespace)::Args)", "paged_mma", False),
     ("_ZN5llmss12_GLOBAL__N_19paged_fwdI13__nv_bfloat16aLi128ELi8EEEvNS0_"
      "6ArgsI8E", "paged_fwd", True),
@@ -199,9 +253,9 @@ def test_ptxas_report_lists_both_k4_tiles():
         for (name, _, _), r, sp in zip(_K4_SYMBOLS[::2], (168, 154, 40),
                                        (0, 8, 0)))
     assert chip_smoke.mma_registers(text) == [
-        {"kernel": "paged_mmaIaLi128", "registers": 168,
+        {"kernel": "paged_mmaIaLi128ELb0", "registers": 168,
          "spill_store_bytes": 0},
-        {"kernel": "paged_mmaI13__nv_bfloat16Li128", "registers": 154,
+        {"kernel": "paged_mmaI13__nv_bfloat16Li128ELb0", "registers": 154,
          "spill_store_bytes": 8}]
 
 
