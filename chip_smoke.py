@@ -61,6 +61,14 @@ exits non-zero without printing a result:
               Llama-2-7B width (split admission; chunked prefill), each
               prewarmed, answer 16 requests three times (split, chunked,
               chunked again: same tokens) with no new graph capture;
+   serve_http -- the same requests over HTTP: ProducerServer on
+              127.0.0.1:0, a supervised chunked ContinuousWorker built by
+              a factory whose first worker crashes (one restart, within
+              one pool of the memory before it), two SSE requests and one
+              cancelled by POST /cancel; answers equal to the in-process
+              chunked pass's, /metrics (JSON and Prometheus), /dlq, and
+              /health 200 while serving, 503 after the drain; the front
+              end's cost against the in-process pass;
    profile -- one paged decode group (graph replays beside the eager
               steps, same tokens) and one ragged group (eager);
    int8    -- the engine's generate (prewarmed, no capture after) and one
@@ -109,7 +117,10 @@ import struct
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import urllib.error
+import urllib.request
 from pathlib import Path
 
 import numpy as np
@@ -649,6 +660,8 @@ def check_kernels() -> dict:
         if c["name"] in ("k1_engine_prefill", "k1_7b_padded",
                          "k1_gptj_prefill", "k1_starcoder_prefill"):
             _main_path_impl("K1", row)
+        if c["name"] in ("k1_engine_prefill", "k1_7b_padded", "k1_7b_long",
+                         "k1_gptj_prefill", "k1_starcoder_prefill"):
             out.setdefault("vs_library", {})[c["name"]] = (
                 row["ms"], row["library_ms"])
         emit(row)
@@ -2011,8 +2024,8 @@ def phase_serve_continuous(params, kernels: dict):
     dense equivalent), chunk_steps 8, group_chunks 2. 16 requests
     (``_serve_requests``), served with split admission (K1 + K3), then
     with chunked_prefill=128 (K4 + K3), then the chunked pass again, which
-    must repeat its tokens. Returns the engine and the chunked pass's
-    tokens."""
+    must repeat its tokens. Returns the engine, the chunked pass's tokens
+    and the repeat's row."""
     from llmss_tpu_torch.engine.engine import DecodeEngine
     from llmss_tpu_torch.models.common import DecoderConfig
     from llmss_tpu_torch.serve.broker import InProcBroker
@@ -2044,11 +2057,11 @@ def phase_serve_continuous(params, kernels: dict):
                                         steps, {"prompt_lens": lens,
                                                 **warm[chunked]})
         emit(row)
-        return toks, counts
+        return toks, counts, row
 
-    split, c_split = run(False)
-    chunk, c_chunk = run(True)
-    again, _ = run(True)
+    split, c_split, _ = run(False)
+    chunk, c_chunk, _ = run(True)
+    again, _, again_row = run(True)
     same = all(a == b for i, (a, b) in enumerate(zip(chunk, again))
                if i != SERVE_CANCEL)
     emit({"phase": "serve_continuous", "check": "chunked_pass_repeats",
@@ -2063,7 +2076,297 @@ def phase_serve_continuous(params, kernels: dict):
     gc.collect()
     if len(eng._graphs):
         raise AssertionError("the workers' step graphs outlived their caches")
-    return eng, chunk
+    return eng, chunk, again_row
+
+
+# -- phase 6b, over HTTP -------------------------------------------------------
+
+
+class _HttpPhaseWorker:
+    """The serve_http phase's ContinuousWorker, wrapped on the loop thread.
+
+    ``crash``: the first ``run_once`` records ``memory_allocated`` and
+    raises (the forced restart). Otherwise ``run_once`` waits for ``gate``
+    (every request queued, in order) before it serves, and after the
+    iteration in which request ``cancel_id`` first has tokens it waits for
+    that request's cancel flag (sent by ``POST /cancel``): the pass then
+    runs the in-process pass's schedule step for step, which its tokens
+    depend on (the decode bucket, hence K3's split, follows the rows)."""
+
+    def __init__(self, worker, log, *, crash=False, gate=None, cancel_id=None,
+                 seen=None):
+        self.worker, self.log, self.crash = worker, log, crash
+        self.gate, self.cancel_id, self.seen = gate, cancel_id, seen
+
+    def __getattr__(self, name):
+        return getattr(self.worker, name)
+
+    def run_once(self):
+        if self.crash:
+            torch.cuda.synchronize()
+            self.log["mem_before_restart"] = torch.cuda.memory_allocated()
+            self.log["crash_t"] = time.perf_counter()
+            raise RuntimeError("forced restart")
+        if not self.gate.wait(timeout=300):
+            raise RuntimeError("the serve_http requests were never queued")
+        n = self.worker.run_once()
+        if not self.seen.is_set() and any(
+                r.req_id == self.cancel_id and r.out
+                for r in self.worker.batcher.active.values()):
+            self.seen.set()
+            end = time.monotonic() + 60
+            while not self.worker.broker.check_cancelled([self.cancel_id]):
+                if time.monotonic() > end:
+                    raise RuntimeError("POST /cancel never arrived")
+                time.sleep(0.0005)
+        return n
+
+
+def _http(port: int, path: str, body: dict | None = None, timeout=120.0):
+    """One request to the producer: (status, headers, body bytes)."""
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=data,
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, dict(r.headers), r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, dict(e.headers), e.read()
+
+
+def _http_client(port: int, req, out: dict) -> None:
+    """POST one request of the serve_http pass and record its answer and
+    client-side times (``first``: the first SSE increment)."""
+    body = dataclasses.asdict(req)
+    if not req.stream:
+        status, _, raw = _http(port, "/generate", body)
+        out.update(status=status, answer=json.loads(raw),
+                   t_done=time.perf_counter())
+        return
+    r = urllib.request.urlopen(urllib.request.Request(
+        f"http://127.0.0.1:{port}/generate", data=json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"}), timeout=120)
+    incs, event = [], None
+    with r:
+        for raw in r:
+            line = raw.decode().rstrip("\n")
+            if line.startswith("event: "):
+                event = line[len("event: "):]
+            elif line.startswith("data: "):
+                data = json.loads(line[len("data: "):])
+                if event is None:
+                    out.setdefault("first", time.perf_counter())
+                    incs.extend(data["token_ids"])
+                elif event == "done":
+                    out["answer"] = data
+                else:
+                    raise AssertionError(f"SSE {event}: {data}")
+            elif not line:
+                event = None
+    out.update(status=r.status, streamed=incs, t_done=time.perf_counter())
+
+
+def _q(values, q):
+    """The q-th percentile (EngineMetrics' rule) of ``values``, in ms."""
+    s = sorted(values)
+    return s[min(int(q / 100.0 * len(s)), len(s) - 1)] * 1e3 if s else None
+
+
+def phase_serve_http(eng, want: list, inproc: dict, smi: str) -> None:
+    """The serving front end on the main path: ``ProducerServer`` on
+    127.0.0.1:0 over an ``InProcBroker``, and a ``ContinuousWorker``
+    (``chunked_prefill=128``, the serve_continuous configuration on its
+    engine) built and prewarmed by a factory under a ``Supervisor``. The
+    factory's first worker raises at once (one forced restart: the second
+    must come up within one pool of the memory before it). The 16
+    requests of ``_serve_requests`` are POSTed concurrently over urllib,
+    queued in order; 0 and 1 over server-sent events; request 3 cancelled
+    by ``POST /cancel`` once its first tokens exist. Every other answer
+    must equal the in-process chunked pass's tokens (``want``), each
+    stream its answer; ``/metrics`` counts 16 requests (JSON and
+    Prometheus), ``/dlq`` is empty, ``/health`` is 200 while serving and
+    503 after ``Supervisor.drain``; no graph is captured after the
+    prewarm; K3 and K4 launch. Prints the pass's wall, tokens/s and
+    client-side TTFT beside the in-process pass's (``inproc``), and the
+    prewarm and restart seconds, beside the card (``smi``)."""
+    from llmss_tpu_torch.engine.metrics import EngineMetrics
+    from llmss_tpu_torch.ops import decode_attention as da
+    from llmss_tpu_torch.ops import flash_attention as fa
+    from llmss_tpu_torch.ops import paged_attention as pa
+    from llmss_tpu_torch.serve.broker import InProcBroker
+    from llmss_tpu_torch.serve.consumer import ContinuousWorker
+    from llmss_tpu_torch.serve.producer import ProducerServer
+    from llmss_tpu_torch.serve.supervisor import Supervisor
+
+    cfg = eng.cfg
+    L = cfg.n_layers
+    steps = _count_steps(eng)
+    _, requests = _serve_requests(cfg)
+    reqs = requests()
+    new = reqs[0].max_new_tokens
+    broker = InProcBroker()
+    gate, seen = threading.Event(), threading.Event()
+    log: dict = {"prewarm_s": []}
+
+    def factory():
+        w = ContinuousWorker(eng, broker, rows=8, chunk_steps=8,
+                             group_chunks=2, chunked_prefill=128)
+        t = time.perf_counter()
+        log["prewarm"] = w.prewarm()
+        torch.cuda.synchronize()
+        log["prewarm_s"].append(time.perf_counter() - t)
+        if len(log["prewarm_s"]) == 1:
+            log["pool_bytes"] = sum(t.numel() * t.element_size()
+                                    for t in w.batcher.cache if t is not None)
+            return _HttpPhaseWorker(w, log, crash=True)
+        log["mem_after_prewarm"] = torch.cuda.memory_allocated()
+        log["restart_s"] = time.perf_counter() - log["crash_t"]
+        log["graphs"] = len(eng._graphs)
+        log["keys"] = eng._graphs.keys()
+        return _HttpPhaseWorker(w, log, gate=gate, cancel_id=reqs[SERVE_CANCEL].id,
+                                seen=seen)
+
+    # One restart is forced; a second crash ends the phase.
+    sup = Supervisor(factory, broker, max_restarts=1, backoff_s=0.05,
+                     heartbeat_s=1.0, step_timeout_s=120.0,
+                     drain_timeout_s=120.0)
+    srv = ProducerServer(broker, host="127.0.0.1", port=0, timeout_s=300.0)
+    stop = threading.Event()
+    loop = threading.Thread(target=sup.run, args=(stop,), daemon=True)
+    srv.start()
+    loop.start()
+    clients: list[threading.Thread] = []
+    outs = [{} for _ in reqs]
+    try:
+        end = time.monotonic() + 300
+        while not ("keys" in log and sup.state == "ready"):
+            if time.monotonic() > end or not loop.is_alive():
+                raise AssertionError(f"the restarted worker never came up: "
+                                     f"{sup._last_error}")
+            time.sleep(0.05)
+        if sup.restarts != 1 or "forced restart" not in sup._last_error:
+            raise AssertionError(f"restarts {sup.restarts}: {sup._last_error}")
+        grew = log["mem_after_prewarm"] - log["mem_before_restart"]
+        if log["graphs"] != 1 or abs(grew) >= log["pool_bytes"]:
+            raise AssertionError(f"restart: {log['graphs']} caches hold graphs,"
+                                 f" memory moved {grew} B (pool "
+                                 f"{log['pool_bytes']} B)")
+        status, _, body = _http(srv.port, "/health")
+        if status != 200:
+            raise AssertionError(f"/health {status} before serving: {body}")
+        # Concurrent clients, queued in order (the in-process pass's order).
+        for i, r in enumerate(reqs):
+            th = threading.Thread(target=_http_client,
+                                  args=(srv.port, r, outs[i]), daemon=True)
+            clients.append(th)
+            th.start()
+            end = time.monotonic() + 60
+            while broker.queue_depth() < i + 1:
+                if time.monotonic() > end:
+                    raise AssertionError(f"request {i} was never queued")
+                time.sleep(0.001)
+        eng.metrics = EngineMetrics()
+        fa.flash_attention.launches = da.decode_attention.launches = 0
+        pa.paged_decode_attention.launches = 0
+        pa.ragged_paged_attention.launches = 0
+        steps.update(decode=0, ragged=0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        gate.set()
+        if not seen.wait(timeout=300):
+            raise AssertionError("the cancelled request never decoded")
+        status, _, _ = _http(srv.port, "/cancel", {"id": reqs[SERVE_CANCEL].id})
+        health, _, _ = _http(srv.port, "/health")
+        for th in clients:
+            th.join(timeout=300)
+        if any(th.is_alive() for th in clients) or health != 200 or status != 200:
+            raise AssertionError(f"clients hung, or /health {health}, "
+                                 f"/cancel {status} while serving")
+        torch.cuda.synchronize()
+        wall = max(o["t_done"] for o in outs) - t0
+        counts = dict(k1=fa.flash_attention.launches,
+                      k2=da.decode_attention.launches,
+                      k3=pa.paged_decode_attention.launches,
+                      k4=pa.ragged_paged_attention.launches)
+        for i, o in enumerate(outs):
+            a = o["answer"]
+            if i == SERVE_CANCEL:
+                if o["status"] != 500 or a["error"] != "cancelled":
+                    raise AssertionError(f"cancelled request answered {o}")
+            elif o["status"] != 200 or a["error"] or a["token_ids"] != want[i]:
+                raise AssertionError(
+                    f"request {i}: HTTP {o['status']} {a} != the in-process "
+                    f"pass's {want[i]}")
+            if "streamed" in o and o["streamed"] != a["token_ids"]:
+                raise AssertionError(f"request {i}: stream != answer")
+        if counts["k1"] or counts["k2"] or not counts["k3"] or (
+                not counts["k4"]) or counts["k3"] != L * steps["decode"] or (
+                counts["k4"] != L * steps["ragged"]):
+            raise AssertionError(f"launch counts {counts} for steps {steps}")
+        if eng.metrics.graph_captures or eng._graphs.keys() != log["keys"]:
+            raise AssertionError("the HTTP pass captured a graph")
+        # The worker publishes every 16 iterations, the supervisor every
+        # heartbeat: wait for the count.
+        end = time.monotonic() + 30
+        while True:
+            _, _, raw = _http(srv.port, "/metrics")
+            payload = json.loads(raw)
+            if payload.get("requests_served") == len(reqs):
+                break
+            if time.monotonic() > end:
+                raise AssertionError(f"/metrics: {payload.get('requests_served')}"
+                                     f" requests served, not {len(reqs)}")
+            time.sleep(0.1)
+        _, _, prom = _http(srv.port, "/metrics?format=prometheus")
+        _, _, dlq = _http(srv.port, "/dlq")
+        if f"llmss_requests_served {len(reqs)}" not in prom.decode().splitlines():
+            raise AssertionError("Prometheus text does not count the requests")
+        if json.loads(dlq)["depth"] or payload["delivery"]["dlq_depth"]:
+            raise AssertionError(f"/dlq: {dlq}")
+        sup.drain()
+        loop.join(timeout=180)
+        after, _, body = _http(srv.port, "/health")
+        if loop.is_alive() or after != 503 or json.loads(body)["status"] != "dead":
+            raise AssertionError(f"/health {after} after the drain: {body}")
+    finally:
+        gate.set()
+        stop.set()
+        loop.join(timeout=60)
+        srv.stop()
+    m = eng.metrics
+    served = sum(len(o["answer"]["token_ids"] or []) for i, o in enumerate(outs)
+                 if i != SERVE_CANCEL)
+    # Client-side times count from the pass's start (every request was
+    # queued before it, as in the in-process pass).
+    ttft = [o["first"] - t0 for o in outs if "first" in o]
+    latency = [o["t_done"] - t0 for i, o in enumerate(outs)
+               if i != SERVE_CANCEL]
+    http = {"wall_s": wall, "tokens_per_s": served / wall,
+            "client_ttft_p50_ms": _q(ttft, 50), "client_ttft_p90_ms": _q(ttft, 90),
+            "client_ttft_n": len(ttft),
+            "client_latency_p50_ms": _q(latency, 50),
+            "client_latency_p90_ms": _q(latency, 90),
+            "ttft_p50_ms": m.ttft.quantile_ms(50),
+            "ttft_p90_ms": m.ttft.quantile_ms(90)}
+    local = {k: inproc[k] for k in ("wall_s", "tokens_per_s", "ttft_p50_ms",
+                                    "ttft_p90_ms")}
+    emit({"phase": "serve_http", "nvidia_smi": smi,
+          "admission": "chunked_prefill=128",
+          "requests": len(reqs), "new_tokens": new, "sse": [0, 1],
+          "cancelled": SERVE_CANCEL, "answers_equal_inproc": len(reqs) - 1,
+          "streams_equal_answers": True, "requests_served_metric": len(reqs),
+          "dlq_depth": 0, "health_serving": 200, "health_after_drain": 503,
+          "graph_captures_after_prewarm": 0, "launches": counts,
+          "decode_steps": steps["decode"], "ragged_steps": steps["ragged"],
+          "http": http, "inproc": local,
+          "front_end_cost": {k: http[k] - local[k] for k in local},
+          "prewarm": log["prewarm"], "prewarm_s": log["prewarm_s"],
+          "restart_s": log["restart_s"], "restarts": 1,
+          "memory_moved_on_restart": grew, "pool_bytes": log["pool_bytes"]})
+    del sup, srv, broker
+    gc.collect()
+    if len(eng._graphs):
+        raise AssertionError("the serve_http workers' graphs outlived them")
 
 
 def phase_profile_paged(eng, tag: str = "") -> None:
@@ -2687,7 +2990,9 @@ def main() -> int:
     params = eng.params
     del eng
     torch.cuda.empty_cache()
-    peng, bf16["serve_tokens"] = phase_serve_continuous(params, kernels)
+    peng, bf16["serve_tokens"], inproc = phase_serve_continuous(params,
+                                                                kernels)
+    phase_serve_http(peng, bf16["serve_tokens"], inproc, smi)
     phase_profile_paged(peng)
     del peng
     gc.collect()

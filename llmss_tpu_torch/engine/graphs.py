@@ -19,7 +19,8 @@ is captured once as a CUDA graph over persistent buffers and replayed:
 - **Capture**: one eager run of the body on a side stream (it builds and
   loads the kernels' libraries and cuBLAS's handles, which must not happen
   during capture), then ``torch.cuda.CUDAGraph`` into one memory pool that
-  every graph of the engine shares. The warm-up really runs the step, so
+  every live graph of the engine shares (a new one once they have all been
+  freed). The warm-up really runs the step, so
   the carry is restored after it; its one KV write goes to the slot the
   step itself writes next, which every decode read excludes as pending.
   A capture that fails raises: nothing carries on eagerly on the card.
@@ -283,6 +284,11 @@ class DecodeGraphs:
                 weakref.finalize(t, self._entries.pop, key, None)
         return entry
 
+    def _graphs_alive(self) -> bool:
+        """Whether any captured graph (hence the pool it holds) is alive."""
+        return any(s is not None for e in self._entries.values()
+                   for s in e.steps.values())
+
     def keys(self) -> set[tuple]:
         """Every captured step, as (cache key + step key)."""
         return {e.key + k for e in self._entries.values() for k in e.steps}
@@ -294,6 +300,10 @@ class DecodeGraphs:
         main = torch.cuda.current_stream(dev)
         if self._side is None:
             self._side = torch.cuda.Stream(dev)
+        if not self._graphs_alive():
+            # The caching allocator retires a pool once its last graph is
+            # freed (a worker's caches dropped at a restart): a capture
+            # after that must open a new one.
             self._pool = torch.cuda.graph_pool_handle()
         saved = [t.clone() for t in bufs.carry()]
         self._side.wait_stream(main)

@@ -1,1 +1,2 @@
-"""Batch serving: wire schema, in-process broker, worker."""
+"""Serving: wire schema, brokers (in-process and Redis), workers,
+supervisor, and the HTTP producer."""

@@ -1,5 +1,6 @@
-"""Serving workers (counterpart: llmss_tpu/serve/consumer.py:82-1033):
-the batch ``Worker`` and the continuous ``ContinuousWorker``.
+"""Serving workers and the consumer entry point (counterpart:
+llmss_tpu/serve/consumer.py): the batch ``Worker``, the continuous
+``ContinuousWorker`` and ``main``.
 
 ``Worker.run_once`` takes up to ``batch_size`` requests from the broker,
 sheds cancelled and expired ones, validates each (bad requests and
@@ -7,17 +8,23 @@ requests that would overflow the ring get an error response of their own),
 pads the batch to its envelope with inert rows, runs ``engine.generate``
 with grouped decode, streams increments for ``stream`` requests, and
 answers every row: tokens, ``cancelled`` with the partial tokens, or a
-per-row poison error while batch-mates keep their tokens. The fleet
-registry, tracing and device-telemetry hooks of the reference wait for
-later work.
+per-row poison error while batch-mates keep their tokens.
 
 ``ContinuousWorker`` (the reference's unified role) feeds the broker's
 requests into a ``ContinuousBatcher`` and answers each one exactly once
 from the batcher's callbacks. Request fields that later slices serve
 (``prefix_token_ids``, ``session_id``, and the ``resume_tokens`` /
 ``preemptions`` of a preempted request) get an error response: such a
-request is never served without them. The prefill / decode roles, the KV
-store, the fleet registry and ``main`` wait for later work.
+request is never served without them.
+
+Both workers stamp ``last_progress_ts`` (the supervisor's watchdog and
+heartbeat read it) and renew the leases they hold every group;
+``ContinuousWorker.load_snapshot`` gives its host-side occupancy. The prefill / decode roles, the KV store, the
+fleet registry, tracing and device telemetry wait for later slices.
+
+``main`` (``llmss-torch-consumer``) serves a checkpoint from a Redis
+broker on one GPU, optionally under the ``Supervisor``; there is no
+tokenizer, so requests carry ``token_ids``.
 """
 
 from __future__ import annotations
@@ -28,8 +35,10 @@ import time
 
 from llmss_tpu_torch.engine.engine import DecodeEngine, GenerationParams
 from llmss_tpu_torch.engine.scheduler import ContinuousBatcher
-from llmss_tpu_torch.serve.broker import InProcBroker
-from llmss_tpu_torch.serve.protocol import GenerateRequest, GenerateResponse
+from llmss_tpu_torch.serve.broker import Broker
+from llmss_tpu_torch.serve.protocol import (
+    STATE_DRAINING, STATE_READY, GenerateRequest, GenerateResponse,
+)
 
 # How long an idle worker blocks on the queue before it looks again.
 POLL_TIMEOUT_S = 0.2
@@ -62,7 +71,7 @@ class Worker:
     def __init__(
         self,
         engine: DecodeEngine,
-        broker: InProcBroker,
+        broker: Broker,
         tokenizer=None,
         batch_size: int = 8,
         chunk_steps: int = 8,
@@ -73,6 +82,20 @@ class Worker:
         self.batch_size = batch_size
         # Decode steps per host round-trip (engine.generate chunking).
         self.chunk_steps = chunk_steps
+        # Once draining, run_once leases nothing; the batch worker holds
+        # requests only inside run_once, so it is drained at once.
+        self.draining = False
+        # Monotonic stamp of the last progress (batch boundaries and every
+        # decode chunk, so a long batch keeps the heartbeat fresh); 0.0
+        # until the first batch.
+        self.last_progress_ts = 0.0
+
+    def begin_drain(self) -> None:
+        self.draining = True
+
+    @property
+    def drained(self) -> bool:
+        return self.draining
 
     def _gather(self) -> list[GenerateRequest]:
         """Block briefly for one request, then drain up to batch_size."""
@@ -89,7 +112,10 @@ class Worker:
 
     def run_once(self) -> int:
         """Serve one batch; returns the number of requests taken."""
+        if self.draining:
+            return 0
         batch = self._gather()
+        self.last_progress_ts = time.monotonic()
         if not batch:
             return 0
         metrics = self.engine.metrics
@@ -133,6 +159,7 @@ class Worker:
         mid_cancelled: set[str] = set()
 
         def cancel_poll():
+            self.last_progress_ts = time.monotonic()
             self.broker.publish_metrics(metrics.to_dict())
             self.broker.touch_requests([r.id for r in ok])
             hits = self.broker.check_cancelled(
@@ -163,6 +190,8 @@ class Worker:
                 )
             self.broker.publish_metrics(metrics.to_dict())
             return len(batch)
+        finally:
+            self.last_progress_ts = time.monotonic()
 
         for row, (req, toks) in enumerate(zip(ok, outs)):
             if req.resume_tokens:
@@ -215,7 +244,7 @@ class ContinuousWorker:
     def __init__(
         self,
         engine: DecodeEngine,
-        broker: InProcBroker,
+        broker: Broker,
         tokenizer=None,
         rows: int = 8,
         chunk_steps: int = 8,
@@ -231,6 +260,22 @@ class ContinuousWorker:
         )
         self._publish_counter = 0
         self.draining = False
+        # Monotonic stamp after every served group; 0.0 until the first,
+        # so the watchdog's clock never runs during build and prewarm.
+        self.last_progress_ts = 0.0
+
+    def load_snapshot(self) -> dict:
+        """The batcher's host-side occupancy and pool headroom with the
+        lifecycle state (consumer.py:522, without the prefix hashes, KV
+        tiers, trace and telemetry blobs); touches no device tensor."""
+        snap = self.batcher.load_snapshot()
+        snap.update({
+            "role": "unified",
+            "state": STATE_DRAINING if self.draining else STATE_READY,
+            "alive": True,
+            "queue_depth": snap.get("pending", 0),
+        })
+        return snap
 
     def prewarm(self, seq_buckets: list[int] | None = None) -> int:
         """Warm the batcher's whole envelope before it serves
@@ -337,6 +382,7 @@ class ContinuousWorker:
             self.batcher.cancel(rid)
         n = 0 if self.draining else self._drain_broker()
         self.batcher.step()
+        self.last_progress_ts = time.monotonic()
         self._publish_counter += 1
         if n or self._publish_counter % 16 == 0:
             self.broker.publish_metrics(self.engine.metrics.to_dict())
@@ -345,3 +391,163 @@ class ContinuousWorker:
     def run_forever(self, stop: threading.Event | None = None) -> None:
         while stop is None or not stop.is_set():
             self.run_once()
+
+
+# Flags of the reference's consumer that belong to later slices: the one
+# value each may keep here, and what the port lacks for the others.
+_ONE_GPU = "the port serves one model on one GPU"
+_LATER_FLAGS = {
+    "role": ("unified", "disaggregated prefill/decode roles need the KV "
+                        "handoff channel"),
+    "worker_id": (None, "a fleet identity needs the worker registry and "
+                        "routed queues"),
+    "kv_tier_host_mb": (None, "the tiered KV store is not ported"),
+    "tp": (1, _ONE_GPU),
+    "dp": (1, _ONE_GPU),
+    "sp": (1, _ONE_GPU),
+}
+
+
+def _parser():
+    import argparse
+
+    parser = argparse.ArgumentParser("llmss-torch-consumer")
+    parser.add_argument("--pretrained_model_path", required=True)
+    parser.add_argument("--batch_size", type=int, default=8,
+                        help="batch worker: requests per batch; continuous: "
+                             "rows")
+    parser.add_argument("--continuous", action="store_true",
+                        help="continuous batching (requests join the running "
+                             "batch each group) instead of batch-at-a-time")
+    parser.add_argument("--max_seq_len", type=int, default=None)
+    parser.add_argument("--chunk_steps", type=int, default=8,
+                        help="decode steps per host round-trip")
+    parser.add_argument("--group_chunks", type=int, default=1,
+                        help="continuous only: chunks per dispatched group "
+                             "while busy")
+    parser.add_argument("--dtype", type=str, default="bfloat16")
+    parser.add_argument("--kv_dtype", type=str, default=None,
+                        choices=[None, "int8"],
+                        help="int8 = quantized KV cache")
+    parser.add_argument("--kv_layout", choices=["dense", "paged"],
+                        default="dense")
+    parser.add_argument("--chunked_prefill", type=int, default=None,
+                        help="continuous only: admit prompts through the "
+                             "ragged mixed batch, this many tokens per step; "
+                             "requires --kv_layout paged")
+    parser.add_argument("--redis_host", default="localhost")
+    parser.add_argument("--redis_port", type=int, default=6379)
+    parser.add_argument("--lease_s", type=float, default=60.0,
+                        help="lease visibility timeout: an un-acked lease "
+                             "older than this is redelivered")
+    parser.add_argument("--max_delivery_attempts", type=int, default=3,
+                        help="deliveries before a request is dead-lettered")
+    parser.add_argument("--supervise", action="store_true",
+                        help="run under the crash-restart supervisor")
+    parser.add_argument("--max_restarts", type=int, default=None)
+    parser.add_argument("--step_timeout_s", type=float, default=None,
+                        help="supervised: escalate a loop with no progress "
+                             "for this long as a crash (default: off)")
+    parser.add_argument("--drain_timeout_s", type=float, default=30.0,
+                        help="SIGTERM drain deadline: past it, pending "
+                             "requests are released and active rows abort")
+    parser.add_argument("--device", type=str, default="cuda")
+    # Accepted so that the refusal names what is missing.
+    parser.add_argument("--role", default=None)
+    parser.add_argument("--worker_id", default=None)
+    parser.add_argument("--kv_tier_host_mb", type=float, default=None)
+    parser.add_argument("--tp", type=int, default=None)
+    parser.add_argument("--dp", type=int, default=None)
+    parser.add_argument("--sp", type=int, default=None)
+    return parser
+
+
+def main(argv=None):
+    """``llmss-torch-consumer``: serve a checkpoint from the Redis broker
+    (consumer.py:1036, for one GPU). The worker factory prewarms, so a
+    supervised restart comes up with its graphs captured. SIGTERM drains;
+    a second SIGTERM ends the drain at once (pending requests released,
+    active rows aborted)."""
+    import signal
+
+    parser = _parser()
+    args = parser.parse_args(argv)
+    for flag, (keep, why) in _LATER_FLAGS.items():
+        if getattr(args, flag) not in (None, keep):
+            parser.error(f"--{flag} is not served by the torch port yet: {why}")
+    if args.chunked_prefill is not None:
+        if not args.continuous:
+            parser.error("--chunked_prefill requires --continuous")
+        if args.kv_layout != "paged":
+            parser.error("--chunked_prefill requires --kv_layout paged")
+
+    from llmss_tpu_torch.models.registry import load_model
+    from llmss_tpu_torch.serve.broker import RedisBroker
+
+    cfg, params = load_model(args.pretrained_model_path, device=args.device,
+                             dtype=args.dtype)
+    engine = DecodeEngine(
+        cfg, params, device=args.device, kv_dtype=args.kv_dtype,
+        kv_layout=args.kv_layout,
+        max_seq_len=args.max_seq_len or cfg.max_position_embeddings,
+    )
+    broker = RedisBroker(args.redis_host, args.redis_port,
+                         lease_s=args.lease_s,
+                         max_delivery_attempts=args.max_delivery_attempts)
+
+    def make_worker():
+        if args.continuous:
+            w = ContinuousWorker(
+                engine, broker, rows=args.batch_size,
+                chunk_steps=args.chunk_steps, group_chunks=args.group_chunks,
+                chunked_prefill=args.chunked_prefill,
+            )
+        else:
+            w = Worker(engine, broker, batch_size=args.batch_size,
+                       chunk_steps=args.chunk_steps)
+        t0 = time.monotonic()
+        n = w.prewarm()
+        logger.info("prewarmed %d programs in %.1fs", n, time.monotonic() - t0)
+        return w
+
+    print("consumer serving"
+          + (" (continuous batching)" if args.continuous else "")
+          + (" (supervised)" if args.supervise else ""), flush=True)
+    if args.supervise:
+        from llmss_tpu_torch.serve.supervisor import Supervisor
+
+        sup = Supervisor(make_worker, broker, max_restarts=args.max_restarts,
+                         step_timeout_s=args.step_timeout_s,
+                         drain_timeout_s=args.drain_timeout_s)
+
+        def on_sigterm(signum, frame):
+            if sup.draining:
+                logger.warning("SIGTERM again: ending the drain now")
+                sup.drain(timeout_s=0.0)
+            else:
+                logger.info("SIGTERM: draining (deadline %.0fs)",
+                            args.drain_timeout_s)
+                sup.drain()
+
+        previous = signal.signal(signal.SIGTERM, on_sigterm)
+        try:
+            sup.run()
+        finally:
+            signal.signal(signal.SIGTERM, previous)
+    else:
+        w = make_worker()
+
+        def on_sigterm(signum, frame):
+            logger.info("SIGTERM: draining (unsupervised)")
+            w.begin_drain()
+
+        previous = signal.signal(signal.SIGTERM, on_sigterm)
+        try:
+            while not w.drained:
+                w.run_once()
+        finally:
+            signal.signal(signal.SIGTERM, previous)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,11 +1,15 @@
 """Boundaries of the torch port: it imports nothing of JAX or of the JAX
-package, nor ``transformers`` or ``safetensors`` (the GPU machine has
-neither), its entry points default to the GPU and raise without one, a
-CUDA request never falls back to the plain CPU versions, and a model
-whose head dim no kernel takes is refused on the GPU at construction."""
+package, nor ``transformers``, ``safetensors`` or ``fastapi`` (the GPU
+machine has none of them), and loads ``redis`` only when a RedisBroker is
+built without a client; its entry points default to the GPU and raise
+without one, a CUDA request never falls back to the plain CPU versions,
+and a model whose head dim no kernel takes is refused on the GPU at
+construction."""
 
 import ast
 import dataclasses
+import subprocess
+import sys
 from pathlib import Path
 
 import pytest
@@ -48,8 +52,27 @@ def _imported_roots(path: Path) -> set[str]:
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_port_imports_no_jax(path):
     bad = _imported_roots(path) & {"jax", "jaxlib", "llmss_tpu", "flax",
-                                   "transformers", "safetensors"}
+                                   "transformers", "safetensors", "fastapi"}
     assert not bad, f"{path} imports {bad}"
+
+
+def test_port_modules_leave_redis_unloaded():
+    """Every module of the port, imported in a fresh interpreter, leaves
+    ``redis`` out of ``sys.modules``: only ``RedisBroker.__init__`` imports
+    it, and only when it is given no client."""
+    mods = sorted(".".join(p.relative_to(ROOT).with_suffix("").parts)
+                  for p in (ROOT / "llmss_tpu_torch").rglob("*.py"))
+    mods = [m.removesuffix(".__init__") for m in mods]
+    code = ("import importlib, sys\n"
+            f"for m in {mods!r}:\n"
+            "    importlib.import_module(m)\n"
+            "print(len(sys.modules), 'redis' in sys.modules)")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, timeout=120,
+                         capture_output=True, text=True)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split()[-1] == "False", out.stdout
+    assert {"llmss_tpu_torch.serve.producer",
+            "llmss_tpu_torch.serve.supervisor"} <= set(mods)
 
 
 @pytest.fixture
@@ -88,6 +111,14 @@ def test_cli_defaults_to_gpu(no_gpu, tmp_path):
     (tmp_path / "config.json").write_text('{"model_type": "llama"}')
     with pytest.raises(RuntimeError, match="CUDA"):
         main(["--pretrained_model_path", str(tmp_path), "--token_ids", "1,2"])
+
+
+def test_consumer_main_defaults_to_gpu(no_gpu, tmp_path):
+    from llmss_tpu_torch.serve.consumer import main
+
+    (tmp_path / "config.json").write_text('{"model_type": "llama"}')
+    with pytest.raises(RuntimeError, match="CUDA"):
+        main(["--pretrained_model_path", str(tmp_path), "--continuous"])
 
 
 def test_kernel_wrappers_take_cuda_tensors_only():
