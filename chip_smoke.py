@@ -36,6 +36,10 @@ exits non-zero without printing a result:
    reference_paged -- the same through the continuous batcher over the
               paged pool, with split admission and with chunked prefill;
    reference_int8 -- the same, dense and paged, over int8 caches;
+   reference_prefix -- shared-prefix reuse on the same model:
+              ``generate(prefix=)``, and the batcher with copy-on-write
+              prefix blocks (split, chunked; fp32 and int8): card tokens
+              equal the CPU's, and on fp32 the tokens without the prefix;
    reference_families -- the same for a tiny fp32 model of every family
               of the registry (GPT-J, GPT-BigCode, GPT-2, Llama, Mistral,
               Qwen2, GPT-NeoX, Phi-3 with LongRoPE on both sides of its
@@ -47,9 +51,12 @@ exits non-zero without printing a result:
               every decode step graph, then grouped decode (chunk_steps=8,
               one sampled row) twice with identical tokens, greedy
               chunk_steps=1, and ``generate_fused`` (greedy and sampled)
-              with generate's tokens, all with no new graph capture; the
-              launch counters must rise by n_layers per prefill (K1) and
-              per decode step replayed (K2);
+              with generate's tokens, then ``generate(prefix=)`` of a
+              512-token prefix (K1 at q0 512) beside the same prompts from
+              scratch (equal-token share, first-token logits within 5%),
+              all with no new graph capture; the launch counters must rise
+              by n_layers per prefill (K1) and per decode step replayed
+              (K2);
    profile -- one prefill, and one 8-step decode chunk by graph replays
               beside the same steps run eagerly from the same state (same
               tokens): wall, host enqueue, device kernel time, idle share,
@@ -71,6 +78,12 @@ exits non-zero without printing a result:
               end's cost against the in-process pass;
    profile -- one paged decode group (graph replays beside the eager
               steps, same tokens) and one ragged group (eager);
+   serve_prefix -- 16 requests on one 600-token system prompt through
+              prewarmed ContinuousWorkers: without the hint, with
+              ``prefix_token_ids`` (split; chunked twice, same tokens),
+              then an eviction; per pass wall, tokens/s, TTFT, K1 / K4
+              prompt tokens, peak blocks and rows, launches; 37 blocks
+              held once idle, 0 after the eviction;
    int8    -- the engine's generate (prewarmed, no capture after) and one
               chunked serving pass (a 496-block int8 pool) on int8 caches
               at Llama-2-7B width: cache bytes against bf16's (<= 0.52x),
@@ -513,6 +526,19 @@ def _unsplit(row, fn, check) -> None:
 
 ENGINE_LENS = [128, 100, 77, 128]  # the engine phase's prompts
 SERVE_CTX = [700, 45, 300, 812, 128, 33, 560, 400]  # its serve decode rows
+# The engine phase's shared prefix (a 512-slot segment) and its prompts'
+# suffixes: the suffix prefill runs K1 at q0 512, bucket 128, ring 1024.
+ENGINE_PREFIX = 512
+PREFIX_SUFFIXES = [16, 100, 57, 83]
+# The serve_prefix phase: a 600-token system prompt (37 full blocks of 16
+# and an 8-token tail) and 16 suffixes of 16-96 tokens from seed 12; K3's
+# rows 32 steps into decode (the 768-slot bucket: 48 columns), K4's step
+# with three rows feeding prefix tail + suffix from slot 592 beside five
+# decode rows, every table's first 37 columns the same blocks.
+SYSTEM_LEN, SHARED_BLOCKS = 600, 37
+PREFIX_K3_CTX = [698, 721, 721, 674, 710, 682, 724, 695]
+PREFIX_K4_CTX = [592, 592, 592, 674, 710, 682, 724, 695]
+PREFIX_K4_QLEN = [74, 97, 97, 1, 1, 1, 1, 1]
 
 
 def k1_cases() -> list[dict]:
@@ -544,6 +570,10 @@ def k1_cases() -> list[dict]:
                  seed=7, D=256),
         _k1_case("k1_starcoder_prefill", 4, 128, 1024, 48, 1,
                  lens=ENGINE_LENS, seed=8),
+        # The engine phase's suffix prefill over the seeded ring: queries
+        # at 512..639 (pads at -1) over 512 seeded slots.
+        _k1_case("k1_engine_prefix_suffix", 4, 128, 1024, 32, 32,
+                 lens=PREFIX_SUFFIXES, q0=ENGINE_PREFIX, seed=9),
     ]
 
 
@@ -658,10 +688,12 @@ def check_kernels() -> dict:
         out.setdefault("K1", row)
         out.setdefault("cases", {})[c["name"]] = row
         if c["name"] in ("k1_engine_prefill", "k1_7b_padded",
-                         "k1_gptj_prefill", "k1_starcoder_prefill"):
+                         "k1_gptj_prefill", "k1_starcoder_prefill",
+                         "k1_engine_prefix_suffix"):
             _main_path_impl("K1", row)
         if c["name"] in ("k1_engine_prefill", "k1_7b_padded", "k1_7b_long",
-                         "k1_gptj_prefill", "k1_starcoder_prefill"):
+                         "k1_gptj_prefill", "k1_starcoder_prefill",
+                         "k1_engine_prefix_suffix"):
             out.setdefault("vs_library", {})[c["name"]] = (
                 row["ms"], row["library_ms"])
         emit(row)
@@ -753,11 +785,14 @@ def check_kernels() -> dict:
 
 
 def _paged_case(name, B, Hq, Hkv, ctx, qlens, CB, *, n_cols=None, window=None,
-                seed=0, L=2, D=128, bs=16, MB=64, dt=torch.bfloat16, kv=None):
+                seed=0, L=2, D=128, bs=16, MB=64, dt=torch.bfloat16, kv=None,
+                shared=0):
     """Attention over layer L-1 of a block pool for rows whose histories
     are positions 0..ctx[b]-1 (ring order), each with a CB-token chunk of
     which qlens[b] are live, starting at position ctx[b]. Each row's blocks
     are scattered over the pool; table columns past them are sentinels.
+    ``shared``: the first ``shared`` columns of every row hold the same
+    blocks (a shared prefix's), which no pending slot may fall in.
     Every pending slot that still holds a visible old position (the chunk
     overwrites it on a ring wrap) gets a key 4x the group's first query
     head at that query and values of 8: a kernel that kept it would miss
@@ -765,15 +800,16 @@ def _paged_case(name, B, Hq, Hkv, ctx, qlens, CB, *, n_cols=None, window=None,
     rng = np.random.default_rng(seed)
     g = torch.Generator(device="cuda").manual_seed(seed)
     dev, ring = "cuda", MB * bs
-    need = [MB if c + q > ring else max(1, -(-(c + q) // bs))
-            for c, q in zip(ctx, qlens)]
-    N = sum(need) + 3
+    own = [(MB if c + q > ring else max(1, -(-(c + q) // bs))) - shared
+           for c, q in zip(ctx, qlens)]
+    N = shared + sum(own) + 3
     perm = rng.permutation(N)
     bt = np.full((B, MB), N, np.int32)
-    k = 0
-    for b, n in enumerate(need):
-        bt[b, :n] = perm[k:k + n]
-        bt[b, n:] = N + b  # sentinels (>= N)
+    bt[:, :shared] = perm[:shared]
+    k = shared
+    for b, n in enumerate(own):
+        bt[b, shared:shared + n] = perm[k:k + n]
+        bt[b, shared + n:] = N + b  # sentinels (>= N)
         k += n
     kvp = _ring_positions(B, ring, ctx)
     kp = torch.randn(L, N + 1, bs, Hkv, D, generator=g, device=dev, dtype=dt)
@@ -786,6 +822,8 @@ def _paged_case(name, B, Hq, Hkv, ctx, qlens, CB, *, n_cols=None, window=None,
     for b in range(B):
         for i in range(qlens[b]):
             t = (ctx[b] + i) % ring
+            if t < shared * bs:
+                raise ValueError(f"{name}: a pending slot in a shared block")
             if kvp[b, t] >= 0:
                 blk = bt[b, t // bs]
                 kp[L - 1, blk, t % bs] = 4 * q[b, i, ::G]
@@ -798,7 +836,8 @@ def _paged_case(name, B, Hq, Hkv, ctx, qlens, CB, *, n_cols=None, window=None,
         vp=vp, kn=kn, vn=vn, qpos=T(np.asarray(ctx, np.int32)),
         qlen=T(np.asarray(qlens, np.int32)), kvp=T(kvp), bt=T(bt),
         nblk=T(nblk), slot0=T(np.asarray(ctx, np.int32) % ring),
-        layer=L - 1, n_cols=n_cols, window=window, planted=planted), "kp", "vp")
+        layer=L - 1, n_cols=n_cols, window=window, planted=planted,
+        shared=shared), "kp", "vp")
 
 
 def k3_cases(int8: bool = True) -> list[dict]:
@@ -848,6 +887,10 @@ def k3_cases(int8: bool = True) -> list[dict]:
                     [1500, 0, 2047, 77], [1] * 4, 1, seed=23),
         _paged_case("k3_starcoder_first_split_only", 4, 48, 1,
                     [1000, 60, 0, 30], [1] * 4, 1, seed=24),
+        # The serve_prefix phase's decode: 8 rows whose tables share the
+        # system prompt's 37 blocks.
+        _paged_case("k3_serve_prefix_shared", 8, 32, 32, PREFIX_K3_CTX,
+                    [1] * 8, 1, n_cols=48, shared=SHARED_BLOCKS, seed=25),
     ]
     return cases + ([
         # The int8 pool: the int8 serve phase's decode first, then wrapped
@@ -908,6 +951,11 @@ def k4_cases(int8: bool = True) -> list[dict]:
         _paged_case("k4_starcoder_serve_mixed", 8, 48, 1,
                     [0, 128, 256, 400, 700, 33, 812, 512],
                     [128, 128, 37, 1, 1, 1, 1, 1], 128, seed=21),
+        # The serve_prefix phase's chunked step: three rows feed the
+        # prefix's tail and their suffix from slot 592 over the 37 shared
+        # blocks, beside five decode rows over the same blocks.
+        _paged_case("k4_serve_prefix_shared", 8, 32, 32, PREFIX_K4_CTX,
+                    PREFIX_K4_QLEN, 128, shared=SHARED_BLOCKS, seed=26),
     ]
     return cases + ([
         # The int8 pool (bf16 queries: the tensor-core tile over int8
@@ -991,7 +1039,12 @@ def _paged_row(kernel, c, fn, ref_fn, lib_fn, unsplit_fn=None, forced_fn=None):
                           sms=_build.sm_count(c["q"].device),
                           kv_dtype=c["kp"].dtype)
     live_q = int(c["qlen"].sum().item())
-    slots = int(mask.any(1).sum().item())
+    # Visible pool slots, each counted once however many rows' tables
+    # share its block.
+    Tv = mask.shape[2]
+    t = torch.arange(Tv, device=mask.device)
+    phys = c["bt"][:, t // bs].long() * bs + (t % bs)[None, :]
+    slots = int(torch.unique(phys[mask.any(1)]).numel())
     pairs = int(mask.sum().item()) + int(fresh.sum().item())
     # A visible slot's K and V rows (and, int8, their fp32 scales).
     slot_bytes = D * c["kp"].element_size() + (4 if c["ks"] is not None else 0)
@@ -1004,6 +1057,7 @@ def _paged_row(kernel, c, fn, ref_fn, lib_fn, unsplit_fn=None, forced_fn=None):
                    else 1 for n in c["nblk"].tolist()]
     row = {"phase": "kernel", "kernel": kernel, "case": c["name"],
            "kv": str(c["kp"].dtype).removeprefix("torch."),
+           **({"shared_cols": c["shared"]} if c["shared"] else {}),
            "impl": plan.impl, "splits": plan.splits,
            "split_slots": plan.split_slots, "live_splits": live_splits,
            "max_abs_err": err, "rel_tol": REL_TOL[dt],
@@ -1126,7 +1180,8 @@ def check_paged_kernels(out: dict) -> None:
         if c["ks"] is not None:
             _main_path_impl("K4", row, "mma_int8" if c["q"].dtype
                             == torch.bfloat16 else "lanes_int8")
-        if c["name"] in ("k4_gptj_serve_mixed", "k4_starcoder_serve_mixed"):
+        if c["name"] in ("k4_gptj_serve_mixed", "k4_starcoder_serve_mixed",
+                         "k4_serve_prefix_shared"):
             _main_path_impl("K4", row)
         worst[c["row"]] = max(worst.get(c["row"], 0.0), row["max_abs_err"])
         out.setdefault(c["row"], row)
@@ -1138,7 +1193,8 @@ def check_paged_kernels(out: dict) -> None:
         out["vs_library"][out[name]["case"]] = (out[name]["ms"],
                                                 out[name]["library_ms"])
     for name in ("k3_starcoder_serve_decode", "k3_int8_starcoder_serve_decode",
-                 "k4_ring_wrap"):
+                 "k4_ring_wrap", "k3_serve_prefix_shared",
+                 "k4_serve_prefix_shared"):
         row = out["cases"][name]
         out["vs_library"][name] = (row["ms"], row["library_ms"])
     # A measurement, not a pass condition: kernel times vary by card.
@@ -1297,6 +1353,88 @@ def phase_reference_paged(kv_dtype=None) -> None:
                 f"paged batcher on the card {got} != CPU plain path {want}")
         if k3 == 0 or (chunked and k4 == 0):
             raise AssertionError("the paged kernels were not launched")
+
+
+def phase_reference_prefix() -> None:
+    """Shared-prefix reuse on the tiny fp32 llama: ``generate(prefix=)``
+    over the dense ring, and the continuous batcher over the paged pool
+    (split admission: K1 over rows whose first two table entries are the
+    prefix's shared blocks, then K3; chunked: K4 feeding from slot 32,
+    then K3), also over an int8 pool. Tokens through the kernels on the
+    card equal the plain path's on the CPU; on fp32 they also equal the
+    tokens without the prefix; once idle the pool holds only the prefix's
+    full blocks."""
+    from llmss_tpu_torch.engine.engine import DecodeEngine, GenerationParams
+    from llmss_tpu_torch.engine.scheduler import ContinuousBatcher
+    from llmss_tpu_torch.models.decoder import init_params
+    from llmss_tpu_torch.ops import decode_attention as da
+    from llmss_tpu_torch.ops import flash_attention as fa
+    from llmss_tpu_torch.ops import paged_attention as pa
+
+    cfg = _tiny_llama()
+    cpu_params = init_params(cfg, seed=6, device="cpu")
+    gpu_params = _to(cpu_params, "cuda")
+    rng = np.random.default_rng(6)
+    head = [int(t) for t in rng.integers(1, 512, 40)]  # 2 blocks + 8
+    prompts = [head + [int(t) for t in rng.integers(1, 512, n)]
+               for n in (5, 30, 1, 17, 9, 24)]
+    news = (16, 9, 12, 20, 6, 14)
+
+    def dense(params, device, use_prefix):
+        eng = DecodeEngine(cfg, params, device=device, max_seq_len=128)
+        pfx = eng.build_prefix(head) if use_prefix else None
+        return eng.generate(prompts[:3], GenerationParams(max_new_tokens=16),
+                            chunk_steps=4, prefix=pfx)
+
+    def batcher(params, device, use_prefix, chunked, kv_dtype):
+        eng = DecodeEngine(cfg, params, device=device, max_seq_len=128,
+                           kv_layout="paged", block_size=16, kv_dtype=kv_dtype)
+        bat = ContinuousBatcher(eng, rows=4, chunk_steps=4, group_chunks=2,
+                                chunked_prefill=16 if chunked else None)
+        pfx = eng.build_prefix(head) if use_prefix else None
+        out = {}
+        for i, (p, n) in enumerate(zip(prompts, news)):
+            bat.submit(p, GenerationParams(max_new_tokens=n),
+                       lambda t, *a, i=i, **k: out.__setitem__(i, t),
+                       prefix=pfx)
+        bat.run_until_idle()
+        held = 2 if use_prefix else 0
+        if bat.allocator.blocks_in_use != held:
+            raise AssertionError(f"{bat.allocator.blocks_in_use} blocks in "
+                                 f"use once idle, want {held}")
+        return [out[i] for i in range(len(prompts))]
+
+    runs = [("dense", "float32", dense, ())]
+    for kv in (None, "int8"):
+        for chunked in (False, True):
+            runs.append(("paged_chunked_prefill=16" if chunked
+                         else "paged_split", kv or "float32", batcher,
+                         (chunked, kv)))
+    for layout, kv, fn, extra in runs:
+        want = fn(cpu_params, "cpu", True, *extra)
+        for f in (fa.flash_attention, da.decode_attention,
+                  pa.paged_decode_attention, pa.ragged_paged_attention):
+            f.launches = 0
+        got = fn(gpu_params, None, True, *extra)
+        counts = dict(k1=fa.flash_attention.launches,
+                      k2=da.decode_attention.launches,
+                      k3=pa.paged_decode_attention.launches,
+                      k4=pa.ragged_paged_attention.launches)
+        row = {"phase": "reference_prefix", "layout": layout, "kv": kv,
+               "identical": got == want, "launches": counts}
+        if kv == "float32":
+            scratch = fn(gpu_params, None, False, *extra)
+            row["equal_to_scratch"] = got == scratch
+        emit({**row, "tokens": got})
+        if got != want:
+            raise AssertionError(f"prefix {layout} {kv}: card {got} != CPU "
+                                 f"plain path {want}")
+        if not row.get("equal_to_scratch", True):
+            raise AssertionError(f"prefix {layout}: tokens != scratch tokens")
+        used = ("k1", "k2") if layout == "dense" else (
+            ("k4", "k3") if "chunked" in layout else ("k1", "k3"))
+        if not all(counts[k] for k in used):
+            raise AssertionError(f"prefix {layout} {kv}: launches {counts}")
 
 
 def _family_configs() -> dict:
@@ -1565,6 +1703,7 @@ def phase_engine(kernels: dict):
                                new - 1)
     if fused != c or fused_s[3] != a[3]:
         raise AssertionError("generate_fused tokens differ from generate's")
+    prefix_row = _engine_prefix(eng, rng, counted, new)
     captured = len(eng._graphs.keys() - keys)
     if captured:
         raise AssertionError(f"{captured} graph captures after prewarm")
@@ -1586,7 +1725,78 @@ def phase_engine(kernels: dict):
           "graph_captures_after_prewarm": captured,
           "graph_replays": eng.metrics.graph_replays,
           "sampled_row_head": a[3][:8]})
+    emit({**prefix_row, "graph_captures_after_prewarm": captured})
     return eng, {"tokens": a, "cache_bytes": mem["cache_bytes"]}
+
+
+# A bf16 prefix's first-token logits may differ from a prefill from
+# scratch by this share of the largest |logit|: the prefix was computed at
+# batch 1 and the scratch prefill at batch 4, whose matmuls round
+# differently, and the repo holds int8-cache logits to the same 5% of
+# bf16's (tests/test_int8_cache.py).
+PREFIX_LOGITS_REL = 0.05
+
+
+def _engine_prefix(eng, rng, counted, new: int) -> dict:
+    """Shared-prefix reuse on the dense ring at the engine's width: a
+    512-token prefix built once (K1 at batch 1), then 4 prompts of prefix
+    + 16-100 tokens through ``generate(prefix=)`` (K1 over the seeded
+    ring at q0 512, bucket 128; K2 per step) beside the same prompts from
+    scratch. bf16 is not bit-exact across matmul shapes, so this reports
+    the share of equal tokens and holds the first token's logits within
+    PREFIX_LOGITS_REL of scratch's. Returns the row to emit."""
+    from llmss_tpu_torch.engine.engine import GenerationParams
+    from llmss_tpu_torch.ops import flash_attention as fa
+
+    V, L = eng.cfg.vocab_size, eng.cfg.n_layers
+    head = [int(t) for t in rng.integers(1, V, ENGINE_PREFIX)]
+    prompts = [head + [int(t) for t in rng.integers(1, V, n)]
+               for n in PREFIX_SUFFIXES]
+    fa.flash_attention.launches = 0
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    pfx = eng.build_prefix(head)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t
+    if fa.flash_attention.launches != L or pfx.k.shape[1] != ENGINE_PREFIX:
+        raise AssertionError("build_prefix: one prefill of the 512 bucket")
+    gen = GenerationParams(max_new_tokens=new)
+    steps = math.ceil((new - 1) / 8) * 8
+    scratch, wall_s, _, _ = counted(
+        lambda: eng.generate(prompts, gen, chunk_steps=8), steps)
+    ttft_s = eng.metrics.ttft.last_s
+    reused, wall_r, k1, k2 = counted(
+        lambda: eng.generate(prompts, gen, chunk_steps=8, prefix=pfx), steps)
+    ttft_r = eng.metrics.ttft.last_s
+    # The first token's logits both ways, over generate's cache.
+    B = len(prompts)
+    sa = eng._sample_args(gen, B)
+    ids, lens = eng._pad_prompts(prompts)
+    _, lg = eng._prefill(torch.as_tensor(ids, device="cuda"),
+                         eng._generate_cache(B),
+                         torch.as_tensor(lens, device="cuda"), sa)
+    lg = lg.float().clone()
+    cache = eng._generate_cache(B)
+    eng.seed_cache(cache, pfx)
+    ids, lens = eng._pad_prompts([p[ENGINE_PREFIX:] for p in prompts])
+    _, lg_p = eng._prefill(
+        torch.as_tensor(ids, device="cuda"), cache,
+        torch.as_tensor(lens, device="cuda"), sa,
+        torch.full((B,), ENGINE_PREFIX, dtype=torch.int32, device="cuda"))
+    rel = ((lg_p.float() - lg).abs().max() / lg.abs().max()).item()
+    if not math.isfinite(rel) or rel > PREFIX_LOGITS_REL:
+        raise AssertionError(f"prefix first-token logits off by {rel} of max")
+    equal = sum(x == y for r, q in zip(reused, scratch) for x, y in zip(r, q))
+    return {"phase": "engine", "path": "generate(prefix=)",
+            "prefix_tokens": ENGINE_PREFIX, "suffix_lens": PREFIX_SUFFIXES,
+            "new_tokens": new, "build_prefix_s": build_s,
+            "ttft_ms_scratch": ttft_s * 1e3, "ttft_ms_prefix": ttft_r * 1e3,
+            "wall_s_scratch": wall_s, "wall_s_prefix": wall_r,
+            "k1_launches": k1, "k2_launches": k2,
+            "tokens_equal_to_scratch_share": equal / (B * new),
+            "first_token_logits_max_rel_diff": rel,
+            "first_tokens_equal": [r[0] == q[0]
+                                   for r, q in zip(reused, scratch)]}
 
 
 def _graph_memory(eng, caches) -> dict:
@@ -2369,6 +2579,203 @@ def phase_serve_http(eng, want: list, inproc: dict, smi: str) -> None:
         raise AssertionError("the serve_http workers' graphs outlived them")
 
 
+# -- phase 6b, shared prefixes ----------------------------------------------------
+
+
+PREFIX_NEW = 64  # new tokens per serve_prefix request
+
+
+def _prefix_requests(cfg):
+    """The serve_prefix phase's 16 requests: one 600-token system prompt
+    and each its own 16-96-token suffix (seed 12), ``PREFIX_NEW`` new
+    tokens, 12 greedy and 4 top-k/top-p sampled; ``requests(hint)`` makes
+    them anew, with ``prefix_token_ids`` when ``hint``. Returns (the
+    system prompt, the suffix lengths, the prompts, the maker)."""
+    from llmss_tpu_torch.serve.protocol import GenerateRequest
+
+    rng = np.random.default_rng(12)
+    system = [int(t) for t in rng.integers(1, cfg.vocab_size, SYSTEM_LEN)]
+    suf = [int(n) for n in rng.integers(16, 97, 16)]
+    prompts = [system + [int(t) for t in rng.integers(1, cfg.vocab_size, n)]
+               for n in suf]
+
+    def requests(hint: bool, n: int = 16):
+        return [GenerateRequest(
+            token_ids=p, max_new_tokens=PREFIX_NEW,
+            prefix_token_ids=list(system) if hint else None,
+            **(dict(is_greedy=False, temperature=0.8, top_k=40, top_p=0.9,
+                    seed=200 + i) if i >= 12 else {}))
+            for i, p in enumerate(prompts[:n])]
+
+    return system, suf, prompts, requests
+
+
+def _prefix_pass(eng, worker, reqs, steps, prefills, name, blocks_after):
+    """One pass of ``reqs`` through a prewarmed ContinuousWorker: every
+    answer checked, the launch counts against the steps and prefills run
+    (K1 n_layers per prefill, K2 never, K3 per decode step, K4 per ragged
+    step), no graph captured, ``blocks_after`` blocks in use once idle.
+    Returns (row, tokens): wall, tokens/s, TTFT p50 / p90, the prompt
+    tokens K1 and K4 computed, peak blocks in use and live rows."""
+    from llmss_tpu_torch.engine.metrics import EngineMetrics
+    from llmss_tpu_torch.ops import decode_attention as da
+    from llmss_tpu_torch.ops import flash_attention as fa
+    from llmss_tpu_torch.ops import paged_attention as pa
+
+    L = eng.cfg.n_layers
+    bat = worker.batcher
+    split = bat.chunked_prefill is None
+    builds = sum(1 for key in {tuple(r.prefix_token_ids) for r in reqs
+                               if r.prefix_token_ids}
+                 if key not in worker._prefixes)
+    eng.metrics = EngineMetrics()
+    for r in reqs:
+        worker.broker.push_request(r)
+    for f in (fa.flash_attention, da.decode_attention,
+              pa.paged_decode_attention, pa.ragged_paged_attention):
+        f.launches = 0
+    steps.update(decode=0, ragged=0)
+    prefills.clear()
+    answers, peak_blocks, peak_rows = {}, 0, 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    while len(answers) < len(reqs):
+        worker.run_once()
+        peak_blocks = max(peak_blocks, bat.allocator.blocks_in_use)
+        peak_rows = max(peak_rows, len(bat.active))
+        for r in reqs:
+            if r.id not in answers:
+                a = worker.broker.wait_response(r.id, timeout=0.0)
+                if a is not None:
+                    answers[r.id] = a
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(k1=fa.flash_attention.launches,
+                  k2=da.decode_attention.launches,
+                  k3=pa.paged_decode_attention.launches,
+                  k4=pa.ragged_paged_attention.launches)
+    toks = [answers[r.id].token_ids or [] for r in reqs]
+    for i, r in enumerate(reqs):
+        a = answers[r.id]
+        if a.error or len(toks[i]) != PREFIX_NEW or not all(
+                0 <= t < eng.cfg.vocab_size for t in toks[i]):
+            raise AssertionError(f"{name} request {i}: bad answer {a}")
+    if counts["k2"] or counts["k1"] != L * len(prefills) or (
+            counts["k3"] != L * steps["decode"]) or (
+            counts["k4"] != L * steps["ragged"]):
+        raise AssertionError(f"{name}: launches {counts} for steps {steps} "
+                             f"and {len(prefills)} prefills")
+    if eng.metrics.graph_captures:
+        raise AssertionError(f"{name}: a pass captured a graph")
+    if bat.allocator.blocks_in_use != blocks_after:
+        raise AssertionError(f"{name}: {bat.allocator.blocks_in_use} blocks "
+                             f"in use once idle, want {blocks_after}")
+    # K1's live prompt tokens: each prefill's lengths, less the one pad
+    # token of every dummy admission row (the rows past the requests and
+    # the prefix builds).
+    rows = sum(int(lens.numel()) for _, lens in prefills)
+    real = (len(reqs) if split else 0) + builds
+    m = eng.metrics.to_dict()
+    row = {"phase": "serve_prefix", "pass": name,
+           "admission": "split" if split else
+           f"chunked_prefill={bat.chunked_prefill}",
+           "requests": len(reqs), "new_tokens": PREFIX_NEW, "wall_s": wall,
+           "tokens_per_s": sum(map(len, toks)) / wall,
+           "ttft_p50_ms": eng.metrics.ttft.quantile_ms(50),
+           "ttft_p90_ms": eng.metrics.ttft.quantile_ms(90),
+           "prefix_builds": builds,
+           "k1_prompt_tokens": sum(int(lens.sum()) for _, lens in prefills)
+           - (rows - real),
+           "k1_padded_tokens": sum(math.prod(shape) for shape, _ in prefills),
+           "k4_prompt_tokens": m["mixed_batch"]["prefill_tokens_chunked"],
+           "peak_blocks_in_use": peak_blocks, "peak_live_rows": peak_rows,
+           "blocks_in_use_after": blocks_after,
+           "decode_steps": steps["decode"], "ragged_steps": steps["ragged"],
+           "launches": counts, "kv_block_evictions": m["kv_block_evictions"],
+           "kv_evictions_dropped": m["kv_evictions_dropped"],
+           "decode_ms_per_step": m["decode_step"]["mean_ms"],
+           "graph_captures_after_prewarm": 0}
+    return row, toks
+
+
+def phase_serve_prefix(eng) -> None:
+    """Shared-prefix serving at Llama-2-7B width over serve_continuous's
+    engine (bf16, max_seq_len 1024, block_size 16, a 256-block pool),
+    ContinuousWorkers of 8 rows, chunk_steps 8, group_chunks 2, each
+    prewarmed: the 16 ``_prefix_requests`` without the hint (split), then
+    with ``prefix_token_ids`` (split: K1 over suffixes at q0 600 with the
+    37 shared blocks in every table, K3), then with the hint and
+    chunked_prefill=128 (K4 from slot 592, K3) twice (same tokens), then 8
+    hint-less requests that need more blocks than are free: the idle
+    prefix is evicted once. Reports each pass and the share of tokens
+    equal to the hint-less pass's (bf16 is not bit-exact across matmul
+    shapes: a measurement)."""
+    from llmss_tpu_torch.serve.broker import InProcBroker
+    from llmss_tpu_torch.serve.consumer import ContinuousWorker
+
+    steps = _count_steps(eng)
+    prefills = []
+    prefill = eng._prefill
+
+    def counted_prefill(ids, cache, lens, sa, start=None):
+        prefills.append((tuple(ids.shape), lens))
+        return prefill(ids, cache, lens, sa, start)
+
+    eng._prefill = counted_prefill
+    system, suf, prompts, requests = _prefix_requests(eng.cfg)
+    workers, warm = {}, {}
+    for chunked in (False, True):
+        w = workers[chunked] = ContinuousWorker(
+            eng, InProcBroker(), rows=8, chunk_steps=8, group_chunks=2,
+            chunked_prefill=128 if chunked else None)
+        t = time.perf_counter()
+        warm[chunked] = {"prewarm": w.prewarm(prefix_prefill=True),
+                         "prewarm_s": time.perf_counter() - t}
+    keys = eng._graphs.keys()
+    emit({"phase": "serve_prefix", "prewarmed_workers": 2,
+          "system_prompt_tokens": SYSTEM_LEN, "suffix_lens": suf,
+          "shared_full_blocks": SYSTEM_LEN // 16,
+          "prewarm": {("chunked" if k else "split"): v
+                      for k, v in warm.items()}})
+
+    def run(chunked, hint, name, blocks_after, reqs=None):
+        return _prefix_pass(eng, workers[chunked], reqs or requests(hint),
+                            steps, prefills, name, blocks_after)
+
+    plain, plain_t = run(False, False, "no_hint_split", 0)
+    emit(plain)
+    hinted, hint_t = run(False, True, "hint_split", SHARED_BLOCKS)
+    chunk, chunk_t = run(True, True, "hint_chunked", SHARED_BLOCKS)
+    again, again_t = run(True, True, "hint_chunked_repeat", SHARED_BLOCKS)
+    n_tok = sum(map(len, plain_t))
+    for row, toks in ((hinted, hint_t), (chunk, chunk_t), (again, again_t)):
+        row["tokens_equal_to_no_hint_share"] = sum(
+            x == y for a, b in zip(toks, plain_t) for x, y in zip(a, b)) / n_tok
+        emit(row)
+    if again_t != chunk_t:
+        raise AssertionError("a repeat of the chunked prefix pass gave "
+                             "other tokens")
+    bat = workers[True].batcher
+    free = bat.allocator.free_blocks
+    need = sum(-(-(len(p) + PREFIX_NEW) // 16) for p in prompts[:8])
+    evict, _ = run(True, False, "evict_no_hint_chunked", 0,
+                   requests(False, 8))
+    evict.update(free_blocks_before=free, blocks_needed=need,
+                 allocator_evictions=bat.allocator.evictions)
+    emit(evict)
+    if need <= free or (evict["kv_block_evictions"],
+                        evict["kv_evictions_dropped"],
+                        bat.allocator.evictions) != (1, 1, 1):
+        raise AssertionError(f"eviction: {evict}")
+    if eng._graphs.keys() != keys:
+        raise AssertionError("a prefix pass captured a graph")
+    emit({"phase": "serve_prefix", "check": "chunked_prefix_pass_repeats",
+          "identical": True, "prefix_hashes": workers[True].load_snapshot()[
+              "prefix_hashes"]})
+    del eng._prefill, workers, w, bat
+    gc.collect()
+
+
 def phase_profile_paged(eng, tag: str = "") -> None:
     """Where the time goes on the serving path: one paged decode group
     (2 chunks x 8 steps) by graph replays and eagerly, and one ragged group
@@ -2983,6 +3390,7 @@ def main() -> int:
     phase_reference()
     phase_reference_paged()
     phase_reference_int8()
+    phase_reference_prefix()
     phase_reference_families()
     eng, bf16 = phase_engine(kernels)
     phase_profile(eng)
@@ -2994,6 +3402,7 @@ def main() -> int:
                                                                 kernels)
     phase_serve_http(peng, bf16["serve_tokens"], inproc, smi)
     phase_profile_paged(peng)
+    phase_serve_prefix(peng)
     del peng
     gc.collect()
     torch.cuda.empty_cache()

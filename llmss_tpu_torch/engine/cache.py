@@ -1,6 +1,7 @@
 """KV caches (counterpart: llmss_tpu/engine/cache.py): the dense ring
 (:32-173) and the paged block pool with its host ``BlockAllocator``
-(:176-557).
+(:176-557), and ``seed_blocks``, which writes a shared prefix's full
+blocks into the pool once.
 
 A fixed ``[L, B, T, Hkv, D]`` buffer per K and V; each token's KV goes to
 slot ``position % T`` and a per-slot ``positions`` array (-1 = empty) both
@@ -326,6 +327,24 @@ def paged_write_stacked(
     _pool_put(pool, idx, new, block_size)
 
 
+def seed_blocks(cache: PagedKVCache, prefix, block_ids: torch.Tensor) -> None:
+    """Materialize a prefix's full blocks in the pool, in place (the
+    reference's ``_seed_blocks_impl``, scheduler.py:370): the first
+    ``nf * bs`` tokens of ``prefix``'s segment (k, v and, int8, their
+    scales, as stored), block by block, at ``block_ids`` [nf]. Rows
+    reference these blocks through their tables and never write them."""
+    bs = cache.block_size
+    nf = block_ids.shape[0]
+    idx = block_ids.long()
+    for pool, seg in ((cache.k, prefix.k), (cache.v, prefix.v),
+                      (cache.k_scale, prefix.k_scale),
+                      (cache.v_scale, prefix.v_scale)):
+        if pool is not None:
+            seg = seg[:, : nf * bs]
+            pool[:, idx] = seg.reshape(
+                (seg.shape[0], nf, bs) + tuple(seg.shape[2:])).to(pool.dtype)
+
+
 def paged_write_layer(
     pool: torch.Tensor, layer: int, new: torch.Tensor, block_tables,
     slots, block_size: int, scale: torch.Tensor | None = None,
@@ -363,6 +382,8 @@ class BlockAllocator:
         self._lock = threading.Lock()
         self._free_list = list(range(num_blocks - 1, -1, -1))  # guarded_by: self._lock
         self._refs: dict[int, int] = {}  # guarded_by: self._lock
+        # Idle shared-prefix block sets reclaimed (the batcher's count).
+        self.evictions = 0  # guarded_by: self._lock
 
     @property
     def free_blocks(self) -> int:
@@ -421,3 +442,7 @@ class BlockAllocator:
             cur = cur + 1 if b == a + 1 else 1
             best = max(best, cur)
         return best
+
+    def record_evictions(self, n: int) -> None:
+        with self._lock:
+            self.evictions += n

@@ -31,21 +31,28 @@ scales (engine/cache.py): half the KV bytes, so twice the rows or the
 context on a card. Every path above runs on it unchanged; the kernels fold
 the scales in (models/decoder.py).
 
-Not in this port yet: prefix reuse (``build_prefix``) and speculative
-decoding.
+Shared-prefix reuse: ``build_prefix`` prefills a shared prompt prefix
+once and keeps its KV as a ``Prefix``; ``generate(prefix=)`` seeds every
+row's first slots from it (``seed_cache``) and prefills only each prompt's
+suffix at positions ``P...`` with draw counters ``P + len``, so the tokens
+are those of a prefill from scratch. The continuous batcher shares the
+prefix's full blocks across rows (engine/scheduler.py).
+
+Not in this port yet: speculative decoding.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from llmss_tpu_torch.device import resolve_device
 from llmss_tpu_torch.engine.cache import (
-    KVCache, PagedKVCache, init_cache, init_paged_cache,
+    KVCache, PagedKVCache, init_cache, init_paged_cache, paged_write_stacked,
 )
 from llmss_tpu_torch.engine.graphs import (
     SAMPLING_VARIANTS, DecodeGraphs, StepBuffers,
@@ -57,6 +64,25 @@ from llmss_tpu_torch.models.decoder import (
 )
 from llmss_tpu_torch.ops._build import check_head_dim
 from llmss_tpu_torch.ops.sampling import fold_step_outcome, sample
+
+
+class Prefix(NamedTuple):
+    """The retained KV of a shared prompt prefix (a system prompt, earlier
+    turns of a session), built once by ``DecodeEngine.build_prefix``
+    (engine.py:49). Requests that start with ``tokens`` seed their rows
+    from it and prefill only their suffix. ``k`` / ``v`` keep the prefill
+    bucket's padded length ``Pb``; an int8 engine keeps them quantized,
+    with their scales, so every reuse seeds the same bits."""
+
+    tokens: tuple[int, ...]  # the prefix token ids (host, for matching)
+    k: torch.Tensor  # [L, Pb, Hkv, D] on the engine's device (int8 if int8)
+    v: torch.Tensor
+    k_scale: torch.Tensor | None  # [L, Pb, Hkv] fp32 iff int8
+    v_scale: torch.Tensor | None
+
+    @property
+    def length(self) -> int:
+        return len(self.tokens)
 
 
 @dataclasses.dataclass
@@ -309,14 +335,20 @@ class DecodeEngine:
     # -- device steps -----------------------------------------------------------
 
     @torch.inference_mode()
-    def _prefill(self, ids, cache, prompt_lens, sample_args):
-        """Prefill right-padded prompts from position 0; pad columns are
-        recorded with position -1 so no later step attends them. Returns
-        (first token [B], its logits [B, V])."""
+    def _prefill(self, ids, cache, prompt_lens, sample_args, start=None):
+        """Prefill right-padded prompts; pad columns are recorded with
+        position -1 so no later step attends them. ``start`` ([B] int32)
+        offsets the positions: a prefix-reused request prefills only its
+        suffix, at ``[start, start + len)``, over rows whose first
+        ``start`` slots were seeded (``seed_cache``); ``prompt_lens`` is
+        then the suffix length. Returns (first token [B], its logits
+        [B, V])."""
         B, S = ids.shape
-        rel = torch.arange(S, dtype=torch.int32, device=ids.device)
-        positions = rel[None, :].expand(B, S)
-        valid = positions < prompt_lens[:, None]
+        rel = torch.arange(S, dtype=torch.int32, device=ids.device)[None, :]
+        off = (torch.zeros(B, dtype=torch.int32, device=ids.device)
+               if start is None else start)
+        positions = off[:, None] + rel
+        valid = rel < prompt_lens[:, None]
         slots = positions % cache.max_len
         kv_pos = torch.where(valid, positions, -1)
         logits, _ = forward(
@@ -324,9 +356,10 @@ class DecodeEngine:
             gather_idx=prompt_lens - 1, kv_write_positions=kv_pos,
             layers=self._layers,
         )
-        # The sampled token sits at absolute position prompt_len: that
-        # position is the row's draw counter.
-        tok = sample(logits[:, 0], counters=prompt_lens, **sample_args)
+        # The sampled token sits at absolute position start + prompt_len:
+        # that position is the row's draw counter, so a seeded request
+        # draws the tokens it would draw prefilled from scratch.
+        tok = sample(logits[:, 0], counters=off + prompt_lens, **sample_args)
         return tok, logits[:, 0]
 
     def _step_body(self, kind: str, bufs: StepBuffers, cache, sample_args,
@@ -506,15 +539,102 @@ class DecodeEngine:
         packed = torch.cat(toks + pois)
         return packed, tokens, cur_pos, done
 
-    def timed_prefill(self, ids, cache, lens, sample_args, *, batch: int):
+    def timed_prefill(self, ids, cache, lens, sample_args, *, batch: int,
+                      start=None):
         """Run the prefill, recording prefill latency, TTFT and requests."""
         t0 = time.perf_counter()
         with self.metrics.prefill.time():
-            out = self._prefill(ids, cache, lens, sample_args)
+            out = self._prefill(ids, cache, lens, sample_args, start)
             _sync(self.device)
         self.metrics.ttft.record(time.perf_counter() - t0)
         self.metrics.add_request(batch)
         return out
+
+    # -- shared prefixes --------------------------------------------------------
+
+    @torch.inference_mode()
+    def seed_cache(self, cache, prefix: Prefix) -> None:
+        """Write ``prefix``'s bucket-padded segment into logical slots
+        ``[0, Pb)`` of every row of ``cache``, in place (engine.py:261):
+        slots below the prefix length record their positions, pad slots
+        stay at -1, so no step attends them. A paged cache is written
+        through the tables it carries, and a sentinel entry drops the write:
+        the batcher seeds through tables whose shared columns are the
+        sentinel, so only the partial tail lands, in each row's first owned
+        block. Rows that serve other work overwrite the seed with their own
+        prefill."""
+        Pb = prefix.k.shape[1]
+        B = cache.positions.shape[0]
+        dev = cache.positions.device
+        rel = torch.arange(Pb, dtype=torch.int32, device=dev)
+        cache.positions[:, :Pb] = torch.where(rel < prefix.length, rel, -1)
+        segs = ((cache.k, prefix.k), (cache.v, prefix.v),
+                (cache.k_scale, prefix.k_scale),
+                (cache.v_scale, prefix.v_scale))
+        if isinstance(cache, PagedKVCache):
+            slots = rel[None, :].expand(B, Pb)
+            for pool, seg in segs:
+                if pool is not None:
+                    # The stored bits, scales included: nothing re-quantized.
+                    rows = seg[:, None].expand((seg.shape[0], B)
+                                               + tuple(seg.shape[1:]))
+                    paged_write_stacked(pool, rows, cache.block_tables, slots,
+                                        cache.block_size)
+            return
+        for buf, seg in segs:
+            if buf is not None:
+                buf[:, :, :Pb] = seg[:, None]
+
+    def build_prefix(self, token_ids: list[int]) -> Prefix:
+        """Prefill ``token_ids`` once and keep the KV for later requests
+        that start with them (engine.py:319). The segment keeps the prefill
+        bucket's padded length ``Pb`` (pad slots carry no positions); an
+        int8 engine keeps it quantized. On a paged engine the row's identity
+        table maps slot ``s`` to block ``s // bs``: its first
+        ``ceil(Pb / bs)`` blocks unfold into the dense segment."""
+        P = len(token_ids)
+        if not 0 < P < self.max_seq_len:
+            raise ValueError(
+                f"prefix length {P} must be in (0, {self.max_seq_len})"
+            )
+        cache = self.new_cache(1)
+        ids, lens = self._pad_prompts([list(token_ids)])
+        Pb = ids.shape[1]
+        self._prefill(torch.as_tensor(ids, device=self.device), cache,
+                      torch.as_tensor(lens, device=self.device),
+                      self._sample_args(GenerationParams(), 1))
+
+        def seg(buf):
+            if buf is None:
+                return None
+            if isinstance(cache, PagedKVCache):
+                nb = -(-Pb // cache.block_size)
+                v = buf[:, :nb]
+                return v.reshape((v.shape[0], nb * cache.block_size)
+                                 + tuple(v.shape[3:]))[:, :Pb].clone()
+            return buf[:, 0, :Pb].clone()
+
+        return Prefix(tokens=tuple(int(t) for t in token_ids),
+                      k=seg(cache.k), v=seg(cache.v),
+                      k_scale=seg(cache.k_scale), v_scale=seg(cache.v_scale))
+
+    @staticmethod
+    def split_prefix(
+        prompts: list[list[int]], prefix: Prefix
+    ) -> tuple[np.ndarray, list[list[int]]]:
+        """Check that every prompt extends ``prefix`` by at least one token
+        (the suffix prefill gives the first logits) and return (full
+        lengths, suffixes)."""
+        P = prefix.length
+        suffixes = []
+        for p in prompts:
+            if len(p) <= P or tuple(p[:P]) != prefix.tokens:
+                raise ValueError(
+                    "prompt does not extend the prefix (needs the prefix's "
+                    f"{P} tokens plus at least one more)"
+                )
+            suffixes.append(list(p[P:]))
+        return np.asarray([len(p) for p in prompts], np.int32), suffixes
 
     # -- host API ---------------------------------------------------------------
 
@@ -529,8 +649,16 @@ class DecodeEngine:
         cancel_poll=None,
         chunk_steps: int = 1,
         live_rows: int | None = None,
+        prefix: Prefix | None = None,
     ) -> list[list[int]]:
         """Streaming host-loop generation.
+
+        ``prefix`` (``build_prefix``): every prompt must extend it; the
+        rows are seeded from it and only the suffixes are prefilled, with
+        the tokens of a prefill from scratch (int8: the seeded bits are the
+        same on every reuse, the tokens may differ from scratch). A batch
+        whose bucket-padded suffix would reach past the ring is prefilled
+        from scratch instead, as the reference does (engine.py:1087).
 
         ``gen`` may hold one entry per prompt (mixed greedy / sampled rows,
         lengths and EOS ids). ``on_token(step, tokens)`` sees each step's
@@ -553,12 +681,34 @@ class DecodeEngine:
         dev = self.device
         cache = self._generate_cache(B)
         sample_args = self._sample_args(gens, B)
-        ids, lens = self._pad_prompts(prompts)
-        tok, _ = self.timed_prefill(
-            torch.as_tensor(ids, device=dev), cache,
-            torch.as_tensor(lens, device=dev), sample_args,
-            batch=live_rows or B,
-        )
+        if prefix is not None:
+            full_lens, suffixes = self.split_prefix(prompts, prefix)
+            if int(full_lens.max()) > self.max_seq_len:
+                raise ValueError(
+                    f"prompt length {int(full_lens.max())} exceeds "
+                    f"max_seq_len {self.max_seq_len}"
+                )
+            ids, suf_lens = self._pad_prompts(suffixes)
+            if prefix.length + ids.shape[1] > self.max_seq_len:
+                # The padded columns' slots would wrap onto the seeded ones.
+                prefix = None
+        if prefix is not None:
+            self.seed_cache(cache, prefix)
+            tok, _ = self.timed_prefill(
+                torch.as_tensor(ids, device=dev), cache,
+                torch.as_tensor(suf_lens, device=dev), sample_args,
+                batch=live_rows or B,
+                start=torch.full((B,), prefix.length, dtype=torch.int32,
+                                 device=dev),
+            )
+            lens = full_lens
+        else:
+            ids, lens = self._pad_prompts(prompts)
+            tok, _ = self.timed_prefill(
+                torch.as_tensor(ids, device=dev), cache,
+                torch.as_tensor(lens, device=dev), sample_args,
+                batch=live_rows or B,
+            )
         eos = np.asarray(
             [g.eos_token_id if g.eos_token_id is not None else -1
              for g in gens]
@@ -686,7 +836,7 @@ class DecodeEngine:
     @torch.inference_mode()
     def prewarm(
         self, batch: int, *, chunk_steps: tuple[int, ...] | int = (),
-        buckets: bool = True,
+        buckets: bool = True, prefix_prefill: bool = False,
     ) -> int:
         """Warm everything ``generate`` / ``generate_fused`` can run at
         ``batch`` rows (engine.py:762): a prefill for each seq bucket, then
@@ -696,7 +846,10 @@ class DecodeEngine:
         and every sampling variant. Drains the device, leaves the cache
         reset, and returns the number of programs warmed: seq buckets +
         step kinds x buckets x sampling variants (captured now or
-        before)."""
+        before). ``prefix_prefill`` is the reference's flag for the
+        prefix-offset prefill programs; the port's prefill runs eagerly and
+        the decode step graphs do not depend on a prefix, so it warms
+        nothing more."""
         if isinstance(chunk_steps, int):
             chunk_steps = (chunk_steps,)
         dev = self.device

@@ -1,9 +1,10 @@
 """Engine metrics: the subset of llmss_tpu/utils/metrics.py that the
 generate path, the batch worker, the continuous batcher and its worker
 record (latency timers with a bounded reservoir, request / token / error
-counters, the block-pool gauges, the batcher's per-group host overhead and
-mixed-batch composition, and ``to_dict``), under the reference's names,
-plus the decode step graphs' captures and replays (engine/graphs.py)."""
+counters, the block-pool gauges and shared-prefix evictions, the batcher's
+per-group host overhead and mixed-batch composition, and ``to_dict``),
+under the reference's names, plus the decode step graphs' captures and
+replays (engine/graphs.py)."""
 
 from __future__ import annotations
 
@@ -98,6 +99,12 @@ class EngineMetrics:
         self.kv_blocks_total = 0  # guarded_by: self._lock
         self.kv_blocks_in_use = 0  # guarded_by: self._lock
         self.kv_block_seconds = 0.0  # guarded_by: self._lock
+        # Idle shared-prefix block sets reclaimed to admit new work, split
+        # by what became of them: demoted down a tier (none in this port:
+        # tiered KV is not ported) or dropped. The total is their sum.
+        self.kv_block_evictions = 0  # guarded_by: self._lock
+        self.kv_evictions_demoted = 0  # guarded_by: self._lock
+        self.kv_evictions_dropped = 0  # guarded_by: self._lock
         self.finish_classes: dict[str, int] = {}  # guarded_by: self._lock
         self.mixed_steps = 0  # guarded_by: self._lock
         self.mixed_decode_rows = 0  # guarded_by: self._lock
@@ -144,6 +151,16 @@ class EngineMetrics:
                 self.kv_blocks_total = total
             if in_use is not None:
                 self.kv_blocks_in_use = in_use
+
+    def add_kv_evictions(self, n: int = 1, demoted: bool = False) -> None:
+        """``n`` idle shared-prefix block sets reclaimed, ``demoted`` down a
+        tier or else dropped."""
+        with self._lock:
+            self.kv_block_evictions += n
+            if demoted:
+                self.kv_evictions_demoted += n
+            else:
+                self.kv_evictions_dropped += n
 
     def add_kv_block_seconds(self, s: float) -> None:
         """A row released blocks it held for ``blocks x held`` seconds."""
@@ -195,6 +212,10 @@ class EngineMetrics:
                 self.kv_blocks_total, self.kv_blocks_in_use,
                 self.kv_block_seconds,
             )
+            kv_evic, kv_dem, kv_drop = (
+                self.kv_block_evictions, self.kv_evictions_demoted,
+                self.kv_evictions_dropped,
+            )
             fin = dict(self.finish_classes)
             syncs, groups = self.host_syncs, self.groups_dispatched
             captures, replays = self.graph_captures, self.graph_replays
@@ -217,6 +238,9 @@ class EngineMetrics:
             "decode_step": self.decode_step.to_dict(),
             "kv_blocks_total": kv_total,
             "kv_blocks_in_use": kv_used,
+            "kv_block_evictions": kv_evic,
+            "kv_evictions_demoted": kv_dem,
+            "kv_evictions_dropped": kv_drop,
             "kv_block_seconds": round(kv_bs, 6),
             **({"finish_classes": fin} if fin else {}),
             "graph_captures": captures,

@@ -40,8 +40,20 @@ Interleaved admission gives a request exactly the tokens it gets alone
 one-group lag changes when the host learns tokens, never which tokens the
 device computes.
 
-The ragged group runs eagerly. Not in this port yet: shared-prefix
-copy-on-write, preemption, parking and tiered KV, the prefill-only / adopt
+Shared prefixes (``submit(prefix=)``, a ``Prefix`` from
+``DecodeEngine.build_prefix``): one admission takes the oldest request's
+whole same-prefix group. Dense rows are seeded from the prefix and only
+the suffixes prefill. Paged, the prefix's full blocks are written into the
+pool once (``_ensure_paged_prefix``) and shared copy-on-write: each row's
+table points at them, their refcounts rise per row and fall at release,
+and the registry's own reference keeps an idle prefix until the pool needs
+its blocks (``_paged_evict_idle_prefixes``). The partial tail lands in the
+row's first owned block (split admission seeds it through tables whose
+shared columns are the sentinel; chunked admission re-feeds it), so no row
+ever writes a shared block.
+
+The ragged group runs eagerly. Not in this port yet: preemption, parking
+and tiered KV (the eviction hook ``demote_cb``), the prefill-only / adopt
 halves of disaggregated serving, and device telemetry.
 """
 
@@ -56,7 +68,9 @@ from typing import Callable
 import numpy as np
 import torch
 
-from llmss_tpu_torch.engine.cache import BlockAllocator, table_sentinel
+from llmss_tpu_torch.engine.cache import (
+    BlockAllocator, seed_blocks, table_sentinel,
+)
 from llmss_tpu_torch.engine.engine import (
     DecodeEngine, GenerationParams, _bucket, _sync, to_device, variant_params,
 )
@@ -164,6 +178,11 @@ class ContinuousBatcher:
             self._sentinel = table_sentinel(n_blocks)
             self._host_tables = np.full((rows, mb), self._sentinel, np.int32)
             self._row_owned: dict[int, list[int]] = {}
+            self._row_shared: dict[int, list[int]] = {}
+            # id(prefix) -> (prefix, full-block ids): the registry holds one
+            # reference per block, so an idle prefix stays until evicted,
+            # and the prefix object itself, so its id is not reused.
+            self._paged_prefixes: dict[int, tuple] = {}
             # row -> reserve time: block-seconds charged at release.
             self._row_reserve_t: dict[int, float] = {}
             engine.metrics.set_kv_blocks(total=n_blocks, in_use=0)
@@ -202,57 +221,123 @@ class ContinuousBatcher:
 
     # -- paged-KV plumbing --------------------------------------------------
 
-    def _paged_reserve(self, taken: list, rows: list[int]):
+    def _paged_evict_idle_prefixes(self, keep: int | None = None) -> int:
+        """Free every registered prefix block set that no row references
+        (each block at the registry's own refcount of 1), except ``keep``:
+        the admission's backstop when the pool runs dry. Returns the sets
+        evicted."""
+        freed = 0
+        for key, (_pfx, blocks) in list(self._paged_prefixes.items()):
+            if key == keep or not blocks:
+                continue
+            if all(self.allocator.refcount(b) == 1 for b in blocks):
+                self.allocator.free(blocks)
+                del self._paged_prefixes[key]
+                freed += 1
+        if freed:
+            self.allocator.record_evictions(freed)
+            self.engine.metrics.add_kv_evictions(freed)
+        return freed
+
+    def _ensure_paged_prefix(self, prefix) -> list[int] | None:
+        """The block ids of ``prefix``'s full blocks in the pool (possibly
+        []), written there and registered on its first use; None when the
+        pool cannot hold them even after evicting idle prefixes."""
+        key = id(prefix)
+        hit = self._paged_prefixes.get(key)
+        if hit is not None:
+            return hit[1]
+        nf = prefix.length // self.engine.block_size
+        if nf == 0:
+            self._paged_prefixes[key] = (prefix, [])
+            return []
+        blocks = self.allocator.alloc(nf)
+        if blocks is None and self._paged_evict_idle_prefixes(keep=key):
+            blocks = self.allocator.alloc(nf)
+        if blocks is None:
+            return None
+        seed_blocks(self.cache, prefix,
+                    self._dev(np.asarray(blocks, np.int64)))
+        self._paged_prefixes[key] = (prefix, blocks)
+        return blocks
+
+    def _requeue(self, items_rows) -> None:
+        """Put (item, row) pairs back: the items at the FRONT of the queue,
+        in order, and their rows on the free list."""
+        with self._lock:
+            for item, row in reversed(items_rows):
+                self.pending.appendleft(item)
+                self._free.append(row)
+
+    def _paged_reserve(self, taken: list, rows: list[int], head_prefix):
         """Block-pool admission control: reserve ``ceil((prompt + max_new)
-        / bs)`` blocks per candidate. Candidates that do not fit go back to
-        the FRONT of the queue in order, with their row slots; a request
-        bigger than the whole pool is answered with an error. Returns the
-        (items, rows) that fit."""
+        / bs)`` blocks per candidate, less the prefix's shared full blocks,
+        which are increfed instead (the partial tail lands in the row's
+        first owned block). An idle prefix is evicted when the pool runs
+        dry. Candidates that do not fit go back to the FRONT of the queue
+        in order, with their row slots; a request bigger than the whole
+        pool is answered with an error. Returns the (items, rows) that
+        fit."""
         bs = self.engine.block_size
+        shared: list[int] = []
+        if head_prefix is not None:
+            got = self._ensure_paged_prefix(head_prefix)
+            if got is None:
+                self._requeue(list(zip(taken, rows)))
+                return [], []
+            shared = got
+        ns = len(shared)
+        keep = id(head_prefix) if head_prefix is not None else None
         ok_items, ok_rows, failed = [], [], []
         for item, row in zip(taken, rows):
             ids, gen = item[1], item[2]
-            need = -(-(len(ids) + gen.max_new_tokens) // bs)
-            if need > self.allocator.num_blocks:
+            need = -(-(len(ids) + gen.max_new_tokens) // bs) - ns
+            if need + ns > self.allocator.num_blocks:
                 with self._lock:
                     self._free.append(row)
                 self.engine.metrics.add_error(1)
                 item[3]([], error=(
-                    f"request needs {need} KV blocks but the pool has "
+                    f"request needs {need + ns} KV blocks but the pool has "
                     f"{self.allocator.num_blocks}"
                 ))
                 continue
             owned = self.allocator.alloc(need)
+            if owned is None and self._paged_evict_idle_prefixes(keep=keep):
+                owned = self.allocator.alloc(need)
             if owned is None:
                 failed.append((item, row))
                 continue
+            if shared:
+                self.allocator.incref(shared)
             self._row_owned[row] = owned
+            self._row_shared[row] = list(shared)
             self._row_reserve_t[row] = time.monotonic()
             self._host_tables[row, :] = self._sentinel
-            self._host_tables[row, :need] = owned
+            self._host_tables[row, :ns] = shared
+            self._host_tables[row, ns:ns + len(owned)] = owned
             ok_items.append(item)
             ok_rows.append(row)
         if failed:
-            with self._lock:
-                for item, row in reversed(failed):
-                    self.pending.appendleft(item)
-                    self._free.append(row)
+            self._requeue(failed)
         self.engine.metrics.set_kv_blocks(in_use=self.allocator.blocks_in_use)
         return ok_items, ok_rows
 
     def _paged_release_row(self, row: int) -> None:
-        """Return a finished row's blocks now. Its device table stays stale
-        until the next table upload; that is safe because done rows' writes
-        are dropped on the device and nobody reads a freed row."""
+        """Return a finished row's blocks now: owned blocks are freed, the
+        shared prefix blocks decrefed. Its device table stays stale until
+        the next table upload; that is safe because done rows' writes are
+        dropped on the device and nobody reads a freed row."""
         if not self._paged:
             return
         owned = self._row_owned.pop(row, [])
+        shared = self._row_shared.pop(row, [])
         self.allocator.free(owned)
+        self.allocator.free(shared)
         self._host_tables[row, :] = self._sentinel
         t0 = self._row_reserve_t.pop(row, None)
-        if t0 is not None and owned:
+        if t0 is not None and owned + shared:
             self.engine.metrics.add_kv_block_seconds(
-                (time.monotonic() - t0) * len(owned)
+                (time.monotonic() - t0) * (len(owned) + len(shared))
             )
         self.engine.metrics.set_kv_blocks(in_use=self.allocator.blocks_in_use)
 
@@ -288,16 +373,20 @@ class ContinuousBatcher:
         self.cache.positions.index_copy_(0, idx, small.positions[:n])
 
     @torch.inference_mode()
-    def prewarm(self, seq_buckets: list[int] | None = None) -> int:
+    def prewarm(self, seq_buckets: list[int] | None = None,
+                prefix_prefill: bool = False) -> int:
         """Warm every program the batcher runs, before it serves
-        (scheduler.py:604, without the prefix variant): unless prompts are
+        (scheduler.py:604): unless prompts are
         chunked, the admission prefill for each (admission batch P, seq
         bucket S), ``seq_buckets`` narrowing the prompt envelope; then
         every decode step graph the groups can pick over the batcher's
         cache, each cache-read bucket x sampling variant (the busy and the
         low-load group replay the same step graphs). The ragged group runs
         eagerly and is not warmed. Resets positions, tokens and cur_pos,
-        drains the device, and returns the number of programs warmed."""
+        drains the device, and returns the number of programs warmed.
+        ``prefix_prefill`` is the reference's flag for the prefix-offset
+        admission prefills; those run eagerly here, and the step graphs do
+        not depend on a prefix, so it warms nothing more."""
         eng = self.engine
         dev = eng.device
         if seq_buckets is None:
@@ -347,36 +436,71 @@ class ContinuousBatcher:
         done_cb: Callable[..., None],
         req_id: str = "",
         stream_cb: Callable[[list[int]], None] | None = None,
+        prefix=None,
     ) -> None:
         """Queue a request. ``done_cb`` fires exactly once; ``stream_cb``
-        receives each group's new tokens."""
+        receives each group's new tokens. ``prefix`` (a ``Prefix`` that
+        ``token_ids`` extends by at least one token): the row is seeded
+        from it and only the suffix is prefilled, with the same tokens."""
         gen.validate()
+        if prefix is not None:
+            P = prefix.length
+            if len(token_ids) <= P or tuple(token_ids[:P]) != prefix.tokens:
+                raise ValueError(
+                    "token_ids does not extend the prefix (needs its "
+                    f"{P} tokens plus at least one more)"
+                )
+            if P + _bucket(len(token_ids) - P,
+                           self.engine.max_seq_len) > self.engine.max_seq_len:
+                # Its own bucket-padded suffix would wrap onto the seeded
+                # slots: admitted from scratch (scheduler.py:863).
+                prefix = None
         # A near-capacity row would wrap its ring mid-group.
         self.engine.check_capacity(len(token_ids), gen.max_new_tokens)
         with self._lock:
             self.pending.append(
                 (req_id, list(token_ids), gen, done_cb, stream_cb,
-                 time.perf_counter())
+                 time.perf_counter(), prefix)
             )
 
     # -- scheduling ---------------------------------------------------------
 
     def _admit_dispatch(self) -> _InFlightAdmission | None:
-        """Dispatch admission for every pending request that has a free row
-        (and, paged, its blocks): ONE batched prefill, ONE insert or
+        """Dispatch admission for pending requests that have a free row
+        (and, paged, their blocks): ONE batched prefill, ONE insert or
         positions merge and ONE device-state merge, with no blocking fetch.
         The rows are active at once; the host reads their first tokens
         later (``_resolve_admission``). Called after the step's group is
         enqueued, so the admission lands between that group and the next.
-        The batch pads to a power of two."""
+        The batch pads to a power of two.
+
+        One admission shares one prefix (or none): it takes the oldest
+        request's whole same-prefix group from anywhere in the queue; the
+        other requests keep their order for the next admission."""
         with self._lock:
             if not self.pending or not self._free:
                 return None
-            taken = [self.pending.popleft()
-                     for _ in range(min(len(self._free), len(self.pending)))]
+            head_prefix = self.pending[0][6]
+            free_n = len(self._free)
+            taken, rest = [], deque()
+            while self.pending:
+                item = self.pending.popleft()
+                if len(taken) < free_n and item[6] is head_prefix:
+                    taken.append(item)
+                else:
+                    rest.append(item)
+            self.pending = rest
             rows = [self._free.pop() for _ in taken]
+        eng = self.engine
+        if head_prefix is not None and head_prefix.length + _bucket(
+                max(len(item[1]) for item in taken) - head_prefix.length,
+                eng.max_seq_len) > eng.max_seq_len:
+            # The batch's bucket-padded suffix would wrap onto the seeded
+            # slots: the batch is prefilled from scratch (scheduler.py:931),
+            # decided before the reserve so that the blocks match.
+            head_prefix = None
         if self._paged:
-            taken, rows = self._paged_reserve(taken, rows)
+            taken, rows = self._paged_reserve(taken, rows, head_prefix)
             if not taken:
                 return None
         n = len(taken)
@@ -384,35 +508,52 @@ class ContinuousBatcher:
         while P < n:
             P *= 2
         if self._chunked:
-            self._admit_chunked(taken, rows, P)
+            self._admit_chunked(taken, rows, P, head_prefix)
             return None
-        eng = self.engine
-        S = _bucket(max(len(item[1]) for item in taken), eng.max_seq_len)
+        plen = head_prefix.length if head_prefix is not None else 0
+        suffixes = [item[1][plen:] for item in taken]
+        S = _bucket(max(len(x) for x in suffixes), eng.max_seq_len)
         padded = np.zeros((P, S), np.int32)
         lens = np.ones(P, np.int32)  # dummy rows prefill one pad token
-        for i, item in enumerate(taken):
-            padded[i, : len(item[1])] = item[1]
-            lens[i] = len(item[1])
+        for i, x in enumerate(suffixes):
+            padded[i, : len(x)] = x
+            lens[i] = len(x)
         gens = [item[2] for item in taken] + [GenerationParams()] * (P - n)
         sample_args = eng._sample_args(gens, P)
         ids_d, lens_d = self._dev(padded), self._dev(lens)
+        start = (None if head_prefix is None else
+                 torch.full((P,), plen, dtype=torch.int32, device=eng.device))
         if self._paged:
             mb = eng.max_seq_len // eng.block_size
             tables = np.full((P, mb), self._sentinel, np.int32)
             tables[:n] = self._host_tables[rows]
             scratch = self._paged_scratch_view(tables)
-            tok, _ = eng._prefill(ids_d, scratch, lens_d, sample_args)
+            if head_prefix is not None:
+                # Seed through tables whose shared columns are the
+                # sentinel: those writes drop, and only the partial tail
+                # lands, in each row's first owned block (the copy of
+                # copy-on-write).
+                ns = len(self._row_shared[rows[0]])
+                seed_tables = tables.copy()
+                seed_tables[:, :ns] = self._sentinel
+                eng.seed_cache(
+                    scratch._replace(block_tables=self._dev(seed_tables)),
+                    head_prefix)
+            tok, _ = eng._prefill(ids_d, scratch, lens_d, sample_args, start)
             self._paged_absorb(scratch, rows)
         else:
             scratch = eng.new_cache(P)
-            tok, _ = eng._prefill(ids_d, scratch, lens_d, sample_args)
+            if head_prefix is not None:
+                eng.seed_cache(scratch, head_prefix)
+            tok, _ = eng._prefill(ids_d, scratch, lens_d, sample_args, start)
             self._insert(scratch, rows)
         self._set_state(*eng._admit_merge(
-            self._tokens_dev, self._cur_pos_dev, tok, lens_d,
+            self._tokens_dev, self._cur_pos_dev, tok, self._dev(lens + plen),
             self._dev(self._pad_row_idx(P, rows)),
         ))
         entries = []
-        for row, (req_id, ids, gen, cb, scb, t_submit) in zip(rows, taken):
+        for row, item in zip(rows, taken):
+            req_id, ids, gen, cb, scb, t_submit, _pfx = item
             r = _Row(req_id=req_id, gen=gen, out=[], done_cb=cb,
                      stream_cb=scb, t_submit=t_submit)
             self.active[row] = r
@@ -420,27 +561,37 @@ class ContinuousBatcher:
             entries.append((row, r))
         return _InFlightAdmission(entries=entries, tok=_HostFetch(tok))
 
-    def _admit_chunked(self, taken: list, rows: list[int], P: int) -> None:
+    def _admit_chunked(self, taken: list, rows: list[int], P: int,
+                       head_prefix) -> None:
         """Chunked-prefill admission: no prefill program. The rows' blocks
         are reserved and their tables staged; admission is a positions
         reset, a table upload and a device-state merge pointing ``cur_pos``
-        at 0. The prompts stream through the next ragged groups."""
+        at the feed start. The prompts stream through the next ragged
+        groups. Prefix rows start after the shared full blocks (``ns *
+        bs``, whose positions are set here) and re-feed the partial tail,
+        which lands in the row's first owned block."""
         eng = self.engine
-        n = len(taken)
+        ns = len(self._row_shared[rows[0]]) if head_prefix is not None else 0
+        start = ns * eng.block_size
         idx = self._dev(np.asarray(rows, np.int64))
         self.cache.positions.index_fill_(0, idx, -1)
+        if start:
+            self.cache.positions[idx, :start] = torch.arange(
+                start, dtype=torch.int32, device=eng.device)
         self.cache.block_tables.copy_(self._dev(self._host_tables))
-        zeros = torch.zeros(P, dtype=torch.int32, device=eng.device)
+        starts = np.full(P, start, np.int32)
         self._set_state(*eng._admit_merge(
-            self._tokens_dev, self._cur_pos_dev, zeros, zeros,
-            self._dev(self._pad_row_idx(P, rows)),
+            self._tokens_dev, self._cur_pos_dev,
+            torch.zeros(P, dtype=torch.int32, device=eng.device),
+            self._dev(starts), self._dev(self._pad_row_idx(P, rows)),
         ))
-        for row, (req_id, ids, gen, cb, scb, t_submit) in zip(rows, taken[:n]):
+        for row, item in zip(rows, taken):
+            req_id, ids, gen, cb, scb, t_submit, _pfx = item
             self.active[row] = _Row(req_id=req_id, gen=gen, out=[],
                                     done_cb=cb, stream_cb=scb,
                                     t_submit=t_submit)
-            self._row_pos[row] = 0
-            self._inflight_prefill[row] = list(ids)
+            self._row_pos[row] = start
+            self._inflight_prefill[row] = list(ids[start:])
 
     def _resolve_admission(self, adm: _InFlightAdmission | None) -> int:
         """Host bookkeeping for a dispatched admission: read its first
@@ -533,8 +684,11 @@ class ContinuousBatcher:
         return ids + [r.req_id for r in self.active.values()]
 
     def load_snapshot(self) -> dict:
-        """Host-side occupancy and pool headroom; never touches a device
-        tensor."""
+        """Host-side occupancy, pool headroom and the content hashes of the
+        prefixes registered in the pool (the reference's prefix-affinity
+        routing key); never touches a device tensor."""
+        from llmss_tpu_torch.serve.protocol import prefix_hash
+
         with self._lock:
             pending, free_slots = len(self.pending), len(self._free)
         return {
@@ -545,6 +699,9 @@ class ContinuousBatcher:
             "free_kv_blocks": self.allocator.free_blocks if self._paged else None,
             "kv_blocks_total": (self.allocator.num_blocks if self._paged
                                 else None),
+            "prefix_hashes": ([prefix_hash(pfx.tokens) for pfx, _blocks
+                               in list(self._paged_prefixes.values())]
+                              if self._paged else []),
         }
 
     def drain_all(self) -> list[str]:

@@ -12,10 +12,14 @@ per-row poison error while batch-mates keep their tokens.
 
 ``ContinuousWorker`` (the reference's unified role) feeds the broker's
 requests into a ``ContinuousBatcher`` and answers each one exactly once
-from the batcher's callbacks. Request fields that later slices serve
-(``prefix_token_ids``, ``session_id``, and the ``resume_tokens`` /
-``preemptions`` of a preempted request) get an error response: such a
-request is never served without them.
+from the batcher's callbacks. A request's ``prefix_token_ids`` hint is
+served: the worker keeps the last ``max_prefixes`` prefixes it built
+(``DecodeEngine.build_prefix``, an LRU keyed by their tokens) and submits
+the request with its prefix, which gives the tokens of the request without
+the hint. Request fields that later slices serve (``session_id``, and the
+``resume_tokens`` / ``preemptions`` of a preempted request) get an error
+response: such a request is never served without them. The batch
+``Worker`` ignores the prefix hint, as the reference's does.
 
 Both workers stamp ``last_progress_ts`` (the supervisor's watchdog and
 heartbeat read it) and renew the leases they hold every group;
@@ -38,6 +42,7 @@ from llmss_tpu_torch.engine.scheduler import ContinuousBatcher
 from llmss_tpu_torch.serve.broker import Broker
 from llmss_tpu_torch.serve.protocol import (
     STATE_DRAINING, STATE_READY, GenerateRequest, GenerateResponse,
+    prefix_hash,
 )
 
 # How long an idle worker blocks on the queue before it looks again.
@@ -229,7 +234,7 @@ class Worker:
 
 def _unserved_field(req: GenerateRequest) -> str | None:
     """The first request field the continuous worker cannot honour yet."""
-    for name in ("prefix_token_ids", "session_id", "resume_tokens"):
+    for name in ("session_id", "resume_tokens"):
         if getattr(req, name):
             return name
     if req.preemptions:
@@ -263,25 +268,49 @@ class ContinuousWorker:
         # Monotonic stamp after every served group; 0.0 until the first,
         # so the watchdog's clock never runs during build and prewarm.
         self.last_progress_ts = 0.0
+        # Prefixes built for requests' prefix_token_ids, keyed by their
+        # tokens, least recently used first.
+        self._prefixes: dict[tuple, object] = {}
+        self.max_prefixes = 4
 
     def load_snapshot(self) -> dict:
         """The batcher's host-side occupancy and pool headroom with the
-        lifecycle state (consumer.py:522, without the prefix hashes, KV
-        tiers, trace and telemetry blobs); touches no device tensor."""
+        lifecycle state and the hashes of the prefixes held by either
+        layer, the batcher's pool and this worker's LRU (consumer.py:522,
+        without the KV tiers, trace and telemetry blobs); touches no device
+        tensor."""
         snap = self.batcher.load_snapshot()
+        hashes = set(snap.get("prefix_hashes") or [])
+        hashes.update(prefix_hash(k) for k in self._prefixes)
         snap.update({
             "role": "unified",
             "state": STATE_DRAINING if self.draining else STATE_READY,
             "alive": True,
             "queue_depth": snap.get("pending", 0),
+            "prefix_hashes": sorted(hashes),
         })
         return snap
 
-    def prewarm(self, seq_buckets: list[int] | None = None) -> int:
+    def prewarm(self, seq_buckets: list[int] | None = None,
+                prefix_prefill: bool = False) -> int:
         """Warm the batcher's whole envelope before it serves
-        (consumer.py:601, without the prefix variant); ``seq_buckets``
-        narrows the prompt-length envelope when it is known."""
-        return self.batcher.prewarm(seq_buckets)
+        (consumer.py:601); ``seq_buckets`` narrows the prompt-length
+        envelope when it is known, and ``prefix_prefill`` is the
+        reference's flag for the prefix variants (``batcher.prewarm``)."""
+        return self.batcher.prewarm(seq_buckets, prefix_prefill)
+
+    def _get_prefix(self, prefix_ids: list[int]):
+        """The prefix for these tokens, built on its first use (one
+        prefill) and kept in the LRU (consumer.py:879, without the tiered
+        store's promotion)."""
+        key = tuple(prefix_ids)
+        pfx = self._prefixes.pop(key, None)
+        if pfx is None:
+            pfx = self.engine.build_prefix(list(prefix_ids))
+        self._prefixes[key] = pfx  # most recently used last
+        while len(self._prefixes) > self.max_prefixes:
+            self._prefixes.pop(next(iter(self._prefixes)))
+        return pfx
 
     def _drain_broker(self) -> int:
         """Move every queued request into the batcher (blocking briefly
@@ -313,8 +342,11 @@ class ContinuousWorker:
                     def stream_cb(new_toks, req=req):
                         self.broker.push_stream(req.id, new_toks)
 
+                prefix = (self._get_prefix(req.prefix_token_ids)
+                          if req.prefix_token_ids else None)
                 self.batcher.submit(ids, gen, self._done_cb(req),
-                                    req_id=req.id, stream_cb=stream_cb)
+                                    req_id=req.id, stream_cb=stream_cb,
+                                    prefix=prefix)
             except ValueError as e:  # per-request error surface
                 self.broker.push_response(
                     GenerateResponse(id=req.id, error=str(e))

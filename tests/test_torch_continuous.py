@@ -185,8 +185,11 @@ def test_mixed_batch_metrics(model):
 
 @pytest.mark.parametrize("chunked", [False, True])
 def test_worker_roundtrip(model, chunked):
-    """Greedy, streamed and cancelled requests through ``ContinuousWorker``
-    over ``InProcBroker``; unserved request fields get an error."""
+    """Greedy, streamed, cancelled and prefix-hinted requests through
+    ``ContinuousWorker`` over ``InProcBroker``. The prefix hint is served
+    (the reference's protocol: a hint never changes the tokens): the
+    answer is ``generate``'s for the full prompt, and once idle the pool
+    holds only the registered prefix's full blocks."""
     eng = _engine(model, "paged")
     broker = InProcBroker()
     worker = ContinuousWorker(eng, broker, rows=2, chunk_steps=2,
@@ -194,7 +197,8 @@ def test_worker_roundtrip(model, chunked):
     greedy = GenerateRequest(token_ids=PROMPTS[4], max_new_tokens=6)
     stream = GenerateRequest(token_ids=PROMPTS[1], max_new_tokens=7, stream=True)
     cancel = GenerateRequest(token_ids=[1, 2, 3], max_new_tokens=40)
-    prefix = GenerateRequest(token_ids=[1, 2, 3], prefix_token_ids=[1, 2])
+    prefix = GenerateRequest(token_ids=PROMPTS[0], max_new_tokens=5,
+                             prefix_token_ids=PROMPTS[0][:10])
     for r in (greedy, stream, cancel, prefix):
         broker.push_request(r)
     stop = threading.Event()
@@ -217,8 +221,12 @@ def test_worker_roundtrip(model, chunked):
         streamed += inc
     assert streamed == s.token_ids
     assert c.error == "cancelled" and len(c.token_ids) < 40
-    assert "prefix_token_ids" in p.error
-    assert worker.batcher.allocator.blocks_in_use == 0
+    assert p.error is None and p.token_ids == eng.generate(
+        [PROMPTS[0]], TGen(max_new_tokens=5))[0]
+    registered = sum(len(blocks) for _, blocks
+                     in worker.batcher._paged_prefixes.values())
+    assert registered == 10 // 8
+    assert worker.batcher.allocator.blocks_in_use == registered
 
 
 def test_worker_drain_releases_pending(model):

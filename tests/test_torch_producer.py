@@ -252,6 +252,49 @@ def test_metrics_json_and_prometheus(served):
     assert status == 200 and json.loads(body) == {"depth": 0, "requests": []}
 
 
+def test_prefix_hint_over_http(served, model):
+    """A request carrying ``prefix_token_ids`` over HTTP gets the JAX
+    engine's tokens for its full prompt; /metrics carries the three
+    eviction counters under the reference's names, in JSON and in the
+    Prometheus text; the worker's ``prefix_hashes`` equal the reference
+    worker's after the same request."""
+    from llmss_tpu.serve.broker import InProcBroker as JBroker
+    from llmss_tpu.serve.consumer import ContinuousWorker as JWorker
+    from llmss_tpu.serve.protocol import GenerateRequest as JRequest
+
+    mesh, jp, _ = model
+    prompt, head = list(range(2, 22)), list(range(2, 12))
+    body = {"token_ids": prompt, "max_new_tokens": 6,
+            "prefix_token_ids": head}
+    jeng = JEngine(JCfg(**CFG), jp, mesh, max_seq_len=64, kv_layout="paged",
+                   block_size=8)
+    status, _, answer = _post(served["port"], "/generate", body)
+    assert status == 200 and answer["error"] is None
+    assert answer["token_ids"] == jeng.generate(
+        [prompt], JGen(max_new_tokens=6))[0]
+    jbroker = JBroker()
+    jworker = JWorker(jeng, jbroker, rows=3, chunk_steps=2, group_chunks=2,
+                      chunked_prefill=MODES[served["mode"]],
+                      poll_timeout_s=0.01)
+    req = JRequest(token_ids=prompt, max_new_tokens=6, prefix_token_ids=head)
+    jbroker.push_request(req)
+    end = time.monotonic() + 60
+    while jbroker.wait_response(req.id, timeout=0.001) is None:
+        assert time.monotonic() < end
+        jworker.run_once()
+    hashes = served["gate"].worker.load_snapshot()["prefix_hashes"]
+    assert hashes == jworker.load_snapshot()["prefix_hashes"]
+    assert len(hashes) == 1
+    names = ("kv_block_evictions", "kv_evictions_demoted",
+             "kv_evictions_dropped")
+    status, _, payload = _get(served["port"], "/metrics")
+    payload = json.loads(payload)
+    assert status == 200 and all(payload[k] == 0 for k in names)
+    lines = _get(served["port"], "/metrics?format=prometheus")[2].decode()
+    for k in names:
+        assert f"llmss_{k} 0" in lines.splitlines()
+
+
 def test_drain_flips_health_to_503(served):
     """Runs last for its server: drained, the worker is dead to /health
     and /generate sheds with 503."""
