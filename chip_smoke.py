@@ -40,6 +40,14 @@ exits non-zero without printing a result:
               ``generate(prefix=)``, and the batcher with copy-on-write
               prefix blocks (split, chunked; fp32 and int8): card tokens
               equal the CPU's, and on fp32 the tokens without the prefix;
+   reference_priority -- preemption on the same kind of model: a
+              two-row batcher, dense (K1 + K2), paged split (K1 + K3) and
+              chunked (K4 + K3): the card's tokens and victims equal the
+              CPU's, and the evicted request, resumed by replaying its
+              tokens, gets its tokens without preemption;
+   reference_roles -- a prefill-role and a decode-role ContinuousWorker
+              (split and chunked, fp32 and int8 pools): the card's
+              answers equal the CPU's and a unified worker's;
    reference_families -- the same for a tiny fp32 model of every family
               of the registry (GPT-J, GPT-BigCode, GPT-2, Llama, Mistral,
               Qwen2, GPT-NeoX, Phi-3 with LongRoPE on both sides of its
@@ -84,6 +92,19 @@ exits non-zero without printing a result:
               then an eviction; per pass wall, tokens/s, TTFT, K1 / K4
               prompt tokens, peak blocks and rows, launches; 37 blocks
               held once idle, 0 after the eviction;
+   serve_priority -- preemption at Llama-2-7B width: 8 batch-class
+              requests, then 4 interactive ones, through a prewarmed
+              8-row worker, split and chunked, with and without
+              preemption: the victims equal a CPU rehearsal of the same
+              schedule, the broker's refunds, interactive TTFT, batch
+              completion, no capture, every block back;
+   serve_roles -- the serve_continuous requests through a prefill-role
+              and a decode-role worker on one card (each prewarmed, no
+              capture): handoffs and their bytes, per-request export /
+              encode / decode / import ms, wall, tokens/s and TTFT beside
+              the unified passes, and the longest request alone equal to
+              a unified worker's tokens with its adopted blocks read back
+              equal to the exported bytes;
    int8    -- the engine's generate (prewarmed, no capture after) and one
               chunked serving pass (a 496-block int8 pool) on int8 caches
               at Llama-2-7B width: cache bytes against bf16's (<= 0.52x),
@@ -2269,8 +2290,8 @@ def phase_serve_continuous(params, kernels: dict):
         emit(row)
         return toks, counts, row
 
-    split, c_split, _ = run(False)
-    chunk, c_chunk, _ = run(True)
+    split, c_split, split_row = run(False)
+    chunk, c_chunk, chunk_row = run(True)
     again, _, again_row = run(True)
     same = all(a == b for i, (a, b) in enumerate(zip(chunk, again))
                if i != SERVE_CANCEL)
@@ -2286,7 +2307,8 @@ def phase_serve_continuous(params, kernels: dict):
     gc.collect()
     if len(eng._graphs):
         raise AssertionError("the workers' step graphs outlived their caches")
-    return eng, chunk, again_row
+    return eng, chunk, again_row, {"split": (split_row, split),
+                                   "chunked": (chunk_row, chunk)}
 
 
 # -- phase 6b, over HTTP -------------------------------------------------------
@@ -2773,6 +2795,688 @@ def phase_serve_prefix(eng) -> None:
           "identical": True, "prefix_hashes": workers[True].load_snapshot()[
               "prefix_hashes"]})
     del eng._prefill, workers, w, bat
+    gc.collect()
+
+
+# -- preemption and the prefill / decode roles -----------------------------------
+
+
+def _launch_counter():
+    """Set the four kernels' launch counts to 0; returns a reader of them."""
+    from llmss_tpu_torch.ops import decode_attention as da
+    from llmss_tpu_torch.ops import flash_attention as fa
+    from llmss_tpu_torch.ops import paged_attention as pa
+
+    fns = (fa.flash_attention, da.decode_attention,
+           pa.paged_decode_attention, pa.ragged_paged_attention)
+    for f in fns:
+        f.launches = 0
+    return lambda: dict(zip(("k1", "k2", "k3", "k4"),
+                            (f.launches for f in fns)))
+
+
+def _priority_schedule(bat, G, prompts, news, hi, hi_new, preempt=True):
+    """The reference_priority schedule on one batcher: batch-class
+    requests decode, an interactive one arrives after 3 steps, and every
+    evicted request is submitted again with its tokens replayed, as a
+    worker does. Returns ({key: tokens}, [evicted keys])."""
+    out, evicted = {}, []
+
+    def cb(key):
+        return lambda t, *a, **k: out.__setitem__(key, list(t))
+
+    if preempt:
+        bat.preempt_cb = lambda rid, toks: evicted.append((rid, list(toks)))
+    for i, (p, n) in enumerate(zip(prompts, news)):
+        bat.submit(p, G(max_new_tokens=n), cb(i), req_id=str(i), priority=2)
+    for _ in range(3):
+        bat.step()
+    bat.submit(hi, G(max_new_tokens=hi_new), cb("hi"), req_id="hi",
+               priority=0)
+    resumed = 0
+    while not bat.idle or resumed < len(evicted):
+        for rid, toks in evicted[resumed:]:
+            i = int(rid)
+            bat.submit(prompts[i] + toks,
+                       G(max_new_tokens=news[i] - len(toks)), cb(i),
+                       req_id=rid, priority=2, replayed=len(toks))
+        resumed = len(evicted)
+        bat.step()
+    return out, [rid for rid, _ in evicted]
+
+
+def phase_reference_priority() -> None:
+    """Preemption on the tiny fp32 llama: two batch-class requests fill a
+    two-row batcher, an interactive one evicts the one with fewer tokens,
+    which resumes with its tokens replayed; dense (K1 + K2), paged split
+    (K1 + K3) and chunked (K4 + K3). The card's tokens and victims equal
+    the CPU's, and the resumed request's tokens equal its tokens in the
+    same schedule without preemption."""
+    from llmss_tpu_torch.engine.engine import DecodeEngine, GenerationParams
+    from llmss_tpu_torch.engine.scheduler import ContinuousBatcher
+    from llmss_tpu_torch.models.decoder import init_params
+
+    cfg = _tiny_llama()
+    cpu_params = init_params(cfg, seed=7, device="cpu")
+    gpu_params = _to(cpu_params, "cuda")
+    rng = np.random.default_rng(7)
+    prompts = [[int(t) for t in rng.integers(1, 512, n)] for n in (20, 7)]
+    hi = [int(t) for t in rng.integers(1, 512, 9)]
+    news = [24, 20]
+
+    def run(params, device, layout, chunked, preempt=True):
+        eng = DecodeEngine(cfg, params, device=device, max_seq_len=128,
+                           **({} if layout == "dense" else
+                              dict(kv_layout="paged", block_size=16)))
+        bat = ContinuousBatcher(eng, rows=2, chunk_steps=4, group_chunks=2,
+                                chunked_prefill=16 if chunked else None)
+        out, victims = _priority_schedule(bat, GenerationParams, prompts,
+                                          news, hi, 8, preempt)
+        if layout == "paged" and bat.allocator.blocks_in_use:
+            raise AssertionError("blocks in use after the schedule")
+        return out, victims, eng.metrics.preempted
+
+    for layout, chunked in (("dense", False), ("paged", False),
+                            ("paged", True)):
+        want, want_v, _ = run(cpu_params, "cpu", layout, chunked)
+        count = _launch_counter()
+        got, victims, n = run(gpu_params, None, layout, chunked)
+        counts = count()
+        plain, none_v, _ = run(gpu_params, None, layout, chunked, False)
+        resumed_equal = all(got[int(v)] == plain[int(v)] for v in victims)
+        emit({"phase": "reference_priority", "layout": layout,
+              "admission": "chunked_prefill=16" if chunked else "split",
+              "identical": got == want, "victims": victims,
+              "cpu_victims": want_v, "preemptions": n,
+              "resumed_equal_unpreempted": resumed_equal,
+              "launches": counts, "tokens": got})
+        if got != want or victims != want_v or not victims or none_v:
+            raise AssertionError(f"priority {layout}: card {got} {victims} "
+                                 f"!= CPU {want} {want_v}")
+        if not resumed_equal:
+            raise AssertionError(f"priority {layout}: resumed tokens != "
+                                 "unpreempted tokens")
+        used = ("k1", "k2") if layout == "dense" else (
+            ("k4", "k3") if chunked else ("k1", "k3"))
+        if not all(counts[k] for k in used):
+            raise AssertionError(f"priority {layout}: launches {counts}")
+
+
+def _drive_roles(broker, pre, dec, reqs, on_step=None):
+    """Run a prefill and a decode worker alternately from this thread until
+    every request is answered; each runs only when it has work, so no poll
+    waits. Returns {id: response}."""
+    answers, idle = {}, 0
+    while len(answers) < len(reqs):
+        busy = False
+        if broker.queue_depth() or not pre.batcher.idle:
+            pre.run_once()
+            busy = True
+        if (broker.handoff_depth() or not dec.batcher.idle
+                or dec._adopt_backlog):
+            dec.run_once()
+            busy = True
+        if on_step is not None:
+            on_step()
+        for r in reqs:
+            if r.id not in answers:
+                a = broker.wait_response(r.id, timeout=0.0)
+                if a is not None:
+                    answers[r.id] = a
+        idle = 0 if busy else idle + 1
+        if idle > 100:
+            raise AssertionError(f"roles stalled with {len(answers)} of "
+                                 f"{len(reqs)} answered")
+    for r in reqs:
+        if broker.wait_response(r.id, timeout=0.0) is not None:
+            raise AssertionError(f"{r.id} answered twice")
+    return answers
+
+
+def phase_reference_roles() -> None:
+    """The prefill and decode roles on the tiny fp32 llama, over fp32 and
+    int8 pools, split (K1, then K3 over adopted blocks) and chunked (K4):
+    a prefill-role and a decode-role ContinuousWorker on one InProcBroker
+    answer 6 requests (one sampled, one of a single token, answered by the
+    prefill worker). The card's answers equal the CPU's, and a unified
+    worker's on the card."""
+    from llmss_tpu_torch.engine.engine import DecodeEngine
+    from llmss_tpu_torch.models.decoder import init_params
+    from llmss_tpu_torch.serve.broker import InProcBroker
+    from llmss_tpu_torch.serve.consumer import ContinuousWorker
+    from llmss_tpu_torch.serve.protocol import GenerateRequest
+
+    cfg = _tiny_llama()
+    cpu_params = init_params(cfg, seed=8, device="cpu")
+    gpu_params = _to(cpu_params, "cuda")
+    rng = np.random.default_rng(8)
+    prompts = [[int(t) for t in rng.integers(1, 512, n)]
+               for n in (5, 20, 33, 7, 48, 12)]
+    news = (16, 9, 12, 20, 6, 1)
+
+    def reqs():
+        return [GenerateRequest(id=f"r{i}", token_ids=p, max_new_tokens=n,
+                                **(dict(is_greedy=False, temperature=0.8,
+                                        top_k=20, seed=3) if i == 1 else {}))
+                for i, (p, n) in enumerate(zip(prompts, news))]
+
+    def serve(params, device, kv, chunked, roles):
+        eng = DecodeEngine(cfg, params, device=device, max_seq_len=128,
+                           kv_layout="paged", block_size=16, kv_dtype=kv)
+        broker = InProcBroker()
+        kw = dict(rows=2, chunk_steps=4, group_chunks=2,
+                  chunked_prefill=16 if chunked else None)
+        rs = reqs()
+        for r in rs:
+            broker.push_request(r)
+        if roles:
+            pre = ContinuousWorker(eng, broker, role="prefill", **kw)
+            dec = ContinuousWorker(eng, broker, role="decode", **kw)
+            answers = _drive_roles(broker, pre, dec, rs)
+            if broker.delivery_stats()["handoffs"] != 5:
+                raise AssertionError("not every request was handed off")
+        else:
+            w = ContinuousWorker(eng, broker, **kw)
+            answers = {}
+            while len(answers) < len(rs):
+                w.run_once()
+                for r in rs:
+                    a = broker.wait_response(r.id, timeout=0.0)
+                    if a is not None:
+                        answers[r.id] = a
+        if any(a.error for a in answers.values()):
+            raise AssertionError(f"roles: an error answer {answers}")
+        return [answers[r.id].token_ids for r in rs]
+
+    for kv in (None, "int8"):
+        for chunked in (False, True):
+            want = serve(cpu_params, "cpu", kv, chunked, True)
+            count = _launch_counter()
+            got = serve(gpu_params, None, kv, chunked, True)
+            counts = count()
+            unified = serve(gpu_params, None, kv, chunked, False)
+            emit({"phase": "reference_roles", "kv": kv or "float32",
+                  "admission": "chunked_prefill=16" if chunked else "split",
+                  "identical": got == want, "equal_to_unified": got == unified,
+                  "launches": counts, "tokens": got})
+            if got != want or got != unified:
+                raise AssertionError(f"roles {kv} chunked={chunked}: card "
+                                     f"{got}, CPU {want}, unified {unified}")
+            if not counts["k3"] or not counts["k4" if chunked else "k1"]:
+                raise AssertionError(f"roles: launches {counts}")
+
+
+PRIORITY_NEW, INTERACTIVE_NEW = 64, 32  # serve_priority's new tokens
+
+
+def _priority_requests(cfg):
+    """serve_priority's traffic, made anew per pass: 8 batch-class
+    requests on ``_serve_requests``' first 8 prompts, ``PRIORITY_NEW`` new
+    tokens, and 4 interactive ones of 64-200 tokens (seed 13),
+    ``INTERACTIVE_NEW`` new tokens, streamed (their first increment is
+    their TTFT)."""
+    from llmss_tpu_torch.serve.protocol import GenerateRequest
+
+    base = [r.token_ids for r in _serve_requests(cfg)[1]()[:8]]
+    rng = np.random.default_rng(13)
+    inter = [[int(t) for t in rng.integers(1, cfg.vocab_size, n)]
+             for n in rng.integers(64, 201, 4)]
+
+    def requests():
+        return ([GenerateRequest(id=f"b{i}", token_ids=p,
+                                 max_new_tokens=PRIORITY_NEW,
+                                 slo_class="batch")
+                 for i, p in enumerate(base)],
+                [GenerateRequest(id=f"i{i}", token_ids=p,
+                                 max_new_tokens=INTERACTIVE_NEW,
+                                 slo_class="interactive", stream=True)
+                 for i, p in enumerate(inter)])
+
+    return [len(p) for p in inter], requests
+
+
+def _priority_pass(worker, requests, preempt: bool, card: bool = True):
+    """One serve_priority pass through ``worker`` on a fresh InProcBroker:
+    the batch requests first, the interactive ones after the worker's
+    second ``run_once``; on the ``card`` the worker is prewarmed and
+    captures nothing. Returns (row, {id: tokens}, [(victim, replayed
+    tokens)])."""
+    from llmss_tpu_torch.engine.metrics import EngineMetrics
+    from llmss_tpu_torch.serve.broker import InProcBroker
+
+    bat, eng = worker.batcher, worker.engine
+    cb, bat.preempt_cb = bat.preempt_cb, (bat.preempt_cb if preempt
+                                          else None)
+    broker = worker.broker = InProcBroker()
+    victims = []
+    refund = broker.preempt_requests
+
+    def spy(reqs):
+        victims.extend((r.id, len(r.resume_tokens or ())) for r in reqs)
+        return refund(reqs)
+
+    broker.preempt_requests = spy
+    eng.metrics = EngineMetrics()
+    batch, inter = requests()
+    for r in batch:
+        broker.push_request(r)
+    answers, first, t_push, it = {}, {}, {}, 0
+    sync = torch.cuda.synchronize if card else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    while len(answers) < len(batch) + len(inter):
+        if it == 2:
+            for r in inter:
+                broker.push_request(r)
+                t_push[r.id] = time.perf_counter()
+        worker.run_once()
+        it += 1
+        now = time.perf_counter()
+        for r in inter:
+            if (r.id in t_push and r.id not in first
+                    and broker.pop_stream(r.id) is not None):
+                first[r.id] = now - t_push[r.id]
+        for r in batch + inter:
+            if r.id not in answers:
+                a = broker.wait_response(r.id, timeout=0.0)
+                if a is not None:
+                    answers[r.id] = (a, now - t0)
+    sync()
+    bat.preempt_cb = cb
+    toks = {rid: a.token_ids or [] for rid, (a, _) in answers.items()}
+    for rid, (a, _) in answers.items():
+        want = PRIORITY_NEW if rid[0] == "b" else INTERACTIVE_NEW
+        if a.error or len(toks[rid]) != want:
+            raise AssertionError(f"serve_priority {rid}: bad answer {a}")
+        if broker.wait_response(rid, timeout=0.0) is not None:
+            raise AssertionError(f"serve_priority {rid}: answered twice")
+    st = broker.delivery_stats()
+    if st["preempted"] != len(victims) or st["dlq_depth"] or (
+            preempt is False and victims):
+        raise AssertionError(f"serve_priority: stats {st}, victims {victims}")
+    if bat.allocator.blocks_in_use:
+        raise AssertionError("serve_priority: blocks in use after the pass")
+    if card and eng.metrics.graph_captures:
+        raise AssertionError("serve_priority: a pass captured a graph")
+    wall = max(t for _, t in answers.values())
+    ttft = sorted(first.values())
+    return ({"phase": "serve_priority",
+             "admission": (f"chunked_prefill={bat.chunked_prefill}"
+                           if bat.chunked_prefill else "split"),
+             "preemption": preempt, "preemptions": len(victims),
+             "victims": [v for v, _ in victims],
+             "replayed_prompt_tokens": sum(n for _, n in victims),
+             "preempted_rows": eng.metrics.preempted,
+             "interactive_ttft_ms": [first[r.id] * 1e3 for r in inter],
+             "interactive_ttft_p50_ms": _q(ttft, 50),
+             "interactive_ttft_p90_ms": _q(ttft, 90),
+             "batch_completion_s": max(t for rid, (_, t) in answers.items()
+                                       if rid[0] == "b"),
+             "wall_s": wall,
+             "tokens_per_s": sum(map(len, toks.values())) / wall,
+             "graph_captures_after_prewarm": 0, "blocks_in_use_after": 0},
+            toks, victims)
+
+
+def _priority_rehearsal(chunked: bool):
+    """serve_priority's preempting pass on the CPU, on a one-layer model
+    of the same vocabulary at max_seq_len 1024 with the same pool, rows
+    and groups: the schedule (who is evicted, after how many tokens)
+    depends on those and on the traffic only."""
+    from llmss_tpu_torch.engine.engine import DecodeEngine
+    from llmss_tpu_torch.models.common import DecoderConfig
+    from llmss_tpu_torch.models.decoder import init_params
+    from llmss_tpu_torch.serve.broker import InProcBroker
+    from llmss_tpu_torch.serve.consumer import ContinuousWorker
+
+    cfg = DecoderConfig(**{**LLAMA2_7B, "hidden_size": 64, "n_layers": 1,
+                           "n_heads": 2, "n_kv_heads": 2, "head_dim": 32,
+                           "rotary_dim": 32, "intermediate_size": 128,
+                           "dtype": "float32"})
+    eng = DecodeEngine(cfg, init_params(cfg, seed=0, device="cpu"),
+                       device="cpu", max_seq_len=1024, kv_layout="paged",
+                       block_size=16, kv_blocks=256)
+    w = ContinuousWorker(eng, InProcBroker(), rows=8, chunk_steps=8,
+                         group_chunks=2,
+                         chunked_prefill=128 if chunked else None)
+    return _priority_pass(w, _priority_requests(cfg)[1], True, False)[2]
+
+
+def phase_serve_priority(params) -> None:
+    """Preemption at Llama-2-7B width (bf16, random weights from seed 0):
+    a ContinuousWorker of 8 rows over a 256-block pool, chunk_steps 8,
+    group_chunks 2, prewarmed, split and chunked (128). 8 batch-class
+    requests (64 new tokens) fill the rows; after the worker's second
+    ``run_once`` 4 interactive ones arrive (64-200 tokens, 32 new), each
+    evicting a batch row, which the broker refunds and the worker resumes
+    by replaying its tokens. Each pass once with preemption and once with
+    ``preempt_cb = None``: preemptions and the victims (equal to a CPU
+    rehearsal of the same schedule), replayed prompt tokens, interactive
+    TTFT, batch completion, tokens/s, and the share of each victim's
+    tokens equal to its tokens without preemption (bf16: a
+    measurement)."""
+    from llmss_tpu_torch.engine.engine import DecodeEngine
+    from llmss_tpu_torch.models.common import DecoderConfig
+    from llmss_tpu_torch.serve.broker import InProcBroker
+    from llmss_tpu_torch.serve.consumer import ContinuousWorker
+
+    cfg = DecoderConfig(**LLAMA2_7B)
+    eng = DecodeEngine(cfg, params, max_seq_len=1024, kv_layout="paged",
+                       block_size=16, kv_blocks=256)
+    inter_lens, requests = _priority_requests(cfg)
+    workers, warm = {}, {}
+    for chunked in (False, True):
+        w = workers[chunked] = ContinuousWorker(
+            eng, InProcBroker(), rows=8, chunk_steps=8, group_chunks=2,
+            chunked_prefill=128 if chunked else None)
+        t = time.perf_counter()
+        warm[chunked] = {"prewarm": w.prewarm(),
+                         "prewarm_s": time.perf_counter() - t}
+    keys = eng._graphs.keys()
+    emit({"phase": "serve_priority", "interactive_prompt_lens": inter_lens,
+          "batch_prompt_lens": [len(r.token_ids) for r in requests()[0]],
+          "prewarm": {("chunked" if k else "split"): v
+                      for k, v in warm.items()}})
+    for chunked in (False, True):
+        t = time.perf_counter()
+        rehearsal = _priority_rehearsal(chunked)
+        rehearsal_s = time.perf_counter() - t
+        count = _launch_counter()
+        row, toks, victims = _priority_pass(workers[chunked], requests, True)
+        row["launches"] = count()
+        plain_row, plain, _ = _priority_pass(workers[chunked], requests,
+                                             False)
+        row.update(rehearsal_victims=[v for v, _ in rehearsal],
+                   rehearsal_s=rehearsal_s,
+                   victim_tokens_equal_share={
+                       v: sum(a == b for a, b in zip(toks[v], plain[v]))
+                       / len(plain[v]) for v, _ in victims})
+        emit(row)
+        emit(plain_row)
+        if victims != rehearsal or not victims:
+            raise AssertionError(f"serve_priority: victims {victims} != the "
+                                 f"rehearsal's {rehearsal}")
+    if eng._graphs.keys() != keys:
+        raise AssertionError("serve_priority captured a graph")
+    del workers, w
+    gc.collect()
+
+
+def _timed_handoff(on):
+    """Wrap the handoff's four steps where the serving path calls them
+    (``scheduler.export_blocks`` / ``import_blocks``,
+    ``consumer.encode_blocks`` / ``decode_blocks``) to record each call's
+    ms in ``on``: {step: [(request id, ms, bytes)]}. Export and import
+    are timed between device syncs (the copy alone; export waits on its
+    copy anyway). Returns the undo."""
+    from llmss_tpu_torch.engine import scheduler as sched
+    from llmss_tpu_torch.serve import consumer
+
+    orig = (sched.export_blocks, sched.import_blocks,
+            consumer.encode_blocks, consumer.decode_blocks)
+    cur = {"export": None, "decode": None}
+
+    def nbytes(blocks):
+        return sum(t.numel() * t.element_size()
+                   for t in (blocks[k] for k in ("k", "v", "k_scale",
+                                                 "v_scale"))
+                   if t is not None)
+
+    def export(cache, ids, n):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = orig[0](cache, ids, n)
+        cur["export"] = ((time.perf_counter() - t) * 1e3, nbytes(out))
+        return out
+
+    def encode(blocks, *, req_id, **kw):
+        t = time.perf_counter()
+        out = orig[2](blocks, req_id=req_id, **kw)
+        ms = (time.perf_counter() - t) * 1e3
+        on["export"].append((req_id, *cur["export"]))
+        on["encode"].append((req_id, ms, len(out)))
+        return out
+
+    def decode(data):
+        t = time.perf_counter()
+        out = orig[3](data)
+        ms = (time.perf_counter() - t) * 1e3
+        cur["decode"] = out["req_id"]
+        on["decode"].append((out["req_id"], ms, len(data)))
+        return out
+
+    def import_(cache, k, v, ks, vs, ids):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        orig[1](cache, k, v, ks, vs, ids)
+        torch.cuda.synchronize()
+        on["import"].append((cur["decode"], (time.perf_counter() - t) * 1e3,
+                             sum(x.numel() * x.element_size()
+                                 for x in (k, v, ks, vs) if x is not None)))
+
+    (sched.export_blocks, sched.import_blocks, consumer.encode_blocks,
+     consumer.decode_blocks) = export, import_, encode, decode
+
+    def undo():
+        (sched.export_blocks, sched.import_blocks, consumer.encode_blocks,
+         consumer.decode_blocks) = orig
+
+    return undo
+
+
+def _roles_pass(pre, dec, reqs, steps, prefills, cancel=None, readback=None):
+    """One pass of ``reqs`` through a prefill and a decode worker on a
+    fresh InProcBroker, driven alternately: every answer checked (the
+    ``cancel`` index cancelled once it decodes on the decode side), the
+    handoffs and their bytes, the launches against the steps and
+    prefills both engines ran, no capture, every block back. ``readback``
+    (a request id): its adopted blocks are read back from the decode pool
+    and held to the exported bytes. Returns (row, tokens, handoff
+    timings)."""
+    from llmss_tpu_torch.engine.metrics import EngineMetrics
+    from llmss_tpu_torch.serve.broker import InProcBroker
+
+    L = pre.engine.cfg.n_layers
+    broker = InProcBroker()
+    pre.broker = dec.broker = broker
+    for w in (pre, dec):
+        w.engine.metrics = EngineMetrics()
+    for s in steps:
+        s.update(decode=0, ragged=0)
+    prefills.clear()
+    sizes, adopted, timing = [], {}, {k: [] for k in ("export", "encode",
+                                                       "decode", "import")}
+    push = broker.push_handoff
+    broker.push_handoff = lambda rec: (sizes.append(len(rec.payload)),
+                                       push(rec))[1]
+    adopt = dec.batcher.adopt
+    checked = []
+
+    def timed_adopt(rid, first, n, blocks, *a, **kw):
+        ok = adopt(rid, first, n, blocks, *a, **kw)
+        if ok:
+            adopted[rid] = time.perf_counter()
+            if rid == readback:
+                row = next(i for i, r in dec.batcher.active.items()
+                           if r.req_id == rid)
+                own = dec.batcher._row_owned[row][: blocks["k"].shape[1]]
+                for name in ("k", "v"):
+                    back = getattr(dec.batcher.cache, name)[:, own].cpu()
+                    checked.append(back.view(torch.int16).equal(
+                        blocks[name].view(torch.int16)))
+        return ok
+
+    dec.batcher.adopt = timed_adopt
+    undo = _timed_handoff(timing)
+    count = _launch_counter()
+    cancel_sent = cancel is None
+
+    def on_step():
+        nonlocal cancel_sent
+        if not cancel_sent and any(r.req_id == reqs[cancel].id and r.out
+                                   for r in dec.batcher.active.values()):
+            broker.cancel_request(reqs[cancel].id)
+            cancel_sent = True
+
+    for r in reqs:
+        broker.push_request(r)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        answers = _drive_roles(broker, pre, dec, reqs, on_step)
+    finally:
+        undo()
+        del dec.batcher.adopt
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = count()
+    toks = [answers[r.id].token_ids or [] for r in reqs]
+    for i, (r, t) in enumerate(zip(reqs, toks)):
+        a = answers[r.id]
+        if i == cancel:
+            if a.error != "cancelled" or not 0 < len(t) < r.max_new_tokens:
+                raise AssertionError(f"cancelled request answered {a}")
+        elif a.error or len(t) != r.max_new_tokens:
+            raise AssertionError(f"roles request {i}: bad answer {a}")
+    st = broker.delivery_stats()
+    handed = sum(r.max_new_tokens > 1 for r in reqs)
+    if (st["handoffs"], st["handoff_bytes"]) != (handed, sum(sizes)) or (
+            st["reprefills"] or st["dlq_depth"] or st["handoff_inflight"]):
+        raise AssertionError(f"roles: stats {st}, {handed} to hand off")
+    if readback is not None and checked != [True, True]:
+        raise AssertionError("adopted blocks != the exported bytes")
+    ps, ds = steps
+    if counts["k2"] or counts["k1"] != L * len(prefills) or (
+            counts["k3"] != L * (ps["decode"] + ds["decode"])) or (
+            counts["k4"] != L * (ps["ragged"] + ds["ragged"])):
+        raise AssertionError(f"roles: launches {counts}, steps {steps}, "
+                             f"{len(prefills)} prefills")
+    for w in (pre, dec):
+        if w.engine.metrics.graph_captures:
+            raise AssertionError(f"roles: the {w.role} worker captured")
+        if w.batcher.allocator.blocks_in_use:
+            raise AssertionError(f"roles: the {w.role} worker holds blocks")
+    ttft = sorted(adopted[r.id] - t0 for r in reqs if r.id in adopted)
+    sums = {k: sum(x[1] for x in v) for k, v in timing.items()}
+    row = {"phase": "serve_roles",
+           "admission": (f"chunked_prefill={pre.batcher.chunked_prefill}"
+                         if pre.batcher.chunked_prefill else "split"),
+           "requests": len(reqs), "wall_s": wall,
+           "tokens_per_s": sum(len(t) for i, t in enumerate(toks)
+                               if i != cancel) / wall,
+           "ttft_p50_ms": _q(ttft, 50), "ttft_p90_ms": _q(ttft, 90),
+           "handoffs": st["handoffs"], "handoff_bytes": st["handoff_bytes"],
+           "export_ms": sums["export"], "encode_ms": sums["encode"],
+           "decode_ms": sums["decode"], "import_ms": sums["import"],
+           "export_bytes": sum(x[2] for x in timing["export"]),
+           "launches": counts,
+           "k3_decode_worker": L * ds["decode"],
+           "decode_steps": {"prefill_worker": ps["decode"],
+                            "decode_worker": ds["decode"]},
+           "ragged_steps": ps["ragged"], "prefills": len(prefills),
+           "graph_captures_after_prewarm": 0, "blocks_in_use_after": 0}
+    return row, toks, timing
+
+
+def phase_serve_roles(params, unified: dict) -> None:
+    """The prefill and decode roles at Llama-2-7B width (bf16, random
+    weights from seed 0): a prefill-role ContinuousWorker and a
+    decode-role one on one card, each on its own DecodeEngine over the
+    same weight tensors and its own 256-block pool, 8 rows, chunk_steps 8,
+    group_chunks 2, prewarmed, over one InProcBroker and driven
+    alternately from this thread: ``_serve_requests``' 16 requests, split
+    then chunked (128). Per request and in sum: payload bytes, export
+    (device to host), encode (CRC included), decode and import (host to
+    device) ms; the pass's wall, tokens/s and TTFT (push to adoption)
+    beside ``unified`` (serve_continuous's passes in this run: rows and
+    tokens), and the share of tokens equal to theirs. Then the longest
+    request alone through the roles and through a unified worker (the
+    same shapes): equal tokens, and its adopted blocks read back equal to
+    the exported bytes."""
+    from llmss_tpu_torch.engine.engine import DecodeEngine
+    from llmss_tpu_torch.models.common import DecoderConfig
+    from llmss_tpu_torch.serve.broker import InProcBroker
+    from llmss_tpu_torch.serve.consumer import ContinuousWorker
+
+    cfg = DecoderConfig(**LLAMA2_7B)
+
+    def engine(blocks=256):
+        return DecodeEngine(cfg, params, max_seq_len=1024, kv_layout="paged",
+                            block_size=16, kv_blocks=blocks)
+
+    peng, deng = engine(), engine()
+    steps = (_count_steps(peng), _count_steps(deng))
+    prefills = []
+    prefill = peng._prefill
+
+    def counted_prefill(ids, cache, lens, sa, start=None):
+        prefills.append(tuple(ids.shape))
+        return prefill(ids, cache, lens, sa, start)
+
+    peng._prefill = counted_prefill
+    kw = dict(rows=8, chunk_steps=8, group_chunks=2)
+    pres, warm = {}, {}
+    for chunked in (False, True):
+        w = pres[chunked] = ContinuousWorker(
+            peng, InProcBroker(), role="prefill",
+            chunked_prefill=128 if chunked else None, **kw)
+        t = time.perf_counter()
+        warm["prefill_chunked" if chunked else "prefill_split"] = (
+            w.prewarm(), time.perf_counter() - t)
+    dec = ContinuousWorker(deng, InProcBroker(), role="decode", **kw)
+    t = time.perf_counter()
+    warm["decode"] = (dec.prewarm(seq_buckets=[]), time.perf_counter() - t)
+    keys = (peng._graphs.keys(), deng._graphs.keys())
+    lens, requests = _serve_requests(cfg)
+    emit({"phase": "serve_roles", "prewarm": warm, "prompt_lens": lens})
+    for chunked in (False, True):
+        name = "chunked" if chunked else "split"
+        row, toks, timing = _roles_pass(pres[chunked], dec, requests(),
+                                        steps, prefills, cancel=SERVE_CANCEL)
+        u_row, u_toks = unified[name]
+        n = sum(len(t) for i, t in enumerate(u_toks) if i != SERVE_CANCEL)
+        row.update(
+            unified_wall_s=u_row["wall_s"],
+            unified_tokens_per_s=u_row["tokens_per_s"],
+            unified_ttft_p50_ms=u_row["ttft_p50_ms"],
+            unified_ttft_p90_ms=u_row["ttft_p90_ms"],
+            tokens_equal_to_unified_share=sum(
+                x == y for i, (a, b) in enumerate(zip(toks, u_toks))
+                if i != SERVE_CANCEL for x, y in zip(a, b)) / n,
+            per_request=[{
+                "id": rid[:8], "bytes": nbytes, "export_ms": ms,
+                "encode_ms": sum(x[1] for x in timing["encode"]
+                                 if x[0] == rid),
+                "decode_ms": sum(x[1] for x in timing["decode"]
+                                 if x[0] == rid),
+                "import_ms": sum(x[1] for x in timing["import"]
+                                 if x[0] == rid)}
+                for rid, ms, nbytes in timing["export"]])
+        emit(row)
+    # The longest request alone: the roles against a unified worker.
+    longest = max(range(len(lens)), key=lambda i: lens[i])
+
+    solo = dataclasses.replace(requests()[longest], stream=False)
+    row, toks, _ = _roles_pass(pres[False], dec, [solo], steps, prefills,
+                               readback=solo.id)
+    ueng = engine(blocks=64)
+    uw = ContinuousWorker(ueng, InProcBroker(), **kw)
+    reqs = [dataclasses.replace(solo, delivery_attempts=0)]
+    uw.broker.push_request(reqs[0])
+    ans = None
+    while ans is None:
+        uw.run_once()
+        ans = uw.broker.wait_response(reqs[0].id, timeout=0.0)
+    row.update(solo_prompt_len=lens[longest],
+               equal_to_unified_worker=toks[0] == ans.token_ids,
+               adopted_blocks_equal_exported=True)
+    emit(row)
+    if toks[0] != ans.token_ids:
+        raise AssertionError("a request alone through the roles != the "
+                             "unified worker's tokens")
+    if (peng._graphs.keys(), deng._graphs.keys()) != keys:
+        raise AssertionError("serve_roles captured a graph")
+    del pres, dec, uw, w
     gc.collect()
 
 
@@ -3391,6 +4095,8 @@ def main() -> int:
     phase_reference_paged()
     phase_reference_int8()
     phase_reference_prefix()
+    phase_reference_priority()
+    phase_reference_roles()
     phase_reference_families()
     eng, bf16 = phase_engine(kernels)
     phase_profile(eng)
@@ -3398,12 +4104,16 @@ def main() -> int:
     params = eng.params
     del eng
     torch.cuda.empty_cache()
-    peng, bf16["serve_tokens"], inproc = phase_serve_continuous(params,
-                                                                kernels)
+    peng, bf16["serve_tokens"], inproc, unified = phase_serve_continuous(
+        params, kernels)
     phase_serve_http(peng, bf16["serve_tokens"], inproc, smi)
     phase_profile_paged(peng)
     phase_serve_prefix(peng)
     del peng
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_serve_priority(params)
+    phase_serve_roles(params, unified)
     gc.collect()
     torch.cuda.empty_cache()
     phase_int8(params, kernels, bf16)

@@ -1,7 +1,9 @@
 """KV caches (counterpart: llmss_tpu/engine/cache.py): the dense ring
 (:32-173) and the paged block pool with its host ``BlockAllocator``
-(:176-557), and ``seed_blocks``, which writes a shared prefix's full
-blocks into the pool once.
+(:176-557), ``seed_blocks``, which writes a shared prefix's full
+blocks into the pool once, and the KV handoff's ``export_blocks`` /
+``export_dense_row`` (a row's blocks copied to the host) and
+``import_blocks`` (host blocks written into the pool).
 
 A fixed ``[L, B, T, Hkv, D]`` buffer per K and V; each token's KV goes to
 slot ``position % T`` and a per-slot ``positions`` array (-1 = empty) both
@@ -368,6 +370,98 @@ def write_slots(
     hit = match.any(1)
     val = (match * values[:, :, None].to(buf.dtype)).sum(1)
     buf.copy_(torch.where(hit, val.to(buf.dtype), buf))
+
+
+def _host_copy(t: torch.Tensor) -> torch.Tensor:
+    """``t`` on the host, complete when this returns: on CUDA through
+    pinned memory, waiting on an event behind the copy (only the copy's
+    own stream position, never a later launch); a CPU tensor as is."""
+    if not t.is_cuda:
+        return t
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record()
+    done.synchronize()
+    return host
+
+
+def export_blocks(cache: PagedKVCache, block_ids, n_tokens: int) -> dict:
+    """Host copy of one row's first ``len(block_ids)`` logical blocks, the
+    payload a prefill replica hands to a decode replica (the reference's
+    ``export_blocks``, cache.py:379). A pure read of the pool: tables,
+    positions and refcounts are untouched, so copy-on-write prefix blocks
+    export while other rows keep them. Slots at logical position >=
+    ``n_tokens`` are zeroed (a previous tenant's or a later decode step's
+    bytes would make the payload nondeterministic). The gather runs on the
+    stream after every write enqueued before it, and the copy is complete
+    when this returns, so the blocks may go back to the pool at once.
+
+    Returns ``{"k", "v", "k_scale", "v_scale"}``: host tensors ``[L, nb,
+    bs, Hkv, D]`` (scales ``[L, nb, bs, Hkv]``, None on a bf16 / fp32
+    pool)."""
+    ids = [int(b) for b in block_ids]
+    nb, bs = len(ids), cache.block_size
+    if not 0 < n_tokens <= nb * bs:
+        raise ValueError(
+            f"n_tokens {n_tokens} outside (0, {nb} blocks * {bs}]")
+    idx = torch.tensor(ids, dtype=torch.long).to(cache.k.device)
+    live = n_tokens - (nb - 1) * bs  # live slots of the last block
+
+    def grab(pool):
+        if pool is None:
+            return None
+        seg = pool.index_select(1, idx)
+        seg[:, nb - 1, live:] = 0
+        return _host_copy(seg)
+
+    return {"k": grab(cache.k), "v": grab(cache.v),
+            "k_scale": grab(cache.k_scale), "v_scale": grab(cache.v_scale)}
+
+
+def export_dense_row(cache: KVCache, row: int, n_tokens: int,
+                     block_size: int) -> dict:
+    """``export_blocks`` for one row of the dense ring (cache.py:420): its
+    first ``n_tokens`` slots in the same ``[L, nb, bs, ...]`` layout, the
+    tail zero-padded, so dense and paged KV share one blob format. The
+    row must not have wrapped past ``n_tokens``."""
+    if not 0 < n_tokens <= cache.max_len:
+        raise ValueError(f"n_tokens {n_tokens} outside (0, {cache.max_len}]")
+    nb = -(-n_tokens // block_size)
+
+    def grab(buf):
+        if buf is None:
+            return None
+        seg = buf[:, row, :n_tokens]
+        out = seg.new_zeros((seg.shape[0], nb * block_size)
+                            + tuple(seg.shape[2:]))
+        out[:, :n_tokens] = seg
+        return _host_copy(out.reshape((seg.shape[0], nb, block_size)
+                                      + tuple(seg.shape[2:])))
+
+    return {"k": grab(cache.k), "v": grab(cache.v),
+            "k_scale": grab(cache.k_scale), "v_scale": grab(cache.v_scale)}
+
+
+def import_blocks(cache: PagedKVCache, k, v, k_scale, v_scale,
+                  block_ids) -> None:
+    """Write exported blocks into the pool at ``block_ids`` [nb], in place
+    (the reference's ``import_blocks``, cache.py:452); sentinel ids (>=
+    N) land in the drop block. Host payloads are staged through pinned
+    memory and copied without blocking; the caching host allocator keeps
+    the staging buffer until its copy has run."""
+    dev = cache.k.device
+    N = cache.num_blocks
+    idx = torch.clamp(torch.as_tensor(block_ids, dtype=torch.long),
+                      max=N).to(dev)
+    for pool, seg in ((cache.k, k), (cache.v, v),
+                      (cache.k_scale, k_scale), (cache.v_scale, v_scale)):
+        if pool is None or seg is None:
+            continue
+        seg = torch.as_tensor(seg)
+        if dev.type == "cuda" and not seg.is_cuda:
+            seg = seg.pin_memory().to(dev, non_blocking=True)
+        pool.index_copy_(1, idx, seg.to(device=dev, dtype=pool.dtype))
 
 
 class BlockAllocator:

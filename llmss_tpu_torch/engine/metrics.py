@@ -1,7 +1,7 @@
 """Engine metrics: the subset of llmss_tpu/utils/metrics.py that the
 generate path, the batch worker, the continuous batcher and its worker
 record (latency timers with a bounded reservoir, request / token / error
-counters, the block-pool gauges and shared-prefix evictions, the batcher's
+/ preemption counters, the block-pool gauges and shared-prefix evictions, the batcher's
 per-group host overhead and mixed-batch composition, and ``to_dict``),
 under the reference's names, plus the decode step graphs' captures and
 replays (engine/graphs.py)."""
@@ -117,6 +117,7 @@ class EngineMetrics:
         self.cancelled = 0  # guarded_by: self._lock
         self.deadline_expired = 0  # guarded_by: self._lock
         self.poisoned = 0  # guarded_by: self._lock
+        self.preempted = 0  # guarded_by: self._lock
         self._start = time.monotonic()
 
     def _add(self, field: str, n: int) -> None:
@@ -142,6 +143,10 @@ class EngineMetrics:
     def add_poisoned(self, n: int = 1) -> None:
         """Rows errored out because their logits went non-finite."""
         self._add("poisoned", n)
+
+    def add_preempted(self, n: int = 1) -> None:
+        """Rows evicted mid-decode to admit a higher-class request."""
+        self._add("preempted", n)
 
     def set_kv_blocks(self, total: int | None = None,
                       in_use: int | None = None) -> None:
@@ -204,9 +209,10 @@ class EngineMetrics:
     def to_dict(self) -> dict:
         uptime = time.monotonic() - self._start
         with self._lock:
-            toks, reqs, errs, canc, exp, pois = (
+            toks, reqs, errs, canc, exp, pois, preempt = (
                 self.tokens_generated, self.requests_served, self.errors,
                 self.cancelled, self.deadline_expired, self.poisoned,
+                self.preempted,
             )
             kv_total, kv_used, kv_bs = (
                 self.kv_blocks_total, self.kv_blocks_in_use,
@@ -232,6 +238,7 @@ class EngineMetrics:
             "cancelled": canc,
             "deadline_expired": exp,
             "poisoned_rows": pois,
+            "preempted_rows": preempt,
             "tokens_per_sec_lifetime": round(toks / uptime, 2) if uptime else 0,
             "ttft": self.ttft.to_dict(),
             "prefill": self.prefill.to_dict(),

@@ -52,9 +52,26 @@ row's first owned block (split admission seeds it through tables whose
 shared columns are the sentinel; chunked admission re-feeds it), so no row
 ever writes a shared block.
 
-The ragged group runs eagerly. Not in this port yet: preemption, parking
-and tiered KV (the eviction hook ``demote_cb``), the prefill-only / adopt
-halves of disaggregated serving, and device telemetry.
+Preemption (``preempt_cb``, ``submit(priority=, replayed=)``): when the
+head pending request strictly outranks a running row and admission is
+blocked on rows or blocks, one row per step is evicted between resolve and
+admit (``select_preemption_victim``): its blocks are released as at finish
+and its emitted tokens go to ``preempt_cb``. A resumed request replays
+them as prompt (``replayed``): sampling is stateless per (seed, position),
+so it continues the evicted stream.
+
+Disaggregated serving: a ``prefill_only`` batcher exports each admitted
+row's blocks at its first token (``export_cb``, ``export_blocks``) and
+frees the row; ``adopt`` installs such blocks into a free row of a
+decoding batcher, which decodes on from them without a prefill. A freed
+row's device table and state stay stale until the next upload; that is
+safe because the device runs the stream in order, so every later owner's
+writes land after the stale ones, and the host reads an in-flight group's
+tokens only for rows admitted before it was dispatched (an adopted row
+skips the group in flight at its adoption).
+
+The ragged group runs eagerly. Not in this port yet: parking and tiered
+KV (the hooks ``demote_cb`` / ``park_cb``) and device telemetry.
 """
 
 from __future__ import annotations
@@ -69,7 +86,7 @@ import numpy as np
 import torch
 
 from llmss_tpu_torch.engine.cache import (
-    BlockAllocator, seed_blocks, table_sentinel,
+    BlockAllocator, export_blocks, import_blocks, seed_blocks, table_sentinel,
 )
 from llmss_tpu_torch.engine.engine import (
     DecodeEngine, GenerationParams, _bucket, _sync, to_device, variant_params,
@@ -93,6 +110,12 @@ class _Row:
     # Active on the device, first token not yet seen by the host.
     awaiting_first: bool = True
     t_submit: float = 0.0
+    # SLO-class rank (0 = interactive): a pending request of strictly lower
+    # rank may evict this row.
+    priority: int = 1
+    # Tokens replayed from a preempted run: preloaded into ``out``, and the
+    # finish threshold moves by as many.
+    replayed: int = 0
 
 
 class _HostFetch:
@@ -112,6 +135,21 @@ class _HostFetch:
         if self._event is not None:
             self._event.synchronize()
         return self._host.numpy()
+
+
+def select_preemption_victim(candidates, head_priority: int):
+    """The row to evict for a blocked head request, or None
+    (scheduler.py:135). ``candidates`` are ``(key, priority, emitted)`` of
+    the evictable rows; only rows strictly outranked by the head qualify,
+    the lowest class first, then the fewest emitted tokens (the cheapest
+    replay); exact ties keep the first candidate."""
+    victim = None
+    for key, priority, emitted in candidates:
+        if priority <= head_priority:
+            continue
+        if victim is None or (priority, -emitted) > (victim[1], -victim[2]):
+            victim = (key, priority, emitted)
+    return None if victim is None else victim[0]
 
 
 @dataclasses.dataclass
@@ -136,12 +174,16 @@ class _InFlightGroup:
     # Ragged groups: {row: step} for rows whose prompt completed in this
     # group; that step's token is the request's first.
     prefill_firsts: dict | None = None
+    # Rows adopted after this group was dispatched: its values for them
+    # belong to the row's previous occupant.
+    stale_rows: set = dataclasses.field(default_factory=set)
 
 
 class ContinuousBatcher:
     def __init__(
         self, engine: DecodeEngine, *, rows: int = 8, chunk_steps: int = 1,
         group_chunks: int = 1, chunked_prefill: int | None = None,
+        prefill_only: bool = False,
     ):
         # chunk_steps fused steps per chunk; group_chunks chunks per group
         # while at least 3/4 of the rows are busy, else one chunk of half
@@ -158,6 +200,11 @@ class ContinuousBatcher:
                 )
             if engine.kv_layout != "paged":
                 raise ValueError("chunked_prefill requires kv_layout='paged'")
+        # Prefill-only (the prefill role): rows export their blocks at the
+        # first token and free; the block table is the transfer unit.
+        if prefill_only and engine.kv_layout != "paged":
+            raise ValueError("prefill_only requires kv_layout='paged'")
+        self.prefill_only = prefill_only
         self.engine = engine
         self.rows = rows
         self.chunk_steps = chunk_steps
@@ -165,8 +212,16 @@ class ContinuousBatcher:
         self.group_chunks = group_chunks
         self.chunked_prefill = chunked_prefill
         self._chunked = chunked_prefill is not None
-        # row -> prompt tokens still to feed (chunked prefill).
+        # row -> prompt tokens still to feed / whole prompt length (chunked
+        # prefill).
         self._inflight_prefill: dict[int, list[int]] = {}
+        self._prefill_plen: dict[int, int] = {}
+        # export_cb(req_id, first_token, n_tokens, blocks): a prefill-only
+        # row's exported blocks (``export_blocks``' dict).
+        self.export_cb: Callable[..., None] | None = None
+        # preempt_cb(req_id, tokens): a row evicted for a higher-class
+        # request, with the tokens it emitted; None disables preemption.
+        self.preempt_cb: Callable[[str, list[int]], None] | None = None
         self._paged = engine.kv_layout == "paged"
         if self._paged:
             mb = engine.max_seq_len // engine.block_size
@@ -437,12 +492,22 @@ class ContinuousBatcher:
         req_id: str = "",
         stream_cb: Callable[[list[int]], None] | None = None,
         prefix=None,
+        priority: int = 1,
+        replayed: int = 0,
     ) -> None:
         """Queue a request. ``done_cb`` fires exactly once; ``stream_cb``
         receives each group's new tokens. ``prefix`` (a ``Prefix`` that
         ``token_ids`` extends by at least one token): the row is seeded
-        from it and only the suffix is prefilled, with the same tokens."""
+        from it and only the suffix is prefilled, with the same tokens.
+        ``priority`` is the SLO-class rank (0 = interactive). ``replayed``
+        resumes a preempted request: the last ``replayed`` entries of
+        ``token_ids`` are tokens it already emitted, preloaded into its
+        output (not streamed again), and ``gen.max_new_tokens`` counts the
+        remaining tokens only."""
         gen.validate()
+        if replayed and not 0 < replayed < len(token_ids):
+            raise ValueError(
+                f"replayed={replayed} must be in [0, len(token_ids))")
         if prefix is not None:
             P = prefix.length
             if len(token_ids) <= P or tuple(token_ids[:P]) != prefix.tokens:
@@ -460,7 +525,7 @@ class ContinuousBatcher:
         with self._lock:
             self.pending.append(
                 (req_id, list(token_ids), gen, done_cb, stream_cb,
-                 time.perf_counter(), prefix)
+                 time.perf_counter(), prefix, priority, replayed)
             )
 
     # -- scheduling ---------------------------------------------------------
@@ -553,11 +618,9 @@ class ContinuousBatcher:
         ))
         entries = []
         for row, item in zip(rows, taken):
-            req_id, ids, gen, cb, scb, t_submit, _pfx = item
-            r = _Row(req_id=req_id, gen=gen, out=[], done_cb=cb,
-                     stream_cb=scb, t_submit=t_submit)
+            r = self._new_row(item)
             self.active[row] = r
-            self._row_pos[row] = len(ids)
+            self._row_pos[row] = len(item[1])
             entries.append((row, r))
         return _InFlightAdmission(entries=entries, tok=_HostFetch(tok))
 
@@ -586,12 +649,63 @@ class ContinuousBatcher:
             self._dev(starts), self._dev(self._pad_row_idx(P, rows)),
         ))
         for row, item in zip(rows, taken):
-            req_id, ids, gen, cb, scb, t_submit, _pfx = item
-            self.active[row] = _Row(req_id=req_id, gen=gen, out=[],
-                                    done_cb=cb, stream_cb=scb,
-                                    t_submit=t_submit)
+            self.active[row] = self._new_row(item)
             self._row_pos[row] = start
-            self._inflight_prefill[row] = list(ids[start:])
+            self._inflight_prefill[row] = list(item[1][start:])
+            self._prefill_plen[row] = len(item[1])
+
+    @staticmethod
+    def _new_row(item) -> _Row:
+        """The row of an admitted queue item; a resumed request's replayed
+        tokens (the prompt's tail) preload its output, counted as
+        emitted."""
+        req_id, ids, gen, cb, scb, t_submit, _pfx, pri, rpl = item
+        return _Row(req_id=req_id, gen=gen,
+                    out=list(ids[len(ids) - rpl:]) if rpl else [],
+                    done_cb=cb, stream_cb=scb, t_submit=t_submit,
+                    priority=pri, replayed=rpl, emitted=rpl)
+
+    def _maybe_preempt(self) -> int:
+        """Evict the lowest-class running row when the head pending request
+        strictly outranks it and admission is blocked on rows or blocks
+        (scheduler.py:1128): at most one per step, so the freed capacity
+        feeds this step's admission. Only settled rows with a ``req_id``,
+        outside the in-flight prefill, are candidates. As ``_finish``
+        without the terminal callback: the stream is flushed, the blocks
+        released (owned freed, shared decrefed), and the emitted tokens
+        go to ``preempt_cb``. The row's tokens in the group in flight are
+        never read; the resume regenerates them."""
+        cb = self.preempt_cb
+        if cb is None or self.prefill_only:
+            return 0
+        with self._lock:
+            if not self.pending:
+                return 0
+            head = self.pending[0]
+            blocked = not self._free
+        if not blocked and self._paged:
+            need = -(-(len(head[1]) + head[2].max_new_tokens)
+                     // self.engine.block_size)
+            blocked = need > self.allocator.free_blocks
+        if not blocked:
+            return 0
+        row = select_preemption_victim(
+            [(i, r.priority, len(r.out)) for i, r in self.active.items()
+             if r.req_id and not r.awaiting_first
+             and i not in self._inflight_prefill],
+            head[7])
+        if row is None:
+            return 0
+        r = self.active.pop(row)
+        self._flush_stream(r)
+        self._row_pos.pop(row, None)
+        self._prefill_plen.pop(row, None)
+        self._paged_release_row(row)
+        with self._lock:
+            self._free.append(row)
+        self.engine.metrics.add_preempted(1)
+        cb(r.req_id, list(r.out))
+        return 1
 
     def _resolve_admission(self, adm: _InFlightAdmission | None) -> int:
         """Host bookkeeping for a dispatched admission: read its first
@@ -611,26 +725,147 @@ class ContinuousBatcher:
         """A request's FIRST token: from the admission prefill, or from the
         ragged step that completed its prompt."""
         # TTFT spans submit to here: queueing, the prefill (or the chunked
-        # prompt) and the group the admission overlapped.
-        self.engine.metrics.ttft.record(time.perf_counter() - r.t_submit)
-        self.engine.metrics.add_request(1)
+        # prompt) and the group the admission overlapped. A resumed row
+        # records neither: its client saw its first token before the
+        # preemption.
+        if not r.replayed:
+            self.engine.metrics.ttft.record(time.perf_counter() - r.t_submit)
+            self.engine.metrics.add_request(1)
         r.awaiting_first = False
         eos = r.gen.eos_token_id if r.gen.eos_token_id is not None else -1
         if first == eos:
             self._finish(row, r)
             return
+        if self.prefill_only and r.gen.max_new_tokens > 1:
+            # The decode replica owns the request from here; a one-token
+            # request is answered here.
+            self._export_row(row, r, first,
+                             n_tokens=self._prefill_plen.get(row))
+            return
         r.out.append(first)
         self.engine.metrics.add_tokens(1)
-        if len(r.out) >= r.gen.max_new_tokens:
+        if len(r.out) >= r.gen.max_new_tokens + r.replayed:
             self._finish(row, r)
         else:
             self._flush_stream(r)
+
+    def _export_row(self, row: int, r: _Row, first: int,
+                    n_tokens: int | None = None) -> None:
+        """Prefill-only epilogue (scheduler.py:1250): copy the row's prompt
+        blocks to the host (complete on return), free the row, then hand
+        the payload to ``export_cb``; freeing first means a failing
+        callback cannot leak the row. ``n_tokens`` is the prompt length,
+        given on the chunked path, where ``_row_pos`` has moved past it."""
+        if n_tokens is None:
+            n_tokens = self._row_pos[row]
+        nb = -(-n_tokens // self.engine.block_size)
+        blocks = export_blocks(self.cache, self._host_tables[row, :nb],
+                               n_tokens)
+        self.active.pop(row, None)
+        self._row_pos.pop(row, None)
+        self._inflight_prefill.pop(row, None)
+        self._prefill_plen.pop(row, None)
+        self._paged_release_row(row)
+        with self._lock:
+            self._free.append(row)
+        self.engine.metrics.add_tokens(1)
+        if self.export_cb is not None:
+            self.export_cb(r.req_id, first, n_tokens, blocks)
+
+    @torch.inference_mode()
+    def adopt(self, req_id: str, first_token: int, n_tokens: int,
+              blocks: dict, gen: GenerationParams,
+              done_cb: Callable[..., None],
+              stream_cb: Callable[[list[int]], None] | None = None) -> bool:
+        """The decode half of the KV handoff (scheduler.py:1280): install a
+        prompt's exported blocks into a free row and decode from slot
+        ``n_tokens`` on with ``first_token``, without a prefill. Everything
+        is validated before a row is taken; returns False, with nothing
+        changed, when no row or not enough blocks are free.
+
+        The blocks go into owned blocks in place, the whole host table is
+        uploaded and the row's positions and decode state merged into the
+        same tensors (``copy_``), so the step graphs' addresses hold. The
+        payload bytes are the exported ones, the positions the mask a local
+        prefill writes, and sampling is stateless per (seed, position), so
+        the row continues the stream a local admission would give."""
+        if not self._paged:
+            raise ValueError("adopt requires kv_layout='paged'")
+        if self.prefill_only:
+            raise ValueError("a prefill-only batcher cannot adopt")
+        gen.validate()
+        eng = self.engine
+        eng.check_capacity(n_tokens, gen.max_new_tokens)
+        bs = eng.block_size
+        nb = -(-n_tokens // bs)
+        k_seg = blocks["k"]
+        if k_seg is None or k_seg.shape[1] != nb:
+            raise ValueError(
+                f"payload has {None if k_seg is None else k_seg.shape[1]} "
+                f"blocks, a prompt of {n_tokens} tokens needs {nb}")
+        if k_seg.shape[2] != bs:
+            raise ValueError(
+                f"payload block_size {k_seg.shape[2]} != engine {bs}")
+        if (blocks.get("k_scale") is not None) != self.cache.quantized:
+            raise ValueError(
+                "payload quantization does not match the engine's pool")
+        if tuple(k_seg.shape[3:]) != tuple(self.cache.k.shape[3:]) or (
+                k_seg.shape[0] != self.cache.k.shape[0]):
+            raise ValueError(
+                f"payload blocks {tuple(k_seg.shape)} do not fit the pool "
+                f"{tuple(self.cache.k.shape)}")
+        with self._lock:
+            if not self._free:
+                return False
+            row = self._free.pop()
+        need = -(-(n_tokens + gen.max_new_tokens) // bs)
+        owned = self.allocator.alloc(need)
+        if owned is None and self._paged_evict_idle_prefixes():
+            owned = self.allocator.alloc(need)
+        if owned is None:
+            with self._lock:
+                self._free.append(row)
+            return False
+        self._row_owned[row] = owned
+        self._row_shared[row] = []
+        self._row_reserve_t[row] = time.monotonic()
+        self._host_tables[row, :] = self._sentinel
+        self._host_tables[row, :need] = owned
+        eng.metrics.set_kv_blocks(in_use=self.allocator.blocks_in_use)
+        import_blocks(self.cache, blocks["k"], blocks["v"],
+                      blocks.get("k_scale"), blocks.get("v_scale"),
+                      owned[:nb])
+        pos = np.full(eng.max_seq_len, -1, np.int32)
+        pos[:n_tokens] = np.arange(n_tokens, dtype=np.int32)
+        self.cache.positions[row].copy_(self._dev(pos))
+        self.cache.block_tables.copy_(self._dev(self._host_tables))
+        self._set_state(*eng._admit_merge(
+            self._tokens_dev, self._cur_pos_dev,
+            self._dev(np.asarray([first_token], np.int32)),
+            self._dev(np.asarray([n_tokens], np.int32)),
+            self._dev(np.asarray([row], np.int32)),
+        ))
+        if self._inflight is not None:
+            self._inflight.stale_rows.add(row)
+        r = _Row(req_id=req_id, gen=gen, out=[first_token], done_cb=done_cb,
+                 stream_cb=stream_cb, awaiting_first=False,
+                 t_submit=time.perf_counter())
+        self.active[row] = r
+        self._row_pos[row] = n_tokens
+        eng.metrics.add_request(1)
+        eng.metrics.add_tokens(1)
+        if len(r.out) >= gen.max_new_tokens:
+            self._finish(row, r)
+        else:
+            self._flush_stream(r)
+        return True
 
     def _finish(self, row: int, r: _Row, cancelled: bool = False,
                 error: str | None = None) -> None:
         self.active.pop(row, None)
         self._row_pos.pop(row, None)
         self._inflight_prefill.pop(row, None)
+        self._prefill_plen.pop(row, None)
         self._paged_release_row(row)
         with self._lock:
             self._free.append(row)
@@ -715,6 +950,7 @@ class ContinuousBatcher:
         self._last_fetch_t = None
         self._row_pos.clear()
         self._inflight_prefill.clear()
+        self._prefill_plen.clear()
         for row in list(self.active):
             ids.append(self.active.pop(row).req_id)
             self._paged_release_row(row)
@@ -766,6 +1002,8 @@ class ContinuousBatcher:
         for c in range(nc):
             for i in list(self.active):
                 r = self.active[i]
+                if i in group.stale_rows:
+                    continue
                 if r.awaiting_first:
                     first_c = firsts.get(i)
                     if first_c is None or c < first_c:
@@ -790,7 +1028,7 @@ class ContinuousBatcher:
                         break
                     r.out.append(t)
                     n += 1
-                    if len(r.out) >= r.gen.max_new_tokens:
+                    if len(r.out) >= r.gen.max_new_tokens + r.replayed:
                         finished = True
                         break
                 if finished:
@@ -910,6 +1148,9 @@ class ContinuousBatcher:
         prev, self._inflight = self._inflight, group
         n = self._process_group(prev) if prev is not None else 0
         n += self._resolve_admission(self._pending_adm)
+        # Between resolve and admit: an evicted row's slot and blocks feed
+        # this step's admission.
+        self._maybe_preempt()
         self._pending_adm = self._admit_dispatch()
         return n
 

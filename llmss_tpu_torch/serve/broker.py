@@ -12,7 +12,9 @@ The delivery contract is the reference's:
   terminal error once the attempts reach ``max_delivery_attempts``; shed
   with "deadline exceeded" when its ``deadline_ts`` has passed.
 - ``release_requests`` hands back leased requests a draining worker never
-  started, refunding the attempt.
+  started, refunding the attempt; ``preempt_requests`` requeues the
+  caller's preempted request objects (with their resume point) the same
+  way, counted as ``preempted``.
 - Requests queue per SLO class and drain in class-priority order.
   Cancellation flags and stream tombstones are TTL'd membership state;
   responses nobody collects age out after ``response_ttl_s``.
@@ -26,9 +28,20 @@ flags at ``cancelled:{id}``, streams at ``stream:{id}``, the DLQ at
 ``pqueue:dlq``, counters at ``pqueue:stats:{name}``, metrics at
 ``llmss:metrics``.
 
-Left for later slices: the KV handoff channel (roles), the worker
-registry, routed queues and failover (fleet), the controller epoch, and
-the tracing and cost hooks.
+The KV handoff channel (disaggregated prefill/decode, serve/handoff.py):
+``push_handoff`` queues a ``HandoffRecord`` and then settles the request's
+lease (the record is the prefill worker's ack), counting ``handoffs`` and
+``handoff_bytes``; ``pop_handoff`` leases it to a decode worker, which
+renews it (``touch_handoffs``) and answers (``push_response`` acks it). A
+handoff lease that expires, or a record the decode worker cannot adopt
+(``fail_handoff``), sends the request back to its class queue for a fresh
+prefill (``reprefills``), or dead-letters it at the attempt budget, or
+sheds it past its deadline. Redis keeps the records on ``pqueue:h`` and
+their leases at ``pqueue:hlease:{worker}:{id}``.
+
+Left for later slices: the worker registry, routed queues and handoff
+queues and failover (fleet), the controller epoch, and the tracing and
+cost hooks.
 """
 
 from __future__ import annotations
@@ -43,6 +56,7 @@ import threading
 import time
 import uuid
 
+from llmss_tpu_torch.serve.handoff import HandoffRecord
 from llmss_tpu_torch.serve.protocol import (
     SLO_CLASS_STANDARD, SLO_CLASSES, GenerateRequest, GenerateResponse,
 )
@@ -105,6 +119,46 @@ class Broker(abc.ABC):
         ignored. Returns the number requeued."""
 
     @abc.abstractmethod
+    def preempt_requests(self, reqs) -> int:
+        """Requeue preempted requests, the caller's objects (they carry the
+        worker's ``resume_tokens`` / ``preemptions``), at the head of their
+        class queue with the delivery attempt refunded, counting
+        ``preempted``; an id whose lease is gone is ignored. Returns the
+        number requeued."""
+
+    @abc.abstractmethod
+    def push_handoff(self, record: HandoffRecord) -> None:
+        """Queue a record, then settle its request's lease."""
+
+    def push_handoff_to(self, worker_id: str, record: HandoffRecord) -> None:
+        """Queue a record for one decode worker; without routed queues, on
+        the shared handoff queue."""
+        self.push_handoff(record)
+
+    @abc.abstractmethod
+    def pop_handoff(self, timeout: float = 0.0) -> HandoffRecord | None:
+        """Lease the next record, waiting up to ``timeout`` seconds."""
+
+    @abc.abstractmethod
+    def touch_handoffs(self, request_ids) -> None:
+        """Renew the handoff leases this worker holds."""
+
+    @abc.abstractmethod
+    def ack_handoff(self, request_id: str) -> None:
+        """Settle a handoff lease without answering."""
+
+    def fail_handoff(self, record: HandoffRecord,
+                     error: str | None = None) -> None:
+        """A record the decode worker cannot adopt: settle its lease and
+        dispose of its request now (``_dispose_handoff``)."""
+        self.ack_handoff(record.req.id)
+        self._dispose_handoff(record)
+
+    @abc.abstractmethod
+    def handoff_depth(self) -> int:
+        """Records waiting on the handoff queue."""
+
+    @abc.abstractmethod
     def queue_depth(self) -> int:
         """Requests waiting (not leased): the producer's admission signal."""
 
@@ -157,9 +211,11 @@ class Broker(abc.ABC):
 
     # -- lease expiry ----------------------------------------------------------
 
-    def _settle_expired(self, req: GenerateRequest) -> None:
+    def _settle_expired(self, req: GenerateRequest,
+                        reprefill: bool = False) -> None:
         """Disposition of a lease that expired un-acked: shed past its
-        deadline, dead-letter at the attempt budget, else redeliver."""
+        deadline, dead-letter at the attempt budget, else redeliver (a
+        handoff's request: prefill again, its trace attempt bumped)."""
         if req.deadline_ts is not None and time.time() > req.deadline_ts:
             self._count("deadline_expired")
             self.push_response(GenerateResponse(
@@ -171,12 +227,21 @@ class Broker(abc.ABC):
                 id=req.id, error=(f"dead-lettered after "
                                   f"{req.delivery_attempts} delivery "
                                   "attempts")))
+        elif reprefill:
+            self._count("reprefills")
+            req.trace_attempt += 1
+            self._requeue(req)
         else:
             self._count("redelivered")
             self._requeue(req)
 
+    def _dispose_handoff(self, record: HandoffRecord) -> None:
+        """A handoff whose decode never completed: its exported KV is gone,
+        so the request prefills again, or dead-letters, or is shed."""
+        self._settle_expired(record.req, reprefill=True)
+
     @abc.abstractmethod
-    def _count(self, name: str) -> None: ...
+    def _count(self, name: str, n: int = 1) -> None: ...
 
     @abc.abstractmethod
     def _to_dlq(self, req: GenerateRequest) -> None: ...
@@ -219,6 +284,10 @@ class InProcBroker(Broker):
         self._leases: dict[str, tuple[float, GenerateRequest]] = {}  # guarded_by: self._lease_lock
         self._dlq: list[GenerateRequest] = []  # guarded_by: self._lease_lock
         self._counts = dict.fromkeys(_COUNTERS, 0)  # guarded_by: self._lease_lock
+        # The handoff channel: records, and their leases as
+        # id -> (monotonic expiry, record).
+        self._handoffs: queue.Queue = queue.Queue()
+        self._handoff_leases: dict[str, tuple[float, HandoffRecord]] = {}  # guarded_by: self._lease_lock
         self._lease_lock = threading.Lock()
 
     # -- requests ----------------------------------------------------------------
@@ -232,9 +301,9 @@ class InProcBroker(Broker):
     def _requeue(self, req: GenerateRequest) -> None:
         self._enqueue(req, head=True)
 
-    def _count(self, name: str) -> None:
+    def _count(self, name: str, n: int = 1) -> None:
         with self._lease_lock:
-            self._counts[name] += 1
+            self._counts[name] += n
 
     def _to_dlq(self, req: GenerateRequest) -> None:
         with self._lease_lock:
@@ -275,9 +344,15 @@ class InProcBroker(Broker):
             dead = [req for t, req in self._leases.values() if t <= now]
             for req in dead:
                 del self._leases[req.id]
+            hdead = [rec for t, rec in self._handoff_leases.values()
+                     if t <= now]
+            for rec in hdead:
+                del self._handoff_leases[rec.req.id]
         for req in dead:
             self._settle_expired(req)
-        return len(dead)
+        for rec in hdead:
+            self._dispose_handoff(rec)
+        return len(dead) + len(hdead)
 
     def release_requests(self, request_ids) -> int:
         n = 0
@@ -291,6 +366,55 @@ class InProcBroker(Broker):
             self._enqueue(req, head=True)
             n += 1
         return n
+
+    def preempt_requests(self, reqs) -> int:
+        n = 0
+        for req in reqs:
+            with self._lease_lock:
+                held = self._leases.pop(req.id, None)
+            if held is None:
+                continue  # reaped meanwhile: the reaper's requeue stands
+            req.delivery_attempts = max(0, req.delivery_attempts - 1)
+            self._count("preempted")
+            self._enqueue(req, head=True)
+            n += 1
+        return n
+
+    # -- the handoff channel ---------------------------------------------------------
+
+    def push_handoff(self, record: HandoffRecord) -> None:
+        self._handoffs.put(record)
+        with self._lease_lock:
+            self._leases.pop(record.req.id, None)
+            self._counts["handoffs"] += 1
+            self._counts["handoff_bytes"] += len(record.payload)
+
+    def pop_handoff(self, timeout: float = 0.0) -> HandoffRecord | None:
+        self.reap_expired()
+        try:
+            rec = (self._handoffs.get(timeout=timeout) if timeout
+                   else self._handoffs.get_nowait())
+        except queue.Empty:
+            return None
+        with self._lease_lock:
+            self._handoff_leases[rec.req.id] = (
+                time.monotonic() + self.lease_s, rec)
+        return rec
+
+    def touch_handoffs(self, request_ids) -> None:
+        now = time.monotonic()
+        with self._lease_lock:
+            for rid in request_ids:
+                held = self._handoff_leases.get(rid)
+                if held is not None:
+                    self._handoff_leases[rid] = (now + self.lease_s, held[1])
+
+    def ack_handoff(self, request_id: str) -> None:
+        with self._lease_lock:
+            self._handoff_leases.pop(request_id, None)
+
+    def handoff_depth(self) -> int:
+        return self._handoffs.qsize()
 
     def queue_depth(self) -> int:
         with self._req_cond:
@@ -311,23 +435,25 @@ class InProcBroker(Broker):
 
     def delivery_stats(self) -> dict:
         depth = self.queue_depth()
+        h_depth = self.handoff_depth()
         with self._lease_lock:
             return {
                 "queue_depth": depth,
                 "inflight": len(self._leases),
                 "dlq_depth": len(self._dlq),
-                # No handoff channel in the port: nothing waits there.
-                "handoff_depth": 0,
-                "handoff_inflight": 0,
+                "handoff_depth": h_depth,
+                "handoff_inflight": len(self._handoff_leases),
                 **self._counts,
             }
 
     # -- responses -----------------------------------------------------------------
 
     def push_response(self, resp: GenerateResponse) -> None:
-        """Terminal response: acks the lease and wakes the waiter."""
+        """Terminal response: acks the request or handoff lease and wakes
+        the waiter."""
         with self._lease_lock:
             self._leases.pop(resp.id, None)
+            self._handoff_leases.pop(resp.id, None)
         now = time.monotonic()
         with self._cond:
             for rid in [r for r, t in self._response_expiry.items() if t <= now]:
@@ -479,9 +605,8 @@ class RedisBroker(Broker):
         self._lease_prefix = f"{request_queue}:lease"
         self._dlq_key = f"{request_queue}:dlq"
         self._stats_prefix = f"{request_queue}:stats"
-        # Keys of the reference's fleet and handoff channel, read by
-        # queue_depth and delivery_stats so that a mixed deployment
-        # counts their backlog.
+        # The reference's routed queues (read by queue_depth, so that a
+        # mixed deployment counts their backlog) and the handoff channel.
         self._routed_prefix = f"{request_queue}:w"
         self._handoff_key = f"{request_queue}:h"
         self._hlease_prefix = f"{request_queue}:hlease"
@@ -512,8 +637,8 @@ class RedisBroker(Broker):
         # RPUSH: the pop side RPOPs, so requeued (oldest) work goes first.
         self._r.rpush(self._class_key(_req_class(req)), req.to_json())
 
-    def _count(self, name: str) -> None:
-        self._r.incr(f"{self._stats_prefix}:{name}")
+    def _count(self, name: str, n: int = 1) -> None:
+        self._r.incr(f"{self._stats_prefix}:{name}", n)
 
     def _to_dlq(self, req: GenerateRequest) -> None:
         self._r.lpush(self._dlq_key, req.to_json())
@@ -569,17 +694,22 @@ class RedisBroker(Broker):
     def reap_expired(self) -> int:
         now = self._now()
         n = 0
-        for key in self._scan(f"{self._lease_prefix}:*"):
-            raw = self._r.get(key)
-            if raw is None:
-                continue
-            entry = json.loads(raw)
-            if entry["expires_at"] > now:
-                continue
-            if not self._r.delete(key):
-                continue  # another reaper claimed it
-            self._settle_expired(GenerateRequest.from_json(entry["req"]))
-            n += 1
+        for prefix, settle in (
+                (self._lease_prefix, lambda e: self._settle_expired(
+                    GenerateRequest.from_json(e["req"]))),
+                (self._hlease_prefix, lambda e: self._dispose_handoff(
+                    HandoffRecord.from_json(e["rec"])))):
+            for key in self._scan(f"{prefix}:*"):
+                raw = self._r.get(key)
+                if raw is None:
+                    continue
+                entry = json.loads(raw)
+                if entry["expires_at"] > now:
+                    continue
+                if not self._r.delete(key):
+                    continue  # another reaper claimed it
+                settle(entry)
+                n += 1
         return n
 
     def release_requests(self, request_ids) -> int:
@@ -594,6 +724,60 @@ class RedisBroker(Broker):
             self._requeue(req)
             n += 1
         return n
+
+    def preempt_requests(self, reqs) -> int:
+        n = 0
+        for req in reqs:
+            if not self._r.delete(self._lease_key(req.id)):
+                continue  # reaped meanwhile: the reaper's requeue stands
+            req.delivery_attempts = max(0, req.delivery_attempts - 1)
+            self._count("preempted")
+            self._requeue(req)
+            n += 1
+        return n
+
+    # -- the handoff channel ---------------------------------------------------------
+
+    def _hlease_key(self, request_id: str) -> str:
+        return f"{self._hlease_prefix}:{self._worker_id}:{request_id}"
+
+    def push_handoff(self, record: HandoffRecord) -> None:
+        self._r.lpush(self._handoff_key, record.to_json())
+        self._r.delete(self._lease_key(record.req.id))
+        self._count("handoffs")
+        self._count("handoff_bytes", len(record.payload))
+
+    def pop_handoff(self, timeout: float = 0.0) -> HandoffRecord | None:
+        self.reap_expired()
+        if timeout:
+            item = self._r.brpop(self._handoff_key, timeout=timeout)
+            payload = item[1] if item else None
+        else:
+            payload = self._r.rpop(self._handoff_key)
+        if not payload:
+            return None
+        rec = HandoffRecord.from_json(payload)
+        self._r.set(self._hlease_key(rec.req.id), json.dumps({
+            "expires_at": self._now() + self.lease_s, "rec": rec.to_json(),
+        }), ex=self._lease_ttl())
+        return rec
+
+    def touch_handoffs(self, request_ids) -> None:
+        for rid in request_ids:
+            key = self._hlease_key(rid)
+            raw = self._r.get(key)
+            if raw is None:
+                continue
+            entry = json.loads(raw)
+            entry["expires_at"] = self._now() + self.lease_s
+            self._r.set(key, json.dumps(entry), ex=self._lease_ttl())
+
+    def ack_handoff(self, request_id: str) -> None:
+        self._r.delete(self._hlease_key(request_id))
+
+    def handoff_depth(self) -> int:
+        return int(self._r.llen(self._handoff_key)) + sum(
+            int(self._r.llen(k)) for k in self._scan(f"{self._handoff_key}:*"))
 
     def _routed_depths_by_class(self) -> dict:
         """Backlog on the reference's routed queues ``{pqueue}:w:{worker}``
@@ -626,13 +810,11 @@ class RedisBroker(Broker):
 
     def delivery_stats(self) -> dict:
         vals = self._r.mget([f"{self._stats_prefix}:{k}" for k in _COUNTERS])
-        handoff_depth = int(self._r.llen(self._handoff_key)) + sum(
-            int(self._r.llen(k)) for k in self._scan(f"{self._handoff_key}:*"))
         return {
             "queue_depth": self.queue_depth(),
             "inflight": len(self._scan(f"{self._lease_prefix}:*")),
             "dlq_depth": self.dlq_depth(),
-            "handoff_depth": handoff_depth,
+            "handoff_depth": self.handoff_depth(),
             "handoff_inflight": len(self._scan(f"{self._hlease_prefix}:*")),
             "broker_retries": self._r.retries,
             **{k: int(v or 0) for k, v in zip(_COUNTERS, vals)},
@@ -641,9 +823,11 @@ class RedisBroker(Broker):
     # -- responses -----------------------------------------------------------------
 
     def push_response(self, resp: GenerateResponse) -> None:
-        """Terminal response == ack: the lease is deleted, then the answer
-        goes to ``squeue:{id}`` for ten minutes."""
+        """Terminal response == ack: the request or handoff lease is
+        deleted, then the answer goes to ``squeue:{id}`` for ten
+        minutes."""
         self._r.delete(self._lease_key(resp.id))
+        self._r.delete(self._hlease_key(resp.id))
         key = f"{self._prefix}:{resp.id}"
         self._r.lpush(key, resp.to_json())
         self._r.expire(key, 600)

@@ -10,21 +10,38 @@ with grouped decode, streams increments for ``stream`` requests, and
 answers every row: tokens, ``cancelled`` with the partial tokens, or a
 per-row poison error while batch-mates keep their tokens.
 
-``ContinuousWorker`` (the reference's unified role) feeds the broker's
-requests into a ``ContinuousBatcher`` and answers each one exactly once
-from the batcher's callbacks. A request's ``prefix_token_ids`` hint is
-served: the worker keeps the last ``max_prefixes`` prefixes it built
+``ContinuousWorker`` feeds the broker's requests into a
+``ContinuousBatcher`` and answers each one exactly once from the batcher's
+callbacks. A request's ``prefix_token_ids`` hint is served: the worker
+keeps the last ``max_prefixes`` prefixes it built
 (``DecodeEngine.build_prefix``, an LRU keyed by their tokens) and submits
 the request with its prefix, which gives the tokens of the request without
-the hint. Request fields that later slices serve (``session_id``, and the
-``resume_tokens`` / ``preemptions`` of a preempted request) get an error
-response: such a request is never served without them. The batch
-``Worker`` ignores the prefix hint, as the reference's does.
+the hint. The batch ``Worker`` ignores the prefix hint, as the
+reference's does. ``session_id`` rides along as it does in a reference
+worker without a KV store: nothing is parked.
+
+Roles (``ContinuousWorker(role=)``):
+
+- ``"unified"`` admits and decodes, and preempts: a running row outranked
+  by a blocked head request is evicted, its emitted tokens stamped on the
+  request as ``resume_tokens`` and the request refunded to the broker
+  (``preempt_requests``); whichever worker leases it next replays those
+  tokens as prompt and decodes only the rest, with the same tokens.
+- ``"prefill"`` admits only: each request's blocks are exported at its
+  first token, encoded (serve/handoff.py) and pushed on the broker's
+  handoff channel, which settles the request's lease; a one-token request
+  is answered here.
+- ``"decode"`` leases handoff records instead of requests and adopts their
+  blocks (``ContinuousBatcher.adopt``). A record that finds no free row
+  waits in a local backlog whose leases are renewed every ``run_once``; a
+  record that cannot be adopted (corrupt payload, another pool layout) is
+  failed back to the broker, which prefills its request again.
 
 Both workers stamp ``last_progress_ts`` (the supervisor's watchdog and
 heartbeat read it) and renew the leases they hold every group;
-``ContinuousWorker.load_snapshot`` gives its host-side occupancy. The prefill / decode roles, the KV store, the
-fleet registry, tracing and device telemetry wait for later slices.
+``ContinuousWorker.load_snapshot`` gives its host-side occupancy. Parking
+and the KV store, the fleet registry and routed handoffs, tracing and
+device telemetry wait for later slices.
 
 ``main`` (``llmss-torch-consumer``) serves a checkpoint from a Redis
 broker on one GPU, optionally under the ``Supervisor``; there is no
@@ -36,13 +53,17 @@ from __future__ import annotations
 import logging
 import threading
 import time
+from collections import deque
 
 from llmss_tpu_torch.engine.engine import DecodeEngine, GenerationParams
 from llmss_tpu_torch.engine.scheduler import ContinuousBatcher
 from llmss_tpu_torch.serve.broker import Broker
+from llmss_tpu_torch.serve.handoff import (
+    HandoffRecord, decode_blocks, encode_blocks,
+)
 from llmss_tpu_torch.serve.protocol import (
-    STATE_DRAINING, STATE_READY, GenerateRequest, GenerateResponse,
-    prefix_hash,
+    SLO_CLASS_RANK, STATE_DRAINING, STATE_READY, GenerateRequest,
+    GenerateResponse, prefix_hash,
 )
 
 # How long an idle worker blocks on the queue before it looks again.
@@ -232,19 +253,12 @@ class Worker:
                                    chunk_steps=self.chunk_steps)
 
 
-def _unserved_field(req: GenerateRequest) -> str | None:
-    """The first request field the continuous worker cannot honour yet."""
-    for name in ("session_id", "resume_tokens"):
-        if getattr(req, name):
-            return name
-    if req.preemptions:
-        return "preemptions"
-    return None
+ROLES = ("unified", "prefill", "decode")
 
 
 class ContinuousWorker:
     """Serving loop over the continuous batcher: requests join the running
-    batch at group granularity."""
+    batch at group granularity (module docstring: the roles)."""
 
     def __init__(
         self,
@@ -255,14 +269,34 @@ class ContinuousWorker:
         chunk_steps: int = 8,
         group_chunks: int = 1,
         chunked_prefill: int | None = None,
+        role: str = "unified",
+        poll_timeout_s: float = POLL_TIMEOUT_S,
     ):
+        if role not in ROLES:
+            raise ValueError(f"unknown worker role: {role!r}")
         self.engine = engine
         self.broker = broker
         self.tokenizer = tokenizer
+        self.role = role
+        # How long an idle run_once blocks for a request or a record.
+        self.poll_timeout_s = poll_timeout_s
         self.batcher = ContinuousBatcher(
             engine, rows=rows, chunk_steps=chunk_steps,
             group_chunks=group_chunks, chunked_prefill=chunked_prefill,
+            prefill_only=role == "prefill",
         )
+        # Every request inside the batcher, by id: preemption stamps the
+        # resume point on the original request object, and a handoff
+        # record carries it.
+        self._reqs: dict[str, GenerateRequest] = {}
+        if role == "prefill":
+            self.batcher.export_cb = self._on_export
+        elif role == "unified":
+            # Only a worker that both admits from the request queue and
+            # decodes preempts.
+            self.batcher.preempt_cb = self._on_preempt
+        # Decode role: leased records that found no free row yet.
+        self._adopt_backlog: deque = deque()
         self._publish_counter = 0
         self.draining = False
         # Monotonic stamp after every served group; 0.0 until the first,
@@ -283,10 +317,11 @@ class ContinuousWorker:
         hashes = set(snap.get("prefix_hashes") or [])
         hashes.update(prefix_hash(k) for k in self._prefixes)
         snap.update({
-            "role": "unified",
+            "role": self.role,
             "state": STATE_DRAINING if self.draining else STATE_READY,
             "alive": True,
-            "queue_depth": snap.get("pending", 0),
+            # Backlogged records are load this worker holds the leases of.
+            "queue_depth": snap.get("pending", 0) + len(self._adopt_backlog),
             "prefix_hashes": sorted(hashes),
         })
         return snap
@@ -318,7 +353,8 @@ class ContinuousWorker:
         n = 0
         while True:
             req = self.broker.pop_request(
-                timeout=POLL_TIMEOUT_S if self.batcher.idle and n == 0 else 0.0
+                timeout=self.poll_timeout_s if self.batcher.idle and n == 0
+                else 0.0
             )
             if req is None:
                 return n
@@ -330,35 +366,47 @@ class ContinuousWorker:
                 continue
             try:
                 req.validate()
-                field = _unserved_field(req)
-                if field is not None:
-                    raise ValueError(
-                        f"{field} is not served by this worker yet"
-                    )
                 ids = encode_request(self.tokenizer, req)
                 gen = gen_params_from(self.tokenizer, req)
-                stream_cb = None
-                if req.stream:
-                    def stream_cb(new_toks, req=req):
-                        self.broker.push_stream(req.id, new_toks)
-
+                resume = list(req.resume_tokens or ())
+                if resume:
+                    # A preempted request: prompt and emitted tokens
+                    # prefill as one prompt, and only the rest decodes.
+                    ids = ids + resume
+                    gen.max_new_tokens = req.max_new_tokens - len(resume)
                 prefix = (self._get_prefix(req.prefix_token_ids)
                           if req.prefix_token_ids else None)
-                self.batcher.submit(ids, gen, self._done_cb(req),
-                                    req_id=req.id, stream_cb=stream_cb,
-                                    prefix=prefix)
+                # Registered before submit: a short request can finish
+                # inside the next step.
+                self._reqs[req.id] = req
+                self.batcher.submit(
+                    ids, gen, self._done_cb(req), req_id=req.id,
+                    stream_cb=self._stream_cb(req), prefix=prefix,
+                    priority=SLO_CLASS_RANK.get(req.slo_class, 1),
+                    replayed=len(resume))
             except ValueError as e:  # per-request error surface
+                self._reqs.pop(req.id, None)
                 self.broker.push_response(
                     GenerateResponse(id=req.id, error=str(e))
                 )
                 continue
             n += 1
 
+    def _stream_cb(self, req: GenerateRequest):
+        if not req.stream:
+            return None
+
+        def cb(new_toks):
+            self.broker.push_stream(req.id, new_toks)
+
+        return cb
+
     def _done_cb(self, req: GenerateRequest):
         """Turns the batcher's (tokens, cancelled, error) outcome into
         exactly one broker response."""
 
         def cb(toks, cancelled=False, error=None):
+            self._reqs.pop(req.id, None)
             if error is not None:
                 self.engine.metrics.add_error()
                 self.broker.push_response(
@@ -378,6 +426,85 @@ class ContinuousWorker:
 
         return cb
 
+    # -- preemption ----------------------------------------------------------
+
+    def _on_preempt(self, rid: str, toks: list[int]) -> None:
+        """The batcher evicted ``rid``: stamp its emitted tokens on the
+        original request as its resume point and refund it to the broker
+        (consumer.py:749)."""
+        req = self._reqs.pop(rid, None)
+        if req is None:
+            return  # answered meanwhile
+        req.resume_tokens = list(toks) if toks else None
+        req.preemptions += 1
+        self.broker.preempt_requests([req])
+
+    # -- the KV handoff --------------------------------------------------------
+
+    def _on_export(self, rid: str, first: int, n_tokens: int,
+                   blocks: dict) -> None:
+        """Prefill role: encode a row's exported blocks and push the record
+        on the shared handoff queue (consumer.py:764; no registry, so no
+        routing). ``push_handoff`` queues the record before it settles the
+        request's lease: a failure in between prefills again, never loses
+        the request."""
+        req = self._reqs.pop(rid, None)
+        if req is None:
+            self.broker.push_response(
+                GenerateResponse(id=rid, error="exported request lost"))
+            return
+        payload = encode_blocks(blocks, req_id=rid, n_tokens=n_tokens,
+                                block_size=self.engine.block_size,
+                                trace_id=req.trace_id)
+        self.broker.push_handoff(HandoffRecord(
+            req=req, first_token=first, n_tokens=n_tokens, payload=payload))
+
+    def _try_adopt(self, rec: HandoffRecord) -> bool:
+        """Decode role: install one record into a free row. False only when
+        no row or blocks are free (the record is untouched: the caller
+        keeps it and renews its lease); a deadline, a corrupt payload or a
+        payload the pool cannot take consume the record (consumer.py:792)."""
+        req = rec.req
+        if req.deadline_ts is not None and time.time() > req.deadline_ts:
+            self.engine.metrics.add_expired()
+            self.broker.push_response(
+                GenerateResponse(id=req.id, error="deadline exceeded"))
+            return True
+        try:
+            gen = gen_params_from(self.tokenizer, req)
+            d = decode_blocks(rec.payload)
+            return self.batcher.adopt(
+                req.id, rec.first_token, rec.n_tokens,
+                {k: d[k] for k in ("k", "v", "k_scale", "v_scale")}, gen,
+                self._done_cb(req), stream_cb=self._stream_cb(req))
+        except Exception as e:  # noqa: BLE001 — a bad record is disposed of
+            self.broker.fail_handoff(rec, error=str(e))
+            return True
+
+    def _drain_handoffs(self, backlog_only: bool = False) -> int:
+        """Decode-role intake (consumer.py:843): the backlog first, in
+        order, then new records while rows are free. A record that finds no
+        room goes to the backlog and stops the intake; it is never pushed
+        back (that would open a loss window)."""
+        n = 0
+        while self._adopt_backlog and self._try_adopt(self._adopt_backlog[0]):
+            self._adopt_backlog.popleft()
+            n += 1
+        if backlog_only:
+            return n
+        while not self._adopt_backlog:
+            rec = self.broker.pop_handoff(
+                timeout=self.poll_timeout_s if self.batcher.idle and n == 0
+                else 0.0)
+            if rec is None:
+                break
+            if self._try_adopt(rec):
+                n += 1
+            else:
+                self._adopt_backlog.append(rec)
+                break
+        return n
+
     def begin_drain(self) -> None:
         """Stop taking new requests; ``run_once`` keeps stepping until the
         active rows finish."""
@@ -385,20 +512,29 @@ class ContinuousWorker:
 
     @property
     def drained(self) -> bool:
-        return self.draining and self.batcher.idle
+        return (self.draining and self.batcher.idle
+                and not self._adopt_backlog)
 
     def release_pending(self) -> int:
         """Drain deadline, first half: requests taken but never admitted go
         back to the broker for another worker."""
         ids = self.batcher.drop_pending()
+        for rid in ids:
+            self._reqs.pop(rid, None)
         if ids:
             self.broker.release_requests(ids)
         return len(ids)
 
     def abort_inflight(self, reason: str) -> int:
-        """Drain deadline, second half: error out every admitted request."""
+        """Drain deadline, second half: error out every admitted request;
+        backlogged handoff records go back to the broker to be prefilled
+        again elsewhere."""
+        while self._adopt_backlog:
+            self.broker.fail_handoff(self._adopt_backlog.popleft(),
+                                     error=f"worker restarted: {reason}")
         ids = self.batcher.drain_all()
         for rid in ids:
+            self._reqs.pop(rid, None)
             self.broker.push_response(
                 GenerateResponse(id=rid, error=f"worker restarted: {reason}")
             )
@@ -406,13 +542,23 @@ class ContinuousWorker:
 
     def run_once(self) -> int:
         """Renew leases and apply cancellations for the ids this batcher
-        holds, take new requests, run one batcher step, and publish the
-        metrics every 16 iterations (or when requests arrived)."""
+        holds, take new requests (the decode role: handoff records), run
+        one batcher step, and publish the metrics every 16 iterations (or
+        when requests arrived)."""
         live = self.batcher.live_ids()
         self.broker.touch_requests(live)
+        if self.role == "decode":
+            # Adopted rows and backlogged records are held under handoff
+            # leases (their request leases were settled at push_handoff).
+            self.broker.touch_handoffs(
+                live + [r.req.id for r in self._adopt_backlog])
         for rid in self.broker.check_cancelled(live):
             self.batcher.cancel(rid)
-        n = 0 if self.draining else self._drain_broker()
+        if self.role == "decode":
+            # Draining still adopts the backlog: its leases are held here.
+            n = self._drain_handoffs(backlog_only=self.draining)
+        else:
+            n = 0 if self.draining else self._drain_broker()
         self.batcher.step()
         self.last_progress_ts = time.monotonic()
         self._publish_counter += 1
@@ -429,8 +575,6 @@ class ContinuousWorker:
 # value each may keep here, and what the port lacks for the others.
 _ONE_GPU = "the port serves one model on one GPU"
 _LATER_FLAGS = {
-    "role": ("unified", "disaggregated prefill/decode roles need the KV "
-                        "handoff channel"),
     "worker_id": (None, "a fleet identity needs the worker registry and "
                         "routed queues"),
     "kv_tier_host_mb": (None, "the tiered KV store is not ported"),
@@ -484,8 +628,11 @@ def _parser():
                         help="SIGTERM drain deadline: past it, pending "
                              "requests are released and active rows abort")
     parser.add_argument("--device", type=str, default="cuda")
+    parser.add_argument("--role", choices=ROLES, default="unified",
+                        help="continuous only: prefill = admit and hand the "
+                             "KV off; decode = adopt handed-off KV; both "
+                             "require --kv_layout paged")
     # Accepted so that the refusal names what is missing.
-    parser.add_argument("--role", default=None)
     parser.add_argument("--worker_id", default=None)
     parser.add_argument("--kv_tier_host_mb", type=float, default=None)
     parser.add_argument("--tp", type=int, default=None)
@@ -507,11 +654,12 @@ def main(argv=None):
     for flag, (keep, why) in _LATER_FLAGS.items():
         if getattr(args, flag) not in (None, keep):
             parser.error(f"--{flag} is not served by the torch port yet: {why}")
-    if args.chunked_prefill is not None:
-        if not args.continuous:
-            parser.error("--chunked_prefill requires --continuous")
-        if args.kv_layout != "paged":
-            parser.error("--chunked_prefill requires --kv_layout paged")
+    for flag, on in (("chunked_prefill", args.chunked_prefill is not None),
+                     ("role", args.role != "unified")):
+        if on and not args.continuous:
+            parser.error(f"--{flag} requires --continuous")
+        if on and args.kv_layout != "paged":
+            parser.error(f"--{flag} requires --kv_layout paged")
 
     from llmss_tpu_torch.models.registry import load_model
     from llmss_tpu_torch.serve.broker import RedisBroker
@@ -532,7 +680,7 @@ def main(argv=None):
             w = ContinuousWorker(
                 engine, broker, rows=args.batch_size,
                 chunk_steps=args.chunk_steps, group_chunks=args.group_chunks,
-                chunked_prefill=args.chunked_prefill,
+                chunked_prefill=args.chunked_prefill, role=args.role,
             )
         else:
             w = Worker(engine, broker, batch_size=args.batch_size,
@@ -544,6 +692,7 @@ def main(argv=None):
 
     print("consumer serving"
           + (" (continuous batching)" if args.continuous else "")
+          + (f" (role {args.role})" if args.role != "unified" else "")
           + (" (supervised)" if args.supervise else ""), flush=True)
     if args.supervise:
         from llmss_tpu_torch.serve.supervisor import Supervisor

@@ -1,6 +1,6 @@
 """Boundaries of the torch port: it imports nothing of JAX or of the JAX
-package, nor ``transformers``, ``safetensors`` or ``fastapi`` (the GPU
-machine has none of them), and loads ``redis`` only when a RedisBroker is
+package, nor ``ml_dtypes``, ``transformers``, ``safetensors`` or
+``fastapi`` (the GPU machine has none of them), and loads ``redis`` only when a RedisBroker is
 built without a client; its entry points default to the GPU and raise
 without one, a CUDA request never falls back to the plain CPU versions,
 and a model whose head dim no kernel takes is refused on the GPU at
@@ -52,7 +52,8 @@ def _imported_roots(path: Path) -> set[str]:
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_port_imports_no_jax(path):
     bad = _imported_roots(path) & {"jax", "jaxlib", "llmss_tpu", "flax",
-                                   "transformers", "safetensors", "fastapi"}
+                                   "ml_dtypes", "transformers", "safetensors",
+                                   "fastapi"}
     assert not bad, f"{path} imports {bad}"
 
 
