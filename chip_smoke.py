@@ -129,6 +129,23 @@ exits non-zero without printing a result:
               and layouts (StarCoder's c_attn fused), each through the CLI
               and load_model, the loaded tensors held to the written
               ones.
+8. reference_tiers -- the tiered KV store on the tiny fp32 llama: two
+              sessions of three turns parked and resumed, prefixes
+              demoted and promoted through an LRU of one (and a 3-block
+              pool), dense, paged split and chunked, fp32 and int8, and
+              T1 capped at 0: card tokens and store counts equal the
+              CPU's, fp32 tokens equal the card's without a store;
+   serve_tiers -- the store at Llama-2-7B width (serve_continuous's
+              weights and pool, a fresh engine): prefix waves on four
+              600-token system prompts without a store, with T1 at 1 GiB
+              and at 0, and a second worker promoting what the first
+              demoted; four sessions of three turns without a store, with
+              T1 at 1 GiB, and chunked; per pass wall, TTFT, prompt tokens,
+              peak blocks and device memory, store stats and per-event
+              ms, the counts equal a CPU rehearsal, no capture; then
+              promotion against build_prefix by prefix length. Last, so
+              the store's threads and pinned buffers share the process
+              with no profiled phase.
 
 Then one JSON line with every kernel's numbers, the nvidia-smi line, and
 last the result line {"ok": true, "device": {...}}.
@@ -153,6 +170,7 @@ import sys
 import tempfile
 import threading
 import time
+import types
 import urllib.error
 import urllib.request
 from pathlib import Path
@@ -3480,6 +3498,576 @@ def phase_serve_roles(params, unified: dict) -> None:
     gc.collect()
 
 
+# -- the tiered KV store ----------------------------------------------------------
+
+
+TIER_COUNTS = ("prefix_demotes", "prefix_promotes", "prefix_demote_errors",
+               "sessions_parked", "sessions_resumed",
+               "reprefill_tokens_avoided")
+
+
+def _tiers_attach(worker, store) -> None:
+    """Give ``worker`` the tiered store ``store`` (None: none) with a cold
+    prefix LRU and pool registry, as a freshly built worker has."""
+    bat = worker.batcher
+    worker._prefixes.clear()
+    bat.demote_cb = None
+    if bat._paged:
+        bat._paged_evict_idle_prefixes()
+    worker.kvstore = store
+    bat.demote_cb = worker._on_demote if store is not None else None
+    bat.park_cb = worker._on_park if store is not None else None
+
+
+def _tiers_counts(worker, builds: int) -> dict:
+    """The lifecycle counts a pass must repeat: the store's counters, the
+    pool's evictions by fate, the prefixes built, the parks dropped."""
+    m = worker.engine.metrics.to_dict()
+    store = worker.kvstore
+    st = store.stats() if store is not None else {}
+    return {**{k: st.get(k, 0) for k in TIER_COUNTS},
+            "kv_evictions_demoted": m["kv_evictions_demoted"],
+            "kv_evictions_dropped": m["kv_evictions_dropped"],
+            "prefix_builds": builds,
+            "park_failures": worker.batcher.park_failures}
+
+
+def _tiers_waves(worker, waves, peak: dict) -> dict:
+    """Prefix waves through ``worker``: a wave's requests are pushed
+    together once the previous wave is answered and the store's queued
+    demotions have landed (so a promotion never races its demotion).
+    Returns {id: answer}; ``peak["blocks"]`` is the most blocks in use
+    after a ``run_once``."""
+    answers = {}
+    for wave in waves:
+        if worker.kvstore is not None:
+            worker.kvstore.flush()
+        for r in wave:
+            worker.broker.push_request(r)
+        while not all(r.id in answers for r in wave):
+            worker.run_once()
+            _peak_blocks(worker, peak)
+            for r in wave:
+                if r.id not in answers:
+                    a = worker.broker.wait_response(r.id, timeout=0.0)
+                    if a is not None:
+                        answers[r.id] = a
+    if worker.kvstore is not None:
+        worker.kvstore.flush()
+    return answers
+
+
+def _peak_blocks(worker, peak: dict) -> None:
+    if worker.batcher._paged:
+        peak["blocks"] = max(peak.get("blocks", 0),
+                             worker.batcher.allocator.blocks_in_use)
+
+
+def _tiers_sessions(worker, first: dict, adds: dict, new: int,
+                    peak: dict) -> dict:
+    """Sessions through ``worker`` in rounds: every session's turn k is
+    pushed together, and turn k+1 (turn k's prompt, its answer and
+    ``adds[sid][k]``) once the whole round is answered, so the schedule
+    is the same on every run. Returns {id: answer} (``peak`` as
+    ``_tiers_waves``')."""
+    from llmss_tpu_torch.serve.protocol import GenerateRequest
+
+    prompts = {sid: list(p) for sid, p in first.items()}
+    answers = {}
+    for k in range(1 + max(len(a) for a in adds.values())):
+        ids = [sid for sid in prompts if k <= len(adds[sid])]
+        for sid in ids:
+            worker.broker.push_request(GenerateRequest(
+                id=f"{sid}-{k}", token_ids=prompts[sid], max_new_tokens=new,
+                session_id=sid, turn=k))
+        while not all(f"{sid}-{k}" in answers for sid in ids):
+            worker.run_once()
+            _peak_blocks(worker, peak)
+            for sid in ids:
+                rid = f"{sid}-{k}"
+                if rid not in answers:
+                    a = worker.broker.wait_response(rid, timeout=0.0)
+                    if a is not None:
+                        answers[rid] = a
+        for sid in ids:
+            a = answers[f"{sid}-{k}"]
+            if k < len(adds[sid]) and not a.error:
+                prompts[sid] = prompts[sid] + list(a.token_ids) + adds[sid][k]
+    return answers
+
+
+def _tiers_timers(worker, on: dict):
+    """Time the store's steps where the serving path calls them, in ms per
+    call into ``on`` ({event: [ms]}), by host clock with no sync added:
+    ``demote_encode`` (the store's thread: the copy down on its stream,
+    CRC and join), ``promote`` (a hit of ``fetch_prefix`` on the serving
+    thread: get, CRC, unfold, the staged H2D enqueued; a miss is
+    ``promote_miss``) and its ``promote_crc``, ``park_export`` (the export
+    on the serving thread, which waits for the group in flight),
+    ``park_hook`` (the worker's park hook on the serving thread: encode
+    and store), its ``park_encode`` (CRC and join), ``resume`` (a hit:
+    ``resume_session``, unfold, H2D enqueued; a miss is ``resume_miss``)
+    and its ``resume_crc``, and ``build_prefix`` (its prefill enqueued,
+    the segment cloned). Returns the undo."""
+    import llmss_tpu_torch.engine.scheduler as sch
+    import llmss_tpu_torch.serve.kvstore as kvs
+
+    saved = []
+
+    def patch(obj, name, event):
+        fn = getattr(obj, name)
+        own = name in vars(obj)
+
+        def timed(*a, **k):
+            t = time.perf_counter()
+            out = fn(*a, **k)
+            ev = event(a, k, out) if callable(event) else event
+            if ev:
+                on.setdefault(ev, []).append((time.perf_counter() - t) * 1e3)
+            return out
+
+        saved.append((obj, name, fn, own))
+        setattr(obj, name, timed)
+
+    patch(kvs, "encode_prefix", "demote_encode")
+    patch(kvs, "encode_blocks", lambda a, k, out: (
+        "park_encode" if k["req_id"].startswith("sess:") else None))
+    patch(kvs, "decode_blocks", lambda a, k, out: (
+        "resume_crc" if out["req_id"].startswith("sess:") else "promote_crc"))
+    patch(sch, "export_blocks", "park_export")
+    patch(sch, "export_dense_row", "park_export")
+    if worker.kvstore is not None:
+        patch(worker.kvstore, "fetch_prefix", lambda a, k, out: (
+            "promote" if out is not None else "promote_miss"))
+    patch(worker, "_resume_session", lambda a, k, out: (
+        "resume" if out is not None else "resume_miss"))
+    if worker.batcher.park_cb is not None:
+        patch(worker.batcher, "park_cb", "park_hook")
+    patch(worker.engine, "build_prefix", "build_prefix")
+
+    def undo():
+        for obj, name, fn, own in reversed(saved):
+            if own or isinstance(obj, types.ModuleType):
+                setattr(obj, name, fn)
+            else:
+                delattr(obj, name)
+
+    return undo
+
+
+def _ms_summary(on: dict) -> dict:
+    return {ev: {"n": len(v), "sum": sum(v), "median": float(np.median(v)),
+                 "max": max(v)} for ev, v in sorted(on.items())}
+
+
+def _tiers_reference_schedule(worker, G):
+    """reference_tiers' schedule on one worker: two sessions of three
+    turns (the second seeded-sampled), then five prefix requests over two
+    prefixes through an LRU of one (flushed in between). Returns the
+    tokens."""
+    first = {"a": [3, 1, 4, 1, 5, 9, 2, 6, 5, 3, 5, 8],
+             "b": [2, 7, 1, 8, 2, 8, 1, 8, 2, 8]}
+    adds = {"a": [[50, 51], [60, 61, 62]], "b": [[70], [80, 81]]}
+    got = _tiers_sessions(worker, first, adds, 6, {})
+    pa = [7, 3, 19, 42, 5, 11, 30, 2, 9, 17, 28, 33, 21, 6, 13, 40, 8, 25]
+    pb = [4, 44, 12, 90, 61, 2, 77, 15, 3, 8, 100, 23, 54, 9, 31, 70, 1, 66,
+          5, 48]
+    worker.max_prefixes = 1
+    waves = [[G(id=f"p{i}", token_ids=p + [90 + i], max_new_tokens=6,
+                prefix_token_ids=list(p))]
+             for i, p in enumerate((pa, pb, pa, pb, pa))]
+    got.update(_tiers_waves(worker, waves, {}))
+    if any(a.error for a in got.values()):
+        raise AssertionError(f"reference_tiers: an error answer {got}")
+    return {rid: a.token_ids for rid, a in sorted(got.items())}
+
+
+def phase_reference_tiers() -> None:
+    """The tiered KV store on the tiny fp32 llama: a ContinuousWorker with
+    a ``TieredKVStore`` (T1 over an InProcBlobStore) serves two sessions
+    of three turns (turns 2 and 3 resume from parked KV) and five prefix
+    requests through an LRU of one prefix (demote, promote; paged over a
+    3-block pool, so the pool demotes too), dense (K1 + K2), paged split
+    (K1 + K3) and chunked (K4 + K3), fp32 and int8, and paged with T1
+    capped at 0 (every blob through T2). The card's tokens and store
+    counts equal the CPU's; on fp32 the tokens also equal the card's
+    without a store."""
+    from llmss_tpu_torch.engine.engine import DecodeEngine
+    from llmss_tpu_torch.models.decoder import init_params
+    from llmss_tpu_torch.serve.broker import InProcBroker
+    from llmss_tpu_torch.serve.consumer import ContinuousWorker
+    from llmss_tpu_torch.serve.kvstore import (
+        HostKVStore, InProcBlobStore, TieredKVStore,
+    )
+    from llmss_tpu_torch.serve.protocol import GenerateRequest
+
+    cfg = _tiny_llama()
+    cpu_params = init_params(cfg, seed=9, device="cpu")
+    gpu_params = _to(cpu_params, "cuda")
+
+    def run(params, device, mode, kv, store, cap=1 << 30):
+        paged = mode != "dense"
+        eng = DecodeEngine(cfg, params, device=device, max_seq_len=64,
+                           kv_dtype=kv, **(dict(kv_layout="paged",
+                                                block_size=16, kv_blocks=3)
+                                           if paged else {}))
+        st = (TieredKVStore(host=HostKVStore(cap_bytes=cap),
+                            blob=InProcBlobStore()) if store else None)
+        w = ContinuousWorker(eng, InProcBroker(), rows=2, chunk_steps=2,
+                             poll_timeout_s=0.0, kvstore=st,
+                             chunked_prefill=8 if mode == "chunked" else None)
+        toks = _tiers_reference_schedule(w, GenerateRequest)
+        counts = _tiers_counts(w, 0)
+        if st is not None:
+            t = st.stats()
+            counts.update(t1={k: v for k, v in t["t1"].items()
+                              if k != "bytes"}, t2=t["t2"])
+        return toks, counts
+
+    for mode, kv, cap in (("dense", None, None), ("dense", "int8", None),
+                          ("paged", None, None), ("paged", "int8", None),
+                          ("chunked", None, None), ("chunked", "int8", None),
+                          ("paged", None, 0)):
+        cap = 1 << 30 if cap is None else cap
+        t0 = time.perf_counter()
+        want, want_c = run(cpu_params, "cpu", mode, kv, True, cap)
+        cpu_s = time.perf_counter() - t0
+        count = _launch_counter()
+        got, got_c = run(gpu_params, None, mode, kv, True, cap)
+        counts = count()
+        row = {"phase": "reference_tiers", "mode": mode,
+               "kv": kv or "float32", "t1_cap_bytes": cap,
+               "identical": got == want, "counts_equal": got_c == want_c,
+               "counts": got_c, "launches": counts}
+        if kv is None:
+            plain, _ = run(gpu_params, None, mode, kv, False)
+            row["equal_to_no_store"] = got == plain
+        row["seconds"] = time.perf_counter() - t0
+        row["cpu_seconds"] = cpu_s
+        emit({**row, "tokens": got})
+        if got != want or got_c != want_c:
+            raise AssertionError(f"tiers {mode} {kv}: card {got} {got_c} != "
+                                 f"CPU {want} {want_c}")
+        if not row.get("equal_to_no_store", True):
+            raise AssertionError(f"tiers {mode}: tokens != no-store tokens")
+        if got_c["prefix_demote_errors"] or got_c["park_failures"] or not (
+                got_c["sessions_resumed"] and got_c["prefix_promotes"]):
+            raise AssertionError(f"tiers {mode} {kv}: counts {got_c}")
+        used = ("k1", "k2") if mode == "dense" else (
+            ("k4", "k3") if mode == "chunked" else ("k1", "k3"))
+        if not all(counts[k] for k in used):
+            raise AssertionError(f"tiers {mode} {kv}: launches {counts}")
+
+
+TIERS_NEW = 32  # new tokens per serve_tiers request
+
+
+def _tiers_traffic(cfg):
+    """serve_tiers' traffic (seed 14): four 600-token system prompts, and
+    per wave two requests on one of them with 16-48-token suffixes, the
+    waves on prompts 0 1 2 3 0 1 2 3; four sessions whose turns add
+    100-300 tokens. Returns (make_waves(order), first turns, adds)."""
+    from llmss_tpu_torch.serve.protocol import GenerateRequest
+
+    rng = np.random.default_rng(14)
+    V = cfg.vocab_size
+
+    def toks(n):
+        return [int(t) for t in rng.integers(1, V, n)]
+
+    systems = [toks(SYSTEM_LEN) for _ in range(4)]
+    sufs = [[toks(int(n)) for n in rng.integers(16, 49, 2)] for _ in range(8)]
+
+    def waves(order=(0, 1, 2, 3, 0, 1, 2, 3)):
+        return [[GenerateRequest(id=f"w{j}r{i}", token_ids=systems[s] + suf,
+                                 max_new_tokens=TIERS_NEW,
+                                 prefix_token_ids=list(systems[s]))
+                 for i, suf in enumerate(sufs[j])]
+                for j, s in enumerate(order)]
+
+    first = {f"s{i}": toks(int(rng.integers(100, 301))) for i in range(4)}
+    adds = {sid: [toks(int(n)) for n in rng.integers(100, 301, 2)]
+            for sid in first}
+    return waves, first, adds
+
+
+def _tiers_plan():
+    """serve_tiers' passes, in order: (name, part, worker, T1 cap or None
+    for no store, the earlier pass whose blob store it shares or None)."""
+    return [("prefix_no_store", "prefix", "split", None, None),
+            ("prefix_t1_1GiB", "prefix", "split", 1 << 30, None),
+            ("prefix_t1_0", "prefix", "split", 0, None),
+            ("prefix_second_worker", "prefix", "chunked", 1 << 30,
+             "prefix_t1_0"),
+            ("sessions_no_store", "sessions", "split", None, None),
+            ("sessions_t1_1GiB", "sessions", "split", 1 << 30, None),
+            ("sessions_t1_1GiB_chunked", "sessions", "chunked", 1 << 30,
+             None)]
+
+
+def _tiers_passes(workers, traffic):
+    """Yield each pass of ``_tiers_plan`` as (name, part, worker, T1 cap,
+    blob store, second), the blob store fresh or shared as planned."""
+    from llmss_tpu_torch.serve.kvstore import InProcBlobStore
+
+    blobs = {}
+    for name, part, wname, cap, shared in _tiers_plan():
+        blob = blobs[shared] if shared else InProcBlobStore()
+        if name == "prefix_t1_0":
+            blobs[name] = blob
+        yield name, part, workers[wname], cap, blob, shared is not None
+
+
+def _tiers_pass(w, part, cap, blob, traffic, second: bool, peak: dict,
+                on: dict | None = None):
+    """One serve_tiers pass on worker ``w``: attached to a store of T1 cap
+    ``cap`` over ``blob`` (no store when ``cap`` is None), its metrics
+    reset, the pass's traffic driven (a ``second`` worker's prefix pass:
+    the first round of waves only). Returns (answers, counts)."""
+    from llmss_tpu_torch.engine.metrics import EngineMetrics
+    from llmss_tpu_torch.serve.kvstore import HostKVStore, TieredKVStore
+
+    store = None
+    if cap is not None:
+        store = TieredKVStore(host=HostKVStore(cap_bytes=cap), blob=blob)
+    _tiers_attach(w, store)
+    w.batcher.park_failures = 0
+    w.engine.metrics = EngineMetrics()
+    builds = []
+    build = w.engine.build_prefix
+    w.engine.build_prefix = lambda ids: builds.append(len(ids)) or build(ids)
+    undo = _tiers_timers(w, on) if on is not None else (lambda: None)
+    waves, first, adds = traffic
+    try:
+        if part == "prefix":
+            answers = _tiers_waves(w, waves((0, 1, 2, 3) if second else (
+                0, 1, 2, 3, 0, 1, 2, 3)), peak)
+        else:
+            answers = _tiers_sessions(w, first, adds, TIERS_NEW, peak)
+    finally:
+        undo()
+        del w.engine.build_prefix
+    return answers, _tiers_counts(w, len(builds))
+
+
+def _tiers_workers(eng):
+    """A split and a chunked (128) ContinuousWorker on ``eng``: 8 rows,
+    chunk_steps 8, group_chunks 2, a prefix LRU of two, no idle poll."""
+    from llmss_tpu_torch.serve.broker import InProcBroker
+    from llmss_tpu_torch.serve.consumer import ContinuousWorker
+
+    out = {}
+    for wname, cp in (("split", None), ("chunked", 128)):
+        w = out[wname] = ContinuousWorker(
+            eng, InProcBroker(), rows=8, chunk_steps=8, group_chunks=2,
+            chunked_prefill=cp, poll_timeout_s=0.0)
+        w.max_prefixes = 2
+    return out
+
+
+def _tiers_rehearsal():
+    """serve_tiers' passes on the CPU, on a one-layer model of the same
+    vocabulary at max_seq_len 1024 with the same pool, rows, groups and
+    LRU: the counts depend on those and on the traffic's lengths only.
+    Returns {pass: counts}."""
+    from llmss_tpu_torch.engine.engine import DecodeEngine
+    from llmss_tpu_torch.models.common import DecoderConfig
+    from llmss_tpu_torch.models.decoder import init_params
+
+    cfg = DecoderConfig(**{**LLAMA2_7B, "hidden_size": 64, "n_layers": 1,
+                           "n_heads": 2, "n_kv_heads": 2, "head_dim": 32,
+                           "rotary_dim": 32, "intermediate_size": 128,
+                           "dtype": "float32"})
+    eng = DecodeEngine(cfg, init_params(cfg, seed=0, device="cpu"),
+                       device="cpu", max_seq_len=1024, kv_layout="paged",
+                       block_size=16, kv_blocks=256)
+    workers = _tiers_workers(eng)
+    traffic = _tiers_traffic(cfg)
+    return {name: _tiers_pass(w, part, cap, blob, traffic, second, {})[1]
+            for name, part, w, cap, blob, second in _tiers_passes(workers,
+                                                                  traffic)}
+
+
+def _promote_vs_build(eng) -> dict:
+    """Promotion against rebuilding at Llama-2-7B width on an idle card:
+    per prefix length (random tokens, seed 15), ``build_prefix`` (the
+    prefill and the segment's clone), the demotion's encode on the store's
+    thread, and ``fetch_prefix`` from T1 (get, CRC, unfold, H2D), each
+    between device syncs, best of 3, with the CRC alone beside it; the
+    promoted prefix must equal the built one bit for bit. The break-even
+    length is where promotion stops being faster: interpolated linearly
+    between the last measured length at which it is faster and the next
+    (None when it is faster or slower at every length)."""
+    from llmss_tpu_torch.serve.handoff import decode_blocks
+    from llmss_tpu_torch.serve.kvstore import (
+        HostKVStore, TieredKVStore, prefix_key,
+    )
+
+    rng = np.random.default_rng(15)
+    rows = []
+    for n in (64, 128, 256, 512, 600, 900):
+        toks = [int(t) for t in rng.integers(1, eng.cfg.vocab_size, n)]
+        store = TieredKVStore(host=HostKVStore(cap_bytes=4 << 30))
+        t = {"build": [], "demote": [], "promote": [], "crc": []}
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pfx = eng.build_prefix(toks)
+            torch.cuda.synchronize()
+            t["build"].append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            store.demote_prefix(pfx, eng.block_size)
+            store.flush()
+            t["demote"].append(time.perf_counter() - t0)
+            payload = store.host.get(prefix_key(toks))
+            t0 = time.perf_counter()
+            decode_blocks(payload)
+            t["crc"].append(time.perf_counter() - t0)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = store.fetch_prefix(toks, max_seq_len=eng.max_seq_len,
+                                     device=eng.device)
+            torch.cuda.synchronize()
+            t["promote"].append(time.perf_counter() - t0)
+        if store.stats()["prefix_demote_errors"] or got is None or any(
+                not torch.equal(getattr(got, a)[:, :n], getattr(pfx, a)[:, :n])
+                or getattr(got, a).shape != getattr(pfx, a).shape
+                for a in ("k", "v")):
+            raise AssertionError(f"promote_vs_build {n}: the promoted prefix "
+                                 "differs from the built one")
+        rows.append({"tokens": n, "blob_bytes": len(payload),
+                     **{f"{k}_ms": min(v) * 1e3 for k, v in t.items()}})
+        del pfx, got, store
+    even = None
+    for a, b in zip(rows, rows[1:]):
+        da = a["build_ms"] - a["promote_ms"]
+        db = b["build_ms"] - b["promote_ms"]
+        if da > 0 >= db:
+            even = a["tokens"] + (b["tokens"] - a["tokens"]) * da / (da - db)
+    return {"rows": rows, "break_even_tokens": even}
+
+
+def phase_serve_tiers() -> None:
+    """The tiered KV store at Llama-2-7B width on an engine of
+    serve_continuous's weights (seed 0) and settings (bf16, max_seq_len
+    1024, 256 blocks of 16), ContinuousWorkers of 8
+    rows, chunk_steps 8, group_chunks 2, a prefix LRU of two, prewarmed.
+    (a) Prefix tiers: waves of two requests on four 600-token system
+    prompts (32 new tokens), prompts 0-3 then 0-3 again, so the LRU and
+    the pool demote each prompt and the second round promotes it: with no
+    store, T1 at 1 GiB over an InProcBlobStore, T1 capped at 0 (every
+    promotion from T2), then the chunked worker as a second worker over
+    the cap-0 pass's blob store, promoting each prompt without building.
+    (b) Sessions: four sessions of three turns (100-300 new prompt tokens
+    a turn, 32 out), turns 2 and 3 resumed from parked KV: no store, T1 at
+    1 GiB split, and chunked. Per pass: wall, tokens/s, TTFT, prompt
+    tokens K1 / K4 computed, peak blocks and device memory, the store's
+    stats, per-event ms (``_tiers_timers``), launches, the share of tokens
+    equal to the no-store pass's; the counts equal a CPU rehearsal, no
+    demote error, no park dropped, no capture after prewarm. Then
+    promotion against rebuilding by prefix length."""
+    from llmss_tpu_torch.engine.engine import DecodeEngine
+    from llmss_tpu_torch.models.common import DecoderConfig
+    from llmss_tpu_torch.models.decoder import init_params
+
+    t_phase = t = time.perf_counter()
+    rehearsal = _tiers_rehearsal()
+    rehearsal_s = time.perf_counter() - t
+    cfg = DecoderConfig(**LLAMA2_7B)
+    eng = DecodeEngine(cfg, init_params(cfg, seed=0), max_seq_len=1024,
+                       kv_layout="paged", block_size=16, kv_blocks=256)
+    prefills = []
+    prefill = eng._prefill
+
+    def counted_prefill(ids, cache, lens, sa, start=None):
+        prefills.append(lens)
+        return prefill(ids, cache, lens, sa, start)
+
+    eng._prefill = counted_prefill
+    workers = _tiers_workers(eng)
+    warm = {}
+    for wname, w in workers.items():
+        t = time.perf_counter()
+        warm[wname] = {"prewarm": w.prewarm(prefix_prefill=True),
+                       "prewarm_s": time.perf_counter() - t}
+    keys = eng._graphs.keys()
+    traffic = _tiers_traffic(eng.cfg)
+    emit({"phase": "serve_tiers", "prewarm": warm,
+          "rehearsal_s": rehearsal_s, "system_prompt_tokens": SYSTEM_LEN,
+          "session_turn_lens": {sid: [len(traffic[1][sid])]
+                                + [len(a) for a in traffic[2][sid]]
+                                for sid in traffic[1]}})
+    plain = {}
+    for name, part, w, cap, blob, second in _tiers_passes(workers, traffic):
+        on, peak = {}, {}
+        bat = w.batcher
+        prefills.clear()
+        count = _launch_counter()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        answers, counts = _tiers_pass(w, part, cap, blob, traffic, second,
+                                      peak, on)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = count()
+        toks = {rid: a.token_ids or [] for rid, a in answers.items()}
+        for rid, a in answers.items():
+            if a.error or len(toks[rid]) != TIERS_NEW:
+                raise AssertionError(f"serve_tiers {name} {rid}: bad answer "
+                                     f"{a}")
+        m = eng.metrics.to_dict()
+        if part not in plain:
+            plain[part] = toks
+        ref = plain[part]
+        same = [x == y for rid in toks if rid in ref
+                for x, y in zip(toks[rid], ref[rid])]
+        row = {"phase": "serve_tiers", "pass": name, "part": part,
+               "admission": ("split" if bat.chunked_prefill is None
+                             else f"chunked_prefill={bat.chunked_prefill}"),
+               "t1_cap_bytes": cap, "requests": len(answers),
+               "new_tokens": TIERS_NEW, "wall_s": wall,
+               "tokens_per_s": sum(map(len, toks.values())) / wall,
+               "ttft_p50_ms": eng.metrics.ttft.quantile_ms(50),
+               "ttft_p90_ms": eng.metrics.ttft.quantile_ms(90),
+               "k1_prompt_tokens": sum(int(x) for lens in prefills
+                                       for x in lens.tolist() if x > 1),
+               "k4_prompt_tokens": m["mixed_batch"]["prefill_tokens_chunked"],
+               "peak_blocks_in_use": peak.get("blocks"),
+               "peak_device_bytes": torch.cuda.max_memory_allocated(),
+               "launches": launches,
+               "counts": counts, "rehearsal_counts": rehearsal[name],
+               "kv_tiers": w.kvstore.stats() if w.kvstore else None,
+               "events_ms": _ms_summary(on),
+               "tokens_equal_to_no_store_share": (sum(same) / len(same)
+                                                  if same else None),
+               "graph_captures_after_prewarm": eng.metrics.graph_captures}
+        emit(row)
+        if counts != rehearsal[name]:
+            raise AssertionError(f"serve_tiers {name}: counts {counts} != "
+                                 f"the rehearsal's {rehearsal[name]}")
+        if counts["prefix_demote_errors"] or counts["park_failures"]:
+            raise AssertionError(f"serve_tiers {name}: {counts}")
+        if eng.metrics.graph_captures or eng._graphs.keys() != keys:
+            raise AssertionError(f"serve_tiers {name}: a pass captured a "
+                                 "graph")
+        used = ("k4", "k3") if bat.chunked_prefill else ("k1", "k3")
+        if not all(launches[k] for k in used):
+            raise AssertionError(f"serve_tiers {name}: launches {launches}")
+    for w in workers.values():
+        _tiers_attach(w, None)
+    del eng._prefill, workers, w, bat
+    gc.collect()
+    t = time.perf_counter()
+    row = _promote_vs_build(eng)
+    emit({"phase": "serve_tiers", "check": "promote_vs_build", **row,
+          "seconds": time.perf_counter() - t,
+          "phase_seconds": time.perf_counter() - t_phase})
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def phase_profile_paged(eng, tag: str = "") -> None:
     """Where the time goes on the serving path: one paged decode group
     (2 chunks x 8 steps) by graph replays and eagerly, and one ragged group
@@ -4086,44 +4674,67 @@ def phase_cli() -> None:
         torch.cuda.empty_cache()
 
 
+PHASE_SECONDS: dict[str, float] = {}
+
+
+def timed(fn, *args, **kwargs):
+    """``fn(*args, **kwargs)``, its host seconds added to ``PHASE_SECONDS``
+    under its name (and a leading string argument, the model's)."""
+    name = fn.__name__.removeprefix("phase_")
+    if args and isinstance(args[0], str):
+        name = f"{name}:{args[0]}"
+    t = time.perf_counter()
+    try:
+        return fn(*args, **kwargs)
+    finally:
+        PHASE_SECONDS[name] = time.perf_counter() - t
+
+
 def main() -> int:
-    smi = phase_device()
-    phase_build()
-    kernels = check_kernels()
-    check_paged_kernels(kernels)
-    phase_reference()
-    phase_reference_paged()
-    phase_reference_int8()
-    phase_reference_prefix()
-    phase_reference_priority()
-    phase_reference_roles()
-    phase_reference_families()
-    eng, bf16 = phase_engine(kernels)
-    phase_profile(eng)
-    phase_serve(eng)
+    t_main = time.perf_counter()
+    smi = timed(phase_device)
+    timed(phase_build)
+    kernels = timed(check_kernels)
+    timed(check_paged_kernels, kernels)
+    timed(phase_reference)
+    timed(phase_reference_paged)
+    timed(phase_reference_int8)
+    timed(phase_reference_prefix)
+    timed(phase_reference_priority)
+    timed(phase_reference_roles)
+    timed(phase_reference_families)
+    eng, bf16 = timed(phase_engine, kernels)
+    timed(phase_profile, eng)
+    timed(phase_serve, eng)
     params = eng.params
     del eng
     torch.cuda.empty_cache()
-    peng, bf16["serve_tokens"], inproc, unified = phase_serve_continuous(
-        params, kernels)
-    phase_serve_http(peng, bf16["serve_tokens"], inproc, smi)
-    phase_profile_paged(peng)
-    phase_serve_prefix(peng)
+    peng, bf16["serve_tokens"], inproc, unified = timed(
+        phase_serve_continuous, params, kernels)
+    timed(phase_serve_http, peng, bf16["serve_tokens"], inproc, smi)
+    timed(phase_profile_paged, peng)
+    timed(phase_serve_prefix, peng)
     del peng
     gc.collect()
     torch.cuda.empty_cache()
-    phase_serve_priority(params)
-    phase_serve_roles(params, unified)
+    timed(phase_serve_priority, params)
+    timed(phase_serve_roles, params, unified)
     gc.collect()
     torch.cuda.empty_cache()
-    phase_int8(params, kernels, bf16)
+    timed(phase_int8, params, kernels, bf16)
     del params
     gc.collect()
     torch.cuda.empty_cache()
-    phase_model("gptj_6b", GPTJ_6B_HF, kernels, seed=1)
-    phase_model("starcoder", STARCODER_HF, kernels, seed=2)
-    phase_head_groups()
-    phase_cli()
+    timed(phase_model, "gptj_6b", GPTJ_6B_HF, kernels, seed=1)
+    timed(phase_model, "starcoder", STARCODER_HF, kernels, seed=2)
+    timed(phase_head_groups)
+    timed(phase_cli)
+    # The tiered store last: its threads, pinned staging and blobs never
+    # share the process with a profiled phase.
+    timed(phase_reference_tiers)
+    timed(phase_serve_tiers)
+    emit({"phase": "seconds", "by_phase": PHASE_SECONDS,
+          "main_s": time.perf_counter() - t_main})
     rows = []
     for name, fn, src, replaces in (
         ("K1", "flash_attention", "llmss_tpu_torch/csrc/flash_attention.cu",

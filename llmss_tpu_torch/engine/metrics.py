@@ -100,8 +100,8 @@ class EngineMetrics:
         self.kv_blocks_in_use = 0  # guarded_by: self._lock
         self.kv_block_seconds = 0.0  # guarded_by: self._lock
         # Idle shared-prefix block sets reclaimed to admit new work, split
-        # by what became of them: demoted down a tier (none in this port:
-        # tiered KV is not ported) or dropped. The total is their sum.
+        # by what became of them: demoted down a tier (serve/kvstore.py)
+        # or dropped. The total is their sum.
         self.kv_block_evictions = 0  # guarded_by: self._lock
         self.kv_evictions_demoted = 0  # guarded_by: self._lock
         self.kv_evictions_dropped = 0  # guarded_by: self._lock

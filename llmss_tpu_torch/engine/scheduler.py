@@ -70,8 +70,14 @@ writes land after the stale ones, and the host reads an in-flight group's
 tokens only for rows admitted before it was dispatched (an adopted row
 skips the group in flight at its adoption).
 
-The ragged group runs eagerly. Not in this port yet: parking and tiered
-KV (the hooks ``demote_cb`` / ``park_cb``) and device telemetry.
+Tiered KV (serve/kvstore.py, through two hooks): ``demote_cb(prefix)``
+receives each idle prefix evicted from the pool, whose blocks are free
+already (the ``Prefix`` owns its tensors); ``park_cb(req_id, tokens,
+blocks)`` receives a finished session turn's exported full blocks, for
+requests registered by ``request_park``. Without the hooks an eviction is
+a drop and a finish exports nothing.
+
+The ragged group runs eagerly. Not in this port yet: device telemetry.
 """
 
 from __future__ import annotations
@@ -86,7 +92,8 @@ import numpy as np
 import torch
 
 from llmss_tpu_torch.engine.cache import (
-    BlockAllocator, export_blocks, import_blocks, seed_blocks, table_sentinel,
+    BlockAllocator, export_blocks, export_dense_row, import_blocks,
+    seed_blocks, table_sentinel,
 )
 from llmss_tpu_torch.engine.engine import (
     DecodeEngine, GenerationParams, _bucket, _sync, to_device, variant_params,
@@ -222,6 +229,17 @@ class ContinuousBatcher:
         # preempt_cb(req_id, tokens): a row evicted for a higher-class
         # request, with the tokens it emitted; None disables preemption.
         self.preempt_cb: Callable[[str, list[int]], None] | None = None
+        # Tiered KV (scheduler.py:257-270): demote_cb(prefix) for each idle
+        # prefix evicted from the pool; park_cb(req_id, tokens, blocks) for
+        # a finished row whose request registered park interest.
+        self.demote_cb: Callable[..., None] | None = None
+        self.park_cb: Callable[..., None] | None = None
+        # req_id -> (token_ids, replayed): park interest, registered by the
+        # serving layer (adopted rows carry no prompt ids here).
+        self._park_ids: dict[str, tuple] = {}  # guarded_by: self._lock
+        # Parks dropped because their export failed (the reference
+        # swallows them); read by the chip smoke run, which wants 0.
+        self.park_failures = 0
         self._paged = engine.kv_layout == "paged"
         if self._paged:
             mb = engine.max_seq_len // engine.block_size
@@ -279,19 +297,29 @@ class ContinuousBatcher:
     def _paged_evict_idle_prefixes(self, keep: int | None = None) -> int:
         """Free every registered prefix block set that no row references
         (each block at the registry's own refcount of 1), except ``keep``:
-        the admission's backstop when the pool runs dry. Returns the sets
-        evicted."""
-        freed = 0
-        for key, (_pfx, blocks) in list(self._paged_prefixes.items()):
+        the admission's backstop when the pool runs dry. Each evicted
+        ``Prefix`` goes to ``demote_cb`` when there is one (demoted), else
+        it is dropped (scheduler.py:436). Returns the sets evicted."""
+        freed = demoted = 0
+        for key, (pfx, blocks) in list(self._paged_prefixes.items()):
             if key == keep or not blocks:
                 continue
             if all(self.allocator.refcount(b) == 1 for b in blocks):
                 self.allocator.free(blocks)
                 del self._paged_prefixes[key]
                 freed += 1
+                if self.demote_cb is not None:
+                    # The blocks are free already: the store reads the
+                    # Prefix's own tensors.
+                    try:
+                        self.demote_cb(pfx)
+                        demoted += 1
+                    except Exception:  # noqa: BLE001 — a failed demote is a drop
+                        pass
         if freed:
             self.allocator.record_evictions(freed)
-            self.engine.metrics.add_kv_evictions(freed)
+            self.engine.metrics.add_kv_evictions(demoted, demoted=True)
+            self.engine.metrics.add_kv_evictions(freed - demoted)
         return freed
 
     def _ensure_paged_prefix(self, prefix) -> list[int] | None:
@@ -860,12 +888,61 @@ class ContinuousBatcher:
             self._flush_stream(r)
         return True
 
+    def request_park(self, req_id: str, token_ids, replayed: int = 0) -> None:
+        """Register park interest (scheduler.py:1410): when the request's
+        row finishes served, ``park_cb`` receives its token sequence (the
+        ids and the outputs past ``replayed``) and the row's exported full
+        blocks. Thread-safe; without ``park_cb`` nothing parks."""
+        with self._lock:
+            self._park_ids[req_id] = (list(token_ids), int(replayed))
+
+    def forget_park(self, req_id: str) -> None:
+        """Withdraw park interest: the request never reached a row."""
+        with self._lock:
+            self._park_ids.pop(req_id, None)
+
+    def _maybe_park(self, row: int, r: _Row, parked: tuple) -> None:
+        """Export a finished row's KV for its session (scheduler.py:1426).
+        The group in flight still advances the row past its last sampled
+        token and may rewrite slots from T-1 on, so only the first
+        ``(T-1)//bs`` full blocks are parked, and nothing when that group
+        could wrap the ring onto slot 0. Best-effort, as in the
+        reference: a failure is a drop (counted in ``park_failures``),
+        never an error on the finished request."""
+        ids, replayed = parked
+        seq = list(ids) + [int(t) for t in r.out[replayed:]]
+        T = len(seq)
+        eng = self.engine
+        bs = eng.block_size
+        if T - 1 + self.group_chunks * self.chunk_steps > eng.max_seq_len:
+            return
+        nf = (T - 1) // bs
+        if nf == 0:
+            return
+        try:
+            if self._paged:
+                blk = [int(b) for b in self._host_tables[row, :nf]]
+                if any(b >= self._sentinel for b in blk):
+                    return  # the row is shorter than its sequence claims
+                blocks = export_blocks(self.cache, blk, nf * bs)
+            else:
+                blocks = export_dense_row(self.cache, row, nf * bs, bs)
+            self.park_cb(r.req_id, seq[: nf * bs], blocks)
+        except Exception:  # noqa: BLE001 — parking never fails a request
+            self.park_failures += 1
+
     def _finish(self, row: int, r: _Row, cancelled: bool = False,
                 error: str | None = None) -> None:
         self.active.pop(row, None)
         self._row_pos.pop(row, None)
         self._inflight_prefill.pop(row, None)
         self._prefill_plen.pop(row, None)
+        with self._lock:
+            parked = self._park_ids.pop(r.req_id, None)
+        if (parked is not None and self.park_cb is not None
+                and error is None and not cancelled):
+            # Before the release: the blocks must still be this row's.
+            self._maybe_park(row, r, parked)
         self._paged_release_row(row)
         with self._lock:
             self._free.append(row)
@@ -945,6 +1022,7 @@ class ContinuousBatcher:
         with self._lock:
             ids = [item[0] for item in self.pending]
             self.pending.clear()
+            self._park_ids.clear()
         self._inflight = None
         self._pending_adm = None
         self._last_fetch_t = None

@@ -17,8 +17,20 @@ keeps the last ``max_prefixes`` prefixes it built
 (``DecodeEngine.build_prefix``, an LRU keyed by their tokens) and submits
 the request with its prefix, which gives the tokens of the request without
 the hint. The batch ``Worker`` ignores the prefix hint, as the
-reference's does. ``session_id`` rides along as it does in a reference
-worker without a KV store: nothing is parked.
+reference's does.
+
+The tiered KV store (``ContinuousWorker(kvstore=)``, serve/kvstore.py):
+prefixes the batcher's pool or the worker's LRU evicts are demoted to host
+RAM and the blob store instead of dropped; a prefix the LRU lacks is first
+promoted from the store, and built only when no tier has it; a finished
+turn of a request carrying ``session_id`` parks its full blocks, and the
+session's next turn seeds from them when they prefix its prompt, so only
+the new tokens prefill. The prefill role never parks (its rows end at
+export); the decode role parks the rows it adopted. A parked turn is
+encoded (CRC and join) on the serving thread before its answer, as in the
+reference, so the blob is stored before the client sees the turn end.
+Without a store ``session_id`` rides along unparked, as in a reference
+worker without one.
 
 Roles (``ContinuousWorker(role=)``):
 
@@ -39,8 +51,8 @@ Roles (``ContinuousWorker(role=)``):
 
 Both workers stamp ``last_progress_ts`` (the supervisor's watchdog and
 heartbeat read it) and renew the leases they hold every group;
-``ContinuousWorker.load_snapshot`` gives its host-side occupancy. Parking
-and the KV store, the fleet registry and routed handoffs, tracing and
+``ContinuousWorker.load_snapshot`` gives its host-side occupancy (with the
+store's ``kv_tiers``). The fleet registry and routed handoffs, tracing and
 device telemetry wait for later slices.
 
 ``main`` (``llmss-torch-consumer``) serves a checkpoint from a Redis
@@ -60,6 +72,9 @@ from llmss_tpu_torch.engine.scheduler import ContinuousBatcher
 from llmss_tpu_torch.serve.broker import Broker
 from llmss_tpu_torch.serve.handoff import (
     HandoffRecord, decode_blocks, encode_blocks,
+)
+from llmss_tpu_torch.serve.kvstore import (
+    HostKVStore, RedisBlobStore, TieredKVStore, prefix_from_blocks,
 )
 from llmss_tpu_torch.serve.protocol import (
     SLO_CLASS_RANK, STATE_DRAINING, STATE_READY, GenerateRequest,
@@ -271,6 +286,7 @@ class ContinuousWorker:
         chunked_prefill: int | None = None,
         role: str = "unified",
         poll_timeout_s: float = POLL_TIMEOUT_S,
+        kvstore=None,
     ):
         if role not in ROLES:
             raise ValueError(f"unknown worker role: {role!r}")
@@ -295,6 +311,15 @@ class ContinuousWorker:
             # Only a worker that both admits from the request queue and
             # decodes preempts.
             self.batcher.preempt_cb = self._on_preempt
+        # The tiered KV store (serve/kvstore.py), or None: evictions drop
+        # and sessions prefill their whole history.
+        self.kvstore = kvstore
+        if kvstore is not None:
+            self.batcher.demote_cb = self._on_demote
+            self.batcher.park_cb = self._on_park
+        # req_id -> session_id of the requests whose finish parks: set
+        # before submit / adopt, taken by the park hook or the done_cb.
+        self._park_sessions: dict[str, str] = {}
         # Decode role: leased records that found no free row yet.
         self._adopt_backlog: deque = deque()
         self._publish_counter = 0
@@ -310,9 +335,9 @@ class ContinuousWorker:
     def load_snapshot(self) -> dict:
         """The batcher's host-side occupancy and pool headroom with the
         lifecycle state and the hashes of the prefixes held by either
-        layer, the batcher's pool and this worker's LRU (consumer.py:522,
-        without the KV tiers, trace and telemetry blobs); touches no device
-        tensor."""
+        layer, the batcher's pool and this worker's LRU, and the store's
+        ``kv_tiers`` (consumer.py:522, without the trace and telemetry
+        blobs); touches no device tensor."""
         snap = self.batcher.load_snapshot()
         hashes = set(snap.get("prefix_hashes") or [])
         hashes.update(prefix_hash(k) for k in self._prefixes)
@@ -323,6 +348,8 @@ class ContinuousWorker:
             # Backlogged records are load this worker holds the leases of.
             "queue_depth": snap.get("pending", 0) + len(self._adopt_backlog),
             "prefix_hashes": sorted(hashes),
+            **({"kv_tiers": self.kvstore.stats()}
+               if self.kvstore is not None else {}),
         })
         return snap
 
@@ -335,16 +362,51 @@ class ContinuousWorker:
         return self.batcher.prewarm(seq_buckets, prefix_prefill)
 
     def _get_prefix(self, prefix_ids: list[int]):
-        """The prefix for these tokens, built on its first use (one
-        prefill) and kept in the LRU (consumer.py:879, without the tiered
-        store's promotion)."""
+        """The prefix for these tokens, kept in the LRU (consumer.py:879):
+        on a miss promoted from the store when one has it, else built (one
+        prefill); what the LRU lets go of is demoted to the store."""
         key = tuple(prefix_ids)
         pfx = self._prefixes.pop(key, None)
+        if pfx is None and self.kvstore is not None:
+            pfx = self.kvstore.fetch_prefix(
+                prefix_ids, max_seq_len=self.engine.max_seq_len,
+                device=self.engine.device)
         if pfx is None:
             pfx = self.engine.build_prefix(list(prefix_ids))
         self._prefixes[key] = pfx  # most recently used last
         while len(self._prefixes) > self.max_prefixes:
-            self._prefixes.pop(next(iter(self._prefixes)))
+            self._on_demote(self._prefixes.pop(next(iter(self._prefixes))))
+        return pfx
+
+    # -- the tiered KV store ---------------------------------------------------
+
+    def _on_demote(self, prefix) -> None:
+        """The pool's and the LRU's eviction hook: queue the prefix on the
+        store (consumer.py:906)."""
+        if self.kvstore is not None:
+            self.kvstore.demote_prefix(prefix, self.engine.block_size)
+
+    def _on_park(self, req_id: str, tokens, blocks) -> None:
+        """The batcher's finish hook: park a session turn's exported blocks
+        under its session (consumer.py:912), encoded here before the
+        turn's answer."""
+        sid = self._park_sessions.pop(req_id, None)
+        if sid is None or self.kvstore is None:
+            return
+        self.kvstore.park_session(sid, tokens, blocks, self.engine.block_size)
+
+    def _resume_session(self, session_id: str, ids: list[int]):
+        """A ``Prefix`` from the session's parked KV when its tokens
+        properly prefix ``ids`` (the blob is then taken), else None
+        (consumer.py:926)."""
+        parked = self.kvstore.resume_session(session_id, token_ids=ids)
+        if parked is None:
+            return None
+        tokens, blocks = parked
+        pfx = prefix_from_blocks(tokens, blocks,
+                                 max_seq_len=self.engine.max_seq_len,
+                                 device=self.engine.device)
+        self.kvstore.note_reprefill_avoided(len(tokens))
         return pfx
 
     def _drain_broker(self) -> int:
@@ -376,9 +438,21 @@ class ContinuousWorker:
                     gen.max_new_tokens = req.max_new_tokens - len(resume)
                 prefix = (self._get_prefix(req.prefix_token_ids)
                           if req.prefix_token_ids else None)
+                if (prefix is None and req.session_id
+                        and self.kvstore is not None):
+                    # A parked earlier turn seeds the row when its tokens
+                    # prefix this prompt: only the new tokens prefill.
+                    prefix = self._resume_session(req.session_id, ids)
                 # Registered before submit: a short request can finish
                 # inside the next step.
                 self._reqs[req.id] = req
+                if (req.session_id and self.kvstore is not None
+                        and self.role != "prefill"):
+                    # A prefill-role row ends at its export: the decode
+                    # side parks the finished turn.
+                    self._park_sessions[req.id] = req.session_id
+                    self.batcher.request_park(req.id, ids,
+                                              replayed=len(resume))
                 self.batcher.submit(
                     ids, gen, self._done_cb(req), req_id=req.id,
                     stream_cb=self._stream_cb(req), prefix=prefix,
@@ -386,6 +460,8 @@ class ContinuousWorker:
                     replayed=len(resume))
             except ValueError as e:  # per-request error surface
                 self._reqs.pop(req.id, None)
+                self._park_sessions.pop(req.id, None)
+                self.batcher.forget_park(req.id)
                 self.broker.push_response(
                     GenerateResponse(id=req.id, error=str(e))
                 )
@@ -407,6 +483,8 @@ class ContinuousWorker:
 
         def cb(toks, cancelled=False, error=None):
             self._reqs.pop(req.id, None)
+            # A served row's park hook took it already.
+            self._park_sessions.pop(req.id, None)
             if error is not None:
                 self.engine.metrics.add_error()
                 self.broker.push_response(
@@ -473,13 +551,27 @@ class ContinuousWorker:
         try:
             gen = gen_params_from(self.tokenizer, req)
             d = decode_blocks(rec.payload)
-            return self.batcher.adopt(
+        except Exception as e:  # noqa: BLE001 — a bad record is disposed of
+            self.broker.fail_handoff(rec, error=str(e))
+            return True
+        park = req.session_id and self.kvstore is not None
+        if park:
+            # The batcher holds no prompt ids for an adopted row: park
+            # interest is registered here, withdrawn if no row takes it.
+            self._park_sessions[req.id] = req.session_id
+            self.batcher.request_park(req.id, list(req.token_ids or []))
+        try:
+            ok = self.batcher.adopt(
                 req.id, rec.first_token, rec.n_tokens,
                 {k: d[k] for k in ("k", "v", "k_scale", "v_scale")}, gen,
                 self._done_cb(req), stream_cb=self._stream_cb(req))
         except Exception as e:  # noqa: BLE001 — a bad record is disposed of
+            ok = None
             self.broker.fail_handoff(rec, error=str(e))
-            return True
+        if park and not ok:
+            self._park_sessions.pop(req.id, None)
+            self.batcher.forget_park(req.id)
+        return ok is not False
 
     def _drain_handoffs(self, backlog_only: bool = False) -> int:
         """Decode-role intake (consumer.py:843): the backlog first, in
@@ -577,7 +669,6 @@ _ONE_GPU = "the port serves one model on one GPU"
 _LATER_FLAGS = {
     "worker_id": (None, "a fleet identity needs the worker registry and "
                         "routed queues"),
-    "kv_tier_host_mb": (None, "the tiered KV store is not ported"),
     "tp": (1, _ONE_GPU),
     "dp": (1, _ONE_GPU),
     "sp": (1, _ONE_GPU),
@@ -632,9 +723,12 @@ def _parser():
                         help="continuous only: prefill = admit and hand the "
                              "KV off; decode = adopt handed-off KV; both "
                              "require --kv_layout paged")
+    parser.add_argument("--kv_tier_host_mb", type=float, default=None,
+                        help="continuous only: a tiered KV store with this "
+                             "much host RAM (T1) over the broker's Redis (T2): "
+                             "evicted prefixes demote, session turns park")
     # Accepted so that the refusal names what is missing.
     parser.add_argument("--worker_id", default=None)
-    parser.add_argument("--kv_tier_host_mb", type=float, default=None)
     parser.add_argument("--tp", type=int, default=None)
     parser.add_argument("--dp", type=int, default=None)
     parser.add_argument("--sp", type=int, default=None)
@@ -660,6 +754,8 @@ def main(argv=None):
             parser.error(f"--{flag} requires --continuous")
         if on and args.kv_layout != "paged":
             parser.error(f"--{flag} requires --kv_layout paged")
+    if args.kv_tier_host_mb is not None and not args.continuous:
+        parser.error("--kv_tier_host_mb requires --continuous")
 
     from llmss_tpu_torch.models.registry import load_model
     from llmss_tpu_torch.serve.broker import RedisBroker
@@ -674,6 +770,13 @@ def main(argv=None):
     broker = RedisBroker(args.redis_host, args.redis_port,
                          lease_s=args.lease_s,
                          max_delivery_attempts=args.max_delivery_attempts)
+    kvstore = None
+    if args.kv_tier_host_mb is not None:
+        # The broker's client carries T2; the ":kv:" key segment keeps the
+        # blobs clear of the broker's keys (consumer.py:1189).
+        kvstore = TieredKVStore(
+            host=HostKVStore(cap_bytes=int(args.kv_tier_host_mb * 1024 * 1024)),
+            blob=RedisBlobStore(broker._r, namespace="pqueue"))
 
     def make_worker():
         if args.continuous:
@@ -681,6 +784,7 @@ def main(argv=None):
                 engine, broker, rows=args.batch_size,
                 chunk_steps=args.chunk_steps, group_chunks=args.group_chunks,
                 chunked_prefill=args.chunked_prefill, role=args.role,
+                kvstore=kvstore,
             )
         else:
             w = Worker(engine, broker, batch_size=args.batch_size,
@@ -692,6 +796,8 @@ def main(argv=None):
 
     print("consumer serving"
           + (" (continuous batching)" if args.continuous else "")
+          + (f" (KV tiers: {args.kv_tier_host_mb:g} MiB host + Redis)"
+             if kvstore is not None else "")
           + (f" (role {args.role})" if args.role != "unified" else "")
           + (" (supervised)" if args.supervise else ""), flush=True)
     if args.supervise:

@@ -71,9 +71,13 @@ def _raw(a) -> tuple[list[int], str, memoryview]:
 
 
 def encode_blocks(blocks: dict, *, req_id: str, n_tokens: int,
-                  block_size: int, trace_id: str | None = None) -> bytes:
+                  block_size: int, trace_id: str | None = None,
+                  tokens: list[int] | None = None) -> bytes:
     """An ``export_blocks`` dict in the wire format (handoff.py:90). The
-    CRC is chained over the buffers and the payload joined once."""
+    CRC is chained over the buffers and the payload joined once.
+    ``tokens`` puts the segment's token ids in the header, last, as the
+    KV store's blobs carry them (serve/kvstore.py); without it the key is
+    absent, as in a handoff payload."""
     bufs: list[memoryview] = []
     shapes: dict[str, list[int] | None] = {}
     dtypes: dict[str, str | None] = {}
@@ -96,6 +100,8 @@ def encode_blocks(blocks: dict, *, req_id: str, n_tokens: int,
         "shapes": shapes,
         "dtypes": dtypes,
         "crc32": crc & 0xFFFFFFFF,
+        **({"tokens": [int(t) for t in tokens]} if tokens is not None
+           else {}),
     }).encode("utf-8")
     return b"".join([_MAGIC, struct.pack("<I", len(header)), header, *bufs])
 

@@ -73,7 +73,8 @@ def test_port_modules_leave_redis_unloaded():
     assert out.returncode == 0, out.stderr
     assert out.stdout.split()[-1] == "False", out.stdout
     assert {"llmss_tpu_torch.serve.producer",
-            "llmss_tpu_torch.serve.supervisor"} <= set(mods)
+            "llmss_tpu_torch.serve.supervisor",
+            "llmss_tpu_torch.serve.kvstore"} <= set(mods)
 
 
 @pytest.fixture
