@@ -29,7 +29,15 @@ exits non-zero without printing a result:
               ("lanes_int8"; K4 with bf16 queries at CB > 1 "mma_int8",
               the tensor-core tile over int8 tiles; library: dequantize
               + SDPA), with K2 / K3 int8 over K2 / K3 at the main path's
-              decode shapes ("int8_lanes_vs_bf16", a measurement);
+              decode shapes ("int8_lanes_vs_bf16", a measurement); and
+              K2w (the speculative verify window's attention) at the
+              speculative phase's shape (batch 16, window 5, the 384-slot
+              bucket) plus a window wrapping the ring's end, invalidated
+              slots, an empty row, windows of 2 and 8, GQA G 4 and 7 and
+              StarCoder's G 48 (the tile), D 64 and 256 and fp32 (library:
+              SDPA over the layer's slice and the fresh KV), the window of
+              2 (bf16's one lane shape) also forced onto the tile
+              ("lanes_ms", "tile_ms"); timed as a phase of its own;
 4. reference -- a tiny fp32 llama generates the same greedy tokens through
               the kernels on the card, decoding by CUDA-graph replays, as
               through the plain path on the CPU;
@@ -48,6 +56,14 @@ exits non-zero without printing a result:
    reference_roles -- a prefill-role and a decode-role ContinuousWorker
               (split and chunked, fp32 and int8 pools): the card's
               answers equal the CPU's and a unified worker's;
+   reference_speculative -- prompt-lookup speculative decoding on the
+              tiny fp32 llama (K2w verify windows, K2 on the plain tail),
+              the same over an int8 cache and a tiny Mistral with a sliding
+              window (both verify through K1), gamma 1 and 4: card tokens
+              equal the CPU's speculative tokens and the card's generate
+              tokens, spec_stats equal the CPU's; then an engine with
+              nothing prewarmed whose rows cross into a new bucket between
+              groups (a capture mid-call), held the same way;
    reference_families -- the same for a tiny fp32 model of every family
               of the registry (GPT-J, GPT-BigCode, GPT-2, Llama, Mistral,
               Qwen2, GPT-NeoX, Phi-3 with LongRoPE on both sides of its
@@ -122,13 +138,24 @@ exits non-zero without printing a result:
               and decode chunk profiled against the weight-read bound, a
               split and a chunked ContinuousWorker pass, a paged decode
               group and a ragged group profiled, and each kernel's case
-              at the model's shapes beside its launches;
+              at the model's shapes beside its launches; starcoder also
+              one short generate_speculative call (K2w on the tile);
 7. cli     -- writes a 2-layer llama checkpoint at 1b2 width
               (safetensors + config.json) and runs the port's CLI on it;
               then 2-layer GPT-J-6B and StarCoder checkpoints in HF names
               and layouts (StarCoder's c_attn fused), each through the CLI
               and load_model, the loaded tensors held to the written
-              ones.
+              ones; and the llama checkpoint with --speculative 4 (64 new
+              tokens on a 71-slot ring: a capture mid-call), its tokens'
+              agreement with the plain run reported;
+   speculative -- the engine phase's weights (its seed) at batch 16,
+              128-token prompts, 256 new tokens, ring 1024:
+              ``prewarm(speculative=(1, 4))``, then plain greedy generate
+              and generate_speculative at gamma 1 and 4 with no capture
+              after the prewarm: tokens/s, tokens per verify forward,
+              agreement with generate, K2w launches, one verify step's
+              kernel time against one decode step's. After the cli, so
+              every profiled phase before it runs in the parent's order.
 8. reference_tiers -- the tiered KV store on the tiny fp32 llama: two
               sessions of three turns parked and resumed, prefixes
               demoted and promoted through an LRU of one (and a 3-block
@@ -314,7 +341,7 @@ def ptxas_entries(text: str) -> list[tuple[str, int, int]]:
     """(kernel, spill store bytes, registers) of every instantiation in
     ``nvcc -Xptxas=-v`` output: ptxas reports the entry's name, then its
     spills, then its registers."""
-    name = r"(?:(?:flash|paged|decode)_(?:mma|fwd)|split_merge)"
+    name = r"(?:(?:flash|paged|decode|window)_(?:mma|fwd)|(?:split|window)_merge)"
     return [(k, int(sp), int(r)) for k, sp, r in re.findall(
         rf"entry function '\w*?({name}\w*?)EEEv\w*' for[^\n]*\n[^\n]*\n"
         r"\s*\d+ bytes stack frame, (\d+) bytes spill stores[^\n]*\n[^\n]*"
@@ -466,6 +493,166 @@ def _k2_case(name, B, T, Hq, Hkv, hist, t_len, *, window=None, seed=0, L=2,
         qpos=torch.tensor(qpos, device=dev), kvp=torch.tensor(kvp, device=dev),
         slots=torch.tensor(slots, device=dev), layer=L - 1, t_len=t_len,
         window=window), "kc", "vc")
+
+
+def _k2w_case(name, B, T, Hq, Hkv, hist, t_len, S, *, seed=0, L=2, D=128,
+              dt=torch.bfloat16, holes=()):
+    """A decode window of S tokens a row at positions hist[b] ..
+    hist[b] + S - 1 over layer L-1, for rows whose histories are positions
+    0..hist[b]-1 (``holes``: (row, slot) pairs invalidated to -1). Every
+    pending slot gets a key 4x the group's first query head of window query
+    0 and values of 8: a kernel that failed to exclude them would put
+    nearly all of that head's weight there and miss by ~8. On a wrapped
+    row they still hold visible old positions, so only the pending-range
+    exclusion drops them."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    dev = "cuda"
+    kc = torch.randn(L, B, T, Hkv, D, generator=g, device=dev, dtype=dt)
+    vc = torch.randn(L, B, T, Hkv, D, generator=g, device=dev, dtype=dt)
+    q = torch.randn(B, S, Hq, D, generator=g, device=dev, dtype=dt)
+    kn = torch.randn(B, S, Hkv, D, generator=g, device=dev, dtype=dt)
+    vn = torch.randn(B, S, Hkv, D, generator=g, device=dev, dtype=dt)
+    kvp = _ring_positions(B, T, hist)
+    for b, t in holes:
+        kvp[b, t] = -1
+    q0 = np.asarray(hist, np.int32)[:, None]
+    slots = (q0 + np.arange(S, dtype=np.int32)) % T
+    G = Hq // Hkv
+    for b in range(B):
+        for i in range(S):
+            kc[L - 1, b, slots[b, i]] = 4 * q[b, 0, ::G]
+            vc[L - 1, b, slots[b, i]] = 8
+    return dict(name=name, kernel="K2w", q=q, kc=kc, vc=vc, kn=kn, vn=vn,
+                q0=torch.tensor(q0, device=dev),
+                kvp=torch.tensor(kvp, device=dev),
+                slots=torch.tensor(slots, device=dev), layer=L - 1,
+                t_len=t_len)
+
+
+# The speculative phase at Llama-2-7B width: 16 prompts of 128 tokens, 256
+# new tokens each, on a 1024-slot ring; its verify windows read the
+# 384-slot bucket (every position stays below 128 + 256).
+SPEC_BATCH, SPEC_PROMPT, SPEC_NEW, SPEC_BUCKET = 16, 128, 256, 384
+SPEC_HIST = [200 + 7 * b for b in range(SPEC_BATCH)]  # rows mid-generation
+
+
+def k2w_cases() -> list[dict]:
+    """K2w's cases; the first is the speculative phase's verify window at
+    gamma 4 in its 384-slot bucket."""
+    return [
+        _k2w_case("k2w_engine_verify", SPEC_BATCH, 1024, 32, 32, SPEC_HIST,
+                  SPEC_BUCKET, 5, seed=20),
+        _k2w_case("k2w_engine_verify_b4", 4, 1024, 32, 32, SPEC_HIST[:4],
+                  SPEC_BUCKET, 5, seed=21),
+        # The whole ring: a window wrapping the ring's end (1022..1026), a
+        # wrapped ring, an empty row, a row at the last position.
+        _k2w_case("k2w_7b_full_wrap", 4, 1024, 32, 32, [1022, 1500, 0, 2043],
+                  1024, 5, seed=22),
+        # Invalidated (-1) slots inside the visible range (rejected drafts).
+        _k2w_case("k2w_7b_holes", 4, 1024, 32, 32, [300, 200, 0, 150], 384,
+                  5, seed=23, holes=((0, 7), (0, 250), (1, 0), (3, 149))),
+        _k2w_case("k2w_s2", SPEC_BATCH, 1024, 32, 32, SPEC_HIST, SPEC_BUCKET,
+                  2, seed=24),
+        _k2w_case("k2w_s8", SPEC_BATCH, 1024, 32, 32, SPEC_HIST, SPEC_BUCKET,
+                  8, seed=25),
+        # GQA: G 4 (20 window rows: the tile), Qwen2-7B's G 7 (35 rows),
+        # StarCoder's G 48 (240 rows: four tiles).
+        _k2w_case("k2w_gqa4", 4, 1024, 32, 8, [1022, 1300, 5, 0], 1024, 5,
+                  seed=26),
+        _k2w_case("k2w_qwen2", 4, 1024, 28, 4, [300, 250, 0, 377], 384, 5,
+                  seed=27),
+        _k2w_case("k2w_starcoder", 4, 1024, 48, 1, [200, 150, 0, 250], 256,
+                  5, seed=28),
+        _k2w_case("k2w_d64", 4, 256, 8, 8, [100, 250, 0, 30], 256, 4,
+                  seed=29, D=64),
+        _k2w_case("k2w_gptj_d256", 4, 1024, 16, 16, [200, 150, 0, 250], 256,
+                  5, seed=30, D=256),
+        # fp32: 10 window rows (two lane groups of 8), and the tiny fp32
+        # reference model's shape (D 64, GQA 2).
+        _k2w_case("k2w_fp32", 3, 256, 8, 4, [100, 250, 0], 256, 5, seed=31,
+                  dt=torch.float32),
+        _k2w_case("k2w_fp32_d64", 3, 64, 4, 2, [20, 50, 0], 64, 5, seed=32,
+                  D=64, dt=torch.float32),
+    ]
+
+
+def check_window_kernel(out: dict) -> None:
+    """K2w against its plain (fp32) version, within REL_TOL, at every
+    case; the first case's numbers go into the final kernels line."""
+    from llmss_tpu_torch.ops import _build
+    from llmss_tpu_torch.ops import attention as att
+    from llmss_tpu_torch.ops import decode_attention as da
+
+    worst = 0.0
+    for c in k2w_cases():
+        args = (c["q"], c["kc"], c["vc"], c["kn"], c["vn"], c["q0"], c["kvp"],
+                c["slots"], c["layer"])
+        kw = dict(t_len=c["t_len"])
+        got = da.decode_window_attention(*args, **kw).float()
+        q32, kc32, vc32, kn32, vn32 = (
+            a.float() for a in (c["q"], c["kc"], c["vc"], c["kn"], c["vn"]))
+        pos = (c["q0"], c["kvp"], c["slots"], c["layer"])
+        ref = da.decode_window_attention_ref(q32, kc32, vc32, kn32, vn32,
+                                             *pos, **kw)
+        ref_abs = da.decode_window_attention_ref(q32, kc32, vc32.abs(), kn32,
+                                                 vn32.abs(), *pos, **kw)
+        dt = c["q"].dtype
+
+        def check(g, what=""):
+            return _agree("K2w", c["name"] + what, g.float(), ref, ref_abs, dt)
+
+        err, ratio = check(got)
+        worst = max(worst, err)
+        # Bound: the visible cache slots' K/V, q, the fresh K/V, the
+        # positions and the output, each once; the visible query-key
+        # pairs' operations.
+        B, S, Hq, D = c["q"].shape
+        Hkv = c["kc"].shape[3]
+        t = c["t_len"]
+        pen = att.window_mask_penalty(c["q0"], c["kvp"][:, :t], c["slots"])
+        visible = int((pen == 0).sum().item())
+        es = c["q"].element_size()
+        nbytes = (2 * visible * Hkv * D * es + 2 * c["q"].numel() * es
+                  + 2 * c["kn"].numel() * es + B * t * 4 + 2 * B * 4)
+        pairs = visible * S + B * S * (S + 1) // 2
+        b_ms, b_by = bound(nbytes, 4.0 * pairs * Hq * D, dt)
+        # Library yardstick: SDPA over the layer's [B, t] slice and the
+        # fresh KV, under the same mask.
+        keys = torch.cat([c["kc"][c["layer"], :, :t], c["kn"]], 1)
+        vals = torch.cat([c["vc"][c["layer"], :, :t], c["vn"]], 1)
+        tri = torch.ones(S, S, dtype=torch.bool, device="cuda").tril()
+        mask = torch.cat([(pen == 0)[:, None, None, :].expand(B, 1, S, t),
+                          tri[None, None].expand(B, 1, S, S)], -1)
+        plan = da.window_plan(dt, B, Hq, Hkv, D, t, S,
+                              sms=_build.sm_count(c["q"].device))
+        row = {"phase": "kernel", "kernel": "K2w", "case": c["name"],
+               "window": S, "impl": plan.impl, "splits": plan.splits,
+               "split_slots": plan.split_slots,
+               "max_abs_err": err, "rel_tol": REL_TOL[dt],
+               "err_over_tol": ratio,
+               "ms": device_ms(lambda: da.decode_window_attention(*args, **kw),
+                               iters=50),
+               "plain_ms": profiled_ms(
+                   lambda: da.decode_window_attention_ref(*args, **kw)),
+               "library_ms": device_ms(
+                   lambda: _sdpa(c["q"], keys, vals, mask), iters=50),
+               "library": "scaled_dot_product_attention over the slice and "
+                          "the fresh KV",
+               "bound_ms": b_ms, "bound_by": b_by}
+        _unsplit(row, lambda: da._launch_window(*args, max_splits=1, **kw),
+                 lambda g: check(g, " unsplit"))
+        want = ("mma" if dt == torch.bfloat16
+                and Hq // Hkv * S > da.WINDOW_G_TILE else "lanes")
+        _main_path_impl("K2w", row, want)
+        if c["name"] == "k2w_s2":  # bf16's one lane shape: G * S = 2
+            _both_templates(
+                row, lambda g_tile: da._launch_window(*args, g_tile=g_tile,
+                                                      **kw),
+                lambda g: check(g, " forced"))
+        out.setdefault("K2w", row)
+        out["cases"][c["name"]] = row
+        emit(row)
+    out["K2w"]["max_abs_err"] = worst
 
 
 def _dequant(x, scale, dtype):
@@ -4068,6 +4255,221 @@ def phase_serve_tiers() -> None:
     torch.cuda.empty_cache()
 
 
+def _agreement(got: list, want: list) -> dict:
+    """How far two greedy decodes of the same prompts agree: per row the
+    tokens before the first difference; their mean and least, and the
+    share of rows equal throughout."""
+    spans = []
+    for g, w in zip(got, want):
+        n = next((i for i, (a, b) in enumerate(zip(g, w)) if a != b),
+                 min(len(g), len(w)))
+        spans.append(n)
+    return {"agree_mean": sum(spans) / len(spans), "agree_min": min(spans),
+            "rows_equal_share": sum(g == w for g, w in zip(got, want))
+            / len(got)}
+
+
+def phase_reference_speculative() -> None:
+    """Prompt-lookup speculative decoding on the tiny fp32 models (ring
+    64, gamma 1 and 4, one call of four rows: repetitive, random, a short
+    one, one near the ring's end that finishes on the plain tail; EOS a
+    token the repetitive row emits mid-generation): the card's tokens
+    equal the CPU's plain speculative tokens and the card's ``generate``
+    tokens, and ``spec_stats`` equal the CPU's. The llama verifies through
+    K2w; the same llama over an int8 cache and a tiny Mistral with a
+    sliding window take the general path (K1), as in the reference."""
+    from llmss_tpu_torch.engine.engine import DecodeEngine, GenerationParams
+    from llmss_tpu_torch.models.decoder import init_params
+    from llmss_tpu_torch.ops import decode_attention as da
+    from llmss_tpu_torch.ops import flash_attention as fa
+
+    rng = np.random.default_rng(4)
+    prompts = [[7, 3, 9, 11] * 5, [int(t) for t in rng.integers(1, 512, 20)],
+               [5], [int(t) for t in rng.integers(1, 512, 40)]]
+    for name, cfg, kv in (("llama", _tiny_llama(), None),
+                          ("llama", _tiny_llama(), "int8"),
+                          ("mistral", _family_configs()["mistral"], None)):
+        cpu_params = init_params(cfg, seed=3, device="cpu")
+        cpu = DecodeEngine(cfg, cpu_params, device="cpu", max_seq_len=64,
+                           kv_dtype=kv)
+        # EOS: a token the first row emits mid-generation, not before.
+        row0 = cpu.generate(prompts, GenerationParams(max_new_tokens=20))[0]
+        eos = next((t for i, t in enumerate(row0) if i >= 6
+                    and t not in row0[:i]), row0[-1])
+        gen = GenerationParams(max_new_tokens=20, eos_token_id=eos)
+        eng = DecodeEngine(cfg, _to(cpu_params, "cuda"), max_seq_len=64,
+                           kv_dtype=kv)
+        eng.prewarm(len(prompts), speculative=(1, 4))
+        keys = eng._graphs.keys()
+        for gamma in (1, 4):
+            want = cpu.generate_speculative(prompts, gen, gamma=gamma)
+            want_stats = cpu.metrics.spec_stats
+            fa.flash_attention.launches = 0
+            da.decode_window_attention.launches = 0
+            got = eng.generate_speculative(prompts, gen, gamma=gamma)
+            stats = eng.metrics.spec_stats
+            k1 = fa.flash_attention.launches
+            k2w = da.decode_window_attention.launches
+            plain = eng.generate(prompts, gen)
+            L = cfg.n_layers
+            general = kv is not None or cfg.sliding_window is not None
+            emit({"phase": "reference_speculative", "model": name,
+                  "kv": kv or "float32", "gamma": gamma,
+                  "equals_cpu": got == want, "equals_generate": got == plain,
+                  "stats_equal_cpu": stats == want_stats, "spec_stats": stats,
+                  "k2w_launches": k2w, "k1_launches": k1, "tokens": got})
+            if got != want or got != plain or stats != want_stats:
+                raise AssertionError(
+                    f"reference_speculative {name} {kv} gamma {gamma}: card "
+                    f"{got} / {stats}, CPU {want} / {want_stats}, card "
+                    f"generate {plain}")
+            verifies = stats["verify_forwards"]
+            if not verifies or k2w != (0 if general else L * verifies) or \
+                    k1 != L * (1 + (verifies if general else 0)):
+                raise AssertionError(
+                    f"reference_speculative {name} {kv}: {verifies} verify "
+                    f"forwards, K2w {k2w}, K1 {k1} launches")
+            if eng._graphs.keys() != keys:
+                raise AssertionError(f"reference_speculative {name} {kv}: "
+                                     "a capture after prewarm")
+    # Nothing prewarmed: the rows cross from the 32-slot bucket to the
+    # whole ring after a full group, so a step graph is captured between
+    # groups, its warm-up run recording at step 0 of the next group.
+    cfg = _tiny_llama()
+    cpu_params = init_params(cfg, seed=3, device="cpu")
+    cpu = DecodeEngine(cfg, cpu_params, device="cpu", max_seq_len=64)
+    eng = DecodeEngine(cfg, _to(cpu_params, "cuda"), max_seq_len=64)
+    mid, gen = [[7, 3, 9] * 3, [5, 2]], GenerationParams(max_new_tokens=40)
+    got = eng.generate_speculative(mid, gen, gamma=1)
+    buckets = [str(k[-1]) for k in eng._graphs.keys() if k[-5] == "spec"]
+    want = cpu.generate_speculative(mid, gen, gamma=1)
+    plain = eng.generate(mid, gen)
+    emit({"phase": "reference_speculative", "model": "llama",
+          "prewarmed": False, "spec_buckets_captured": sorted(buckets),
+          "equals_cpu": got == want, "equals_generate": got == plain,
+          "spec_stats": eng.metrics.spec_stats})
+    if len(buckets) < 2 or got != want or got != plain:
+        raise AssertionError(f"reference_speculative, captures between "
+                             f"groups {buckets}: card {got}, CPU {want}, "
+                             f"card generate {plain}")
+
+
+def phase_speculative(kernels: dict) -> None:
+    """Speculative decoding at Llama-2-7B width (the engine phase's random
+    bf16 weights, made again from its seed): 16 prompts of 128 tokens, 256
+    new tokens each, ring
+    1024, chunk_steps 8. ``prewarm(speculative=(1, 4))`` captures every
+    graph the calls run (0 captures after it, asserted); then plain greedy
+    ``generate`` and ``generate_speculative`` at gamma 1 and 4: tokens/s,
+    mean tokens per verify forward per row, the agreement span with
+    ``generate``, K2w launches (n_layers per verify forward), and one
+    verify step's kernel time against one decode step's, each a graph
+    replay in the 384-slot bucket, with K2w's launches per group read from
+    the step graph's kernel nodes."""
+    from llmss_tpu_torch.engine.engine import DecodeEngine, GenerationParams
+    from llmss_tpu_torch.models.common import DecoderConfig
+    from llmss_tpu_torch.models.decoder import init_params
+    from llmss_tpu_torch.ops import decode_attention as da
+    from llmss_tpu_torch.ops import flash_attention as fa
+
+    cfg = DecoderConfig(**LLAMA2_7B)
+    L, B, chunk = cfg.n_layers, SPEC_BATCH, 8
+    eng = DecodeEngine(cfg, init_params(cfg, seed=0), max_seq_len=1024)
+    rng = np.random.default_rng(21)
+    prompts = [[int(t) for t in rng.integers(1, cfg.vocab_size, SPEC_PROMPT)]
+               for _ in range(B)]
+    t = time.perf_counter()
+    warmed = eng.prewarm(B, chunk_steps=chunk, speculative=(1, 4))
+    prewarm_s = time.perf_counter() - t
+    keys = eng._graphs.keys()
+    mem = _graph_memory(eng, [eng._cache])
+    gen = GenerationParams(max_new_tokens=SPEC_NEW)
+
+    def timed_call(call):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = call()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t
+
+    plain, wall_plain = timed_call(
+        lambda: eng.generate(prompts, gen, chunk_steps=chunk))
+    rows = []
+    for gamma in (1, 4):
+        fa.flash_attention.launches = 0
+        da.decode_attention.launches = 0
+        da.decode_window_attention.launches = 0
+        spec, wall = timed_call(lambda: eng.generate_speculative(
+            prompts, gen, gamma=gamma, chunk_steps=chunk))
+        st = eng.metrics.spec_stats
+        k2w = da.decode_window_attention.launches
+        if k2w != L * st["verify_forwards"] or not k2w:
+            raise AssertionError(f"speculative gamma {gamma}: K2w {k2w} "
+                                 f"launches, {st['verify_forwards']} verifies")
+        for row in spec:
+            if len(row) != SPEC_NEW or not all(0 <= x < cfg.vocab_size
+                                               for x in row):
+                raise AssertionError("speculative tokens outside the vocab "
+                                     "or of the wrong length")
+        if gamma == 4:
+            kernels["K2w"]["launches"] = k2w
+        rows.append({"phase": "speculative", "gamma": gamma,
+                     "tokens_per_s": B * SPEC_NEW / wall, "wall_s": wall,
+                     "spec_stats": st, "k2w_launches": k2w,
+                     "k1_launches": fa.flash_attention.launches,
+                     "k2_launches_tail": da.decode_attention.launches,
+                     **_agreement(spec, plain)})
+    captured = len(eng._graphs.keys() - keys)
+    if captured:
+        raise AssertionError(f"speculative: {captured} captures after prewarm")
+
+    # One verify step (gamma 4) and one decode step, each a replay of its
+    # prewarmed graph in the 384-slot bucket, from live rows at 300.
+    g = eng._graphs.for_cache(eng._cache)
+    bufs = g.spec_buffers(5, chunk, eng.max_seq_len)
+    step = eng._spec_step(eng._cache, bufs, 4, 3, SPEC_BUCKET)
+    node_k2w = dict(g.steps[("spec", 4, 3, chunk, SPEC_BUCKET)]._launches)[
+        da.decode_window_attention]
+
+    def verify():
+        bufs.hist_len.fill_(300)
+        bufs.done.zero_()
+        bufs.step.zero_()
+        step()
+
+    sa = eng._sample_args(gen, B)
+    tok = torch.ones(B, dtype=torch.int32, device="cuda")
+    cur = torch.full((B,), 300, dtype=torch.int32, device="cuda")
+    done = torch.zeros(B, dtype=torch.bool, device="cuda")
+    eos = torch.full((B,), -1, dtype=torch.int32, device="cuda")
+    count = ("window_mma", "window_fwd", "decode_fwd")
+    v_row, _ = _profile_row("speculative_verify_step", verify,
+                            path="graph", count=count)
+    d_row, _ = _profile_row(
+        "speculative_decode_step",
+        lambda: eng._decode_group(tok, eng._cache, cur, sa, done, eos,
+                                  n_steps=1, t_bucket=SPEC_BUCKET),
+        path="graph", count=count)
+    if len(eng._graphs.keys() - keys):
+        raise AssertionError("speculative: the profiled steps captured")
+    emit({"phase": "speculative", "model": "llama-2-7b dims, random init "
+          "(seed 0)", "batch": B, "prompt_len": SPEC_PROMPT,
+          "new_tokens": SPEC_NEW, "chunk_steps": chunk, "prewarm": warmed,
+          "prewarm_s": prewarm_s, **mem,
+          "graph_captures_after_prewarm": captured,
+          "plain_tokens_per_s": B * SPEC_NEW / wall_plain,
+          "plain_wall_s": wall_plain,
+          "verify_step_kernel_ms": v_row["device_kernel_ms"],
+          "decode_step_kernel_ms": d_row["device_kernel_ms"],
+          "verify_over_decode": v_row["device_kernel_ms"]
+          / d_row["device_kernel_ms"],
+          "k2w_launches_per_step_graph": node_k2w,
+          "k2w_launches_per_group": node_k2w * chunk,
+          "runs": rows})
+    for row in rows:
+        emit(row)
+
+
 def phase_profile_paged(eng, tag: str = "") -> None:
     """Where the time goes on the serving path: one paged decode group
     (2 chunks x 8 steps) by graph replays and eagerly, and one ragged group
@@ -4378,6 +4780,8 @@ def phase_model(name: str, hf: dict, kernels: dict, seed: int) -> None:
     if captured:
         raise AssertionError(f"{name}: {captured} graph captures after prewarm")
     phase_profile(eng, name + "_")
+    if name == "starcoder":
+        _model_speculative(eng, prompts, a, name)
     del eng
     gc.collect()
     torch.cuda.empty_cache()
@@ -4425,6 +4829,46 @@ def phase_model(name: str, hf: dict, kernels: dict, seed: int) -> None:
              "ms", "unsplit_ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms")}}
         for k, c in cases.items()]})
+
+
+def _model_speculative(eng, prompts, want, name) -> None:
+    """One short speculative call at the model's full width and depth
+    (gamma 4, chunk_steps 4, 16 new tokens), so that K2w runs on the live
+    path at the model's shapes (StarCoder: 48 x 5 window rows on its one
+    KV head, the tile); its tokens' agreement with ``generate``'s greedy
+    rows ``want``."""
+    from llmss_tpu_torch.engine.engine import GenerationParams
+    from llmss_tpu_torch.ops import _build
+    from llmss_tpu_torch.ops import decode_attention as da
+
+    cfg, new, gamma = eng.cfg, 16, 4
+    keys = eng._graphs.keys()
+    da.decode_window_attention.launches = 0
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    spec = eng.generate_speculative(prompts, GenerationParams(
+        max_new_tokens=new), gamma=gamma, chunk_steps=4)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    st = eng.metrics.spec_stats
+    k2w = da.decode_window_attention.launches
+    # Not prewarmed: each step graph captured here ran the step once, for
+    # real, in its warm-up.
+    captured = sum(k[-5] == "spec" for k in eng._graphs.keys() - keys)
+    if not k2w or k2w != cfg.n_layers * (st["verify_forwards"] + captured):
+        raise AssertionError(f"{name}: K2w {k2w} launches for "
+                             f"{st['verify_forwards']} verify forwards and "
+                             f"{captured} captures")
+    plan = da.window_plan(cfg.torch_dtype, len(prompts), cfg.n_heads,
+                          cfg.n_kv_heads, cfg.head_dim,
+                          eng.decode_bucket(max(map(len, prompts)) + new)
+                          or eng.max_seq_len, gamma + 1,
+                          sms=_build.sm_count(torch.device("cuda")))
+    emit({"phase": name, "path": "generate_speculative", "gamma": gamma,
+          "new_tokens": new, "wall_s": wall, "spec_stats": st,
+          "k2w_launches": k2w, "spec_graphs_captured": captured,
+          "k2w_impl": plan.impl,
+          **_agreement([r for r in spec[:3]], [r[:new] for r in want[:3]])})
 
 
 QWEN2_7B_HF = {  # Qwen/Qwen2-7B config.json
@@ -4663,10 +5107,24 @@ def phase_cli() -> None:
         out = cli_main(["--pretrained_model_path", d,
                         "--token_ids", "1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17",
                         "5,9,23", "--max_new_tokens", "8", "--is_greedy"])
+        # --speculative on a ring of prompt + max_new slots (71: the
+        # ladder's 32 and 64 and the whole ring): whatever the acceptance,
+        # a later group crosses into a new bucket and captures mid-call.
+        ids = ["--token_ids", "1,2,3,1,2,3,1", "--max_new_tokens", "64",
+               "--is_greedy"]
+        plain = cli_main(["--pretrained_model_path", d, *ids])
+        spec = cli_main(["--pretrained_model_path", d, *ids,
+                         "--speculative", "4"])
     if [len(o) for o in out] != [8, 8] or not all(
             0 <= t < V for o in out for t in o):
         raise AssertionError(f"CLI returned {out}")
     emit({"phase": "cli", "rows": len(out), "tokens": out})
+    if [len(o) for o in spec] != [64] or not all(0 <= t < V for t in spec[0]):
+        raise AssertionError(f"CLI --speculative 4 returned {spec}")
+    agree = next((i for i, (a, b) in enumerate(zip(spec[0], plain[0]))
+                  if a != b), 64)
+    emit({"phase": "cli", "speculative": 4, "new_tokens": 64,
+          "agree_with_plain": agree, "tokens": spec})
     for name, hf in (("gptj_6b", GPTJ_6B_HF), ("starcoder", STARCODER_HF)):
         emit({"phase": "cli", "model": f"{name}, 2 layers",
               **_cli_family(name, hf)})
@@ -4695,6 +5153,7 @@ def main() -> int:
     smi = timed(phase_device)
     timed(phase_build)
     kernels = timed(check_kernels)
+    timed(check_window_kernel, kernels)
     timed(check_paged_kernels, kernels)
     timed(phase_reference)
     timed(phase_reference_paged)
@@ -4703,6 +5162,7 @@ def main() -> int:
     timed(phase_reference_priority)
     timed(phase_reference_roles)
     timed(phase_reference_families)
+    timed(phase_reference_speculative)
     eng, bf16 = timed(phase_engine, kernels)
     timed(phase_profile, eng)
     timed(phase_serve, eng)
@@ -4729,6 +5189,9 @@ def main() -> int:
     timed(phase_model, "starcoder", STARCODER_HF, kernels, seed=2)
     timed(phase_head_groups)
     timed(phase_cli)
+    timed(phase_speculative, kernels)
+    gc.collect()
+    torch.cuda.empty_cache()
     # The tiered store last: its threads, pinned staging and blobs never
     # share the process with a profiled phase.
     timed(phase_reference_tiers)
@@ -4759,6 +5222,11 @@ def main() -> int:
         ("K4_int8", "ragged_paged_attention (int8 pool)",
          "llmss_tpu_torch/csrc/paged_attention.cu",
          "llmss_tpu/ops/pallas_ragged.py:144"),
+        # The speculative verify window: no Pallas kernel, the reference's
+        # XLA oracle.
+        ("K2w", "decode_window_attention",
+         "llmss_tpu_torch/csrc/window_attention.cu",
+         "llmss_tpu/ops/attention.py:186"),
     ):
         k = kernels[name]
         rows.append({

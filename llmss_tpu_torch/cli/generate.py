@@ -2,9 +2,12 @@
 
 Same flags as the reference, plus ``--device`` (default ``cuda``); any
 family of ``models/registry.MODEL_REGISTRY`` loads.
-``--kv_dtype int8`` stores the KV cache quantized (engine/cache.py). The
-port refuses, with a message, what it does not run yet: ``--speculative``,
-the ``--sp``/``--tp``/``--dp`` mesh flags, and ``--prompts`` (text needs a
+``--kv_dtype int8`` stores the KV cache quantized (engine/cache.py).
+``--speculative GAMMA`` (greedy only) runs prompt-lookup speculative
+decoding with GAMMA drafted tokens per verify forward
+(engine/speculative.py) and adds a ``speculation: ... tok/verify`` figure.
+The port refuses, with a message, what it does not run yet: the
+``--sp``/``--tp``/``--dp`` mesh flags, and ``--prompts`` (text needs a
 tokenizer, which the port does not have: it takes ``--token_ids``).
 
     python -m llmss_tpu_torch.cli.generate --pretrained_model_path DIR \\
@@ -44,14 +47,16 @@ def get_args(argv=None):
     )
     parser.add_argument("--max_seq_len", type=int, default=None)
     parser.add_argument("--seed", type=int, default=0)
-    parser.add_argument("--speculative", type=int, default=0, metavar="GAMMA")
+    parser.add_argument(
+        "--speculative", type=int, default=0, metavar="GAMMA",
+        help="prompt-lookup speculative decoding with GAMMA drafted "
+             "tokens per step (greedy only; 0 = off)",
+    )
     parser.add_argument("--device", type=str, default="cuda")
     return parser.parse_args(argv)
 
 
 def _refuse_unported(args) -> None:
-    if args.speculative:
-        raise SystemExit("--speculative is not supported by the torch port yet")
     if args.sp != 1 or args.dp != 1 or args.tp not in (None, 1):
         raise SystemExit(
             "--sp/--tp/--dp: the torch port runs one model on one device"
@@ -71,6 +76,10 @@ def _validate(args) -> None:
         raise SystemExit("--top_k must be >= 0")
     if not 0.0 < args.top_p <= 1.0:
         raise SystemExit("--top_p must be in (0, 1]")
+    if args.speculative < 0:
+        raise SystemExit("--speculative must be >= 0")
+    if args.speculative > 0 and not args.is_greedy:
+        raise SystemExit("--speculative requires --is_greedy")
 
 
 def main(argv=None):
@@ -100,11 +109,15 @@ def main(argv=None):
     )
     t0 = time.monotonic()
     first_token_at = []
-    out = engine.generate(
-        prompts, gen,
-        on_token=lambda step, toks: first_token_at.append(time.monotonic())
-        if step == 0 else None,
-    )
+    if args.speculative > 0:
+        out = engine.generate_speculative(prompts, gen,
+                                          gamma=args.speculative)
+    else:
+        out = engine.generate(
+            prompts, gen,
+            on_token=lambda step, toks: first_token_at.append(
+                time.monotonic()) if step == 0 else None,
+        )
     t1 = time.monotonic()
 
     n_generated = sum(len(o) for o in out)
@@ -116,9 +129,13 @@ def main(argv=None):
         f"ttft: {(first_token_at[0] - t0) * 1000:.1f}ms | "
         if first_token_at else ""
     )
+    spec = ""
+    if args.speculative > 0 and engine.metrics.spec_stats:
+        rate = engine.metrics.spec_stats["mean_tokens_per_forward_per_row"]
+        spec = f"speculation: {rate} tok/verify | "
     print(
         f"elapsed: {elapsed:.2f}s | generation: {t1 - t0:.2f}s | " + ttft
-        + f"throughput: {n_generated / max(t1 - t0, 1e-9):.1f} tok/s "
+        + spec + f"throughput: {n_generated / max(t1 - t0, 1e-9):.1f} tok/s "
         f"on {engine.device}"
     )
     return out

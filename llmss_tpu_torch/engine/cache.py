@@ -17,8 +17,10 @@ The reference's scatters silently drop out-of-range slots (done rows write
 to slot ``T``); torch indexing would raise on such an index and wrap a
 negative one, so the writes here drop those entries explicitly and never
 write new data to a clamped slot. With one token per row (decode) a dropped
-entry rewrites the slot-0 value it read, which keeps the step free of host
-syncs; with several tokens per row the dropped entries are filtered out.
+entry rewrites the slot-0 value it read; with several (prefill, the
+speculative verify window) it repeats its row's first kept write, or
+rewrites slot 0 in a row with none. Either way no write waits on the device,
+so a step that writes several tokens a row can be captured in a graph.
 
 The paged layout keeps KV in one pool of fixed-size blocks shared by every
 row, ``[L, N + 1, bs, Hkv, D]``, addressed through per-row ``block_tables
@@ -116,14 +118,24 @@ def _scatter(buf: torch.Tensor, slots: torch.Tensor, new: torch.Tensor,
     rows = torch.arange(B, device=slots.device)[:, None].expand(B, S)
     new = new.to(buf.dtype)
     pre = (slice(None),) * lead
+    shape = keep.shape + (1,) * (new.dim() - lead - 2)
     if S == 1:
         # One write per row: a dropped row rewrites what slot 0 holds.
         idx = torch.where(keep, slots, 0).long()
-        shape = keep.shape + (1,) * (new.dim() - lead - 2)
         cur = buf[pre + (rows, idx)]
         buf[pre + (rows, idx)] = torch.where(keep.view(shape), new, cur)
-    else:
-        buf[pre + (rows[keep], slots[keep].long())] = new[pre + (keep,)]
+        return
+    # A dropped entry repeats its row's first kept entry (slot and value),
+    # or, in a row with none, rewrites what slot 0 holds: every slot a
+    # write targets twice gets one value, and no boolean indexing (a host
+    # sync, which a captured step could not hold) is needed.
+    any_kept = keep.any(1, keepdim=True).expand(B, S)
+    first = keep.to(torch.int32).argmax(1, keepdim=True).expand(B, S)
+    src = torch.where(keep, torch.arange(S, device=slots.device), first)
+    idx = torch.where(any_kept, slots.gather(1, src), 0).long()
+    vals = torch.where(any_kept.view(shape), new[pre + (rows, src)],
+                       buf[pre + (rows, idx)])
+    buf[pre + (rows, idx)] = vals
 
 
 def write_positions(

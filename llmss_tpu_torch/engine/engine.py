@@ -38,7 +38,11 @@ suffix at positions ``P...`` with draw counters ``P + len``, so the tokens
 are those of a prefill from scratch. The continuous batcher shares the
 prefix's full blocks across rows (engine/scheduler.py).
 
-Not in this port yet: speculative decoding.
+``generate_speculative`` (engine/speculative.py) is greedy generation
+with prompt-lookup speculation: each step verifies a drafted window of
+``gamma + 1`` tokens a row in one forward (K2w on the GPU), a group of
+steps is that many replays of one captured step graph, and the host reads
+the group in one transfer.
 """
 
 from __future__ import annotations
@@ -51,11 +55,12 @@ import numpy as np
 import torch
 
 from llmss_tpu_torch.device import resolve_device
+from llmss_tpu_torch.engine import speculative as spec
 from llmss_tpu_torch.engine.cache import (
     KVCache, PagedKVCache, init_cache, init_paged_cache, paged_write_stacked,
 )
 from llmss_tpu_torch.engine.graphs import (
-    SAMPLING_VARIANTS, DecodeGraphs, StepBuffers,
+    SAMPLING_VARIANTS, DecodeGraphs, SpecBuffers, StepBuffers,
 )
 from llmss_tpu_torch.engine.metrics import EngineMetrics
 from llmss_tpu_torch.models.common import DecoderConfig
@@ -420,6 +425,28 @@ class DecodeEngine:
         if captured:
             self.metrics.add_graph(captures=1)
         return g.bufs, step
+
+    def _spec_step(self, cache, bufs: SpecBuffers, gamma: int, ngram: int,
+                   t_bucket):
+        """The replay of one speculative step over ``bufs`` and ``cache``
+        (engine/speculative.py ``spec_step``, its outcome recorded in
+        ``bufs.packed``), captured now if new under ``("spec", gamma,
+        ngram, group, t_bucket)``, which the metrics count; on the CPU the
+        step body."""
+
+        def body():
+            choice, n_emit = spec.spec_step(
+                self.cfg, self.params, bufs.hist, bufs.hist_len, cache,
+                bufs.done, bufs.eos, gamma=gamma, ngram=ngram,
+                t_bucket=t_bucket, layers=self._layers)
+            bufs.record(choice, n_emit)
+
+        step, captured = self._graphs.for_cache(cache).step(
+            ("spec", gamma, ngram, bufs.group, t_bucket), body,
+            carry=bufs.carry())
+        if captured:
+            self.metrics.add_graph(captures=1)
+        return step
 
     @torch.inference_mode()
     def _decode(self, tokens, cache, cur_pos, sample_args, *, t_bucket=None):
@@ -797,6 +824,20 @@ class DecodeEngine:
         self.metrics.add_tokens(sum(len(o) for o in out[: live_rows or B]))
         return out
 
+    def generate_speculative(
+        self, prompts: list[list[int]], gen: GenerationParams, *,
+        gamma: int = 4, ngram: int = spec.NGRAM,
+        chunk_steps: int = spec.CHUNK_STEPS,
+    ) -> list[list[int]]:
+        """Greedy generation with prompt-lookup speculative decoding
+        (engine.py:1255): ``generate``'s tokens under the verify forward's
+        numerics, 1 to gamma + 1 of them per forward, ``chunk_steps``
+        forwards per host round-trip (engine/speculative.py). Sampled
+        requests are refused."""
+        return spec.generate_speculative(
+            self, prompts, gen, gamma=gamma, ngram=ngram,
+            chunk_steps=chunk_steps)
+
     @torch.inference_mode()
     def generate_fused(
         self, prompts: list[list[int]], gen: GenerationParams
@@ -837,6 +878,7 @@ class DecodeEngine:
     def prewarm(
         self, batch: int, *, chunk_steps: tuple[int, ...] | int = (),
         buckets: bool = True, prefix_prefill: bool = False,
+        speculative: tuple[int, ...] | int = (),
     ) -> int:
         """Warm everything ``generate`` / ``generate_fused`` can run at
         ``batch`` rows (engine.py:762): a prefill for each seq bucket, then
@@ -849,9 +891,14 @@ class DecodeEngine:
         before). ``prefix_prefill`` is the reference's flag for the
         prefix-offset prefill programs; the port's prefill runs eagerly and
         the decode step graphs do not depend on a prefix, so it warms
-        nothing more."""
+        nothing more. ``speculative`` (gammas) adds what
+        ``generate_speculative(gamma=)`` runs with its default ``ngram``
+        and ``chunk_steps``: its step graph at every bucket, and the
+        greedy grouped step of its plain tail."""
         if isinstance(chunk_steps, int):
             chunk_steps = (chunk_steps,)
+        if isinstance(speculative, int):
+            speculative = (speculative,)
         dev = self.device
         cache = self._generate_cache(batch)
         n = 0
@@ -863,7 +910,7 @@ class DecodeEngine:
             )
             n += 1
         kinds = ["plain"] + (["fold"] if any(k > 1 for k in chunk_steps)
-                             else [])
+                             or speculative else [])
         cur = torch.ones(batch, dtype=torch.int32, device=dev)
         done = torch.zeros(batch, dtype=torch.bool, device=dev)
         eos = torch.full((batch,), -1, dtype=torch.int32, device=dev)
@@ -877,6 +924,16 @@ class DecodeEngine:
                         self._decode_group(tok, cache, cur, sa, done, eos,
                                            n_steps=1, t_bucket=tb)
                     n += 1
+        g = self._graphs.for_cache(cache)
+        for gamma in speculative:
+            bufs = g.spec_buffers(gamma + 1, spec.CHUNK_STEPS,
+                                  self.max_seq_len)
+            bufs.hist_len.fill_(1)
+            bufs.done.zero_()
+            for tb in self.prewarm_bucket_set() if buckets else [None]:
+                bufs.step.zero_()
+                self._spec_step(cache, bufs, gamma, spec.NGRAM, tb)
+                n += 1
         self._generate_cache(batch)
         _sync(dev)
         return n

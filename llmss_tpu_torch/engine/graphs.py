@@ -12,17 +12,23 @@ is captured once as a CUDA graph over persistent buffers and replayed:
   carry. The host fills them with ``copy_`` before a run of steps, outside
   the graph; the graph reads the carry (tokens, cur_pos, done, poisoned)
   and writes it back in place, as donation does, so ``n`` replays are ``n``
-  steps. The cache is read and written in place at fixed addresses.
+  steps. The cache is read and written in place at fixed addresses. The
+  speculative step (engine/speculative.py) has its own set per cache and
+  window (``SpecBuffers``): histories, lengths, done flags and EOS ids,
+  and the group's packed result, which every replay writes at the
+  group's step index.
 - **Key**: the cache's layout and the identity and shape of its tensors
   (which fix the rows), the step's kind, ``t_bucket`` and the two
-  sampling branch flags. Everything else the step does is fixed by them.
+  sampling branch flags (a speculative step: gamma, ngram and the group
+  length instead of the flags). Everything else the step does is fixed
+  by them.
 - **Capture**: one eager run of the body on a side stream (it builds and
   loads the kernels' libraries and cuBLAS's handles, which must not happen
   during capture), then ``torch.cuda.CUDAGraph`` into one memory pool that
   every live graph of the engine shares (a new one once they have all been
   freed). The warm-up really runs the step, so
-  the carry is restored after it; its one KV write goes to the slot the
-  step itself writes next, which every decode read excludes as pending.
+  the carry is restored after it; its KV writes go to the slots the step
+  itself writes next, which every decode read excludes as pending.
   A capture that fails raises: nothing carries on eagerly on the card.
 - **Launch counters**: the kernel wrappers count at call time, which a
   replay does not repeat. At capture the graph's kernel nodes are read
@@ -52,15 +58,17 @@ SAMPLING_VARIANTS = ((False, False), (True, False), (True, True))
 
 # The symbols of the kernels each wrapper launches once per call (a split
 # lane call, and every decode call on the tile, adds a ``split_merge``,
-# which is not counted). K3 and K4 share the paged kernels; a step graph
-# holds K3 only. A symbol names every instantiation of its template:
-# ``paged_mma`` is the tensor-core tile over a bf16 pool and over an int8
-# one, K4's chunks and the decode form K3 takes above G_TILE query heads
-# per KV head; ``decode_mma`` K2's tile over either cache; ``paged_fwd`` /
-# ``decode_fwd`` the lane templates over either cache.
+# and every K2w call a ``window_merge``, which are not counted). K3 and K4
+# share the paged kernels; a step graph holds K3 only. A symbol names every
+# instantiation of its template: ``paged_mma`` is the tensor-core tile over
+# a bf16 pool and over an int8 one, K4's chunks and the decode form K3
+# takes above G_TILE query heads per KV head; ``decode_mma`` K2's tile over
+# either cache; ``paged_fwd`` / ``decode_fwd`` the lane templates over
+# either cache.
 KERNEL_SYMBOLS = {
     "flash_attention": ("flash_fwd", "flash_mma"),
     "decode_attention": ("decode_fwd", "decode_mma"),
+    "decode_window_attention": ("window_fwd", "window_mma"),
     "paged_decode_attention": ("paged_fwd", "paged_mma"),
     "ragged_paged_attention": ("paged_fwd", "paged_mma"),
 }
@@ -73,7 +81,8 @@ def launch_counters() -> tuple:
     from llmss_tpu_torch.ops import paged_attention as pa
 
     return (fa.flash_attention, da.decode_attention,
-            pa.paged_decode_attention, pa.ragged_paged_attention)
+            da.decode_window_attention, pa.paged_decode_attention,
+            pa.ragged_paged_attention)
 
 
 def counted_capture(capture: Callable[[], None]) -> list[tuple]:
@@ -221,6 +230,63 @@ class StepBuffers:
         return [getattr(self, n) for n in self.CARRY]
 
 
+class SpecBuffers:
+    """The static state of one cache's speculative step graphs (engine/
+    speculative.py): each row's token history (prompt and emitted tokens)
+    and its length, the done flags and EOS ids, and ``packed``, the group's
+    result that the host reads in one transfer: ``[group * B * width
+    choices | group * B emits | B hist_len | B done]`` int32. Step ``k`` of
+    a group (``step``, a device counter the host zeroes before the group)
+    writes its choices and emits at index ``k``, and every step the
+    current lengths and done flags."""
+
+    CARRY = ("hist", "hist_len", "done", "step")
+
+    def __init__(self, rows: int, hist_cap: int, width: int, group: int,
+                 device: torch.device):
+        with torch.inference_mode(False):
+            def vec(dtype):
+                return torch.zeros(rows, dtype=dtype, device=device)
+
+            self.hist = torch.zeros(rows, hist_cap, dtype=torch.int32,
+                                    device=device)
+            self.hist_len = vec(torch.int32)
+            self.done = vec(torch.bool)
+            self.eos = vec(torch.int32)
+            self.step = torch.zeros(1, dtype=torch.int64, device=device)
+            self.packed = torch.zeros(group * rows * (width + 1) + 2 * rows,
+                                      dtype=torch.int32, device=device)
+            n = group * rows
+            self.choices = self.packed[: n * width].view(group, rows, width)
+            self.emits = self.packed[n * width: n * (width + 1)].view(group,
+                                                                      rows)
+            self.len_out = self.packed[n * (width + 1): n * (width + 1) + rows]
+            self.done_out = self.packed[n * (width + 1) + rows:]
+        self.group, self.width = group, width
+
+    def record(self, choice: torch.Tensor, n_emit: torch.Tensor) -> None:
+        """Store one step's outcome at the group's step index and advance
+        it; every step also stores the current lengths and done flags."""
+        self.choices.index_copy_(0, self.step, choice[None].to(torch.int32))
+        self.emits.index_copy_(0, self.step, n_emit[None].to(torch.int32))
+        self.len_out.copy_(self.hist_len)
+        self.done_out.copy_(self.done)
+        self.step.add_(1)
+
+    def unpack(self, flat, m: int):
+        """The host copy of ``packed`` after ``m`` steps: (choices [m, B,
+        width], emits [m, B], hist_len [B], done [B])."""
+        rows, w = self.hist.shape[0], self.width
+        n = self.group * rows
+        ch = flat[: n * w].reshape(self.group, rows, w)[:m]
+        ne = flat[n * w: n * (w + 1)].reshape(self.group, rows)[:m]
+        hl = flat[n * (w + 1): n * (w + 1) + rows]
+        return ch, ne, hl, flat[n * (w + 1) + rows:].astype(bool)
+
+    def carry(self) -> list[torch.Tensor]:
+        return [getattr(self, n) for n in self.CARRY]
+
+
 def cache_tensors(cache) -> list[torch.Tensor]:
     """Every tensor of a cache: its fields, but for the int8 scales a cache
     of the compute dtype leaves None."""
@@ -243,17 +309,35 @@ class CacheGraphs:
         self.key = key
         self.bufs = bufs
         self.steps: dict[tuple, CapturedStep | None] = {}
+        self.spec: dict[tuple, SpecBuffers] = {}
 
-    def step(self, key: tuple, body: Callable[[], None]
+    def step(self, key: tuple, body: Callable[[], None],
+             carry: list[torch.Tensor] | None = None
              ) -> tuple[Callable[[], None], bool]:
         """``(replay, captured)``: the replay of ``body`` (one step over
         ``bufs`` and the cache, its inputs already loaded) under ``key``,
-        and whether this call captured it. On the CPU the replay is
-        ``body`` itself."""
+        and whether this call captured it. ``carry``: the tensors the step
+        updates in place, restored after the capture's warm-up run
+        (default: ``bufs``'s carry). On the CPU the replay is ``body``
+        itself."""
         captured = key not in self.steps
         if captured:
-            self.steps[key] = self._graphs._capture(body, self.bufs)
+            self.steps[key] = self._graphs._capture(
+                body, self.bufs.carry() if carry is None else carry)
         return self.steps[key] or body, captured
+
+    def spec_buffers(self, width: int, group: int, hist_cap: int,
+                     ) -> "SpecBuffers":
+        """The cache's speculative step buffers for windows of ``width``
+        tokens in groups of at most ``group`` steps over histories of up to
+        ``hist_cap`` tokens (made on first use, kept with the cache)."""
+        key = (width, group, hist_cap)
+        bufs = self.spec.get(key)
+        if bufs is None:
+            bufs = self.spec[key] = SpecBuffers(
+                self.bufs.tokens.shape[0], hist_cap, width, group,
+                self.bufs.tokens.device)
+        return bufs
 
 
 class DecodeGraphs:
@@ -293,7 +377,8 @@ class DecodeGraphs:
         """Every captured step, as (cache key + step key)."""
         return {e.key + k for e in self._entries.values() for k in e.steps}
 
-    def _capture(self, body, bufs: StepBuffers) -> CapturedStep | None:
+    def _capture(self, body, carry: list[torch.Tensor]
+                 ) -> CapturedStep | None:
         if self.device.type != "cuda":
             return None
         dev = self.device
@@ -305,12 +390,12 @@ class DecodeGraphs:
             # freed (a worker's caches dropped at a restart): a capture
             # after that must open a new one.
             self._pool = torch.cuda.graph_pool_handle()
-        saved = [t.clone() for t in bufs.carry()]
+        saved = [t.clone() for t in carry]
         self._side.wait_stream(main)
         with torch.cuda.stream(self._side):
             body()
         main.wait_stream(self._side)
-        for t, s in zip(bufs.carry(), saved):
+        for t, s in zip(carry, saved):
             t.copy_(s)
         # Kept, so that its kernel nodes can be read back.
         graph = torch.cuda.CUDAGraph(keep_graph=True)

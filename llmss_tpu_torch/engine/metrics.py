@@ -82,6 +82,9 @@ class EngineMetrics:
     """Aggregated counters for one engine / worker."""
 
     def __init__(self):
+        # The last speculative call's acceptance stats (set by engine/
+        # speculative.py; None until one runs).
+        self.spec_stats: dict | None = None
         self.ttft = LatencyStat("ttft")
         self.prefill = LatencyStat("prefill")
         self.decode_step = LatencyStat("decode_step")
@@ -269,4 +272,8 @@ class EngineMetrics:
                     round(m_tok / m_budget, 4) if m_budget else None
                 ),
             },
+            **(
+                {"speculative": self.spec_stats}
+                if self.spec_stats is not None else {}
+            ),
         }

@@ -7,7 +7,7 @@ layer axis), ``ln_f`` and, unless tied, ``head``; q/k weights are stored
 ``[L, out, in]``, every other linear ``[L, in, out]``. Blocks run as a
 Python loop over layers (the reference's ``lax.scan``).
 
-``forward`` has the reference's two dense-cache modes:
+``forward`` has the reference's three dense-cache modes:
 
 - **prefill** (S > 1): each layer writes its KV into the ring in place,
   then attention (kernel K1 on the GPU) reads the updated cache
@@ -16,7 +16,15 @@ Python loop over layers (the reference's ``lax.scan``).
   the GPU) reads layer ``l`` of the stale stacked cache with the pending
   slot excluded and the fresh KV merged in; the fresh KV of every layer is
   scattered into the cache once, after the layer loop. ``t_bucket`` bounds
-  the read to ring slots ``[0, t_bucket)`` (:535-544).
+  the read to ring slots ``[0, t_bucket)`` (:535-544);
+- **decode window** (1 < S <= 8, no sliding window, a cache of the compute
+  dtype: the speculative verify, :581-593): the same deferred write, with
+  attention (kernel K2w on the GPU) over the stale cache before the
+  window's first position, its S pending slots excluded, plus the
+  window's own fresh KV under the triangle ``j <= i``. Other S > 1 calls
+  (int8 caches, sliding-window models) take the prefill mode, as in the
+  reference. The caller's slots must then be the ring range from
+  ``slots[:, 0]`` (``positions % T``).
 
 Over the paged block pool (``PagedKVCache``, decoder.py:871-1081) the
 caller contract is the same, with logical slots indirected through each
@@ -42,8 +50,7 @@ that copy, runs K1 over it, and quantizes only the fresh tokens into the
 int8 storage: untouched slots are never round-tripped, and the fresh
 tokens are attended at full precision.
 
-Not in this port yet: sequence/tensor parallelism and the speculative
-multi-token window.
+Not in this port yet: sequence/tensor parallelism.
 """
 
 from __future__ import annotations
@@ -61,9 +68,10 @@ from llmss_tpu_torch.engine.cache import (
 )
 from llmss_tpu_torch.models.common import DecoderConfig, act_fn
 from llmss_tpu_torch.ops.attention import (
-    decode_attention, paged_decode_attention, prefill_attention,
-    ragged_attention,
+    decode_attention, decode_window_attention, paged_decode_attention,
+    prefill_attention, ragged_attention,
 )
+from llmss_tpu_torch.ops.decode_attention import WINDOW_MAX
 from llmss_tpu_torch.ops.layers import (
     LinearParams, NormParams, dense, dense_t, embedding, layer_norm, lm_head,
     rms_norm,
@@ -272,7 +280,12 @@ def forward(
     sin_cos = _rope_tables(cfg, positions)
     scale, window = cfg.attn_scale, cfg.sliding_window
 
-    if S == 1:
+    # A small decode window (the speculative verify: gamma + 1 tokens a
+    # row) takes the deferred write too, through K2w, unless the model has
+    # a sliding window or the cache is int8 (decoder.py:581-588).
+    window_defer = (1 < S <= WINDOW_MAX and window is None
+                    and not cache.quantized)
+    if S == 1 or window_defer:
         t_len = (
             t_bucket if t_bucket is not None and t_bucket < cache.max_len
             else cache.max_len
@@ -280,6 +293,12 @@ def forward(
         fresh_k, fresh_v = [], []
         for layer, bp in enumerate(layers):
             def attend(q, k, v, layer=layer):
+                if S > 1:
+                    return decode_window_attention(
+                        q, cache.k, cache.v, k, v, positions[:, :1],
+                        cache.positions, slots, layer, t_len=t_len,
+                        scale=scale,
+                    )
                 return decode_attention(
                     q, cache.k, cache.v, k, v, positions, cache.positions,
                     slots, layer, t_len=t_len, scale=scale, window=window,

@@ -28,7 +28,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
-SOURCES = ("flash_attention", "decode_attention", "paged_attention")
+SOURCES = ("flash_attention", "decode_attention", "paged_attention",
+           "window_attention")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
@@ -163,6 +164,11 @@ def _declare(lib: ctypes.CDLL, name: str) -> None:
         # Np bs MB n_cols Hq Hkv D R S split dtype impl | scale window stream
         # | k_scale v_scale kv_dtype
         fn.argtypes = [P] * 13 + [I] * 15 + [F, I, P] + [P, P, I]
+    elif name == "window_attention":
+        fn = lib.llmss_window_attention
+        # q kc vc kn vn out qpos kvpos slot0 ws | layer B T t_len Hq Hkv D
+        # Sw GB S split dtype impl | scale stream
+        fn.argtypes = [P] * 10 + [I] * 13 + [F, P]
     fn.restype = ctypes.c_int
 
 

@@ -2,7 +2,8 @@
 (counterpart: llmss_tpu/ops/attention.py).
 
 The plain functions compute everything in fp32, like the reference's XLA
-oracles (``attention`` :116, ``fresh_kv_decode_attention`` :242). Head
+oracles (``attention`` :116, ``fresh_kv_window_attention`` :186 with its
+mask ``window_mask_penalty`` :166, ``fresh_kv_decode_attention`` :242). Head
 layout is ``[batch, seq, heads, head_dim]``; GQA/MQA map query head ``h``
 to KV head ``h // G``. Masked lanes take the finite fp32 minimum, never
 -inf, so a fully masked row degrades to a uniform average instead of NaN.
@@ -13,11 +14,12 @@ oracles do (:296-319, :533-535): each cache score is multiplied by its
 slot's K scale, and each cache probability by its slot's V scale before
 the fp32 P.V. The fresh tokens' K / V are never quantized here.
 
-``prefill_attention``, ``decode_attention``, ``paged_decode_attention``
-and ``ragged_attention`` are the dispatch (the non-sharded part of the
-reference's ``dispatch_attention`` :543-639 and of the paged kernel hooks
-in models/decoder.py): CUDA tensors go to the hand-written kernels
-(ops/flash_attention.py, ops/decode_attention.py, ops/paged_attention.py),
+``prefill_attention``, ``decode_attention``, ``decode_window_attention``,
+``paged_decode_attention`` and ``ragged_attention`` are the dispatch (the
+non-sharded part of the reference's ``dispatch_attention`` :543-639 and of
+the paged kernel hooks in models/decoder.py): CUDA tensors go to the
+hand-written kernels (ops/flash_attention.py, ops/decode_attention.py,
+ops/paged_attention.py),
 CPU tensors to the plain versions. A CUDA tensor never reaches a plain
 version, and any other device raises.
 """
@@ -126,6 +128,59 @@ def fresh_kv_decode_attention(
                          v_cache.float())
     out = (
         out_c + p_s * v_new.float().permute(0, 2, 1, 3)[:, :, None]
+    ) / denom
+    return out.permute(0, 3, 1, 2, 4).reshape(B, S, Hq, D).to(q.dtype)
+
+
+def window_mask_penalty(
+    q_pos0: torch.Tensor,  # [B, 1] position of the window's first query
+    kv_pos_old: torch.Tensor,  # [B, T] pre-write slot positions
+    slots: torch.Tensor,  # [B, S] slots the window's tokens will take
+) -> torch.Tensor:
+    """Additive fp32 [B, T] cache mask of ``fresh_kv_window_attention``: a
+    live slot before the window (``0 <= pos < q_pos0``) is visible to every
+    window query, and the S pending slots (on a ring wrap they hold tokens
+    the window overwrites) are masked, so one penalty serves the window."""
+    T = kv_pos_old.shape[1]
+    slot_idx = torch.arange(T, dtype=torch.int32, device=kv_pos_old.device)
+    pending = (slot_idx[None, :, None] == slots[:, None, :]).any(-1)
+    mask = (kv_pos_old < q_pos0) & (kv_pos_old >= 0) & ~pending
+    zero = torch.zeros((), dtype=torch.float32, device=mask.device)
+    return torch.where(mask, zero, torch.full_like(zero, NEG_INF))
+
+
+def fresh_kv_window_attention(
+    q: torch.Tensor,  # [B, S, Hq, D] a small decode window (S <= 8)
+    k_cache: torch.Tensor,  # [B, T, Hkv, D] stale (window not written)
+    v_cache: torch.Tensor,
+    k_new: torch.Tensor,  # [B, S, Hkv, D] the window's own KV
+    v_new: torch.Tensor,
+    penalty: torch.Tensor,  # [B, T] fp32, ``window_mask_penalty``
+    *,
+    scale: float | None = None,
+) -> torch.Tensor:
+    """Deferred-write attention of a multi-token decode window (the
+    speculative verify): one exact fp32 softmax over the stale cache, masked
+    by ``penalty``, plus the window's fresh KV under the triangle ``j <=
+    i`` (window query ``i`` sees window key ``j``). Full causal only."""
+    B, S, Hq, D = q.shape
+    Hkv = k_cache.shape[2]
+    G = Hq // Hkv
+    if scale is None:
+        scale = 1.0 / (D ** 0.5)
+    qf = q.float().reshape(B, S, Hkv, G, D) * scale
+    s_c = torch.einsum("bskgd,btkd->bkgst", qf, k_cache.float())
+    s_c = s_c + penalty[:, None, None, None, :]
+    s_w = torch.einsum("bskgd,btkd->bkgst", qf, k_new.float())
+    tri = torch.ones(S, S, dtype=torch.bool, device=q.device).tril()
+    s_w = s_w.masked_fill(~tri, NEG_INF)
+    m = torch.maximum(s_c.amax(-1, keepdim=True), s_w.amax(-1, keepdim=True))
+    p_c = torch.exp(s_c - m)
+    p_w = torch.exp(s_w - m)
+    denom = p_c.sum(-1, keepdim=True) + p_w.sum(-1, keepdim=True)
+    out = (
+        torch.einsum("bkgst,btkd->bkgsd", p_c, v_cache.float())
+        + torch.einsum("bkgst,btkd->bkgsd", p_w, v_new.float())
     ) / denom
     return out.permute(0, 3, 1, 2, 4).reshape(B, S, Hq, D).to(q.dtype)
 
@@ -277,6 +332,31 @@ def decode_attention(
           else da.decode_attention_ref)
     return fn(*args, t_len=t_len, scale=scale, window=window,
               k_scale=k_scale, v_scale=v_scale)
+
+
+def decode_window_attention(
+    q: torch.Tensor,  # [B, S, Hq, D], 1 < S <= 8
+    k_cache: torch.Tensor,  # [L, B, T, Hkv, D] stale stacked cache
+    v_cache: torch.Tensor,
+    k_new: torch.Tensor,  # [B, S, Hkv, D]
+    v_new: torch.Tensor,
+    q_pos0: torch.Tensor,  # [B, 1] position of the first window query
+    kv_pos: torch.Tensor,  # [B, T] pre-write slot positions
+    slots: torch.Tensor,  # [B, S] the window's slots, a ring range
+    layer: int,
+    *,
+    t_len: int | None = None,
+    scale: float | None = None,
+) -> torch.Tensor:
+    """Deferred-write window attention over layer ``layer`` of the stacked
+    cache, reading slots ``[0, t_len)``: kernel K2w for CUDA tensors,
+    ``decode_window_attention_ref`` for CPU tensors."""
+    from llmss_tpu_torch.ops import decode_attention as da
+
+    args = (q, k_cache, v_cache, k_new, v_new, q_pos0, kv_pos, slots, layer)
+    fn = (da.decode_window_attention if _route(*args[:-1]) == "cuda"
+          else da.decode_window_attention_ref)
+    return fn(*args, t_len=t_len, scale=scale)
 
 
 def paged_decode_attention(

@@ -1,5 +1,6 @@
 """Kernel K2: single-token decode attention over the stacked cache
-(csrc/decode_attention.cu).
+(csrc/decode_attention.cu), and K2w: the decode window's attention
+(csrc/window_attention.cu).
 
 Replaces ``llmss_tpu/ops/pallas_decode.py::decode_attention``, with the
 XLA path's bucketed read added: ``t_len`` bounds the read to ring slots
@@ -28,6 +29,17 @@ what the reference's XLA oracle ``fresh_kv_decode_attention(k_scale=,
 v_scale=)`` (llmss_tpu/ops/attention.py:242) computes, since the Pallas K2
 takes no scales: each cache score times its slot's K scale, and P times
 the V scale (in fp32 on the lanes), the fresh token unscaled.
+
+K2w (``decode_window_attention``) is the speculative verify's attention:
+S <= 8 window queries a row over layer ``l`` of the stale stacked cache,
+read in place up to ``t_len``, plus the window's own fresh KV under the
+triangle ``j <= i``. It replaces no Pallas kernel: the reference runs the
+XLA oracle ``fresh_kv_window_attention`` (llmss_tpu/ops/attention.py:186),
+which ``decode_window_attention_ref`` computes in fp32. ``window_plan``
+lays the window out as K2's plan for ``G * S`` query rows per KV head
+(the tile for bf16 above ``WINDOW_G_TILE`` rows, else the lanes); the
+kernel's merge folds the splits and then the fresh keys, the fresh V in
+fp32.
 """
 
 from __future__ import annotations
@@ -36,9 +48,20 @@ import torch
 
 from llmss_tpu_torch.ops import _build
 from llmss_tpu_torch.ops import split_plan as sp
-from llmss_tpu_torch.ops.attention import fresh_kv_decode_attention
+from llmss_tpu_torch.ops.attention import (
+    fresh_kv_decode_attention, fresh_kv_window_attention, window_mask_penalty,
+)
 
 HEAD_DIMS = _build.HEAD_DIMS
+# K2w's longest window (csrc/window_attention.cu ``kMaxWin``): the decoder
+# takes the deferred-write window path at 1 < S <= 8, as the reference does.
+WINDOW_MAX = 8
+# bf16 windows with more than WINDOW_G_TILE rows (G * S) per KV head take
+# the tensor-core tile: on the H100 the lanes (8 rows a block) took 2.5x
+# the tile's time at Llama-2-7B's verify shape, S 5, and the tile 1.2x the
+# lanes' at 2 rows, gamma 1 (PERF.md). The kernel builds bf16 lanes at 2
+# rows a block only.
+WINDOW_G_TILE = 2
 
 
 def decode_attention_ref(
@@ -56,6 +79,20 @@ def decode_attention_ref(
         q, sl(k_cache), sl(v_cache), k_new, v_new, q_pos, kv_pos[:, :t],
         slots, scale=scale, window=window, k_scale=sl(k_scale),
         v_scale=sl(v_scale),
+    )
+
+
+def decode_window_attention_ref(
+    q, k_cache, v_cache, k_new, v_new, q_pos0, kv_pos, slots, layer: int,
+    *, t_len: int | None = None, scale: float | None = None,
+) -> torch.Tensor:
+    """K2w's plain version: ``fresh_kv_window_attention`` over the layer's
+    first ``t_len`` slots, masked by ``window_mask_penalty``."""
+    t = k_cache.shape[2] if t_len is None else t_len
+    penalty = window_mask_penalty(q_pos0[:, :1], kv_pos[:, :t], slots)
+    return fresh_kv_window_attention(
+        q, k_cache[layer, :, :t], v_cache[layer, :, :t], k_new, v_new,
+        penalty, scale=scale,
     )
 
 
@@ -198,3 +235,125 @@ def _launch(q, k_cache, v_cache, k_new, v_new, q_pos, kv_pos, slots, layer,
 
 
 decode_attention.launches = 0
+
+
+def window_plan(dtype: torch.dtype, B: int, Hq: int, Hkv: int, D: int,
+                t_len: int, S: int, *, sms: int = sp.H100_SMS,
+                max_splits: int = sp.MAX_SPLITS,
+                g_tile: int = WINDOW_G_TILE) -> sp.Plan:
+    """How a K2w call launches: K2's plan for ``G * S`` query rows per KV
+    head (every window query under every query head of the KV head reads
+    the KV head's slots once). bf16 above ``g_tile`` rows takes the
+    tensor-core tile (``"mma"``), everything else the lane template
+    (``"lanes"``) with ``_heads_per_block(G * S)`` rows a block. The window
+    always goes through its merge, which folds the splits and then the
+    window's fresh keys, so ``splits`` may be 1."""
+    Gv = Hq // Hkv * S
+    tile = sp.decode_tile(dtype, dtype, Gv, g_tile)
+    if tile is not None:
+        return sp.decode_tile_plan(tile, B, Hkv, Gv, D, t_len, sms=sms,
+                                   max_splits=max_splits)
+    GB = _heads_per_block(Gv)
+    splits, split = sp.split_plan(B, Hkv * -(-Gv // GB), t_len,
+                                  step=sp.lane_step(D), sms=sms,
+                                  max_splits=max_splits)
+    smem = (sp.lane_region_bytes(dtype.itemsize, GB, D) + 4 * 2 * 8 * GB
+            + sp.stage_smem_bytes(1))
+    return sp.Plan("lanes", smem, splits, split)
+
+
+def decode_window_attention(
+    q: torch.Tensor,  # [B, S, Hq, D], 1 < S <= WINDOW_MAX
+    k_cache: torch.Tensor,  # [L, B, T, Hkv, D] stale: the window not written
+    v_cache: torch.Tensor,
+    k_new: torch.Tensor,  # [B, S, Hkv, D]
+    v_new: torch.Tensor,
+    q_pos0: torch.Tensor,  # [B, 1] position of each row's first query
+    kv_pos: torch.Tensor,  # [B, T]
+    slots: torch.Tensor,  # [B, S] the ring range from slots[:, 0]
+    layer: int,
+    *,
+    t_len: int | None = None,
+    scale: float | None = None,
+) -> torch.Tensor:
+    """Launch K2w on the current stream; returns [B, S, Hq, D] in q's
+    dtype. The kernel reads ``slots[:, 0]`` only: the window's slots must
+    be the ring range ``(slots[:, 0] + i) % T``, as the decoder's are."""
+    out = _launch_window(q, k_cache, v_cache, k_new, v_new, q_pos0, kv_pos,
+                         slots, layer, t_len=t_len, scale=scale)
+    decode_window_attention.launches += 1
+    return out
+
+
+def _launch_window(q, k_cache, v_cache, k_new, v_new, q_pos0, kv_pos, slots,
+                   layer, *, t_len=None, scale=None,
+                   max_splits=sp.MAX_SPLITS, g_tile=WINDOW_G_TILE):
+    """Check K2w's envelope and launch it (``max_splits`` / ``g_tile`` as
+    in K2's ``_launch``, for chip_smoke.py's forced launches)."""
+    tensors = (q, k_cache, v_cache, k_new, v_new, q_pos0, kv_pos, slots)
+    if not all(t.is_cuda for t in tensors):
+        raise RuntimeError("decode_window_attention (K2w) takes CUDA "
+                           "tensors only")
+    B, S, Hq, D = q.shape
+    L, Bc, T, Hkv, Dc = k_cache.shape
+    if not 1 < S <= WINDOW_MAX:
+        raise ValueError(f"decode_window_attention takes windows of 2 to "
+                         f"{WINDOW_MAX} tokens, got S={S}")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"decode_window_attention supports head_dim "
+                         f"{HEAD_DIMS}, got {D}")
+    if (Bc, Dc) != (B, D) or Hq % Hkv or v_cache.shape != k_cache.shape:
+        raise ValueError(f"bad shapes q={tuple(q.shape)} "
+                         f"cache={tuple(k_cache.shape)}")
+    if k_new.shape != (B, S, Hkv, D) or v_new.shape != k_new.shape:
+        raise ValueError("k_new / v_new must be [B, S, Hkv, D]")
+    if not (q.dtype == k_new.dtype == v_new.dtype == k_cache.dtype
+            == v_cache.dtype):
+        raise _build.KernelError(
+            "decode_window_attention (K2w) takes q, the fresh KV and the "
+            f"cache in one dtype (no int8 cache), got q {q.dtype}, cache "
+            f"{k_cache.dtype}")
+    if not (k_cache.is_contiguous() and v_cache.is_contiguous()):
+        raise ValueError("decode_window_attention reads the cache in "
+                         "place: it must be contiguous")
+    if not 0 <= layer < L:
+        raise ValueError(f"layer {layer} out of range [0, {L})")
+    t_len = T if t_len is None else int(t_len)
+    if not 0 < t_len <= T:
+        raise ValueError(f"t_len must be in (0, {T}], got {t_len}")
+    if scale is None:
+        scale = 1.0 / (D ** 0.5)
+    qc = q.contiguous()
+    kn, vn = k_new.contiguous(), v_new.contiguous()
+    qp = q_pos0[:, 0].to(torch.int32).contiguous()
+    s0 = slots[:, 0].to(torch.int32).contiguous()
+    kvp = kv_pos.to(torch.int32).contiguous()
+    if kvp.shape != (B, T):
+        raise ValueError("kv_pos must be [B, T]")
+    for t in (qc, k_cache, v_cache, kn, vn):
+        if t.data_ptr() % 16:
+            raise ValueError("decode_window_attention needs 16-byte "
+                             "aligned tensors")
+    plan = window_plan(q.dtype, B, Hq, Hkv, D, t_len, S,
+                       sms=_build.sm_count(q.device), max_splits=max_splits,
+                       g_tile=g_tile)
+    if plan.smem > _build.SMEM_LIMIT:
+        raise _build.KernelError(f"decode_window_attention (K2w) needs "
+                                 f"{plan.smem} bytes of shared memory")
+    out = torch.empty_like(qc)
+    ws = torch.empty(sp.workspace_numel(B, Hq * S, plan.splits, D),
+                     dtype=torch.float32, device=q.device)
+    lib = _build.load("window_attention")
+    code = lib.llmss_window_attention(
+        qc.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), kn.data_ptr(),
+        vn.data_ptr(), out.data_ptr(), qp.data_ptr(), kvp.data_ptr(),
+        s0.data_ptr(), ws.data_ptr(), int(layer), B, T, t_len, Hq, Hkv, D, S,
+        _heads_per_block(Hq // Hkv * S), plan.splits, plan.split_slots,
+        _build.dtype_code(q), _build.IMPL_CODES[plan.impl], float(scale),
+        _build.stream_ptr(q.device),
+    )
+    _build.check(code, "decode_window_attention")
+    return out
+
+
+decode_window_attention.launches = 0

@@ -203,3 +203,28 @@ def test_engine_refuses_unsupported_head_dim_on_cuda(monkeypatch):
     out = eng.generate([[1, 2, 3], [4, 5]], GenerationParams(max_new_tokens=5),
                        chunk_steps=2)
     assert [len(o) for o in out] == [5, 5]
+
+
+def test_speculative_module_is_held_to_the_boundaries():
+    """``engine/speculative.py`` is one of the files the import check
+    covers, and it imports neither JAX nor the JAX package."""
+    path = ROOT / "llmss_tpu_torch" / "engine" / "speculative.py"
+    assert path in PORT_FILES
+    assert not _imported_roots(path) & {"jax", "jaxlib", "llmss_tpu"}
+
+
+def test_window_kernel_takes_cuda_tensors_only():
+    """K2w's wrapper refuses CPU tensors, and its dispatcher refuses a
+    device that is neither CUDA nor the CPU."""
+    from llmss_tpu_torch.ops.decode_attention import decode_window_attention
+
+    q = torch.zeros(1, 4, 2, 64)
+    cache = torch.zeros(1, 1, 16, 2, 64)
+    p0 = torch.zeros(1, 1, dtype=torch.int32)
+    kvp = torch.zeros(1, 16, dtype=torch.int32)
+    slots = torch.zeros(1, 4, dtype=torch.int32)
+    with pytest.raises(RuntimeError, match="CUDA tensors only"):
+        decode_window_attention(q, cache, cache, q, q, p0, kvp, slots, 0)
+    meta = torch.zeros(1, 1, 16, 2, 64, device="meta")
+    with pytest.raises(RuntimeError, match="must all be CUDA"):
+        tatt.decode_window_attention(q, meta, meta, q, q, p0, kvp, slots, 0)
