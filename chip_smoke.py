@@ -1,6 +1,9 @@
 """GPU smoke run of the PyTorch/CUDA port (llmss_tpu_torch) on one card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--order NAME]
+
+(``--order``: one of ``ORDERS``, the phase orders of runs that once lost
+profiler records; default: the order below.)
 
 Phases, each printing one JSON line; any failure raises and the script
 exits non-zero without printing a result:
@@ -34,10 +37,13 @@ exits non-zero without printing a result:
               speculative phase's shape (batch 16, window 5, the 384-slot
               bucket) plus a window wrapping the ring's end, invalidated
               slots, an empty row, windows of 2 and 8, GQA G 4 and 7 and
-              StarCoder's G 48 (the tile), D 64 and 256 and fp32 (library:
-              SDPA over the layer's slice and the fresh KV), the window of
-              2 (bf16's one lane shape) also forced onto the tile
-              ("lanes_ms", "tile_ms"); timed as a phase of its own;
+              StarCoder's G 48, D 64 and 256 (bf16: the window tile, with
+              its rows per block, slot warps and cluster) and fp32 (the
+              lanes) (library: SDPA over the layer's slice and the fresh
+              KV), each with its bound share; at the verify shape the tile
+              also at 1-3 forced splits folded in its cluster and by a
+              second launch ("cluster_ms", "two_launch_ms"); timed as a
+              phase of its own;
 4. reference -- a tiny fp32 llama generates the same greedy tokens through
               the kernels on the card, decoding by CUDA-graph replays, as
               through the plain path on the CPU;
@@ -536,49 +542,54 @@ SPEC_BATCH, SPEC_PROMPT, SPEC_NEW, SPEC_BUCKET = 16, 128, 256, 384
 SPEC_HIST = [200 + 7 * b for b in range(SPEC_BATCH)]  # rows mid-generation
 
 
+# K2w's cases: (name, B, T, Hq, Hkv, hist, t_len, S, options); the first
+# is the speculative phase's verify window at gamma 4 in its 384-slot
+# bucket. tests/test_torch_window_plan.py plans every one on the CPU.
+K2W_SHAPES = (
+    ("k2w_engine_verify", SPEC_BATCH, 1024, 32, 32, SPEC_HIST, SPEC_BUCKET, 5,
+     dict(seed=20)),
+    ("k2w_engine_verify_b4", 4, 1024, 32, 32, SPEC_HIST[:4], SPEC_BUCKET, 5,
+     dict(seed=21)),
+    # The whole ring: a window wrapping the ring's end (1022..1026), a
+    # wrapped ring, an empty row, a row at the last position.
+    ("k2w_7b_full_wrap", 4, 1024, 32, 32, [1022, 1500, 0, 2043], 1024, 5,
+     dict(seed=22)),
+    # Invalidated (-1) slots inside the visible range (rejected drafts).
+    ("k2w_7b_holes", 4, 1024, 32, 32, [300, 200, 0, 150], 384, 5,
+     dict(seed=23, holes=((0, 7), (0, 250), (1, 0), (3, 149)))),
+    ("k2w_s2", SPEC_BATCH, 1024, 32, 32, SPEC_HIST, SPEC_BUCKET, 2,
+     dict(seed=24)),
+    ("k2w_s8", SPEC_BATCH, 1024, 32, 32, SPEC_HIST, SPEC_BUCKET, 8,
+     dict(seed=25)),
+    # GQA: G 4 (20 window rows: two row warps), Qwen2-7B's G 7 (35 rows:
+    # three), StarCoder's G 48 (240 rows: four blocks of 64).
+    ("k2w_gqa4", 4, 1024, 32, 8, [1022, 1300, 5, 0], 1024, 5, dict(seed=26)),
+    ("k2w_qwen2", 4, 1024, 28, 4, [300, 250, 0, 377], 384, 5, dict(seed=27)),
+    ("k2w_starcoder", 4, 1024, 48, 1, [200, 150, 0, 250], 256, 5,
+     dict(seed=28)),
+    ("k2w_d64", 4, 256, 8, 8, [100, 250, 0, 30], 256, 4, dict(seed=29, D=64)),
+    ("k2w_gptj_d256", 4, 1024, 16, 16, [200, 150, 0, 250], 256, 5,
+     dict(seed=30, D=256)),
+    # fp32: 10 window rows (two lane groups of 8), and the tiny fp32
+    # reference model's shape (D 64, GQA 2).
+    ("k2w_fp32", 3, 256, 8, 4, [100, 250, 0], 256, 5,
+     dict(seed=31, dt=torch.float32)),
+    ("k2w_fp32_d64", 3, 64, 4, 2, [20, 50, 0], 64, 5,
+     dict(seed=32, D=64, dt=torch.float32)),
+)
+
+
 def k2w_cases() -> list[dict]:
-    """K2w's cases; the first is the speculative phase's verify window at
-    gamma 4 in its 384-slot bucket."""
-    return [
-        _k2w_case("k2w_engine_verify", SPEC_BATCH, 1024, 32, 32, SPEC_HIST,
-                  SPEC_BUCKET, 5, seed=20),
-        _k2w_case("k2w_engine_verify_b4", 4, 1024, 32, 32, SPEC_HIST[:4],
-                  SPEC_BUCKET, 5, seed=21),
-        # The whole ring: a window wrapping the ring's end (1022..1026), a
-        # wrapped ring, an empty row, a row at the last position.
-        _k2w_case("k2w_7b_full_wrap", 4, 1024, 32, 32, [1022, 1500, 0, 2043],
-                  1024, 5, seed=22),
-        # Invalidated (-1) slots inside the visible range (rejected drafts).
-        _k2w_case("k2w_7b_holes", 4, 1024, 32, 32, [300, 200, 0, 150], 384,
-                  5, seed=23, holes=((0, 7), (0, 250), (1, 0), (3, 149))),
-        _k2w_case("k2w_s2", SPEC_BATCH, 1024, 32, 32, SPEC_HIST, SPEC_BUCKET,
-                  2, seed=24),
-        _k2w_case("k2w_s8", SPEC_BATCH, 1024, 32, 32, SPEC_HIST, SPEC_BUCKET,
-                  8, seed=25),
-        # GQA: G 4 (20 window rows: the tile), Qwen2-7B's G 7 (35 rows),
-        # StarCoder's G 48 (240 rows: four tiles).
-        _k2w_case("k2w_gqa4", 4, 1024, 32, 8, [1022, 1300, 5, 0], 1024, 5,
-                  seed=26),
-        _k2w_case("k2w_qwen2", 4, 1024, 28, 4, [300, 250, 0, 377], 384, 5,
-                  seed=27),
-        _k2w_case("k2w_starcoder", 4, 1024, 48, 1, [200, 150, 0, 250], 256,
-                  5, seed=28),
-        _k2w_case("k2w_d64", 4, 256, 8, 8, [100, 250, 0, 30], 256, 4,
-                  seed=29, D=64),
-        _k2w_case("k2w_gptj_d256", 4, 1024, 16, 16, [200, 150, 0, 250], 256,
-                  5, seed=30, D=256),
-        # fp32: 10 window rows (two lane groups of 8), and the tiny fp32
-        # reference model's shape (D 64, GQA 2).
-        _k2w_case("k2w_fp32", 3, 256, 8, 4, [100, 250, 0], 256, 5, seed=31,
-                  dt=torch.float32),
-        _k2w_case("k2w_fp32_d64", 3, 64, 4, 2, [20, 50, 0], 64, 5, seed=32,
-                  D=64, dt=torch.float32),
-    ]
+    """K2w's cases on the card, from ``K2W_SHAPES``."""
+    return [_k2w_case(name, B, T, Hq, Hkv, hist, t_len, S, **kw)
+            for name, B, T, Hq, Hkv, hist, t_len, S, kw in K2W_SHAPES]
 
 
 def check_window_kernel(out: dict) -> None:
     """K2w against its plain (fp32) version, within REL_TOL, at every
-    case; the first case's numbers go into the final kernels line."""
+    case, timed beside its plain version, SDPA and its bound (each case
+    also in the ``mma_below_library`` line); the first case's numbers go
+    into the final kernels line."""
     from llmss_tpu_torch.ops import _build
     from llmss_tpu_torch.ops import attention as att
     from llmss_tpu_torch.ops import decode_attention as da
@@ -625,32 +636,42 @@ def check_window_kernel(out: dict) -> None:
                           tri[None, None].expand(B, 1, S, S)], -1)
         plan = da.window_plan(dt, B, Hq, Hkv, D, t, S,
                               sms=_build.sm_count(c["q"].device))
+        t0 = time.perf_counter()
+        ms = device_ms(lambda: da.decode_window_attention(*args, **kw),
+                       iters=50)
         row = {"phase": "kernel", "kernel": "K2w", "case": c["name"],
-               "window": S, "impl": plan.impl, "splits": plan.splits,
-               "split_slots": plan.split_slots,
+               "window": S, "impl": plan.impl, "rows_per_block": plan.rows,
+               "slot_warps": plan.slot_warps, "cluster": plan.cluster,
+               "splits": plan.splits, "split_slots": plan.split_slots,
                "max_abs_err": err, "rel_tol": REL_TOL[dt],
-               "err_over_tol": ratio,
-               "ms": device_ms(lambda: da.decode_window_attention(*args, **kw),
-                               iters=50),
+               "err_over_tol": ratio, "ms": ms,
                "plain_ms": profiled_ms(
                    lambda: da.decode_window_attention_ref(*args, **kw)),
                "library_ms": device_ms(
                    lambda: _sdpa(c["q"], keys, vals, mask), iters=50),
                "library": "scaled_dot_product_attention over the slice and "
                           "the fresh KV",
-               "bound_ms": b_ms, "bound_by": b_by}
+               "bound_ms": b_ms, "bound_by": b_by, "bound_share": b_ms / ms}
         _unsplit(row, lambda: da._launch_window(*args, max_splits=1, **kw),
                  lambda g: check(g, " unsplit"))
-        want = ("mma" if dt == torch.bfloat16
-                and Hq // Hkv * S > da.WINDOW_G_TILE else "lanes")
-        _main_path_impl("K2w", row, want)
-        if c["name"] == "k2w_s2":  # bf16's one lane shape: G * S = 2
-            _both_templates(
-                row, lambda g_tile: da._launch_window(*args, g_tile=g_tile,
-                                                      **kw),
-                lambda g: check(g, " forced"))
+        _main_path_impl("K2w", row,
+                        "mma" if dt == torch.bfloat16 else "lanes")
+        if c["name"] == "k2w_engine_verify":
+            # The window tile at 1-3 splits, each folded in its cluster and
+            # by window_merge, a second launch (the two-launch form).
+            for n in (1, 2, 3):
+                for key, clu in (("cluster_ms", True), ("two_launch_ms", False)):
+                    def forced(n=n, clu=clu):
+                        return da._launch_window(*args, cluster=clu, splits=n,
+                                                 **kw)
+
+                    check(forced(), f" {key} {n}")
+                    row.setdefault(key, {})[n] = device_ms(forced, iters=50)
+        row["seconds"] = time.perf_counter() - t0
         out.setdefault("K2w", row)
         out["cases"][c["name"]] = row
+        out.setdefault("vs_library", {})[c["name"]] = (row["ms"],
+                                                       row["library_ms"])
         emit(row)
     out["K2w"]["max_abs_err"] = worst
 
@@ -2061,19 +2082,35 @@ def _calls(rows, c: str, ms: bool = False):
     return sum(us / 1e3 if ms else n for us, _, n in hit)
 
 
+def _wrapper_launches(fn):
+    """(``fn()``, {wrapper name: launches}) of one call, from the kernel
+    wrappers' own counters (``graphs.launch_counters``): an eager call
+    counts where it launches, a graph replay adds the launches read from
+    its kernel nodes at capture. No profiler record enters a count."""
+    from llmss_tpu_torch.engine import graphs
+
+    before = [(w, w.launches) for w in graphs.launch_counters()]
+    out = fn()
+    return out, {w.__name__: w.launches - n for w, n in before
+                 if w.launches != n}
+
+
 def _profile_row(what, fn, path=None, count=()) -> tuple[dict, object]:
     """Where the time of ``fn`` goes: after a warm call, wall time without
-    the profiler (and the host's enqueue time, to the return of ``fn``),
-    then summed kernel time, the top kernels and the calls of the kernels
+    the profiler (and the host's enqueue time, to the return of ``fn``)
+    and the kernel launches counted by the wrappers (``launches``), then
+    summed kernel time, the top kernels and the device ms of the kernels
     whose names hold a ``count`` symbol, from a profiled call; the idle
-    share is 1 - kernel time / wall time. Returns (row, the timed call's
+    share is 1 - kernel time / wall time. The profiler's own calls of
+    those kernels (``profiler_calls``) are reported beside, unchecked: it
+    has lost records (ROADMAP Queue 3). Returns (row, the timed call's
     result)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     t = time.perf_counter()
-    out = fn()
+    out, launches = _wrapper_launches(fn)
     enqueue_ms = (time.perf_counter() - t) * 1e3
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t) * 1e3
@@ -2086,8 +2123,8 @@ def _profile_row(what, fn, path=None, count=()) -> tuple[dict, object]:
            "wall_ms": wall_ms, "host_enqueue_ms": enqueue_ms,
            "device_kernel_ms": kernel_ms,
            "device_idle_share": max(0.0, 1 - kernel_ms / wall_ms),
-           "kernels": sum(r[2] for r in rows),
-           "kernel_calls": {c: _calls(rows, c) for c in count},
+           "kernels": sum(r[2] for r in rows), "launches": launches,
+           "profiler_calls": {c: _calls(rows, c) for c in count},
            "kernel_ms_of": {c: _calls(rows, c, ms=True) for c in count},
            "top": [{"kernel": k[:80], "ms": us / 1e3, "calls": n}
                    for us, k, n in rows[:8]]}
@@ -2095,22 +2132,38 @@ def _profile_row(what, fn, path=None, count=()) -> tuple[dict, object]:
     return row, out
 
 
+def _node_counts(names: list[str], symbols) -> dict:
+    """How many of a graph's kernel nodes (``names``) hold each symbol
+    (``"int8:"`` before it: only its int8-cache instantiations)."""
+    return {c: sum(1 for n in names if (_int8_kernel(n, c[5:])
+                                        if c.startswith("int8:") else c in n))
+            for c in symbols}
+
+
 def _graph_vs_eager(eng, what, tok, cache, cur, sa, done, eos, *, n_chunks,
                     n_steps, t_bucket) -> None:
     """One decode group by graph replays (the engine's path) beside the
     same steps run eagerly over the same buffers, each call from the same
     state (the cache's positions put back: the KV a call wrote is then
-    masked again); both must give the same packed tokens, and the profiler
-    must see both launch the decode kernel n_layers times a step, and its
-    merge as often when the plan splits. The engine's captured step graph
-    must keep each merge a programmatic dependent launch."""
+    masked again); both must give the same packed tokens, and both must
+    launch the decode kernel n_layers times a step: counted by its
+    wrapper (a replay adds its graph's kernel nodes). The step graph's
+    kernel nodes must hold n_layers decode kernels (int8 instantiations
+    over an int8 cache) and as many merges when the plan splits, each
+    merge a programmatic dependent launch."""
+    from llmss_tpu_torch.engine import graphs
     from llmss_tpu_torch.engine.cache import PagedKVCache
+    from llmss_tpu_torch.ops import decode_attention as da
+    from llmss_tpu_torch.ops import paged_attention as pa
     from llmss_tpu_torch.ops import split_plan as sp
 
     pos0 = cache.positions.clone()
     plan = _decode_plan(eng, cache, t_bucket)
-    kernel = ("paged" if isinstance(cache, PagedKVCache) else "decode") + (
+    paged = isinstance(cache, PagedKVCache)
+    kernel = ("paged" if paged else "decode") + (
         "_mma" if plan.impl in sp.TILE_IMPLS else "_fwd")
+    wrapper = (pa.paged_decode_attention if paged
+               else da.decode_attention).__name__
 
     def graph():
         cache.positions.copy_(pos0)
@@ -2130,40 +2183,31 @@ def _graph_vs_eager(eng, what, tok, cache, cur, sa, done, eos, *, n_chunks,
                                        else ())
     L, steps = eng.cfg.n_layers, n_chunks * n_steps
     merges = L if sp.merges(plan) else 0
-    want_calls = {kernel: L * steps, "split_merge": merges * steps}
+    want_launches = {wrapper: L * steps}
+    want_nodes = {kernel: L, "split_merge": merges}
     if cache.quantized:
-        want_calls[f"int8:{kernel}"] = L * steps
-    retries = {}
+        want_nodes[f"int8:{kernel}"] = L
 
-    def profile(path, fn):
-        # The profiler can lose a kernel record out of ~30,000 (an eager
-        # group once counted 511 of its 512 identical launches): a count
-        # that misses is profiled again, twice at most. A path that really
-        # launches otherwise misses every time and fails below.
-        for attempt in range(3):
-            row, out = _profile_row(what, fn, path, count)
-            if row["kernel_calls"] == want_calls:
-                break
-        retries[path] = attempt
-        return row, out
-
-    g_row, g_out = profile("graph", graph)
-    e_row, e_out = profile("eager", eager)
+    g_row, g_out = _profile_row(what, graph, "graph", count)
+    e_row, e_out = _profile_row(what, eager, "eager", count)
     same = torch.equal(g_out, e_out)
     step = eng._graphs.for_cache(cache).steps[
         eng._step_key("fold", sa, t_bucket)]
+    nodes = _node_counts(graphs.kernel_node_names(step.graph), count)
     edges = _programmatic_edges(step.graph)
     emit({"phase": "profile", "what": what, "check": "graph_equals_eager",
           "identical": same,
           "wall_ratio_eager_over_graph": e_row["wall_ms"] / g_row["wall_ms"],
           "kernel_ms_ratio_graph_over_eager": (
               g_row["device_kernel_ms"] / e_row["device_kernel_ms"]),
-          "kernel_calls_graph": g_row["kernel_calls"],
-          "kernel_calls_eager": e_row["kernel_calls"],
-          "kernel_calls_want": want_calls,
+          "launches_graph": g_row["launches"],
+          "launches_eager": e_row["launches"],
+          "launches_want": want_launches,
+          "step_graph_nodes": nodes, "step_graph_nodes_want": want_nodes,
+          "profiler_calls_graph": g_row["profiler_calls"],
+          "profiler_calls_eager": e_row["profiler_calls"],
           "step_graph_edges": edges[1], "programmatic_edges": edges[0],
           "split_merges_per_step": merges, "decode_impl": plan.impl,
-          "profile_retries": retries,
           # the decode attention kernels' (with their merges) share of the
           # graph path's kernel time
           "decode_attention_ms_graph": (g_row["kernel_ms_of"][kernel]
@@ -2174,9 +2218,12 @@ def _graph_vs_eager(eng, what, tok, cache, cur, sa, done, eos, *, n_chunks,
     if not same:
         raise AssertionError(f"{what}: graph and eager packed tokens differ")
     for path, row in (("graph", g_row), ("eager", e_row)):
-        if row["kernel_calls"] != want_calls:
-            raise AssertionError(f"{what}: the {path} path's profile shows "
-                                 f"{row['kernel_calls']}, want {want_calls}")
+        if row["launches"] != want_launches:
+            raise AssertionError(f"{what}: the {path} path launched "
+                                 f"{row['launches']}, want {want_launches}")
+    if nodes != want_nodes:
+        raise AssertionError(f"{what}: the step graph's kernel nodes hold "
+                             f"{nodes}, want {want_nodes}")
     if edges[0] != merges:
         raise AssertionError(f"{what}: {edges[0]} programmatic edges in the "
                              f"step graph, {merges} split merges")
@@ -4452,6 +4499,11 @@ def phase_speculative(kernels: dict) -> None:
         path="graph", count=count)
     if len(eng._graphs.keys() - keys):
         raise AssertionError("speculative: the profiled steps captured")
+    for row, want in ((v_row, {"decode_window_attention": L}),
+                      (d_row, {"decode_attention": L})):
+        if row["launches"] != want:
+            raise AssertionError(f"speculative {row['what']}: launched "
+                                 f"{row['launches']}, want {want}")
     emit({"phase": "speculative", "model": "llama-2-7b dims, random init "
           "(seed 0)", "batch": B, "prompt_len": SPEC_PROMPT,
           "new_tokens": SPEC_NEW, "chunk_steps": chunk, "prewarm": warmed,
@@ -4474,12 +4526,12 @@ def phase_profile_paged(eng, tag: str = "") -> None:
     """Where the time goes on the serving path: one paged decode group
     (2 chunks x 8 steps) by graph replays and eagerly, and one ragged group
     (4 steps, two rows feeding 128-token chunks beside six decode rows,
-    eager) over 8 rows of the serve engine. Over an int8 pool (rows named
-    ``tag`` first) every ``paged_fwd`` the profiler sees must be an int8
-    instantiation, and the ragged group must run K4 only as the int8
-    tensor-core tile (``paged_mma`` over int8): n_layers per step, and no
-    ``paged_fwd``."""
+    eager) over 8 rows of the serve engine. The ragged group must launch
+    K4 n_layers times a step and nothing else its wrappers count, on the
+    tensor-core tile: ``paged_mma`` over bf16, over an int8 pool (rows
+    named ``tag`` first) its int8 instantiation (``"mma_int8"``)."""
     from llmss_tpu_torch.engine.engine import GenerationParams
+    from llmss_tpu_torch.ops import paged_attention as pa
 
     B = 8
     rng = np.random.default_rng(0)
@@ -4505,17 +4557,19 @@ def phase_profile_paged(eng, tag: str = "") -> None:
     xs = [torch.as_tensor(a, device=dev) for a in (
         rng.integers(1, 32000, (nc, B, CB)).astype(np.int32), qlens, feed,
         emit_)]
-    count = ("paged_fwd", "paged_mma", "int8:paged_mma") if cache.quantized \
-        else ()
+    count = ("paged_fwd", "paged_mma", "int8:paged_mma")
     row, _ = _profile_row(
         tag + "ragged_group_4_steps",
         lambda: eng._ragged_group(tok, cache, cur, sa, done, eos, *xs),
         count=count)
-    want = eng.cfg.n_layers * nc
-    if count and row["kernel_calls"] != {"paged_fwd": 0, "paged_mma": want,
-                                         "int8:paged_mma": want}:
-        raise AssertionError(f"{tag}ragged group: {row['kernel_calls']}, "
-                             f"want {want} int8 paged_mma and no other")
+    cfg = eng.cfg
+    impl = pa.kernel_plan(cfg.torch_dtype, CB, cfg.n_heads // cfg.n_kv_heads,
+                          cfg.head_dim, kv_dtype=cache.k.dtype).impl
+    want = {"ragged_paged_attention": cfg.n_layers * nc}
+    want_impl = "mma_int8" if cache.quantized else "mma"
+    if row["launches"] != want or impl != want_impl:
+        raise AssertionError(f"{tag}ragged group: {row['launches']} on "
+                             f"{impl}, want {want} on {want_impl}")
 
 
 # -- phase 6c ------------------------------------------------------------------
@@ -4579,7 +4633,8 @@ def phase_int8(params, kernels: dict, bf16: dict) -> None:
     # The prefill profiled (eager: a dequantized copy of each layer, K1,
     # then the quantizing writes), then one decode chunk, graph and eager,
     # from the same state over a cache of its own (whose graphs this
-    # captures): the profiler must see only the int8 decode_fwd.
+    # captures): its step graph's decode nodes must all be int8
+    # decode_fwd instantiations.
     ids, lens = eng._pad_prompts(prompts)
     sa = eng._sample_args(GenerationParams(), B)
     ids_d = torch.as_tensor(ids, device="cuda")
@@ -4867,7 +4922,7 @@ def _model_speculative(eng, prompts, want, name) -> None:
     emit({"phase": name, "path": "generate_speculative", "gamma": gamma,
           "new_tokens": new, "wall_s": wall, "spec_stats": st,
           "k2w_launches": k2w, "spec_graphs_captured": captured,
-          "k2w_impl": plan.impl,
+          "k2w_impl": plan.impl, "k2w_rows_per_block": plan.rows,
           **_agreement([r for r in spec[:3]], [r[:new] for r in want[:3]])})
 
 
@@ -5148,7 +5203,22 @@ def timed(fn, *args, **kwargs):
         PHASE_SECONDS[name] = time.perf_counter() - t
 
 
-def main() -> int:
+# Phase orders under which whole runs once lost profiler records, when
+# launches were still counted from them (ROADMAP Queue 3): the tiered
+# store's phases before head_groups (PR 14's log call 6), the speculative
+# phase before serve_continuous (PR 15's log call 6).
+ORDERS = ("default", "tiers_before_head_groups",
+          "speculative_before_serve_continuous")
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--order", choices=ORDERS, default="default",
+                    help="run the phases in one of the orders that once lost "
+                         "profiler records")
+    order = ap.parse_args(argv).order
     t_main = time.perf_counter()
     smi = timed(phase_device)
     timed(phase_build)
@@ -5169,6 +5239,8 @@ def main() -> int:
     params = eng.params
     del eng
     torch.cuda.empty_cache()
+    if order == "speculative_before_serve_continuous":
+        timed(phase_speculative, kernels)
     peng, bf16["serve_tokens"], inproc, unified = timed(
         phase_serve_continuous, params, kernels)
     timed(phase_serve_http, peng, bf16["serve_tokens"], inproc, smi)
@@ -5187,16 +5259,22 @@ def main() -> int:
     torch.cuda.empty_cache()
     timed(phase_model, "gptj_6b", GPTJ_6B_HF, kernels, seed=1)
     timed(phase_model, "starcoder", STARCODER_HF, kernels, seed=2)
+    tiers_first = order == "tiers_before_head_groups"
+    if tiers_first:
+        timed(phase_reference_tiers)
+        timed(phase_serve_tiers)
     timed(phase_head_groups)
     timed(phase_cli)
-    timed(phase_speculative, kernels)
+    if order != "speculative_before_serve_continuous":
+        timed(phase_speculative, kernels)
     gc.collect()
     torch.cuda.empty_cache()
-    # The tiered store last: its threads, pinned staging and blobs never
-    # share the process with a profiled phase.
-    timed(phase_reference_tiers)
-    timed(phase_serve_tiers)
-    emit({"phase": "seconds", "by_phase": PHASE_SECONDS,
+    # The tiered store last: its threads, pinned staging and blobs share
+    # the process with no later phase.
+    if not tiers_first:
+        timed(phase_reference_tiers)
+        timed(phase_serve_tiers)
+    emit({"phase": "seconds", "order": order, "by_phase": PHASE_SECONDS,
           "main_s": time.perf_counter() - t_main})
     rows = []
     for name, fn, src, replaces in (

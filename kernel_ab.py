@@ -1,14 +1,17 @@
-"""Device times of the port's four kernels in one checkout, at the kernel
+"""Device times of the port's kernels in one checkout, at the kernel
 cases of this checkout's chip_smoke.py, timed as chip_smoke.py times them
 (``device_ms``: calls captured in a CUDA graph, replays timed by CUDA
 events).
 
     python3 kernel_ab.py [--tree DIR] [--label NAME] [--kernels K1,K2,K3,K4]
-                         [--registers]
+                         [--registers] [--k2w-forms]
 
-(default: those four and the int8-cache cases K2_int8,K3_int8,K4_int8;
-``--registers``: build with ``-Xptxas=-v`` and print the registers and
-spills of the tensor-core and lane-template instantiations first)
+(default: those four, the int8-cache cases K2_int8,K3_int8,K4_int8 and
+K2w, the speculative verify window's cases; ``--registers``: build with
+``-Xptxas=-v`` and print the registers and spills of the tensor-core and
+lane-template instantiations first; ``--k2w-forms``: time instead each
+bf16 K2w case at 1, 2, 4 and 8 forced splits, folded in its cluster and
+by window_merge, the data K2w's split plan was set from)
 
 The cases include K2 and K3 at StarCoder's G = 48 (bf16 and int8), Qwen2-
 7B's G = 7, SantaCoder's G = 16 and G = 8, so a tree's decode templates
@@ -86,6 +89,12 @@ def _cases(cs, da, fa, pa, kernels):
                     c["qlen"], c["kvp"], c["bt"], c["nblk"], c["slot0"],
                     c["layer"], n_cols=c["n_cols"], window=c["window"],
                     **_scales(c))), 50
+    if "K2w" in kernels:
+        for c in cs.k2w_cases():
+            yield "K2w", c["name"], (
+                lambda c=c: da.decode_window_attention(
+                    c["q"], c["kc"], c["vc"], c["kn"], c["vn"], c["q0"],
+                    c["kvp"], c["slots"], c["layer"], t_len=c["t_len"])), 50
 
 
 def main() -> int:
@@ -93,13 +102,17 @@ def main() -> int:
     ap.add_argument("--tree", default=str(ROOT),
                     help="checkout whose llmss_tpu_torch is timed")
     ap.add_argument("--label", default="this", help="name in every line")
-    ap.add_argument("--kernels", default="K1,K2,K3,K4,K2_int8,K3_int8,K4_int8",
+    ap.add_argument("--kernels",
+                    default="K1,K2,K3,K4,K2_int8,K3_int8,K4_int8,K2w",
                     help="the kernels whose cases are timed (K2_int8, "
-                         "K3_int8, K4_int8: the int8-cache cases, which an "
-                         "older tree cannot run)")
+                         "K3_int8, K4_int8: the int8-cache cases, and K2w, "
+                         "which an older tree cannot run)")
     ap.add_argument("--registers", action="store_true",
                     help="build verbose and print the tensor-core and lane "
                          "kernels' registers")
+    ap.add_argument("--k2w-forms", action="store_true",
+                    help="time the bf16 K2w cases at forced split counts and "
+                         "folds")
     args = ap.parse_args()
     tree = Path(args.tree).resolve()
     sys.path.insert(0, str(tree))
@@ -124,6 +137,24 @@ def main() -> int:
                  {"kernel": k, "registers": r, "spill_store_bytes": sp}
                  for k, sp, r in cs.ptxas_entries("\n".join(out.values()))
                  if "split_merge" not in k]} if args.registers else {})})
+    if args.k2w_forms:
+        for c in cs.k2w_cases():
+            if c["q"].dtype != torch.bfloat16:
+                continue
+            args_ = (c["q"], c["kc"], c["vc"], c["kn"], c["vn"], c["q0"],
+                     c["kvp"], c["slots"], c["layer"])
+            row = {"plan": da.window_plan(
+                torch.bfloat16, c["q"].shape[0], c["q"].shape[2],
+                c["kc"].shape[3], c["q"].shape[3], c["t_len"],
+                c["q"].shape[1], sms=_build.sm_count(c["q"].device))._asdict()}
+            for n in (1, 2, 4, 8):
+                for fold, clu in (("cluster", True), ("two_launch", False)):
+                    row[f"{fold}_{n}"] = cs.device_ms(
+                        lambda: da._launch_window(
+                            *args_, t_len=c["t_len"], splits=n, cluster=clu),
+                        iters=50)
+            cs.emit({"phase": "k2w_forms", **tag, "case": c["name"], **row})
+        return 0
     times, digests = {}, {}
     for kernel, case, fn, iters in _cases(cs, da, fa, pa,
                                                args.kernels.split(",")):

@@ -20,33 +20,39 @@
 // What bounds it on the H100: memory, as K2. A window reads each KV head's
 // t_len * D keys and values for G * S query rows, ~4 flops per element
 // and row, far below the ~295 flops per byte where the tensor cores would
-// become the limit. So the design is K2's (csrc/decode_attention.cu),
-// with the G * S window rows of a KV head in the place of K2's G query
-// heads: every block reads its KV head's slots once for all of them.
+// become the limit. So every block reads its KV head's slots once for a
+// group of its G * S window rows, and the design is about keeping bytes in
+// flight with as little per-block work as possible:
 //   * Window row f (0 <= f < G * S) of KV head hk is query f / G under
 //     query head hk * G + f % G, read in place from q [B, S, Hq, D]: no
 //     transpose of the queries.
-//   * G * S <= 2 (MHA at gamma 1), or fp32 / fp16 queries: window_fwd,
-//     K2's lane template (8 warps; cp.async rings of K/V rows in shared
-//     memory, csrc/split_merge.cuh LaneRing) with GB rows a block, the
-//     last group of a KV head partial where GB does not divide G * S.
-//     bf16 is built at GB = 2 only.
-//   * bf16 queries with G * S > 2 (ops/decode_attention.py WINDOW_G_TILE;
-//     Llama-2-7B at gamma 4: 5 rows, Qwen2's G 7, StarCoder's 48):
-//     window_mma, the tensor-core tile of attn_tile.cuh with its 64 flat
-//     rows the window rows of one KV head. On the H100 the lanes at 8
-//     rows a block took 2.5x the tile's time at Llama-2-7B's verify shape
-//     (PERF.md; why is not measured); chip_smoke.py times both at 2 rows.
-//   * Both split the read along the KV axis (ops/split_plan.py) and always
-//     store each row's fp32 (m, l, acc) in split_merge.cuh's workspace,
-//     indexed by window row: [B, Hkv, G * S] rows of [S_split] states.
-//     window_merge, a programmatic dependent launch on the same stream,
-//     computes the fresh keys' scores before it waits, then folds the
-//     splits in split order and the fresh keys j <= i in order, and
+//   * bf16 queries: window_mma, the window tile below. Its rows per block
+//     follow G * S (16 a warp: 16 for MHA's 2 to 8, 32 for G 4, 48 for
+//     Qwen2's 35, 64 for StarCoder's 240 in four groups), so at
+//     Llama-2-7B's verify shape 11 of 16 mma rows are dead where the
+//     shared 64-row tile of attn_tile.cuh had 59 of 64; Q stays in
+//     registers, which leaves room for a three-stage ring at two blocks an
+//     SM; a block's first tiles are copied before their positions are
+//     read; and the splits of a read, where the plan splits it (a grid
+//     that leaves SMs idle), are one thread block cluster that folds them
+//     in the kernel, so there is no second launch and no workspace. On
+//     the H100 a block's fixed chain of latencies, more than its bytes,
+//     sets the time at the verify shape: the plan keeps the grid to one
+//     round of resident blocks where it can (ops/decode_attention.py).
+//   * fp32 / fp16 queries: window_fwd, K2's lane template (8 warps;
+//     cp.async rings of K/V rows in shared memory, csrc/split_merge.cuh
+//     LaneRing) with GB rows a block, the last group of a KV head partial
+//     where GB does not divide G * S. It stores each row's fp32 (m, l, acc) in split_merge.cuh's
+//     workspace, indexed by window row: [B, Hkv, G * S] rows of [S_split]
+//     states; window_merge, a programmatic dependent launch on the same
+//     stream, computes the fresh keys' scores before it waits, then folds
+//     the splits in split order and the fresh keys j <= i in order, and
 //     writes the output in q's layout.
 // The cache mask is query-invariant (p < q_pos0 for every window query),
-// so it is applied once per slot when the positions are staged (lanes) or
-// read (tile), exactly as K2 applies its own.
+// so it is applied once per slot when the positions are staged, exactly
+// as K2 applies its own.
+
+#include <cooperative_groups.h>
 
 #include "attn_tile.cuh"
 #include "common.cuh"
@@ -313,83 +319,475 @@ __global__ void __launch_bounds__(NT, kLaneMinBlocks<T, GB>) window_fwd(WinArgs 
                               [&](int g) { return g < gn ? hk * Gv + f0 + g : -1; });
 }
 
-// tile::attend's Source for one block of window_mma: window rows f0 ..
-// f0 + 63 of KV head hk of row b (flat row r is window row f0 + r: query
-// (f0 + r) / G under head hk * G + (f0 + r) % G, every one at position
-// q_pos0 - 1 so that the tile's mask p <= q is the window's p < q_pos0)
-// against split s's slots [t_lo, t_hi) of layer `layer`, addressed from
-// t_lo: slot x is ring slot t_lo + x, hidden when it is empty, pending, or
-// at or past t_hi.
-template <int D>
-struct WinSrc {
-  using T = __nv_bfloat16;
-  const T *q, *kc, *vc;
-  const int* kvp;  // row b's positions from t_lo
-  int f0, G, Gv, Hq, Sw, b, hk, qp, t_lo, slot0, Tn, t_end;
-  long long base, row_stride;  // slot t_lo's K/V row of head hk; Hkv * D
-  int n_tiles, qmax, qmin, window;
-  float scale_log2;
+// window_mma: the window tile. A block attends R = 16 * RW flat window
+// rows of KV head hk (flat row r is window row f0 + r) against one split's
+// slots [t_lo, t_hi) of layer `layer`, on mma.sync m16n8k16 (bf16 in, fp32
+// accumulate). Warp w owns rows (w % RW) * 16 .. + 15, one A fragment, and
+// the slots j0 .. j0 + NJ - 1 (j0 = (w / RW) * NJ, NJ = 64 / SW) of every
+// 64-slot tile: its SW slot-parallel warps each keep their own fp32
+// (m, l, acc) of those rows.
+//   * Q: each warp's A fragments are loaded once from q into registers
+//     (D <= 128); at D 256 they would not leave room for the D / 8 x 4
+//     accumulators, so the block keeps Q in shared memory and reads the
+//     fragments by ldmatrix.
+//   * Visibility: the block stages kPosWin slots' visibility (position p,
+//     0 <= p < q_pos0, outside the pending ring range; else -1) in shared
+//     memory, with a mask of the 64-slot tiles holding any visible slot.
+//     Only those tiles are copied, and of them only the visible slots (the
+//     rest are zero-filled by the copy's src-size, and masked), but for
+//     the first kStages - 1 tiles below slot q_pos0, which are copied
+//     whole before the positions arrive.
+//   * Ring: kStages stages of K and V tiles (rows padded by 16 bytes),
+//     cp.async.cg 16-byte copies, one __syncthreads a tile; kStages - 1
+//     tiles are in flight while one is computed.
+//   * Before the KV loop the block also reads what its fold needs: the
+//     window's fresh V rows of KV head hk into shared memory, and the
+//     fresh keys' scores of the rows it folds.
+//   * Online softmax as attn_tile.cuh's (scores scaled by scale * log2 e,
+//     exp2f; masked probabilities exactly 0), P rounded to bf16 in
+//     registers before P.V.
+//   * End: the SW slot warps' states are folded in shared memory, in slot
+//     warp order. kCluster: the S splits of one (row b, KV head, row
+//     group) are one thread block cluster (S <= 8, grid z); after a
+//     cluster barrier block s folds the rows r = s, s + S, ... (a warp a
+//     row): the splits' states read over distributed shared memory in
+//     split order, then the fresh keys j <= i with scores and V in fp32,
+//     and writes the output in q's layout. A second barrier keeps every
+//     block's shared memory alive until the reads are done. Otherwise the
+//     block stores its state in split_merge.cuh's workspace and
+//     window_merge follows (the two-launch form, kept to time against).
+namespace wt {
+constexpr int kSlots = 64;     // slots of one K/V tile, one ring stage
+// Ring stages: 3 (two blocks an SM at D 128); 2 at D 256, whose 3 would
+// not leave room for Q and 64 rows' state.
+template <int D> constexpr int kStages = D > 128 ? 2 : 3;
+constexpr int kPosWin = 512;   // slots whose visibility a block stages at once
+constexpr int kMaxCluster = 8; // the portable cluster size: at most 8 splits
 
-  __device__ bool has(int r) const { return f0 + r < Gv; }
-  __device__ const T* q_row(int r) const {
-    if (!has(r)) return nullptr;
-    const int f = f0 + r;
-    return q + (((long long)b * Sw + f / G) * Hq + hk * G + f % G) * D;
-  }
-  __device__ int q_pos(int r) const { return has(r) ? qp : -1; }
-  __device__ int slot_pos(int t, int j) const {
-    const int x = t * tile::kSlots + j;
-    return x < t_end && !pending(t_lo + x, slot0, Sw, Tn) ? kvp[x] : -1;
-  }
-  __device__ bool rows(int t, int j, const T*& kr, const T*& vr) const {
-    const int x = t * tile::kSlots + j;
-    if (x >= t_end) return false;
-    const long long off = base + x * row_stride;
-    kr = kc + off;
-    vr = vc + off;
-    return true;
-  }
-  __device__ const T* any_ptr() const { return q; }
+// Slot-parallel warps per row warp.
+template <int RW> constexpr int kSlotWarps = RW == 1 ? 4 : 2;
+
+// Shared memory: the ring (K [stages][kSlots][LD] | V [stages][kSlots]
+// [LD]), reused after the KV loop by the slot warps' fp32 accumulators
+// [SW][R][D + 8] | Q [R][LD] at D 256 | the fresh V [kMaxWin][D] |
+// visibility [kPosWin] | two tile masks | m, l [SW][R] | the block's m, l
+// [R] | the fresh keys' scores [R][kMaxWin]. Mirrored by ops/_build.py
+// window_tile_smem_bytes.
+template <int D, int RW> struct Smem {
+  static constexpr int SW = kSlotWarps<RW>;
+  static constexpr int NW = RW * SW;
+  static constexpr int R = 16 * RW;
+  static constexpr int LD = D + 8;
+  static constexpr bool kQSmem = D > 128;
+  static constexpr size_t KV = size_t(kSlots) * LD;
+  static constexpr size_t ring = kStages<D> * 2 * KV * sizeof(__nv_bfloat16);
+  static constexpr size_t state = size_t(SW) * R * LD * sizeof(float);
+  static constexpr size_t region = ring > state ? ring : state;
+  static constexpr size_t q = kQSmem ? size_t(R) * LD * sizeof(__nv_bfloat16) : 0;
+  static constexpr size_t vn = size_t(kMaxWin) * D * sizeof(__nv_bfloat16);
+  static constexpr size_t bytes = region + q + vn + sizeof(int) * (kPosWin + 2) +
+                                  sizeof(float) * (2 * SW * R + 2 * R + R * kMaxWin);
 };
+}  // namespace wt
 
-// One block per (row b, KV head hk, 64 of its G * Sw window rows, split s
-// of S) on the tensor-core tile; stores each window row's fp32 state.
-template <int D>
-__global__ void __launch_bounds__(tile::kThreads) window_mma(WinArgs a) {
+__device__ __forceinline__ uint32_t ld_u32(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+template <int D, int RW, bool kCluster>
+__global__ void __launch_bounds__(wt::Smem<D, RW>::NW * 32) window_mma(WinArgs a) {
   using T = __nv_bfloat16;
-  extern __shared__ __align__(16) unsigned char tile_smem[];
-  pdl_trigger();  // window_merge may start; it waits for this grid's writes
-  const int b = blockIdx.x, hk = blockIdx.y;
+  using SM = wt::Smem<D, RW>;
+  constexpr int SW = SM::SW, NW = SM::NW, NTB = NW * 32, R = SM::R, LD = SM::LD;
+  constexpr int NJ = wt::kSlots / SW;  // slots of each tile per warp
+  constexpr int CPR = D / 8;           // 16-byte chunks per row
+  constexpr int PPT = (wt::kPosWin + NTB - 1) / NTB;
+  extern __shared__ __align__(16) unsigned char wsmem[];
+  T* sK = reinterpret_cast<T*>(wsmem);
+  constexpr int ST = wt::kStages<D>;
+  T* sV = sK + ST * SM::KV;
+  float* sAcc = reinterpret_cast<float*>(wsmem);  // [SW][R][LD], after the loop
+  T* sQ = reinterpret_cast<T*>(wsmem + SM::region);
+  T* sVn = reinterpret_cast<T*>(wsmem + SM::region + SM::q);  // [kMaxWin][D]
+  int* sPos = reinterpret_cast<int*>(wsmem + SM::region + SM::q + SM::vn);
+  unsigned* sMask = reinterpret_cast<unsigned*>(sPos + wt::kPosWin);  // [2]
+  float* sM = reinterpret_cast<float*>(sMask + 2);  // [SW][R]
+  float* sL = sM + SW * R;                          // [SW][R]
+  float* sMc = sL + SW * R;                         // [R]
+  float* sLc = sMc + R;                             // [R]
+  float* sSn = sLc + R;                             // [R][kMaxWin]
+
+  if constexpr (!kCluster) pdl_trigger();  // window_merge may start
+
+  const T* q = static_cast<const T*>(a.q);
+  const T* kc = static_cast<const T*>(a.kc);
+  const T* vc = static_cast<const T*>(a.vc);
+  const int split = blockIdx.z, b = blockIdx.y;
   const int G = a.Hq / a.Hkv, Gv = G * a.Sw;
-  const int split = blockIdx.z % a.S, f0 = blockIdx.z / a.S * tile::kRows;
+  const int ng = (Gv + R - 1) / R;
+  const int hk = blockIdx.x / ng, f0 = (blockIdx.x % ng) * R;
+  const int nr = min(R, Gv - f0);  // live rows: r < nr
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int rw = warp % RW, j0 = warp / RW * NJ;
+  const int g4 = lane / 4, t4 = lane % 4;
   const int t_lo = split * a.split, t_hi = min(a.t_len, t_lo + a.split);
-  tile::WithPartial<WinSrc<D>> s;
-  s.q = static_cast<const T*>(a.q);
-  s.kc = static_cast<const T*>(a.kc);
-  s.vc = static_cast<const T*>(a.vc);
-  s.kvp = a.kvpos + (long long)b * a.Tn + t_lo;
-  s.f0 = f0;
-  s.G = G;
-  s.Gv = Gv;
-  s.Hq = a.Hq;
-  s.Sw = a.Sw;
-  s.b = b;
-  s.hk = hk;
-  s.qp = a.qpos[b] - 1;
-  s.t_lo = t_lo;
-  s.slot0 = a.slot0[b];
-  s.Tn = a.Tn;
-  s.t_end = t_hi - t_lo;
-  s.row_stride = (long long)a.Hkv * D;
-  s.base = (((long long)a.layer * a.B + b) * a.Tn + t_lo) * s.row_stride + (long long)hk * D;
-  s.n_tiles = (s.t_end + tile::kSlots - 1) / tile::kSlots;
-  s.qmax = s.qmin = s.qp;
-  s.window = 0;
-  s.scale_log2 = a.scale * 1.4426950408889634f;
-  const long long hq = (long long)a.Hq * a.Sw;  // window rows of a batch row
-  s.part = {a.ws, (long long)a.B * hq * a.S, (b * hq + (long long)hk * Gv + f0) * a.S + split,
-            a.S, min(tile::kRows, Gv - f0)};
-  tile::attend<T, D, true>(s, tile_smem);
+  const long long row_stride = (long long)a.Hkv * D;
+  const long long base =
+      ((long long)a.layer * a.B + b) * (long long)a.Tn * row_stride + (long long)hk * D;
+  const int* kvp = a.kvpos + (long long)b * a.Tn;
+  const int q0 = a.qpos[b], slot0 = a.slot0[b];
+  const float scale_log2 = a.scale * 1.4426950408889634f;
+
+  // Flat row r's query row (query (f0 + r) / G under head hk * G +
+  // (f0 + r) % G), nullptr for a dead row.
+  auto q_row = [&](int r) -> const T* {
+    if (r >= nr) return nullptr;
+    const int f = f0 + r;
+    return q + (((long long)b * a.Sw + f / G) * a.Hq + hk * G + f % G) * D;
+  };
+  uint32_t qa[SM::kQSmem ? 1 : D / 16][4];
+  if constexpr (SM::kQSmem) {
+    for (int c = tid; c < R * CPR; c += NTB) {
+      const int r = c / CPR, part = c % CPR;
+      const T* g = q_row(r);
+      *reinterpret_cast<uint4*>(sQ + r * LD + part * 8) =
+          g ? *reinterpret_cast<const uint4*>(g + part * 8) : make_uint4(0, 0, 0, 0);
+    }  // read after the first window's barriers
+  } else {
+    const T* r0 = q_row(rw * 16 + g4);
+    const T* r1 = q_row(rw * 16 + g4 + 8);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const int c = kk * 16 + 2 * t4;
+      qa[kk][0] = r0 ? ld_u32(r0 + c) : 0u;
+      qa[kk][1] = r1 ? ld_u32(r1 + c) : 0u;
+      qa[kk][2] = r0 ? ld_u32(r0 + c + 8) : 0u;
+      qa[kk][3] = r1 ? ld_u32(r1 + c + 8) : 0u;
+    }
+  }
+
+  // What the fold at the end needs that the KV loop does not write, read
+  // now so that no global load waits there (window_merge reads its own in
+  // the two-launch form): the fresh V rows of this KV head (a commit group
+  // of their own, empty there), and the fresh keys' scores (scale * log2 e
+  // units) of the rows this block folds, r = split + S * warp, + S * NW,
+  // ... (a warp a row).
+  const T* kn = static_cast<const T*>(a.kn);
+  const T* vn = static_cast<const T*>(a.vn);
+  for (int c = tid; kCluster && c < a.Sw * CPR; c += NTB) {
+    const int j = c / CPR, part = c % CPR;
+    tile::cp_async16(sVn + j * D + part * 8,
+                     vn + (((long long)b * a.Sw + j) * a.Hkv + hk) * D + part * 8, true);
+  }
+  tile::cp_async_commit();
+  if (tid == 0) sMask[0] = sMask[1] = 0u;
+  constexpr int E = D / 32;  // features of a lane in the fold
+  const int d0 = lane * E;
+  for (int r = split + a.S * warp; kCluster && r < nr; r += a.S * NW) {
+    const int f = f0 + r, i = f / G;
+    const T* qr = q + (((long long)b * a.Sw + i) * a.Hq + hk * G + f % G) * D + d0;
+    float qf[E];
+#pragma unroll
+    for (int e = 0; e < E; ++e) qf[e] = to_f<T>(qr[e]);
+#pragma unroll
+    for (int j = 0; j < kMaxWin; ++j) {
+      if (j > i) break;  // i is the warp's: the shuffles are uniform
+      const T* kr = kn + (((long long)b * a.Sw + j) * a.Hkv + hk) * D + d0;
+      float x = 0.f;
+#pragma unroll
+      for (int e = 0; e < E; ++e) x = fmaf(qf[e], to_f<T>(kr[e]), x);
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
+      if (lane == 0) sSn[r * kMaxWin + j] = x * scale_log2;
+    }
+  }
+
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  float o[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+
+  // Fold this warp's slots of the tile in ring stage st (visibility pos,
+  // indexed by the tile's slot) into its rows' states.
+  auto attend = [&](int st, const int* pos) {
+    // A warp whose slots of this tile are all hidden leaves its state as
+    // it is (the fold would multiply by 1 and add zeros).
+    if (!__any_sync(0xffffffffu, pos[j0 + lane % NJ] >= 0)) return;
+    const T* k = sK + st * SM::KV + j0 * LD;
+    const T* v = sV + st * SM::KV + j0 * LD;
+    float s[NJ / 8][4];
+#pragma unroll
+    for (int n = 0; n < NJ / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t af[4];
+      if constexpr (SM::kQSmem) {
+        tile::ldsm_x4(af, sQ + (rw * 16 + (lane & 15)) * LD + kk * 16 + (lane >> 4) * 8);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) af[e] = qa[kk][e];
+      }
+#pragma unroll
+      for (int nn = 0; nn < NJ / 16; ++nn) {
+        uint32_t bf[4];
+        tile::ldsm_x4(bf, k + (nn * 16 + (lane & 7) + (lane >> 4) * 8) * LD + kk * 16 +
+                              ((lane >> 3) & 1) * 8);
+        tile::mma<T>(s[2 * nn], af, bf[0], bf[1]);
+        tile::mma<T>(s[2 * nn + 1], af, bf[2], bf[3]);
+      }
+    }
+    // Element e of n-tile n: row g4 + 8 * (e / 2), slot j0 + 8n + 2 t4 + e % 2.
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int n = 0; n < NJ / 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool vis = pos[j0 + n * 8 + 2 * t4 + (e & 1)] >= 0;
+        s[n][e] = vis ? s[n][e] * scale_log2 : kNegInf;
+        mx[e >> 1] = fmaxf(mx[e >> 1], s[n][e]);
+      }
+    }
+    float alpha[2];
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      mx[rr] = fmaxf(mx[rr], __shfl_xor_sync(0xffffffffu, mx[rr], 1));
+      mx[rr] = fmaxf(mx[rr], __shfl_xor_sync(0xffffffffu, mx[rr], 2));
+      alpha[rr] = exp2f(m[rr] - mx[rr]);
+      m[rr] = mx[rr];
+      l[rr] *= alpha[rr];
+    }
+#pragma unroll
+    for (int n = 0; n < NJ / 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float x = s[n][e];
+        const float p = x == kNegInf ? 0.f : exp2f(x - mx[e >> 1]);
+        s[n][e] = p;
+        l[e >> 1] += p;
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      o[n][0] *= alpha[0];
+      o[n][1] *= alpha[0];
+      o[n][2] *= alpha[1];
+      o[n][3] *= alpha[1];
+    }
+    // O += P V: P (16 x NJ) as NJ / 16 A fragments, V by ldmatrix.trans.
+#pragma unroll
+    for (int kk = 0; kk < NJ / 16; ++kk) {
+      const uint32_t af[4] = {
+          tile::pack2<T>(s[2 * kk][0], s[2 * kk][1]),
+          tile::pack2<T>(s[2 * kk][2], s[2 * kk][3]),
+          tile::pack2<T>(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+          tile::pack2<T>(s[2 * kk + 1][2], s[2 * kk + 1][3]),
+      };
+#pragma unroll
+      for (int nd = 0; nd < D / 16; ++nd) {
+        uint32_t bf[4];
+        tile::ldsm_x4_trans(bf, v + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD +
+                                    nd * 16 + (lane >> 4) * 8);
+        tile::mma<T>(o[2 * nd], af, bf[0], bf[1]);
+        tile::mma<T>(o[2 * nd + 1], af, bf[2], bf[3]);
+      }
+    }
+  };
+
+  // The first window's first ST - 1 tiles that start below slot q_pos0
+  // are copied before their positions are known (slots past the split
+  // zero-filled; hidden ones masked when they are read), so the block's
+  // first tile does not wait on the position loads. Below a ring's wrap
+  // slot t holds position t, so a tile from slot q_pos0 up is hidden
+  // and left to the mask; past the wrap every slot is below q_pos0.
+  const int ahead = min(q0, t_hi) - t_lo;  // slots below q_pos0 in the split
+  const int nf = ahead > 0 ? min(ST - 1, (ahead + wt::kSlots - 1) / wt::kSlots) : 0;
+#pragma unroll
+  for (int k = 0; k < ST - 1; ++k) {
+    if (k < nf) {
+      T* kd = sK + k * SM::KV;
+      T* vd = sV + k * SM::KV;
+      for (int c = tid; c < wt::kSlots * CPR; c += NTB) {
+        const int j = c / CPR, part = c % CPR;
+        const int t = t_lo + k * wt::kSlots + j;
+        const bool ok = t < t_hi;
+        const long long off = base + (long long)t * row_stride + part * 8;
+        tile::cp_async16(kd + j * LD + part * 8, ok ? kc + off : kc, ok);
+        tile::cp_async16(vd + j * LD + part * 8, ok ? vc + off : vc, ok);
+      }
+    }
+    tile::cp_async_commit();
+  }
+
+  for (int w0 = t_lo, wi = 0; w0 < t_hi; w0 += wt::kPosWin, wi ^= 1) {
+    const int w1 = min(t_hi, w0 + wt::kPosWin);
+    int pv[PPT];
+#pragma unroll
+    for (int j = 0; j < PPT; ++j) {
+      const int t = w0 + j * NTB + tid;
+      pv[j] = t < w1 ? __ldg(kvp + t) : -1;
+    }
+    // The previous window's tiles and mask are consumed, this window's
+    // mask is clear (zeroed before the loop, or after the mask before).
+    __syncthreads();
+    if (tid == 0) sMask[wi ^ 1] = 0u;
+#pragma unroll
+    for (int j = 0; j < PPT; ++j) {
+      const int i = j * NTB + tid;  // whole warps are past kPosWin together
+      if (i < wt::kPosWin) {
+        const int p = pv[j];
+        const bool vis = p >= 0 && p < q0 && !pending(w0 + i, slot0, a.Sw, a.Tn);
+        sPos[i] = vis ? p : -1;
+        if (__any_sync(0xffffffffu, vis) && lane == 0)
+          atomicOr(sMask + wi, 1u << (i / wt::kSlots));
+      }
+    }
+    __syncthreads();
+    // The tiles of this window: the n0 copied ahead (first window only),
+    // then the later ones some slot of which is visible.
+    const int n0 = w0 == t_lo ? nf : 0;
+    const unsigned mask = sMask[wi] & ~((1u << n0) - 1u);
+    const int nl = n0 + __popc(mask);
+    auto tile_at = [&](int k) {  // slot of the window's k-th tile
+      if (k < n0) return k * wt::kSlots;
+      unsigned rest = mask;
+      for (int i = n0; i < k; ++i) rest &= rest - 1;
+      return (__ffs(rest) - 1) * wt::kSlots;
+    };
+    auto issue = [&](int k) {
+      if (k < nl) {
+        const int x0 = tile_at(k);
+        T* kd = sK + (k % ST) * SM::KV;
+        T* vd = sV + (k % ST) * SM::KV;
+        for (int c = tid; c < wt::kSlots * CPR; c += NTB) {
+          const int j = c / CPR, part = c % CPR;
+          const bool ok = sPos[x0 + j] >= 0;
+          const long long off = base + (long long)(w0 + x0 + j) * row_stride + part * 8;
+          tile::cp_async16(kd + j * LD + part * 8, ok ? kc + off : kc, ok);
+          tile::cp_async16(vd + j * LD + part * 8, ok ? vc + off : vc, ok);
+        }
+      }
+      tile::cp_async_commit();  // empty past the last tile: keeps the count
+    };
+    if (w0 != t_lo) {
+#pragma unroll
+      for (int k = 0; k < ST - 1; ++k) issue(k);
+    }
+    for (int k = 0; k < nl; ++k) {
+      tile::cp_async_wait<ST - 2>();  // tile k landed (this thread's copies)
+      __syncthreads();  // ... every thread's; tile k - 1's stage is free
+      issue(k + ST - 1);
+      attend(k % ST, sPos + tile_at(k));
+    }
+  }
+  tile::cp_async_wait<0>();
+  __syncthreads();  // every warp is done with the ring: sAcc reuses it
+
+  const int sw = warp / RW;
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    float sum = l[rr];
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    const int r = rw * 16 + g4 + 8 * rr;
+    float* acc = sAcc + (sw * R + r) * LD;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      *reinterpret_cast<float2*>(acc + n * 8 + 2 * t4) =
+          make_float2(o[n][2 * rr], o[n][2 * rr + 1]);
+    if (t4 == 0) {
+      sM[sw * R + r] = m[rr];
+      sL[sw * R + r] = sum;
+    }
+  }
+  __syncthreads();
+  // The block's state: its slot warps' folded in slot warp order, into
+  // slot warp 0's rows (each element read and written by one thread).
+  for (int c = tid; c < nr * (D / 4); c += NTB) {
+    const int r = c / (D / 4), d = c % (D / 4) * 4;
+    float M = kNegInf;
+#pragma unroll
+    for (int w = 0; w < SW; ++w) M = fmaxf(M, sM[w * R + r]);
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    float ls = 0.f;
+#pragma unroll
+    for (int w = 0; w < SW; ++w) {
+      const float f = exp2f(sM[w * R + r] - M);  // a slot warp that saw nothing adds 0
+      const float4 y = *reinterpret_cast<const float4*>(sAcc + (w * R + r) * LD + d);
+      x.x += y.x * f;
+      x.y += y.y * f;
+      x.z += y.z * f;
+      x.w += y.w * f;
+      ls += sL[w * R + r] * f;
+    }
+    *reinterpret_cast<float4*>(sAcc + r * LD + d) = x;
+    if (d == 0) {
+      sMc[r] = M;
+      sLc[r] = ls;
+    }
+  }
+  __syncthreads();
+
+  if constexpr (kCluster) {
+    namespace cg = cooperative_groups;
+    cg::cluster_group cluster = cg::this_cluster();
+    // Split s's shared memory (S == 1, no cluster: this block's own).
+    auto at = [&](float* p, int s) { return a.S > 1 ? cluster.map_shared_rank(p, s) : p; };
+    // Every split's state is in its block's shared memory (S == 1: the
+    // block's own barrier above was enough).
+    if (a.S > 1) cluster.sync();
+    for (int r = split + a.S * warp; r < nr; r += a.S * NW) {
+      const int f = f0 + r, i = f / G;
+      const long long qrow = ((long long)b * a.Sw + i) * a.Hq + hk * G + f % G;
+      float M = kNegInf;
+      for (int s = 0; s < a.S; ++s) M = fmaxf(M, at(sMc, s)[r]);
+      for (int j = 0; j <= i; ++j) M = fmaxf(M, sSn[r * kMaxWin + j]);  // key 0: finite
+      float den = 0.f, O[E];
+#pragma unroll
+      for (int e = 0; e < E; ++e) O[e] = 0.f;
+      for (int s = 0; s < a.S; ++s) {  // the splits, in split order
+        const float ms = at(sMc, s)[r];
+        const float sc = ms == kNegInf ? 0.f : exp2f(ms - M);
+        den += at(sLc, s)[r] * sc;
+        const float* acc = at(sAcc, s) + r * LD + d0;
+#pragma unroll
+        for (int e = 0; e < E; e += 2) {
+          const float2 y = *reinterpret_cast<const float2*>(acc + e);
+          O[e] += y.x * sc;
+          O[e + 1] += y.y * sc;
+        }
+      }
+      for (int j = 0; j <= i; ++j) {  // the fresh keys, folded last
+        const float pn = exp2f(sSn[r * kMaxWin + j] - M);
+        den += pn;
+#pragma unroll
+        for (int e = 0; e < E; ++e) O[e] = fmaf(pn, to_f<T>(sVn[j * D + d0 + e]), O[e]);
+      }
+      T* out = static_cast<T*>(a.o) + qrow * D + d0;
+#pragma unroll
+      for (int e = 0; e < E; ++e) out[e] = from_f<T>(O[e] / den);
+    }
+    if (a.S > 1) cluster.sync();  // no block leaves while others read its memory
+  } else {
+    // split_merge.cuh's workspace, indexed by window row: state row
+    // (b * Hq * Sw + hk * Gv + f0 + r) * S + split; m in natural-log units.
+    const long long hq = (long long)a.Hq * a.Sw;
+    const long long n_part = (long long)a.B * hq * a.S;
+    const long long row0 = (b * hq + (long long)hk * Gv + f0) * a.S + split;
+    for (int c = tid; c < nr * (D / 4); c += NTB) {
+      const int r = c / (D / 4), d = c % (D / 4) * 4;
+      *reinterpret_cast<float4*>(a.ws + (row0 + (long long)r * a.S) * D + d) =
+          *reinterpret_cast<const float4*>(sAcc + r * LD + d);
+    }
+    for (int r = tid; r < nr; r += NTB) {
+      const long long row = row0 + (long long)r * a.S;
+      a.ws[n_part * D + row] = sMc[r] == kNegInf ? kNegInf : sMc[r] * 0.6931471805599453f;
+      a.ws[n_part * D + n_part + row] = sLc[r];
+    }
+  }
 }
 
 struct WinMergeArgs {
@@ -505,8 +903,7 @@ cudaError_t merge_after(const WinArgs& a, cudaStream_t stream) {
 
 bool bad_split(const WinArgs& a, int unit) {
   return a.S < 1 || a.S > kMaxSplits || a.split <= 0 || a.split % unit ||
-         (long long)a.S * a.split < a.t_len || a.ws == nullptr || a.Sw < 2 ||
-         a.Sw > kMaxWin;
+         (long long)a.S * a.split < a.t_len || a.Sw < 2 || a.Sw > kMaxWin;
 }
 
 // window_fwd in S splits of `split` slots (whole ring stages covering
@@ -532,17 +929,15 @@ cudaError_t launch(const WinArgs& a, cudaStream_t stream) {
   return merge_after<T, D>(a, stream);
 }
 
-// bf16 windows of more than WINDOW_G_TILE = 2 rows a KV head take
-// window_mma, so bf16 has lanes at GB = 2 only.
+// fp32 / fp16 windows (bf16 ones take window_mma).
 template <typename T, int D>
 cudaError_t dispatch_g(int GB, const WinArgs& a, cudaStream_t s) {
-  constexpr bool kWide = !std::is_same_v<T, __nv_bfloat16>;
-  if (GB == 2) return launch<T, D, 2>(a, s);
-  if constexpr (kWide) {
-    if (GB == 4) return launch<T, D, 4>(a, s);
-    if (GB == 8) return launch<T, D, 8>(a, s);
+  switch (GB) {
+    case 2: return launch<T, D, 2>(a, s);
+    case 4: return launch<T, D, 4>(a, s);
+    case 8: return launch<T, D, 8>(a, s);
+    default: return cudaErrorInvalidValue;
   }
-  return cudaErrorInvalidValue;
 }
 
 template <typename T>
@@ -555,27 +950,61 @@ cudaError_t dispatch_d(int D, int GB, const WinArgs& a, cudaStream_t s) {
   }
 }
 
-// window_mma in S splits of `split` slots (whole 64-slot tiles), then
-// window_merge on the same stream.
-template <int D>
+// window_mma over S splits of `split` slots (whole 64-slot tiles), R =
+// 16 * RW window rows a block. kCluster: the splits of one (row, KV head,
+// row group) are one cluster of S <= 8 blocks, which writes the output;
+// otherwise window_merge follows on the same stream.
+template <int D, int RW, bool kCluster>
 cudaError_t launch_mma(const WinArgs& a, cudaStream_t stream) {
-  if (bad_split(a, tile::kSlots)) return cudaErrorInvalidValue;
-  constexpr size_t smem = tile::Smem<D>::bytes;
-  auto kern = window_mma<D>;
+  using SM = wt::Smem<D, RW>;
+  if (bad_split(a, wt::kSlots) || (kCluster && a.S > wt::kMaxCluster) ||
+      (!kCluster && a.ws == nullptr))
+    return cudaErrorInvalidValue;
+  auto kern = window_mma<D, RW, kCluster>;
   cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SM::bytes);
   if (err != cudaSuccess) return err;
-  const int tiles = (a.Hq / a.Hkv * a.Sw + tile::kRows - 1) / tile::kRows;
-  dim3 grid(a.B, a.Hkv, tiles * a.S);
-  kern<<<grid, tile::kThreads, smem, stream>>>(a);
-  return merge_after<__nv_bfloat16, D>(a, stream);
+  const int groups = (a.Hq / a.Hkv * a.Sw + SM::R - 1) / SM::R;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(a.Hkv * groups, a.B, a.S);
+  cfg.blockDim = dim3(SM::NW * 32);
+  cfg.dynamicSmemBytes = SM::bytes;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  if (kCluster && a.S > 1) {
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = 1;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = a.S;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+  }
+  err = cudaLaunchKernelEx(&cfg, kern, a);
+  if (err != cudaSuccess) return err;
+  if constexpr (kCluster) {
+    return cudaGetLastError();
+  } else {
+    return merge_after<__nv_bfloat16, D>(a, stream);
+  }
 }
 
-cudaError_t dispatch_mma(int D, const WinArgs& a, cudaStream_t s) {
+template <int D, bool kCluster>
+cudaError_t dispatch_rows(int rows, const WinArgs& a, cudaStream_t s) {
+  switch (rows) {
+    case 16: return launch_mma<D, 1, kCluster>(a, s);
+    case 32: return launch_mma<D, 2, kCluster>(a, s);
+    case 48: return launch_mma<D, 3, kCluster>(a, s);
+    case 64: return launch_mma<D, 4, kCluster>(a, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <bool kCluster>
+cudaError_t dispatch_mma(int D, int rows, const WinArgs& a, cudaStream_t s) {
   switch (D) {
-    case 64: return launch_mma<64>(a, s);
-    case 128: return launch_mma<128>(a, s);
-    case 256: return launch_mma<256>(a, s);
+    case 64: return dispatch_rows<64, kCluster>(rows, a, s);
+    case 128: return dispatch_rows<128, kCluster>(rows, a, s);
+    case 256: return dispatch_rows<256, kCluster>(rows, a, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -585,13 +1014,16 @@ cudaError_t dispatch_mma(int D, const WinArgs& a, cudaStream_t s) {
 
 // q [B,Sw,Hq,D], cache [L,B,T,Hkv,D], k_new / v_new [B,Sw,Hkv,D], out
 // [B,Sw,Hq,D], all contiguous and of one dtype; q_pos0 / slot0 [B] and
-// kv_pos [B,T] int32; 2 <= Sw <= 8. impl: 0 = window_fwd with GB (2, 4 or
-// 8) window rows per block (the last of a KV head's ceil(G*Sw / GB) groups
+// kv_pos [B,T] int32; 2 <= Sw <= 8. impl: 0 = window_fwd for fp32 / fp16
+// with GB (2, 4 or 8) window rows per block (the last of a KV head's ceil(G*Sw / GB) groups
 // may be partial), S splits of `split` slots (a multiple of the lane
-// loop's step); 1 = window_mma for bf16, S splits of `split` slots (a
-// multiple of 64), GB unused. ws: the fp32 workspace of split_merge.cuh
-// for B*Hq*Sw rows, [B*Hq*Sw*S*(D+2)], at every S. Returns
-// cudaGetLastError() after the last launch.
+// loop's step), then window_merge; 1 = window_mma for bf16 with GB (16,
+// 32, 48 or 64) window rows per block, S <= 8 splits of `split` slots (a
+// multiple of 64) as one cluster; 2 = the same at D 128 and 16 rows with
+// the states stored and window_merge launched after (the two-launch form,
+// timed beside the cluster form). ws: the fp32 workspace of split_merge.cuh
+// for B*Hq*Sw rows, [B*Hq*Sw*S*(D+2)], at every S, for impl 0 and 2; null
+// for 1. Returns cudaGetLastError() after the last launch.
 extern "C" int llmss_window_attention(void* q, void* kc, void* vc, void* kn,
                                       void* vn, void* o, void* qpos,
                                       void* kvpos, void* slot0, void* ws,
@@ -608,10 +1040,12 @@ extern "C" int llmss_window_attention(void* q, void* kc, void* vc, void* kn,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
   if (impl == 1) {
-    if (dtype == kBF16) err = dispatch_mma(D, a, s);
+    if (dtype == kBF16) err = dispatch_mma<true>(D, GB, a, s);
+  } else if (impl == 2) {
+    if (dtype == kBF16) err = dispatch_mma<false>(D, GB, a, s);
   } else if (impl == 0) {
+    if (a.ws == nullptr) return static_cast<int>(cudaErrorInvalidValue);
     if (dtype == kF32) err = dispatch_d<float>(D, GB, a, s);
-    if (dtype == kBF16) err = dispatch_d<__nv_bfloat16>(D, GB, a, s);
     if (dtype == kF16) err = dispatch_d<__half>(D, GB, a, s);
   }
   return static_cast<int>(err);

@@ -58,7 +58,8 @@ SAMPLING_VARIANTS = ((False, False), (True, False), (True, True))
 
 # The symbols of the kernels each wrapper launches once per call (a split
 # lane call, and every decode call on the tile, adds a ``split_merge``,
-# and every K2w call a ``window_merge``, which are not counted). K3 and K4
+# and a K2w call on the lanes, or on the window tile above four splits,
+# a ``window_merge``, which are not counted). K3 and K4
 # share the paged kernels; a step graph holds K3 only. A symbol names every
 # instantiation of its template: ``paged_mma`` is the tensor-core tile over
 # a bf16 pool and over an int8 one, K4's chunks and the decode form K3

@@ -44,6 +44,10 @@ IMPL_CODES = {"lanes": 0, "lanes_int8": 0, "fma": 0, "mma": 1, "mma_int8": 2}
 # q / fresh KV dtypes an int8 cache's kernels take
 INT8_QUERY_DTYPES = (torch.float32, torch.bfloat16)
 SMEM_LIMIT = 232448  # bytes of shared memory one block may use on the H100
+# An H100 SM's shared memory, and what the card reserves of it per block:
+# how many blocks of a kernel one SM holds at once.
+SM_SHARED_BYTES = 233472
+BLOCK_RESERVED_BYTES = 1024
 # The head dims every kernel (K1-K4) is instantiated for.
 HEAD_DIMS = (64, 128, 256)
 
@@ -82,6 +86,25 @@ def tile_i8_smem_bytes(D: int) -> int:
     two stages of 64 K and 64 V fp32 scales and of 64 int32 positions.
     At D = 128: 90,624 bytes, two blocks per SM."""
     return 2 * 3 * 64 * (D + 8) + 4 * 64 * (D + 16) + 4 * 2 * 2 * 64 + 2 * 64 * 4
+
+
+def window_tile_smem_bytes(D: int, row_warps: int) -> int:
+    """Shared memory of one block of K2w's window tile (csrc/
+    window_attention.cu ``wt::Smem<D, RW>``): a ring of 3 stages (2 at
+    D 256) of K and V tiles of 64 rows of D + 8 bf16 elements, which the
+    slot warps' fp32 accumulators ``[SW][R][D + 8]`` reuse after the KV
+    loop; Q ``[R][D + 8]`` bf16 at D 256 only; the fresh V ``[8][D]`` bf16;
+    512 staged slot positions and two tile masks; m and l ``[SW][R]``, the
+    block's ``[R]``, and the fresh keys' scores ``[R][8]``. R = 16 rows a
+    row warp, SW = 4 slot warps at one row warp, else 2. At D = 128 and 16
+    rows: 109,704 bytes, two blocks per SM."""
+    sw = 4 if row_warps == 1 else 2
+    R = 16 * row_warps
+    ring = (2 if D > 128 else 3) * 2 * 64 * (D + 8) * 2
+    state = sw * R * (D + 8) * 4
+    q = R * (D + 8) * 2 if D > 128 else 0
+    return (max(ring, state) + q + 8 * D * 2 + 4 * (512 + 2)
+            + 4 * (2 * sw * R + 2 * R + 8 * R))
 
 
 def _nvcc() -> str:
@@ -167,7 +190,7 @@ def _declare(lib: ctypes.CDLL, name: str) -> None:
     elif name == "window_attention":
         fn = lib.llmss_window_attention
         # q kc vc kn vn out qpos kvpos slot0 ws | layer B T t_len Hq Hkv D
-        # Sw GB S split dtype impl | scale stream
+        # Sw GB (rows a block) S split dtype impl | scale stream
         fn.argtypes = [P] * 10 + [I] * 13 + [F, P]
     fn.restype = ctypes.c_int
 

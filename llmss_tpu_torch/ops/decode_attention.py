@@ -36,13 +36,16 @@ read in place up to ``t_len``, plus the window's own fresh KV under the
 triangle ``j <= i``. It replaces no Pallas kernel: the reference runs the
 XLA oracle ``fresh_kv_window_attention`` (llmss_tpu/ops/attention.py:186),
 which ``decode_window_attention_ref`` computes in fp32. ``window_plan``
-lays the window out as K2's plan for ``G * S`` query rows per KV head
-(the tile for bf16 above ``WINDOW_G_TILE`` rows, else the lanes); the
-kernel's merge folds the splits and then the fresh keys, the fresh V in
-fp32.
+lays the window out over its ``G * S`` query rows per KV head: bf16 takes
+the window tile (``"mma"``: 16 rows a warp, slot-parallel warps, the
+splits one thread block cluster that folds them and the fresh keys in the
+kernel), fp32 and fp16 the lanes, whose merge kernel folds the splits and
+then the fresh keys; the fresh V in fp32.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -56,12 +59,35 @@ HEAD_DIMS = _build.HEAD_DIMS
 # K2w's longest window (csrc/window_attention.cu ``kMaxWin``): the decoder
 # takes the deferred-write window path at 1 < S <= 8, as the reference does.
 WINDOW_MAX = 8
-# bf16 windows with more than WINDOW_G_TILE rows (G * S) per KV head take
-# the tensor-core tile: on the H100 the lanes (8 rows a block) took 2.5x
-# the tile's time at Llama-2-7B's verify shape, S 5, and the tile 1.2x the
-# lanes' at 2 rows, gamma 1 (PERF.md). The kernel builds bf16 lanes at 2
-# rows a block only.
-WINDOW_G_TILE = 2
+# bf16 windows take the window tile, fp32 and fp16 the lanes: at gamma
+# 1, MHA (2 rows a KV head, the fewest a window has) the tile took 0.0317
+# ms on the H100 against the lanes' 0.0384-0.0390 (PERF.md, kernel_ab.py
+# against the parent), so bf16 has no lane instantiation.
+#
+# The window tile (csrc/window_attention.cu window_mma): 16 window rows a
+# row warp (one mma A fragment), at most WINDOW_ROW_WARPS row warps a
+# block (more rows take more blocks), each with 4 slot-parallel warps at
+# one row warp, else 2. Its splits are whole 64-slot tiles, at most
+# WINDOW_MAX_CLUSTER (the portable cluster size), folded in one thread
+# block cluster up to WINDOW_CLUSTER_SPLITS splits and by window_merge
+# above, the faster of the two on either side on the H100 (PERF.md,
+# kernel_ab.py --k2w-forms). The plan splits only as far as the grid
+# stays within one round of resident blocks: a block's fixed chain
+# (positions, first tile, fold, cluster barriers) cost more than a
+# shorter walk saved once a split grid took more rounds (Llama-2-7B's
+# verify shape, batch 16: unsplit 0.0369 ms, 2 splits 0.0542, 3 splits
+# 0.0757; PERF.md). A read of at most WINDOW_SHORT_TILES tiles is split
+# only when the unsplit grid leaves half the SMs idle, as split_plan's
+# SHORT_READ (PERF.md).
+WINDOW_TILE_ROWS = 16
+WINDOW_ROW_WARPS = 4
+WINDOW_MAX_CLUSTER = 8
+WINDOW_CLUSTER_SPLITS = 4
+WINDOW_SHORT_TILES = 8
+# The C entry's instantiation codes: the lanes then window_merge, the
+# window tile (a split read folded in its cluster), and the same tile with
+# its states folded by window_merge (the two-launch form).
+WINDOW_IMPL_CODES = {"lanes": 0, "mma": 1, "mma_two_launch": 2}
 
 
 def decode_attention_ref(
@@ -237,29 +263,89 @@ def _launch(q, k_cache, v_cache, k_new, v_new, q_pos, kv_pos, slots, layer,
 decode_attention.launches = 0
 
 
+class WindowPlan(NamedTuple):
+    """How a K2w call launches: the instantiation (``"mma"``, the window
+    tile; ``"lanes"``), the shared memory one block needs (bytes), the
+    splits along the slots and the slots each covers, the window rows a
+    block takes (``rows``) and the warps that split its slots (the lane
+    template's 8, or the tile's slot-parallel warps per row warp), and the
+    blocks of one thread block cluster (the splits, folded in the kernel;
+    0 when window_merge folds them)."""
+
+    impl: str
+    smem: int
+    splits: int
+    split_slots: int
+    rows: int
+    slot_warps: int
+    cluster: int
+
+
+def window_tile_warps(rows: int) -> tuple[int, int]:
+    """(row warps, slot-parallel warps per row warp) of a window tile block
+    for ``rows`` = G * S window rows per KV head: one row warp for each 16
+    rows, at most ``WINDOW_ROW_WARPS`` (more rows take more blocks); 4 slot
+    warps at one row warp, else 2."""
+    rw = min(WINDOW_ROW_WARPS, -(-rows // WINDOW_TILE_ROWS))
+    return rw, 4 if rw == 1 else 2
+
+
+def window_tile_split(blocks: int, t_len: int, smem: int, sms: int,
+                      max_splits: int, splits: int | None = None
+                      ) -> tuple[int, int]:
+    """(splits, split_slots) of the window tile over ``blocks`` blocks
+    before the split: as many splits of whole 64-slot tiles as keep the
+    grid within the blocks the card holds at once (its ``sms`` SMs times
+    what one SM's shared memory holds of ``smem``-byte blocks), at most
+    ``WINDOW_MAX_CLUSTER``, ``max_splits`` and the read's tiles; 1 when
+    the unsplit grid already fills the card, or when the read has at most
+    ``WINDOW_SHORT_TILES`` tiles and the grid at least ``sms / 2`` blocks.
+    A wider read widens each split. ``splits``: that many instead (at most
+    8 and the read's tiles), for chip_smoke.py's forced launches."""
+    per_sm = max(1, _build.SM_SHARED_BYTES
+                 // (smem + _build.BLOCK_RESERVED_BYTES))
+    tiles = -(-t_len // sp.TILE_STEP)
+    if splits is None:
+        short = tiles <= WINDOW_SHORT_TILES and 2 * blocks >= sms
+        splits = 1 if short else per_sm * sms // blocks
+    S = max(1, min(WINDOW_MAX_CLUSTER, max_splits, tiles, splits))
+    split = -(-tiles // S) * sp.TILE_STEP
+    return -(-t_len // split), split
+
+
 def window_plan(dtype: torch.dtype, B: int, Hq: int, Hkv: int, D: int,
                 t_len: int, S: int, *, sms: int = sp.H100_SMS,
                 max_splits: int = sp.MAX_SPLITS,
-                g_tile: int = WINDOW_G_TILE) -> sp.Plan:
-    """How a K2w call launches: K2's plan for ``G * S`` query rows per KV
-    head (every window query under every query head of the KV head reads
-    the KV head's slots once). bf16 above ``g_tile`` rows takes the
-    tensor-core tile (``"mma"``), everything else the lane template
-    (``"lanes"``) with ``_heads_per_block(G * S)`` rows a block. The window
-    always goes through its merge, which folds the splits and then the
-    window's fresh keys, so ``splits`` may be 1."""
+                cluster: bool | None = None, splits: int | None = None
+                ) -> WindowPlan:
+    """How a K2w call launches. bf16 takes the window tile (``"mma"``)
+    over its G * S window rows per KV head: ``window_tile_warps``
+    rows a block, ``ceil(G * S / rows)`` blocks per KV head, the read split
+    by ``window_tile_split``; an unsplit read is folded in its block, a
+    split one in its cluster up to ``WINDOW_CLUSTER_SPLITS`` splits, by
+    window_merge above (``cluster``: True or False forces either). fp32
+    and fp16 take the lane template (``"lanes"``) with
+    ``_heads_per_block(G * S)`` rows a block, always followed by its
+    merge, which folds the splits and then the window's fresh keys, so
+    ``splits`` may be 1."""
     Gv = Hq // Hkv * S
-    tile = sp.decode_tile(dtype, dtype, Gv, g_tile)
-    if tile is not None:
-        return sp.decode_tile_plan(tile, B, Hkv, Gv, D, t_len, sms=sms,
-                                   max_splits=max_splits)
+    if dtype == torch.bfloat16:
+        rw, sw = window_tile_warps(Gv)
+        rows = WINDOW_TILE_ROWS * rw
+        smem = _build.window_tile_smem_bytes(D, rw)
+        n, split = window_tile_split(B * Hkv * -(-Gv // rows), t_len,
+                                     smem, sms, max_splits, splits)
+        if cluster is None:
+            cluster = n <= WINDOW_CLUSTER_SPLITS
+        return WindowPlan("mma", smem, n, split, rows, sw,
+                          n if cluster else 0)
     GB = _heads_per_block(Gv)
     splits, split = sp.split_plan(B, Hkv * -(-Gv // GB), t_len,
                                   step=sp.lane_step(D), sms=sms,
                                   max_splits=max_splits)
     smem = (sp.lane_region_bytes(dtype.itemsize, GB, D) + 4 * 2 * 8 * GB
             + sp.stage_smem_bytes(1))
-    return sp.Plan("lanes", smem, splits, split)
+    return WindowPlan("lanes", smem, splits, split, GB, sp.NWARP, 0)
 
 
 def decode_window_attention(
@@ -287,9 +373,10 @@ def decode_window_attention(
 
 def _launch_window(q, k_cache, v_cache, k_new, v_new, q_pos0, kv_pos, slots,
                    layer, *, t_len=None, scale=None,
-                   max_splits=sp.MAX_SPLITS, g_tile=WINDOW_G_TILE):
-    """Check K2w's envelope and launch it (``max_splits`` / ``g_tile`` as
-    in K2's ``_launch``, for chip_smoke.py's forced launches)."""
+                   max_splits=sp.MAX_SPLITS, cluster=None, splits=None):
+    """Check K2w's envelope and launch it (``max_splits`` as in K2's
+    ``_launch``; ``cluster`` the tile's fold and ``splits`` its split
+    count, for chip_smoke.py's forced launches)."""
     tensors = (q, k_cache, v_cache, k_new, v_new, q_pos0, kv_pos, slots)
     if not all(t.is_cuda for t in tensors):
         raise RuntimeError("decode_window_attention (K2w) takes CUDA "
@@ -336,20 +423,23 @@ def _launch_window(q, k_cache, v_cache, k_new, v_new, q_pos0, kv_pos, slots,
                              "aligned tensors")
     plan = window_plan(q.dtype, B, Hq, Hkv, D, t_len, S,
                        sms=_build.sm_count(q.device), max_splits=max_splits,
-                       g_tile=g_tile)
+                       cluster=cluster, splits=splits)
     if plan.smem > _build.SMEM_LIMIT:
         raise _build.KernelError(f"decode_window_attention (K2w) needs "
                                  f"{plan.smem} bytes of shared memory")
+    impl = ("mma_two_launch" if plan.impl == "mma" and not plan.cluster
+            else plan.impl)
     out = torch.empty_like(qc)
-    ws = torch.empty(sp.workspace_numel(B, Hq * S, plan.splits, D),
-                     dtype=torch.float32, device=q.device)
+    ws = (None if impl == "mma" else
+          torch.empty(sp.workspace_numel(B, Hq * S, plan.splits, D),
+                      dtype=torch.float32, device=q.device))
     lib = _build.load("window_attention")
     code = lib.llmss_window_attention(
         qc.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), kn.data_ptr(),
         vn.data_ptr(), out.data_ptr(), qp.data_ptr(), kvp.data_ptr(),
-        s0.data_ptr(), ws.data_ptr(), int(layer), B, T, t_len, Hq, Hkv, D, S,
-        _heads_per_block(Hq // Hkv * S), plan.splits, plan.split_slots,
-        _build.dtype_code(q), _build.IMPL_CODES[plan.impl], float(scale),
+        s0.data_ptr(), None if ws is None else ws.data_ptr(), int(layer), B,
+        T, t_len, Hq, Hkv, D, S, plan.rows, plan.splits, plan.split_slots,
+        _build.dtype_code(q), WINDOW_IMPL_CODES[impl], float(scale),
         _build.stream_ptr(q.device),
     )
     _build.check(code, "decode_window_attention")

@@ -242,6 +242,32 @@ def test_k4_kernel_symbols_are_recognised(name, sym, int8):
     assert chip_smoke._int8_kernel(name, sym) is int8
 
 
+def test_chip_smoke_counts_launches_from_counters_and_nodes():
+    """chip_smoke.py counts launches from the wrappers' counters (a replay
+    adds its graph's kernel nodes) and from a step graph's kernel node
+    names, never from profiler records, which have lost launches."""
+    def step():
+        da.decode_attention.launches += 3
+        pa.ragged_paged_attention.launches += 2
+        return "out"
+
+    before = da.decode_attention.launches, pa.ragged_paged_attention.launches
+    try:
+        assert chip_smoke._wrapper_launches(step) == (
+            "out", {"decode_attention": 3, "ragged_paged_attention": 2})
+        assert chip_smoke._wrapper_launches(lambda: None) == (None, {})
+    finally:
+        da.decode_attention.launches, pa.ragged_paged_attention.launches = before
+    names = [n for n, _, _ in _K4_SYMBOLS[::2]] + [
+        "_ZN5llmss12_GLOBAL__N_111split_mergeI13__nv_bfloat16Li128EEEvNS0_"
+        "9MergeArgsE"]
+    assert chip_smoke._node_counts(
+        names, ("paged_mma", "paged_fwd", "split_merge", "int8:paged_mma",
+                "int8:paged_fwd")) == {
+        "paged_mma": 2, "paged_fwd": 1, "split_merge": 1,
+        "int8:paged_mma": 1, "int8:paged_fwd": 1}
+
+
 def test_ptxas_report_lists_both_k4_tiles():
     """chip_smoke / kernel_ab read each tensor-core instantiation's
     registers and spills from ``-Xptxas=-v`` output."""

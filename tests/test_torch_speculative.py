@@ -189,20 +189,23 @@ def test_window_attention_matches_jax(name):
 
 
 def test_window_plan_layout():
-    """K2w is laid out as K2 for G * S query rows per KV head: the bf16
-    tile above WINDOW_G_TILE rows, the lanes (GB rows a block) below and
-    for fp32 / fp16."""
+    """K2w is laid out over G * S query rows per KV head: bf16 on the
+    window tile (16 rows a row warp, its splits one cluster of at most 8,
+    from gamma 1 at MHA up), fp32 / fp16 on the lanes (GB rows a block)."""
     bf16, sp = torch.bfloat16, tda.sp
     p = tda.window_plan(bf16, 16, 32, 32, 128, 384, 5)  # Llama-2-7B, gamma 4
-    assert p.impl == "mma" and (p.splits, p.split_slots) == sp.split_plan(
-        16, 32, 384, step=sp.TILE_STEP, sms=sp.H100_SMS)
+    assert p.impl == "mma" and (p.splits, p.split_slots) == (
+        tda.window_tile_split(16 * 32, 384, p.smem, sp.H100_SMS,
+                              sp.MAX_SPLITS))
+    assert (p.rows, p.slot_warps, p.cluster) == (16, 4, p.splits)
     p = tda.window_plan(bf16, 16, 32, 32, 128, 384, 2)  # gamma 1
-    assert p.impl == "lanes" and tda._heads_per_block(2) == 2
+    assert (p.impl, p.rows) == ("mma", 16)
+    assert tda.window_plan(bf16, 4, 28, 4, 128, 384, 5).rows == 48
+    assert tda.window_plan(bf16, 4, 48, 1, 128, 384, 2).rows == 64
+    p = tda.window_plan(torch.float32, 4, 48, 1, 128, 384, 2)
+    assert p.impl == "lanes" and p.rows == tda._heads_per_block(96) == 8
     assert (p.splits, p.split_slots) == sp.split_plan(
-        16, 32, 384, step=sp.lane_step(128), sms=sp.H100_SMS)
-    assert tda.window_plan(bf16, 4, 28, 4, 128, 384, 5).impl == "mma"
-    assert tda.window_plan(bf16, 4, 48, 1, 128, 384, 2).impl == "mma"
-    assert tda.window_plan(torch.float32, 4, 48, 1, 128, 384, 2).impl == "lanes"
+        4, 12, 384, step=sp.lane_step(128), sms=sp.H100_SMS)
     assert tda.window_plan(torch.float16, 4, 32, 32, 128, 384, 8).impl == "lanes"
 
 
