@@ -62,6 +62,13 @@ exits non-zero without printing a result:
    reference_roles -- a prefill-role and a decode-role ContinuousWorker
               (split and chunked, fp32 and int8 pools): the card's
               answers equal the CPU's and a unified worker's;
+   reference_fleet -- two paged ContinuousWorkers w0 and w1 on their own
+              engines under a port Router (serve/fleet.py), split then
+              chunked: the serve_fleet traffic at tiny size under
+              prefix_affinity, least_loaded and round_robin, then with w1
+              stopped after its first group and failed over: the card's
+              tokens, the Router's picks and stats and each worker's
+              prefix builds equal the CPU's in every pass;
    reference_speculative -- prompt-lookup speculative decoding on the
               tiny fp32 llama (K2w verify windows, K2 on the plain tail),
               the same over an int8 cache and a tiny Mistral with a sliding
@@ -127,6 +134,23 @@ exits non-zero without printing a result:
               the unified passes, and the longest request alone equal to
               a unified worker's tokens with its adopted blocks read back
               equal to the exported bytes;
+   serve_fleet -- the fleet at Llama-2-7B width: ContinuousWorkers w0 and
+              w1, each on its own engine over the same weights with a
+              320-block pool, prewarmed, heartbeating every 50 ms under a
+              Router, driven in turns from this thread: 16 requests on four
+              600-token system prompts (p0 p0 p1 p1 p2 p2 p3 p3, twice)
+              under each policy, split and chunked, then prefix_affinity
+              with w0 stopped after its first group (its heartbeat goes
+              stale and the Router fails its leased and routed work over
+              to w1): every request answered once, routing, prefix builds
+              and failover re-routes equal to a CPU rehearsal, K1 / K3 /
+              K4 launches against the prefills and steps, no capture,
+              every block back; per pass wall, tokens/s, TTFT, K1 / K4
+              prompt tokens, builds and peak blocks per worker,
+              routed_by_worker, affinity_hit_rate, the card and its power
+              limit; the killed pass also kill-to-last-answer seconds and
+              the re-routed requests' share of tokens equal to the unkilled
+              pass's;
    int8    -- the engine's generate (prewarmed, no capture after) and one
               chunked serving pass (a 496-block int8 pool) on int8 caches
               at Llama-2-7B width: cache bytes against bf16's (<= 0.52x),
@@ -3732,6 +3756,397 @@ def phase_serve_roles(params, unified: dict) -> None:
     gc.collect()
 
 
+# -- the fleet ----------------------------------------------------------------
+
+
+# The serve_fleet order: four system prompts, two requests each in turn,
+# twice over.
+FLEET_ORDER = (0, 0, 1, 1, 2, 2, 3, 3) * 2
+FLEET_POLICIES = ("prefix_affinity", "least_loaded", "round_robin")
+# Workers heartbeat every 50 ms; the Router judges one stale after 40 of
+# them (2 s): longer than any group the survivors run between heartbeats,
+# so only a worker no longer driven goes stale.
+FLEET_SNAPSHOT_S, FLEET_STALE = 0.05, 40.0
+FLEET_BLOCKS = 320  # serve_fleet's pool per worker: 4 x 37 prefix + 8 rows
+
+
+def _fleet_traffic(cfg, system_len: int, suffix: tuple, new: int, seed: int):
+    """Four ``system_len``-token system prompts and 16 requests on them in
+    ``FLEET_ORDER`` (suffixes of ``suffix`` = (lo, hi) tokens, ``new`` new
+    tokens, the last four top-k/top-p sampled with seeds), every one with
+    ``prefix_token_ids``; returns (suffix lengths, the maker)."""
+    from llmss_tpu_torch.serve.protocol import GenerateRequest
+
+    rng = np.random.default_rng(seed)
+    V = cfg.vocab_size
+    systems = [[int(t) for t in rng.integers(1, V, system_len)]
+               for _ in range(4)]
+    sufs = [[int(t) for t in rng.integers(1, V, int(n))]
+            for n in rng.integers(suffix[0], suffix[1] + 1, len(FLEET_ORDER))]
+
+    def requests():
+        return [GenerateRequest(
+            id=f"f{i:02d}", token_ids=systems[s] + sufs[i],
+            max_new_tokens=new, prefix_token_ids=list(systems[s]),
+            **(dict(is_greedy=False, temperature=0.8, top_k=40, top_p=0.9,
+                    seed=300 + i) if i >= 12 else {}))
+            for i, s in enumerate(FLEET_ORDER)]
+
+    return [len(s) for s in sufs], requests
+
+
+def _fleet_plan(victim: str) -> list:
+    """The passes, in order: (name, policy, chunked, the worker killed or
+    None): each policy split and chunked, then a killed chunked pass under
+    prefix_affinity."""
+    return ([(f"{p}_{'chunked' if c else 'split'}", p, c, None)
+             for p in FLEET_POLICIES for c in (False, True)]
+            + [(f"prefix_affinity_chunked_{victim}_killed", "prefix_affinity",
+                True, victim)])
+
+
+def _fleet_pass(workers: dict, reqs: list, policy: str,
+                kill: str | None = None) -> dict:
+    """One pass of ``reqs`` through ``workers`` ({id: ContinuousWorker})
+    under a Router of ``policy`` on a fresh InProcBroker, the workers
+    driven in turns from this thread (two threads capturing or replaying
+    graphs on one card could spoil a capture). Each worker starts with no
+    prefix held and registers. Without ``kill`` the 16 requests are
+    submitted at once. With it, the first 8; the worker ``kill`` runs one
+    group and is never driven again (its heartbeat stops while it holds
+    leased rows); the last 8 follow, its prefixes' ones routed to it; the
+    Router's time-gated failover moves its work once its heartbeat is
+    stale (the live workers beat before each judgement). The exactly-once audit is the few lines below: one answer per
+    request, of all its tokens, no second answer, the broker's books
+    balanced. Returns the pass's record."""
+    from llmss_tpu_torch.serve.broker import InProcBroker
+    from llmss_tpu_torch.serve.fleet import Router
+
+    card = torch.device(
+        next(iter(workers.values())).engine.device).type == "cuda"
+    sync = torch.cuda.synchronize if card else (lambda: None)
+    broker = InProcBroker()
+    builds = {}
+    for wid, w in workers.items():
+        w._prefixes.clear()
+        w.batcher._paged_evict_idle_prefixes()
+        if w.batcher.allocator.blocks_in_use or not w.batcher.idle:
+            raise AssertionError(f"fleet: {wid} is not idle and empty")
+        n = builds[wid] = []
+        build = w.engine.build_prefix
+        w.engine.build_prefix = (lambda ids, n=n, build=build:
+                                 n.append(len(ids)) or build(ids))
+        w.broker, w.worker_id = broker, wid
+        w.snapshot_interval_s, w.poll_timeout_s = FLEET_SNAPSHOT_S, 0.0
+        w.register()
+    router = Router(broker, policy, stale_factor=FLEET_STALE,
+                    failover_check_s=0.1)
+    peak = dict.fromkeys(workers, 0)
+    live = dict(workers)
+    answers, t_kill = {}, None
+
+    def beat():
+        # Turns stretch a live worker's heartbeat by the others' turns;
+        # on a machine of its own it would beat meanwhile, so it beats
+        # here before the Router judges (only a worker no longer driven
+        # goes stale).
+        for w in live.values():
+            w._maybe_publish_load()
+
+    sync()
+    t0 = time.perf_counter()
+    try:
+        picks = [router.submit(r) for r in (reqs[:8] if kill else reqs)]
+        if kill:
+            workers[kill].run_once()
+            peak[kill] = workers[kill].batcher.allocator.blocks_in_use
+            del live[kill]
+            t_kill = time.perf_counter()
+            beat()
+            if kill not in router.routable_workers():
+                raise AssertionError(f"fleet: {kill} went stale before the "
+                                     "second wave")
+            picks += [router.submit(r) for r in reqs[8:]]
+        last = time.perf_counter()
+        while len(answers) < len(reqs):
+            for wid, w in live.items():
+                w.run_once()
+                peak[wid] = max(peak[wid], w.batcher.allocator.blocks_in_use)
+            if kill:
+                beat()
+                router.check_failover()
+            n_before = len(answers)
+            for r in reqs:
+                if r.id not in answers:
+                    a = broker.wait_response(r.id, timeout=0.0)
+                    if a is not None:
+                        answers[r.id] = a
+            if len(answers) > n_before:
+                last = time.perf_counter()
+            elif time.perf_counter() - last > 120.0:
+                raise AssertionError(f"fleet stalled at {len(answers)} of "
+                                     f"{len(reqs)} answers")
+            elif all(w.batcher.idle for w in live.values()):
+                time.sleep(0.002)  # waiting for the dead worker to go stale
+        for w in live.values():
+            for _ in range(100):  # the group in flight at the last answer
+                if w.batcher.idle:
+                    break
+                w.run_once()
+        sync()
+        t_end = time.perf_counter()
+    finally:
+        for w in workers.values():
+            del w.engine.build_prefix
+    for r in reqs:
+        a = answers[r.id]
+        if a.error or len(a.token_ids or []) != r.max_new_tokens:
+            raise AssertionError(f"fleet {policy}: {r.id} answered {a}")
+        if broker.wait_response(r.id, timeout=0.0) is not None:
+            raise AssertionError(f"fleet {policy}: {r.id} answered twice")
+    stats = router.stats()
+    st = broker.delivery_stats()
+    if (st["queue_depth"], st["inflight"], st["dlq_depth"],
+            st["redelivered"], st["deadline_expired"]) != (0, 0, 0, 0, 0) or (
+            st["failover_rerouted"] != stats["failover_reroutes"]):
+        raise AssertionError(f"fleet {policy}: delivery {st}, {stats}")
+    for wid, w in live.items():
+        held = sum(len(b) for _, b in w.batcher._paged_prefixes.values())
+        if not w.batcher.idle or w.batcher.allocator.blocks_in_use != held:
+            raise AssertionError(f"fleet {policy}: {wid} holds "
+                                 f"{w.batcher.allocator.blocks_in_use} "
+                                 f"blocks once idle, its prefixes {held}")
+    return {"picks": picks, "stats": stats,
+            "builds": {wid: len(n) for wid, n in builds.items()},
+            "tokens": {r.id: answers[r.id].token_ids for r in reqs},
+            "rerouted": [r.id for r, p in zip(reqs, picks) if p == kill],
+            "wall_s": t_end - t0,
+            "kill_to_last_answer_s": t_end - t_kill if kill else None,
+            "peak_blocks": peak, "delivery": st}
+
+
+def _fleet_decisions(res: dict) -> dict:
+    """What a pass's routing decided: held to the CPU's."""
+    return {k: res[k] for k in ("picks", "stats", "builds", "rerouted")}
+
+
+def _fleet_workers(engines: dict, chunked: int | None, **kw) -> dict:
+    from llmss_tpu_torch.serve.consumer import ContinuousWorker
+    from llmss_tpu_torch.serve.broker import InProcBroker
+
+    return {wid: ContinuousWorker(eng, InProcBroker(), chunked_prefill=chunked,
+                                  poll_timeout_s=0.0, **kw)
+            for wid, eng in engines.items()}
+
+
+def phase_reference_fleet() -> None:
+    """The fleet on the tiny fp32 llama: two paged ContinuousWorkers w0 and
+    w1 (each on its own engine over the same weights, 4 rows, chunk_steps
+    4, group_chunks 2) under a Router, split then chunked (16): the
+    serve_fleet traffic at tiny size (four 40-token system prompts, 4-12
+    token suffixes, 12 new tokens) under prefix_affinity, least_loaded and
+    round_robin, then with w1 killed after its first group. On the card
+    and on the CPU: the card's tokens equal the CPU's for every request in
+    every pass, and so do the Router's picks and stats and each worker's
+    prefix builds."""
+    from llmss_tpu_torch.engine.engine import DecodeEngine
+    from llmss_tpu_torch.models.decoder import init_params
+
+    cfg = _tiny_llama()
+    cpu_params = init_params(cfg, seed=9, device="cpu")
+    params = {"cpu": cpu_params, "cuda": _to(cpu_params, "cuda")}
+    _, requests = _fleet_traffic(cfg, 40, (4, 12), 12, seed=9)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        engines = {wid: DecodeEngine(cfg, params[dev], device=dev,
+                                     max_seq_len=128, kv_layout="paged",
+                                     block_size=16, kv_blocks=48)
+                   for wid in ("w0", "w1")}
+        workers = {c: _fleet_workers(engines, 16 if c else None, rows=4,
+                                     chunk_steps=4, group_chunks=2)
+                   for c in (False, True)}
+        for name, policy, chunked, kill in _fleet_plan("w1"):
+            count = _launch_counter()
+            res = _fleet_pass(workers[chunked], requests(), policy, kill)
+            res["launches"] = count()
+            out[dev, name] = res
+    for name, policy, chunked, kill in _fleet_plan("w1"):
+        got, want = out["cuda", name], out["cpu", name]
+        same = (got["tokens"] == want["tokens"]
+                and _fleet_decisions(got) == _fleet_decisions(want))
+        emit({"phase": "reference_fleet", "pass": name,
+              "identical": same, "launches": got["launches"],
+              "picks": got["picks"], "builds": got["builds"],
+              "failover_reroutes": got["stats"]["failover_reroutes"],
+              "affinity_hit_rate": got["stats"]["affinity_hit_rate"]})
+        if not same:
+            raise AssertionError(f"reference_fleet {name}: card {got}, "
+                                 f"CPU {want}")
+        c = got["launches"]
+        if not c["k3"] or not c["k4" if chunked else "k1"] or c["k2"]:
+            raise AssertionError(f"reference_fleet {name}: launches {c}")
+
+
+def _fleet_rehearsal() -> dict:
+    """serve_fleet's passes on the CPU, on a one-layer model of the same
+    vocabulary at max_seq_len 1024 with the same pools, rows and groups,
+    every request greedy: the routing depends on those and on the
+    traffic's lengths only. Returns {pass: decisions}."""
+    from llmss_tpu_torch.engine.engine import DecodeEngine
+    from llmss_tpu_torch.models.common import DecoderConfig
+    from llmss_tpu_torch.models.decoder import init_params
+
+    cfg = DecoderConfig(**{**LLAMA2_7B, "hidden_size": 64, "n_layers": 1,
+                           "n_heads": 2, "n_kv_heads": 2, "head_dim": 32,
+                           "rotary_dim": 32, "intermediate_size": 128,
+                           "dtype": "float32"})
+    p = init_params(cfg, seed=0, device="cpu")
+    engines = {wid: DecodeEngine(cfg, p, device="cpu", max_seq_len=1024,
+                                 kv_layout="paged", block_size=16,
+                                 kv_blocks=FLEET_BLOCKS)
+               for wid in ("w0", "w1")}
+    workers = {c: _fleet_workers(engines, 128 if c else None, rows=8,
+                                 chunk_steps=8, group_chunks=2)
+               for c in (False, True)}
+    _, requests = _fleet_traffic(cfg, SYSTEM_LEN, (16, 96), PREFIX_NEW, 12)
+
+    def greedy():
+        # Sampling moves no decision (with no EOS every request runs its
+        # 64 tokens), and the CPU's top-p sort over 32000 logits would
+        # take most of the rehearsal.
+        return [dataclasses.replace(r, is_greedy=True) for r in requests()]
+
+    return {name: _fleet_decisions(_fleet_pass(workers[chunked], greedy(),
+                                               policy, kill))
+            for name, policy, chunked, kill in _fleet_plan("w0")}
+
+
+def phase_serve_fleet(params, smi: str) -> None:
+    """The fleet at Llama-2-7B width (bf16, random weights from seed 0):
+    ContinuousWorkers w0 and w1, each on its own DecodeEngine over the
+    same weight tensors with a pool of FLEET_BLOCKS blocks of 16 (four
+    600-token prefixes and 8 rows), 8 rows, chunk_steps 8, group_chunks 2,
+    split and chunked (128), each prewarmed, heartbeating every 50 ms
+    under a Router over one InProcBroker per pass, driven in turns from
+    this thread. 16 requests on four 600-token system prompts (seed 12),
+    four each, 16-96-token suffixes, 64 new tokens, 12 greedy and 4
+    sampled, all with ``prefix_token_ids``, in the order p0 p0 p1 p1 p2
+    p2 p3 p3 twice: each policy split and chunked, then prefix_affinity
+    chunked with w0 stopped after its first group. Each pass: every
+    request answered once, routing, builds and failover re-routes equal to
+    the CPU rehearsal, the launches against the steps and prefills run
+    (K1 n_layers per prefill, builds included; K3 per decode step; K4 per
+    ragged step), no capture, every block back; wall, tokens/s, TTFT (from
+    admission), K1 / K4 prompt tokens, builds and peak blocks per worker,
+    routed_by_worker, affinity_hit_rate; the killed pass also the time
+    from the kill to the last answer and the share of the re-routed
+    requests' tokens equal to the unkilled pass's."""
+    from llmss_tpu_torch.engine.engine import DecodeEngine
+    from llmss_tpu_torch.engine.metrics import EngineMetrics, LatencyStat
+    from llmss_tpu_torch.models.common import DecoderConfig
+
+    cfg = DecoderConfig(**LLAMA2_7B)
+    L = cfg.n_layers
+    engines = {wid: DecodeEngine(cfg, params, max_seq_len=1024,
+                                 kv_layout="paged", block_size=16,
+                                 kv_blocks=FLEET_BLOCKS)
+               for wid in ("w0", "w1")}
+    steps = {wid: _count_steps(eng) for wid, eng in engines.items()}
+    prefills = []
+    for eng in engines.values():
+        def counted(ids, cache, lens, sa, start=None, prefill=eng._prefill):
+            prefills.append(lens)
+            return prefill(ids, cache, lens, sa, start)
+
+        eng._prefill = counted
+    workers = {c: _fleet_workers(engines, 128 if c else None, rows=8,
+                                 chunk_steps=8, group_chunks=2)
+               for c in (False, True)}
+    warm = {}
+    for c, ws in workers.items():
+        for wid, w in ws.items():
+            t = time.perf_counter()
+            warm[f"{wid}_{'chunked' if c else 'split'}"] = {
+                "prewarm": w.prewarm(prefix_prefill=True),
+                "prewarm_s": time.perf_counter() - t}
+    keys = {wid: eng._graphs.keys() for wid, eng in engines.items()}
+    sufs, requests = _fleet_traffic(cfg, SYSTEM_LEN, (16, 96), PREFIX_NEW, 12)
+    t = time.perf_counter()
+    rehearsal = _fleet_rehearsal()
+    pool = workers[False]["w0"].batcher.cache
+    emit({"phase": "serve_fleet", "card": smi, "pool_blocks": FLEET_BLOCKS,
+          "pool_gb_per_worker": sum(t.numel() * t.element_size()
+                                    for t in (pool.k, pool.v)) / 1e9,
+          "suffix_lens": sufs, "prewarm": warm,
+          "rehearsal_s": time.perf_counter() - t})
+    done = {}
+    for name, policy, chunked, kill in _fleet_plan("w0"):
+        for eng in engines.values():
+            eng.metrics = EngineMetrics()
+        for s in steps.values():
+            s.update(decode=0, ragged=0)
+        prefills.clear()
+        count = _launch_counter()
+        res = done[name] = _fleet_pass(workers[chunked], requests(), policy,
+                                       kill)
+        counts = count()
+        dec = sum(s["decode"] for s in steps.values())
+        rag = sum(s["ragged"] for s in steps.values())
+        if counts["k2"] or counts["k1"] != L * len(prefills) or (
+                counts["k3"] != L * dec) or counts["k4"] != L * rag:
+            raise AssertionError(f"serve_fleet {name}: launches {counts}, "
+                                 f"{dec} decode / {rag} ragged steps, "
+                                 f"{len(prefills)} prefills")
+        if any(eng.metrics.graph_captures for eng in engines.values()):
+            raise AssertionError(f"serve_fleet {name}: a pass captured")
+        if _fleet_decisions(res) != rehearsal[name]:
+            raise AssertionError(f"serve_fleet {name}: routing "
+                                 f"{_fleet_decisions(res)} != the CPU "
+                                 f"rehearsal's {rehearsal[name]}")
+        ttft = LatencyStat("ttft")
+        ttft._samples = sorted(x for eng in engines.values()
+                               for x in eng.metrics.ttft._samples)
+        ms = [eng.metrics.to_dict() for eng in engines.values()]
+        st = res["stats"]
+        row = {"phase": "serve_fleet", "pass": name, "policy": policy,
+               "admission": "chunked_prefill=128" if chunked else "split",
+               "card": smi, "requests": len(res["tokens"]),
+               "new_tokens": PREFIX_NEW, "wall_s": res["wall_s"],
+               "tokens_per_s": sum(map(len, res["tokens"].values()))
+               / res["wall_s"],
+               "ttft_p50_ms": ttft.quantile_ms(50),
+               "ttft_p90_ms": ttft.quantile_ms(90),
+               "k1_prompt_tokens": sum(int(x) for lens in prefills
+                                       for x in lens.tolist() if x > 1),
+               "k4_prompt_tokens": sum(m["mixed_batch"][
+                   "prefill_tokens_chunked"] for m in ms),
+               "prefix_builds": res["builds"],
+               "routed_by_worker": st["routed_by_worker"],
+               "affinity_hit_rate": st["affinity_hit_rate"],
+               "affinity_hits": st["affinity_hits"],
+               "affinity_misses": st["affinity_misses"],
+               "failover_reroutes": st["failover_reroutes"],
+               "failover_rerouted": res["delivery"]["failover_rerouted"],
+               "peak_blocks": res["peak_blocks"], "prefills": len(prefills),
+               "decode_steps": dec, "ragged_steps": rag, "launches": counts,
+               "graph_captures_after_prewarm": 0,
+               "routing_equals_rehearsal": True}
+        if kill:
+            base = done["prefix_affinity_chunked"]["tokens"]
+            moved = res["rerouted"]
+            n = sum(len(base[i]) for i in moved)
+            row.update(killed=kill, rerouted_requests=len(moved),
+                       kill_to_last_answer_s=res["kill_to_last_answer_s"],
+                       rerouted_tokens_equal_to_unkilled_share=sum(
+                           a == b for i in moved
+                           for a, b in zip(res["tokens"][i], base[i])) / n)
+        emit(row)
+    if {wid: eng._graphs.keys() for wid, eng in engines.items()} != keys:
+        raise AssertionError("serve_fleet captured a graph")
+    del workers, engines, pool
+    gc.collect()
+
+
 # -- the tiered KV store ----------------------------------------------------------
 
 
@@ -5231,6 +5646,7 @@ def main(argv=None) -> int:
     timed(phase_reference_prefix)
     timed(phase_reference_priority)
     timed(phase_reference_roles)
+    timed(phase_reference_fleet)
     timed(phase_reference_families)
     timed(phase_reference_speculative)
     eng, bf16 = timed(phase_engine, kernels)
@@ -5251,6 +5667,9 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     timed(phase_serve_priority, params)
     timed(phase_serve_roles, params, unified)
+    gc.collect()
+    torch.cuda.empty_cache()
+    timed(phase_serve_fleet, params, smi)
     gc.collect()
     torch.cuda.empty_cache()
     timed(phase_int8, params, kernels, bf16)

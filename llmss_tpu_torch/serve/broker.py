@@ -39,9 +39,33 @@ prefill (``reprefills``), or dead-letters it at the attempt budget, or
 sheds it past its deadline. Redis keeps the records on ``pqueue:h`` and
 their leases at ``pqueue:hlease:{worker}:{id}``.
 
-Left for later slices: the worker registry, routed queues and handoff
-queues and failover (fleet), the controller epoch, and the tracing and
-cost hooks.
+The fleet (serve/fleet.py): workers register a ``worker_id`` with their
+capabilities and publish load snapshots into a TTL'd registry
+(``register_worker`` / ``publish_worker_load`` / ``read_workers``, entries
+gone ``worker_ttl_s`` after their last refresh); a router pushes a request
+onto one worker's routed queue (``push_request_to``), which that worker
+pops before the shared queue (``pop_request(worker_id=)``), class by
+class, and each lease records its worker (``lease_holders``).
+``failover_worker`` evacuates a dead worker: its routed requests come back
+without spending a delivery attempt, and its leases are force-expired
+through the normal disposition (deadline-shed and dead-letter answered,
+the rest returned), counted as ``failover_rerouted``. Handoff records route
+the same way (``push_handoff_to``, ``handoff_depths``, ``handoff_holders``,
+``failover_handoffs``: routed records come back with their payloads, leased
+ones prefill again). Redis keeps entries at ``{pqueue}:worker:{id}`` (the
+embedded ``_expires_at``, on the server's clock, is the truth; the key's
+TTL only collects garbage), routed queues at ``{pqueue}:w:{id}`` and
+``{pqueue}:w:{id}:cls:{class}``, routed records at ``{pqueue}:h:{id}``. A
+worker id must not hold ``:``.
+
+Every hop records flight-recorder events (utils/trace.py) at the
+reference's sites: ``enqueue``, ``lease``, ``lease_renew``, ``redeliver``,
+``deadline``, ``dead_letter``, ``release``, ``preempt``, ``handoff_push``,
+``handoff_lease``, ``handoff_renew``, ``reprefill``, ``failover`` and
+``respond``.
+
+Left for later slices: the controller epoch (the controller slice) and the
+per-request cost hook of ``respond`` (the telemetry slice).
 """
 
 from __future__ import annotations
@@ -59,7 +83,9 @@ import uuid
 from llmss_tpu_torch.serve.handoff import HandoffRecord
 from llmss_tpu_torch.serve.protocol import (
     SLO_CLASS_STANDARD, SLO_CLASSES, GenerateRequest, GenerateResponse,
+    prefix_hash,
 )
+from llmss_tpu_torch.utils import trace
 
 # The reference's delivery counters, in its order (delivery_stats).
 _COUNTERS = ("redelivered", "dead_lettered", "deadline_expired",
@@ -72,10 +98,27 @@ def _req_class(req: GenerateRequest) -> str:
     return req.slo_class if req.slo_class in SLO_CLASSES else SLO_CLASS_STANDARD
 
 
-def _ensure_trace_id(req: GenerateRequest) -> None:
-    """The trace id is the request id at first enqueue (it rides the wire)."""
-    if req.trace_id is None:
-        req.trace_id = req.id
+def _enqueue_attrs(req: GenerateRequest) -> dict:
+    """The ``enqueue`` event's attributes (broker.py:55): lengths, the
+    prefix's hash, class and session; never prompt text."""
+    a: dict = {}
+    if req.token_ids is not None:
+        a["plen"] = len(req.token_ids)
+    a["max_new"] = req.max_new_tokens
+    if req.prefix_token_ids:
+        a["prefix"] = prefix_hash(req.prefix_token_ids)
+    a["slo_class"] = req.slo_class
+    if req.session_id:
+        a["session"] = req.session_id
+        if req.turn is not None:
+            a["turn"] = int(req.turn)
+    return a
+
+
+def _record_enqueue(req: GenerateRequest, queue_name: str) -> None:
+    trace.ensure_context(req)
+    trace.record(req.id, "enqueue", trace_id=req.trace_id, queue=queue_name,
+                 **_enqueue_attrs(req))
 
 
 class Broker(abc.ABC):
@@ -84,6 +127,9 @@ class Broker(abc.ABC):
     lease_s = 60.0
     # Deliveries a request gets before it is dead-lettered.
     max_delivery_attempts = 3
+    # A registry entry not refreshed for this long is dropped from
+    # read_workers: a vanished worker ages out of the fleet view.
+    worker_ttl_s = 60.0
     CANCEL_TTL_S = 600.0
     # Optional () -> dict merged into every publish_metrics (the
     # supervisor's health block), so a worker-side publish never erases it.
@@ -93,7 +139,11 @@ class Broker(abc.ABC):
     def push_request(self, req: GenerateRequest) -> None: ...
 
     @abc.abstractmethod
-    def pop_request(self, timeout: float = 0.0) -> GenerateRequest | None: ...
+    def pop_request(self, timeout: float = 0.0,
+                    worker_id: str | None = None) -> GenerateRequest | None:
+        """Lease the next request, waiting up to ``timeout`` seconds: the
+        routed queue of ``worker_id`` first (class by class), then the
+        shared queue; the lease records ``worker_id``."""
 
     @abc.abstractmethod
     def push_response(self, resp: GenerateResponse) -> None: ...
@@ -126,18 +176,60 @@ class Broker(abc.ABC):
         ``preempted``; an id whose lease is gone is ignored. Returns the
         number requeued."""
 
+    # -- the fleet: registry and routed queues ---------------------------------------
+
+    @abc.abstractmethod
+    def register_worker(self, info: dict) -> None:
+        """Announce a worker: ``info`` carries ``worker_id`` and its
+        capabilities. Registering again merges and refreshes the TTL."""
+
+    @abc.abstractmethod
+    def publish_worker_load(self, worker_id: str, snapshot: dict) -> None:
+        """Merge a load snapshot into the worker's entry and refresh its
+        TTL; an unknown id is registered by it."""
+
+    @abc.abstractmethod
+    def deregister_worker(self, worker_id: str) -> None: ...
+
+    @abc.abstractmethod
+    def read_workers(self) -> dict:
+        """``{worker_id: info}``, expired entries purged."""
+
+    @abc.abstractmethod
+    def push_request_to(self, worker_id: str, req: GenerateRequest) -> None:
+        """Queue a request on one worker's routed queue."""
+
+    @abc.abstractmethod
+    def routed_depths(self) -> dict:
+        """``{worker_id: depth}`` of the non-empty routed queues."""
+
+    @abc.abstractmethod
+    def lease_holders(self) -> dict:
+        """``{worker_id: leases}`` of the leases attributed to a worker."""
+
+    @abc.abstractmethod
+    def failover_worker(self, worker_id: str) -> list[GenerateRequest]:
+        """Evacuate a dead worker: its routed requests (no delivery attempt
+        spent) and its force-expired leases that the disposition requeues
+        (deadline-shed and dead-lettered ones are answered here). Returns
+        the requests for the caller to route to survivors."""
+
+    # -- the handoff channel -----------------------------------------------------------
+
     @abc.abstractmethod
     def push_handoff(self, record: HandoffRecord) -> None:
         """Queue a record, then settle its request's lease."""
 
+    @abc.abstractmethod
     def push_handoff_to(self, worker_id: str, record: HandoffRecord) -> None:
-        """Queue a record for one decode worker; without routed queues, on
-        the shared handoff queue."""
-        self.push_handoff(record)
+        """Queue a record for one decode worker, then settle its request's
+        lease."""
 
     @abc.abstractmethod
-    def pop_handoff(self, timeout: float = 0.0) -> HandoffRecord | None:
-        """Lease the next record, waiting up to ``timeout`` seconds."""
+    def pop_handoff(self, timeout: float = 0.0,
+                    worker_id: str | None = None) -> HandoffRecord | None:
+        """Lease the next record, ``worker_id``'s routed records first,
+        waiting up to ``timeout`` seconds on the shared queue."""
 
     @abc.abstractmethod
     def touch_handoffs(self, request_ids) -> None:
@@ -156,11 +248,29 @@ class Broker(abc.ABC):
 
     @abc.abstractmethod
     def handoff_depth(self) -> int:
-        """Records waiting on the handoff queue."""
+        """Records waiting, shared and routed."""
+
+    @abc.abstractmethod
+    def handoff_depths(self) -> dict:
+        """``{worker_id: depth}`` of the non-empty routed handoff queues."""
+
+    @abc.abstractmethod
+    def handoff_holders(self) -> dict:
+        """``{worker_id: leases}`` of the handoff leases held by a worker."""
+
+    @abc.abstractmethod
+    def failover_handoffs(self, worker_id: str) -> list[HandoffRecord]:
+        """Evacuate a dead decode worker's handoffs: its routed records are
+        returned with their payloads for the caller to route again, its
+        leased ones disposed of (their adopted KV died with it: prefill
+        again, or dead-letter, or shed)."""
+
+    # -- depths, the DLQ, cancellation, streams, metrics --------------------------------
 
     @abc.abstractmethod
     def queue_depth(self) -> int:
-        """Requests waiting (not leased): the producer's admission signal."""
+        """Requests waiting (not leased), shared and routed: the
+        producer's admission signal."""
 
     @abc.abstractmethod
     def queue_depths_by_class(self) -> dict: ...
@@ -211,34 +321,89 @@ class Broker(abc.ABC):
 
     # -- lease expiry ----------------------------------------------------------
 
+    def _disposition(self, req: GenerateRequest) -> str:
+        """``"expired"`` past the request's deadline, ``"dead-letter"`` at
+        the attempt budget, else ``"requeue"``."""
+        if req.deadline_ts is not None and time.time() > req.deadline_ts:
+            return "expired"
+        if req.delivery_attempts >= self.max_delivery_attempts:
+            return "dead-letter"
+        return "requeue"
+
+    def _answer_terminal(self, req: GenerateRequest, disp: str) -> None:
+        """Shed (``"expired"``) or dead-letter a request, and answer it."""
+        if disp == "expired":
+            self._count("deadline_expired")
+            trace.record(req.id, "deadline", attempt=req.delivery_attempts)
+            self.push_response(GenerateResponse(
+                id=req.id, error="deadline exceeded before completion"))
+            return
+        self._count("dead_lettered")
+        self._to_dlq(req)
+        trace.record(req.id, "dead_letter", attempt=req.delivery_attempts)
+        self.push_response(GenerateResponse(
+            id=req.id, error=(f"dead-lettered after {req.delivery_attempts} "
+                              "delivery attempts")))
+
     def _settle_expired(self, req: GenerateRequest,
                         reprefill: bool = False) -> None:
         """Disposition of a lease that expired un-acked: shed past its
         deadline, dead-letter at the attempt budget, else redeliver (a
         handoff's request: prefill again, its trace attempt bumped)."""
-        if req.deadline_ts is not None and time.time() > req.deadline_ts:
-            self._count("deadline_expired")
-            self.push_response(GenerateResponse(
-                id=req.id, error="deadline exceeded before completion"))
-        elif req.delivery_attempts >= self.max_delivery_attempts:
-            self._count("dead_lettered")
-            self._to_dlq(req)
-            self.push_response(GenerateResponse(
-                id=req.id, error=(f"dead-lettered after "
-                                  f"{req.delivery_attempts} delivery "
-                                  "attempts")))
+        disp = self._disposition(req)
+        if disp != "requeue":
+            self._answer_terminal(req, disp)
         elif reprefill:
             self._count("reprefills")
             req.trace_attempt += 1
+            trace.record(req.id, "reprefill", trace_id=req.trace_id,
+                         attempt=req.trace_attempt)
             self._requeue(req)
         else:
             self._count("redelivered")
+            trace.record(req.id, "redeliver", attempt=req.delivery_attempts)
             self._requeue(req)
 
     def _dispose_handoff(self, record: HandoffRecord) -> None:
         """A handoff whose decode never completed: its exported KV is gone,
         so the request prefills again, or dead-letters, or is shed."""
         self._settle_expired(record.req, reprefill=True)
+
+    def _failed_over(self, worker_id: str, routed: list,
+                     held: list[GenerateRequest]) -> list[GenerateRequest]:
+        """``failover_worker``'s disposition: the routed requests and the
+        force-expired leases the disposition requeues come back, counted
+        as ``failover_rerouted``; the rest are answered here."""
+        out = list(routed)
+        for req in held:
+            disp = self._disposition(req)
+            if disp == "requeue":
+                out.append(req)
+            else:
+                self._answer_terminal(req, disp)
+        if out:
+            self._count("failover_rerouted", len(out))
+        for req in out:
+            trace.record(req.id, "failover", worker=worker_id)
+        return out
+
+    def _failed_over_handoffs(self, worker_id: str, routed: list,
+                              held: list) -> list:
+        """``failover_handoffs``' disposition (see there)."""
+        for rec in held:
+            self._dispose_handoff(rec)
+        if routed:
+            self._count("failover_rerouted", len(routed))
+        for rec in routed:
+            trace.record(rec.req.id, "failover", worker=worker_id,
+                         kind="handoff")
+        return list(routed)
+
+    def _record_respond(self, resp: GenerateResponse) -> None:
+        trace.record(resp.id, "respond", ok=resp.error is None,
+                     **({"error": resp.error} if resp.error else {}),
+                     **({"n_tokens": len(resp.token_ids)}
+                        if resp.token_ids else {}))
 
     @abc.abstractmethod
     def _count(self, name: str, n: int = 1) -> None: ...
@@ -251,6 +416,15 @@ class Broker(abc.ABC):
         """Put a request back at the head of its class queue."""
 
 
+def _queue_drain(q: queue.Queue) -> list:
+    out = []
+    while True:
+        try:
+            out.append(q.get_nowait())
+        except queue.Empty:
+            return out
+
+
 class InProcBroker(Broker):
     """Queues and maps in one process, for tests and one-process serving."""
 
@@ -260,11 +434,14 @@ class InProcBroker(Broker):
         lease_s: float | None = None,
         max_delivery_attempts: int | None = None,
         response_ttl_s: float | None = None,
+        worker_ttl_s: float | None = None,
     ):
         if lease_s is not None:
             self.lease_s = lease_s
         if max_delivery_attempts is not None:
             self.max_delivery_attempts = max_delivery_attempts
+        if worker_ttl_s is not None:
+            self.worker_ttl_s = worker_ttl_s
         self.response_ttl_s = (
             self.CANCEL_TTL_S if response_ttl_s is None else response_ttl_s
         )
@@ -280,15 +457,24 @@ class InProcBroker(Broker):
         # Dropped streams' tombstones: id -> expiry.
         self._dead_streams: dict[str, float] = {}  # guarded_by: self._stream_lock
         self._stream_lock = threading.Lock()
-        # id -> (monotonic expiry, request)
-        self._leases: dict[str, tuple[float, GenerateRequest]] = {}  # guarded_by: self._lease_lock
+        # id -> (monotonic expiry, request, worker id or None): the worker
+        # lets failover_worker evacuate exactly one worker's leases.
+        self._leases: dict[str, tuple[float, GenerateRequest, str | None]] = {}  # guarded_by: self._lease_lock
         self._dlq: list[GenerateRequest] = []  # guarded_by: self._lease_lock
         self._counts = dict.fromkeys(_COUNTERS, 0)  # guarded_by: self._lease_lock
-        # The handoff channel: records, and their leases as
-        # id -> (monotonic expiry, record).
+        # The handoff channel: the shared records, and their leases as
+        # id -> (monotonic expiry, record, worker id or None).
         self._handoffs: queue.Queue = queue.Queue()
-        self._handoff_leases: dict[str, tuple[float, HandoffRecord]] = {}  # guarded_by: self._lease_lock
+        self._handoff_leases: dict[str, tuple[float, HandoffRecord, str | None]] = {}  # guarded_by: self._lease_lock
         self._lease_lock = threading.Lock()
+        # The fleet: routed queues by worker and class, routed records by
+        # worker, and the registry with its monotonic expiries.
+        self._routed: dict[str, dict[str, collections.deque]] = {}  # guarded_by: self._route_lock
+        self._handoff_routed: dict[str, queue.Queue] = {}  # guarded_by: self._route_lock
+        self._route_lock = threading.Lock()
+        self._workers: dict[str, dict] = {}  # guarded_by: self._worker_lock
+        self._worker_expiry: dict[str, float] = {}  # guarded_by: self._worker_lock
+        self._worker_lock = threading.Lock()
 
     # -- requests ----------------------------------------------------------------
 
@@ -310,24 +496,38 @@ class InProcBroker(Broker):
             self._dlq.append(req)
 
     def push_request(self, req: GenerateRequest) -> None:
-        _ensure_trace_id(req)
+        _record_enqueue(req, "shared")
         self._enqueue(req)
 
-    def pop_request(self, timeout: float = 0.0) -> GenerateRequest | None:
-        """Lease the next request (highest class first), waiting up to
-        ``timeout`` seconds; None if none arrived."""
+    def _pop_routed(self, worker_id: str) -> GenerateRequest | None:
+        with self._route_lock:
+            by_cls = self._routed.get(worker_id)
+            if by_cls:
+                for cls in SLO_CLASSES:
+                    q = by_cls.get(cls)
+                    if q:
+                        return q.popleft()
+        return None
+
+    def pop_request(self, timeout: float = 0.0,
+                    worker_id: str | None = None) -> GenerateRequest | None:
         self.reap_expired()
-        deadline = time.monotonic() + timeout
-        with self._req_cond:
-            while not any(self._queues.values()):
-                remaining = deadline - time.monotonic()
-                if not timeout or remaining <= 0:
-                    return None
-                self._req_cond.wait(remaining)
-            req = next(q for q in self._queues.values() if q).popleft()
+        req = self._pop_routed(worker_id) if worker_id is not None else None
+        if req is None:
+            deadline = time.monotonic() + timeout
+            with self._req_cond:
+                while not any(self._queues.values()):
+                    remaining = deadline - time.monotonic()
+                    if not timeout or remaining <= 0:
+                        return None
+                    self._req_cond.wait(remaining)
+                req = next(q for q in self._queues.values() if q).popleft()
         req.delivery_attempts += 1
         with self._lease_lock:
-            self._leases[req.id] = (time.monotonic() + self.lease_s, req)
+            self._leases[req.id] = (time.monotonic() + self.lease_s, req,
+                                    worker_id)
+        trace.record(req.id, "lease", trace_id=req.trace_id, worker=worker_id,
+                     attempt=req.delivery_attempts)
         return req
 
     def touch_requests(self, request_ids) -> None:
@@ -336,16 +536,17 @@ class InProcBroker(Broker):
             for rid in request_ids:
                 held = self._leases.get(rid)
                 if held is not None:
-                    self._leases[rid] = (now + self.lease_s, held[1])
+                    self._leases[rid] = (now + self.lease_s, *held[1:])
+                    trace.record(rid, "lease_renew", throttle_s=1.0)
 
     def reap_expired(self) -> int:
         now = time.monotonic()
         with self._lease_lock:
-            dead = [req for t, req in self._leases.values() if t <= now]
+            dead = [held[1] for held in self._leases.values() if held[0] <= now]
             for req in dead:
                 del self._leases[req.id]
-            hdead = [rec for t, rec in self._handoff_leases.values()
-                     if t <= now]
+            hdead = [held[1] for held in self._handoff_leases.values()
+                     if held[0] <= now]
             for rec in hdead:
                 del self._handoff_leases[rec.req.id]
         for req in dead:
@@ -363,6 +564,7 @@ class InProcBroker(Broker):
                 continue
             req = held[1]
             req.delivery_attempts = max(0, req.delivery_attempts - 1)
+            trace.record(rid, "release")
             self._enqueue(req, head=True)
             n += 1
         return n
@@ -376,29 +578,126 @@ class InProcBroker(Broker):
                 continue  # reaped meanwhile: the reaper's requeue stands
             req.delivery_attempts = max(0, req.delivery_attempts - 1)
             self._count("preempted")
+            trace.record(req.id, "preempt", trace_id=req.trace_id,
+                         slo_class=req.slo_class, preemptions=req.preemptions,
+                         n_resume=len(req.resume_tokens or ()))
             self._enqueue(req, head=True)
             n += 1
         return n
 
+    # -- the fleet -------------------------------------------------------------------
+
+    def register_worker(self, info: dict) -> None:
+        self.publish_worker_load(info["worker_id"], info)
+
+    def publish_worker_load(self, worker_id: str, snapshot: dict) -> None:
+        with self._worker_lock:
+            entry = self._workers.setdefault(worker_id,
+                                             {"worker_id": worker_id})
+            entry.update(snapshot)
+            self._worker_expiry[worker_id] = (time.monotonic()
+                                              + self.worker_ttl_s)
+
+    def deregister_worker(self, worker_id: str) -> None:
+        with self._worker_lock:
+            self._workers.pop(worker_id, None)
+            self._worker_expiry.pop(worker_id, None)
+
+    def read_workers(self) -> dict:
+        now = time.monotonic()
+        with self._worker_lock:
+            for wid in [w for w, t in self._worker_expiry.items() if t <= now]:
+                del self._worker_expiry[wid]
+                self._workers.pop(wid, None)
+            return {wid: dict(info) for wid, info in self._workers.items()}
+
+    def push_request_to(self, worker_id: str, req: GenerateRequest) -> None:
+        _record_enqueue(req, worker_id)
+        with self._route_lock:
+            by_cls = self._routed.setdefault(worker_id, {})
+            by_cls.setdefault(_req_class(req), collections.deque()).append(req)
+
+    def routed_depths(self) -> dict:
+        with self._route_lock:
+            out = {wid: sum(len(q) for q in by_cls.values())
+                   for wid, by_cls in self._routed.items()}
+        return {wid: d for wid, d in out.items() if d > 0}
+
+    @staticmethod
+    def _holders(leases: dict) -> dict:
+        out: dict[str, int] = {}
+        for held in leases.values():
+            if held[2] is not None:
+                out[held[2]] = out.get(held[2], 0) + 1
+        return out
+
+    def lease_holders(self) -> dict:
+        with self._lease_lock:
+            return self._holders(self._leases)
+
+    def _take_leases(self, leases: dict, worker_id: str) -> list:
+        """Remove and return what ``worker_id`` holds in ``leases``."""
+        with self._lease_lock:
+            rids = [rid for rid, held in leases.items()
+                    if held[2] == worker_id]
+            return [leases.pop(rid)[1] for rid in rids]
+
+    def failover_worker(self, worker_id: str) -> list[GenerateRequest]:
+        with self._route_lock:
+            by_cls = self._routed.pop(worker_id, None) or {}
+        routed = [req for cls in SLO_CLASSES for req in by_cls.get(cls, ())]
+        return self._failed_over(worker_id, routed,
+                                 self._take_leases(self._leases, worker_id))
+
     # -- the handoff channel ---------------------------------------------------------
 
-    def push_handoff(self, record: HandoffRecord) -> None:
-        self._handoffs.put(record)
+    def _handoff_settled(self, record: HandoffRecord) -> None:
+        # The record is queued first, then the request's lease settled: a
+        # failure in between duplicates work, never loses the request.
         with self._lease_lock:
             self._leases.pop(record.req.id, None)
             self._counts["handoffs"] += 1
             self._counts["handoff_bytes"] += len(record.payload)
 
-    def pop_handoff(self, timeout: float = 0.0) -> HandoffRecord | None:
+    def push_handoff(self, record: HandoffRecord) -> None:
+        trace.record(record.req.id, "handoff_push",
+                     trace_id=record.req.trace_id, bytes=len(record.payload),
+                     target="shared")
+        self._handoffs.put(record)
+        self._handoff_settled(record)
+
+    def push_handoff_to(self, worker_id: str, record: HandoffRecord) -> None:
+        trace.record(record.req.id, "handoff_push",
+                     trace_id=record.req.trace_id, bytes=len(record.payload),
+                     target=worker_id)
+        with self._route_lock:
+            q = self._handoff_routed.setdefault(worker_id, queue.Queue())
+        q.put(record)
+        self._handoff_settled(record)
+
+    def pop_handoff(self, timeout: float = 0.0,
+                    worker_id: str | None = None) -> HandoffRecord | None:
         self.reap_expired()
-        try:
-            rec = (self._handoffs.get(timeout=timeout) if timeout
-                   else self._handoffs.get_nowait())
-        except queue.Empty:
-            return None
+        rec = None
+        if worker_id is not None:
+            with self._route_lock:
+                q = self._handoff_routed.get(worker_id)
+            if q is not None:
+                try:
+                    rec = q.get_nowait()
+                except queue.Empty:
+                    rec = None
+        if rec is None:
+            try:
+                rec = (self._handoffs.get(timeout=timeout) if timeout
+                       else self._handoffs.get_nowait())
+            except queue.Empty:
+                return None
         with self._lease_lock:
             self._handoff_leases[rec.req.id] = (
-                time.monotonic() + self.lease_s, rec)
+                time.monotonic() + self.lease_s, rec, worker_id)
+        trace.record(rec.req.id, "handoff_lease", trace_id=rec.req.trace_id,
+                     worker=worker_id)
         return rec
 
     def touch_handoffs(self, request_ids) -> None:
@@ -407,22 +706,46 @@ class InProcBroker(Broker):
             for rid in request_ids:
                 held = self._handoff_leases.get(rid)
                 if held is not None:
-                    self._handoff_leases[rid] = (now + self.lease_s, held[1])
+                    self._handoff_leases[rid] = (now + self.lease_s, *held[1:])
+                    trace.record(rid, "handoff_renew", throttle_s=1.0)
 
     def ack_handoff(self, request_id: str) -> None:
         with self._lease_lock:
             self._handoff_leases.pop(request_id, None)
 
     def handoff_depth(self) -> int:
-        return self._handoffs.qsize()
+        return self._handoffs.qsize() + sum(self.handoff_depths().values())
+
+    def handoff_depths(self) -> dict:
+        with self._route_lock:
+            return {wid: q.qsize() for wid, q in self._handoff_routed.items()
+                    if q.qsize() > 0}
+
+    def handoff_holders(self) -> dict:
+        with self._lease_lock:
+            return self._holders(self._handoff_leases)
+
+    def failover_handoffs(self, worker_id: str) -> list[HandoffRecord]:
+        with self._route_lock:
+            q = self._handoff_routed.pop(worker_id, None)
+        routed = _queue_drain(q) if q is not None else []
+        return self._failed_over_handoffs(
+            worker_id, routed,
+            self._take_leases(self._handoff_leases, worker_id))
+
+    # -- depths and the DLQ ----------------------------------------------------------
 
     def queue_depth(self) -> int:
-        with self._req_cond:
-            return sum(len(q) for q in self._queues.values())
+        return sum(self.queue_depths_by_class().values())
 
     def queue_depths_by_class(self) -> dict:
         with self._req_cond:
-            return {c: len(self._queues[c]) for c in SLO_CLASSES}
+            out = {c: len(self._queues[c]) for c in SLO_CLASSES}
+        with self._route_lock:
+            for by_cls in self._routed.values():
+                for cls, q in by_cls.items():
+                    out[cls] = out.get(cls, 0) + len(q)
+        return out
 
     def dlq_depth(self) -> int:
         with self._lease_lock:
@@ -451,6 +774,7 @@ class InProcBroker(Broker):
     def push_response(self, resp: GenerateResponse) -> None:
         """Terminal response: acks the request or handoff lease and wakes
         the waiter."""
+        self._record_respond(resp)
         with self._lease_lock:
             self._leases.pop(resp.id, None)
             self._handoff_leases.pop(resp.id, None)
@@ -573,7 +897,9 @@ class RedisBroker(Broker):
     ``{"expires_at", "req"}``, stamped against the Redis server's clock
     (``TIME``) so every process judges expiry alike; a reaper claims an
     expired lease by being the caller whose DELETE returns 1. The key's
-    TTL is only a GC backstop.
+    TTL is only a GC backstop. A consumer's fleet id is its lease identity:
+    ``pop_request(worker_id=)`` adopts it, so acks, routed queues and
+    failover name one worker.
 
     ``client`` injects a Redis-compatible object; without one the
     ``redis`` package is imported here, and only here.
@@ -585,6 +911,7 @@ class RedisBroker(Broker):
                  cancel_prefix: str = "cancelled", *, client=None,
                  worker_id: str | None = None, lease_s: float | None = None,
                  max_delivery_attempts: int | None = None,
+                 worker_ttl_s: float | None = None,
                  retry_attempts: int = 5, retry_base_s: float = 0.05,
                  retry_cap_s: float = 2.0):
         if client is None:
@@ -600,14 +927,19 @@ class RedisBroker(Broker):
             self.lease_s = lease_s
         if max_delivery_attempts is not None:
             self.max_delivery_attempts = max_delivery_attempts
+        if worker_ttl_s is not None:
+            self.worker_ttl_s = worker_ttl_s
         # The lease identity (a ':'-free key segment).
         self._worker_id = worker_id or uuid.uuid4().hex[:8]
         self._lease_prefix = f"{request_queue}:lease"
         self._dlq_key = f"{request_queue}:dlq"
         self._stats_prefix = f"{request_queue}:stats"
-        # The reference's routed queues (read by queue_depth, so that a
-        # mixed deployment counts their backlog) and the handoff channel.
+        # The registry at {pqueue}:worker:{id} and the routed queues at
+        # {pqueue}:w:{id}: the glob "{pqueue}:w:*" cannot match the former.
+        self._worker_prefix = f"{request_queue}:worker"
         self._routed_prefix = f"{request_queue}:w"
+        # The handoff channel: shared records at {pqueue}:h, routed ones at
+        # {pqueue}:h:{id}, leases at {pqueue}:hlease:{id}:{request id}.
         self._handoff_key = f"{request_queue}:h"
         self._hlease_prefix = f"{request_queue}:hlease"
         # Standard class on the bare list; the others on {pqueue}:cls:{c}.
@@ -618,8 +950,15 @@ class RedisBroker(Broker):
             return self._rq
         return f"{self._cls_prefix}:{cls}"
 
+    def _routed_class_key(self, worker_id: str, cls: str) -> str:
+        base = f"{self._routed_prefix}:{worker_id}"
+        return base if cls == SLO_CLASS_STANDARD else f"{base}:cls:{cls}"
+
     def _lease_key(self, request_id: str) -> str:
         return f"{self._lease_prefix}:{self._worker_id}:{request_id}"
+
+    def _hlease_key(self, request_id: str) -> str:
+        return f"{self._hlease_prefix}:{self._worker_id}:{request_id}"
 
     def _lease_ttl(self) -> int:
         return max(3600, int(self.lease_s * 20))
@@ -646,24 +985,57 @@ class RedisBroker(Broker):
     def _scan(self, match: str) -> list[str]:
         return [_key(k) for k in self._r.scan_iter(match=match)]
 
+    def _write_lease(self, key: str, field: str, payload: str) -> None:
+        self._r.set(key, json.dumps({"expires_at": self._now() + self.lease_s,
+                                     field: payload}), ex=self._lease_ttl())
+
+    def _renew(self, key: str) -> bool:
+        raw = self._r.get(key)
+        if raw is None:
+            return False
+        entry = json.loads(raw)
+        entry["expires_at"] = self._now() + self.lease_s
+        self._r.set(key, json.dumps(entry), ex=self._lease_ttl())
+        return True
+
+    def _claim(self, key: str):
+        """The lease entry under ``key`` once this caller's DELETE claimed
+        it, else None (gone, or another reaper's)."""
+        raw = self._r.get(key)
+        if raw is None or not self._r.delete(key):
+            return None
+        return json.loads(raw)
+
+    def _adopt(self, worker_id: str | None) -> None:
+        if worker_id is not None and worker_id != self._worker_id:
+            self._worker_id = worker_id
+
     # -- requests -----------------------------------------------------------------
 
     def push_request(self, req: GenerateRequest) -> None:
-        _ensure_trace_id(req)
+        _record_enqueue(req, "shared")
         self._r.lpush(self._class_key(_req_class(req)), req.to_json())
 
-    def _rpop_by_class(self):
-        for cls in SLO_CLASSES:
-            payload = self._r.rpop(self._class_key(cls))
+    def _rpop_by_class(self, worker_id: str | None):
+        """One pass in class order: this worker's routed queues, then the
+        shared ones."""
+        keys = [self._class_key(c) for c in SLO_CLASSES]
+        if worker_id is not None:
+            keys = [self._routed_class_key(worker_id, c)
+                    for c in SLO_CLASSES] + keys
+        for key in keys:
+            payload = self._r.rpop(key)
             if payload:
                 return payload
         return None
 
-    def pop_request(self, timeout: float = 0.0) -> GenerateRequest | None:
+    def pop_request(self, timeout: float = 0.0,
+                    worker_id: str | None = None) -> GenerateRequest | None:
         self.reap_expired()
-        payload = self._rpop_by_class()
+        self._adopt(worker_id)
+        payload = self._rpop_by_class(worker_id)
         if not payload and timeout:
-            # One BRPOP cannot watch three lists in priority order: poll
+            # One BRPOP cannot watch several lists in priority order: poll
             # them in order every 10 ms until the deadline.
             deadline = time.monotonic() + timeout
             while not payload:
@@ -671,25 +1043,20 @@ class RedisBroker(Broker):
                 if remaining <= 0:
                     break
                 time.sleep(min(0.01, remaining))
-                payload = self._rpop_by_class()
+                payload = self._rpop_by_class(worker_id)
         if not payload:
             return None
         req = GenerateRequest.from_json(payload)
         req.delivery_attempts += 1
-        self._r.set(self._lease_key(req.id), json.dumps({
-            "expires_at": self._now() + self.lease_s, "req": req.to_json(),
-        }), ex=self._lease_ttl())
+        self._write_lease(self._lease_key(req.id), "req", req.to_json())
+        trace.record(req.id, "lease", trace_id=req.trace_id,
+                     worker=self._worker_id, attempt=req.delivery_attempts)
         return req
 
     def touch_requests(self, request_ids) -> None:
         for rid in request_ids:
-            key = self._lease_key(rid)
-            raw = self._r.get(key)
-            if raw is None:
-                continue
-            entry = json.loads(raw)
-            entry["expires_at"] = self._now() + self.lease_s
-            self._r.set(key, json.dumps(entry), ex=self._lease_ttl())
+            if self._renew(self._lease_key(rid)):
+                trace.record(rid, "lease_renew", throttle_s=1.0)
 
     def reap_expired(self) -> int:
         now = self._now()
@@ -715,12 +1082,12 @@ class RedisBroker(Broker):
     def release_requests(self, request_ids) -> int:
         n = 0
         for rid in request_ids:
-            key = self._lease_key(rid)
-            raw = self._r.get(key)
-            if raw is None or not self._r.delete(key):
+            entry = self._claim(self._lease_key(rid))
+            if entry is None:
                 continue  # unknown, or a reaper claimed it: it requeues
-            req = GenerateRequest.from_json(json.loads(raw)["req"])
+            req = GenerateRequest.from_json(entry["req"])
             req.delivery_attempts = max(0, req.delivery_attempts - 1)
+            trace.record(rid, "release")
             self._requeue(req)
             n += 1
         return n
@@ -732,69 +1099,179 @@ class RedisBroker(Broker):
                 continue  # reaped meanwhile: the reaper's requeue stands
             req.delivery_attempts = max(0, req.delivery_attempts - 1)
             self._count("preempted")
+            trace.record(req.id, "preempt", trace_id=req.trace_id,
+                         slo_class=req.slo_class, preemptions=req.preemptions,
+                         n_resume=len(req.resume_tokens or ()))
             self._requeue(req)
             n += 1
         return n
 
-    # -- the handoff channel ---------------------------------------------------------
+    # -- the fleet -------------------------------------------------------------------
 
-    def _hlease_key(self, request_id: str) -> str:
-        return f"{self._hlease_prefix}:{self._worker_id}:{request_id}"
+    def _merge_worker(self, worker_id: str, patch: dict) -> None:
+        key = f"{self._worker_prefix}:{worker_id}"
+        raw = self._r.get(key)
+        entry = json.loads(raw) if raw else {}
+        entry.update(patch)
+        entry["worker_id"] = worker_id
+        # Judged on the server's clock, as leases are; the key's TTL only
+        # collects garbage.
+        entry["_expires_at"] = self._now() + self.worker_ttl_s
+        self._r.set(key, json.dumps(entry),
+                    ex=max(60, int(self.worker_ttl_s * 20)))
 
-    def push_handoff(self, record: HandoffRecord) -> None:
-        self._r.lpush(self._handoff_key, record.to_json())
-        self._r.delete(self._lease_key(record.req.id))
-        self._count("handoffs")
-        self._count("handoff_bytes", len(record.payload))
+    def register_worker(self, info: dict) -> None:
+        self._merge_worker(info["worker_id"], info)
 
-    def pop_handoff(self, timeout: float = 0.0) -> HandoffRecord | None:
-        self.reap_expired()
-        if timeout:
-            item = self._r.brpop(self._handoff_key, timeout=timeout)
-            payload = item[1] if item else None
-        else:
-            payload = self._r.rpop(self._handoff_key)
-        if not payload:
-            return None
-        rec = HandoffRecord.from_json(payload)
-        self._r.set(self._hlease_key(rec.req.id), json.dumps({
-            "expires_at": self._now() + self.lease_s, "rec": rec.to_json(),
-        }), ex=self._lease_ttl())
-        return rec
+    def publish_worker_load(self, worker_id: str, snapshot: dict) -> None:
+        self._merge_worker(worker_id, snapshot)
 
-    def touch_handoffs(self, request_ids) -> None:
-        for rid in request_ids:
-            key = self._hlease_key(rid)
+    def deregister_worker(self, worker_id: str) -> None:
+        self._r.delete(f"{self._worker_prefix}:{worker_id}")
+
+    def read_workers(self) -> dict:
+        now = self._now()
+        out: dict[str, dict] = {}
+        for key in self._scan(f"{self._worker_prefix}:*"):
             raw = self._r.get(key)
             if raw is None:
                 continue
             entry = json.loads(raw)
-            entry["expires_at"] = self._now() + self.lease_s
-            self._r.set(key, json.dumps(entry), ex=self._lease_ttl())
+            if float(entry.get("_expires_at", 0.0)) <= now:
+                self._r.delete(key)
+                continue
+            entry.pop("_expires_at", None)
+            out[entry["worker_id"]] = entry
+        return out
+
+    def push_request_to(self, worker_id: str, req: GenerateRequest) -> None:
+        _record_enqueue(req, worker_id)
+        self._r.lpush(self._routed_class_key(worker_id, _req_class(req)),
+                      req.to_json())
+
+    def _routed_scan(self):
+        """(worker id, class, depth) of every non-empty routed queue."""
+        skip = len(self._routed_prefix) + 1
+        for k in self._scan(f"{self._routed_prefix}:*"):
+            depth = int(self._r.llen(k))
+            if depth:
+                wid, _, cls = k[skip:].partition(":cls:")
+                yield wid, cls or SLO_CLASS_STANDARD, depth
+
+    def routed_depths(self) -> dict:
+        out: dict[str, int] = {}
+        for wid, _cls, depth in self._routed_scan():
+            out[wid] = out.get(wid, 0) + depth
+        return out
+
+    def _holders(self, prefix: str) -> dict:
+        out: dict[str, int] = {}
+        skip = len(prefix) + 1
+        for k in self._scan(f"{prefix}:*"):
+            wid = k[skip:].rsplit(":", 1)[0]
+            out[wid] = out.get(wid, 0) + 1
+        return out
+
+    def lease_holders(self) -> dict:
+        return self._holders(self._lease_prefix)
+
+    def _drain_list(self, key: str) -> list:
+        out = []
+        while (payload := self._r.rpop(key)):
+            out.append(payload)
+        return out
+
+    def _claim_all(self, prefix: str, worker_id: str) -> list[dict]:
+        """Every lease entry of ``worker_id`` under ``prefix`` this caller
+        claimed (claim by DELETE: a concurrent reaper's stay its own)."""
+        entries = (self._claim(k) for k in self._scan(f"{prefix}:{worker_id}:*"))
+        return [e for e in entries if e is not None]
+
+    def failover_worker(self, worker_id: str) -> list[GenerateRequest]:
+        routed = [GenerateRequest.from_json(p) for cls in SLO_CLASSES
+                  for p in self._drain_list(
+                      self._routed_class_key(worker_id, cls))]
+        held = [GenerateRequest.from_json(e["req"])
+                for e in self._claim_all(self._lease_prefix, worker_id)]
+        return self._failed_over(worker_id, routed, held)
+
+    # -- the handoff channel ---------------------------------------------------------
+
+    def _handoff_settled(self, record: HandoffRecord) -> None:
+        self._r.delete(self._lease_key(record.req.id))
+        self._count("handoffs")
+        self._count("handoff_bytes", len(record.payload))
+
+    def push_handoff(self, record: HandoffRecord) -> None:
+        self.push_handoff_to(None, record)
+
+    def push_handoff_to(self, worker_id: str | None,
+                        record: HandoffRecord) -> None:
+        trace.record(record.req.id, "handoff_push",
+                     trace_id=record.req.trace_id, bytes=len(record.payload),
+                     target=worker_id or "shared")
+        key = (self._handoff_key if worker_id is None
+               else f"{self._handoff_key}:{worker_id}")
+        self._r.lpush(key, record.to_json())
+        self._handoff_settled(record)
+
+    def pop_handoff(self, timeout: float = 0.0,
+                    worker_id: str | None = None) -> HandoffRecord | None:
+        self.reap_expired()
+        self._adopt(worker_id)
+        payload = None
+        if worker_id is not None:
+            payload = self._r.rpop(f"{self._handoff_key}:{worker_id}")
+        if not payload:
+            if timeout:
+                item = self._r.brpop(self._handoff_key, timeout=timeout)
+                payload = item[1] if item else None
+            else:
+                payload = self._r.rpop(self._handoff_key)
+        if not payload:
+            return None
+        rec = HandoffRecord.from_json(payload)
+        self._write_lease(self._hlease_key(rec.req.id), "rec", rec.to_json())
+        trace.record(rec.req.id, "handoff_lease", trace_id=rec.req.trace_id,
+                     worker=self._worker_id)
+        return rec
+
+    def touch_handoffs(self, request_ids) -> None:
+        for rid in request_ids:
+            if self._renew(self._hlease_key(rid)):
+                trace.record(rid, "handoff_renew", throttle_s=1.0)
 
     def ack_handoff(self, request_id: str) -> None:
         self._r.delete(self._hlease_key(request_id))
 
     def handoff_depth(self) -> int:
         return int(self._r.llen(self._handoff_key)) + sum(
-            int(self._r.llen(k)) for k in self._scan(f"{self._handoff_key}:*"))
+            self.handoff_depths().values())
 
-    def _routed_depths_by_class(self) -> dict:
-        """Backlog on the reference's routed queues ``{pqueue}:w:{worker}``
-        (standard) and ``...:cls:{c}``, by class."""
-        out: dict[str, int] = {}
-        for k in self._scan(f"{self._routed_prefix}:*"):
+    def handoff_depths(self) -> dict:
+        skip = len(self._handoff_key) + 1
+        out = {}
+        for k in self._scan(f"{self._handoff_key}:*"):
             depth = int(self._r.llen(k))
             if depth:
-                tail = k[len(self._routed_prefix) + 1:]
-                cls = (tail.split(":cls:", 1)[1] if ":cls:" in tail
-                       else SLO_CLASS_STANDARD)
-                out[cls] = out.get(cls, 0) + depth
+                out[k[skip:]] = depth
         return out
+
+    def handoff_holders(self) -> dict:
+        return self._holders(self._hlease_prefix)
+
+    def failover_handoffs(self, worker_id: str) -> list[HandoffRecord]:
+        routed = [HandoffRecord.from_json(p) for p in self._drain_list(
+            f"{self._handoff_key}:{worker_id}")]
+        held = [HandoffRecord.from_json(e["rec"])
+                for e in self._claim_all(self._hlease_prefix, worker_id)]
+        return self._failed_over_handoffs(worker_id, routed, held)
+
+    # -- depths and the DLQ ----------------------------------------------------------
 
     def queue_depths_by_class(self) -> dict:
         out = {c: int(self._r.llen(self._class_key(c))) for c in SLO_CLASSES}
-        for cls, depth in self._routed_depths_by_class().items():
+        for _wid, cls, depth in self._routed_scan():
             out[cls] = out.get(cls, 0) + depth
         return out
 
@@ -826,6 +1303,7 @@ class RedisBroker(Broker):
         """Terminal response == ack: the request or handoff lease is
         deleted, then the answer goes to ``squeue:{id}`` for ten
         minutes."""
+        self._record_respond(resp)
         self._r.delete(self._lease_key(resp.id))
         self._r.delete(self._hlease_key(resp.id))
         key = f"{self._prefix}:{resp.id}"

@@ -50,10 +50,19 @@ Roles (``ContinuousWorker(role=)``):
   failed back to the broker, which prefills its request again.
 
 Both workers stamp ``last_progress_ts`` (the supervisor's watchdog and
-heartbeat read it) and renew the leases they hold every group;
-``ContinuousWorker.load_snapshot`` gives its host-side occupancy (with the
-store's ``kv_tiers``). The fleet registry and routed handoffs, tracing and
-device telemetry wait for later slices.
+heartbeat read it) and renew the leases they hold every group.
+
+The fleet (serve/fleet.py): a worker given a ``worker_id`` registers in the
+broker's registry with its capabilities (``worker_capabilities``) and
+publishes its ``load_snapshot`` every ``snapshot_interval_s`` (host-side
+occupancy, pool headroom, resident prefix hashes, the store's
+``kv_tiers``, ``heartbeat_ts`` / ``heartbeat_s`` for
+``producer.evaluate_worker_health`` and the flight recorder's snapshot);
+it pops its routed queue before the shared one, and a prefill-role worker
+routes each record to the decode replica ``pick_decode_worker`` chooses
+(the shared handoff queue when none is registered), while a decode-role
+worker pops its routed records first. The windowed series and device
+telemetry of the reference's heartbeat wait for the telemetry slice.
 
 ``main`` (``llmss-torch-consumer``) serves a checkpoint from a Redis
 broker on one GPU, optionally under the ``Supervisor``; there is no
@@ -71,7 +80,7 @@ from llmss_tpu_torch.engine.engine import DecodeEngine, GenerationParams
 from llmss_tpu_torch.engine.scheduler import ContinuousBatcher
 from llmss_tpu_torch.serve.broker import Broker
 from llmss_tpu_torch.serve.handoff import (
-    HandoffRecord, decode_blocks, encode_blocks,
+    HandoffRecord, decode_blocks, encode_blocks, pick_decode_worker,
 )
 from llmss_tpu_torch.serve.kvstore import (
     HostKVStore, RedisBlobStore, TieredKVStore, prefix_from_blocks,
@@ -80,11 +89,71 @@ from llmss_tpu_torch.serve.protocol import (
     SLO_CLASS_RANK, STATE_DRAINING, STATE_READY, GenerateRequest,
     GenerateResponse, prefix_hash,
 )
+from llmss_tpu_torch.utils import trace
 
 # How long an idle worker blocks on the queue before it looks again.
 POLL_TIMEOUT_S = 0.2
 
 logger = logging.getLogger("llmss_tpu_torch.serve")
+
+
+def worker_capabilities(worker_id: str, engine, role: str = "unified") -> dict:
+    """The registration payload (consumer.py:47): identity, role and what
+    the replica serves; an engine stand-in without these attributes gives
+    its class name and Nones."""
+    cfg = getattr(engine, "cfg", None)
+    return {
+        "worker_id": worker_id,
+        "role": role,
+        "model": getattr(cfg, "model_type", None) or type(engine).__name__,
+        "kv_layout": getattr(engine, "kv_layout", None),
+        "kv_blocks": getattr(engine, "kv_blocks", None),
+        "max_seq_len": getattr(engine, "max_seq_len", None),
+    }
+
+
+class _FleetMember:
+    """Registration, load heartbeats and routed pops, shared by both
+    workers (consumer.py:132-198, :514-598). Without a ``worker_id`` a
+    worker stays out of the registry and pops the shared queue only."""
+
+    worker_id: str | None = None
+    snapshot_interval_s = 1.0
+    _last_snapshot_t = 0.0
+
+    def _heartbeat(self) -> dict:
+        """The stamps ``evaluate_worker_health`` judges (``heartbeat_ts`` on
+        the wall clock: another process reads its age) and the flight
+        recorder's snapshot."""
+        return {
+            "heartbeat_s": self.snapshot_interval_s,
+            "heartbeat_ts": time.time(),
+            **({"trace": trace.recorder().export(max_events=256)}
+               if trace.enabled() else {}),
+        }
+
+    def register(self) -> None:
+        """(Re-)announce this worker; safe to call again after its entry
+        aged out of the registry."""
+        self.broker.register_worker(
+            worker_capabilities(self.worker_id, self.engine, self.role))
+        self._publish_load()
+
+    def _publish_load(self) -> None:
+        if self.worker_id is not None:
+            self._last_snapshot_t = time.monotonic()
+            self.broker.publish_worker_load(self.worker_id,
+                                            self.load_snapshot())
+
+    def _maybe_publish_load(self) -> None:
+        if (self.worker_id is not None
+                and time.monotonic() - self._last_snapshot_t
+                >= self.snapshot_interval_s):
+            self._publish_load()
+
+    def _pop(self, timeout: float = 0.0) -> GenerateRequest | None:
+        return self.broker.pop_request(timeout=timeout,
+                                       worker_id=self.worker_id)
 
 
 def encode_request(tokenizer, req: GenerateRequest) -> list[int]:
@@ -108,7 +177,9 @@ def gen_params_from(tokenizer, req: GenerateRequest) -> GenerationParams:
     )
 
 
-class Worker:
+class Worker(_FleetMember):
+    role = "unified"  # a batch worker prefills and decodes
+
     def __init__(
         self,
         engine: DecodeEngine,
@@ -116,6 +187,9 @@ class Worker:
         tokenizer=None,
         batch_size: int = 8,
         chunk_steps: int = 8,
+        poll_timeout_s: float = POLL_TIMEOUT_S,
+        worker_id: str | None = None,
+        snapshot_interval_s: float = 1.0,
     ):
         self.engine = engine
         self.broker = broker
@@ -123,6 +197,11 @@ class Worker:
         self.batch_size = batch_size
         # Decode steps per host round-trip (engine.generate chunking).
         self.chunk_steps = chunk_steps
+        # How long run_once blocks for a first request.
+        self.poll_timeout_s = poll_timeout_s
+        self.worker_id = worker_id
+        self.snapshot_interval_s = snapshot_interval_s
+        self._inflight_rows = 0
         # Once draining, run_once leases nothing; the batch worker holds
         # requests only inside run_once, so it is drained at once.
         self.draining = False
@@ -130,6 +209,24 @@ class Worker:
         # decode chunk, so a long batch keeps the heartbeat fresh); 0.0
         # until the first batch.
         self.last_progress_ts = 0.0
+        if worker_id is not None:
+            self.register()
+
+    def load_snapshot(self) -> dict:
+        """The registry heartbeat (consumer.py:139): host counters only."""
+        return {
+            "role": self.role,
+            "state": STATE_DRAINING if self.draining else STATE_READY,
+            "alive": True,
+            "rows": self.batch_size,
+            "inflight_rows": self._inflight_rows,
+            "free_slots": self.batch_size - self._inflight_rows,
+            "queue_depth": 0,  # nothing is held between batches
+            "free_kv_blocks": None,
+            "kv_blocks_total": None,
+            "prefix_hashes": [],
+            **self._heartbeat(),
+        }
 
     def begin_drain(self) -> None:
         self.draining = True
@@ -140,12 +237,12 @@ class Worker:
 
     def _gather(self) -> list[GenerateRequest]:
         """Block briefly for one request, then drain up to batch_size."""
-        first = self.broker.pop_request(timeout=POLL_TIMEOUT_S)
+        first = self._pop(timeout=self.poll_timeout_s)
         if first is None:
             return []
         batch = [first]
         while len(batch) < self.batch_size:
-            nxt = self.broker.pop_request()
+            nxt = self._pop()
             if nxt is None:
                 break
             batch.append(nxt)
@@ -153,6 +250,7 @@ class Worker:
 
     def run_once(self) -> int:
         """Serve one batch; returns the number of requests taken."""
+        self._maybe_publish_load()
         if self.draining:
             return 0
         batch = self._gather()
@@ -202,6 +300,7 @@ class Worker:
         def cancel_poll():
             self.last_progress_ts = time.monotonic()
             self.broker.publish_metrics(metrics.to_dict())
+            self._maybe_publish_load()
             self.broker.touch_requests([r.id for r in ok])
             hits = self.broker.check_cancelled(
                 [r.id for r in ok if r.id not in mid_cancelled]
@@ -216,6 +315,8 @@ class Worker:
                 self.broker.push_stream(ok[row].id, new_toks)
 
         poisoned_rows: set[int] = set()
+        self._inflight_rows = n_live
+        t_batch = time.monotonic()
         try:
             outs = self.engine.generate(
                 prompts, gens, cancel_poll=cancel_poll,
@@ -233,7 +334,12 @@ class Worker:
             return len(batch)
         finally:
             self.last_progress_ts = time.monotonic()
+            self._inflight_rows = 0
 
+        dur_batch = time.monotonic() - t_batch
+        for req in ok:
+            trace.record(req.id, "decode", trace_id=req.trace_id,
+                         dur_s=dur_batch, worker=self.worker_id, batch=n_live)
         for row, (req, toks) in enumerate(zip(ok, outs)):
             if req.resume_tokens:
                 toks = list(req.resume_tokens) + toks
@@ -271,9 +377,10 @@ class Worker:
 ROLES = ("unified", "prefill", "decode")
 
 
-class ContinuousWorker:
+class ContinuousWorker(_FleetMember):
     """Serving loop over the continuous batcher: requests join the running
-    batch at group granularity (module docstring: the roles)."""
+    batch at group granularity (module docstring: the roles and the
+    fleet)."""
 
     def __init__(
         self,
@@ -287,6 +394,8 @@ class ContinuousWorker:
         role: str = "unified",
         poll_timeout_s: float = POLL_TIMEOUT_S,
         kvstore=None,
+        worker_id: str | None = None,
+        snapshot_interval_s: float = 1.0,
     ):
         if role not in ROLES:
             raise ValueError(f"unknown worker role: {role!r}")
@@ -331,13 +440,19 @@ class ContinuousWorker:
         # tokens, least recently used first.
         self._prefixes: dict[tuple, object] = {}
         self.max_prefixes = 4
+        # The fleet identity: None keeps the worker out of the registry.
+        self.worker_id = worker_id
+        self.snapshot_interval_s = snapshot_interval_s
+        if worker_id is not None:
+            self.register()
 
     def load_snapshot(self) -> dict:
         """The batcher's host-side occupancy and pool headroom with the
         lifecycle state and the hashes of the prefixes held by either
-        layer, the batcher's pool and this worker's LRU, and the store's
-        ``kv_tiers`` (consumer.py:522, without the trace and telemetry
-        blobs); touches no device tensor."""
+        layer, the batcher's pool and this worker's LRU, the store's
+        ``kv_tiers``, the heartbeat stamps and the recorder's snapshot
+        (consumer.py:522, without the windowed series and device
+        telemetry); touches no device tensor."""
         snap = self.batcher.load_snapshot()
         hashes = set(snap.get("prefix_hashes") or [])
         hashes.update(prefix_hash(k) for k in self._prefixes)
@@ -350,6 +465,7 @@ class ContinuousWorker:
             "prefix_hashes": sorted(hashes),
             **({"kv_tiers": self.kvstore.stats()}
                if self.kvstore is not None else {}),
+            **self._heartbeat(),
         })
         return snap
 
@@ -414,7 +530,7 @@ class ContinuousWorker:
         for the first one when idle); answer the ones that cannot run."""
         n = 0
         while True:
-            req = self.broker.pop_request(
+            req = self._pop(
                 timeout=self.poll_timeout_s if self.batcher.idle and n == 0
                 else 0.0
             )
@@ -522,20 +638,28 @@ class ContinuousWorker:
     def _on_export(self, rid: str, first: int, n_tokens: int,
                    blocks: dict) -> None:
         """Prefill role: encode a row's exported blocks and push the record
-        on the shared handoff queue (consumer.py:764; no registry, so no
-        routing). ``push_handoff`` queues the record before it settles the
-        request's lease: a failure in between prefills again, never loses
-        the request."""
+        to the decode replica ``pick_decode_worker`` chooses, or on the
+        shared handoff queue when none is registered (consumer.py:764).
+        The push queues the record before it settles the request's lease:
+        a failure in between prefills again, never loses the request."""
         req = self._reqs.pop(rid, None)
         if req is None:
             self.broker.push_response(
                 GenerateResponse(id=rid, error="exported request lost"))
             return
-        payload = encode_blocks(blocks, req_id=rid, n_tokens=n_tokens,
-                                block_size=self.engine.block_size,
-                                trace_id=req.trace_id)
-        self.broker.push_handoff(HandoffRecord(
-            req=req, first_token=first, n_tokens=n_tokens, payload=payload))
+        with trace.span(rid, "kv_export", trace_id=req.trace_id,
+                        worker=self.worker_id, n_tokens=n_tokens):
+            payload = encode_blocks(blocks, req_id=rid, n_tokens=n_tokens,
+                                    block_size=self.engine.block_size,
+                                    trace_id=req.trace_id)
+        rec = HandoffRecord(req=req, first_token=first, n_tokens=n_tokens,
+                            payload=payload)
+        target = pick_decode_worker(self.broker.read_workers(),
+                                    self.broker.handoff_depths())
+        if target is None:
+            self.broker.push_handoff(rec)
+        else:
+            self.broker.push_handoff_to(target, rec)
 
     def _try_adopt(self, rec: HandoffRecord) -> bool:
         """Decode role: install one record into a free row. False only when
@@ -587,7 +711,7 @@ class ContinuousWorker:
         while not self._adopt_backlog:
             rec = self.broker.pop_handoff(
                 timeout=self.poll_timeout_s if self.batcher.idle and n == 0
-                else 0.0)
+                else 0.0, worker_id=self.worker_id)
             if rec is None:
                 break
             if self._try_adopt(rec):
@@ -646,6 +770,7 @@ class ContinuousWorker:
                 live + [r.req.id for r in self._adopt_backlog])
         for rid in self.broker.check_cancelled(live):
             self.batcher.cancel(rid)
+        self._maybe_publish_load()
         if self.role == "decode":
             # Draining still adopts the backlog: its leases are held here.
             n = self._drain_handoffs(backlog_only=self.draining)
@@ -667,8 +792,6 @@ class ContinuousWorker:
 # value each may keep here, and what the port lacks for the others.
 _ONE_GPU = "the port serves one model on one GPU"
 _LATER_FLAGS = {
-    "worker_id": (None, "a fleet identity needs the worker registry and "
-                        "routed queues"),
     "tp": (1, _ONE_GPU),
     "dp": (1, _ONE_GPU),
     "sp": (1, _ONE_GPU),
@@ -727,8 +850,15 @@ def _parser():
                         help="continuous only: a tiered KV store with this "
                              "much host RAM (T1) over the broker's Redis (T2): "
                              "evicted prefixes demote, session turns park")
+    parser.add_argument("--worker_id", default=None,
+                        help="fleet identity (no ':'): register in the "
+                             "broker's worker registry, publish load "
+                             "snapshots, and serve this worker's routed "
+                             "queue before the shared one")
+    parser.add_argument("--snapshot_interval_s", type=float, default=1.0,
+                        help="load-snapshot cadence with --worker_id "
+                             "(routers judge a worker stale after 3x this)")
     # Accepted so that the refusal names what is missing.
-    parser.add_argument("--worker_id", default=None)
     parser.add_argument("--tp", type=int, default=None)
     parser.add_argument("--dp", type=int, default=None)
     parser.add_argument("--sp", type=int, default=None)
@@ -756,6 +886,8 @@ def main(argv=None):
             parser.error(f"--{flag} requires --kv_layout paged")
     if args.kv_tier_host_mb is not None and not args.continuous:
         parser.error("--kv_tier_host_mb requires --continuous")
+    if args.worker_id is not None and ":" in args.worker_id:
+        parser.error("--worker_id must not contain ':'")
 
     from llmss_tpu_torch.models.registry import load_model
     from llmss_tpu_torch.serve.broker import RedisBroker
@@ -769,7 +901,10 @@ def main(argv=None):
     )
     broker = RedisBroker(args.redis_host, args.redis_port,
                          lease_s=args.lease_s,
-                         max_delivery_attempts=args.max_delivery_attempts)
+                         max_delivery_attempts=args.max_delivery_attempts,
+                         # The fleet id is the lease identity: routed
+                         # queues, leases and failover name one worker.
+                         worker_id=args.worker_id)
     kvstore = None
     if args.kv_tier_host_mb is not None:
         # The broker's client carries T2; the ":kv:" key segment keeps the
@@ -784,11 +919,13 @@ def main(argv=None):
                 engine, broker, rows=args.batch_size,
                 chunk_steps=args.chunk_steps, group_chunks=args.group_chunks,
                 chunked_prefill=args.chunked_prefill, role=args.role,
-                kvstore=kvstore,
+                kvstore=kvstore, worker_id=args.worker_id,
+                snapshot_interval_s=args.snapshot_interval_s,
             )
         else:
             w = Worker(engine, broker, batch_size=args.batch_size,
-                       chunk_steps=args.chunk_steps)
+                       chunk_steps=args.chunk_steps, worker_id=args.worker_id,
+                       snapshot_interval_s=args.snapshot_interval_s)
         t0 = time.monotonic()
         n = w.prewarm()
         logger.info("prewarmed %d programs in %.1fs", n, time.monotonic() - t0)
@@ -807,14 +944,21 @@ def main(argv=None):
                          step_timeout_s=args.step_timeout_s,
                          drain_timeout_s=args.drain_timeout_s)
 
+        sigterms = [0]
+
         def on_sigterm(signum, frame):
+            # The first SIGTERM drains, unless this is the last routable
+            # replica of its role; the next one forces the teardown.
             if sup.draining:
                 logger.warning("SIGTERM again: ending the drain now")
-                sup.drain(timeout_s=0.0)
-            else:
+                sup.drain(timeout_s=0.0, force=True)
+            elif sup.drain(force=sigterms[0] > 0):
                 logger.info("SIGTERM: draining (deadline %.0fs)",
                             args.drain_timeout_s)
-                sup.drain()
+            else:
+                logger.warning("SIGTERM: drain blocked (last routable "
+                               "replica); send SIGTERM again to force it")
+            sigterms[0] += 1
 
         previous = signal.signal(signal.SIGTERM, on_sigterm)
         try:

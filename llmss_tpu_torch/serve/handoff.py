@@ -19,12 +19,14 @@ on the wire as its raw bytes under the dtype name ``"bfloat16"`` and comes
 back as a ``torch.bfloat16`` tensor over the payload's bytes. Payloads are
 host torch tensors, or numpy arrays of the other dtypes.
 
-The port has no worker registry yet: ``pick_decode_worker`` is the
-reference's pure function, and the consumer pushes every record to the
-shared handoff queue, which any decode worker drains (what the reference
-does when no decode worker is registered). The reference's model-free role
-loops (``PrefillWorker`` / ``DecodeWorker``, driven by its chaos harness)
-wait for the fleet slice.
+``pick_decode_worker`` chooses the registered decode replica a prefill
+worker routes a record to (``push_handoff_to``); with none registered the
+record goes to the shared handoff queue, which any decode worker drains.
+``PrefillWorker`` and ``DecodeWorker`` are the reference's model-free role
+loops over an engine's ``prefill_export`` / ``adopt_generate`` protocol
+(serve/chaos.py's ``ScriptedEngine`` has it), registered in the fleet, as
+the chaos harness drives them; the served roles are
+``ContinuousWorker(role=...)`` (serve/consumer.py).
 """
 
 from __future__ import annotations
@@ -33,13 +35,18 @@ import base64
 import dataclasses
 import json
 import struct
+import time
+import uuid
 import warnings
 import zlib
 
 import numpy as np
 import torch
 
-from llmss_tpu_torch.serve.protocol import STATE_READY, GenerateRequest
+from llmss_tpu_torch.serve.protocol import (
+    STATE_READY, GenerateRequest, GenerateResponse,
+)
+from llmss_tpu_torch.utils import trace
 
 # Wire magic and version: decoders refuse any other version.
 _MAGIC = b"LKVH"
@@ -209,3 +216,151 @@ def pick_decode_worker(workers: dict,
         if best_key is None or key < best_key:
             best, best_key = wid, key
     return best
+
+
+class _RoleWorkerBase:
+    """The role loops' registration and heartbeat (handoff.py:246)."""
+
+    role = "unified"
+
+    def __init__(self, engine, broker, *, worker_id: str | None = None,
+                 poll_timeout_s: float = 0.02,
+                 snapshot_interval_s: float = 1.0):
+        self.engine = engine
+        self.broker = broker
+        self.worker_id = worker_id or uuid.uuid4().hex[:8]
+        self.poll_timeout_s = poll_timeout_s
+        self.snapshot_interval_s = snapshot_interval_s
+        self._last_snapshot = 0.0  # monotonic
+        self._trace_blob: dict | None = None
+        self._last_trace_pub = 0.0  # monotonic
+        self._inflight = 0
+        broker.register_worker({
+            "worker_id": self.worker_id,
+            "role": self.role,
+            "model": getattr(engine, "model_name", "scripted"),
+            "max_seq_len": getattr(engine, "max_seq_len", None),
+        })
+        self._publish(force=True)
+
+    def _publish(self, force: bool = False) -> None:
+        now = time.monotonic()
+        if not force and now - self._last_snapshot < self.snapshot_interval_s:
+            return
+        self._last_snapshot = now
+        self.broker.publish_worker_load(self.worker_id, {
+            "worker_id": self.worker_id,
+            "role": self.role,
+            "state": STATE_READY,
+            "inflight_rows": self._inflight,
+            "free_slots": 1 - self._inflight,
+            "queue_depth": 0,
+            # Wall clock: readers in other processes judge its age.
+            "heartbeat_ts": time.time(),
+            "heartbeat_interval_s": self.snapshot_interval_s,
+            # The recorder's snapshot, exported at heartbeat cadence and
+            # re-attached by the forced per-request publishes.
+            **({"trace": self._trace_export(now)} if trace.enabled() else {}),
+        })
+
+    def _trace_export(self, now: float) -> dict:
+        if (self._trace_blob is None
+                or now - self._last_trace_pub >= self.snapshot_interval_s):
+            self._last_trace_pub = now
+            self._trace_blob = trace.recorder().export(max_events=256)
+        return self._trace_blob
+
+
+class PrefillWorker(_RoleWorkerBase):
+    """The model-free prefill loop (handoff.py:312) over the engine
+    protocol ``prefill_export(token_ids, max_new_tokens) -> (first token,
+    payload)``: pops a request, exports, and pushes the record to the
+    least-loaded registered decode replica (or the shared handoff queue);
+    a request of at most one new token is answered here.
+
+    ``on_exported(record)`` runs after the export and before the push: a
+    ``HardKill`` raised there leaves the request's lease open, so the
+    request is prefilled again elsewhere, never lost."""
+
+    role = "prefill"
+
+    def __init__(self, engine, broker, *, on_exported=None, **kw):
+        self.on_exported = on_exported
+        super().__init__(engine, broker, **kw)
+
+    def run_once(self) -> int:
+        self._publish()
+        req = self.broker.pop_request(timeout=self.poll_timeout_s,
+                                      worker_id=self.worker_id)
+        if req is None:
+            return 0
+        self._inflight = 1
+        self._publish(force=True)
+        try:
+            try:
+                with trace.span(req.id, "prefill", trace_id=req.trace_id,
+                                worker=self.worker_id,
+                                n_tokens=len(req.token_ids or [])):
+                    first, payload = self.engine.prefill_export(
+                        list(req.token_ids or []), req.max_new_tokens)
+            except Exception as e:  # noqa: BLE001 — the worker must answer
+                self.broker.push_response(GenerateResponse(
+                    id=req.id, error=f"prefill failed: {e}"))
+                return 1
+            if req.max_new_tokens <= 1:
+                self.broker.push_response(GenerateResponse(
+                    id=req.id, token_ids=[first] if req.max_new_tokens else []))
+                return 1
+            rec = HandoffRecord(req=req, first_token=first,
+                                n_tokens=len(req.token_ids or []),
+                                payload=payload)
+            if self.on_exported is not None:
+                self.on_exported(rec)  # the chaos hook: may HardKill
+            target = pick_decode_worker(self.broker.read_workers(),
+                                        self.broker.handoff_depths())
+            if target is not None:
+                self.broker.push_handoff_to(target, rec)
+            else:
+                self.broker.push_handoff(rec)
+            return 1
+        finally:
+            self._inflight = 0
+            self._publish(force=True)
+
+
+class DecodeWorker(_RoleWorkerBase):
+    """The model-free decode loop (handoff.py:384) over the engine protocol
+    ``adopt_generate(payload, max_new_tokens, first_token, n_tokens,
+    on_increment=) -> tokens``: leases a record (its own routed ones
+    first), renews the lease at every increment, and answers; a record it
+    cannot adopt goes back through ``fail_handoff``."""
+
+    role = "decode"
+
+    def run_once(self) -> int:
+        self._publish()
+        rec = self.broker.pop_handoff(timeout=self.poll_timeout_s,
+                                      worker_id=self.worker_id)
+        if rec is None:
+            return 0
+        self._inflight = 1
+        self._publish(force=True)
+        rid = rec.req.id
+        try:
+            try:
+                with trace.span(rid, "decode", trace_id=rec.req.trace_id,
+                                worker=self.worker_id,
+                                max_new_tokens=rec.req.max_new_tokens):
+                    toks = self.engine.adopt_generate(
+                        rec.payload, rec.req.max_new_tokens, rec.first_token,
+                        rec.n_tokens,
+                        on_increment=lambda: self.broker.touch_handoffs([rid]))
+            except Exception as e:  # noqa: BLE001 — dispose, do not die
+                self.broker.fail_handoff(rec, error=str(e))
+                return 1
+            self.broker.push_response(GenerateResponse(id=rid,
+                                                       token_ids=list(toks)))
+            return 1
+        finally:
+            self._inflight = 0
+            self._publish(force=True)

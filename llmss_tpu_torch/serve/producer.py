@@ -13,18 +13,29 @@ server:
   answers with server-sent events: one ``data:`` event per token increment,
   then ``event: done`` with the response.
 - ``POST /cancel`` ``{"id": ...}``: sets the request's cancellation flag.
-- ``GET /health``: ``evaluate_worker_health`` over the supervisor block
+- ``GET /health``: with workers in the broker's registry, the fleet's
+  health (``evaluate_fleet_health``: 200 while at least one replica is
+  routable); without, ``evaluate_worker_health`` over the supervisor block
   of the metrics channel: 503 when the worker drains, is dead, is not
   alive, or its progress-based heartbeat is older than 3 x ``heartbeat_s``.
+  Admission sheds on the same verdict.
 - ``GET /metrics``: the workers' published metrics with the broker's
-  ``delivery`` block and queue depths by class, as JSON or, with
-  ``?format=prometheus``, as Prometheus text.
+  ``delivery`` block, queue depths by class and, once a fleet exists, the
+  ``fleet`` block (per-worker load, routed and handoff depths, the
+  router's counters), as JSON or, with ``?format=prometheus``, as
+  Prometheus text.
+- ``GET /fleet``: each registered worker's entry, health and queues, and
+  the router's counters (serve/fleet.py ``fleet_status``).
 - ``GET /dlq``: the dead-letter queue's depth and newest entries.
 
-Left for later slices: routing over a fleet, the brownout ladder (with
-the SLO plane; with no traffic the reference's ladder admits everything,
-as here), the trace, SLO, device-telemetry and profiling endpoints, and
-the optional FastAPI app.
+``ProducerServer(router=)`` places each admitted request through the
+router's policy (serve/fleet.py) instead of the shared queue.
+
+Left for later slices: the brownout ladder's wiring into admission and
+its ``/fleet`` block (with the SLO plane; with no traffic the reference's
+ladder admits everything, as here), the controller's ``/fleet`` block,
+the trace, SLO, time-series, device-telemetry and profiling endpoints,
+and the optional FastAPI app.
 """
 
 from __future__ import annotations
@@ -40,7 +51,7 @@ from urllib.parse import parse_qs, urlsplit
 
 from llmss_tpu_torch.serve.broker import Broker
 from llmss_tpu_torch.serve.protocol import (
-    SLO_CLASS_BATCH, STATE_DEAD, STATE_DRAINING, GenerateRequest,
+    SLO_CLASS_BATCH, STATE_DEAD, STATE_DRAINING, STATE_READY, GenerateRequest,
 )
 from llmss_tpu_torch.utils.metrics import render_prometheus
 
@@ -149,6 +160,24 @@ def evaluate_worker_health(
     return 200, {"status": "ok", **body}, True
 
 
+def evaluate_fleet_health(workers: dict,
+                          stale_factor: float = 3.0) -> tuple[int, dict]:
+    """/health over the registry (producer.py:343): 200 while at least one
+    replica is routable (``evaluate_worker_health`` 200 and ``ready``), so
+    one draining or dead replica does not fail the front end; each
+    worker's verdict rides along."""
+    per = {}
+    ready = 0
+    for wid, info in sorted(workers.items()):
+        code, body, _ = evaluate_worker_health(info, True, stale_factor)
+        routable = code == 200 and info.get("state", STATE_READY) == STATE_READY
+        ready += int(routable)
+        per[wid] = {"routable": routable, **body}
+    if ready:
+        return 200, {"status": "ok", "ready": ready, "workers": per}
+    return 503, {"status": "no-ready-workers", "ready": 0, "workers": per}
+
+
 class ProducerServer:
     # A worker is unhealthy after this many missed heartbeat intervals.
     HEARTBEAT_STALE_FACTOR = 3.0
@@ -159,8 +188,11 @@ class ProducerServer:
 
     def __init__(self, broker: Broker, host: str = "0.0.0.0",
                  port: int = 8000, timeout_s: float = 300.0,
-                 max_queue_depth: int = 1024):
+                 max_queue_depth: int = 1024, router=None):
         self.broker = broker
+        # A serve.fleet.Router places each request by policy; None: the
+        # shared queue.
+        self.router = router
         self.drain_estimator = QueueDrainEstimator()
         self.timeout_s = timeout_s
         self.max_queue_depth = max_queue_depth
@@ -208,6 +240,8 @@ class ProducerServer:
                                    _PROM_CONTENT_TYPE)
                     else:
                         self._reply(200, payload)
+                elif path == "/fleet":
+                    self._reply(200, outer.fleet())
                 elif path == "/dlq":
                     self._reply(200, {"depth": outer.broker.dlq_depth(),
                                       "requests": outer.broker.read_dlq()})
@@ -315,35 +349,90 @@ class ProducerServer:
         return Handler
 
     def submit(self, req: GenerateRequest) -> None:
-        self.broker.push_request(req)
+        """Place an admitted request: by the router's policy, else on the
+        shared queue."""
+        if self.router is not None:
+            self.router.submit(req)
+        else:
+            self.broker.push_request(req)
         self.drain_estimator.note_admitted(self.broker.queue_depth())
 
     def health(self) -> tuple[int, dict]:
+        """The fleet's health when workers are registered, else the
+        supervisor block's."""
+        workers = self.broker.read_workers()
+        if workers:
+            return evaluate_fleet_health(workers, self.HEARTBEAT_STALE_FACTOR)
         sup = self.broker.read_metrics().get("supervisor")
         code, body, self._saw_supervisor = evaluate_worker_health(
             sup, self._saw_supervisor, self.HEARTBEAT_STALE_FACTOR)
         return code, body
 
+    def fleet(self) -> dict:
+        """GET /fleet: ``fleet_status`` with the router's counters."""
+        from llmss_tpu_torch.serve.fleet import fleet_status
+
+        return fleet_status(self.broker, self.router,
+                            self.HEARTBEAT_STALE_FACTOR)
+
     def metrics_payload(self) -> dict:
         """The GET /metrics payload (JSON, and the Prometheus rendering's
         input)."""
-        return {
+        payload = {
             **self.broker.read_metrics(),
             "delivery": self.broker.delivery_stats(),
             "queue_depths_by_class": self.broker.queue_depths_by_class(),
         }
+        fleet = self.fleet_metrics()
+        if fleet is not None:
+            payload["fleet"] = fleet
+        return payload
+
+    def fleet_metrics(self) -> dict | None:
+        """The /metrics ``fleet`` block (producer.py:794): each worker's
+        load, the routed and handoff depths, the router's counters and the
+        summed ``kv_tiers``; None without a registry or a router, so a
+        fleet-less payload is unchanged."""
+        from llmss_tpu_torch.serve.fleet import aggregate_kv_tiers
+
+        workers = self.broker.read_workers()
+        if not workers and self.router is None:
+            return None
+        keys = ("role", "state", "inflight_rows", "queue_depth",
+                "free_kv_blocks", "free_slots", "kv_blocks_total")
+        out: dict = {
+            "workers": {wid: {k: info.get(k) for k in keys}
+                        for wid, info in sorted(workers.items())},
+            "routed_depths": self.broker.routed_depths(),
+            "handoff_depth": self.broker.handoff_depth(),
+            "handoff_depths": self.broker.handoff_depths(),
+        }
+        if self.router is not None:
+            out["router"] = self.router.stats()
+        tiers = aggregate_kv_tiers(info.get("kv_tiers")
+                                   for info in workers.values())
+        if tiers:
+            out["kv_tiers"] = tiers
+        return out
 
     def worker_unavailable(self) -> str | None:
-        """``draining`` or ``dead`` when the published supervisor state says
-        no new work may be admitted, else None; memoized for
-        ``STATE_MEMO_S``."""
+        """A reason to shed new work, else None; memoized for
+        ``STATE_MEMO_S``. With a registry: no routable replica; without:
+        the supervisor block's ``draining`` or ``dead``."""
         now = time.monotonic()
         if now < self._state_memo_until:
             return self._state_memo
-        sup = self.broker.read_metrics().get("supervisor")
-        state = sup.get("state") if isinstance(sup, dict) else None
-        self._state_memo = (state if state in (STATE_DRAINING, STATE_DEAD)
-                            else None)
+        workers = self.broker.read_workers()
+        if workers:
+            code, _body = evaluate_fleet_health(workers,
+                                                self.HEARTBEAT_STALE_FACTOR)
+            self._state_memo = (None if code == 200
+                                else "unavailable (no ready replica)")
+        else:
+            sup = self.broker.read_metrics().get("supervisor")
+            state = sup.get("state") if isinstance(sup, dict) else None
+            self._state_memo = (state if state in (STATE_DRAINING, STATE_DEAD)
+                                else None)
         self._state_memo_until = now + self.STATE_MEMO_S
         return self._state_memo
 
@@ -382,14 +471,26 @@ def main(argv=None):
     parser.add_argument("--max_queue_depth", type=int, default=1024,
                         help="shed with 429 once the broker backlog reaches "
                              "this depth (0 disables)")
+    parser.add_argument("--policy", default=None,
+                        choices=[None, "round_robin", "least_loaded",
+                                 "prefix_affinity"],
+                        help="fleet routing policy: place requests on the "
+                             "registered workers' routed queues (workers run "
+                             "with --worker_id); omit for the shared queue")
     args = parser.parse_args(argv)
 
     from llmss_tpu_torch.serve.broker import RedisBroker
 
     broker = RedisBroker(args.redis_host, args.redis_port)
+    router = None
+    if args.policy:
+        from llmss_tpu_torch.serve.fleet import Router
+
+        router = Router(broker, args.policy)
     server = ProducerServer(broker, args.host, args.port,
                             timeout_s=args.timeout_s,
-                            max_queue_depth=args.max_queue_depth)
+                            max_queue_depth=args.max_queue_depth,
+                            router=router)
     print(f"producer listening on {args.host}:{server.port}", flush=True)
     server.serve_forever()
 

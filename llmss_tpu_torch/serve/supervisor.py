@@ -6,12 +6,16 @@ The supervisor owns the worker's loop (it calls ``worker.run_once()``) and:
 - publishes the lifecycle state (``starting -> ready -> draining ->
   dead``) and a heartbeat through the broker's metrics channel, merged
   into every publish (``broker.metrics_extra``), with the worker's load
-  snapshot beside it (``worker``: the fleet registry that carries it in
-  the reference is left for a later slice);
+  snapshot beside it (``worker``); a worker with a fleet identity also
+  gets its registry entry published with the supervisor's lifecycle view
+  stamped over its snapshot (``_publish_worker_load``), so routers see it
+  ``starting``, ``draining`` or ``dead`` and fail it over at once;
 - drains on ``drain()`` (SIGTERM in ``consumer.main``): the worker stops
   leasing, its active rows finish and ack, and the loop exits; past the
   deadline never-started requests go back to the broker and active rows
-  are aborted with an error;
+  are aborted with an error. A drain that would leave the fleet without a
+  routable replica of the worker's role is refused (``drain_blocked`` on
+  its registry entry) unless forced;
 - runs a watchdog thread that raises ``WatchdogTimeout`` into a loop that
   has made no progress for ``step_timeout_s``. The clock starts at the
   worker's first progress stamp (``last_progress_ts``, stamped after each
@@ -27,9 +31,6 @@ The supervisor owns the worker's loop (it calls ``worker.run_once()``) and:
   a stable run;
 - bounds restarts by ``max_restarts`` over a sliding window: the count
   resets after each stable run, so it bounds crash density.
-
-Left out: the reference's last-routable-replica drain guard (its
-``drain_blocked`` advisory), which needs the fleet registry.
 """
 
 from __future__ import annotations
@@ -132,7 +133,8 @@ class Supervisor:
         out = {"supervisor": self._status()}
         snap = getattr(self._worker, "load_snapshot", None)
         if snap is not None:
-            out["worker"] = snap()
+            # The recorder's snapshot rides the registry, not the metrics.
+            out["worker"] = {k: v for k, v in snap().items() if k != "trace"}
         return out
 
     def _publish(self, worker) -> None:
@@ -142,6 +144,38 @@ class Supervisor:
             self.broker.publish_metrics(metrics)
         except Exception:  # noqa: BLE001 — broker down is not worker down
             logger.warning("metrics publish failed", exc_info=True)
+        self._publish_worker_load(worker)
+
+    def _publish_worker_load(self, worker) -> None:
+        """A fleet member's registry heartbeat (supervisor.py:165): its load
+        snapshot with the supervisor's lifecycle view stamped over it (the
+        states the worker cannot see, and the progress-based heartbeat);
+        the final ``dead`` publish lets routers fail it over without
+        waiting for staleness."""
+        wid = getattr(worker, "worker_id", None)
+        if wid is None:
+            return
+        snap = {}
+        snap_fn = getattr(worker, "load_snapshot", None)
+        if snap_fn is not None:
+            try:
+                snap = snap_fn()
+            except Exception:  # noqa: BLE001 — a heartbeat must not crash the loop
+                logger.warning("load snapshot failed", exc_info=True)
+        status = self._status()
+        snap.update({
+            "state": self.state,
+            "alive": status["alive"],
+            "restarts": status["restarts"],
+            "heartbeat_ts": status["heartbeat_ts"],
+            "heartbeat_s": min(self.heartbeat_s,
+                               float(snap.get("heartbeat_s")
+                                     or self.heartbeat_s)),
+        })
+        try:
+            self.broker.publish_worker_load(wid, snap)
+        except Exception:  # noqa: BLE001 — broker down is not worker down
+            logger.warning("worker load publish failed", exc_info=True)
 
     def _abort_inflight(self, worker, reason: str) -> None:
         """Error out every request the worker holds: a client always gets
@@ -158,15 +192,51 @@ class Supervisor:
 
     # -- drain ---------------------------------------------------------------------
 
-    def drain(self, timeout_s: float | None = None) -> None:
+    def drain(self, timeout_s: float | None = None, *,
+              force: bool = False) -> bool:
         """Begin a graceful shutdown (thread-safe; the SIGTERM handler
         calls it). Past the deadline (``timeout_s``, default
         ``drain_timeout_s``) pending requests are released and active rows
-        aborted; a later call moves the deadline."""
+        aborted; a later call moves the deadline. Refused (False) while the
+        registry shows no other routable replica of the worker's role,
+        unless ``force``; True when the drain began."""
+        if not force and self._drain_blocked_reason() is not None:
+            return False
         self._drain_deadline = time.monotonic() + (
             self.drain_timeout_s if timeout_s is None else timeout_s
         )
         self._drain.set()
+        return True
+
+    def _drain_blocked_reason(self) -> str | None:
+        """None when draining is safe, else why not (supervisor.py:239).
+        A worker without a fleet identity, or one already unroutable, has
+        nothing to guard. The reason is published as a field of the
+        worker's entry, never as a state: leaving ``ready`` would unroute
+        the worker, the outage the guard prevents."""
+        from llmss_tpu_torch.serve.fleet import routable_workers
+
+        wid = getattr(self._worker, "worker_id", None)
+        if wid is None:
+            return None
+        try:
+            routable = routable_workers(self.broker)
+        except Exception:  # noqa: BLE001 — a registry outage must not block a drain
+            return None
+        if wid not in routable:
+            return None
+        role = routable[wid].get("role", "unified")
+        if any(w != wid and info.get("role", "unified") == role
+               for w, info in routable.items()):
+            return None
+        reason = (f"last routable {role} replica: drain would take the fleet "
+                  f"to zero (use force for deliberate teardown)")
+        logger.warning("drain blocked: %s", reason)
+        try:
+            self.broker.publish_worker_load(wid, {"drain_blocked": reason})
+        except Exception:  # noqa: BLE001 — advisory only
+            logger.warning("drain_blocked publish failed", exc_info=True)
+        return reason
 
     @property
     def draining(self) -> bool:

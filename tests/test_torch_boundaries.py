@@ -228,3 +228,50 @@ def test_window_kernel_takes_cuda_tensors_only():
     meta = torch.zeros(1, 1, 16, 2, 64, device="meta")
     with pytest.raises(RuntimeError, match="must all be CUDA"):
         tatt.decode_window_attention(q, meta, meta, q, q, p0, kvp, slots, 0)
+
+
+def test_fleet_modules_leave_redis_and_fastapi_unloaded():
+    """``serve/fleet.py``, ``serve/chaos.py`` and ``utils/trace.py``,
+    imported in a fresh interpreter, load neither ``redis`` nor
+    ``fastapi``."""
+    code = ("import sys\n"
+            "import llmss_tpu_torch.serve.fleet, llmss_tpu_torch.serve.chaos\n"
+            "import llmss_tpu_torch.utils.trace\n"
+            "print('redis' in sys.modules, 'fastapi' in sys.modules)")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, timeout=120,
+                         capture_output=True, text=True)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["False", "False"], out.stdout
+
+
+def test_consumer_main_worker_id_defaults_to_gpu(no_gpu, tmp_path):
+    """``--worker_id`` is served: the fleet member is built on the GPU and
+    raises without one; a ':' in the id is refused first."""
+    from llmss_tpu_torch.serve.consumer import main
+
+    (tmp_path / "config.json").write_text('{"model_type": "llama"}')
+    argv = ["--pretrained_model_path", str(tmp_path), "--continuous",
+            "--worker_id"]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        main(argv + ["w0"])
+    with pytest.raises(SystemExit):
+        main(argv + ["w:0"])
+
+
+def test_fleet_phases_hold_their_own_audit():
+    """chip_smoke.py's fleet phases, and the helpers they call, name
+    nothing of the JAX package: their exactly-once audit is their own
+    (``_fleet_pass``), not ``llmss_tpu/sim/invariants.py``'s."""
+    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+    funcs = {n.name: n for n in tree.body if isinstance(n, ast.FunctionDef)}
+    fleet = [name for name in funcs if "fleet" in name]
+    assert {"phase_reference_fleet", "phase_serve_fleet", "_fleet_pass",
+            "_fleet_rehearsal"} <= set(fleet)
+    for name in fleet:
+        src = ast.unparse(funcs[name])
+        names = {n.id for n in ast.walk(funcs[name]) if isinstance(n, ast.Name)}
+        mods = {(n.module or "") for n in ast.walk(funcs[name])
+                if isinstance(n, ast.ImportFrom)}
+        assert not {m for m in mods if m.split(".")[0] != "llmss_tpu_torch"}, name
+        assert "invariants" not in src and "audit_exactly_once" not in names
+    assert "answered twice" in ast.unparse(funcs["_fleet_pass"])
