@@ -69,6 +69,12 @@ exits non-zero without printing a result:
               stopped after its first group and failed over: the card's
               tokens, the Router's picks and stats and each worker's
               prefix builds equal the CPU's in every pass;
+   reference_telemetry -- the telemetry plane: a split and a chunked
+              paged ContinuousWorker serve 8 requests of the three SLO
+              classes; the card's tokens, windowed request / token totals,
+              cost histogram counts, compile events (the graph captures),
+              steady-state recompiles (0) and each request's timeline
+              phases equal the CPU's;
    reference_speculative -- prompt-lookup speculative decoding on the
               tiny fp32 llama (K2w verify windows, K2 on the plain tail),
               the same over an int8 cache and a tiny Mistral with a sliding
@@ -151,6 +157,22 @@ exits non-zero without printing a result:
               limit; the killed pass also kill-to-last-answer seconds and
               the re-routed requests' share of tokens equal to the unkilled
               pass's;
+   serve_telemetry -- the telemetry plane at Llama-2-7B width: the 16
+              serve_continuous requests POSTed to ProducerServer, split
+              then chunked, each pass followed by /slo (16 in the window,
+              the ttft_s count = the answers), /compiles (0 steady-state
+              recompiles = the captures after prewarm), /metrics in
+              Prometheus text (mfu_* / mbu_*, printed clamped beside the
+              passes' unclamped means and the predictions) and a Chrome
+              trace with its counter tracks; POST /profile over a chunked
+              pass (its kernels name K3 and K4); the chunked pass with the
+              plane on and off in turns (walls, host us per group of the
+              fold and of the counter sampling); then the FleetController
+              over producer_telemetry: an interactive burst under a TTFT
+              objective below the split pass's p50 scales w0 alone to w0
+              + w1 (built and prewarmed by ``spawn``, run by a
+              Supervisor) and, once idle, back (w1 drained through its
+              Supervisor), every request answered once;
    int8    -- the engine's generate (prewarmed, no capture after) and one
               chunked serving pass (a 496-block int8 pool) on int8 caches
               at Llama-2-7B width: cache bytes against bf16's (<= 0.52x),
@@ -5605,6 +5627,770 @@ def phase_cli() -> None:
 PHASE_SECONDS: dict[str, float] = {}
 
 
+# -- phase 6f, the telemetry plane and the autoscaler ---------------------------------
+
+
+TEL_NEW = 12  # new tokens per reference_telemetry request
+TEL_SLO_MS = 10.0  # the autoscaler pass's interactive TTFT objective
+TEL_WINDOW_S = 10.0  # ... and its burn window (one series bucket)
+# Sizing for the serve_telemetry gauges: the predictions in PERF.md section 6.
+TEL_PREDICTED = {"mbu_decode_group": (0.45, 0.65),
+                 "mfu_decode_group": (0.008, 0.016),
+                 "mfu_ragged_group": (0.3, 0.4)}
+
+
+def _telemetry_reset() -> None:
+    """Empty this process's windowed series, flight recorder and devtel
+    accumulators (the compile observer's steady flag included)."""
+    from llmss_tpu_torch.utils import devtel, trace
+    from llmss_tpu_torch.utils import metrics as metrics_mod
+
+    devtel.reset()
+    metrics_mod.series().clear()
+    trace.recorder().clear()
+
+
+def _drive(worker, reqs) -> dict:
+    """Push ``reqs`` onto the worker's broker and run it until each is
+    answered; returns {id: response}."""
+    for r in reqs:
+        worker.broker.push_request(r)
+    got: dict = {}
+    while len(got) < len(reqs):
+        worker.run_once()
+        for r in reqs:
+            if r.id not in got:
+                a = worker.broker.wait_response(r.id, timeout=0.0)
+                if a is not None:
+                    got[r.id] = a
+    return got
+
+
+def _telemetry_readout(ids) -> dict:
+    """What reference_telemetry holds card against CPU: the windowed
+    series' request and token totals and every cost histogram's count,
+    the compile events' names, the steady-state recompiles, and each
+    request's phase names in its stitched timeline."""
+    from llmss_tpu_torch.utils import devtel, trace
+    from llmss_tpu_torch.utils import metrics as metrics_mod
+
+    series = metrics_mod.series().export()["series"]
+    exports = [trace.recorder().export()]
+    comp = devtel.observer().export()
+    return {
+        "requests_total": series["requests_total"]["total"],
+        "tokens_out": series["tokens_out"]["total"],
+        "cost_histograms": {n: b["total"]["count"] for n, b in series.items()
+                            if b["kind"] == "histogram"
+                            and not n.startswith(("mfu_", "mbu_"))},
+        "compiles": sorted(e["name"] for e in comp["events"]),
+        "steady_recompiles": comp["steady_recompiles"],
+        "phases": {rid: sorted(trace.timeline(exports, rid)["phases"])
+                   for rid in ids},
+    }
+
+
+def phase_reference_telemetry() -> None:
+    """The telemetry plane on the tiny fp32 llama: one paged engine, a
+    split and a chunked (16) ContinuousWorker, both prewarmed, serve the
+    same 8 requests (3-40 token prompts from seed 13, TEL_NEW new tokens,
+    the three SLO classes in turn), on the card and on the CPU, each run
+    from an emptied plane. The card's tokens, windowed request and token
+    totals, cost histogram counts, compile event names (the graph
+    captures), steady-state recompiles (0) and each request's timeline
+    phases equal the CPU's; K1, K3 and K4 launch on the card."""
+    from llmss_tpu_torch.engine.engine import DecodeEngine
+    from llmss_tpu_torch.models.decoder import init_params
+    from llmss_tpu_torch.serve.broker import InProcBroker
+    from llmss_tpu_torch.serve.consumer import ContinuousWorker
+    from llmss_tpu_torch.serve.protocol import SLO_CLASSES, GenerateRequest
+
+    cfg = _tiny_llama()
+    cpu_params = init_params(cfg, seed=13, device="cpu")
+    params = {"cpu": cpu_params, "cuda": _to(cpu_params, "cuda")}
+    rng = np.random.default_rng(13)
+    prompts = [[int(t) for t in rng.integers(1, cfg.vocab_size, int(n))]
+               for n in rng.integers(3, 41, 8)]
+    classes = sorted(SLO_CLASSES)
+
+    def requests(mode):
+        return [GenerateRequest(id=f"tel-{mode}-{i}", token_ids=p,
+                                max_new_tokens=TEL_NEW, is_greedy=True,
+                                slo_class=classes[i % len(classes)])
+                for i, p in enumerate(prompts)]
+
+    out = {}
+    for dev in ("cpu", "cuda"):
+        _telemetry_reset()
+        eng = DecodeEngine(cfg, params[dev], device=dev, max_seq_len=128,
+                           kv_layout="paged", block_size=16, kv_blocks=48)
+        workers = {mode: ContinuousWorker(
+            eng, InProcBroker(), rows=4, chunk_steps=4, group_chunks=2,
+            chunked_prefill=cp, poll_timeout_s=0.0)
+            for mode, cp in (("split", None), ("chunked", 16))}
+        for w in workers.values():
+            w.prewarm()
+        count = _launch_counter()
+        tokens, ids = {}, []
+        for mode, w in workers.items():
+            reqs = requests(mode)
+            got = _drive(w, reqs)
+            tokens[mode] = [got[r.id].token_ids for r in reqs]
+            ids += [r.id for r in reqs]
+        out[dev] = {"tokens": tokens, "launches": count(),
+                    **_telemetry_readout(ids)}
+        del workers, eng
+        gc.collect()
+    got, want = out["cuda"], out["cpu"]
+    keys = ("tokens", "requests_total", "tokens_out", "cost_histograms",
+            "compiles", "steady_recompiles", "phases")
+    diff = [k for k in keys if got[k] != want[k]]
+    c = got["launches"]
+    emit({"phase": "reference_telemetry", "identical": not diff,
+          "requests_total": got["requests_total"],
+          "tokens_out": got["tokens_out"],
+          "ttft_s_count": got["cost_histograms"].get("ttft_s"),
+          "compile_events": len(got["compiles"]),
+          "steady_recompiles": got["steady_recompiles"],
+          "phases": sorted({p for v in got["phases"].values() for p in v}),
+          "launches": c})
+    if diff:
+        raise AssertionError(f"reference_telemetry: card != CPU in {diff}: "
+                             f"{[(got[k], want[k]) for k in diff]}")
+    if got["steady_recompiles"] or got["requests_total"] != 16 or (
+            got["cost_histograms"].get("ttft_s") != 16):
+        raise AssertionError(f"reference_telemetry: {got}")
+    if not (c["k1"] and c["k3"] and c["k4"]) or c["k2"]:
+        raise AssertionError(f"reference_telemetry: launches {c}")
+
+
+class _FoldMeter:
+    """Wraps ``devtel.fold`` and ``ContinuousBatcher._devtel_sample`` while
+    installed: each class's summed FLOPs, bytes and fold interval (the
+    unclamped MFU / MBU of a pass) and the host seconds of both calls."""
+
+    def __init__(self):
+        from llmss_tpu_torch.engine.scheduler import ContinuousBatcher
+        from llmss_tpu_torch.utils import devtel
+
+        self.devtel, self.cls = devtel, ContinuousBatcher
+        self.fold, self.sample = devtel.fold, ContinuousBatcher._devtel_sample
+        self.reset()
+
+    def reset(self):
+        self.acc: dict = {}
+        self.fold_s, self.folds, self.sample_s, self.samples = 0.0, 0, 0.0, 0
+
+    def __enter__(self):
+        fold, sample = self.fold, self.sample
+
+        def timed_fold(kind, dur_s, cost):
+            t = time.perf_counter()
+            fold(kind, dur_s, cost)
+            self.fold_s += time.perf_counter() - t
+            self.folds += 1
+            if cost is not None and dur_s > 0:
+                a = self.acc.setdefault(kind, [0.0, 0.0, 0.0])
+                a[0] += cost.flops
+                a[1] += cost.hbm_bytes
+                a[2] += dur_s
+
+        def timed_sample(bat):
+            t = time.perf_counter()
+            sample(bat)
+            self.sample_s += time.perf_counter() - t
+            self.samples += 1
+
+        self.devtel.fold, self.cls._devtel_sample = timed_fold, timed_sample
+        return self
+
+    def __exit__(self, *exc):
+        self.devtel.fold, self.cls._devtel_sample = self.fold, self.sample
+
+    def raw(self) -> dict:
+        """Unclamped MFU / MBU per class over everything folded."""
+        pf, pb = self.devtel.device_peaks()
+        out = {}
+        for kind, (fl, by, dur) in self.acc.items():
+            out[f"mfu_{kind}"] = fl / (pf * dur)
+            out[f"mbu_{kind}"] = by / (pb * dur)
+        return out
+
+    def host_us(self) -> dict:
+        return {"fold_us_per_group": 1e6 * self.fold_s / max(self.folds, 1),
+                "folds": self.folds,
+                "devtel_sample_us_per_group":
+                    1e6 * self.sample_s / max(self.samples, 1),
+                "devtel_samples": self.samples}
+
+
+def _cost_gap(worker) -> dict:
+    """Wraps the worker's engine's ``devtel_cost`` and counts, beside what
+    each group's signature prices, what its rows hold: a decode group's KV
+    slots at the bucket for every row of the batcher against the slots
+    its live rows reach (each row's position at the group's end, less the
+    steps still to come); a ragged group's prefill tokens (every row, CB
+    each) against the prompt tokens the pass fed. Returns the counts,
+    filled while the pass runs."""
+    eng, bat = worker.engine, worker.batcher
+    inner = eng.devtel_cost
+    out = {"decode_kv_slots_priced": 0, "decode_kv_slots_live": 0,
+           "ragged_prefill_tokens_priced": 0,
+           "prefill_tokens_fed_start": eng.metrics.prefill_tokens_chunked}
+
+    def cost(kind, key, *, batch, steps, kv_len, prefill_tokens=0):
+        if kind == "decode_group":
+            out["decode_kv_slots_priced"] += (
+                batch * steps * (kv_len or eng.max_seq_len))
+            out["decode_kv_slots_live"] += sum(
+                steps * pos - steps * (steps - 1) // 2
+                for pos in bat._row_pos.values())
+        elif kind == "ragged_group":
+            out["ragged_prefill_tokens_priced"] += prefill_tokens
+        return inner(kind, key, batch=batch, steps=steps, kv_len=kv_len,
+                     prefill_tokens=prefill_tokens)
+
+    eng.devtel_cost = cost
+    return out
+
+
+def _gap_readout(worker, gap: dict) -> dict:
+    """``_cost_gap``'s counts once the pass is over (the wrapper goes)."""
+    del worker.engine.devtel_cost
+    fed = (worker.engine.metrics.prefill_tokens_chunked
+           - gap.pop("prefill_tokens_fed_start"))
+    gap["ragged_prefill_tokens_fed"] = fed
+    if gap["decode_kv_slots_live"]:
+        gap["decode_kv_priced_over_live"] = (
+            gap["decode_kv_slots_priced"] / gap["decode_kv_slots_live"])
+    if fed:
+        gap["ragged_prefill_priced_over_fed"] = (
+            gap["ragged_prefill_tokens_priced"] / fed)
+    return gap
+
+
+def _sample_parts(worker, dev, n: int = 200) -> dict:
+    """Host microseconds per call of ``_devtel_sample``'s parts, and of the
+    two public allocator getters it does not call."""
+    from llmss_tpu_torch.utils import devtel
+
+    alloc = worker.batcher.allocator
+    parts = {"device_memory_stats": lambda: devtel.device_memory_stats(dev),
+             "largest_free_run": alloc.largest_free_run,
+             "last_util": devtel.last_util}
+    if torch.device(dev or "cuda").type == "cuda":
+        parts["memory_allocated"] = torch.cuda.memory_allocated
+        parts["max_memory_allocated"] = torch.cuda.max_memory_allocated
+    out = {}
+    for name, fn in parts.items():
+        t = time.perf_counter()
+        for _ in range(n):
+            fn()
+        out[name] = 1e6 * (time.perf_counter() - t) / n
+    return out
+
+
+def _prom_gauges(text: str) -> dict:
+    """``llmss_mfu{kernel="k"} v`` lines of a Prometheus text as
+    {"mfu_k": v}."""
+    out = {}
+    for line in text.splitlines():
+        m = re.match(r'llmss_(mfu|mbu)\{kernel="(\w+)"\} (\S+)$', line)
+        if m:
+            out[f"{m.group(1)}_{m.group(2)}"] = float(m.group(3))
+    return out
+
+
+def _serve_loop(worker, stop: threading.Event) -> threading.Thread:
+    """The one thread that drives ``worker`` (and touches the card) until
+    ``stop``."""
+    def loop():
+        while not stop.is_set():
+            worker.run_once()
+            if worker.batcher.idle:
+                time.sleep(0.001)
+
+    th = threading.Thread(target=loop, name="serve-loop", daemon=True)
+    th.start()
+    return th
+
+
+def _http_pass(srv, worker, reqs, sync) -> dict:
+    """POST ``reqs`` concurrently to ``srv`` while one thread drives
+    ``worker``; every answer must be 200 with all its tokens. Returns the
+    pass's wall and answers."""
+    outs = [{} for _ in reqs]
+    stop = threading.Event()
+    sync()
+    t0 = time.perf_counter()
+    loop = _serve_loop(worker, stop)
+    clients = [threading.Thread(target=_http_client, args=(srv.port, r, o),
+                                daemon=True) for r, o in zip(reqs, outs)]
+    try:
+        for th in clients:
+            th.start()
+        for th in clients:
+            th.join(timeout=300)
+        end = time.monotonic() + 60
+        while not worker.batcher.idle and time.monotonic() < end:
+            time.sleep(0.01)
+    finally:
+        stop.set()
+        loop.join(timeout=60)
+    sync()
+    wall = max(o.get("t_done", 0.0) for o in outs) - t0
+    for i, (r, o) in enumerate(zip(reqs, outs)):
+        a = o.get("answer") or {}
+        if o.get("status") != 200 or a.get("error") or len(
+                a.get("token_ids") or []) != r.max_new_tokens:
+            raise AssertionError(f"serve_telemetry request {i}: {o}")
+    return {"wall_s": wall, "answers": [o["answer"] for o in outs]}
+
+
+def _tel_endpoints(srv, rid: str, n: int, captures: int, card: bool
+                   ) -> dict:
+    """Read /slo, /compiles, /metrics (JSON and Prometheus) and the Chrome
+    trace of ``rid`` after a pass of ``n`` requests, and check them:
+    ``n`` requests in the 1-minute window of the windowed series and in
+    /slo's 5-minute window, the ``ttft_s`` count equal to the answers, no
+    steady-state recompile (and as many as ``captures``, the engine's
+    captures after prewarm), MFU / MBU gauges in the Prometheus text, and
+    a Chrome trace holding the request's events and the counter tracks
+    (kv_blocks, rows, device memory in use > 0 on the card)."""
+    from llmss_tpu_torch.serve.producer import collect_series_exports
+    from llmss_tpu_torch.utils import metrics as metrics_mod
+
+    st, _, raw = _http(srv.port, "/slo")
+    slo = json.loads(raw)
+    obj = {o["name"]: o for o in slo["objectives"]}
+    ttft = obj["ttft_p95_500ms"]["windows"]["5m"]
+    exports, _ = collect_series_exports(srv.broker)
+    minute = metrics_mod.merged_window(exports, "requests_total", 60.0)
+    _, _, raw = _http(srv.port, "/compiles")
+    comp = json.loads(raw)
+    _, _, prom = _http(srv.port, "/metrics?format=prometheus")
+    gauges = _prom_gauges(prom.decode())
+    _, _, raw = _http(srv.port, f"/trace/{rid}?format=chrome")
+    chrome = json.loads(raw)
+    evs = chrome["traceEvents"]
+    tracks = {e["name"] for e in evs if e["ph"] == "C"}
+    mem = [e["args"].get("bytes_in_use", 0) for e in evs
+           if e["ph"] == "C" and e["name"] == "device_memory"]
+    spans = {e["name"] for e in evs if e["ph"] in ("X", "i")}
+    out = {"slo_5m_count": ttft["count"], "minute_requests": minute["value"],
+           "ttft_attainment": ttft["attainment"], "ttft_p95_ms": ttft["p95_ms"],
+           "ttft_burn": ttft["burn_rate"],
+           "compile_block": slo.get("compile"),
+           "compiles": comp["n_compiles"],
+           "steady_recompiles": comp["steady_recompiles"],
+           "gauges": gauges, "chrome_events": len(evs),
+           "chrome_tracks": sorted(tracks), "chrome_spans": sorted(spans),
+           "device_memory_in_use": max(mem, default=0)}
+    if (st != 200 or ttft["count"] != n or minute["value"] != n
+            or comp["steady_recompiles"] != captures or captures
+            or not {"kv_blocks", "rows"} <= tracks
+            or not {"enqueue", "admit", "respond"} <= spans
+            or "mfu_decode_group" not in gauges
+            or (card and not out["device_memory_in_use"])):
+        raise AssertionError(f"serve_telemetry endpoints: {out}")
+    return out
+
+
+def _tel_profile(srv, worker, requests, sync, log_dir: Path) -> dict:
+    """POST /profile over a chunked pass run in this process: the capture
+    writes a Chrome trace whose kernel names hold K3's (``paged_fwd``, the
+    decode steps' graph replays) and K4's (``paged_mma``, the eager ragged
+    steps). Launches are never counted from it."""
+    import shutil
+
+    from llmss_tpu_torch.serve import producer
+
+    shutil.rmtree(log_dir, ignore_errors=True)
+    status, _, raw = _http(srv.port, "/profile",
+                           {"duration_s": 1.5, "log_dir": str(log_dir)})
+    busy, _, _ = _http(srv.port, "/profile", {"duration_s": 1.0})
+    if status != 202 or busy != 409:
+        raise AssertionError(f"/profile {status} {raw}, then {busy}")
+    _drive(worker, requests())
+    sync()
+    path = log_dir / "trace.json"
+    end = time.monotonic() + 120
+    while producer._PROFILE_ACTIVE and time.monotonic() < end:
+        time.sleep(0.1)
+    names = set()
+    if path.exists():
+        for e in json.loads(path.read_text()).get("traceEvents", []):
+            if e.get("cat") == "kernel":
+                names.add(e.get("name", ""))
+    found = {sym: any(sym in n for n in names)
+             for sym in ("paged_fwd", "paged_mma")}
+    out = {"profile_kernels": len(names), "symbols": found,
+           "trace_bytes": path.stat().st_size if path.exists() else 0}
+    shutil.rmtree(log_dir, ignore_errors=True)
+    return out
+
+
+def _autoscale_pass(srv_cls, broker, w0, make_worker, split_p50_ms,
+                    cold_start_s, sync, smi) -> dict:
+    """The FleetController over ``producer_telemetry``: w0 alone behind a
+    round-robin Router and a producer whose interactive TTFT objective
+    (TEL_SLO_MS, below the split pass's p50) is read over a TEL_WINDOW_S
+    burn window. One thread drives w0 and ticks the controller; ``spawn``
+    builds and prewarms w1 there (``make_worker``) and starts its
+    Supervisor; ``retire`` drains it through the Supervisor. Interactive
+    requests arrive every 0.4 s until w1 has answered and served for 4 s
+    (at most 90 s), then nothing: the fleet must go 1 -> 2 -> 1, never
+    retire w0, and answer every request once."""
+    from llmss_tpu_torch.serve.controller import (
+        FleetController, producer_telemetry,
+    )
+    from llmss_tpu_torch.serve.fleet import (
+        BrownoutController, Router, interactive_burn,
+    )
+    from llmss_tpu_torch.serve.protocol import SLO_CLASS_INTERACTIVE
+    from llmss_tpu_torch.serve.supervisor import Supervisor
+    from llmss_tpu_torch.utils import metrics as metrics_mod
+
+    from llmss_tpu_torch.utils import devtel
+
+    if not split_p50_ms > TEL_SLO_MS:
+        raise AssertionError(f"split TTFT p50 {split_p50_ms} ms is not above "
+                             f"the objective's {TEL_SLO_MS} ms")
+    # The controller steers on this pass's traffic: the series and the
+    # last-value MFU / MBU gauges of the earlier passes go (a gauge holds
+    # its last value once its traffic stops); the fleet stays steady.
+    metrics_mod.series().clear()
+    devtel.reset()
+    devtel.observer().mark_steady()
+    objective = [{"name": f"ttft_p95_{TEL_SLO_MS:g}ms_interactive",
+                  "kind": "latency", "series": "ttft_s_interactive",
+                  "threshold_ms": TEL_SLO_MS, "target": 0.95}]
+    router = Router(broker, "round_robin", stale_factor=3.0)
+    state: dict = {"spawned": [], "retired": [], "sups": {}, "threads": {}}
+
+    def spawn(role):
+        t = time.perf_counter()
+        w1 = make_worker()  # built and prewarmed here: no capture overlaps
+        w1.worker_id = "w1"
+        w1.register()
+        sup = Supervisor(lambda: w1, broker, heartbeat_s=1.0,
+                         drain_timeout_s=60.0)
+        th = threading.Thread(target=sup.run, name="w1-supervisor",
+                              daemon=True)
+        th.start()
+        state["sups"]["w1"], state["threads"]["w1"] = sup, th
+        state["w1"], state["spawn_s"] = w1, time.perf_counter() - t
+        state["t_ready"] = time.perf_counter()
+        state["spawned"].append(("w1", state["t_ready"]))
+        w0._publish_load()
+        return "w1"
+
+    def retire(wid):
+        if not state["sups"][wid].drain(timeout_s=60.0):
+            raise AssertionError(f"the supervisor refused to drain {wid}")
+        state["retired"].append((wid, time.perf_counter()))
+
+    srv = srv_cls(broker, host="127.0.0.1", port=0, timeout_s=300.0,
+                  router=router, slo_objectives=objective)
+    ctrl = FleetController(
+        broker, spawn=spawn, retire=retire,
+        read_telemetry=producer_telemetry(srv), floor=1, ceiling=2,
+        check_s=0.25, cooldown_s=2.0, dwell_s=1.0,
+        cold_start_s=cold_start_s, burn_headroom_s=60.0,
+        # The gauges are last values, held after the traffic: scale-down
+        # waits on the burn and the backlog.
+        util_low=0.9)
+    srv.controller = ctrl
+    srv.brownout = BrownoutController(lambda: interactive_burn(srv.slo()),
+                                      escalate_ok=ctrl.escalation_allowed)
+    ctrl.start()
+    srv.start()
+    stop, stop_traffic = threading.Event(), threading.Event()
+    errors: list = []
+
+    def fleet_loop():
+        try:
+            while not stop.is_set():
+                w0.run_once()
+                ctrl.tick()
+                if w0.batcher.idle:
+                    time.sleep(0.002)
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(e)
+
+    rng = np.random.default_rng(17)
+    outs: list = []
+    clients: list = []
+
+    def traffic():
+        from llmss_tpu_torch.serve.protocol import GenerateRequest
+
+        while not stop_traffic.is_set():
+            n = int(rng.integers(32, 257))
+            r = GenerateRequest(
+                token_ids=[int(t) for t in rng.integers(
+                    1, w0.engine.cfg.vocab_size, n)],
+                max_new_tokens=16, slo_class=SLO_CLASS_INTERACTIVE)
+            o: dict = {"t_post": time.perf_counter()}
+            outs.append((r, o))
+            th = threading.Thread(target=_http_client, args=(srv.port, r, o),
+                                  daemon=True)
+            clients.append(th)
+            th.start()
+            stop_traffic.wait(0.4)
+
+    w0._publish_load()
+    w0_before = w0.engine.metrics.finish_classes.get("served", 0)
+    sync()
+    t0 = time.perf_counter()
+    loop = threading.Thread(target=fleet_loop, name="fleet-loop", daemon=True)
+    feed = threading.Thread(target=traffic, name="traffic", daemon=True)
+    loop.start()
+    feed.start()
+    t_first = None
+    try:
+        end = time.perf_counter() + 90
+        while time.perf_counter() < end and not errors:
+            w1 = state.get("w1")
+            if w1 is not None and t_first is None and (
+                    w1.engine.metrics.finish_classes.get("served")):
+                t_first = time.perf_counter()
+            if t_first is not None and (
+                    time.perf_counter() - state["t_ready"] > 4.0):
+                break
+            time.sleep(0.05)
+        stop_traffic.set()
+        feed.join(timeout=30)
+        for th in clients:
+            th.join(timeout=300)
+        t_idle = time.perf_counter()
+        end = time.perf_counter() + 120
+        while not state["retired"] and time.perf_counter() < end and (
+                not errors):
+            time.sleep(0.1)
+        th1 = state["threads"].get("w1")
+        if th1 is not None:
+            th1.join(timeout=120)
+    finally:
+        stop_traffic.set()
+        stop.set()
+        loop.join(timeout=60)
+        srv.stop()
+        for sup in state["sups"].values():
+            sup.drain(force=True)
+    sync()
+    if errors:
+        raise AssertionError(f"autoscale: the fleet loop failed: {errors[0]!r}")
+    bad = [(i, o) for i, (r, o) in enumerate(outs)
+           if o.get("status") != 200 or (o.get("answer") or {}).get("error")
+           or len((o.get("answer") or {}).get("token_ids") or [])
+           != r.max_new_tokens]
+    stats = broker.delivery_stats()
+    w1 = state.get("w1")
+    out = {
+        "requests": len(outs), "bad_answers": len(bad),
+        "spawns": ctrl.counters["spawns"], "retires": ctrl.counters["retires"],
+        "retired": [w for w, _ in state["retired"]],
+        "blocked_last_routable": ctrl.counters["blocked_last_routable"],
+        "blocked_ceiling": ctrl.counters["blocked_ceiling"],
+        "held_cooldown": ctrl.counters["held_cooldown"],
+        "escalations_suppressed": ctrl.counters["escalations_suppressed"],
+        "escalations_allowed": ctrl.counters["escalations_allowed"],
+        "brownout": srv.brownout.state()["state"],
+        "w1_answers": (w1.engine.metrics.finish_classes.get("served", 0)
+                       if w1 is not None else 0),
+        "w0_answers": (w0.engine.metrics.finish_classes.get("served", 0)
+                       - w0_before),
+        "spawn_s": state.get("spawn_s"),
+        "burst_to_spawn_s": (state["spawned"][0][1] - t0
+                             if state["spawned"] else None),
+        "burst_to_w1_first_answer_s": (t_first - t0) if t_first else None,
+        "idle_to_retire_s": (state["retired"][0][1] - t_idle
+                             if state["retired"] else None),
+        "redelivered": stats.get("redelivered", 0),
+        "dlq": broker.dlq_depth(), "objective_ms": TEL_SLO_MS,
+        "burn_window_s": TEL_WINDOW_S, "split_ttft_p50_ms": split_p50_ms,
+        "nvidia_smi": smi,
+    }
+    if (bad or out["spawns"] != 1 or out["retired"] != ["w1"]
+            or not out["w1_answers"] or out["redelivered"] or out["dlq"]
+            or "w0" not in [w for w, i in broker.read_workers().items()
+                            if i.get("state") == "ready"]
+            or state["sups"]["w1"].state != "dead"):
+        raise AssertionError(f"autoscale: {out}, bad {bad[:3]}")
+    return out
+
+
+def phase_serve_telemetry(params, smi: str, cfg=None, dev=None) -> None:
+    """The telemetry plane at Llama-2-7B width (serve_continuous's weights
+    and pool; ``cfg`` / ``dev`` narrow it for a CPU rehearsal): one engine
+    with a split and a chunked (128) ContinuousWorker, prewarmed from an
+    emptied plane, behind ``ProducerServer``. The 16 serve_continuous
+    requests (all greedy here, none cancelled) are POSTed, split then
+    chunked; after each pass ``_tel_endpoints`` reads /slo, /compiles,
+    /metrics and a Chrome trace. Then POST /profile over a chunked pass
+    (``_tel_profile``); the chunked pass with the plane on and off in
+    turns (on, off, on, off: walls, and the fold's and ``_devtel_sample``'s
+    host microseconds per group); and the autoscaler pass. Prints the
+    MFU / MBU gauges (clamped, from /metrics) beside the passes' unclamped
+    means and the predictions, beside the card (``smi``)."""
+    from llmss_tpu_torch.engine.engine import DecodeEngine
+    from llmss_tpu_torch.engine.metrics import EngineMetrics
+    from llmss_tpu_torch.models.common import DecoderConfig
+    from llmss_tpu_torch.serve.broker import InProcBroker
+    from llmss_tpu_torch.serve.consumer import ContinuousWorker
+    from llmss_tpu_torch.serve.producer import ProducerServer
+    from llmss_tpu_torch.utils import devtel, trace
+    from llmss_tpu_torch.utils import metrics as metrics_mod
+
+    cfg = cfg or DecoderConfig(**LLAMA2_7B)
+    card = dev is None or torch.device(dev).type == "cuda"
+    sync = torch.cuda.synchronize if card else (lambda: None)
+    L = cfg.n_layers
+
+    def make_engine():
+        return DecodeEngine(cfg, params, device=dev, max_seq_len=1024,
+                            kv_layout="paged", block_size=16, kv_blocks=256)
+
+    def make_worker(eng, broker, chunked, **kw):
+        w = ContinuousWorker(eng, broker, rows=8, chunk_steps=8,
+                             group_chunks=2,
+                             chunked_prefill=128 if chunked else None, **kw)
+        w.prewarm()
+        return w
+
+    _telemetry_reset()
+    trace.set_enabled(True)
+    eng = make_engine()
+    steps = _count_steps(eng)
+    broker = InProcBroker()
+    t = time.perf_counter()
+    workers = {c: make_worker(eng, broker, c, poll_timeout_s=0.0)
+               for c in (False, True)}
+    prewarm_s = time.perf_counter() - t
+    sync()
+    eng.metrics = EngineMetrics()
+    _, requests = _serve_requests(cfg)
+
+    def greedy():
+        reqs = requests()
+        for r in reqs:
+            r.is_greedy, r.stream = True, False
+        return reqs
+
+    srv = ProducerServer(broker, host="127.0.0.1", port=0, timeout_s=300.0)
+    srv.start()
+    rows, raw = {}, {}
+    meter = _FoldMeter()
+    try:
+        for chunked in (False, True):
+            mode = "chunked" if chunked else "split"
+            metrics_mod.series().clear()
+            count = _launch_counter()
+            steps.update(decode=0, ragged=0)
+            eng.metrics = EngineMetrics()
+            meter.reset()
+            reqs = greedy()
+            gap = _cost_gap(workers[chunked])
+            with meter:
+                p = _http_pass(srv, workers[chunked], reqs, sync)
+            gap = _gap_readout(workers[chunked], gap)
+            c = count()
+            if card and (c["k3"] != L * steps["decode"]
+                         or c["k4"] != L * steps["ragged"]
+                         or not c["k3"] or (chunked and not c["k4"])):
+                raise AssertionError(f"serve_telemetry {mode}: launches {c} "
+                                     f"for steps {steps}")
+            ends = _tel_endpoints(srv, reqs[0].id, len(reqs),
+                                  eng.metrics.graph_captures, card)
+            raw[mode] = meter.raw()
+            rows[mode] = {"wall_s": p["wall_s"],
+                          "ttft_p50_ms": eng.metrics.ttft.quantile_ms(50),
+                          "launches": c, "decode_steps": steps["decode"],
+                          "ragged_steps": steps["ragged"], **ends,
+                          **meter.host_us(), "cost_gap": gap}
+            emit({"phase": "serve_telemetry", "pass": mode, **rows[mode]})
+        profile = _tel_profile(srv, workers[True], greedy, sync,
+                               Path(".scratch") / "telemetry_profile")
+        emit({"phase": "serve_telemetry", "pass": "profile", **profile})
+        if card and not all(profile["symbols"].values()):
+            raise AssertionError(f"the profile misses K3 / K4: {profile}")
+    finally:
+        srv.stop()
+    gauges = rows["chunked"]["gauges"]
+    gauges.update({k: v for k, v in rows["split"]["gauges"].items()
+                   if k.endswith("decode_group")})
+    emit({"phase": "serve_telemetry", "check": "utilization",
+          "gauges_clamped": gauges, "pass_mean_unclamped": raw,
+          "predicted": TEL_PREDICTED,
+          "within_prediction": {
+              k: lo / 3 <= raw["chunked" if "ragged" in k else "split"].get(
+                  k, 0.0) <= 1.0 for k, (lo, _hi) in TEL_PREDICTED.items()},
+          "nvidia_smi": smi})
+    # The plane's cost: the chunked pass in this process, on and off.
+    walls: dict = {"on": [], "off": []}
+    host: list = []
+    try:
+        for on in (True, False, True, False):
+            trace.set_enabled(on)
+            meter.reset()
+            sync()
+            t = time.perf_counter()
+            with meter:
+                _drive(workers[True], greedy())
+            sync()
+            walls["on" if on else "off"].append(time.perf_counter() - t)
+            if on:
+                host.append(meter.host_us())
+    finally:
+        trace.set_enabled(True)
+    overhead = {"phase": "serve_telemetry", "pass": "plane_on_off",
+                "walls_s": walls, "host": host,
+                "sample_parts_us": _sample_parts(workers[True], dev),
+                "nvidia_smi": smi}
+    emit(overhead)
+    if eng.metrics.graph_captures:
+        raise AssertionError("serve_telemetry captured a graph after prewarm")
+    # The autoscaler: w0 is the split worker, registered now.
+    w0 = workers[False]
+    del workers[True]
+    gc.collect()
+    w0.worker_id, w0.snapshot_interval_s = "w0", 10.0
+    w0.register()
+    auto = _autoscale_pass(
+        _telemetry_producer(), broker, w0,
+        lambda: make_worker(make_engine(), broker, False, poll_timeout_s=0.0,
+                            snapshot_interval_s=1.0),
+        rows["split"]["ttft_p50_ms"], prewarm_s / 2, sync, smi)
+    emit({"phase": "serve_telemetry", "pass": "autoscale", **auto,
+          "prewarm_s": prewarm_s})
+    del w0, workers, eng
+    gc.collect()
+
+
+def _telemetry_producer():
+    """ProducerServer whose /slo reads its objectives over TEL_WINDOW_S
+    (the autoscaler pass must see the burn cool within its time budget)."""
+    from llmss_tpu_torch.serve.producer import (
+        ProducerServer, collect_devtel_exports, collect_series_exports,
+    )
+    from llmss_tpu_torch.utils import devtel
+    from llmss_tpu_torch.utils import metrics as metrics_mod
+
+    class TelemetryProducer(ProducerServer):
+        def slo(self) -> dict:
+            exports, _src = collect_series_exports(self.broker)
+            out = metrics_mod.evaluate_slos(
+                exports, self.slo_objectives,
+                windows=((f"{TEL_WINDOW_S:g}s", TEL_WINDOW_S),))
+            dt = collect_devtel_exports(self.broker)
+            if dt:
+                out["compile"] = devtel.recompile_flag(dt)
+            return out
+
+    return TelemetryProducer
+
+
 def timed(fn, *args, **kwargs):
     """``fn(*args, **kwargs)``, its host seconds added to ``PHASE_SECONDS``
     under its name (and a leading string argument, the model's)."""
@@ -5647,6 +6433,7 @@ def main(argv=None) -> int:
     timed(phase_reference_priority)
     timed(phase_reference_roles)
     timed(phase_reference_fleet)
+    timed(phase_reference_telemetry)
     timed(phase_reference_families)
     timed(phase_reference_speculative)
     eng, bf16 = timed(phase_engine, kernels)
@@ -5670,6 +6457,9 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     timed(phase_serve_fleet, params, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    timed(phase_serve_telemetry, params, smi)
     gc.collect()
     torch.cuda.empty_cache()
     timed(phase_int8, params, kernels, bf16)

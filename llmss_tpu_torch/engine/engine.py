@@ -38,6 +38,14 @@ suffix at positions ``P...`` with draw counters ``P + len``, so the tokens
 are those of a prefill from scratch. The continuous batcher shares the
 prefix's full blocks across rows (engine/scheduler.py).
 
+Device telemetry (utils/devtel.py, engine.py:725-760): ``devtel_cost``
+prices a step signature from the analytical model into the process's cost
+table (prewarm derives every signature the live path can pick, so the fold
+site's lookup is a hit), the grouped ``generate`` folds each chunk's
+dispatch-to-fetch interval into ``decode_group`` MFU/MBU, and every graph
+capture is recorded as a compile event named by its signature; prewarm
+runs inside ``observer().warming()`` and ends with ``mark_steady``.
+
 ``generate_speculative`` (engine/speculative.py) is greedy generation
 with prompt-lookup speculation: each step verifies a drafted window of
 ``gamma + 1`` tokens a row in one forward (K2w on the GPU), a group of
@@ -69,6 +77,8 @@ from llmss_tpu_torch.models.decoder import (
 )
 from llmss_tpu_torch.ops._build import check_head_dim
 from llmss_tpu_torch.ops.sampling import fold_step_outcome, sample
+from llmss_tpu_torch.utils import devtel
+from llmss_tpu_torch.utils.signatures import signature, signature_str
 
 
 class Prefix(NamedTuple):
@@ -206,6 +216,10 @@ class DecodeEngine:
         # generate's persistent cache (the step graphs hold its addresses);
         # a call with another row count replaces it.
         self._cache: KVCache | PagedKVCache | None = None
+        self._devtel_model: devtel.EngineCostModel | None = None
+        # The request a capture is charged to (set by the batcher before it
+        # dispatches a group).
+        self.devtel_req_id: str | None = None
 
     # -- envelope -------------------------------------------------------------
 
@@ -418,12 +432,15 @@ class DecodeEngine:
         the metrics count; the CPU runs the body)."""
         g = self._graphs.for_cache(cache)
         load(g.bufs)
+        key = self._step_key(kind, sample_args, t_bucket)
+        t0 = time.perf_counter()
         step, captured = g.step(
-            self._step_key(kind, sample_args, t_bucket),
-            self._step_body(kind, g.bufs, cache, sample_args, t_bucket),
-        )
+            key, self._step_body(kind, g.bufs, cache, sample_args, t_bucket))
         if captured:
             self.metrics.add_graph(captures=1)
+            self._record_capture(
+                "decode" if kind == "plain" else "decode_group",
+                (g.bufs.tokens.shape[0], *key[1:]), time.perf_counter() - t0)
         return g.bufs, step
 
     def _spec_step(self, cache, bufs: SpecBuffers, gamma: int, ngram: int,
@@ -441,12 +458,24 @@ class DecodeEngine:
                 t_bucket=t_bucket, layers=self._layers)
             bufs.record(choice, n_emit)
 
+        t0 = time.perf_counter()
         step, captured = self._graphs.for_cache(cache).step(
             ("spec", gamma, ngram, bufs.group, t_bucket), body,
             carry=bufs.carry())
         if captured:
             self.metrics.add_graph(captures=1)
+            self._record_capture(
+                "spec_group",
+                (bufs.done.shape[0], gamma, ngram, bufs.group, t_bucket),
+                time.perf_counter() - t0)
         return step
+
+    def _record_capture(self, kind: str, key: tuple, dur_s: float) -> None:
+        """A graph capture as a compile event: ``kind/rows/...`` and its
+        wall time, charged to the request in flight."""
+        devtel.observer().record_compile(
+            signature_str(signature(kind, *key)), dur_s=dur_s,
+            req_id=self.devtel_req_id)
 
     @torch.inference_mode()
     def _decode(self, tokens, cache, cur_pos, sample_args, *, t_bucket=None):
@@ -565,6 +594,31 @@ class DecodeEngine:
             pois.append(poisoned.to(torch.int32))
         packed = torch.cat(toks + pois)
         return packed, tokens, cur_pos, done
+
+    def devtel_cost_model(self) -> devtel.EngineCostModel:
+        """The analytical roofline model of this engine (built once)."""
+        if self._devtel_model is None:
+            count, nbytes = devtel.param_stats(self.params)
+            self._devtel_model = devtel.EngineCostModel(
+                self.cfg, count, nbytes,
+                kv_itemsize=torch.empty((), dtype=self._cache_dtype)
+                .element_size(),
+                max_seq_len=self.max_seq_len)
+        return self._devtel_model
+
+    def devtel_cost(self, kind: str, key: tuple, *, batch: int, steps: int,
+                    kv_len: int | None, prefill_tokens: int = 0
+                    ) -> devtel.KernelCost | None:
+        """The cost of one step signature ``(kind, *key)`` from the process
+        cost table: a hit on the fold path, else priced by the analytical
+        model. ``key`` must be the same at prewarm and at the fold site."""
+        full_key = signature(kind, *key)
+        hit = devtel.costs().get(full_key)
+        if hit is not None:
+            return hit
+        return devtel.costs().derive(
+            full_key, self.devtel_cost_model().step_cost(
+                batch, steps, kv_len, prefill_tokens))
 
     def timed_prefill(self, ids, cache, lens, sample_args, *, batch: int,
                       start=None):
@@ -804,9 +858,17 @@ class DecodeEngine:
                     to_device(done, dev), eos_dev,
                     n_steps=k, t_bucket=self.decode_bucket(pos_hi + k),
                 )
+                tb = self.decode_bucket(pos_hi + k)
                 pos_hi += k
                 flat = packed.cpu().numpy()  # ONE fetch per chunk
-                self.metrics.decode_step.record((time.perf_counter() - t0) / k)
+                t1 = time.perf_counter()
+                self.metrics.decode_step.record((t1 - t0) / k)
+                if devtel.enabled():
+                    # Dispatch to fetch covers the whole chunk: the fold
+                    # prices the k-step signature.
+                    devtel.fold("decode_group", t1 - t0, self.devtel_cost(
+                        "decode_group", (B, 1, k, tb), batch=B, steps=k,
+                        kv_len=tb))
                 chunk_np = flat[: B * k].reshape(B, k)
                 poisoned_np = flat[B * k:].astype(bool)
                 for col in range(k):
@@ -894,16 +956,31 @@ class DecodeEngine:
         nothing more. ``speculative`` (gammas) adds what
         ``generate_speculative(gamma=)`` runs with its default ``ngram``
         and ``chunk_steps``: its step graph at every bucket, and the
-        greedy grouped step of its plain tail."""
+        greedy grouped step of its plain tail. With devtel on it also
+        prices every signature it warms, and marks the steady state at the
+        end: a capture after it, outside a prewarm, is a steady-state
+        recompile."""
         if isinstance(chunk_steps, int):
             chunk_steps = (chunk_steps,)
         if isinstance(speculative, int):
             speculative = (speculative,)
+        with devtel.observer().warming():
+            n = self._prewarm(batch, chunk_steps, buckets, speculative)
+        if devtel.enabled():
+            devtel.observer().mark_steady()
+        return n
+
+    def _prewarm(self, batch: int, chunk_steps: tuple[int, ...],
+                 buckets: bool, speculative: tuple[int, ...]) -> int:
+        dt = devtel.enabled()
         dev = self.device
         cache = self._generate_cache(batch)
         n = 0
         for S in self.seq_buckets():
             sa = self._sample_args(GenerationParams(), batch)
+            if dt:
+                self.devtel_cost("prefill", (batch, S), batch=batch, steps=1,
+                                 kv_len=S, prefill_tokens=batch * (S - 1))
             tok, _ = self._prefill(
                 torch.zeros((batch, S), dtype=torch.int32, device=dev), cache,
                 torch.ones(batch, dtype=torch.int32, device=dev), sa,
@@ -914,6 +991,14 @@ class DecodeEngine:
         cur = torch.ones(batch, dtype=torch.int32, device=dev)
         done = torch.zeros(batch, dtype=torch.bool, device=dev)
         eos = torch.full((batch,), -1, dtype=torch.int32, device=dev)
+        if dt:
+            for tb in self.prewarm_bucket_set() if buckets else [None]:
+                self.devtel_cost("decode", (batch, tb), batch=batch, steps=1,
+                                 kv_len=tb)
+                for k in chunk_steps:
+                    if k > 1:
+                        self.devtel_cost("decode_group", (batch, 1, k, tb),
+                                         batch=batch, steps=k, kv_len=tb)
         for variant in SAMPLING_VARIANTS:
             sa = self._sample_args(variant_params(*variant), batch)
             for tb in self.prewarm_bucket_set() if buckets else [None]:

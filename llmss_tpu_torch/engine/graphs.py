@@ -39,6 +39,8 @@ is captured once as a CUDA graph over persistent buffers and replayed:
   the first of them to be freed releases the lot.
 - **On the CPU** a capture only records its key, and a replay runs the
   same body over the same static buffers.
+- **Profiling**: a capture holds ``devtel.CAPTURE_LOCK``, as does a
+  ``POST /profile`` window, so the two never overlap.
 
 A capture after a prewarm (``EngineMetrics.graph_captures``) is the
 port's steady-state recompile.
@@ -51,6 +53,8 @@ import weakref
 from typing import Callable
 
 import torch
+
+from llmss_tpu_torch.utils import devtel
 
 # The (any_sampled, needs_filter) pairs a batch can take: all greedy;
 # sampled without top-k / top-p; sampled with either.
@@ -382,6 +386,12 @@ class DecodeGraphs:
                  ) -> CapturedStep | None:
         if self.device.type != "cuda":
             return None
+        # A profiler window (POST /profile) never overlaps a capture.
+        with devtel.CAPTURE_LOCK:
+            return self._capture_locked(body, carry)
+
+    def _capture_locked(self, body, carry: list[torch.Tensor]
+                        ) -> CapturedStep:
         dev = self.device
         main = torch.cuda.current_stream(dev)
         if self._side is None:

@@ -77,7 +77,19 @@ blocks)`` receives a finished session turn's exported full blocks, for
 requests registered by ``request_park``. Without the hooks an eviction is
 a drop and a finish exports nothing.
 
-The ragged group runs eagerly. Not in this port yet: device telemetry.
+Telemetry (scheduler.py:132, :621-627, :1655-1680, :1855-1978): each
+group carries its class and its cost (``DecodeEngine.devtel_cost`` at
+the reference's shape keys, a cost-table hit after ``prewarm``), and
+``_process_group`` folds every group's fetch-to-fetch interval, admission
+and ragged groups included, into MFU/MBU (``decode_step`` still records
+clean decode groups only). At each group boundary ``_devtel_sample``
+records the counter tracks: rows by phase, the pending queue, KV blocks
+and the largest free run, the MFU/MBU gauges and the caching allocator's
+bytes. The flight recorder gets the reference's events: ``sched_submit``,
+``admit`` (submit to first token), ``adopt``, ``evict``, ``finish`` and
+the throttled ``group_dispatch`` / ``group_fetch``.
+
+The ragged group runs eagerly.
 """
 
 from __future__ import annotations
@@ -99,6 +111,7 @@ from llmss_tpu_torch.engine.engine import (
     DecodeEngine, GenerationParams, _bucket, _sync, to_device, variant_params,
 )
 from llmss_tpu_torch.engine.graphs import SAMPLING_VARIANTS
+from llmss_tpu_torch.utils import devtel, trace
 
 POISONED = "non-finite logits: row poisoned (NaN/inf in model output)"
 IDLE_POLL_S = 0.005  # run_forever's sleep while nothing is queued or running
@@ -184,6 +197,10 @@ class _InFlightGroup:
     # Rows adopted after this group was dispatched: its values for them
     # belong to the row's previous occupant.
     stale_rows: set = dataclasses.field(default_factory=set)
+    # Devtel: the group's class and cost, attached at dispatch, so the fold
+    # needs no key.
+    kind: str = "decode_group"
+    cost: object = None  # devtel.KernelCost | None
 
 
 class ContinuousBatcher:
@@ -274,6 +291,7 @@ class ContinuousBatcher:
         self._inflight: _InFlightGroup | None = None
         self._pending_adm: _InFlightAdmission | None = None
         self._last_fetch_t: float | None = None
+        self._devtel_last_t = float("-inf")
         self._lock = threading.Lock()
 
     def _dev(self, arr) -> torch.Tensor:
@@ -405,24 +423,26 @@ class ContinuousBatcher:
         self.engine.metrics.set_kv_blocks(in_use=self.allocator.blocks_in_use)
         return ok_items, ok_rows
 
-    def _paged_release_row(self, row: int) -> None:
+    def _paged_release_row(self, row: int) -> float:
         """Return a finished row's blocks now: owned blocks are freed, the
         shared prefix blocks decrefed. Its device table stays stale until
         the next table upload; that is safe because done rows' writes are
-        dropped on the device and nobody reads a freed row."""
+        dropped on the device and nobody reads a freed row. Returns the
+        row's block-seconds (blocks held x the time held)."""
         if not self._paged:
-            return
+            return 0.0
         owned = self._row_owned.pop(row, [])
         shared = self._row_shared.pop(row, [])
         self.allocator.free(owned)
         self.allocator.free(shared)
         self._host_tables[row, :] = self._sentinel
+        held = 0.0
         t0 = self._row_reserve_t.pop(row, None)
         if t0 is not None and owned + shared:
-            self.engine.metrics.add_kv_block_seconds(
-                (time.monotonic() - t0) * (len(owned) + len(shared))
-            )
+            held = (time.monotonic() - t0) * (len(owned) + len(shared))
+            self.engine.metrics.add_kv_block_seconds(held)
         self.engine.metrics.set_kv_blocks(in_use=self.allocator.blocks_in_use)
+        return held
 
     def _paged_scratch_view(self, tables: np.ndarray):
         """An admission 'scratch cache' that SHARES the pool (and an int8
@@ -469,9 +489,33 @@ class ContinuousBatcher:
         drains the device, and returns the number of programs warmed.
         ``prefix_prefill`` is the reference's flag for the prefix-offset
         admission prefills; those run eagerly here, and the step graphs do
-        not depend on a prefix, so it warms nothing more."""
+        not depend on a prefix, so it warms nothing more. With devtel on it
+        prices every group signature the live path can pick (both (chunks,
+        steps) combinations at every bucket, and the ragged step counts)
+        and marks the steady state at the end."""
+        with devtel.observer().warming():
+            n = self._prewarm(seq_buckets)
+        if devtel.enabled():
+            devtel.observer().mark_steady()
+        return n
+
+    def _prewarm(self, seq_buckets: list[int] | None) -> int:
         eng = self.engine
         dev = eng.device
+        if devtel.enabled():
+            for nc, k in sorted({(self.group_chunks, self.chunk_steps),
+                                 (1, self.chunk_steps_low)}):
+                for tb in eng.prewarm_bucket_set():
+                    eng.devtel_cost("decode_group", (self.rows, nc, k, tb),
+                                    batch=self.rows, steps=nc * k, kv_len=tb)
+            if self._chunked:
+                CB = self.chunked_prefill
+                for nc in sorted({self.group_chunks * self.chunk_steps,
+                                  self.chunk_steps_low}):
+                    eng.devtel_cost(
+                        "ragged_group", (self.rows, nc, CB), batch=self.rows,
+                        steps=nc, kv_len=None,
+                        prefill_tokens=nc * self.rows * CB)
         if seq_buckets is None:
             seq_buckets = eng.seq_buckets()
         Ps, p = [], 1
@@ -555,6 +599,9 @@ class ContinuousBatcher:
                 (req_id, list(token_ids), gen, done_cb, stream_cb,
                  time.perf_counter(), prefix, priority, replayed)
             )
+            depth = len(self.pending)
+        if req_id:
+            trace.record(req_id, "sched_submit", queued=depth)
 
     # -- scheduling ---------------------------------------------------------
 
@@ -732,6 +779,8 @@ class ContinuousBatcher:
         with self._lock:
             self._free.append(row)
         self.engine.metrics.add_preempted(1)
+        trace.record(r.req_id, "evict", tokens=len(r.out),
+                     priority=r.priority, for_priority=head[7])
         cb(r.req_id, list(r.out))
         return 1
 
@@ -756,9 +805,15 @@ class ContinuousBatcher:
         # prompt) and the group the admission overlapped. A resumed row
         # records neither: its client saw its first token before the
         # preemption.
+        now = time.perf_counter()
         if not r.replayed:
-            self.engine.metrics.ttft.record(time.perf_counter() - r.t_submit)
+            self.engine.metrics.ttft.record(now - r.t_submit)
             self.engine.metrics.add_request(1)
+        if r.req_id:
+            # "admit": submit to first token (queue, prefill, the group the
+            # admission overlapped); the role worker's "prefill" span is
+            # another phase.
+            trace.record(r.req_id, "admit", dur_s=now - r.t_submit)
         r.awaiting_first = False
         eos = r.gen.eos_token_id if r.gen.eos_token_id is not None else -1
         if first == eos:
@@ -882,6 +937,8 @@ class ContinuousBatcher:
         self._row_pos[row] = n_tokens
         eng.metrics.add_request(1)
         eng.metrics.add_tokens(1)
+        if req_id:
+            trace.record(req_id, "adopt", n_tokens=n_tokens, row=row)
         if len(r.out) >= gen.max_new_tokens:
             self._finish(row, r)
         else:
@@ -943,14 +1000,18 @@ class ContinuousBatcher:
                 and error is None and not cancelled):
             # Before the release: the blocks must still be this row's.
             self._maybe_park(row, r, parked)
-        self._paged_release_row(row)
+        kv_block_s = self._paged_release_row(row)
         with self._lock:
             self._free.append(row)
         self._flush_stream(r)
-        self.engine.metrics.add_finish(
-            "error" if error is not None
-            else "cancelled" if cancelled else "served"
-        )
+        disposition = ("error" if error is not None
+                       else "cancelled" if cancelled else "served")
+        self.engine.metrics.add_finish(disposition)
+        if r.req_id:
+            trace.record(r.req_id, "finish", tokens=len(r.out),
+                         disposition=disposition,
+                         **({"kv_block_s": round(kv_block_s, 6)}
+                            if kv_block_s else {}))
         if error is not None:
             r.done_cb(r.out, error=error)
         elif cancelled:
@@ -1068,11 +1129,20 @@ class ContinuousBatcher:
         with metrics.host_fetch.time():
             flat = group.packed.numpy()
         metrics.add_host_sync()
+        for r in self.active.values():
+            if r.req_id and not r.awaiting_first:
+                # Throttled and sheddable (``group_``).
+                trace.record(r.req_id, "group_fetch", throttle_s=0.05,
+                             chunks=nc, k=k)
         toks = flat[: nc * R * k].reshape(nc, R, k)
         poisoned = flat[nc * R * k:].reshape(nc, R).astype(bool)
         now = time.perf_counter()
         if self._last_fetch_t is not None and not group.has_admission:
             metrics.decode_step.record((now - self._last_fetch_t) / (nc * k))
+        if self._last_fetch_t is not None and group.cost is not None:
+            # Every group folds, admission and ragged groups too: the
+            # interval holds whatever ran on the device between two fetches.
+            devtel.fold(group.kind, now - self._last_fetch_t, group.cost)
         self._last_fetch_t = now
         n = 0
         t_cb = time.perf_counter()
@@ -1183,9 +1253,13 @@ class ContinuousBatcher:
             return self._resolve_admission(adm)
 
         eng = self.engine
+        dt = devtel.enabled()
         done, eos, sa = self._chunk_args()
         done_d, eos_d = self._dev(done), self._dev(eos)
         busy = len(self.active) >= (3 * self.rows) // 4
+        # A capture during this group is charged to its first request.
+        eng.devtel_req_id = next(
+            (r.req_id for r in self.active.values() if r.req_id), None)
         t0 = time.perf_counter()
         if self._chunked and self._inflight_prefill:
             # Mixed batch: prompts in flight stream through the ragged
@@ -1201,9 +1275,17 @@ class ContinuousBatcher:
             adv = qlens.sum(axis=0)
             for row in self._row_pos:
                 self._row_pos[row] += int(adv[row])
-            group = _InFlightGroup(packed=_HostFetch(packed), n_chunks=nc,
-                                   k=k, has_admission=True,
-                                   prefill_firsts=firsts)
+            CB = self.chunked_prefill
+            group = _InFlightGroup(
+                packed=_HostFetch(packed), n_chunks=nc, k=k,
+                has_admission=True, prefill_firsts=firsts,
+                kind="ragged_group",
+                # Priced as the reference prices it: every chunk slot of
+                # every row computed, at max_seq_len.
+                cost=eng.devtel_cost(
+                    "ragged_group", (self.rows, nc, CB), batch=self.rows,
+                    steps=nc, kv_len=None, prefill_tokens=nc * self.rows * CB,
+                ) if dt else None)
         else:
             nc, k = ((self.group_chunks, self.chunk_steps) if busy
                      else (1, self.chunk_steps_low))
@@ -1216,12 +1298,21 @@ class ContinuousBatcher:
             )
             for row in self._row_pos:
                 self._row_pos[row] += nc * k
-            group = _InFlightGroup(packed=_HostFetch(packed), n_chunks=nc,
-                                   k=k,
-                                   has_admission=self._pending_adm is not None)
+            group = _InFlightGroup(
+                packed=_HostFetch(packed), n_chunks=nc, k=k,
+                has_admission=self._pending_adm is not None,
+                cost=eng.devtel_cost(
+                    "decode_group", (self.rows, nc, k, t_bucket),
+                    batch=self.rows, steps=nc * k, kv_len=t_bucket,
+                ) if dt else None)
         self._set_state(last_tok, cur_pos)
         eng.metrics.host_dispatch.record(time.perf_counter() - t0)
         eng.metrics.add_group()
+        eng.devtel_req_id = None
+        for r in self.active.values():
+            if r.req_id and not r.awaiting_first:
+                trace.record(r.req_id, "group_dispatch", throttle_s=0.05,
+                             chunks=nc, k=k)
 
         prev, self._inflight = self._inflight, group
         n = self._process_group(prev) if prev is not None else 0
@@ -1230,7 +1321,42 @@ class ContinuousBatcher:
         # this step's admission.
         self._maybe_preempt()
         self._pending_adm = self._admit_dispatch()
+        if dt:
+            self._devtel_sample()
         return n
+
+    def _devtel_sample(self) -> None:
+        """The counter tracks at a group boundary, at most every 0.05 s:
+        host counters and host tables only, never a device sync (the
+        memory figures are the caching allocator's host counters)."""
+        now = time.monotonic()
+        if now - self._devtel_last_t < 0.05:
+            return
+        self._devtel_last_t = now
+        with self._lock:
+            pending = len(self.pending)
+            free_slots = len(self._free)
+        prefill_rows = len(self._inflight_prefill)
+        tracks = {
+            "rows": {"decode": len(self.active) - prefill_rows,
+                     "prefill": prefill_rows, "free": free_slots},
+            "queue_depth": {"pending": pending},
+        }
+        if self._paged:
+            alloc = self.allocator
+            free = alloc.free_blocks
+            tracks["kv_blocks"] = {"in_use": alloc.num_blocks - free,
+                                   "free": free}
+            tracks["kv_fragmentation"] = {
+                "largest_free_run": alloc.largest_free_run(), "free": free}
+        util = devtel.last_util()
+        if util:
+            tracks["mfu"] = {k: g["mfu"] for k, g in util.items()}
+            tracks["mbu"] = {k: g["mbu"] for k, g in util.items()}
+        mem = devtel.device_memory_stats(self.engine.device)
+        if mem is not None:
+            tracks["device_memory"] = mem
+        devtel.record_counters(tracks, t=now)
 
     @property
     def idle(self) -> bool:

@@ -64,8 +64,16 @@ reference's sites: ``enqueue``, ``lease``, ``lease_renew``, ``redeliver``,
 ``handoff_lease``, ``handoff_renew``, ``reprefill``, ``failover`` and
 ``respond``.
 
-Left for later slices: the controller epoch (the controller slice) and the
-per-request cost hook of ``respond`` (the telemetry slice).
+At ``respond`` the broker derives the request's ``RequestCost`` from this
+process's recorder and feeds the windowed series
+(``metrics.observe_request_cost``): once per request, in the process that
+settles it (broker.py:84-95).
+
+The controller epoch (serve/controller.py): ``acquire_controller_epoch``
+bumps a fleet-wide counter and records its holder, and a controller acts
+only while ``controller_epoch`` still equals its own. In-process it is an
+attribute; Redis keeps it at ``{pqueue}:ctrl:epoch`` (``INCR``) with the
+holder at ``{pqueue}:ctrl:holder``.
 """
 
 from __future__ import annotations
@@ -85,6 +93,7 @@ from llmss_tpu_torch.serve.protocol import (
     SLO_CLASS_STANDARD, SLO_CLASSES, GenerateRequest, GenerateResponse,
     prefix_hash,
 )
+from llmss_tpu_torch.utils import metrics as metrics_mod
 from llmss_tpu_torch.utils import trace
 
 # The reference's delivery counters, in its order (delivery_stats).
@@ -119,6 +128,16 @@ def _record_enqueue(req: GenerateRequest, queue_name: str) -> None:
     trace.ensure_context(req)
     trace.record(req.id, "enqueue", trace_id=req.trace_id, queue=queue_name,
                  **_enqueue_attrs(req))
+
+
+def _observe_cost(resp: GenerateResponse) -> None:
+    """The request's cost from this process's recorder into the windowed
+    series; a no-op with tracing off."""
+    if not trace.enabled():
+        return
+    cost = trace.local_cost(resp.id, error=resp.error)
+    if cost is not None:
+        metrics_mod.observe_request_cost(cost)
 
 
 class Broker(abc.ABC):
@@ -198,6 +217,24 @@ class Broker(abc.ABC):
     @abc.abstractmethod
     def push_request_to(self, worker_id: str, req: GenerateRequest) -> None:
         """Queue a request on one worker's routed queue."""
+
+    # -- the controller epoch ------------------------------------------------
+
+    def acquire_controller_epoch(self, controller_id: str = "") -> int:
+        """Take controller leadership: bump and return the fleet epoch; a
+        controller holding an older one is fenced from acting."""
+        epoch = getattr(self, "_ctrl_epoch", 0) + 1
+        self._ctrl_epoch = epoch
+        self._ctrl_holder = controller_id
+        return epoch
+
+    def controller_epoch(self) -> int:
+        """The current epoch (0: no controller ever)."""
+        return getattr(self, "_ctrl_epoch", 0)
+
+    def controller_holder(self) -> str:
+        """The id of the latest epoch's holder ('' if none)."""
+        return getattr(self, "_ctrl_holder", "")
 
     @abc.abstractmethod
     def routed_depths(self) -> dict:
@@ -404,6 +441,7 @@ class Broker(abc.ABC):
                      **({"error": resp.error} if resp.error else {}),
                      **({"n_tokens": len(resp.token_ids)}
                         if resp.token_ids else {}))
+        _observe_cost(resp)
 
     @abc.abstractmethod
     def _count(self, name: str, n: int = 1) -> None: ...
@@ -610,6 +648,10 @@ class InProcBroker(Broker):
                 del self._worker_expiry[wid]
                 self._workers.pop(wid, None)
             return {wid: dict(info) for wid, info in self._workers.items()}
+
+    def acquire_controller_epoch(self, controller_id: str = "") -> int:
+        with self._worker_lock:
+            return super().acquire_controller_epoch(controller_id)
 
     def push_request_to(self, worker_id: str, req: GenerateRequest) -> None:
         _record_enqueue(req, worker_id)
@@ -1143,6 +1185,21 @@ class RedisBroker(Broker):
             entry.pop("_expires_at", None)
             out[entry["worker_id"]] = entry
         return out
+
+    def acquire_controller_epoch(self, controller_id: str = "") -> int:
+        epoch = int(self._r.incr(f"{self._rq}:ctrl:epoch"))
+        self._r.set(f"{self._rq}:ctrl:holder", controller_id)
+        return epoch
+
+    def controller_epoch(self) -> int:
+        raw = self._r.get(f"{self._rq}:ctrl:epoch")
+        return int(raw) if raw else 0
+
+    def controller_holder(self) -> str:
+        raw = self._r.get(f"{self._rq}:ctrl:holder")
+        if raw is None:
+            return ""
+        return raw.decode() if isinstance(raw, bytes) else str(raw)
 
     def push_request_to(self, worker_id: str, req: GenerateRequest) -> None:
         _record_enqueue(req, worker_id)

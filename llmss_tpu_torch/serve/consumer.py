@@ -61,8 +61,10 @@ occupancy, pool headroom, resident prefix hashes, the store's
 it pops its routed queue before the shared one, and a prefill-role worker
 routes each record to the decode replica ``pick_decode_worker`` chooses
 (the shared handoff queue when none is registered), while a decode-role
-worker pops its routed records first. The windowed series and device
-telemetry of the reference's heartbeat wait for the telemetry slice.
+worker pops its routed records first. The heartbeat also carries the
+windowed series (``series().export``) and the devtel blob, and each
+publish records the broker's queue depths by class as a counter track
+(consumer.py:171-176, :557-576).
 
 ``main`` (``llmss-torch-consumer``) serves a checkpoint from a Redis
 broker on one GPU, optionally under the ``Supervisor``; there is no
@@ -89,6 +91,8 @@ from llmss_tpu_torch.serve.protocol import (
     SLO_CLASS_RANK, STATE_DRAINING, STATE_READY, GenerateRequest,
     GenerateResponse, prefix_hash,
 )
+from llmss_tpu_torch.utils import devtel
+from llmss_tpu_torch.utils import metrics as metrics_mod
 from llmss_tpu_torch.utils import trace
 
 # How long an idle worker blocks on the queue before it looks again.
@@ -123,13 +127,16 @@ class _FleetMember:
 
     def _heartbeat(self) -> dict:
         """The stamps ``evaluate_worker_health`` judges (``heartbeat_ts`` on
-        the wall clock: another process reads its age) and the flight
-        recorder's snapshot."""
+        the wall clock: another process reads its age), the flight
+        recorder's snapshot, the windowed series (cached for a second) and
+        the devtel blob."""
         return {
             "heartbeat_s": self.snapshot_interval_s,
             "heartbeat_ts": time.time(),
-            **({"trace": trace.recorder().export(max_events=256)}
+            **({"trace": trace.recorder().export(max_events=256),
+                "series": metrics_mod.series().export(cache_s=1.0)}
                if trace.enabled() else {}),
+            **({"devtel": devtel.export()} if devtel.enabled() else {}),
         }
 
     def register(self) -> None:
@@ -450,9 +457,10 @@ class ContinuousWorker(_FleetMember):
         """The batcher's host-side occupancy and pool headroom with the
         lifecycle state and the hashes of the prefixes held by either
         layer, the batcher's pool and this worker's LRU, the store's
-        ``kv_tiers``, the heartbeat stamps and the recorder's snapshot
-        (consumer.py:522, without the windowed series and device
-        telemetry); touches no device tensor."""
+        ``kv_tiers``, the heartbeat stamps, the recorder's snapshot, the
+        windowed series and the devtel blob (consumer.py:522), and records
+        the queue depths by class as a counter track; touches no device
+        tensor."""
         snap = self.batcher.load_snapshot()
         hashes = set(snap.get("prefix_hashes") or [])
         hashes.update(prefix_hash(k) for k in self._prefixes)
@@ -467,6 +475,17 @@ class ContinuousWorker(_FleetMember):
                if self.kvstore is not None else {}),
             **self._heartbeat(),
         })
+        if devtel.enabled():
+            # The broker's queue depths by class as a counter track, at
+            # heartbeat cadence: which class's queue a waiting request sat
+            # in.
+            try:
+                by_class = {str(k): int(v) for k, v in
+                            self.broker.queue_depths_by_class().items()}
+            except Exception:  # noqa: BLE001 — telemetry never gates serving
+                by_class = {}
+            if by_class:
+                devtel.record_counters({"queue_by_class": by_class})
         return snap
 
     def prewarm(self, seq_buckets: list[int] | None = None,
@@ -484,9 +503,11 @@ class ContinuousWorker(_FleetMember):
         key = tuple(prefix_ids)
         pfx = self._prefixes.pop(key, None)
         if pfx is None and self.kvstore is not None:
-            pfx = self.kvstore.fetch_prefix(
-                prefix_ids, max_seq_len=self.engine.max_seq_len,
-                device=self.engine.device)
+            with trace.span("-", "kv_promote", worker=self.worker_id,
+                            n_tokens=len(prefix_ids)):
+                pfx = self.kvstore.fetch_prefix(
+                    prefix_ids, max_seq_len=self.engine.max_seq_len,
+                    device=self.engine.device)
         if pfx is None:
             pfx = self.engine.build_prefix(list(prefix_ids))
         self._prefixes[key] = pfx  # most recently used last
@@ -509,7 +530,10 @@ class ContinuousWorker(_FleetMember):
         sid = self._park_sessions.pop(req_id, None)
         if sid is None or self.kvstore is None:
             return
-        self.kvstore.park_session(sid, tokens, blocks, self.engine.block_size)
+        with trace.span(req_id, "kv_park", worker=self.worker_id,
+                        n_tokens=len(tokens)):
+            self.kvstore.park_session(sid, tokens, blocks,
+                                      self.engine.block_size)
 
     def _resume_session(self, session_id: str, ids: list[int]):
         """A ``Prefix`` from the session's parked KV when its tokens
@@ -519,9 +543,11 @@ class ContinuousWorker(_FleetMember):
         if parked is None:
             return None
         tokens, blocks = parked
-        pfx = prefix_from_blocks(tokens, blocks,
-                                 max_seq_len=self.engine.max_seq_len,
-                                 device=self.engine.device)
+        with trace.span("-", "kv_resume", worker=self.worker_id,
+                        n_tokens=len(tokens)):
+            pfx = prefix_from_blocks(tokens, blocks,
+                                     max_seq_len=self.engine.max_seq_len,
+                                     device=self.engine.device)
         self.kvstore.note_reprefill_avoided(len(tokens))
         return pfx
 
@@ -674,7 +700,9 @@ class ContinuousWorker(_FleetMember):
             return True
         try:
             gen = gen_params_from(self.tokenizer, req)
-            d = decode_blocks(rec.payload)
+            with trace.span(req.id, "kv_adopt", trace_id=req.trace_id,
+                            worker=self.worker_id, bytes=len(rec.payload)):
+                d = decode_blocks(rec.payload)
         except Exception as e:  # noqa: BLE001 — a bad record is disposed of
             self.broker.fail_handoff(rec, error=str(e))
             return True

@@ -31,8 +31,8 @@ Over the broker's registry and routed queues (serve/broker.py):
   holder never registered is left to the lease reaper: force-expiring it
   could serve its request twice.
 - ``interactive_burn`` and ``BrownoutController``: the degradation ladder
-  over the interactive TTFT burn rate, pure; wiring it into admission
-  waits for the SLO plane.
+  over the interactive TTFT burn rate; the producer's admission runs it
+  over its own ``/slo`` (serve/producer.py).
 - ``FleetHarness``: N workers on one broker under ``ChaosWorkerHost``
   threads (serve/chaos.py), the CPU substrate of the fleet's chaos tests.
 """

@@ -46,6 +46,7 @@ import torch
 from llmss_tpu_torch.serve.protocol import (
     STATE_READY, GenerateRequest, GenerateResponse,
 )
+from llmss_tpu_torch.utils import metrics as metrics_mod
 from llmss_tpu_torch.utils import trace
 
 # Wire magic and version: decoders refuse any other version.
@@ -261,6 +262,11 @@ class _RoleWorkerBase:
             # The recorder's snapshot, exported at heartbeat cadence and
             # re-attached by the forced per-request publishes.
             **({"trace": self._trace_export(now)} if trace.enabled() else {}),
+            # The windowed series at the same cadence (the registry's
+            # export cache bounds the forced publishes' cost).
+            **({"series": metrics_mod.series().export(
+                cache_s=self.snapshot_interval_s)}
+               if trace.enabled() else {}),
         })
 
     def _trace_export(self, now: float) -> dict:

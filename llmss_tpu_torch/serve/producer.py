@@ -27,15 +27,31 @@ server:
 - ``GET /fleet``: each registered worker's entry, health and queues, and
   the router's counters (serve/fleet.py ``fleet_status``).
 - ``GET /dlq``: the dead-letter queue's depth and newest entries.
+- ``GET /slo``: each objective's attainment and burn rate over the 5 m
+  and 1 h windows of the fleet's windowed series
+  (``metrics.evaluate_slos``), with devtel's steady-state recompile flag.
+- ``GET /compiles``: the fleet's compile events (the port's graph
+  captures) and the steady-state recompile total.
+- ``GET /fleet/timeseries``: every series' points per source on a
+  wall-aligned time base.
+- ``GET /trace/{id}``: the request's stitched timeline and phase
+  breakdown; ``?format=chrome`` gives Chrome trace events with devtel's
+  counter tracks. ``GET /trace/slowest?n=&phase=`` and ``GET
+  /trace/export_workload``.
+- ``POST /profile`` ``{"duration_s", "log_dir"}``: a ``torch.profiler``
+  capture in a background thread, written as a Chrome trace (202; 409
+  while one is in flight). It never overlaps a graph capture.
 
+``/metrics`` carries the brownout ladder's state and, with devtel on, the
+MFU/MBU gauges; its Prometheus text adds the windowed series' cumulative
+counter and histogram families and ``llmss_mfu`` / ``llmss_mbu`` by
+kernel class. Admission runs the brownout ladder (serve/fleet.py) first:
+by default it reads ``interactive_burn`` of this server's own ``/slo``.
 ``ProducerServer(router=)`` places each admitted request through the
-router's policy (serve/fleet.py) instead of the shared queue.
+router's policy (serve/fleet.py) instead of the shared queue;
+``controller=`` (serve/controller.py) shows its state on ``/fleet``.
 
-Left for later slices: the brownout ladder's wiring into admission and
-its ``/fleet`` block (with the SLO plane; with no traffic the reference's
-ladder admits everything, as here), the controller's ``/fleet`` block,
-the trace, SLO, time-series, device-telemetry and profiling endpoints,
-and the optional FastAPI app.
+Left for later: the optional FastAPI app.
 """
 
 from __future__ import annotations
@@ -53,9 +69,21 @@ from llmss_tpu_torch.serve.broker import Broker
 from llmss_tpu_torch.serve.protocol import (
     SLO_CLASS_BATCH, STATE_DEAD, STATE_DRAINING, STATE_READY, GenerateRequest,
 )
-from llmss_tpu_torch.utils.metrics import render_prometheus
+from llmss_tpu_torch.utils import devtel
+from llmss_tpu_torch.utils import metrics as metrics_mod
+from llmss_tpu_torch.utils import trace
+from llmss_tpu_torch.utils.metrics import profile_trace, render_prometheus
 
 _PROM_CONTENT_TYPE = "text/plain; version=0.0.4; charset=utf-8"
+
+# One profiler session per process: one in-flight POST /profile. Its slot
+# expires at its deadline (duration + grace), so a capture thread that
+# died cannot wedge profiling; the next POST takes the slot over.
+_PROFILE_LOCK = threading.Lock()
+_PROFILE_ACTIVE = 0  # generation of the in-flight profile, 0 when idle; guarded_by: _PROFILE_LOCK
+_PROFILE_GEN = 0  # guarded_by: _PROFILE_LOCK
+_PROFILE_DEADLINE = 0.0  # monotonic expiry of the active slot; guarded_by: _PROFILE_LOCK
+_PROFILE_GRACE_S = 5.0
 
 # The share of max_queue_depth each class may fill before it is shed:
 # batch saturates at half, so a batch burst leaves room for the others.
@@ -105,10 +133,20 @@ class QueueDrainEstimator:
 
 def admission_verdict(
     req: GenerateRequest, broker: Broker, max_queue_depth: int,
-    drain: QueueDrainEstimator | None = None,
+    brownout=None, drain: QueueDrainEstimator | None = None,
 ) -> tuple[int, dict, dict] | None:
-    """None admits; else ``(429, body, headers)`` for a class whose share
-    of ``max_queue_depth`` (0: no limit) is full."""
+    """None admits (a brownout rung may have capped a batch request's
+    ``max_new_tokens`` in place); else ``(429, body, headers)``: the
+    brownout ladder first, with its dwell-derived Retry-After, then a
+    class whose share of ``max_queue_depth`` (0: no limit) is full."""
+    if brownout is not None:
+        ok, retry_after = brownout.admit(req)
+        if not ok:
+            return 429, {
+                "error": f"brownout: shedding {req.slo_class}",
+                "id": req.id,
+                "brownout_state": brownout.state()["state"],
+            }, {"Retry-After": str(retry_after)}
     if max_queue_depth:
         frac = CLASS_DEPTH_FRACTION.get(req.slo_class, 1.0)
         limit = max(1, int(max_queue_depth * frac))
@@ -120,6 +158,121 @@ def admission_verdict(
                 "slo_class": req.slo_class,
             }, {"Retry-After": str(retry)}
     return None
+
+
+def collect_trace_exports(broker: Broker) -> list[dict]:
+    """Every flight-recorder export this producer sees: its own recorder's
+    and those riding the workers' registry heartbeats (``trace.stitch``
+    drops the events that arrive both ways)."""
+    exports: list[dict] = []
+    if trace.enabled():
+        exports.append(trace.recorder().export())
+    for _wid, info in sorted(broker.read_workers().items()):
+        blob = info.get("trace")
+        if isinstance(blob, dict):
+            exports.append(blob)
+    return exports
+
+
+def collect_series_exports(broker: Broker) -> tuple[list[dict], dict]:
+    """Every windowed-series export this producer sees, each tagged with
+    its ``source`` (``producer`` or the worker id), and each source's role
+    for ``/fleet/timeseries``. Readers keep one blob per process
+    (``metrics.dedup_series_exports``)."""
+    exports: list[dict] = []
+    sources: dict[str, dict] = {}
+    if trace.enabled():
+        local = dict(metrics_mod.series().export())
+        local["source"] = "producer"
+        exports.append(local)
+        sources["producer"] = {"role": "producer"}
+    for wid, info in sorted(broker.read_workers().items()):
+        blob = info.get("series")
+        if isinstance(blob, dict):
+            tagged = dict(blob)
+            tagged["source"] = wid
+            exports.append(tagged)
+            sources[wid] = {"role": info.get("role", "unified")}
+    return exports, sources
+
+
+def collect_devtel_exports(broker: Broker) -> list[dict]:
+    """Every devtel export this producer sees, its own and the heartbeats',
+    one per process."""
+    exports: list[dict] = []
+    if devtel.enabled():
+        exports.append(devtel.export())
+    for _wid, info in sorted(broker.read_workers().items()):
+        blob = info.get("devtel")
+        if isinstance(blob, dict):
+            exports.append(blob)
+    return devtel.dedup_exports(exports)
+
+
+def trace_timeline_response(broker: Broker, req_id: str,
+                            fmt: str = "") -> tuple[int, dict]:
+    """``GET /trace/{id}``: the stitched timeline (404 when no process
+    recorded the id); ``fmt == "chrome"``: Chrome trace events with the
+    fleet's devtel counter tracks beside the request's spans."""
+    exports = collect_trace_exports(broker)
+    if fmt == "chrome":
+        if not trace.stitch(exports, req_id=req_id):
+            return 404, {"error": f"no trace for {req_id}"}
+        return 200, trace.to_chrome_trace(
+            exports, req_id=req_id, counters=collect_devtel_exports(broker))
+    tl = trace.timeline(exports, req_id)
+    if tl is None:
+        return 404, {"error": f"no trace for {req_id}"}
+    return 200, tl
+
+
+def start_profile(log_dir: str | None = None,
+                  duration_s: float = 3.0) -> tuple[int, dict]:
+    """``POST /profile``: a ``torch.profiler`` capture of ``duration_s``
+    seconds (0.1-60) in a background thread while serving goes on, written
+    into ``log_dir`` (a new temporary directory by default) as
+    ``trace.json``. 409 while one is in flight; a slot past its deadline
+    is taken over. The window holds ``devtel.CAPTURE_LOCK``: it never
+    overlaps a graph capture."""
+    global _PROFILE_ACTIVE, _PROFILE_GEN, _PROFILE_DEADLINE
+    import tempfile
+
+    try:
+        duration_s = min(max(float(duration_s), 0.1), 60.0)
+    except (TypeError, ValueError):
+        return 400, {"error": "duration_s must be a number"}
+    with _PROFILE_LOCK:
+        now = time.monotonic()
+        if _PROFILE_ACTIVE and now < _PROFILE_DEADLINE:
+            return 409, {
+                "error": "profile already in progress",
+                "retry_after_s": round(_PROFILE_DEADLINE - now, 3),
+            }
+        stolen = bool(_PROFILE_ACTIVE)
+        _PROFILE_GEN += 1
+        gen = _PROFILE_ACTIVE = _PROFILE_GEN
+        _PROFILE_DEADLINE = now + duration_s + _PROFILE_GRACE_S
+    if log_dir is None:
+        log_dir = tempfile.mkdtemp(prefix="llmss-profile-")
+
+    def run():
+        global _PROFILE_ACTIVE
+        try:
+            with devtel.CAPTURE_LOCK, profile_trace(log_dir):
+                time.sleep(duration_s)
+        except Exception:  # noqa: BLE001 — a background capture is best-effort
+            pass
+        finally:
+            with _PROFILE_LOCK:
+                # Only the current generation frees the slot.
+                if _PROFILE_ACTIVE == gen:
+                    _PROFILE_ACTIVE = 0
+
+    threading.Thread(target=run, name="llmss-profile", daemon=True).start()
+    return 202, {
+        "profiling": True, "log_dir": log_dir, "duration_s": duration_s,
+        **({"stole_wedged_slot": True} if stolen else {}),
+    }
 
 
 def evaluate_worker_health(
@@ -188,11 +341,27 @@ class ProducerServer:
 
     def __init__(self, broker: Broker, host: str = "0.0.0.0",
                  port: int = 8000, timeout_s: float = 300.0,
-                 max_queue_depth: int = 1024, router=None):
+                 max_queue_depth: int = 1024, router=None,
+                 slo_objectives=None, brownout=None, controller=None):
         self.broker = broker
         # A serve.fleet.Router places each request by policy; None: the
         # shared queue.
         self.router = router
+        # A serve.controller.FleetController, shown on /fleet; whoever
+        # owns the control loop ticks it.
+        self.controller = controller
+        # /slo's objectives; None: metrics.DEFAULT_SLO_OBJECTIVES.
+        self.slo_objectives = slo_objectives
+        # The brownout ladder; by default fed by this server's own /slo
+        # (with no traffic the burn reads 0.0: rung 0, admit all).
+        if brownout is None:
+            from llmss_tpu_torch.serve.fleet import (
+                BrownoutController, interactive_burn,
+            )
+
+            brownout = BrownoutController(
+                lambda: interactive_burn(self.slo()))
+        self.brownout = brownout
         self.drain_estimator = QueueDrainEstimator()
         self.timeout_s = timeout_s
         self.max_queue_depth = max_queue_depth
@@ -234,36 +403,68 @@ class ProducerServer:
                 if path == "/health":
                     self._reply(*outer.health())
                 elif path == "/metrics":
-                    payload = outer.metrics_payload()
                     if q.get("format", [""])[0] == "prometheus":
-                        self._send(200, render_prometheus(payload).encode(),
+                        self._send(200, outer.prometheus().encode(),
                                    _PROM_CONTENT_TYPE)
                     else:
-                        self._reply(200, payload)
+                        self._reply(200, outer.metrics_payload())
+                elif path == "/fleet/timeseries":
+                    self._reply(200, outer.timeseries())
                 elif path == "/fleet":
                     self._reply(200, outer.fleet())
+                elif path == "/slo":
+                    self._reply(200, outer.slo())
+                elif path == "/compiles":
+                    self._reply(200, outer.compiles())
                 elif path == "/dlq":
                     self._reply(200, {"depth": outer.broker.dlq_depth(),
                                       "requests": outer.broker.read_dlq()})
+                elif path == "/trace/slowest":
+                    try:
+                        n = int(q.get("n", ["10"])[0])
+                    except ValueError:
+                        self._reply(400, {"error": "n must be an integer"})
+                        return
+                    phase = q.get("phase", [None])[0] or None
+                    self._reply(200,
+                                {"slowest": outer.trace_slowest(n, phase)})
+                elif path == "/trace/export_workload":
+                    self._reply(200, outer.workload())
+                elif path.startswith("/trace/"):
+                    self._reply(*trace_timeline_response(
+                        outer.broker, path[len("/trace/"):],
+                        q.get("format", [""])[0]))
                 else:
                     self._reply(404, {"error": "not found"})
 
             def _admit(self, req: GenerateRequest) -> bool:
-                """Lifecycle and backlog admission, and the deadline stamp;
-                False once the 503 or 429 is sent."""
+                """Lifecycle, brownout and backlog admission, and the
+                deadline stamp; False once the 503 or 429 is sent. Each
+                verdict is a flight-recorder event (``reject`` /
+                ``accept``)."""
+                trace.ensure_context(req)
                 state = outer.worker_unavailable()
                 if state is not None:
+                    trace.record(req.id, "reject", trace_id=req.trace_id,
+                                 reason=f"worker {state}")
                     self._reply(503, {"error": f"worker {state}", "id": req.id},
                                 {"Retry-After": "1"})
                     return False
+                outer.brownout.tick()
                 verdict = admission_verdict(req, outer.broker,
                                             outer.max_queue_depth,
+                                            outer.brownout,
                                             drain=outer.drain_estimator)
                 if verdict is not None:
+                    trace.record(req.id, "reject", trace_id=req.trace_id,
+                                 reason=verdict[1].get("error", "shed"),
+                                 slo_class=req.slo_class)
                     self._reply(*verdict)
                     return False
                 if req.deadline_ts is None:
                     req.deadline_ts = time.time() + outer.timeout_s
+                trace.record(req.id, "accept", trace_id=req.trace_id,
+                             timeout_s=outer.timeout_s, stream=req.stream)
                 return True
 
             def _stream_response(self, req: GenerateRequest) -> None:
@@ -311,6 +512,16 @@ class ProducerServer:
                     outer.broker.drop_stream(req.id)
 
             def do_POST(self):
+                if self.path == "/profile":
+                    try:
+                        raw = self._read_json()
+                        body = json.loads(raw) if raw else {}
+                    except Exception as e:  # noqa: BLE001 — client error
+                        self._reply(400, {"error": str(e)})
+                        return
+                    self._reply(*start_profile(body.get("log_dir"),
+                                               body.get("duration_s", 3.0)))
+                    return
                 if self.path == "/cancel":
                     try:
                         rid = json.loads(self._read_json())["id"]
@@ -369,24 +580,76 @@ class ProducerServer:
         return code, body
 
     def fleet(self) -> dict:
-        """GET /fleet: ``fleet_status`` with the router's counters."""
+        """GET /fleet: ``fleet_status`` with the router's counters, the
+        brownout ladder's position and the controller's state."""
         from llmss_tpu_torch.serve.fleet import fleet_status
 
-        return fleet_status(self.broker, self.router,
-                            self.HEARTBEAT_STALE_FACTOR)
+        out = fleet_status(self.broker, self.router,
+                           self.HEARTBEAT_STALE_FACTOR)
+        out["brownout"] = self.brownout.state()
+        if self.controller is not None:
+            out["controller"] = self.controller.state()
+        return out
 
     def metrics_payload(self) -> dict:
         """The GET /metrics payload (JSON, and the Prometheus rendering's
-        input)."""
+        input): with devtel on somewhere in the fleet, a ``devtel`` block
+        (the MFU/MBU gauges and the recompile flag)."""
         payload = {
             **self.broker.read_metrics(),
             "delivery": self.broker.delivery_stats(),
             "queue_depths_by_class": self.broker.queue_depths_by_class(),
+            "brownout": self.brownout.state(),
         }
         fleet = self.fleet_metrics()
         if fleet is not None:
             payload["fleet"] = fleet
+        dt = collect_devtel_exports(self.broker)
+        if dt:
+            payload["devtel"] = {**devtel.merged_gauges(dt),
+                                 "compiles": devtel.recompile_flag(dt)}
         return payload
+
+    def prometheus(self) -> str:
+        """``GET /metrics?format=prometheus``: the payload's gauges, the
+        windowed series' cumulative families and the MFU/MBU gauges."""
+        exports, _src = collect_series_exports(self.broker)
+        return render_prometheus(
+            self.metrics_payload(),
+            series=metrics_mod.cumulative_summary(exports),
+            util=devtel.merged_gauges(collect_devtel_exports(self.broker)))
+
+    def slo(self) -> dict:
+        """GET /slo: attainment and burn rates per objective over the
+        fleet's windowed series, and, with devtel on, the ``compile``
+        block flagging steady-state recompiles."""
+        exports, _src = collect_series_exports(self.broker)
+        out = metrics_mod.evaluate_slos(exports, self.slo_objectives)
+        dt = collect_devtel_exports(self.broker)
+        if dt:
+            out["compile"] = devtel.recompile_flag(dt)
+        return out
+
+    def compiles(self) -> dict:
+        """GET /compiles: the fleet's compile events, wall-aligned."""
+        return devtel.compiles_payload(collect_devtel_exports(self.broker))
+
+    def timeseries(self) -> dict:
+        """GET /fleet/timeseries: each series' windowed points per source."""
+        exports, sources = collect_series_exports(self.broker)
+        return metrics_mod.timeseries_payload(exports, sources)
+
+    def trace_slowest(self, n: int = 10,
+                      phase: str | None = None) -> list[dict]:
+        """GET /trace/slowest: the n slowest requests the fleet retains,
+        each with its dominant phase (``phase`` reranks by that phase)."""
+        return trace.slowest(collect_trace_exports(self.broker), n=n,
+                             phase=phase)
+
+    def workload(self) -> dict:
+        """GET /trace/export_workload: the retained timelines as an arrival
+        process."""
+        return trace.export_workload(collect_trace_exports(self.broker))
 
     def fleet_metrics(self) -> dict | None:
         """The /metrics ``fleet`` block (producer.py:794): each worker's
@@ -477,7 +740,15 @@ def main(argv=None):
                         help="fleet routing policy: place requests on the "
                              "registered workers' routed queues (workers run "
                              "with --worker_id); omit for the shared queue")
+    parser.add_argument("--slo_config", default=None,
+                        help="a JSON list of SLO objectives for GET /slo "
+                             "(the schema of metrics.DEFAULT_SLO_OBJECTIVES); "
+                             "omit for the defaults")
     args = parser.parse_args(argv)
+    slo_objectives = None
+    if args.slo_config:
+        with open(args.slo_config) as f:
+            slo_objectives = json.load(f)
 
     from llmss_tpu_torch.serve.broker import RedisBroker
 
@@ -490,7 +761,7 @@ def main(argv=None):
     server = ProducerServer(broker, args.host, args.port,
                             timeout_s=args.timeout_s,
                             max_queue_depth=args.max_queue_depth,
-                            router=router)
+                            router=router, slo_objectives=slo_objectives)
     print(f"producer listening on {args.host}:{server.port}", flush=True)
     server.serve_forever()
 

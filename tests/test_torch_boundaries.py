@@ -3,13 +3,16 @@ package, nor ``ml_dtypes``, ``transformers``, ``safetensors`` or
 ``fastapi`` (the GPU machine has none of them), and loads ``redis`` only when a RedisBroker is
 built without a client; its entry points default to the GPU and raise
 without one, a CUDA request never falls back to the plain CPU versions,
-and a model whose head dim no kernel takes is refused on the GPU at
-construction."""
+a model whose head dim no kernel takes is refused on the GPU at
+construction, and the telemetry plane reaches ``torch.profiler`` only when
+a profile is asked for."""
 
 import ast
 import dataclasses
+import json
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import pytest
@@ -275,3 +278,95 @@ def test_fleet_phases_hold_their_own_audit():
         assert not {m for m in mods if m.split(".")[0] != "llmss_tpu_torch"}, name
         assert "invariants" not in src and "audit_exactly_once" not in names
     assert "answered twice" in ast.unparse(funcs["_fleet_pass"])
+
+
+def test_telemetry_modules_hold_the_boundaries():
+    """``utils/devtel.py``, ``utils/signatures.py``, ``serve/controller.py``
+    and the producer, imported in a fresh interpreter with a producer
+    serving every endpoint, load neither ``jax``, the JAX package,
+    ``redis`` nor ``fastapi``."""
+    code = (
+        "import json, sys, urllib.request\n"
+        "import llmss_tpu_torch.utils.devtel, llmss_tpu_torch.utils.signatures\n"
+        "import llmss_tpu_torch.serve.controller as c\n"
+        "from llmss_tpu_torch.serve.broker import InProcBroker\n"
+        "from llmss_tpu_torch.serve.producer import ProducerServer\n"
+        "srv = ProducerServer(InProcBroker(), host='127.0.0.1', port=0)\n"
+        "srv.controller = c.FleetController(srv.broker, spawn=str,\n"
+        "    retire=str, read_telemetry=c.producer_telemetry(srv))\n"
+        "srv.start()\n"
+        "codes = []\n"
+        "for p in ('/slo', '/compiles', '/fleet', '/fleet/timeseries',\n"
+        "          '/metrics', '/metrics?format=prometheus', '/dlq',\n"
+        "          '/trace/slowest', '/trace/export_workload', '/health'):\n"
+        "    with urllib.request.urlopen(f'http://127.0.0.1:{srv.port}{p}') as r:\n"
+        "        codes.append(r.status)\n"
+        "srv.controller.tick(now=0.0)\n"
+        "srv.stop()\n"
+        "bad = [m for m in ('jax', 'jaxlib', 'llmss_tpu', 'redis', 'fastapi')\n"
+        "       if m in sys.modules]\n"
+        "print(json.dumps({'codes': codes, 'bad': bad}))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, timeout=120,
+                         capture_output=True, text=True)
+    assert out.returncode == 0, out.stderr
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert got == {"codes": [200] * 10, "bad": []}
+
+
+def test_profiler_is_reached_only_when_a_profile_is_asked_for(monkeypatch,
+                                                              tmp_path):
+    """No port module imports ``torch.profiler`` at its top level
+    (``profile_trace`` does, when called), and a producer serving every
+    GET endpoint never starts a profiler; ``POST /profile`` does."""
+    for rel in ("utils/metrics.py", "utils/devtel.py", "utils/trace.py",
+                "serve/producer.py", "serve/controller.py"):
+        tree = ast.parse((ROOT / "llmss_tpu_torch" / rel).read_text())
+        for node in tree.body:
+            names = ([a.name for a in node.names]
+                     if isinstance(node, ast.Import) else
+                     [node.module or ""] if isinstance(node, ast.ImportFrom)
+                     else [])
+            assert not [n for n in names if "profiler" in n], rel
+    import urllib.request
+
+    import torch.profiler
+
+    from llmss_tpu_torch.serve import producer as producer_mod
+    from llmss_tpu_torch.serve.broker import InProcBroker
+    from llmss_tpu_torch.serve.producer import ProducerServer
+
+    started = []
+
+    class Probe:
+        def __init__(self, *a, **kw):
+            started.append(kw)
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+        def export_chrome_trace(self, path):
+            Path(path).write_text("{}")
+
+    monkeypatch.setattr(torch.profiler, "profile", Probe)
+    srv = ProducerServer(InProcBroker(), host="127.0.0.1", port=0)
+    srv.start()
+    try:
+        for p in ("/slo", "/compiles", "/fleet", "/metrics",
+                  "/metrics?format=prometheus", "/trace/slowest"):
+            urllib.request.urlopen(f"http://127.0.0.1:{srv.port}{p}").read()
+        assert started == []
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{srv.port}/profile",
+            data=json.dumps({"duration_s": 0.1,
+                             "log_dir": str(tmp_path)}).encode())
+        with urllib.request.urlopen(req) as r:
+            assert r.status == 202
+        end = time.monotonic() + 30
+        while producer_mod._PROFILE_ACTIVE and time.monotonic() < end:
+            time.sleep(0.02)
+        assert len(started) == 1 and (tmp_path / "trace.json").exists()
+    finally:
+        srv.stop()

@@ -553,20 +553,20 @@ def test_anonymous_worker_stays_out_of_registry():
 
 def test_capabilities_and_snapshot_keys_equal_the_reference():
     """The registration payload and the batch worker's heartbeat carry the
-    reference's keys (its windowed series and device telemetry wait for
-    the telemetry slice)."""
+    reference's keys, the windowed series and the devtel blob included
+    (whose contents the telemetry tests hold)."""
     assert tconsumer.worker_capabilities("w0", ScriptedEngine()) == \
         rconsumer.worker_capabilities("w0", rchaos.ScriptedEngine())
     tw = Worker(ScriptedEngine(), InProcBroker(), batch_size=2,
                 worker_id="w0")
     rw = rconsumer.Worker(rchaos.ScriptedEngine(), rbroker.InProcBroker(),
                           batch_size=2, worker_id="w0")
-    want = set(rw.load_snapshot()) - {"series", "devtel"}
+    want = set(rw.load_snapshot())
     assert set(tw.load_snapshot()) == want
+    blobs = ("heartbeat_ts", "trace", "series", "devtel")
     assert {k: v for k, v in tw.load_snapshot().items()
-            if k not in ("heartbeat_ts", "trace")} == {
-        k: v for k, v in rw.load_snapshot().items()
-        if k in want and k not in ("heartbeat_ts", "trace")}
+            if k not in blobs} == {
+        k: v for k, v in rw.load_snapshot().items() if k not in blobs}
 
 
 CFG = dict(model_type="llama", vocab_size=128, hidden_size=64, n_layers=2,
