@@ -43,7 +43,11 @@ exits non-zero without printing a result:
               KV), each with its bound share; at the verify shape the tile
               also at 1-3 forced splits folded in its cluster and by a
               second launch ("cluster_ms", "two_launch_ms"); timed as a
-              phase of its own;
+              phase of its own; then the mesh's kernels (check_mesh_kernels):
+              K1 and K2 at the local heads of tp 2 and 4 at the engine
+              phase's shapes, and their state-out forms (each query row's
+              fp32 softmax state over one KV chunk) at the sp = 2 chunk
+              shapes, against the plain versions' states;
 4. reference -- a tiny fp32 llama generates the same greedy tokens through
               the kernels on the card, decoding by CUDA-graph replays, as
               through the plain path on the CPU;
@@ -83,6 +87,12 @@ exits non-zero without printing a result:
               tokens, spec_stats equal the CPU's; then an engine with
               nothing prewarmed whose rows cross into a new bucket between
               groups (a capture mid-call), held the same way;
+   reference_parallel -- worlds of ranks sharing the card over gloo with
+              CUDA tensors (host-staged): tp 2, sp 2, dp 2, tp 4 and
+              dp 2 x sp 2 x tp 2, each over tiny fp32 llama, gpt_bigcode
+              and gpt2 models (GQA, MQA with learned positions, an uneven
+              tied vocabulary): every rank's card tokens equal the port's
+              single-process CPU tokens, no graph captured under gloo;
    reference_families -- the same for a tiny fp32 model of every family
               of the registry (GPT-J, GPT-BigCode, GPT-2, Llama, Mistral,
               Qwen2, GPT-NeoX, Phi-3 with LongRoPE on both sides of its
@@ -185,7 +195,8 @@ exits non-zero without printing a result:
    gptj_6b, starcoder -- the published configs of EleutherAI/gpt-j-6b
               (D 256, untied biased head) and bigcode/starcoder (48 query
               heads on one KV head, learned positions) at full width and
-              depth, random bf16 weights from a seed: prewarm, generate
+              a quarter of their depth (7 and 10 layers), random bf16
+              weights from a seed: prewarm, generate
               twice (identical tokens, launch counts, no capture), prefill
               and decode chunk profiled against the weight-read bound, a
               split and a chunked ContinuousWorker pass, a paged decode
@@ -214,17 +225,27 @@ exits non-zero without printing a result:
               pool), dense, paged split and chunked, fp32 and int8, and
               T1 capped at 0: card tokens and store counts equal the
               CPU's, fp32 tokens equal the card's without a store;
-   serve_tiers -- the store at Llama-2-7B width (serve_continuous's
-              weights and pool, a fresh engine): prefix waves on four
+   serve_tiers -- the store at Llama-2-7B width, 16 layers (its seed,
+              serve_continuous's pool, a fresh engine): prefix waves on four
               600-token system prompts without a store, with T1 at 1 GiB
               and at 0, and a second worker promoting what the first
               demoted; four sessions of three turns without a store, with
               T1 at 1 GiB, and chunked; per pass wall, TTFT, prompt tokens,
               peak blocks and device memory, store stats and per-event
               ms, the counts equal a CPU rehearsal, no capture; then
-              promotion against build_prefix by prefix length. Last, so
-              the store's threads and pinned buffers share the process
-              with no profiled phase.
+              promotion against build_prefix by prefix length. After the
+              profiled phases, so the store's threads and pinned buffers
+              share the process with none of them.
+9. parallel -- the mesh at Llama-2-7B width: the engine phase's weights,
+              prompts and 64 new tokens as tp = 2 and sp = 2 worlds of two
+              processes on the card (gloo), each rank holding its slice:
+              tokens against the single-process engine's, first-token
+              logits within 5%, decode ms per step, per-rank weight bytes,
+              K1 / K2 launches per prefill and step; then a mesh of one
+              rank over NCCL in this process, which issues no collective
+              (an axis of one rank drops them) and whose prewarm captures
+              the step graphs: the engine phase's tokens, no capture after
+              the prewarm.
 
 Then one JSON line with every kernel's numbers, the nvidia-smi line, and
 last the result line {"ok": true, "device": {...}}.
@@ -238,11 +259,13 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import faulthandler
 import gc
 import json
 import math
 import os
 import re
+import shutil
 import struct
 import subprocess
 import sys
@@ -273,6 +296,10 @@ FP32_FLOPS = 67e12  # H100 SXM fp32 outside the tensor cores
 REL_TOL = {torch.bfloat16: 2.0**-7, torch.float16: 2.0**-10,
            torch.float32: 2.0**-16}
 
+# serve_fleet, serve_tiers and speculative run the first half of these
+# layers (their checks do not depend on depth), so that the run with the
+# mesh phases fits its time limit on slower hosts (PERF.md).
+HALF_LAYERS = 16
 LLAMA2_7B = dict(
     model_type="llama", vocab_size=32000, hidden_size=4096, n_layers=32,
     n_heads=32, n_kv_heads=32, head_dim=128, intermediate_size=11008,
@@ -939,45 +966,11 @@ def check_kernels() -> dict:
     first case of each list is the shape the engine phase gives the kernel
     (prompts of 128/100/77/128 tokens padded to 128, decode in the 192-slot
     bucket); its numbers go into the final kernels line."""
-    from llmss_tpu_torch.ops import _build
-    from llmss_tpu_torch.ops import attention as att
-    from llmss_tpu_torch.ops import decode_attention as da
-    from llmss_tpu_torch.ops import flash_attention as fa
-
     out = {}
     worst = 0.0
     for c in k1_cases():
-        args = (c["q"], c["k"], c["v"], c["qp"], c["kvp"])
-        kw = dict(window=c["window"])
-        got = fa.flash_attention(*args, **kw).float()
-        q32, k32, v32 = c["q"].float(), c["k"].float(), c["v"].float()
-        ref = fa.flash_attention_ref(q32, k32, v32, c["qp"], c["kvp"], **kw)
-        ref_abs = fa.flash_attention_ref(q32, k32, v32.abs(), c["qp"],
-                                         c["kvp"], **kw)
-        err, ratio = _agree("K1", c["name"], got, ref, ref_abs, c["q"].dtype)
+        row, err = _k1_row(c)
         worst = max(worst, err)
-        # Bound: each input read once, the output written once, counting
-        # only the live KV slots and the visible query-key pairs.
-        B, S, Hq, D = c["q"].shape
-        Hkv = c["k"].shape[2]
-        mask = att.make_causal_mask(c["qp"], c["kvp"], c["kvp"] >= 0,
-                                    c["window"])
-        pairs = int(mask.sum().item())
-        live_slots = int((c["kvp"] >= 0).sum().item())
-        es = c["q"].element_size()
-        nbytes = (2 * c["q"].numel() * es + 2 * live_slots * Hkv * D * es
-                  + c["qp"].numel() * 4 + c["kvp"].numel() * 4)
-        b_ms, b_by = bound(nbytes, 4.0 * pairs * Hq * D, c["q"].dtype)
-        row = {"phase": "kernel", "kernel": "K1", "case": c["name"],
-               "impl": fa.kernel_plan(c["q"].dtype, D)[0],
-               "max_abs_err": err, "rel_tol": REL_TOL[c["q"].dtype],
-               "err_over_tol": ratio,
-               "ms": device_ms(lambda: fa.flash_attention(*args, **kw)),
-               "plain_ms": profiled_ms(
-                   lambda: fa.flash_attention_ref(*args, **kw), iters=5),
-               "library_ms": device_ms(
-                   lambda: _sdpa(c["q"], c["k"], c["v"], mask[:, None])),
-               "bound_ms": b_ms, "bound_by": b_by}
         out.setdefault("K1", row)
         out.setdefault("cases", {})[c["name"]] = row
         if c["name"] in ("k1_engine_prefill", "k1_7b_padded",
@@ -994,73 +987,7 @@ def check_kernels() -> dict:
 
     worst_of = {}
     for c in k2_cases():
-        args = (c["q"], c["kc"], c["vc"], c["kn"], c["vn"], c["qpos"],
-                c["kvp"], c["slots"], c["layer"])
-        kw = dict(t_len=c["t_len"], window=c["window"], k_scale=c["ks"],
-                  v_scale=c["vs"])
-        got = da.decode_attention(*args, **kw).float()
-        # fp32 plain version (an int8 cache stays int8: it converts exactly)
-        q32, kc32, vc32, kn32, vn32 = (
-            a.float() if a.is_floating_point() else a
-            for a in (c["q"], c["kc"], c["vc"], c["kn"], c["vn"]))
-        pos = (c["qpos"], c["kvp"], c["slots"], c["layer"])
-        ref = da.decode_attention_ref(q32, kc32, vc32, kn32, vn32, *pos, **kw)
-        ref_abs = da.decode_attention_ref(q32, kc32, vc32.abs(), kn32,
-                                          vn32.abs(), *pos, **kw)
-        err, ratio = _agree("K2", c["name"], got, ref, ref_abs, c["q"].dtype)
-        # An empty row attends only its own fresh token: exactly v_new.
-        G = c["q"].shape[2] // c["kn"].shape[2]
-        for b in range(c["q"].shape[0]):
-            if int(c["qpos"][b, 0]) == 0 and not torch.equal(
-                    got[b, 0], vn32[b, 0].repeat_interleave(G, 0)):
-                raise AssertionError(f"K2 {c['name']}: empty row {b} != v_new")
-        # Bound: only the visible cache slots' K/V (and int8 scales) are
-        # needed, plus q, the fresh K/V, the positions and the output.
-        B, _, Hq, D = c["q"].shape
-        Hkv = c["kc"].shape[3]
-        t = c["t_len"]
-        pen = att.decode_mask_penalty(c["qpos"], c["kvp"][:, :t],
-                                      c["slots"], c["window"])
-        visible = int((pen == 0).sum().item())
-        es = c["q"].element_size()
-        slot_bytes = D * c["kc"].element_size() + (4 if c["ks"] is not None else 0)
-        nbytes = (2 * visible * Hkv * slot_bytes + 2 * c["q"].numel() * es
-                  + 2 * c["kn"].numel() * es + B * t * 4 + 2 * B * 4)
-        b_ms, b_by = bound(nbytes, 4.0 * (visible + B) * Hq * D, c["q"].dtype)
-
-        def layer_t(x):
-            return None if x is None else x[c["layer"], :, :t]
-
-        mask = (pen == 0)[:, None, None, :]
-        plan = da.kernel_plan(c["q"].dtype, B, Hq, Hkv, D, t,
-                              sms=_build.sm_count(c["q"].device),
-                              kv_dtype=c["kc"].dtype)
-        row = {"phase": "kernel", "kernel": "K2", "case": c["name"],
-               "kv": str(c["kc"].dtype).removeprefix("torch."),
-               "impl": plan.impl, "splits": plan.splits,
-               "split_slots": plan.split_slots,
-               "max_abs_err": err, "rel_tol": REL_TOL[c["q"].dtype],
-               "err_over_tol": ratio,
-               "ms": device_ms(lambda: da.decode_attention(*args, **kw), iters=50),
-               "plain_ms": profiled_ms(lambda: da.decode_attention_ref(*args, **kw)),
-               # int8: the layer's slice dequantized, then SDPA.
-               "library_ms": device_ms(lambda: _sdpa(
-                   c["q"], _dequant(layer_t(c["kc"]), layer_t(c["ks"]),
-                                    c["q"].dtype),
-                   _dequant(layer_t(c["vc"]), layer_t(c["vs"]), c["q"].dtype),
-                   mask), iters=50),
-               "bound_ms": b_ms, "bound_by": b_by}
-        if c["ks"] is not None:
-            row["library"] = "dequantize_kv + scaled_dot_product_attention"
-        _unsplit(row, lambda: da._launch(*args, max_splits=1, **kw),
-                 lambda g: _agree("K2", c["name"] + " unsplit", g.float(), ref,
-                                  ref_abs, c["q"].dtype))
-        _main_path_impl("K2", row, _decode_impl(c["q"], Hkv, c["ks"] is not None))
-        if c["name"] in {k2 for k2, _ in G_TILE_CASES.values()}:
-            _both_templates(
-                row, lambda g_tile: da._launch(*args, g_tile=g_tile, **kw),
-                lambda g: _agree("K2", c["name"] + " forced", g.float(), ref,
-                                 ref_abs, c["q"].dtype))
+        row, err = _k2_row(c)
         out.setdefault(c["row"], row)
         out["cases"][c["name"]] = row
         worst_of[c["row"]] = max(worst_of.get(c["row"], 0.0), err)
@@ -1075,6 +1002,121 @@ def check_kernels() -> dict:
     # blocks): the plan keeps it whole.
     _main_path_split("K2", out["K2"], split=False)
     return out
+
+
+def _k1_row(c) -> tuple[dict, float]:
+    """One K1 case against its plain version: its kernel line and error."""
+    from llmss_tpu_torch.ops import attention as att
+    from llmss_tpu_torch.ops import flash_attention as fa
+
+    args = (c["q"], c["k"], c["v"], c["qp"], c["kvp"])
+    kw = dict(window=c["window"])
+    got = fa.flash_attention(*args, **kw).float()
+    q32, k32, v32 = c["q"].float(), c["k"].float(), c["v"].float()
+    ref = fa.flash_attention_ref(q32, k32, v32, c["qp"], c["kvp"], **kw)
+    ref_abs = fa.flash_attention_ref(q32, k32, v32.abs(), c["qp"],
+                                     c["kvp"], **kw)
+    err, ratio = _agree("K1", c["name"], got, ref, ref_abs, c["q"].dtype)
+    # Bound: each input read once, the output written once, counting
+    # only the live KV slots and the visible query-key pairs.
+    B, S, Hq, D = c["q"].shape
+    Hkv = c["k"].shape[2]
+    mask = att.make_causal_mask(c["qp"], c["kvp"], c["kvp"] >= 0,
+                                c["window"])
+    pairs = int(mask.sum().item())
+    live_slots = int((c["kvp"] >= 0).sum().item())
+    es = c["q"].element_size()
+    nbytes = (2 * c["q"].numel() * es + 2 * live_slots * Hkv * D * es
+              + c["qp"].numel() * 4 + c["kvp"].numel() * 4)
+    b_ms, b_by = bound(nbytes, 4.0 * pairs * Hq * D, c["q"].dtype)
+    row = {"phase": "kernel", "kernel": "K1", "case": c["name"],
+           "impl": fa.kernel_plan(c["q"].dtype, D)[0],
+           "max_abs_err": err, "rel_tol": REL_TOL[c["q"].dtype],
+           "err_over_tol": ratio,
+           "ms": device_ms(lambda: fa.flash_attention(*args, **kw)),
+           "plain_ms": profiled_ms(
+               lambda: fa.flash_attention_ref(*args, **kw), iters=5),
+           "library_ms": device_ms(
+               lambda: _sdpa(c["q"], c["k"], c["v"], mask[:, None])),
+           "bound_ms": b_ms, "bound_by": b_by}
+    return row, err
+
+
+def _k2_row(c) -> tuple[dict, float]:
+    """One K2 case against its plain version: its kernel line (beside the
+    same call unsplit, and at the G-tile cases both templates) and error."""
+    from llmss_tpu_torch.ops import _build
+    from llmss_tpu_torch.ops import attention as att
+    from llmss_tpu_torch.ops import decode_attention as da
+
+    args = (c["q"], c["kc"], c["vc"], c["kn"], c["vn"], c["qpos"],
+            c["kvp"], c["slots"], c["layer"])
+    kw = dict(t_len=c["t_len"], window=c["window"], k_scale=c["ks"],
+              v_scale=c["vs"])
+    got = da.decode_attention(*args, **kw).float()
+    # fp32 plain version (an int8 cache stays int8: it converts exactly)
+    q32, kc32, vc32, kn32, vn32 = (
+        a.float() if a.is_floating_point() else a
+        for a in (c["q"], c["kc"], c["vc"], c["kn"], c["vn"]))
+    pos = (c["qpos"], c["kvp"], c["slots"], c["layer"])
+    ref = da.decode_attention_ref(q32, kc32, vc32, kn32, vn32, *pos, **kw)
+    ref_abs = da.decode_attention_ref(q32, kc32, vc32.abs(), kn32,
+                                      vn32.abs(), *pos, **kw)
+    err, ratio = _agree("K2", c["name"], got, ref, ref_abs, c["q"].dtype)
+    # An empty row attends only its own fresh token: exactly v_new.
+    G = c["q"].shape[2] // c["kn"].shape[2]
+    for b in range(c["q"].shape[0]):
+        if int(c["qpos"][b, 0]) == 0 and not torch.equal(
+                got[b, 0], vn32[b, 0].repeat_interleave(G, 0)):
+            raise AssertionError(f"K2 {c['name']}: empty row {b} != v_new")
+    # Bound: only the visible cache slots' K/V (and int8 scales) are
+    # needed, plus q, the fresh K/V, the positions and the output.
+    B, _, Hq, D = c["q"].shape
+    Hkv = c["kc"].shape[3]
+    t = c["t_len"]
+    pen = att.decode_mask_penalty(c["qpos"], c["kvp"][:, :t],
+                                  c["slots"], c["window"])
+    visible = int((pen == 0).sum().item())
+    es = c["q"].element_size()
+    slot_bytes = D * c["kc"].element_size() + (4 if c["ks"] is not None else 0)
+    nbytes = (2 * visible * Hkv * slot_bytes + 2 * c["q"].numel() * es
+              + 2 * c["kn"].numel() * es + B * t * 4 + 2 * B * 4)
+    b_ms, b_by = bound(nbytes, 4.0 * (visible + B) * Hq * D, c["q"].dtype)
+
+    def layer_t(x):
+        return None if x is None else x[c["layer"], :, :t]
+
+    mask = (pen == 0)[:, None, None, :]
+    plan = da.kernel_plan(c["q"].dtype, B, Hq, Hkv, D, t,
+                          sms=_build.sm_count(c["q"].device),
+                          kv_dtype=c["kc"].dtype)
+    row = {"phase": "kernel", "kernel": "K2", "case": c["name"],
+           "kv": str(c["kc"].dtype).removeprefix("torch."),
+           "impl": plan.impl, "splits": plan.splits,
+           "split_slots": plan.split_slots,
+           "max_abs_err": err, "rel_tol": REL_TOL[c["q"].dtype],
+           "err_over_tol": ratio,
+           "ms": device_ms(lambda: da.decode_attention(*args, **kw), iters=50),
+           "plain_ms": profiled_ms(lambda: da.decode_attention_ref(*args, **kw)),
+           # int8: the layer's slice dequantized, then SDPA.
+           "library_ms": device_ms(lambda: _sdpa(
+               c["q"], _dequant(layer_t(c["kc"]), layer_t(c["ks"]),
+                                c["q"].dtype),
+               _dequant(layer_t(c["vc"]), layer_t(c["vs"]), c["q"].dtype),
+               mask), iters=50),
+           "bound_ms": b_ms, "bound_by": b_by}
+    if c["ks"] is not None:
+        row["library"] = "dequantize_kv + scaled_dot_product_attention"
+    _unsplit(row, lambda: da._launch(*args, max_splits=1, **kw),
+             lambda g: _agree("K2", c["name"] + " unsplit", g.float(), ref,
+                              ref_abs, c["q"].dtype))
+    _main_path_impl("K2", row, _decode_impl(c["q"], Hkv, c["ks"] is not None))
+    if c["name"] in {k2 for k2, _ in G_TILE_CASES.values()}:
+        _both_templates(
+            row, lambda g_tile: da._launch(*args, g_tile=g_tile, **kw),
+            lambda g: _agree("K2", c["name"] + " forced", g.float(), ref,
+                             ref_abs, c["q"].dtype))
+    return row, err
 
 
 def _paged_case(name, B, Hq, Hkv, ctx, qlens, CB, *, n_cols=None, window=None,
@@ -1517,6 +1559,424 @@ def check_paged_kernels(out: dict) -> None:
         for k in ("K2", "K3")}})
 
 
+
+
+# -- the mesh ------------------------------------------------------------------
+
+# The engine phase's prefill and decode at the heads one rank holds under
+# tp 2 and 4 (Llama-2-7B: 32 heads).
+def tp_local_cases() -> tuple[list[dict], list[dict]]:
+    k1 = [_k1_case(f"k1_tp{tp}_engine_prefill", 4, 128, 1024, 32 // tp,
+                   32 // tp, lens=ENGINE_LENS, seed=20 + tp) for tp in (2, 4)]
+    k2 = [_k2_case(f"k2_tp{tp}_engine_decode", 4, 1024, 32 // tp, 32 // tp,
+                   [n + 40 for n in ENGINE_LENS], 192, seed=30 + tp)
+          for tp in (2, 4)]
+    return k1, k2
+
+
+def _state_agree(kernel, name, got, ref, ref_abs, dtype) -> float:
+    """A state-out kernel's (m, l, acc) against its plain version's: each
+    row that sees a slot has its normalised output acc / l within
+    REL_TOL (of the plain version over |v|) and its log-sum-exp within
+    1e-3; a row that sees none keeps m at the fp32 minimum."""
+    vis = ref[0] > -1e30
+    if not torch.equal(got[0] > -1e30, vis):
+        raise AssertionError(f"{kernel} {name}: rows seeing a slot differ")
+
+    def norm(st):
+        m, l, acc = st
+        return acc / torch.where(l == 0, 1.0, l)[..., None]
+
+    err, _ = _agree(kernel, name, norm(got)[vis], norm(ref)[vis],
+                    norm(ref_abs)[vis], dtype)
+    lse = (got[0] + torch.log(got[1]) - ref[0] - torch.log(ref[1]))[vis]
+    if lse.numel() and not lse.abs().max().item() <= 1e-3:
+        raise AssertionError(f"{kernel} {name}: log-sum-exp off by "
+                             f"{lse.abs().max().item()}")
+    return err
+
+
+def check_mesh_kernels(kernels: dict) -> None:
+    """The sharded forward's kernels: K1 and K2 at the local heads of tp 2
+    and 4, and their state-out forms at the sp = 2 shapes (K1: the second
+    rank's 64 queries of a 128-token prefill over its own 64-token ring
+    block, causal and right-padded; K2: batch 4 over the 512-slot chunk
+    that holds the prompt, 40 steps into decode), each held to its plain
+    version, with kernel, plain, bound and library (SDPA: the output
+    alone, no softmax state) times."""
+    from llmss_tpu_torch.ops import attention as att
+    from llmss_tpu_torch.ops import decode_attention as da
+    from llmss_tpu_torch.ops import flash_attention as fa
+
+    k1s, k2s = tp_local_cases()
+    for name, cases, fn in (("K1_tp", k1s, _k1_row), ("K2_tp", k2s, _k2_row)):
+        worst = 0.0
+        for c in cases:
+            row, err = fn(c)
+            worst = max(worst, err)
+            kernels.setdefault(name, row)
+            kernels["cases"][c["name"]] = row
+            emit(row)
+        kernels[name]["max_abs_err"] = worst
+
+    c = _k1_case("k1_state_sp2_prefill", 4, 64, 64, 32, 32,
+                 lens=[n - 64 for n in ENGINE_LENS], q0=64, seed=41)
+    args = (c["q"], c["k"], c["v"], c["qp"], c["kvp"])
+    q32, k32, v32 = (x.float() for x in args[:3])
+    got = fa.flash_attention_state(*args)
+    ref = fa.flash_attention_state_ref(q32, k32, v32, c["qp"], c["kvp"])
+    ref_abs = fa.flash_attention_state_ref(q32, k32, v32.abs(), c["qp"],
+                                           c["kvp"])
+    err = _state_agree("K1_state", c["name"], got, ref, ref_abs,
+                       c["q"].dtype)
+    B, S, Hq, D = c["q"].shape
+    mask = att.make_causal_mask(c["qp"], c["kvp"], c["kvp"] >= 0)
+    live = int((c["kvp"] >= 0).sum().item())
+    nbytes = (c["q"].numel() * 2 + 2 * live * Hq * D * 2
+              + B * S * Hq * (D + 2) * 4 + (c["qp"].numel()
+                                            + c["kvp"].numel()) * 4)
+    b_ms, b_by = bound(nbytes, 4.0 * int(mask.sum().item()) * Hq * D,
+                       c["q"].dtype)
+    row = {"phase": "kernel", "kernel": "K1_state", "case": c["name"],
+           "impl": fa.kernel_plan(c["q"].dtype, D)[0], "max_abs_err": err,
+           "rel_tol": REL_TOL[c["q"].dtype],
+           "ms": device_ms(lambda: fa.flash_attention_state(*args)),
+           "plain_ms": profiled_ms(lambda: fa.flash_attention_state_ref(
+               *args)),
+           "library_ms": device_ms(lambda: _sdpa(c["q"], c["k"], c["v"],
+                                                 mask[:, None])),
+           "library": "scaled_dot_product_attention (output, no state)",
+           "bound_ms": b_ms, "bound_by": b_by}
+    kernels["K1_state"] = row
+    kernels["cases"][c["name"]] = row
+    emit(row)
+
+    c = _k2_case("k2_state_sp2_decode", 4, 512, 32, 32,
+                 [n + 40 for n in ENGINE_LENS], 512, seed=42)
+    args = (c["q"], c["kc"], c["vc"], c["qpos"], c["kvp"], c["slots"],
+            c["layer"])
+    q32, kc32, vc32 = (x.float() for x in args[:3])
+    got = da.decode_attention_state(*args)
+    ref = da.decode_attention_state_ref(q32, kc32, vc32, *args[3:])
+    ref_abs = da.decode_attention_state_ref(q32, kc32, vc32.abs(), *args[3:])
+    err = _state_agree("K2_state", c["name"], got, ref, ref_abs,
+                       c["q"].dtype)
+    B, _, Hq, D = c["q"].shape
+    pen = att.decode_mask_penalty(c["qpos"], c["kvp"], c["slots"])
+    visible = int((pen == 0).sum().item())
+    nbytes = (2 * visible * Hq * D * 2 + c["q"].numel() * 2
+              + B * Hq * (D + 2) * 4 + c["kvp"].numel() * 4 + 2 * B * 4)
+    b_ms, b_by = bound(nbytes, 4.0 * visible * Hq * D, c["q"].dtype)
+    layer = c["layer"]
+    plan = da.kernel_plan(c["q"].dtype, B, Hq, Hq, D, 512)
+    row = {"phase": "kernel", "kernel": "K2_state", "case": c["name"],
+           "impl": plan.impl, "splits": plan.splits, "max_abs_err": err,
+           "rel_tol": REL_TOL[c["q"].dtype],
+           "ms": device_ms(lambda: da.decode_attention_state(*args),
+                           iters=50),
+           "plain_ms": profiled_ms(lambda: da.decode_attention_state_ref(
+               *args)),
+           "library_ms": device_ms(lambda: _sdpa(
+               c["q"], c["kc"][layer], c["vc"][layer],
+               (pen == 0)[:, None, None, :]), iters=50),
+           "library": "scaled_dot_product_attention (output, no state)",
+           "bound_ms": b_ms, "bound_by": b_by}
+    kernels["K2_state"] = row
+    kernels["cases"][c["name"]] = row
+    emit(row)
+
+
+# The reference_parallel phase's tiny fp32 families (head_dim 64, which
+# the kernels take): GQA with 4 KV heads; MQA with learned positions; a
+# tied head over a vocabulary (and position table) tp 4 does not divide.
+PAR_FAMILIES = {
+    "llama": dict(model_type="llama", vocab_size=128, hidden_size=256,
+                  n_layers=2, n_heads=8, n_kv_heads=4, head_dim=64,
+                  intermediate_size=256, max_position_embeddings=128,
+                  activation="silu", norm="rmsnorm", mlp="swiglu",
+                  positions="rotary", rope_style="half", rotary_dim=64,
+                  attn_bias=False, mlp_bias=False,
+                  tie_word_embeddings=False, dtype="float32"),
+    "gpt_bigcode": dict(model_type="gpt_bigcode", vocab_size=128,
+                        hidden_size=256, n_layers=2, n_heads=8, n_kv_heads=1,
+                        head_dim=64, intermediate_size=256,
+                        max_position_embeddings=64, activation="gelu",
+                        norm="layernorm", mlp="gelu", positions="learned",
+                        attn_bias=True, mlp_bias=True,
+                        tie_word_embeddings=True, dtype="float32"),
+    "gpt2": dict(model_type="gpt2", vocab_size=129, hidden_size=256,
+                 n_layers=2, n_heads=4, n_kv_heads=4, head_dim=64,
+                 intermediate_size=256, max_position_embeddings=66,
+                 activation="gelu_new", norm="layernorm", mlp="gelu",
+                 positions="learned", attn_bias=True, mlp_bias=True,
+                 tie_word_embeddings=True, dtype="float32"),
+}
+PAR_PLANS = {2: [(1, 1, 2), (1, 2, 1), (2, 1, 1)], 4: [(1, 1, 4)],
+             8: [(2, 2, 2)]}
+PAR_PROMPTS = [list(range(1, 30)), [7, 8, 9], [5] * 17, [3, 1, 4, 1, 5]]
+
+
+def _par_gens():
+    from llmss_tpu_torch.engine.engine import GenerationParams
+
+    return [GenerationParams(max_new_tokens=6),
+            GenerationParams(max_new_tokens=6, is_greedy=False, seed=3,
+                             top_k=20),
+            GenerationParams(max_new_tokens=5),
+            GenerationParams(max_new_tokens=6, is_greedy=False, seed=9,
+                             top_p=0.9)]
+
+
+def phase_reference_parallel() -> None:
+    """Worlds of ranks sharing the one card, over gloo with CUDA tensors
+    (NCCL refuses two ranks on one device): the test plans tp 2, sp 2,
+    dp 2 (two ranks), tp 4 (four) and dp 2 x sp 2 x tp 2 (eight), each
+    running the three tiny fp32 families, prewarmed, greedy and sampled
+    rows at chunk_steps 4. Every rank's card tokens equal the port's
+    single-process CPU tokens, no graph is captured under gloo (the steps
+    run eagerly), and every collective went through the host (counted)."""
+    from llmss_tpu_torch.engine.engine import DecodeEngine
+    from llmss_tpu_torch.models.common import DecoderConfig
+    from llmss_tpu_torch.models.decoder import init_params
+    from llmss_tpu_torch.parallel.launch import (
+        EngineJob, World, engine_jobs, file_init,
+    )
+
+    gens = _par_gens()
+    ported, want = {}, {}
+    for i, (fam, kw) in enumerate(PAR_FAMILIES.items()):
+        cfg = DecoderConfig(**kw)
+        params = _scaled(init_params(cfg, seed=i, device="cpu"), 10.0)
+        ported[fam] = (cfg, params)
+        want[fam] = DecodeEngine(cfg, params, device="cpu",
+                                 max_seq_len=64).generate(PAR_PROMPTS, gens)
+    tmp = tempfile.mkdtemp(prefix="llmss-rdv")  # the worlds' rendezvous
+    t0 = time.perf_counter()
+    started = {size: World(
+        engine_jobs, size,
+        [EngineJob(cfg=cfg, plan=plan, prompts=PAR_PROMPTS, params=params,
+                   device="cuda", backend="gloo", max_seq_len=64,
+                   prewarm=(4,) if size == 2 else (), logits=False,
+                   runs=[("generate", gens, 4)])
+         for plan in plans for cfg, params in ported.values()],
+        init_method=file_init(os.path.join(tmp, f"w{size}")),
+        backend="gloo", device="cuda", timeout=600)
+        for size, plans in PAR_PLANS.items()}
+    rows = []
+    for size, plans in PAR_PLANS.items():
+        res = started[size].results()
+        i = 0
+        for plan in plans:
+            for fam in PAR_FAMILIES:
+                ranks = [r[i] for r in res]
+                i += 1
+                for r in ranks:
+                    if r["runs"][0] != want[fam]:
+                        raise AssertionError(
+                            f"reference_parallel {plan} {fam}: rank "
+                            f"{r['coords']} tokens differ from the CPU's")
+                    if r["graph_captures"] or (size == 2 and not r["warmed"]):
+                        raise AssertionError(
+                            f"reference_parallel {plan} {fam}: "
+                            f"{r['graph_captures']} captures under gloo")
+                    if not r["host_staging"]["calls"] and size > 1:
+                        raise AssertionError("gloo on CUDA staged nothing")
+                rows.append({"plan": dict(zip(("dp", "sp", "tp"), plan)),
+                             "family": fam, "ranks": len(ranks),
+                             "tokens_equal_cpu": True,
+                             "graph_captures": 0,
+                             "host_staging_calls": ranks[0]["host_staging"][
+                                 "calls"],
+                             "launches_rank0": ranks[0]["launches"]})
+    shutil.rmtree(tmp, ignore_errors=True)
+    emit({"phase": "reference_parallel", "backend": "gloo (CUDA tensors, "
+          "host-staged)", "worlds": sorted(PAR_PLANS), "cases": rows,
+          "worlds_s": time.perf_counter() - t0})
+
+
+NODE_TYPES = {0: "kernel", 1: "memcpy", 2: "memset", 3: "host", 4: "graph",
+              5: "empty", 6: "wait_event", 7: "event_record"}
+
+
+def _node_types(graph) -> dict:
+    """How many nodes of each type a captured graph holds (libcuda)."""
+    cu = ctypes.CDLL("libcuda.so.1")
+    raw = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    if cu.cuGraphGetNodes(raw, None, ctypes.byref(n)):
+        raise RuntimeError("cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * n.value)()
+    if cu.cuGraphGetNodes(raw, nodes, ctypes.byref(n)):
+        raise RuntimeError("cuGraphGetNodes failed")
+    out: dict = {}
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        if cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)):
+            raise RuntimeError("cuGraphNodeGetType failed")
+        name = NODE_TYPES.get(kind.value, str(kind.value))
+        out[name] = out.get(name, 0) + 1
+    return out
+
+
+def _first_layers(params, n: int):
+    """``params`` with only the first ``n`` layers of every block
+    parameter (views)."""
+    def cut(p):
+        return type(p)(*(None if x is None else x[:n] for x in p))
+
+    return {**params, "blocks": {k: cut(p) for k, p in
+                                 params["blocks"].items()}}
+
+
+def _scaled(p, f):
+    if p is None:
+        return None
+    if isinstance(p, dict):
+        return {k: _scaled(v, f) for k, v in p.items()}
+    if isinstance(p, tuple):
+        return type(p)(*(_scaled(x, f) for x in p))
+    return p * f
+
+
+PAR_NEW = 64  # new tokens per row in the parallel phase
+
+
+def phase_parallel(bf16: dict, kernels: dict, smi: str) -> None:
+    """The mesh at Llama-2-7B width: the engine phase's weights (its seed;
+    each rank's shard a slice of them), batch 4, its prompts, 64 new
+    tokens, ring 1024, chunk_steps 8, one sampled row. tp = 2 and sp = 2,
+    each as two processes sharing the card over gloo (eager: no capture;
+    the two worlds at once, each rank drawing only its slices):
+    the share of tokens equal to the single-process engine's, first-token
+    logits within 5% of its largest (asserted), decode ms per step,
+    per-rank weight bytes and the K1 / K2 launches per prefill and per
+    step on each rank (asserted: n_layers; sp: K1's state-out n_layers x
+    sp per prefill, one a ring hop, K2's n_layers per step). Then a mesh
+    of one rank over NCCL in this process: it issues no collective (an
+    axis of one rank drops them, as XLA does), prewarm captures its step
+    graphs, its tokens equal the engine phase's, and nothing is captured
+    after the prewarm. An NCCL collective inside a captured graph needs
+    two cards: not shown here."""
+    from llmss_tpu_torch.engine.engine import DecodeEngine, GenerationParams
+    from llmss_tpu_torch.models.common import DecoderConfig
+    from llmss_tpu_torch.models.decoder import init_params
+    from llmss_tpu_torch.parallel import MeshPlan, make_mesh
+    from llmss_tpu_torch.parallel.sharding import COLLECTIVES
+    from llmss_tpu_torch.parallel.launch import (
+        EngineJob, World, engine_job, file_init,
+    )
+
+    cfg = DecoderConfig(**LLAMA2_7B)
+    L, B = cfg.n_layers, 4
+    prompts = bf16["prompts"]
+    sampled = GenerationParams(max_new_tokens=PAR_NEW, is_greedy=False,
+                               temperature=0.8, top_k=40, top_p=0.9,
+                               seed=1234)
+    gens = [GenerationParams(max_new_tokens=PAR_NEW)] * 3 + [sampled]
+    want = bf16["tokens"]  # the engine phase's generate at chunk_steps 8
+    want_logits = bf16["first_logits"]
+    tmp = tempfile.mkdtemp(prefix="llmss-rdv")  # the worlds' rendezvous
+    steps8 = math.ceil((PAR_NEW - 1) / 8) * 8
+    # Both worlds at once, sharing the card (and the host's cores).
+    t0 = time.perf_counter()
+    plans = (((1, 1, 2), "tp2"), ((1, 2, 1), "sp2"))
+    started = [World(engine_job, 2, EngineJob(
+        cfg=cfg, plan=plan, prompts=prompts, seed=0, device="cuda",
+        backend="gloo", max_seq_len=1024, runs=[("generate", gens, 8)]),
+        init_method=file_init(os.path.join(tmp, name)), backend="gloo",
+        device="cuda", timeout=900) for plan, name in plans]
+    for (plan, name), world in zip(plans, started):
+        res = world.results()
+        toks = [r["runs"][0] for r in res]
+        if toks[0] != toks[1]:
+            raise AssertionError(f"parallel {name}: the ranks' tokens differ")
+        flat = [t for row in toks[0] for t in row]
+        ref = [t for row in want for t in row]
+        share = sum(a == b for a, b in zip(flat, ref)) / max(1, len(ref))
+        lg = res[0]["logits"]
+        rel = float(np.abs(lg - want_logits.numpy()).max()
+                    / np.abs(want_logits.numpy()).max())
+        if not rel <= PREFIX_LOGITS_REL:
+            raise AssertionError(f"parallel {name}: first-token logits off "
+                                 f"by {rel:.3g} of the largest")
+        sp = plan[1]
+        for r in res:
+            n = r["launches"]
+            k1_want = L * sp  # one prefill; sp ring hops a layer
+            k2_want = L * steps8
+            if n["flash_attention"] != k1_want or \
+                    n["decode_attention"] != k2_want or \
+                    (sp > 1) != bool(n["flash_attention_state"]) or \
+                    (sp > 1 and n["decode_attention_state"] != k2_want):
+                raise AssertionError(f"parallel {name}: launches {n}, want "
+                                     f"K1 {k1_want}, K2 {k2_want}")
+            if r["graph_captures"]:
+                raise AssertionError(f"parallel {name}: graph captures under "
+                                     "gloo")
+        if name == "tp2":
+            kernels["K1_tp"]["launches"] = res[0]["launches"][
+                "flash_attention"]
+            kernels["K2_tp"]["launches"] = res[0]["launches"][
+                "decode_attention"]
+        else:
+            kernels["K1_state"]["launches"] = res[0]["launches"][
+                "flash_attention_state"]
+            kernels["K2_state"]["launches"] = res[0]["launches"][
+                "decode_attention_state"]
+        emit({"phase": "parallel", "plan": name, "card": smi,
+              "backend": "gloo (CUDA tensors, host-staged)", "ranks": 2,
+              "tokens_equal_single_process_share": share,
+              "first_logits_max_rel": rel,
+              "decode_ms_per_step_chunk8": res[0]["decode_ms"][0],
+              "ttft_ms": res[0]["ttft_ms"][0],
+              "weight_bytes_per_rank": [r["weight_bytes"] for r in res],
+              "launches_per_rank": [r["launches"] for r in res],
+              "k1_per_prefill": res[0]["launches"]["flash_attention"],
+              "k2_per_step": res[0]["launches"]["decode_attention"]
+              // steps8,
+              "host_staging_per_rank": [r["host_staging"] for r in res],
+              "graph_captures": 0,
+              "seconds_both_worlds": time.perf_counter() - t0})
+    shutil.rmtree(tmp, ignore_errors=True)
+
+    # A mesh of one rank over NCCL, in this process.
+    t0 = time.perf_counter()
+    mesh = make_mesh(MeshPlan(tp=1))
+    eng = DecodeEngine(cfg, init_params(cfg, seed=0), mesh=mesh,
+                       batch_size=B, max_seq_len=1024)
+    before = dict(COLLECTIVES)
+    warmed = eng.prewarm(B, chunk_steps=8)
+    captured = eng.metrics.graph_captures
+    issued = {k: v - before[k] for k, v in COLLECTIVES.items()}
+    kinds = [_node_types(step.graph) for e in eng._graphs._entries.values()
+             for key, step in e.steps.items() if step is not None
+             and key[0] == "plain"]
+    if not captured or any(issued.values()):
+        raise AssertionError(f"NCCL mesh of one: {captured} captures, "
+                             f"collectives {issued}")
+    t1 = time.perf_counter()
+    got = eng.generate(prompts, gens, chunk_steps=8)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    after = eng.metrics.graph_captures - captured
+    if got != want or after:
+        raise AssertionError(f"NCCL mesh of one: tokens equal "
+                             f"{got == want}, {after} captures after prewarm")
+    emit({"phase": "parallel", "plan": "nccl_world1", "card": smi,
+          "backend": mesh.backend, "prewarm": warmed,
+          "graph_captures_prewarm": captured,
+          "collectives_issued_in_prewarm": issued,
+          "decode_step_graph_nodes": kinds[0],
+          "tokens_equal_mesh_none": True, "graph_captures_after_prewarm": 0,
+          "decode_ms_per_step_chunk8":
+              eng.metrics.decode_step.to_dict()["mean_ms"],
+          "tokens_per_s": B * PAR_NEW / wall,
+          "seconds": time.perf_counter() - t0})
+    del eng
+    torch.distributed.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+
 # -- phase 4 -------------------------------------------------------------------
 
 
@@ -1894,9 +2354,9 @@ def phase_reference_families() -> None:
 # -- phase 5 -------------------------------------------------------------------
 
 
-def _check_logits(eng, prompts) -> None:
+def _check_logits(eng, prompts) -> torch.Tensor:
     """Logits of the main path (a prefill, then one decode step) are
-    finite and of the expected shape."""
+    finite and of the expected shape; returns the prefill's."""
     from llmss_tpu_torch.engine.engine import GenerationParams
 
     B = len(prompts)
@@ -1911,6 +2371,7 @@ def _check_logits(eng, prompts) -> None:
         if tuple(lg.shape) != (B, eng.cfg.vocab_size) or not torch.isfinite(
                 lg).all():
             raise AssertionError("non-finite or misshapen logits")
+    return logits.float().cpu()
 
 
 def phase_engine(kernels: dict):
@@ -1933,7 +2394,7 @@ def phase_engine(kernels: dict):
                for n in (128, 100, 77, 128)]
     L = cfg.n_layers
 
-    _check_logits(eng, prompts)
+    first_logits = _check_logits(eng, prompts)
 
     # Every decode step graph generate / generate_fused can pick at 4 rows.
     t = time.perf_counter()
@@ -2019,7 +2480,8 @@ def phase_engine(kernels: dict):
           "graph_replays": eng.metrics.graph_replays,
           "sampled_row_head": a[3][:8]})
     emit({**prefix_row, "graph_captures_after_prewarm": captured})
-    return eng, {"tokens": a, "cache_bytes": mem["cache_bytes"]}
+    return eng, {"tokens": a, "cache_bytes": mem["cache_bytes"],
+                 "prompts": prompts, "first_logits": first_logits}
 
 
 # A bf16 prefix's first-token logits may differ from a prefill from
@@ -4067,7 +4529,8 @@ def phase_serve_fleet(params, smi: str) -> None:
     from llmss_tpu_torch.engine.metrics import EngineMetrics, LatencyStat
     from llmss_tpu_torch.models.common import DecoderConfig
 
-    cfg = DecoderConfig(**LLAMA2_7B)
+    cfg = DecoderConfig(**dict(LLAMA2_7B, n_layers=HALF_LAYERS))
+    params = _first_layers(params, HALF_LAYERS)
     L = cfg.n_layers
     engines = {wid: DecodeEngine(cfg, params, max_seq_len=1024,
                                  kv_layout="paged", block_size=16,
@@ -4619,8 +5082,8 @@ def _promote_vs_build(eng) -> dict:
 
 
 def phase_serve_tiers() -> None:
-    """The tiered KV store at Llama-2-7B width on an engine of
-    serve_continuous's weights (seed 0) and settings (bf16, max_seq_len
+    """The tiered KV store at Llama-2-7B width and ``HALF_LAYERS`` deep
+    on an engine of serve_continuous's seed (0) and settings (bf16, max_seq_len
     1024, 256 blocks of 16), ContinuousWorkers of 8
     rows, chunk_steps 8, group_chunks 2, a prefix LRU of two, prewarmed.
     (a) Prefix tiers: waves of two requests on four 600-token system
@@ -4644,7 +5107,7 @@ def phase_serve_tiers() -> None:
     t_phase = t = time.perf_counter()
     rehearsal = _tiers_rehearsal()
     rehearsal_s = time.perf_counter() - t
-    cfg = DecoderConfig(**LLAMA2_7B)
+    cfg = DecoderConfig(**dict(LLAMA2_7B, n_layers=HALF_LAYERS))
     eng = DecodeEngine(cfg, init_params(cfg, seed=0), max_seq_len=1024,
                        kv_layout="paged", block_size=16, kv_blocks=256)
     prefills = []
@@ -4856,7 +5319,7 @@ def phase_speculative(kernels: dict) -> None:
     from llmss_tpu_torch.ops import decode_attention as da
     from llmss_tpu_torch.ops import flash_attention as fa
 
-    cfg = DecoderConfig(**LLAMA2_7B)
+    cfg = DecoderConfig(**dict(LLAMA2_7B, n_layers=HALF_LAYERS))
     L, B, chunk = cfg.n_layers, SPEC_BATCH, 8
     eng = DecodeEngine(cfg, init_params(cfg, seed=0), max_seq_len=1024)
     rng = np.random.default_rng(21)
@@ -5157,6 +5620,10 @@ STARCODER_HF = {  # bigcode/starcoder config.json
     "activation_function": "gelu_pytorch_tanh", "layer_norm_epsilon": 1e-05,
 }
 MODEL_NEW = 32  # new tokens per request in the model phases' serving passes
+# The model phases' depth: a quarter of the published configs' 28 and 40
+# layers, so that the run with the mesh phases fits its time limit
+# (PERF.md).
+MODEL_DEPTH = {"gptj_6b": 7, "starcoder": 10}
 POOL_BYTES = 256 * 16 * 524288  # the serve_continuous phase's bf16 pool
 
 
@@ -5183,7 +5650,7 @@ def _leaves(p):
 
 
 def phase_model(name: str, hf: dict, kernels: dict, seed: int) -> None:
-    """A published configuration at full width and depth through the
+    """A published configuration at full width (``MODEL_DEPTH`` deep) through the
     port's entry points, with random bf16 weights from ``seed`` made on the
     card: ``prewarm`` then ``generate`` at batch 4 (prompts 128/100/77/128,
     64 new tokens, ring 1024, chunk_steps 8, one sampled row) twice with
@@ -6006,6 +6473,10 @@ def _tel_profile(srv, worker, requests, sync, log_dir: Path) -> dict:
     from llmss_tpu_torch.serve import producer
 
     shutil.rmtree(log_dir, ignore_errors=True)
+    # This step once hung, with every Llama-width phase at 16 layers
+    # (ROADMAP Queue 3): if it outlasts 180 s, every thread's stack goes
+    # to stderr, so a hang says where it waits.
+    faulthandler.dump_traceback_later(180, exit=False)
     status, _, raw = _http(srv.port, "/profile",
                            {"duration_s": 1.5, "log_dir": str(log_dir)})
     busy, _, _ = _http(srv.port, "/profile", {"duration_s": 1.0})
@@ -6022,6 +6493,7 @@ def _tel_profile(srv, worker, requests, sync, log_dir: Path) -> dict:
         for e in json.loads(path.read_text()).get("traceEvents", []):
             if e.get("cat") == "kernel":
                 names.add(e.get("name", ""))
+    faulthandler.cancel_dump_traceback_later()
     found = {sym: any(sym in n for n in names)
              for sym in ("paged_fwd", "paged_mma")}
     out = {"profile_kernels": len(names), "symbols": found,
@@ -6426,6 +6898,7 @@ def main(argv=None) -> int:
     kernels = timed(check_kernels)
     timed(check_window_kernel, kernels)
     timed(check_paged_kernels, kernels)
+    timed(check_mesh_kernels, kernels)
     timed(phase_reference)
     timed(phase_reference_paged)
     timed(phase_reference_int8)
@@ -6436,6 +6909,7 @@ def main(argv=None) -> int:
     timed(phase_reference_telemetry)
     timed(phase_reference_families)
     timed(phase_reference_speculative)
+    timed(phase_reference_parallel)
     eng, bf16 = timed(phase_engine, kernels)
     timed(phase_profile, eng)
     timed(phase_serve, eng)
@@ -6466,8 +6940,10 @@ def main(argv=None) -> int:
     del params
     gc.collect()
     torch.cuda.empty_cache()
-    timed(phase_model, "gptj_6b", GPTJ_6B_HF, kernels, seed=1)
-    timed(phase_model, "starcoder", STARCODER_HF, kernels, seed=2)
+    timed(phase_model, "gptj_6b", dict(GPTJ_6B_HF, n_layer=MODEL_DEPTH[
+        "gptj_6b"]), kernels, seed=1)
+    timed(phase_model, "starcoder", dict(STARCODER_HF, n_layer=MODEL_DEPTH[
+        "starcoder"]), kernels, seed=2)
     tiers_first = order == "tiers_before_head_groups"
     if tiers_first:
         timed(phase_reference_tiers)
@@ -6483,6 +6959,11 @@ def main(argv=None) -> int:
     if not tiers_first:
         timed(phase_reference_tiers)
         timed(phase_serve_tiers)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # The mesh last: its worlds need the card's memory, and its mesh of one
+    # rank is this process's only process group.
+    timed(phase_parallel, bf16, kernels, smi)
     emit({"phase": "seconds", "order": order, "by_phase": PHASE_SECONDS,
           "main_s": time.perf_counter() - t_main})
     rows = []
@@ -6514,6 +6995,22 @@ def main(argv=None) -> int:
         ("K2w", "decode_window_attention",
          "llmss_tpu_torch/csrc/window_attention.cu",
          "llmss_tpu/ops/attention.py:186"),
+        # The mesh: K1 and K2 at the local heads of tp 2 (the same
+        # instantiations, launched by the tp = 2 ranks), and their
+        # state-out forms (the sp = 2 ranks' ring prefill and LSE-merge
+        # decode; new instantiations behind a compile-time flag).
+        ("K1_tp", "flash_attention (tp-local heads)",
+         "llmss_tpu_torch/csrc/flash_attention.cu",
+         "llmss_tpu/ops/pallas_attention.py:136"),
+        ("K2_tp", "decode_attention (tp-local heads)",
+         "llmss_tpu_torch/csrc/decode_attention.cu",
+         "llmss_tpu/ops/pallas_decode.py:181"),
+        ("K1_state", "flash_attention_state",
+         "llmss_tpu_torch/csrc/flash_attention.cu",
+         "llmss_tpu/ops/pallas_attention.py:136"),
+        ("K2_state", "decode_attention_state",
+         "llmss_tpu_torch/csrc/decode_attention.cu",
+         "llmss_tpu/ops/pallas_decode.py:181"),
     ):
         k = kernels[name]
         rows.append({

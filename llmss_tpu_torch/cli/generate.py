@@ -6,17 +6,26 @@ family of ``models/registry.MODEL_REGISTRY`` loads.
 ``--speculative GAMMA`` (greedy only) runs prompt-lookup speculative
 decoding with GAMMA drafted tokens per verify forward
 (engine/speculative.py) and adds a ``speculation: ... tok/verify`` figure.
-The port refuses, with a message, what it does not run yet: the
-``--sp``/``--tp``/``--dp`` mesh flags, and ``--prompts`` (text needs a
-tokenizer, which the port does not have: it takes ``--token_ids``).
+The port refuses ``--prompts`` (text needs a tokenizer, which the port
+does not have: it takes ``--token_ids``).
+
+On a mesh (``--tp`` / ``--dp`` / ``--sp``, parallel/mesh.py) every rank
+runs this program: launched by ``torchrun`` (its environment names the
+world), or with ``--coordinator`` (``host:port`` or ``file:///path``),
+``--num_processes`` and ``--process_id``. Each rank loads only its slices
+of the checkpoint; rank 0 prints the answer. ``--backend`` defaults to
+``nccl`` on CUDA and ``gloo`` on the CPU.
 
     python -m llmss_tpu_torch.cli.generate --pretrained_model_path DIR \\
         --token_ids 1,2,3,4 --max_new_tokens 8 --is_greedy
+    torchrun --nproc_per_node 2 -m llmss_tpu_torch.cli.generate --tp 2 \\
+        --pretrained_model_path DIR --token_ids 1,2,3,4 --is_greedy
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import time
 
 
@@ -53,14 +62,28 @@ def get_args(argv=None):
              "tokens per step (greedy only; 0 = off)",
     )
     parser.add_argument("--device", type=str, default="cuda")
+    parser.add_argument(
+        "--coordinator", type=str, default=None,
+        help="the world's rendezvous (host:port or file:///path) when not "
+             "launched by torchrun",
+    )
+    parser.add_argument("--num_processes", type=int, default=None)
+    parser.add_argument("--process_id", type=int, default=None)
+    parser.add_argument(
+        "--backend", type=str, default=None, choices=[None, "nccl", "gloo"],
+        help="the process group's (default: nccl on CUDA, gloo on the CPU)",
+    )
     return parser.parse_args(argv)
 
 
+def _on_mesh(args) -> bool:
+    """Whether this run is one rank of a mesh: a mesh flag, an explicit
+    rendezvous or torchrun's environment."""
+    return (args.sp != 1 or args.dp != 1 or args.tp not in (None, 1)
+            or args.coordinator is not None or "RANK" in os.environ)
+
+
 def _refuse_unported(args) -> None:
-    if args.sp != 1 or args.dp != 1 or args.tp not in (None, 1):
-        raise SystemExit(
-            "--sp/--tp/--dp: the torch port runs one model on one device"
-        )
     if args.prompts:
         raise SystemExit("--prompts needs a tokenizer, which the torch port "
                          "does not have yet; pass --token_ids")
@@ -91,13 +114,30 @@ def main(argv=None):
     from llmss_tpu_torch.engine.engine import DecodeEngine, GenerationParams
     from llmss_tpu_torch.models.registry import load_model
 
+    mesh = None
+    if _on_mesh(args):
+        from llmss_tpu_torch.parallel import (
+            MeshPlan, initialize_runtime, make_mesh,
+        )
+
+        initialize_runtime(args.coordinator, args.num_processes,
+                           args.process_id, backend=args.backend,
+                           device=args.device)
+        try:
+            mesh = make_mesh(MeshPlan(dp=args.dp, sp=args.sp, tp=args.tp),
+                             device=args.device, backend=args.backend)
+        except ValueError as e:
+            raise SystemExit(f"--tp/--dp/--sp: {e}") from None
     cfg, params = load_model(
-        args.pretrained_model_path, device=args.device, dtype=args.dtype
+        args.pretrained_model_path,
+        device=None if mesh is not None else args.device, dtype=args.dtype,
+        mesh=mesh,
     )
     prompts = [[int(t) for t in s.split(",")] for s in args.token_ids]
 
     engine = DecodeEngine(
-        cfg, params, device=args.device, kv_dtype=args.kv_dtype,
+        cfg, params, device=None if mesh is not None else args.device,
+        kv_dtype=args.kv_dtype, mesh=mesh,
         max_seq_len=args.max_seq_len
         or min(cfg.max_position_embeddings,
                max(len(p) for p in prompts) + args.max_new_tokens),
@@ -120,6 +160,16 @@ def main(argv=None):
         )
     t1 = time.monotonic()
 
+    if mesh is not None:
+        import torch.distributed as dist
+
+        # Every rank tears its process group down, once all have finished:
+        # a group left to the interpreter's exit can abort the process.
+        rank = dist.get_rank()
+        dist.barrier()
+        dist.destroy_process_group()
+        if rank != 0:
+            return out  # rank 0 prints the answer
     n_generated = sum(len(o) for o in out)
     for i, (p, o) in enumerate(zip(prompts, out)):
         print(f"[{i}] prompt ids: {p}")
@@ -136,7 +186,7 @@ def main(argv=None):
     print(
         f"elapsed: {elapsed:.2f}s | generation: {t1 - t0:.2f}s | " + ttft
         + spec + f"throughput: {n_generated / max(t1 - t0, 1e-9):.1f} tok/s "
-        f"on {engine.device}"
+        f"on {engine.device}" + (f" ({mesh!r})" if mesh is not None else "")
     )
     return out
 

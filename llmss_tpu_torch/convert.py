@@ -4,7 +4,8 @@
 already a numpy array (``jax.device_get(params)``) and returns the port's
 parameter dict with the same structure and layouts (``decoder.param_shapes``:
 q/k stay ``[L, out, in]``). It is how the tests make both packages compute
-the same function; it imports nothing of JAX.
+the same function, on one device or, sliced for a mesh rank, on a mesh;
+it imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -22,8 +23,14 @@ def _tensor(a) -> torch.Tensor:
     return torch.from_numpy(a)
 
 
-def params_from_jax(np_params):
-    """Convert a numpy-leaf copy of the reference's params to CPU tensors."""
+def params_from_jax(np_params, *, cfg=None, mesh=None):
+    """Convert a numpy-leaf copy of the reference's params to CPU tensors;
+    with ``cfg`` and a ``mesh`` (parallel/mesh.py; ``Mesh.local`` will
+    do), the mesh rank's shard of them (``sharding.shard_params``)."""
+    if mesh is not None:
+        from llmss_tpu_torch.parallel.sharding import shard_params
+
+        return shard_params(params_from_jax(np_params), cfg, mesh)
     def walk(node):
         if node is None:
             return None

@@ -85,6 +85,18 @@
 //     in the fresh token there and writes the output; at S > 1 it stores
 //     its fp32 (m, l, acc) and split_merge, launched next on the same
 //     stream, folds the splits in split order, then the fresh token.
+//
+// State-out (kState, a compile-time flag; llmss_decode_attention_state):
+// the split kernel alone, over a rank's chunk of a sequence-sharded
+// cache, leaving every split's fp32 (m, l, acc) in the workspace even at
+// S = 1, and no merge and no fresh token: the caller merges the splits
+// and the ranks' states (pmax and psum over the sp axis) and folds the
+// fresh token in once (ops/ring_attention.py, the reference's
+// lse_merge_fresh_kv_attention). The pending slot is excluded at its
+// index in the chunk (the caller passes the global slot less the chunk's
+// start, out of range on the ranks that do not hold it). bf16 and fp32
+// queries over a cache of their own dtype; the other instantiations are
+// unchanged.
 
 #include "attn_tile.cuh"
 #include "attn_tile_i8.cuh"
@@ -141,8 +153,9 @@ struct Cfg {
 // T: the query / fresh KV / output type; KV: the cache's (T, or int8_t).
 // kPart: GB does not divide G, so each KV head's last group of GB rows is
 // partial (G = 7: one group of 8, one row dead); false compiles to the
-// code of a G that GB divides, unchanged by the partial groups.
-template <typename T, typename KV, int D, int GB, bool kPart = false>
+// code of a G that GB divides, unchanged by the partial groups. kState:
+// the state-out form (the header), every split's state stored.
+template <typename T, typename KV, int D, int GB, bool kPart = false, bool kState = false>
 __global__ void __launch_bounds__(NT, kLaneMinBlocks<T, GB>) decode_fwd(ArgsOf<KV> a) {
   using C = Cfg<KV, D, GB>;
   using Ring = LaneRing<KV>;
@@ -429,7 +442,7 @@ __global__ void __launch_bounds__(NT, kLaneMinBlocks<T, GB>) decode_fwd(ArgsOf<K
       }
     }
   }
-  if (a.S > 1) {
+  if (kState || a.S > 1) {
     __syncthreads();
     store_partial<NWARP, D, GB>(s_acc, s_m, s_l, a.ws, a.B, a.Hq, a.S, b,
                                 split, [&](int g) { return g < gn ? h0 + g : -1; });
@@ -469,20 +482,21 @@ __global__ void __launch_bounds__(NT, kLaneMinBlocks<T, GB>) decode_fwd(ArgsOf<K
   }
 }
 
-// The split kernel, then at S > 1 split_merge on the same stream. A split
-// is whole ring stages, and S splits cover [0, t_len).
-template <typename T, typename KV, int D, int GB>
+// The split kernel, then at S > 1 split_merge on the same stream (kState:
+// the split kernel alone, its states left in ws). A split is whole ring
+// stages, and S splits cover [0, t_len).
+template <typename T, typename KV, int D, int GB, bool kState = false>
 cudaError_t launch(const ArgsI8& a, cudaStream_t stream) {
   if (a.S < 1 || a.S > kMaxSplits || a.split <= 0 ||
       a.split % Cfg<KV, D, GB>::SLOTS || (long long)a.S * a.split < a.t_len ||
-      (a.S > 1 && a.ws == nullptr) ||
+      ((kState || a.S > 1) && a.ws == nullptr) ||
       (kQuant<KV> && (a.ks == nullptr || a.vs == nullptr)))
     return cudaErrorInvalidValue;
   constexpr size_t smem = Cfg<KV, D, GB>::smem;
-  auto kern = decode_fwd<T, KV, D, GB>;
+  auto kern = decode_fwd<T, KV, D, GB, false, kState>;
   if ((a.Hq / a.Hkv) % GB) {  // partial groups: GB is 4 (G = 3) or 8
     if constexpr (GB >= 4) {
-      kern = decode_fwd<T, KV, D, GB, true>;
+      kern = decode_fwd<T, KV, D, GB, true, kState>;
     } else {
       return cudaErrorInvalidValue;
     }
@@ -493,29 +507,29 @@ cudaError_t launch(const ArgsI8& a, cudaStream_t stream) {
   dim3 grid(a.B, a.Hkv * ((a.Hq / a.Hkv + GB - 1) / GB), a.S);
   kern<<<grid, NT, smem, stream>>>(static_cast<const ArgsOf<KV>&>(a));
   err = cudaGetLastError();
-  if (err != cudaSuccess || a.S == 1) return err;
+  if (err != cudaSuccess || a.S == 1 || kState) return err;
   const MergeArgs m{a.q, a.kn, a.vn, a.o, a.ws, nullptr, nullptr, a.B, a.Hq,
                     a.Hkv, a.S, a.split, 1, 0, a.scale};
   return launch_merge<T>(D, m, stream);
 }
 
-template <typename T, typename KV, int D>
+template <typename T, typename KV, int D, bool kState = false>
 cudaError_t dispatch_g(int GB, const ArgsI8& a, cudaStream_t s) {
   switch (GB) {
-    case 1: return launch<T, KV, D, 1>(a, s);
-    case 2: return launch<T, KV, D, 2>(a, s);
-    case 4: return launch<T, KV, D, 4>(a, s);
-    case 8: return launch<T, KV, D, 8>(a, s);
+    case 1: return launch<T, KV, D, 1, kState>(a, s);
+    case 2: return launch<T, KV, D, 2, kState>(a, s);
+    case 4: return launch<T, KV, D, 4, kState>(a, s);
+    case 8: return launch<T, KV, D, 8, kState>(a, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
-template <typename T, typename KV>
+template <typename T, typename KV, bool kState = false>
 cudaError_t dispatch_d(int D, int GB, const ArgsI8& a, cudaStream_t s) {
   switch (D) {
-    case 64: return dispatch_g<T, KV, 64>(GB, a, s);
-    case 128: return dispatch_g<T, KV, 128>(GB, a, s);
-    case 256: return dispatch_g<T, KV, 256>(GB, a, s);
+    case 64: return dispatch_g<T, KV, 64, kState>(GB, a, s);
+    case 128: return dispatch_g<T, KV, 128, kState>(GB, a, s);
+    case 256: return dispatch_g<T, KV, 256, kState>(GB, a, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -627,8 +641,9 @@ __global__ void __launch_bounds__(tile::kThreads) decode_mma(ArgsOf<KV> a) {
 }
 
 // decode_mma in S splits of `split` slots (whole 64-slot tiles covering
-// [0, t_len)), then split_merge on the same stream, whatever S.
-template <typename KV, int D>
+// [0, t_len)), then split_merge on the same stream, whatever S (kState:
+// decode_mma alone, its states left in ws).
+template <typename KV, int D, bool kState = false>
 cudaError_t launch_mma(const ArgsI8& a, cudaStream_t stream) {
   if (a.S < 1 || a.S > kMaxSplits || a.split <= 0 || a.split % tile::kSlots ||
       (long long)a.S * a.split < a.t_len || a.ws == nullptr ||
@@ -643,18 +658,18 @@ cudaError_t launch_mma(const ArgsI8& a, cudaStream_t stream) {
   dim3 grid(a.B, a.Hkv, tiles * a.S);
   kern<<<grid, tile::kThreads, smem, stream>>>(static_cast<const ArgsOf<KV>&>(a));
   err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
+  if (err != cudaSuccess || kState) return err;
   const MergeArgs m{a.q, a.kn, a.vn, a.o, a.ws, nullptr, nullptr, a.B, a.Hq,
                     a.Hkv, a.S, a.split, 1, 0, a.scale};
   return launch_merge<__nv_bfloat16>(D, m, stream);
 }
 
-template <typename KV>
+template <typename KV, bool kState = false>
 cudaError_t dispatch_mma(int D, const ArgsI8& a, cudaStream_t s) {
   switch (D) {
-    case 64: return launch_mma<KV, 64>(a, s);
-    case 128: return launch_mma<KV, 128>(a, s);
-    case 256: return launch_mma<KV, 256>(a, s);
+    case 64: return launch_mma<KV, 64, kState>(a, s);
+    case 128: return launch_mma<KV, 128, kState>(a, s);
+    case 256: return launch_mma<KV, 256, kState>(a, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -703,6 +718,40 @@ extern "C" int llmss_decode_attention(void* q, void* kc, void* vc, void* kn,
   } else if (impl == 0 && kv_dtype == kI8) {
     if (dtype == kF32) err = dispatch_d<float, int8_t>(D, GB, a, s);
     if (dtype == kBF16) err = dispatch_d<__nv_bfloat16, int8_t>(D, GB, a, s);
+  }
+  return static_cast<int>(err);
+}
+
+// The state-out form of llmss_decode_attention (kState), over a cache of
+// the queries' dtype (bf16 or fp32): q, the chunk's stacked cache, its
+// positions and slots (the pending slot's index in the chunk) as above,
+// no fresh KV and no output; every split's state stays in ws
+// ([B*Hq*S*(D+2)] fp32, split_merge.cuh's layout, required at every S).
+// impl: 0 = decode_fwd (GB query heads per block), 1 = decode_mma (bf16
+// queries).
+extern "C" int llmss_decode_attention_state(void* q, void* kc, void* vc,
+                                            void* qpos, void* kvpos,
+                                            void* slots, void* ws, int layer,
+                                            int B, int T, int t_len, int Hq,
+                                            int Hkv, int D, int GB, int S,
+                                            int split, int dtype, float scale,
+                                            int window, void* stream,
+                                            int impl) {
+  using namespace llmss;
+  if (B == 0) return 0;
+  const ArgsI8 a{{q, kc, vc, nullptr, nullptr, nullptr,
+                 static_cast<const int*>(qpos), static_cast<const int*>(kvpos),
+                 static_cast<const int*>(slots), static_cast<float*>(ws),
+                 layer, B, T, t_len, Hq, Hkv, S, split, scale, window},
+                nullptr, nullptr};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaErrorInvalidValue;
+  if (impl == 1 && dtype == kBF16) {
+    err = dispatch_mma<__nv_bfloat16, true>(D, a, s);
+  } else if (impl == 0 && dtype == kF32) {
+    err = dispatch_d<float, float, true>(D, GB, a, s);
+  } else if (impl == 0 && dtype == kBF16) {
+    err = dispatch_d<__nv_bfloat16, __nv_bfloat16, true>(D, GB, a, s);
   }
   return static_cast<int>(err);
 }

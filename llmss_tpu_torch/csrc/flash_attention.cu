@@ -33,6 +33,20 @@
 // mean TF32, outside fp32's tolerance): one block per (64-row q tile, q
 // head, batch row) over 64-slot KV tiles staged in shared memory, tiles
 // no query can see skipped before they are loaded.
+//
+// State-out (kState, a compile-time flag; llmss_flash_attention_state):
+// the same two kernels over one KV chunk, leaving each (query row, head)'s
+// fp32 softmax state instead of its output: the unnormalised accumulator
+// acc, the running max m (natural-log units of the scaled scores) and the
+// sum l, in a workspace [B, Hkv, S, G] (acc with D more floats a row; m
+// then l after the n = B*S*Hq accumulators). The sequence-parallel ring
+// prefill (ops/ring_attention.py) merges the chunks' states after each
+// hop, as the reference's _online_block carries them. A row that sees
+// nothing in the chunk keeps m = kNegInf (its l counts the live tiles'
+// slots, the finite-min semantics), and a block with no live tile leaves
+// l = 0, acc = 0: either weighs 0 once another chunk is visible. The
+// state instantiations write the workspace where the others write the
+// output; the others' code is unchanged.
 
 #include "attn_tile.cuh"
 #include "common.cuh"
@@ -56,7 +70,7 @@ struct Smem {
       size_t(BQ + BK) * sizeof(int);
 };
 
-template <typename T, int D>
+template <typename T, int D, bool kState = false>
 __global__ void __launch_bounds__(NT) flash_fwd(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     T* __restrict__ o, const int* __restrict__ qpos,
@@ -200,6 +214,26 @@ __global__ void __launch_bounds__(NT) flash_fwd(
     }
   }
 
+  if constexpr (kState) {
+    // o is the state workspace (the file's header has its layout).
+    float* ws = reinterpret_cast<float*>(o);
+    const int G = Hq / Hkv;
+    const long long n_part = (long long)gridDim.z * S * Hq;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int s_row = q0 + r * 4 + i;
+      if (s_row >= S) continue;
+      const long long row =
+          (((long long)b * Hkv + hk) * S + s_row) * G + h % G;
+#pragma unroll
+      for (int dd = 0; dd < DC; ++dd) ws[row * D + c + 16 * dd] = acc[i][dd];
+      if (c == 0) {
+        ws[n_part * D + row] = m[i];
+        ws[n_part * D + n_part + row] = l[i];
+      }
+    }
+    return;
+  }
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int s_row = q0 + r * 4 + i;
@@ -213,13 +247,13 @@ __global__ void __launch_bounds__(NT) flash_fwd(
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, bool kState>
 cudaError_t launch(void* q, void* k, void* v, void* o, const int* qpos,
                    const int* kvpos, int B, int S, int Tn, int Hq, int Hkv,
                    const int* st, float scale, int window,
                    cudaStream_t stream) {
   constexpr size_t smem = Smem<T, D>::bytes;
-  auto kern = flash_fwd<T, D>;
+  auto kern = flash_fwd<T, D, kState>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -232,21 +266,21 @@ cudaError_t launch(void* q, void* k, void* v, void* o, const int* qpos,
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool kState = false>
 cudaError_t dispatch_d(int D, void* q, void* k, void* v, void* o,
                        const int* qpos, const int* kvpos, int B, int S,
                        int Tn, int Hq, int Hkv, const int* st, float scale,
                        int window, cudaStream_t stream) {
   switch (D) {
     case 64:
-      return launch<T, 64>(q, k, v, o, qpos, kvpos, B, S, Tn, Hq, Hkv, st,
-                           scale, window, stream);
+      return launch<T, 64, kState>(q, k, v, o, qpos, kvpos, B, S, Tn, Hq,
+                                   Hkv, st, scale, window, stream);
     case 128:
-      return launch<T, 128>(q, k, v, o, qpos, kvpos, B, S, Tn, Hq, Hkv, st,
-                            scale, window, stream);
+      return launch<T, 128, kState>(q, k, v, o, qpos, kvpos, B, S, Tn, Hq,
+                                    Hkv, st, scale, window, stream);
     case 256:
-      return launch<T, 256>(q, k, v, o, qpos, kvpos, B, S, Tn, Hq, Hkv, st,
-                            scale, window, stream);
+      return launch<T, 256, kState>(q, k, v, o, qpos, kvpos, B, S, Tn, Hq,
+                                    Hkv, st, scale, window, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -307,11 +341,11 @@ struct FlashSrc {
   __device__ const T* any_ptr() const { return k; }
 };
 
-template <typename T, int D>
+template <typename T, int D, bool kState = false>
 __global__ void __launch_bounds__(tile::kThreads) flash_mma(MmaArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int b = blockIdx.z, hk = blockIdx.y;
-  FlashSrc<T> s;
+  std::conditional_t<kState, tile::WithPartial<FlashSrc<T>>, FlashSrc<T>> s;
   s.G = a.Hq / a.Hkv;
   s.hk = hk;
   s.Tn = a.Tn;
@@ -348,13 +382,20 @@ __global__ void __launch_bounds__(tile::kThreads) flash_mma(MmaArgs a) {
   }
   s.qmax = hi;
   s.qmin = lo;
+  if constexpr (kState) {
+    // a.o is the state workspace: flat row f of (b, hk) is state row
+    // (b * Hkv + hk) * S * G + f, so the block's rows are consecutive.
+    s.part = {static_cast<float*>(a.o), (long long)gridDim.z * a.S * a.Hq,
+              ((long long)b * a.Hkv + hk) * s.nrows + s.f0, 1,
+              min(tile::kRows, s.nrows - s.f0)};
+  }
   tile::attend<T, D, false>(s, smem);
 }
 
-template <typename T, int D>
+template <typename T, int D, bool kState>
 cudaError_t launch_mma(const MmaArgs& a, int B, cudaStream_t stream) {
   constexpr size_t smem = tile::Smem<D>::bytes;
-  auto kern = flash_mma<T, D>;
+  auto kern = flash_mma<T, D, kState>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -364,12 +405,12 @@ cudaError_t launch_mma(const MmaArgs& a, int B, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool kState = false>
 cudaError_t dispatch_mma(int D, const MmaArgs& a, int B, cudaStream_t s) {
   switch (D) {
-    case 64: return launch_mma<T, 64>(a, B, s);
-    case 128: return launch_mma<T, 128>(a, B, s);
-    case 256: return launch_mma<T, 256>(a, B, s);
+    case 64: return launch_mma<T, 64, kState>(a, B, s);
+    case 128: return launch_mma<T, 128, kState>(a, B, s);
+    case 256: return launch_mma<T, 256, kState>(a, B, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -402,6 +443,34 @@ extern "C" int llmss_flash_attention(void* q, void* k, void* v, void* o,
     for (int i = 0; i < 12; ++i) a.st[i] = st[i];
     err = dtype == kBF16 ? dispatch_mma<__nv_bfloat16>(D, a, B, s)
                          : dispatch_mma<__half>(D, a, B, s);
+  }
+  return static_cast<int>(err);
+}
+
+// The state-out form of llmss_flash_attention (kState): the same
+// arguments, with ws (fp32, B*S*Hq*(D + 2) floats, the header's layout)
+// in the place of the output and its strides (st[9..11]) unused.
+extern "C" int llmss_flash_attention_state(void* q, void* k, void* v,
+                                           void* ws, void* qpos, void* kvpos,
+                                           void* strides, int B, int S, int T,
+                                           int Hq, int Hkv, int D, int dtype,
+                                           int impl, float scale, int window,
+                                           void* stream) {
+  using namespace llmss;
+  if (B == 0 || S == 0) return 0;
+  const int* st = static_cast<const int*>(strides);
+  const int* qp = static_cast<const int*>(qpos);
+  const int* kp = static_cast<const int*>(kvpos);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaErrorInvalidValue;
+  if (impl == 0 && dtype == kF32) {
+    err = dispatch_d<float, true>(D, q, k, v, ws, qp, kp, B, S, T, Hq, Hkv,
+                                  st, scale, window, s);
+  } else if (impl == 1 && (dtype == kBF16 || dtype == kF16)) {
+    MmaArgs a{q, k, v, ws, qp, kp, S, T, Hq, Hkv, {}, scale, window};
+    for (int i = 0; i < 12; ++i) a.st[i] = st[i];
+    err = dtype == kBF16 ? dispatch_mma<__nv_bfloat16, true>(D, a, B, s)
+                         : dispatch_mma<__half, true>(D, a, B, s);
   }
   return static_cast<int>(err);
 }

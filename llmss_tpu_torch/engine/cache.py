@@ -32,6 +32,10 @@ through a sentinel table entry (``>= N``) or to an out-of-range logical
 slot is routed there with ``torch.where`` instead of being filtered out,
 so no paged write waits on the device, and nothing ever reads block ``N``.
 
+On a mesh each rank holds its part of the dense ring (``mesh_layout``:
+rows over dp, ring chunks over sp, KV heads over tp), with global slots
+``[c * T_local, (c + 1) * T_local)`` on sp rank ``c``.
+
 The int8 cache (``dtype=torch.int8``, the reference's ``kv_dtype="int8"``)
 stores K and V quantized per (token, head) over the head dim, with fp32
 scales beside them (``k_scale`` / ``v_scale``: ``[L, B, T, Hkv]`` dense,
@@ -106,6 +110,33 @@ def init_cache(
                              device=device),
         k_scale=ks, v_scale=vs,
     )
+
+
+class MeshLayout(NamedTuple):
+    """How a dense cache lies on a mesh (the reference's
+    ``cache_specs_for``, cache.py:95-130): its rows split over dp only when
+    dp divides the batch, its ring over sp only when sp divides the
+    length, its KV heads over tp when tp divides them (else, MQA,
+    replicated); every other axis replicates it. ``batch``, ``max_len``
+    and ``n_kv_heads`` are this rank's."""
+
+    batch: int
+    max_len: int
+    n_kv_heads: int
+    batch_dp: bool
+    seq_sp: bool
+
+
+def mesh_layout(mesh, *, batch: int, max_len: int,
+                n_kv_heads: int) -> MeshLayout:
+    dp, sp, tp = mesh.shape["dp"], mesh.shape["sp"], mesh.shape["tp"]
+    batch_dp = batch % dp == 0
+    seq_sp = sp > 1 and max_len % sp == 0
+    return MeshLayout(
+        batch // dp if batch_dp else batch,
+        max_len // sp if seq_sp else max_len,
+        n_kv_heads // tp if n_kv_heads % tp == 0 else n_kv_heads,
+        batch_dp, seq_sp)
 
 
 def _scatter(buf: torch.Tensor, slots: torch.Tensor, new: torch.Tensor,

@@ -46,6 +46,24 @@ dispatch-to-fetch interval into ``decode_group`` MFU/MBU, and every graph
 capture is recorded as a compile event named by its signature; prewarm
 runs inside ``observer().warming()`` and ends with ``mark_steady``.
 
+On a mesh (``mesh=``, parallel/mesh.py; engine.py:144-159, :668-712) each
+rank runs this engine SPMD over its parameter shard
+(``parallel.sharding.shard_params`` or ``load_model(mesh=)``) and its part
+of the dense cache (``engine/cache.mesh_layout``): dp ranks take their
+rows when dp divides the batch and ``generate`` all-gathers the tokens
+over dp, so every rank returns the whole batch; under a sequence-sharded
+ring nothing is bucketed. Sampling needs no new state: each row draws
+from its own seed and position, so a dp rank's rows draw what they would
+in the whole batch, and the tp / sp ranks of a row, holding the same
+logits, draw the same tokens. Under NCCL the step graphs are captured
+as without a mesh (a collective over two or more ranks inside a capture
+is unverified until a run on two or more cards); under gloo (which
+cannot be captured) every step runs eagerly and ``prewarm`` captures
+nothing. On a mesh of more than one rank
+the paged layout, ``generate_speculative``, shared prefixes and the int8
+cache under sp > 1 raise ``NotImplementedError`` (ROADMAP's next mesh
+slice).
+
 ``generate_speculative`` (engine/speculative.py) is greedy generation
 with prompt-lookup speculation: each step verifies a drafted window of
 ``gamma + 1`` tokens a row in one forward (K2w on the GPU), a group of
@@ -65,7 +83,8 @@ import torch
 from llmss_tpu_torch.device import resolve_device
 from llmss_tpu_torch.engine import speculative as spec
 from llmss_tpu_torch.engine.cache import (
-    KVCache, PagedKVCache, init_cache, init_paged_cache, paged_write_stacked,
+    KVCache, PagedKVCache, init_cache, init_paged_cache, mesh_layout,
+    paged_write_stacked,
 )
 from llmss_tpu_torch.engine.graphs import (
     SAMPLING_VARIANTS, DecodeGraphs, SpecBuffers, StepBuffers,
@@ -77,6 +96,8 @@ from llmss_tpu_torch.models.decoder import (
 )
 from llmss_tpu_torch.ops._build import check_head_dim
 from llmss_tpu_torch.ops.sampling import fold_step_outcome, sample
+from llmss_tpu_torch.parallel.mesh import AXIS_DP
+from llmss_tpu_torch.parallel.sharding import all_gather, check_tp
 from llmss_tpu_torch.utils import devtel
 from llmss_tpu_torch.utils.signatures import signature, signature_str
 
@@ -147,10 +168,11 @@ def to_device(arr, device: torch.device) -> torch.Tensor:
 
 
 class DecodeEngine:
-    """Drives one model on one device with a fixed (batch, max_seq) envelope.
+    """Drives one model on one device (or, with ``mesh``, one rank of a
+    mesh) with a fixed (batch, max_seq) envelope.
 
-    ``device=None`` means the GPU; without one this raises (pass
-    ``device="cpu"`` for the plain PyTorch path)."""
+    ``device=None`` means the GPU (the mesh's device on a mesh); without
+    one this raises (pass ``device="cpu"`` for the plain PyTorch path)."""
 
     def __init__(
         self,
@@ -164,7 +186,11 @@ class DecodeEngine:
         block_size: int = 16,
         kv_blocks: int | None = None,
         kv_dtype: str | None = None,
+        mesh=None,
     ):
+        self.mesh = mesh
+        if mesh is not None and device is None:
+            device = mesh.device
         self.device = resolve_device(device)
         check_head_dim(cfg.head_dim, self.device)
         self.batch_size = batch_size
@@ -191,6 +217,18 @@ class DecodeEngine:
             raise ValueError(f"kv_dtype must be None or 'int8', got {kv_dtype!r}")
         self._cache_dtype = (torch.int8 if kv_dtype == "int8"
                              else cfg.torch_dtype)
+        # A ring split over sp: its reads are never bucketed (engine.py:
+        # 668-712), and slots stay global.
+        self._seq_sharded = False
+        if mesh is not None:
+            check_tp(cfg, mesh.shape["tp"])
+            self._seq_sharded = mesh_layout(
+                mesh, batch=1, max_len=self.max_seq_len,
+                n_kv_heads=cfg.n_kv_heads).seq_sp
+            if mesh.world > 1 and kv_layout == "paged":
+                self._next_mesh_slice("the paged layout")
+            if self._seq_sharded and kv_dtype == "int8":
+                self._next_mesh_slice("an int8 cache under sp > 1")
         if (
             cfg.rope_original_max_positions is not None
             and cfg.rope_freq_factors_short is not None
@@ -211,8 +249,11 @@ class DecodeEngine:
         self.params = params
         self._layers = unstack_layers(params)
         self.metrics = EngineMetrics()
-        self._ladder = self.bucket_ladder()
-        self._graphs = DecodeGraphs(self.device, cfg.vocab_size)
+        self._ladder = [] if self._seq_sharded else self.bucket_ladder()
+        # Gloo's collectives cannot be captured: every step runs eagerly.
+        self._graphs = DecodeGraphs(
+            self.device, cfg.vocab_size,
+            eager=mesh is not None and not mesh.capturable)
         # generate's persistent cache (the step graphs hold its addresses);
         # a call with another row count replaces it.
         self._cache: KVCache | PagedKVCache | None = None
@@ -220,6 +261,61 @@ class DecodeEngine:
         # The request a capture is charged to (set by the batcher before it
         # dispatches a group).
         self.devtel_req_id: str | None = None
+
+    def _next_mesh_slice(self, what: str):
+        raise NotImplementedError(
+            f"{what} on a mesh of {self.mesh.world} ranks is the next mesh "
+            "slice (ROADMAP, Queue 1 item 8)")
+
+    def _mesh_check(self, what: str) -> None:
+        """Refuse a path the mesh does not run yet."""
+        if self.mesh is not None and self.mesh.world > 1:
+            self._next_mesh_slice(what)
+
+    def _ring_len(self, cache) -> int:
+        """The global ring length of ``cache`` (a chunk of it on an sp
+        rank): what slots are taken modulo."""
+        return self.max_seq_len if self._seq_sharded else cache.max_len
+
+    def _fwd(self, ids, positions, cache, slots, **kw):
+        """``forward`` over this engine's layers, on its mesh (a paged
+        cache only on a mesh of one rank, which needs no collective)."""
+        mesh = self.mesh if isinstance(cache, KVCache) else None
+        return forward(self.cfg, self.params, ids, positions, cache, slots,
+                       layers=self._layers, mesh=mesh,
+                       seq_sharded=self._seq_sharded, **kw)
+
+    def _dp_rows(self, batch: int) -> tuple[int, int] | None:
+        """This dp rank's rows ``[lo, hi)`` of a ``batch``, or None when
+        every rank runs the whole batch (no dp, or dp does not divide
+        it)."""
+        if self.mesh is None or self.mesh.shape[AXIS_DP] == 1:
+            return None
+        lay = mesh_layout(self.mesh, batch=batch, max_len=self.max_seq_len,
+                          n_kv_heads=self.cfg.n_kv_heads)
+        if not lay.batch_dp:
+            return None
+        lo = self.mesh.coord(AXIS_DP) * lay.batch
+        return lo, lo + lay.batch
+
+    def _local_batch(self, batch: int) -> int:
+        """The rows this rank runs of a ``batch``."""
+        rows = self._dp_rows(batch)
+        return batch if rows is None else rows[1] - rows[0]
+
+    def _gather_rows(self, out: list[list[int]]) -> list[list[int]]:
+        """Every dp rank's rows of token lists, in row order (ragged rows
+        padded for the gather, then trimmed)."""
+        dev = self.mesh.device
+        lens = torch.tensor([len(o) for o in out], dtype=torch.int64,
+                            device=dev)
+        all_lens = all_gather(lens, self.mesh, AXIS_DP, 0).cpu().tolist()
+        width = max(all_lens, default=0)
+        pad = torch.full((len(out), max(width, 1)), -1, dtype=torch.int64)
+        for i, o in enumerate(out):
+            pad[i, :len(o)] = torch.tensor(o, dtype=torch.int64)
+        toks = all_gather(pad.to(dev), self.mesh, AXIS_DP, 0).cpu()
+        return [toks[i, :n].tolist() for i, n in enumerate(all_lens)]
 
     # -- envelope -------------------------------------------------------------
 
@@ -264,11 +360,18 @@ class DecodeEngine:
             )
 
     def new_cache(self, batch: int | None = None) -> KVCache | PagedKVCache:
+        """A fresh cache for ``batch`` rows (on a mesh: this rank's ring
+        chunk and KV heads of them)."""
         if self.kv_layout == "paged":
             return self.new_paged_cache(batch)
+        max_len, n_kv_heads = self.max_seq_len, self.cfg.n_kv_heads
+        if self.mesh is not None:
+            lay = mesh_layout(self.mesh, batch=batch or self.batch_size,
+                              max_len=max_len, n_kv_heads=n_kv_heads)
+            max_len, n_kv_heads = lay.max_len, lay.n_kv_heads
         return init_cache(
             n_layers=self.cfg.n_layers, batch=batch or self.batch_size,
-            max_len=self.max_seq_len, n_kv_heads=self.cfg.n_kv_heads,
+            max_len=max_len, n_kv_heads=n_kv_heads,
             head_dim=self.cfg.head_dim, dtype=self._cache_dtype,
             device=self.device,
         )
@@ -368,13 +471,11 @@ class DecodeEngine:
                if start is None else start)
         positions = off[:, None] + rel
         valid = rel < prompt_lens[:, None]
-        slots = positions % cache.max_len
+        slots = positions % self._ring_len(cache)
         kv_pos = torch.where(valid, positions, -1)
-        logits, _ = forward(
-            self.cfg, self.params, ids, positions, cache, slots,
-            gather_idx=prompt_lens - 1, kv_write_positions=kv_pos,
-            layers=self._layers,
-        )
+        logits, _ = self._fwd(ids, positions, cache, slots,
+                              gather_idx=prompt_lens - 1,
+                              kv_write_positions=kv_pos)
         # The sampled token sits at absolute position start + prompt_len:
         # that position is the row's draw counter, so a seeded request
         # draws the tokens it would draw prefilled from scratch.
@@ -390,7 +491,7 @@ class DecodeEngine:
         and the position advances)."""
         sa = bufs.sample_args(sample_args["any_sampled"],
                               sample_args["needs_filter"])
-        T = cache.max_len
+        T = self._ring_len(cache)
 
         def step():
             positions = bufs.cur_pos[:, None]
@@ -400,10 +501,8 @@ class DecodeEngine:
                 # and every write site drops it (under the paged layout a
                 # freed row's stale table may point at reassigned blocks).
                 slots = torch.where(bufs.done[:, None], T, slots)
-            logits, _ = forward(
-                self.cfg, self.params, bufs.tokens[:, None], positions, cache,
-                slots, t_bucket=t_bucket, layers=self._layers,
-            )
+            logits, _ = self._fwd(bufs.tokens[:, None], positions, cache,
+                                  slots, t_bucket=t_bucket)
             logits = logits[:, 0]
             tok = sample(logits, counters=bufs.cur_pos + 1, **sa)
             if kind == "plain":
@@ -673,6 +772,7 @@ class DecodeEngine:
         int8 engine keeps it quantized. On a paged engine the row's identity
         table maps slot ``s`` to block ``s // bs``: its first
         ``ceil(Pb / bs)`` blocks unfold into the dense segment."""
+        self._mesh_check("a shared prefix")
         P = len(token_ids)
         if not 0 < P < self.max_seq_len:
             raise ValueError(
@@ -719,7 +819,45 @@ class DecodeEngine:
 
     # -- host API ---------------------------------------------------------------
 
-    def generate(
+    def generate(self, prompts: list[list[int]],
+                 gen: GenerationParams | list[GenerationParams], *,
+                 on_token=None, on_increment=None, on_poisoned=None,
+                 cancel_poll=None, chunk_steps: int = 1,
+                 live_rows: int | None = None,
+                 prefix: Prefix | None = None) -> list[list[int]]:
+        """Streaming host-loop generation (``_generate``). On a mesh whose
+        dp axis splits the batch, this rank runs its rows (the callbacks
+        see their batch row numbers; ``on_token`` this rank's tokens) and
+        the tokens are all-gathered over dp: every rank returns the whole
+        batch."""
+        if prefix is not None:
+            self._mesh_check("a shared prefix")
+        rows = self._dp_rows(len(prompts))
+        if rows is None:
+            return self._generate(
+                prompts, gen, on_token=on_token, on_increment=on_increment,
+                on_poisoned=on_poisoned, cancel_poll=cancel_poll,
+                chunk_steps=chunk_steps, live_rows=live_rows, prefix=prefix)
+        lo, hi = rows
+        gens = gen if isinstance(gen, list) else [gen] * len(prompts)
+
+        def shifted(cb):
+            return None if cb is None else (lambda i, *a: cb(i + lo, *a))
+
+        def local_cancel():
+            return [i - lo for i in cancel_poll() if lo <= i < hi]
+
+        out = self._generate(
+            prompts[lo:hi], gens[lo:hi], on_token=on_token,
+            on_increment=shifted(on_increment),
+            on_poisoned=shifted(on_poisoned),
+            cancel_poll=None if cancel_poll is None else local_cancel,
+            chunk_steps=chunk_steps,
+            live_rows=None if live_rows is None else
+            max(0, min(live_rows, hi) - lo))
+        return self._gather_rows(out)
+
+    def _generate(
         self,
         prompts: list[list[int]],
         gen: GenerationParams | list[GenerationParams],
@@ -896,6 +1034,7 @@ class DecodeEngine:
         numerics, 1 to gamma + 1 of them per forward, ``chunk_steps``
         forwards per host round-trip (engine/speculative.py). Sampled
         requests are refused."""
+        self._mesh_check("generate_speculative")
         return spec.generate_speculative(
             self, prompts, gen, gamma=gamma, ngram=ngram,
             chunk_steps=chunk_steps)
@@ -906,7 +1045,17 @@ class DecodeEngine:
     ) -> list[list[int]]:
         """The whole generation on the device (engine.py:1268): the
         prefill, ``max_new_tokens - 1`` step replays with no host read
-        between them, then ONE fetch, each row trimmed at its first EOS."""
+        between them, then ONE fetch, each row trimmed at its first EOS. On
+        a mesh whose dp axis splits the batch, this rank's rows, then the
+        tokens all-gathered over dp."""
+        rows = self._dp_rows(len(prompts))
+        if rows is not None:
+            return self._gather_rows(
+                self._generate_fused(prompts[rows[0]:rows[1]], gen))
+        return self._generate_fused(prompts, gen)
+
+    def _generate_fused(self, prompts: list[list[int]],
+                        gen: GenerationParams) -> list[list[int]]:
         gen.validate()
         B = len(prompts)
         dev = self.device
@@ -964,6 +1113,9 @@ class DecodeEngine:
             chunk_steps = (chunk_steps,)
         if isinstance(speculative, int):
             speculative = (speculative,)
+        if speculative:
+            self._mesh_check("generate_speculative")
+        batch = self._local_batch(batch)
         with devtel.observer().warming():
             n = self._prewarm(batch, chunk_steps, buckets, speculative)
         if devtel.enabled():

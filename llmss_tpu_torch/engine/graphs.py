@@ -39,6 +39,10 @@ is captured once as a CUDA graph over persistent buffers and replayed:
   the first of them to be freed releases the lot.
 - **On the CPU** a capture only records its key, and a replay runs the
   same body over the same static buffers.
+- **Eager** (``DecodeGraphs(eager=True)``: an engine on a gloo mesh,
+  whose collectives run on the host and cannot be captured): nothing is
+  captured or counted as a capture, and every replay runs the body. A
+  stated mode, not a fallback: a capture that fails still raises.
 - **Profiling**: a capture holds ``devtel.CAPTURE_LOCK``, as does a
   ``POST /profile`` window, so the two never overlap.
 
@@ -325,6 +329,8 @@ class CacheGraphs:
         updates in place, restored after the capture's warm-up run
         (default: ``bufs``'s carry). On the CPU the replay is ``body``
         itself."""
+        if self._graphs.eager:
+            return body, False
         captured = key not in self.steps
         if captured:
             self.steps[key] = self._graphs._capture(
@@ -348,9 +354,11 @@ class CacheGraphs:
 class DecodeGraphs:
     """The engine's step graphs and static buffers, one entry per cache."""
 
-    def __init__(self, device: torch.device, vocab: int):
+    def __init__(self, device: torch.device, vocab: int, *,
+                 eager: bool = False):
         self.device = device
         self.vocab = vocab
+        self.eager = eager
         self._entries: dict[tuple, CacheGraphs] = {}
         self._pool = None
         self._side: torch.cuda.Stream | None = None

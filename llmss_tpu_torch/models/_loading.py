@@ -7,7 +7,10 @@ every other linear is transposed to ``[in, out]`` (``transpose=True``);
 HF ``Conv1D`` tensors are already ``[in, out]``. ``sub=(axis, lo, hi)``
 takes a part of a fused tensor (GPT-2 / BigCode ``c_attn``, Phi-3
 ``qkv_proj``) from the (transposed) weight's view; a bias takes the same
-range on its only axis.
+range on its only axis. ``key`` names the decoder parameter a loader
+fills (``"q"``, ``"fc_in"``, ...): on a mesh the checkpoint then reads
+only the rank's slice of it (``CheckpointShards.part``), of the fused
+sub-range when there is one.
 """
 
 from __future__ import annotations
@@ -26,17 +29,23 @@ def stacked_linear(
     transpose: bool = True,
     sub: tuple[int, int, int] | None = None,
     bias: bool = True,
+    key: str | None = None,
 ) -> LinearParams:
     """``{name_fn(i)}.weight`` (and ``.bias``, when ``bias`` and every
-    layer has one) of all layers, stacked."""
+    layer has one) of all layers, stacked; on a mesh this rank's slice of
+    the block parameter ``key``."""
+    def part(field):
+        return (None if key is None
+                else ckpt.part("blocks", key, field, stacked=True))
+
     w = ckpt.get_stacked([f"{name_fn(i)}.weight" for i in range(n_layers)],
-                         transpose=transpose, sub=sub)
+                         transpose=transpose, sub=sub, part=part("w"))
     b = None
     if bias:
         bnames = [f"{name_fn(i)}.bias" for i in range(n_layers)]
         if all(n in ckpt for n in bnames):
             bsub = (0, sub[1], sub[2]) if sub is not None else None
-            b = ckpt.get_stacked(bnames, sub=bsub)
+            b = ckpt.get_stacked(bnames, sub=bsub, part=part("b"))
     return LinearParams(w, b)
 
 
@@ -67,9 +76,16 @@ def norm(ckpt: CheckpointShards, prefix: str, *, bias: bool = True) -> NormParam
 
 def lm_head(ckpt: CheckpointShards, name: str, *, bias: bool = False) -> LinearParams:
     """An untied head: ``name`` ``[V, E]`` transposed to ``[E, V]``, with
-    the sibling ``.bias`` when ``bias`` and the checkpoint has it."""
+    the sibling ``.bias`` when ``bias`` and the checkpoint has it (on a
+    mesh, this rank's vocabulary slice)."""
     b = None
     bname = name.rsplit(".", 1)[0] + ".bias"
     if bias and bname in ckpt:
-        b = ckpt.get(bname)
-    return LinearParams(ckpt.get(name, transpose=True), b)
+        b = ckpt.get(bname, part=ckpt.part("head", "b"))
+    return LinearParams(ckpt.get(name, transpose=True,
+                                 part=ckpt.part("head", "w")), b)
+
+
+def table(ckpt: CheckpointShards, name: str, key: str):
+    """An embedding table (``wte``, ``wpe``): on a mesh, this rank's rows."""
+    return ckpt.get(name, part=ckpt.part(key))

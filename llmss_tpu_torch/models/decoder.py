@@ -50,7 +50,32 @@ that copy, runs K1 over it, and quantizes only the fresh tokens into the
 int8 storage: untouched slots are never round-tripped, and the fresh
 tokens are attended at full precision.
 
-Not in this port yet: sequence/tensor parallelism.
+On a mesh (``mesh=``, parallel/mesh.py; decoder.py:60-67, :82-140,
+:410-506, :575-611) a rank runs the dense forward over its shard, SPMD:
+
+- **tp**: the column-parallel projections (q, k, v, gate, up, fc_in)
+  give the rank's heads and MLP columns, the row-parallel ones (o, down,
+  fc_out) a partial sum that a tp ``psum`` completes before the
+  replicated bias is added once; KV heads shard as ``tp_head_plan``
+  says (MQA's one KV head replicates). The embedding (and learned
+  positions) is vocab-parallel: each rank gathers the rows it holds,
+  zeros elsewhere, and a ``psum`` sums them exactly. The head gives the
+  rank's vocabulary slice in fp32 and an ``all_gather`` over tp the full
+  logits, the padding of an uneven vocabulary trimmed;
+- **sp** (a cache whose ring is split into chunks, ``seq_sharded``):
+  a prefill whose length sp divides runs on the rank's slice of the
+  tokens; ``ring_attention`` passes each rank's fresh KV block once
+  around the ring, each rank attends it with its own queries and writes
+  the slots it holds as it passes (the ring held nothing else: the
+  caller clears it first). Another prefill stays replicated and merges
+  the chunks' states
+  (``lse_merge_attention``). Decode stays replicated and attends the
+  stale chunk with the pending slot excluded at its global index, the
+  states merged and the fresh KV folded in (``sp_decode_attention``,
+  K2's state-out form on the GPU), and the step's write lands on the
+  rank that holds the slot. Slots stay global; no read is bucketed;
+- **dp**: the engine hands each rank its rows; the forward sees only
+  those.
 """
 
 from __future__ import annotations
@@ -72,6 +97,11 @@ from llmss_tpu_torch.ops.attention import (
     prefill_attention, ragged_attention,
 )
 from llmss_tpu_torch.ops.decode_attention import WINDOW_MAX
+from llmss_tpu_torch.ops.ring_attention import (
+    lse_merge_attention, ring_attention, sp_decode_attention,
+)
+from llmss_tpu_torch.parallel.mesh import AXIS_SP, AXIS_TP
+from llmss_tpu_torch.parallel.sharding import all_gather, psum
 from llmss_tpu_torch.ops.layers import (
     LinearParams, NormParams, dense, dense_t, embedding, layer_norm, lm_head,
     rms_norm,
@@ -116,27 +146,44 @@ def param_shapes(cfg: DecoderConfig) -> Params:
     return shapes
 
 
-def init_params(cfg: DecoderConfig, *, seed: int = 0, device=None) -> Params:
+def init_params(cfg: DecoderConfig, *, seed: int = 0, device=None,
+                mesh=None) -> Params:
     """Random init (benchmarks and smoke runs without checkpoints): every
     tensor is N(0, 1) * 0.02 in the config's dtype, drawn on ``device`` from
-    one ``torch.Generator`` seeded by ``seed``."""
+    one ``torch.Generator`` seeded by ``seed``. With a ``mesh``, the tp
+    rank's slices of those tensors (``shard_params`` of the whole draw),
+    each cut as it is drawn, so a rank never holds all of them."""
+    from llmss_tpu_torch.parallel.sharding import (
+        PADDED, check_tp, param_specs, shard_tensor,
+    )
+
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     dt = cfg.torch_dtype
+    tp, rank, specs = 1, 0, None
+    if mesh is not None:
+        tp, rank = mesh.shape[AXIS_TP], mesh.coord(AXIS_TP)
+        check_tp(cfg, tp)
+        specs = param_specs(cfg, tp)
 
-    def make(shape):
+    def make(shape, axis, pad):
         if shape is None:
             return None
-        return torch.randn(shape, generator=gen, dtype=dt, device=dev) * 0.02
+        t = torch.randn(shape, generator=gen, dtype=dt, device=dev) * 0.02
+        if axis is None or tp == 1:
+            return t
+        return shard_tensor(t, axis, tp, rank, pad=pad)
 
-    def walk(node):
+    def walk(node, spec, pad=False):
         if isinstance(node, dict):
-            return {k: walk(node[k]) for k in sorted(node)}
+            return {k: walk(node[k], None if spec is None else spec[k],
+                            k in PADDED) for k in sorted(node)}
         if isinstance(node, (LinearParams, NormParams)):
-            return type(node)(*(make(s) for s in node))
-        return make(node)
+            spec = spec or (None,) * len(node)
+            return type(node)(*(make(s, a, pad) for s, a in zip(node, spec)))
+        return make(node, spec, pad)
 
-    return walk(param_shapes(cfg))
+    return walk(param_shapes(cfg), specs)
 
 
 def unstack_layers(params: Params) -> list[Params]:
@@ -156,75 +203,129 @@ def _norm(cfg: DecoderConfig, x, p: NormParams):
     return layer_norm(x, p, cfg.norm_eps)
 
 
-def _mlp(cfg: DecoderConfig, bp: Params, x):
+def _row(x, p: LinearParams, reduce):
+    """A row-parallel linear: ``dense`` without a mesh; under tp the
+    local product, its sum over the tp ranks (``reduce``), then the
+    replicated bias, added once."""
+    if reduce is None:
+        return dense(x, p)
+    y = reduce(x @ p.w.to(x.dtype))
+    return y if p.b is None else y + p.b.to(y.dtype)
+
+
+def _mlp(cfg: DecoderConfig, bp: Params, x, reduce=None):
     act = act_fn(cfg.activation)
     if cfg.mlp == "swiglu":
-        return dense(act(dense(x, bp["gate"])) * dense(x, bp["up"]), bp["down"])
-    return dense(act(dense(x, bp["fc_in"])), bp["fc_out"])
+        return _row(act(dense(x, bp["gate"])) * dense(x, bp["up"]),
+                    bp["down"], reduce)
+    return _row(act(dense(x, bp["fc_in"])), bp["fc_out"], reduce)
 
 
-def _block(cfg: DecoderConfig, bp: Params, h, positions, sin_cos, attend):
+def _block(cfg: DecoderConfig, bp: Params, h, positions, sin_cos, attend,
+           reduce=None):
     """One decoder block; ``attend(q, k, v) -> [B, S, Hq, D]`` runs the
-    attention with whatever cache handling the caller's mode needs."""
+    attention with whatever cache handling the caller's mode needs. Under
+    tp the projections hold the rank's heads (``bp``'s shapes say how
+    many) and ``reduce`` sums the row-parallel products over the ranks."""
     B, S, _ = h.shape
-    Hq, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    D = cfg.head_dim
     res = h
     x = _norm(cfg, h, bp["ln1"])
-    q = dense_t(x, bp["q"]).reshape(B, S, Hq, D)
-    k = dense_t(x, bp["k"]).reshape(B, S, Hkv, D)
-    v = dense(x, bp["v"]).reshape(B, S, Hkv, D)
+    q = dense_t(x, bp["q"]).reshape(B, S, -1, D)
+    k = dense_t(x, bp["k"]).reshape(B, S, -1, D)
+    v = dense(x, bp["v"]).reshape(B, S, -1, D)
     if cfg.positions == "rotary":
         kw = dict(rotary_dim=cfg.rotary_dim, theta=cfg.rope_theta,
                   style=cfg.rope_style, sin_cos=sin_cos)
         q = apply_rope(q, positions, **kw)
         k = apply_rope(k, positions, **kw)
-    attn = dense(attend(q, k, v).reshape(B, S, Hq * D), bp["o"])
+    attn = _row(attend(q, k, v).reshape(B, S, -1), bp["o"], reduce)
     if cfg.parallel_residual:
         mlp_in = _norm(cfg, res, bp["ln2"]) if cfg.has_ln2 else x
-        h = res + attn + _mlp(cfg, bp, mlp_in)
+        h = res + attn + _mlp(cfg, bp, mlp_in, reduce)
     else:
         h = res + attn
-        h = h + _mlp(cfg, bp, _norm(cfg, h, bp["ln2"]))
+        h = h + _mlp(cfg, bp, _norm(cfg, h, bp["ln2"]), reduce)
     return h, k, v
 
 
-def _embed_in(cfg: DecoderConfig, params: Params, input_ids, positions):
+def _lookup(ids, table, mesh):
+    """``table[ids]``. Over a vocab-parallel table (tp > 1: ``table`` is
+    this rank's rows ``[r * n, (r + 1) * n)``) each rank gathers the rows
+    it holds, zeros elsewhere, and a ``psum`` adds them (exactly: one term
+    is not zero)."""
+    if mesh is None or mesh.size(AXIS_TP) == 1:
+        return embedding(ids, table)
+    n = table.shape[0]
+    local = ids - mesh.coord(AXIS_TP) * n
+    inside = (local >= 0) & (local < n)
+    rows = table[local.clamp(0, n - 1)].masked_fill(~inside[..., None], 0)
+    return psum(rows, mesh, AXIS_TP)
+
+
+def _embed_in(cfg: DecoderConfig, params: Params, input_ids, positions,
+              mesh=None):
     dtype = cfg.torch_dtype
-    h = embedding(input_ids, params["wte"].to(dtype))
+    h = _lookup(input_ids, params["wte"].to(dtype), mesh)
     if cfg.embed_multiplier is not None:
         # A CPU scalar: no host-to-device copy, which a captured decode
         # step could not contain.
         h = h * torch.tensor(cfg.embed_multiplier, dtype=dtype)
     if cfg.positions == "learned":
-        h = h + _learned_positions(positions, params["wpe"].to(dtype))
+        h = h + _learned_positions(positions, params["wpe"].to(dtype),
+                                   cfg.max_position_embeddings, mesh)
     return h
 
 
-def _learned_positions(positions, wpe):
+def _learned_positions(positions, wpe, n: int | None = None, mesh=None):
     """``wpe[positions]`` with the reference's bounds, never an
     out-of-range read (on the GPU, a device-side fault). A multi-token
     call embeds by a one-hot product there (decoder.py:467-476): a
     position outside the table (a dead column of a ragged chunk, padding
     at -1) adds a zero row. A one-token step gathers with ``jnp.take``: a
     position past the table (a done row still counting) gives NaN, and -1
-    wraps to the last row."""
-    n = wpe.shape[0]
-    rows = embedding(positions.clamp(max=n - 1), wpe)
+    wraps to the last row. ``n`` is the table's length (``wpe``'s unless
+    it is a tp rank's slice)."""
+    n = wpe.shape[0] if n is None else n
+    idx = positions.clamp(max=n - 1)
     if positions.shape[1] > 1:
         inside = (positions >= 0) & (positions < n)
-        return torch.where(inside[..., None], rows, 0.0)
-    return torch.where((positions < n)[..., None], rows, float("nan"))
+        return torch.where(inside[..., None], _lookup(idx, wpe, mesh), 0.0)
+    idx = torch.where(idx < 0, idx + n, idx)
+    return torch.where((positions < n)[..., None], _lookup(idx, wpe, mesh),
+                       float("nan"))
 
 
-def _head_out(cfg: DecoderConfig, params: Params, h, gather_idx):
-    """Final norm, per-row hidden-state pick, vocab head; fp32 logits."""
+def _head_out(cfg: DecoderConfig, params: Params, h, gather_idx, mesh=None,
+              ring: bool = False, q_off: int = 0):
+    """Final norm, per-row hidden-state pick, vocab head; fp32 logits. On
+    a mesh, after a ring prefill (the rank holds tokens ``[q_off, q_off +
+    S_l)``), each row's pick comes from the rank that holds it (an exact
+    ``psum`` over sp); the head gives the rank's vocabulary slice, and an
+    ``all_gather`` over tp the full logits, an uneven vocabulary's padding
+    trimmed."""
     h = _norm(cfg, h, params["ln_f"])
     if gather_idx is not None:
-        B = h.shape[0]
-        h = h[torch.arange(B, device=h.device), gather_idx.long()][:, None, :]
+        B, S_l = h.shape[:2]
+        rows = torch.arange(B, device=h.device)
+        idx = gather_idx.long()
+        if ring:
+            idx = idx - q_off
+            inside = (idx >= 0) & (idx < S_l)
+            h = h[rows, idx.clamp(0, S_l - 1)][:, None, :]
+            h = psum(torch.where(inside[:, None, None], h, 0.0), mesh,
+                     AXIS_SP)
+        else:
+            h = h[rows, idx][:, None, :]
+    elif ring:
+        h = all_gather(h, mesh, AXIS_SP, 1)
     if cfg.tie_word_embeddings:
-        return (h @ params["wte"].to(h.dtype).T).float()
-    return lm_head(h, params["head"])
+        logits = (h @ params["wte"].to(h.dtype).T).float()
+    else:
+        logits = lm_head(h, params["head"])
+    if mesh is None:
+        return logits
+    return all_gather(logits, mesh, AXIS_TP, -1)[..., :cfg.vocab_size]
 
 
 @functools.lru_cache(maxsize=None)
@@ -259,32 +360,63 @@ def forward(
     kv_write_positions: torch.Tensor | None = None,  # [B, S]; -1 = padding
     t_bucket: int | None = None,  # decode reads only slots [0, t_bucket)
     layers: list[Params] | None = None,  # unstack_layers(params), if cached
+    mesh=None,  # parallel.mesh.Mesh: this rank's view; params its shard
+    seq_sharded: bool = False,  # the cache holds this rank's sp chunk
 ) -> tuple[torch.Tensor, KVCache]:
     """Run the decoder; returns (fp32 logits, the same cache object, now
     holding this call's KV and positions).
 
     ``t_bucket`` caller contract (as in the reference): every live slot of
-    every row, and every slot written this call, is < ``t_bucket``."""
+    every row, and every slot written this call, is < ``t_bucket``. A
+    ring prefill (``seq_sharded``, S > 1 and sp divides S) attends this
+    call's tokens only: the ring must hold no other live slot (the engine
+    clears it before every prefill and refuses shared prefixes on a
+    mesh)."""
     if isinstance(cache, PagedKVCache):
+        if mesh is not None:
+            raise NotImplementedError("the paged pool on a mesh")
         return forward_paged(
             cfg, params, input_ids, positions, cache, slots,
             gather_idx=gather_idx, kv_write_positions=kv_write_positions,
             t_bucket=t_bucket, layers=layers,
         )
+    if seq_sharded and cache.quantized:
+        raise NotImplementedError("an int8 cache under sp > 1")
     if layers is None:
         layers = unstack_layers(params)
     S = input_ids.shape[1]
-    h = _embed_in(cfg, params, input_ids, positions)
     if kv_write_positions is None:
         kv_write_positions = positions
-    sin_cos = _rope_tables(cfg, positions)
     scale, window = cfg.attn_scale, cfg.sliding_window
+    sp = mesh.size(AXIS_SP) if seq_sharded else 1
+    reduce = None
+    if mesh is not None and mesh.size(AXIS_TP) > 1:
+        def reduce(x):
+            return psum(x, mesh, AXIS_TP)
+    # Under sp the cache holds global ring slots [off, off + C): local
+    # slots out of [0, C) are another rank's, and every write site drops
+    # them.
+    local_slots = slots
+    if sp > 1:
+        local_slots = slots - mesh.coord(AXIS_SP) * cache.max_len
+
+    # A ring prefill runs on this rank's slice of the tokens.
+    ring = sp > 1 and S > 1 and S % sp == 0
+    S_l, q_off, ids, pos = S, 0, input_ids, positions
+    if ring:
+        S_l = S // sp
+        q_off = mesh.coord(AXIS_SP) * S_l
+        ids = input_ids[:, q_off:q_off + S_l]
+        pos = positions[:, q_off:q_off + S_l]
+    h = _embed_in(cfg, params, ids, pos, mesh)
+    sin_cos = _rope_tables(cfg, pos)
 
     # A small decode window (the speculative verify: gamma + 1 tokens a
     # row) takes the deferred write too, through K2w, unless the model has
-    # a sliding window or the cache is int8 (decoder.py:581-588).
+    # a sliding window, the cache is int8 or the ring is split over sp
+    # (decoder.py:581-588).
     window_defer = (1 < S <= WINDOW_MAX and window is None
-                    and not cache.quantized)
+                    and not cache.quantized and sp == 1)
     if S == 1 or window_defer:
         t_len = (
             t_bucket if t_bucket is not None and t_bucket < cache.max_len
@@ -299,47 +431,67 @@ def forward(
                         cache.positions, slots, layer, t_len=t_len,
                         scale=scale,
                     )
+                if sp > 1:
+                    return sp_decode_attention(
+                        q, cache.k, cache.v, k, v, positions,
+                        cache.positions, slots, layer, mesh=mesh,
+                        scale=scale, window=window)
                 return decode_attention(
                     q, cache.k, cache.v, k, v, positions, cache.positions,
                     slots, layer, t_len=t_len, scale=scale, window=window,
                     k_scale=cache.k_scale, v_scale=cache.v_scale,
                 )
 
-            h, k, v = _block(cfg, bp, h, positions, sin_cos, attend)
+            h, k, v = _block(cfg, bp, h, positions, sin_cos, attend, reduce)
             fresh_k.append(k)
             fresh_v.append(v)
-        write_stacked(cache, torch.stack(fresh_k), torch.stack(fresh_v), slots)
-        write_positions(cache.positions, kv_write_positions, slots)
+        write_stacked(cache, torch.stack(fresh_k), torch.stack(fresh_v),
+                      local_slots)
+        write_positions(cache.positions, kv_write_positions, local_slots)
     else:
-        write_positions(cache.positions, kv_write_positions, slots)
+        write_positions(cache.positions, kv_write_positions, local_slots)
         for layer, bp in enumerate(layers):
             def attend(q, k, v, layer=layer):
-                if cache.quantized:
-                    # A compute-dtype copy of the layer holding the fresh
-                    # KV is attended; then only the fresh tokens are
-                    # quantized into the storage.
-                    k_l, v_l = write_layer(
-                        dequantize_kv(cache.k[layer], cache.k_scale[layer],
-                                      q.dtype),
-                        dequantize_kv(cache.v[layer], cache.v_scale[layer],
-                                      q.dtype), k, v, slots)
-                    out = prefill_attention(
-                        q, k_l, v_l, positions, cache.positions,
-                        scale=scale, window=window,
-                    )
-                    write_layer(cache.k[layer], cache.v[layer], k, v, slots,
-                                cache.k_scale[layer], cache.v_scale[layer])
-                    return out
-                k_l, v_l = write_layer(
-                    cache.k[layer], cache.v[layer], k, v, slots
-                )
-                return prefill_attention(
-                    q, k_l, v_l, positions, cache.positions,
-                    scale=scale, window=window,
-                )
+                if cache.quantized:  # never sp-sharded (refused above)
+                    return _int8_prefill_attend(cache, layer, q, k, v, pos,
+                                                slots, scale, window)
+                if ring:
+                    # Each rank's fresh block passes once around the ring;
+                    # as it passes, each rank writes the slots it holds.
+                    def keep(src, k_b, v_b, layer=layer):
+                        write_layer(cache.k[layer], cache.v[layer], k_b, v_b,
+                                    local_slots[:, src * S_l:(src + 1) * S_l])
 
-            h, _, _ = _block(cfg, bp, h, positions, sin_cos, attend)
-    return _head_out(cfg, params, h, gather_idx), cache
+                    return ring_attention(
+                        q, k, v, pos, kv_write_positions[:, q_off:q_off + S_l],
+                        mesh=mesh, scale=scale, window=window, on_block=keep)
+                k_l, v_l = write_layer(cache.k[layer], cache.v[layer], k, v,
+                                       local_slots)
+                if sp > 1:
+                    return lse_merge_attention(
+                        q, k_l, v_l, pos, cache.positions, mesh=mesh,
+                        scale=scale, window=window)
+                return prefill_attention(q, k_l, v_l, pos, cache.positions,
+                                         scale=scale, window=window)
+
+            h, _, _ = _block(cfg, bp, h, pos, sin_cos, attend, reduce)
+    return _head_out(cfg, params, h, gather_idx, mesh, ring, q_off), cache
+
+
+def _int8_prefill_attend(cache: KVCache, layer: int, q, k, v, positions,
+                         slots, scale, window):
+    """Prefill attention over an int8 layer: a compute-dtype copy of the
+    layer holding the fresh KV is attended, then only the fresh tokens are
+    quantized into the storage."""
+    k_l, v_l = write_layer(
+        dequantize_kv(cache.k[layer], cache.k_scale[layer], q.dtype),
+        dequantize_kv(cache.v[layer], cache.v_scale[layer], q.dtype),
+        k, v, slots)
+    out = prefill_attention(q, k_l, v_l, positions, cache.positions,
+                            scale=scale, window=window)
+    write_layer(cache.k[layer], cache.v[layer], k, v, slots,
+                cache.k_scale[layer], cache.v_scale[layer])
+    return out
 
 
 def _occupied_blocks(cache: PagedKVCache) -> torch.Tensor:

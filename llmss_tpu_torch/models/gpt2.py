@@ -10,7 +10,9 @@ or may not carry the ``transformer.`` prefix. Defaults are GPT2Config's.
 
 from __future__ import annotations
 
-from llmss_tpu_torch.models._loading import norm, stacked_linear, stacked_norm
+from llmss_tpu_torch.models._loading import (
+    norm, stacked_linear, stacked_norm, table,
+)
 from llmss_tpu_torch.models.common import DecoderConfig
 from llmss_tpu_torch.models.decoder import Params
 from llmss_tpu_torch.weights.loader import CheckpointShards
@@ -56,11 +58,12 @@ def load_params(ckpt: CheckpointShards, cfg: DecoderConfig) -> Params:
     def split_attn(key, lo, hi):
         t = key in ("q", "k")
         return stacked_linear(ckpt, lambda i: name(i, "attn.c_attn"), L,
-                              transpose=t, sub=(0 if t else 1, lo, hi))
+                              transpose=t, sub=(0 if t else 1, lo, hi),
+                              key=key)
 
-    def lin(attr):
+    def lin(attr, key):
         return stacked_linear(ckpt, lambda i: name(i, attr), L,
-                              transpose=False)
+                              transpose=False, key=key)
 
     blocks: Params = {
         "ln1": stacked_norm(ckpt, lambda i: name(i, "ln_1"), L),
@@ -68,13 +71,13 @@ def load_params(ckpt: CheckpointShards, cfg: DecoderConfig) -> Params:
         "q": split_attn("q", 0, E),
         "k": split_attn("k", E, 2 * E),
         "v": split_attn("v", 2 * E, 3 * E),
-        "o": lin("attn.c_proj"),
-        "fc_in": lin("mlp.c_fc"),
-        "fc_out": lin("mlp.c_proj"),
+        "o": lin("attn.c_proj", "o"),
+        "fc_in": lin("mlp.c_fc", "fc_in"),
+        "fc_out": lin("mlp.c_proj", "fc_out"),
     }
     return {
-        "wte": ckpt.get(f"{pre}wte.weight"),
-        "wpe": ckpt.get(f"{pre}wpe.weight"),
+        "wte": table(ckpt, f"{pre}wte.weight", "wte"),
+        "wpe": table(ckpt, f"{pre}wpe.weight", "wpe"),
         "blocks": blocks,
         "ln_f": norm(ckpt, f"{pre}ln_f"),
     }

@@ -9,7 +9,9 @@ Defaults are GPTBigCodeConfig's.
 
 from __future__ import annotations
 
-from llmss_tpu_torch.models._loading import norm, stacked_linear, stacked_norm
+from llmss_tpu_torch.models._loading import (
+    norm, stacked_linear, stacked_norm, table,
+)
 from llmss_tpu_torch.models.common import DecoderConfig
 from llmss_tpu_torch.models.decoder import Params
 from llmss_tpu_torch.weights.loader import CheckpointShards
@@ -53,10 +55,11 @@ def load_params(ckpt: CheckpointShards, cfg: DecoderConfig) -> Params:
         # transposed to [in, out], its range on axis 1 of that view.
         t = key not in ("q", "k")
         return stacked_linear(ckpt, lambda i: f"{h}.{i}.attn.c_attn", L,
-                              transpose=t, sub=(1 if t else 0, lo, hi))
+                              transpose=t, sub=(1 if t else 0, lo, hi),
+                              key=key)
 
-    def lin(attr):
-        return stacked_linear(ckpt, lambda i: f"{h}.{i}.{attr}", L)
+    def lin(attr, key):
+        return stacked_linear(ckpt, lambda i: f"{h}.{i}.{attr}", L, key=key)
 
     blocks: Params = {
         "ln1": stacked_norm(ckpt, lambda i: f"{h}.{i}.ln_1", L),
@@ -64,13 +67,13 @@ def load_params(ckpt: CheckpointShards, cfg: DecoderConfig) -> Params:
         "q": split_attn("q", 0, E),
         "k": split_attn("k", E, E + kv),
         "v": split_attn("v", E + kv, E + 2 * kv),
-        "o": lin("attn.c_proj"),
-        "fc_in": lin("mlp.c_fc"),
-        "fc_out": lin("mlp.c_proj"),
+        "o": lin("attn.c_proj", "o"),
+        "fc_in": lin("mlp.c_fc", "fc_in"),
+        "fc_out": lin("mlp.c_proj", "fc_out"),
     }
     return {
-        "wte": ckpt.get("transformer.wte.weight"),
-        "wpe": ckpt.get("transformer.wpe.weight"),
+        "wte": table(ckpt, "transformer.wte.weight", "wte"),
+        "wpe": table(ckpt, "transformer.wpe.weight", "wpe"),
         "blocks": blocks,
         "ln_f": norm(ckpt, "transformer.ln_f"),
     }

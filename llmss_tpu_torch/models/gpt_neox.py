@@ -12,7 +12,7 @@ Defaults are GPTNeoXConfig's.
 from __future__ import annotations
 
 from llmss_tpu_torch.models._loading import (
-    lm_head, norm, stacked_linear, stacked_norm,
+    lm_head, norm, stacked_linear, stacked_norm, table,
 )
 from llmss_tpu_torch.models.common import DecoderConfig
 from llmss_tpu_torch.models.decoder import Params
@@ -61,13 +61,21 @@ def config_from_hf(hf: dict, dtype: str = "bfloat16") -> DecoderConfig:
 def _fused_qkv(ckpt: CheckpointShards, cfg: DecoderConfig) -> Params:
     """q, k, v of every layer from the head-interleaved fused tensors:
     q/k ``[L, H*D, E]``, v ``[L, E, H*D]``, biases ``[L, H*D]`` (present
-    as ``cfg.attn_bias`` says)."""
+    as ``cfg.attn_bias`` says). On a mesh the rank's heads are one range
+    of the fused rows, read alone."""
     L, H, D, E = cfg.n_layers, cfg.n_heads, cfg.head_dim, cfg.hidden_size
+    heads = ckpt.part("blocks", "q", "w", stacked=True)
+    if heads is not None:
+        # The rank's heads: rows [h0 * 3D, (h0 + H) * 3D) of the fused
+        # weight (and of its bias), split below like the whole.
+        heads = (0, heads[1], heads[2])
+        H //= heads[1]
     out: Params = {}
     for i in range(L):
         pre = f"gpt_neox.layers.{i}.attention.query_key_value"
-        w = ckpt.get(f"{pre}.weight").reshape(H, 3, D, E)
-        b = ckpt.get(f"{pre}.bias").reshape(H, 3, D) if cfg.attn_bias else None
+        w = ckpt.get(f"{pre}.weight", part=heads).reshape(H, 3, D, E)
+        b = (ckpt.get(f"{pre}.bias", part=heads).reshape(H, 3, D)
+             if cfg.attn_bias else None)
         for part, key in enumerate("qkv"):
             wp = w[:, part].reshape(H * D, E)
             if key == "v":
@@ -85,20 +93,21 @@ def _fused_qkv(ckpt: CheckpointShards, cfg: DecoderConfig) -> Params:
 def load_params(ckpt: CheckpointShards, cfg: DecoderConfig) -> Params:
     L, pre = cfg.n_layers, "gpt_neox.layers"
 
-    def lin(attr):
-        return stacked_linear(ckpt, lambda i: f"{pre}.{i}.{attr}", L)
+    def lin(attr, key):
+        return stacked_linear(ckpt, lambda i: f"{pre}.{i}.{attr}", L,
+                              key=key)
 
     blocks: Params = {
         "ln1": stacked_norm(ckpt, lambda i: f"{pre}.{i}.input_layernorm", L),
         "ln2": stacked_norm(
             ckpt, lambda i: f"{pre}.{i}.post_attention_layernorm", L),
         **_fused_qkv(ckpt, cfg),
-        "o": lin("attention.dense"),
-        "fc_in": lin("mlp.dense_h_to_4h"),
-        "fc_out": lin("mlp.dense_4h_to_h"),
+        "o": lin("attention.dense", "o"),
+        "fc_in": lin("mlp.dense_h_to_4h", "fc_in"),
+        "fc_out": lin("mlp.dense_4h_to_h", "fc_out"),
     }
     params: Params = {
-        "wte": ckpt.get("gpt_neox.embed_in.weight"),
+        "wte": table(ckpt, "gpt_neox.embed_in.weight", "wte"),
         "blocks": blocks,
         "ln_f": norm(ckpt, "gpt_neox.final_layer_norm"),
     }

@@ -10,7 +10,7 @@ bias. Defaults are GPTJConfig's (EleutherAI/gpt-j-6b).
 from __future__ import annotations
 
 from llmss_tpu_torch.models._loading import (
-    lm_head, norm, stacked_linear, stacked_norm,
+    lm_head, norm, stacked_linear, stacked_norm, table,
 )
 from llmss_tpu_torch.models.common import DecoderConfig
 from llmss_tpu_torch.models.decoder import Params
@@ -56,7 +56,8 @@ def load_params(ckpt: CheckpointShards, cfg: DecoderConfig) -> Params:
     def lin(attr, key, *, bias):
         # q/k keep the [out, in] disk layout; the rest go to [in, out].
         return stacked_linear(ckpt, lambda i: f"{h}.{i}.{attr}", L,
-                              transpose=key not in ("q", "k"), bias=bias)
+                              transpose=key not in ("q", "k"), bias=bias,
+                              key=key)
 
     blocks: Params = {
         "ln1": stacked_norm(ckpt, lambda i: f"{h}.{i}.ln_1", L),
@@ -68,7 +69,7 @@ def load_params(ckpt: CheckpointShards, cfg: DecoderConfig) -> Params:
         "fc_out": lin("mlp.fc_out", "fc_out", bias=True),
     }
     return {
-        "wte": ckpt.get("transformer.wte.weight"),
+        "wte": table(ckpt, "transformer.wte.weight", "wte"),
         "blocks": blocks,
         "ln_f": norm(ckpt, "transformer.ln_f"),
         "head": lm_head(ckpt, "lm_head.weight", bias=True),

@@ -4,7 +4,7 @@
 from __future__ import annotations
 
 from llmss_tpu_torch.models._loading import (
-    lm_head, norm, stacked_linear, stacked_norm,
+    lm_head, norm, stacked_linear, stacked_norm, table,
 )
 from llmss_tpu_torch.models.common import DecoderConfig
 from llmss_tpu_torch.models.decoder import Params
@@ -54,7 +54,7 @@ def load_params(ckpt: CheckpointShards, cfg: DecoderConfig,
         if overrides and key in overrides:
             return overrides[key](ckpt, cfg)
         return stacked_linear(ckpt, lambda i: f"{pre}.{i}.{attr}", L,
-                              transpose=key not in ("q", "k"))
+                              transpose=key not in ("q", "k"), key=key)
 
     def norm_of(attr):
         return stacked_norm(ckpt, lambda i: f"{pre}.{i}.{attr}", L, bias=False)
@@ -71,7 +71,7 @@ def load_params(ckpt: CheckpointShards, cfg: DecoderConfig,
         "down": entry("mlp.down_proj", "down"),
     }
     params: Params = {
-        "wte": ckpt.get("model.embed_tokens.weight"),
+        "wte": table(ckpt, "model.embed_tokens.weight", "wte"),
         "blocks": blocks,
         "ln_f": norm(ckpt, "model.norm", bias=False),
     }

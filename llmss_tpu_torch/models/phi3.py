@@ -96,7 +96,7 @@ def _fused(attr: str, key: str, lo: int, hi: int):
         t = key not in ("q", "k")
         return stacked_linear(
             ckpt, lambda i: f"model.layers.{i}.{attr}", cfg.n_layers,
-            transpose=t, sub=(1 if t else 0, lo, hi))
+            transpose=t, sub=(1 if t else 0, lo, hi), key=key)
 
     return load
 

@@ -42,14 +42,24 @@ def config_from_hf(hf: dict, dtype: str = "bfloat16") -> DecoderConfig:
 
 
 def load_model(
-    model_path: str | Path, device=None, dtype: str = "bfloat16",
+    model_path: str | Path, device=None, dtype: str = "bfloat16", *,
+    mesh=None,
 ) -> tuple[DecoderConfig, Params]:
     """Config and parameters of a local checkpoint directory, on ``device``
-    (default: the GPU; raises without one)."""
-    dev = resolve_device(device)
+    (default: the GPU, or the mesh's device; raises without one). On a
+    ``mesh`` (parallel/mesh.py; a ``Mesh.local`` view is enough) the rank
+    reads only its own slices: ``shard_params`` of the whole load."""
+    from llmss_tpu_torch.parallel.sharding import check_tp, param_specs
+
+    dev = resolve_device(mesh.device if device is None and mesh is not None
+                         else device)
     cfg = config_from_hf(read_config(model_path), dtype=dtype)
     with CheckpointShards(
         weight_files(model_path), dtype=cfg.torch_dtype, device=dev
     ) as ckpt:
+        if mesh is not None:
+            tp = mesh.shape["tp"]
+            check_tp(cfg, tp)
+            ckpt.set_shard(param_specs(cfg, tp), tp, mesh.coord("tp"))
         params = MODEL_REGISTRY[cfg.model_type].load_params(ckpt, cfg)
     return cfg, params

@@ -169,8 +169,29 @@ def build_all(*, verbose: bool = False) -> tuple[float, dict[str, str]]:
     return time.perf_counter() - t0, out
 
 
+# The state-out entry points (K1's and K2's kState forms) and their
+# parameters: q k v ws qpos kvpos strides | B S T Hq Hkv D dtype impl |
+# scale window stream (ws in the place of out); q kc vc qpos kvpos slots
+# ws | layer B T t_len Hq Hkv D GB S split dtype | scale window stream |
+# impl.
+_STATE_ENTRIES = {
+    "flash_attention": ("llmss_flash_attention_state",
+                        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
+                        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]),
+    "decode_attention": ("llmss_decode_attention_state",
+                         [ctypes.c_void_p] * 7 + [ctypes.c_int] * 11
+                         + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
+                            ctypes.c_int]),
+}
+
+
 def _declare(lib: ctypes.CDLL, name: str) -> None:
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    if name in _STATE_ENTRIES:
+        sym, args = _STATE_ENTRIES[name]
+        st = getattr(lib, sym, None)
+        if st is not None:
+            st.argtypes, st.restype = args, ctypes.c_int
     if name == "flash_attention":
         fn = lib.llmss_flash_attention
         # q k v out qpos kvpos strides | B S T Hq Hkv D dtype impl | scale

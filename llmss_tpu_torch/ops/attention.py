@@ -17,7 +17,10 @@ the fp32 P.V. The fresh tokens' K / V are never quantized here.
 ``prefill_attention``, ``decode_attention``, ``decode_window_attention``,
 ``paged_decode_attention`` and ``ragged_attention`` are the dispatch (the
 non-sharded part of the reference's ``dispatch_attention`` :543-639 and of
-the paged kernel hooks in models/decoder.py): CUDA tensors go to the
+the paged kernel hooks in models/decoder.py; its sp routing, ring
+prefill when the sp axis divides the length and the LSE merge otherwise,
+is in models/decoder.py over ops/ring_attention.py, and ``tp_head_plan``
+/ ``sp_plan`` are the reference's rules): CUDA tensors go to the
 hand-written kernels (ops/flash_attention.py, ops/decode_attention.py,
 ops/paged_attention.py),
 CPU tensors to the plain versions. A CUDA tensor never reaches a plain
@@ -266,6 +269,25 @@ def ragged_fresh_kv_attention(
         + torch.einsum("bkgst,btkd->bkgsd", p_w, v_new.float())
     ) / denom
     return out.permute(0, 3, 1, 2, 4).reshape(B, S, Hq, D).to(q.dtype)
+
+
+def tp_head_plan(Hq: int, Hkv: int, tp: int) -> tuple[bool, bool, str | None]:
+    """The tp rule for attention heads (attention.py:64-79): ``(kv_shard,
+    heads_ok, kv_axis)``. KV heads shard when ``tp`` divides them;
+    replicated KV is right only for MQA (``Hkv == 1``), where every query
+    head's group is the one KV head on every rank."""
+    kv_shard = Hkv % tp == 0
+    heads_ok = Hq % tp == 0 and (kv_shard or Hkv == 1)
+    return kv_shard, heads_ok, "tp" if kv_shard else None
+
+
+def sp_plan(mesh, B: int, T: int, Hq: int, Hkv: int) -> tuple[bool, str | None]:
+    """Whether (batch, cache length, heads) ride the mesh's sp axis
+    (attention.py:82-92): ``(ok, kv_axis)``."""
+    dp, sp, tp = mesh.shape["dp"], mesh.shape["sp"], mesh.shape["tp"]
+    _, heads_ok, kv_ax = tp_head_plan(Hq, Hkv, tp)
+    ok = sp > 1 and T % sp == 0 and B % dp == 0 and heads_ok
+    return ok, kv_ax
 
 
 def _route(*tensors: torch.Tensor | None) -> str:

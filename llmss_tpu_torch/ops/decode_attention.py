@@ -447,3 +447,105 @@ def _launch_window(q, k_cache, v_cache, k_new, v_new, q_pos0, kv_pos, slots,
 
 
 decode_window_attention.launches = 0
+
+
+def decode_attention_state_ref(q, k_cache, v_cache, q_pos, kv_pos, slots,
+                               layer: int, *, scale: float | None = None,
+                               window: int | None = None):
+    """The plain version of K2's state-out form: the reference's
+    ``_online_block`` over layer ``layer`` of the chunk with the slot
+    ``slots`` (an index into the chunk, or out of range) excluded; no
+    fresh token. Returns fp32 (m, l, acc), m / l ``[B, Hkv, G, 1]``."""
+    from llmss_tpu_torch.ops import ring_attention as ring
+
+    C = k_cache.shape[2]
+    idx = torch.arange(C, dtype=torch.int32, device=q.device)
+    return ring._online_block(
+        *ring._init_state(q, k_cache.shape[3]), q, k_cache[layer],
+        v_cache[layer], q_pos, kv_pos,
+        1.0 / (q.shape[-1] ** 0.5) if scale is None else scale, window,
+        exclude=idx[None, :] == slots.to(torch.int32))
+
+
+def decode_attention_state(
+    q: torch.Tensor,  # [B, 1, Hq, D]
+    k_cache: torch.Tensor,  # [L, B, C, Hkv, D] a rank's chunk, stale
+    v_cache: torch.Tensor,
+    q_pos: torch.Tensor,  # [B, 1]
+    kv_pos: torch.Tensor,  # [B, C]
+    slots: torch.Tensor,  # [B, 1] the pending slot's index in the chunk
+    layer: int,
+    *,
+    scale: float | None = None,
+    window: int | None = None,
+):
+    """Launch K2's state-out form over the whole chunk (bf16 or fp32, a
+    cache of q's dtype): the split kernel alone, its splits' fp32 states
+    left in the workspace, folded here into one state per (row, head) in
+    ``decode_attention_state_ref``'s layout; no fresh token. A split that
+    sees nothing keeps m = min, l = 0. Counted in
+    ``decode_attention.launches`` and ``decode_attention_state.launches``."""
+    tensors = (q, k_cache, v_cache, q_pos, kv_pos, slots)
+    if not all(t.is_cuda for t in tensors):
+        raise RuntimeError("decode_attention_state (K2) takes CUDA tensors "
+                           "only")
+    B, S, Hq, D = q.shape
+    L, Bc, T, Hkv, Dc = k_cache.shape
+    if S != 1 or D not in HEAD_DIMS or (Bc, Dc) != (B, D) or Hq % Hkv \
+            or v_cache.shape != k_cache.shape:
+        raise ValueError(f"bad shapes q={tuple(q.shape)} "
+                         f"cache={tuple(k_cache.shape)}")
+    if q.dtype not in (torch.bfloat16, torch.float32) or \
+            k_cache.dtype != q.dtype or v_cache.dtype != q.dtype:
+        raise _build.KernelError(
+            "decode_attention_state (K2) takes bf16 or fp32 queries over a "
+            f"cache of their dtype, got {q.dtype} over {k_cache.dtype}")
+    if not (k_cache.is_contiguous() and v_cache.is_contiguous()):
+        raise ValueError("decode_attention_state reads the cache in place: "
+                         "it must be contiguous")
+    if not 0 <= layer < L:
+        raise ValueError(f"layer {layer} out of range [0, {L})")
+    if scale is None:
+        scale = 1.0 / (D ** 0.5)
+    qc = q.contiguous()
+    qp = q_pos.to(torch.int32).reshape(B).contiguous()
+    sl = slots.to(torch.int32).reshape(B).contiguous()
+    kvp = kv_pos.to(torch.int32).contiguous()
+    if kvp.shape != (B, T):
+        raise ValueError("kv_pos must be [B, C]")
+    for t in (qc, k_cache, v_cache):
+        if t.data_ptr() % 16:
+            raise ValueError("decode_attention_state needs 16-byte aligned "
+                             "tensors")
+    plan = kernel_plan(q.dtype, B, Hq, Hkv, D, T,
+                       sms=_build.sm_count(q.device))
+    if plan.smem > _build.SMEM_LIMIT:
+        raise _build.KernelError(f"decode_attention_state (K2) needs "
+                                 f"{plan.smem} bytes of shared memory")
+    n = B * Hq * plan.splits
+    ws = torch.empty(sp.workspace_numel(B, Hq, plan.splits, D),
+                     dtype=torch.float32, device=q.device)
+    lib = _build.load("decode_attention")
+    code = lib.llmss_decode_attention_state(
+        qc.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), qp.data_ptr(),
+        kvp.data_ptr(), sl.data_ptr(), ws.data_ptr(), int(layer), B, T, T,
+        Hq, Hkv, D, _heads_per_block(Hq // Hkv), plan.splits,
+        plan.split_slots, _build.dtype_code(q), float(scale), window or 0,
+        _build.stream_ptr(q.device), 0 if plan.impl == "lanes" else 1,
+    )
+    _build.check(code, "decode_attention_state")
+    decode_attention.launches += 1
+    decode_attention_state.launches += 1
+    # The splits' states [B, Hq, splits] folded into one (split_merge's
+    # rule: a split with m = min weighs 0).
+    acc = ws[: n * D].view(B, Hq, plan.splits, D)
+    m = ws[n * D: n * (D + 1)].view(B, Hq, plan.splits)
+    l = ws[n * (D + 1): n * (D + 2)].view(B, Hq, plan.splits)
+    M = m.amax(-1, keepdim=True)
+    w = torch.exp(m - M)
+    G = Hq // Hkv
+    return (M.view(B, Hkv, G, 1), (l * w).sum(-1).view(B, Hkv, G, 1),
+            (acc * w[..., None]).sum(2).view(B, Hkv, G, 1, D))
+
+
+decode_attention_state.launches = 0

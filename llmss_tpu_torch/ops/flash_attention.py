@@ -77,20 +77,12 @@ def launch_strides(q, k, v, out, impl: str) -> tuple[int, ...]:
     return st
 
 
-def flash_attention(
-    q: torch.Tensor,
-    k: torch.Tensor,
-    v: torch.Tensor,
-    q_positions: torch.Tensor,
-    kv_positions: torch.Tensor,
-    *,
-    scale: float | None = None,
-    window: int | None = None,
-) -> torch.Tensor:
-    """Launch K1 on the current stream; returns [B, S, Hq, D] in q's dtype."""
+def _checked(q, k, v, q_positions, kv_positions, scale, window, what):
+    """The launch's operands after K1's envelope checks: int32 positions,
+    the instantiation, the scale."""
     tensors = (q, k, v, q_positions, kv_positions)
     if not all(t.is_cuda for t in tensors):
-        raise RuntimeError("flash_attention (K1) takes CUDA tensors only")
+        raise RuntimeError(f"{what} (K1) takes CUDA tensors only")
     B, S, Hq, D = q.shape
     T, Hkv = k.shape[1], k.shape[2]
     if D not in HEAD_DIMS:
@@ -113,19 +105,37 @@ def flash_attention(
         raise _build.KernelError(f"flash_attention (K1): the {impl} "
                                  f"instantiation needs {smem} bytes of shared "
                                  "memory")
-    out = torch.empty_like(q, memory_format=torch.contiguous_format)
-    st = launch_strides(q, k, v, out, impl)
     for t in (q, k, v):
         if t.data_ptr() % 16:
             raise _build.KernelError("flash_attention needs 16-byte aligned "
                                      "tensors")
+    return qp, kvp, impl, float(scale)
+
+
+def flash_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    q_positions: torch.Tensor,
+    kv_positions: torch.Tensor,
+    *,
+    scale: float | None = None,
+    window: int | None = None,
+) -> torch.Tensor:
+    """Launch K1 on the current stream; returns [B, S, Hq, D] in q's dtype."""
+    qp, kvp, impl, scale = _checked(q, k, v, q_positions, kv_positions,
+                                    scale, window, "flash_attention")
+    B, S, Hq, D = q.shape
+    T, Hkv = k.shape[1], k.shape[2]
+    out = torch.empty_like(q, memory_format=torch.contiguous_format)
+    st = launch_strides(q, k, v, out, impl)
     strides = (ctypes.c_int * 12)(*st)
     lib = _build.load("flash_attention")
     code = lib.llmss_flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         qp.data_ptr(), kvp.data_ptr(), ctypes.addressof(strides),
         B, S, T, Hq, Hkv, D, _build.dtype_code(q), _build.IMPL_CODES[impl],
-        float(scale), window or 0, _build.stream_ptr(q.device),
+        scale, window or 0, _build.stream_ptr(q.device),
     )
     _build.check(code, "flash_attention")
     flash_attention.launches += 1
@@ -133,3 +143,66 @@ def flash_attention(
 
 
 flash_attention.launches = 0
+
+
+def flash_attention_state_ref(q, k, v, q_positions, kv_positions, *,
+                              scale: float | None = None,
+                              window: int | None = None):
+    """The plain version of K1's state-out form: the reference's
+    ``_online_block`` from the initial state over the chunk ``k`` / ``v``;
+    returns fp32 (m, l, acc), m / l ``[B, Hkv, G, S]``, acc with D more."""
+    from llmss_tpu_torch.ops import ring_attention as ring
+
+    m, l, acc = ring._init_state(q, k.shape[2])
+    return ring._online_block(
+        m, l, acc, q, k, v, q_positions, kv_positions,
+        1.0 / (q.shape[-1] ** 0.5) if scale is None else scale, window)
+
+
+def flash_attention_state(
+    q: torch.Tensor,  # [B, S, Hq, D]
+    k: torch.Tensor,  # [B, C, Hkv, D] one KV chunk
+    v: torch.Tensor,
+    q_positions: torch.Tensor,  # [B, S]
+    kv_positions: torch.Tensor,  # [B, C], -1 = empty slot
+    *,
+    scale: float | None = None,
+    window: int | None = None,
+):
+    """Launch K1's state-out form (bf16 on the tile, fp32 on the FMA
+    kernel): each query row's fp32 softmax state over the chunk instead of
+    its output, for ``ops/ring_attention``'s merges. Returns (m, l, acc)
+    in ``flash_attention_state_ref``'s layout (views of one workspace).
+    Counted in ``flash_attention.launches`` (the step graphs count K1's
+    kernels by symbol) and in ``flash_attention_state.launches``."""
+    if q.dtype == torch.float16:
+        raise _build.KernelError("flash_attention_state (K1) takes bf16 or "
+                                 "fp32")
+    qp, kvp, impl, scale = _checked(q, k, v, q_positions, kv_positions,
+                                    scale, window, "flash_attention_state")
+    B, S, Hq, D = q.shape
+    T, Hkv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    n = B * S * Hq
+    ws = torch.empty(n * (D + 2), dtype=torch.float32, device=q.device)
+    # The output's strides are unused: the workspace has its own layout.
+    st = launch_strides(q, k, v, q, impl)
+    strides = (ctypes.c_int * 12)(*st)
+    lib = _build.load("flash_attention")
+    code = lib.llmss_flash_attention_state(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), ws.data_ptr(),
+        qp.data_ptr(), kvp.data_ptr(), ctypes.addressof(strides),
+        B, S, T, Hq, Hkv, D, _build.dtype_code(q), _build.IMPL_CODES[impl],
+        scale, window or 0, _build.stream_ptr(q.device),
+    )
+    _build.check(code, "flash_attention_state")
+    flash_attention.launches += 1
+    flash_attention_state.launches += 1
+    # [B, Hkv, S, G] -> [B, Hkv, G, S]
+    acc = ws[: n * D].view(B, Hkv, S, G, D).transpose(2, 3)
+    m = ws[n * D: n * (D + 1)].view(B, Hkv, S, G).transpose(2, 3)
+    l = ws[n * (D + 1):].view(B, Hkv, S, G).transpose(2, 3)
+    return m, l, acc
+
+
+flash_attention_state.launches = 0

@@ -817,12 +817,16 @@ class ContinuousWorker(_FleetMember):
 
 
 # Flags of the reference's consumer that belong to later slices: the one
-# value each may keep here, and what the port lacks for the others.
-_ONE_GPU = "the port serves one model on one GPU"
+# value each may keep here, and what the port lacks for the others. The
+# dense engine runs on a mesh (parallel/, the CLI); serving on one, with
+# rank 0 on the broker and the plan broadcast to the other ranks, is the
+# next mesh slice (ROADMAP, Queue 1 item 8).
+_ON_ONE_GPU = ("the serving workers run one model on one GPU; serving on a "
+               "mesh is the next mesh slice (the CLI's generate runs on one)")
 _LATER_FLAGS = {
-    "tp": (1, _ONE_GPU),
-    "dp": (1, _ONE_GPU),
-    "sp": (1, _ONE_GPU),
+    "tp": (1, _ON_ONE_GPU),
+    "dp": (1, _ON_ONE_GPU),
+    "sp": (1, _ON_ONE_GPU),
 }
 
 

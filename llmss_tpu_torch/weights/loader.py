@@ -7,13 +7,20 @@ bytes. ``SafetensorsFile`` maps the file and builds tensors with
 ``transformers`` nor ``ml_dtypes``. Local directories only: nothing is
 downloaded.
 
-One device needs no per-shard reads (the reference's ``read_slice`` /
-``get_stacked_array``, loader.py:116-317): ``CheckpointShards.get`` takes
-the mapped tensor, optionally its 2D transpose and a sub-range of one axis
-(a part of a fused tensor), and copies only that into a new tensor on the
-target device. Host memory holds at most one tensor's bytes beyond the
-mapping at a time; ``get_stacked`` fills a preallocated ``[L, ...]``
-tensor layer by layer.
+``CheckpointShards.get`` takes the mapped tensor, optionally its 2D
+transpose and a sub-range of one axis (a part of a fused tensor), and
+copies only that into a new tensor on the target device. Host memory holds
+at most one tensor's bytes beyond the mapping at a time; ``get_stacked``
+fills a preallocated ``[L, ...]`` tensor layer by layer.
+
+On a mesh each rank reads only its own slices, as the reference's loader
+does (``read_slice`` / ``get_concat_array``, loader.py:209-320):
+``set_shard`` gives the checkpoint the rank's tp coordinate and the
+parameter specs (parallel/sharding.py), ``part`` names a parameter's
+slice, and ``get`` / ``get_stacked(part=)`` narrow the mapped view to it
+after any fused sub-range, so a fused tensor is sliced per sub-range. A
+slice past an uneven end (a vocabulary tp does not divide) is padded with
+zeros to ``ceil(n / tp)`` rows, as ``shard_params`` pads.
 """
 
 from __future__ import annotations
@@ -24,6 +31,8 @@ import struct
 from pathlib import Path
 
 import torch
+
+from llmss_tpu_torch.parallel.sharding import shard_range
 
 _DTYPES = {
     "BF16": torch.bfloat16,
@@ -101,13 +110,36 @@ class CheckpointShards:
                         f"{self._routing[k].path}"
                     )
                 self._routing[k] = f
+        self._specs = None
+        self._tp, self._rank = 1, 0
 
     def __contains__(self, name: str) -> bool:
         return name in self._routing
 
-    def _logical(self, name: str, transpose: bool, sub) -> torch.Tensor:
+    def set_shard(self, specs, tp: int, rank: int) -> None:
+        """Read tp rank ``rank``'s slices (of ``tp``) of the parameters
+        whose ``specs`` (``sharding.param_specs``) name a dimension."""
+        self._specs, self._tp, self._rank = specs, tp, rank
+
+    def part(self, *path, stacked: bool = False):
+        """The slice ``(axis, count, index)`` that this rank reads of the
+        parameter at ``path`` (e.g. ``"blocks", "q", "w"``), on the axis of
+        one layer's tensor when ``stacked``; None to read it whole."""
+        if self._specs is None or self._tp == 1:
+            return None
+        spec = self._specs
+        for key in path:
+            spec = spec[key] if isinstance(spec, dict) else getattr(spec, key)
+        if spec is None:
+            return None
+        return (spec - 1 if stacked else spec, self._tp, self._rank)
+
+    def _logical(self, name: str, transpose: bool, sub, part=None
+                 ) -> tuple[torch.Tensor, tuple | None]:
         """The mapped tensor ``name`` (no copy), transposed if asked (2D
-        only), narrowed to ``sub = (axis, lo, hi)`` of that view."""
+        only), narrowed to ``sub = (axis, lo, hi)`` of that view, then to
+        ``part``; with the padded shape when the part runs past the end
+        (else None)."""
         if name not in self._routing:
             raise KeyError(f"tensor {name!r} not in checkpoint")
         t = self._routing[name].view(name)
@@ -118,7 +150,24 @@ class CheckpointShards:
         if sub is not None:
             axis, lo, hi = sub
             t = t.narrow(axis, lo, hi - lo)
-        return t
+        padded = None
+        if part is not None:
+            axis, count, index = part
+            lo, hi, local = shard_range(t.shape[axis], count, index, pad=True)
+            if hi - lo < local:
+                padded = list(t.shape)
+                padded[axis] = local
+                padded = tuple(padded)
+            t = t.narrow(axis, lo, hi - lo)
+        return t, padded
+
+    def _fill(self, out: torch.Tensor, t: torch.Tensor) -> None:
+        """Copy ``t`` into the leading rows of ``out`` (zeros after)."""
+        if out.shape == t.shape:
+            out.copy_(t)
+            return
+        out.zero_()
+        out[tuple(slice(0, n) for n in t.shape)].copy_(t)
 
     def _target_dtype(self, t: torch.Tensor) -> torch.dtype:
         # Floating tensors are cast to the target dtype, integer tensors
@@ -127,28 +176,32 @@ class CheckpointShards:
                               and t.is_floating_point()) else t.dtype
 
     def get(self, name: str, *, transpose: bool = False,
-            sub: tuple[int, int, int] | None = None) -> torch.Tensor:
-        """Tensor ``name`` (its 2D transpose with ``transpose``, and of
-        that the range ``lo:hi`` of ``axis`` with ``sub=(axis, lo, hi)``),
-        contiguous on the target device."""
-        t = self._logical(name, transpose, sub)
-        out = torch.empty(t.shape, dtype=self._target_dtype(t),
+            sub: tuple[int, int, int] | None = None,
+            part: tuple[int, int, int] | None = None) -> torch.Tensor:
+        """Tensor ``name`` (its 2D transpose with ``transpose``, of that
+        the range ``lo:hi`` of ``axis`` with ``sub=(axis, lo, hi)``, and of
+        that this rank's ``part``), contiguous on the target device."""
+        t, padded = self._logical(name, transpose, sub, part)
+        out = torch.empty(padded or t.shape, dtype=self._target_dtype(t),
                           device=self.device)
-        return out.copy_(t)
+        self._fill(out, t)
+        return out
 
     def get_stacked(self, names, *, transpose: bool = False,
-                    sub: tuple[int, int, int] | None = None) -> torch.Tensor:
+                    sub: tuple[int, int, int] | None = None,
+                    part: tuple[int, int, int] | None = None
+                    ) -> torch.Tensor:
         """``get`` of every name, stacked on a new leading axis: the
         per-layer tensors of one parameter as ``[len(names), ...]``."""
-        first = self._logical(names[0], transpose, sub)
-        out = torch.empty((len(names), *first.shape),
+        first, padded = self._logical(names[0], transpose, sub, part)
+        out = torch.empty((len(names), *(padded or first.shape)),
                           dtype=self._target_dtype(first), device=self.device)
         for i, n in enumerate(names):
-            t = self._logical(n, transpose, sub)
+            t, _ = self._logical(n, transpose, sub, part)
             if t.shape != first.shape:
                 raise ValueError(f"{n}: shape {tuple(t.shape)}, the first "
                                  f"layer's is {tuple(first.shape)}")
-            out[i].copy_(t)
+            self._fill(out[i], t)
         return out
 
     def close(self) -> None:

@@ -370,3 +370,65 @@ def test_profiler_is_reached_only_when_a_profile_is_asked_for(monkeypatch,
         assert len(started) == 1 and (tmp_path / "trace.json").exists()
     finally:
         srv.stop()
+
+
+def test_parallel_modules_are_covered():
+    """The mesh (parallel/) and the ring module are among the files whose
+    imports the first test checks: no JAX, nothing of the JAX package."""
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    assert {"llmss_tpu_torch/parallel/mesh.py",
+            "llmss_tpu_torch/parallel/sharding.py",
+            "llmss_tpu_torch/parallel/launch.py",
+            "llmss_tpu_torch/parallel/smoke.py",
+            "llmss_tpu_torch/ops/ring_attention.py"} <= names
+
+
+def test_mesh_defaults_to_gpu_and_raises_without_one(no_gpu):
+    """``make_mesh``, ``initialize_runtime`` and the smoke run default to
+    the GPU (NCCL) and raise without one; the CPU (gloo) only when
+    asked."""
+    from llmss_tpu_torch.parallel import initialize_runtime, make_mesh
+    from llmss_tpu_torch.parallel.mesh import default_backend, rank_device
+    from llmss_tpu_torch.parallel.smoke import main as smoke_main
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_mesh()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        initialize_runtime()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        smoke_main(["--process-id", "0", "--num-processes", "1",
+                    "--coordinator", "file:///nonexistent/rdv"])
+    assert default_backend(torch.device("cuda")) == "nccl"
+    assert default_backend(rank_device("cpu")) == "gloo"
+
+
+def test_collectives_stage_through_the_host_only_under_gloo_on_cuda():
+    """Host staging is gloo over CUDA tensors, and nothing else: never
+    under NCCL, never on the CPU; and only NCCL meshes capture graphs."""
+    from llmss_tpu_torch.parallel import Mesh
+
+    def mesh(backend, device):
+        return Mesh((1, 1, 2), (0, 0, 0), device, backend=backend)
+
+    assert mesh("gloo", "cuda").host_staged
+    assert not mesh("nccl", "cuda").host_staged
+    assert not mesh("gloo", "cpu").host_staged
+    assert mesh("nccl", "cuda").capturable
+    assert not mesh("gloo", "cuda").capturable
+
+
+def test_state_out_wrappers_take_cuda_tensors_only():
+    """K1's and K2's state-out forms launch or raise: a CPU tensor never
+    reaches their plain versions through them."""
+    from llmss_tpu_torch.ops.decode_attention import decode_attention_state
+    from llmss_tpu_torch.ops.flash_attention import flash_attention_state
+
+    q = torch.zeros(1, 16, 2, 64)
+    pos = torch.zeros(1, 16, dtype=torch.int32)
+    with pytest.raises(RuntimeError, match="CUDA tensors only"):
+        flash_attention_state(q, q, q, pos, pos)
+    cache = torch.zeros(1, 1, 16, 2, 64)
+    q1 = torch.zeros(1, 1, 2, 64)
+    p1 = torch.zeros(1, 1, dtype=torch.int32)
+    with pytest.raises(RuntimeError, match="CUDA tensors only"):
+        decode_attention_state(q1, cache, cache, p1, pos, p1, 0)

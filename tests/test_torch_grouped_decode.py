@@ -75,14 +75,15 @@ def test_decode_fwd_covers_partial_groups():
     form is a compile-time flag (GB 4 and 8 only), so a G that GB divides
     runs the code it ran before partial groups existed."""
     src = (_build.CSRC / "decode_attention.cu").read_text()
-    assert "template <typename T, typename KV, int D, int GB, bool kPart = false>" in src
+    assert ("template <typename T, typename KV, int D, int GB, bool kPart = false, "
+            "bool kState = false>") in src
     assert "const int ng = kPart ? (G + GB - 1) / GB : G / GB;" in src
     assert "const int gn = kPart ? min(GB, G - g0) : GB;" in src
     assert "if (g < gn) qv[g].load(" in src
     assert "return g < gn ? h0 + g : -1;" in src
     assert "dim3 grid(a.B, a.Hkv * ((a.Hq / a.Hkv + GB - 1) / GB), a.S);" in src
     assert re.search(r"if \(\(a\.Hq / a\.Hkv\) % GB\) \{.*\n\s+if constexpr \(GB >= 4\) \{"
-                     r"\n\s+kern = decode_fwd<T, KV, D, GB, true>;", src)
+                     r"\n\s+kern = decode_fwd<T, KV, D, GB, true, kState>;", src)
 
 
 # -- symbols and sources ------------------------------------------------------
