@@ -24,10 +24,13 @@ exits non-zero without printing a result:
               with kernel, plain, bound and library
               (scaled_dot_product_attention, timed as a yardstick only)
               times, the instantiation each case took ("mma": the
-              tensor-core tile; "fma" / "lanes": the fp32 and CB = 1
-              kernels) and, for K2 / K3, its split along the KV axis
-              (flash-decoding: "splits", "split_slots") beside the same
-              call launched unsplit ("unsplit_ms", checked too); K2, K3
+              tensor-core tile; "group": the group tile K2 / K3 take at
+              2-16 query heads per KV head; "fma" / "lanes": the fp32
+              and CB = 1 kernels) and, for K2 / K3, its split along the
+              KV axis (flash-decoding: "splits", "split_slots") beside
+              the same call launched unsplit ("unsplit_ms", checked too)
+              and, at G 1, 2, 3, 4, 7, 8, 16 and 48, on each of the three
+              decode templates ("g_tile_lanes_vs_tile"); K2, K3
               and K4 also over int8 caches with their scales
               ("lanes_int8"; K4 with bf16 queries at CB > 1 "mma_int8",
               the tensor-core tile over int8 tiles; library: dequantize
@@ -47,7 +50,8 @@ exits non-zero without printing a result:
               K1 and K2 at the local heads of tp 2 and 4 at the engine
               phase's shapes, and their state-out forms (each query row's
               fp32 softmax state over one KV chunk) at the sp = 2 chunk
-              shapes, against the plain versions' states;
+              shapes, against the plain versions' states (K2's folded
+              in its launch: nothing but split_merge after the kernel);
 4. reference -- a tiny fp32 llama generates the same greedy tokens through
               the kernels on the card, decoding by CUDA-graph replays, as
               through the plain path on the CPU;
@@ -191,7 +195,8 @@ exits non-zero without printing a result:
    head_groups -- Qwen2-7B (G = 7), SantaCoder (G = 16) and StarCoder
               over an int8 cache (G = 48) at full width, 2 layers: prewarm,
               generate, and the dense and paged decode steps profiled
-              (graph and eager) with the decode template each takes;
+              (graph and eager) with the decode template each takes, its
+              kernel ms a step and the decode kernels' share;
    gptj_6b, starcoder -- the published configs of EleutherAI/gpt-j-6b
               (D 256, untied biased head) and bigcode/starcoder (48 query
               heads on one KV head, learned positions) at full width and
@@ -420,7 +425,8 @@ def ptxas_entries(text: str) -> list[tuple[str, int, int]]:
     """(kernel, spill store bytes, registers) of every instantiation in
     ``nvcc -Xptxas=-v`` output: ptxas reports the entry's name, then its
     spills, then its registers."""
-    name = r"(?:(?:flash|paged|decode|window)_(?:mma|fwd)|(?:split|window)_merge)"
+    name = (r"(?:(?:flash|paged|decode|window)_(?:mma|fwd)|(?:decode|paged)_group"
+            r"|(?:split|window)_merge)")
     return [(k, int(sp), int(r)) for k, sp, r in re.findall(
         rf"entry function '\w*?({name}\w*?)EEEv\w*' for[^\n]*\n[^\n]*\n"
         r"\s*\d+ bytes stack frame, (\d+) bytes spill stores[^\n]*\n[^\n]*"
@@ -462,9 +468,10 @@ def int8_lane_conversions() -> tuple[dict, dict] | None:
 
 
 def mma_registers(text: str) -> list[dict]:
-    """The tensor-core instantiations' registers and spills."""
+    """The tensor-core instantiations' (the 64-row and the group tiles')
+    registers and spills."""
     return [{"kernel": k, "registers": r, "spill_store_bytes": sp}
-            for k, sp, r in ptxas_entries(text) if "_mma" in k]
+            for k, sp, r in ptxas_entries(text) if "_mma" in k or "_group" in k]
 
 
 def phase_build() -> None:
@@ -487,7 +494,7 @@ def phase_build() -> None:
           "mma_instantiations": mma_registers(text),
           "decode_instantiations": [
               {"kernel": k, "registers": r, "spill_store_bytes": sp}
-              for k, sp, r in entries if "_mma" not in k
+              for k, sp, r in entries if "_mma" not in k and "_group" not in k
               and (re.search(r"nv_bfloat16(?:S\d_|a)?Li(?:128|256)", k)
                    or INT8_LANE.search(k))],
           "int8_lane_conversions": None if conv is None else sum(conv.values()),
@@ -788,33 +795,42 @@ def _main_path_impl(kernel, row, want="mma") -> None:
 
 
 def _decode_impl(q, Hkv: int, int8: bool) -> str:
-    """The template a decode call (K2, K3) must take: the tensor-core tile
-    for bf16 queries with more than G_TILE query heads per KV head, the
-    lanes for fewer and for fp32 queries."""
+    """The template a decode call (K2, K3) must take: the one
+    ``split_plan.decode_tile`` names for its dtypes and G (the group tile
+    for bf16 queries over a bf16 cache from G_TILE query heads per KV
+    head, the 64-row tile's int8 form above 8 over an int8 cache), else the
+    lanes."""
     from llmss_tpu_torch.ops import split_plan as sp
 
-    tile = q.dtype == torch.bfloat16 and q.shape[2] // Hkv > sp.G_TILE
-    return ("mma" if tile else "lanes") + ("_int8" if int8 else "")
+    kv = torch.int8 if int8 else q.dtype
+    tile = sp.decode_tile(q.dtype, kv, q.shape[2] // Hkv)
+    return tile or ("lanes_int8" if int8 else "lanes")
 
 
-# Where the run times both decode templates, forced, on the same call: the
-# K2 and K3 cases at G = 1, 4, 7 and 8 (the plan's lanes), 16 and 48 (its
-# tile), so that the run itself shows where G_TILE belongs.
+# Where the run times the three decode templates, forced, on the same
+# call: the K2 and K3 cases at G = 1, 2, 3, 4, 7, 8, 16 and 48 (G 2 and 3
+# synthetic, at Llama-2-7B's 128-wide heads and the engine / serve shapes:
+# no family of the repo has them), so that the run itself shows where
+# G_TILE belongs.
 G_TILE_CASES = {1: ("k2_engine_decode", "k3_serve_decode"),
+                2: ("k2_g2_engine_decode", "k3_g2_serve_decode"),
+                3: ("k2_g3_engine_decode", "k3_g3_serve_decode"),
                 4: ("k2_gqa", "k3_gqa"),
                 7: ("k2_qwen2_full_wrap", "k3_qwen2_serve_decode"),
                 8: ("k2_g8_engine_decode", "k3_g8_serve_decode"),
                 16: ("k2_santacoder_window", "k3_santacoder_window"),
                 48: ("k2_starcoder_engine_decode", "k3_starcoder_serve_decode")}
-FORCE = {"lanes_ms": 1 << 30, "tile_ms": 0}  # g_tile forcing each template
+# The time each forced template goes under: the lanes, the 64-row tile,
+# the group tile.
+FORCE = {"lanes_ms": "lanes", "tile_ms": "mma", "group_ms": "group"}
 
 
-def _both_templates(row, fn, check) -> None:
-    """``fn(g_tile)`` forced onto the lanes and onto the tile: each output
-    held within REL_TOL by ``check``, each timed into ``row``."""
-    for key, g_tile in FORCE.items():
-        check(fn(g_tile))
-        row[key] = device_ms(lambda: fn(g_tile), iters=50)
+def _forced_templates(row, fn, check) -> None:
+    """``fn(force)`` forced onto each decode template of ``FORCE``: each
+    output held within REL_TOL by ``check``, each timed into ``row``."""
+    for key, force in FORCE.items():
+        check(fn(force))
+        row[key] = device_ms(lambda: fn(force), iters=50)
 
 
 # At a main-path decode shape the plan may be no slower than the unsplit
@@ -933,6 +949,12 @@ def k2_cases(int8: bool = True) -> list[dict]:
                  [n + 40 for n in ENGINE_LENS], 192, seed=10),
         _k2_case("k2_g8_engine_decode", 4, 1024, 32, 4,
                  [n + 40 for n in ENGINE_LENS], 192, seed=11),
+        # G = 2 and 3, which no family of the repo has, at Llama-2-7B's
+        # 128-wide heads in the engine's bucket: where G_TILE is measured.
+        _k2_case("k2_g2_engine_decode", 4, 1024, 32, 16,
+                 [n + 40 for n in ENGINE_LENS], 192, seed=15),
+        _k2_case("k2_g3_engine_decode", 4, 1024, 24, 8,
+                 [n + 40 for n in ENGINE_LENS], 192, seed=16),
         # Qwen2-7B over the whole (wrapped) ring: a long read, where one
         # group per KV head saves 6 of 7 reads.
         _k2_case("k2_qwen2_full_wrap", 4, 1024, 28, 4, [1000, 1500, 0, 2047],
@@ -1112,8 +1134,8 @@ def _k2_row(c) -> tuple[dict, float]:
                               ref_abs, c["q"].dtype))
     _main_path_impl("K2", row, _decode_impl(c["q"], Hkv, c["ks"] is not None))
     if c["name"] in {k2 for k2, _ in G_TILE_CASES.values()}:
-        _both_templates(
-            row, lambda g_tile: da._launch(*args, g_tile=g_tile, **kw),
+        _forced_templates(
+            row, lambda force: da._launch(*args, force=force, **kw),
             lambda g: _agree("K2", c["name"] + " forced", g.float(), ref,
                              ref_abs, c["q"].dtype))
     return row, err
@@ -1213,6 +1235,11 @@ def k3_cases(int8: bool = True) -> list[dict]:
                     n_cols=52, seed=20),
         _paged_case("k3_g8_serve_decode", 8, 32, 4, SERVE_CTX, [1] * 8, 1,
                     n_cols=52, seed=21),
+        # G = 2 and 3 (no family has them) at the serve decode shape.
+        _paged_case("k3_g2_serve_decode", 8, 32, 16, SERVE_CTX, [1] * 8, 1,
+                    n_cols=52, seed=26),
+        _paged_case("k3_g3_serve_decode", 8, 24, 8, SERVE_CTX, [1] * 8, 1,
+                    n_cols=52, seed=27),
         # SantaCoder's G = 16 under a window; G = 48 with wrapped rows, an
         # empty row and sentinel columns, and with rows whose occupied
         # slots end in their first split beside a long row and an empty one.
@@ -1345,7 +1372,7 @@ def _paged_visibility(c):
 def _paged_row(kernel, c, fn, ref_fn, lib_fn, unsplit_fn=None, forced_fn=None):
     """Run one K3 / K4 case: agreement within REL_TOL, then kernel, plain,
     library and bound times, for K3 (``unsplit_fn``) the unsplit kernel's,
-    and (``forced_fn(c, g_tile)``) both decode templates'. Returns (row,
+    and (``forced_fn(c, force)``) the three decode templates'. Returns (row,
     kernel output)."""
     from llmss_tpu_torch.ops import _build
     from llmss_tpu_torch.ops import paged_attention as pa
@@ -1409,7 +1436,7 @@ def _paged_row(kernel, c, fn, ref_fn, lib_fn, unsplit_fn=None, forced_fn=None):
                  lambda g: _agree(kernel, c["name"] + " unsplit", g.float()[live],
                                   ref[live], ref_abs[live], dt))
     if forced_fn is not None:
-        _both_templates(row, lambda g_tile: forced_fn(c, g_tile),
+        _forced_templates(row, lambda force: forced_fn(c, force),
                         lambda g: _agree(kernel, c["name"] + " forced",
                                          g.float()[live], ref[live],
                                          ref_abs[live], dt))
@@ -1466,8 +1493,8 @@ def check_paged_kernels(out: dict) -> None:
             c["slot0"][:, None], c["layer"], c["n_cols"], None, c["window"],
             c["ks"], c["vs"], **(kw or {"max_splits": 1}))
 
-    def k3_forced(c, g_tile):
-        return k3_unsplit(c, g_tile=g_tile)
+    def k3_forced(c, force):
+        return k3_unsplit(c, force=force)
 
     def k4(c):
         return pa.ragged_paged_attention(
@@ -1537,15 +1564,17 @@ def check_paged_kernels(out: dict) -> None:
           "cases": {k: {"ms": a, "library_ms": b}
                     for k, (a, b) in out["vs_library"].items()},
           "all_below": all(a < b for a, b in out["vs_library"].values())})
-    # A measurement: both decode templates at each G of G_TILE_CASES,
-    # forced, beside the plan's choice (G_TILE).
+    # A measurement: the three decode templates at each G of G_TILE_CASES,
+    # forced, beside the plan's choice (G_TILE, GROUP_MAX_G).
     from llmss_tpu_torch.ops import split_plan as sp
 
     emit({"phase": "kernel", "check": "g_tile_lanes_vs_tile", "G_TILE": sp.G_TILE,
+          "GROUP_MAX_G": sp.GROUP_MAX_G,
           "cases": {f"{k}_G{G}": {
               "case": name, "impl": out["cases"][name]["impl"],
               **{key: out["cases"][name][key] for key in FORCE},
-              "tile_faster": out["cases"][name]["tile_ms"]
+              "fastest": min(FORCE, key=lambda key: out["cases"][name][key]),
+              "group_faster_than_lanes": out["cases"][name]["group_ms"]
               < out["cases"][name]["lanes_ms"]}
               for G, names in G_TILE_CASES.items()
               for k, name in zip(("K2", "K3"), names)}})
@@ -1594,6 +1623,31 @@ def _state_agree(kernel, name, got, ref, ref_abs, dtype) -> float:
         raise AssertionError(f"{kernel} {name}: log-sum-exp off by "
                              f"{lse.abs().max().item()}")
     return err
+
+
+def _kernels_after(fn, syms, tries: int = 2) -> list[str]:
+    """The names of the CUDA kernels one call of ``fn`` runs after its
+    first kernel whose name holds one of ``syms``, in the order they ran
+    (torch.profiler). The profiler has lost kernel records before: a call
+    is profiled again, up to ``tries`` times, and the check fails if every
+    profile lost that kernel's record."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in sorted(
+            (e for e in prof.events() if e.device_type == DeviceType.CUDA),
+            key=lambda e: e.time_range.start)]
+        first = [i for i, n in enumerate(names) if any(x in n for x in syms)]
+        if first:
+            return names[first[0] + 1:]
+    raise AssertionError(f"{tries} profiles lost the record of {syms}")
 
 
 def check_mesh_kernels(kernels: dict) -> None:
@@ -1669,8 +1723,15 @@ def check_mesh_kernels(kernels: dict) -> None:
     b_ms, b_by = bound(nbytes, 4.0 * visible * Hq * D, c["q"].dtype)
     layer = c["layer"]
     plan = da.kernel_plan(c["q"].dtype, B, Hq, Hq, D, 512)
+    # The splits are folded in the launch: after the decode kernel, at
+    # most its merge runs, and no torch operation.
+    after = _kernels_after(lambda: da.decode_attention_state(*args),
+                           ("decode_fwd", "decode_mma", "decode_group"))
+    if any("split_merge" not in n for n in after):
+        raise AssertionError(f"K2_state: {after} ran after the decode kernel")
     row = {"phase": "kernel", "kernel": "K2_state", "case": c["name"],
-           "impl": plan.impl, "splits": plan.splits, "max_abs_err": err,
+           "impl": plan.impl, "splits": plan.splits,
+           "kernels_after_launch": after, "max_abs_err": err,
            "rel_tol": REL_TOL[c["q"].dtype],
            "ms": device_ms(lambda: da.decode_attention_state(*args),
                            iters=50),
@@ -2669,7 +2730,8 @@ def _graph_vs_eager(eng, what, tok, cache, cur, sa, done, eos, *, n_chunks,
     plan = _decode_plan(eng, cache, t_bucket)
     paged = isinstance(cache, PagedKVCache)
     kernel = ("paged" if paged else "decode") + (
-        "_mma" if plan.impl in sp.TILE_IMPLS else "_fwd")
+        "_mma" if plan.impl in sp.TILE_IMPLS
+        else "_group" if plan.impl == "group" else "_fwd")
     wrapper = (pa.paged_decode_attention if paged
                else da.decode_attention).__name__
 
@@ -2716,6 +2778,7 @@ def _graph_vs_eager(eng, what, tok, cache, cur, sa, done, eos, *, n_chunks,
           "profiler_calls_eager": e_row["profiler_calls"],
           "step_graph_edges": edges[1], "programmatic_edges": edges[0],
           "split_merges_per_step": merges, "decode_impl": plan.impl,
+          "kernel_ms_per_step_graph": g_row["device_kernel_ms"] / steps,
           # the decode attention kernels' (with their merges) share of the
           # graph path's kernel time
           "decode_attention_ms_graph": (g_row["kernel_ms_of"][kernel]
@@ -5852,13 +5915,15 @@ def phase_head_groups() -> None:
     """The decode templates on the main path at the head groups no full
     model phase runs, each model at its published width cut to
     ``HEAD_GROUP_LAYERS`` layers, random bf16 weights from a seed:
-    Qwen2-7B (G = 7: K2 on the lanes with one group of 8 per KV head, K3
-    on one R = 8 lane tile), SantaCoder (G = 16: the tile) and StarCoder
-    over an int8 cache (G = 48: the tile over int8 tiles). Each: prewarm,
-    ``generate`` at batch 4 (K2 n_layers per replayed step, no capture
-    after prewarm), the decode chunk profiled (graph and eager, the
-    template's kernel and its merges counted), then a paged engine's
-    decode group profiled the same way (K3) and its ragged group."""
+    Qwen2-7B (G = 7) and SantaCoder (G = 16), whose K2 and K3 take the
+    group tile (``decode_group`` / ``paged_group``, counted from their
+    step graphs' nodes), and StarCoder over an int8 cache (G = 48: the
+    64-row tile over int8 tiles). Each: prewarm, ``generate`` at batch 4
+    (K2 n_layers per replayed step, no capture after prewarm), the decode
+    chunk profiled (graph and eager, the template's kernel and its merges
+    counted, the kernel ms per step and the decode kernels' share), then a
+    paged engine's decode group profiled the same way (K3) and its ragged
+    group."""
     from llmss_tpu_torch.engine.engine import DecodeEngine, GenerationParams
     from llmss_tpu_torch.engine.metrics import EngineMetrics
     from llmss_tpu_torch.models.decoder import init_params
@@ -6463,6 +6528,9 @@ def _tel_endpoints(srv, rid: str, n: int, captures: int, card: bool
     return out
 
 
+PROFILE_WATCHDOG_S = 180  # POST /profile's step: stacks dumped, run ended
+
+
 def _tel_profile(srv, worker, requests, sync, log_dir: Path) -> dict:
     """POST /profile over a chunked pass run in this process: the capture
     writes a Chrome trace whose kernel names hold K3's (``paged_fwd``, the
@@ -6475,8 +6543,9 @@ def _tel_profile(srv, worker, requests, sync, log_dir: Path) -> dict:
     shutil.rmtree(log_dir, ignore_errors=True)
     # This step once hung, with every Llama-width phase at 16 layers
     # (ROADMAP Queue 3): if it outlasts 180 s, every thread's stack goes
-    # to stderr, so a hang says where it waits.
-    faulthandler.dump_traceback_later(180, exit=False)
+    # to stderr, so a hang says where it waits, and the run ends there,
+    # non-zero, instead of waiting for the call's time limit.
+    faulthandler.dump_traceback_later(PROFILE_WATCHDOG_S, exit=True)
     status, _, raw = _http(srv.port, "/profile",
                            {"duration_s": 1.5, "log_dir": str(log_dir)})
     busy, _, _ = _http(srv.port, "/profile", {"duration_s": 1.0})

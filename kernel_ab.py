@@ -4,14 +4,19 @@ cases of this checkout's chip_smoke.py, timed as chip_smoke.py times them
 events).
 
     python3 kernel_ab.py [--tree DIR] [--label NAME] [--kernels K1,K2,K3,K4]
-                         [--registers] [--k2w-forms]
+                         [--registers] [--k2w-forms] [--templates]
 
 (default: those four, the int8-cache cases K2_int8,K3_int8,K4_int8 and
 K2w, the speculative verify window's cases; ``--registers``: build with
 ``-Xptxas=-v`` and print the registers and spills of the tensor-core and
 lane-template instantiations first; ``--k2w-forms``: time instead each
 bf16 K2w case at 1, 2, 4 and 8 forced splits, folded in its cluster and
-by window_merge, the data K2w's split plan was set from)
+by window_merge, the data K2w's split plan was set from; ``--templates``:
+time instead K2 and K3 at chip_smoke.G_TILE_CASES on each of the three
+decode templates, forced (the lanes, the 64-row tile, the group tile),
+and the group tile at 1, 2, 4, 8 and 16 forced splits folded by the merge
+and, up to 8, in its cluster: the data G_TILE and the group tile's plan
+were set from; a tree with the group tile only)
 
 The cases include K2 and K3 at StarCoder's G = 48 (bf16 and int8), Qwen2-
 7B's G = 7, SantaCoder's G = 16 and G = 8, so a tree's decode templates
@@ -97,6 +102,36 @@ def _cases(cs, da, fa, pa, kernels):
                     c["kvp"], c["slots"], c["layer"], t_len=c["t_len"])), 50
 
 
+def _templates(cs, da, pa, tag) -> None:
+    """One line per G_TILE case of K2 and K3: the three decode templates,
+    forced, and the group tile at most N splits (``max_splits_N``)."""
+    from llmss_tpu_torch.ops import split_plan as sp
+
+    names = {n for pair in cs.G_TILE_CASES.values() for n in pair}
+    calls = []
+    for c in cs.k2_cases(False):
+        if c["name"] in names:
+            calls.append((c, lambda c=c, **kw: da._launch(
+                c["q"], c["kc"], c["vc"], c["kn"], c["vn"], c["qpos"],
+                c["kvp"], c["slots"], c["layer"], t_len=c["t_len"],
+                window=c["window"], **kw)))
+    for c in cs.k3_cases(False):
+        if c["name"] in names:
+            calls.append((c, lambda c=c, **kw: pa._launch(
+                "paged_decode_attention (K3)", c["q"], c["kp"], c["vp"],
+                c["kn"], c["vn"], c["qpos"][:, None], None, c["kvp"], c["bt"],
+                c["nblk"], c["slot0"][:, None], c["layer"], c["n_cols"], None,
+                c["window"], **kw)))
+    for c, fn in calls:
+        row = {f"{f}_ms": cs.device_ms(lambda f=f: fn(force=f), iters=50)
+               for f in sp.TEMPLATES}
+        for n in (1, 2, 4, 8, 16):
+            row[f"max_splits_{n}"] = cs.device_ms(
+                lambda n=n: fn(force="group", max_splits=n), iters=50)
+        cs.emit({"phase": "templates", **tag, "case": c["name"],
+                 "G": c["q"].shape[2] // c["kn"].shape[2], **row})
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tree", default=str(ROOT),
@@ -113,6 +148,10 @@ def main() -> int:
     ap.add_argument("--k2w-forms", action="store_true",
                     help="time the bf16 K2w cases at forced split counts and "
                          "folds")
+    ap.add_argument("--templates", action="store_true",
+                    help="time K2 / K3 at the G_TILE cases on each decode "
+                         "template and the group tile at capped split "
+                         "counts")
     args = ap.parse_args()
     tree = Path(args.tree).resolve()
     sys.path.insert(0, str(tree))
@@ -154,6 +193,9 @@ def main() -> int:
                             *args_, t_len=c["t_len"], splits=n, cluster=clu),
                         iters=50)
             cs.emit({"phase": "k2w_forms", **tag, "case": c["name"], **row})
+        return 0
+    if args.templates:
+        _templates(cs, da, pa, tag)
         return 0
     times, digests = {}, {}
     for kernel, case, fn, iters in _cases(cs, da, fa, pa,

@@ -33,25 +33,33 @@
 // t_len * D keys and values once and does ~4 flops per element for each of
 // its G query heads, far below the ~295 flops per byte where the tensor
 // cores would become the limit. So the design reads each KV head once per
-// (row, split) for all G of its query heads, in one of two templates
-// (ops/decode_attention.py kernel_plan):
-//   * G <= 8, or fp32 / fp16 queries: decode_fwd, fp32 FMA lanes, GB
-//     query heads a block (the least power of two at or above min(G, 8):
-//     G = 7, Qwen2-7B's, takes one group of 8 with a dead row). Its fp32
-//     state per head lives in registers, so GB stops at 8; at G <= 8 one
-//     group is the whole KV head's. FMA keeps the fresh V in fp32 as the
-//     Pallas kernel does. (Measured on the H100, PERF.md: the lanes beat
-//     the tile at G = 1, the tile wins from G = 4; G_TILE stays 8 while
-//     moving it would change GQA models' outputs.)
-//   * bf16 queries with G > 8 (ops/split_plan.py G_TILE; StarCoder's 48
-//     heads on one KV head): decode_mma, the tensor-core tile of
-//     attn_tile.cuh (over an int8 cache attn_tile_i8.cuh) with its 64
-//     flat rows the query heads of one KV head, where the lanes took 6
-//     blocks of 8 heads that each streamed the same KV head. Split s reads
-//     slots [s*split, (s+1)*split) as whole 64-slot tiles, the pending
-//     slot hidden by its position, and stores each head's fp32 (m, l,
-//     acc); split_merge always folds the splits and then the fresh token
-//     in fp32, so the fresh V stays fp32. The cache's P is rounded to bf16
+// (row, split) for all G of its query heads, in one of three templates
+// (ops/split_plan.py decode_tile):
+//   * G < G_TILE (2: MHA), or fp32 / fp16 queries, or G <= 8 over an int8
+//     cache: decode_fwd, fp32 FMA lanes, GB query heads a block (the least
+//     power of two at or above min(G, 8)). Its fp32 state per head lives
+//     in registers, so GB stops at 8. FMA keeps the fresh V in fp32 as the
+//     Pallas kernel does. At G = 7 the lanes did 7x the FMA per KV byte of
+//     MHA and their time grew with G (0.0060, 0.0146, 0.0226 ms at G = 1,
+//     4, 7 on the H100, PERF.md): bound by the CUDA cores, not by bytes.
+//   * bf16 queries over a bf16 cache with G_TILE <= G <= GROUP_MAX_G (16):
+//     decode_group, the group tile of group_tile.cuh (K2w's window tile at
+//     one query a row) with 16 rows a row warp (Qwen2-7B's 7 heads: 7 of
+//     16 mma rows live, where the 64-row tile had 7 of 64), Q in
+//     registers, a three-stage ring, the first tiles copied before the
+//     positions are read. Its splits store their fp32 states and
+//     split_merge folds them and then the fresh token in fp32: on the H100
+//     the merge beat a cluster fold of the splits (at 4 and 8 splits on
+//     every case timed, PERF.md), and the group tile beat the lanes from G = 2 and the 64-row tile up to G = 16
+//     (ops/split_plan.py, PERF.md).
+//   * bf16 queries with G > GROUP_MAX_G (StarCoder's 48 heads on one KV
+//     head), or G > 8 over an int8 cache: decode_mma, the tensor-core
+//     tile of attn_tile.cuh (over an int8 cache attn_tile_i8.cuh) with its
+//     64 flat rows the query heads of one KV head. Split s reads slots
+//     [s*split, (s+1)*split) as whole 64-slot tiles, the pending slot
+//     hidden by its position, and stores each head's fp32 (m, l, acc);
+//     split_merge always folds the splits and then the fresh token in
+//     fp32, so the fresh V stays fp32. The cache's P is rounded to bf16
 //     before P.V (over int8: P x v_scale as two bf16 terms).
 // The lane template's design:
 //   * the layer is addressed in place (cache + layer*B*T*Hkv*D), the GPU
@@ -87,20 +95,23 @@
 //     stream, folds the splits in split order, then the fresh token.
 //
 // State-out (kState, a compile-time flag; llmss_decode_attention_state):
-// the split kernel alone, over a rank's chunk of a sequence-sharded
-// cache, leaving every split's fp32 (m, l, acc) in the workspace even at
-// S = 1, and no merge and no fresh token: the caller merges the splits
-// and the ranks' states (pmax and psum over the sp axis) and folds the
-// fresh token in once (ops/ring_attention.py, the reference's
-// lse_merge_fresh_kv_attention). The pending slot is excluded at its
+// over a rank's chunk of a sequence-sharded cache, every split's fp32 (m,
+// l, acc) goes to the workspace even at S = 1, and split_merge's state
+// form folds them into one per query head in the same launch, with no
+// fresh token: the caller merges the ranks' states (pmax and psum over the
+// sp axis) and folds the fresh token in once (ops/ring_attention.py, the
+// reference's lse_merge_fresh_kv_attention). The pending slot is excluded at its
 // index in the chunk (the caller passes the global slot less the chunk's
 // start, out of range on the ranks that do not hold it). bf16 and fp32
 // queries over a cache of their own dtype; the other instantiations are
-// unchanged.
+// unchanged. Folding the splits with torch operations after the launch
+// took 0.0222 ms at the sp = 2 decode shape against SDPA's 0.0170 (PR 19,
+// PERF.md).
 
 #include "attn_tile.cuh"
 #include "attn_tile_i8.cuh"
 #include "common.cuh"
+#include "group_tile.cuh"
 #include "split_merge.cuh"
 
 namespace llmss {
@@ -483,8 +494,8 @@ __global__ void __launch_bounds__(NT, kLaneMinBlocks<T, GB>) decode_fwd(ArgsOf<K
 }
 
 // The split kernel, then at S > 1 split_merge on the same stream (kState:
-// the split kernel alone, its states left in ws). A split is whole ring
-// stages, and S splits cover [0, t_len).
+// at every S, split_merge's state form, into the state a.o points to). A
+// split is whole ring stages, and S splits cover [0, t_len).
 template <typename T, typename KV, int D, int GB, bool kState = false>
 cudaError_t launch(const ArgsI8& a, cudaStream_t stream) {
   if (a.S < 1 || a.S > kMaxSplits || a.split <= 0 ||
@@ -507,9 +518,10 @@ cudaError_t launch(const ArgsI8& a, cudaStream_t stream) {
   dim3 grid(a.B, a.Hkv * ((a.Hq / a.Hkv + GB - 1) / GB), a.S);
   kern<<<grid, NT, smem, stream>>>(static_cast<const ArgsOf<KV>&>(a));
   err = cudaGetLastError();
-  if (err != cudaSuccess || a.S == 1 || kState) return err;
+  if (err != cudaSuccess || (a.S == 1 && !kState)) return err;
   const MergeArgs m{a.q, a.kn, a.vn, a.o, a.ws, nullptr, nullptr, a.B, a.Hq,
-                    a.Hkv, a.S, a.split, 1, 0, a.scale};
+                    a.Hkv, a.S, a.split, 1, 0, a.scale,
+                    kState ? static_cast<float*>(a.o) : nullptr};
   return launch_merge<T>(D, m, stream);
 }
 
@@ -534,7 +546,8 @@ cudaError_t dispatch_d(int D, int GB, const ArgsI8& a, cudaStream_t s) {
   }
 }
 
-// -- bf16 queries with G > 8 heads on a KV head: the tensor-core tile -------
+// -- bf16 queries above GROUP_MAX_G heads on a KV head (or G > 8 over an
+// int8 cache): the 64-row tensor-core tile ---------------------------------
 
 // tile::attend's Source for one block of decode_mma: query heads
 // hk*G + f0 .. + 63 of row b (flat row r is head f0 + r of the group, all
@@ -642,7 +655,7 @@ __global__ void __launch_bounds__(tile::kThreads) decode_mma(ArgsOf<KV> a) {
 
 // decode_mma in S splits of `split` slots (whole 64-slot tiles covering
 // [0, t_len)), then split_merge on the same stream, whatever S (kState:
-// decode_mma alone, its states left in ws).
+// in its state form, into the state a.o points to).
 template <typename KV, int D, bool kState = false>
 cudaError_t launch_mma(const ArgsI8& a, cudaStream_t stream) {
   if (a.S < 1 || a.S > kMaxSplits || a.split <= 0 || a.split % tile::kSlots ||
@@ -658,9 +671,10 @@ cudaError_t launch_mma(const ArgsI8& a, cudaStream_t stream) {
   dim3 grid(a.B, a.Hkv, tiles * a.S);
   kern<<<grid, tile::kThreads, smem, stream>>>(static_cast<const ArgsOf<KV>&>(a));
   err = cudaGetLastError();
-  if (err != cudaSuccess || kState) return err;
+  if (err != cudaSuccess) return err;
   const MergeArgs m{a.q, a.kn, a.vn, a.o, a.ws, nullptr, nullptr, a.B, a.Hq,
-                    a.Hkv, a.S, a.split, 1, 0, a.scale};
+                    a.Hkv, a.S, a.split, 1, 0, a.scale,
+                    kState ? static_cast<float*>(a.o) : nullptr};
   return launch_merge<__nv_bfloat16>(D, m, stream);
 }
 
@@ -670,6 +684,128 @@ cudaError_t dispatch_mma(int D, const ArgsI8& a, cudaStream_t s) {
     case 64: return launch_mma<KV, 64, kState>(a, s);
     case 128: return launch_mma<KV, 128, kState>(a, s);
     case 256: return launch_mma<KV, 256, kState>(a, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+
+// -- bf16 queries and cache at GQA head groups: the group tile --------------
+
+// group_tile.cuh's Source for one block of decode_group: query heads hk*G
+// + f0 .. + R - 1 of row b (flat row r is head f0 + r, all at position
+// qp), against split s's slots [t_lo, t_hi) of layer `layer` of the stale
+// cache, read in place. A slot is visible at position p when 0 <= p <=
+// qp, inside the window when one is set, and it is not the pending slot;
+// each row folds the one fresh key, its score and V in fp32.
+template <int D>
+struct DenseGroupSrc {
+  using T = __nv_bfloat16;
+  const T *q, *kc, *vc, *kn, *vn;
+  T* o;
+  const int* kvp;  // row b's positions
+  int nr, t_lo, t_hi, ahead, S, split, n_fresh;
+  int qp, slot, window;
+  long long base, row_stride;  // slot 0's K/V row of head hk; Hkv * D
+  long long h0, kv0;  // b * Hq + hk * G + f0; row b's fresh K/V row of head hk
+  float scale_log2;
+  float* ws;
+  long long n_part, row0;
+
+  __device__ const T* q_row(int r) const { return r < nr ? q + (h0 + r) * D : nullptr; }
+  __device__ T* o_row(int r) const { return o + (h0 + r) * D; }
+  __device__ int last_fresh(int) const { return 0; }
+  __device__ const T* fresh_k(int) const { return kn + kv0; }
+  __device__ const T* fresh_v(int) const { return vn + kv0; }
+  __device__ bool vis(int t, int p) const {
+    return p >= 0 && p <= qp && t != slot && (window <= 0 || p > qp - window);
+  }
+  __device__ long long kv_off(int t) const { return base + (long long)t * row_stride; }
+};
+
+// One block per (KV head hk and its row group of R = 16 * RW query heads,
+// row b, split s of S): the block's state goes to split_merge.cuh's
+// workspace.
+template <int D, int RW>
+__global__ void __launch_bounds__(wt::Smem<D, RW>::NW * 32) decode_group(Args a) {
+  using T = __nv_bfloat16;
+  constexpr int R = wt::Smem<D, RW>::R;
+  extern __shared__ __align__(16) unsigned char gsmem[];
+  DenseGroupSrc<D> s;
+  s.split = blockIdx.z;
+  const int b = blockIdx.y, G = a.Hq / a.Hkv, ng = (G + R - 1) / R;
+  const int hk = blockIdx.x / ng, f0 = (blockIdx.x % ng) * R;
+  s.nr = min(R, G - f0);
+  s.t_lo = s.split * a.split;
+  s.t_hi = min(a.t_len, s.t_lo + a.split);
+  s.S = a.S;
+  s.n_fresh = 1;
+  s.q = static_cast<const T*>(a.q);
+  s.kc = static_cast<const T*>(a.kc);
+  s.vc = static_cast<const T*>(a.vc);
+  s.kn = static_cast<const T*>(a.kn);
+  s.vn = static_cast<const T*>(a.vn);
+  s.o = static_cast<T*>(a.o);
+  s.row_stride = (long long)a.Hkv * D;
+  s.base = ((long long)a.layer * a.B + b) * (long long)a.Tn * s.row_stride + (long long)hk * D;
+  s.kvp = a.kvpos + (long long)b * a.Tn;
+  s.qp = a.qpos[b];
+  s.slot = a.slots[b];
+  s.window = a.window;
+  // Below a ring's wrap slot t holds position t, so the slots a row can
+  // see are below q_pos + 1 (q_pos itself is the pending slot, masked);
+  // past the wrap every slot is.
+  s.ahead = min(s.qp + 1, s.t_hi) - s.t_lo;
+  s.h0 = (long long)b * a.Hq + hk * G + f0;
+  s.kv0 = ((long long)b * a.Hkv + hk) * D;
+  s.scale_log2 = a.scale * 1.4426950408889634f;
+  s.ws = a.ws;
+  s.n_part = (long long)a.B * a.Hq * a.S;
+  s.row0 = s.h0 * a.S + s.split;
+  wt::run<D, RW, wt::kWorkspace>(s, gsmem);
+}
+
+// decode_group in S splits of `split` slots (whole 64-slot tiles covering
+// [0, t_len)), then split_merge on the same stream (st: its state form,
+// K2's state-out).
+template <int D, int RW>
+cudaError_t launch_group(const Args& a, float* st, cudaStream_t stream) {
+  using SM = wt::Smem<D, RW>;
+  if (a.S < 1 || a.S > kMaxSplits || a.split <= 0 || a.split % wt::kSlots ||
+      (long long)a.S * a.split < a.t_len || a.ws == nullptr)
+    return cudaErrorInvalidValue;
+  auto kern = decode_group<D, RW>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SM::bytes);
+  if (err != cudaSuccess) return err;
+  const int groups = (a.Hq / a.Hkv + SM::R - 1) / SM::R;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(a.Hkv * groups, a.B, a.S);
+  cfg.blockDim = dim3(SM::NW * 32);
+  cfg.dynamicSmemBytes = SM::bytes;
+  cfg.stream = stream;
+  err = cudaLaunchKernelEx(&cfg, kern, a);
+  if (err != cudaSuccess) return err;
+  const MergeArgs m{a.q, a.kn, a.vn, a.o, a.ws, nullptr, nullptr, a.B, a.Hq,
+                    a.Hkv, a.S, a.split, 1, 0, a.scale, st};
+  return launch_merge<__nv_bfloat16>(D, m, stream);
+}
+
+template <int D>
+cudaError_t dispatch_group_rows(int rows, const Args& a, float* st, cudaStream_t s) {
+  switch (rows) {
+    case 16: return launch_group<D, 1>(a, st, s);
+    case 32: return launch_group<D, 2>(a, st, s);
+    case 48: return launch_group<D, 3>(a, st, s);
+    case 64: return launch_group<D, 4>(a, st, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+cudaError_t dispatch_group(int D, int rows, const Args& a, float* st, cudaStream_t s) {
+  switch (D) {
+    case 64: return dispatch_group_rows<64>(rows, a, st, s);
+    case 128: return dispatch_group_rows<128>(rows, a, st, s);
+    case 256: return dispatch_group_rows<256>(rows, a, st, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -685,7 +821,11 @@ cudaError_t dispatch_mma(int D, const ArgsI8& a, cudaStream_t s) {
 // workspace of split_merge.cuh, [B*Hq*S*(D+2)], null at S = 1); 1 =
 // decode_mma over a bf16 cache and 2 = decode_mma over an int8 cache, for
 // bf16 queries: S splits of `split` slots (a multiple of 64), ws required
-// at every S, GB unused. window <= 0 means full causal. kv_dtype: the
+// at every S, GB unused; 3 = decode_group over a bf16 cache for bf16
+// queries with GB (16, 32, 48 or 64) query heads a block, S splits of
+// `split` slots (a multiple of 64), its states stored in ws and
+// split_merge after.
+// window <= 0 means full causal. kv_dtype: the
 // cache's dtype, dtype's own, or kI8 under fp32 or bf16 queries, with
 // k_scale / v_scale [L,B,T,Hkv] fp32 (null otherwise). Returns
 // cudaGetLastError() after the last launch.
@@ -711,6 +851,8 @@ extern "C" int llmss_decode_attention(void* q, void* kc, void* vc, void* kn,
     if (dtype == kBF16 && kv_dtype == kBF16) err = dispatch_mma<__nv_bfloat16>(D, a, s);
   } else if (impl == 2) {
     if (dtype == kBF16 && kv_dtype == kI8) err = dispatch_mma<int8_t>(D, a, s);
+  } else if (impl == 3) {
+    if (dtype == kBF16 && kv_dtype == kBF16) err = dispatch_group(D, GB, a, nullptr, s);
   } else if (impl == 0 && kv_dtype == dtype) {
     if (dtype == kF32) err = dispatch_d<float, float>(D, GB, a, s);
     if (dtype == kBF16) err = dispatch_d<__nv_bfloat16, __nv_bfloat16>(D, GB, a, s);
@@ -725,29 +867,36 @@ extern "C" int llmss_decode_attention(void* q, void* kc, void* vc, void* kn,
 // The state-out form of llmss_decode_attention (kState), over a cache of
 // the queries' dtype (bf16 or fp32): q, the chunk's stacked cache, its
 // positions and slots (the pending slot's index in the chunk) as above,
-// no fresh KV and no output; every split's state stays in ws
-// ([B*Hq*S*(D+2)] fp32, split_merge.cuh's layout, required at every S).
-// impl: 0 = decode_fwd (GB query heads per block), 1 = decode_mma (bf16
-// queries).
+// no fresh KV and no output; each query head's fp32 (m, l, acc) folded
+// over the splits goes to st (acc [B*Hq*D], then m [B*Hq], then l
+// [B*Hq]), by split_merge's state form from ws ([B*Hq*S*(D+2)] fp32,
+// split_merge.cuh's layout). impl: 0 = decode_fwd (GB query heads per
+// block), 1 = decode_mma, 3 = decode_group (bf16 queries, GB rows a
+// block).
 extern "C" int llmss_decode_attention_state(void* q, void* kc, void* vc,
                                             void* qpos, void* kvpos,
-                                            void* slots, void* ws, int layer,
-                                            int B, int T, int t_len, int Hq,
-                                            int Hkv, int D, int GB, int S,
-                                            int split, int dtype, float scale,
+                                            void* slots, void* ws, void* st,
+                                            int layer, int B, int T,
+                                            int t_len, int Hq, int Hkv, int D,
+                                            int GB, int S, int split,
+                                            int dtype, float scale,
                                             int window, void* stream,
                                             int impl) {
   using namespace llmss;
   if (B == 0) return 0;
-  const ArgsI8 a{{q, kc, vc, nullptr, nullptr, nullptr,
+  const ArgsI8 a{{q, kc, vc, nullptr, nullptr, st,
                  static_cast<const int*>(qpos), static_cast<const int*>(kvpos),
                  static_cast<const int*>(slots), static_cast<float*>(ws),
                  layer, B, T, t_len, Hq, Hkv, S, split, scale, window},
                 nullptr, nullptr};
+  float* stf = static_cast<float*>(st);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
+  if (st == nullptr || ws == nullptr) return static_cast<int>(err);
   if (impl == 1 && dtype == kBF16) {
     err = dispatch_mma<__nv_bfloat16, true>(D, a, s);
+  } else if (impl == 3 && dtype == kBF16) {
+    err = dispatch_group(D, GB, a, stf, s);
   } else if (impl == 0 && dtype == kF32) {
     err = dispatch_d<float, float, true>(D, GB, a, s);
   } else if (impl == 0 && dtype == kBF16) {

@@ -32,7 +32,7 @@
 // P.V (over an int8 pool: P x v_scale, carried to 2^-16 relative on the
 // tensor cores, unrounded on the lanes).
 //
-// Four templates; the wrapper picks one from the dtypes, CB and G alone
+// Five templates; the wrapper picks one from the dtypes, CB and G alone
 // (ops/paged_attention.py kernel_plan) and this file refuses any other
 // pairing:
 //
@@ -61,16 +61,27 @@
 // so it is carried to 2^-16 relative, not bf16's 2^-8 (the header has the
 // bound). The fresh keys take the same two terms with scale 1.
 //
-// bf16 queries at CB == 1 (K3, and K4 all-decode) with G > 8 query heads
-// on a KV head (ops/split_plan.py G_TILE), over a bf16 or an int8 pool ->
-// paged_mma<KV, D, kDecode = true>, the same tiles as above. What bounds
-// decode: bytes, each KV head's live slots once per (row, KV head); so
-// the question is which template reads them once. The lanes take R <= 8
-// query rows a block (their fp32 state lives in registers), so at G = 48
-// (StarCoder's one KV head) 6 blocks each streamed the same KV head and
-// each did fp32 FMA for its 8 heads; the tile takes 64 flat rows, the
-// whole group, on the tensor cores. One block per (row, KV head, 64 of the
-// G query heads, split s of S); split s walks table columns [s*C, (s+1)*C)
+// bf16 queries and pool at CB == 1 (K3, and K4 all-decode) with G_TILE <=
+// G <= GROUP_MAX_G query heads on a KV head (2 to 16, ops/split_plan.py)
+// -> paged_group, the group tile of group_tile.cuh through a paged
+// Source: 16 rows a row warp, the table's columns walked in place
+// (sentinels clamped, n_blocks / n_cols bounding the walk), each split's
+// states folded by split_merge with the fresh key in fp32 (a cluster fold
+// of the splits lost to the merge on the H100, PERF.md). At Qwen2-7B's G = 7
+// the lanes did fp32 FMA for 7 heads on every KV element and their time
+// grew with G (0.0286, 0.0196, 0.0326 ms at G = 1, 4, 7: bound by the
+// CUDA cores), and the 64-row tile below filled 7 of 64 rows.
+//
+// bf16 queries at CB == 1 with G > GROUP_MAX_G (StarCoder's 48), or G > 8
+// over an int8 pool -> paged_mma<KV, D, kDecode = true>, the same tiles
+// as at CB > 1. What bounds decode: bytes, each KV head's live slots once
+// per (row, KV head); so the question is which template reads them once.
+// The lanes take R <= 8 query rows a block (their fp32 state lives in
+// registers), so at G = 48 (StarCoder's one KV head) 6 blocks each
+// streamed the same KV head and each did fp32 FMA for its 8 heads; the
+// tile takes 64 flat rows, the whole group, on the tensor cores (and beat
+// the group tile at G = 48 on K2, PERF.md). One block per (row, KV head,
+// 64 of the G query heads, split s of S); split s walks table columns [s*C, (s+1)*C)
 // of the row in place (C = split / bs, the split a whole number of 64-slot
 // tiles), reads no fresh key, and stores each query head's fp32 (m, l,
 // acc) in split_merge.cuh's workspace; split_merge, always launched next,
@@ -80,14 +91,13 @@
 // int8 pool: the two bf16 terms). K3 and an all-decode K4 take the same
 // plan and grid at CB = 1, so they stay bit-identical here too.
 //
-// fp32 at any CB, and CB == 1 with G <= 8 or fp32 queries (K3, and K4
-// all-decode) -> paged_fwd, the lane template below. It keeps fp32 FMA:
-// at decode each (row, KV head) reads the row's live blocks once for its
-// G <= 8 query heads, ~4 flops per KV byte, so bytes bound it; fp32 on the
-// tensor cores would mean TF32; and FMA keeps the fresh V in fp32, as the
-// Pallas kernel does. (Measured on the H100, PERF.md: at G = 1 the lanes
-// are faster than the tile, at G = 4 and 8 the tile is; G_TILE stays 8
-// while moving it would change GQA models' outputs.) K3 is its CB = 1 launch: the
+// fp32 at any CB, and CB == 1 with G < G_TILE (MHA) or fp32 queries (K3,
+// and K4 all-decode) -> paged_fwd, the lane template below. It keeps fp32
+// FMA: at MHA decode each (row, KV head) reads the row's live blocks once
+// for its one query head, ~4 flops per KV byte, so bytes bound it; fp32 on
+// the tensor cores would mean TF32; and FMA keeps the fresh V in fp32, as
+// the Pallas kernel does. (Measured on the H100, PERF.md: at G = 1 the
+// lanes are faster than both tiles.) K3 is its CB = 1 launch: the
 // ragged masks then reduce exactly to the decode masks, so an all-decode
 // batch through K4 at CB = 1 takes the same split plan, grids and
 // instruction sequence as K3 and gives bit-identical outputs. Its design:
@@ -147,6 +157,7 @@
 #include "attn_tile.cuh"
 #include "attn_tile_i8.cuh"
 #include "common.cuh"
+#include "group_tile.cuh"
 #include "split_merge.cuh"
 
 namespace llmss {
@@ -887,6 +898,146 @@ cudaError_t dispatch_mma(int D, const ArgsI8& a, cudaStream_t s) {
   }
 }
 
+
+// -- bf16 queries and pool at CB == 1 and GQA head groups: the group tile --
+
+// group_tile.cuh's Source for one block of paged_group: query heads hk*G +
+// f0 .. + R - 1 of row b (flat row r is head f0 + r, all at position qp)
+// against split s's slots [t_lo, t_hi) of the row's logical view, t_hi
+// at most its occupied slots min(n_blocks, n_cols) * bs: slot t's rows
+// are those of table column t / bs (sentinels clamped to block N - 1),
+// read in place at layer `layer` of the stacked pool, the table entry
+// read where the copy is issued. A slot is visible at position p when 0
+// <= p <= qp, inside the window when one is set, and it is not pending
+// (its ring distance from slot0 is at least q_len); each row folds the
+// one fresh key, its score and V in fp32.
+template <int D>
+struct PagedGroupSrc {
+  using T = __nv_bfloat16;
+  const T *q, *kc, *vc, *kn, *vn;
+  T* o;
+  const int *kvp, *bt;  // row b's positions and table
+  int nr, t_lo, t_hi, ahead, S, split, n_fresh;
+  int qp, ql, sl0, ring, window, bs, last_blk;
+  long long base, blk_stride, slot_stride;  // layer `layer`'s block 0 of head hk
+  long long h0, kv0;  // b * Hq + hk * G + f0; row b's fresh K/V row of head hk
+  float scale_log2;
+  float* ws;
+  long long n_part, row0;
+
+  __device__ const T* q_row(int r) const { return r < nr ? q + (h0 + r) * D : nullptr; }
+  __device__ T* o_row(int r) const { return o + (h0 + r) * D; }
+  __device__ int last_fresh(int) const { return 0; }
+  __device__ const T* fresh_k(int) const { return kn + kv0; }
+  __device__ const T* fresh_v(int) const { return vn + kv0; }
+  __device__ bool vis(int t, int p) const {
+    int d = t - sl0;
+    if (d < 0) d += ring;
+    return d >= ql && p >= 0 && p <= qp && (window <= 0 || p > qp - window);
+  }
+  __device__ long long kv_off(int t) const {
+    const int blk = min(__ldg(bt + t / bs), last_blk);
+    return base + blk * blk_stride + (long long)(t % bs) * slot_stride;
+  }
+};
+
+// One block per (KV head hk and its row group of R = 16 * RW query heads,
+// row b, split s of S) at CB == 1 (K3, and an all-decode K4, which takes
+// the same plan and grid): the block's state goes to split_merge.cuh's
+// workspace. A row with no live query (K4's padding, q_len 0) gets zeros
+// from split_merge.
+template <int D, int RW>
+__global__ void __launch_bounds__(wt::Smem<D, RW>::NW * 32) paged_group(Args a) {
+  using T = __nv_bfloat16;
+  constexpr int R = wt::Smem<D, RW>::R;
+  extern __shared__ __align__(16) unsigned char gsmem[];
+  PagedGroupSrc<D> s;
+  s.split = blockIdx.z;
+  const int b = blockIdx.y, G = a.Hq / a.Hkv, ng = (G + R - 1) / R;
+  const int hk = blockIdx.x / ng, f0 = (blockIdx.x % ng) * R;
+  s.nr = min(R, G - f0);
+  s.h0 = (long long)b * a.Hq + hk * G + f0;
+  s.o = static_cast<T*>(a.o);
+  s.ql = a.qlen ? a.qlen[b] : 1;
+  if (s.ql < 1) return;
+  const int t_end = min(max(a.nblk[b], 0), a.n_cols) * a.bs;
+  s.t_lo = s.split * a.split;
+  s.t_hi = min(t_end, s.t_lo + a.split);
+  s.S = a.S;
+  s.n_fresh = 1;
+  s.q = static_cast<const T*>(a.q);
+  s.kc = static_cast<const T*>(a.kp);
+  s.vc = static_cast<const T*>(a.vp);
+  s.kn = static_cast<const T*>(a.kn);
+  s.vn = static_cast<const T*>(a.vn);
+  s.ring = a.MB * a.bs;
+  s.kvp = a.kvpos + (long long)b * s.ring;
+  s.bt = a.tables + (long long)b * a.MB;
+  s.qp = a.qpos[b];
+  s.sl0 = a.slot0[b];
+  s.window = a.window;
+  s.bs = a.bs;
+  s.last_blk = a.Np - 2;  // N - 1: block N is the write drop target
+  s.slot_stride = (long long)a.Hkv * D;
+  s.blk_stride = (long long)a.bs * s.slot_stride;
+  s.base = (long long)a.layer * a.Np * s.blk_stride + (long long)hk * D;
+  // Below a ring's wrap logical slot t holds position t, so the slots a
+  // row can see are below q_pos + 1; past the wrap every slot is.
+  s.ahead = min(s.qp + 1, s.t_hi) - s.t_lo;
+  s.kv0 = ((long long)b * a.Hkv + hk) * D;
+  s.scale_log2 = a.scale * 1.4426950408889634f;
+  s.ws = a.ws;
+  s.n_part = (long long)a.B * a.Hq * a.S;
+  s.row0 = s.h0 * a.S + s.split;
+  wt::run<D, RW, wt::kWorkspace>(s, gsmem);
+}
+
+// paged_group in S splits of `split` slots (whole 64-slot tiles and table
+// columns covering the read), then split_merge on the same stream.
+template <int D, int RW>
+cudaError_t launch_group(const Args& a, cudaStream_t stream) {
+  using SM = wt::Smem<D, RW>;
+  if (a.CB != 1 || a.S < 1 || a.S > kMaxSplits || a.split <= 0 ||
+      a.split % wt::kSlots || a.split % a.bs ||
+      (long long)a.S * a.split < (long long)a.n_cols * a.bs || a.ws == nullptr)
+    return cudaErrorInvalidValue;
+  auto kern = paged_group<D, RW>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SM::bytes);
+  if (err != cudaSuccess) return err;
+  const int groups = (a.Hq / a.Hkv + SM::R - 1) / SM::R;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(a.Hkv * groups, a.B, a.S);
+  cfg.blockDim = dim3(SM::NW * 32);
+  cfg.dynamicSmemBytes = SM::bytes;
+  cfg.stream = stream;
+  err = cudaLaunchKernelEx(&cfg, kern, a);
+  if (err != cudaSuccess) return err;
+  const MergeArgs m{a.q, a.kn, a.vn, a.o, a.ws, a.nblk, a.qlen, a.B, a.Hq,
+                    a.Hkv, a.S, a.split, a.bs, a.n_cols, a.scale};
+  return launch_merge<__nv_bfloat16>(D, m, stream);
+}
+
+template <int D>
+cudaError_t dispatch_group_rows(int rows, const Args& a, cudaStream_t s) {
+  switch (rows) {
+    case 16: return launch_group<D, 1>(a, s);
+    case 32: return launch_group<D, 2>(a, s);
+    case 48: return launch_group<D, 3>(a, s);
+    case 64: return launch_group<D, 4>(a, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+cudaError_t dispatch_group(int D, int rows, const Args& a, cudaStream_t s) {
+  switch (D) {
+    case 64: return dispatch_group_rows<64>(rows, a, s);
+    case 128: return dispatch_group_rows<128>(rows, a, s);
+    case 256: return dispatch_group_rows<256>(rows, a, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 }  // namespace llmss
 
@@ -901,7 +1052,10 @@ cudaError_t dispatch_mma(int D, const ArgsI8& a, cudaStream_t s) {
 // S = 1); 1 = paged_mma over a bf16 pool and 2 = paged_mma over an int8
 // pool, for bf16 queries: at CB > 1 q_len required, R, S, split and ws
 // unused; at CB == 1 in S splits of `split` slots (a multiple of 64) with
-// ws required at every S (R unused). kv_dtype: the pool's dtype, dtype's
+// ws required at every S (R unused); 3 = paged_group over a bf16 pool
+// for bf16 queries at CB == 1, R (16, 32, 48 or 64) query heads a block,
+// S splits of `split` slots (multiples of 64 and bs), its states stored
+// in ws and split_merge after. kv_dtype: the pool's dtype, dtype's
 // own, or kI8 under fp32 or bf16 queries, with k_scale / v_scale
 // [L,Np,bs,Hkv] fp32 (null otherwise).
 // window <= 0 means full causal. Returns cudaGetLastError() after the last
@@ -934,6 +1088,8 @@ extern "C" int llmss_paged_attention(
     err = dispatch_mma<int8_t, false>(D, a, s);
   } else if (impl == 2 && tile8 && CB == 1) {
     err = dispatch_mma<int8_t, true>(D, a, s);
+  } else if (impl == 3 && tile16 && CB == 1) {
+    err = dispatch_group(D, R, a, s);
   } else if (impl == 0 && !((tile16 || tile8) && CB > 1)) {
     if (dtype == kF32 && kv_dtype == kF32) err = dispatch_d<float, float>(D, R, a, s);
     if (dtype == kBF16 && kv_dtype == kBF16)

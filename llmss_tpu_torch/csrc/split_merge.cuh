@@ -221,13 +221,39 @@ struct MergeArgs {
   const int* qlen;  // [B] live queries (K4 at CB = 1), or null: all 1
   int B, Hq, Hkv, S, split, bs, n_cols;
   float scale;
+  // The state-out form's (m, l, acc) per (row, query head): acc [B*Hq*D],
+  // then m [B*Hq], then l [B*Hq] (kState only; q, kn, vn and o unused).
+  float* st;
 };
 
 // One block of D threads per (row, query head); thread d owns feature d.
-template <typename T, int D>
+// kState (K2's state-out form): the live splits folded into one fp32 (m,
+// l, acc), unnormalised, with no fresh key, written to a.st.
+template <typename T, int D, bool kState = false>
 __global__ void __launch_bounds__(D) split_merge(MergeArgs a) {
   __shared__ float red[D / 32];
   const int b = blockIdx.x, h = blockIdx.y, d = threadIdx.x;
+  if constexpr (kState) {
+    const long long n_part = (long long)a.B * a.Hq * a.S;
+    const long long row0 = ((long long)b * a.Hq + h) * a.S;
+    pdl_wait();  // the split kernel's partials are complete and visible
+    float M = kNegInf;
+    for (int s = 0; s < a.S; ++s) M = fmaxf(M, a.ws[n_part * D + row0 + s]);
+    float den = 0.f, O = 0.f;
+    for (int s = 0; s < a.S; ++s) {
+      const float ms = a.ws[n_part * D + row0 + s];
+      const float sc = ms == kNegInf ? 0.f : expf(ms - M);
+      den += a.ws[n_part * D + n_part + row0 + s] * sc;
+      O += a.ws[(row0 + s) * D + d] * sc;
+    }
+    const long long n = (long long)a.B * a.Hq, row = (long long)b * a.Hq + h;
+    a.st[row * D + d] = O;
+    if (d == 0) {
+      a.st[n * D + row] = M;
+      a.st[n * D + n + row] = den;
+    }
+    return;
+  }
   const int hk = h / (a.Hq / a.Hkv);
   T* o = static_cast<T*>(a.o) + ((long long)b * a.Hq + h) * D;
   // The split kernel writes no output: chunk padding gets its zeros here,
@@ -296,6 +322,7 @@ __global__ void __launch_bounds__(D) split_merge(MergeArgs a) {
 
 template <typename T, int D>
 cudaError_t launch_merge_d(const MergeArgs& a, cudaStream_t stream) {
+  auto kern = a.st ? split_merge<T, D, true> : split_merge<T, D>;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(a.B, a.Hq);
   cfg.blockDim = dim3(D);
@@ -306,7 +333,7 @@ cudaError_t launch_merge_d(const MergeArgs& a, cudaStream_t stream) {
   attr[0].val.programmaticStreamSerializationAllowed = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, split_merge<T, D>, a);
+  return cudaLaunchKernelEx(&cfg, kern, a);
 }
 
 template <typename T>

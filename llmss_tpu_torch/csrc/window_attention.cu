@@ -26,8 +26,9 @@
 //   * Window row f (0 <= f < G * S) of KV head hk is query f / G under
 //     query head hk * G + f % G, read in place from q [B, S, Hq, D]: no
 //     transpose of the queries.
-//   * bf16 queries: window_mma, the window tile below. Its rows per block
-//     follow G * S (16 a warp: 16 for MHA's 2 to 8, 32 for G 4, 48 for
+//   * bf16 queries: window_mma, the group tile of group_tile.cuh (the
+//     tile K2 and K3 take at GQA head groups). Its rows per block follow
+//     G * S (16 a warp: 16 for MHA's 2 to 8, 32 for G 4, 48 for
 //     Qwen2's 35, 64 for StarCoder's 240 in four groups), so at
 //     Llama-2-7B's verify shape 11 of 16 mma rows are dead where the
 //     shared 64-row tile of attn_tile.cuh had 59 of 64; Q stays in
@@ -52,10 +53,9 @@
 // so it is applied once per slot when the positions are staged, exactly
 // as K2 applies its own.
 
-#include <cooperative_groups.h>
-
 #include "attn_tile.cuh"
 #include "common.cuh"
+#include "group_tile.cuh"
 #include "split_merge.cuh"
 
 namespace llmss {
@@ -63,7 +63,7 @@ namespace {
 
 constexpr int NWARP = 8;
 constexpr int NT = NWARP * 32;
-constexpr int kMaxWin = 8;  // ops/decode_attention.py WINDOW_MAX
+using wt::kMaxWin;  // ops/decode_attention.py WINDOW_MAX
 
 struct WinArgs {
   const void* q;   // [B, Sw, Hq, D]
@@ -319,475 +319,85 @@ __global__ void __launch_bounds__(NT, kLaneMinBlocks<T, GB>) window_fwd(WinArgs 
                               [&](int g) { return g < gn ? hk * Gv + f0 + g : -1; });
 }
 
-// window_mma: the window tile. A block attends R = 16 * RW flat window
-// rows of KV head hk (flat row r is window row f0 + r) against one split's
-// slots [t_lo, t_hi) of layer `layer`, on mma.sync m16n8k16 (bf16 in, fp32
-// accumulate). Warp w owns rows (w % RW) * 16 .. + 15, one A fragment, and
-// the slots j0 .. j0 + NJ - 1 (j0 = (w / RW) * NJ, NJ = 64 / SW) of every
-// 64-slot tile: its SW slot-parallel warps each keep their own fp32
-// (m, l, acc) of those rows.
-//   * Q: each warp's A fragments are loaded once from q into registers
-//     (D <= 128); at D 256 they would not leave room for the D / 8 x 4
-//     accumulators, so the block keeps Q in shared memory and reads the
-//     fragments by ldmatrix.
-//   * Visibility: the block stages kPosWin slots' visibility (position p,
-//     0 <= p < q_pos0, outside the pending ring range; else -1) in shared
-//     memory, with a mask of the 64-slot tiles holding any visible slot.
-//     Only those tiles are copied, and of them only the visible slots (the
-//     rest are zero-filled by the copy's src-size, and masked), but for
-//     the first kStages - 1 tiles below slot q_pos0, which are copied
-//     whole before the positions arrive.
-//   * Ring: kStages stages of K and V tiles (rows padded by 16 bytes),
-//     cp.async.cg 16-byte copies, one __syncthreads a tile; kStages - 1
-//     tiles are in flight while one is computed.
-//   * Before the KV loop the block also reads what its fold needs: the
-//     window's fresh V rows of KV head hk into shared memory, and the
-//     fresh keys' scores of the rows it folds.
-//   * Online softmax as attn_tile.cuh's (scores scaled by scale * log2 e,
-//     exp2f; masked probabilities exactly 0), P rounded to bf16 in
-//     registers before P.V.
-//   * End: the SW slot warps' states are folded in shared memory, in slot
-//     warp order. kCluster: the S splits of one (row b, KV head, row
-//     group) are one thread block cluster (S <= 8, grid z); after a
-//     cluster barrier block s folds the rows r = s, s + S, ... (a warp a
-//     row): the splits' states read over distributed shared memory in
-//     split order, then the fresh keys j <= i with scores and V in fp32,
-//     and writes the output in q's layout. A second barrier keeps every
-//     block's shared memory alive until the reads are done. Otherwise the
-//     block stores its state in split_merge.cuh's workspace and
-//     window_merge follows (the two-launch form, kept to time against).
-namespace wt {
-constexpr int kSlots = 64;     // slots of one K/V tile, one ring stage
-// Ring stages: 3 (two blocks an SM at D 128); 2 at D 256, whose 3 would
-// not leave room for Q and 64 rows' state.
-template <int D> constexpr int kStages = D > 128 ? 2 : 3;
-constexpr int kPosWin = 512;   // slots whose visibility a block stages at once
-constexpr int kMaxCluster = 8; // the portable cluster size: at most 8 splits
+// window_mma: the window tile, group_tile.cuh's tile over the window's G
+// * Sw rows of KV head hk (flat row r is window row f0 + r: query (f0 +
+// r) / G under query head hk * G + (f0 + r) % G), a split's slots [t_lo,
+// t_hi) of layer `layer` of the stale cache read in place; a slot is
+// visible at position p, 0 <= p < q_pos0, outside the pending ring range,
+// and row r folds the window's fresh keys j <= (f0 + r) / G. kCluster: the
+// splits fold in their cluster and write the output; otherwise the block
+// stores its state in split_merge.cuh's workspace and window_merge
+// follows (the two-launch form, kept to time against).
+template <int D>
+struct WinSrc {
+  using T = __nv_bfloat16;
+  const T *q, *kc, *vc, *kn, *vn;
+  T* o;
+  const int* kvp;  // row b's positions
+  int nr, t_lo, t_hi, ahead, S, split, n_fresh;
+  int b, hk, G, f0, Sw, Hq, Hkv, q0, slot0, Tn;
+  long long base, row_stride;  // slot 0's K/V row of head hk; Hkv * D
+  float scale_log2;
+  float* ws;
+  long long n_part, row0;
 
-// Slot-parallel warps per row warp.
-template <int RW> constexpr int kSlotWarps = RW == 1 ? 4 : 2;
-
-// Shared memory: the ring (K [stages][kSlots][LD] | V [stages][kSlots]
-// [LD]), reused after the KV loop by the slot warps' fp32 accumulators
-// [SW][R][D + 8] | Q [R][LD] at D 256 | the fresh V [kMaxWin][D] |
-// visibility [kPosWin] | two tile masks | m, l [SW][R] | the block's m, l
-// [R] | the fresh keys' scores [R][kMaxWin]. Mirrored by ops/_build.py
-// window_tile_smem_bytes.
-template <int D, int RW> struct Smem {
-  static constexpr int SW = kSlotWarps<RW>;
-  static constexpr int NW = RW * SW;
-  static constexpr int R = 16 * RW;
-  static constexpr int LD = D + 8;
-  static constexpr bool kQSmem = D > 128;
-  static constexpr size_t KV = size_t(kSlots) * LD;
-  static constexpr size_t ring = kStages<D> * 2 * KV * sizeof(__nv_bfloat16);
-  static constexpr size_t state = size_t(SW) * R * LD * sizeof(float);
-  static constexpr size_t region = ring > state ? ring : state;
-  static constexpr size_t q = kQSmem ? size_t(R) * LD * sizeof(__nv_bfloat16) : 0;
-  static constexpr size_t vn = size_t(kMaxWin) * D * sizeof(__nv_bfloat16);
-  static constexpr size_t bytes = region + q + vn + sizeof(int) * (kPosWin + 2) +
-                                  sizeof(float) * (2 * SW * R + 2 * R + R * kMaxWin);
+  __device__ long long q_off(int r) const {
+    const int f = f0 + r;
+    return (((long long)b * Sw + f / G) * Hq + hk * G + f % G) * D;
+  }
+  __device__ const T* q_row(int r) const { return r < nr ? q + q_off(r) : nullptr; }
+  __device__ T* o_row(int r) const { return o + q_off(r); }
+  __device__ int last_fresh(int r) const { return (f0 + r) / G; }
+  __device__ const T* fresh_k(int j) const { return kn + (((long long)b * Sw + j) * Hkv + hk) * D; }
+  __device__ const T* fresh_v(int j) const { return vn + (((long long)b * Sw + j) * Hkv + hk) * D; }
+  __device__ bool vis(int t, int p) const { return p >= 0 && p < q0 && !pending(t, slot0, Sw, Tn); }
+  __device__ long long kv_off(int t) const { return base + (long long)t * row_stride; }
 };
-}  // namespace wt
-
-__device__ __forceinline__ uint32_t ld_u32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
 
 template <int D, int RW, bool kCluster>
 __global__ void __launch_bounds__(wt::Smem<D, RW>::NW * 32) window_mma(WinArgs a) {
-  using T = __nv_bfloat16;
-  using SM = wt::Smem<D, RW>;
-  constexpr int SW = SM::SW, NW = SM::NW, NTB = NW * 32, R = SM::R, LD = SM::LD;
-  constexpr int NJ = wt::kSlots / SW;  // slots of each tile per warp
-  constexpr int CPR = D / 8;           // 16-byte chunks per row
-  constexpr int PPT = (wt::kPosWin + NTB - 1) / NTB;
+  constexpr int R = wt::Smem<D, RW>::R;
   extern __shared__ __align__(16) unsigned char wsmem[];
-  T* sK = reinterpret_cast<T*>(wsmem);
-  constexpr int ST = wt::kStages<D>;
-  T* sV = sK + ST * SM::KV;
-  float* sAcc = reinterpret_cast<float*>(wsmem);  // [SW][R][LD], after the loop
-  T* sQ = reinterpret_cast<T*>(wsmem + SM::region);
-  T* sVn = reinterpret_cast<T*>(wsmem + SM::region + SM::q);  // [kMaxWin][D]
-  int* sPos = reinterpret_cast<int*>(wsmem + SM::region + SM::q + SM::vn);
-  unsigned* sMask = reinterpret_cast<unsigned*>(sPos + wt::kPosWin);  // [2]
-  float* sM = reinterpret_cast<float*>(sMask + 2);  // [SW][R]
-  float* sL = sM + SW * R;                          // [SW][R]
-  float* sMc = sL + SW * R;                         // [R]
-  float* sLc = sMc + R;                             // [R]
-  float* sSn = sLc + R;                             // [R][kMaxWin]
-
-  if constexpr (!kCluster) pdl_trigger();  // window_merge may start
-
-  const T* q = static_cast<const T*>(a.q);
-  const T* kc = static_cast<const T*>(a.kc);
-  const T* vc = static_cast<const T*>(a.vc);
-  const int split = blockIdx.z, b = blockIdx.y;
-  const int G = a.Hq / a.Hkv, Gv = G * a.Sw;
+  WinSrc<D> s;
+  s.split = blockIdx.z;
+  s.b = blockIdx.y;
+  s.G = a.Hq / a.Hkv;
+  const int Gv = s.G * a.Sw;
   const int ng = (Gv + R - 1) / R;
-  const int hk = blockIdx.x / ng, f0 = (blockIdx.x % ng) * R;
-  const int nr = min(R, Gv - f0);  // live rows: r < nr
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int rw = warp % RW, j0 = warp / RW * NJ;
-  const int g4 = lane / 4, t4 = lane % 4;
-  const int t_lo = split * a.split, t_hi = min(a.t_len, t_lo + a.split);
-  const long long row_stride = (long long)a.Hkv * D;
-  const long long base =
-      ((long long)a.layer * a.B + b) * (long long)a.Tn * row_stride + (long long)hk * D;
-  const int* kvp = a.kvpos + (long long)b * a.Tn;
-  const int q0 = a.qpos[b], slot0 = a.slot0[b];
-  const float scale_log2 = a.scale * 1.4426950408889634f;
-
-  // Flat row r's query row (query (f0 + r) / G under head hk * G +
-  // (f0 + r) % G), nullptr for a dead row.
-  auto q_row = [&](int r) -> const T* {
-    if (r >= nr) return nullptr;
-    const int f = f0 + r;
-    return q + (((long long)b * a.Sw + f / G) * a.Hq + hk * G + f % G) * D;
-  };
-  uint32_t qa[SM::kQSmem ? 1 : D / 16][4];
-  if constexpr (SM::kQSmem) {
-    for (int c = tid; c < R * CPR; c += NTB) {
-      const int r = c / CPR, part = c % CPR;
-      const T* g = q_row(r);
-      *reinterpret_cast<uint4*>(sQ + r * LD + part * 8) =
-          g ? *reinterpret_cast<const uint4*>(g + part * 8) : make_uint4(0, 0, 0, 0);
-    }  // read after the first window's barriers
-  } else {
-    const T* r0 = q_row(rw * 16 + g4);
-    const T* r1 = q_row(rw * 16 + g4 + 8);
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      const int c = kk * 16 + 2 * t4;
-      qa[kk][0] = r0 ? ld_u32(r0 + c) : 0u;
-      qa[kk][1] = r1 ? ld_u32(r1 + c) : 0u;
-      qa[kk][2] = r0 ? ld_u32(r0 + c + 8) : 0u;
-      qa[kk][3] = r1 ? ld_u32(r1 + c + 8) : 0u;
-    }
-  }
-
-  // What the fold at the end needs that the KV loop does not write, read
-  // now so that no global load waits there (window_merge reads its own in
-  // the two-launch form): the fresh V rows of this KV head (a commit group
-  // of their own, empty there), and the fresh keys' scores (scale * log2 e
-  // units) of the rows this block folds, r = split + S * warp, + S * NW,
-  // ... (a warp a row).
-  const T* kn = static_cast<const T*>(a.kn);
-  const T* vn = static_cast<const T*>(a.vn);
-  for (int c = tid; kCluster && c < a.Sw * CPR; c += NTB) {
-    const int j = c / CPR, part = c % CPR;
-    tile::cp_async16(sVn + j * D + part * 8,
-                     vn + (((long long)b * a.Sw + j) * a.Hkv + hk) * D + part * 8, true);
-  }
-  tile::cp_async_commit();
-  if (tid == 0) sMask[0] = sMask[1] = 0u;
-  constexpr int E = D / 32;  // features of a lane in the fold
-  const int d0 = lane * E;
-  for (int r = split + a.S * warp; kCluster && r < nr; r += a.S * NW) {
-    const int f = f0 + r, i = f / G;
-    const T* qr = q + (((long long)b * a.Sw + i) * a.Hq + hk * G + f % G) * D + d0;
-    float qf[E];
-#pragma unroll
-    for (int e = 0; e < E; ++e) qf[e] = to_f<T>(qr[e]);
-#pragma unroll
-    for (int j = 0; j < kMaxWin; ++j) {
-      if (j > i) break;  // i is the warp's: the shuffles are uniform
-      const T* kr = kn + (((long long)b * a.Sw + j) * a.Hkv + hk) * D + d0;
-      float x = 0.f;
-#pragma unroll
-      for (int e = 0; e < E; ++e) x = fmaf(qf[e], to_f<T>(kr[e]), x);
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
-      if (lane == 0) sSn[r * kMaxWin + j] = x * scale_log2;
-    }
-  }
-
-  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
-  float o[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
-
-  // Fold this warp's slots of the tile in ring stage st (visibility pos,
-  // indexed by the tile's slot) into its rows' states.
-  auto attend = [&](int st, const int* pos) {
-    // A warp whose slots of this tile are all hidden leaves its state as
-    // it is (the fold would multiply by 1 and add zeros).
-    if (!__any_sync(0xffffffffu, pos[j0 + lane % NJ] >= 0)) return;
-    const T* k = sK + st * SM::KV + j0 * LD;
-    const T* v = sV + st * SM::KV + j0 * LD;
-    float s[NJ / 8][4];
-#pragma unroll
-    for (int n = 0; n < NJ / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t af[4];
-      if constexpr (SM::kQSmem) {
-        tile::ldsm_x4(af, sQ + (rw * 16 + (lane & 15)) * LD + kk * 16 + (lane >> 4) * 8);
-      } else {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) af[e] = qa[kk][e];
-      }
-#pragma unroll
-      for (int nn = 0; nn < NJ / 16; ++nn) {
-        uint32_t bf[4];
-        tile::ldsm_x4(bf, k + (nn * 16 + (lane & 7) + (lane >> 4) * 8) * LD + kk * 16 +
-                              ((lane >> 3) & 1) * 8);
-        tile::mma<T>(s[2 * nn], af, bf[0], bf[1]);
-        tile::mma<T>(s[2 * nn + 1], af, bf[2], bf[3]);
-      }
-    }
-    // Element e of n-tile n: row g4 + 8 * (e / 2), slot j0 + 8n + 2 t4 + e % 2.
-    float mx[2] = {m[0], m[1]};
-#pragma unroll
-    for (int n = 0; n < NJ / 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const bool vis = pos[j0 + n * 8 + 2 * t4 + (e & 1)] >= 0;
-        s[n][e] = vis ? s[n][e] * scale_log2 : kNegInf;
-        mx[e >> 1] = fmaxf(mx[e >> 1], s[n][e]);
-      }
-    }
-    float alpha[2];
-#pragma unroll
-    for (int rr = 0; rr < 2; ++rr) {
-      mx[rr] = fmaxf(mx[rr], __shfl_xor_sync(0xffffffffu, mx[rr], 1));
-      mx[rr] = fmaxf(mx[rr], __shfl_xor_sync(0xffffffffu, mx[rr], 2));
-      alpha[rr] = exp2f(m[rr] - mx[rr]);
-      m[rr] = mx[rr];
-      l[rr] *= alpha[rr];
-    }
-#pragma unroll
-    for (int n = 0; n < NJ / 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float x = s[n][e];
-        const float p = x == kNegInf ? 0.f : exp2f(x - mx[e >> 1]);
-        s[n][e] = p;
-        l[e >> 1] += p;
-      }
-    }
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      o[n][0] *= alpha[0];
-      o[n][1] *= alpha[0];
-      o[n][2] *= alpha[1];
-      o[n][3] *= alpha[1];
-    }
-    // O += P V: P (16 x NJ) as NJ / 16 A fragments, V by ldmatrix.trans.
-#pragma unroll
-    for (int kk = 0; kk < NJ / 16; ++kk) {
-      const uint32_t af[4] = {
-          tile::pack2<T>(s[2 * kk][0], s[2 * kk][1]),
-          tile::pack2<T>(s[2 * kk][2], s[2 * kk][3]),
-          tile::pack2<T>(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-          tile::pack2<T>(s[2 * kk + 1][2], s[2 * kk + 1][3]),
-      };
-#pragma unroll
-      for (int nd = 0; nd < D / 16; ++nd) {
-        uint32_t bf[4];
-        tile::ldsm_x4_trans(bf, v + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD +
-                                    nd * 16 + (lane >> 4) * 8);
-        tile::mma<T>(o[2 * nd], af, bf[0], bf[1]);
-        tile::mma<T>(o[2 * nd + 1], af, bf[2], bf[3]);
-      }
-    }
-  };
-
-  // The first window's first ST - 1 tiles that start below slot q_pos0
-  // are copied before their positions are known (slots past the split
-  // zero-filled; hidden ones masked when they are read), so the block's
-  // first tile does not wait on the position loads. Below a ring's wrap
-  // slot t holds position t, so a tile from slot q_pos0 up is hidden
-  // and left to the mask; past the wrap every slot is below q_pos0.
-  const int ahead = min(q0, t_hi) - t_lo;  // slots below q_pos0 in the split
-  const int nf = ahead > 0 ? min(ST - 1, (ahead + wt::kSlots - 1) / wt::kSlots) : 0;
-#pragma unroll
-  for (int k = 0; k < ST - 1; ++k) {
-    if (k < nf) {
-      T* kd = sK + k * SM::KV;
-      T* vd = sV + k * SM::KV;
-      for (int c = tid; c < wt::kSlots * CPR; c += NTB) {
-        const int j = c / CPR, part = c % CPR;
-        const int t = t_lo + k * wt::kSlots + j;
-        const bool ok = t < t_hi;
-        const long long off = base + (long long)t * row_stride + part * 8;
-        tile::cp_async16(kd + j * LD + part * 8, ok ? kc + off : kc, ok);
-        tile::cp_async16(vd + j * LD + part * 8, ok ? vc + off : vc, ok);
-      }
-    }
-    tile::cp_async_commit();
-  }
-
-  for (int w0 = t_lo, wi = 0; w0 < t_hi; w0 += wt::kPosWin, wi ^= 1) {
-    const int w1 = min(t_hi, w0 + wt::kPosWin);
-    int pv[PPT];
-#pragma unroll
-    for (int j = 0; j < PPT; ++j) {
-      const int t = w0 + j * NTB + tid;
-      pv[j] = t < w1 ? __ldg(kvp + t) : -1;
-    }
-    // The previous window's tiles and mask are consumed, this window's
-    // mask is clear (zeroed before the loop, or after the mask before).
-    __syncthreads();
-    if (tid == 0) sMask[wi ^ 1] = 0u;
-#pragma unroll
-    for (int j = 0; j < PPT; ++j) {
-      const int i = j * NTB + tid;  // whole warps are past kPosWin together
-      if (i < wt::kPosWin) {
-        const int p = pv[j];
-        const bool vis = p >= 0 && p < q0 && !pending(w0 + i, slot0, a.Sw, a.Tn);
-        sPos[i] = vis ? p : -1;
-        if (__any_sync(0xffffffffu, vis) && lane == 0)
-          atomicOr(sMask + wi, 1u << (i / wt::kSlots));
-      }
-    }
-    __syncthreads();
-    // The tiles of this window: the n0 copied ahead (first window only),
-    // then the later ones some slot of which is visible.
-    const int n0 = w0 == t_lo ? nf : 0;
-    const unsigned mask = sMask[wi] & ~((1u << n0) - 1u);
-    const int nl = n0 + __popc(mask);
-    auto tile_at = [&](int k) {  // slot of the window's k-th tile
-      if (k < n0) return k * wt::kSlots;
-      unsigned rest = mask;
-      for (int i = n0; i < k; ++i) rest &= rest - 1;
-      return (__ffs(rest) - 1) * wt::kSlots;
-    };
-    auto issue = [&](int k) {
-      if (k < nl) {
-        const int x0 = tile_at(k);
-        T* kd = sK + (k % ST) * SM::KV;
-        T* vd = sV + (k % ST) * SM::KV;
-        for (int c = tid; c < wt::kSlots * CPR; c += NTB) {
-          const int j = c / CPR, part = c % CPR;
-          const bool ok = sPos[x0 + j] >= 0;
-          const long long off = base + (long long)(w0 + x0 + j) * row_stride + part * 8;
-          tile::cp_async16(kd + j * LD + part * 8, ok ? kc + off : kc, ok);
-          tile::cp_async16(vd + j * LD + part * 8, ok ? vc + off : vc, ok);
-        }
-      }
-      tile::cp_async_commit();  // empty past the last tile: keeps the count
-    };
-    if (w0 != t_lo) {
-#pragma unroll
-      for (int k = 0; k < ST - 1; ++k) issue(k);
-    }
-    for (int k = 0; k < nl; ++k) {
-      tile::cp_async_wait<ST - 2>();  // tile k landed (this thread's copies)
-      __syncthreads();  // ... every thread's; tile k - 1's stage is free
-      issue(k + ST - 1);
-      attend(k % ST, sPos + tile_at(k));
-    }
-  }
-  tile::cp_async_wait<0>();
-  __syncthreads();  // every warp is done with the ring: sAcc reuses it
-
-  const int sw = warp / RW;
-#pragma unroll
-  for (int rr = 0; rr < 2; ++rr) {
-    float sum = l[rr];
-    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-    const int r = rw * 16 + g4 + 8 * rr;
-    float* acc = sAcc + (sw * R + r) * LD;
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n)
-      *reinterpret_cast<float2*>(acc + n * 8 + 2 * t4) =
-          make_float2(o[n][2 * rr], o[n][2 * rr + 1]);
-    if (t4 == 0) {
-      sM[sw * R + r] = m[rr];
-      sL[sw * R + r] = sum;
-    }
-  }
-  __syncthreads();
-  // The block's state: its slot warps' folded in slot warp order, into
-  // slot warp 0's rows (each element read and written by one thread).
-  for (int c = tid; c < nr * (D / 4); c += NTB) {
-    const int r = c / (D / 4), d = c % (D / 4) * 4;
-    float M = kNegInf;
-#pragma unroll
-    for (int w = 0; w < SW; ++w) M = fmaxf(M, sM[w * R + r]);
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    float ls = 0.f;
-#pragma unroll
-    for (int w = 0; w < SW; ++w) {
-      const float f = exp2f(sM[w * R + r] - M);  // a slot warp that saw nothing adds 0
-      const float4 y = *reinterpret_cast<const float4*>(sAcc + (w * R + r) * LD + d);
-      x.x += y.x * f;
-      x.y += y.y * f;
-      x.z += y.z * f;
-      x.w += y.w * f;
-      ls += sL[w * R + r] * f;
-    }
-    *reinterpret_cast<float4*>(sAcc + r * LD + d) = x;
-    if (d == 0) {
-      sMc[r] = M;
-      sLc[r] = ls;
-    }
-  }
-  __syncthreads();
-
-  if constexpr (kCluster) {
-    namespace cg = cooperative_groups;
-    cg::cluster_group cluster = cg::this_cluster();
-    // Split s's shared memory (S == 1, no cluster: this block's own).
-    auto at = [&](float* p, int s) { return a.S > 1 ? cluster.map_shared_rank(p, s) : p; };
-    // Every split's state is in its block's shared memory (S == 1: the
-    // block's own barrier above was enough).
-    if (a.S > 1) cluster.sync();
-    for (int r = split + a.S * warp; r < nr; r += a.S * NW) {
-      const int f = f0 + r, i = f / G;
-      const long long qrow = ((long long)b * a.Sw + i) * a.Hq + hk * G + f % G;
-      float M = kNegInf;
-      for (int s = 0; s < a.S; ++s) M = fmaxf(M, at(sMc, s)[r]);
-      for (int j = 0; j <= i; ++j) M = fmaxf(M, sSn[r * kMaxWin + j]);  // key 0: finite
-      float den = 0.f, O[E];
-#pragma unroll
-      for (int e = 0; e < E; ++e) O[e] = 0.f;
-      for (int s = 0; s < a.S; ++s) {  // the splits, in split order
-        const float ms = at(sMc, s)[r];
-        const float sc = ms == kNegInf ? 0.f : exp2f(ms - M);
-        den += at(sLc, s)[r] * sc;
-        const float* acc = at(sAcc, s) + r * LD + d0;
-#pragma unroll
-        for (int e = 0; e < E; e += 2) {
-          const float2 y = *reinterpret_cast<const float2*>(acc + e);
-          O[e] += y.x * sc;
-          O[e + 1] += y.y * sc;
-        }
-      }
-      for (int j = 0; j <= i; ++j) {  // the fresh keys, folded last
-        const float pn = exp2f(sSn[r * kMaxWin + j] - M);
-        den += pn;
-#pragma unroll
-        for (int e = 0; e < E; ++e) O[e] = fmaf(pn, to_f<T>(sVn[j * D + d0 + e]), O[e]);
-      }
-      T* out = static_cast<T*>(a.o) + qrow * D + d0;
-#pragma unroll
-      for (int e = 0; e < E; ++e) out[e] = from_f<T>(O[e] / den);
-    }
-    if (a.S > 1) cluster.sync();  // no block leaves while others read its memory
-  } else {
-    // split_merge.cuh's workspace, indexed by window row: state row
-    // (b * Hq * Sw + hk * Gv + f0 + r) * S + split; m in natural-log units.
-    const long long hq = (long long)a.Hq * a.Sw;
-    const long long n_part = (long long)a.B * hq * a.S;
-    const long long row0 = (b * hq + (long long)hk * Gv + f0) * a.S + split;
-    for (int c = tid; c < nr * (D / 4); c += NTB) {
-      const int r = c / (D / 4), d = c % (D / 4) * 4;
-      *reinterpret_cast<float4*>(a.ws + (row0 + (long long)r * a.S) * D + d) =
-          *reinterpret_cast<const float4*>(sAcc + r * LD + d);
-    }
-    for (int r = tid; r < nr; r += NTB) {
-      const long long row = row0 + (long long)r * a.S;
-      a.ws[n_part * D + row] = sMc[r] == kNegInf ? kNegInf : sMc[r] * 0.6931471805599453f;
-      a.ws[n_part * D + n_part + row] = sLc[r];
-    }
-  }
+  s.hk = blockIdx.x / ng;
+  s.f0 = (blockIdx.x % ng) * R;
+  s.nr = min(R, Gv - s.f0);
+  s.t_lo = s.split * a.split;
+  s.t_hi = min(a.t_len, s.t_lo + a.split);
+  s.S = a.S;
+  s.Sw = s.n_fresh = a.Sw;
+  s.Hq = a.Hq;
+  s.Hkv = a.Hkv;
+  s.Tn = a.Tn;
+  s.q = static_cast<const __nv_bfloat16*>(a.q);
+  s.kc = static_cast<const __nv_bfloat16*>(a.kc);
+  s.vc = static_cast<const __nv_bfloat16*>(a.vc);
+  s.kn = static_cast<const __nv_bfloat16*>(a.kn);
+  s.vn = static_cast<const __nv_bfloat16*>(a.vn);
+  s.o = static_cast<__nv_bfloat16*>(a.o);
+  s.row_stride = (long long)a.Hkv * D;
+  s.base = ((long long)a.layer * a.B + s.b) * (long long)a.Tn * s.row_stride +
+           (long long)s.hk * D;
+  s.kvp = a.kvpos + (long long)s.b * a.Tn;
+  s.q0 = a.qpos[s.b];
+  s.slot0 = a.slot0[s.b];
+  // Below a ring's wrap slot t holds position t, so a tile from slot
+  // q_pos0 up is hidden and left to the mask; past the wrap every slot is
+  // below q_pos0.
+  s.ahead = min(s.q0, s.t_hi) - s.t_lo;
+  s.scale_log2 = a.scale * 1.4426950408889634f;
+  // split_merge.cuh's workspace, indexed by window row: state row
+  // (b * Hq * Sw + hk * Gv + f0 + r) * S + split.
+  const long long hq = (long long)a.Hq * a.Sw;
+  s.ws = a.ws;
+  s.n_part = (long long)a.B * hq * a.S;
+  s.row0 = (s.b * hq + (long long)s.hk * Gv + s.f0) * a.S + s.split;
+  wt::run<D, RW, kCluster ? wt::kCluster : wt::kWorkspace>(s, wsmem);
 }
 
 struct WinMergeArgs {

@@ -65,21 +65,25 @@ from llmss_tpu_torch.utils import devtel
 SAMPLING_VARIANTS = ((False, False), (True, False), (True, True))
 
 # The symbols of the kernels each wrapper launches once per call (a split
-# lane call, and every decode call on the tile, adds a ``split_merge``,
-# and a K2w call on the lanes, or on the window tile above four splits,
-# a ``window_merge``, which are not counted). K3 and K4
-# share the paged kernels; a step graph holds K3 only. A symbol names every
-# instantiation of its template: ``paged_mma`` is the tensor-core tile over
-# a bf16 pool and over an int8 one, K4's chunks and the decode form K3
-# takes above G_TILE query heads per KV head; ``decode_mma`` K2's tile over
-# either cache; ``paged_fwd`` / ``decode_fwd`` the lane templates over
-# either cache.
+# lane call, every decode call on the 64-row tile and a group tile call
+# past one cluster's splits add a ``split_merge``, and a K2w call on the
+# lanes, or on the window tile above four splits, a ``window_merge``,
+# which are not counted). K3 and K4 share the paged kernels; a step graph
+# holds K3 only. A symbol names every instantiation of its template:
+# ``paged_mma`` is the 64-row tensor-core tile over a bf16 pool and over
+# an int8 one, K4's chunks and the decode form K3 takes above
+# GROUP_MAX_G query heads per KV head (over an int8 pool above
+# INT8_G_TILE); ``decode_mma`` K2's 64-row tile over either cache;
+# ``decode_group`` / ``paged_group`` the group tile K2 / K3 take from
+# G_TILE query heads per KV head (its own symbols: a ``window_mma`` node
+# is K2w's); ``paged_fwd`` / ``decode_fwd`` the lane templates over either
+# cache.
 KERNEL_SYMBOLS = {
     "flash_attention": ("flash_fwd", "flash_mma"),
-    "decode_attention": ("decode_fwd", "decode_mma"),
+    "decode_attention": ("decode_fwd", "decode_mma", "decode_group"),
     "decode_window_attention": ("window_fwd", "window_mma"),
-    "paged_decode_attention": ("paged_fwd", "paged_mma"),
-    "ragged_paged_attention": ("paged_fwd", "paged_mma"),
+    "paged_decode_attention": ("paged_fwd", "paged_mma", "paged_group"),
+    "ragged_paged_attention": ("paged_fwd", "paged_mma", "paged_group"),
 }
 
 

@@ -39,8 +39,10 @@ NVCC_FLAGS = (
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2,
                torch.int8: 3}
 # instantiation codes of the entry points' ``impl`` argument (the lane
-# template's int8 instantiation is chosen by the cache's dtype code)
-IMPL_CODES = {"lanes": 0, "lanes_int8": 0, "fma": 0, "mma": 1, "mma_int8": 2}
+# template's int8 instantiation is chosen by the cache's dtype code; the
+# group tile's is K2's and K3's)
+IMPL_CODES = {"lanes": 0, "lanes_int8": 0, "fma": 0, "mma": 1, "mma_int8": 2,
+              "group": 3}
 # q / fresh KV dtypes an int8 cache's kernels take
 INT8_QUERY_DTYPES = (torch.float32, torch.bfloat16)
 SMEM_LIMIT = 232448  # bytes of shared memory one block may use on the H100
@@ -89,8 +91,8 @@ def tile_i8_smem_bytes(D: int) -> int:
 
 
 def window_tile_smem_bytes(D: int, row_warps: int) -> int:
-    """Shared memory of one block of K2w's window tile (csrc/
-    window_attention.cu ``wt::Smem<D, RW>``): a ring of 3 stages (2 at
+    """Shared memory of one block of the group tile, K2w's window tile and
+    K2's and K3's GQA decode (csrc/group_tile.cuh ``wt::Smem<D, RW>``): a ring of 3 stages (2 at
     D 256) of K and V tiles of 64 rows of D + 8 bf16 elements, which the
     slot warps' fp32 accumulators ``[SW][R][D + 8]`` reuse after the KV
     loop; Q ``[R][D + 8]`` bf16 at D 256 only; the fresh V ``[8][D]`` bf16;
@@ -172,14 +174,14 @@ def build_all(*, verbose: bool = False) -> tuple[float, dict[str, str]]:
 # The state-out entry points (K1's and K2's kState forms) and their
 # parameters: q k v ws qpos kvpos strides | B S T Hq Hkv D dtype impl |
 # scale window stream (ws in the place of out); q kc vc qpos kvpos slots
-# ws | layer B T t_len Hq Hkv D GB S split dtype | scale window stream |
-# impl.
+# ws st | layer B T t_len Hq Hkv D GB S split dtype | scale window stream
+# | impl.
 _STATE_ENTRIES = {
     "flash_attention": ("llmss_flash_attention_state",
                         [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
                         + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]),
     "decode_attention": ("llmss_decode_attention_state",
-                         [ctypes.c_void_p] * 7 + [ctypes.c_int] * 11
+                         [ctypes.c_void_p] * 8 + [ctypes.c_int] * 11
                          + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
                             ctypes.c_int]),
 }

@@ -6,19 +6,23 @@ Replaces ``llmss_tpu/ops/pallas_decode.py::decode_attention``, with the
 XLA path's bucketed read added: ``t_len`` bounds the read to ring slots
 ``[0, t_len)``, cut into ``S`` splits along the slots (flash-decoding,
 ``ops/split_plan.py``) that ``kernel_plan`` picks from the shapes and the
-card's SM count. Two templates read each KV head once per (row, split)
-for a group of its query heads: the lane template (``"lanes"``) at up to
-8 heads a block, and, for bf16 queries with more than 8 query heads per
-KV head (StarCoder's 48), the tensor-core tile (``"mma"``, 64 heads a
-block, ``decode_mma``), whose splits are whole 64-slot tiles and whose
-states always go through the merge (the fresh V stays fp32).
-``decode_attention`` launches the CUDA kernel (and, at ``S > 1`` or on
-the tile, its merge) and counts each call in
-``decode_attention.launches``; it takes CUDA tensors only.
-``decode_attention_ref`` is the plain PyTorch version (fp32 throughout:
-``fresh_kv_decode_attention`` on the layer's first ``t_len`` slots), used
-for CPU tensors and as the kernel's check on the card. The kernel rounds P
-to the value dtype before P.V, as the Pallas kernel does.
+card's SM count. Three templates read each KV head once per (row, split)
+for a group of its query heads (``split_plan.decode_tile``): the lane
+template (``"lanes"``) at up to 8 heads a block, below ``G_TILE`` query
+heads per KV head, for fp32 / fp16 queries and over an int8 cache up to
+8; the group tile (``"group"``, ``decode_group``, csrc/group_tile.cuh:
+K2w's window tile at one query a row) for bf16 queries over a bf16 cache
+from ``G_TILE`` to ``GROUP_MAX_G`` heads per KV head, 16 heads a row
+block on the tensor cores; and the 64-row tile (``"mma"``,
+``decode_mma``) above. The tiles' split states always go through the
+merge, and every template keeps the fresh V in fp32.
+``decode_attention`` launches the CUDA kernel (and, where its plan says,
+its merge) and counts each call in ``decode_attention.launches``; it
+takes CUDA tensors only. ``decode_attention_ref`` is the plain PyTorch
+version (fp32 throughout: ``fresh_kv_decode_attention`` on the layer's
+first ``t_len`` slots), used for CPU tensors and as the kernel's check on
+the card. The kernel rounds P to the value dtype before P.V, as the
+Pallas kernel does.
 
 Over an int8 cache (``k_scale`` / ``v_scale`` ``[L, B, T, Hkv]`` fp32,
 q and fresh KV in fp32 or bf16) the kernel is the int8 instantiation of
@@ -64,10 +68,10 @@ WINDOW_MAX = 8
 # ms on the H100 against the lanes' 0.0384-0.0390 (PERF.md, kernel_ab.py
 # against the parent), so bf16 has no lane instantiation.
 #
-# The window tile (csrc/window_attention.cu window_mma): 16 window rows a
-# row warp (one mma A fragment), at most WINDOW_ROW_WARPS row warps a
-# block (more rows take more blocks), each with 4 slot-parallel warps at
-# one row warp, else 2. Its splits are whole 64-slot tiles, at most
+# The window tile (csrc/window_attention.cu window_mma, csrc/
+# group_tile.cuh): split_plan's group tile over the window's G * S rows
+# (16 a row warp, at most 4 row warps a block, 4 slot-parallel warps at
+# one row warp, else 2). Its splits are whole 64-slot tiles, at most
 # WINDOW_MAX_CLUSTER (the portable cluster size), folded in one thread
 # block cluster up to WINDOW_CLUSTER_SPLITS splits and by window_merge
 # above, the faster of the two on either side on the H100 (PERF.md,
@@ -79,11 +83,10 @@ WINDOW_MAX = 8
 # 0.0757; PERF.md). A read of at most WINDOW_SHORT_TILES tiles is split
 # only when the unsplit grid leaves half the SMs idle, as split_plan's
 # SHORT_READ (PERF.md).
-WINDOW_TILE_ROWS = 16
-WINDOW_ROW_WARPS = 4
-WINDOW_MAX_CLUSTER = 8
+WINDOW_TILE_ROWS = sp.GROUP_TILE_ROWS
+WINDOW_MAX_CLUSTER = sp.GROUP_MAX_CLUSTER
 WINDOW_CLUSTER_SPLITS = 4
-WINDOW_SHORT_TILES = 8
+WINDOW_SHORT_TILES = sp.GROUP_SHORT_TILES
 # The C entry's instantiation codes: the lanes then window_merge, the
 # window tile (a split read folded in its cluster), and the same tile with
 # its states folded by window_merge (the two-launch form).
@@ -122,6 +125,14 @@ def decode_window_attention_ref(
     )
 
 
+def _rows(plan: sp.Plan, G: int) -> int:
+    """Query rows of a block of ``plan`` at ``G`` query heads per KV head
+    (the C entry's ``GB``): the group tile's, or the lanes' ``GB``."""
+    if plan.impl == "group":
+        return sp.group_rows(G)
+    return _heads_per_block(G)
+
+
 def _heads_per_block(G: int) -> int:
     """GB, the lane template's query heads per block: the least power of
     two at or above ``min(G, 8)``, so each KV head's heads take
@@ -136,20 +147,21 @@ def kernel_plan(dtype: torch.dtype, B: int, Hq: int, Hkv: int, D: int,
                 t_len: int, *, sms: int = sp.H100_SMS,
                 max_splits: int = sp.MAX_SPLITS,
                 kv_dtype: torch.dtype | None = None,
-                g_tile: int = sp.G_TILE) -> sp.Plan:
-    """How a K2 call launches on a card of ``sms`` SMs. bf16 queries with
-    more than ``g_tile`` query heads per KV head take the tensor-core tile
-    (``sp.decode_tile``: ``"mma"``, or ``"mma_int8"`` over an int8 cache),
-    64 heads a block, split into whole 64-slot tiles and always merged.
-    Every other call takes the lane template with ``GB`` query heads per
-    block (``_heads_per_block``), ``"lanes"`` over a cache of the query's
-    dtype or ``"lanes_int8"`` over an int8 cache (``kv_dtype``). Returns
-    the instantiation, the shared memory one block needs (bytes), and the
+                force: str | None = None) -> sp.Plan:
+    """How a K2 call launches on a card of ``sms`` SMs: bf16 queries take
+    the tile ``sp.decode_tile`` names (``"group"`` over a bf16 cache from
+    ``G_TILE`` query heads per KV head; ``"mma"`` / ``"mma_int8"`` above
+    their thresholds), planned by ``sp.decode_tile_plan``. Every other
+    call takes the lane template with ``GB`` query heads per block
+    (``_heads_per_block``), ``"lanes"`` over a cache of the query's dtype
+    or ``"lanes_int8"`` over an int8 cache (``kv_dtype``). ``force`` (one
+    of ``sp.TEMPLATES``) puts a bf16 call on that template. Returns the
+    instantiation, the shared memory one block needs (bytes), and the
     split of slots ``[0, t_len)`` (into at most ``max_splits``), which the
     cache's dtype does not change."""
     kv_dtype = dtype if kv_dtype is None else kv_dtype
     G = Hq // Hkv
-    tile = sp.decode_tile(dtype, kv_dtype, G, g_tile)
+    tile = sp.decode_tile(dtype, kv_dtype, G, force)
     if tile is not None:
         return sp.decode_tile_plan(tile, B, Hkv, G, D, t_len, sms=sms,
                                    max_splits=max_splits)
@@ -189,11 +201,11 @@ def decode_attention(
 
 def _launch(q, k_cache, v_cache, k_new, v_new, q_pos, kv_pos, slots, layer,
             *, t_len=None, scale=None, window=None, k_scale=None,
-            v_scale=None, max_splits=sp.MAX_SPLITS, g_tile=sp.G_TILE):
+            v_scale=None, max_splits=sp.MAX_SPLITS, force=None):
     """Check the envelope and launch K2 split into at most ``max_splits``
-    (1: the unsplit kernel, which chip_smoke.py times beside the plan's),
-    on the tile above ``g_tile`` query heads per KV head (chip_smoke.py
-    forces either template to time them side by side)."""
+    (1: the unsplit kernel, which chip_smoke.py times beside the plan's);
+    ``force`` puts it on one template (chip_smoke.py and kernel_ab.py time
+    them side by side)."""
     tensors = (q, k_cache, v_cache, k_new, v_new, q_pos, kv_pos, slots)
     if not all(t.is_cuda for t in tensors):
         raise RuntimeError("decode_attention (K2) takes CUDA tensors only")
@@ -238,7 +250,7 @@ def _launch(q, k_cache, v_cache, k_new, v_new, q_pos, kv_pos, slots, layer,
             raise ValueError("decode_attention needs 16-byte aligned tensors")
     plan = kernel_plan(q.dtype, B, Hq, Hkv, D, t_len,
                        sms=_build.sm_count(q.device), max_splits=max_splits,
-                       kv_dtype=k_cache.dtype, g_tile=g_tile)
+                       kv_dtype=k_cache.dtype, force=force)
     if plan.smem > _build.SMEM_LIMIT:
         raise _build.KernelError(f"decode_attention (K2) needs {plan.smem} "
                                  "bytes of shared memory")
@@ -251,9 +263,9 @@ def _launch(q, k_cache, v_cache, k_new, v_new, q_pos, kv_pos, slots, layer,
         qc.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), kn.data_ptr(),
         vn.data_ptr(), out.data_ptr(), qp.data_ptr(), kvp.data_ptr(),
         sl.data_ptr(), ws.data_ptr() if ws is not None else None, int(layer),
-        B, T, t_len, Hq, Hkv, D, _heads_per_block(Hq // Hkv), plan.splits,
-        plan.split_slots, _build.dtype_code(q), float(scale), window or 0,
-        _build.stream_ptr(q.device), sc[0], sc[1],
+        B, T, t_len, Hq, Hkv, D, _rows(plan, Hq // Hkv),
+        plan.splits, plan.split_slots, _build.dtype_code(q), float(scale),
+        window or 0, _build.stream_ptr(q.device), sc[0], sc[1],
         _build.dtype_code(k_cache), _build.IMPL_CODES[plan.impl],
     )
     _build.check(code, "decode_attention")
@@ -281,36 +293,14 @@ class WindowPlan(NamedTuple):
     cluster: int
 
 
-def window_tile_warps(rows: int) -> tuple[int, int]:
-    """(row warps, slot-parallel warps per row warp) of a window tile block
-    for ``rows`` = G * S window rows per KV head: one row warp for each 16
-    rows, at most ``WINDOW_ROW_WARPS`` (more rows take more blocks); 4 slot
-    warps at one row warp, else 2."""
-    rw = min(WINDOW_ROW_WARPS, -(-rows // WINDOW_TILE_ROWS))
-    return rw, 4 if rw == 1 else 2
-
-
 def window_tile_split(blocks: int, t_len: int, smem: int, sms: int,
                       max_splits: int, splits: int | None = None
                       ) -> tuple[int, int]:
     """(splits, split_slots) of the window tile over ``blocks`` blocks
-    before the split: as many splits of whole 64-slot tiles as keep the
-    grid within the blocks the card holds at once (its ``sms`` SMs times
-    what one SM's shared memory holds of ``smem``-byte blocks), at most
-    ``WINDOW_MAX_CLUSTER``, ``max_splits`` and the read's tiles; 1 when
-    the unsplit grid already fills the card, or when the read has at most
-    ``WINDOW_SHORT_TILES`` tiles and the grid at least ``sms / 2`` blocks.
-    A wider read widens each split. ``splits``: that many instead (at most
-    8 and the read's tiles), for chip_smoke.py's forced launches."""
-    per_sm = max(1, _build.SM_SHARED_BYTES
-                 // (smem + _build.BLOCK_RESERVED_BYTES))
-    tiles = -(-t_len // sp.TILE_STEP)
-    if splits is None:
-        short = tiles <= WINDOW_SHORT_TILES and 2 * blocks >= sms
-        splits = 1 if short else per_sm * sms // blocks
-    S = max(1, min(WINDOW_MAX_CLUSTER, max_splits, tiles, splits))
-    split = -(-tiles // S) * sp.TILE_STEP
-    return -(-t_len // split), split
+    before the split: ``sp.group_split`` at most ``WINDOW_MAX_CLUSTER``
+    splits, one cluster. ``splits``: that many instead (at most 8 and the
+    read's tiles), for chip_smoke.py's forced launches."""
+    return sp.group_split(blocks, t_len, smem, sms, max_splits, splits)
 
 
 def window_plan(dtype: torch.dtype, B: int, Hq: int, Hkv: int, D: int,
@@ -319,7 +309,7 @@ def window_plan(dtype: torch.dtype, B: int, Hq: int, Hkv: int, D: int,
                 cluster: bool | None = None, splits: int | None = None
                 ) -> WindowPlan:
     """How a K2w call launches. bf16 takes the window tile (``"mma"``)
-    over its G * S window rows per KV head: ``window_tile_warps``
+    over its G * S window rows per KV head: ``sp.group_warps``
     rows a block, ``ceil(G * S / rows)`` blocks per KV head, the read split
     by ``window_tile_split``; an unsplit read is folded in its block, a
     split one in its cluster up to ``WINDOW_CLUSTER_SPLITS`` splits, by
@@ -330,7 +320,7 @@ def window_plan(dtype: torch.dtype, B: int, Hq: int, Hkv: int, D: int,
     ``splits`` may be 1."""
     Gv = Hq // Hkv * S
     if dtype == torch.bfloat16:
-        rw, sw = window_tile_warps(Gv)
+        rw, sw = sp.group_warps(Gv)
         rows = WINDOW_TILE_ROWS * rw
         smem = _build.window_tile_smem_bytes(D, rw)
         n, split = window_tile_split(B * Hkv * -(-Gv // rows), t_len,
@@ -480,11 +470,12 @@ def decode_attention_state(
     window: int | None = None,
 ):
     """Launch K2's state-out form over the whole chunk (bf16 or fp32, a
-    cache of q's dtype): the split kernel alone, its splits' fp32 states
-    left in the workspace, folded here into one state per (row, head) in
-    ``decode_attention_state_ref``'s layout; no fresh token. A split that
-    sees nothing keeps m = min, l = 0. Counted in
-    ``decode_attention.launches`` and ``decode_attention_state.launches``."""
+    cache of q's dtype): one fp32 (m, l, acc) per (row, query head) in
+    ``decode_attention_state_ref``'s layout, folded over the splits in the
+    launch by split_merge's state form, whichever template wrote the
+    splits; no fresh token, and no torch operation after the launch. A head that sees nothing keeps m = min,
+    l = 0. Counted in ``decode_attention.launches`` and
+    ``decode_attention_state.launches``."""
     tensors = (q, k_cache, v_cache, q_pos, kv_pos, slots)
     if not all(t.is_cuda for t in tensors):
         raise RuntimeError("decode_attention_state (K2) takes CUDA tensors "
@@ -522,30 +513,29 @@ def decode_attention_state(
     if plan.smem > _build.SMEM_LIMIT:
         raise _build.KernelError(f"decode_attention_state (K2) needs "
                                  f"{plan.smem} bytes of shared memory")
-    n = B * Hq * plan.splits
-    ws = torch.empty(sp.workspace_numel(B, Hq, plan.splits, D),
-                     dtype=torch.float32, device=q.device)
+    n = B * Hq
+    # acc [B, Hq, D], then m [B, Hq], then l [B, Hq]
+    st = torch.empty(n * (D + 2), dtype=torch.float32, device=q.device)
+    # The lanes leave every split's state in the workspace, even unsplit.
+    ws = (torch.empty(sp.workspace_numel(B, Hq, plan.splits, D),
+                      dtype=torch.float32, device=q.device)
+          if plan.impl == "lanes" or sp.merges(plan) else None)
     lib = _build.load("decode_attention")
     code = lib.llmss_decode_attention_state(
         qc.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), qp.data_ptr(),
-        kvp.data_ptr(), sl.data_ptr(), ws.data_ptr(), int(layer), B, T, T,
-        Hq, Hkv, D, _heads_per_block(Hq // Hkv), plan.splits,
+        kvp.data_ptr(), sl.data_ptr(), None if ws is None else ws.data_ptr(),
+        st.data_ptr(), int(layer), B, T, T, Hq, Hkv, D,
+        _rows(plan, Hq // Hkv), plan.splits,
         plan.split_slots, _build.dtype_code(q), float(scale), window or 0,
-        _build.stream_ptr(q.device), 0 if plan.impl == "lanes" else 1,
+        _build.stream_ptr(q.device), _build.IMPL_CODES[plan.impl],
     )
     _build.check(code, "decode_attention_state")
     decode_attention.launches += 1
     decode_attention_state.launches += 1
-    # The splits' states [B, Hq, splits] folded into one (split_merge's
-    # rule: a split with m = min weighs 0).
-    acc = ws[: n * D].view(B, Hq, plan.splits, D)
-    m = ws[n * D: n * (D + 1)].view(B, Hq, plan.splits)
-    l = ws[n * (D + 1): n * (D + 2)].view(B, Hq, plan.splits)
-    M = m.amax(-1, keepdim=True)
-    w = torch.exp(m - M)
     G = Hq // Hkv
-    return (M.view(B, Hkv, G, 1), (l * w).sum(-1).view(B, Hkv, G, 1),
-            (acc * w[..., None]).sum(2).view(B, Hkv, G, 1, D))
+    return (st[n * D: n * (D + 1)].view(B, Hkv, G, 1),
+            st[n * (D + 1):].view(B, Hkv, G, 1),
+            st[: n * D].view(B, Hkv, G, 1, D))
 
 
 decode_attention_state.launches = 0

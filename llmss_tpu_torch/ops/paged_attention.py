@@ -10,16 +10,20 @@
   branch (``quant``) included: a ``CB``-token query chunk per row,
   ``q_len`` of them live.
 
-Four instantiations, chosen by ``kernel_plan`` from the dtypes, ``CB``
-and G (query heads per KV head) alone: ``"mma"`` (the tensor-core tile,
-csrc/attn_tile.cuh) for a bf16 pool at ``CB > 1``; ``"mma_int8"`` (the
-same tile over an int8 pool, csrc/attn_tile_i8.cuh) for bf16 queries at
-``CB > 1``; at ``CB == 1`` with bf16 queries and G above
-``split_plan.G_TILE`` (8), the same two tiles in decode form (64 query
-heads a block, split along the KV axis, always merged, so the fresh V
-stays fp32); ``"lanes"`` (the lane template) for fp32 and for ``CB == 1``
-otherwise; and ``"lanes_int8"``, the lane template over an int8 pool, for
-fp32 queries at every ``CB`` and bf16 queries at ``CB == 1`` and G <= 8.
+Five instantiations, chosen by ``kernel_plan`` from the dtypes, ``CB``
+and G (query heads per KV head) alone: ``"mma"`` (the 64-row tensor-core
+tile, csrc/attn_tile.cuh) for a bf16 pool at ``CB > 1``; ``"mma_int8"``
+(the same tile over an int8 pool, csrc/attn_tile_i8.cuh) for bf16
+queries at ``CB > 1``; at ``CB == 1`` with bf16 queries the tile
+``split_plan.decode_tile`` names: over a bf16 pool from ``G_TILE`` heads
+per KV head ``"group"`` (``paged_group``, csrc/group_tile.cuh: 16 to 64
+heads a block, its splits and then the fresh key folded by the merge in
+fp32, so the fresh V stays fp32), above ``GROUP_MAX_G`` the 64-row tile in
+decode form, and over an int8 pool above 8 heads ``"mma_int8"`` in
+decode form (64 heads a block, always merged); ``"lanes"`` (the lane
+template) for fp32 and for ``CB == 1`` otherwise; and ``"lanes_int8"``,
+the lane template over an int8 pool, for fp32 queries at every ``CB``
+and bf16 queries at ``CB == 1`` and G <= 8.
 An int8 pool has ``k_scale`` / ``v_scale`` ``[L, N + 1, bs, Hkv]`` fp32,
 and q and fresh KV in fp32 or bf16. The int8
 instantiations fold the scales as the Pallas int8 branch does
@@ -128,15 +132,14 @@ def kernel_plan(dtype: torch.dtype, CB: int, G: int, D: int, *, B: int = 1,
                 Hkv: int = 1, n_slots: int = 0, bs: int = 16,
                 sms: int = sp.H100_SMS, max_splits: int = sp.MAX_SPLITS,
                 kv_dtype: torch.dtype | None = None,
-                g_tile: int = sp.G_TILE) -> sp.Plan:
+                force: str | None = None) -> sp.Plan:
     """How a K3 / K4 launch over ``B`` rows, ``Hkv`` KV heads and a read of
     ``n_slots`` slots (``n_cols * bs``) goes on a card of ``sms`` SMs:
     at ``CB > 1`` the tensor-core tile (never split), ``"mma"`` over a
     bf16 pool (``kv_dtype``, default ``dtype``) and ``"mma_int8"`` over an
-    int8 pool under bf16 queries; at ``CB == 1`` with bf16 queries and
-    more than ``g_tile`` query heads per KV head the same tile in decode
-    form (``sp.decode_tile``), 64 heads a block, split into whole 64-slot
-    tiles and always merged; else the lane template (R <= 8 of the
+    int8 pool under bf16 queries; at ``CB == 1`` with bf16 queries the
+    tile ``sp.decode_tile`` names (``force``: one of ``sp.TEMPLATES``),
+    planned by ``sp.decode_tile_plan``; else the lane template (R <= 8 of the
     ``CB * G`` flat query rows per block): ``"lanes_int8"`` over an int8
     pool, ``"lanes"`` otherwise; split along the KV axis (into at most
     ``max_splits``) only at ``CB == 1``; and the shared memory one block
@@ -146,7 +149,7 @@ def kernel_plan(dtype: torch.dtype, CB: int, G: int, D: int, *, B: int = 1,
         return sp.Plan("mma", _build.tile_smem_bytes(D), 1, 0)
     if kv_dtype == torch.int8 and dtype == torch.bfloat16 and CB > 1:
         return sp.Plan("mma_int8", _build.tile_i8_smem_bytes(D), 1, 0)
-    tile = sp.decode_tile(dtype, kv_dtype, G, g_tile) if CB == 1 else None
+    tile = sp.decode_tile(dtype, kv_dtype, G, force) if CB == 1 else None
     if tile is not None:
         return sp.decode_tile_plan(tile, B, Hkv, G, D, n_slots, bs, sms=sms,
                                    max_splits=max_splits)
@@ -163,11 +166,11 @@ def kernel_plan(dtype: torch.dtype, CB: int, G: int, D: int, *, B: int = 1,
 def _launch(name, q, k_pool, v_pool, k_new, v_new, q_pos, q_len, kv_pos,
             block_tables, n_blocks, slot0, layer, n_cols, scale, window,
             k_scale=None, v_scale=None, max_splits=sp.MAX_SPLITS,
-            g_tile=sp.G_TILE):
+            force=None):
     """Check the envelope and launch the template; q_len None means K3.
     ``max_splits`` 1 launches the unsplit kernel (which chip_smoke.py times
-    beside the plan's); ``g_tile`` moves the decode tile's threshold
-    (chip_smoke.py forces either template to time them side by side)."""
+    beside the plan's); ``force`` puts a decode call on one template
+    (chip_smoke.py and kernel_ab.py time them side by side)."""
     tensors = [q, k_pool, v_pool, k_new, v_new, q_pos, kv_pos, block_tables,
                n_blocks, slot0] + ([q_len] if q_len is not None else [])
     if not all(t.is_cuda for t in tensors):
@@ -203,7 +206,7 @@ def _launch(name, q, k_pool, v_pool, k_new, v_new, q_pos, q_len, kv_pos,
     plan = kernel_plan(q.dtype, CB, Hq // Hkv, D, B=B, Hkv=Hkv,
                        n_slots=n_cols * bs, bs=bs,
                        sms=_build.sm_count(q.device), max_splits=max_splits,
-                       kv_dtype=k_pool.dtype, g_tile=g_tile)
+                       kv_dtype=k_pool.dtype, force=force)
     if plan.smem > _build.SMEM_LIMIT:
         raise _build.KernelError(
             f"{name}: the {plan.impl} instantiation at chunk {CB} needs "
@@ -236,9 +239,11 @@ def _launch(name, q, k_pool, v_pool, k_new, v_new, q_pos, q_len, kv_pos,
         ql.data_ptr() if ql is not None else None, kvp.data_ptr(),
         bt.data_ptr(), nb.data_ptr(), sl.data_ptr(),
         ws.data_ptr() if ws is not None else None, int(layer), B, CB, Np,
-        bs, MB, n_cols, Hq, Hkv, D, _rows_per_block(CB * (Hq // Hkv)),
-        plan.splits, plan.split_slots, _build.dtype_code(q),
-        _build.IMPL_CODES[plan.impl], float(scale), window or 0,
+        bs, MB, n_cols, Hq, Hkv, D,
+        sp.group_rows(Hq // Hkv) if plan.impl == "group"
+        else _rows_per_block(CB * (Hq // Hkv)), plan.splits,
+        plan.split_slots, _build.dtype_code(q), _build.IMPL_CODES[plan.impl],
+        float(scale), window or 0,
         _build.stream_ptr(q.device), sc[0], sc[1],
         _build.dtype_code(k_pool),
     )

@@ -1,33 +1,36 @@
 """The split over the KV axis (flash-decoding) of the decode kernels K2 and
 K3 (csrc/decode_attention.cu, csrc/paged_attention.cu at CB = 1), and
-which of their two templates a decode call takes.
+which of their three templates a decode call takes.
 
-Both templates read each KV head's slots once per (row, KV head, split)
+Every template reads each KV head's slots once per (row, KV head, split)
 for a group of its G query heads. The lane template (``"lanes"``,
 ``"lanes_int8"``) holds each head's fp32 state in registers and takes at
-most 8 query rows a block; at G <= ``G_TILE`` that group is the whole KV
-head's. Above it, bf16 queries take the tensor-core tile (``"mma"``,
-``"mma_int8"``, csrc/attn_tile.cuh), whose 64 flat rows hold up to 64
-query heads of one KV head, so StarCoder's 48 heads read their one KV
-head once where 6 lane blocks read it 6 times. The tile's split is a
-whole number of its 64-slot tiles (``TILE_STEP``), and its states always
-go through the merge, which keeps the fresh V in fp32.
+most 8 query rows a block. The group tile (``"group"``, csrc/
+group_tile.cuh, K2w's window tile at one query a row) puts the group on
+the tensor cores with rows per block following G (16 a row warp, at most
+64), Q in registers, a three-stage ring, its splits folded with the
+fresh key by the merge (a cluster fold, which K2w takes, lost to the
+merge on K2 and K3 on the H100). The 64-row tile (``"mma"``, ``"mma_int8"``, csrc/attn_tile.cuh) holds 64
+flat rows and always goes through the merge; an int8 cache keeps it
+above 8 heads per KV head, where its int8 tiles are widened to bf16.
+Both tiles' splits are whole 64-slot tiles (``TILE_STEP``), and their
+merges keep the fresh V in fp32.
 
 An unsplit decode grid has one block per (row, KV head, tile of query
 rows) and each block walks its row's whole read. At small batch or at GQA
 that leaves most of the H100's 132 SMs idle, and a batch's longest row
 sets the kernel's time. The split gives each of those blocks ``S``
 siblings along the KV axis: split ``s`` reads slots
-``[s * split_slots, (s + 1) * split_slots)`` and writes an fp32 partial
+``[s * split_slots, (s + 1) * split_slots)`` and leaves an fp32 partial
 softmax state (m, l, acc); a merge kernel, launched by the same C entry
-point, folds the live splits in split order, then the fresh key, and
-writes the output (csrc/split_merge.cuh).
+point, folds the splits in split order, then the fresh key, and writes
+the output (csrc/split_merge.cuh).
 
-``split_plan`` picks ``S`` from shapes the host already knows: K3's
-bucketed read ``n_cols * bs`` and K2's ``t_len``, never ``n_blocks``,
-which lives on the device, and the card's SM count, which the wrappers
-read once per device. So planning needs no host sync, and one bucket
-always launches one grid.
+``split_plan`` (and K2w's ``group_split``) pick ``S`` from shapes the host
+already knows: K3's bucketed read ``n_cols * bs`` and K2's ``t_len``,
+never ``n_blocks``, which lives on the device, and the card's SM count,
+which the wrappers read once per device. So planning needs no host sync,
+and one bucket always launches one grid.
 """
 
 from __future__ import annotations
@@ -60,23 +63,58 @@ STEPS = 2  # steps of SPW slots per warp in one ring stage (``kSteps``)
 # window whose scales each warp stages beside them.
 INT8_STAGES = 6
 INT8_SCALE_SLOTS = STAGE_SLOTS // NWARP
-# Above G_TILE query heads per KV head, bf16 decode queries take the
-# tensor-core tile; its splits are whole tiles of TILE_STEP slots and its
-# blocks hold TILE_ROWS query heads. chip_smoke.py times both templates at
-# G = 1, 4, 8, 16 and 48: on the H100 the lanes win at G = 1 and the tile
-# from G = 4 (PERF.md), but G <= 8 stays on the lanes, whose outputs GQA
-# models were held to.
-G_TILE = 8
+# bf16 decode queries over a bf16 cache with at least G_TILE query heads
+# per KV head take the group tile, up to GROUP_MAX_G heads (above it the
+# 64-row tile); fewer take the lanes. chip_smoke.py times the three
+# templates, forced, at G = 1, 2, 3, 4, 7, 8, 16 and 48 for K2 and K3
+# (its g_tile_lanes_vs_tile line; kernel_ab.py --templates; PERF.md). On
+# the H100 the group tile beat the lanes on both from G = 2 (K2 0.0063
+# against 0.0069 ms, K3 0.0187 against 0.0199), not at G = 1 (0.0082
+# against 0.0060, 0.0343 against 0.0262), and beat the 64-row tile at
+# G = 16 (K2 0.0055 against 0.0064, K3 0.0070 against 0.0083) but not on
+# K2 at G = 48 (0.0068 against 0.0064; K3 0.0092 against 0.0094):
+# StarCoder keeps the 64-row tile. Over an int8 cache the 64-row tile's
+# int8 form takes G > INT8_G_TILE and the int8 lanes the rest, as the int8
+# cache was measured and held. The tiles' splits are whole tiles of
+# TILE_STEP slots, the 64-row tile's blocks hold TILE_ROWS query heads.
+G_TILE = 2
+GROUP_MAX_G = 16
+INT8_G_TILE = 8
 TILE_STEP = 64
 TILE_ROWS = 64
 TILE_IMPLS = ("mma", "mma_int8")
+# The templates a decode call can be forced onto (chip_smoke.py times each
+# at the G_TILE cases).
+TEMPLATES = ("lanes", "mma", "group")
+# The group tile (csrc/group_tile.cuh): 16 rows a row warp (one mma A
+# fragment), at most GROUP_ROW_WARPS row warps a block (more rows take
+# more blocks), each with 4 slot-parallel warps at one row warp, else 2.
+# K2's and K3's plan splits the read as ``split_plan`` does, into whole
+# 64-slot tiles of at most SPLIT_SLOTS, shrunk while the grid has fewer
+# than GROUP_PER_SM blocks per SM, and folds the splits by the merge: on
+# the H100 the merge beat the cluster fold at 4 and 8 splits on every K2
+# and K3 case timed, and was within 1% of it at 2 (Qwen2-7B's K2 over the
+# whole ring at 8 splits: 0.0069 against 0.0089 ms; K3 at the serve shape
+# 0.0098 against 0.0106), and 8
+# splits of 128 slots beat the 16 of 64 that two blocks per SM would take
+# (K3 at Llama-2-7B's GQA shape: 0.0124 against 0.0156; kernel_ab.py
+# --templates, PERF.md). K2w's plan (``group_split``) keeps its splits
+# within one cluster of at most GROUP_MAX_CLUSTER (the portable size) and
+# one round of resident blocks, and splits a read of at most
+# GROUP_SHORT_TILES tiles only when the unsplit grid leaves half the SMs
+# idle, as SHORT_READ.
+GROUP_TILE_ROWS = 16
+GROUP_ROW_WARPS = 4
+GROUP_PER_SM = 1
+GROUP_MAX_CLUSTER = 8
+GROUP_SHORT_TILES = 8
 
 
 class Plan(NamedTuple):
     """How a K2 / K3 / K4 call launches: the instantiation, the shared
     memory one block of it needs (bytes), the number of splits along the
     KV axis and the slots each split covers (0 for the tensor-core
-    instantiation, which does not split)."""
+    instantiation at CB > 1, which does not split)."""
 
     impl: str
     smem: int
@@ -114,24 +152,45 @@ def lane_region_bytes(elem_size: int, rows: int, D: int) -> int:
     return max(ring, 4 * NWARP * rows * D)
 
 
-def decode_tile(dtype, kv_dtype, G: int, g_tile: int = G_TILE) -> str | None:
-    """The tile instantiation a decode call (K2, K3, K4 at CB = 1) takes:
-    ``"mma"`` over a bf16 cache and ``"mma_int8"`` over an int8 cache, for
-    bf16 queries with more than ``g_tile`` query heads per KV head; None
-    (the lane template) otherwise."""
-    if dtype != torch.bfloat16 or G <= g_tile:
+def decode_tile(dtype, kv_dtype, G: int, force: str | None = None
+                ) -> str | None:
+    """The tile a decode call (K2, K3, K4 at CB = 1) takes, None for the
+    lane template. bf16 queries only: over a bf16 cache ``"group"`` at
+    ``G_TILE <= G <= GROUP_MAX_G`` and ``"mma"`` above; over an int8 cache
+    ``"mma_int8"`` above ``INT8_G_TILE``. ``force`` (one of ``TEMPLATES``)
+    puts a bf16 call on that template whatever G (chip_smoke.py times
+    them side by side); an int8 cache has no group tile."""
+    if dtype != torch.bfloat16 or kv_dtype not in (torch.bfloat16, torch.int8):
         return None
-    return {torch.bfloat16: "mma", torch.int8: "mma_int8"}.get(kv_dtype)
+    if force is not None:
+        if force not in TEMPLATES or (kv_dtype == torch.int8 and force == "group"):
+            raise _build.KernelError(f"no {force} template over a {kv_dtype} cache")
+        if force == "lanes":
+            return None
+        return force + ("_int8" if kv_dtype == torch.int8 else "")
+    if kv_dtype == torch.int8:
+        return "mma_int8" if G > INT8_G_TILE else None
+    if G < G_TILE:
+        return None
+    return "group" if G <= GROUP_MAX_G else "mma"
 
 
 def decode_tile_plan(impl: str, B: int, Hkv: int, G: int, D: int,
                      n_slots: int, bs: int = 1, *, sms: int,
                      max_splits: int = MAX_SPLITS) -> Plan:
-    """The decode tile's plan (``impl`` from ``decode_tile``) for K2
-    (``bs`` 1) and K3 / K4 at CB = 1: ``ceil(G / TILE_ROWS)`` blocks per KV
-    head, the read split into whole ``TILE_STEP``-slot tiles, and the
-    shared memory of the tile (``_build.tile_smem_bytes``) or of its int8
-    form."""
+    """The plan of a decode tile (``impl`` from ``decode_tile``) for K2
+    (``bs`` 1) and K3 / K4 at CB = 1. The 64-row tile: ``ceil(G /
+    TILE_ROWS)`` blocks per KV head, the read split by ``split_plan`` into
+    whole ``TILE_STEP``-slot tiles, the shared memory of the tile
+    (``_build.tile_smem_bytes``) or of its int8 form. The group tile:
+    ``group_rows(G)`` rows a block, the read split by ``split_plan`` at
+    ``GROUP_PER_SM`` blocks per SM and folded by the merge."""
+    if impl == "group":
+        rw, _ = group_warps(G)
+        S, split = split_plan(B, Hkv * -(-G // group_rows(G)), n_slots, bs,
+                              step=TILE_STEP, sms=sms, max_splits=max_splits,
+                              per_sm=GROUP_PER_SM)
+        return Plan(impl, _build.window_tile_smem_bytes(D, rw), S, split)
     S, split = split_plan(B, Hkv * -(-G // TILE_ROWS), n_slots, bs,
                           step=TILE_STEP, sms=sms, max_splits=max_splits)
     smem = (_build.tile_smem_bytes(D) if impl == "mma"
@@ -139,10 +198,51 @@ def decode_tile_plan(impl: str, B: int, Hkv: int, G: int, D: int,
     return Plan(impl, smem, S, split)
 
 
+def group_warps(rows: int) -> tuple[int, int]:
+    """(row warps, slot-parallel warps per row warp) of a group tile block
+    for ``rows`` query rows per KV head: one row warp for each 16 rows, at
+    most ``GROUP_ROW_WARPS`` (more rows take more blocks); 4 slot warps at
+    one row warp, else 2."""
+    rw = min(GROUP_ROW_WARPS, -(-rows // GROUP_TILE_ROWS))
+    return rw, 4 if rw == 1 else 2
+
+
+def group_rows(G: int) -> int:
+    """Query rows of a group tile block for ``G`` query heads per KV head
+    (the C entries' ``GB`` / ``R`` argument): 16 a row warp."""
+    return GROUP_TILE_ROWS * group_warps(G)[0]
+
+
+def group_split(blocks: int, n_slots: int, smem: int, sms: int,
+                max_splits: int, splits: int | None = None
+                ) -> tuple[int, int]:
+    """(splits, split_slots) of K2w's window tile over ``blocks`` blocks
+    before the split: as many splits of whole ``TILE_STEP``-slot tiles as
+    keep the grid within the blocks the card holds at once (its ``sms``
+    SMs times what one SM's shared memory holds of ``smem``-byte blocks),
+    at most ``GROUP_MAX_CLUSTER``, ``max_splits`` and the read's tiles; 1
+    when the unsplit grid already fills the card, or when the read has at
+    most ``GROUP_SHORT_TILES`` tiles and the grid at least ``sms / 2``
+    blocks. A wider read widens each split. ``splits``: that many instead
+    (at most ``GROUP_MAX_CLUSTER`` and the read's tiles), for forced
+    launches."""
+    per_sm = max(1, _build.SM_SHARED_BYTES
+                 // (smem + _build.BLOCK_RESERVED_BYTES))
+    tiles = max(1, -(-n_slots // TILE_STEP))
+    if splits is None:
+        short = tiles <= GROUP_SHORT_TILES and 2 * blocks >= sms
+        splits = 1 if short else per_sm * sms // blocks
+    S = max(1, min(GROUP_MAX_CLUSTER, max_splits, tiles, splits))
+    split = -(-tiles // S) * TILE_STEP
+    return -(-n_slots // split), split
+
+
 def merges(plan: Plan) -> bool:
-    """Whether a decode launch of ``plan`` is followed by the merge kernel:
-    a split lane launch, and every decode launch of the tile."""
-    return plan.splits > 1 or (plan.impl in TILE_IMPLS and plan.split_slots > 0)
+    """Whether a decode launch of ``plan`` is followed by the merge kernel
+    (and needs its workspace): a split lane launch, and every decode
+    launch of the tiles."""
+    return (plan.splits > 1 or plan.impl == "group"
+            or (plan.impl in TILE_IMPLS and plan.split_slots > 0))
 
 
 def lane_impl(kv_dtype) -> str:
@@ -153,17 +253,18 @@ def lane_impl(kv_dtype) -> str:
 
 @functools.lru_cache(maxsize=4096)
 def split_plan(B: int, blocks_per_row: int, n_slots: int, bs: int = 1, *,
-               step: int, sms: int, max_splits: int = MAX_SPLITS
-               ) -> tuple[int, int]:
+               step: int, sms: int, max_splits: int = MAX_SPLITS,
+               per_sm: int = 2) -> tuple[int, int]:
     """(S, split_slots) for a read of ``n_slots`` slots per row, on a grid
     of ``B * blocks_per_row`` blocks before the split, on a card of ``sms``
     SMs.
 
     ``split_slots`` is a multiple of ``step`` (the lane loop's slots per
-    ring stage) and of ``bs`` (K3's block size; 1 for K2) and covers at
-    most ``SPLIT_SLOTS`` slots, unless one such unit is larger. It
-    shrinks, one unit at a time, while the grid has fewer than two blocks
-    per SM; ``S`` is at most ``max_splits`` (``max_splits=1``: never
+    ring stage, the tiles' 64) and of ``bs`` (K3's block size; 1 for K2)
+    and covers at most ``SPLIT_SLOTS`` slots, unless one such unit is
+    larger. It shrinks, one unit at a time, while the grid has fewer than
+    ``per_sm`` blocks per SM (the lanes and the 64-row tile two, the
+    group tile one); ``S`` is at most ``max_splits`` (``max_splits=1``: never
     split). ``S == 1`` when the read fits one split, and for a read of at
     most ``SHORT_READ`` slots whose unsplit grid has at least ``sms / 2``
     blocks."""
@@ -176,7 +277,7 @@ def split_plan(B: int, blocks_per_row: int, n_slots: int, bs: int = 1, *,
     if max_splits == 1 or (n_slots <= SHORT_READ and 2 * grid >= sms):
         return 1, max(unit, -(-n_slots // unit) * unit)
     split = max(unit, SPLIT_SLOTS // unit * unit)
-    while (split > unit and grid * splits(split) < 2 * sms
+    while (split > unit and grid * splits(split) < per_sm * sms
            and splits(split - unit) <= max_splits):
         split -= unit
     if splits(split) > max_splits:

@@ -1,11 +1,22 @@
 """K2 and K3 at every query-head group G on the CPU: the lane template's
-partial head groups (G = 7, Qwen2-7B), the decode kernels' symbols and
-sources, and a torch emulation of the tensor-core tile's decode split.
+partial head groups, the decode kernels' symbols and sources, and torch
+emulations of the two tensor-core tiles' decode splits.
 
-Above ``split_plan.G_TILE`` query heads per KV head, bf16 decode queries
-take the tile (csrc/attn_tile.cuh, csrc/attn_tile_i8.cuh): one block per
-(row, KV head, 64 query heads, split), a split a whole number of 64-slot
-tiles. The emulation follows it: per 64-slot tile an online softmax with
+From ``split_plan.G_TILE`` query heads per KV head, bf16 decode queries
+over a bf16 cache take the group tile (csrc/group_tile.cuh): one block
+per (row, KV head, 16 to 64 query heads, split), a split a whole number
+of 64-slot tiles, each tile's slots shared by slot-parallel warps that
+each run their own online softmax (scores in log2 units, P rounded to
+bf16 before P.V), the warps' states folded in warp order, the splits' in
+split order by the merge, then the fresh key in fp32, the output rounded
+to bf16. Its emulation is held within
+``chip_smoke.REL_TOL`` of the JAX package's XLA oracles at G = 2, 3, 7
+and 8, dense and paged; unrounded, to 1e-5; the plain versions are held
+to the oracles there too.
+
+The 64-row tile (csrc/attn_tile.cuh, csrc/attn_tile_i8.cuh; over an int8
+cache above 8 heads per KV head, and forced) is one block per (row, KV
+head, 64 query heads, split). Its emulation follows it: per 64-slot tile an online softmax with
 P rounded to bf16 before P.V (over an int8 cache: each score times its K
 scale, and P x v_scale as two bf16 terms, hi + lo), one fp32 state (m, l,
 acc) per query head and live split, the splits merged in split order and
@@ -58,15 +69,20 @@ def test_heads_per_block_is_the_least_power_of_two(G, GB):
 
 
 def test_qwen2_reads_each_kv_head_once():
-    """Qwen2-7B's 28 query heads on 4 KV heads (G = 7) take one lane group
-    of 8 per KV head: the plan's grid has B * Hkv blocks per split, where
-    one head per block had 7 per KV head."""
+    """Qwen2-7B's 28 query heads on 4 KV heads (G = 7) take one group tile
+    block of 16 rows per KV head and split (the lanes: one group of 8): the
+    plan's grid has B * Hkv blocks per split, where one head per block had
+    7 per KV head."""
     plan = da.kernel_plan(BF16, 4, 28, 4, 128, 192)
-    assert plan.impl == "lanes" and da._heads_per_block(7) == 8
-    assert (plan.splits, plan.split_slots) == sp.split_plan(
-        4, 4, 192, step=sp.lane_step(128), sms=sp.H100_SMS)
+    assert plan.impl == "group" and sp.group_rows(7) == 16
+    assert plan[2:] == sp.split_plan(4, 4, 192, step=sp.TILE_STEP,
+                                     sms=sp.H100_SMS, per_sm=sp.GROUP_PER_SM)
     k3 = pa.kernel_plan(BF16, 1, 7, 128, B=8, Hkv=4, n_slots=832, bs=16)
-    assert k3.impl == "lanes" and pa._rows_per_block(7) == 8
+    assert k3.impl == "group"
+    lanes = da.kernel_plan(BF16, 4, 28, 4, 128, 192, force="lanes")
+    assert da._heads_per_block(7) == 8 and pa._rows_per_block(7) == 8
+    assert lanes[2:] == sp.split_plan(4, 4, 192, step=sp.lane_step(128),
+                                      sms=sp.H100_SMS)
 
 
 def test_decode_fwd_covers_partial_groups():
@@ -245,11 +261,13 @@ def _quant(x):
 # (Hq, Hkv, rows' histories): G = 48, StarCoder's one KV head, and G = 7 on
 # two KV heads; a long row, an empty row, a row that wrapped the ring of
 # 256 slots, and a short one.
-SHAPES = {48: (48, 1, [200, 0, 300, 70]), 7: (14, 2, [200, 0, 300, 70])}
+SHAPES = {48: (48, 1, [200, 0, 300, 70]), 7: (14, 2, [200, 0, 300, 70]),
+          2: (4, 2, [200, 0, 300, 70]), 3: (6, 2, [200, 0, 300, 70]),
+          8: (16, 2, [200, 0, 300, 70])}
 D, RING, BS, MB = 64, 256, 16, 16
 
 
-def _case(layout, G, kv, seed):
+def _case(layout, G, kv, seed, force="mma"):
     """Inputs of one decode call at ``SHAPES[G]``: ``layout`` "dense" (K2's
     ring [B, RING] of layer 0) or "paged" (K3's pool of MB blocks of BS per
     row, scattered, with sentinel columns past a row's blocks); ``kv``
@@ -277,7 +295,7 @@ def _case(layout, G, kv, seed):
         k, v = c["kc"][0], c["vc"][0]
         ks, vs = (None, None) if c["ks"] is None else (c["ks"][0], c["vs"][0])
         occupied = torch.full((B,), RING)
-        plan = da.kernel_plan(BF16, B, Hq, Hkv, D, RING, g_tile=0,
+        plan = da.kernel_plan(BF16, B, Hq, Hkv, D, RING, force=force,
                               kv_dtype=torch.int8 if kv == "int8" else BF16)
     else:
         need = [min(MB, -(-(n + 1) // BS)) for n in hist]
@@ -302,9 +320,9 @@ def _case(layout, G, kv, seed):
                   else (c["ks"][0][blk, T % BS], c["vs"][0][blk, T % BS]))
         occupied = c["nblk"] * BS
         plan = pa.kernel_plan(BF16, 1, G, D, B=B, Hkv=Hkv, n_slots=RING, bs=BS,
-                              g_tile=0,
+                              force=force,
                               kv_dtype=torch.int8 if kv == "int8" else BF16)
-    assert plan.impl == ("mma_int8" if kv == "int8" else "mma")
+    assert plan.impl == (force + "_int8" if kv == "int8" else force)
     assert plan.splits > 1 and plan.split_slots % sp.TILE_STEP == 0
     p = c["kvp"]
     vis = ((p >= 0) & (p <= c["qpos"]) & (T[None, :] != c["slots"])
@@ -415,3 +433,127 @@ def test_split_is_whole_tiles_at_the_serve_shapes():
         assert (plan.splits - 1) * plan.split_slots < n
         assert blocks * plan.splits > blocks and sp.merges(plan)
     assert math.ceil(48 / sp.TILE_ROWS) == 1
+
+
+# -- the group tile's emulation -----------------------------------------------
+
+
+def group_tile_states(q, k, v, vis, splits, split, slot_warps, round_p=True):
+    """The group tile's blocks per row: for each split of ``split`` slots,
+    each 64-slot tile holding a visible slot, each of ``slot_warps`` warps
+    runs its own online softmax over its 64 / ``slot_warps`` slots of the
+    tile (scores in log2 units, exp2, P rounded to bf16 before P.V, the row
+    sum of the unrounded P), and the warps' states are folded in warp
+    order; [(M, L, ACC)] per split, M / L [Hkv, G] (M in log2 units), ACC
+    [Hkv, G, D]. q [B, Hq, D]; k, v [B, T, Hkv, D]; vis [B, T]. P.V in
+    fp32 without ``round_p``."""
+    B, T, Hkv, D = k.shape
+    G, nj = q.shape[1] // Hkv, 64 // slot_warps
+    qg = q.reshape(B, Hkv, G, D) * (D ** -0.5 * 1.4426950408889634)
+    out = []
+    for b in range(B):
+        parts = []
+        for s in range(splits):
+            lo, hi = s * split, min(T, (s + 1) * split)
+            warps = [[torch.full((Hkv, G), NEG), torch.zeros(Hkv, G),
+                      torch.zeros(Hkv, G, D)] for _ in range(slot_warps)]
+            for t0 in range(lo, hi, 64):
+                if not vis[b, t0:min(hi, t0 + 64)].any():
+                    continue  # a tile no row sees is never copied
+                for w, st in enumerate(warps):
+                    cut = slice(t0 + w * nj, min(hi, t0 + (w + 1) * nj))
+                    seen = vis[b, cut]
+                    if not seen.any():
+                        continue
+                    x = torch.einsum("kgd,tkd->kgt", qg[b], k[b, cut])
+                    x = x.masked_fill(~seen, NEG)
+                    mx = torch.maximum(st[0], x.amax(-1))
+                    alpha = torch.exp2(st[0] - mx)
+                    p = torch.exp2(x - mx[..., None]).masked_fill(~seen, 0.0)
+                    st[1] = st[1] * alpha + p.sum(-1)
+                    pr = p.to(BF16).float() if round_p else p
+                    st[2] = st[2] * alpha[..., None] + torch.einsum(
+                        "kgt,tkd->kgd", pr, v[b, cut])
+                    st[0] = mx
+            M = torch.stack([st[0] for st in warps]).amax(0)
+            f = [torch.exp2(st[0] - M) for st in warps]
+            parts.append((M, sum(st[1] * x for st, x in zip(warps, f)),
+                          sum(st[2] * x[..., None] for st, x in zip(warps, f))))
+        out.append(parts)
+    return out
+
+
+def group_fold(q, k_new, v_new, states):
+    """The fold of the splits per row (split_merge's): the splits in split order under their common max with
+    the fresh key's score (log2 units), then the fresh key in fp32; [B, 1,
+    Hq, D]."""
+    B, Hq, D = q.shape
+    Hkv = k_new.shape[1]
+    G = Hq // Hkv
+    sn = torch.einsum("bkgd,bkd->bkg", q.reshape(B, Hkv, G, D), k_new) * (
+        D ** -0.5 * 1.4426950408889634)
+    out = torch.empty(B, Hkv, G, D)
+    for b, parts in enumerate(states):
+        M = sn[b]
+        for m, _, _ in parts:
+            M = torch.maximum(M, m)
+        den, acc = torch.zeros(Hkv, G), torch.zeros(Hkv, G, D)
+        for m, l, a in parts:
+            sc = torch.where(m == NEG, 0.0, torch.exp2(m - M))
+            den, acc = den + l * sc, acc + a * sc[..., None]
+        pn = torch.exp2(sn[b] - M)
+        out[b] = (acc + pn[..., None] * v_new[b][:, None, :]) / (den + pn)[..., None]
+    return out.reshape(B, 1, Hq, D)
+
+
+GROUP_GRID = [(layout, G) for layout in ("dense", "paged") for G in (2, 3, 7, 8)]
+
+
+def _group_case(layout, G):
+    """One decode call at ``SHAPES[G]`` on the group tile's plan (paged:
+    splits past a row's occupied slots see nothing and add nothing)."""
+    c = _case(layout, G, "bf16", 100 + GROUP_GRID.index((layout, G)),
+              force="group")
+    c["splits"] = -(-RING // c["split"])
+    return c
+
+
+def group_emulated(c, round_p=True):
+    q = c["q"][:, 0]
+    states = group_tile_states(q, c["k"], c["v"], c["vis"], c["splits"],
+                               c["split"], sp.group_warps(c["G"])[1], round_p)
+    out = group_fold(q, c["kn"][:, 0], c["vn"][:, 0], states)
+    return out.to(BF16).float() if round_p else out
+
+
+@pytest.mark.parametrize("layout, G", GROUP_GRID)
+def test_group_tile_emulation_unrounded_is_the_oracle(layout, G):
+    """Without rounding, the group tile's slot-warp streams, split states
+    and split_merge's fold of the splits and the fresh key in fp32 compute
+    the XLA oracle's function."""
+    c = _group_case(layout, G)
+    torch.testing.assert_close(group_emulated(c, round_p=False), oracle(c),
+                               **TOL)
+
+
+@pytest.mark.parametrize("layout, G", GROUP_GRID)
+def test_group_tile_emulation_stays_within_rel_tol(layout, G):
+    """P rounded to bf16 per slot-warp stream, the output rounded to bf16:
+    within REL_TOL[bf16] x the weighted |v| of the XLA oracle at G = 2, 3,
+    7 and 8, the card's tolerance; an empty row is exactly v_new."""
+    c = _group_case(layout, G)
+    got, ref, ref_abs = group_emulated(c), oracle(c), oracle(c, v_abs=True)
+    assert torch.isfinite(got).all()
+    tol = chip_smoke.REL_TOL[BF16] * ref_abs + 1e-6
+    assert ((got - ref).abs() / tol).max().item() <= 1.0
+    for b in range(got.shape[0]):
+        if int(c["qpos"][b, 0]) == 0:
+            assert torch.equal(got[b, 0], c["vn"][b, 0].repeat_interleave(G, 0))
+
+
+@pytest.mark.parametrize("layout, G", GROUP_GRID)
+def test_plain_versions_are_the_oracle_at_small_groups(layout, G):
+    """The plain versions, the CPU path and the card's check, compute the
+    XLA oracles at the group tile's small head groups too."""
+    c = _group_case(layout, G)
+    torch.testing.assert_close(plain(c), oracle(c), **TOL)

@@ -755,7 +755,8 @@ def test_int8_plan_takes_the_lane_template(CB, G, D):
         assert p8 == ("mma_int8", _build.tile_i8_smem_bytes(D), 1, 0)
         assert p8.smem <= _build.SMEM_LIMIT
     d8 = da.kernel_plan(torch.bfloat16, 4, 4 * G, 4, D, 192, kv_dtype=torch.int8)
-    d16 = da.kernel_plan(torch.bfloat16, 4, 4 * G, 4, D, 192)
+    # The 16-bit lanes (a bf16 cache takes the group tile from G_TILE).
+    d16 = da.kernel_plan(torch.bfloat16, 4, 4 * G, 4, D, 192, force="lanes")
     assert d8.impl == "lanes_int8" and d16.impl == "lanes"
     assert (d8.splits, d8.split_slots) == (d16.splits, d16.split_slots)
 

@@ -334,8 +334,9 @@ def test_int8_lane_region_matches_the_header(D, R):
 
     k3 = pa.kernel_plan(torch.bfloat16, 1, R, D, B=8, Hkv=4, n_slots=832,
                         bs=16, kv_dtype=torch.int8)
+    # The 16-bit lanes (a bf16 pool takes the group tile from G_TILE).
     k3_16 = pa.kernel_plan(torch.bfloat16, 1, R, D, B=8, Hkv=4, n_slots=832,
-                           bs=16)
+                           bs=16, force="lanes")
     assert k3.smem - k3_16.smem == (sp.lane_region_bytes(1, R, D)
                                     - sp.lane_region_bytes(2, R, D))
     k2 = da.kernel_plan(torch.bfloat16, 4, 4 * R, 4, D, 192,

@@ -72,7 +72,27 @@ def test_k1_plan_refuses_other_dtypes():
 ])
 @pytest.mark.parametrize("G", [1, 4])
 def test_k3_k4_plan_follows_dtype_and_chunk(dtype, CB, want, G):
+    if (dtype, CB) == (torch.bfloat16, 1) and G >= sp.G_TILE:
+        want = "group"  # bf16 decode at a GQA head group: the group tile
     assert pa.kernel_plan(dtype, CB, G, 128)[0] == want
+
+
+def _want_decode(dtype, kv_dtype, G, CB=1):
+    """The instantiation a K2 / K3 / K4 call takes: at CB > 1 the 64-row
+    tile (int8 form over an int8 pool) for bf16 queries; at decode, bf16
+    queries over a bf16 cache take the group tile from G_TILE query heads
+    per KV head (the 64-row tile above GROUP_MAX_G), over an int8 cache the
+    64-row tile's int8 form above 8; fp32 queries and the rest the lanes."""
+    i8 = "_int8" if kv_dtype == torch.int8 else ""
+    if dtype != torch.bfloat16:
+        return "lanes" + i8
+    if CB > 1:
+        return "mma" + i8
+    if i8:
+        return "mma_int8" if G > sp.INT8_G_TILE else "lanes_int8"
+    if G < sp.G_TILE:
+        return "lanes"
+    return "group" if G <= sp.GROUP_MAX_G else "mma"
 
 
 @pytest.mark.parametrize("CB", [1, 128])
@@ -80,54 +100,222 @@ def test_k3_k4_plan_follows_dtype_and_chunk(dtype, CB, want, G):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("G", [1, 4, 7, 8, 16, 48])
 def test_decode_plan_follows_the_head_group(G, dtype, kv, CB):
-    """K3 / K4 and, at CB == 1, K2: bf16 queries take the tensor-core tile
-    at CB > 1, and at decode above G_TILE query heads per KV head (split
-    into whole 64-slot tiles, 64 heads a block, always merged); fp32
-    queries and G <= 8 take the lanes; over an int8 cache the int8 form of
-    each. Every plan's shared memory fits."""
+    """K3 / K4 and, at CB == 1, K2: bf16 queries take the 64-row
+    tensor-core tile at CB > 1; at decode the group tile over a bf16 cache
+    from G_TILE to GROUP_MAX_G query heads per KV head (``group_rows(G)``
+    heads a block, split into whole 64-slot tiles at one block per SM,
+    merged), the 64-row tile above, and over an int8 cache the 64-row
+    tile's int8 form above 8 (64 heads a block, split into whole tiles,
+    always merged); fp32 queries and fewer heads take the lanes. Every
+    plan's shared memory fits."""
     kv_dtype = torch.int8 if kv == "int8" else dtype
     Hkv = max(1, 8 // G)
     plan = pa.kernel_plan(dtype, CB, G, 128, B=8, Hkv=Hkv, n_slots=832, bs=16,
                           kv_dtype=kv_dtype)
-    tile = dtype == torch.bfloat16 and (CB > 1 or G > sp.G_TILE)
-    i8 = "_int8" if kv == "int8" else ""
-    assert plan.impl == ("mma" if tile else "lanes") + i8
+    want = _want_decode(dtype, kv_dtype, G, CB)
+    assert plan.impl == want
     assert plan.smem <= _build.SMEM_LIMIT
+    group = want == "group"
+    tile = want in sp.TILE_IMPLS
     if tile:
-        assert plan.smem == (_build.tile_i8_smem_bytes(128) if i8
+        assert plan.smem == (_build.tile_i8_smem_bytes(128) if kv == "int8"
                              else _build.tile_smem_bytes(128))
+    if group:
+        rw = sp.group_warps(G)[0]
+        assert plan.smem == _build.window_tile_smem_bytes(128, rw)
     if CB > 1:
         assert plan.splits == 1 and (plan.split_slots == 0) == tile
         return
-    blocks = Hkv * (-(-G // 64) if tile else -(-G // pa._rows_per_block(G)))
-    step = sp.TILE_STEP if tile else sp.lane_step(128)
-    assert plan[2:] == sp.split_plan(8, blocks, 832, 16, step=step,
-                                     sms=sp.H100_SMS)
-    assert sp.merges(plan) == (tile or plan.splits > 1)
+    if group:
+        assert plan[2:] == sp.split_plan(
+            8, Hkv * -(-G // sp.group_rows(G)), 832, 16, step=sp.TILE_STEP,
+            sms=sp.H100_SMS, per_sm=sp.GROUP_PER_SM)
+        assert sp.merges(plan)
+    else:
+        blocks = Hkv * (-(-G // 64) if tile else -(-G // pa._rows_per_block(G)))
+        step = sp.TILE_STEP if tile else sp.lane_step(128)
+        assert plan[2:] == sp.split_plan(8, blocks, 832, 16, step=step,
+                                         sms=sp.H100_SMS)
+        assert sp.merges(plan) == (tile or plan.splits > 1)
     k2 = da.kernel_plan(dtype, 4, Hkv * G, Hkv, 128, 192, kv_dtype=kv_dtype)
     assert k2.impl == plan.impl and k2.smem <= _build.SMEM_LIMIT
-    blocks = Hkv * (1 if tile else -(-G // da._heads_per_block(G)))
-    assert k2[2:] == sp.split_plan(4, blocks, 192, step=step, sms=sp.H100_SMS)
+    if group:
+        assert k2[2:] == sp.split_plan(
+            4, Hkv * -(-G // sp.group_rows(G)), 192, step=sp.TILE_STEP,
+            sms=sp.H100_SMS, per_sm=sp.GROUP_PER_SM)
+    else:
+        blocks = Hkv * (1 if tile else -(-G // da._heads_per_block(G)))
+        assert k2[2:] == sp.split_plan(4, blocks, 192, step=step,
+                                       sms=sp.H100_SMS)
 
 
 def test_g_tile_forces_either_template():
-    """``g_tile`` moves the threshold: 0 puts any bf16 decode on the tile,
-    a large value on the lanes (chip_smoke.py times both at G = 8, 16 and
-    48); the default is G_TILE = 8."""
-    assert sp.G_TILE == 8
-    for G in (8, 16, 48):
-        kw = dict(B=8, Hkv=1, n_slots=832, bs=16)
-        assert pa.kernel_plan(torch.bfloat16, 1, G, 128, g_tile=0, **kw).impl == "mma"
-        assert pa.kernel_plan(torch.bfloat16, 1, G, 128, g_tile=1 << 30,
-                              **kw).impl == "lanes"
-        assert da.kernel_plan(torch.bfloat16, 4, G, 1, 128, 192,
-                              g_tile=0).impl == "mma"
-        assert da.kernel_plan(torch.bfloat16, 4, G, 1, 128, 192,
-                              g_tile=1 << 30).impl == "lanes"
-    assert pa.kernel_plan(torch.float32, 1, 48, 128, g_tile=0).impl == "lanes"
+    """``force`` puts a bf16 decode on any of the three templates whatever
+    G (chip_smoke.py times the three at G = 1, 2, 3, 4, 7, 8, 16 and 48);
+    unforced, the group tile takes G_TILE <= G <= GROUP_MAX_G, G_TILE set
+    from those times on the H100 (PERF.md). fp32 queries stay on the
+    lanes, and an int8 cache has no group tile."""
+    assert (sp.G_TILE, sp.GROUP_MAX_G, sp.INT8_G_TILE) == (2, 16, 8)
+    kw = dict(B=8, Hkv=1, n_slots=832, bs=16)
+    for G in (1, 2, 3, 4, 7, 8, 16, 48):
+        for force in sp.TEMPLATES:
+            assert pa.kernel_plan(torch.bfloat16, 1, G, 128, force=force,
+                                  **kw).impl == force
+            assert da.kernel_plan(torch.bfloat16, 4, G, 1, 128, 192,
+                                  force=force).impl == force
+        unforced = pa.kernel_plan(torch.bfloat16, 1, G, 128, **kw).impl
+        assert unforced == ("lanes" if G < 2 else "group" if G <= 16 else "mma")
+        assert pa.kernel_plan(torch.bfloat16, 1, G, 128, force="mma",
+                              kv_dtype=torch.int8, **kw).impl == "mma_int8"
+        with pytest.raises(_build.KernelError):
+            pa.kernel_plan(torch.bfloat16, 1, G, 128, force="group",
+                           kv_dtype=torch.int8, **kw)
+    assert pa.kernel_plan(torch.float32, 1, 48, 128, force="mma").impl == "lanes"
+
+
+@pytest.mark.parametrize("kv", [torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("G", [1, 2, 3, 4, 5, 6, 7, 8, 16, 48])
+def test_decode_tile_by_head_group(G, kv):
+    """``decode_tile`` at G 1-8, 16 and 48: over a bf16 cache the group
+    tile from G_TILE, over an int8 cache the 64-row tile's int8 form above
+    INT8_G_TILE (8), as before the group tile; fp32 queries never a tile."""
+    got = sp.decode_tile(torch.bfloat16, kv, G)
+    want = _want_decode(torch.bfloat16, kv, G)
+    assert (got or ("lanes_int8" if kv == torch.int8 else "lanes")) == want
+    assert sp.decode_tile(torch.float32, kv, G) is None
+
+
+def test_group_tile_plan():
+    """The group tile's plan: ``group_rows(G)`` query rows a block (16 a
+    row warp, at most 64), the read split as ``split_plan`` splits it at
+    GROUP_PER_SM block per SM into whole 64-slot tiles (and table columns)
+    and at most ``max_splits``, always folded by the merge; the shared
+    memory of ``wt::Smem<D, RW>``."""
+    assert [sp.group_rows(G) for G in (1, 7, 16, 17, 33, 48, 64, 96)] == [
+        16, 16, 16, 32, 48, 48, 64, 64]
+    assert [sp.group_warps(G)[1] for G in (7, 17, 48)] == [4, 2, 2]
+    for G, D in ((2, 128), (7, 128), (16, 64), (48, 128), (8, 256)):
+        for n_slots in (64, 192, 832, 3000):
+            p = da.kernel_plan(torch.bfloat16, 4, 4 * G, 4, D, n_slots,
+                               force="group")
+            assert p.impl == "group" and p.split_slots % sp.TILE_STEP == 0
+            assert 1 <= p.splits <= sp.MAX_SPLITS and sp.merges(p)
+            assert p.splits * p.split_slots >= n_slots
+            assert (p.splits - 1) * p.split_slots < n_slots  # no empty split
+            rw = sp.group_warps(G)[0]
+            assert p.smem == _build.window_tile_smem_bytes(D, rw) <= _build.SMEM_LIMIT
+    # The main path's shapes (PERF.md): Qwen2-7B's K2 over the whole ring
+    # (16 blocks) and in the engine's bucket, K3 at the serve shape (32
+    # blocks, 832 slots) and at Llama-2-7B's GQA (64 blocks, 1024 slots).
+    assert da.kernel_plan(torch.bfloat16, 4, 28, 4, 128, 1024)[2:] == (16, 64)
+    assert da.kernel_plan(torch.bfloat16, 4, 28, 4, 128, 192)[2:] == (3, 64)
+    assert pa.kernel_plan(torch.bfloat16, 1, 7, 128, B=8, Hkv=4, n_slots=832,
+                          bs=16)[2:] == (7, 128)
+    assert pa.kernel_plan(torch.bfloat16, 1, 4, 128, B=8, Hkv=8, n_slots=1024,
+                          bs=16)[2:] == (8, 128)
+    capped = da.kernel_plan(torch.bfloat16, 4, 28, 4, 128, 1024,
+                            max_splits=4)
+    assert capped[::2] == ("group", 4) and sp.merges(capped)
+    unsplit = da.kernel_plan(torch.bfloat16, 4, 28, 4, 128, 1024,
+                             max_splits=1)
+    assert unsplit[2:] == (1, 1024) and sp.merges(unsplit)
+    # K3 splits whole table columns too: a multiple of the block size.
+    p = pa.kernel_plan(torch.bfloat16, 1, 7, 128, B=2, Hkv=4, n_slots=1024,
+                       bs=128)
+    assert p.impl == "group" and p.split_slots % 128 == 0
+
+
+def test_group_impl_codes_match_the_sources():
+    """The wrappers pass the group tile's rows a block as the entry point's
+    GB / R and impl code 3, its splits stored in the workspace and folded
+    by split_merge, as csrc/decode_attention.cu and paged_attention.cu
+    dispatch them; K3 and an all-decode K4 reach the same kernel; K2's
+    state-out form takes it too."""
+    assert _build.IMPL_CODES["group"] == 3
+    dec = (_build.CSRC / "decode_attention.cu").read_text()
+    pag = (_build.CSRC / "paged_attention.cu").read_text()
+    for src in (dec, pag):
+        assert "wt::run<D, RW, wt::kWorkspace>(s, gsmem);" in src
+        assert "kCluster" not in src
+        for rows, rw in ((16, 1), (32, 2), (48, 3), (64, 4)):
+            assert f"case {rows}: return launch_group<D, {rw}>" in src
+    assert "impl == 3 && tile16 && CB == 1)" in pag
+    assert "s.ql = a.qlen ? a.qlen[b] : 1;" in pag
+    assert "} else if (impl == 3) {" in dec
+    assert "err = dispatch_group(D, GB, a, stf, s);" in dec
+    assert da._rows(sp.Plan("group", 0, 1, 64), 7) == 16
+    assert da._rows(sp.Plan("lanes", 0, 1, 64), 7) == 8
+
+
+def test_state_entry_matches_the_c_signature():
+    """K2's state-out entry point takes the state buffer beside the
+    workspace, and its ctypes declaration follows."""
+    src = (_build.CSRC / "decode_attention.cu").read_text()
+    sig = re.search(r'extern "C" int llmss_decode_attention_state\((.*?)\)',
+                    src, re.S).group(1)
+    kinds = [param.split()[0] for param in sig.split(",")]
+    sym, args = _build._STATE_ENTRIES["decode_attention"]
+    assert sym == "llmss_decode_attention_state"
+    assert args == [_CTYPES[k] for k in kinds]
+    assert kinds[6:8] == ["void*", "void*"]  # ws, st
+
+
+def test_group_symbols_are_counted():
+    """K2's and K3's group tile have their own symbols, counted for their
+    wrappers from a step graph's nodes: a ``window_mma`` node is K2w's,
+    never K2's."""
+    dec = "_ZN5llmss12_GLOBAL__N_112decode_groupILi128ELi1ELi1EEEvNS0_4ArgsE"
+    pag = "_ZN5llmss12_GLOBAL__N_111paged_groupILi128ELi1ELi1EEEvNS0_4ArgsE"
+    win = "_ZN5llmss12_GLOBAL__N_110window_mmaILi128ELi1ELb1EEEvNS0_7WinArgsE"
+    assert "decode_group" in graphs.KERNEL_SYMBOLS["decode_attention"]
+    for fn in (pa.paged_decode_attention, pa.ragged_paged_attention):
+        assert "paged_group" in graphs.KERNEL_SYMBOLS[fn.__name__]
+        assert graphs.node_launches([pag], [(fn, 1)]) == [(fn, 1)]
+    assert graphs.node_launches([dec], [(da.decode_attention, 1)]) == [
+        (da.decode_attention, 1)]
+    with pytest.raises(RuntimeError):
+        graphs.node_launches([win], [(da.decode_attention, 1)])
+    assert chip_smoke._node_counts([dec, pag, win], ("decode_group",)) == {
+        "decode_group": 1}
+
+
+def test_profile_step_arms_an_exiting_watchdog():
+    """chip_smoke.py's POST /profile step (serve_telemetry) arms a
+    faulthandler watchdog that dumps every thread's stack and ends the run
+    non-zero if the step outlasts PROFILE_WATCHDOG_S, and disarms it after
+    the step."""
+    import inspect
+
+    src = inspect.getsource(chip_smoke._tel_profile)
+    assert "faulthandler.dump_traceback_later(PROFILE_WATCHDOG_S, exit=True)" in src
+    assert "faulthandler.cancel_dump_traceback_later()" in src
+    assert src.index("dump_traceback_later(") < src.index('"/profile"')
+    assert chip_smoke.PROFILE_WATCHDOG_S == 180
 
 
 # -- shared memory ------------------------------------------------------------
+
+
+def test_group_tile_smem_matches_the_header():
+    """The group tile's plans take ``window_tile_smem_bytes``, which
+    mirrors group_tile.cuh's ``wt::Smem<D, RW>`` (the struct K2w, K2 and
+    K3 launch with): 109,704 bytes at D = 128 and one row warp, two blocks
+    per SM."""
+    src = (_build.CSRC / "group_tile.cuh").read_text()
+    for line in (
+            "static constexpr size_t ring = kStages<D> * 2 * KV * sizeof(__nv_bfloat16);",
+            "static constexpr size_t bytes = region + q + vn + sizeof(int) * (kPosWin + 2) +",
+            "sizeof(float) * (2 * SW * R + 2 * R + R * kMaxWin);"):
+        assert line in src, line
+    for name in ("decode_attention.cu", "paged_attention.cu"):
+        assert "cfg.dynamicSmemBytes = SM::bytes;" in (
+            _build.CSRC / name).read_text()
+    assert _build.window_tile_smem_bytes(128, 1) == 109704
+    assert 2 * (109704 + _build.BLOCK_RESERVED_BYTES) <= _build.SM_SHARED_BYTES
+    for G, rw in ((7, 1), (24, 2), (48, 3), (64, 4)):
+        plan = pa.kernel_plan(torch.bfloat16, 1, G, 256, B=4, Hkv=2,
+                              n_slots=512, bs=16, force="group")
+        assert plan.smem == _build.window_tile_smem_bytes(256, rw)
 
 
 def test_tile_smem_matches_the_header():

@@ -426,3 +426,63 @@ def test_an_empty_row_gives_exactly_v_new():
         want = c["vn"][b, 0].repeat_interleave(2, 0)
         assert torch.equal(got[b, 0], want)
         assert torch.equal(plain[b, 0], want)
+
+
+# -- K2's state-out form ------------------------------------------------------
+
+
+def merge_state(states):
+    """split_merge's state form (csrc/split_merge.cuh, kState): per row,
+    the splits' states folded in split order under their common max, no
+    fresh key; (m, l, acc) as ``decode_attention_state_ref`` returns them,
+    m / l [B, Hkv, G, 1], acc [B, Hkv, G, 1, D]."""
+    ms, ls, accs = [], [], []
+    for parts in states:
+        M = parts[0][0]
+        for m, _, _ in parts[1:]:
+            M = torch.maximum(M, m)
+        den, acc = torch.zeros_like(parts[0][1]), torch.zeros_like(parts[0][2])
+        for m, l, a in parts:
+            sc = torch.where(m == NEG, 0.0, torch.exp(m - M))
+            den, acc = den + l * sc, acc + a * sc[..., None]
+        ms.append(M[..., None])
+        ls.append(den[..., None])
+        accs.append(acc[:, :, None])
+    return torch.stack(ms), torch.stack(ls), torch.stack(accs)
+
+
+@pytest.mark.parametrize("Hq, Hkv", [(4, 4), (14, 2)])
+def test_state_fold_in_the_launch_is_the_state_ref(Hq, Hkv):
+    """K2's state-out form folds its splits in the launch: the fold of the
+    split states (split_merge's state form, which the lanes and the group
+    tile both take) is ``decode_attention_state_ref``'s (m, l, acc) on the
+    same chunk (fp32 both: only the order of sums differs) on every head
+    that sees a slot; a head that sees nothing keeps m = min and l = 0
+    (the reference's finite minimum gives it l = the slot count instead:
+    either weighs 0 once the ranks' states merge, as chip_smoke.py's
+    ``_state_agree`` holds the card to); and the wrapper runs no torch
+    operation after its launch, only views of the state the kernel
+    wrote."""
+    import inspect
+
+    rng = np.random.default_rng(Hq)
+    c = dense_case(rng, Hq, Hkv, [50, 0, 95, 160], 128, D=32, t_len=128)
+    p = c["kvp"]
+    vis = (p >= 0) & (p <= c["qpos"]) & (torch.arange(128)[None, :] != c["slots"])
+    q = c["q"][:, 0]
+    states = split_states(q, c["kc"][0], c["vc"][0], vis, 32,
+                          torch.full((4,), 4), round_p=False)
+    got = merge_state(states)
+    ref = da.decode_attention_state_ref(c["q"], c["kc"], c["vc"], c["qpos"],
+                                        c["kvp"], c["slots"], 0)
+    seen = ref[0] > -1e30
+    assert torch.equal(got[0] > -1e30, seen) and not seen[1].any()
+    for g, r in zip(got, ref):
+        torch.testing.assert_close(g[seen], r[seen], **TOL)
+    assert (got[0][1] == NEG).all() and (got[1][1] == 0).all()  # the empty row
+    src = inspect.getsource(da.decode_attention_state)
+    after = src[src.index('_build.check(code, "decode_attention_state")'):]
+    assert not re.search(r"\.(amax|sum|exp|max)\(|torch\.", after), after
+    merge_src = (_build.CSRC / "split_merge.cuh").read_text()
+    assert "template <typename T, int D, bool kState = false>" in merge_src
+    assert "auto kern = a.st ? split_merge<T, D, true> : split_merge<T, D>;" in merge_src

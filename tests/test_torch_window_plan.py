@@ -1,6 +1,6 @@
 """K2w's launch plan (``ops/decode_attention.window_plan``) at every kernel
 case of chip_smoke.py, and the window tile's shared memory against
-csrc/window_attention.cu. The kernel itself runs on the card only
+csrc/group_tile.cuh, whose tile csrc/window_attention.cu runs. The kernel itself runs on the card only
 (chip_smoke.py holds it to its plain version there)."""
 
 from __future__ import annotations
@@ -147,8 +147,12 @@ def test_window_tile_smem_matches_the_source():
     stages (2 at D 256) of K and V tiles of 64 rows of D + 8 bf16
     elements, reused by the slot warps' fp32 state [SW][R][D + 8]; Q
     [R][D + 8] bf16 at D 256; the fresh V [8][D] bf16; 512 positions and
-    two tile masks; m and l [SW][R] and [R]; the fresh scores [R][8]."""
-    src = (_build.CSRC / "window_attention.cu").read_text()
+    two tile masks; m and l [SW][R] and [R]; the fresh scores [R][8]. The
+    struct is the group tile's (csrc/group_tile.cuh), which window_mma
+    runs."""
+    src = (_build.CSRC / "group_tile.cuh").read_text()
+    assert "wt::run<D, RW, kCluster ? wt::kCluster : wt::kWorkspace>" in (
+        _build.CSRC / "window_attention.cu").read_text()
     for line in (
             "constexpr int kSlots = 64;",
             "constexpr int kPosWin = 512;",
