@@ -51,7 +51,9 @@ exits non-zero without printing a result:
               phase's shapes, and their state-out forms (each query row's
               fp32 softmax state over one KV chunk) at the sp = 2 chunk
               shapes, against the plain versions' states (K2's folded
-              in its launch: nothing but split_merge after the kernel);
+              in its launch: nothing but split_merge after the kernel),
+              and K3 / K4 at the 16 KV heads a tp 2 rank's pool holds
+              (bf16 and int8) at serve_parallel's shapes;
 4. reference -- a tiny fp32 llama generates the same greedy tokens through
               the kernels on the card, decoding by CUDA-graph replays, as
               through the plain path on the CPU;
@@ -97,6 +99,13 @@ exits non-zero without printing a result:
               and gpt2 models (GQA, MQA with learned positions, an uneven
               tied vocabulary): every rank's card tokens equal the port's
               single-process CPU tokens, no graph captured under gloo;
+              then the GQA and MQA families' paged batcher on tp 2
+              and dp 2 x tp 2 (rank 0 leads, parallel/serving.py), split
+              and chunked
+              passes with admissions mid-stream, a cancel and a shared
+              prefix: every rank's tokens equal the CPU batcher's, the
+              ranks' host digests equal at every step, every pool
+              drained;
    reference_families -- the same for a tiny fp32 model of every family
               of the registry (GPT-J, GPT-BigCode, GPT-2, Llama, Mistral,
               Qwen2, GPT-NeoX, Phi-3 with LongRoPE on both sides of its
@@ -141,7 +150,8 @@ exits non-zero without printing a result:
               then an eviction; per pass wall, tokens/s, TTFT, K1 / K4
               prompt tokens, peak blocks and rows, launches; 37 blocks
               held once idle, 0 after the eviction;
-   serve_priority -- preemption at Llama-2-7B width: 8 batch-class
+   serve_priority -- preemption at Llama-2-7B width, 8 of its 32
+              layers: 8 batch-class
               requests, then 4 interactive ones, through a prewarmed
               8-row worker, split and chunked, with and without
               preemption: the victims equal a CPU rehearsal of the same
@@ -200,7 +210,7 @@ exits non-zero without printing a result:
    gptj_6b, starcoder -- the published configs of EleutherAI/gpt-j-6b
               (D 256, untied biased head) and bigcode/starcoder (48 query
               heads on one KV head, learned positions) at full width and
-              a quarter of their depth (7 and 10 layers), random bf16
+              an eighth of their depth (4 and 5 layers), random bf16
               weights from a seed: prewarm, generate
               twice (identical tokens, launch counts, no capture), prefill
               and decode chunk profiled against the weight-read bound, a
@@ -230,7 +240,7 @@ exits non-zero without printing a result:
               pool), dense, paged split and chunked, fp32 and int8, and
               T1 capped at 0: card tokens and store counts equal the
               CPU's, fp32 tokens equal the card's without a store;
-   serve_tiers -- the store at Llama-2-7B width, 16 layers (its seed,
+   serve_tiers -- the store at Llama-2-7B width, 8 layers (its seed,
               serve_continuous's pool, a fresh engine): prefix waves on four
               600-token system prompts without a store, with T1 at 1 GiB
               and at 0, and a second worker promoting what the first
@@ -250,7 +260,19 @@ exits non-zero without printing a result:
               rank over NCCL in this process, which issues no collective
               (an axis of one rank drops them) and whose prewarm captures
               the step graphs: the engine phase's tokens, no capture after
-              the prewarm.
+              the prewarm;
+   serve_parallel -- serving on the mesh at Llama-2-7B width, 32
+              layers: first the passes in one process and the chunked
+              batcher on an NCCL mesh of one (prewarm captures, tokens
+              equal one process's, no capture after); then, alone on the
+              card, a tp 2 gloo world, a ContinuousWorker on rank 0 over
+              an InProcBroker in rank 0's process and rank 1 following;
+              serve_continuous's first 8 requests, 32 new tokens, 4 rows;
+              split and chunked (128) passes, and the first 4 in an int8
+              chunked pass: every request answered once, equal digests,
+              pools drained, K3 / K4 n_layers a step on each rank; tokens
+              against the one-process passes, decode ms a step, TTFT p50,
+              the control's host ms a step, bytes a rank.
 
 Then one JSON line with every kernel's numbers, the nvidia-smi line, and
 last the result line {"ok": true, "device": {...}}.
@@ -287,6 +309,9 @@ import torch
 
 # The port itself; a copy of this script without the package fails here.
 import llmss_tpu_torch  # noqa: F401
+from llmss_tpu_torch.parallel.launch import (
+    count_steps, run_schedule, serve_requests,
+)
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak
@@ -301,10 +326,11 @@ FP32_FLOPS = 67e12  # H100 SXM fp32 outside the tensor cores
 REL_TOL = {torch.bfloat16: 2.0**-7, torch.float16: 2.0**-10,
            torch.float32: 2.0**-16}
 
-# serve_fleet, serve_tiers and speculative run the first half of these
-# layers (their checks do not depend on depth), so that the run with the
-# mesh phases fits its time limit on slower hosts (PERF.md).
-HALF_LAYERS = 16
+# serve_priority, serve_fleet, serve_tiers and speculative run the first
+# quarter of these layers (their checks do not depend on depth), so that
+# the run with the mesh phases fits its time limit on slower hosts
+# (PERF.md).
+CUT_LAYERS = 8
 LLAMA2_7B = dict(
     model_type="llama", vocab_size=32000, hidden_size=4096, n_layers=32,
     n_heads=32, n_kv_heads=32, head_dim=128, intermediate_size=11008,
@@ -1551,6 +1577,21 @@ def check_paged_kernels(out: dict) -> None:
     _main_path_impl("K4", out["K4"])
     for name, err in worst.items():
         out[name]["max_abs_err"] = err
+    # The pool at the KV heads one tp 2 rank holds (serve_parallel).
+    for c in tp_paged_cases():
+        kernel = c["kernel"]
+        k3_case = kernel == "K3"
+        row, _ = _paged_row(kernel, c, k3 if k3_case else k4,
+                            k3_ref if k3_case else k4_ref, _gather_sdpa,
+                            k3_unsplit if k3_case else None)
+        if k3_case:
+            _main_path_impl("K3", row, _decode_impl(c["q"], c["kn"].shape[2],
+                                                    c["ks"] is not None))
+        else:
+            _main_path_impl("K4", row, "mma" if c["ks"] is None
+                            else "mma_int8")
+        out[c["row"].replace(kernel, kernel + "_tp")] = row
+        out["cases"][c["name"]] = row
     for name in ("K4", "K4_int8"):
         out["vs_library"][out[name]["case"]] = (out[name]["ms"],
                                                 out[name]["library_ms"])
@@ -1591,6 +1632,22 @@ def check_paged_kernels(out: dict) -> None:
 
 
 # -- the mesh ------------------------------------------------------------------
+
+SERVE_PAR_CTX = [700, 45, 300, 812]  # serve_parallel's 4 decode rows
+
+
+def tp_paged_cases() -> list[dict]:
+    """K3 and K4 at the 16 of Llama-2-7B's 32 KV heads a tp 2 rank's pool
+    holds, bf16 and over int8: serve_parallel's 4 rows decoding in the
+    832-slot bucket, and its chunked step (prompt rows at a first and a
+    last 37-token chunk beside two decode rows)."""
+    return [_paged_case(f"k3_tp2{s}_serve_decode", 4, 16, 16, SERVE_PAR_CTX,
+                        [1] * 4, 1, n_cols=52, seed=50, kv=kv)
+            for s, kv in (("", None), ("_int8", "int8"))] + [
+        _paged_case(f"k4_tp2{s}_serve_mixed", 4, 16, 16, [0, 128, 700, 33],
+                    [128, 37, 1, 1], 128, seed=51, kv=kv)
+        for s, kv in (("", None), ("_int8", "int8"))]
+
 
 # The engine phase's prefill and decode at the heads one rank holds under
 # tp 2 and 4 (Llama-2-7B: 32 heads).
@@ -1788,6 +1845,65 @@ def _par_gens():
                              top_p=0.9)]
 
 
+PAR_PREFIX = list(range(40, 60))  # one full block of 16
+# The paged batcher's passes on the tiny families' worlds: by world size,
+# the plan; the passes' batcher settings.
+PAR_SERVE_PLANS = {2: (1, 1, 2), 4: (2, 1, 2)}
+PAR_SERVE_FAMILIES = ("llama", "gpt_bigcode")  # GQA and MQA
+PAR_SERVE_PASSES = {"split": dict(rows=3, chunk_steps=2, group_chunks=2),
+                    "chunked": dict(rows=3, chunk_steps=2, group_chunks=2,
+                                    chunked_prefill=16)}
+
+
+def _par_schedule():
+    """The paged batcher's schedule on the tiny families (the CPU tests'
+    shape): admissions mid-stream, greedy and sampled rows, a cancel and
+    a shared prefix (``ServeJob.passes``' ``schedule``)."""
+    from llmss_tpu_torch.engine.engine import GenerationParams
+
+    g = GenerationParams(max_new_tokens=8)
+    s = GenerationParams(max_new_tokens=7, is_greedy=False, seed=3, top_k=20)
+    return [
+        [("submit", "a", list(range(2, 22)), g, None),
+         ("submit", "b", [5, 9, 23], s, None)],
+        [],
+        [("submit", "c", PAR_PREFIX + [50, 51], g, PAR_PREFIX),
+         ("submit", "d", [7] * 7, g, None)],
+        [("cancel", "b")],
+        [("submit", "e", PAR_PREFIX + [60], s, PAR_PREFIX),
+         ("submit", "f", [1, 2, 3, 4, 5], g, None)],
+    ]
+
+
+def _schedule_pass(eng, batcher: dict, schedule) -> dict:
+    """One process's ContinuousBatcher through ``schedule``
+    (``parallel.launch.run_schedule``): req_id -> (tokens, cancelled)."""
+    from llmss_tpu_torch.engine.scheduler import ContinuousBatcher
+
+    answers: dict = {}
+    run_schedule(ContinuousBatcher(eng, **batcher), schedule, answers)
+    return {rid: (a["tokens"], bool(a["cancelled"]))
+            for rid, a in answers.items()}
+
+
+def _check_serve_world(what: str, ranks: list, want: dict) -> dict:
+    """A serving world's pass on every rank: the tokens (and the cancel)
+    equal ``want``, one digest chain that every follower checked step by
+    step, the pool drained to 0 once the idle prefix is evicted, no
+    capture under gloo. Returns the rank 0 pass."""
+    for p in ranks:
+        got = {rid: (o["tokens"], o["cancelled"])
+               for rid, o in p["outputs"].items()}
+        if got != want:
+            raise AssertionError(f"{what}: a rank's tokens differ")
+    if len({(p["chain"], p["steps"]) for p in ranks}) != 1 or any(
+            p["checked"] < p["steps"] for p in ranks[1:]):
+        raise AssertionError(f"{what}: the ranks' digests differ")
+    if any(p["blocks_drained"] or p["graph_captures"] for p in ranks):
+        raise AssertionError(f"{what}: blocks left or graphs captured")
+    return ranks[0]
+
+
 def phase_reference_parallel() -> None:
     """Worlds of ranks sharing the one card, over gloo with CUDA tensors
     (NCCL refuses two ranks on one device): the test plans tp 2, sp 2,
@@ -1795,37 +1911,77 @@ def phase_reference_parallel() -> None:
     running the three tiny fp32 families, prewarmed, greedy and sampled
     rows at chunk_steps 4. Every rank's card tokens equal the port's
     single-process CPU tokens, no graph is captured under gloo (the steps
-    run eagerly), and every collective went through the host (counted)."""
+    run eagerly), and every collective went through the host (counted).
+    Then, in the tp 2 and the tp 4 worlds, the llama and gpt_bigcode
+    families' paged batcher on tp 2 and dp 2 x tp 2 (``serve_job``: rank 0 leads), split and
+    chunked (16) passes of ``_par_schedule``: every rank's tokens equal
+    the port's single-process CPU batcher's, the ranks' digests are equal
+    at every step, and each pool drains to 0."""
     from llmss_tpu_torch.engine.engine import DecodeEngine
     from llmss_tpu_torch.models.common import DecoderConfig
     from llmss_tpu_torch.models.decoder import init_params
     from llmss_tpu_torch.parallel.launch import (
-        EngineJob, World, engine_jobs, file_init,
+        EngineJob, ServeJob, World, file_init, run_jobs,
     )
 
     gens = _par_gens()
-    ported, want = {}, {}
+    ported, want, want_serve = {}, {}, {}
     for i, (fam, kw) in enumerate(PAR_FAMILIES.items()):
         cfg = DecoderConfig(**kw)
         params = _scaled(init_params(cfg, seed=i, device="cpu"), 10.0)
         ported[fam] = (cfg, params)
         want[fam] = DecodeEngine(cfg, params, device="cpu",
                                  max_seq_len=64).generate(PAR_PROMPTS, gens)
+        if fam not in PAR_SERVE_FAMILIES:
+            continue
+        paged = DecodeEngine(cfg, params, device="cpu", max_seq_len=64,
+                             kv_layout="paged", block_size=16)
+        for mode, bkw in PAR_SERVE_PASSES.items():
+            want_serve[fam, mode] = _schedule_pass(paged, bkw,
+                                                   _par_schedule())
     tmp = tempfile.mkdtemp(prefix="llmss-rdv")  # the worlds' rendezvous
     t0 = time.perf_counter()
+
+    def serve_jobs(size):
+        if size not in PAR_SERVE_PLANS:
+            return []
+        return [ServeJob(
+            cfg=cfg, plan=PAR_SERVE_PLANS[size], params=params,
+            device="cuda", backend="gloo", max_seq_len=64, block_size=16,
+            passes=[dict(batcher=bkw, schedule=_par_schedule())
+                    for bkw in PAR_SERVE_PASSES.values()])
+            for cfg, params in (ported[f] for f in PAR_SERVE_FAMILIES)]
+
     started = {size: World(
-        engine_jobs, size,
+        run_jobs, size,
         [EngineJob(cfg=cfg, plan=plan, prompts=PAR_PROMPTS, params=params,
                    device="cuda", backend="gloo", max_seq_len=64,
                    prewarm=(4,) if size == 2 else (), logits=False,
                    runs=[("generate", gens, 4)])
-         for plan in plans for cfg, params in ported.values()],
+         for plan in plans for cfg, params in ported.values()]
+        + serve_jobs(size),
         init_method=file_init(os.path.join(tmp, f"w{size}")),
         backend="gloo", device="cuda", timeout=600)
         for size, plans in PAR_PLANS.items()}
-    rows = []
+    rows, serve_rows = [], []
     for size, plans in PAR_PLANS.items():
         res = started[size].results()
+        n_engine = len(plans) * len(PAR_FAMILIES)
+        for j, fam in enumerate(PAR_SERVE_FAMILIES):
+            if size not in PAR_SERVE_PLANS:
+                break
+            for k, mode in enumerate(PAR_SERVE_PASSES):
+                plan = PAR_SERVE_PLANS[size]
+                p0 = _check_serve_world(
+                    f"reference_parallel serving {plan} {fam} {mode}",
+                    [r[n_engine + j]["passes"][k] for r in res],
+                    want_serve[fam, mode])
+                serve_rows.append({
+                    "plan": dict(zip(("dp", "sp", "tp"), plan)),
+                    "family": fam, "admission": mode, "ranks": size,
+                    "tokens_equal_cpu": True, "digests_equal": True,
+                    "steps": p0["steps"], "blocks_idle": p0["blocks_idle"],
+                    "blocks_drained": 0, "launches_rank0": p0["launches"]})
         i = 0
         for plan in plans:
             for fam in PAR_FAMILIES:
@@ -1852,7 +2008,7 @@ def phase_reference_parallel() -> None:
     shutil.rmtree(tmp, ignore_errors=True)
     emit({"phase": "reference_parallel", "backend": "gloo (CUDA tensors, "
           "host-staged)", "worlds": sorted(PAR_PLANS), "cases": rows,
-          "worlds_s": time.perf_counter() - t0})
+          "serving": serve_rows, "worlds_s": time.perf_counter() - t0})
 
 
 NODE_TYPES = {0: "kernel", 1: "memcpy", 2: "memset", 3: "host", 4: "graph",
@@ -2037,6 +2193,178 @@ def phase_parallel(bf16: dict, kernels: dict, smi: str) -> None:
     torch.distributed.destroy_process_group()
     gc.collect()
     torch.cuda.empty_cache()
+
+SERVE_PAR_NEW = 32  # new tokens per serve_parallel request
+SERVE_PAR_REQUESTS = 8  # the first of serve_continuous's requests
+SERVE_PAR_BATCHER = dict(rows=4, chunk_steps=8, group_chunks=2)
+SERVE_PAR_ENGINE = dict(max_seq_len=1024, block_size=16, kv_blocks=256)
+# serve_parallel's passes: (name, KV dtype, chunked_prefill, requests);
+# the int8 pass serves one wave of rows.
+SERVE_PAR_PASSES = (("split", None, None, SERVE_PAR_REQUESTS),
+                    ("chunked", None, 128, SERVE_PAR_REQUESTS),
+                    ("int8_chunked", "int8", 128, 4))
+
+
+def _serve_par_pass(eng, requests, chunked, *, prewarm=False):
+    """One pass of ``requests`` through a ContinuousWorker on ``eng`` in
+    this process (4 rows, over an InProcBroker): (tokens by request, the
+    graphs the prewarm captured, the captures after it)."""
+    from llmss_tpu_torch.serve.broker import InProcBroker
+    from llmss_tpu_torch.serve.consumer import ContinuousWorker
+
+    w = ContinuousWorker(eng, InProcBroker(), poll_timeout_s=0.0,
+                         chunked_prefill=chunked, **SERVE_PAR_BATCHER)
+    warm = 0
+    if prewarm:
+        w.prewarm()
+        warm = eng.metrics.graph_captures
+    reqs, answers = requests(), {}
+    serve_requests(w, reqs, answers)
+    if any(a["error"] for a in answers.values()) or (
+            w.batcher.allocator.blocks_in_use):
+        raise AssertionError("serve_parallel: a single-process pass failed")
+    return ([answers[r.id]["tokens"] for r in reqs], warm,
+            eng.metrics.graph_captures - warm)
+
+
+def phase_serve_parallel(kernels: dict, smi: str) -> None:
+    """Serving on a mesh at Llama-2-7B width and all 32 layers (random bf16
+    weights from seed 0; each rank draws only its slices): a tp 2 gloo
+    world alone on the card, a ContinuousWorker on rank 0 over an
+    InProcBroker in rank 0's process, rank 1 following
+    (parallel/serving.py), 4 rows, max_seq_len 1024, a 256-block pool of
+    16, chunk_steps 8, group_chunks 2; serve_continuous's first 8
+    requests (prompts of 53-619 tokens) with 32 new tokens each, in a
+    split pass and a chunked (128) pass, and the first 4 in a chunked
+    pass over an int8 pool.
+    Asserted per pass: every request answered once, rank 1's rows equal
+    rank 0's answers, the ranks' digest chains equal (rank 1 checked rank
+    0's digest before every step), each pool drained to 0 blocks, K3
+    launches = n_layers per decode step and K4 = n_layers per ragged step
+    on each rank (wrapper counters; the steps run eagerly under gloo).
+    Measured: the share of tokens equal to the same pass in one process
+    (bf16: sums in another order), decode ms a step, TTFT p50 and the
+    control's host ms a step (rank 0: broadcast, events, digest; rank
+    1: events, digest), weight and pool bytes a rank, the pass's wall.
+    Before the world starts (so that its timings are its own), this
+    process runs the same passes with no mesh, then the chunked pass's
+    batcher on an NCCL mesh of one: prewarm captures, its tokens equal
+    the one-process pass's exactly, and nothing is captured after the
+    prewarm."""
+    from llmss_tpu_torch.engine.engine import DecodeEngine
+    from llmss_tpu_torch.models.common import DecoderConfig
+    from llmss_tpu_torch.models.decoder import init_params
+    from llmss_tpu_torch.parallel import MeshPlan, make_mesh
+    from llmss_tpu_torch.parallel.launch import (
+        ServeJob, World, file_init, run_jobs,
+    )
+
+    t_phase = time.perf_counter()
+    cfg = DecoderConfig(**LLAMA2_7B)
+    L = cfg.n_layers
+    lens, maker = _serve_requests(cfg, new=SERVE_PAR_NEW)
+
+    def requests(n=SERVE_PAR_REQUESTS):
+        return lambda: maker()[:n]
+
+    ekw = dict(kv_layout="paged", **SERVE_PAR_ENGINE)
+    # First, alone on the card: the same passes in this process (no
+    # mesh), then the chunked one on an NCCL mesh of one.
+    params = init_params(cfg, seed=0)
+    single = {}
+    for name, kv, chunked, n in SERVE_PAR_PASSES:
+        eng = DecodeEngine(cfg, params, kv_dtype=kv, **ekw)
+        single[name] = _serve_par_pass(eng, requests(n), chunked)[0]
+        del eng
+    t1 = time.perf_counter()
+    mesh = make_mesh(MeshPlan(tp=1))
+    eng = DecodeEngine(cfg, params, mesh=mesh, **ekw)
+    toks, warm, after = _serve_par_pass(eng, requests(), 128, prewarm=True)
+    if toks != single["chunked"] or after or not warm:
+        raise AssertionError(
+            f"serve_parallel NCCL mesh of one: tokens equal "
+            f"{toks == single['chunked']}, {warm} captures in the prewarm, "
+            f"{after} after it")
+    emit({"phase": "serve_parallel", "pass": "nccl_world1_chunked",
+          "card": smi, "backend": mesh.backend,
+          "tokens_equal_single_process": True,
+          "graph_captures_prewarm": warm, "graph_captures_after_prewarm": 0,
+          "decode_ms_per_step": eng.metrics.decode_step.to_dict()["mean_ms"],
+          "seconds": time.perf_counter() - t1})
+    del eng, params
+    torch.distributed.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    # Then the tp 2 world, alone on the card.
+    passes = [dict(batcher=dict(SERVE_PAR_BATCHER, chunked_prefill=chunked),
+                   kv_dtype=kv, requests=maker()[:n])
+              for _, kv, chunked, n in SERVE_PAR_PASSES]
+    tmp = tempfile.mkdtemp(prefix="llmss-rdv")
+    t0 = time.perf_counter()
+    res = World(run_jobs, 2, [ServeJob(
+        cfg=cfg, plan=(1, 1, 2), seed=0, device="cuda", backend="gloo",
+        passes=passes, **SERVE_PAR_ENGINE)],
+        init_method=file_init(os.path.join(tmp, "serve")), backend="gloo",
+        device="cuda", timeout=900).results()
+    world_s = time.perf_counter() - t0
+    shutil.rmtree(tmp, ignore_errors=True)
+    launches = {}
+    for k, (name, kv, chunked, _) in enumerate(SERVE_PAR_PASSES):
+        ranks = [r[0]["passes"][k] for r in res]
+        ids = [r.id for r in passes[k]["requests"]]
+        p0 = ranks[0]
+        toks = [p0["outputs"][i]["tokens"] for i in ids]
+        if any(p0["outputs"][i]["error"] or len(t) != SERVE_PAR_NEW
+               for i, t in zip(ids, toks)):
+            raise AssertionError(f"serve_parallel {name}: a bad answer")
+        if any({i: o["tokens"] for i, o in p["outputs"].items()}
+               != {i: o["tokens"] for i, o in p0["outputs"].items()}
+               for p in ranks[1:]):
+            raise AssertionError(f"serve_parallel {name}: rank 1's rows "
+                                 "differ from rank 0's answers")
+        if len({(p["chain"], p["steps"]) for p in ranks}) != 1 or any(
+                p["checked"] < p["steps"] for p in ranks[1:]):
+            raise AssertionError(f"serve_parallel {name}: digests differ")
+        for p in ranks:
+            n = p["launches"]
+            if (p["blocks_drained"] or n["k3"] != L * p["decode_steps"]
+                    or n["k4"] != L * p["ragged_steps"]
+                    or (chunked is not None) != bool(n["k4"])):
+                raise AssertionError(
+                    f"serve_parallel {name}: blocks {p['blocks_drained']}, "
+                    f"launches {n} for {p['decode_steps']} decode and "
+                    f"{p['ragged_steps']} ragged steps")
+        launches[name] = p0["launches"]
+        flat = [t for row in toks for t in row]
+        ref = [t for row in single[name] for t in row]
+        emit({"phase": "serve_parallel", "pass": name, "card": smi,
+              "plan": "tp2", "backend": "gloo (CUDA tensors, host-staged)",
+              "ranks": 2, "requests": len(ids), "new_tokens": SERVE_PAR_NEW,
+              "prompt_lens": lens[:len(ids)],
+              "answered_once": True, "digests_equal": True,
+              "steps": p0["steps"], "blocks_drained_per_rank": 0,
+              "tokens_equal_single_process_share":
+                  sum(a == b for a, b in zip(flat, ref)) / len(ref),
+              "agreement": _agreement(toks, single[name]),
+              "wall_s": p0["wall_s"],
+              "decode_ms_per_step": p0["decode_ms_per_step"],
+              "ttft_p50_ms": p0["ttft_p50_ms"],
+              "ttft_min_max_ms": p0["ttft_min_max_ms"],
+              "control_ms_per_step": [p["control_ms_per_step"]
+                                      for p in ranks],
+              "decode_steps": p0["decode_steps"],
+              "ragged_steps": p0["ragged_steps"],
+              "launches_per_rank": [p["launches"] for p in ranks],
+              "k3_per_decode_step": L, "k4_per_ragged_step": L,
+              "weight_bytes_per_rank": [r[0]["weight_bytes"] for r in res],
+              "pool_bytes_per_rank": [p["pool_bytes"] for p in ranks]})
+    kernels["K3_tp"]["launches"] = (launches["split"]["k3"]
+                                    + launches["chunked"]["k3"])
+    kernels["K4_tp"]["launches"] = launches["chunked"]["k4"]
+    kernels["K3_tp_int8"]["launches"] = launches["int8_chunked"]["k3"]
+    kernels["K4_tp_int8"]["launches"] = launches["int8_chunked"]["k4"]
+    emit({"phase": "serve_parallel", "world_s": world_s,
+          "seconds": time.perf_counter() - t_phase})
 
 # -- phase 4 -------------------------------------------------------------------
 
@@ -2934,24 +3262,6 @@ def phase_serve(eng) -> None:
 # -- phase 6b ------------------------------------------------------------------
 
 
-def _count_steps(eng):
-    """Wrap the engine's grouped programs to count the decode steps and
-    ragged steps they run; returns the counter dict."""
-    n = {"decode": 0, "ragged": 0}
-    decode_group, ragged_group = eng._decode_group, eng._ragged_group
-
-    def counted_decode(*a, n_steps, n_chunks=1, **kw):
-        n["decode"] += n_steps * n_chunks
-        return decode_group(*a, n_steps=n_steps, n_chunks=n_chunks, **kw)
-
-    def counted_ragged(*a):
-        n["ragged"] += a[6].shape[0]  # ids_seq [nc, B, CB]
-        return ragged_group(*a)
-
-    eng._decode_group, eng._ragged_group = counted_decode, counted_ragged
-    return n
-
-
 SERVE_NEW = 48  # new tokens per serve_continuous request
 SERVE_CANCEL = 3  # admitted in the first wave, cancelled once it decodes
 
@@ -3088,7 +3398,7 @@ def phase_serve_continuous(params, kernels: dict):
     cfg = DecoderConfig(**LLAMA2_7B)
     eng = DecodeEngine(cfg, params, max_seq_len=1024, kv_layout="paged",
                        block_size=16, kv_blocks=256)
-    steps = _count_steps(eng)
+    steps = count_steps(eng)
     lens, requests = _serve_requests(cfg)
 
     # One worker per admission mode, each prewarmed before any pass: the
@@ -3255,7 +3565,7 @@ def phase_serve_http(eng, want: list, inproc: dict, smi: str) -> None:
 
     cfg = eng.cfg
     L = cfg.n_layers
-    steps = _count_steps(eng)
+    steps = count_steps(eng)
     _, requests = _serve_requests(cfg)
     reqs = requests()
     new = reqs[0].max_new_tokens
@@ -3558,7 +3868,7 @@ def phase_serve_prefix(eng) -> None:
     from llmss_tpu_torch.serve.broker import InProcBroker
     from llmss_tpu_torch.serve.consumer import ContinuousWorker
 
-    steps = _count_steps(eng)
+    steps = count_steps(eng)
     prefills = []
     prefill = eng._prefill
 
@@ -3966,8 +4276,9 @@ def _priority_rehearsal(chunked: bool):
 
 
 def phase_serve_priority(params) -> None:
-    """Preemption at Llama-2-7B width (bf16, random weights from seed 0):
-    a ContinuousWorker of 8 rows over a 256-block pool, chunk_steps 8,
+    """Preemption at Llama-2-7B width and ``CUT_LAYERS`` deep (bf16,
+    random weights from seed 0, their first 8 layers): a ContinuousWorker
+    of 8 rows over a 256-block pool, chunk_steps 8,
     group_chunks 2, prewarmed, split and chunked (128). 8 batch-class
     requests (64 new tokens) fill the rows; after the worker's second
     ``run_once`` 4 interactive ones arrive (64-200 tokens, 32 new), each
@@ -3983,9 +4294,10 @@ def phase_serve_priority(params) -> None:
     from llmss_tpu_torch.serve.broker import InProcBroker
     from llmss_tpu_torch.serve.consumer import ContinuousWorker
 
-    cfg = DecoderConfig(**LLAMA2_7B)
-    eng = DecodeEngine(cfg, params, max_seq_len=1024, kv_layout="paged",
-                       block_size=16, kv_blocks=256)
+    cfg = DecoderConfig(**dict(LLAMA2_7B, n_layers=CUT_LAYERS))
+    eng = DecodeEngine(cfg, _first_layers(params, CUT_LAYERS),
+                       max_seq_len=1024, kv_layout="paged", block_size=16,
+                       kv_blocks=256)
     inter_lens, requests = _priority_requests(cfg)
     workers, warm = {}, {}
     for chunked in (False, True):
@@ -4228,7 +4540,7 @@ def phase_serve_roles(params, unified: dict) -> None:
                             block_size=16, kv_blocks=blocks)
 
     peng, deng = engine(), engine()
-    steps = (_count_steps(peng), _count_steps(deng))
+    steps = (count_steps(peng), count_steps(deng))
     prefills = []
     prefill = peng._prefill
 
@@ -4592,14 +4904,14 @@ def phase_serve_fleet(params, smi: str) -> None:
     from llmss_tpu_torch.engine.metrics import EngineMetrics, LatencyStat
     from llmss_tpu_torch.models.common import DecoderConfig
 
-    cfg = DecoderConfig(**dict(LLAMA2_7B, n_layers=HALF_LAYERS))
-    params = _first_layers(params, HALF_LAYERS)
+    cfg = DecoderConfig(**dict(LLAMA2_7B, n_layers=CUT_LAYERS))
+    params = _first_layers(params, CUT_LAYERS)
     L = cfg.n_layers
     engines = {wid: DecodeEngine(cfg, params, max_seq_len=1024,
                                  kv_layout="paged", block_size=16,
                                  kv_blocks=FLEET_BLOCKS)
                for wid in ("w0", "w1")}
-    steps = {wid: _count_steps(eng) for wid, eng in engines.items()}
+    steps = {wid: count_steps(eng) for wid, eng in engines.items()}
     prefills = []
     for eng in engines.values():
         def counted(ids, cache, lens, sa, start=None, prefill=eng._prefill):
@@ -5145,7 +5457,7 @@ def _promote_vs_build(eng) -> dict:
 
 
 def phase_serve_tiers() -> None:
-    """The tiered KV store at Llama-2-7B width and ``HALF_LAYERS`` deep
+    """The tiered KV store at Llama-2-7B width and ``CUT_LAYERS`` deep
     on an engine of serve_continuous's seed (0) and settings (bf16, max_seq_len
     1024, 256 blocks of 16), ContinuousWorkers of 8
     rows, chunk_steps 8, group_chunks 2, a prefix LRU of two, prewarmed.
@@ -5170,7 +5482,7 @@ def phase_serve_tiers() -> None:
     t_phase = t = time.perf_counter()
     rehearsal = _tiers_rehearsal()
     rehearsal_s = time.perf_counter() - t
-    cfg = DecoderConfig(**dict(LLAMA2_7B, n_layers=HALF_LAYERS))
+    cfg = DecoderConfig(**dict(LLAMA2_7B, n_layers=CUT_LAYERS))
     eng = DecodeEngine(cfg, init_params(cfg, seed=0), max_seq_len=1024,
                        kv_layout="paged", block_size=16, kv_blocks=256)
     prefills = []
@@ -5382,7 +5694,7 @@ def phase_speculative(kernels: dict) -> None:
     from llmss_tpu_torch.ops import decode_attention as da
     from llmss_tpu_torch.ops import flash_attention as fa
 
-    cfg = DecoderConfig(**dict(LLAMA2_7B, n_layers=HALF_LAYERS))
+    cfg = DecoderConfig(**dict(LLAMA2_7B, n_layers=CUT_LAYERS))
     L, B, chunk = cfg.n_layers, SPEC_BATCH, 8
     eng = DecodeEngine(cfg, init_params(cfg, seed=0), max_seq_len=1024)
     rng = np.random.default_rng(21)
@@ -5638,7 +5950,7 @@ def phase_int8(params, kernels: dict, bf16: dict) -> None:
 
     peng = DecodeEngine(cfg, params, max_seq_len=1024, kv_layout="paged",
                         block_size=16, kv_blocks=496, kv_dtype="int8")
-    steps = _count_steps(peng)
+    steps = count_steps(peng)
     _, requests = _serve_requests(cfg)
     worker = ContinuousWorker(peng, InProcBroker(), rows=8, chunk_steps=8,
                               group_chunks=2, chunked_prefill=128)
@@ -5683,10 +5995,10 @@ STARCODER_HF = {  # bigcode/starcoder config.json
     "activation_function": "gelu_pytorch_tanh", "layer_norm_epsilon": 1e-05,
 }
 MODEL_NEW = 32  # new tokens per request in the model phases' serving passes
-# The model phases' depth: a quarter of the published configs' 28 and 40
-# layers, so that the run with the mesh phases fits its time limit
-# (PERF.md).
-MODEL_DEPTH = {"gptj_6b": 7, "starcoder": 10}
+# The model phases' depth: an eighth of the published configs' 28 and 40
+# layers (rounded up), so that the run with the mesh phases fits its time
+# limit (PERF.md).
+MODEL_DEPTH = {"gptj_6b": 4, "starcoder": 5}
 POOL_BYTES = 256 * 16 * 524288  # the serve_continuous phase's bf16 pool
 
 
@@ -5812,7 +6124,7 @@ def phase_model(name: str, hf: dict, kernels: dict, seed: int) -> None:
     blocks = POOL_BYTES // (16 * kv_token)
     peng = DecodeEngine(cfg, params, max_seq_len=1024, kv_layout="paged",
                         block_size=16, kv_blocks=blocks)
-    steps = _count_steps(peng)
+    steps = count_steps(peng)
     lens, requests = _serve_requests(cfg, new=MODEL_NEW)
     counts = {}
     for chunked in (False, True):
@@ -6803,7 +7115,7 @@ def phase_serve_telemetry(params, smi: str, cfg=None, dev=None) -> None:
     _telemetry_reset()
     trace.set_enabled(True)
     eng = make_engine()
-    steps = _count_steps(eng)
+    steps = count_steps(eng)
     broker = InProcBroker()
     t = time.perf_counter()
     workers = {c: make_worker(eng, broker, c, poll_timeout_s=0.0)
@@ -7033,6 +7345,12 @@ def main(argv=None) -> int:
     # The mesh last: its worlds need the card's memory, and its mesh of one
     # rank is this process's only process group.
     timed(phase_parallel, bf16, kernels, smi)
+    # Serving on the mesh: this process's passes and an NCCL mesh of one,
+    # then a tp 2 world alone on the card. (Beside the parallel phase's
+    # worlds, the ranks' weight draws outgrew the card's memory.)
+    gc.collect()
+    torch.cuda.empty_cache()
+    timed(phase_serve_parallel, kernels, smi)
     emit({"phase": "seconds", "order": order, "by_phase": PHASE_SECONDS,
           "main_s": time.perf_counter() - t_main})
     rows = []
@@ -7080,6 +7398,20 @@ def main(argv=None) -> int:
         ("K2_state", "decode_attention_state",
          "llmss_tpu_torch/csrc/decode_attention.cu",
          "llmss_tpu/ops/pallas_decode.py:181"),
+        # Serving on the mesh: K3 and K4 at the KV heads of a tp 2 rank's
+        # pool, bf16 and int8 (the same instantiations, at half the heads).
+        ("K3_tp", "paged_decode_attention (tp-local heads)",
+         "llmss_tpu_torch/csrc/paged_attention.cu",
+         "llmss_tpu/ops/pallas_paged_decode.py:160"),
+        ("K4_tp", "ragged_paged_attention (tp-local heads)",
+         "llmss_tpu_torch/csrc/paged_attention.cu",
+         "llmss_tpu/ops/pallas_ragged.py:220"),
+        ("K3_tp_int8", "paged_decode_attention (int8 pool, tp-local heads)",
+         "llmss_tpu_torch/csrc/paged_attention.cu",
+         "llmss_tpu/ops/attention.py:352"),
+        ("K4_tp_int8", "ragged_paged_attention (int8 pool, tp-local heads)",
+         "llmss_tpu_torch/csrc/paged_attention.cu",
+         "llmss_tpu/ops/pallas_ragged.py:144"),
     ):
         k = kernels[name]
         rows.append({

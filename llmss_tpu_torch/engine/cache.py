@@ -34,7 +34,11 @@ so no paged write waits on the device, and nothing ever reads block ``N``.
 
 On a mesh each rank holds its part of the dense ring (``mesh_layout``:
 rows over dp, ring chunks over sp, KV heads over tp), with global slots
-``[c * T_local, (c + 1) * T_local)`` on sp rank ``c``.
+``[c * T_local, (c + 1) * T_local)`` on sp rank ``c``; and of the paged
+pool its KV heads over tp (``init_paged_cache(mesh=)``,
+``parallel.sharding.paged_cache_specs``): every block, so block ids,
+tables and positions are the same on every rank, and ``seed_blocks`` /
+``import_blocks`` write a segment of the rank's heads.
 
 The int8 cache (``dtype=torch.int8``, the reference's ``kv_dtype="int8"``)
 stores K and V quantized per (token, head) over the head dim, with fp32
@@ -266,13 +270,17 @@ def init_paged_cache(
     *, n_layers: int, batch: int, max_len: int, n_kv_heads: int,
     head_dim: int, dtype: torch.dtype, device: torch.device,
     block_size: int = 16, num_blocks: int | None = None,
-    identity_tables: bool = True,
+    identity_tables: bool = True, mesh=None,
 ) -> PagedKVCache:
     """Zeroed paged cache (with zeroed scales for ``dtype=torch.int8``).
     ``identity_tables=True`` maps row ``b`` to blocks ``[b*MB, (b+1)*MB)``
     (the engine's own generate paths, no allocator); the scheduler passes
     False and drives the all-sentinel tables from its
-    ``BlockAllocator``."""
+    ``BlockAllocator``. ``n_kv_heads`` is the model's; on a ``mesh`` the
+    pool holds the rank's share of them (cache.py:246-270)."""
+    from llmss_tpu_torch.parallel.sharding import local_kv_heads
+
+    n_kv_heads = local_kv_heads(n_kv_heads, mesh)
     if max_len % block_size:
         raise ValueError(
             f"max_len {max_len} must be a multiple of block_size {block_size}"
@@ -377,7 +385,9 @@ def seed_blocks(cache: PagedKVCache, prefix, block_ids: torch.Tensor) -> None:
     reference's ``_seed_blocks_impl``, scheduler.py:370): the first
     ``nf * bs`` tokens of ``prefix``'s segment (k, v and, int8, their
     scales, as stored), block by block, at ``block_ids`` [nf]. Rows
-    reference these blocks through their tables and never write them."""
+    reference these blocks through their tables and never write them. On
+    a mesh the prefix was built on this rank and holds its KV heads, as
+    the pool does."""
     bs = cache.block_size
     nf = block_ids.shape[0]
     idx = block_ids.long()
@@ -564,6 +574,12 @@ class BlockAllocator:
                     self._free_list.append(b)
                     released += 1
         return released
+
+    def state(self) -> tuple[list[int], list[tuple[int, int]]]:
+        """(the free list in order, the (block, refcount) pairs sorted):
+        what two allocators that made the same calls hold alike."""
+        with self._lock:
+            return list(self._free_list), sorted(self._refs.items())
 
     def refcount(self, block: int) -> int:
         with self._lock:

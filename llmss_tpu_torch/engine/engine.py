@@ -49,10 +49,14 @@ runs inside ``observer().warming()`` and ends with ``mark_steady``.
 On a mesh (``mesh=``, parallel/mesh.py; engine.py:144-159, :668-712) each
 rank runs this engine SPMD over its parameter shard
 (``parallel.sharding.shard_params`` or ``load_model(mesh=)``) and its part
-of the dense cache (``engine/cache.mesh_layout``): dp ranks take their
-rows when dp divides the batch and ``generate`` all-gathers the tokens
-over dp, so every rank returns the whole batch; under a sequence-sharded
-ring nothing is bucketed. Sampling needs no new state: each row draws
+of the cache: of the dense ring (``engine/cache.mesh_layout``), or of the
+paged pool (its KV heads over tp, the pool whole on every dp replica:
+``parallel.sharding.paged_cache_specs``). dp ranks take their rows of a
+``generate`` batch when dp divides it and the tokens are all-gathered
+over dp, so every rank returns the whole batch; the continuous batcher
+(engine/scheduler.py) runs every row on every dp replica. Under a
+sequence-sharded ring nothing is bucketed, and the paged layout is
+refused (the reference's ``ValueError``). Sampling needs no new state: each row draws
 from its own seed and position, so a dp rank's rows draw what they would
 in the whole batch, and the tp / sp ranks of a row, holding the same
 logits, draw the same tokens. Under NCCL the step graphs are captured
@@ -60,9 +64,8 @@ as without a mesh (a collective over two or more ranks inside a capture
 is unverified until a run on two or more cards); under gloo (which
 cannot be captured) every step runs eagerly and ``prewarm`` captures
 nothing. On a mesh of more than one rank
-the paged layout, ``generate_speculative``, shared prefixes and the int8
-cache under sp > 1 raise ``NotImplementedError`` (ROADMAP's next mesh
-slice).
+``generate_speculative``, and shared prefixes and the int8 cache under
+sp > 1, raise ``NotImplementedError`` (ROADMAP's next mesh slice).
 
 ``generate_speculative`` (engine/speculative.py) is greedy generation
 with prompt-lookup speculation: each step verifies a drafted window of
@@ -96,7 +99,7 @@ from llmss_tpu_torch.models.decoder import (
 )
 from llmss_tpu_torch.ops._build import check_head_dim
 from llmss_tpu_torch.ops.sampling import fold_step_outcome, sample
-from llmss_tpu_torch.parallel.mesh import AXIS_DP
+from llmss_tpu_torch.parallel.mesh import AXIS_DP, AXIS_SP
 from llmss_tpu_torch.parallel.sharding import all_gather, check_tp
 from llmss_tpu_torch.utils import devtel
 from llmss_tpu_torch.utils.signatures import signature, signature_str
@@ -225,8 +228,10 @@ class DecodeEngine:
             self._seq_sharded = mesh_layout(
                 mesh, batch=1, max_len=self.max_seq_len,
                 n_kv_heads=cfg.n_kv_heads).seq_sp
-            if mesh.world > 1 and kv_layout == "paged":
-                self._next_mesh_slice("the paged layout")
+            if kv_layout == "paged" and mesh.shape[AXIS_SP] > 1:
+                raise ValueError(
+                    "kv_layout='paged' does not support sp > 1 meshes "
+                    "(the sequence axis is block-indirected per row)")
             if self._seq_sharded and kv_dtype == "int8":
                 self._next_mesh_slice("an int8 cache under sp > 1")
         if (
@@ -267,9 +272,12 @@ class DecodeEngine:
             f"{what} on a mesh of {self.mesh.world} ranks is the next mesh "
             "slice (ROADMAP, Queue 1 item 8)")
 
-    def _mesh_check(self, what: str) -> None:
-        """Refuse a path the mesh does not run yet."""
-        if self.mesh is not None and self.mesh.world > 1:
+    def _mesh_check(self, what: str, axis: str | None = None) -> None:
+        """Refuse a path the mesh does not run yet: on a mesh of more than
+        one rank, or (``axis``) one whose ``axis`` has more than one."""
+        if self.mesh is None:
+            return
+        if (self.mesh.world if axis is None else self.mesh.shape[axis]) > 1:
             self._next_mesh_slice(what)
 
     def _ring_len(self, cache) -> int:
@@ -278,11 +286,9 @@ class DecodeEngine:
         return self.max_seq_len if self._seq_sharded else cache.max_len
 
     def _fwd(self, ids, positions, cache, slots, **kw):
-        """``forward`` over this engine's layers, on its mesh (a paged
-        cache only on a mesh of one rank, which needs no collective)."""
-        mesh = self.mesh if isinstance(cache, KVCache) else None
+        """``forward`` over this engine's layers, on its mesh."""
         return forward(self.cfg, self.params, ids, positions, cache, slots,
-                       layers=self._layers, mesh=mesh,
+                       layers=self._layers, mesh=self.mesh,
                        seq_sharded=self._seq_sharded, **kw)
 
     def _dp_rows(self, batch: int) -> tuple[int, int] | None:
@@ -384,7 +390,8 @@ class DecodeEngine:
         maps row b to blocks [b*MB, (b+1)*MB) of a full pool;
         ``identity=False`` (the batcher) starts every table at the sentinel
         over a pool of ``num_blocks`` (default: ``kv_blocks``, else the
-        dense equivalent)."""
+        dense equivalent). On a mesh the pool holds this rank's KV heads
+        and every block."""
         if num_blocks is None and not identity:
             num_blocks = self.kv_blocks
         return init_paged_cache(
@@ -392,7 +399,7 @@ class DecodeEngine:
             max_len=self.max_seq_len, n_kv_heads=self.cfg.n_kv_heads,
             head_dim=self.cfg.head_dim, dtype=self._cache_dtype,
             device=self.device, block_size=self.block_size,
-            num_blocks=num_blocks, identity_tables=identity,
+            num_blocks=num_blocks, identity_tables=identity, mesh=self.mesh,
         )
 
     def _generate_cache(self, batch: int) -> KVCache | PagedKVCache:
@@ -662,7 +669,7 @@ class DecodeEngine:
         kv_pos = torch.where(live, positions, -1)
         logits, _ = forward_ragged(
             self.cfg, self.params, ids, positions, cache, slots, q_lens,
-            kv_write_positions=kv_pos, layers=self._layers,
+            kv_write_positions=kv_pos, layers=self._layers, mesh=self.mesh,
         )
         tok = sample(logits[:, 0], counters=cur_pos + q_lens, **sample_args)
         tok, done2, poisoned = fold_step_outcome(
@@ -771,8 +778,10 @@ class DecodeEngine:
         bucket's padded length ``Pb`` (pad slots carry no positions); an
         int8 engine keeps it quantized. On a paged engine the row's identity
         table maps slot ``s`` to block ``s // bs``: its first
-        ``ceil(Pb / bs)`` blocks unfold into the dense segment."""
-        self._mesh_check("a shared prefix")
+        ``ceil(Pb / bs)`` blocks unfold into the dense segment. On a mesh
+        every rank calls it (a prefill), and the segment holds the rank's
+        KV heads."""
+        self._mesh_check("a shared prefix", AXIS_SP)
         P = len(token_ids)
         if not 0 < P < self.max_seq_len:
             raise ValueError(
@@ -831,7 +840,7 @@ class DecodeEngine:
         the tokens are all-gathered over dp: every rank returns the whole
         batch."""
         if prefix is not None:
-            self._mesh_check("a shared prefix")
+            self._mesh_check("a shared prefix", AXIS_SP)
         rows = self._dp_rows(len(prompts))
         if rows is None:
             return self._generate(
@@ -854,7 +863,7 @@ class DecodeEngine:
             cancel_poll=None if cancel_poll is None else local_cancel,
             chunk_steps=chunk_steps,
             live_rows=None if live_rows is None else
-            max(0, min(live_rows, hi) - lo))
+            max(0, min(live_rows, hi) - lo), prefix=prefix)
         return self._gather_rows(out)
 
     def _generate(

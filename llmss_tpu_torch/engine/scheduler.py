@@ -90,11 +90,21 @@ bytes. The flight recorder gets the reference's events: ``sched_submit``,
 the throttled ``group_dispatch`` / ``group_fetch``.
 
 The ragged group runs eagerly.
+
+On a mesh (parallel/serving.py) every rank runs its own batcher over its
+shard of the model and the pool, and rank 0 leads: with ``control`` set
+(``ServeControl.attach``), ``submit`` and ``cancel`` hand their events to
+the control instead of the queue, ``step`` first broadcasts them and
+applies them on every rank, and ``host_digest`` fingerprints the host
+state the ranks must hold alike. Every decision of the batcher is a
+function of those events and of the groups' tokens, which are the same
+on every rank; clocks are read for metrics and tracing only.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import threading
 import time
 from collections import deque
@@ -108,7 +118,8 @@ from llmss_tpu_torch.engine.cache import (
     seed_blocks, table_sentinel,
 )
 from llmss_tpu_torch.engine.engine import (
-    DecodeEngine, GenerationParams, _bucket, _sync, to_device, variant_params,
+    DecodeEngine, GenerationParams, Prefix, _bucket, _sync, to_device,
+    variant_params,
 )
 from llmss_tpu_torch.engine.graphs import SAMPLING_VARIANTS
 from llmss_tpu_torch.utils import devtel, trace
@@ -258,6 +269,9 @@ class ContinuousBatcher:
         # swallows them); read by the chip smoke run, which wants 0.
         self.park_failures = 0
         self._paged = engine.kv_layout == "paged"
+        if not self._paged:
+            engine._mesh_check("a dense continuous batcher under sp > 1",
+                               "sp")
         if self._paged:
             mb = engine.max_seq_len // engine.block_size
             n_blocks = engine.kv_blocks or rows * mb
@@ -293,6 +307,9 @@ class ContinuousBatcher:
         self._last_fetch_t: float | None = None
         self._devtel_last_t = float("-inf")
         self._lock = threading.Lock()
+        # The mesh's leader: parallel/serving.py's ServeControl (None in one
+        # process, and on a follower, whose batcher the control drives).
+        self.control = None
 
     def _dev(self, arr) -> torch.Tensor:
         return to_device(arr, self.engine.device)
@@ -492,7 +509,10 @@ class ContinuousBatcher:
         not depend on a prefix, so it warms nothing more. With devtel on it
         prices every group signature the live path can pick (both (chunks,
         steps) combinations at every bucket, and the ragged step counts)
-        and marks the steady state at the end."""
+        and marks the steady state at the end. With a ``control`` the
+        mesh's followers prewarm with it."""
+        if self.control is not None:
+            self.control.lead("prewarm", args=(seq_buckets, prefix_prefill))
         with devtel.observer().warming():
             n = self._prewarm(seq_buckets)
         if devtel.enabled():
@@ -575,14 +595,20 @@ class ContinuousBatcher:
         resumes a preempted request: the last ``replayed`` entries of
         ``token_ids`` are tokens it already emitted, preloaded into its
         output (not streamed again), and ``gen.max_new_tokens`` counts the
-        remaining tokens only."""
+        remaining tokens only. With a ``control`` (a mesh's leader)
+        ``prefix`` is taken by its token ids (a tuple, or a ``Prefix``'s):
+        every rank builds it when the event is applied, and the event
+        waits for the next ``step``."""
         gen.validate()
         if replayed and not 0 < replayed < len(token_ids):
             raise ValueError(
                 f"replayed={replayed} must be in [0, len(token_ids))")
         if prefix is not None:
-            P = prefix.length
-            if len(token_ids) <= P or tuple(token_ids[:P]) != prefix.tokens:
+            if self.control is not None and isinstance(prefix, Prefix):
+                prefix = prefix.tokens
+            ptoks = prefix.tokens if isinstance(prefix, Prefix) else prefix
+            P = len(ptoks)
+            if len(token_ids) <= P or tuple(token_ids[:P]) != ptoks:
                 raise ValueError(
                     "token_ids does not extend the prefix (needs its "
                     f"{P} tokens plus at least one more)"
@@ -594,14 +620,21 @@ class ContinuousBatcher:
                 prefix = None
         # A near-capacity row would wrap its ring mid-group.
         self.engine.check_capacity(len(token_ids), gen.max_new_tokens)
+        item = (req_id, list(token_ids), gen, done_cb, stream_cb,
+                time.perf_counter(), prefix, priority, replayed)
+        if self.control is not None:
+            self.control.intake(item)
+        else:
+            self.enqueue(item)
+
+    def enqueue(self, item) -> None:
+        """Queue a validated submission (``submit``'s tuple, its prefix a
+        ``Prefix`` or None)."""
         with self._lock:
-            self.pending.append(
-                (req_id, list(token_ids), gen, done_cb, stream_cb,
-                 time.perf_counter(), prefix, priority, replayed)
-            )
+            self.pending.append(item)
             depth = len(self.pending)
-        if req_id:
-            trace.record(req_id, "sched_submit", queued=depth)
+        if item[0]:
+            trace.record(item[0], "sched_submit", queued=depth)
 
     # -- scheduling ---------------------------------------------------------
 
@@ -1028,7 +1061,15 @@ class ContinuousBatcher:
     def cancel(self, req_id: str) -> None:
         """Mark a request cancelled (thread-safe); the next ``step()``
         frees its row or drops it from the queue, and its ``done_cb``
-        fires with the tokens produced so far."""
+        fires with the tokens produced so far. With a ``control`` the
+        cancel waits for the next ``step``'s broadcast."""
+        if self.control is not None:
+            self.control.intake_cancel(req_id)
+        else:
+            self.mark_cancelled(req_id)
+
+    def mark_cancelled(self, req_id: str) -> None:
+        """Mark a cancel (``cancel``'s effect, applied now)."""
         with self._lock:
             self._cancelled.add(req_id)
 
@@ -1054,6 +1095,8 @@ class ContinuousBatcher:
         """Every request id this batcher holds, pending or active."""
         with self._lock:
             ids = [item[0] for item in self.pending]
+        if self.control is not None:
+            ids += self.control.queued_ids()
         return ids + [r.req_id for r in self.active.values()]
 
     def load_snapshot(self) -> dict:
@@ -1220,8 +1263,50 @@ class ContinuousBatcher:
         )
         return ids, qlens, feed, emit, firsts
 
-    @torch.inference_mode()
+    def host_digest(self) -> str:
+        """The sha256 of the host state the ranks of a mesh must hold alike
+        after every step (parallel/serving.py): the queue's and the
+        cancel set's ids, the free rows, each active row's request, token
+        count, last token and phase, the prompt tokens left in flight,
+        and, paged, the host block tables, the allocator's free list and
+        refcounts and the prefix registry (each prefix's tokens and
+        blocks). Its cost does not grow with the tokens a row holds."""
+        h = hashlib.sha256()
+
+        def put(x) -> None:
+            h.update(repr(x).encode())
+
+        with self._lock:
+            put([item[0] for item in self.pending])
+            put(sorted(self._cancelled))
+            put(self._free)
+        put([(row, r.req_id, len(r.out), r.out[-1] if r.out else None,
+               r.awaiting_first, r.priority)
+              for row, r in sorted(self.active.items())])
+        put(sorted((row, len(toks))
+                   for row, toks in self._inflight_prefill.items()))
+        if self._paged:
+            h.update(self._host_tables.tobytes())
+            free, refs = self.allocator.state()
+            h.update(np.asarray(free, np.int64).tobytes())
+            h.update(np.asarray(refs, np.int64).tobytes())
+            put([(pfx.tokens, blocks)
+                 for pfx, blocks in self._paged_prefixes.values()])
+        return h.hexdigest()
+
     def step(self) -> int:
+        """One iteration of the pipelined loop (``_step``); with a
+        ``control``, the events since the last step are broadcast to the
+        mesh and applied on every rank first."""
+        if self.control is None:
+            return self._step()
+        self.control.before_step(self)
+        n = self._step()
+        self.control.after_step(self)
+        return n
+
+    @torch.inference_mode()
+    def _step(self) -> int:
         """One iteration of the pipelined loop:
 
         1. enqueue group N+1 from the device-resident state;
@@ -1360,6 +1445,8 @@ class ContinuousBatcher:
 
     @property
     def idle(self) -> bool:
+        if self.control is not None and self.control.has_events():
+            return False
         with self._lock:
             return (
                 not self.active and not self.pending

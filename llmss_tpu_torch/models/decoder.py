@@ -39,7 +39,11 @@ row's block table:
   deferred write; logits come from each row's last live column.
 
 Pool, positions and tables are updated in place, where the reference
-donates them.
+donates them. On a mesh both take ``mesh=`` as ``forward`` does (tp: the
+rank's heads, the row-parallel sums and the vocab-parallel embedding and
+head; the pool holds the rank's KV heads, ``paged_cache_specs``), and K3
+/ K4 run at the rank's local heads; the reference refuses the pool under
+sp > 1 (engine.py:152-159), and so does the port.
 
 Over an int8 cache (``cache.quantized``, decoder.py:597-778, :1029-1060,
 :1222-1292) decode and ragged steps hand the raw int8 cache and its scales
@@ -373,12 +377,10 @@ def forward(
     clears it before every prefill and refuses shared prefixes on a
     mesh)."""
     if isinstance(cache, PagedKVCache):
-        if mesh is not None:
-            raise NotImplementedError("the paged pool on a mesh")
         return forward_paged(
             cfg, params, input_ids, positions, cache, slots,
             gather_idx=gather_idx, kv_write_positions=kv_write_positions,
-            t_bucket=t_bucket, layers=layers,
+            t_bucket=t_bucket, layers=layers, mesh=mesh,
         )
     if seq_sharded and cache.quantized:
         raise NotImplementedError("an int8 cache under sp > 1")
@@ -389,10 +391,7 @@ def forward(
         kv_write_positions = positions
     scale, window = cfg.attn_scale, cfg.sliding_window
     sp = mesh.size(AXIS_SP) if seq_sharded else 1
-    reduce = None
-    if mesh is not None and mesh.size(AXIS_TP) > 1:
-        def reduce(x):
-            return psum(x, mesh, AXIS_TP)
+    reduce = _tp_reduce(mesh)
     # Under sp the cache holds global ring slots [off, off + C): local
     # slots out of [0, C) are another rank's, and every write site drops
     # them.
@@ -478,6 +477,18 @@ def forward(
     return _head_out(cfg, params, h, gather_idx, mesh, ring, q_off), cache
 
 
+def _tp_reduce(mesh):
+    """The row-parallel products' sum over tp (``_block``'s ``reduce``),
+    or None without tp."""
+    if mesh is None or mesh.size(AXIS_TP) == 1:
+        return None
+
+    def reduce(x):
+        return psum(x, mesh, AXIS_TP)
+
+    return reduce
+
+
 def _int8_prefill_attend(cache: KVCache, layer: int, q, k, v, positions,
                          slots, scale, window):
     """Prefill attention over an int8 layer: a compute-dtype copy of the
@@ -534,6 +545,7 @@ def forward_paged(
     kv_write_positions: torch.Tensor | None = None,
     t_bucket: int | None = None,
     layers: list[Params] | None = None,
+    mesh=None,  # parallel.mesh.Mesh (no sp): this rank's view
 ) -> tuple[torch.Tensor, PagedKVCache]:
     """``forward`` over the paged block pool (counterpart:
     ``_forward_paged``, decoder.py:871). ``t_bucket`` rounds up to whole
@@ -542,7 +554,8 @@ def forward_paged(
         layers = unstack_layers(params)
     B, S = input_ids.shape
     bs = cache.block_size
-    h = _embed_in(cfg, params, input_ids, positions)
+    reduce = _tp_reduce(mesh)
+    h = _embed_in(cfg, params, input_ids, positions, mesh)
     if kv_write_positions is None:
         kv_write_positions = positions
     sin_cos = _rope_tables(cfg, positions)
@@ -561,7 +574,7 @@ def forward_paged(
                     v_scale=cache.v_scale,
                 )
 
-            h, k, v = _block(cfg, bp, h, positions, sin_cos, attend)
+            h, k, v = _block(cfg, bp, h, positions, sin_cos, attend, reduce)
             fresh_k.append(k)
             fresh_v.append(v)
         _pool_write(cache, fresh_k, fresh_v, slots)
@@ -604,8 +617,8 @@ def forward_paged(
                     scale=scale, window=window,
                 )
 
-            h, _, _ = _block(cfg, bp, h, positions, sin_cos, attend)
-    return _head_out(cfg, params, h, gather_idx), cache
+            h, _, _ = _block(cfg, bp, h, positions, sin_cos, attend, reduce)
+    return _head_out(cfg, params, h, gather_idx, mesh), cache
 
 
 def forward_ragged(
@@ -619,6 +632,7 @@ def forward_ragged(
     *,
     kv_write_positions: torch.Tensor | None = None,  # [B, CB]; -1 = no write
     layers: list[Params] | None = None,
+    mesh=None,  # parallel.mesh.Mesh (no sp): this rank's view
 ) -> tuple[torch.Tensor, PagedKVCache]:
     """Mixed prefill+decode forward over the pool (counterpart:
     decoder.py:1159): kernel K4 attends each row's chunk against the stale
@@ -628,7 +642,8 @@ def forward_ragged(
     its first token, a decode row its next one."""
     if layers is None:
         layers = unstack_layers(params)
-    h = _embed_in(cfg, params, input_ids, positions)
+    reduce = _tp_reduce(mesh)
+    h = _embed_in(cfg, params, input_ids, positions, mesh)
     if kv_write_positions is None:
         kv_write_positions = positions
     sin_cos = _rope_tables(cfg, positions)
@@ -644,9 +659,9 @@ def forward_ragged(
                 window=window, k_scale=cache.k_scale, v_scale=cache.v_scale,
             )
 
-        h, k, v = _block(cfg, bp, h, positions, sin_cos, attend)
+        h, k, v = _block(cfg, bp, h, positions, sin_cos, attend, reduce)
         fresh_k.append(k)
         fresh_v.append(v)
     _pool_write(cache, fresh_k, fresh_v, slots)
     write_slots(cache.positions, slots, kv_write_positions)
-    return _head_out(cfg, params, h, q_lens - 1), cache
+    return _head_out(cfg, params, h, q_lens - 1, mesh), cache

@@ -3,8 +3,10 @@ llmss_tpu/parallel/).
 
 ``mesh.py`` builds a rank's view of a ``dp x sp x tp`` plan and joins the
 process group; ``sharding.py`` holds the parameter specs, the rank's
-slices and the collectives; ``launch.py`` spawns a world of ranks in one
-host; ``smoke.py`` is the two-process smoke run
+slices and the collectives (and the paged pool's layout);
+``serving.py`` carries the serving ranks' control plane (rank 0 leads);
+``launch.py`` spawns a world of ranks in one host; ``smoke.py`` is the
+two-process smoke run
 (``python -m llmss_tpu_torch.parallel.smoke``).
 """
 

@@ -87,6 +87,33 @@ def param_specs(cfg, tp: int) -> Params:
     return specs
 
 
+def paged_cache_specs(n_kv_heads: int, tp: int, *, quantized: bool = False):
+    """The paged pool's layout on a mesh (the reference's
+    ``paged_cache_specs``, llmss_tpu/engine/cache.py:246-270): a
+    ``PagedKVCache`` holding, for each field, the dimension a tp rank
+    slices (or None: replicated). The pool ``[L, N + 1, bs, Hkv, D]`` and
+    an int8 pool's scales ``[L, N + 1, bs, Hkv]`` shard their KV heads
+    (dim 3) over tp when tp divides them (``tp_head_plan``'s KV rule) and
+    replicate otherwise (MQA's one KV head); block ids are global, so the
+    pool replicates over dp; tables and positions replicate."""
+    from llmss_tpu_torch.engine.cache import PagedKVCache
+    from llmss_tpu_torch.ops.attention import tp_head_plan
+
+    head = 3 if tp_head_plan(n_kv_heads, n_kv_heads, tp)[0] else None
+    scale = head if quantized else None
+    return PagedKVCache(k=head, v=head, block_tables=None, positions=None,
+                        k_scale=scale, v_scale=scale)
+
+
+def local_kv_heads(n_kv_heads: int, mesh: Mesh | None) -> int:
+    """The KV heads a rank's paged pool holds (``paged_cache_specs``)."""
+    if mesh is None:
+        return n_kv_heads
+    tp = mesh.size(AXIS_TP)
+    return (n_kv_heads // tp if paged_cache_specs(n_kv_heads, tp).k
+            is not None else n_kv_heads)
+
+
 def shard_range(n: int, count: int, index: int, *, pad: bool = False
                 ) -> tuple[int, int, int]:
     """``(lo, hi, local)``: rank ``index`` of ``count`` holds rows

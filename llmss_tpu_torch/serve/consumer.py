@@ -67,8 +67,14 @@ publish records the broker's queue depths by class as a counter track
 (consumer.py:171-176, :557-576).
 
 ``main`` (``llmss-torch-consumer``) serves a checkpoint from a Redis
-broker on one GPU, optionally under the ``Supervisor``; there is no
-tokenizer, so requests carry ``token_ids``.
+broker on one GPU, optionally under the ``Supervisor``, or on a mesh
+(``--tp`` / ``--dp`` / ``--sp``, one process a rank under ``torchrun``,
+consumer.py:1166-1179): every rank loads its slices and steps the same
+batcher (or runs the same batches), and rank 0 alone holds the broker,
+registers and heartbeats in the fleet, publishes and answers
+(parallel/serving.py: a worker given a ``control`` leads, the other
+ranks ``follow``). There is no tokenizer, so requests carry
+``token_ids``.
 """
 
 from __future__ import annotations
@@ -97,6 +103,9 @@ from llmss_tpu_torch.utils import trace
 
 # How long an idle worker blocks on the queue before it looks again.
 POLL_TIMEOUT_S = 0.2
+# The prefixes a continuous worker keeps built (an LRU by their tokens; on
+# a mesh, the control's on every rank).
+MAX_PREFIXES = 4
 
 logger = logging.getLogger("llmss_tpu_torch.serve")
 
@@ -197,10 +206,14 @@ class Worker(_FleetMember):
         poll_timeout_s: float = POLL_TIMEOUT_S,
         worker_id: str | None = None,
         snapshot_interval_s: float = 1.0,
+        control=None,
     ):
         self.engine = engine
         self.broker = broker
         self.tokenizer = tokenizer
+        # A mesh's leader (parallel/serving.py): each batch, each chunk's
+        # cancellations and the prewarm go to every rank.
+        self.control = control
         self.batch_size = batch_size
         # Decode steps per host round-trip (engine.generate chunking).
         self.chunk_steps = chunk_steps
@@ -263,6 +276,8 @@ class Worker(_FleetMember):
         batch = self._gather()
         self.last_progress_ts = time.monotonic()
         if not batch:
+            if self.control is not None:
+                self.control.tick()
             return 0
         metrics = self.engine.metrics
         cancelled = self.broker.check_cancelled([r.id for r in batch])
@@ -324,13 +339,21 @@ class Worker(_FleetMember):
         poisoned_rows: set[int] = set()
         self._inflight_rows = n_live
         t_batch = time.monotonic()
+        if self.control is not None:
+            cancel_poll = self.control.lead_generate(
+                prompts, gens, self.chunk_steps, n_live, cancel_poll)
         try:
             outs = self.engine.generate(
                 prompts, gens, cancel_poll=cancel_poll,
                 on_increment=on_increment, on_poisoned=poisoned_rows.add,
                 chunk_steps=self.chunk_steps, live_rows=n_live,
-            )[:n_live]
+            )
+            if self.control is not None:
+                self.control.generated(outs)
+            outs = outs[:n_live]
         except Exception as e:  # noqa: BLE001 — batch failure containment
+            if self.control is not None:
+                raise  # the other ranks are inside this batch's collectives
             logger.exception("batch failed")
             metrics.add_error(len(ok))
             for req in ok:
@@ -376,7 +399,10 @@ class Worker(_FleetMember):
     def prewarm(self) -> int:
         """Warm the worker's whole envelope before it serves
         (consumer.py:208): every prompt bucket at the padded batch size and
-        every decode step graph of its chunked decode."""
+        every decode step graph of its chunked decode (on a mesh, every
+        rank)."""
+        if self.control is not None:
+            self.control.lead_prewarm(self.batch_size, self.chunk_steps)
         return self.engine.prewarm(self.batch_size,
                                    chunk_steps=self.chunk_steps)
 
@@ -403,9 +429,17 @@ class ContinuousWorker(_FleetMember):
         kvstore=None,
         worker_id: str | None = None,
         snapshot_interval_s: float = 1.0,
+        control=None,
     ):
         if role not in ROLES:
             raise ValueError(f"unknown worker role: {role!r}")
+        if control is not None:
+            for what, on in (("a prefill or decode role", role != "unified"),
+                             ("a tiered KV store", kvstore is not None)):
+                if on:
+                    raise NotImplementedError(
+                        f"{what} on a mesh is the next mesh slice (ROADMAP, "
+                        "Queue 1 item 8)")
         self.engine = engine
         self.broker = broker
         self.tokenizer = tokenizer
@@ -446,10 +480,15 @@ class ContinuousWorker(_FleetMember):
         # Prefixes built for requests' prefix_token_ids, keyed by their
         # tokens, least recently used first.
         self._prefixes: dict[tuple, object] = {}
-        self.max_prefixes = 4
+        self.max_prefixes = MAX_PREFIXES
         # The fleet identity: None keeps the worker out of the registry.
         self.worker_id = worker_id
         self.snapshot_interval_s = snapshot_interval_s
+        # A mesh's leader (parallel/serving.py): the batcher's events go to
+        # every rank, and prefixes are built there, by their tokens.
+        self.control = control
+        if control is not None:
+            control.attach(self.batcher, self.max_prefixes)
         if worker_id is not None:
             self.register()
 
@@ -578,8 +617,11 @@ class ContinuousWorker(_FleetMember):
                     # prefill as one prompt, and only the rest decodes.
                     ids = ids + resume
                     gen.max_new_tokens = req.max_new_tokens - len(resume)
-                prefix = (self._get_prefix(req.prefix_token_ids)
-                          if req.prefix_token_ids else None)
+                prefix = None
+                if req.prefix_token_ids and self.control is not None:
+                    prefix = tuple(req.prefix_token_ids)  # built on every rank
+                elif req.prefix_token_ids:
+                    prefix = self._get_prefix(req.prefix_token_ids)
                 if (prefix is None and req.session_id
                         and self.kvstore is not None):
                     # A parked earlier turn seeds the row when its tokens
@@ -816,18 +858,30 @@ class ContinuousWorker(_FleetMember):
             self.run_once()
 
 
-# Flags of the reference's consumer that belong to later slices: the one
-# value each may keep here, and what the port lacks for the others. The
-# dense engine runs on a mesh (parallel/, the CLI); serving on one, with
-# rank 0 on the broker and the plan broadcast to the other ranks, is the
-# next mesh slice (ROADMAP, Queue 1 item 8).
-_ON_ONE_GPU = ("the serving workers run one model on one GPU; serving on a "
-               "mesh is the next mesh slice (the CLI's generate runs on one)")
-_LATER_FLAGS = {
-    "tp": (1, _ON_ONE_GPU),
-    "dp": (1, _ON_ONE_GPU),
-    "sp": (1, _ON_ONE_GPU),
-}
+def refuse_on_mesh(args) -> None:
+    """What a mesh of more than one rank does not serve yet: raises
+    ``NotImplementedError`` naming ROADMAP Queue 1 item 8. (Paged under
+    sp > 1 is the engine's ``ValueError``, as in the reference.)"""
+    for what, on in (
+            (f"--role {args.role}", args.role != "unified"),
+            ("--kv_tier_host_mb", args.kv_tier_host_mb is not None),
+            ("--supervise", args.supervise),
+            ("a dense continuous batcher under sp > 1",
+             args.continuous and args.kv_layout == "dense"
+             and (args.sp or 1) > 1)):
+        if on:
+            raise NotImplementedError(
+                f"{what} on a mesh is the next mesh slice (ROADMAP, Queue 1 "
+                "item 8)")
+
+
+def _on_mesh(args) -> bool:
+    """Whether this process is one rank of a mesh: a mesh flag, an explicit
+    rendezvous or torchrun's environment."""
+    import os
+
+    return (any((getattr(args, a) or 1) > 1 for a in ("tp", "dp", "sp"))
+            or args.coordinator is not None or "RANK" in os.environ)
 
 
 def _parser():
@@ -890,26 +944,36 @@ def _parser():
     parser.add_argument("--snapshot_interval_s", type=float, default=1.0,
                         help="load-snapshot cadence with --worker_id "
                              "(routers judge a worker stale after 3x this)")
-    # Accepted so that the refusal names what is missing.
-    parser.add_argument("--tp", type=int, default=None)
-    parser.add_argument("--dp", type=int, default=None)
-    parser.add_argument("--sp", type=int, default=None)
+    # The mesh (one process a rank; rank 0 holds the broker).
+    parser.add_argument("--tp", type=int, default=None,
+                        help="tensor-parallel ranks (default: the ranks dp "
+                             "and sp leave)")
+    parser.add_argument("--dp", type=int, default=1)
+    parser.add_argument("--sp", type=int, default=1)
+    parser.add_argument("--coordinator", default=None,
+                        help="the world's rendezvous (host:port or "
+                             "file:///path) when not launched by torchrun")
+    parser.add_argument("--num_processes", type=int, default=None)
+    parser.add_argument("--process_id", type=int, default=None)
+    parser.add_argument("--backend", default=None, choices=[None, "nccl",
+                                                            "gloo"],
+                        help="the process group's (default: nccl on CUDA, "
+                             "gloo on the CPU)")
     return parser
 
 
-def main(argv=None):
+def main(argv=None, broker: Broker | None = None):
     """``llmss-torch-consumer``: serve a checkpoint from the Redis broker
-    (consumer.py:1036, for one GPU). The worker factory prewarms, so a
-    supervised restart comes up with its graphs captured. SIGTERM drains;
-    a second SIGTERM ends the drain at once (pending requests released,
-    active rows aborted)."""
-    import signal
-
+    (consumer.py:1036) on one GPU or on a mesh. The worker factory
+    prewarms, so a supervised restart comes up with its graphs captured.
+    SIGTERM drains; a second SIGTERM ends the drain at once (pending
+    requests released, active rows aborted). On a mesh, rank 0 serves
+    and stops the other ranks when it ends; they follow it. ``broker`` (a
+    ``Broker``, rank 0's) replaces the Redis one. A rank that fails
+    ends its process with the error; the others then fail at their next
+    collective or control message."""
     parser = _parser()
     args = parser.parse_args(argv)
-    for flag, (keep, why) in _LATER_FLAGS.items():
-        if getattr(args, flag) not in (None, keep):
-            parser.error(f"--{flag} is not served by the torch port yet: {why}")
     for flag, on in (("chunked_prefill", args.chunked_prefill is not None),
                      ("role", args.role != "unified")):
         if on and not args.continuous:
@@ -922,21 +986,67 @@ def main(argv=None):
         parser.error("--worker_id must not contain ':'")
 
     from llmss_tpu_torch.models.registry import load_model
-    from llmss_tpu_torch.serve.broker import RedisBroker
 
-    cfg, params = load_model(args.pretrained_model_path, device=args.device,
-                             dtype=args.dtype)
+    mesh = control = None
+    if _on_mesh(args):
+        from llmss_tpu_torch.parallel import (
+            MeshPlan, initialize_runtime, make_mesh,
+        )
+
+        initialize_runtime(args.coordinator, args.num_processes,
+                           args.process_id, backend=args.backend,
+                           device=args.device)
+        mesh = make_mesh(MeshPlan(dp=args.dp, sp=args.sp, tp=args.tp),
+                         device=args.device, backend=args.backend)
+        if mesh.world > 1:
+            refuse_on_mesh(args)
+    cfg, params = load_model(
+        args.pretrained_model_path,
+        device=None if mesh is not None else args.device, dtype=args.dtype,
+        mesh=mesh)
     engine = DecodeEngine(
-        cfg, params, device=args.device, kv_dtype=args.kv_dtype,
-        kv_layout=args.kv_layout,
+        cfg, params, device=None if mesh is not None else args.device,
+        kv_dtype=args.kv_dtype, kv_layout=args.kv_layout, mesh=mesh,
         max_seq_len=args.max_seq_len or cfg.max_position_embeddings,
     )
-    broker = RedisBroker(args.redis_host, args.redis_port,
-                         lease_s=args.lease_s,
-                         max_delivery_attempts=args.max_delivery_attempts,
-                         # The fleet id is the lease identity: routed
-                         # queues, leases and failover name one worker.
-                         worker_id=args.worker_id)
+    if mesh is not None and mesh.world > 1:
+        from llmss_tpu_torch.parallel.serving import ServeControl
+
+        control = ServeControl(engine)
+        if not control.leader:
+            control.follow()
+            _leave(mesh)
+            return
+    if broker is None:
+        from llmss_tpu_torch.serve.broker import RedisBroker
+
+        broker = RedisBroker(
+            args.redis_host, args.redis_port, lease_s=args.lease_s,
+            max_delivery_attempts=args.max_delivery_attempts,
+            # The fleet id is the lease identity: routed queues, leases and
+            # failover name one worker.
+            worker_id=args.worker_id)
+    _serve(args, engine, broker, control)
+    if control is not None:
+        control.stop()
+    if mesh is not None:
+        _leave(mesh)
+
+
+def _leave(mesh) -> None:
+    """Tear this rank's process group down once every rank is done (a
+    group left to the interpreter's exit can abort the process)."""
+    import torch.distributed as dist
+
+    if mesh.world > 1:
+        dist.barrier()
+    dist.destroy_process_group()
+
+
+def _serve(args, engine, broker, control) -> None:
+    """Rank 0's (or the one GPU's) serving loop, until drained."""
+    import signal
+
     kvstore = None
     if args.kv_tier_host_mb is not None:
         # The broker's client carries T2; the ":kv:" key segment keeps the
@@ -952,12 +1062,13 @@ def main(argv=None):
                 chunk_steps=args.chunk_steps, group_chunks=args.group_chunks,
                 chunked_prefill=args.chunked_prefill, role=args.role,
                 kvstore=kvstore, worker_id=args.worker_id,
-                snapshot_interval_s=args.snapshot_interval_s,
+                snapshot_interval_s=args.snapshot_interval_s, control=control,
             )
         else:
             w = Worker(engine, broker, batch_size=args.batch_size,
                        chunk_steps=args.chunk_steps, worker_id=args.worker_id,
-                       snapshot_interval_s=args.snapshot_interval_s)
+                       snapshot_interval_s=args.snapshot_interval_s,
+                       control=control)
         t0 = time.monotonic()
         n = w.prewarm()
         logger.info("prewarmed %d programs in %.1fs", n, time.monotonic() - t0)
@@ -968,6 +1079,7 @@ def main(argv=None):
           + (f" (KV tiers: {args.kv_tier_host_mb:g} MiB host + Redis)"
              if kvstore is not None else "")
           + (f" (role {args.role})" if args.role != "unified" else "")
+          + (f" ({engine.mesh!r})" if control is not None else "")
           + (" (supervised)" if args.supervise else ""), flush=True)
     if args.supervise:
         from llmss_tpu_torch.serve.supervisor import Supervisor

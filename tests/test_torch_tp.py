@@ -218,23 +218,31 @@ def REF_PARAMS(cfg):
 
 def test_refusals_name_the_plan_or_the_next_slice():
     """``Hkv % tp`` with more than one KV head raises naming the head
-    plan; the paged layout, speculative decoding, shared prefixes and an
-    int8 cache under sp on a mesh of more than one rank raise
-    ``NotImplementedError`` naming the next mesh slice."""
+    plan; the paged layout under sp > 1 raises the reference's
+    ``ValueError``; speculative decoding on a mesh of more than one rank,
+    and shared prefixes, an int8 cache and a dense continuous batcher
+    under sp > 1, raise ``NotImplementedError`` naming the next mesh
+    slice. (The paged layout and shared prefixes under tp and dp run:
+    tests/test_torch_serve_mesh.py.)"""
+    from llmss_tpu_torch.engine.scheduler import ContinuousBatcher
+
     cfg = dataclasses.replace(DecoderConfig(**FAMILIES["llama"]), n_heads=12,
                               n_kv_heads=6, hidden_size=96)
     with pytest.raises(ValueError, match="tp_head_plan"):
         DecodeEngine(cfg, REF_PARAMS(cfg), mesh=Mesh.local((1, 1, 4)))
     cfg = DecoderConfig(**FAMILIES["llama"])
-    with pytest.raises(NotImplementedError, match="next mesh slice"):
-        _engine(cfg, (1, 1, 2), kv_layout="paged")
+    with pytest.raises(ValueError, match="does not support sp > 1 meshes"):
+        _engine(cfg, (1, 2, 1), kv_layout="paged")
     with pytest.raises(NotImplementedError, match="next mesh slice"):
         _engine(cfg, (1, 2, 1), kv_dtype="int8")
     eng = _engine(cfg, (1, 1, 2))
     with pytest.raises(NotImplementedError, match="next mesh slice"):
         eng.generate_speculative([[1, 2, 3]], GenerationParams())
+    eng = _engine(cfg, (1, 2, 1))
     with pytest.raises(NotImplementedError, match="next mesh slice"):
         eng.build_prefix([1, 2, 3])
+    with pytest.raises(NotImplementedError, match="next mesh slice"):
+        ContinuousBatcher(eng, rows=2)
     # One rank: nothing to refuse.
     assert _engine(cfg, (1, 1, 1), kv_layout="paged").mesh.world == 1
 
