@@ -1344,7 +1344,7 @@ def k4_cases(int8: bool = True) -> list[dict]:
         # blocks, beside five decode rows over the same blocks.
         _paged_case("k4_serve_prefix_shared", 8, 32, 32, PREFIX_K4_CTX,
                     PREFIX_K4_QLEN, 128, shared=SHARED_BLOCKS, seed=26),
-    ]
+    ] + _k4_split_cases()
     return cases + ([
         # The int8 pool (bf16 queries: the tensor-core tile over int8
         # tiles): the int8 serve phase's chunked step first, then a ring
@@ -1369,7 +1369,32 @@ def k4_cases(int8: bool = True) -> list[dict]:
                     D=256, seed=14, kv="int8"),
         _paged_case("k4_int8_fp32_d64", 3, 8, 4, [30, 0, 100], [16, 5, 1], 16,
                     seed=8, D=64, dt=torch.float32, kv="int8"),
-    ] if int8 else [])
+        # k4_ring_wrap over an int8 pool, then the split edges over int8.
+        _paged_case("k4_int8_ring_wrap", 3, 32, 32, [1000, 2000, 5],
+                    [100, 1, 60], 128, seed=7, kv="int8"),
+    ] + _k4_split_cases("int8") if int8 else [])
+
+
+def _k4_split_cases(kv=None) -> list[dict]:
+    """K4 at the edges of the chunk tile's split along the KV axis
+    (ops/split_plan.py chunk_plan: 256-slot splits, at most 4): a long
+    decode row beside prefill rows at CB 128; rows whose occupied slots end
+    inside their first split beside a long one and an empty one; block
+    size 24, whose split boundaries (384 or 576 slots) are whole columns
+    but not a multiple of 64 of them, crossed by a row; a window that
+    crosses a split boundary. ``kv="int8"``: over an int8 pool."""
+    tag = "k4_int8_" if kv else "k4_"
+    return [
+        _paged_case(tag + "long_decode_beside_prefill", 4, 32, 8,
+                    [1900, 0, 300, 128], [1, 128, 128, 64], 128, MB=128,
+                    seed=30, kv=kv),
+        _paged_case(tag + "first_split_only", 4, 32, 32, [1000, 60, 0, 200],
+                    [1, 100, 37, 1], 128, seed=31, kv=kv),
+        _paged_case(tag + "bs24_split_edge", 3, 32, 32, [800, 390, 0],
+                    [1, 128, 50], 128, bs=24, MB=86, seed=32, kv=kv),
+        _paged_case(tag + "window_across_split", 3, 32, 8, [900, 500, 40],
+                    [1, 128, 128], 128, window=300, seed=33, kv=kv),
+    ]
 
 
 def _paged_visibility(c):
@@ -1443,8 +1468,12 @@ def _paged_row(kernel, c, fn, ref_fn, lib_fn, unsplit_fn=None, forced_fn=None):
     # Splits at or past a row's occupied slots return at once.
     live_splits = [-(-int(n) * bs // plan.split_slots) if plan.split_slots
                    else 1 for n in c["nblk"].tolist()]
+    if kernel == "K4":  # the 64-slot tiles the chunk tile copies
+        extra = {"tile_copies": _k4_tile_copies(c, mask, plan)}
+    else:
+        extra = {}
     row = {"phase": "kernel", "kernel": kernel, "case": c["name"],
-           "kv": str(c["kp"].dtype).removeprefix("torch."),
+           "kv": str(c["kp"].dtype).removeprefix("torch."), **extra,
            **({"shared_cols": c["shared"]} if c["shared"] else {}),
            "impl": plan.impl, "splits": plan.splits,
            "split_slots": plan.split_slots, "live_splits": live_splits,
@@ -1468,6 +1497,33 @@ def _paged_row(kernel, c, fn, ref_fn, lib_fn, unsplit_fn=None, forced_fn=None):
                                          ref_abs[live], dt))
     emit(row)
     return row, got
+
+
+def _k4_tile_copies(c, mask, plan) -> int | None:
+    """The 64-slot K/V tiles K4's chunk tile copies at case ``c``: per (row,
+    KV head, 64 flat query rows with a live query), each cache tile of which
+    some live query of those rows sees a slot, and the fresh tiles up to
+    its last live query (the cache tiles a split's ahead copies add when
+    none of their slots is visible are not counted). None off the tile."""
+    from llmss_tpu_torch.ops import split_plan as sp
+
+    if plan.impl not in sp.TILE_IMPLS:
+        return None
+    B, CB, Hq, _ = c["q"].shape
+    Hkv = c["kp"].shape[3]
+    G, T = Hq // Hkv, mask.shape[2]
+    nt = -(-T // 64)
+    padded = torch.zeros(B, CB, nt * 64, dtype=torch.bool, device=mask.device)
+    padded[..., :T] = mask
+    copies = 0
+    for f0 in range(0, CB * G, 64):
+        i0, i1 = f0 // G, min(CB - 1, (f0 + 63) // G)
+        seen = padded[:, i0:i1 + 1].any(1).view(B, nt, 64).any(2).sum(1)
+        for b in range(B):
+            ql = int(c["qlen"][b])
+            if i0 < ql:
+                copies += int(seen[b]) + -(-min(ql, i1 + 1) // 64)
+    return copies * Hkv
 
 
 def _gather_sdpa(c, mask):
@@ -1561,8 +1617,17 @@ def check_paged_kernels(out: dict) -> None:
     emit({"phase": "kernel", "check": "k3_equals_k4_at_cb1",
           "cases": len(k3_list), "bit_identical": True})
 
+    def k4_unsplit(c):  # the chunk tile on one split
+        return pa._launch(
+            "ragged_paged_attention (K4)", c["q"], c["kp"], c["vp"], c["kn"],
+            c["vn"], c["qpos"], c["qlen"], c["kvp"], c["bt"], c["nblk"],
+            c["slot0"], c["layer"], c["n_cols"], None, c["window"], c["ks"],
+            c["vs"], max_splits=1)
+
     for c in k4_cases():
-        row, _ = _paged_row("K4", c, k4, k4_ref, _gather_sdpa)
+        tile = c["q"].dtype == torch.bfloat16
+        row, _ = _paged_row("K4", c, k4, k4_ref, _gather_sdpa,
+                            k4_unsplit if tile else None)
         # bf16 queries over an int8 pool at CB > 1: the int8 tensor-core
         # tile; fp32 queries stay on the lanes.
         if c["ks"] is not None:
@@ -1583,7 +1648,7 @@ def check_paged_kernels(out: dict) -> None:
         k3_case = kernel == "K3"
         row, _ = _paged_row(kernel, c, k3 if k3_case else k4,
                             k3_ref if k3_case else k4_ref, _gather_sdpa,
-                            k3_unsplit if k3_case else None)
+                            k3_unsplit if k3_case else k4_unsplit)
         if k3_case:
             _main_path_impl("K3", row, _decode_impl(c["q"], c["kn"].shape[2],
                                                     c["ks"] is not None))
@@ -1596,8 +1661,9 @@ def check_paged_kernels(out: dict) -> None:
         out["vs_library"][out[name]["case"]] = (out[name]["ms"],
                                                 out[name]["library_ms"])
     for name in ("k3_starcoder_serve_decode", "k3_int8_starcoder_serve_decode",
-                 "k4_ring_wrap", "k3_serve_prefix_shared",
-                 "k4_serve_prefix_shared"):
+                 "k4_ring_wrap", "k4_int8_ring_wrap", "k4_gqa_cb64",
+                 "k4_int8_gqa_cb64", "k4_tp2_serve_mixed",
+                 "k3_serve_prefix_shared", "k4_serve_prefix_shared"):
         row = out["cases"][name]
         out["vs_library"][name] = (row["ms"], row["library_ms"])
     # A measurement, not a pass condition: kernel times vary by card.
@@ -1626,7 +1692,15 @@ def check_paged_kernels(out: dict) -> None:
             "cases": [out[f"{k}_int8"]["case"], out[k]["case"]],
             "ms": [out[f"{k}_int8"]["ms"], out[k]["ms"]],
             "ratio": out[f"{k}_int8"]["ms"] / out[k]["ms"]}
-        for k in ("K2", "K3")}})
+        for k in ("K2", "K3", "K4")}})
+    # And K4's split: each case's plan beside the chunk tile on one split,
+    # with the tiles it copies (k4_serve_prefix_shared against
+    # k4_serve_mixed: the copies explain the ratio, or not).
+    emit({"phase": "kernel", "check": "k4_split_vs_unsplit", "cases": {
+        name: {k: row.get(k) for k in ("splits", "split_slots", "ms",
+                                       "unsplit_ms", "tile_copies")}
+        for name, row in out["cases"].items()
+        if row["kernel"] == "K4" and "unsplit_ms" in row}})
 
 
 

@@ -14,9 +14,11 @@ bf16 K2w case at 1, 2, 4 and 8 forced splits, folded in its cluster and
 by window_merge, the data K2w's split plan was set from; ``--templates``:
 time instead K2 and K3 at chip_smoke.G_TILE_CASES on each of the three
 decode templates, forced (the lanes, the 64-row tile, the group tile),
-and the group tile at 1, 2, 4, 8 and 16 forced splits folded by the merge
-and, up to 8, in its cluster: the data G_TILE and the group tile's plan
-were set from; a tree with the group tile only)
+and the group tile at 1, 2, 4, 8 and 16 forced splits folded by the merge:
+the data G_TILE and the group tile's plan were set from; and K4's bf16-
+query cases on the chunk tile at 1, 2, 4 and 8 forced splits, the data
+its split plan was set from; the cases of the kernels ``--kernels`` names;
+a tree with the chunk tile only)
 
 The cases include K2 and K3 at StarCoder's G = 48 (bf16 and int8), Qwen2-
 7B's G = 7, SantaCoder's G = 16 and G = 8, so a tree's decode templates
@@ -102,20 +104,49 @@ def _cases(cs, da, fa, pa, kernels):
                     c["kvp"], c["slots"], c["layer"], t_len=c["t_len"])), 50
 
 
-def _templates(cs, da, pa, tag) -> None:
-    """One line per G_TILE case of K2 and K3: the three decode templates,
-    forced, and the group tile at most N splits (``max_splits_N``)."""
+# Splits a K4 call at CB > 1 is forced onto by --templates (1: the chunk
+# tile unsplit).
+K4_SPLITS = (1, 2, 4, 8)
+
+
+def _templates(cs, da, pa, tag, kernels) -> None:
+    """One line per G_TILE case of K2 and K3 (``K2`` / ``K3`` in
+    ``kernels``): the three decode templates, forced, and the group tile at
+    most N splits (``max_splits_N``); one per K4 case on the chunk tile
+    (``K4`` / ``K4_int8``): the chunk tile at each of ``K4_SPLITS`` forced
+    splits (``splits_N_ms``), the data chunk_plan was set from."""
+    from llmss_tpu_torch.ops import _build
     from llmss_tpu_torch.ops import split_plan as sp
 
+    for c in cs.k4_cases("K4_int8" in kernels):
+        if c["row"] not in kernels or c["q"].dtype != torch.bfloat16:
+            continue
+        row = {}
+        for n in K4_SPLITS:
+            fn = (lambda n=n: pa._launch(
+                "ragged_paged_attention (K4)", c["q"], c["kp"], c["vp"],
+                c["kn"], c["vn"], c["qpos"], c["qlen"], c["kvp"], c["bt"],
+                c["nblk"], c["slot0"], c["layer"], c["n_cols"], None,
+                c["window"], c["ks"], c["vs"], chunk_splits=n))
+            row[f"splits_{n}_ms"] = cs.device_ms(fn, iters=50)
+        cs.emit({"phase": "templates", **tag, "case": c["name"],
+                 "plan_splits": pa.kernel_plan(
+                     torch.bfloat16, c["q"].shape[1],
+                     c["q"].shape[2] // c["kn"].shape[2], c["q"].shape[3],
+                     B=c["q"].shape[0], Hkv=c["kn"].shape[2],
+                     n_slots=(c["n_cols"] or c["bt"].shape[1]) * c["kp"].shape[2],
+                     bs=c["kp"].shape[2], sms=_build.sm_count(c["q"].device),
+                     kv_dtype=c["kp"].dtype).splits,
+                 **row})
     names = {n for pair in cs.G_TILE_CASES.values() for n in pair}
     calls = []
-    for c in cs.k2_cases(False):
+    for c in cs.k2_cases(False) if "K2" in kernels else ():
         if c["name"] in names:
             calls.append((c, lambda c=c, **kw: da._launch(
                 c["q"], c["kc"], c["vc"], c["kn"], c["vn"], c["qpos"],
                 c["kvp"], c["slots"], c["layer"], t_len=c["t_len"],
                 window=c["window"], **kw)))
-    for c in cs.k3_cases(False):
+    for c in cs.k3_cases(False) if "K3" in kernels else ():
         if c["name"] in names:
             calls.append((c, lambda c=c, **kw: pa._launch(
                 "paged_decode_attention (K3)", c["q"], c["kp"], c["vp"],
@@ -195,7 +226,7 @@ def main() -> int:
             cs.emit({"phase": "k2w_forms", **tag, "case": c["name"], **row})
         return 0
     if args.templates:
-        _templates(cs, da, pa, tag)
+        _templates(cs, da, pa, tag, args.kernels.split(","))
         return 0
     times, digests = {}, {}
     for kernel, case, fn, iters in _cases(cs, da, fa, pa,

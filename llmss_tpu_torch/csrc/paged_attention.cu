@@ -22,10 +22,9 @@
 //     and (with a window) i - jj < window. Key 0 is visible to every query
 //     row, so every denominator is positive and an empty row yields exactly
 //     v_new.
-// Query rows i >= q_len[b] are chunk padding that nothing reads: a tile
-// made only of them writes zeros instead of computing (the Pallas kernel
-// computes them as finite garbage); padding rows that share a tile with
-// live rows are computed like the reference's.
+// Query rows i >= q_len[b] are chunk padding that nothing reads: at CB > 1
+// the chunk tile writes them as zeros (the Pallas kernel computes them as
+// finite garbage); at CB == 1 a row with q_len 0 gets zeros from the merge.
 // Numerics follow the Pallas kernels: fp32 scores and running max / sum /
 // accumulators, masked scores at the finite fp32 minimum, probabilities of
 // masked slots exactly 0, P rounded to the value dtype before the cache's
@@ -36,30 +35,31 @@
 // (ops/paged_attention.py kernel_plan) and this file refuses any other
 // pairing:
 //
-// bf16 at CB > 1 (K4 with prompt chunks) -> paged_mma<bf16>, the
-// tensor-core tile of attn_tile.cuh. What bounds it on the H100: bytes.
-// Each (row, KV head) needs the row's live blocks once, shared by its
-// q_len*G query rows; at the serve shapes that read is the whole bound, far
-// under the ~295 flops per byte where the tensor cores would limit. The
-// design: one block per (row, KV head, 64 flat query rows f = i*G + g), so
-// a chunk of 128 queries streams its row's KV twice (once per tile) where
-// the lane template's 8-row tiles streamed it 16 times; each 64-slot tile
-// is gathered through block_tables by one cp.async per 16 bytes of a slot
-// row, double-buffered so the next tile's copy overlaps this tile's
-// products; tiles no row can see are skipped before their copy; the fresh
-// keys follow as trailing tiles of <= 64 keys read from k_new / v_new on
-// the same tensor-core loop. Their P is therefore rounded to bf16 like the
-// cache's, where the Pallas kernel applies fresh V in fp32: one more
-// rounding of P, which chip_smoke.py's 2^-7 relative tolerance already
-// bounds (its derivation assumes every P is rounded).
-//
-// int8 pool, bf16 queries, CB > 1 -> paged_mma<int8> ("mma_int8"), the
-// same block, grid and tiles over attn_tile_i8.cuh: int8 tiles (half the
-// bytes) and their scales are copied, widened to bf16 in shared memory
-// (exact), and run through the same mma.sync loop; each score times its
-// slot's K scale, and P x v_scale enters P.V as two bf16 terms, hi + lo,
-// so it is carried to 2^-16 relative, not bf16's 2^-8 (the header has the
-// bound). The fresh keys take the same two terms with scale 1.
+// bf16 queries at CB > 1 (K4 with prompt chunks), over a bf16 pool
+// ("mma") or an int8 one ("mma_int8") -> paged_mma<KV, D, false>, the
+// chunk tile of chunk_tile.cuh. What bounds it on the H100: bytes. Each
+// (row, KV head) needs the row's live blocks once, shared by its q_len*G
+// query rows; at the serve shapes that read is the whole bound, far under
+// the ~295 flops per byte where the tensor cores would limit. One block per
+// (row, KV head, 64 flat query rows f = i*G + g, split s of S): the row's
+// read is split along the KV axis into S splits of `split` slots, planned
+// from the bucketed read n_cols * bs alone (ops/split_plan.py chunk_plan),
+// so no block walks a long row alone; splits past a row's occupied slots
+// return at once, the row's last live split also folds the chunk's fresh
+// keys (trailing tiles of <= 64 keys from k_new / v_new, their P rounded
+// to bf16 like the cache's, where the Pallas kernel applies fresh V in
+// fp32: one more rounding, which chip_smoke.py's 2^-7 relative tolerance
+// bounds), a row's only live split writes its output, and otherwise
+// chunk_merge, launched next, folds the live splits' fp32 states in split
+// order. Within a split: visibility and table entries staged in shared
+// memory, the first tiles copied before the positions are read, a
+// three-stage cp.async ring at D <= 128 with Q in registers, and over an
+// int8 pool int8 tiles widened into a double-buffered bf16 tile (exact),
+// each score times its slot's K scale and P x v_scale as two bf16 terms,
+// hi + lo, so it is carried to 2^-16 relative, not bf16's 2^-8 (the fresh
+// keys take the same two terms with scale 1). A tile of at most 16 live
+// flat rows (decode rows) puts its four warps on quarters of each tile's
+// slots.
 //
 // bf16 queries and pool at CB == 1 (K3, and K4 all-decode) with G_TILE <=
 // G <= GROUP_MAX_G query heads on a KV head (2 to 16, ops/split_plan.py)
@@ -73,8 +73,8 @@
 // CUDA cores), and the 64-row tile below filled 7 of 64 rows.
 //
 // bf16 queries at CB == 1 with G > GROUP_MAX_G (StarCoder's 48), or G > 8
-// over an int8 pool -> paged_mma<KV, D, kDecode = true>, the same tiles
-// as at CB > 1. What bounds decode: bytes, each KV head's live slots once
+// over an int8 pool -> paged_mma<KV, D, kDecode = true>, the 64-row tile
+// of attn_tile.cuh / attn_tile_i8.cuh. What bounds decode: bytes, each KV head's live slots once
 // per (row, KV head); so the question is which template reads them once.
 // The lanes take R <= 8 query rows a block (their fp32 state lives in
 // registers), so at G = 48 (StarCoder's one KV head) 6 blocks each
@@ -156,6 +156,7 @@
 
 #include "attn_tile.cuh"
 #include "attn_tile_i8.cuh"
+#include "chunk_tile.cuh"
 #include "common.cuh"
 #include "group_tile.cuh"
 #include "split_merge.cuh"
@@ -771,13 +772,104 @@ struct PagedSrcI8 : PagedSrc<D> {
   }
 };
 
+// One block of K4 at CB > 1 on the chunk tile (chunk_tile.cuh): flat rows
+// of query tile z % tiles of row b under KV head hk against split S - 1 -
+// z / tiles of the row's occupied slots. A tile of chunk padding only is
+// written as zeros by its split 0; splits past the row's occupied slots
+// return; the row's last live split also folds the fresh keys, and a
+// row's only live split writes the output (else its state goes to the
+// workspace, for chunk_merge, and split 0 writes the tile's padding rows).
+template <typename KV, int D>
+__device__ __forceinline__ void chunk_block(const ArgsOf<KV>& a) {
+  using T = __nv_bfloat16;
+  extern __shared__ __align__(16) unsigned char chunk_smem[];
+  pdl_trigger();  // chunk_merge may start; it waits for this grid's writes
+  chunk::Chunk<KV> s;
+  // Later splits first: grid z = (S - 1 - split) * tiles + query tile.
+  const int tiles = (a.CB * (a.Hq / a.Hkv) + chunk::kRows - 1) / chunk::kRows;
+  const int b = blockIdx.x, hk = blockIdx.y;
+  const int split = a.S - 1 - (int)blockIdx.z / tiles;
+  s.b = b;
+  s.hk = hk;
+  s.G = a.Hq / a.Hkv;
+  s.CB = a.CB;
+  s.Hq = a.Hq;
+  s.Hkv = a.Hkv;
+  s.f0 = blockIdx.z % tiles * chunk::kRows;
+  s.nrows = a.CB * s.G;
+  // The row's scalars at once: a block past them returns after one load.
+  s.ql = a.qlen[b];
+  const int nb = a.nblk[b];
+  s.qp = a.qpos[b];
+  s.sl0 = a.slot0[b];
+  s.q = static_cast<const T*>(a.q);
+  s.o = static_cast<T*>(a.o);
+  s.i_lo = s.f0 / s.G;
+  if (s.i_lo >= s.ql) {  // a tile of chunk padding only: nobody reads it
+    if (split != 0) return;
+    for (int c = threadIdx.x; c < chunk::kRows * (D / 8); c += chunk::kThreads) {
+      const int f = s.f0 + c / (D / 8);
+      if (f < s.nrows)
+        *reinterpret_cast<uint4*>(
+            s.o + ((long long)(b * a.CB + f / s.G) * a.Hq + hk * s.G + f % s.G) * D +
+            c % (D / 8) * 8) = make_uint4(0u, 0u, 0u, 0u);
+    }
+    return;
+  }
+  const int live = chunk::live_splits(nb, a.n_cols, a.bs, a.split);
+  if (split >= live) return;  // past the row's occupied slots
+  s.i_hi = min((min(s.f0 + chunk::kRows, s.nrows) - 1) / s.G, s.ql - 1);
+  s.t_lo = split * a.split;
+  s.t_hi = min(min(max(nb, 0), a.n_cols) * a.bs, s.t_lo + a.split);
+  // Fresh keys past i_hi are invisible to every row of the tile.
+  s.jmax = split == live - 1 ? min(s.ql, s.i_hi + 1) : 0;
+  s.finish = live == 1;
+  s.kp = static_cast<const KV*>(a.kp);
+  s.vp = static_cast<const KV*>(a.vp);
+  if constexpr (kQuant<KV>) {
+    s.ks = a.ks;
+    s.vs = a.vs;
+  } else {
+    s.ks = s.vs = nullptr;
+  }
+  s.kn = static_cast<const T*>(a.kn);
+  s.vn = static_cast<const T*>(a.vn);
+  s.ring = a.MB * a.bs;
+  s.window = a.window;
+  s.bs = a.bs;
+  s.last_blk = a.Np - 2;  // N - 1: block N is the write drop target
+  s.kvp = a.kvpos + (long long)b * s.ring;
+  s.bt = a.tables + (long long)b * a.MB;
+  s.slot_stride = (long long)a.Hkv * D;
+  s.blk_stride = (long long)a.bs * s.slot_stride;
+  s.base = (long long)a.layer * a.Np * s.blk_stride + (long long)hk * D;
+  s.scale_log2 = a.scale * 1.4426950408889634f;
+  s.ws = a.ws;
+  s.n_part = (long long)a.B * a.CB * a.Hq * a.S;
+  s.S = a.S;
+  s.split = split;
+  chunk::run<KV, D>(s, chunk_smem);
+}
+
+// K4 at CB > 1 runs the chunk tile, but over an int8 pool at D 256, where
+// the 64-row tile's chunk form (attend_i8, unsplit) stayed faster on the
+// H100 (PERF.md; the chunk tile's int8 form there keeps one widened tile
+// beside Q in shared memory and spills).
+template <typename KV, int D> constexpr bool kChunkTile = !(kQuant<KV> && D > 128);
+
 // KV: the pool's type, bf16 (attn_tile.cuh) or int8 (attn_tile_i8.cuh).
-// kDecode (CB == 1: K3, and an all-decode K4): blockIdx.z is a 64-row tile
-// of the G query heads times split s of S; the block reads table columns
-// [s * split / bs, (s + 1) * split / bs) of row b, no fresh key, and
-// leaves its fp32 partial states for split_merge.
+// kDecode false (CB > 1): the chunk tile (chunk_block) where kChunkTile,
+// else one block per (row, KV head, 64 flat query rows) walking the row
+// unsplit, then the fresh keys. kDecode (CB == 1: K3, and an all-decode
+// K4): blockIdx.z is a 64-row tile of the G query heads times split s of
+// S; the block reads table columns [s * split / bs, (s + 1) * split / bs)
+// of row b, no fresh key, and leaves its fp32 partial states for
+// split_merge.
 template <typename KV, int D, bool kDecode>
 __global__ void __launch_bounds__(tile::kThreads) paged_mma(ArgsOf<KV> a) {
+  if constexpr (!kDecode && kChunkTile<KV, D>) {
+    chunk_block<KV, D>(a);
+  } else {
   using T = __nv_bfloat16;
   using Base = std::conditional_t<kQuant<KV>, PagedSrcI8<D>, PagedSrc<D>>;
   extern __shared__ __align__(16) unsigned char tile_smem[];
@@ -860,44 +952,106 @@ __global__ void __launch_bounds__(tile::kThreads) paged_mma(ArgsOf<KV> a) {
   } else {
     tile::attend<T, D, true>(s, tile_smem);
   }
+  }
 }
 
-// At CB == 1 (kDecode) the tile kernel in S splits of `split` slots, whole
-// 64-slot tiles and table columns covering the read, then split_merge on
-// the same stream, whatever S.
-template <typename KV, int D, bool kDecode>
-cudaError_t launch_mma(const ArgsI8& a, cudaStream_t stream) {
-  if (kQuant<KV> && (a.ks == nullptr || a.vs == nullptr)) return cudaErrorInvalidValue;
-  if (kDecode && (a.CB != 1 || a.S < 1 || a.S > kMaxSplits || a.split <= 0 ||
-                  a.split % tile::kSlots || a.split % a.bs || a.ws == nullptr ||
-                  (long long)a.S * a.split < (long long)a.n_cols * a.bs))
+// At CB == 1 the 64-row tile in S splits of `split` slots, whole 64-slot
+// tiles and table columns covering the read, then split_merge on the same
+// stream, whatever S.
+template <typename KV, int D>
+cudaError_t launch_decode_mma(const ArgsI8& a, cudaStream_t stream) {
+  if ((kQuant<KV> && (a.ks == nullptr || a.vs == nullptr)) || a.CB != 1 || a.S < 1 ||
+      a.S > kMaxSplits || a.split <= 0 || a.split % tile::kSlots || a.split % a.bs ||
+      a.ws == nullptr || (long long)a.S * a.split < (long long)a.n_cols * a.bs)
     return cudaErrorInvalidValue;
   constexpr size_t smem = kQuant<KV> ? tile::SmemI8<D>::bytes : tile::Smem<D>::bytes;
-  auto kern = paged_mma<KV, D, kDecode>;
+  auto kern = paged_mma<KV, D, true>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const int rows = a.CB * (a.Hq / a.Hkv);
-  const int tiles = (rows + tile::kRows - 1) / tile::kRows;
-  dim3 grid(a.B, a.Hkv, kDecode ? tiles * a.S : tiles);
+  const int tiles = (a.Hq / a.Hkv + tile::kRows - 1) / tile::kRows;
+  dim3 grid(a.B, a.Hkv, tiles * a.S);
   kern<<<grid, tile::kThreads, smem, stream>>>(static_cast<const ArgsOf<KV>&>(a));
   err = cudaGetLastError();
-  if (!kDecode || err != cudaSuccess) return err;
+  if (err != cudaSuccess) return err;
   const MergeArgs m{a.q, a.kn, a.vn, a.o, a.ws, a.nblk, a.qlen, a.B, a.Hq,
                     a.Hkv, a.S, a.split, a.bs, a.n_cols, a.scale};
   return launch_merge<__nv_bfloat16>(D, m, stream);
 }
 
-template <typename KV, bool kDecode>
-cudaError_t dispatch_mma(int D, const ArgsI8& a, cudaStream_t s) {
-  switch (D) {
-    case 64: return launch_mma<KV, 64, kDecode>(a, s);
-    case 128: return launch_mma<KV, 128, kDecode>(a, s);
-    case 256: return launch_mma<KV, 256, kDecode>(a, s);
-    default: return cudaErrorInvalidValue;
+// The chunk tile in S splits of `split` slots (whole 64-slot tiles and
+// table columns covering the read), then, at S > 1, chunk_merge on the
+// same stream (a programmatic dependent launch).
+template <typename KV, int D>
+cudaError_t launch_chunk_tile(const ArgsI8& a, cudaStream_t stream) {
+  if ((kQuant<KV> && (a.ks == nullptr || a.vs == nullptr)) || a.CB < 2 ||
+      a.qlen == nullptr || a.S < 1 || a.S > kMaxSplits || a.split <= 0 ||
+      a.split % chunk::kSlots || a.split % a.bs || (a.S > 1 && a.ws == nullptr) ||
+      (long long)a.S * a.split < (long long)a.n_cols * a.bs)
+    return cudaErrorInvalidValue;
+  constexpr size_t smem = chunk::Smem<KV, D>::bytes;
+  auto kern = paged_mma<KV, D, false>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const int tiles = (a.CB * (a.Hq / a.Hkv) + chunk::kRows - 1) / chunk::kRows;
+  dim3 grid(a.B, a.Hkv, tiles * a.S);
+  kern<<<grid, chunk::kThreads, smem, stream>>>(static_cast<const ArgsOf<KV>&>(a));
+  err = cudaGetLastError();
+  if (err != cudaSuccess || a.S == 1) return err;
+  const chunk::MergeArgs m{a.o, a.ws, a.qlen, a.nblk, a.B, a.CB, a.Hq,
+                           a.Hkv, a.S, a.split, a.bs, a.n_cols};
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(a.B, a.Hkv, tiles);
+  cfg.blockDim = dim3(chunk::kMergeThreads);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, chunk::chunk_merge<D>, m);
+}
+
+// At CB > 1 the chunk tile; over an int8 pool at D 256 the 64-row tile,
+// unsplit.
+template <typename KV, int D>
+cudaError_t launch_chunk(const ArgsI8& a, cudaStream_t stream) {
+  if constexpr (!kChunkTile<KV, D>) {  // the 64-row tile, unsplit
+    if (a.ks == nullptr || a.vs == nullptr || a.CB < 2 || a.qlen == nullptr)
+      return cudaErrorInvalidValue;
+    constexpr size_t smem = tile::SmemI8<D>::bytes;
+    auto kern = paged_mma<KV, D, false>;
+    cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    const int tiles = (a.CB * (a.Hq / a.Hkv) + tile::kRows - 1) / tile::kRows;
+    kern<<<dim3(a.B, a.Hkv, tiles), tile::kThreads, smem, stream>>>(
+        static_cast<const ArgsOf<KV>&>(a));
+    return cudaGetLastError();
+  } else {
+    return launch_chunk_tile<KV, D>(a, stream);
   }
 }
 
+template <typename KV, bool kDecode>
+cudaError_t dispatch_mma(int D, const ArgsI8& a, cudaStream_t s) {
+  auto go = [&](auto d) {
+    constexpr int kD = decltype(d)::value;
+    if constexpr (kDecode) {
+      return launch_decode_mma<KV, kD>(a, s);
+    } else {
+      return launch_chunk<KV, kD>(a, s);
+    }
+  };
+  switch (D) {
+    case 64: return go(std::integral_constant<int, 64>{});
+    case 128: return go(std::integral_constant<int, 128>{});
+    case 256: return go(std::integral_constant<int, 256>{});
+    default: return cudaErrorInvalidValue;
+  }
+}
 
 // -- bf16 queries and pool at CB == 1 and GQA head groups: the group tile --
 
@@ -1050,9 +1204,12 @@ cudaError_t dispatch_group(int D, int rows, const Args& a, cudaStream_t s) {
 // under fp32 queries, in S splits of `split` slots (S > 1 only at CB == 1,
 // with ws the fp32 workspace of split_merge.cuh, [B*Hq*S*(D+2)]; null at
 // S = 1); 1 = paged_mma over a bf16 pool and 2 = paged_mma over an int8
-// pool, for bf16 queries: at CB > 1 q_len required, R, S, split and ws
-// unused; at CB == 1 in S splits of `split` slots (a multiple of 64) with
-// ws required at every S (R unused); 3 = paged_group over a bf16 pool
+// pool, for bf16 queries: at CB > 1 the chunk tile, q_len required, in S
+// splits of `split` slots (multiples of 64 and bs), ws chunk_tile.cuh's
+// workspace [B*CB*Hq*S*(D+2)] at S > 1 (null at S = 1), R unused (over
+// int8 at D 256 the 64-row tile, S and split unused); at CB ==
+// 1 in S splits of `split` slots (a multiple of 64) with ws required at
+// every S (R unused); 3 = paged_group over a bf16 pool
 // for bf16 queries at CB == 1, R (16, 32, 48 or 64) query heads a block,
 // S splits of `split` slots (multiples of 64 and bs), its states stored
 // in ws and split_merge after. kv_dtype: the pool's dtype, dtype's

@@ -70,10 +70,10 @@ SAMPLING_VARIANTS = ((False, False), (True, False), (True, True))
 # lanes, or on the window tile above four splits, a ``window_merge``,
 # which are not counted). K3 and K4 share the paged kernels; a step graph
 # holds K3 only. A symbol names every instantiation of its template:
-# ``paged_mma`` is the 64-row tensor-core tile over a bf16 pool and over
-# an int8 one, K4's chunks and the decode form K3 takes above
-# GROUP_MAX_G query heads per KV head (over an int8 pool above
-# INT8_G_TILE); ``decode_mma`` K2's 64-row tile over either cache;
+# ``paged_mma`` is K4's chunk tile at CB > 1 (a split call adds a
+# ``chunk_merge``, not counted) and the 64-row tensor-core decode form K3
+# takes above GROUP_MAX_G query heads per KV head (over an int8 pool
+# above INT8_G_TILE), each over a bf16 pool and an int8 one; ``decode_mma`` K2's 64-row tile over either cache;
 # ``decode_group`` / ``paged_group`` the group tile K2 / K3 take from
 # G_TILE query heads per KV head (its own symbols: a ``window_mma`` node
 # is K2w's); ``paged_fwd`` / ``decode_fwd`` the lane templates over either

@@ -90,6 +90,28 @@ def tile_i8_smem_bytes(D: int) -> int:
     return 2 * 3 * 64 * (D + 8) + 4 * 64 * (D + 16) + 4 * 2 * 2 * 64 + 2 * 64 * 4
 
 
+def chunk_smem_bytes(D: int, int8: bool = False) -> int:
+    """Shared memory of one block of K4's chunk tile (csrc/chunk_tile.cuh
+    ``chunk::Smem<KV, D>``): the cp.async ring, over a bf16 pool 3 stages
+    (2 at D 256) of K and V tiles of 64 rows of D + 8 bf16 elements, over
+    an int8 pool (D <= 128: at D 256 K4 keeps the 64-row tile) 2 stages (3
+    at D 64) of 64 rows of D bytes plus two widened bf16 K and V tiles and
+    the fp32 K and V scales of both; Q (64 rows of D + 8) at D 256; 512
+    staged positions, 66 table entries and two tile masks. At D = 128:
+    106,768 bytes over either pool, two blocks per SM."""
+    if int8 and D > 128:
+        raise KernelError("over an int8 pool at D 256 K4 keeps the 64-row "
+                          "tile (tile_i8_smem_bytes)")
+    ld, tile = D + 8, 64 * (D + 8) * 2
+    stages = (3 if D <= 64 else 2) if int8 else (2 if D > 128 else 3)
+    if int8:
+        data = stages * 2 * 64 * D + 2 * 2 * tile + (stages + 2) * 2 * 64 * 4
+    else:
+        data = stages * 2 * tile
+    q = 64 * ld * 2 if D > 128 else 0
+    return data + q + 4 * (512 + 66 + 2)
+
+
 def window_tile_smem_bytes(D: int, row_warps: int) -> int:
     """Shared memory of one block of the group tile, K2w's window tile and
     K2's and K3's GQA decode (csrc/group_tile.cuh ``wt::Smem<D, RW>``): a ring of 3 stages (2 at

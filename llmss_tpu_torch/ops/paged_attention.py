@@ -11,16 +11,18 @@
   ``q_len`` of them live.
 
 Five instantiations, chosen by ``kernel_plan`` from the dtypes, ``CB``
-and G (query heads per KV head) alone: ``"mma"`` (the 64-row tensor-core
-tile, csrc/attn_tile.cuh) for a bf16 pool at ``CB > 1``; ``"mma_int8"``
-(the same tile over an int8 pool, csrc/attn_tile_i8.cuh) for bf16
-queries at ``CB > 1``; at ``CB == 1`` with bf16 queries the tile
+and G (query heads per KV head) alone: at ``CB > 1`` with bf16 queries
+the chunk tile (csrc/chunk_tile.cuh), ``"mma"`` over a bf16 pool and
+``"mma_int8"`` over an int8 one (at D 256 the 64-row tile of csrc/
+attn_tile_i8.cuh, unsplit); at ``CB == 1`` with bf16 queries the tile
 ``split_plan.decode_tile`` names: over a bf16 pool from ``G_TILE`` heads
 per KV head ``"group"`` (``paged_group``, csrc/group_tile.cuh: 16 to 64
 heads a block, its splits and then the fresh key folded by the merge in
 fp32, so the fresh V stays fp32), above ``GROUP_MAX_G`` the 64-row tile in
-decode form, and over an int8 pool above 8 heads ``"mma_int8"`` in
-decode form (64 heads a block, always merged); ``"lanes"`` (the lane
+decode form (the 64-row tile, csrc/attn_tile.cuh), and over an int8 pool
+above 8 heads ``"mma_int8"`` in decode form (the 64-row tile over int8
+tiles, csrc/attn_tile_i8.cuh: 64 heads a block, always merged);
+``"lanes"`` (the lane
 template) for fp32 and for ``CB == 1`` otherwise; and ``"lanes_int8"``,
 the lane template over an int8 pool, for fp32 queries at every ``CB``
 and bf16 queries at ``CB == 1`` and G <= 8.
@@ -35,21 +37,26 @@ terms, hi + lo, which carry it to 2^-16 relative (one bf16 rounding: 2^-8),
 the fresh keys' P included. At ``CB == 1`` (K3 over an int8 pool) the lanes
 compute what the reference's oracle ``paged_decode_attention(
 k_scale_layer=)`` computes; the Pallas K3 takes no scales.
-At ``CB == 1`` both templates split the bucketed read ``n_cols * bs``
-into ``S`` splits along the KV axis (flash-decoding, ``ops/split_plan.py``,
-from the shapes and the card's SM count) and a merge kernel folds them.
-K3 is the ``CB == 1`` launch, so an all-decode K4 call at ``CB == 1``
-takes the same plan and gives bit-identical outputs. A call the chosen
-instantiation cannot take raises ``KernelError``; no other instantiation
-is tried. The mma instantiation at ``CB > 1`` applies the fresh keys' P
+Every tile splits the bucketed read ``n_cols * bs`` into ``S`` splits
+along the KV axis (flash-decoding, ``ops/split_plan.py``, from host values
+only: the shapes, and at ``CB == 1`` the card's SM count) and a merge
+kernel folds them: at ``CB == 1`` ``split_merge`` (split lanes and every
+tile launch), at ``CB > 1`` ``chunk_merge`` when ``S > 1`` (the row's last
+live split folds the chunk's fresh keys; a row with one live split is
+finished by its block). K3 is the ``CB == 1`` launch, so an all-decode K4
+call at ``CB == 1`` takes the same plan and gives bit-identical outputs.
+A call the chosen instantiation cannot take raises ``KernelError``; no
+other instantiation is tried. The chunk tile applies the fresh keys' P
 rounded to bf16, like the cache's; at ``CB == 1`` the merge, and the lane
-template, apply fresh V in fp32. K4
-writes zeros for
-query rows past ``q_len`` that share no kernel tile with a live row (chunk
-padding nothing reads); the plain version computes every row, as the
-reference's oracle does, so the two agree on live rows. Both wrappers take
+template, apply fresh V in fp32. K4 writes zeros for query rows past
+``q_len`` on the chunk tile and the merge (chunk padding nothing reads;
+the lanes compute rows that share their tile with a live row); the plain
+version computes every row, as the reference's oracle does, so the two
+agree on live rows. Both wrappers take
 CUDA tensors only, launch on the current stream and count their launches
-(``paged_decode_attention.launches``, ``ragged_paged_attention.launches``).
+(``paged_decode_attention.launches``, ``ragged_paged_attention.launches``:
+one per call, the merge kernel a call launches after its split kernel not
+counted).
 The kernels read ``n_blocks`` (occupied table columns per row) from device
 memory and walk at most ``n_cols`` columns (the bucketed read).
 
@@ -132,23 +139,33 @@ def kernel_plan(dtype: torch.dtype, CB: int, G: int, D: int, *, B: int = 1,
                 Hkv: int = 1, n_slots: int = 0, bs: int = 16,
                 sms: int = sp.H100_SMS, max_splits: int = sp.MAX_SPLITS,
                 kv_dtype: torch.dtype | None = None,
-                force: str | None = None) -> sp.Plan:
+                force: str | None = None,
+                chunk_splits: int | None = None) -> sp.Plan:
     """How a K3 / K4 launch over ``B`` rows, ``Hkv`` KV heads and a read of
     ``n_slots`` slots (``n_cols * bs``) goes on a card of ``sms`` SMs:
-    at ``CB > 1`` the tensor-core tile (never split), ``"mma"`` over a
-    bf16 pool (``kv_dtype``, default ``dtype``) and ``"mma_int8"`` over an
-    int8 pool under bf16 queries; at ``CB == 1`` with bf16 queries the
-    tile ``sp.decode_tile`` names (``force``: one of ``sp.TEMPLATES``),
-    planned by ``sp.decode_tile_plan``; else the lane template (R <= 8 of the
+    at ``CB > 1`` the chunk tile, ``"mma"`` over a bf16 pool (``kv_dtype``,
+    default ``dtype``) and ``"mma_int8"`` over an int8 pool under bf16
+    queries, its read split by ``sp.chunk_plan`` (``chunk_splits``: aim at
+    that many splits), but over an int8 pool at D 256 the 64-row tile
+    unsplit; at ``CB == 1`` with bf16 queries the tile
+    ``sp.decode_tile`` names (``force``: one of ``sp.TEMPLATES``), planned
+    by ``sp.decode_tile_plan``; else the lane template (R <= 8 of the
     ``CB * G`` flat query rows per block): ``"lanes_int8"`` over an int8
-    pool, ``"lanes"`` otherwise; split along the KV axis (into at most
+    pool, ``"lanes"`` otherwise, split along the KV axis (into at most
     ``max_splits``) only at ``CB == 1``; and the shared memory one block
     needs, in bytes. K3 and an all-decode K4 take one plan."""
     kv_dtype = dtype if kv_dtype is None else kv_dtype
-    if kv_dtype == torch.bfloat16 and CB > 1:
-        return sp.Plan("mma", _build.tile_smem_bytes(D), 1, 0)
-    if kv_dtype == torch.int8 and dtype == torch.bfloat16 and CB > 1:
+    int8 = kv_dtype == torch.int8
+    if CB > 1 and int8 and dtype == torch.bfloat16 and D > 128:
+        # The 64-row tile, unsplit: faster than the chunk tile's int8 form
+        # at D 256 on the H100 (PERF.md).
         return sp.Plan("mma_int8", _build.tile_i8_smem_bytes(D), 1, 0)
+    if CB > 1 and (kv_dtype == torch.bfloat16
+                   or (int8 and dtype == torch.bfloat16)):
+        S, split = sp.chunk_plan(n_slots, bs, B=B, Hkv=Hkv, sms=sms,
+                                 max_splits=max_splits, splits=chunk_splits)
+        return sp.Plan("mma_int8" if int8 else "mma",
+                       _build.chunk_smem_bytes(D, int8), S, split)
     tile = sp.decode_tile(dtype, kv_dtype, G, force) if CB == 1 else None
     if tile is not None:
         return sp.decode_tile_plan(tile, B, Hkv, G, D, n_slots, bs, sms=sms,
@@ -166,11 +183,12 @@ def kernel_plan(dtype: torch.dtype, CB: int, G: int, D: int, *, B: int = 1,
 def _launch(name, q, k_pool, v_pool, k_new, v_new, q_pos, q_len, kv_pos,
             block_tables, n_blocks, slot0, layer, n_cols, scale, window,
             k_scale=None, v_scale=None, max_splits=sp.MAX_SPLITS,
-            force=None):
+            force=None, chunk_splits=None):
     """Check the envelope and launch the template; q_len None means K3.
     ``max_splits`` 1 launches the unsplit kernel (which chip_smoke.py times
-    beside the plan's); ``force`` puts a decode call on one template
-    (chip_smoke.py and kernel_ab.py time them side by side)."""
+    beside the plan's); ``force`` puts a decode call on one template and
+    ``chunk_splits`` a K4 call at CB > 1 on that many splits (chip_smoke.py
+    and kernel_ab.py time them side by side)."""
     tensors = [q, k_pool, v_pool, k_new, v_new, q_pos, kv_pos, block_tables,
                n_blocks, slot0] + ([q_len] if q_len is not None else [])
     if not all(t.is_cuda for t in tensors):
@@ -206,7 +224,8 @@ def _launch(name, q, k_pool, v_pool, k_new, v_new, q_pos, q_len, kv_pos,
     plan = kernel_plan(q.dtype, CB, Hq // Hkv, D, B=B, Hkv=Hkv,
                        n_slots=n_cols * bs, bs=bs,
                        sms=_build.sm_count(q.device), max_splits=max_splits,
-                       kv_dtype=k_pool.dtype, force=force)
+                       kv_dtype=k_pool.dtype, force=force,
+                       chunk_splits=chunk_splits)
     if plan.smem > _build.SMEM_LIMIT:
         raise _build.KernelError(
             f"{name}: the {plan.impl} instantiation at chunk {CB} needs "
@@ -229,9 +248,9 @@ def _launch(name, q, k_pool, v_pool, k_new, v_new, q_pos, q_len, kv_pos,
         if t.data_ptr() % 16:
             raise _build.KernelError(f"{name} needs 16-byte aligned tensors")
     out = torch.empty_like(qc)
-    ws = (torch.empty(sp.workspace_numel(B, Hq, plan.splits, D),
+    ws = (torch.empty(sp.workspace_numel(B, Hq, plan.splits, D, CB),
                       dtype=torch.float32, device=q.device)
-          if sp.merges(plan) else None)
+          if sp.merges(plan, CB) else None)
     lib = _build.load("paged_attention")
     code = lib.llmss_paged_attention(
         qc.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), kn.data_ptr(),
@@ -302,8 +321,8 @@ def ragged_paged_attention(
     v_scale: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Launch K4; returns [B, CB, Hq, D] (rows past q_len are finite
-    padding: zeros, or the reference's values where they share a tile with
-    live rows)."""
+    padding: zeros, or on the lanes the reference's values where they
+    share a tile with live rows)."""
     out = _launch("ragged_paged_attention (K4)", q, k_pool, v_pool, k_new,
                   v_new, q_pos, q_len, kv_pos, block_tables, n_blocks, slot0,
                   layer, n_cols, scale, window, k_scale, v_scale)

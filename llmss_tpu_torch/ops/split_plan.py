@@ -110,11 +110,25 @@ GROUP_MAX_CLUSTER = 8
 GROUP_SHORT_TILES = 8
 
 
+# K4 at CB > 1 (the chunk tile, csrc/chunk_tile.cuh) splits a row's read
+# into whole 64-slot tiles and table columns, at least CHUNK_SPLIT_SLOTS
+# slots a split and at most CHUNK_MAX_SPLITS splits, and only as far as its
+# (row, KV head) pairs, each walked by S blocks, cover the card's SMs once:
+# a split block pays ~5 us of set-up and a merge, which a grid of many
+# rows and heads does not win back (on the H100, kernel_ab.py --templates,
+# PERF.md: k4_serve_mixed, 256 pairs, 0.0554 ms unsplit against 0.0629 at
+# 4 splits; k4_ring_wrap, 96 pairs, 0.0536 at 2 against 0.0905 unsplit;
+# StarCoder's 8 pairs 0.0410 at 4 against 0.0635). The workspace holds
+# [B, CB, Hq, S, D + 2] fp32: at 4 splits and the serve shape (8 rows at
+# CB 128, 32 heads of 128) 68 MB, 3% of that phase's 2.1 GB pool.
+CHUNK_SPLIT_SLOTS = 256
+CHUNK_MAX_SPLITS = 4
+
+
 class Plan(NamedTuple):
     """How a K2 / K3 / K4 call launches: the instantiation, the shared
     memory one block of it needs (bytes), the number of splits along the
-    KV axis and the slots each split covers (0 for the tensor-core
-    instantiation at CB > 1, which does not split)."""
+    KV axis and the slots each split covers."""
 
     impl: str
     smem: int
@@ -237,12 +251,36 @@ def group_split(blocks: int, n_slots: int, smem: int, sms: int,
     return -(-n_slots // split), split
 
 
-def merges(plan: Plan) -> bool:
-    """Whether a decode launch of ``plan`` is followed by the merge kernel
-    (and needs its workspace): a split lane launch, and every decode
-    launch of the tiles."""
+def merges(plan: Plan, CB: int = 1) -> bool:
+    """Whether a launch of ``plan`` at chunk ``CB`` is followed by a merge
+    kernel (and needs its workspace): at CB > 1 a split one (chunk_merge);
+    at decode a split lane launch and every launch of the tiles
+    (split_merge)."""
+    if CB > 1:
+        return plan.splits > 1
     return (plan.splits > 1 or plan.impl == "group"
             or (plan.impl in TILE_IMPLS and plan.split_slots > 0))
+
+
+def chunk_plan(n_slots: int, bs: int, *, B: int = 1, Hkv: int = 1,
+               sms: int = H100_SMS, max_splits: int = MAX_SPLITS,
+               splits: int | None = None) -> tuple[int, int]:
+    """(S, split_slots) of K4 at CB > 1 (the chunk tile) for ``B`` rows,
+    ``Hkv`` KV heads and a bucketed read of ``n_slots`` slots per row at
+    block size ``bs`` on a card of ``sms`` SMs: ceil(sms / (B * Hkv))
+    splits, at most ``CHUNK_MAX_SPLITS``, ``max_splits`` (``max_splits=1``:
+    one) and one per ``CHUNK_SPLIT_SLOTS`` slots of the read, each split a
+    whole number of ``TILE_STEP``-slot tiles and table columns, the splits
+    covering the read. ``splits``: aim at that many instead (at most
+    ``MAX_SPLITS`` and the read's units), for forced launches. Host values
+    only: a bucket always launches one grid, whatever the rows hold."""
+    unit = TILE_STEP * bs // math.gcd(TILE_STEP, bs)
+    if splits is None:
+        splits = min(max_splits, CHUNK_MAX_SPLITS,
+                     -(-n_slots // CHUNK_SPLIT_SLOTS), -(-sms // (B * Hkv)))
+    want = max(1, min(splits, MAX_SPLITS, -(-n_slots // unit)))
+    split = max(unit, -(-(-(-n_slots // want)) // unit) * unit)
+    return max(1, -(-n_slots // split)), split
 
 
 def lane_impl(kv_dtype) -> str:
@@ -288,7 +326,8 @@ def split_plan(B: int, blocks_per_row: int, n_slots: int, bs: int = 1, *,
     return S, split
 
 
-def workspace_numel(B: int, Hq: int, S: int, D: int) -> int:
+def workspace_numel(B: int, Hq: int, S: int, D: int, CB: int = 1) -> int:
     """fp32 elements of the split kernels' partial states: acc
-    ``[B, Hq, S, D]``, then m and l ``[B, Hq, S]``."""
-    return B * Hq * S * (D + 2)
+    ``[B, CB, Hq, S, D]``, then m and l ``[B, CB, Hq, S]`` (``CB`` 1 at
+    decode)."""
+    return B * CB * Hq * S * (D + 2)

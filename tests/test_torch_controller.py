@@ -474,12 +474,36 @@ def test_admission_verdict_derives_retry_after_from_estimator():
 # -- the supervisor's drain guard and a retired worker's refunds ---------------------
 
 
-def _supervised(engine, wb, worker_id):
+class _HeldRegistry:
+    """A worker broker whose registry writes the test can hold: while the
+    test holds ``lock`` no other thread's publish lands (the supervisor's
+    heartbeat waits), so the entry it reads is the one its own calls left.
+    (The Redis form merges a registry entry by read, update and write, so
+    a heartbeat racing the drain guard's publish could drop its field.)
+    Everything else is the broker's own."""
+
+    def __init__(self, broker):
+        object.__setattr__(self, "_broker", broker)
+        object.__setattr__(self, "lock", threading.RLock())
+
+    def __getattr__(self, name):
+        return getattr(self._broker, name)
+
+    def __setattr__(self, name, value):
+        setattr(self._broker, name, value)
+
+    def publish_worker_load(self, worker_id, snapshot):
+        with self.lock:
+            self._broker.publish_worker_load(worker_id, snapshot)
+
+
+def _supervised(engine, wb, worker_id, heartbeat_s=0.05):
     def factory():
         return Worker(engine, wb, batch_size=2, poll_timeout_s=0.02,
-                      worker_id=worker_id)
+                      worker_id=worker_id,
+                      snapshot_interval_s=max(1.0, heartbeat_s))
 
-    sup = Supervisor(factory, wb, backoff_s=0.01, heartbeat_s=0.05)
+    sup = Supervisor(factory, wb, backoff_s=0.01, heartbeat_s=heartbeat_s)
     stop = threading.Event()
     t = threading.Thread(target=sup.run, args=(stop,), daemon=True)
     t.start()
@@ -500,12 +524,16 @@ def _wait_routable(prod, wid, timeout_s=10.0):
 @pytest.mark.parametrize("kind", BROKER_KINDS)
 def test_drain_guard_blocks_last_routable_until_forced(kind):
     prod, (wb,) = make_brokers(kind)
-    sup, t = _supervised(ScriptedEngine(), wb, "guard-zz")
+    wb = _HeldRegistry(wb)
+    # Heartbeats of 30 s: the entry stays routable however slowly a loaded
+    # machine runs the test (at 0.05 s it read stale after 0.15 s).
+    sup, t = _supervised(ScriptedEngine(), wb, "guard-zz", heartbeat_s=30.0)
     try:
         _wait_routable(prod, "guard-zz")
-        assert sup.drain(timeout_s=5.0) is False and not sup.draining
-        assert "last routable" in prod.read_workers()["guard-zz"][
-            "drain_blocked"]
+        with wb.lock:  # no heartbeat between the refusal and the read
+            assert sup.drain(timeout_s=5.0) is False and not sup.draining
+            assert "last routable" in prod.read_workers()["guard-zz"][
+                "drain_blocked"]
         assert sup.drain(timeout_s=5.0, force=True) is True
         t.join(timeout=20.0)
         assert not t.is_alive()

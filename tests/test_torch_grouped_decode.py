@@ -158,7 +158,10 @@ def test_k3_and_k4_share_the_decode_tile():
     assert "impl == 1 && tile16 && CB == 1)" in src
     assert "impl == 2 && tile8 && CB == 1)" in src
     assert "s.ql = a.qlen ? a.qlen[b] : 1;" in src
-    assert "if (!kDecode || err != cudaSuccess) return err;" in src
+    decode = src[src.index("cudaError_t launch_decode_mma("):]
+    decode = decode[:decode.index("\n}\n")]
+    assert "return launch_merge<__nv_bfloat16>(D, m, stream);" in decode
+    assert "a.S == 1" not in decode
     launch = inspect.getsource(pa._launch)
     assert ("plan = kernel_plan(q.dtype, CB, Hq // Hkv, D, B=B, Hkv=Hkv,\n"
             "                       n_slots=n_cols * bs, bs=bs,") in launch

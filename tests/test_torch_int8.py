@@ -730,9 +730,9 @@ def test_engine_kv_dtype_validation_and_reset(model):
 @pytest.mark.parametrize("D", pa.HEAD_DIMS)
 def test_int8_plan_takes_the_lane_template(CB, G, D):
     """Which int8 launches take the lane template. bf16 queries over an
-    int8 pool at CB > 1 take ``mma_int8`` (the tensor-core tile over int8
-    tiles, P x v_scale as two bf16 terms), unsplit, with the shared memory
-    of ``SmemI8`` under the limit. CB == 1 (K3, all-decode K4) and fp32
+    int8 pool at CB > 1 take ``mma_int8`` (the chunk tile over int8 tiles,
+    P x v_scale as two bf16 terms), split as a bf16 pool's chunk is, with
+    the shared memory of ``chunk::Smem<int8_t, D>`` under the limit. CB == 1 (K3, all-decode K4) and fp32
     queries at every CB take ``lanes_int8``, with the split of a pool of
     the query's dtype and the int8 ring's shared memory; K2 the same over
     an int8 ring."""
@@ -752,7 +752,12 @@ def test_int8_plan_takes_the_lane_template(CB, G, D):
         assert (p.splits, p.split_slots) == (p32.splits, p32.split_slots)
         assert p.smem - p32.smem == ring
     if CB > 1:
-        assert p8 == ("mma_int8", _build.tile_i8_smem_bytes(D), 1, 0)
+        p16 = pa.kernel_plan(torch.bfloat16, CB, G, D, **kw)
+        if D > 128:  # the 64-row tile over int8 tiles, unsplit
+            assert p8 == ("mma_int8", _build.tile_i8_smem_bytes(D), 1, 0)
+        else:
+            assert p8 == ("mma_int8", _build.chunk_smem_bytes(D, True),
+                          p16.splits, p16.split_slots)
         assert p8.smem <= _build.SMEM_LIMIT
     d8 = da.kernel_plan(torch.bfloat16, 4, 4 * G, 4, D, 192, kv_dtype=torch.int8)
     # The 16-bit lanes (a bf16 cache takes the group tile from G_TILE).

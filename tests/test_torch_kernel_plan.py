@@ -100,8 +100,9 @@ def _want_decode(dtype, kv_dtype, G, CB=1):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("G", [1, 4, 7, 8, 16, 48])
 def test_decode_plan_follows_the_head_group(G, dtype, kv, CB):
-    """K3 / K4 and, at CB == 1, K2: bf16 queries take the 64-row
-    tensor-core tile at CB > 1; at decode the group tile over a bf16 cache
+    """K3 / K4 and, at CB == 1, K2: bf16 queries take the chunk tile at
+    CB > 1 (its shared memory ``chunk_smem_bytes``, the read split by
+    ``chunk_plan`` and merged when split); at decode the group tile over a bf16 cache
     from G_TILE to GROUP_MAX_G query heads per KV head (``group_rows(G)``
     heads a block, split into whole 64-slot tiles at one block per SM,
     merged), the 64-row tile above, and over an int8 cache the 64-row
@@ -117,14 +118,20 @@ def test_decode_plan_follows_the_head_group(G, dtype, kv, CB):
     assert plan.smem <= _build.SMEM_LIMIT
     group = want == "group"
     tile = want in sp.TILE_IMPLS
-    if tile:
+    if tile and CB > 1:
+        assert plan.smem == _build.chunk_smem_bytes(128, kv == "int8")
+    elif tile:
         assert plan.smem == (_build.tile_i8_smem_bytes(128) if kv == "int8"
                              else _build.tile_smem_bytes(128))
     if group:
         rw = sp.group_warps(G)[0]
         assert plan.smem == _build.window_tile_smem_bytes(128, rw)
     if CB > 1:
-        assert plan.splits == 1 and (plan.split_slots == 0) == tile
+        if tile:
+            assert plan[2:] == sp.chunk_plan(832, 16, B=8, Hkv=Hkv)
+            assert plan.splits > 1 and sp.merges(plan, CB)
+        else:
+            assert plan.splits == 1 and not sp.merges(plan, CB)
         return
     if group:
         assert plan[2:] == sp.split_plan(

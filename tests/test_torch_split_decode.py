@@ -99,11 +99,12 @@ def _at_most_sixteen():
 
 
 def _only_decode_chunks_split():
-    # The lane template splits only at CB == 1; mma never does.
+    # The lane template splits only at CB == 1; at CB > 1 the chunk tile
+    # splits by its own plan (chunk_plan), not by split_plan's.
     assert pa.kernel_plan(torch.float32, 16, 2, 128, B=1, Hkv=1,
                           n_slots=4096).splits == 1
     assert pa.kernel_plan(BF16, 128, 1, 128, B=1, Hkv=1,
-                          n_slots=4096)[2:] == (1, 0)
+                          n_slots=4096)[2:] == sp.chunk_plan(4096, 16) == (4, 1024)
 
 
 PLAN_CASES = {
