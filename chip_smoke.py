@@ -23,7 +23,8 @@ exits non-zero without printing a result:
               and the gptj_6b / starcoder phases' shapes,
               with kernel, plain, bound and library
               (scaled_dot_product_attention, timed as a yardstick only)
-              times, the instantiation each case took ("mma": the
+              times, the instantiation each case took ("wgmma": K1's
+              Hopper tile, with its tile classes "tiles"; "mma": the
               tensor-core tile; "group": the group tile K2 / K3 take at
               2-16 query heads per KV head; "fma" / "lanes": the fp32
               and CB = 1 kernels) and, for K2 / K3, its split along the
@@ -451,7 +452,8 @@ def ptxas_entries(text: str) -> list[tuple[str, int, int]]:
     """(kernel, spill store bytes, registers) of every instantiation in
     ``nvcc -Xptxas=-v`` output: ptxas reports the entry's name, then its
     spills, then its registers."""
-    name = (r"(?:(?:flash|paged|decode|window)_(?:mma|fwd)|(?:decode|paged)_group"
+    name = (r"(?:(?:flash|paged|decode|window)_(?:w?gmma|mma|fwd)"
+            r"|(?:decode|paged)_group"
             r"|(?:split|window)_merge)")
     return [(k, int(sp), int(r)) for k, sp, r in re.findall(
         rf"entry function '\w*?({name}\w*?)EEEv\w*' for[^\n]*\n[^\n]*\n"
@@ -494,10 +496,16 @@ def int8_lane_conversions() -> tuple[dict, dict] | None:
 
 
 def mma_registers(text: str) -> list[dict]:
-    """The tensor-core instantiations' (the 64-row and the group tiles')
-    registers and spills."""
+    """The tensor-core instantiations' (K1's wgmma tile, the 64-row and
+    the group tiles') registers and spills."""
     return [{"kernel": k, "registers": r, "spill_store_bytes": sp}
-            for k, sp, r in ptxas_entries(text) if "_mma" in k or "_group" in k]
+            for k, sp, r in ptxas_entries(text)
+            if "_mma" in k or "_group" in k or "_wgmma" in k]
+
+
+# K1's wgmma tile at these head dims may not spill: its O (64 x D fp32 a
+# consumer warpgroup) and S fit the consumers' registers.
+WGMMA_NO_SPILL = re.compile(r"flash_wgmmaI\w+?Li(?:64|128)E")
 
 
 def phase_build() -> None:
@@ -514,6 +522,9 @@ def phase_build() -> None:
     conv, forms = int8_lane_conversions() or (None, None)
     if conv and any(conv.values()):
         raise AssertionError(f"int8 lane instantiations convert: {conv}")
+    spilled = [k for k, sp, _ in entries if sp and WGMMA_NO_SPILL.search(k)]
+    if spilled:
+        raise AssertionError(f"K1's wgmma tile spills at D <= 128: {spilled}")
     emit({"phase": "build", "seconds": round(secs, 3),
           "sources": sorted(out), "max_registers": max(regs, default=None),
           "kernels_with_spills": sum(1 for n in spills if n > 0),
@@ -918,6 +929,12 @@ def k1_cases() -> list[dict]:
                  dt=torch.float16),
         # A long prompt against itself: bound by operations, not bytes.
         _k1_case("k1_7b_long", 1, 2048, 2048, 32, 32, seed=6),
+        # The same at GQA (32 query heads on 8 KV heads: 4 flat rows a
+        # position), and four long prompts of 2048 / 1500 / 900 / 300
+        # right-padded to 2048 (padded slots at -1).
+        _k1_case("k1_7b_long_gqa", 1, 2048, 2048, 32, 8, seed=10),
+        _k1_case("k1_long_padded", 4, 2048, 2048, 32, 32,
+                 lens=[2048, 1500, 900, 300], seed=11),
         # GPT-J's head_dim: the largest instantiations (mma; fp32 fma).
         _k1_case("k1_d256", 2, 100, 160, 8, 8, lens=[100, 61], seed=4,
                  D=256),
@@ -1024,14 +1041,22 @@ def check_kernels() -> dict:
         if c["name"] in ("k1_engine_prefill", "k1_7b_padded",
                          "k1_gptj_prefill", "k1_starcoder_prefill",
                          "k1_engine_prefix_suffix"):
-            _main_path_impl("K1", row)
+            _main_path_impl("K1", row, "wgmma")
         if c["name"] in ("k1_engine_prefill", "k1_7b_padded", "k1_7b_long",
+                         "k1_7b_long_gqa", "k1_long_padded",
                          "k1_gptj_prefill", "k1_starcoder_prefill",
                          "k1_engine_prefix_suffix"):
             out.setdefault("vs_library", {})[c["name"]] = (
                 row["ms"], row["library_ms"])
         emit(row)
     out["K1"]["max_abs_err"] = worst
+    # A measurement: the wgmma tile at 128 and 64 rows a block, forced, at
+    # every bf16 / f16 K1 case, beside the plan's rows and its 128-row
+    # grid's blocks (fa.wgmma_rows takes 64 at <= half the SMs).
+    emit({"phase": "kernel", "check": "k1_forms", "cases": {
+        name: {k: v for k, v in row.items()
+               if k == "rows" or k.startswith(("rows_", "blocks_"))}
+        for name, row in out["cases"].items() if row.get("impl") == "wgmma"}})
 
     worst_of = {}
     for c in k2_cases():
@@ -1050,6 +1075,34 @@ def check_kernels() -> dict:
     # blocks): the plan keeps it whole.
     _main_path_split("K2", out["K2"], split=False)
     return out
+
+
+def _k1_plan(c):
+    """The K1 plan the case's call takes on this card."""
+    from llmss_tpu_torch.ops import _build
+    from llmss_tpu_torch.ops import flash_attention as fa
+
+    B, S, Hq, D = c["q"].shape
+    return fa.kernel_plan(c["q"].dtype, D, B=B, S=S, Hq=Hq,
+                          Hkv=c["k"].shape[2],
+                          sms=_build.sm_count(c["q"].device))
+
+
+def _k1_tiles(c, rows: int) -> dict | None:
+    """The wgmma tile's (query tile, KV tile) pairs of the case's grid at
+    ``rows`` flat rows a block by class (the producer's, from its Python
+    mirror ``tile_classes``), over every KV head; None for an fp32 case
+    (the fma kernel)."""
+    from llmss_tpu_torch.ops import flash_attention as fa
+
+    if c["q"].dtype == torch.float32:
+        return None
+    Hq, D = c["q"].shape[2:]
+    Hkv = c["k"].shape[2]
+    cls = fa.tile_classes(c["qp"], c["kvp"], Hq // Hkv, D, window=c["window"],
+                          rows=rows)
+    return {name: Hkv * int((cls == i).sum().item())
+            for i, name in enumerate(("skipped", "masked", "full"))}
 
 
 def _k1_row(c) -> tuple[dict, float]:
@@ -1077,8 +1130,10 @@ def _k1_row(c) -> tuple[dict, float]:
     nbytes = (2 * c["q"].numel() * es + 2 * live_slots * Hkv * D * es
               + c["qp"].numel() * 4 + c["kvp"].numel() * 4)
     b_ms, b_by = bound(nbytes, 4.0 * pairs * Hq * D, c["q"].dtype)
+    plan = _k1_plan(c)
     row = {"phase": "kernel", "kernel": "K1", "case": c["name"],
-           "impl": fa.kernel_plan(c["q"].dtype, D)[0],
+           "impl": plan.impl, "rows": plan.rows,
+           "tiles": _k1_tiles(c, plan.rows),
            "max_abs_err": err, "rel_tol": REL_TOL[c["q"].dtype],
            "err_over_tol": ratio,
            "ms": device_ms(lambda: fa.flash_attention(*args, **kw)),
@@ -1087,6 +1142,15 @@ def _k1_row(c) -> tuple[dict, float]:
            "library_ms": device_ms(
                lambda: _sdpa(c["q"], c["k"], c["v"], mask[:, None])),
            "bound_ms": b_ms, "bound_by": b_by}
+    if plan.impl == "wgmma":
+        # The wgmma tile at each of its row forms, forced and checked: the
+        # data fa.wgmma_rows was set from (the k1_forms line).
+        row["blocks_at_128"] = B * Hkv * -(-S * (Hq // Hkv) // 128)
+        for r in fa.WGMMA_ROWS:
+            fn = (lambda r=r: fa._launch(*args, window=c["window"], rows=r))
+            _agree("K1", f"{c['name']} at {r} rows", fn().float(), ref,
+                   ref_abs, c["q"].dtype)
+            row[f"rows_{r}_ms"] = device_ms(fn)
     return row, err
 
 
@@ -1781,6 +1845,13 @@ def _kernels_after(fn, syms, tries: int = 2) -> list[str]:
     raise AssertionError(f"{tries} profiles lost the record of {syms}")
 
 
+def k1_state_case() -> dict:
+    """K1's state-out case: the sp = 2 second rank's 64 queries of a
+    128-token prefill over its own 64-token ring block, right-padded."""
+    return _k1_case("k1_state_sp2_prefill", 4, 64, 64, 32, 32,
+                    lens=[n - 64 for n in ENGINE_LENS], q0=64, seed=41)
+
+
 def check_mesh_kernels(kernels: dict) -> None:
     """The sharded forward's kernels: K1 and K2 at the local heads of tp 2
     and 4, and their state-out forms at the sp = 2 shapes (K1: the second
@@ -1804,8 +1875,7 @@ def check_mesh_kernels(kernels: dict) -> None:
             emit(row)
         kernels[name]["max_abs_err"] = worst
 
-    c = _k1_case("k1_state_sp2_prefill", 4, 64, 64, 32, 32,
-                 lens=[n - 64 for n in ENGINE_LENS], q0=64, seed=41)
+    c = k1_state_case()
     args = (c["q"], c["k"], c["v"], c["qp"], c["kvp"])
     q32, k32, v32 = (x.float() for x in args[:3])
     got = fa.flash_attention_state(*args)
@@ -1814,6 +1884,12 @@ def check_mesh_kernels(kernels: dict) -> None:
                                            c["kvp"])
     err = _state_agree("K1_state", c["name"], got, ref, ref_abs,
                        c["q"].dtype)
+    forms = {}
+    for r in fa.WGMMA_ROWS:  # each form of the wgmma tile, forced
+        fn = (lambda r=r: fa._launch_state(*args, rows=r))
+        _state_agree("K1_state", f"{c['name']} at {r} rows", fn(), ref,
+                     ref_abs, c["q"].dtype)
+        forms[f"rows_{r}_ms"] = device_ms(fn)
     B, S, Hq, D = c["q"].shape
     mask = att.make_causal_mask(c["qp"], c["kvp"], c["kvp"] >= 0)
     live = int((c["kvp"] >= 0).sum().item())
@@ -1822,8 +1898,11 @@ def check_mesh_kernels(kernels: dict) -> None:
                                             + c["kvp"].numel()) * 4)
     b_ms, b_by = bound(nbytes, 4.0 * int(mask.sum().item()) * Hq * D,
                        c["q"].dtype)
+    plan = _k1_plan(c)
     row = {"phase": "kernel", "kernel": "K1_state", "case": c["name"],
-           "impl": fa.kernel_plan(c["q"].dtype, D)[0], "max_abs_err": err,
+           "impl": plan.impl, "rows": plan.rows,
+           "tiles": _k1_tiles(c, plan.rows),
+           "max_abs_err": err,
            "rel_tol": REL_TOL[c["q"].dtype],
            "ms": device_ms(lambda: fa.flash_attention_state(*args)),
            "plain_ms": profiled_ms(lambda: fa.flash_attention_state_ref(
@@ -1831,7 +1910,7 @@ def check_mesh_kernels(kernels: dict) -> None:
            "library_ms": device_ms(lambda: _sdpa(c["q"], c["k"], c["v"],
                                                  mask[:, None])),
            "library": "scaled_dot_product_attention (output, no state)",
-           "bound_ms": b_ms, "bound_by": b_by}
+           "bound_ms": b_ms, "bound_by": b_by, **forms}
     kernels["K1_state"] = row
     kernels["cases"][c["name"]] = row
     emit(row)

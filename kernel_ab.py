@@ -5,6 +5,7 @@ events).
 
     python3 kernel_ab.py [--tree DIR] [--label NAME] [--kernels K1,K2,K3,K4]
                          [--registers] [--k2w-forms] [--templates]
+                         [--k1-forms]
 
 (default: those four, the int8-cache cases K2_int8,K3_int8,K4_int8 and
 K2w, the speculative verify window's cases; ``--registers``: build with
@@ -18,7 +19,9 @@ and the group tile at 1, 2, 4, 8 and 16 forced splits folded by the merge:
 the data G_TILE and the group tile's plan were set from; and K4's bf16-
 query cases on the chunk tile at 1, 2, 4 and 8 forced splits, the data
 its split plan was set from; the cases of the kernels ``--kernels`` names;
-a tree with the chunk tile only)
+a tree with the chunk tile only; ``--k1-forms``: time instead each bf16 /
+f16 K1 case on the wgmma tile at 128 and 64 rows a block, forced, the
+data ``flash_attention.wgmma_rows`` was set from)
 
 The cases include K2 and K3 at StarCoder's G = 48 (bf16 and int8), Qwen2-
 7B's G = 7, SantaCoder's G = 16 and G = 8, so a tree's decode templates
@@ -55,7 +58,10 @@ def _scales(c):
 
 
 def digest(out) -> str:
-    """sha256 of a kernel output's bytes."""
+    """sha256 of a kernel output's bytes (of a state-out form's m, l and
+    acc, in that order)."""
+    if isinstance(out, tuple):
+        out = torch.cat([t.reshape(-1) for t in out])
     raw = out.contiguous().view(-1).view(torch.uint8).cpu().numpy()
     return hashlib.sha256(raw.tobytes()).hexdigest()
 
@@ -70,6 +76,10 @@ def _cases(cs, da, fa, pa, kernels):
             yield "K1", c["name"], (
                 lambda c=c: fa.flash_attention(c["q"], c["k"], c["v"], c["qp"],
                                                c["kvp"], window=c["window"])), 20
+        c = cs.k1_state_case()
+        yield "K1_state", c["name"], (
+            lambda c=c: fa.flash_attention_state(c["q"], c["k"], c["v"],
+                                                 c["qp"], c["kvp"])), 20
     wanted = {"K2", "K2_int8"} & set(kernels)
     for c in cs.k2_cases("K2_int8" in kernels) if wanted else ():
         if c["row"] in kernels:
@@ -179,6 +189,9 @@ def main() -> int:
     ap.add_argument("--k2w-forms", action="store_true",
                     help="time the bf16 K2w cases at forced split counts and "
                          "folds")
+    ap.add_argument("--k1-forms", action="store_true",
+                    help="time the bf16 / f16 K1 cases at 128 and 64 rows a "
+                         "block, forced")
     ap.add_argument("--templates", action="store_true",
                     help="time K2 / K3 at the G_TILE cases on each decode "
                          "template and the group tile at capped split "
@@ -224,6 +237,23 @@ def main() -> int:
                             *args_, t_len=c["t_len"], splits=n, cluster=clu),
                         iters=50)
             cs.emit({"phase": "k2w_forms", **tag, "case": c["name"], **row})
+        return 0
+    if args.k1_forms:
+        for c in cs.k1_cases():
+            if c["q"].dtype == torch.float32:
+                continue
+            B, S, Hq, D = c["q"].shape
+            Hkv = c["k"].shape[2]
+            row = {"plan_rows": fa.wgmma_rows(B, S, Hq // Hkv, Hkv,
+                                              _build.sm_count(c["q"].device)),
+                   "blocks_at_128": B * Hkv * -(-S * (Hq // Hkv) // 128)}
+            for r in fa.WGMMA_ROWS:
+                fn = (lambda r=r: fa._launch(c["q"], c["k"], c["v"], c["qp"],
+                                             c["kvp"], window=c["window"],
+                                             rows=r))
+                row[f"rows_{r}_ms"] = cs.device_ms(fn)
+                row[f"rows_{r}_digest"] = digest(fn())
+            cs.emit({"phase": "k1_forms", **tag, "case": c["name"], **row})
         return 0
     if args.templates:
         _templates(cs, da, pa, tag, args.kernels.split(","))

@@ -77,9 +77,10 @@ SAMPLING_VARIANTS = ((False, False), (True, False), (True, True))
 # ``decode_group`` / ``paged_group`` the group tile K2 / K3 take from
 # G_TILE query heads per KV head (its own symbols: a ``window_mma`` node
 # is K2w's); ``paged_fwd`` / ``decode_fwd`` the lane templates over either
-# cache.
+# cache; ``flash_wgmma`` / ``flash_fwd`` K1's bf16 / f16 tile (at 64 or
+# 128 rows a block) and its fp32 kernel.
 KERNEL_SYMBOLS = {
-    "flash_attention": ("flash_fwd", "flash_mma"),
+    "flash_attention": ("flash_fwd", "flash_wgmma"),
     "decode_attention": ("decode_fwd", "decode_mma", "decode_group"),
     "decode_window_attention": ("window_fwd", "window_mma"),
     "paged_decode_attention": ("paged_fwd", "paged_mma", "paged_group"),

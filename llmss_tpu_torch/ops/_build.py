@@ -40,9 +40,9 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2,
                torch.int8: 3}
 # instantiation codes of the entry points' ``impl`` argument (the lane
 # template's int8 instantiation is chosen by the cache's dtype code; the
-# group tile's is K2's and K3's)
+# group tile's is K2's and K3's, the wgmma tile's K1's)
 IMPL_CODES = {"lanes": 0, "lanes_int8": 0, "fma": 0, "mma": 1, "mma_int8": 2,
-              "group": 3}
+              "group": 3, "wgmma": 4}
 # q / fresh KV dtypes an int8 cache's kernels take
 INT8_QUERY_DTYPES = (torch.float32, torch.bfloat16)
 SMEM_LIMIT = 232448  # bytes of shared memory one block may use on the H100
@@ -194,13 +194,13 @@ def build_all(*, verbose: bool = False) -> tuple[float, dict[str, str]]:
 
 
 # The state-out entry points (K1's and K2's kState forms) and their
-# parameters: q k v ws qpos kvpos strides | B S T Hq Hkv D dtype impl |
-# scale window stream (ws in the place of out); q kc vc qpos kvpos slots
+# parameters: q k v ws qpos kvpos strides | B S T Hq Hkv D dtype impl
+# rows | scale window stream (ws in the place of out); q kc vc qpos kvpos slots
 # ws st | layer B T t_len Hq Hkv D GB S split dtype | scale window stream
 # | impl.
 _STATE_ENTRIES = {
     "flash_attention": ("llmss_flash_attention_state",
-                        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
+                        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9
                         + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]),
     "decode_attention": ("llmss_decode_attention_state",
                          [ctypes.c_void_p] * 8 + [ctypes.c_int] * 11
@@ -218,9 +218,9 @@ def _declare(lib: ctypes.CDLL, name: str) -> None:
             st.argtypes, st.restype = args, ctypes.c_int
     if name == "flash_attention":
         fn = lib.llmss_flash_attention
-        # q k v out qpos kvpos strides | B S T Hq Hkv D dtype impl | scale
-        # window stream
-        fn.argtypes = [P] * 7 + [I] * 8 + [F, I, P]
+        # q k v out qpos kvpos strides | B S T Hq Hkv D dtype impl rows |
+        # scale window stream
+        fn.argtypes = [P] * 7 + [I] * 9 + [F, I, P]
     elif name == "decode_attention":
         fn = lib.llmss_decode_attention
         # q kc vc kn vn out qpos kvpos slots ws | layer B T t_len Hq Hkv D GB

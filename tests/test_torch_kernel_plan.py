@@ -51,7 +51,7 @@ NEG = float(torch.finfo(torch.float32).min)
 
 
 @pytest.mark.parametrize("dtype, want", [
-    (torch.bfloat16, "mma"), (torch.float16, "mma"), (torch.float32, "fma"),
+    (torch.bfloat16, "wgmma"), (torch.float16, "wgmma"), (torch.float32, "fma"),
 ])
 @pytest.mark.parametrize("D", fa.HEAD_DIMS)
 def test_k1_plan_follows_the_dtype(dtype, want, D):
@@ -377,17 +377,18 @@ def _k1_views(width):
 
 
 def test_k1_mma_refuses_rows_not_16_byte_aligned():
-    """A stride that is not a multiple of 8 elements cannot feed cp.async's
-    16-byte copies: the mma instantiation raises, the plan does not switch
-    to the fma kernel, and fp32 (fma) takes the same strides."""
+    """A stride that is not a multiple of 8 elements cannot feed the wgmma
+    tile's 16-byte rows (its TMA maps and Q loads): the wgmma
+    instantiation raises, the plan does not switch to the fma kernel, and
+    fp32 (fma, 4-element rows) takes the same strides."""
     q = _k1_views(68)  # head stride 68, seq stride 136
     out = torch.empty(1, 16, 2, 64)
-    assert fa.kernel_plan(torch.bfloat16, 64)[0] == "mma"
+    assert fa.kernel_plan(torch.bfloat16, 64)[0] == "wgmma"
     with pytest.raises(_build.KernelError, match="multiples of 8"):
-        fa.launch_strides(q, q, q, out, "mma")
+        fa.launch_strides(q, q, q, out, "wgmma")
     assert fa.launch_strides(q, q, q, out, "fma")[:3] == (2176, 136, 68)
     ok = _k1_views(72)
-    assert fa.launch_strides(ok, ok, ok, out, "mma")[:3] == (2304, 144, 72)
+    assert fa.launch_strides(ok, ok, ok, out, "wgmma")[:3] == (2304, 144, 72)
 
 
 # -- sources ------------------------------------------------------------------
